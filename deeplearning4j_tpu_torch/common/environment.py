@@ -9,8 +9,9 @@ environment variables.
 Env vars read here: ``DL4J_TORCH_TELEMETRY`` (metrics and spans,
 default on), ``DL4J_TORCH_RETRACE_WARN`` (warn once past this many
 distinct served shapes, default 5). Read live by their subsystems:
-``DL4J_TORCH_FUSED_CONV`` (the conv-epilogue kernel gate, see
-``ops/kernel_select.py``) and ``DL4J_TORCH_HTTP_HOST`` (the serving
+``DL4J_TORCH_FUSED_CONV`` (the conv-epilogue and training-BN forward
+kernel gate), ``DL4J_TORCH_FUSED_BN_BWD`` (the BN backward kernel gate;
+both in ``ops/kernel_select.py``) and ``DL4J_TORCH_HTTP_HOST`` (the serving
 bind interface, default 127.0.0.1).
 
 :func:`resolve_device` is the one place the port's entry points turn

@@ -24,10 +24,16 @@
 // contraction), then relu as `y < 0 ? 0 : y`, which propagates NaN as
 // jnp.maximum does (fmaxf would turn NaN into 0). bf16 and f16 convert
 // to f32 on load and round to nearest even on store.
+//
+// The training half of the file (dl4j_epilogue_backward,
+// dl4j_channel_sums, at the end) holds the two reductions of the family;
+// column_reduce.cuh says how they sum.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "column_reduce.cuh"
 
 namespace {
 
@@ -225,4 +231,202 @@ extern "C" int dl4j_scale_shift_act(const void* x, void* y, const void* scale,
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+// ===========================================================================
+// Training: the epilogue's backward and the channel statistics.
+// ===========================================================================
+//
+// epilogue_backward replaces deeplearning4j_tpu/ops/conv_pallas.py:
+// _epilogue_bwd_kernel (launched by _epilogue_backward; the backward of
+// scale_shift_act). One pass over x and dy gives
+//   g  = relu ? (x*s + b > 0 ? dy : 0) : dy      (the forward's rounding)
+//   dx = g * s                                   (elementwise, x's dtype)
+//   sums[0] = sum_rows g        (dshift)
+//   sums[1] = sum_rows g * x    (dscale; the product is not masked, so a
+//                                NaN x gives a NaN sum as in the JAX code)
+// channel_sums replaces conv_pallas.py:_stats_kernel (launched by
+// _channel_sums; the statistics of training BatchNormalization):
+//   sums[0] = sum_rows x, sums[1] = sum_rows x * x.
+//
+// Bound: bytes. channel_sums reads x once (4 bytes an element in f32);
+// epilogue_backward reads x and dy and writes dx (12 bytes in f32) for
+// about six operations an element, far below the card's f32 rate. Both
+// read with 16-byte vectors where C and the pointers allow it, and dx is
+// written in the same pass, so the backward never re-reads its inputs.
+// dx is bitwise equal to the plain version; the sums are deterministic
+// and agree with the plain version to rounding (column_reduce.cuh).
+namespace {
+
+template <typename T, int VEC>
+struct StatsOp {
+  const T* x;
+  int64_t C;
+  __device__ __forceinline__ void begin(int64_t) {}
+  __device__ __forceinline__ void row(int64_t r, int64_t c0,
+                                      float (&s0)[VEC],
+                                      float (&s1)[VEC]) const {
+    float xv[VEC];
+    dl4j::load_vec<T, VEC>(x + r * C + c0, xv);
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) {
+      s0[v] = __fadd_rn(s0[v], xv[v]);
+      s1[v] = __fadd_rn(s1[v], __fmul_rn(xv[v], xv[v]));
+    }
+  }
+};
+
+template <typename T, int VEC, bool RELU>
+struct EpilogueBwdOp {
+  const T* x;
+  const T* dy;
+  T* dx;
+  const float* scale;
+  const float* shift;
+  int64_t C;
+  float s[VEC], b[VEC];
+  __device__ __forceinline__ void begin(int64_t c0) {
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) {
+      s[v] = __ldg(scale + c0 + v);
+      b[v] = __ldg(shift + c0 + v);
+    }
+  }
+  __device__ __forceinline__ void row(int64_t r, int64_t c0,
+                                      float (&s0)[VEC],
+                                      float (&s1)[VEC]) const {
+    const int64_t off = r * C + c0;
+    float xv[VEC], dv[VEC], out[VEC];
+    dl4j::load_vec<T, VEC>(x + off, xv);
+    dl4j::load_vec<T, VEC>(dy + off, dv);
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) {
+      float g = dv[v];
+      if (RELU) {
+        const float z = __fadd_rn(__fmul_rn(xv[v], s[v]), b[v]);
+        g = z > 0.f ? g : 0.f;
+      }
+      out[v] = __fmul_rn(g, s[v]);
+      s0[v] = __fadd_rn(s0[v], g);
+      s1[v] = __fadd_rn(s1[v], __fmul_rn(g, xv[v]));
+    }
+    dl4j::store_vec<T, VEC>(dx + off, out);
+  }
+};
+
+template <typename T>
+int channel_sums_typed(const void* x, float* partials, int64_t capacity,
+                       float* sums, int64_t M, int64_t C,
+                       cudaStream_t stream) {
+  const dl4j::ColumnGeom g =
+      dl4j::column_geom(M, C, sizeof(T), dl4j::aligned16(x));
+  if (g.chunks > capacity) return (int)cudaErrorInvalidValue;
+  constexpr int kFull = 16 / sizeof(T);
+  const T* xt = static_cast<const T*>(x);
+  if (g.vec == kFull)
+    return dl4j::launch_column_sums<kFull>(StatsOp<T, kFull>{xt, C}, g,
+                                           partials, sums, M, C, stream);
+  return dl4j::launch_column_sums<1>(StatsOp<T, 1>{xt, C}, g, partials,
+                                     sums, M, C, stream);
+}
+
+template <typename T, int VEC, bool RELU>
+int epilogue_bwd_launch(const void* x, const void* dy, void* dx,
+                        const float* scale, const float* shift,
+                        const dl4j::ColumnGeom& g, float* partials,
+                        float* sums, int64_t M, int64_t C,
+                        cudaStream_t stream) {
+  EpilogueBwdOp<T, VEC, RELU> op{static_cast<const T*>(x),
+                                 static_cast<const T*>(dy),
+                                 static_cast<T*>(dx), scale, shift, C,
+                                 {}, {}};
+  return dl4j::launch_column_sums<VEC>(op, g, partials, sums, M, C, stream);
+}
+
+template <typename T>
+int epilogue_bwd_typed(const void* x, const void* dy, void* dx,
+                       const float* scale, const float* shift,
+                       float* partials, int64_t capacity, float* sums,
+                       int64_t M, int64_t C, bool relu,
+                       cudaStream_t stream) {
+  const bool aligned = dl4j::aligned16(x) && dl4j::aligned16(dy) &&
+                       dl4j::aligned16(dx);
+  const dl4j::ColumnGeom g = dl4j::column_geom(M, C, sizeof(T), aligned);
+  if (g.chunks > capacity) return (int)cudaErrorInvalidValue;
+  constexpr int kFull = 16 / sizeof(T);
+  if (g.vec == kFull) {
+    return relu ? epilogue_bwd_launch<T, kFull, true>(
+                      x, dy, dx, scale, shift, g, partials, sums, M, C,
+                      stream)
+                : epilogue_bwd_launch<T, kFull, false>(
+                      x, dy, dx, scale, shift, g, partials, sums, M, C,
+                      stream);
+  }
+  return relu ? epilogue_bwd_launch<T, 1, true>(x, dy, dx, scale, shift, g,
+                                                partials, sums, M, C, stream)
+              : epilogue_bwd_launch<T, 1, false>(x, dy, dx, scale, shift, g,
+                                                 partials, sums, M, C,
+                                                 stream);
+}
+
+int elem_bytes(int dtype) { return dtype == 0 ? 4 : 2; }
+
+}  // namespace
+
+// Rows of the [chunks, 2, C] f32 workspace that dl4j_epilogue_backward and
+// dl4j_channel_sums need for an [M, C] input of `dtype` (0 = float32,
+// 1 = bfloat16, 2 = float16).
+extern "C" int64_t dl4j_conv_epilogue_chunks(int64_t M, int64_t C,
+                                             int dtype) {
+  if (M <= 0 || C <= 0) return 1;
+  return dl4j::column_geom(M, C, elem_bytes(dtype), true).chunks;
+}
+
+// dx = g * scale and sums[2, C] = (sum g, sum g * x) with
+// g = relu ? (x * scale + shift > 0 ? dy : 0) : dy. x, dy, dx: [M, C] of
+// `dtype`; scale, shift: f32 [C]; partials: f32 [capacity, 2, C]
+// workspace; sums: f32 [2, C]. Launches two kernels on `stream`, does not
+// synchronise and allocates nothing. Returns the cudaError_t (0 on
+// success).
+extern "C" int dl4j_epilogue_backward(const void* x, const void* dy,
+                                      void* dx, const void* scale,
+                                      const void* shift, void* partials,
+                                      int64_t capacity, void* sums,
+                                      int64_t M, int64_t C, int dtype,
+                                      int relu, void* stream) {
+  if (M <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* sc = static_cast<const float*>(scale);
+  const float* sh = static_cast<const float*>(shift);
+  float* pt = static_cast<float*>(partials);
+  float* out = static_cast<float*>(sums);
+  if (dtype == 0)
+    return epilogue_bwd_typed<float>(x, dy, dx, sc, sh, pt, capacity, out,
+                                     M, C, relu != 0, s);
+  if (dtype == 1)
+    return epilogue_bwd_typed<__nv_bfloat16>(x, dy, dx, sc, sh, pt,
+                                             capacity, out, M, C, relu != 0,
+                                             s);
+  if (dtype == 2)
+    return epilogue_bwd_typed<__half>(x, dy, dx, sc, sh, pt, capacity, out,
+                                      M, C, relu != 0, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// sums[2, C] = (sum x, sum x * x) over the M rows of x [M, C] of `dtype`;
+// partials as for dl4j_epilogue_backward.
+extern "C" int dl4j_channel_sums(const void* x, void* partials,
+                                 int64_t capacity, void* sums, int64_t M,
+                                 int64_t C, int dtype, void* stream) {
+  if (M <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* pt = static_cast<float*>(partials);
+  float* out = static_cast<float*>(sums);
+  if (dtype == 0)
+    return channel_sums_typed<float>(x, pt, capacity, out, M, C, s);
+  if (dtype == 1)
+    return channel_sums_typed<__nv_bfloat16>(x, pt, capacity, out, M, C, s);
+  if (dtype == 2)
+    return channel_sums_typed<__half>(x, pt, capacity, out, M, C, s);
+  return (int)cudaErrorInvalidValue;
 }

@@ -1,24 +1,65 @@
-"""Updater configurations, carried as data.
+"""Updaters (optimizers): configuration and update math.
 
-Counterpart of the configuration half of
-``deeplearning4j_tpu/learning/updaters.py``: an updater is its class
-name and hyperparameters, and round-trips through ``configuration.json``
-exactly as the JAX package writes it (``{"@class": "Nesterovs",
-"learning_rate": 0.1, "momentum": 0.9}``). The update math comes with
-training; until then nothing here computes.
+Counterpart of ``deeplearning4j_tpu/learning/updaters.py``. An updater
+is its class name and hyperparameters, and round-trips through
+``configuration.json`` exactly as the JAX package writes it
+(``{"@class": "Nesterovs", "learning_rate": 0.1, "momentum": 0.9}``,
+every field present, in the JAX package's field order).
+
+The math is the JAX package's, over one layer's ``{name: tensor}``
+gradients: ``init_state(params)`` gives the slots (``{"v": {name:
+zeros}}`` for Nesterovs, ``{"m": ..., "v": ...}`` for Adam, ``{}`` for
+Sgd and NoOp), and ``apply(grads, state, iteration)`` returns
+``(updates, new_state)`` with the updates to be **subtracted** from the
+parameters. Adam-family bias corrections use ``t = iteration + 1``.
+Learning-rate schedules are not ported yet: a schedule map in place of
+a number raises when the updater applies.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+import math
+from typing import Any, Callable, Dict, Tuple
+
+import torch
+
+_Tree = Dict[str, torch.Tensor]
+
+_ADAM_LIKE = {"learning_rate": 1e-3, "beta1": 0.9, "beta2": 0.999,
+              "epsilon": 1e-8}
+#: class name -> hyperparameters with their defaults, in field order
+DEFAULTS: Dict[str, Dict[str, Any]] = {
+    "NoOp": {},
+    "Sgd": {"learning_rate": 1e-3},
+    "Nesterovs": {"learning_rate": 0.1, "momentum": 0.9},
+    "Adam": dict(_ADAM_LIKE),
+    "AdaMax": dict(_ADAM_LIKE),
+    "Nadam": dict(_ADAM_LIKE),
+    "AMSGrad": dict(_ADAM_LIKE),
+    "AdaGrad": {"learning_rate": 1e-1, "epsilon": 1e-6},
+    "AdaDelta": {"rho": 0.95, "epsilon": 1e-6, "learning_rate": 1.0},
+    "RmsProp": {"learning_rate": 1e-3, "rms_decay": 0.95, "epsilon": 1e-8},
+}
+#: class name -> its state slots
+SLOTS = {"NoOp": (), "Sgd": (), "Nesterovs": ("v",), "Adam": ("m", "v"),
+         "AdaMax": ("m", "u"), "Nadam": ("m", "v"),
+         "AMSGrad": ("m", "v", "vmax"), "AdaGrad": ("G",),
+         "AdaDelta": ("Eg", "Edx"), "RmsProp": ("Eg",)}
 
 
 class IUpdater:
-    """An updater configuration: ``kind`` (the ``@class`` name) and its
-    hyperparameters, in the JAX package's field order."""
+    """An updater: ``kind`` (the ``@class`` name) and its
+    hyperparameters, defaults filled in."""
 
     def __init__(self, kind: str, **hyper: Any):
+        if kind not in DEFAULTS:
+            raise ValueError(f"unknown updater {kind!r} (one of "
+                             f"{sorted(DEFAULTS)})")
+        unknown = set(hyper) - set(DEFAULTS[kind])
+        if unknown:
+            raise TypeError(f"{kind} has no hyperparameters "
+                            f"{sorted(unknown)}")
         self.kind = kind
-        self.hyper: Dict[str, Any] = dict(hyper)
+        self.hyper: Dict[str, Any] = {**DEFAULTS[kind], **hyper}
 
     def to_map(self) -> dict:
         return {"@class": self.kind, **self.hyper}
@@ -32,13 +73,150 @@ class IUpdater:
         args = ", ".join(f"{k}={v!r}" for k, v in self.hyper.items())
         return f"{self.kind}({args})"
 
+    # -- math ------------------------------------------------------------
+    def lr(self) -> float:
+        lr = self.hyper.get("learning_rate")
+        if not isinstance(lr, (int, float)):
+            raise NotImplementedError(
+                f"{self.kind}: learning-rate schedules are not ported yet "
+                f"(got {lr!r})")
+        return float(lr)
 
-def Sgd(learning_rate: float = 1e-3) -> IUpdater:  # noqa: N802
-    return IUpdater("Sgd", learning_rate=learning_rate)
+    def init_state(self, params: _Tree) -> Dict[str, _Tree]:
+        return {slot: {n: torch.zeros_like(p) for n, p in params.items()}
+                for slot in SLOTS[self.kind]}
+
+    def apply(self, grads: _Tree, state: Dict[str, _Tree], iteration: int
+              ) -> Tuple[_Tree, Dict[str, _Tree]]:
+        """``(updates_to_subtract, new_state)`` for one layer."""
+        return _MATH[self.kind](self, grads, state, iteration)
 
 
-def Nesterovs(learning_rate: float = 0.1,  # noqa: N802
-              momentum: float = 0.9) -> IUpdater:
-    return IUpdater("Nesterovs", learning_rate=learning_rate,
-                    momentum=momentum)
+def _tmap(fn: Callable, *trees: _Tree) -> _Tree:
+    return {n: fn(*(t[n] for t in trees)) for n in trees[0]}
 
+
+def _noop(u, grads, state, it):
+    return _tmap(torch.zeros_like, grads), state
+
+
+def _sgd(u, grads, state, it):
+    lr = u.lr()
+    return _tmap(lambda g: lr * g, grads), state
+
+
+def _nesterovs(u, grads, state, it):
+    # v' = mu*v - lr*g; update = lr*g - mu*v' (the reference's
+    # params += mu*v' - lr*g, as a quantity to subtract)
+    lr, mu = u.lr(), u.hyper["momentum"]
+    v = _tmap(lambda v_, g: mu * v_ - lr * g, state["v"], grads)
+    return _tmap(lambda vn, g: lr * g - mu * vn, v, grads), {"v": v}
+
+
+def _bias_corrections(u, it):
+    t = float(it) + 1.0
+    return 1.0 - u.hyper["beta1"] ** t, 1.0 - u.hyper["beta2"] ** t
+
+
+def _moments(u, grads, state):
+    b1, b2 = u.hyper["beta1"], u.hyper["beta2"]
+    m = _tmap(lambda m_, g: b1 * m_ + (1 - b1) * g, state["m"], grads)
+    v = _tmap(lambda v_, g: b2 * v_ + (1 - b2) * g * g, state["v"], grads)
+    return m, v
+
+
+def _adam(u, grads, state, it):
+    lr, eps = u.lr(), u.hyper["epsilon"]
+    m, v = _moments(u, grads, state)
+    bc1, bc2 = _bias_corrections(u, it)
+    upd = _tmap(lambda m_, v_: lr * (m_ / bc1) /
+                (torch.sqrt(v_ / bc2) + eps), m, v)
+    return upd, {"m": m, "v": v}
+
+
+def _adamax(u, grads, state, it):
+    lr, eps = u.lr(), u.hyper["epsilon"]
+    b1, b2 = u.hyper["beta1"], u.hyper["beta2"]
+    m = _tmap(lambda m_, g: b1 * m_ + (1 - b1) * g, state["m"], grads)
+    uu = _tmap(lambda u_, g: torch.maximum(b2 * u_, torch.abs(g)),
+               state["u"], grads)
+    bc1, _ = _bias_corrections(u, it)
+    upd = _tmap(lambda m_, u_: lr * m_ / (bc1 * (u_ + eps)), m, uu)
+    return upd, {"m": m, "u": uu}
+
+
+def _nadam(u, grads, state, it):
+    lr, eps, b1 = u.lr(), u.hyper["epsilon"], u.hyper["beta1"]
+    m, v = _moments(u, grads, state)
+    bc1, bc2 = _bias_corrections(u, it)
+    upd = _tmap(lambda m_, v_, g: lr / (torch.sqrt(v_ / bc2) + eps) *
+                (b1 * m_ / bc1 + (1 - b1) * g / bc1), m, v, grads)
+    return upd, {"m": m, "v": v}
+
+
+def _amsgrad(u, grads, state, it):
+    lr, eps = u.lr(), u.hyper["epsilon"]
+    m, v = _moments(u, grads, state)
+    vmax = _tmap(torch.maximum, state["vmax"], v)
+    bc1, bc2 = _bias_corrections(u, it)
+    # reference AMSGradUpdater: alpha_t = lr*sqrt(1-b2^t)/(1-b1^t)
+    alpha_t = lr * math.sqrt(bc2) / bc1
+    upd = _tmap(lambda m_, vm: alpha_t * m_ / (torch.sqrt(vm) + eps),
+                m, vmax)
+    return upd, {"m": m, "v": v, "vmax": vmax}
+
+
+def _adagrad(u, grads, state, it):
+    lr, eps = u.lr(), u.hyper["epsilon"]
+    G = _tmap(lambda G_, g: G_ + g * g, state["G"], grads)
+    upd = _tmap(lambda G_, g: lr * g / (torch.sqrt(G_) + eps), G, grads)
+    return upd, {"G": G}
+
+
+def _adadelta(u, grads, state, it):
+    rho, eps = u.hyper["rho"], u.hyper["epsilon"]
+    Eg = _tmap(lambda e, g: rho * e + (1 - rho) * g * g, state["Eg"], grads)
+    dx = _tmap(lambda e, edx, g: torch.sqrt(edx + eps) /
+               torch.sqrt(e + eps) * g, Eg, state["Edx"], grads)
+    Edx = _tmap(lambda edx, d: rho * edx + (1 - rho) * d * d,
+                state["Edx"], dx)
+    return dx, {"Eg": Eg, "Edx": Edx}
+
+
+def _rmsprop(u, grads, state, it):
+    lr, rho, eps = u.lr(), u.hyper["rms_decay"], u.hyper["epsilon"]
+    Eg = _tmap(lambda e, g: rho * e + (1 - rho) * g * g, state["Eg"], grads)
+    upd = _tmap(lambda e, g: lr * g / (torch.sqrt(e) + eps), Eg, grads)
+    return upd, {"Eg": Eg}
+
+
+_MATH = {"NoOp": _noop, "Sgd": _sgd, "Nesterovs": _nesterovs,
+         "Adam": _adam, "AdaMax": _adamax, "Nadam": _nadam,
+         "AMSGrad": _amsgrad, "AdaGrad": _adagrad, "AdaDelta": _adadelta,
+         "RmsProp": _rmsprop}
+
+
+def _factory(kind: str):
+    names = tuple(DEFAULTS[kind])
+
+    def make(*args, **kw) -> IUpdater:
+        if len(args) > len(names):
+            raise TypeError(f"{kind} takes at most {len(names)} "
+                            f"positional arguments")
+        return IUpdater(kind, **dict(zip(names, args)), **kw)
+    make.__name__ = kind
+    make.__doc__ = (f"The JAX package's {kind}; positional arguments in "
+                    f"the order {names}.")
+    return make
+
+
+NoOp = _factory("NoOp")
+Sgd = _factory("Sgd")
+Nesterovs = _factory("Nesterovs")
+Adam = _factory("Adam")
+AdaMax = _factory("AdaMax")
+Nadam = _factory("Nadam")
+AMSGrad = _factory("AMSGrad")
+AdaGrad = _factory("AdaGrad")
+AdaDelta = _factory("AdaDelta")
+RmsProp = _factory("RmsProp")

@@ -1,7 +1,15 @@
-"""Model zoo: ResNet-50.
+"""Model zoo: LeNet-5 and ResNet-50.
 
-Counterpart of ``ResNet50`` in ``deeplearning4j_tpu/models/zoo.py``,
-the same builder field for field: a ComputationGraph of [3, 4, 6, 3]
+Counterpart of ``LeNet`` and ``ResNet50`` in
+``deeplearning4j_tpu/models/zoo.py``, the same builders field for field.
+
+LeNet-5 is a MultiLayerNetwork over flat 28x28x1 input: two 5x5
+convolutions (20 and 50 channels, with bias, identity activation), each
+followed by a 2x2 max pool, a 500-unit relu dense layer and a 10-class
+softmax head, trained with Adam(1e-3). Its convolutions carry a bias,
+so they are conv-epilogue sites.
+
+ResNet-50 is a ComputationGraph of [3, 4, 6, 3]
 bottleneck blocks over NHWC 224x224x3 input, 1000 classes. Every
 convolution is SAME, bias-free, with an identity activation; every
 BatchNormalization that follows it carries the relu (or identity
@@ -16,7 +24,8 @@ from typing import Optional, Tuple, Union
 import torch
 
 from deeplearning4j_tpu_torch.activations import Activation
-from deeplearning4j_tpu_torch.learning.updaters import IUpdater, Nesterovs
+from deeplearning4j_tpu_torch.learning.updaters import (Adam, IUpdater,
+                                                       Nesterovs)
 from deeplearning4j_tpu_torch.lossfunctions import LossFunction
 from deeplearning4j_tpu_torch.nn.conf.builders import NeuralNetConfiguration
 from deeplearning4j_tpu_torch.nn.conf.graph_vertices import \
@@ -24,9 +33,57 @@ from deeplearning4j_tpu_torch.nn.conf.graph_vertices import \
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.conf.layers import (
     ActivationLayer, BatchNormalization, ConvolutionLayer, ConvolutionMode,
-    GlobalPoolingLayer, OutputLayer, PoolingType, SubsamplingLayer)
+    DenseLayer, GlobalPoolingLayer, OutputLayer, PoolingType,
+    SubsamplingLayer)
 from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.nn.weights import WeightInit
+
+
+@dataclass
+class LeNet:
+    """Reference: org.deeplearning4j.zoo.model.LeNet (MNIST-class)."""
+    num_classes: int = 10
+    height: int = 28
+    width: int = 28
+    channels: int = 1
+    seed: int = 123
+    updater: Optional[IUpdater] = None
+
+    def conf(self):
+        return (NeuralNetConfiguration.Builder()
+                .seed(self.seed)
+                .updater(self.updater or Adam(1e-3))
+                .weight_init(WeightInit.XAVIER)
+                .list()
+                .layer(ConvolutionLayer(kernel_size=(5, 5), n_out=20,
+                                        stride=(1, 1),
+                                        activation=Activation.IDENTITY))
+                .layer(SubsamplingLayer(pooling_type=PoolingType.MAX,
+                                        kernel_size=(2, 2),
+                                        stride=(2, 2)))
+                .layer(ConvolutionLayer(kernel_size=(5, 5), n_out=50,
+                                        stride=(1, 1),
+                                        activation=Activation.IDENTITY))
+                .layer(SubsamplingLayer(pooling_type=PoolingType.MAX,
+                                        kernel_size=(2, 2),
+                                        stride=(2, 2)))
+                .layer(DenseLayer(n_out=500, activation=Activation.RELU))
+                .layer(OutputLayer(
+                    n_out=self.num_classes,
+                    loss_function=LossFunction.NEGATIVELOGLIKELIHOOD,
+                    activation=Activation.SOFTMAX))
+                .set_input_type(InputType.convolutional_flat(
+                    self.height, self.width, self.channels))
+                .build())
+
+    def init(self, device: Union[None, str, torch.device] = None, *,
+             generator: Optional[torch.Generator] = None
+             ) -> MultiLayerNetwork:
+        """Build and initialise the network on ``device`` (``None``: the
+        card, raising when there is none)."""
+        return MultiLayerNetwork(self.conf()).init(device,
+                                                   generator=generator)
 
 
 @dataclass

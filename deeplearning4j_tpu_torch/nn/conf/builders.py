@@ -1,20 +1,26 @@
 """Network configuration builders.
 
 Counterpart of ``deeplearning4j_tpu/nn/conf/builders.py``:
-``NeuralNetConfiguration.Builder()`` with its global defaults, and
-``graph_builder()`` into a ``ComputationGraphConfiguration``. The
-``MultiLayerConfiguration`` list builder comes with the LeNet slice.
+``NeuralNetConfiguration.Builder()`` with its global defaults,
+``list()`` into a ``MultiLayerConfiguration`` (whose JSON is the JAX
+package's, read and written verbatim) and ``graph_builder()`` into a
+``ComputationGraphConfiguration``.
 """
 from __future__ import annotations
 
 import enum
-from typing import Optional
+import json
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional
 
 from deeplearning4j_tpu_torch.learning.updaters import IUpdater, Sgd
 from deeplearning4j_tpu_torch.nn.conf.inputs import (
     InputType, InputTypeConvolutional, InputTypeConvolutionalFlat)
 from deeplearning4j_tpu_torch.nn.conf.layers import (
     ConvolutionLayer, DenseLayer, Layer, SubsamplingLayer)
+from deeplearning4j_tpu_torch.nn.conf.preprocessors import (
+    CnnToFeedForwardPreProcessor, FeedForwardToCnnPreProcessor,
+    InputPreProcessor)
 from deeplearning4j_tpu_torch.nn.weights import WeightInit
 
 
@@ -33,16 +39,165 @@ class BackpropType(enum.Enum):
     TRUNCATED_BPTT = "tbptt"
 
 
+def default_preprocessor(cur: InputType, layer: Layer
+                         ) -> Optional[InputPreProcessor]:
+    """The shape adapter the JAX package inserts before ``layer`` on a
+    ``cur`` input: flat to NHWC before a convolution or pooling, NHWC to
+    flat before a dense layer (output layers included)."""
+    if isinstance(cur, InputTypeConvolutionalFlat) and \
+            isinstance(layer, (ConvolutionLayer, SubsamplingLayer)):
+        return FeedForwardToCnnPreProcessor(cur.height, cur.width,
+                                            cur.channels)
+    if isinstance(cur, InputTypeConvolutional) and \
+            isinstance(layer, DenseLayer):
+        return CnnToFeedForwardPreProcessor(cur.height, cur.width,
+                                            cur.channels)
+    return None
+
+
 def check_no_preprocessor(cur: InputType, layer: Layer) -> None:
-    """Raise where the JAX package would insert a shape preprocessor:
-    none is ported yet, and ResNet-50 needs none."""
-    if (isinstance(cur, InputTypeConvolutionalFlat)
-            and isinstance(layer, (ConvolutionLayer, SubsamplingLayer))) \
-            or (isinstance(cur, InputTypeConvolutional)
-                and isinstance(layer, DenseLayer)):
+    """Raise where the JAX package would insert a shape preprocessor
+    into a ComputationGraph: graph vertices with preprocessors are not
+    ported yet, and ResNet-50 needs none."""
+    if default_preprocessor(cur, layer) is not None:
         raise NotImplementedError(
             f"{type(layer).__name__} on a {type(cur).__name__} input "
-            f"needs a shape preprocessor, which is not ported yet")
+            f"needs a shape preprocessor, which graph vertices do not "
+            f"carry yet")
+
+
+@dataclass
+class MultiLayerConfiguration:
+    layers: List[Layer] = field(default_factory=list)
+    input_preprocessors: Dict[int, InputPreProcessor] = \
+        field(default_factory=dict)
+    seed: int = 12345
+    updater: IUpdater = field(default_factory=lambda: Sgd(1e-3))
+    weight_init: WeightInit = WeightInit.XAVIER
+    l1: float = 0.0
+    l2: float = 0.0
+    gradient_normalization: GradientNormalization = \
+        GradientNormalization.NONE
+    gradient_normalization_threshold: float = 1.0
+    backprop_type: BackpropType = BackpropType.STANDARD
+    tbptt_fwd_length: int = 20
+    tbptt_back_length: int = 20
+    dtype: str = "float32"
+    compute_dtype: Optional[str] = None   # None = same as dtype
+    remat_segments: int = 0
+    input_type: Optional[InputType] = None
+
+    def to_json(self) -> str:
+        d = {
+            "layers": [layer.to_map() for layer in self.layers],
+            "input_preprocessors": {str(k): v.to_map() for k, v in
+                                    self.input_preprocessors.items()},
+            "seed": self.seed,
+            "updater": self.updater.to_map(),
+            "weight_init": self.weight_init.name,
+            "l1": self.l1,
+            "l2": self.l2,
+            "gradient_normalization": self.gradient_normalization.name,
+            "gradient_normalization_threshold":
+                self.gradient_normalization_threshold,
+            "backprop_type": self.backprop_type.name,
+            "tbptt_fwd_length": self.tbptt_fwd_length,
+            "tbptt_back_length": self.tbptt_back_length,
+            "dtype": self.dtype,
+            "compute_dtype": self.compute_dtype,
+            "remat_segments": self.remat_segments,
+            "input_type": self.input_type.to_map() if self.input_type
+                          else None,
+        }
+        return json.dumps(d, indent=2)
+
+    @staticmethod
+    def from_json(s: str) -> "MultiLayerConfiguration":
+        d = json.loads(s)
+        conf = MultiLayerConfiguration(
+            layers=[Layer.from_map(m) for m in d["layers"]],
+            input_preprocessors={int(k): InputPreProcessor.from_map(v)
+                                 for k, v in
+                                 d.get("input_preprocessors", {}).items()},
+            seed=d.get("seed", 12345),
+            updater=IUpdater.from_map(d["updater"]),
+            weight_init=WeightInit[d.get("weight_init", "XAVIER")],
+            l1=d.get("l1", 0.0),
+            l2=d.get("l2", 0.0),
+            gradient_normalization=GradientNormalization[
+                d.get("gradient_normalization", "NONE")],
+            gradient_normalization_threshold=d.get(
+                "gradient_normalization_threshold", 1.0),
+            backprop_type=BackpropType[d.get("backprop_type", "STANDARD")],
+            tbptt_fwd_length=d.get("tbptt_fwd_length", 20),
+            tbptt_back_length=d.get("tbptt_back_length", 20),
+            dtype=d.get("dtype", "float32"),
+            compute_dtype=d.get("compute_dtype"),
+            remat_segments=d.get("remat_segments", 0),
+            input_type=InputType.from_map(d["input_type"])
+                       if d.get("input_type") else None,
+        )
+        conf.resolve_shapes()
+        return conf
+
+    def resolve_shapes(self) -> List[Optional[InputType]]:
+        """Infer each layer's ``n_in`` and insert the default
+        preprocessors, given ``input_type``; returns each layer's input
+        type (after its preprocessor), or Nones without an input type."""
+        if self.input_type is None:
+            return [None] * len(self.layers)
+        cur = self.input_type
+        types = []
+        for i, layer in enumerate(self.layers):
+            if i in self.input_preprocessors:
+                cur = self.input_preprocessors[i].get_output_type(cur)
+            else:
+                pre = default_preprocessor(cur, layer)
+                if pre is not None:
+                    self.input_preprocessors[i] = pre
+                    cur = pre.get_output_type(cur)
+            layer.set_n_in(cur, override=False)
+            types.append(cur)
+            cur = layer.get_output_type(cur)
+        return types
+
+
+class ListBuilder:
+    """Reference: NeuralNetConfiguration.ListBuilder."""
+
+    def __init__(self, base: "NeuralNetConfiguration.Builder"):
+        self._base = base
+        self._layers: List[Layer] = []
+        self._preprocessors: Dict[int, InputPreProcessor] = {}
+        self._input_type: Optional[InputType] = None
+
+    def layer(self, layer: Layer) -> "ListBuilder":
+        self._layers.append(layer)
+        return self
+
+    def input_pre_processor(self, idx: int,
+                            p: InputPreProcessor) -> "ListBuilder":
+        self._preprocessors[idx] = p
+        return self
+
+    def set_input_type(self, t: InputType) -> "ListBuilder":
+        self._input_type = t
+        return self
+
+    def build(self) -> MultiLayerConfiguration:
+        b = self._base
+        conf = MultiLayerConfiguration(
+            layers=list(self._layers),
+            input_preprocessors=dict(self._preprocessors),
+            seed=b._seed, updater=b._updater, weight_init=b._weight_init,
+            l1=b._l1, l2=b._l2, gradient_normalization=b._grad_norm,
+            gradient_normalization_threshold=b._grad_norm_threshold,
+            dtype=b._dtype, compute_dtype=b._compute_dtype,
+            remat_segments=b._remat_segments, input_type=self._input_type)
+        for layer in conf.layers:
+            apply_layer_defaults(layer, b)
+        conf.resolve_shapes()
+        return conf
 
 
 def apply_layer_defaults(layer: Layer,
@@ -124,6 +279,9 @@ class NeuralNetConfiguration:
             """Carried as data; rematerialization is a training knob."""
             self._remat_segments = int(n)
             return self
+
+        def list(self) -> ListBuilder:  # noqa: A003
+            return ListBuilder(self)
 
         def graph_builder(self):
             from deeplearning4j_tpu_torch.nn.conf.graph_conf import \

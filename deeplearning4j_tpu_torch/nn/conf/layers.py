@@ -1,9 +1,9 @@
-"""Layer configurations and their inference math.
+"""Layer configurations and their math.
 
 Counterpart of ``deeplearning4j_tpu/nn/conf/layers.py``, for the
-layers ResNet-50 and its output head use. Each config dataclass keeps
-the JAX package's fields, so ``configuration.json`` round-trips
-verbatim, and is also the runtime:
+layers ResNet-50, LeNet-5 and their output heads use. Each config
+dataclass keeps the JAX package's fields, so ``configuration.json``
+round-trips verbatim, and is also the runtime:
 
     init_params(generator, input_type)   -> {name: CPU tensor}
     init_state(input_type)               -> {name: CPU tensor}
@@ -13,9 +13,10 @@ verbatim, and is also the runtime:
 Layouts are the JAX package's at every public function (NHWC
 activations, dense ``W`` as ``[n_in, n_out]``) except conv kernels,
 which are OIHW, PyTorch's layout; ``utils/serializer.py`` converts at
-the zip boundary. The training half (batch statistics, dropout, weight
-noise, constraints) comes with training: the fields are carried as
-data, and ``forward(training=True)`` raises.
+the zip boundary. ``forward(training=True)`` is the training forward:
+BatchNormalization normalizes with batch statistics and returns its
+blended running stats. Dropout and weight noise are carried as data and
+not ported yet: a layer that sets them raises in training.
 """
 from __future__ import annotations
 
@@ -55,10 +56,10 @@ def _pair(v) -> Tuple[int, int]:
     return (int(v), int(v))
 
 
-def _inference_only(layer) -> None:
-    raise NotImplementedError(
-        f"{type(layer).__name__}: the port serves inference only; the "
-        f"training forward comes with the training slice")
+def _no_dropout(layer, training: bool) -> None:
+    if training and layer.dropout is not None:
+        raise NotImplementedError(
+            f"{type(layer).__name__}: dropout is not ported yet")
 
 
 @dataclass
@@ -170,12 +171,14 @@ class DenseLayer(Layer):
         return p
 
     def forward(self, params, x, *, training, state=None):
-        if training:
-            _inference_only(self)
+        return self.activation(self._affine(params, x, training)), state
+
+    def _affine(self, params, x, training):
+        _no_dropout(self, training)
         z = x @ params["W"]
         if self.has_bias:
             z = z + params["b"]
-        return self.activation(z), state
+        return z
 
     def get_output_type(self, input_type):
         return InputType.feed_forward(self.n_out)
@@ -220,8 +223,7 @@ class ConvolutionLayer(Layer):
         return p
 
     def forward(self, params, x, *, training, state=None):
-        if training:
-            _inference_only(self)
+        _no_dropout(self, training)
         from deeplearning4j_tpu_torch.ops.conv_epilogue import conv_forward
         z = conv_forward(x, params["W"], stride=self.stride,
                          padding=self._pad_cfg(), dilation=self.dilation,
@@ -326,7 +328,11 @@ class SubsamplingLayer(Layer):
 class BatchNormalization(Layer):
     """Batch norm. Inference folds the running stats into a per-channel
     scale and shift and applies them, with the activation, in one pass
-    of the conv epilogue (``maybe_bn_inference_epilogue``)."""
+    of the conv epilogue (``maybe_bn_inference_epilogue``). Training
+    normalizes with batch statistics, through the fused-backward
+    ``bn_train_normalize`` on the card (``ops/bn_train.py``), and blends
+    the running stats by ``decay`` from the batch mean and the biased
+    batch variance."""
 
     decay: float = 0.9
     eps: float = 1e-5
@@ -356,7 +362,7 @@ class BatchNormalization(Layer):
 
     def forward(self, params, x, *, training, state=None):
         if training:
-            _inference_only(self)
+            return self._forward_train(params, x, state)
         acc = torch.promote_types(x.dtype, torch.float32)
         mean = state["mean"].to(acc)
         var = state["var"].to(acc)
@@ -370,6 +376,34 @@ class BatchNormalization(Layer):
             return out, state
         out = x * scale.to(x.dtype) + shift.to(x.dtype)
         return self.activation(out), state
+
+    def _forward_train(self, params, x, state):
+        # the decisions in the JAX package's order: the fused backward
+        # first; without it the epilogue family with the activation
+        # streamed in; else the plain math under autograd
+        from deeplearning4j_tpu_torch.ops.bn_train import (
+            bn_forward_math, bn_train_normalize, fused_bn_bwd_enabled)
+        from deeplearning4j_tpu_torch.ops.conv_epilogue import \
+            maybe_fused_bn_train
+        gamma, beta = params["gamma"], params["beta"]
+        act_done = False
+        if fused_bn_bwd_enabled(x.device):
+            out, mean, var = bn_train_normalize(x, gamma, beta, self.eps)
+        else:
+            fused = maybe_fused_bn_train(x, gamma, beta, self.eps,
+                                         self.activation)
+            if fused is not None:
+                out, mean, var = fused
+                act_done = True
+            else:
+                out, mean, var, _ = bn_forward_math(x, gamma, beta,
+                                                    self.eps)
+        d = self.decay
+        with torch.no_grad():
+            new_state = {
+                k: (d * state[k] + (1 - d) * v.detach()).to(state[k].dtype)
+                for k, v in (("mean", mean), ("var", var))}
+        return (out if act_done else self.activation(out)), new_state
 
     def get_output_type(self, input_type):
         return input_type
@@ -433,12 +467,27 @@ class GlobalPoolingLayer(Layer):
 # ---------------------------------------------------------------------------
 @dataclass
 class BaseOutputLayer(DenseLayer):
-    """Dense projection plus a loss head (the loss math comes with
-    training)."""
+    """Dense projection plus a loss head."""
 
     loss_function: LossFunction = LossFunction.MCXENT
     activation: Activation = Activation.SOFTMAX
 
+    def compute_loss(self, labels, preds_or_logits, *, from_logits: bool,
+                     mask=None, average=True):
+        lf = self.loss_function
+        if from_logits and lf.supports_logits():
+            return lf.score_from_logits(labels, preds_or_logits, mask=mask,
+                                        average=average)
+        return lf.score(labels, preds_or_logits, mask=mask, average=average)
+
+    def wants_logits(self) -> bool:
+        """Fold the final softmax/sigmoid into the loss, as the JAX
+        package does (no clip + log in probability space)."""
+        return (self.loss_function.supports_logits() and
+                self.activation in (Activation.SOFTMAX, Activation.SIGMOID))
+
+    def forward_logits(self, params, x, *, training, state=None):
+        return self._affine(params, x, training), state
 
 
 @dataclass

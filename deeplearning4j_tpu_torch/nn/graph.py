@@ -1,17 +1,20 @@
 """ComputationGraph: a DAG model run vertex by vertex.
 
-Counterpart of the inference half of ``deeplearning4j_tpu/nn/graph.py``:
-``init``, the topo-ordered forward walk of ``_forward`` (without remat,
-tensor parallelism, fsdp or masks), ``output``, ``params`` and
-``states``. PyTorch runs eagerly, so there is no compiled step: each
-vertex's layer runs as its own kernels, in order, on ``self.device``.
+Counterpart of ``deeplearning4j_tpu/nn/graph.py`` on one device:
+``init``, the topo-ordered walk of ``_forward`` (without remat, tensor
+parallelism, fsdp or masks), ``output``, and training: ``fit(x, y)``,
+``fit(DataSet)``, ``fit(iterator)``, ``score()``, listeners and the
+dense update tail (``nn/trainer.py``). PyTorch runs eagerly, so there
+is no compiled step: each vertex's layer runs as its own kernels, in
+order, on ``self.device``, and autograd walks back through them.
 
 ``params`` and ``states`` are ``{vertex: {name: tensor}}``, as in the
 JAX package. With ``compute_dtype`` set ('bfloat16', 'float16') the
 forward casts the float parameters and the inputs to it, keeps the
 BatchNormalization running stats in float32, and casts the outputs back
 to ``dtype``. Float64 activations run on the CPU only: the epilogue
-kernel does not stream them, and ``set_params`` refuses them on cuda.
+kernels do not stream them, and ``set_params`` refuses them on cuda.
+``updater_states`` is ``{vertex: {slot: {name: tensor}}}``.
 """
 from __future__ import annotations
 
@@ -23,6 +26,8 @@ import torch
 from deeplearning4j_tpu_torch.common.environment import resolve_device
 from deeplearning4j_tpu_torch.nn.conf.graph_conf import \
     ComputationGraphConfiguration
+from deeplearning4j_tpu_torch.nn.conf.layers import BaseOutputLayer
+from deeplearning4j_tpu_torch.nn.trainer import Trainable
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64,
            "float16": torch.float16, "bfloat16": torch.bfloat16}
@@ -43,13 +48,31 @@ def cast_floats(tree: dict, dtype: torch.dtype) -> dict:
                 for n, t in sub.items()} for k, sub in tree.items()}
 
 
-class ComputationGraph:
+def check_activation_dtype(conf, dev: torch.device) -> None:
+    """Refuse float64 activations on the card, where the epilogue
+    kernels stream float32, bfloat16 and float16 only."""
+    act_dtype = to_torch_dtype(conf.compute_dtype or conf.dtype)
+    if dev.type == "cuda" and act_dtype == torch.float64:
+        raise ValueError(
+            "float64 activations do not run on cuda: the epilogue "
+            "kernels stream float32, bfloat16 and float16 (set "
+            "compute_dtype, or pass device='cpu')")
+
+
+def as_device_tensor(x, dtype: torch.dtype, device) -> torch.Tensor:
+    """An array or tensor on ``device``, floats cast to ``dtype``."""
+    t = x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
+    if t.is_floating_point():
+        t = t.to(dtype)
+    return t.to(device)
+
+
+class ComputationGraph(Trainable):
     def __init__(self, conf: ComputationGraphConfiguration):
         self.conf = conf
         self.params: Dict[str, Dict[str, torch.Tensor]] = {}
         self.states: Dict[str, Dict[str, torch.Tensor]] = {}
-        self.iteration_count = 0
-        self.epoch_count = 0
+        self._init_training()
         self.device: Optional[torch.device] = None
         self._dtype = to_torch_dtype(conf.dtype)
         self._topo = conf.topo_order()
@@ -90,13 +113,7 @@ class ComputationGraph:
         are stored channels-last, the layout the NHWC activations
         convolve fastest against."""
         dev = resolve_device(device)
-        act_dtype = to_torch_dtype(self.conf.compute_dtype
-                                   or self.conf.dtype)
-        if dev.type == "cuda" and act_dtype == torch.float64:
-            raise ValueError(
-                "float64 activations do not run on cuda: the epilogue "
-                "kernel streams float32, bfloat16 and float16 (set "
-                "compute_dtype, or pass device='cpu')")
+        check_activation_dtype(self.conf, dev)
         missing = [n for n in self._topo if n not in params]
         if missing:
             raise ValueError(f"params missing vertices {missing[:5]}")
@@ -113,13 +130,25 @@ class ComputationGraph:
                            .items()} for k in self._topo}
         self.device = dev
         self._initialized = True
+        self._reset_updater_states()
         return self
 
+    # -- Trainable protocol ----------------------------------------------
+    def _keys(self):
+        return self._topo
+
+    def _layer(self, key):
+        v = self.conf.vertices[key]
+        return v.content if v.is_layer else None
+
     # ------------------------------------------------------------------
-    def _forward(self, params, states, inputs: Sequence[torch.Tensor]
-                 ) -> Dict[str, torch.Tensor]:
-        """Inference walk in topo order; returns every activation by
-        vertex name (network inputs included)."""
+    def _forward(self, params, states, inputs: Sequence[torch.Tensor], *,
+                 training: bool = False, want_logits: bool = False):
+        """Walk in topo order; returns ``(acts, new_states)``: every
+        activation by vertex name (network inputs included; an output
+        layer that folds its softmax into the loss gives logits when
+        ``want_logits``), and each stateful layer's new state (the
+        blended BatchNormalization stats in training)."""
         conf = self.conf
         if conf.compute_dtype:
             cd = to_torch_dtype(conf.compute_dtype)
@@ -127,41 +156,86 @@ class ComputationGraph:
             inputs = [x.to(cd) if x.is_floating_point() else x
                       for x in inputs]
         acts = dict(zip(conf.network_inputs, inputs))
+        new_states = {}
         for name in self._topo:
             v = conf.vertices[name]
             xs = [acts[i] for i in v.inputs]
             if not v.is_layer:
-                acts[name] = v.content.forward(xs, training=False)
+                acts[name] = v.content.forward(xs, training=training)
                 continue
-            h, _ = v.content.forward(params.get(name, {}), xs[0],
-                                     training=False,
-                                     state=states.get(name) or None)
+            layer = v.content
+            if training and layer.weight_noise is not None:
+                raise NotImplementedError(
+                    f"{name}: weight noise is not ported yet")
+            lp, ls = params.get(name, {}), states.get(name) or None
+            if want_logits and name in conf.network_outputs and \
+                    isinstance(layer, BaseOutputLayer) and \
+                    layer.wants_logits():
+                h, ns = layer.forward_logits(lp, xs[0], training=training,
+                                             state=ls)
+            else:
+                h, ns = layer.forward(lp, xs[0], training=training,
+                                      state=ls)
             acts[name] = h
+            new_states[name] = ns or {}
         if conf.compute_dtype:
             for out in conf.network_outputs:
                 acts[out] = acts[out].to(self._dtype)
-        return acts
+        return acts, new_states
 
     def _as_input(self, x) -> torch.Tensor:
-        t = torch.as_tensor(np.asarray(x) if not isinstance(
-            x, torch.Tensor) else x)
-        if t.is_floating_point():
-            t = t.to(self._dtype)
-        return t.to(self.device)
+        return as_device_tensor(x, self._dtype, self.device)
 
     def output(self, *inputs, train: bool = False):
         """Output activations on ``self.device`` (a tensor, or a list
         with one per network output). ``inputs`` are NHWC arrays or
         tensors, one per network input."""
         if train:
-            raise NotImplementedError("the port serves inference only")
+            raise NotImplementedError(
+                "output(train=True) is not ported yet")
         if not self._initialized:
             self.init()
         xs = [self._as_input(x) for x in inputs]
         with torch.inference_mode():
-            acts = self._forward(self.params, self.states, xs)
+            acts, _ = self._forward(self.params, self.states, xs)
         outs = [acts[n] for n in self.conf.network_outputs]
         return outs[0] if len(outs) == 1 else outs
+
+    # -- training --------------------------------------------------------
+    def _split(self, data, labels):
+        """(inputs, labels, labels masks) as tensors on the device, from
+        ``(x, y)`` (arrays, tensors or lists of them) or a DataSet /
+        MultiDataSet."""
+        if labels is None:
+            feats, labs = data.features, data.labels
+            lmasks = getattr(data, "labels_masks", None)
+            if lmasks is None and getattr(data, "labels_mask",
+                                          None) is not None:
+                lmasks = [data.labels_mask]
+        else:
+            feats, labs, lmasks = data, labels, None
+        def as_list(v):
+            return list(v) if isinstance(v, (list, tuple)) else [v]
+        inputs = [self._as_input(x) for x in as_list(feats)]
+        labels = [self._as_input(y) for y in as_list(labs)]
+        if lmasks is not None:
+            lmasks = [self._as_input(m) if m is not None else None
+                      for m in lmasks]
+        return inputs, labels, lmasks
+
+    def _loss(self, params, inputs, labels, lmasks, *, training: bool):
+        acts, new_states = self._forward(params, self.states, inputs,
+                                         training=training,
+                                         want_logits=True)
+        loss = self._regularization(params)
+        for i, name in enumerate(self.conf.network_outputs):
+            layer = self.conf.vertices[name].content
+            if not isinstance(layer, BaseOutputLayer):
+                continue
+            loss = loss + layer.compute_loss(
+                labels[i], acts[name], from_logits=layer.wants_logits(),
+                mask=lmasks[i] if lmasks is not None else None)
+        return loss, new_states
 
     # ------------------------------------------------------------------
     def num_params(self) -> int:

@@ -1,0 +1,169 @@
+"""The training step shared by ComputationGraph and MultiLayerNetwork.
+
+Counterpart of the dense rung of ``_build_train_step`` in
+``deeplearning4j_tpu/nn/graph.py`` and ``nn/multilayer.py``: the loss
+(data loss plus ``_regularization``, l1 and 0.5·l2·ΣW² on each layer's
+``W`` only, inside the loss), its gradient with respect to every
+parameter, and the per-layer update tail: gradient normalization, the
+layer's updater (its own, or the network's), ``p − update``, then the
+layer's constraints. PyTorch runs eagerly, so the step is this code run
+once per batch rather than a compiled program; ``torch.autograd.grad``
+takes the place of ``jax.value_and_grad``.
+
+Parameters are updated in place (``p.sub_``) under ``no_grad``: the
+stored tensors keep their storage and layout (conv kernels channels-last)
+and no second copy of the weights is made. Updater state is replaced
+slot by slot, as the JAX package returns it.
+
+A subclass provides ``_keys()`` (its parameter groups in order),
+``_layer(key)``, ``_loss(params, inputs, labels, lmasks)`` returning
+``(loss, new_states)``, and ``_split(data)`` turning ``(x, y)`` or a
+DataSet into lists of tensors on the device.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+import torch
+
+from deeplearning4j_tpu_torch.nn.conf.constraints import apply_constraints
+from deeplearning4j_tpu_torch.nn.gradient import \
+    apply_gradient_normalization
+from deeplearning4j_tpu_torch.optimize.listeners import TrainingListener
+
+_Tree = Dict[str, Dict[str, torch.Tensor]]
+
+
+class Trainable:
+    """fit / score / listeners / updater state over ``self.params``."""
+
+    params: _Tree
+    states: _Tree
+
+    def _init_training(self) -> None:
+        self.updater_states: Dict[str, dict] = {}
+        self.listeners: List[TrainingListener] = []
+        self.iteration_count = 0
+        self.epoch_count = 0
+        self.last_batch_size = 0
+        self._score: Optional[torch.Tensor] = None
+
+    def _reset_updater_states(self) -> None:
+        self.updater_states = {k: self._updater(k).init_state(
+            self.params.get(k, {})) for k in self._keys()}
+
+    def _updater(self, key: str):
+        layer = self._layer(key)
+        if layer is not None and layer.updater is not None:
+            return layer.updater
+        return self.conf.updater
+
+    # ------------------------------------------------------------------
+    def set_listeners(self, *listeners: TrainingListener):
+        self.listeners = list(listeners)
+        return self
+
+    def add_listeners(self, *listeners: TrainingListener):
+        self.listeners.extend(listeners)
+        return self
+
+    def _regularization(self, params: _Tree):
+        reg = 0.0
+        for key in self._keys():
+            layer = self._layer(key)
+            if layer is None:
+                continue
+            l1, l2 = layer.l1 or 0.0, layer.l2 or 0.0
+            W = params.get(key, {}).get("W")
+            if W is None or (l1 == 0.0 and l2 == 0.0):
+                continue
+            if l1:
+                reg = reg + l1 * torch.sum(torch.abs(W))
+            if l2:
+                reg = reg + 0.5 * l2 * torch.sum(W * W)
+        return reg
+
+    # ------------------------------------------------------------------
+    def fit(self, data, labels=None, *, n_epochs: int = 1):
+        """fit(x, y) | fit(DataSet) | fit(iterator): one step per batch."""
+        if not self._initialized:
+            self.init()
+        if labels is not None or hasattr(data, "features"):
+            for _ in range(n_epochs):
+                self._fit_batch(*self._split(data, labels))
+            return self
+        for _ in range(n_epochs):
+            for lis in self.listeners:
+                lis.on_epoch_start(self)
+            if hasattr(data, "reset"):
+                data.reset()
+            for ds in data:
+                self._fit_batch(*self._split(ds, None))
+            # epochs completed advance before the listeners fire, as in
+            # the JAX package (an epoch-end checkpoint saves the count)
+            self.epoch_count += 1
+            for lis in self.listeners:
+                lis.on_epoch_end(self)
+        return self
+
+    def _fit_batch(self, inputs: List[torch.Tensor],
+                   labels: List[torch.Tensor], lmasks) -> None:
+        leaves = {k: {n: t.detach().requires_grad_(True)
+                      for n, t in sub.items()}
+                  for k, sub in self.params.items()}
+        with torch.enable_grad():
+            loss, new_states = self._loss(leaves, inputs, labels, lmasks,
+                                          training=True)
+        flat = [(k, n, t) for k, sub in leaves.items()
+                for n, t in sub.items()]
+        grads_flat = torch.autograd.grad(loss, [t for _, _, t in flat],
+                                         allow_unused=True)
+        grads: _Tree = {}
+        for (k, n, t), g in zip(flat, grads_flat):
+            grads.setdefault(k, {})[n] = (g if g is not None
+                                          else torch.zeros_like(t))
+        with torch.no_grad():
+            self._update_tail(grads)
+        for k, st in new_states.items():
+            if st:
+                self.states[k] = st
+        self._score = loss.detach()
+        self.last_batch_size = int(inputs[0].shape[0])
+        self.iteration_count += 1
+        for lis in self.listeners:
+            lis.iteration_done(self, self.iteration_count - 1,
+                               self.epoch_count)
+
+    def _update_tail(self, grads: _Tree) -> None:
+        conf = self.conf
+        for key in self._keys():
+            g = grads.get(key)
+            if not g:
+                continue
+            g = apply_gradient_normalization(
+                conf.gradient_normalization,
+                conf.gradient_normalization_threshold, g)
+            updates, us = self._updater(key).apply(
+                g, self.updater_states[key], self.iteration_count)
+            p = self.params[key]
+            for n, u in updates.items():
+                p[n].sub_(u)
+            layer = self._layer(key)
+            if layer is not None:
+                for n, t in apply_constraints(layer, p).items():
+                    if t is not p[n]:
+                        p[n].copy_(t)
+            self.updater_states[key] = us
+
+    # ------------------------------------------------------------------
+    def score(self, dataset=None) -> float:
+        """The last step's loss, or the loss of ``dataset`` (inference
+        mode, regularization included)."""
+        if dataset is None:
+            return float("nan") if self._score is None \
+                else float(self._score)
+        inputs, labels, lmasks = self._split(dataset, None)
+        with torch.no_grad():
+            loss, _ = self._loss(self.params, inputs, labels, lmasks,
+                                 training=False)
+        return float(loss)

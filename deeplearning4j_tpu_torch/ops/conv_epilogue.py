@@ -1,27 +1,39 @@
-"""The conv/BN epilogue: ``y = act(x·scale + shift)`` per channel.
+"""The conv/BN epilogue family: ``y = act(x·scale + shift)`` per channel,
+its backward, and the channel statistics of training BatchNormalization.
 
-Counterpart of the inference half of ``deeplearning4j_tpu/ops/
-conv_pallas.py``. The epilogue serves conv bias plus activation and
-inference-mode BatchNormalization, whose running stats fold into a
-per-channel scale and shift with the activation streamed behind them.
-On ResNet-50 inference that is all 53 BatchNormalization sites of a
-forward; its convolutions carry no bias and no activation, so they
-have no epilogue of their own.
+Counterpart of ``deeplearning4j_tpu/ops/conv_pallas.py``. Three
+hand-written CUDA kernels, all in ``csrc/conv_epilogue.cu``, each with a
+plain PyTorch version beside it:
 
-:func:`scale_shift_act` launches the hand-written CUDA kernel
-``csrc/conv_epilogue.cu`` on a CUDA tensor and runs
-:func:`scale_shift_act_plain` on a CPU tensor, and does nothing else:
-on the card there is no fallback. The kernel replaces the Pallas
-``_epilogue_kernel`` and is bound by bytes (x read once, y written
-once); the source note says what its design does about that.
+* ``scale_shift_act`` (replaces ``_epilogue_kernel``): conv bias plus
+  activation, inference-mode BatchNormalization (running stats folded
+  into scale and shift, activation streamed behind them) and the
+  training-mode BatchNormalization normalize;
+* ``epilogue_backward`` (replaces ``_epilogue_bwd_kernel``): one pass
+  over x and dy giving ``dx = dy·act′·scale`` and the per-channel
+  ``Σdy·act′`` (dshift) and ``Σdy·act′·x`` (dscale);
+* ``channel_sums`` (replaces ``_stats_kernel``): per-channel ``Σx`` and
+  ``Σx²`` in one read, from which :func:`channel_stats` derives the
+  batch mean and (biased) variance.
 
-Dispatch runs through the ``ops/kernel_select.py`` ladder (family
-``conv_epilogue``, gate ``DL4J_TORCH_FUSED_CONV``). The structural
-gates keep only what is semantics: rank, a floating dtype, a streamable
-activation (relu or identity) and an epilogue to apply. The JAX package's TPU tiling gates (``C % 8``, a size floor,
-"platform is tpu") do not carry over. The auto rung takes the kernel
-for every admissible site on the card and the plain version on the
-CPU; ``DL4J_TORCH_FUSED_CONV=0`` is the explicit kill switch.
+:func:`scale_shift_act` and :func:`channel_stats` are
+``torch.autograd.Function``\\ s: the first's backward is
+``epilogue_backward``, the second's is the epilogue with identity (the
+per-channel FMA ``dx = x·(2·dvar/M) + (dmean − 2·mean·dvar)/M``). Each
+kernel wrapper launches its kernel on a CUDA tensor (and raises on
+anything it does not take), runs the plain version on a CPU tensor, and
+does nothing else: on the card there is no fallback. All three are bound
+by bytes; the source notes say what their design does about that.
+
+Dispatch runs through the ``ops/kernel_select.py`` ladder: family
+``conv_epilogue`` for conv and inference-BN sites, ``bn_fwd`` for the
+training-BN forward, both on the ``DL4J_TORCH_FUSED_CONV`` gate. The
+structural gates keep only what is semantics: rank, a floating dtype, a
+streamable activation (relu or identity), an epilogue to apply, training
+mode for the statistics. The JAX package's TPU tiling gates (``C % 8``,
+a size floor, "platform is tpu") do not carry over. The auto rung takes
+the kernels for every admissible site on the card and the plain versions
+on the CPU; ``DL4J_TORCH_FUSED_CONV=0`` is the explicit kill switch.
 """
 from __future__ import annotations
 
@@ -36,30 +48,54 @@ from deeplearning4j_tpu_torch.ops import cuda_build, kernel_select
 
 #: activations the epilogue streams
 STREAMABLE_ACTIVATIONS = ("relu", "identity")
-#: input dtypes the kernel reads and writes (arithmetic is f32); a
+#: input dtypes the kernels read and write (arithmetic is f32); a
 #: float64 x on the card is refused, not demoted
 KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
+_SOURCE = "deeplearning4j_tpu_torch/csrc/conv_epilogue.cu"
 EPILOGUE = cuda_build.register(cuda_build.Kernel(
-    "scale_shift_act",
-    source="deeplearning4j_tpu_torch/csrc/conv_epilogue.cu",
+    "scale_shift_act", source=_SOURCE,
     replaces="deeplearning4j_tpu/ops/conv_pallas.py:158 "
              "(_epilogue_kernel)"))
+EPILOGUE_BWD = cuda_build.register(cuda_build.Kernel(
+    "epilogue_backward", source=_SOURCE,
+    replaces="deeplearning4j_tpu/ops/conv_pallas.py:166 "
+             "(_epilogue_bwd_kernel)"))
+CHANNEL_SUMS = cuda_build.register(cuda_build.Kernel(
+    "channel_sums", source=_SOURCE,
+    replaces="deeplearning4j_tpu/ops/conv_pallas.py:194 (_stats_kernel)"))
 
 _fused_steps = telemetry.counter(
     "dl4j_conv_fused_steps_total",
-    "conv-epilogue sites dispatched to the epilogue, by site "
-    "(conv / bn_infer); counts executed dispatches")
+    "conv-epilogue sites dispatched to the epilogue kernels, by site "
+    "(conv / bn_infer / bn_train); counts executed dispatches")
 _layout_copies = telemetry.counter(
     "dl4j_conv_layout_copies_total",
-    "convolution outputs that came back in a layout other than "
-    "channels-last and were copied before the epilogue read them")
+    "tensors that reached an epilogue-family kernel in a layout other "
+    "than contiguous channels-last and were copied first")
 
 
 # ---------------------------------------------------------------------------
 # selection (structural gate -> override -> auto, via kernel_select)
 # ---------------------------------------------------------------------------
+def _auto_on_card(device: torch.device):
+    def auto() -> Tuple[bool, str]:
+        if device.type == "cuda":
+            return True, "auto: cuda, the kernel is the path"
+        return False, f"auto: device '{device.type}' runs the plain version"
+    return auto
+
+
+def _family_structural(shape: Sequence[int], dtype: torch.dtype
+                       ) -> Optional[str]:
+    if len(shape) < 2:
+        return f"rank {len(shape)} not supported"
+    if not dtype.is_floating_point:
+        return f"dtype {dtype} is not floating"
+    return None
+
+
 def select_conv_epilogue(out_shape: Sequence[int], dtype: torch.dtype,
                          act_name: str, *,
                          device: Union[str, torch.device],
@@ -67,40 +103,56 @@ def select_conv_epilogue(out_shape: Sequence[int], dtype: torch.dtype,
                          override=None, use_env_override: bool = True,
                          record: bool = True) -> kernel_select.Selection:
     """Ladder decision for a conv-epilogue site on ``device``."""
-    device = torch.device(device)
     if not has_epilogue:
         structural = "no epilogue to fuse (no bias, identity activation)"
     elif act_name not in STREAMABLE_ACTIVATIONS:
         structural = f"activation '{act_name}' is not streamable"
-    elif len(out_shape) < 2:
-        structural = f"rank {len(out_shape)} not supported"
-    elif not dtype.is_floating_point:
-        structural = f"dtype {dtype} is not floating"
     else:
-        structural = None
+        structural = _family_structural(out_shape, dtype)
     if override is None and use_env_override:
         override = kernel_select.gate_override("conv_epilogue")
-
-    def auto() -> Tuple[bool, str]:
-        if device.type == "cuda":
-            return True, "auto: cuda, the epilogue kernel is the path"
-        return False, f"auto: device '{device.type}' runs the plain version"
-
     return kernel_select.select(
-        "conv_epilogue", structural=structural, auto=auto,
+        "conv_epilogue", structural=structural,
+        auto=_auto_on_card(torch.device(device)),
+        override=override, use_env_override=False, record=record)
+
+
+def select_bn_forward(shape: Sequence[int], dtype: torch.dtype, *,
+                      training: bool, device: Union[str, torch.device],
+                      override=None, use_env_override: bool = True,
+                      record: bool = True) -> kernel_select.Selection:
+    """Ladder decision for the training-mode BN forward (channel
+    statistics, then the normalize). Inference-mode BN has no statistics
+    pass, so asking outside training is a structural demotion."""
+    if not training:
+        structural = ("inference-mode BN folds into the epilogue "
+                      "(no batch-stats pass)")
+    else:
+        structural = _family_structural(shape, dtype)
+    if override is None and use_env_override:
+        override = kernel_select.gate_override("bn_fwd")
+    return kernel_select.select(
+        "bn_fwd", structural=structural,
+        auto=_auto_on_card(torch.device(device)),
         override=override, use_env_override=False, record=record)
 
 
 # ---------------------------------------------------------------------------
-# the kernel and its plain version
+# plain versions (the CPU path and the kernels' oracles)
 # ---------------------------------------------------------------------------
+def _acc(dtype: torch.dtype) -> torch.dtype:
+    return torch.promote_types(dtype, torch.float32)
+
+
 def scale_shift_act_plain(x: torch.Tensor, scale: torch.Tensor,
                           shift: torch.Tensor, act: str) -> torch.Tensor:
-    """Plain PyTorch version of the epilogue, with the kernel's f32
-    arithmetic: a rounded multiply, a rounded add, relu as ``y < 0 ? 0
-    : y`` (NaN passes through), and y in the dtype of x."""
-    y = x.float() * scale.float()
-    y = y + shift.float()
+    """Plain PyTorch version of the epilogue, with the kernel's
+    arithmetic (f32, or f64 for f64 inputs): a rounded multiply, a
+    rounded add, relu as ``y < 0 ? 0 : y`` (NaN passes through), and y
+    in the dtype of x."""
+    acc = _acc(x.dtype)
+    y = x.to(acc) * scale.to(acc)
+    y = y + shift.to(acc)
     if act == "relu":
         y = y.masked_fill(y < 0, 0.0)
     elif act != "identity":
@@ -108,60 +160,243 @@ def scale_shift_act_plain(x: torch.Tensor, scale: torch.Tensor,
     return y.to(x.dtype)
 
 
-def scale_shift_act(x: torch.Tensor, scale: torch.Tensor,
-                    shift: torch.Tensor, act: str) -> torch.Tensor:
-    """``act(x·scale + shift)`` with per-channel (last-axis) f32
-    coefficients. A CUDA ``x`` launches the kernel (and raises on
-    anything it does not take); a CPU ``x`` runs the plain version."""
+def epilogue_backward_plain(x: torch.Tensor, dy: torch.Tensor,
+                            scale: torch.Tensor, shift: torch.Tensor,
+                            act: str
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """Plain version of ``epilogue_backward`` on an [M, C] view:
+    ``g = where(x·s + b > 0, dy, 0)`` for relu (the forward's rounding),
+    ``dx = g·s`` in x's dtype, ``dscale = Σg·x``, ``dshift = Σg``.
+    Returns ``(dx, dscale, dshift)`` as ``_epilogue_backward`` does."""
+    acc = _acc(x.dtype)
+    xf, g = x.to(acc), dy.to(acc)
+    s, b = scale.to(acc), shift.to(acc)
+    if act == "relu":
+        z = xf * s
+        z = z + b
+        g = torch.where(z > 0, g, 0.0)
+    elif act != "identity":
+        raise ValueError(f"activation {act!r} is not streamable")
+    dx = (g * s).to(x.dtype)
+    return dx, (g * xf).sum(0), g.sum(0)
+
+
+def channel_sums_plain(x2d: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``channel_sums``: ``[Σx, Σx²]`` over the rows of
+    an [M, C] view, as a [2, C] tensor in the accumulation dtype."""
+    xf = x2d.to(_acc(x2d.dtype))
+    return torch.stack([xf.sum(0), (xf * xf).sum(0)])
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+_P, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+
+
+def check_rows(fn: str, x: torch.Tensor, others=(), vectors=()) -> int:
+    """Validate a kernel's operands on the card and return C: ``x`` a
+    contiguous tensor of a kernel dtype with channels last, ``others``
+    tensors of x's dtype and shape, ``vectors`` contiguous float32 [C]
+    tensors, all on x's device."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{fn}: no kernel for device {x.device}")
+    if x.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"{fn}: x dtype {x.dtype} is not one of "
+                        f"{KERNEL_DTYPES}")
+    if x.dim() < 1 or not x.is_contiguous():
+        raise ValueError(f"{fn}: x must be contiguous with channels on "
+                         f"its last axis")
+    C = int(x.shape[-1])
+    for nm, t in others:
+        if t.device != x.device or t.dtype != x.dtype \
+                or t.shape != x.shape or not t.is_contiguous():
+            raise ValueError(f"{fn}: {nm} must be a contiguous {x.dtype} "
+                             f"{tuple(x.shape)} tensor on {x.device}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    for nm, t in vectors:
+        if t.device != x.device:
+            raise ValueError(f"{fn}: {nm} is on {t.device}, x on "
+                             f"{x.device}")
+        if t.dtype != torch.float32 or t.shape != (C,) \
+                or not t.is_contiguous():
+            raise ValueError(f"{fn}: {nm} must be a contiguous float32 "
+                             f"[{C}] tensor, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+    return C
+
+
+def contiguous(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as a contiguous tensor; a copy, where one is needed, is
+    counted in ``dl4j_conv_layout_copies_total``."""
+    if t.is_contiguous():
+        return t
+    _layout_copies.inc()
+    return t.contiguous()
+
+
+def raise_on_error(fn: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{fn}: CUDA launch failed with cudaError {rc}")
+
+
+def scale_shift_act_forward(x: torch.Tensor, scale: torch.Tensor,
+                            shift: torch.Tensor, act: str) -> torch.Tensor:
+    """The epilogue, no autograd: the kernel on a CUDA ``x``, the plain
+    version on a CPU ``x``."""
     if x.device.type == "cpu":
         return scale_shift_act_plain(x, scale, shift, act)
-    if x.device.type != "cuda":
-        raise ValueError(f"scale_shift_act: no kernel for device "
-                         f"{x.device}")
     if act not in STREAMABLE_ACTIVATIONS:
         raise ValueError(f"scale_shift_act: activation {act!r} is not "
                          f"streamable")
-    if x.dtype not in KERNEL_DTYPES:
-        raise TypeError(f"scale_shift_act: x dtype {x.dtype} is not one "
-                        f"of {KERNEL_DTYPES}")
-    if x.dim() < 1 or not x.is_contiguous():
-        raise ValueError("scale_shift_act: x must be contiguous with "
-                         "channels on its last axis")
-    C = int(x.shape[-1])
-    for nm, t in (("scale", scale), ("shift", shift)):
-        if t.device != x.device:
-            raise ValueError(f"scale_shift_act: {nm} is on {t.device}, "
-                             f"x on {x.device}")
-        if t.dtype != torch.float32 or t.shape != (C,) \
-                or not t.is_contiguous():
-            raise ValueError(f"scale_shift_act: {nm} must be a "
-                             f"contiguous float32 [{C}] tensor, got "
-                             f"{t.dtype} {tuple(t.shape)}")
+    C = check_rows("scale_shift_act", x,
+                   vectors=(("scale", scale), ("shift", shift)))
     y = torch.empty_like(x, memory_format=torch.contiguous_format)
     if x.numel() == 0:
         return y
-    fn = _kernel_fn()
+    fn = cuda_build.c_function(
+        "conv_epilogue", "dl4j_scale_shift_act",
+        [_P, _P, _P, _P, _I64, _I64, _INT, _INT, _P])
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(x.data_ptr(), y.data_ptr(), scale.data_ptr(),
-                shift.data_ptr(), x.numel() // C, C, _DTYPE_CODE[x.dtype],
+                shift.data_ptr(), x.numel() // C, C, DTYPE_CODE[x.dtype],
                 1 if act == "relu" else 0, stream)
-    if rc != 0:
-        raise RuntimeError(f"scale_shift_act: CUDA launch failed with "
-                           f"cudaError {rc}")
+    raise_on_error("scale_shift_act", rc)
     EPILOGUE.launched()
     return y
 
 
-def _kernel_fn():
-    lib = cuda_build.load_library("conv_epilogue")
-    fn = lib.dl4j_scale_shift_act
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+def column_workspace(x: torch.Tensor, M: int, C: int, lib: str,
+                     chunks_fn: str):
+    """The f32 ``[chunks, 2, C]`` partials workspace of a column
+    reduction and its ``[2, C]`` output, from torch's allocator. The
+    workspace is freed when the wrapper returns, before the kernel has
+    run; the caching allocator hands its block only to work queued
+    after the kernel on the same stream, so that is safe."""
+    fn = cuda_build.c_function(lib, chunks_fn, [_I64, _I64, _INT],
+                               ctypes.c_int64)
+    chunks = int(fn(M, C, DTYPE_CODE[x.dtype]))
+    partials = torch.empty((chunks, 2, C), dtype=torch.float32,
+                           device=x.device)
+    sums = torch.empty((2, C), dtype=torch.float32, device=x.device)
+    return partials, chunks, sums
+
+
+def epilogue_backward(x2d: torch.Tensor, dy2d: torch.Tensor,
+                      scale: torch.Tensor, shift: torch.Tensor, act: str
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dx, dscale, dshift)`` of the epilogue on an [M, C] view: the
+    kernel on the card, the plain version on the CPU."""
+    if x2d.device.type == "cpu":
+        return epilogue_backward_plain(x2d, dy2d, scale, shift, act)
+    if act not in STREAMABLE_ACTIVATIONS:
+        raise ValueError(f"epilogue_backward: activation {act!r} is not "
+                         f"streamable")
+    C = check_rows("epilogue_backward", x2d, others=(("dy", dy2d),),
+                   vectors=(("scale", scale), ("shift", shift)))
+    M = x2d.numel() // C
+    dx = torch.empty_like(x2d, memory_format=torch.contiguous_format)
+    if M == 0:
+        z = torch.zeros(C, dtype=torch.float32, device=x2d.device)
+        return dx, z, z.clone()
+    partials, chunks, sums = column_workspace(
+        x2d, M, C, "conv_epilogue", "dl4j_conv_epilogue_chunks")
+    fn = cuda_build.c_function(
+        "conv_epilogue", "dl4j_epilogue_backward",
+        [_P, _P, _P, _P, _P, _P, _I64, _P, _I64, _I64, _INT, _INT, _P])
+    with torch.cuda.device(x2d.device):
+        stream = torch.cuda.current_stream(x2d.device).cuda_stream
+        rc = fn(x2d.data_ptr(), dy2d.data_ptr(), dx.data_ptr(),
+                scale.data_ptr(), shift.data_ptr(), partials.data_ptr(),
+                chunks, sums.data_ptr(), M, C, DTYPE_CODE[x2d.dtype],
+                1 if act == "relu" else 0, stream)
+    raise_on_error("epilogue_backward", rc)
+    EPILOGUE_BWD.launched()
+    return dx, sums[1], sums[0]
+
+
+def channel_sums(x2d: torch.Tensor) -> torch.Tensor:
+    """``[Σx, Σx²]`` per channel of an [M, C] view as a [2, C] tensor:
+    the kernel on the card (f32 sums), the plain version on the CPU."""
+    if x2d.device.type == "cpu":
+        return channel_sums_plain(x2d)
+    C = check_rows("channel_sums", x2d)
+    M = x2d.numel() // C
+    if M == 0:
+        return torch.zeros((2, C), dtype=torch.float32, device=x2d.device)
+    partials, chunks, sums = column_workspace(
+        x2d, M, C, "conv_epilogue", "dl4j_conv_epilogue_chunks")
+    fn = cuda_build.c_function(
+        "conv_epilogue", "dl4j_channel_sums",
+        [_P, _P, _I64, _P, _I64, _I64, _INT, _P])
+    with torch.cuda.device(x2d.device):
+        stream = torch.cuda.current_stream(x2d.device).cuda_stream
+        rc = fn(x2d.data_ptr(), partials.data_ptr(), chunks,
+                sums.data_ptr(), M, C, DTYPE_CODE[x2d.dtype], stream)
+    raise_on_error("channel_sums", rc)
+    CHANNEL_SUMS.launched()
+    return sums
+
+
+# ---------------------------------------------------------------------------
+# differentiable building blocks
+# ---------------------------------------------------------------------------
+class _ScaleShiftAct(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, shift, act):
+        ctx.act = act
+        ctx.save_for_backward(x, scale, shift)
+        return scale_shift_act_forward(x, scale, shift, act)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale, shift = ctx.saved_tensors
+        C = x.shape[-1]
+        dx, dscale, dshift = epilogue_backward(
+            x.reshape(-1, C), contiguous(dy).reshape(-1, C), scale, shift,
+            ctx.act)
+        return (dx.reshape(x.shape), dscale.to(scale.dtype),
+                dshift.to(shift.dtype), None)
+
+
+def scale_shift_act(x: torch.Tensor, scale: torch.Tensor,
+                    shift: torch.Tensor, act: str) -> torch.Tensor:
+    """``act(x·scale + shift)`` with per-channel (last-axis) coefficients,
+    differentiable: the forward is the epilogue kernel, the backward the
+    epilogue-backward kernel (plain versions on the CPU)."""
+    return _ScaleShiftAct.apply(x, scale, shift, act)
+
+
+class _ChannelStats(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        C = x.shape[-1]
+        M = x.numel() // C
+        sums = channel_sums(x.reshape(M, C))
+        mean = sums[0] / M
+        var = torch.clamp(sums[1] / M - mean * mean, min=0.0)
+        ctx.save_for_backward(x, mean)
+        return mean, var
+
+    @staticmethod
+    def backward(ctx, dmean, dvar):
+        x, mean = ctx.saved_tensors
+        inv_m = 1.0 / (x.numel() // x.shape[-1])
+        dv = dvar.to(mean.dtype)
+        scale = 2.0 * dv * inv_m
+        shift = (dmean.to(mean.dtype) - 2.0 * mean * dv) * inv_m
+        return scale_shift_act_forward(x, scale.contiguous(),
+                                       shift.contiguous(), "identity")
+
+
+def channel_stats(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-channel ``(mean, var)`` over every leading axis, var the
+    biased batch variance ``E[x²] − mean²`` clamped at 0, from one read
+    of x (``channel_sums``). Differentiable: the backward is the
+    epilogue with identity."""
+    return _ChannelStats.apply(contiguous(x))
 
 
 # ---------------------------------------------------------------------------
@@ -187,7 +422,8 @@ def conv_forward(x: torch.Tensor, w: torch.Tensor, *,
                  activation=None) -> torch.Tensor:
     """2-D convolution of NHWC ``x`` with an OIHW ``w``, plus its
     bias/activation epilogue: through the epilogue when the ladder
-    admits the site, otherwise the plain lowering. ``padding`` is
+    admits the site (the bias gradient then comes back as the
+    epilogue's dshift), otherwise the plain lowering. ``padding`` is
     ``"SAME"`` or ``[(lo, hi), (lo, hi)]``.
 
     ``x.permute(0, 3, 1, 2)`` is a channels-last NCHW view, so the
@@ -221,15 +457,42 @@ def conv_forward(x: torch.Tensor, w: torch.Tensor, *,
     z = z.permute(0, 2, 3, 1)
     if not sel.fused:
         return act(z)
-    if not z.is_contiguous():
-        _layout_copies.inc()
-        z = z.contiguous()
     _fused_steps.inc(site="conv")
-    acc = torch.promote_types(x.dtype, torch.float32)
+    acc = _acc(x.dtype)
     shift = (bias.to(acc) if bias is not None
              else torch.zeros(n_out, dtype=acc, device=x.device))
-    return scale_shift_act(z, torch.ones(n_out, dtype=acc, device=x.device),
+    return scale_shift_act(contiguous(z),
+                           torch.ones(n_out, dtype=acc, device=x.device),
                            shift, act_name)
+
+
+def maybe_fused_bn_train(x: torch.Tensor, gamma: torch.Tensor,
+                         beta: torch.Tensor, eps: float, activation
+                         ) -> Optional[Tuple[torch.Tensor, torch.Tensor,
+                                             torch.Tensor]]:
+    """Training-mode BN forward on the epilogue family: channel
+    statistics, then the normalize with the activation streamed in.
+    Returns ``(y, mean, var)`` with the activation applied, or None when
+    the ``bn_fwd`` ladder demotes the site (the caller runs the plain
+    math). Used when the fused BN backward is off; with it on,
+    ``ops/bn_train.bn_forward_math`` reaches the same kernels."""
+    sel = select_bn_forward(x.shape, x.dtype, training=True,
+                            device=x.device)
+    if not sel.fused:
+        return None
+    _fused_steps.inc(site="bn_train")
+    acc = _acc(x.dtype)
+    x = contiguous(x)
+    mean, var = channel_stats(x)
+    rstd = torch.rsqrt(var + eps)
+    scale = gamma.to(acc) * rstd
+    shift = beta.to(acc) - mean * scale
+    act_name = activation.value
+    if act_name in STREAMABLE_ACTIVATIONS:
+        y = scale_shift_act(x, scale, shift, act_name)
+    else:
+        y = activation(scale_shift_act(x, scale, shift, "identity"))
+    return y, mean, var
 
 
 def maybe_bn_inference_epilogue(x: torch.Tensor, scale: torch.Tensor,
@@ -244,7 +507,4 @@ def maybe_bn_inference_epilogue(x: torch.Tensor, scale: torch.Tensor,
     if not sel.fused:
         return None
     _fused_steps.inc(site="bn_infer")
-    if not x.is_contiguous():
-        _layout_copies.inc()
-        x = x.contiguous()
-    return scale_shift_act(x, scale, shift, act_name)
+    return scale_shift_act(contiguous(x), scale, shift, act_name)

@@ -4,8 +4,10 @@ Each ``csrc/<name>.cu`` is compiled on first use by ``nvcc`` into its
 own shared library with a plain C interface, and loaded with
 ``ctypes``. No PyTorch header is included, so a build takes seconds.
 Libraries land in ``build/torch_kernels/`` at the root of the checkout,
-named by a hash of the source and the flags: an edit to either builds
-anew, an unchanged tree loads what is there.
+named by a hash of the source, the shared headers (``csrc/*.cuh``) and
+the flags: an edit to any of them builds anew, an unchanged tree loads
+what is there. Different sources may build at the same time (one lock
+per source), so a caller can start every nvcc at once.
 
 A :class:`Kernel` names one kernel: its source, the TPU kernel it
 replaces, and ``launches``, the count of launches its wrapper made.
@@ -33,7 +35,8 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_lock = threading.Lock()
+_locks_lock = threading.Lock()
+_locks: Dict[str, threading.Lock] = {}
 _libs: Dict[str, ctypes.CDLL] = {}
 #: name -> {"seconds": build wall time (0.0 when loaded from disk),
 #: "log": nvcc's output, "path": the library}
@@ -56,6 +59,9 @@ def nvcc_path() -> str:
 def _library_path(name: str) -> Path:
     h = hashlib.sha256()
     h.update((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
@@ -64,7 +70,9 @@ def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless its library is already built;
     records the wall time and nvcc's output in :data:`build_info` and
     returns the library's path."""
-    with _lock:
+    with _locks_lock:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         out = _library_path(name)
         if out.exists():
             build_info.setdefault(name, {"seconds": 0.0, "log": "",
@@ -93,6 +101,17 @@ def load_library(name: str) -> ctypes.CDLL:
     if lib is None:
         lib = _libs.setdefault(name, ctypes.CDLL(str(build(name))))
     return lib
+
+
+def c_function(library: str, name: str, argtypes, restype=ctypes.c_int):
+    """The C function ``name`` of ``csrc/<library>.cu`` with its
+    ``argtypes`` and ``restype`` declared (without them ctypes passes a
+    64-bit pointer as a 32-bit int)."""
+    fn = getattr(load_library(library), name)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = restype
+    return fn
 
 
 class Kernel:

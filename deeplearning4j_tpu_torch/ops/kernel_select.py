@@ -29,9 +29,13 @@ from deeplearning4j_tpu_torch.common.environment import Environment
 log = logging.getLogger(__name__)
 
 #: kernel family -> (Environment.extra key, env var) for the tri-state
-#: force/kill override
+#: force/kill override. The conv epilogue and the training-BN forward
+#: (channel statistics + normalize) ride one gate, as in the JAX package:
+#: the epilogue writes what the statistics pass reads.
 GATES = {
     "conv_epilogue": ("fused_conv", "DL4J_TORCH_FUSED_CONV"),
+    "bn_fwd": ("fused_conv", "DL4J_TORCH_FUSED_CONV"),
+    "bn_bwd": ("fused_bn_bwd", "DL4J_TORCH_FUSED_BN_BWD"),
 }
 
 DECISIONS = ("structural", "forced", "killed", "auto_fused", "auto_dense")

@@ -55,7 +55,7 @@ class ParallelInference:
             "model forwards run by ParallelInference and its batchers"
         ).inc()
         with torch.inference_mode():
-            acts = m._forward(m.params, m.states, [m._as_input(x)])
+            acts, _ = m._forward(m.params, m.states, [m._as_input(x)])
             return acts[m.conf.network_outputs[0]].cpu().numpy()
 
     def output(self, x) -> np.ndarray:

@@ -7,10 +7,15 @@ flat ``"<vertex>/<name>"`` npz keys, so a zip either package writes
 restores in the other.
 
 Weights cross at this boundary: the JAX package keeps conv kernels HWIO
-and the port OIHW (:func:`params_from_jax` / :func:`params_to_jax`);
+and the port OIHW (:func:`params_from_jax` / :func:`params_to_jax`, for
+a ComputationGraph's vertices or a MultiLayerNetwork's ``layer_<i>``);
 dense ``W`` stays ``[n_in, n_out]``; BatchNormalization ``mean``/``var``
-come from ``modelState.npz``. The port has no updater state yet, so it
-neither reads nor writes ``updaterState.npz``.
+come from ``modelState.npz``. Updater state crosses the same way
+(:func:`updater_state_from_jax` / :func:`updater_state_to_jax`: each
+slot of a conv kernel moves between HWIO and OIHW). The zips themselves
+do not carry updater state yet: ``restore_model`` reads and
+``write_model`` writes no ``updaterState.npz``, and restores
+ComputationGraph zips only.
 """
 from __future__ import annotations
 
@@ -23,6 +28,8 @@ from typing import Dict, Tuple, Union
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.nn.conf.builders import \
+    MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.conf.graph_conf import \
     ComputationGraphConfiguration
 from deeplearning4j_tpu_torch.nn.conf.layers import ConvolutionLayer
@@ -34,69 +41,105 @@ STATE_ENTRY = "modelState.npz"
 META_ENTRY = "meta.json"
 
 _Tree = Dict[str, Dict[str, torch.Tensor]]
+_Conf = Union[ComputationGraphConfiguration, MultiLayerConfiguration]
 
 
-def _flatten(tree: dict) -> Dict[str, np.ndarray]:
-    """``{vertex: {name: array}}`` or already-flat ``{"v/n": array}``
-    -> flat ``{"v/n": ndarray}``."""
-    flat = {}
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            for n, a in v.items():
-                flat[f"{k}/{n}"] = np.asarray(a)
-        else:
-            flat[k] = np.asarray(v)
-    return flat
+def _flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
+    """A nested ``{key: {...: array}}`` tree, or an already-flat
+    ``{"a/b": array}`` dict, as flat ``{"a/b": ndarray}``; empty
+    containers (a stateless updater's ``()``) hold nothing."""
+    if isinstance(tree, dict):
+        flat = {}
+        for k in tree:
+            flat.update(_flatten(tree[k], f"{prefix}{k}/"))
+        return flat
+    if isinstance(tree, (list, tuple)):
+        return {}
+    return {prefix[:-1]: np.asarray(tree)}
 
 
-def _unflatten(flat: Dict[str, np.ndarray], conf) -> Dict[str, dict]:
-    tree: Dict[str, dict] = {name: {} for name in conf.vertices}
-    for key, a in flat.items():
-        vertex, _, name = key.rpartition("/")
-        if vertex not in tree:
-            raise ValueError(f"checkpoint entry {key!r} names no vertex "
-                             f"of the configuration")
-        tree[vertex][name] = a
-    return tree
+def _keys(conf: _Conf):
+    if isinstance(conf, MultiLayerConfiguration):
+        return [f"layer_{i}" for i in range(len(conf.layers))]
+    return list(conf.vertices)
 
 
-def _is_conv_kernel(conf, vertex: str, name: str) -> bool:
-    v = conf.vertices[vertex]
-    return name == "W" and isinstance(v.content, ConvolutionLayer)
+def _is_conv_kernel(conf: _Conf, key: str, name: str) -> bool:
+    if name != "W":
+        return False
+    if isinstance(conf, MultiLayerConfiguration):
+        layer = conf.layers[int(key.split("_")[1])]
+    else:
+        layer = conf.vertices[key].content
+    return isinstance(layer, ConvolutionLayer)
 
 
-def params_from_jax(params_np: dict, states_np: dict,
-                    conf: ComputationGraphConfiguration
+def _split_key(conf: _Conf, flat: Dict[str, np.ndarray]):
+    """Yield ``(key, path, name, array)`` for each flat entry
+    ``"key/path.../name"``, checking that ``key`` is the configuration's."""
+    keys = set(_keys(conf))
+    for full, a in flat.items():
+        key, *path, name = full.split("/")
+        if key not in keys:
+            raise ValueError(f"checkpoint entry {full!r} names no vertex "
+                             f"or layer of the configuration")
+        yield key, path, name, a
+
+
+def _to_port(conf, key, name, a) -> torch.Tensor:
+    if _is_conv_kernel(conf, key, name):
+        a = np.transpose(a, (3, 2, 0, 1))             # HWIO -> OIHW
+    return torch.from_numpy(np.array(a))
+
+
+def _to_jax(conf, key, name, t: torch.Tensor) -> np.ndarray:
+    a = t.detach().cpu().numpy()
+    if _is_conv_kernel(conf, key, name):
+        a = np.transpose(a, (2, 3, 1, 0))             # OIHW -> HWIO
+    return np.ascontiguousarray(a)
+
+
+def params_from_jax(params_np: dict, states_np: dict, conf: _Conf
                     ) -> Tuple[_Tree, _Tree]:
-    """The JAX package's numpy trees (flat npz keys or nested by vertex)
-    as the port's CPU tensors: conv kernels HWIO -> OIHW, the rest
-    as they are."""
-    params: _Tree = {}
-    for vertex, sub in _unflatten(_flatten(params_np), conf).items():
-        params[vertex] = {}
-        for name, a in sub.items():
-            if _is_conv_kernel(conf, vertex, name):
-                a = np.transpose(a, (3, 2, 0, 1))
-            params[vertex][name] = torch.from_numpy(np.array(a))
-    states = {vertex: {name: torch.from_numpy(np.array(a))
-                       for name, a in sub.items()}
-              for vertex, sub in _unflatten(_flatten(states_np),
-                                            conf).items()}
+    """The JAX package's numpy trees (flat npz keys or nested by vertex
+    or ``layer_<i>``) as the port's CPU tensors: conv kernels HWIO ->
+    OIHW, the rest as they are."""
+    params: _Tree = {k: {} for k in _keys(conf)}
+    for key, _, name, a in _split_key(conf, _flatten(params_np)):
+        params[key][name] = _to_port(conf, key, name, a)
+    states: _Tree = {k: {} for k in _keys(conf)}
+    for key, _, name, a in _split_key(conf, _flatten(states_np)):
+        states[key][name] = torch.from_numpy(np.array(a))
     return params, states
 
 
-def params_to_jax(params: _Tree, conf: ComputationGraphConfiguration
-                  ) -> Dict[str, np.ndarray]:
+def params_to_jax(params: _Tree, conf: _Conf) -> Dict[str, np.ndarray]:
     """The inverse of :func:`params_from_jax` for parameters: flat npz
     keys, conv kernels OIHW -> HWIO."""
-    flat = {}
-    for vertex in sorted(params):
-        for name in sorted(params[vertex]):
-            a = params[vertex][name].detach().cpu().numpy()
-            if _is_conv_kernel(conf, vertex, name):
-                a = np.transpose(a, (2, 3, 1, 0))
-            flat[f"{vertex}/{name}"] = np.ascontiguousarray(a)
-    return flat
+    return {f"{key}/{name}": _to_jax(conf, key, name, params[key][name])
+            for key in sorted(params) for name in sorted(params[key])}
+
+
+def updater_state_from_jax(upd_np: dict, conf: _Conf
+                           ) -> Dict[str, Dict[str, _Tree]]:
+    """The JAX package's updater state (``{key: {slot: {name: array}}}``
+    nested, or flat ``"key/slot/name"`` npz keys) as the port's
+    ``{key: {slot: {name: tensor}}}``: each slot of a conv kernel HWIO ->
+    OIHW."""
+    out: Dict[str, Dict[str, _Tree]] = {k: {} for k in _keys(conf)}
+    for key, path, name, a in _split_key(conf, _flatten(upd_np)):
+        slot = "/".join(path)
+        out[key].setdefault(slot, {})[name] = _to_port(conf, key, name, a)
+    return out
+
+
+def updater_state_to_jax(upd: Dict[str, Dict[str, _Tree]], conf: _Conf
+                         ) -> Dict[str, np.ndarray]:
+    """The inverse of :func:`updater_state_from_jax`: flat
+    ``"key/slot/name"`` keys, conv kernel slots OIHW -> HWIO."""
+    return {f"{key}/{slot}/{name}": _to_jax(conf, key, name, t)
+            for key in sorted(upd) for slot in sorted(upd[key])
+            for name, t in sorted(upd[key][slot].items())}
 
 
 def _read_npz(zf: zipfile.ZipFile, name: str) -> dict:

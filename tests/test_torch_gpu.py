@@ -72,3 +72,170 @@ def test_resnet50_forward_launches_53_epilogues_on_card(compute_dtype):
     torch.cuda.synchronize()
     assert ce.EPILOGUE.launches - n0 == 53
     assert out.shape == (2, 1000) and bool(torch.isfinite(out).all())
+
+
+# ---------------------------------------------------------------------------
+# the training kernels: epilogue backward, channel sums, BN backward
+# ---------------------------------------------------------------------------
+#: |kernel - plain| <= SUM_RTOL * sum|terms| per channel: both sum the
+#: same f32 terms in different orders; at these shapes the kernel's
+#: summation depth is under ~200 additions (worst case 200 * 2^-24 =
+#: 1.2e-5 relative to sum|terms|), torch's reduction adds its own,
+#: bounded the same way
+SUM_RTOL = 2e-5
+TRAIN_SHAPES = [(401408, 64), (100352, 256), (1568, 2048), (100353, 64),
+                (18432, 20), (2048, 50), (777, 3)]
+
+
+def _rand(M, C, dtype, g):
+    return torch.randn(M, C, device="cuda", generator=g).to(
+        getattr(torch, dtype))
+
+
+def _sums_close(got, want, terms_abs, what):
+    err = (got - want).abs()
+    assert bool((err <= SUM_RTOL * terms_abs + 1e-30).all()), (
+        f"{what}: max err {float(err.max())}, bound "
+        f"{float((SUM_RTOL * terms_abs).min())}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", TRAIN_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("act", ["relu", "identity"])
+def test_epilogue_backward_kernel_matches_plain(shape, dtype, act):
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(1)
+    M, C = shape
+    x, dy = _rand(M, C, dtype, g), _rand(M, C, dtype, g)
+    s = torch.randn(C, device="cuda", generator=g)
+    b = torch.randn(C, device="cuda", generator=g)
+    n0 = ce.EPILOGUE_BWD.launches
+    dx, dscale, dshift = ce.epilogue_backward(x, dy, s, b, act)
+    dx2, dscale2, dshift2 = ce.epilogue_backward(x, dy, s, b, act)
+    rdx, rdscale, rdshift = ce.epilogue_backward_plain(x, dy, s, b, act)
+    torch.cuda.synchronize()
+    assert ce.EPILOGUE_BWD.launches == n0 + 2
+    assert dx.dtype == x.dtype and torch.equal(dx, rdx)
+    assert torch.equal(dscale, dscale2) and torch.equal(dshift, dshift2)
+    xf, g_abs = x.float(), dy.float().abs()
+    if act == "relu":
+        g_abs = torch.where(xf * s + b > 0, g_abs, 0.0)
+    _sums_close(dshift, rdshift, g_abs.sum(0), "dshift")
+    _sums_close(dscale, rdscale, (g_abs * xf.abs()).sum(0), "dscale")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", TRAIN_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_channel_sums_kernel_matches_plain(shape, dtype):
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(2)
+    M, C = shape
+    x = _rand(M, C, dtype, g) + 0.5
+    n0 = ce.CHANNEL_SUMS.launches
+    got, again = ce.channel_sums(x), ce.channel_sums(x)
+    want = ce.channel_sums_plain(x)
+    torch.cuda.synchronize()
+    assert ce.CHANNEL_SUMS.launches == n0 + 2 and torch.equal(got, again)
+    terms = ce.channel_sums_plain(x.abs())
+    _sums_close(got, want, terms, "channel_sums")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", TRAIN_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_bn_backward_kernels_match_plain(shape, dtype):
+    from deeplearning4j_tpu_torch.ops import bn_train as bt
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(3)
+    M, C = shape
+    x, dy = _rand(M, C, dtype, g), _rand(M, C, dtype, g)
+    mean = 0.1 * torch.randn(C, device="cuda", generator=g)
+    rstd = torch.rand(C, device="cuda", generator=g) + 0.5
+    n0, n1 = bt.BN_BWD_SUMS.launches, bt.BN_BWD_DX.launches
+    sdy, sdyx = bt.bn_bwd_sums(x, dy, mean, rstd)
+    sdy2, sdyx2 = bt.bn_bwd_sums(x, dy, mean, rstd)
+    rsdy, rsdyx = bt.bn_bwd_sums_plain(x, dy, mean, rstd)
+    a, d, e = (torch.randn(C, device="cuda", generator=g) for _ in range(3))
+    dx = bt.bn_bwd_dx(x, dy, a, d, e)
+    torch.cuda.synchronize()
+    assert bt.BN_BWD_SUMS.launches == n0 + 2
+    assert bt.BN_BWD_DX.launches == n1 + 1
+    assert torch.equal(sdy, sdy2) and torch.equal(sdyx, sdyx2)
+    t_dy, t_dyx = bt.bn_bwd_sums_plain((x.float() - mean).abs(),
+                                       dy.abs(), torch.zeros_like(mean),
+                                       rstd)
+    _sums_close(sdy, rsdy, t_dy, "sum dy")
+    _sums_close(sdyx, rsdyx, t_dyx, "sum dy*xhat")
+    want = bt.bn_bwd_dx_plain(x, dy, a, d, e)
+    assert dx.dtype == x.dtype and torch.equal(dx, want)
+
+
+@pytest.mark.gpu
+def test_training_kernels_reject_what_they_do_not_take():
+    from deeplearning4j_tpu_torch.ops import bn_train as bt
+    _need_card()
+    x = torch.randn(64, 8, device="cuda")
+    v = torch.ones(8, device="cuda")
+    with pytest.raises(TypeError):
+        ce.channel_sums(x.double())
+    with pytest.raises(ValueError):
+        ce.epilogue_backward(x, x.half(), v, v, "relu")
+    with pytest.raises(ValueError):
+        bt.bn_bwd_sums(x, x, v.cpu(), v)
+    with pytest.raises(ValueError):
+        bt.bn_bwd_dx(x, x.t().contiguous().t(), v, v, v)
+
+
+def _counts():
+    from deeplearning4j_tpu_torch.ops import cuda_build
+    return {k: v.launches for k, v in cuda_build.KERNELS.items()}
+
+
+def _delta(before):
+    return {k: n - before[k] for k, n in _counts().items()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gates,want", [
+    ({}, {"channel_sums": 53, "scale_shift_act": 53, "bn_bwd_sums": 53,
+          "bn_bwd_dx": 53, "epilogue_backward": 0}),
+    ({"DL4J_TORCH_FUSED_BN_BWD": "0"},
+     {"channel_sums": 53, "scale_shift_act": 106, "bn_bwd_sums": 0,
+      "bn_bwd_dx": 0, "epilogue_backward": 53}),
+    ({"DL4J_TORCH_FUSED_BN_BWD": "0", "DL4J_TORCH_FUSED_CONV": "0"},
+     {"channel_sums": 0, "scale_shift_act": 0, "bn_bwd_sums": 0,
+      "bn_bwd_dx": 0, "epilogue_backward": 0}),
+])
+def test_resnet50_train_step_launches_on_card(gates, want, monkeypatch):
+    """One training step of ResNet-50 at 64x64 on the card: the fused
+    backward path launches kernels 3, 1, 5 and 6 at each of the 53
+    BatchNormalization sites; with it killed, kernel 2 and kernel 1
+    twice; the plain math only with both gates killed."""
+    _need_card()
+    from deeplearning4j_tpu_torch.models.zoo import ResNet50
+    for k, v in gates.items():
+        monkeypatch.setenv(k, v)
+    net = ResNet50(height=64, width=64, num_classes=10).init("cuda")
+    x = torch.randn(2, 64, 64, 3, device="cuda")
+    y = torch.eye(10, device="cuda")[:2]
+    before = _counts()
+    net.fit(x, y)
+    torch.cuda.synchronize()
+    assert _delta(before) == want
+    assert torch.isfinite(torch.tensor(net.score()))
+
+
+@pytest.mark.gpu
+def test_lenet_train_step_launches_kernels_1_and_2_twice():
+    _need_card()
+    from deeplearning4j_tpu_torch.models.zoo import LeNet
+    net = LeNet().init("cuda")
+    x = torch.rand(8, 784, device="cuda")
+    y = torch.eye(10, device="cuda")[:8]
+    before = _counts()
+    net.fit(x, y)
+    torch.cuda.synchronize()
+    d = _delta(before)
+    assert d["scale_shift_act"] == 2 and d["epilogue_backward"] == 2

@@ -93,8 +93,20 @@ def test_dense_and_batchnorm_inference_match_jax():
                         state={k: torch.from_numpy(v) for k, v in s.items()})
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
                                atol=1e-5)
-    with pytest.raises(NotImplementedError):
-        tb.forward({}, torch.from_numpy(x), training=True, state={})
+    # training normalizes with the batch statistics and blends the
+    # running stats by decay from the biased batch variance, as in JAX
+    want, wst = jb.forward({k: jnp.asarray(v) for k, v in p.items()},
+                           jnp.asarray(x), training=True,
+                           state={k: jnp.asarray(v) for k, v in s.items()})
+    got, gst = tb.forward({k: torch.from_numpy(v) for k, v in p.items()},
+                          torch.from_numpy(x), training=True,
+                          state={k: torch.from_numpy(v)
+                                 for k, v in s.items()})
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    for k in ("mean", "var"):
+        np.testing.assert_allclose(gst[k].numpy(), np.asarray(wst[k]),
+                                   rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.parametrize("wi,std", [
