@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive deeplearning4j_tpu_torch's main paths on one CUDA card: serving
 ResNet-50, training ResNet-50 (ComputationGraph) and training LeNet-5
-(MultiLayerNetwork).
+(MultiLayerNetwork), BERT-base inference and pretraining.
 
 Run from the root of a checkout, with no arguments, on a machine with
 one NVIDIA H100 (it fails without a card, and without the package):
@@ -46,19 +46,41 @@ Phases, each of which fails the run (exit 1) when its check fails:
    ``fit(iterator)`` on the synthetic MNIST surrogate; the loss falls,
    kernels 1 and 2 launch twice a step;
 8. weights across: the JAX package's bundled ``resnet_cifar.zip``
-   restored on the card and on the CPU, outputs compared.
+   restored on the card and on the CPU, outputs compared;
+9. flash kernels: the attention forward (7), dq (8) and dk/dv (9)
+   against their plain versions at BERT-base's sites (batch 32, 12
+   heads of 64; t=128 with padded key masks and one fully masked
+   sequence, t=512), a causal case and an odd one (t=200, d=32), f32
+   and bf16: within the reference's bars, bitwise across two launches,
+   fully masked rows exactly 0, no NaN; then each kernel's time over the
+   12 sites of a step (CUDA-graph replay) beside its bound and
+   ``F.scaled_dot_product_attention``;
+10. BERT serving: full-width BERT-base (seeded weights) at batch 32,
+    ``Bert.output`` and ``BertForSequenceClassification.predict`` at
+    t=128 with padded masks and ``Bert.output`` at t=512, counts reset
+    before and read after (12 launches of kernel 7 a forward, none of 8
+    or 9); padding isolated bitwise; ms a forward, sequences/s, the idle
+    share; a bf16 ``compute_dtype`` forward;
+11. BERT pretraining: batch 32, t=128, 20 predictions a sequence, NSP,
+    hidden dropout 0.1, attention dropout 0, Adam(1e-4), 10 ``fit_batch``
+    steps on one seeded batch (12 launches each of kernels 7, 8, 9 a
+    step; the loss falls), then 3 classifier fine-tuning steps; card
+    against CPU at 2 layers (forward, and one SGD step norm-wise against
+    a float64 step).
 
 Then one JSON line of kernel records (each kernel's times from its own
 timing phase, its launches from the path that carries it), the
 ``nvidia-smi`` line, and the last line ``{"ok": true, "device": {...}}``.
 
 TF32: the served and trained paths run with PyTorch's defaults (cuDNN
-convolutions in TF32, matmuls in full f32); each comparison states its
+convolutions in TF32, matmuls in full f32: BERT's matmuls run in full
+f32, and the run prints the precision); each comparison states its
 setting.
 """
 from __future__ import annotations
 
 import concurrent.futures
+import dataclasses
 import io
 import json
 import os
@@ -572,12 +594,21 @@ def profile_device(torch, fn, wall_ms: float, what: str) -> dict:
         for _ in range(3):
             fn()
         torch.cuda.synchronize()
-    rows = []
+    rows, scopes = [], {}
     for e in prof.key_averages():
         dev_us = getattr(e, "device_time_total", None)
         if dev_us is None:
             dev_us = getattr(e, "cuda_time_total", 0)
-        if dev_us and "CUDA" in str(getattr(e, "device_type", "")):
+        on_device = "CUDA" in str(getattr(e, "device_type", ""))
+        if e.key.startswith("dl4j."):
+            # a layerprof scope, kept apart from the busy sum (which
+            # counts each kernel once): its host row carries the device
+            # time of the kernels launched inside it, its device row the
+            # span from its first kernel's start to its last one's end
+            sc = scopes.setdefault(e.key, {"kernels_ms": 0.0,
+                                           "span_ms": 0.0})
+            sc["span_ms" if on_device else "kernels_ms"] += dev_us / 3e3
+        elif dev_us and on_device:
             rows.append((e.key, dev_us / 3e3, e.count // 3))
     rows.sort(key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
@@ -589,9 +620,17 @@ def profile_device(torch, fn, wall_ms: float, what: str) -> dict:
           f"{wall_ms:.3f} ms, idle share {idle:.3f}")
     for key, ms, n in rows[:12]:
         print(f"[profile]   {ms:8.3f} ms  x{n:<4d} {key[:90]}")
+    for key, sc in sorted(scopes.items(),
+                          key=lambda kv: -kv[1]["kernels_ms"]):
+        print(f"[profile]   scope {key}: kernels {sc['kernels_ms']:.3f} ms"
+              f", device span {sc['span_ms']:.3f} ms")
+    if scopes:
+        scoped = sum(sc["kernels_ms"] for sc in scopes.values())
+        print(f"[profile]   outside the scopes (autograd's backward, ...): "
+              f"{busy_ms - scoped:.3f} ms")
     return {"device_busy_ms": busy_ms, "idle_share": idle,
             "top": [{"kernel": k[:120], "ms": ms, "calls": n}
-                    for k, ms, n in rows[:20]]}
+                    for k, ms, n in rows[:20]], "scopes": scopes}
 
 
 # ---------------------------------------------------------------------------
@@ -1089,6 +1128,498 @@ def phase_weights_across(torch) -> dict:
 
 
 # ---------------------------------------------------------------------------
+#: BERT-base's attention sites: one per layer, 12 heads of 64
+BERT_LAYERS, BERT_HEADS, HEAD_DIM = 12, 12, 64
+#: H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet)
+BF16_FLOPS = 989e12
+FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+#: kernel against plain version: the reference's own bars in f32
+#: (tests/test_attention_pallas.py:38,75: forward 2e-5, gradients rtol
+#: 2e-4 / atol 2e-5); bf16 outputs may differ by a bf16 rounding (2^-8)
+FLASH_TOL = {"float32": ((2e-5, 2e-5), (2e-4, 2e-5)),
+             "bfloat16": ((2e-2, 2e-2), (2e-2, 2e-2))}
+
+
+def _key_mask(torch, g, b: int, t: int, kind: str, device: str):
+    """``padded``: lengths from t/2 to t, the first sequence full and the
+    second fully masked; ``none``: no mask."""
+    if kind == "none":
+        return None
+    lengths = torch.randint(t // 2, t + 1, (b,), generator=g,
+                            device=g.device)
+    lengths[0] = t
+    if b > 1:
+        lengths[1] = 0
+    return (torch.arange(t, device=g.device)[None] < lengths[:, None]
+            ).float().to(device)
+
+
+def _flash_check(torch, sq, b, h, tq, tk, d, dt, causal, kind, g, errs):
+    """Kernels 7, 8, 9 against their plain versions on one shape:
+    tolerances FLASH_TOL, bitwise equal across two launches, no NaN, and
+    the fully masked sequence's output and gradients exactly 0."""
+    what = f"[{b},{h},{tq},{tk},{d}] {str(dt)[6:]} causal={causal} {kind}"
+    q, do = (torch.randn(b, h, tq, d, device="cuda", generator=g).to(dt)
+             for _ in range(2))
+    k, v = (torch.randn(b, h, tk, d, device="cuda", generator=g).to(dt)
+            for _ in range(2))
+    mask = _key_mask(torch, g, b, tk, kind, "cuda")
+    out, lse = sq.flash_forward(q, k, v, mask, causal)
+    out2, lse2 = sq.flash_forward(q, k, v, mask, causal)
+    delta = sq.flash_delta(out, do)
+    dq = sq.flash_bwd_dq(q, k, v, do, lse, delta, mask, causal)
+    dk, dv = sq.flash_bwd_dkv(q, k, v, do, lse, delta, mask, causal)
+    dq2 = sq.flash_bwd_dq(q, k, v, do, lse, delta, mask, causal)
+    dk2, dv2 = sq.flash_bwd_dkv(q, k, v, do, lse, delta, mask, causal)
+    r_out, r_lse = sq.flash_forward_plain(q, k, v, mask, causal)
+    r_dq = sq.flash_dq_plain(q, k, v, do, lse, delta, mask, causal)
+    r_dk, r_dv = sq.flash_dkv_plain(q, k, v, do, lse, delta, mask, causal)
+    torch.cuda.synchronize()
+    for nm, a, a2 in (("out", out, out2), ("lse", lse, lse2),
+                      ("dq", dq, dq2), ("dk", dk, dk2), ("dv", dv, dv2)):
+        check(torch.equal(a, a2), f"{nm} {what}: two launches differ")
+    (f_rtol, f_atol), (g_rtol, g_atol) = FLASH_TOL[str(dt)[6:]]
+    for name, pairs, rtol, atol in (
+            ("flash_fwd", (("out", out, r_out), ("lse", lse, r_lse)),
+             f_rtol, f_atol),
+            ("flash_bwd_dq", (("dq", dq, r_dq),), g_rtol, g_atol),
+            ("flash_bwd_dkv", (("dk", dk, r_dk), ("dv", dv, r_dv)),
+             g_rtol, g_atol)):
+        for nm, got, want in pairs:
+            got, want = got.float(), want.float()
+            check(not bool(torch.isnan(got).any()), f"{nm} {what}: NaN")
+            err = float((got - want).abs().max())
+            check(bool(torch.allclose(got, want, rtol=rtol, atol=atol)),
+                  f"{nm} {what}: max |kernel - plain| {err:.3e} beyond "
+                  f"rtol {rtol} atol {atol}")
+            if dt == torch.float32:
+                errs[name] = max(errs[name], err)
+    if kind == "padded" and b > 1:
+        for nm, t in (("out", out[1]), ("dq", dq[1]), ("dk", dk[1]),
+                      ("dv", dv[1])):
+            check(not bool(t.any()),
+                  f"{nm} {what}: the fully masked sequence is not 0")
+
+
+def _flash_costs(name: str, bh: int, t: int, d: int, esize: int):
+    """(bytes, operations) of one non-causal site of ``name``: each input
+    read once and each output written once (the key mask and the f32
+    lse/delta rows included); 2 operations a multiply-add."""
+    tile = bh * t * d * esize
+    mask = bh // BERT_HEADS * t * 4
+    if name == "flash_fwd":           # q, k, v -> out, lse
+        return 4 * tile + mask + bh * t * 4, 4 * bh * t * t * d
+    if name == "flash_bwd_dq":        # q, k, v, dO, lse, delta -> dq
+        return 5 * tile + mask + 2 * bh * t * 4, 6 * bh * t * t * d
+    return 6 * tile + mask + 2 * bh * t * 4, 8 * bh * t * t * d
+
+
+def _bound(bytes_: int, ops: int, peak: float):
+    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, ops / peak
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def phase_flash_kernels(torch) -> dict:
+    """Kernels 7, 8 and 9 against their plain versions at BERT-base's
+    site shapes and three more, f32 and bf16; then the times of each
+    over the 12 sites of a batch-32 BERT-base step (CUDA-graph replay),
+    beside the bound and ``F.scaled_dot_product_attention``."""
+    import torch.nn.functional as F
+
+    from deeplearning4j_tpu_torch.parallel import sequence as sq
+    g = torch.Generator(device="cuda").manual_seed(17)
+    errs = {k: 0.0 for k in FLASH_KERNELS}
+    shapes = [(BATCH, BERT_HEADS, 128, 128, HEAD_DIM, False, "padded"),
+              (BATCH, BERT_HEADS, 512, 512, HEAD_DIM, False, "padded"),
+              (4, BERT_HEADS, 256, 256, HEAD_DIM, True, "none"),
+              (4, 4, 200, 200, 32, False, "padded")]
+    for shape in shapes:
+        for dt in (torch.float32, torch.bfloat16):
+            _flash_check(torch, sq, *shape[:5], dt, shape[5], shape[6], g,
+                         errs)
+        torch.cuda.empty_cache()
+    print(f"[flash] flash_fwd/flash_bwd_dq/flash_bwd_dkv == plain at "
+          f"{len(shapes)} shapes x f32/bf16 (f32 fwd rtol/atol 2e-5, grads "
+          f"rtol 2e-4 atol 2e-5; bf16 2e-2), bitwise across two launches, "
+          f"fully masked sequences exactly 0, no NaN; max |kernel - plain| "
+          f"(f32) {errs}")
+
+    # timings over the 12 sites of a batch-32 step at t=128 (and the
+    # forward's at t=512): 12 distinct sets of inputs, so the replay
+    # reads what a step reads (a site's q, k, v are 38 MB in f32)
+    timing = {}
+    bh = BATCH * BERT_HEADS
+    for dt, t in ((torch.float32, 128), (torch.bfloat16, 128),
+                  (torch.float32, 512), (torch.bfloat16, 512)):
+        short = str(dt)[6:]
+        esize = torch.tensor([], dtype=dt).element_size()
+        sites = []
+        for _ in range(BERT_LAYERS):
+            q, k, v, do = (torch.randn(BATCH, BERT_HEADS, t, HEAD_DIM,
+                                       device="cuda", generator=g).to(dt)
+                           for _ in range(4))
+            mask = torch.ones(BATCH, t, device="cuda")
+            out, lse = sq.flash_forward(q, k, v, mask)
+            sites.append((q, k, v, do, mask, out, lse,
+                          sq.flash_delta(out, do), mask.bool()[:, None,
+                                                               None, :]))
+
+        def run(fn):
+            return lambda: [fn(*s) for s in sites]
+
+        fns = {
+            "flash_fwd": (run(lambda q, k, v, do, m, o, l, dl, bm:
+                              sq.flash_forward(q, k, v, m)),
+                          run(lambda q, k, v, do, m, o, l, dl, bm:
+                              sq.flash_forward_plain(q, k, v, m)),
+                          run(lambda q, k, v, do, m, o, l, dl, bm:
+                              F.scaled_dot_product_attention(
+                                  q, k, v, attn_mask=bm))),
+            "flash_bwd_dq": (run(lambda q, k, v, do, m, o, l, dl, bm:
+                                 sq.flash_bwd_dq(q, k, v, do, l, dl, m)),
+                             run(lambda q, k, v, do, m, o, l, dl, bm:
+                                 sq.flash_dq_plain(q, k, v, do, l, dl, m)),
+                             None),
+            "flash_bwd_dkv": (run(lambda q, k, v, do, m, o, l, dl, bm:
+                                  sq.flash_bwd_dkv(q, k, v, do, l, dl, m)),
+                              run(lambda q, k, v, do, m, o, l, dl, bm:
+                                  sq.flash_dkv_plain(q, k, v, do, l, dl,
+                                                     m)),
+                              None),
+        }
+        peak = F32_FLOPS if dt == torch.float32 else BF16_FLOPS
+        res = {}
+        for name, (kern, plain, lib) in fns.items():
+            if t == 512 and name != "flash_fwd":
+                continue          # the t=512 site is served, not trained
+            b_, o_ = _flash_costs(name, bh, t, HEAD_DIM, esize)
+            bound, by = _bound(BERT_LAYERS * b_, BERT_LAYERS * o_, peak)
+            k_ms = _graph_ms(torch, kern, reps=3)
+            p_ms = _graph_ms(torch, plain, reps=1) if t == 128 else None
+            l_ms = _graph_ms(torch, lib, reps=3) if lib else None
+            res[name] = {"kernel_ms": k_ms, "plain_ms": p_ms,
+                         "library_ms": l_ms, "bound_ms": bound,
+                         "bound_by": by, "bytes": BERT_LAYERS * b_,
+                         "ops": BERT_LAYERS * o_, "peak": peak,
+                         "eager_ms": _time_ms(torch, kern, reps=3)}
+            ps = f"{p_ms:.4f}" if p_ms is not None else "not timed"
+            ls = f"{l_ms:.4f}" if l_ms is not None else "none"
+            print(f"[flash] {name} {short} t={t}, 12 sites of a batch-"
+                  f"{BATCH} BERT-base step: kernel {k_ms:.4f} ms, plain "
+                  f"{ps} ms, SDPA {ls} ms, bound {bound:.4f} ms ({by}; "
+                  f"{BERT_LAYERS * o_ / 1e9:.1f} GFLOP at "
+                  f"{peak / 1e12:.0f} TFLOP/s, {BERT_LAYERS * b_ / 1e9:.3f}"
+                  f" GB), eager {res[name]['eager_ms']:.4f} ms, "
+                  f"{BERT_LAYERS * o_ / k_ms / 1e9:.1f} TFLOP/s achieved")
+        if t == 128:
+            # the yardstick's backward: SDPA forward + backward, eager
+            leaves = [[x.detach().clone().requires_grad_(True)
+                       for x in s[:3]] for s in sites]
+
+            def sdpa_fwd_bwd():
+                for (q, k, v), s in zip(leaves, sites):
+                    F.scaled_dot_product_attention(
+                        q, k, v, attn_mask=s[8]).backward(s[3])
+            fb = _time_ms(torch, sdpa_fwd_bwd, reps=3)
+            res["sdpa_fwd_bwd_ms"] = fb
+            print(f"[flash] SDPA forward+backward {short} t=128, 12 sites: "
+                  f"{fb:.4f} ms (eager); kernels 7+8+9 "
+                  f"{sum(res[n]['kernel_ms'] for n in FLASH_KERNELS):.4f} "
+                  f"ms")
+        timing[f"{short}_t{t}"] = res
+        del sites
+        torch.cuda.empty_cache()
+    return {"max_abs_err": errs, "timing": timing}
+
+
+# ---------------------------------------------------------------------------
+def bert_batch(torch, g, batch: int, t: int, vocab: int, device: str,
+               mask_id: int = 4) -> dict:
+    """A seeded pretraining batch: random ids, padded key masks (lengths
+    t/2..t, the first full), segment B over the second half of each
+    sequence, 15 % of the real tokens masked for MLM, random NSP
+    labels."""
+    ids = torch.randint(5, vocab, (batch, t), generator=g)
+    lengths = torch.randint(t // 2, t + 1, (batch,), generator=g)
+    lengths[0] = t
+    pos = torch.arange(t)[None]
+    am = (pos < lengths[:, None])
+    masked = (torch.rand(batch, t, generator=g) < 0.15) & am
+    masked[:, 0] = False
+    out = {"input_ids": torch.where(masked, mask_id, ids),
+           "token_type_ids": ((pos >= lengths[:, None] // 2) & am).long(),
+           "attention_mask": am.float(),
+           "mlm_labels": torch.where(masked, ids, -1),
+           "nsp_labels": torch.randint(0, 2, (batch,), generator=g)}
+    return {k: v.to(device) for k, v in out.items()}
+
+
+def _flash_counts():
+    c = _counts()
+    return {k: c[k] for k in FLASH_KERNELS}
+
+
+def phase_bert_serve(torch, label: str, device: str = "cuda", conf=None,
+                     batch: int = BATCH) -> dict:
+    """Full-width BERT-base inference. ``device="cpu"`` with a small
+    ``conf`` rehearses the phase without a card (launch counts, timings
+    and the profile are the card's)."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.models import (
+        Bert, BertConfig, BertForSequenceClassification)
+    conf = conf or BertConfig.base()
+    on_card = device == "cuda"
+    g = torch.Generator().manual_seed(31)
+    t0 = time.perf_counter()
+    bert = Bert(conf, seed=31).init(device, generator=g)
+    cls = BertForSequenceClassification(bert, 2, seed=32)
+    t_long = min(512, conf.max_position_embeddings)
+    b128 = bert_batch(torch, g, batch, 128, conf.vocab_size, device)
+    b512 = bert_batch(torch, g, batch, t_long, conf.vocab_size, device)
+    args = (b128["input_ids"], b128["token_type_ids"],
+            b128["attention_mask"])
+    L = conf.num_hidden_layers
+    print(f"[bert-serve] BERT L={L} H={conf.hidden_size} "
+          f"A={conf.num_attention_heads} vocab {conf.vocab_size}, "
+          f"{bert.num_params()} params on {device}, built in "
+          f"{time.perf_counter() - t0:.2f}s")
+
+    # ---- the main path: counts to 0, three forwards, counts read ----
+    _zero_counts()
+    seq, pooled = bert.output(*args)
+    preds = cls.predict(*args)
+    seq_l, pooled_l = bert.output(b512["input_ids"], None,
+                                  b512["attention_mask"])
+    _sync(torch, device)
+    launches = _flash_counts()
+    print(f"[bert-serve] main path: Bert.output t=128, "
+          f"BertForSequenceClassification.predict t=128, Bert.output "
+          f"t={t_long}; launches {launches}")
+    want = {"flash_fwd": 3 * L * on_card, "flash_bwd_dq": 0,
+            "flash_bwd_dkv": 0}
+    check(launches == want, f"serving launches {launches}, expected "
+                            f"{want} (12 forward launches a forward)")
+    H = conf.hidden_size
+    check(seq.shape == (batch, 128, H) and pooled.shape == (batch, H)
+          and seq_l.shape == (batch, t_long, H) and preds.shape == (batch,),
+          "BERT output shapes")
+    for nm, t in (("seq", seq), ("pooled", pooled), ("seq512", seq_l)):
+        check(bool(torch.isfinite(t).all()), f"BERT {nm} not finite")
+    # padding is isolated: other ids at masked positions change nothing
+    # in the real ones (their probabilities are exactly 0)
+    am = b128["attention_mask"].bool()
+    ids2 = torch.where(am, b128["input_ids"], 7)
+    seq2, _ = bert.output(ids2, b128["token_type_ids"],
+                          b128["attention_mask"])
+    check(torch.equal(seq2[am], seq[am]),
+          "padded tokens changed the real tokens' outputs")
+    result = {"launches": launches}
+    print(f"[bert-serve] outputs finite; padding isolated bitwise; "
+          f"classifier predicts {np.bincount(preds, minlength=2).tolist()}")
+    if not on_card:
+        return result
+
+    for nm, fn in (("f32_t128", lambda: bert.output(*args)),
+                   (f"f32_t{t_long}", lambda: bert.output(
+                       b512["input_ids"], None, b512["attention_mask"])),
+                   ("cls_predict_t128", lambda: cls.predict(*args))):
+        runs = sorted(_time_ms(torch, fn, reps=5) for _ in range(3))
+        result[f"{nm}_ms"] = runs
+        print(f"[bert-serve] {nm}: {runs[1]:.3f} ms a forward (median of "
+              f"{[round(r, 3) for r in runs]}) = {batch * 1e3 / runs[1]:.1f}"
+              f" sequences/s [{label}]")
+    result["profile_f32_t128"] = profile_device(
+        torch, lambda: bert.output(*args), result["f32_t128_ms"][1],
+        "batch-32 t=128 f32 BERT-base forward")
+
+    bert16 = Bert(dataclasses.replace(conf, compute_dtype="bfloat16")).set_params(
+        bert.params, device)
+    n0 = _flash_counts()["flash_fwd"]
+    s16, p16 = bert16.output(*args)
+    torch.cuda.synchronize()
+    check(_flash_counts()["flash_fwd"] - n0 == L,
+          "bf16 forward did not run 12 flash launches")
+    check(bool(torch.isfinite(s16).all()), "bf16 BERT output not finite")
+    rel = float((s16[am] - seq[am]).norm() / seq[am].norm())
+    runs = sorted(_time_ms(torch, lambda: bert16.output(*args), reps=5)
+                  for _ in range(3))
+    result.update(bf16_t128_ms=runs, bf16_rel_err=rel)
+    print(f"[bert-serve] bf16 compute_dtype t=128: {runs[1]:.3f} ms "
+          f"({batch * 1e3 / runs[1]:.1f} sequences/s); sequence output "
+          f"within {rel:.3e} of f32 in norm [{label}]")
+    check(rel < 0.1, f"bf16 sequence output {rel:.3e} from f32 in norm")
+    result["profile_bf16_t128"] = profile_device(
+        torch, lambda: bert16.output(*args), runs[1],
+        "batch-32 t=128 bf16 BERT-base forward")
+    return result
+
+
+def phase_bert_train(torch, label: str, device: str = "cuda", conf=None,
+                     batch: int = BATCH, steps: int = 10) -> dict:
+    """BERT-base pretraining, phase-1 recipe: t=128, 20 predictions a
+    sequence, NSP, hidden dropout 0.1, attention dropout 0 (the route
+    through the kernels), Adam(1e-4); ``steps`` fit_batch calls on one
+    seeded batch, then 3 classifier fine-tuning steps."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.learning.updaters import Adam
+    from deeplearning4j_tpu_torch.models import (
+        Bert, BertConfig, BertForSequenceClassification)
+    conf = dataclasses.replace(
+        conf or BertConfig.base(), max_predictions_per_seq=20, hidden_dropout_prob=0.1,
+        attention_probs_dropout_prob=0.0)
+    on_card = device == "cuda"
+    L = conf.num_hidden_layers
+    g = torch.Generator().manual_seed(41)
+    bert = Bert(conf, Adam(1e-4), seed=41).init(device, generator=g)
+    b = bert_batch(torch, g, batch, 128, conf.vocab_size, device)
+    np.random.seed(41)            # fit_batch seeds each step's generator
+
+    # ---- the main path: counts to 0, ten steps, counts read ----
+    _zero_counts()
+    losses, ms = [], []
+    for _ in range(steps):
+        _sync(torch, device)
+        t0 = time.perf_counter()
+        losses.append(bert.fit_batch(b))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    launches = _flash_counts()
+    print(f"[bert-train] losses {[round(v, 5) for v in losses]}; step ms "
+          f"{[round(m, 3) for m in ms]}; launches {launches}")
+    check(all(np.isfinite(losses)), f"BERT loss not finite: {losses}")
+    check(losses[-1] < losses[0], f"BERT loss did not fall: {losses}")
+    for k in FLASH_KERNELS:
+        check(launches[k] == L * steps * on_card,
+              f"{k}: {launches[k]} launches in {steps} steps, expected "
+              f"{L} a step")
+    step_ms = float(np.median(ms[1:]))
+    print(f"[bert-train] batch-{batch} t=128 f32 step {step_ms:.3f} ms "
+          f"(median of steps 2-{steps}) = {batch * 1e3 / step_ms:.1f} "
+          f"sequences/s [{label}]")
+    result = {"losses": losses, "step_ms": ms, "median_step_ms": step_ms,
+              "seq_per_s": batch * 1e3 / step_ms, "launches": launches}
+    if on_card:
+        result["profile"] = profile_device(
+            torch, lambda: bert.fit_batch(b), step_ms,
+            f"batch-{batch} t=128 BERT-base train step")
+
+    cls = BertForSequenceClassification(bert, 2, Adam(2e-5), seed=42)
+    cb = {"input_ids": b["input_ids"], "token_type_ids":
+          b["token_type_ids"], "attention_mask": b["attention_mask"],
+          "labels": b["nsp_labels"]}
+    _zero_counts()
+    c_losses = [cls.fit_batch(cb) for _ in range(3)]
+    c_launches = _flash_counts()
+    print(f"[bert-train] classifier fine-tune losses {c_losses}; launches "
+          f"{c_launches}")
+    check(all(np.isfinite(c_losses)), f"classifier loss {c_losses}")
+    for k in FLASH_KERNELS:
+        check(c_launches[k] == L * 3 * on_card,
+              f"classifier {k}: {c_launches[k]} launches in 3 steps")
+    check(bert.params is cls.params["bert"],
+          "fit_batch did not write the encoder back")
+    result.update(cls_losses=c_losses, cls_launches=c_launches)
+    return result
+
+
+#: card against CPU for BERT (TF32 off): the forward as a forward, and
+#: one SGD step, whose update is lr x the gradient, so kernels 8 and 9
+#: are held norm-wise against a float64 CPU step as train_card_vs_cpu
+#: holds ResNet-50's
+BERT_FWD_RTOL, BERT_FWD_ATOL = 1e-3, 1e-5
+BERT_UPDATE_FLOOR = 1e-4
+
+
+def bert_card_vs_cpu(torch, device: str = "cuda", layers: int = 2,
+                     batch: int = 4) -> dict:
+    """Full-width BERT at reduced depth on the card and on the CPU (the
+    CPU on the card's route: the flash gate forced, so it runs the
+    kernels' plain versions) in float32 and float64. ``device="cpu"``
+    rehearses it without a card."""
+    from deeplearning4j_tpu_torch.common.environment import Environment
+    from deeplearning4j_tpu_torch.learning.updaters import Sgd
+    from deeplearning4j_tpu_torch.models import Bert, BertConfig
+    from deeplearning4j_tpu_torch.models.bert import flatten_tree
+    conf = dataclasses.replace(
+        BertConfig.base(), num_hidden_layers=layers, hidden_dropout_prob=0.0,
+        attention_probs_dropout_prob=0.0, max_predictions_per_seq=20)
+    g = torch.Generator().manual_seed(43)
+    cpu = Bert(conf, Sgd(0.1), seed=43).init("cpu", generator=g)
+    b = bert_batch(torch, g, batch, 128, conf.vocab_size, "cpu")
+    p0 = {n: t.clone() for n, t in flatten_tree(cpu.params).items()}
+    card = Bert(conf, Sgd(0.1)).set_params(cpu.params, device)
+    cpu64 = Bert(dataclasses.replace(conf, compute_dtype="float64"), Sgd(0.1)
+                 ).set_params({n: t.double() for n, t in p0.items()}, "cpu")
+    args = (b["input_ids"], b["token_type_ids"], b["attention_mask"])
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    extra = Environment.get().extra
+    saved = extra.get("flash_attention")
+    try:
+        s_card, p_card = card.output(*args)
+        s_card, p_card = s_card.cpu(), p_card.cpu()
+        l_card = card.fit_batch(b)
+        extra["flash_attention"] = "1"
+        s_cpu, p_cpu = cpu.output(*args)
+        l_cpu = cpu.fit_batch(b)
+        l_64 = cpu64.fit_batch(b)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = prev
+        if saved is None:
+            extra.pop("flash_attention", None)
+        else:
+            extra["flash_attention"] = saved
+    err = float((s_card - s_cpu).abs().max())
+    check(bool(torch.allclose(s_card, s_cpu, rtol=BERT_FWD_RTOL,
+                              atol=BERT_FWD_ATOL))
+          and bool(torch.allclose(p_card, p_cpu, rtol=BERT_FWD_RTOL,
+                                  atol=BERT_FWD_ATOL)),
+          f"BERT forward card vs CPU: max |d| {err}")
+    check(abs(l_card - l_cpu) <= LOSS_RTOL * abs(l_cpu),
+          f"BERT loss card {l_card} vs cpu {l_cpu}")
+
+    f_card, f_cpu = flatten_tree(card.params), flatten_tree(cpu.params)
+    f_64 = flatten_tree(cpu64.params)
+    # a leaf whose exact gradient is 0 or nearly (the key bias: softmax
+    # is invariant to it) is held against a floor, BERT_UPDATE_FLOOR of
+    # the largest leaf update, not against its own rounding noise
+    floor = BERT_UPDATE_FLOOR * max(float((f_64[n] - t.double()).norm())
+                                    for n, t in p0.items())
+
+    def dist(a, b_):
+        return float((a - b_).norm() / b_.norm().clamp_min(floor))
+
+    e_card = e_cpu = e_pair = 0.0
+    worst = ""
+    for n, t0 in p0.items():
+        d64 = f_64[n] - t0.double()
+        dcard = f_card[n].detach().cpu().double() - t0.double()
+        dcpu = f_cpu[n].double() - t0.double()
+        ec = dist(dcard, d64)
+        if ec > e_card:
+            e_card, worst = ec, n
+        e_cpu = max(e_cpu, dist(dcpu, d64))
+        e_pair = max(e_pair, dist(dcard, dcpu))
+    check(e_card <= UPDATE_FACTOR * e_cpu + UPDATE_FLOOR,
+          f"BERT card updates {e_card:.3e} from the float64 step ({worst}),"
+          f" the CPU float32 step's {e_cpu:.3e}")
+    print(f"[bert-vs-cpu] BERT L={layers} H={conf.hidden_size}, batch "
+          f"{batch}, t=128 (TF32 off; CPU on the card's route): forward max"
+          f" |d| {err:.3e}; SGD step loss {l_card:.7f} vs {l_cpu:.7f} (f64 "
+          f"{l_64:.7f}); worst update in norm: card vs f64 {e_card:.3e} "
+          f"({worst}), CPU f32 vs f64 {e_cpu:.3e}, card vs CPU f32 "
+          f"{e_pair:.3e}")
+    return {"fwd_max_abs": err, "loss_card": l_card, "loss_cpu": l_cpu,
+            "loss_cpu64": l_64, "update_card_vs_f64": e_card,
+            "update_cpu32_vs_f64": e_cpu, "update_card_vs_cpu32": e_pair}
+
+
+# ---------------------------------------------------------------------------
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1098,15 +1629,26 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     import deeplearning4j_tpu_torch  # noqa: F401  fails outside a checkout
     t_start = time.perf_counter()
+
+    def timed(name, fn, *a, **kw):
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        print(f"[time] {name} {time.perf_counter() - t0:.1f}s")
+        return out
+
     dev = phase_device(torch)
-    phase_build()
+    timed("build", phase_build)
     label = dev["nvidia_smi"]
-    kern = phase_kernels(torch)
-    tk = phase_train_kernels(torch)
-    sl = phase_slice(torch, label=label)
-    tr = phase_train_resnet(torch, label)
-    ln = phase_train_lenet(torch, label)
-    phase_weights_across(torch)
+    kern = timed("kernels", phase_kernels, torch)
+    tk = timed("train-kernels", phase_train_kernels, torch)
+    fk = timed("flash", phase_flash_kernels, torch)
+    sl = timed("slice", phase_slice, torch, label=label)
+    tr = timed("train", phase_train_resnet, torch, label)
+    ln = timed("lenet", phase_train_lenet, torch, label)
+    timed("weights", phase_weights_across, torch)
+    bs = timed("bert-serve", phase_bert_serve, torch, label)
+    bt = timed("bert-train", phase_bert_train, torch, label)
+    timed("bert-vs-cpu", bert_card_vs_cpu, torch)
 
     from deeplearning4j_tpu_torch.ops import cuda_build
     f32 = kern["timing"]["float32"]
@@ -1119,10 +1661,33 @@ def main() -> int:
              "bn_bwd_sums": ("training ResNet-50, 10 steps",
                              tr["launches"]),
              "bn_bwd_dx": ("training ResNet-50, 10 steps", tr["launches"])}
+    for name in FLASH_KERNELS:
+        paths[name] = ("training BERT-base, 10 steps", bt["launches"])
     records = []
     for k in cuda_build.KERNELS.values():
         path, launches = paths[k.name]
-        if k.name == "scale_shift_act":
+        extra = {}
+        if k.name in FLASH_KERNELS:
+            ft = fk["timing"]
+            t = ft["float32_t128"][k.name]
+            err = fk["max_abs_err"][k.name]
+            shapes = (f"the {BERT_LAYERS} attention sites of a batch-{BATCH}"
+                      f" t=128 BERT-base step, f32")
+            by_dtype = {"float32": t["kernel_ms"],
+                        "bfloat16": ft["bfloat16_t128"][k.name]["kernel_ms"]}
+            extra = {"bound_ms_by_dtype": {
+                "float32": t["bound_ms"],
+                "bfloat16": ft["bfloat16_t128"][k.name]["bound_ms"]}}
+            if k.name == "flash_fwd":
+                extra["t512_ms_by_dtype"] = {
+                    d: ft[f"{d}_t512"]["flash_fwd"]["kernel_ms"]
+                    for d in ("float32", "bfloat16")}
+            else:
+                # no one PyTorch call computes dq (or dk, dv) alone: the
+                # yardstick is SDPA's forward + backward, beside 7+8+9
+                extra["sdpa_fwd_bwd_ms"] = ft["float32_t128"][
+                    "sdpa_fwd_bwd_ms"]
+        elif k.name == "scale_shift_act":
             t = {"kernel_ms": f32["kernel_ms"], "plain_ms": f32["plain_ms"],
                  "bound_ms": f32["bound_ms"], "library_ms":
                  f32["library_ms"], "eager_ms": f32["kernel_eager_ms"],
@@ -1145,10 +1710,16 @@ def main() -> int:
             "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "eager_ms": t["eager_ms"],
-            "ms_by_dtype": by_dtype, "shapes": shapes})
+            "ms_by_dtype": by_dtype, "shapes": shapes, **extra})
     print(f"[done] ResNet-50 train step {tr['median_step_ms']:.3f} ms "
           f"({tr['img_per_s']:.1f} img/s), LeNet-5 step "
-          f"{ln['median_step_ms']:.3f} ms [{label}]")
+          f"{ln['median_step_ms']:.3f} ms, BERT-base train step "
+          f"{bt['median_step_ms']:.3f} ms ({bt['seq_per_s']:.1f} "
+          f"sequences/s), forward t=128 {bs['f32_t128_ms'][1]:.3f} ms "
+          f"[{label}]")
+    print(f"[done] matmul precision: "
+          f"{torch.get_float32_matmul_precision()}, cuda.matmul.allow_tf32 "
+          f"{torch.backends.cuda.matmul.allow_tf32}")
     print(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": records}))
     print(dev["nvidia_smi"])

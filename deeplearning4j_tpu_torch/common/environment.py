@@ -10,8 +10,9 @@ Env vars read here: ``DL4J_TORCH_TELEMETRY`` (metrics and spans,
 default on), ``DL4J_TORCH_RETRACE_WARN`` (warn once past this many
 distinct served shapes, default 5). Read live by their subsystems:
 ``DL4J_TORCH_FUSED_CONV`` (the conv-epilogue and training-BN forward
-kernel gate), ``DL4J_TORCH_FUSED_BN_BWD`` (the BN backward kernel gate;
-both in ``ops/kernel_select.py``) and ``DL4J_TORCH_HTTP_HOST`` (the serving
+kernel gate), ``DL4J_TORCH_FUSED_BN_BWD`` (the BN backward kernel gate),
+``DL4J_TORCH_FLASH_ATTENTION`` (the flash-attention kernel gate; all
+three in ``ops/kernel_select.py``) and ``DL4J_TORCH_HTTP_HOST`` (the serving
 bind interface, default 127.0.0.1).
 
 :func:`resolve_device` is the one place the port's entry points turn

@@ -12,7 +12,13 @@ a ComputationGraph's vertices or a MultiLayerNetwork's ``layer_<i>``);
 dense ``W`` stays ``[n_in, n_out]``; BatchNormalization ``mean``/``var``
 come from ``modelState.npz``. Updater state crosses the same way
 (:func:`updater_state_from_jax` / :func:`updater_state_to_jax`: each
-slot of a conv kernel moves between HWIO and OIHW). The zips themselves
+slot of a conv kernel moves between HWIO and OIHW). BERT's trees
+(``conf`` a ``BertConfig``: ``embeddings``, ``encoder`` stacked
+``[L, ...]``, ``pooler``, ``mlm``, ``nsp``, or ``bert``/``cls`` for the
+classifier) cross as they are: both packages compute ``x @ W`` with
+``[in, out]`` weights, so no layout converts; their updater state is
+``{slot: {"group/name": tensor}}`` in the port and ``{slot: tree}`` in
+the JAX package. The zips themselves
 do not carry updater state yet: ``restore_model`` reads and
 ``write_model`` writes no ``updaterState.npz``, and restores
 ComputationGraph zips only.
@@ -28,6 +34,8 @@ from typing import Dict, Tuple, Union
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.models.bert import (BertConfig, flatten_tree,
+                                                 unflatten_tree)
 from deeplearning4j_tpu_torch.nn.conf.builders import \
     MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.conf.graph_conf import \
@@ -41,7 +49,8 @@ STATE_ENTRY = "modelState.npz"
 META_ENTRY = "meta.json"
 
 _Tree = Dict[str, Dict[str, torch.Tensor]]
-_Conf = Union[ComputationGraphConfiguration, MultiLayerConfiguration]
+_Conf = Union[ComputationGraphConfiguration, MultiLayerConfiguration,
+              BertConfig]
 
 
 def _flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -99,11 +108,61 @@ def _to_jax(conf, key, name, t: torch.Tensor) -> np.ndarray:
     return np.ascontiguousarray(a)
 
 
+def bert_param_shapes(conf: BertConfig) -> Dict[str, tuple]:
+    """``{"group/name": shape}`` of a BERT pretraining model's tree."""
+    c = conf
+    H, L, I, V = (c.hidden_size, c.num_hidden_layers, c.intermediate_size,
+                  c.vocab_size)
+    shapes = {"embeddings/word": (V, H),
+              "embeddings/position": (c.max_position_embeddings, H),
+              "embeddings/token_type": (c.type_vocab_size, H),
+              "embeddings/ln_g": (H,), "embeddings/ln_b": (H,),
+              "pooler/W": (H, H), "pooler/b": (H,),
+              "mlm/W": (H, H), "mlm/b": (H,), "mlm/ln_g": (H,),
+              "mlm/ln_b": (H,), "mlm/out_b": (V,),
+              "nsp/W": (H, 2), "nsp/b": (2,)}
+    for n in ("Wq", "Wk", "Wv", "Wo"):
+        shapes[f"encoder/{n}"] = (L, H, H)
+    for n in ("bq", "bk", "bv", "bo", "attn_ln_g", "attn_ln_b", "bout",
+              "out_ln_g", "out_ln_b"):
+        shapes[f"encoder/{n}"] = (L, H)
+    shapes.update({"encoder/Wi": (L, H, I), "encoder/bi": (L, I),
+                   "encoder/Wout": (L, I, H)})
+    return shapes
+
+
+def _check_bert_leaf(conf: BertConfig, path: str, a) -> None:
+    """``path`` names a leaf of the pretraining tree, or of the
+    classifier's (``bert/...`` and ``cls/W``, ``cls/b``), with its
+    shape."""
+    shapes = bert_param_shapes(conf)
+    if path.startswith("cls/"):
+        if path not in ("cls/W", "cls/b"):
+            raise ValueError(f"BERT entry {path!r} is not a leaf of the "
+                             f"classifier head")
+        return
+    inner = path[len("bert/"):] if path.startswith("bert/") else path
+    if inner not in shapes:
+        raise ValueError(f"BERT entry {path!r} names no leaf of the "
+                         f"configuration's tree")
+    if tuple(np.shape(a)) != shapes[inner]:
+        raise ValueError(f"BERT entry {path!r} has shape "
+                         f"{tuple(np.shape(a))}, the configuration's is "
+                         f"{shapes[inner]}")
+
+
 def params_from_jax(params_np: dict, states_np: dict, conf: _Conf
                     ) -> Tuple[_Tree, _Tree]:
     """The JAX package's numpy trees (flat npz keys or nested by vertex
     or ``layer_<i>``) as the port's CPU tensors: conv kernels HWIO ->
-    OIHW, the rest as they are."""
+    OIHW, the rest as they are. For a ``BertConfig``: the nested BERT
+    tree, checked leaf by leaf, and no states."""
+    if isinstance(conf, BertConfig):
+        flat = _flatten(params_np)
+        for path, a in flat.items():
+            _check_bert_leaf(conf, path, a)
+        return unflatten_tree({p: torch.from_numpy(np.array(a))
+                               for p, a in flat.items()}), {}
     params: _Tree = {k: {} for k in _keys(conf)}
     for key, _, name, a in _split_key(conf, _flatten(params_np)):
         params[key][name] = _to_port(conf, key, name, a)
@@ -116,6 +175,9 @@ def params_from_jax(params_np: dict, states_np: dict, conf: _Conf
 def params_to_jax(params: _Tree, conf: _Conf) -> Dict[str, np.ndarray]:
     """The inverse of :func:`params_from_jax` for parameters: flat npz
     keys, conv kernels OIHW -> HWIO."""
+    if isinstance(conf, BertConfig):
+        return {p: np.ascontiguousarray(t.detach().cpu().numpy())
+                for p, t in sorted(flatten_tree(params).items())}
     return {f"{key}/{name}": _to_jax(conf, key, name, params[key][name])
             for key in sorted(params) for name in sorted(params[key])}
 
@@ -125,7 +187,15 @@ def updater_state_from_jax(upd_np: dict, conf: _Conf
     """The JAX package's updater state (``{key: {slot: {name: array}}}``
     nested, or flat ``"key/slot/name"`` npz keys) as the port's
     ``{key: {slot: {name: tensor}}}``: each slot of a conv kernel HWIO ->
-    OIHW."""
+    OIHW. For a ``BertConfig``: ``{slot: tree}`` (nested or flat
+    ``"slot/group/name"``) as ``{slot: {"group/name": tensor}}``."""
+    if isinstance(conf, BertConfig):
+        bert: Dict[str, Dict[str, torch.Tensor]] = {}
+        for full, a in _flatten(upd_np).items():
+            slot, path = full.split("/", 1)
+            _check_bert_leaf(conf, path, a)
+            bert.setdefault(slot, {})[path] = torch.from_numpy(np.array(a))
+        return bert
     out: Dict[str, Dict[str, _Tree]] = {k: {} for k in _keys(conf)}
     for key, path, name, a in _split_key(conf, _flatten(upd_np)):
         slot = "/".join(path)
@@ -136,7 +206,11 @@ def updater_state_from_jax(upd_np: dict, conf: _Conf
 def updater_state_to_jax(upd: Dict[str, Dict[str, _Tree]], conf: _Conf
                          ) -> Dict[str, np.ndarray]:
     """The inverse of :func:`updater_state_from_jax`: flat
-    ``"key/slot/name"`` keys, conv kernel slots OIHW -> HWIO."""
+    ``"key/slot/name"`` keys, conv kernel slots OIHW -> HWIO; for a
+    ``BertConfig``, ``"slot/group/name"``."""
+    if isinstance(conf, BertConfig):
+        return {f"{slot}/{p}": np.ascontiguousarray(t.detach().cpu().numpy())
+                for slot in sorted(upd) for p, t in sorted(upd[slot].items())}
     return {f"{key}/{slot}/{name}": _to_jax(conf, key, name, t)
             for key in sorted(upd) for slot in sorted(upd[key])
             for name, t in sorted(upd[key][slot].items())}

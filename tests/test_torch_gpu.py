@@ -212,7 +212,8 @@ def test_resnet50_train_step_launches_on_card(gates, want, monkeypatch):
     """One training step of ResNet-50 at 64x64 on the card: the fused
     backward path launches kernels 3, 1, 5 and 6 at each of the 53
     BatchNormalization sites; with it killed, kernel 2 and kernel 1
-    twice; the plain math only with both gates killed."""
+    twice; the plain math only with both gates killed. No other kernel
+    of the port (the flash kernels) launches."""
     _need_card()
     from deeplearning4j_tpu_torch.models.zoo import ResNet50
     for k, v in gates.items():
@@ -223,7 +224,7 @@ def test_resnet50_train_step_launches_on_card(gates, want, monkeypatch):
     before = _counts()
     net.fit(x, y)
     torch.cuda.synchronize()
-    assert _delta(before) == want
+    assert _delta(before) == {k: want.get(k, 0) for k in before}
     assert torch.isfinite(torch.tensor(net.score()))
 
 
@@ -239,3 +240,122 @@ def test_lenet_train_step_launches_kernels_1_and_2_twice():
     torch.cuda.synchronize()
     d = _delta(before)
     assert d["scale_shift_act"] == 2 and d["epilogue_backward"] == 2
+
+
+# ---------------------------------------------------------------------------
+# the flash-attention kernels: forward (7), dq (8), dk/dv (9)
+# ---------------------------------------------------------------------------
+#: the reference's own bars (tests/test_attention_pallas.py:38,75): f32
+#: forward rtol/atol 2e-5, gradients rtol 2e-4 / atol 2e-5; bf16 2e-2
+FLASH_TOL = {"float32": ((2e-5, 2e-5), (2e-4, 2e-5)),
+             "bfloat16": ((2e-2, 2e-2), (2e-2, 2e-2)),
+             "float16": ((2e-2, 2e-2), (2e-2, 2e-2))}
+FLASH_SHAPES = [  # b, h, tq, tk, d, causal: every padded width 32..256
+    (2, 3, 37, 37, 24, False), (2, 2, 70, 45, 32, False),
+    (2, 2, 64, 64, 64, True), (2, 2, 50, 77, 128, True),
+    (2, 2, 33, 33, 200, False), (4, 12, 128, 128, 64, False)]
+
+
+def _flash_inputs(b, h, tq, tk, d, dtype, g):
+    q, k, v, do = (torch.randn(b, h, t, d, device="cuda", generator=g)
+                   .to(getattr(torch, dtype)) for t in (tq, tk, tk, tq))
+    mask = (torch.rand(b, tk, device="cuda", generator=g) > 0.3).float()
+    mask[0] = 0.0                                 # a fully masked sequence
+    mask[-1] = 1.0
+    return q, k, v, do, mask
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_flash_kernels_match_plain(shape, dtype):
+    from deeplearning4j_tpu_torch.parallel import sequence as sq
+    _need_card()
+    b, h, tq, tk, d, causal = shape
+    g = torch.Generator(device="cuda").manual_seed(4)
+    q, k, v, do, mask = _flash_inputs(b, h, tq, tk, d, dtype, g)
+    n = (sq.FLASH_FWD.launches, sq.FLASH_BWD_DQ.launches,
+         sq.FLASH_BWD_DKV.launches)
+    out, lse = sq.flash_forward(q, k, v, mask, causal)
+    out2, lse2 = sq.flash_forward(q, k, v, mask, causal)
+    r_out, r_lse = sq.flash_forward_plain(q, k, v, mask, causal)
+    delta = sq.flash_delta(out, do)
+    dq = sq.flash_bwd_dq(q, k, v, do, lse, delta, mask, causal)
+    dk, dv = sq.flash_bwd_dkv(q, k, v, do, lse, delta, mask, causal)
+    dq2 = sq.flash_bwd_dq(q, k, v, do, lse, delta, mask, causal)
+    dk2, dv2 = sq.flash_bwd_dkv(q, k, v, do, lse, delta, mask, causal)
+    r_dq = sq.flash_dq_plain(q, k, v, do, lse, delta, mask, causal)
+    r_dk, r_dv = sq.flash_dkv_plain(q, k, v, do, lse, delta, mask, causal)
+    torch.cuda.synchronize()
+    assert (sq.FLASH_FWD.launches, sq.FLASH_BWD_DQ.launches,
+            sq.FLASH_BWD_DKV.launches) == (n[0] + 2, n[1] + 2, n[2] + 2)
+    for a, b2 in ((out, out2), (lse, lse2), (dq, dq2), (dk, dk2),
+                  (dv, dv2)):
+        assert torch.equal(a, b2)                 # repeatable bits
+    (f_rtol, f_atol), (g_rtol, g_atol) = FLASH_TOL[dtype]
+    torch.testing.assert_close(out.float(), r_out.float(), rtol=f_rtol,
+                               atol=f_atol)
+    valid = mask.bool().any(-1)
+    torch.testing.assert_close(lse[valid], r_lse[valid].float(), rtol=f_rtol,
+                               atol=f_atol)
+    for got, want in ((dq, r_dq), (dk, r_dk), (dv, r_dv)):
+        assert got.dtype == q.dtype
+        torch.testing.assert_close(got.float(), want.float(), rtol=g_rtol,
+                                   atol=g_atol)
+    # the fully masked sequence: exact zeros, no NaN anywhere
+    for t in (out, dq, dk, dv):
+        assert not bool(torch.isnan(t).any())
+    assert torch.equal(out[0], torch.zeros_like(out[0]))
+    assert torch.equal(dq[0], torch.zeros_like(dq[0]))
+
+
+@pytest.mark.gpu
+def test_flash_kernels_reject_what_they_do_not_take():
+    from deeplearning4j_tpu_torch.parallel import sequence as sq
+    _need_card()
+    q = torch.randn(1, 2, 8, 16, device="cuda")
+    with pytest.raises(TypeError):
+        sq.flash_forward(q.double(), q.double(), q.double())
+    wide = torch.randn(1, 1, 8, 320, device="cuda")
+    with pytest.raises(ValueError, match="head dim"):
+        sq.flash_forward(wide, wide, wide)
+    with pytest.raises(ValueError):
+        sq.flash_forward(q, q.half(), q)
+    with pytest.raises(ValueError):
+        sq.flash_forward(q, q, q, torch.ones(1, 8))   # mask on the CPU
+
+
+@pytest.mark.gpu
+def test_bert_launches_flash_kernels_once_a_layer():
+    """A 2-layer BERT: 2 forward launches per forward and none of the
+    backward kernels; 2 of each per training step (attention dropout
+    off)."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.models.bert import Bert, BertConfig
+    from deeplearning4j_tpu_torch.parallel import sequence as sq
+    _need_card()
+    conf = BertConfig.tiny(attention_probs_dropout_prob=0.0,
+                           max_predictions_per_seq=4)
+    bert = Bert(conf).init("cuda")
+    rs = np.random.RandomState(0)
+    ids = rs.randint(5, 1000, (4, 32))
+    am = np.ones((4, 32), np.float32)
+    am[1, 20:] = 0.0
+
+    def counts():
+        return (sq.FLASH_FWD.launches, sq.FLASH_BWD_DQ.launches,
+                sq.FLASH_BWD_DKV.launches)
+
+    n0 = counts()
+    seq, pooled = bert.output(ids, attention_mask=am)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(counts(), n0)) == (2, 0, 0)
+    assert bool(torch.isfinite(seq).all())
+    batch = {"input_ids": ids, "attention_mask": am,
+             "mlm_labels": np.where(rs.rand(4, 32) < 0.2, ids, -1),
+             "nsp_labels": rs.randint(0, 2, 4)}
+    n0 = counts()
+    loss = bert.fit_batch(batch)
+    assert tuple(a - b for a, b in zip(counts(), n0)) == (2, 2, 2)
+    assert np.isfinite(loss)

@@ -68,3 +68,36 @@ def test_resolve_device_rule(monkeypatch):
     for dev in (None, "cuda", "cuda:0"):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             resolve_device(dev)
+
+
+def _all_kernels():
+    # importing the wrappers registers their kernels
+    import deeplearning4j_tpu_torch.ops.bn_train  # noqa: F401
+    import deeplearning4j_tpu_torch.ops.conv_epilogue  # noqa: F401
+    import deeplearning4j_tpu_torch.parallel.sequence  # noqa: F401
+    from deeplearning4j_tpu_torch.ops import cuda_build
+    return cuda_build.KERNELS
+
+
+KERNEL_NAMES = ["scale_shift_act", "epilogue_backward", "channel_sums",
+                "bn_bwd_sums", "bn_bwd_dx", "flash_fwd", "flash_bwd_dq",
+                "flash_bwd_dkv"]
+
+
+@pytest.mark.parametrize("name", KERNEL_NAMES)
+def test_kernel_names_its_source_and_the_tpu_kernel_it_replaces(name):
+    """Each registered kernel's CUDA source is in the package, and the
+    file:line it replaces is a ``def`` of the JAX package whose module
+    reaches ``pallas_call``."""
+    k = _all_kernels()[name]
+    assert (ROOT / k.source).exists() and k.source.endswith(".cu")
+    path, rest = k.replaces.split(":")
+    line, fn = rest.split(" ", 1)
+    src = (ROOT / path).read_text()
+    assert "pallas_call" in src
+    assert src.splitlines()[int(line) - 1].startswith(
+        f"def {fn.strip('()')}(")
+
+
+def test_every_kernel_is_listed():
+    assert sorted(_all_kernels()) == sorted(KERNEL_NAMES)
