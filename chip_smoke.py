@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive deeplearning4j_tpu_torch's main paths on one CUDA card: serving
 ResNet-50, training ResNet-50 (ComputationGraph) and training LeNet-5
-(MultiLayerNetwork), BERT-base inference and pretraining.
+(MultiLayerNetwork), BERT-base inference and pretraining, and generative
+serving of a GPT-2-small-width decoder.
 
 Run from the root of a checkout, with no arguments, on a machine with
 one NVIDIA H100 (it fails without a card, and without the package):
@@ -66,7 +67,27 @@ Phases, each of which fails the run (exit 1) when its check fails:
     steps on one seeded batch (12 launches each of kernels 7, 8, 9 a
     step; the loss falls), then 3 classifier fine-tuning steps; card
     against CPU at 2 layers (forward, and one SGD step norm-wise against
-    a float64 step).
+    a float64 step);
+12. paged kernel: paged decode attention (kernel 10) against its plain
+    version at GPT-2-small's decode sites (batch 8 and 32, 12 heads of
+    64, blocks of 16, a 64-block table; lengths 1..1024, dead slots, a
+    length past the table), an odd shape (h=5, d=80, blocks of 8) and
+    d = 32, 128, 256, f32 and bf16 pools: within 2e-5, bitwise across two
+    launches, no NaN; then its time over the 12 sites of a batch-32
+    decode step at L=512 and 1024 beside the bytes bound and the plain
+    version;
+13. generate: a GPT-2-small-width DecoderLM (openai-community/gpt2's
+    widths, seeded weights) registered with a paged KV pool of 1024
+    blocks of 16 tokens and served over HTTP to 32 concurrent streaming
+    greedy requests (prompts of 16..256 tokens, 64 new tokens each),
+    counts reset before the registration and read after the last stream
+    (12 launches of kernel 10 a decode step, nothing else); 8 requests
+    (the longest prompt among them) against ``reference_decode`` (a
+    divergence only at a logged tie), one decode step against the full
+    forward, zero retraces, the pool freed; TTFT, inter-token gaps,
+    tokens/s, the decode step's time and device profile; then the same
+    with a bf16 pool; card against CPU at 2 layers (prefill and a paged
+    decode step, TF32 off).
 
 Then one JSON line of kernel records (each kernel's times from its own
 timing phase, its launches from the path that carries it), the
@@ -83,6 +104,7 @@ import concurrent.futures
 import dataclasses
 import io
 import json
+import multiprocessing
 import os
 import subprocess
 import sys
@@ -1620,6 +1642,497 @@ def bert_card_vs_cpu(torch, device: str = "cuda", layers: int = 2,
 
 
 # ---------------------------------------------------------------------------
+#: GPT-2 small's published widths (openai-community/gpt2 config.json:
+#: n_layer 12, n_head 12, n_embd 768, n_inner 4 x 768, vocab_size 50257,
+#: n_positions 1024, eos_token_id 50256) as a DecoderLM configuration
+GPT2_SMALL = dict(vocab_size=50257, n_layers=12, n_heads=12, d_model=768,
+                  d_ff=3072, max_len=1024, eos_id=50256)
+#: the README's generate configuration, with a pool for 32 live sequences
+GEN_CONFIG = {"kv_blocks": 1024, "kv_block_size": 16,
+              "prompt_buckets": (64, 256), "decode_buckets": (8, 32),
+              "max_seq_len": 1024}
+GEN_REQUESTS, GEN_MAX_TOKENS = 32, 64
+#: kernel 10 against its plain version on unit-normal inputs: the
+#: reference's forward bar (tests/test_attention_pallas.py:38)
+PAGED_ATOL = 2e-5
+#: a greedy divergence from reference_decode is a tie only where the
+#: reference's top-2 logit gap is below this
+TIE_GAP = 1e-4
+#: decode-step logits against the full forward's last position (f32,
+#: full-f32 matmuls): float association only
+DECODE_ATOL = 1e-4
+
+
+def _paged_case(torch, b, h, d, block, max_blocks, lengths, pool_dtype, g,
+                dead=0):
+    """Inputs of one decode site: q [b, h, d] f32, pools holding every
+    sequence's blocks at random places (block 0 scratch), tables padded
+    with 0, ``dead`` trailing dead slots (zero table, length 1)."""
+    nb = b * max_blocks + 1
+    q = torch.randn(b, h, d, device="cuda", generator=g)
+    k, v = (torch.randn(nb, block, h, d, device="cuda", generator=g
+                        ).to(pool_dtype) for _ in range(2))
+    perm = torch.randperm(nb - 1, device="cuda", generator=g) + 1
+    tables = torch.zeros(b, max_blocks, dtype=torch.int32, device="cuda")
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    for i, n in enumerate(lengths):
+        used = min(max_blocks, -(-n // block))
+        tables[i, :used] = perm[i * max_blocks:i * max_blocks + used]
+    if dead:
+        tables[b - dead:] = 0
+        lens[b - dead:] = 1
+    return q, k, v, tables, lens
+
+
+def _paged_costs(b, h, d, lengths, block, max_blocks, esize):
+    """(bytes, operations) of one site: the valid tokens' K and V rows,
+    q and out (f32), the table entries the kernel reads and the lengths;
+    2 operations a multiply-add (q.k and p.v)."""
+    tok = sum(min(n, block * max_blocks) for n in lengths)
+    blocks = sum(min(max_blocks, -(-n // block)) for n in lengths)
+    return (2 * tok * h * d * esize + 2 * b * h * d * 4 + 4 * blocks
+            + 4 * b), 4 * tok * h * d
+
+
+def phase_paged_kernel(torch) -> dict:
+    """Kernel 10 against its plain version at GPT-2-small's decode sites
+    and more shapes; then its time over the 12 sites of a batch-32 decode
+    step at L=512 and 1024 (CUDA-graph replay), f32 and bf16 pools,
+    beside the bytes bound and the plain version."""
+    from deeplearning4j_tpu_torch.ops import attention_kernels as ak
+    g = torch.Generator(device="cuda").manual_seed(23)
+    mixed = [1, 15, 16, 17, 511, 1024]
+    cases = []
+    for b in (8, 32):
+        lens = [mixed[i % len(mixed)] for i in range(b)]
+        lens[-3] = 64 * 16 + 6               # past the table: clamped
+        cases.append((b, 12, 64, 16, 64, lens, 2))
+    cases += [(6, 5, 80, 8, 9, [1, 7, 8, 9, 40, 72], 1),
+              (4, 4, 32, 16, 8, [3, 16, 33, 128], 1),
+              (4, 4, 128, 16, 8, [3, 16, 33, 128], 1),
+              (4, 2, 256, 16, 8, [3, 16, 33, 128], 1)]
+    err = 0.0
+    for b, h, d, block, mb, lens, dead in cases:
+        for dt in (torch.float32, torch.bfloat16):
+            what = f"b={b} h={h} d={d} block={block} {str(dt)[6:]} pool"
+            args = _paged_case(torch, b, h, d, block, mb, lens, dt, g, dead)
+            out = ak.paged_decode_attention(*args)
+            out2 = ak.paged_decode_attention(*args)
+            ref = ak.paged_attention_reference(*args)
+            torch.cuda.synchronize()
+            check(torch.equal(out, out2), f"{what}: two launches differ")
+            check(not bool(torch.isnan(out).any()), f"{what}: NaN")
+            e = float((out - ref).abs().max())
+            check(e <= PAGED_ATOL, f"{what}: max |kernel - plain| {e:.3e} "
+                                   f"beyond {PAGED_ATOL}")
+            err = max(err, e)
+    print(f"[paged] paged_decode == plain within {PAGED_ATOL} at "
+          f"{len(cases)} shapes x f32/bf16 pools (lengths 1..1024, dead "
+          f"slots, a length past the table; d 32..256, h=5 d=80 block 8), "
+          f"bitwise across two launches, no NaN; max |kernel - plain| "
+          f"{err:.3e}")
+
+    timing = {}
+    b, h, d, block, mb = BATCH, 12, 64, 16, 64
+    for L in (512, 1024):
+        for dt in (torch.float32, torch.bfloat16):
+            short = str(dt)[6:]
+            esize = torch.tensor([], dtype=dt).element_size()
+            sites = [_paged_case(torch, b, h, d, block, mb, [L] * b, dt, g)
+                     for _ in range(12)]
+            kern = lambda: [ak.paged_decode_attention(*s) for s in sites]  # noqa: E731
+            plain = lambda: [ak.paged_attention_reference(*s)  # noqa: E731
+                             for s in sites]
+            by, ops = _paged_costs(b, h, d, [L] * b, block, mb, esize)
+            bound, bound_by = _bound(12 * by, 12 * ops, F32_FLOPS)
+            k_ms = _graph_ms(torch, kern, reps=5)
+            p_ms = _graph_ms(torch, plain, reps=1)
+            timing[f"{short}_L{L}"] = {
+                "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": None,
+                "bound_ms": bound, "bound_by": bound_by, "bytes": 12 * by,
+                "eager_ms": _time_ms(torch, kern, reps=5)}
+            print(f"[paged] {short} pool, L={L}, 12 sites of a batch-{b} "
+                  f"GPT-2-small decode step: kernel {k_ms:.4f} ms, plain "
+                  f"{p_ms:.4f} ms, library none, bound {bound:.4f} ms "
+                  f"({bound_by}; {12 * by / 1e9:.3f} GB), "
+                  f"{12 * by / k_ms / 1e6:.0f} GB/s achieved, eager "
+                  f"{timing[f'{short}_L{L}']['eager_ms']:.4f} ms")
+            del sites
+            torch.cuda.empty_cache()
+    return {"max_abs_err": err, "timing": timing}
+
+
+def _gen_client(url: str, prompt, max_tokens: int) -> dict:
+    """One streaming greedy request; token arrival times on the client's
+    clock."""
+    body = json.dumps({"prompt": [int(t) for t in prompt],
+                       "max_tokens": max_tokens}).encode()
+    req = urllib.request.Request(url, data=body, headers={
+        "Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    toks, times, done = [], [], None
+    with urllib.request.urlopen(req, timeout=300) as resp:
+        code = resp.status
+        for line in resp:
+            rec = json.loads(line)
+            if "token" in rec:
+                toks.append(rec["token"])
+                times.append(time.perf_counter() - t0)
+            else:
+                done = rec
+    return {"code": code, "tokens": toks, "times": times, "done": done,
+            "t0": t0, "t_end": time.perf_counter()}
+
+
+def _gen_load(url: str, prompts, max_tokens: int) -> list:
+    """Every prompt as a concurrent streaming request, one thread each;
+    run in a process of its own, so the clients do not share the server's
+    interpreter. One ``GET /healthz`` first: a fresh process's first
+    urllib calls, made by 32 threads at once, cost up to a second that
+    would be counted as time to first token."""
+    with urllib.request.urlopen(url.split("/v1/")[0] + "/healthz",
+                                timeout=60) as resp:
+        resp.read()
+    with concurrent.futures.ThreadPoolExecutor(len(prompts)) as ex:
+        return list(ex.map(lambda p: _gen_client(url, p, max_tokens),
+                           prompts))
+
+
+def _pct(xs, q):
+    import numpy as np
+    return float(np.percentile(np.asarray(xs), q)) if len(xs) else float("nan")
+
+
+def _check_against_reference(torch, model, params, prompt, got, what):
+    """``got`` against ``model.reference_decode``; a divergence passes
+    only where the reference's top-2 logit gap is below TIE_GAP (a tie:
+    the comparison stops there). Returns the tokens compared."""
+    ref = model.reference_decode(params, prompt, len(got))
+    for i, (a, r) in enumerate(zip(got, ref)):
+        if a == r:
+            continue
+        with torch.inference_mode():
+            ids = torch.tensor([list(prompt) + ref[:i]], device=model.device)
+            logits, _, _ = model.forward_with_kv(params, ids)
+        top2 = torch.topk(logits[0, -1], 2).values
+        gap = float(top2[0] - top2[1])
+        check(gap < TIE_GAP, f"{what}: token {i} is {a}, reference_decode "
+                             f"says {r} (top-2 gap {gap:.3e})")
+        print(f"[generate] {what}: tie at token {i} (served {a}, reference "
+              f"{r}, top-2 gap {gap:.3e}); comparison stops there")
+        return i
+    check(len(ref) == len(got) or ref[-1] == model.conf.eos_id,
+          f"{what}: reference_decode gave {len(ref)} tokens, served "
+          f"{len(got)}")
+    return len(got)
+
+
+def _decode_vs_forward(torch, model, pool, params, prompt, max_blocks: int,
+                       paged: bool):
+    """One decode step's logits (the last prompt token, batch padded to 8
+    with dead slots) against the full forward's last position: max |d|."""
+    import numpy as np
+    n = len(prompt)
+    seq = "decode-vs-forward"
+    table = pool.alloc(seq, n)
+    try:
+        with torch.inference_mode():
+            _, k, v = model.prefill(params, np.asarray([prompt[:-1]]),
+                                    np.asarray([n - 1]))
+            bs = pool.block_size
+            slots = torch.tensor([table[t // bs] * bs + t % bs
+                                  for t in range(n - 1)], device=pool.device)
+            nl, nb = pool.k.shape[:2]
+            pool.k.view(nl, nb * bs, *pool.k.shape[3:])[:, slots] = \
+                k[:, 0].to(pool.k.dtype)
+            pool.v.view(nl, nb * bs, *pool.v.shape[3:])[:, slots] = \
+                v[:, 0].to(pool.v.dtype)
+            tables = np.zeros((8, max_blocks), np.int32)
+            tables[0] = pool.padded_table(seq, tables.shape[1])
+            tokens = np.zeros(8, np.int32)
+            positions = np.zeros(8, np.int32)
+            tokens[0], positions[0] = prompt[-1], n - 1
+            step, _, _ = model.decode_step(params, tokens, positions,
+                                           pool.k, pool.v, tables,
+                                           paged=paged)
+            full, _, _ = model.forward_with_kv(params, np.asarray([prompt]))
+        return float((step[0] - full[0, -1]).abs().max())
+    finally:
+        pool.free(seq)
+
+
+def _synthetic_step(torch, engine, L: int, b: int):
+    """A decode step's host arrays for ``b`` sequences at length ``L``
+    (blocks allocated, contents whatever the pool holds): for timing."""
+    import numpy as np
+    args = engine._decode_args(b)
+    for i in range(b):
+        engine.pool.alloc(("synthetic", i), L)
+        args[1][i] = L - 1
+        args[2][i] = engine.pool.padded_table(("synthetic", i),
+                                              engine.max_blocks)
+        args[0][i] = 7
+    return args
+
+
+def phase_generate(torch, label: str, device: str = "cuda", conf=None,
+                   gen=None, kv_dtype: str = "float32",
+                   requests: int = GEN_REQUESTS,
+                   max_tokens: int = GEN_MAX_TOKENS, checked: int = 8,
+                   tokens_f32=None) -> dict:
+    """Generative serving at GPT-2-small width: a seeded DecoderLM
+    registered with ``gen`` (default GEN_CONFIG) and served over HTTP,
+    ``requests`` concurrent streaming greedy requests. TF32 off (the
+    model's matmuls in full f32). ``device="cpu"`` with a small ``conf``
+    and ``gen`` rehearses the phase without a card (launch counts,
+    timings and the profile are the card's)."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.models import DecoderConfig, DecoderLM
+    from deeplearning4j_tpu_torch.ops import attention_kernels as ak
+    from deeplearning4j_tpu_torch.serving import (AdmissionController,
+                                                  InferenceServer,
+                                                  ModelRegistry)
+    conf = conf or DecoderConfig(**GPT2_SMALL)
+    gen = dict(gen or GEN_CONFIG, kv_dtype=kv_dtype)
+    on_card = device == "cuda"
+    tag = f"[generate {kv_dtype}]"
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = DecoderLM(conf)
+    t0 = time.perf_counter()
+    params = model.init(device, seed=41)
+    print(f"{tag} DecoderLM L={conf.n_layers} d={conf.d_model} "
+          f"h={conf.n_heads} ff={conf.d_ff} vocab {conf.vocab_size}, "
+          f"{model.num_params()} params seeded on {device} in "
+          f"{time.perf_counter() - t0:.2f}s; generate={gen}")
+    rs = np.random.RandomState(43)
+    lo, hi = min(gen["prompt_buckets"]) // 4, max(gen["prompt_buckets"])
+    lens = rs.randint(lo, hi + 1, size=requests)
+    lens[0] = hi                                  # the longest prompt
+    prompts = [rs.randint(0, conf.vocab_size - 1, size=n).tolist()
+               for n in lens]
+    reg = ModelRegistry(device)
+    srv = None
+    try:
+        # ---- the main path: counts to 0, register (warmup), serve ----
+        _zero_counts()
+        t_reg = time.perf_counter()
+        ver = reg.register("lm", model, generate=gen)
+        t_reg = time.perf_counter() - t_reg
+        engine = ver.batcher.engine
+        # generate admission is by token cost (KV blocks of prompt and
+        # completion): the budget is the pool's usable blocks
+        srv = InferenceServer(reg, AdmissionController(
+            max_queue=gen["kv_blocks"] - 1)).start(0)
+        url = f"{srv.url}/v1/models/lm:generate"
+        since_us = time.time() * 1e6          # this run's trace spans
+        with concurrent.futures.ProcessPoolExecutor(
+                1, mp_context=multiprocessing.get_context("spawn")) as ex:
+            results = ex.submit(_gen_load, url, prompts, max_tokens
+                                ).result()
+        # the serving window on the clients' clock (perf_counter is the
+        # system's monotonic clock, shared by both processes)
+        t_serve = (max(r["t_end"] for r in results)
+                   - min(r["t0"] for r in results))
+        _sync(torch, device)
+        launches = _counts()
+        steps = engine.decode_steps
+        print(f"{tag} main path: register (warmup {t_reg:.2f}s) + "
+              f"{requests} concurrent streaming requests, prompts "
+              f"{int(lens.min())}..{int(lens.max())} tokens, max_tokens "
+              f"{max_tokens}; decode steps {steps}; launches {launches}")
+        want = {k: 0 for k in launches}
+        want["paged_decode"] = conf.n_layers * steps * on_card
+        check(launches == want, f"launches {launches}, expected {want} "
+                                f"({conf.n_layers} a decode step)")
+        check(engine.retraces_since_warmup() == 0,
+              f"{engine.retraces_since_warmup()} retraces after warmup")
+        for r in results:
+            check(r["code"] == 200 and r["done"] is not None
+                  and r["done"]["tokens"] == len(r["tokens"]),
+                  f"a stream ended badly: {r['code']} {r['done']}")
+            check(len(r["tokens"]) == max_tokens
+                  or r["done"]["reason"] == "eos",
+                  f"a stream stopped early: {r['done']}")
+        pool = engine.pool
+        check(pool.live_blocks == 0 and pool.free_blocks
+              == pool.usable_blocks, f"pool not freed: {pool.report()}")
+        result = {"launches": launches, "decode_steps": steps,
+                  "tokens": [r["tokens"] for r in results]}
+
+        # ---- greedy tokens against reference_decode ----
+        if tokens_f32 is None:
+            n_cmp = 0
+            for i in range(min(checked, requests)):
+                n_cmp += _check_against_reference(
+                    torch, model, params, prompts[i], results[i]["tokens"],
+                    f"request {i} ({len(prompts[i])}-token prompt)")
+            print(f"{tag} {min(checked, requests)} requests (the longest "
+                  f"prompt among them) == reference_decode over {n_cmp} "
+                  f"tokens")
+            d_paged = _decode_vs_forward(torch, model, pool, params,
+                                         prompts[1], engine.max_blocks,
+                                         paged=on_card)
+            check(d_paged <= DECODE_ATOL, f"decode step vs forward: max "
+                                          f"|d| {d_paged:.3e}")
+            print(f"{tag} one decode step's logits (route "
+                  f"{'kernel 10' if on_card else 'plain'}) vs the full "
+                  f"forward's last position: max |d| {d_paged:.3e} "
+                  f"(bar {DECODE_ATOL})")
+            result.update(compared_tokens=n_cmp, decode_vs_forward=d_paged)
+        else:
+            # the prefill never reads the pool: first tokens are the f32
+            # run's; later tokens read bf16 K/V
+            same = sum(a == b for r, f in zip(results, tokens_f32)
+                       for a, b in zip(r["tokens"], f))
+            total = sum(len(f) for f in tokens_f32)
+            check(all(r["tokens"][0] == f[0]
+                      for r, f in zip(results, tokens_f32)),
+                  "bf16 pool changed a first token")
+            print(f"{tag} tokens equal to the f32-pool run's: {same} of "
+                  f"{total} (first tokens all equal)")
+            result["agree_with_f32"] = same / max(1, total)
+        pool_bytes = pool.pool_bytes
+
+        # ---- serving numbers (client clock) ----
+        ttft = [r["times"][0] * 1e3 for r in results if r["times"]]
+        gaps = [(b_ - a) * 1e3 for r in results
+                for a, b_ in zip(r["times"], r["times"][1:])]
+        n_tok = sum(len(r["tokens"]) for r in results)
+        spans = [e for e in _trace_events() if e["ts"] >= since_us]
+        steps32 = [e["dur"] / 1e3 for e in spans
+                   if e["name"] == "generate.decode_step"
+                   and e["args"].get("bucket") == max(gen["decode_buckets"])]
+        prefills = [e["dur"] / 1e3 for e in spans
+                    if e["name"] == "generate.prefill"]
+        result.update(
+            ttft_ms_p50=_pct(ttft, 50), ttft_ms_max=max(ttft),
+            intertoken_ms_p50=_pct(gaps, 50), intertoken_ms_p99=_pct(gaps,
+                                                                     99),
+            tokens_per_s=n_tok / t_serve, serve_s=t_serve,
+            decode_step_ms_p50=_pct(steps32, 50),
+            prefill_ms_p50=_pct(prefills, 50), pool_bytes=pool_bytes)
+        print(f"{tag} TTFT p50 {result['ttft_ms_p50']:.3f} ms max "
+              f"{result['ttft_ms_max']:.3f} ms; inter-token p50 "
+              f"{result['intertoken_ms_p50']:.3f} ms p99 "
+              f"{result['intertoken_ms_p99']:.3f} ms; {n_tok} tokens in "
+              f"{t_serve:.3f}s = {result['tokens_per_s']:.1f} tokens/s; "
+              f"decode step at bucket {max(gen['decode_buckets'])}: median "
+              f"{result['decode_step_ms_p50']:.3f} ms over {len(steps32)} "
+              f"steps; prefill (bucket-padded prompt + K/V scatter + first "
+              f"token) median {result['prefill_ms_p50']:.3f} ms over "
+              f"{len(prefills)}; pool {pool_bytes / 1e9:.3f} GB [{label}]")
+        if on_card:
+            b = max(gen["decode_buckets"])
+            # the served run's mean length, and 480: the longest a batch
+            # of 32 fits in the 1023 usable blocks at 16 tokens a block
+            for L in (int(np.mean(lens)) + max_tokens // 2, 480):
+                args = _synthetic_step(torch, engine, L, b)
+                try:
+                    fn = lambda: engine._decode(*args)  # noqa: E731
+                    fn()
+                    ms = sorted(_host_ms(torch, fn) for _ in range(3))[1]
+                    prof = profile_device(
+                        torch, fn, ms, f"batch-{b} decode step at L={L}")
+                    k_ms = sum(t["ms"] for t in prof.get("top", [])
+                               if "paged_decode" in t["kernel"])
+                    share = k_ms / prof["device_busy_ms"] if prof else None
+                    print(f"{tag} synthetic decode step, batch {b}, L={L}: "
+                          f"{ms:.3f} ms; kernel 10 {k_ms:.3f} ms = "
+                          f"{share:.3f} of device busy [{label}]")
+                    result[f"step_L{L}"] = {"ms": ms, "profile": prof,
+                                            "kernel10_ms": k_ms,
+                                            "kernel10_share": share}
+                finally:
+                    for i in range(b):
+                        engine.pool.free(("synthetic", i))
+        return result
+    finally:
+        if srv is not None:
+            srv.stop()
+        reg.shutdown()
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = prev
+
+
+def _trace_events():
+    from deeplearning4j_tpu_torch.common import telemetry
+    return telemetry.trace_events()
+
+
+def _host_ms(torch, fn, reps: int = 5) -> float:
+    """Host wall time of one ``fn()`` that ends in a synchronising copy."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def decoder_card_vs_cpu(torch, device: str = "cuda", layers: int = 2
+                        ) -> dict:
+    """GPT-2-small widths at 2 layers (vocab 50257), TF32 off: the
+    prefill of two padded prompts and one paged decode step (kernel 10 on
+    the card, its plain version on the CPU) on the card and on the CPU;
+    logits and K/V within DECODE_ATOL."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.models import DecoderConfig, DecoderLM
+    conf = DecoderConfig(**dict(GPT2_SMALL, n_layers=layers))
+    cpu = DecoderLM(conf)
+    cpu.init("cpu", seed=47)
+    card = DecoderLM(conf)
+    card.set_params(cpu.params, device)
+    rs = np.random.RandomState(47)
+    prompts = [rs.randint(0, conf.vocab_size - 1, size=n).tolist()
+               for n in (40, 64)]
+    tokens = np.zeros((2, 64), np.int32)
+    for i, p in enumerate(prompts):
+        tokens[i, :len(p)] = p
+    lengths = np.asarray([40, 64], np.int32)
+    nb, bs = 16, 16
+    tables = np.asarray([[1, 2, 3, 0, 0, 0, 0, 0],
+                         [5, 6, 7, 8, 9, 0, 0, 0]], np.int32)
+    step_tok = np.asarray([11, 12], np.int32)
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    try:
+        for name, m in (("card", card), ("cpu", cpu)):
+            with torch.inference_mode():
+                last, k, v = m.prefill(m.params, tokens, lengths)
+                shape = (layers, nb, bs, conf.n_heads, conf.head_dim)
+                kp = torch.zeros(shape, device=m.device)
+                vp = torch.zeros(shape, device=m.device)
+                for i, n in enumerate(lengths):
+                    for t in range(n):
+                        kp[:, tables[i, t // bs], t % bs] = k[:, i, t]
+                        vp[:, tables[i, t // bs], t % bs] = v[:, i, t]
+                logits, kp, vp = m.decode_step(m.params, step_tok, lengths,
+                                               kp, vp, tables, paged=True)
+            out[name] = [t.cpu() for t in (last, k, v, logits, kp, vp)]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = prev
+    errs = {}
+    for i, nm in enumerate(("prefill logits", "prefill k", "prefill v",
+                            "decode logits", "pool k", "pool v")):
+        e = float((out["card"][i] - out["cpu"][i]).abs().max())
+        check(e <= DECODE_ATOL, f"decoder card vs CPU {nm}: max |d| {e:.3e}")
+        errs[nm] = e
+    print(f"[decoder-vs-cpu] GPT-2-small widths at {layers} layers, prefill "
+          f"of 40- and 64-token prompts (bucket 64) and one paged decode "
+          f"step, card (kernel 10) vs CPU (plain), TF32 off: max |d| "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    return errs
+
+
+# ---------------------------------------------------------------------------
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1649,6 +2162,11 @@ def main() -> int:
     bs = timed("bert-serve", phase_bert_serve, torch, label)
     bt = timed("bert-train", phase_bert_train, torch, label)
     timed("bert-vs-cpu", bert_card_vs_cpu, torch)
+    pk = timed("paged", phase_paged_kernel, torch)
+    gf = timed("generate", phase_generate, torch, label)
+    gb = timed("generate-bf16", phase_generate, torch, label,
+               kv_dtype="bf16", tokens_f32=gf["tokens"])
+    timed("decoder-vs-cpu", decoder_card_vs_cpu, torch)
 
     from deeplearning4j_tpu_torch.ops import cuda_build
     f32 = kern["timing"]["float32"]
@@ -1663,6 +2181,10 @@ def main() -> int:
              "bn_bwd_dx": ("training ResNet-50, 10 steps", tr["launches"])}
     for name in FLASH_KERNELS:
         paths[name] = ("training BERT-base, 10 steps", bt["launches"])
+    paths["paged_decode"] = (
+        f"generative serving, GPT-2-small width, {GEN_REQUESTS} requests x "
+        f"{GEN_MAX_TOKENS} tokens, f32 pool ({gf['decode_steps']} decode "
+        f"steps)", gf["launches"])
     records = []
     for k in cuda_build.KERNELS.values():
         path, launches = paths[k.name]
@@ -1687,6 +2209,24 @@ def main() -> int:
                 # yardstick is SDPA's forward + backward, beside 7+8+9
                 extra["sdpa_fwd_bwd_ms"] = ft["float32_t128"][
                     "sdpa_fwd_bwd_ms"]
+        elif k.name == "paged_decode":
+            pt = pk["timing"]
+            t = pt["float32_L512"]
+            err = pk["max_abs_err"]
+            shapes = (f"the 12 decode-attention sites of a batch-{BATCH} "
+                      f"GPT-2-small decode step at L=512, f32 pool")
+            by_dtype = {d: pt[f"{d}_L512"]["kernel_ms"]
+                        for d in ("float32", "bfloat16")}
+            extra = {"bound_ms_by_dtype": {
+                d: pt[f"{d}_L512"]["bound_ms"]
+                for d in ("float32", "bfloat16")},
+                "L1024_ms_by_dtype": {
+                    d: pt[f"{d}_L1024"]["kernel_ms"]
+                    for d in ("float32", "bfloat16")},
+                "L1024_bound_ms_by_dtype": {
+                    d: pt[f"{d}_L1024"]["bound_ms"]
+                    for d in ("float32", "bfloat16")},
+                "launches_bf16_pool": gb["launches"]["paged_decode"]}
         elif k.name == "scale_shift_act":
             t = {"kernel_ms": f32["kernel_ms"], "plain_ms": f32["plain_ms"],
                  "bound_ms": f32["bound_ms"], "library_ms":
@@ -1717,6 +2257,11 @@ def main() -> int:
           f"{bt['median_step_ms']:.3f} ms ({bt['seq_per_s']:.1f} "
           f"sequences/s), forward t=128 {bs['f32_t128_ms'][1]:.3f} ms "
           f"[{label}]")
+    print(f"[done] GPT-2-small generate: {gf['tokens_per_s']:.1f} tokens/s,"
+          f" TTFT p50 {gf['ttft_ms_p50']:.3f} ms, inter-token p50 "
+          f"{gf['intertoken_ms_p50']:.3f} ms, decode step (bucket 32) "
+          f"{gf['decode_step_ms_p50']:.3f} ms; bf16 pool "
+          f"{gb['tokens_per_s']:.1f} tokens/s [{label}]")
     print(f"[done] matmul precision: "
           f"{torch.get_float32_matmul_precision()}, cuda.matmul.allow_tf32 "
           f"{torch.backends.cuda.matmul.allow_tf32}")

@@ -11,9 +11,12 @@ default on), ``DL4J_TORCH_RETRACE_WARN`` (warn once past this many
 distinct served shapes, default 5). Read live by their subsystems:
 ``DL4J_TORCH_FUSED_CONV`` (the conv-epilogue and training-BN forward
 kernel gate), ``DL4J_TORCH_FUSED_BN_BWD`` (the BN backward kernel gate),
-``DL4J_TORCH_FLASH_ATTENTION`` (the flash-attention kernel gate; all
-three in ``ops/kernel_select.py``) and ``DL4J_TORCH_HTTP_HOST`` (the serving
-bind interface, default 127.0.0.1).
+``DL4J_TORCH_FLASH_ATTENTION`` (the flash-attention kernel gate),
+``DL4J_TORCH_PAGED_ATTENTION`` (the paged-decode kernel gate; all four
+in ``ops/kernel_select.py``), ``DL4J_TORCH_KV_DTYPE`` (the KV pool's
+dtype, ``float32`` or ``bf16``; ``serving/batcher.py``) and
+``DL4J_TORCH_HTTP_HOST`` (the serving bind interface, default
+127.0.0.1).
 
 :func:`resolve_device` is the one place the port's entry points turn
 ``device=None`` into a device: the card, or an error that says how to

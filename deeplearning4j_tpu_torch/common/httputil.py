@@ -3,8 +3,10 @@
 Counterpart of ``deeplearning4j_tpu/common/httputil.py`` (a copy, not
 an import): the zero-dependency ``ThreadingHTTPServer`` pattern with
 silent request logging, explicit Content-Length framing, JSON bodies
-and the Prometheus ``/metrics`` page, plus the zero-copy ``.npy``
-codec of the serving path (:func:`npy_view`, :func:`npy_header`).
+and the Prometheus ``/metrics`` page, chunked transfer encoding for
+the ``:generate`` token stream (:meth:`QuietHandler.begin_chunks` and
+its siblings), plus the zero-copy ``.npy`` codec of the serving path
+(:func:`npy_view`, :func:`npy_header`).
 
 Bind host: ``DL4J_TORCH_HTTP_HOST`` (default ``127.0.0.1``).
 """
@@ -102,6 +104,47 @@ class QuietHandler(BaseHTTPRequestHandler):
             MetricsRegistry
         self.send_body(MetricsRegistry.get().render_prometheus().encode(),
                        "text/plain; version=0.0.4; charset=utf-8")
+
+    # -- chunked streaming (the :generate token stream) ------------------
+    def begin_chunks(self, content_type: str, code: int = 200,
+                     headers: Optional[dict] = None):
+        """Open a chunked transfer-encoding response: status and headers
+        now, the body in :meth:`send_chunk` pieces as they become
+        available, closed by :meth:`end_chunks`."""
+        self.send_response(code)
+        self.send_header("Content-Type", content_type)
+        self.send_header("Transfer-Encoding", "chunked")
+        for k, v in (headers or {}).items():
+            self.send_header(k, str(v))
+        self.end_headers()
+
+    def send_chunk(self, data: bytes):
+        """One chunk frame (size line + payload), flushed at once so the
+        client sees a token the moment it decodes. Raises ``OSError`` on
+        a client disconnect: the caller's signal to cancel the stream."""
+        if not data:
+            return              # a zero-size frame would end the body
+        self.wfile.write(b"%X\r\n" % len(data))
+        self.wfile.write(data)
+        self.wfile.write(b"\r\n")
+        self.wfile.flush()
+
+    def end_chunks(self):
+        """The terminal zero-length chunk: a well-formed end of body; the
+        keep-alive connection stays usable."""
+        self.wfile.write(b"0\r\n\r\n")
+        self.wfile.flush()
+
+    def abort_chunks(self):
+        """End a chunk stream after a mid-stream failure WITHOUT the
+        terminal chunk: the client's de-chunker sees a truncated body (a
+        prompt protocol error), not a keep-alive connection that hangs.
+        The socket closes after the handler returns."""
+        self.close_connection = True
+        try:
+            self.wfile.flush()
+        except OSError:
+            pass                # the client may already be gone
 
     def read_body(self) -> bytes:
         n = int(self.headers.get("Content-Length") or 0)

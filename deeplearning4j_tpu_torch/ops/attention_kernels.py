@@ -1,9 +1,11 @@
-"""Flash-attention dispatch for scaled dot-product attention sites.
+"""Attention dispatch: flash attention for scaled dot-product sites and
+paged decode attention over a block-paged KV pool.
 
-Counterpart of the flash half of
-``deeplearning4j_tpu/ops/attention_pallas.py`` (the paged-decode half
-is not ported yet): :func:`as_key_mask` reduces a broadcastable mask to
-the ``[b, t_k]`` key mask the kernels stream, :func:`select_attention_backend`
+Counterpart of ``deeplearning4j_tpu/ops/attention_pallas.py``, both
+halves.
+
+**Flash half.** :func:`as_key_mask` reduces a broadcastable mask to the
+``[b, t_k]`` key mask the kernels stream, :func:`select_attention_backend`
 runs the ``attention`` family of ``ops/kernel_select.py``, and
 :func:`flash_sdpa` adapts a site to the kernels of
 ``parallel/sequence.py``: any scale is folded into q (the kernels
@@ -18,16 +20,31 @@ for every admissible site on the card and the dense path on the CPU.
 ["flash_attention"]``) is the explicit kill switch to the dense path of
 ``ops/attention.py``; ``=1`` forces the kernels' route anywhere (on the
 CPU: their plain versions).
+
+**Paged half.** One query token per sequence attends over a KV pool
+``[num_blocks, block, h, d]`` through per-sequence block tables:
+:func:`paged_attention_reference` is the plain version (a dense gather
+of every table entry, the semantics oracle), :func:`paged_decode_attention`
+the wrapper of the hand-written kernel ``csrc/paged_attention.cu``
+(kernel 10, replacing ``_paged_decode_kernel``), and
+:func:`select_paged_backend` the ``paged_attention`` family's ladder:
+a degenerate shape is demoted structurally, ``DL4J_TORCH_PAGED_ATTENTION
+=0`` kills the kernel (``=1`` forces its route), and the auto rung takes
+the kernel on the card and the dense gather on the CPU (the JAX
+package's "platform is tpu" auto rule does not carry over).
 """
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Optional, Tuple, Union
 
 import torch
 
-from deeplearning4j_tpu_torch.ops import kernel_select
-from deeplearning4j_tpu_torch.parallel.sequence import flash_attention
+from deeplearning4j_tpu_torch.ops import cuda_build, kernel_select
+from deeplearning4j_tpu_torch.parallel.sequence import (KERNEL_DTYPES,
+                                                        MAX_HEAD_DIM,
+                                                        flash_attention)
 
 
 def as_key_mask(mask: torch.Tensor, batch: int, t_k: int, rank: int
@@ -123,3 +140,160 @@ def maybe_flash_sdpa(q, k, v, scale: Optional[float] = None, mask=None,
     if backend != "flash":
         return None
     return flash_sdpa(q, k, v, scale, key_mask=km)
+
+
+# ---------------------------------------------------------------------------
+# paged decode attention (kernel 10)
+# ---------------------------------------------------------------------------
+#: masked-score value, as the flash kernels': the exp of a masked score is
+#: exactly 0
+PAGED_NEG_INF = -1e30
+
+PAGED_DECODE = cuda_build.register(cuda_build.Kernel(
+    "paged_decode",
+    source="deeplearning4j_tpu_torch/csrc/paged_attention.cu",
+    replaces="deeplearning4j_tpu/ops/attention_pallas.py:230 "
+             "(_paged_decode_kernel)"))
+
+
+def paged_attention_reference(q, k_pool, v_pool, block_tables, lengths,
+                              scale: Optional[float] = None
+                              ) -> torch.Tensor:
+    """The plain version of paged decode attention (the CPU path and the
+    kernel's oracle): gather every table entry's block densely, mask
+    tokens at or past ``lengths``, softmax in f32.
+
+    ``q`` ``[b, h, d]``; ``k_pool`` / ``v_pool`` ``[num_blocks, block, h,
+    d]``; ``block_tables`` ``[b, max_blocks]`` (padded with the scratch
+    block 0); ``lengths`` ``[b]``, valid tokens a sequence (a length past
+    ``max_blocks * block`` counts the whole table). Returns ``[b, h, d]``
+    in q's dtype."""
+    b, h, d = q.shape
+    block = k_pool.shape[1]
+    t = block_tables.shape[1] * block
+    idx = block_tables.long()
+    k = k_pool[idx].reshape(b, t, h, d).float()
+    v = v_pool[idx].reshape(b, t, h, d).float()
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    s = torch.einsum("bhd,bthd->bht", q.float(), k) * scale
+    valid = (torch.arange(t, device=q.device)[None, :]
+             < lengths.to(q.device).long()[:, None])             # [b, t]
+    s = torch.where(valid[:, None, :], s, PAGED_NEG_INF)
+    m = s.amax(-1, keepdim=True)
+    p = torch.where(s <= PAGED_NEG_INF / 2, 0.0, torch.exp(s - m))
+    w = p / torch.clamp(p.sum(-1, keepdim=True), min=1e-30)
+    return torch.einsum("bht,bthd->bhd", w, v).to(q.dtype)
+
+
+_P, _INT, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+def _check_paged(q, k_pool, v_pool, block_tables, lengths):
+    """Validate the kernel's operands on the card; returns (b, h, d,
+    block, max_blocks). Raises on what the kernel does not take."""
+    fn = "paged_decode_attention"
+    if q.device.type != "cuda":
+        raise ValueError(f"{fn}: no kernel for device {q.device}")
+    if q.dim() != 3 or k_pool.dim() != 4:
+        raise ValueError(f"{fn}: q must be [b, h, d] and the pools "
+                         f"[num_blocks, block, h, d], got "
+                         f"{tuple(q.shape)} and {tuple(k_pool.shape)}")
+    b, h, d = q.shape
+    nb, block = k_pool.shape[:2]
+    if tuple(k_pool.shape) != (nb, block, h, d) \
+            or v_pool.shape != k_pool.shape:
+        raise ValueError(f"{fn}: pools must be [num_blocks, block, {h}, "
+                         f"{d}], got {tuple(k_pool.shape)} and "
+                         f"{tuple(v_pool.shape)}")
+    for nm, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool)):
+        if t.dtype not in KERNEL_DTYPES:
+            raise TypeError(f"{fn}: {nm} dtype {t.dtype} is not one of "
+                            f"{tuple(KERNEL_DTYPES)}")
+    if v_pool.dtype != k_pool.dtype:
+        raise TypeError(f"{fn}: k_pool is {k_pool.dtype}, v_pool "
+                        f"{v_pool.dtype}")
+    if not (k_pool.is_contiguous() and v_pool.is_contiguous()):
+        # a copy of the pool would move more bytes than the site reads
+        raise ValueError(f"{fn}: the pools must be contiguous")
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"{fn}: head dim {d} exceeds the kernel's "
+                         f"{MAX_HEAD_DIM}")
+    if block_tables.dim() != 2 or block_tables.shape[0] != b \
+            or tuple(lengths.shape) != (b,):
+        raise ValueError(f"{fn}: block tables must be [{b}, max_blocks] "
+                         f"and lengths [{b}], got "
+                         f"{tuple(block_tables.shape)} and "
+                         f"{tuple(lengths.shape)}")
+    for nm, t in (("k_pool", k_pool), ("v_pool", v_pool),
+                  ("block_tables", block_tables), ("lengths", lengths)):
+        if t.device != q.device:
+            raise ValueError(f"{fn}: {nm} is on {t.device}, q on "
+                             f"{q.device}")
+    max_blocks = block_tables.shape[1]
+    if min(b, h, d, block, max_blocks) == 0:
+        raise ValueError(f"{fn}: empty operand q {tuple(q.shape)}, pool "
+                         f"{tuple(k_pool.shape)}, tables "
+                         f"{tuple(block_tables.shape)}")
+    return b, h, d, block, max_blocks
+
+
+def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths,
+                           scale: Optional[float] = None) -> torch.Tensor:
+    """Kernel 10 on a CUDA q, the plain version on a CPU q; the contract
+    of :func:`paged_attention_reference`. The kernel reads only the
+    blocks that hold each sequence's valid tokens; table entries must
+    name blocks of the pool (not checked on the card: that would need a
+    synchronisation)."""
+    if q.device.type == "cpu":
+        return paged_attention_reference(q, k_pool, v_pool, block_tables,
+                                          lengths, scale)
+    b, h, d, block, max_blocks = _check_paged(q, k_pool, v_pool,
+                                              block_tables, lengths)
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    q = q.contiguous()
+    tables = block_tables.to(torch.int32).contiguous()
+    lens = lengths.to(torch.int32).contiguous()
+    out = torch.empty_like(q)
+    fn = cuda_build.c_function(
+        "paged_attention", "dl4j_paged_decode",
+        [_P, _P, _P, _P, _P, _P, _INT, _INT, _INT, _INT, _INT, _F, _INT,
+         _INT, _P])
+    with torch.cuda.device(q.device):
+        rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                tables.data_ptr(), lens.data_ptr(), out.data_ptr(), b, h,
+                d, block, max_blocks, float(scale), KERNEL_DTYPES[q.dtype],
+                KERNEL_DTYPES[k_pool.dtype],
+                torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"paged_decode_attention: CUDA launch failed "
+                           f"with cudaError {rc}")
+    PAGED_DECODE.launched()
+    return out
+
+
+def select_paged_backend(batch: int, max_blocks: int, *,
+                         device: Union[str, torch.device] = "cuda",
+                         override=None,
+                         use_env_override: bool = True) -> Tuple[str, str]:
+    """``("paged" | "dense", reason)`` for a decode-attention site on
+    ``device``; ``override`` exists for tests (default: the live
+    ``DL4J_TORCH_PAGED_ATTENTION`` gate)."""
+    structural = None
+    if batch < 1 or max_blocks < 1:
+        structural = (f"degenerate decode shape b={batch} "
+                      f"blocks={max_blocks}")
+    if override is None and use_env_override:
+        override = kernel_select.gate_override("paged_attention")
+    dev = torch.device(device)
+
+    def auto():
+        if dev.type == "cuda":
+            return True, "auto: cuda, the paged kernel is the path"
+        return False, f"auto: device '{dev.type}' runs the dense gather"
+
+    sel = kernel_select.select("paged_attention", structural=structural,
+                               auto=auto, override=override,
+                               use_env_override=False)
+    return ("paged" if sel.fused else "dense"), sel.reason

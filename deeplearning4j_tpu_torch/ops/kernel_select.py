@@ -37,6 +37,7 @@ GATES = {
     "bn_fwd": ("fused_conv", "DL4J_TORCH_FUSED_CONV"),
     "bn_bwd": ("fused_bn_bwd", "DL4J_TORCH_FUSED_BN_BWD"),
     "attention": ("flash_attention", "DL4J_TORCH_FLASH_ATTENTION"),
+    "paged_attention": ("paged_attention", "DL4J_TORCH_PAGED_ATTENTION"),
 }
 
 DECISIONS = ("structural", "forced", "killed", "auto_fused", "auto_dense")

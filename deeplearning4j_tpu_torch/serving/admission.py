@@ -7,8 +7,9 @@ drains (no new admissions, wait for in-flight work). With a
 ``latency_slo_ms`` the budget moves AIMD-style on the windowed p95 of
 completed requests; ``Retry-After`` comes from the measured drain
 rate. Per-request deadlines fail fast at admission (504) and are
-cancelled, not computed, when they expire in the batcher's queue. The
-SLO error-budget tracker is not ported yet.
+cancelled, not computed, when they expire in the batcher's queue.
+Generate requests are admitted by token cost (``admit(..., cost=)``).
+The SLO error-budget tracker is not ported yet.
 """
 from __future__ import annotations
 
@@ -181,10 +182,19 @@ class AdmissionController:
         return str(max(1, int(math.ceil(self.retry_after_s_for(model)))))
 
     # ------------------------------------------------------------------
-    def admit(self, model: str, deadline: Optional[float] = None) -> None:
+    def admit(self, model: str, deadline: Optional[float] = None, *,
+              cost: int = 1) -> None:
         """Admit one request for ``model`` or raise
         :class:`DeadlineExceeded` / :class:`ShedError`. Pair every
-        successful admit with a :meth:`release`."""
+        successful admit with a :meth:`release` of the same ``cost``.
+
+        ``cost`` is the request's weight against the in-flight budget: 1
+        for a predict, the KV blocks of its prompt and completion for a
+        generate, so one long prompt spends the budget many short ones
+        would. An oversized request is still admitted when the model is
+        idle, or it could never run; a shed one is told to retry after
+        its cost over the measured drain rate."""
+        cost = max(1, int(cost))
         if deadline is not None and time.monotonic() >= deadline:
             deadline_shed_counter().inc(model=model, where="admission")
             raise DeadlineExceeded("deadline already expired at admission")
@@ -193,20 +203,21 @@ class AdmissionController:
                 self._shed.inc(model=model, reason="draining")
                 raise ShedError("draining", self.retry_after_s)
             n = self._inflight.get(model, 0)
-            if n >= min(self._budget.get(model, self.max_queue),
-                        self.max_queue):
+            limit = min(self._budget.get(model, self.max_queue),
+                        self.max_queue)
+            if n >= limit or (n > 0 and n + cost > limit):
                 self._shed.inc(model=model, reason="queue_full")
                 rate = self._drain_rate_locked(model, time.monotonic())
                 retry = (self.retry_after_s if not rate else
                          min(RETRY_AFTER_CAP_S,
-                             max(self.retry_after_s, 1.0 / rate)))
+                             max(self.retry_after_s, cost / rate)))
                 raise ShedError("queue_full", retry)
-            self._inflight[model] = n + 1
-            self._gauge.set(n + 1, model=model)
+            self._inflight[model] = n + cost
+            self._gauge.set(n + cost, model=model)
 
-    def release(self, model: str) -> None:
+    def release(self, model: str, *, cost: int = 1) -> None:
         with self._lock:
-            n = max(0, self._inflight.get(model, 0) - 1)
+            n = max(0, self._inflight.get(model, 0) - max(1, int(cost)))
             self._inflight[model] = n
             self._gauge.set(n, model=model)
             if n == 0:

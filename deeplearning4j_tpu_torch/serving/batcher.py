@@ -12,14 +12,26 @@ Requests carry an optional ``time.monotonic()`` deadline: one that
 expires while queued is cancelled with
 :class:`~deeplearning4j_tpu_torch.serving.admission.DeadlineExceeded`,
 never computed.
+
+Model surfaces: a ComputationGraph runs its own ``_forward``; any other
+model serves through its ``output(batch)`` (the generic path). A model
+with the ``prefill`` / ``decode_step`` contract (``DecoderLM``) also
+gets a :class:`~deeplearning4j_tpu_torch.serving.generative.DecodeEngine`
+over a paged KV pool on the model's device: ``generate=`` configures it
+(``kv_blocks``, ``kv_block_size``, ``prompt_buckets``, ``decode_buckets``,
+``max_seq_len``, ``rng_seed``, ``kv_dtype``, the last
+defaulting from ``DL4J_TORCH_KV_DTYPE``). Dense mode only: the JAX
+package's residency modes and ``param_dtype`` are not ported.
 """
 from __future__ import annotations
 
 import concurrent.futures
+import os
 import time
 from typing import List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from deeplearning4j_tpu_torch.common import telemetry
 from deeplearning4j_tpu_torch.common.compilecache import RetraceGuard
@@ -45,11 +57,16 @@ class ServingBatcher(ParallelInference):
     def __init__(self, model, buckets: Sequence[int] = (8, 32), *,
                  name: str = "model",
                  queue_limit: int = 256,
-                 guard: Optional[RetraceGuard] = None):
-        if not hasattr(model, "_forward"):
-            raise NotImplementedError(
-                f"serving {type(model).__name__} is not ported yet (the "
-                f"port serves ComputationGraph models)")
+                 guard: Optional[RetraceGuard] = None,
+                 generate: Optional[dict] = None):
+        #: generic path: no graph ``_forward``, serve ``model.output``
+        self._generic = None if hasattr(model, "_forward") \
+            else model.output
+        #: generative path: a DecodeEngine beside the predict path
+        self._generative = (hasattr(model, "prefill")
+                            and hasattr(model, "decode_step"))
+        self.generate_config = dict(generate or {})
+        self.engine = None
         if not buckets:
             raise ValueError("need at least one warmup bucket")
         self.buckets = tuple(sorted({int(b) for b in buckets}))
@@ -61,6 +78,10 @@ class ServingBatcher(ParallelInference):
         self._warmed = False
 
     # ------------------------------------------------------------------
+    def _ensure(self):
+        if self._generic is None:
+            super()._ensure()
+
     def _bucket_for(self, n: int) -> Optional[int]:
         for b in self.buckets:
             if n <= b:
@@ -90,7 +111,12 @@ class ServingBatcher(ParallelInference):
     def _forward_padded(self, padded: np.ndarray, orig: int
                         ) -> np.ndarray:
         self._record(padded)
-        return self._forward_chunk(padded)[:orig]
+        if self._generic is None:
+            return self._forward_chunk(padded)[:orig]
+        out = self._generic(padded)
+        if isinstance(out, torch.Tensor):
+            out = out.detach().cpu().numpy()
+        return np.asarray(out)[:orig]
 
     # ------------------------------------------------------------------
     def warmup(self, input_shape: Sequence[int],
@@ -111,6 +137,76 @@ class ServingBatcher(ParallelInference):
                         stage="warmup")
         self._warmed = True
         return time.perf_counter() - t_all
+
+    # -- generative path -----------------------------------------------
+    @property
+    def is_generative(self) -> bool:
+        return self._generative
+
+    def _ensure_generate(self):
+        """Build the KV pool (on the model's device) and the DecodeEngine
+        on first use."""
+        if not self._generative:
+            raise ValueError(f"model {self.name!r} has no "
+                             f"prefill/decode_step surface")
+        if self.engine is not None:
+            return self.engine
+        from deeplearning4j_tpu_torch.serving.generative import \
+            DecodeEngine
+        from deeplearning4j_tpu_torch.serving.kvcache import KVBlockPool
+        cfg = self.generate_config
+        m = self.model
+        if getattr(m, "params", None) is None:
+            m.init()
+        c = m.conf
+        kv_dtype = cfg.get("kv_dtype") or \
+            os.environ.get("DL4J_TORCH_KV_DTYPE", "").strip() or "float32"
+        pool = KVBlockPool(
+            c.n_layers, int(cfg.get("kv_blocks", 64)),
+            int(cfg.get("kv_block_size", 16)), c.n_heads, c.head_dim,
+            dtype=kv_dtype, device=m.device, name=self.name)
+        self.engine = DecodeEngine(
+            m, m.params, pool, name=self.name,
+            prompt_buckets=cfg.get("prompt_buckets", (16, 64)),
+            decode_buckets=cfg.get("decode_buckets", (4, 8)),
+            max_seq_len=cfg.get("max_seq_len"), guard=self.guard, rng_seed=int(cfg.get("rng_seed", 0)))
+        return self.engine
+
+    def warmup_generate(self) -> float:
+        """Run every prefill and decode bucket once before the first real
+        generate request (the generative half of :meth:`warmup`).
+        Returns seconds."""
+        engine = self._ensure_generate()
+        t0 = time.perf_counter()
+        with telemetry.span("serving.warmup_generate", model=self.name):
+            secs = engine.warmup()
+        _latency().observe(secs, model=self.name, stage="warmup")
+        self._warmed = True
+        return time.perf_counter() - t0
+
+    def generate_cost(self, prompt_len: int, max_tokens: int = 0) -> int:
+        """Token cost of a generate admission (KV blocks)."""
+        return self._ensure_generate().generate_cost(prompt_len,
+                                                     max_tokens)
+
+    def submit_generate(self, prompt, max_tokens: int, *,
+                        temperature: float = 0.0, top_k: int = 0,
+                        deadline: Optional[float] = None):
+        """Enqueue a generate request; returns its
+        :class:`~deeplearning4j_tpu_torch.serving.generative.TokenStream`.
+        Raises ``PoolExhausted`` at once when the KV pool cannot hold the
+        prompt (shed upstream as 429 + Retry-After)."""
+        engine = self._ensure_generate()
+        telemetry.counter(
+            "dl4j_inference_requests_total",
+            "requests submitted to ParallelInference").inc(mode="generate")
+        return engine.submit(prompt, max_tokens, temperature=temperature,
+                             top_k=top_k, deadline=deadline)
+
+    def shutdown(self):
+        if self.engine is not None:
+            self.engine.shutdown()
+        return super().shutdown()
 
     # ------------------------------------------------------------------
     def output_batched(self, requests: List) -> List[np.ndarray]:

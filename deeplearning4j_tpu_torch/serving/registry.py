@@ -10,8 +10,14 @@ pointer under the lock and drains the old version: swaps drop no
 request. ``retraces_since_warmup`` counts padded shapes served after
 warmup that no warm bucket covered; 0 in steady state.
 
-Not ported yet: residency modes and ``param_dtype``, generative decode,
-and the SameDiff / ONNX / Keras adapters.
+A model with the ``prefill`` / ``decode_step`` contract (``DecoderLM``)
+registered with ``generate={...}`` gets a decode engine whose prefill
+and decode buckets all run once before the version goes live, so the
+zero-retrace proof covers ``:generate`` too. Any other model without a
+graph ``_forward`` serves through its ``output``.
+
+Not ported yet: residency modes and ``param_dtype``, and the SameDiff /
+ONNX / Keras adapters.
 """
 from __future__ import annotations
 
@@ -75,11 +81,12 @@ class ModelVersion:
             "version": self.version,
             "status": self.status,
             "source": self.source,
-            "device": str(self.model.device),
+            "device": str(getattr(self.model, "device", "")),
             "warm_buckets": list(self.batcher.buckets),
             "signatures": self.guard.n_signatures,
             "retraces_since_warmup": self.retraces_since_warmup(),
             "mode": self.batcher.mode,
+            "generative": self.batcher.is_generative,
             "latency_slo_ms": self.latency_slo_ms,
             "created": self.created,
         }
@@ -104,10 +111,14 @@ class ModelRegistry:
                  warmup_shape: Optional[Sequence[int]] = None,
                  warmup_dtype=None,
                  buckets: Optional[Sequence[int]] = None,
-                 latency_slo_ms: Optional[float] = None) -> ModelVersion:
+                 latency_slo_ms: Optional[float] = None,
+                 generate: Optional[dict] = None) -> ModelVersion:
         """Register (or hot-swap) the live version of ``name``.
         ``warmup_shape`` (one request's shape without the batch dim)
-        runs every bucket once before the version goes live."""
+        runs every bucket once before the version goes live.
+        ``generate`` configures the decode engine of a model with a
+        prefill/decode_step surface (see ``ServingBatcher``); its buckets
+        run once before the version goes live."""
         if isinstance(model, (str, Path)):
             source = str(model)
             model = load_model(model, self.device)
@@ -118,12 +129,19 @@ class ModelRegistry:
         guard = RetraceGuard(f"serving:{name}:v{version_no}")
         batcher = ServingBatcher(
             model, buckets or self.default_buckets, name=name,
-            queue_limit=self.queue_limit, guard=guard)
+            queue_limit=self.queue_limit, guard=guard, generate=generate)
         ver = ModelVersion(name, version_no, model, batcher, source,
                            latency_slo_ms=latency_slo_ms)
         if warmup_shape is not None:
             ver.status = ModelStatus.WARMING
             secs = batcher.warmup(warmup_shape, warmup_dtype or np.float32)
+            telemetry.histogram(
+                "dl4j_serving_warmup_total_seconds",
+                "whole-version warmup wall time: every bucket run once "
+                "(seconds)").observe(secs, model=name)
+        if generate is not None and batcher.is_generative:
+            ver.status = ModelStatus.WARMING
+            secs = batcher.warmup_generate()
             telemetry.histogram(
                 "dl4j_serving_warmup_total_seconds",
                 "whole-version warmup wall time: every bucket run once "

@@ -12,12 +12,24 @@ Endpoints:
   "batch"}``; or a raw ``.npy`` body (``Content-Type:
   application/octet-stream``) -> a raw ``.npy`` response.
   ``X-Deadline-Ms`` works for both.
+- ``POST /v1/models/<name>:generate``: JSON ``{"prompt": [ids...],
+  "max_tokens": N, "temperature": 0.0, "top_k": 0, "deadline_ms":
+  optional, "stream": true}``. Streaming (the default) answers chunked
+  ``application/x-ndjson``: one ``{"token": id, "index": i}`` line per
+  token as it decodes, then ``{"done": true, "reason": ..., "tokens":
+  n}``; ``stream: false`` buffers one JSON object. Admission is by
+  token cost (the KV blocks of prompt and completion); a full KV pool
+  sheds 429 + ``Retry-After`` before any chunk is sent; a client
+  disconnect cancels the stream (its blocks free on the engine's next
+  iteration); a failure after the first chunk truncates the chunk
+  stream. The time to the first token feeds the admission controller.
 - ``GET /v1/models``, ``GET /healthz``, ``GET /readyz``,
   ``GET /metrics`` (Prometheus text).
 
 Status mapping: shed -> 429 + ``Retry-After``; draining -> 503;
-deadline expired -> 504; unknown model -> 404; bad body -> 400;
-inference failure -> 500.
+deadline expired -> 504; unknown model -> 404; bad body, or a model
+without a generate surface asked to generate -> 400; inference failure
+-> 500.
 """
 from __future__ import annotations
 
@@ -41,6 +53,7 @@ from deeplearning4j_tpu_torch.serving.admission import (AdmissionController,
 from deeplearning4j_tpu_torch.serving.registry import ModelRegistry
 
 _PREDICT_RE = re.compile(r"^/v1/models/([^/:]+):predict$")
+_GENERATE_RE = re.compile(r"^/v1/models/([^/:]+):generate$")
 _NPY_TYPES = ("application/octet-stream", "application/x-npy")
 
 
@@ -85,8 +98,12 @@ class InferenceServer:
                 m = _PREDICT_RE.match(self.path)
                 if m:
                     server._predict(self, m.group(1))
-                else:
-                    self.send_json({"error": "not found"}, 404)
+                    return
+                g = _GENERATE_RE.match(self.path)
+                if g:
+                    server._generate(self, g.group(1))
+                    return
+                self.send_json({"error": "not found"}, 404)
 
         self._httpd, self._thread = start_http_server(Handler, port)
         self.port = self._httpd.server_address[1]
@@ -197,3 +214,126 @@ class InferenceServer:
             finish_json({"outputs": np.asarray(out).tolist(),
                          "model": name, "version": version.version,
                          "batch": int(x.shape[0])}, 200)
+
+    # ------------------------------------------------------------------
+    def _generate(self, handler: QuietHandler, name: str):
+        """``POST /v1/models/<name>:generate`` (see the module doc)."""
+        counted = telemetry.counter(
+            "dl4j_serving_requests_total",
+            "predict requests by model and HTTP status code")
+
+        def finish_json(obj, code, headers=None):
+            counted.inc(model=name, code=str(code))
+            handler.send_json(obj, code, headers)
+
+        try:
+            version = self.registry.model(name)
+        except KeyError:
+            finish_json({"error": f"model {name!r} not found"}, 404)
+            return
+        if not version.batcher.is_generative:
+            finish_json({"error": f"model {name!r} has no generate "
+                                  f"surface"}, 400)
+            return
+        if version.latency_slo_ms is not None:
+            self.admission.set_slo(name, version.latency_slo_ms)
+        try:
+            doc = json.loads(handler.read_body().decode() or "{}")
+            prompt = [int(t) for t in doc["prompt"]]
+            if not prompt:
+                raise ValueError("prompt must not be empty")
+            max_tokens = int(doc.get("max_tokens", 16))
+            temperature = float(doc.get("temperature", 0.0))
+            top_k = int(doc.get("top_k", 0))
+            streaming = bool(doc.get("stream", True))
+            deadline_ms = (handler.headers.get("X-Deadline-Ms")
+                           or doc.get("deadline_ms"))
+            deadline = deadline_after_ms(
+                float(deadline_ms) if deadline_ms is not None else None)
+        except (KeyError, ValueError, TypeError, UnicodeDecodeError) as e:
+            finish_json({"error": f"bad request body: {e}"}, 400)
+            return
+        t_start = time.monotonic()
+        cost = version.batcher.generate_cost(len(prompt), max_tokens)
+        tokens_out, idx = [], 0
+        headers_sent = False
+        try:
+            self.admission.admit(name, deadline, cost=cost)
+            try:
+                stream = version.batcher.submit_generate(
+                    prompt, max_tokens, temperature=temperature,
+                    top_k=top_k, deadline=deadline)
+                try:
+                    while True:
+                        tok = stream.next(timeout=self.request_timeout_s)
+                        if tok is None:             # closed: see reason
+                            break
+                        if idx == 0:
+                            # time to the first token feeds the admission
+                            # controller (drain rate, AIMD budget)
+                            self.admission.observe_total(
+                                name, time.monotonic() - t_start)
+                            if streaming:
+                                handler.begin_chunks(
+                                    "application/x-ndjson",
+                                    headers={"X-Model-Version":
+                                             str(version.version)})
+                                headers_sent = True
+                        if streaming:
+                            handler.send_chunk(json.dumps(
+                                {"token": tok, "index": idx}).encode()
+                                + b"\n")
+                        else:
+                            tokens_out.append(tok)
+                        idx += 1
+                except OSError:
+                    # the client went away mid-stream: cancel, so the
+                    # engine retires the sequence and frees its blocks
+                    stream.cancel()
+                    counted.inc(model=name, code="499")
+                    handler.close_connection = True
+                    return
+                except Exception:
+                    stream.cancel()
+                    raise
+            finally:
+                self.admission.release(name, cost=cost)
+        except DeadlineExceeded as e:
+            if headers_sent:
+                handler.abort_chunks()
+            else:
+                finish_json({"error": str(e)}, 504)
+            return
+        except ShedError as e:
+            code = 503 if e.reason == "draining" else 429
+            if headers_sent:
+                handler.abort_chunks()
+            else:
+                finish_json({"error": str(e), "reason": e.reason}, code,
+                            {"Retry-After":
+                             self.admission.retry_after_header(name)})
+            return
+        except Exception as e:
+            # after the headers: truncate the chunk stream (a prompt
+            # client error, not a wedged connection); before: a 500
+            if headers_sent:
+                handler.abort_chunks()
+            else:
+                finish_json({"error": f"generate failed: {e}"}, 500)
+            return
+        if not headers_sent and streaming:
+            # closed before the first token (e.g. its deadline passed in
+            # the prefill queue)
+            code = 504 if stream.reason == "deadline" else 500
+            finish_json({"error": f"generate ended before the first "
+                                  f"token ({stream.reason})"}, code)
+            return
+        if streaming:
+            handler.send_chunk(json.dumps(
+                {"done": True, "reason": stream.reason,
+                 "tokens": idx}).encode() + b"\n")
+            handler.end_chunks()
+            counted.inc(model=name, code="200")
+        else:
+            finish_json({"tokens": tokens_out, "reason": stream.reason,
+                         "model": name, "version": version.version}, 200)

@@ -18,7 +18,9 @@ slot of a conv kernel moves between HWIO and OIHW). BERT's trees
 classifier) cross as they are: both packages compute ``x @ W`` with
 ``[in, out]`` weights, so no layout converts; their updater state is
 ``{slot: {"group/name": tensor}}`` in the port and ``{slot: tree}`` in
-the JAX package. The zips themselves
+the JAX package. ``DecoderLM``'s two-level tree (``conf`` a
+``DecoderConfig``: ``embed``, ``layer_<i>``, ``head``) crosses the same
+way, leaf names and shapes checked. The zips themselves
 do not carry updater state yet: ``restore_model`` reads and
 ``write_model`` writes no ``updaterState.npz``, and restores
 ComputationGraph zips only.
@@ -36,6 +38,7 @@ import torch
 
 from deeplearning4j_tpu_torch.models.bert import (BertConfig, flatten_tree,
                                                  unflatten_tree)
+from deeplearning4j_tpu_torch.models.decoder import DecoderConfig
 from deeplearning4j_tpu_torch.nn.conf.builders import \
     MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.conf.graph_conf import \
@@ -50,7 +53,7 @@ META_ENTRY = "meta.json"
 
 _Tree = Dict[str, Dict[str, torch.Tensor]]
 _Conf = Union[ComputationGraphConfiguration, MultiLayerConfiguration,
-              BertConfig]
+              BertConfig, DecoderConfig]
 
 
 def _flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -151,12 +154,49 @@ def _check_bert_leaf(conf: BertConfig, path: str, a) -> None:
                          f"{shapes[inner]}")
 
 
+def decoder_param_shapes(conf: DecoderConfig) -> Dict[str, tuple]:
+    """``{"entry/leaf": shape}`` of a ``DecoderLM``'s tree."""
+    c = conf
+    d, f, v = c.d_model, c.d_ff, c.vocab_size
+    shapes = {"embed/tok": (v, d), "embed/pos": (c.max_len, d),
+              "head/ln_g": (d,), "head/ln_b": (d,), "head/w": (d, v)}
+    layer = {"ln1_g": (d,), "ln1_b": (d,), "wq": (d, d), "wk": (d, d),
+             "wv": (d, d), "wo": (d, d), "ln2_g": (d,), "ln2_b": (d,),
+             "w1": (d, f), "b1": (f,), "w2": (f, d), "b2": (d,)}
+    for i in range(c.n_layers):
+        shapes.update({f"layer_{i}/{n}": s for n, s in layer.items()})
+    return shapes
+
+
+def _check_tree(shapes: Dict[str, tuple], flat: Dict[str, np.ndarray],
+                what: str) -> None:
+    """``flat`` holds exactly the leaves of ``shapes``, each with its
+    shape."""
+    for path, a in flat.items():
+        if path not in shapes:
+            raise ValueError(f"{what} entry {path!r} names no leaf of the "
+                             f"configuration's tree")
+        if tuple(np.shape(a)) != shapes[path]:
+            raise ValueError(f"{what} entry {path!r} has shape "
+                             f"{tuple(np.shape(a))}, the configuration's "
+                             f"is {shapes[path]}")
+    missing = sorted(set(shapes) - set(flat))
+    if missing:
+        raise ValueError(f"{what} tree lacks {missing}")
+
+
 def params_from_jax(params_np: dict, states_np: dict, conf: _Conf
                     ) -> Tuple[_Tree, _Tree]:
     """The JAX package's numpy trees (flat npz keys or nested by vertex
     or ``layer_<i>``) as the port's CPU tensors: conv kernels HWIO ->
     OIHW, the rest as they are. For a ``BertConfig``: the nested BERT
-    tree, checked leaf by leaf, and no states."""
+    tree, checked leaf by leaf, and no states; for a ``DecoderConfig``
+    the same with ``DecoderLM``'s two-level tree."""
+    if isinstance(conf, DecoderConfig):
+        flat = _flatten(params_np)
+        _check_tree(decoder_param_shapes(conf), flat, "decoder")
+        return unflatten_tree({p: torch.from_numpy(np.array(a))
+                               for p, a in flat.items()}), {}
     if isinstance(conf, BertConfig):
         flat = _flatten(params_np)
         for path, a in flat.items():
@@ -175,6 +215,11 @@ def params_from_jax(params_np: dict, states_np: dict, conf: _Conf
 def params_to_jax(params: _Tree, conf: _Conf) -> Dict[str, np.ndarray]:
     """The inverse of :func:`params_from_jax` for parameters: flat npz
     keys, conv kernels OIHW -> HWIO."""
+    if isinstance(conf, DecoderConfig):
+        flat = {p: np.ascontiguousarray(t.detach().cpu().numpy())
+                for p, t in sorted(flatten_tree(params).items())}
+        _check_tree(decoder_param_shapes(conf), flat, "decoder")
+        return flat
     if isinstance(conf, BertConfig):
         return {p: np.ascontiguousarray(t.detach().cpu().numpy())
                 for p, t in sorted(flatten_tree(params).items())}

@@ -359,3 +359,126 @@ def test_bert_launches_flash_kernels_once_a_layer():
     loss = bert.fit_batch(batch)
     assert tuple(a - b for a, b in zip(counts(), n0)) == (2, 2, 2)
     assert np.isfinite(loss)
+
+
+# ---------------------------------------------------------------------------
+# paged decode attention (kernel 10)
+# ---------------------------------------------------------------------------
+#: (b, h, d, block, max_blocks): every lane width 1, 2, 4, 8 and odd ones
+PAGED_SHAPES = [(5, 3, 16, 8, 6), (8, 12, 64, 16, 64), (4, 5, 80, 8, 7),
+                (3, 2, 128, 4, 9), (3, 2, 256, 16, 3), (2, 4, 32, 1, 20)]
+
+
+def _paged_inputs(b, h, d, block, max_blocks, pool_dtype, g):
+    nb = b * max_blocks + 1
+    q = torch.randn(b, h, d, device="cuda", generator=g)
+    k = torch.randn(nb, block, h, d, device="cuda", generator=g).to(
+        pool_dtype)
+    v = torch.randn(nb, block, h, d, device="cuda", generator=g).to(
+        pool_dtype)
+    perm = torch.randperm(nb - 1, device="cuda", generator=g) + 1
+    tables = perm[:b * max_blocks].reshape(b, max_blocks).to(torch.int32)
+    cap = block * max_blocks
+    lengths = torch.randint(1, cap + 1, (b,), device="cuda", generator=g,
+                            dtype=torch.int32)
+    tables[0] = 0                        # a dead slot: scratch, length 1
+    lengths[0] = 1
+    if b > 2:
+        lengths[1] = cap + 5             # past the table: clamped
+        lengths[2] = block               # a block boundary
+    return q, k, v, tables, lengths
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", PAGED_SHAPES)
+@pytest.mark.parametrize("pool_dtype", ["float32", "bfloat16", "float16"])
+def test_paged_decode_kernel_matches_plain(shape, pool_dtype):
+    """Within 2e-5 of the plain version (both compute in f32 from the
+    same pool values), bitwise across two launches, finite."""
+    _need_card()
+    from deeplearning4j_tpu_torch.ops import attention_kernels as ak
+    g = torch.Generator(device="cuda").manual_seed(10)
+    args = _paged_inputs(*shape, getattr(torch, pool_dtype), g)
+    n0 = ak.PAGED_DECODE.launches
+    out = ak.paged_decode_attention(*args)
+    out2 = ak.paged_decode_attention(*args)
+    ref = ak.paged_attention_reference(*args)
+    torch.cuda.synchronize()
+    assert ak.PAGED_DECODE.launches == n0 + 2
+    assert out.dtype == torch.float32 and out.shape == args[0].shape
+    assert torch.equal(out, out2)
+    assert bool(torch.isfinite(out).all())
+    torch.testing.assert_close(out, ref, rtol=0.0, atol=2e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q_dtype", ["bfloat16", "float16"])
+def test_paged_decode_kernel_low_precision_q(q_dtype):
+    """q (and the output) in a 16-bit type: one rounding of the output
+    apart from the plain version."""
+    _need_card()
+    from deeplearning4j_tpu_torch.ops import attention_kernels as ak
+    g = torch.Generator(device="cuda").manual_seed(11)
+    q, k, v, tables, lengths = _paged_inputs(8, 12, 64, 16, 8,
+                                             torch.bfloat16, g)
+    q = q.to(getattr(torch, q_dtype))
+    out = ak.paged_decode_attention(q, k, v, tables, lengths)
+    ref = ak.paged_attention_reference(q, k, v, tables, lengths)
+    assert out.dtype == q.dtype
+    torch.testing.assert_close(out.float(), ref.float(), rtol=1e-2,
+                               atol=1e-2)
+
+
+@pytest.mark.gpu
+def test_paged_decode_kernel_rejects_what_it_does_not_take():
+    _need_card()
+    from deeplearning4j_tpu_torch.ops import attention_kernels as ak
+    g = torch.Generator(device="cuda").manual_seed(12)
+    q, k, v, tables, lengths = _paged_inputs(3, 2, 64, 8, 4,
+                                             torch.float32, g)
+    with pytest.raises(TypeError):
+        ak.paged_decode_attention(q.double(), k, v, tables, lengths)
+    with pytest.raises(ValueError, match="contiguous"):
+        ak.paged_decode_attention(q, k.transpose(0, 1), v.transpose(0, 1),
+                                  tables, lengths)
+    with pytest.raises(ValueError):
+        ak.paged_decode_attention(q, k, v, tables.cpu(), lengths)
+    with pytest.raises(ValueError):
+        ak.paged_decode_attention(q, k, v, tables[:2], lengths)
+    wide = torch.zeros(3, 2, 300, device="cuda")
+    with pytest.raises(ValueError):
+        ak.paged_decode_attention(wide, torch.zeros(4, 8, 2, 300,
+                                                    device="cuda"),
+                                  torch.zeros(4, 8, 2, 300, device="cuda"),
+                                  tables, lengths)
+
+
+@pytest.mark.gpu
+def test_decode_engine_launches_kernel_10_once_a_layer_a_step():
+    _need_card()
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.models import DecoderConfig, DecoderLM
+    from deeplearning4j_tpu_torch.ops import attention_kernels as ak
+    from deeplearning4j_tpu_torch.serving.generative import DecodeEngine
+    from deeplearning4j_tpu_torch.serving.kvcache import KVBlockPool
+    conf = DecoderConfig(vocab_size=128, n_layers=12, n_heads=2,
+                         d_model=64, d_ff=128, max_len=128)
+    model = DecoderLM(conf)
+    params = model.init("cuda")
+    pool = KVBlockPool(12, 32, 16, 2, 32, name="gpu-test", device="cuda")
+    eng = DecodeEngine(model, params, pool, name="gpu-test",
+                       prompt_buckets=(16,), decode_buckets=(2, 4),
+                       max_seq_len=128)
+    n0 = ak.PAGED_DECODE.launches
+    eng.warmup()
+    prompts = ([5, 9, 2, 7], [8, 3, 30, 31, 32, 33])
+    streams = [eng.submit(np.asarray(p), 10) for p in prompts]
+    toks = [list(s) for s in streams]
+    eng.shutdown()
+    assert ak.PAGED_DECODE.launches - n0 == 12 * eng.decode_steps
+    assert eng.decode_steps >= 2 + 9
+    for p, t in zip(prompts, toks):
+        assert t == model.reference_decode(params, p, 10)
+    assert eng.retraces_since_warmup() == 0
+    assert pool.live_blocks == 0

@@ -72,6 +72,7 @@ def test_resolve_device_rule(monkeypatch):
 
 def _all_kernels():
     # importing the wrappers registers their kernels
+    import deeplearning4j_tpu_torch.ops.attention_kernels  # noqa: F401
     import deeplearning4j_tpu_torch.ops.bn_train  # noqa: F401
     import deeplearning4j_tpu_torch.ops.conv_epilogue  # noqa: F401
     import deeplearning4j_tpu_torch.parallel.sequence  # noqa: F401
@@ -81,7 +82,7 @@ def _all_kernels():
 
 KERNEL_NAMES = ["scale_shift_act", "epilogue_backward", "channel_sums",
                 "bn_bwd_sums", "bn_bwd_dx", "flash_fwd", "flash_bwd_dq",
-                "flash_bwd_dkv"]
+                "flash_bwd_dkv", "paged_decode"]
 
 
 @pytest.mark.parametrize("name", KERNEL_NAMES)
