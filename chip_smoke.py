@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive deeplearning4j_tpu_torch's main paths on one CUDA card: serving
 ResNet-50, training ResNet-50 (ComputationGraph) and training LeNet-5
-(MultiLayerNetwork), BERT-base inference and pretraining, and generative
-serving of a GPT-2-small-width decoder.
+(MultiLayerNetwork), BERT-base inference and pretraining, generative
+serving of a GPT-2-small-width decoder, and serving SqueezeNet.
 
 Run from the root of a checkout, with no arguments, on a machine with
 one NVIDIA H100 (it fails without a card, and without the package):
@@ -87,7 +87,23 @@ Phases, each of which fails the run (exit 1) when its check fails:
     forward, zero retraces, the pool freed; TTFT, inter-token gaps,
     tokens/s, the decode step's time and device profile; then the same
     with a bf16 pool; card against CPU at 2 layers (prefill and a paged
-    decode step, TF32 off).
+    decode step, TF32 off);
+14. pointwise: the matmul with bias and activation (kernel 4) against
+    its plain version at every pointwise conv site shape of SqueezeNet's
+    batch-8 and batch-32 buckets plus a ragged M, an N off the tile and
+    K = 16, f32/bf16/f16, relu and identity, NaN rows: per element
+    within ``2e-5 * (sum_k |x_k w_k| + |b|)`` of the plain f32 result
+    (plus one ulp of bf16 or f16), bitwise across two launches; then its
+    time over the 17 sites of a batch-32 forward (CUDA-graph replay)
+    beside the bound, the plain version and ``torch._addmm_activation``,
+    and one f32 backward through its autograd Function against the
+    plain one;
+15. squeezenet: a full-width SqueezeNet (224x224x3, 1000 classes,
+    seeded weights and biases) registered and served over HTTP as
+    ResNet-50 is in phase 5, counts reset before and read after (17
+    launches of kernel 4 and 9 of kernel 1 a forward, nothing else);
+    answers == ``net.output`` bitwise; card against CPU (TF32 off); a
+    bf16 forward; img/s at batch 32 and the device's busy/idle share.
 
 Then one JSON line of kernel records (each kernel's times from its own
 timing phase, its launches from the path that carries it), the
@@ -416,39 +432,38 @@ def _npy(a) -> bytes:
     return buf.getvalue()
 
 
-def phase_slice(torch, device: str = "cuda", image: int = 224,
-                label: str = "cpu") -> dict:
-    """``label`` names the card and its power limit on every timing."""
+def serve_burst(torch, net, name: str, image: int, device: str,
+                tag: str, label: str) -> dict:
+    """The main path of a served image model: every kernel count set to
+    0, ``net`` registered at buckets (8, 32) and served over HTTP (one
+    JSON request, one npy batch of 8, 32 concurrent single requests),
+    the counts read just after; then every answer held to
+    ``net.output`` bitwise at the bucket it can have been served at."""
     import numpy as np
 
     from deeplearning4j_tpu_torch.common import telemetry
-    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
     from deeplearning4j_tpu_torch.ops import cuda_build
     from deeplearning4j_tpu_torch.serving import (InferenceServer,
                                                   ModelRegistry)
-    from deeplearning4j_tpu_torch.models.zoo import ResNet50
 
-    kw = {} if image == 224 else {"height": image, "width": image}
-    t0 = time.perf_counter()
-    net = seeded_resnet(torch, device, **kw)
-    print(f"[slice] ResNet-50 {image}x{image}x3 -> 1000, "
-          f"{net.num_params()} params on {device}, built in "
-          f"{time.perf_counter() - t0:.2f}s")
     rs = np.random.RandomState(3)
     x1 = rs.randn(1, image, image, 3).astype(np.float32)
     x8 = rs.randn(8, image, image, 3).astype(np.float32)
     x32 = rs.randn(32, image, image, 3).astype(np.float32)
     forwards = telemetry.counter("dl4j_inference_forwards_total")
     copies = telemetry.counter("dl4j_conv_layout_copies_total")
+    fused = telemetry.counter("dl4j_conv_fused_steps_total")
+    sites = ("conv", "conv_matmul", "bn_infer")
 
     # ---- the main path: counts to 0, register + serve, counts read ----
     fwd0, copies0 = forwards.value(), copies.value()
+    sites0 = {s: fused.value(site=s) for s in sites}
     for k in cuda_build.KERNELS.values():
         k.launches = 0
     registry = ModelRegistry(device, default_buckets=(8, 32))
-    ver = registry.register("resnet50", net, warmup_shape=(image, image, 3))
+    ver = registry.register(name, net, warmup_shape=(image, image, 3))
     server = InferenceServer(registry).start(port=0)
-    url = f"{server.url}/v1/models/resnet50:predict"
+    url = f"{server.url}/v1/models/{name}:predict"
     lat = {}
     try:
         code, data, lat["json_1"] = _post(
@@ -480,30 +495,26 @@ def phase_slice(torch, device: str = "cuda", image: int = 224,
     finally:
         launches = {k.name: k.launches for k in cuda_build.KERNELS.values()}
         n_fwd = forwards.value() - fwd0
+        dispatches = {s: fused.value(site=s) - sites0[s] for s in sites}
         retraces = ver.retraces_since_warmup()
         with urllib.request.urlopen(f"{server.url}/metrics") as r:
             metrics_ok = b"dl4j_serving_requests_total" in r.read()
         server.stop()
         registry.shutdown()
     n_copies = copies.value() - copies0
-    print(f"[slice] main path: {n_fwd} forwards, launches {launches}, "
-          f"layout copies {n_copies}, retraces_since_warmup {retraces}")
+    print(f"[{tag}] main path: {n_fwd} forwards, launches {launches}, "
+          f"conv-epilogue dispatches {dispatches}, layout copies "
+          f"{n_copies}, retraces_since_warmup {retraces}")
     check(metrics_ok, "/metrics lacks dl4j_serving_requests_total")
     check(retraces == 0, f"retraces_since_warmup = {retraces}")
-    if device == "cuda":
-        # serving runs the inference forward: of the kernels, only the
-        # epilogue is on its path
-        check(launches["scale_shift_act"] == 53 * n_fwd,
-              f"scale_shift_act launches {launches['scale_shift_act']} "
-              f"!= 53 x {n_fwd} forwards")
-    print(f"[slice] latency ms: json_1 {lat['json_1']:.2f}, npy_8 "
+    c32 = lat["concurrent_32_ms"]
+    print(f"[{tag}] latency ms: json_1 {lat['json_1']:.2f}, npy_8 "
           f"{lat['npy_8']:.2f}, 32 concurrent p50 "
-          f"{np.percentile(lat['concurrent_32_ms'], 50):.2f} max "
-          f"{max(lat['concurrent_32_ms']):.2f}, 32-image wall "
+          f"{np.percentile(c32, 50):.2f} max {max(c32):.2f}, 32-image wall "
           f"{wall32 * 1e3:.2f} ({32 / wall32:.1f} img/s over HTTP) "
           f"[{label}]")
-    print(f"[slice] each concurrent request, ms: "
-          f"{[round(v, 1) for v in lat['concurrent_32_ms']]}")
+    print(f"[{tag}] each concurrent request, ms: "
+          f"{[round(v, 1) for v in c32]}")
 
     # ---- answers against net.output, bitwise, at the served bucket ----
     # (same TF32 setting: the default). The batcher pads a flush to its
@@ -535,37 +546,74 @@ def phase_slice(torch, device: str = "cuda", image: int = 224,
     np.fill_diagonal(pair, np.inf)
     check(float(pair.min()) > 0.0,
           f"two of the 32 reference rows agree to {float(pair.min())}")
-    print(f"[slice] served == net.output bitwise: json_1, npy_8, and all "
+    print(f"[{tag}] served == net.output bitwise: json_1, npy_8, and all "
           f"32 burst rows ({int(at32.sum())} match bucket 32, "
           f"{int(at8.sum())} bucket 8); rows differ pairwise by >= "
           f"{float(pair.min()):.3e}, {len(set(ref32.argmax(-1)))} distinct "
           f"top-1 in 32")
     check(np.allclose(out32.sum(-1), 1.0, atol=1e-4),
           "softmax rows do not sum to 1")
+    return {"latency_ms": lat, "forwards": n_fwd, "launches": launches,
+            "dispatches": dispatches, "layout_copies": n_copies,
+            "http_img_per_s": 32 / wall32, "x8": x8, "x32": x32}
+
+
+def card_vs_cpu(torch, net, x, tag: str) -> float:
+    """``net.output`` on the card with cuDNN's TF32 off (matmuls are
+    full f32 by default) against a CPU copy of the net; rtol 1e-3,
+    atol 1e-5 on softmax outputs (sums in other orders)."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        card = net.output(x).float().cpu().numpy()
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    cpu_net = ComputationGraph(net.conf).set_params(
+        {k: {n: t.cpu() for n, t in sub.items()}
+         for k, sub in net.params.items()},
+        {k: {n: t.cpu() for n, t in sub.items()}
+         for k, sub in net.states.items()}, "cpu")
+    cpu = cpu_net.output(x).numpy()
+    err = float(np.abs(card - cpu).max())
+    check(np.allclose(card, cpu, rtol=1e-3, atol=1e-5),
+          f"card vs CPU (TF32 off): max |d| {err}")
+    print(f"[{tag}] card == CPU (f32, cuDNN TF32 off, matmul TF32 "
+          f"{torch.backends.cuda.matmul.allow_tf32}), max |d| {err:.3e}, "
+          f"top-1 {card.argmax(-1).tolist()}")
+    return err
+
+
+def phase_slice(torch, device: str = "cuda", image: int = 224,
+                label: str = "cpu") -> dict:
+    """``label`` names the card and its power limit on every timing."""
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.ops import cuda_build
+    from deeplearning4j_tpu_torch.models.zoo import ResNet50
+
+    kw = {} if image == 224 else {"height": image, "width": image}
+    t0 = time.perf_counter()
+    net = seeded_resnet(torch, device, **kw)
+    print(f"[slice] ResNet-50 {image}x{image}x3 -> 1000, "
+          f"{net.num_params()} params on {device}, built in "
+          f"{time.perf_counter() - t0:.2f}s")
+    result = serve_burst(torch, net, "resnet50", image, device, "slice",
+                         label)
+    x8, x32 = result.pop("x8"), result.pop("x32")
+    launches, n_fwd = result["launches"], result["forwards"]
+    if device == "cuda":
+        # serving runs the inference forward: of the kernels, only the
+        # epilogue is on its path
+        check(launches["scale_shift_act"] == 53 * n_fwd,
+              f"scale_shift_act launches {launches['scale_shift_act']} "
+              f"!= 53 x {n_fwd} forwards")
 
     # ---- card against CPU, TF32 off ----
-    result = {"latency_ms": lat, "forwards": n_fwd,
-              "launches": launches, "layout_copies": n_copies,
-              "http_img_per_s": 32 / wall32}
     if device == "cuda":
-        prev = torch.backends.cudnn.allow_tf32
-        torch.backends.cudnn.allow_tf32 = False
-        try:
-            card = ref(x8[:4])
-        finally:
-            torch.backends.cudnn.allow_tf32 = prev
-        cpu_net = ComputationGraph(net.conf).set_params(
-            {k: {n: t.cpu() for n, t in sub.items()}
-             for k, sub in net.params.items()},
-            {k: {n: t.cpu() for n, t in sub.items()}
-             for k, sub in net.states.items()}, "cpu")
-        cpu = cpu_net.output(x8[:4]).numpy()
-        err = float(np.abs(card - cpu).max())
-        check(np.allclose(card, cpu, rtol=1e-3, atol=1e-5),
-              f"card vs CPU (TF32 off): max |d| {err}")
-        print(f"[slice] card == CPU (f32, TF32 off), max |d| {err:.3e}, "
-              f"top-1 {card.argmax(-1).tolist()}")
-        result["card_vs_cpu_max_abs"] = err
+        result["card_vs_cpu_max_abs"] = card_vs_cpu(torch, net, x8[:4],
+                                                    "slice")
 
         # device throughput at batch 32, input resident on the card
         xb = torch.from_numpy(x32).cuda()
@@ -2133,6 +2181,332 @@ def decoder_card_vs_cpu(torch, device: str = "cuda", layers: int = 2
 
 
 # ---------------------------------------------------------------------------
+# ---------------------------------------------------------------------------
+#: kernel 4 beyond SqueezeNet's own shapes: a ragged M with N off the
+#: tile, K = 16 with N = 16, a K and N below every tile width, and the
+#: head with one more row
+POINTWISE_EXTRA = ((1001, 40, 37), (777, 16, 16), (129, 7, 3),
+                   (6273, 512, 1000))
+
+
+def pointwise_sites(conf, batch: int):
+    """(M, K, N, act) of every pointwise conv site of a forward."""
+    from deeplearning4j_tpu_torch.nn.conf.layers import ConvolutionLayer
+    from deeplearning4j_tpu_torch.ops.conv_epilogue import _is_pointwise
+    types = conf.resolve_shapes()
+    sites = []
+    for name in conf.topo_order():
+        v = conf.vertices[name]
+        c = v.content
+        if isinstance(c, ConvolutionLayer) and _is_pointwise(
+                (c.n_out, c.n_in) + c.kernel_size, c.stride, c.dilation,
+                c._pad_cfg()):
+            t = types[name]
+            sites.append((batch * t.height * t.width,
+                          types[v.inputs[0]].channels, t.channels,
+                          c.activation.value))
+    return sites
+
+
+def _mba_check(torch, ce, x, w, b, act: str, what: str) -> dict:
+    """Kernel 4 against its plain version: per element
+    ``|kernel - plain| <= 2e-5 * (sum_k |x_k w_k| + |b|)`` against the
+    plain f32 result (f32 FMAs summed in another order), plus one ulp
+    of the output dtype for bf16 and f16 (the kernel rounds its own f32
+    sum); NaN in the same places; bitwise equal across two launches.
+    Returns the max |kernel - plain f32| and the max err / bar."""
+    dt = x.dtype
+    y = ce.matmul_bias_act_forward(x, w, b, act)
+    y2 = ce.matmul_bias_act_forward(x, w, b, act)
+    ref = ce.matmul_bias_act_plain(x.float(), w.float(), b, act)
+    bar = 2e-5 * (x.float().abs() @ w.float().abs().t() + b.abs())
+    if dt != torch.float32:
+        _, e = torch.frexp(ref.abs().nan_to_num(0.0))
+        bar = bar + torch.ldexp(torch.full_like(ref, torch.finfo(dt).eps),
+                                e - 1)
+    torch.cuda.synchronize()
+    bits = torch.int32 if dt == torch.float32 else torch.int16
+    same_nan = torch.equal(torch.isnan(y), torch.isnan(ref))
+    err = (y.float() - ref).abs().nan_to_num(0.0)
+    ratio = float((err / bar.nan_to_num(0.0).clamp_min(1e-30)).max())
+    check(y.dtype == dt and tuple(y.shape) == tuple(ref.shape)
+          and torch.equal(y.view(bits), y2.view(bits)) and same_nan
+          and ratio <= 1.0,
+          f"matmul_bias_act {what}: max err/bar {ratio}, NaN positions "
+          f"equal: {same_nan}, repeatable: "
+          f"{torch.equal(y.view(bits), y2.view(bits))}")
+    return {"max_abs_err": float(err.max()), "ratio": ratio}
+
+
+def phase_pointwise(torch) -> dict:
+    """Kernel 4 against its plain version at every pointwise site shape
+    of SqueezeNet's batch-8 and batch-32 buckets and ``POINTWISE_EXTRA``,
+    f32/bf16/f16, relu and identity, NaN rows; then CUDA-graph timings
+    of the kernel, the plain version and ``_addmm_activation`` over the
+    17 sites of a batch-32 forward, beside the bound; then one backward
+    through the autograd Function against the plain one. Matmuls of the
+    plain versions run in full f32 (TF32 off)."""
+    from deeplearning4j_tpu_torch.models import SqueezeNet
+    from deeplearning4j_tpu_torch.ops import conv_epilogue as ce
+    prev_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return _pointwise(torch, ce, SqueezeNet().conf())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+
+
+def _pointwise(torch, ce, conf) -> dict:
+    g = torch.Generator(device="cuda").manual_seed(17)
+    sites = pointwise_sites(conf, BATCH)
+    check(len(sites) == 17, f"SqueezeNet has {len(sites)} pointwise "
+                            f"sites, expected 17")
+    shapes = sorted({s[:3] for s in pointwise_sites(conf, 8) + sites}
+                    | set(POINTWISE_EXTRA))
+    errs = {d: {"max_abs_err": 0.0, "ratio": 0.0} for d in DTYPES}
+    for M, K, N in shapes:
+        for dname in DTYPES:
+            dt = getattr(torch, dname)
+            for act in ("relu", "identity"):
+                x = torch.randn(M, K, device="cuda", generator=g).to(dt)
+                x[::997, K // 2] = float("nan")
+                w = (torch.randn(N, K, device="cuda", generator=g)
+                     / K ** 0.5).to(dt)
+                b = 0.1 * torch.randn(N, device="cuda", generator=g)
+                r = _mba_check(torch, ce, x, w, b, act,
+                               f"[{M},{K}]x[{N},{K}] {dname} {act}")
+                for k in r:
+                    errs[dname][k] = max(errs[dname][k], r[k])
+    print(f"[pointwise] matmul_bias_act within its bar at {len(shapes)} "
+          f"(M, K, N) shapes x {'/'.join(DTYPES)} x relu/identity, NaN "
+          f"rows propagated, bitwise across two launches; "
+          + ", ".join(f"{d} max |d| {e['max_abs_err']:.3e} (err/bar "
+                      f"{e['ratio']:.3f})" for d, e in errs.items()))
+
+    groups: dict = {}
+    for site in sites:
+        groups[site] = groups.get(site, 0) + 1
+    timing = {}
+    for dname in DTYPES:
+        dt = getattr(torch, dname)
+        esize = torch.tensor([], dtype=dt).element_size()
+        peak = F32_FLOPS if dt == torch.float32 else BF16_FLOPS
+        tot = {"kernel": 0.0, "plain": 0.0, "library": 0.0,
+               "kernel_eager": 0.0, "bound": 0.0, "bytes_ms": 0.0,
+               "ops_ms": 0.0}
+        per_shape = []
+        for (M, K, N, act), n in sorted(groups.items()):
+            n_buf = max(1, int(-(-100e6 // (M * K * esize))))
+            xs = [torch.randn(M, K, device="cuda", generator=g).to(dt)
+                  for _ in range(n_buf)]
+            w = (torch.randn(N, K, device="cuda", generator=g)
+                 / K ** 0.5).to(dt)
+            b = 0.1 * torch.randn(N, device="cuda", generator=g)
+            b_l, w_t = b.to(dt), w.t()
+            it = {"i": 0}
+
+            def nxt():
+                it["i"] = (it["i"] + 1) % n_buf
+                return xs[it["i"]]
+
+            def kern():
+                return ce.matmul_bias_act_forward(nxt(), w, b, act)
+
+            def plain():
+                return ce.matmul_bias_act_plain(nxt(), w, b, act)
+
+            def lib():
+                if act == "relu":
+                    return torch._addmm_activation(b_l, nxt(), w_t)
+                return torch.addmm(b_l, nxt(), w_t)
+            k_ms, p_ms, l_ms = (_graph_ms(torch, f)
+                                for f in (kern, plain, lib))
+            host_ms = _time_ms(torch, kern)
+            site_bytes = (M * K + N * K + M * N) * esize + N * 4
+            ops = 2 * M * K * N
+            bound, by = _bound(site_bytes, ops, peak)
+            tot["kernel"] += n * k_ms
+            tot["plain"] += n * p_ms
+            tot["library"] += n * l_ms
+            tot["kernel_eager"] += n * host_ms
+            tot["bound"] += n * bound
+            tot["bytes_ms" if by == "bytes" else "ops_ms"] += n * bound
+            per_shape.append({"M": M, "K": K, "N": N, "act": act,
+                              "sites": n, "kernel_ms": k_ms,
+                              "plain_ms": p_ms, "library_ms": l_ms,
+                              "eager_ms": host_ms, "bound_ms": bound,
+                              "bound_by": by,
+                              "TFLOPs": ops / k_ms / 1e9,
+                              "GBps": site_bytes / k_ms / 1e6})
+            del xs
+        bound_by = "bytes" if tot["bytes_ms"] >= tot["ops_ms"] \
+            else "operations"
+        timing[dname] = {
+            "kernel_ms": tot["kernel"], "plain_ms": tot["plain"],
+            "library_ms": tot["library"], "bound_ms": tot["bound"],
+            "bound_by": bound_by, "eager_ms": tot["kernel_eager"],
+            "bytes_bound_sites_ms": tot["bytes_ms"],
+            "ops_bound_sites_ms": tot["ops_ms"], "per_shape": per_shape}
+        print(f"[pointwise] {dname} batch-{BATCH} forward, 17 sites: kernel "
+              f"{tot['kernel']:.4f} ms, plain {tot['plain']:.4f} ms, "
+              f"_addmm_activation {tot['library']:.4f} ms, bound "
+              f"{tot['bound']:.4f} ms (sum of per-site bounds: "
+              f"{tot['bytes_ms']:.4f} ms bytes-bound, {tot['ops_ms']:.4f} "
+              f"ms operations-bound); device time (CUDA graph replay); "
+              f"eager launches {tot['kernel_eager']:.4f} ms")
+        for r in per_shape:
+            print(f"[pointwise]   [{r['M']},{r['K']}]x[{r['N']}] "
+                  f"{r['act']} x{r['sites']}: kernel {r['kernel_ms']:.4f} "
+                  f"plain {r['plain_ms']:.4f} lib {r['library_ms']:.4f} "
+                  f"eager {r['eager_ms']:.4f} bound {r['bound_ms']:.4f} ms "
+                  f"({r['bound_by']}), {r['TFLOPs']:.1f} TFLOP/s, "
+                  f"{r['GBps']:.0f} GB/s")
+
+    # one backward over the 17 sites, f32: the Function (kernel forward,
+    # the JAX package's _mba_bwd products) against autograd through the
+    # plain version
+    fn_ms = plain_ms = 0.0
+    for (M, K, N, act), n in sorted(groups.items()):
+        x = torch.randn(M, K, device="cuda", generator=g).requires_grad_()
+        w = (torch.randn(N, K, device="cuda", generator=g)
+             / K ** 0.5).requires_grad_()
+        b = (0.1 * torch.randn(N, device="cuda", generator=g)
+             ).requires_grad_()
+        dy = torch.randn(M, N, device="cuda", generator=g)
+        y_fn = ce.matmul_bias_act(x, w, b, act)
+        y_pl = ce.matmul_bias_act_plain(x, w, b, act)
+        fn_ms += n * _time_ms(torch, lambda: torch.autograd.grad(
+            y_fn, (x, w, b), dy, retain_graph=True), reps=5)
+        plain_ms += n * _time_ms(torch, lambda: torch.autograd.grad(
+            y_pl, (x, w, b), dy, retain_graph=True), reps=5)
+    print(f"[pointwise] f32 backward over the 17 sites: Function "
+          f"{fn_ms:.4f} ms, autograd through the plain version "
+          f"{plain_ms:.4f} ms (eager, CUDA events)")
+    return {"max_abs_err": errs["float32"]["max_abs_err"], "errs": errs,
+            "timing": timing, "backward_ms": {"function": fn_ms,
+                                              "plain": plain_ms}}
+
+
+def seeded_squeezenet(torch, device: str, seed: int = 9, **kw):
+    """Full-width SqueezeNet with weights from a seeded generator (the
+    zoo's ReLU init) and every bias set from the same generator, so the
+    epilogues add a bias that is not 0. The pooled features of random
+    weights are nearly the same for every image (averages of relu
+    outputs), so the output layer is calibrated on a batch from the same
+    generator: its bias takes away the mean feature's logits and its
+    weights are scaled to logits of standard deviation 2, which gives
+    each image its own top class."""
+    from deeplearning4j_tpu_torch.models import SqueezeNet
+    g = torch.Generator().manual_seed(seed)
+    net = SqueezeNet(**kw).init(device, generator=g)
+    for sub in net.params.values():
+        if "b" in sub:
+            sub["b"] = (0.05 * torch.randn(sub["b"].shape, generator=g)
+                        ).to(device)
+    conf = net.conf
+    x = torch.randn(8, conf.input_types[0].height,
+                    conf.input_types[0].width, 3, generator=g)
+    acts = {"input": x.to(device)}
+    with torch.inference_mode():
+        for name in net._topo:
+            if name == "output":
+                break
+            v = conf.vertices[name]
+            xs = [acts[i] for i in v.inputs]
+            acts[name] = (v.content.forward(xs) if not v.is_layer else
+                          v.content.forward(net.params[name], xs[0],
+                                            training=False)[0])
+        f = acts["gap"].float()
+        w = net.params["output"]["W"]
+        w = w * (2.0 / float(((f - f.mean(0)) @ w).std()))
+    net.params["output"]["W"] = w
+    net.params["output"]["b"] = -(f.mean(0) @ w)
+    return net
+
+
+def phase_squeezenet(torch, device: str = "cuda", image: int = 224,
+                     label: str = "cpu") -> dict:
+    """Serve a full-width SqueezeNet (seeded weights) over HTTP through
+    the registry and batcher: 17 launches of kernel 4 and 9 of kernel 1
+    a forward and nothing else; answers == ``net.output`` bitwise; card
+    against CPU (TF32 off); a bf16 forward; img/s at batch 32, latencies
+    and the device's busy/idle share."""
+    from deeplearning4j_tpu_torch.models import SqueezeNet
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.ops import cuda_build
+
+    kw = {} if image == 224 else {"height": image, "width": image}
+    t0 = time.perf_counter()
+    net = seeded_squeezenet(torch, device, **kw)
+    print(f"[squeezenet] SqueezeNet {image}x{image}x3 -> 1000, "
+          f"{net.num_params()} params on {device}, built in "
+          f"{time.perf_counter() - t0:.2f}s")
+    result = serve_burst(torch, net, "squeezenet", image, device,
+                         "squeezenet", label)
+    x8, x32 = result.pop("x8"), result.pop("x32")
+    launches, n_fwd = result["launches"], result["forwards"]
+    ds = result["dispatches"]
+    if device == "cuda":
+        want = {k: {"matmul_bias_act": 17 * n_fwd,
+                    "scale_shift_act": 9 * n_fwd}.get(k, 0)
+                for k in launches}
+        check(n_fwd > 0 and launches == want,
+              f"launches {launches} != 17 x kernel 4 and 9 x kernel 1 "
+              f"for each of {n_fwd} forwards, and nothing else")
+        check(ds == {"conv": 9 * n_fwd, "conv_matmul": 17 * n_fwd,
+                     "bn_infer": 0},
+              f"conv-epilogue dispatches {ds} for {n_fwd} forwards")
+    if device != "cuda":
+        return result
+
+    result["card_vs_cpu_max_abs"] = card_vs_cpu(torch, net, x8[:4],
+                                                "squeezenet")
+    xb = torch.from_numpy(x32).cuda()
+    runs = sorted(_time_ms(torch, lambda: net.output(xb), reps=10)
+                  for _ in range(3))
+    ms = runs[1]
+    result["fwd32_f32_ms"] = runs
+    result["img_per_s"] = 32e3 / ms
+    print(f"[squeezenet] batch-32 f32 forward {ms:.3f} ms (median of "
+          f"{[round(r, 3) for r in runs]}) = {32e3 / ms:.1f} img/s "
+          f"(TF32 convs, device-resident input) [{label}]")
+    p32 = net.output(xb).float()
+    net16 = ComputationGraph(SqueezeNet(compute_dtype="bfloat16").conf()
+                             ).set_params(net.params, net.states, device)
+    n0 = {k: v.launches for k, v in cuda_build.KERNELS.items()}
+    p16 = net16.output(xb).float()
+    torch.cuda.synchronize()
+    d16 = {k: v.launches - n0[k] for k, v in cuda_build.KERNELS.items()}
+    check(d16["matmul_bias_act"] == 17 and d16["scale_shift_act"] == 9,
+          f"bf16 forward launches {d16}")
+    check(bool(torch.isfinite(p16).all()), "bf16 output not finite")
+    # the calibrated output layer subtracts the mean image's logits (its
+    # bias), so top-1 turns on differences far below bf16's rounding of
+    # the features; the logits (log-probabilities less their row mean)
+    # are held to the size of the logits before that subtraction
+    b_out = net.params["output"]["b"].float()
+
+    def logits(p):
+        lp = p.clamp_min(1e-38).log()
+        return lp - lp.mean(-1, keepdim=True)
+    l32, l16 = logits(p32), logits(p16)
+    raw = float((l32 - (b_out - b_out.mean())).abs().max())
+    rel = float((l16 - l32).abs().max()) / raw
+    agree = float((p16.argmax(-1) == p32.argmax(-1)).float().mean())
+    ms16 = _time_ms(torch, lambda: net16.output(xb), reps=10)
+    result.update({"fwd32_bf16_ms": ms16, "bf16_top1_agree": agree,
+                   "bf16_logit_rel_err": rel})
+    print(f"[squeezenet] batch-32 bf16 forward {ms16:.3f} ms = "
+          f"{32e3 / ms16:.1f} img/s; logits within {rel:.3e} of the f32 "
+          f"ones (relative to the uncalibrated logits' max {raw:.1f}), "
+          f"top-1 agreement {agree:.3f} [{label}]")
+    check(rel <= 0.05, f"bf16 logits differ from f32 by {rel:.3e} of "
+                       f"their scale")
+    result["profile"] = profile_device(
+        torch, lambda: net.output(xb), ms, "batch-32 f32 SqueezeNet forward")
+    return result
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2155,7 +2529,9 @@ def main() -> int:
     kern = timed("kernels", phase_kernels, torch)
     tk = timed("train-kernels", phase_train_kernels, torch)
     fk = timed("flash", phase_flash_kernels, torch)
+    pw = timed("pointwise", phase_pointwise, torch)
     sl = timed("slice", phase_slice, torch, label=label)
+    sq = timed("squeezenet", phase_squeezenet, torch, label=label)
     tr = timed("train", phase_train_resnet, torch, label)
     ln = timed("lenet", phase_train_lenet, torch, label)
     timed("weights", phase_weights_across, torch)
@@ -2181,6 +2557,9 @@ def main() -> int:
              "bn_bwd_dx": ("training ResNet-50, 10 steps", tr["launches"])}
     for name in FLASH_KERNELS:
         paths[name] = ("training BERT-base, 10 steps", bt["launches"])
+    paths["matmul_bias_act"] = (
+        f"serving SqueezeNet, {sq['forwards']} forwards (17 / forward)",
+        sq["launches"])
     paths["paged_decode"] = (
         f"generative serving, GPT-2-small width, {GEN_REQUESTS} requests x "
         f"{GEN_MAX_TOKENS} tokens, f32 pool ({gf['decode_steps']} decode "
@@ -2227,6 +2606,21 @@ def main() -> int:
                     d: pt[f"{d}_L1024"]["bound_ms"]
                     for d in ("float32", "bfloat16")},
                 "launches_bf16_pool": gb["launches"]["paged_decode"]}
+        elif k.name == "matmul_bias_act":
+            t = pw["timing"]["float32"]
+            err = pw["max_abs_err"]
+            shapes = (f"the 17 pointwise conv sites of a batch-{BATCH} f32 "
+                      f"SqueezeNet forward")
+            by_dtype = {d: v["kernel_ms"] for d, v in pw["timing"].items()}
+            extra = {"bound_ms_by_dtype": {
+                d: v["bound_ms"] for d, v in pw["timing"].items()},
+                "library_ms_by_dtype": {
+                d: v["library_ms"] for d, v in pw["timing"].items()},
+                "plain_ms_by_dtype": {
+                d: v["plain_ms"] for d, v in pw["timing"].items()},
+                "max_err_over_bar": {
+                d: v["ratio"] for d, v in pw["errs"].items()},
+                "backward_ms": pw["backward_ms"]}
         elif k.name == "scale_shift_act":
             t = {"kernel_ms": f32["kernel_ms"], "plain_ms": f32["plain_ms"],
                  "bound_ms": f32["bound_ms"], "library_ms":
@@ -2257,6 +2651,10 @@ def main() -> int:
           f"{bt['median_step_ms']:.3f} ms ({bt['seq_per_s']:.1f} "
           f"sequences/s), forward t=128 {bs['f32_t128_ms'][1]:.3f} ms "
           f"[{label}]")
+    print(f"[done] SqueezeNet serving: batch-32 f32 forward "
+          f"{sq['fwd32_f32_ms'][1]:.3f} ms ({sq['img_per_s']:.1f} img/s), "
+          f"bf16 {sq['fwd32_bf16_ms']:.3f} ms, {sq['http_img_per_s']:.1f} "
+          f"img/s over HTTP [{label}]")
     print(f"[done] GPT-2-small generate: {gf['tokens_per_s']:.1f} tokens/s,"
           f" TTFT p50 {gf['ttft_ms_p50']:.3f} ms, inter-token p50 "
           f"{gf['intertoken_ms_p50']:.3f} ms, decode step (bucket 32) "

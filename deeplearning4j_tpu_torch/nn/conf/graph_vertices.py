@@ -1,7 +1,8 @@
 """Graph vertices: the DAG building blocks of ComputationGraph.
 
 Counterpart of ``deeplearning4j_tpu/nn/conf/graph_vertices.py``, for
-the vertex ResNet-50 uses: ``ElementWiseVertex``, the residual add.
+the vertices of the ported zoo models: ``ElementWiseVertex`` (ResNet-50's
+residual add) and ``MergeVertex`` (SqueezeNet's fire-module concat).
 """
 from __future__ import annotations
 
@@ -11,7 +12,8 @@ from typing import List
 
 import torch
 
-from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+from deeplearning4j_tpu_torch.nn.conf.inputs import (
+    InputType, InputTypeConvolutional, InputTypeRecurrent)
 
 
 class GraphVertex:
@@ -39,6 +41,25 @@ class GraphVertex:
                 f"vertex class {cls_name!r} is not ported yet (ported: "
                 f"{sorted(VERTEX_REGISTRY)})")
         return cls(**d)
+
+
+@dataclass
+class MergeVertex(GraphVertex):
+    """Concatenate along the feature/channel (last) axis (NHWC: the
+    channels)."""
+
+    def forward(self, inputs, *, training=False):
+        return torch.cat(inputs, dim=-1)
+
+    def get_output_type(self, input_types):
+        t0 = input_types[0]
+        if isinstance(t0, InputTypeConvolutional):
+            return InputType.convolutional(
+                t0.height, t0.width, sum(t.channels for t in input_types))
+        if isinstance(t0, InputTypeRecurrent):
+            return InputType.recurrent(sum(t.size for t in input_types),
+                                       t0.timesteps)
+        return InputType.feed_forward(sum(t.size for t in input_types))
 
 
 @dataclass
@@ -81,4 +102,5 @@ class ElementWiseVertex(GraphVertex):
         return input_types[0]
 
 
-VERTEX_REGISTRY: dict = {c.__name__: c for c in (ElementWiseVertex,)}
+VERTEX_REGISTRY: dict = {c.__name__: c for c in (MergeVertex,
+                                                  ElementWiseVertex)}

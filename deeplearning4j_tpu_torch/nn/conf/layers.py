@@ -1,7 +1,7 @@
 """Layer configurations and their math.
 
 Counterpart of ``deeplearning4j_tpu/nn/conf/layers.py``, for the
-layers ResNet-50, LeNet-5 and their output heads use. Each config
+layers ResNet-50, LeNet-5, SqueezeNet and their output heads use. Each config
 dataclass keeps the JAX package's fields, so ``configuration.json``
 round-trips verbatim, and is also the runtime:
 
@@ -464,6 +464,28 @@ class GlobalPoolingLayer(Layer):
         pass
 
 
+@dataclass
+class DropoutLayer(Layer):
+    """Standalone dropout; ``dropout`` is the retain probability, as in
+    the JAX package. The identity at inference; training raises until
+    dropout is ported."""
+
+    dropout: float = 0.5
+
+    def has_params(self) -> bool:
+        return False
+
+    def forward(self, params, x, *, training, state=None):
+        _no_dropout(self, training)
+        return x, state
+
+    def get_output_type(self, input_type):
+        return input_type
+
+    def set_n_in(self, input_type, override):
+        pass
+
+
 # ---------------------------------------------------------------------------
 @dataclass
 class BaseOutputLayer(DenseLayer):
@@ -498,4 +520,4 @@ class OutputLayer(BaseOutputLayer):
 LAYER_REGISTRY: dict = {c.__name__: c for c in
                         (DenseLayer, ConvolutionLayer, SubsamplingLayer,
                          BatchNormalization, ActivationLayer,
-                         GlobalPoolingLayer, OutputLayer)}
+                         GlobalPoolingLayer, DropoutLayer, OutputLayer)}

@@ -1,9 +1,10 @@
 """The conv/BN epilogue family: ``y = act(x·scale + shift)`` per channel,
 its backward, and the channel statistics of training BatchNormalization.
 
-Counterpart of ``deeplearning4j_tpu/ops/conv_pallas.py``. Three
-hand-written CUDA kernels, all in ``csrc/conv_epilogue.cu``, each with a
-plain PyTorch version beside it:
+Counterpart of ``deeplearning4j_tpu/ops/conv_pallas.py``. Four
+hand-written CUDA kernels, three in ``csrc/conv_epilogue.cu`` and one in
+``csrc/matmul_epilogue.cu``, each with a plain PyTorch version beside
+it:
 
 * ``scale_shift_act`` (replaces ``_epilogue_kernel``): conv bias plus
   activation, inference-mode BatchNormalization (running stats folded
@@ -14,26 +15,36 @@ plain PyTorch version beside it:
   ``Σdy·act′`` (dshift) and ``Σdy·act′·x`` (dscale);
 * ``channel_sums`` (replaces ``_stats_kernel``): per-channel ``Σx`` and
   ``Σx²`` in one read, from which :func:`channel_stats` derives the
-  batch mean and (biased) variance.
+  batch mean and (biased) variance;
+* ``matmul_bias_act_forward`` (replaces ``_matmul_epilogue_kernel``):
+  ``y = act(x @ Wᵀ + b)``, the lowering of a pointwise (1x1, stride 1)
+  convolution, with the bias and the activation applied to the f32
+  accumulator before the one store.
 
-:func:`scale_shift_act` and :func:`channel_stats` are
-``torch.autograd.Function``\\ s: the first's backward is
-``epilogue_backward``, the second's is the epilogue with identity (the
-per-channel FMA ``dx = x·(2·dvar/M) + (dmean − 2·mean·dvar)/M``). Each
+:func:`scale_shift_act`, :func:`channel_stats` and
+:func:`matmul_bias_act` are ``torch.autograd.Function``\\ s: the first's
+backward is ``epilogue_backward``, the second's is the epilogue with
+identity (the per-channel FMA ``dx = x·(2·dvar/M) + (dmean −
+2·mean·dvar)/M``), the third's is plain products, as in the JAX package
+(``_mba_bwd``: the relu mask from the saved output, f32 sums). Each
 kernel wrapper launches its kernel on a CUDA tensor (and raises on
 anything it does not take), runs the plain version on a CPU tensor, and
-does nothing else: on the card there is no fallback. All three are bound
-by bytes; the source notes say what their design does about that.
+does nothing else: on the card there is no fallback. The epilogue kernels
+are bound by bytes, the matmul by bytes or operations by site; the
+source notes say what their design does about that.
 
 Dispatch runs through the ``ops/kernel_select.py`` ladder: family
 ``conv_epilogue`` for conv and inference-BN sites, ``bn_fwd`` for the
-training-BN forward, both on the ``DL4J_TORCH_FUSED_CONV`` gate. The
-structural gates keep only what is semantics: rank, a floating dtype, a
-streamable activation (relu or identity), an epilogue to apply, training
-mode for the statistics. The JAX package's TPU tiling gates (``C % 8``,
-a size floor, "platform is tpu") do not carry over. The auto rung takes
-the kernels for every admissible site on the card and the plain versions
-on the CPU; ``DL4J_TORCH_FUSED_CONV=0`` is the explicit kill switch.
+training-BN forward, both on the ``DL4J_TORCH_FUSED_CONV`` gate. An
+admitted conv site that is pointwise runs ``matmul_bias_act``, any other
+conv + ``scale_shift_act``. The structural gates keep only what is
+semantics: rank, a floating dtype, a streamable activation (relu or
+identity), an epilogue to apply, training mode for the statistics. The
+JAX package's TPU tiling gates (``C % 8``, the 128-lane ``C_in`` and
+``C_out`` of its matmul route, a size floor, "platform is tpu") do not
+carry over. The auto rung takes the kernels for every admissible site on
+the card and the plain versions on the CPU; ``DL4J_TORCH_FUSED_CONV=0``
+is the explicit kill switch.
 """
 from __future__ import annotations
 
@@ -65,11 +76,17 @@ EPILOGUE_BWD = cuda_build.register(cuda_build.Kernel(
 CHANNEL_SUMS = cuda_build.register(cuda_build.Kernel(
     "channel_sums", source=_SOURCE,
     replaces="deeplearning4j_tpu/ops/conv_pallas.py:194 (_stats_kernel)"))
+MATMUL = cuda_build.register(cuda_build.Kernel(
+    "matmul_bias_act",
+    source="deeplearning4j_tpu_torch/csrc/matmul_epilogue.cu",
+    replaces="deeplearning4j_tpu/ops/conv_pallas.py:211 "
+             "(_matmul_epilogue_kernel)"))
 
 _fused_steps = telemetry.counter(
     "dl4j_conv_fused_steps_total",
     "conv-epilogue sites dispatched to the epilogue kernels, by site "
-    "(conv / bn_infer / bn_train); counts executed dispatches")
+    "(conv / conv_matmul / bn_infer / bn_train); counts executed "
+    "dispatches")
 _layout_copies = telemetry.counter(
     "dl4j_conv_layout_copies_total",
     "tensors that reached an epilogue-family kernel in a layout other "
@@ -187,6 +204,22 @@ def channel_sums_plain(x2d: torch.Tensor) -> torch.Tensor:
     an [M, C] view, as a [2, C] tensor in the accumulation dtype."""
     xf = x2d.to(_acc(x2d.dtype))
     return torch.stack([xf.sum(0), (xf * xf).sum(0)])
+
+
+def matmul_bias_act_plain(x2d: torch.Tensor, w: torch.Tensor,
+                          bias: torch.Tensor, act: str) -> torch.Tensor:
+    """Plain version of ``matmul_bias_act``: ``x2d [M, K] @ w[N, K]ᵀ``
+    accumulated in f32 (f64 for f64 inputs), then the bias, then relu as
+    ``y < 0 ? 0 : y`` (NaN passes through), then one cast to x's
+    dtype."""
+    acc = _acc(x2d.dtype)
+    y = x2d.to(acc) @ w.to(acc).t()
+    y = y + bias.to(acc)
+    if act == "relu":
+        y = y.masked_fill(y < 0, 0.0)
+    elif act != "identity":
+        raise ValueError(f"activation {act!r} is not streamable")
+    return y.to(x2d.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -340,6 +373,49 @@ def channel_sums(x2d: torch.Tensor) -> torch.Tensor:
     return sums
 
 
+def matmul_bias_act_forward(x2d: torch.Tensor, w: torch.Tensor,
+                            bias: torch.Tensor, act: str) -> torch.Tensor:
+    """``act(x2d @ wᵀ + bias)``, no autograd: the kernel on a CUDA
+    ``x2d``, the plain version on a CPU one. ``x2d`` is a contiguous
+    [M, K] tensor of a kernel dtype, ``w`` a contiguous [N, K] tensor of
+    the same dtype, ``bias`` a contiguous float32 [N] tensor."""
+    if x2d.device.type == "cpu":
+        return matmul_bias_act_plain(x2d, w, bias, act)
+    fn_name = "matmul_bias_act"
+    if act not in STREAMABLE_ACTIVATIONS:
+        raise ValueError(f"{fn_name}: activation {act!r} is not streamable")
+    if x2d.dim() != 2 or w.dim() != 2:
+        raise ValueError(f"{fn_name}: x must be [M, K] and w [N, K], got "
+                         f"{tuple(x2d.shape)} and {tuple(w.shape)}")
+    K = check_rows(fn_name, x2d)
+    N = int(w.shape[0])
+    if w.device != x2d.device or w.dtype != x2d.dtype \
+            or int(w.shape[1]) != K or not w.is_contiguous():
+        raise ValueError(f"{fn_name}: w must be a contiguous {x2d.dtype} "
+                         f"[N, {K}] tensor on {x2d.device}, got {w.dtype} "
+                         f"{tuple(w.shape)} on {w.device}")
+    if bias.device != x2d.device or bias.dtype != torch.float32 \
+            or bias.shape != (N,) or not bias.is_contiguous():
+        raise ValueError(f"{fn_name}: bias must be a contiguous float32 "
+                         f"[{N}] tensor on {x2d.device}, got {bias.dtype} "
+                         f"{tuple(bias.shape)} on {bias.device}")
+    M = int(x2d.shape[0])
+    y = torch.empty((M, N), dtype=x2d.dtype, device=x2d.device)
+    if M == 0 or N == 0:
+        return y
+    fn = cuda_build.c_function(
+        "matmul_epilogue", "dl4j_matmul_bias_act",
+        [_P, _P, _P, _P, _I64, _I64, _I64, _INT, _INT, _P])
+    with torch.cuda.device(x2d.device):
+        stream = torch.cuda.current_stream(x2d.device).cuda_stream
+        rc = fn(x2d.data_ptr(), w.data_ptr(), bias.data_ptr(),
+                y.data_ptr(), M, N, K, DTYPE_CODE[x2d.dtype],
+                1 if act == "relu" else 0, stream)
+    raise_on_error(fn_name, rc)
+    MATMUL.launched()
+    return y
+
+
 # ---------------------------------------------------------------------------
 # differentiable building blocks
 # ---------------------------------------------------------------------------
@@ -399,6 +475,39 @@ def channel_stats(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return _ChannelStats.apply(contiguous(x))
 
 
+class _MatmulBiasAct(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x2d, w, bias, act):
+        y = matmul_bias_act_forward(x2d, w, bias, act)
+        ctx.act = act
+        ctx.save_for_backward(x2d, w, y)
+        ctx.bias_dtype = bias.dtype
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        # _mba_bwd: the relu mask from the saved output (y > 0 iff the
+        # pre-activation > 0), f32 products cast back; plain matmuls
+        x2d, w, y = ctx.saved_tensors
+        acc = _acc(x2d.dtype)
+        g = torch.where(y > 0, dy, 0.0) if ctx.act == "relu" else dy
+        g = g.to(acc)
+        need_x, need_w, need_b = ctx.needs_input_grad[:3]
+        dx = (g @ w.to(acc)).to(x2d.dtype) if need_x else None
+        dw = (g.t() @ x2d.to(acc)).to(w.dtype) if need_w else None
+        db = g.sum(0).to(ctx.bias_dtype) if need_b else None
+        return dx, dw, db, None
+
+
+def matmul_bias_act(x2d: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                    act: str) -> torch.Tensor:
+    """``act(x2d @ wᵀ + bias)`` for ``x2d [M, K]``, ``w [N, K]``, the
+    pointwise-conv lowering, differentiable: the forward is the matmul
+    kernel (its plain version on the CPU), the backward plain products
+    with the relu mask taken from the saved output."""
+    return _MatmulBiasAct.apply(x2d, w, bias, act)
+
+
 # ---------------------------------------------------------------------------
 # layer entry points
 # ---------------------------------------------------------------------------
@@ -414,6 +523,22 @@ def same_padding(size: int, k: int, stride: int, dilation: int = 1
     return total // 2, total - total // 2
 
 
+def _is_pointwise(w_shape: Sequence[int], stride: Sequence[int],
+                  dilation: Sequence[int],
+                  padding: Union[str, Sequence[Tuple[int, int]]]) -> bool:
+    """A 1x1, stride-1, undilated, unpadded conv of an OIHW kernel: a
+    [M, C_in] x [C_in, C_out] matmul."""
+    if any(int(k) != 1 for k in w_shape[2:]):
+        return False
+    if any(int(s) != 1 for s in stride):
+        return False
+    if any(int(d) != 1 for d in dilation):
+        return False
+    if isinstance(padding, str):
+        return True              # SAME == VALID == no pad for 1x1
+    return all(int(lo) == 0 and int(hi) == 0 for lo, hi in padding)
+
+
 def conv_forward(x: torch.Tensor, w: torch.Tensor, *,
                  stride: Tuple[int, int],
                  padding: Union[str, Sequence[Tuple[int, int]]],
@@ -421,10 +546,12 @@ def conv_forward(x: torch.Tensor, w: torch.Tensor, *,
                  bias: Optional[torch.Tensor] = None,
                  activation=None) -> torch.Tensor:
     """2-D convolution of NHWC ``x`` with an OIHW ``w``, plus its
-    bias/activation epilogue: through the epilogue when the ladder
-    admits the site (the bias gradient then comes back as the
-    epilogue's dshift), otherwise the plain lowering. ``padding`` is
-    ``"SAME"`` or ``[(lo, hi), (lo, hi)]``.
+    bias/activation epilogue. When the ladder admits the site, a
+    pointwise site runs as one ``matmul_bias_act`` over the [M, C_in]
+    view of x and the [C_out, C_in] view of w, any other as the conv and
+    then the epilogue (the bias gradient comes back as the epilogue's
+    dshift); otherwise the plain lowering. ``padding`` is ``"SAME"`` or
+    ``[(lo, hi), (lo, hi)]``.
 
     ``x.permute(0, 3, 1, 2)`` is a channels-last NCHW view, so the
     convolution reads NHWC memory as it lies and writes channels-last;
@@ -449,18 +576,28 @@ def conv_forward(x: torch.Tensor, w: torch.Tensor, *,
         conv_pad = (0, 0)
     has_epilogue = bias is not None or act_name != "identity"
     n_out = int(w.shape[0])
-    sel = select_conv_epilogue(tuple(x.shape[:-1]) + (n_out,), x.dtype,
-                               act_name,
+    out_shape = tuple(x.shape[:-1]) + (n_out,)
+    sel = select_conv_epilogue(out_shape, x.dtype, act_name,
                                device=x.device, has_epilogue=has_epilogue)
-    z = F.conv2d(xn, w, bias if not sel.fused else None, stride=stride,
-                 padding=conv_pad, dilation=dilation)
-    z = z.permute(0, 2, 3, 1)
     if not sel.fused:
-        return act(z)
-    _fused_steps.inc(site="conv")
+        z = F.conv2d(xn, w, bias, stride=stride, padding=conv_pad,
+                     dilation=dilation)
+        return act(z.permute(0, 2, 3, 1))
     acc = _acc(x.dtype)
     shift = (bias.to(acc) if bias is not None
              else torch.zeros(n_out, dtype=acc, device=x.device))
+    if _is_pointwise(w.shape, stride, dilation, padding):
+        # a 1x1 stride-1 conv is a [M, C_in] x [C_in, C_out] matmul: the
+        # epilogue is applied to the kernel's output tile
+        _fused_steps.inc(site="conv_matmul")
+        c_in = int(w.shape[1])
+        y2d = matmul_bias_act(contiguous(x).reshape(-1, c_in),
+                              contiguous(w.reshape(n_out, c_in)), shift,
+                              act_name)
+        return y2d.reshape(out_shape)
+    _fused_steps.inc(site="conv")
+    z = F.conv2d(xn, w, None, stride=stride, padding=conv_pad,
+                 dilation=dilation).permute(0, 2, 3, 1)
     return scale_shift_act(contiguous(z),
                            torch.ones(n_out, dtype=acc, device=x.device),
                            shift, act_name)

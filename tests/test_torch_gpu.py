@@ -482,3 +482,144 @@ def test_decode_engine_launches_kernel_10_once_a_layer_a_step():
         assert t == model.reference_decode(params, p, 10)
     assert eng.retraces_since_warmup() == 0
     assert pool.live_blocks == 0
+
+
+# ---------------------------------------------------------------------------
+# kernel 4: the pointwise-conv matmul with bias and activation
+# ---------------------------------------------------------------------------
+#: (M, K, N): SqueezeNet's site shapes at batch 32 (squeeze, expand, the
+#: 1000-class head), then a ragged M, an N off the tile and K = 16
+MBA_SHAPES = [(100352, 64, 16), (100352, 16, 64), (100352, 128, 32),
+              (25088, 384, 48), (25088, 48, 192), (25088, 64, 256),
+              (6272, 512, 1000), (1001, 40, 37), (777, 16, 16),
+              (129, 7, 3)]
+
+
+def _mba_bar(x, w, b, ref32, dtype):
+    """Per-element bar: ``2e-5 · (Σ_k |x_k·w_k| + |b|)`` (f32 sums in
+    another order), plus one ulp of the output dtype at the plain f32
+    result for bf16 and f16 (the kernel rounds its own f32 sum)."""
+    bar = 2e-5 * (x.float().abs() @ w.float().abs().t() + b.abs())
+    if dtype != torch.float32:
+        _, e = torch.frexp(ref32.abs().nan_to_num(0.0))
+        bar = bar + torch.ldexp(torch.full_like(ref32, torch.finfo(
+            dtype).eps), e - 1)
+    return bar
+
+
+def _mba_inputs(M, K, N, dtype, g):
+    x = torch.randn(M, K, device="cuda", generator=g).to(dtype)
+    w = (torch.randn(N, K, device="cuda", generator=g) / K ** 0.5).to(dtype)
+    b = 0.1 * torch.randn(N, device="cuda", generator=g)
+    return x, w, b
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", MBA_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("act", ["relu", "identity"])
+def test_matmul_bias_act_kernel_matches_plain(shape, dtype, act,
+                                              monkeypatch):
+    """Within the bar of every element, NaN in the same places (a NaN in
+    x makes its row NaN), bitwise equal across two launches."""
+    _need_card()
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    dt = getattr(torch, dtype)
+    M, K, N = shape
+    x, w, b = _mba_inputs(M, K, N, dt, g)
+    x[::97, K // 2] = float("nan")
+    n0 = ce.MATMUL.launches
+    y = ce.matmul_bias_act(x, w, b, act)
+    y2 = ce.matmul_bias_act(x, w, b, act)
+    ref = ce.matmul_bias_act_plain(x.float(), w.float(), b, act)
+    torch.cuda.synchronize()
+    assert ce.MATMUL.launches == n0 + 2
+    assert y.dtype == dt and y.shape == (M, N)
+    assert torch.equal(y.view(torch.int16 if dt != torch.float32
+                              else torch.int32),
+                       y2.view(torch.int16 if dt != torch.float32
+                               else torch.int32))
+    assert torch.equal(torch.isnan(y), torch.isnan(ref))
+    err = (y.float() - ref).abs().nan_to_num(0.0)
+    assert bool((err <= _mba_bar(x, w, b, ref, dt).nan_to_num(0.0)).all())
+
+
+@pytest.mark.gpu
+def test_matmul_bias_act_kernel_rejects_what_it_does_not_take():
+    _need_card()
+    x = torch.randn(64, 32, device="cuda")
+    w = torch.randn(16, 32, device="cuda")
+    b = torch.zeros(16, device="cuda")
+    with pytest.raises(TypeError):
+        ce.matmul_bias_act(x.double(), w.double(), b, "relu")
+    with pytest.raises(ValueError):
+        ce.matmul_bias_act(torch.randn(32, 64, device="cuda").t(), w, b,
+                           "relu")
+    with pytest.raises(ValueError):
+        ce.matmul_bias_act(x, torch.randn(16, 31, device="cuda"), b, "relu")
+    with pytest.raises(ValueError):
+        ce.matmul_bias_act(x, w.half(), b, "relu")
+    with pytest.raises(ValueError):
+        ce.matmul_bias_act(x, w, b.half(), "relu")
+    with pytest.raises(ValueError):
+        ce.matmul_bias_act(x, w, b.cpu(), "relu")
+    with pytest.raises(ValueError):
+        ce.matmul_bias_act(x, w, b, "tanh")
+
+
+def _mba_plain_backward(x, w, y, dy, act):
+    """The JAX package's ``_mba_bwd``: the relu mask from the output,
+    f32 products cast back."""
+    g = torch.where(y > 0, dy, 0.0) if act == "relu" else dy
+    g = g.float()
+    return ((g @ w.float()).to(x.dtype), (g.t() @ x.float()).to(w.dtype),
+            g.sum(0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("act", ["relu", "identity"])
+def test_matmul_bias_act_backward_matches_plain(dtype, act, monkeypatch):
+    """Inputs on a grid of 1/32 so every sum is exact in f32: the
+    kernel's forward then equals the plain one bitwise, and the
+    Function's gradients equal the plain backward's."""
+    _need_card()
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    dt = getattr(torch, dtype)
+    M, K, N = 3000, 96, 48
+    x = (torch.randint(-8, 9, (M, K), device="cuda", generator=g) / 4
+         ).to(dt).requires_grad_()
+    w = (torch.randint(-4, 5, (N, K), device="cuda", generator=g) / 8
+         ).to(dt).requires_grad_()
+    b = (torch.randint(-8, 9, (N,), device="cuda", generator=g) / 8
+         ).requires_grad_()
+    dy = torch.randn(M, N, device="cuda", generator=g).to(dt)
+    y = ce.matmul_bias_act(x, w, b, act)
+    ref = ce.matmul_bias_act_plain(x.detach(), w.detach(), b.detach(), act)
+    assert torch.equal(y.detach(), ref)
+    got = torch.autograd.grad(y, (x, w, b), dy)
+    want = _mba_plain_backward(x.detach(), w.detach(), ref, dy, act)
+    for a, e in zip(got, want):
+        assert a.dtype == e.dtype and torch.equal(a, e)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("compute_dtype", [None, "bfloat16", "float16"])
+def test_squeezenet_forward_launches_kernels_4_and_1(compute_dtype):
+    """17 pointwise sites on kernel 4, the stem and the 8 expand-3x3 on
+    kernel 1, nothing else."""
+    _need_card()
+    from deeplearning4j_tpu_torch.models import SqueezeNet
+    from deeplearning4j_tpu_torch.ops import cuda_build
+    net = SqueezeNet(height=64, width=64,
+                     compute_dtype=compute_dtype).init("cuda")
+    before = {k: v.launches for k, v in cuda_build.KERNELS.items()}
+    out = net.output(torch.randn(2, 64, 64, 3))
+    torch.cuda.synchronize()
+    delta = {k: v.launches - before[k]
+             for k, v in cuda_build.KERNELS.items()}
+    assert delta == {k: {"matmul_bias_act": 17, "scale_shift_act": 9}
+                     .get(k, 0) for k in delta}
+    assert out.shape == (2, 1000) and bool(torch.isfinite(out).all())

@@ -81,8 +81,8 @@ def _all_kernels():
 
 
 KERNEL_NAMES = ["scale_shift_act", "epilogue_backward", "channel_sums",
-                "bn_bwd_sums", "bn_bwd_dx", "flash_fwd", "flash_bwd_dq",
-                "flash_bwd_dkv", "paged_decode"]
+                "matmul_bias_act", "bn_bwd_sums", "bn_bwd_dx", "flash_fwd",
+                "flash_bwd_dq", "flash_bwd_dkv", "paged_decode"]
 
 
 @pytest.mark.parametrize("name", KERNEL_NAMES)
