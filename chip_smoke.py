@@ -51,17 +51,21 @@ Phases, each of which fails the run (exit 1) when its check fails:
 9. flash kernels: the attention forward (7), dq (8) and dk/dv (9)
    against their plain versions at BERT-base's sites (batch 32, 12
    heads of 64; t=128 with padded key masks and one fully masked
-   sequence, t=512), a causal case and an odd one (t=200, d=32), f32
-   and bf16: within the reference's bars, bitwise across two launches,
-   fully masked rows exactly 0, no NaN; then each kernel's time over the
-   12 sites of a step (CUDA-graph replay) beside its bound and
-   ``F.scaled_dot_product_attention``;
+   sequence, t=512), two causal cases (t=256, and t=512 with padded
+   masks) and an odd one (t=200, d=32), f32, bf16 and f16: within the
+   reference's bars, bitwise across two launches, fully masked rows
+   exactly 0, no NaN; then each kernel's time over the 12 sites of a
+   step (CUDA-graph replay) in each dtype beside its bound, its plain
+   version and one library call (``F.scaled_dot_product_attention`` for
+   7; ``_scaled_dot_product_efficient_attention_backward``, which
+   computes 8 and 9 together, for the pair);
 10. BERT serving: full-width BERT-base (seeded weights) at batch 32,
     ``Bert.output`` and ``BertForSequenceClassification.predict`` at
     t=128 with padded masks and ``Bert.output`` at t=512, counts reset
     before and read after (12 launches of kernel 7 a forward, none of 8
     or 9); padding isolated bitwise; ms a forward, sequences/s, the idle
-    share; a bf16 ``compute_dtype`` forward;
+    share and kernel 7's share of the busy time; bf16 ``compute_dtype``
+    forwards at t=128 and t=512, timed and profiled the same way;
 11. BERT pretraining: batch 32, t=128, 20 predictions a sequence, NSP,
     hidden dropout 0.1, attention dropout 0, Adam(1e-4), 10 ``fit_batch``
     steps on one seeded batch (12 launches each of kernels 7, 8, 9 a
@@ -653,9 +657,12 @@ def phase_slice(torch, device: str = "cuda", image: int = 224,
     return result
 
 
-def profile_device(torch, fn, wall_ms: float, what: str) -> dict:
+def profile_device(torch, fn, wall_ms: float, what: str,
+                   shares=()) -> dict:
     """Device time by kernel over 3 calls of ``fn`` (profiler), and the
-    idle share against the unprofiled wall time of one call."""
+    idle share against the unprofiled wall time of one call; ``shares``
+    names substrings of kernel names whose share of the busy time is
+    reported."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -698,9 +705,16 @@ def profile_device(torch, fn, wall_ms: float, what: str) -> dict:
         scoped = sum(sc["kernels_ms"] for sc in scopes.values())
         print(f"[profile]   outside the scopes (autograd's backward, ...): "
               f"{busy_ms - scoped:.3f} ms")
+    share = {}
+    for name in shares:
+        ms = sum(r[1] for r in rows if name in r[0])
+        share[name] = {"ms": ms, "share_of_busy": ms / busy_ms}
+        print(f"[profile]   kernels named *{name}*: {ms:.3f} ms, "
+              f"{ms / busy_ms:.3f} of busy")
     return {"device_busy_ms": busy_ms, "idle_share": idle,
             "top": [{"kernel": k[:120], "ms": ms, "calls": n}
-                    for k, ms, n in rows[:20]], "scopes": scopes}
+                    for k, ms, n in rows[:20]], "scopes": scopes,
+            "shares": share}
 
 
 # ---------------------------------------------------------------------------
@@ -1205,9 +1219,12 @@ BF16_FLOPS = 989e12
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 #: kernel against plain version: the reference's own bars in f32
 #: (tests/test_attention_pallas.py:38,75: forward 2e-5, gradients rtol
-#: 2e-4 / atol 2e-5); bf16 outputs may differ by a bf16 rounding (2^-8)
+#: 2e-4 / atol 2e-5); bf16 and f16 outputs may differ by a rounding of
+#: their type (2^-8 for bf16), as in tests/test_torch_gpu.py
 FLASH_TOL = {"float32": ((2e-5, 2e-5), (2e-4, 2e-5)),
-             "bfloat16": ((2e-2, 2e-2), (2e-2, 2e-2))}
+             "bfloat16": ((2e-2, 2e-2), (2e-2, 2e-2)),
+             "float16": ((2e-2, 2e-2), (2e-2, 2e-2))}
+FLASH_DTYPES = ("float32", "bfloat16", "float16")
 
 
 def _key_mask(torch, g, b: int, t: int, kind: str, device: str):
@@ -1303,25 +1320,26 @@ def phase_flash_kernels(torch) -> dict:
     shapes = [(BATCH, BERT_HEADS, 128, 128, HEAD_DIM, False, "padded"),
               (BATCH, BERT_HEADS, 512, 512, HEAD_DIM, False, "padded"),
               (4, BERT_HEADS, 256, 256, HEAD_DIM, True, "none"),
+              (4, BERT_HEADS, 512, 512, HEAD_DIM, True, "padded"),
               (4, 4, 200, 200, 32, False, "padded")]
     for shape in shapes:
-        for dt in (torch.float32, torch.bfloat16):
-            _flash_check(torch, sq, *shape[:5], dt, shape[5], shape[6], g,
-                         errs)
+        for dt in FLASH_DTYPES:
+            _flash_check(torch, sq, *shape[:5], getattr(torch, dt),
+                         shape[5], shape[6], g, errs)
         torch.cuda.empty_cache()
     print(f"[flash] flash_fwd/flash_bwd_dq/flash_bwd_dkv == plain at "
-          f"{len(shapes)} shapes x f32/bf16 (f32 fwd rtol/atol 2e-5, grads "
-          f"rtol 2e-4 atol 2e-5; bf16 2e-2), bitwise across two launches, "
-          f"fully masked sequences exactly 0, no NaN; max |kernel - plain| "
-          f"(f32) {errs}")
+          f"{len(shapes)} shapes x f32/bf16/f16 (f32 fwd rtol/atol 2e-5, "
+          f"grads rtol 2e-4 atol 2e-5; bf16 and f16 2e-2), bitwise across "
+          f"two launches, fully masked sequences exactly 0, no NaN; max "
+          f"|kernel - plain| (f32) {errs}")
 
     # timings over the 12 sites of a batch-32 step at t=128 (and the
     # forward's at t=512): 12 distinct sets of inputs, so the replay
     # reads what a step reads (a site's q, k, v are 38 MB in f32)
     timing = {}
     bh = BATCH * BERT_HEADS
-    for dt, t in ((torch.float32, 128), (torch.bfloat16, 128),
-                  (torch.float32, 512), (torch.bfloat16, 512)):
+    for dt, t in [(getattr(torch, n), t) for t in (128, 512)
+                  for n in FLASH_DTYPES]:
         short = str(dt)[6:]
         esize = torch.tensor([], dtype=dt).element_size()
         sites = []
@@ -1383,6 +1401,33 @@ def phase_flash_kernels(torch) -> dict:
                   f" GB), eager {res[name]['eager_ms']:.4f} ms, "
                   f"{BERT_LAYERS * o_ / k_ms / 1e9:.1f} TFLOP/s achieved")
         if t == 128:
+            # one library call for rows 8 + 9 together: the memory-
+            # efficient attention backward on the same inputs (its own
+            # forward's out and log-sum-exp, the key mask as a zero/-inf
+            # bias), its forward excluded
+            eff = torch.ops.aten._scaled_dot_product_efficient_attention
+            eff_bwd = \
+                torch.ops.aten._scaled_dot_product_efficient_attention_backward
+            lib_sites = []
+            for q, k, v, do, m, *_ in sites:
+                bias = torch.zeros_like(m, dtype=dt).masked_fill(
+                    m == 0, float("-inf"))[:, None, None, :].expand(
+                        -1, BERT_HEADS, t, -1)
+                o, lse_e, seed, off = eff(q, k, v, bias, True)
+                lib_sites.append((do, q, k, v, bias, o, lse_e, seed, off))
+
+            def eff_backward():
+                for a in lib_sites:
+                    eff_bwd(*a, 0.0, [True, True, True, False])
+            pair_ms = _graph_ms(torch, eff_backward, reps=3)
+            for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+                res[name]["library_ms"] = pair_ms
+                res[name]["library_covers"] = "flash_bwd_dq + flash_bwd_dkv"
+            k89 = sum(res[n]["kernel_ms"] for n in FLASH_KERNELS[1:])
+            print(f"[flash] _scaled_dot_product_efficient_attention_backward "
+                  f"{short} t=128, 12 sites (dq, dk, dv together): "
+                  f"{pair_ms:.4f} ms; kernels 8+9 {k89:.4f} ms")
+            del lib_sites
             # the yardstick's backward: SDPA forward + backward, eager
             leaves = [[x.detach().clone().requires_grad_(True)
                        for x in s[:3]] for s in sites]
@@ -1502,7 +1547,12 @@ def phase_bert_serve(torch, label: str, device: str = "cuda", conf=None,
               f" sequences/s [{label}]")
     result["profile_f32_t128"] = profile_device(
         torch, lambda: bert.output(*args), result["f32_t128_ms"][1],
-        "batch-32 t=128 f32 BERT-base forward")
+        "batch-32 t=128 f32 BERT-base forward", shares=("flash_fwd",))
+    result[f"profile_f32_t{t_long}"] = profile_device(
+        torch, lambda: bert.output(b512["input_ids"], None,
+                                   b512["attention_mask"]),
+        result[f"f32_t{t_long}_ms"][1],
+        f"batch-32 t={t_long} f32 BERT-base forward", shares=("flash_fwd",))
 
     bert16 = Bert(dataclasses.replace(conf, compute_dtype="bfloat16")).set_params(
         bert.params, device)
@@ -1522,7 +1572,28 @@ def phase_bert_serve(torch, label: str, device: str = "cuda", conf=None,
     check(rel < 0.1, f"bf16 sequence output {rel:.3e} from f32 in norm")
     result["profile_bf16_t128"] = profile_device(
         torch, lambda: bert16.output(*args), runs[1],
-        "batch-32 t=128 bf16 BERT-base forward")
+        "batch-32 t=128 bf16 BERT-base forward", shares=("flash_fwd",))
+
+    def long16():
+        return bert16.output(b512["input_ids"], None, b512["attention_mask"])
+    n0 = _flash_counts()["flash_fwd"]
+    s16l, _ = long16()
+    torch.cuda.synchronize()
+    check(_flash_counts()["flash_fwd"] - n0 == L,
+          f"bf16 t={t_long} forward did not run 12 flash launches")
+    am_l = b512["attention_mask"].bool()
+    rel_l = float((s16l[am_l] - seq_l[am_l]).norm() / seq_l[am_l].norm())
+    check(rel_l < 0.1, f"bf16 t={t_long} sequence output {rel_l:.3e} from "
+                       f"f32 in norm")
+    runs = sorted(_time_ms(torch, long16, reps=5) for _ in range(3))
+    result.update({f"bf16_t{t_long}_ms": runs,
+                   f"bf16_t{t_long}_rel_err": rel_l})
+    print(f"[bert-serve] bf16 compute_dtype t={t_long}: {runs[1]:.3f} ms "
+          f"({batch * 1e3 / runs[1]:.1f} sequences/s); sequence output "
+          f"within {rel_l:.3e} of f32 in norm [{label}]")
+    result[f"profile_bf16_t{t_long}"] = profile_device(
+        torch, long16, runs[1],
+        f"batch-32 t={t_long} bf16 BERT-base forward", shares=("flash_fwd",))
     return result
 
 
@@ -2574,18 +2645,26 @@ def main() -> int:
             err = fk["max_abs_err"][k.name]
             shapes = (f"the {BERT_LAYERS} attention sites of a batch-{BATCH}"
                       f" t=128 BERT-base step, f32")
-            by_dtype = {"float32": t["kernel_ms"],
-                        "bfloat16": ft["bfloat16_t128"][k.name]["kernel_ms"]}
+            by_dtype = {d: ft[f"{d}_t128"][k.name]["kernel_ms"]
+                        for d in FLASH_DTYPES}
             extra = {"bound_ms_by_dtype": {
-                "float32": t["bound_ms"],
-                "bfloat16": ft["bfloat16_t128"][k.name]["bound_ms"]}}
+                d: ft[f"{d}_t128"][k.name]["bound_ms"]
+                for d in FLASH_DTYPES},
+                "plain_ms_by_dtype": {
+                d: ft[f"{d}_t128"][k.name]["plain_ms"]
+                for d in FLASH_DTYPES},
+                "library_ms_by_dtype": {
+                d: ft[f"{d}_t128"][k.name]["library_ms"]
+                for d in FLASH_DTYPES}}
             if k.name == "flash_fwd":
-                extra["t512_ms_by_dtype"] = {
-                    d: ft[f"{d}_t512"]["flash_fwd"]["kernel_ms"]
-                    for d in ("float32", "bfloat16")}
+                for key in ("kernel_ms", "bound_ms", "library_ms"):
+                    extra[f"t512_{key}_by_dtype"] = {
+                        d: ft[f"{d}_t512"]["flash_fwd"][key]
+                        for d in FLASH_DTYPES}
             else:
-                # no one PyTorch call computes dq (or dk, dv) alone: the
-                # yardstick is SDPA's forward + backward, beside 7+8+9
+                # one library call computes dq, dk and dv together: its
+                # time stands in both rows, beside kernels 8 + 9
+                extra["library_covers"] = t["library_covers"]
                 extra["sdpa_fwd_bwd_ms"] = ft["float32_t128"][
                     "sdpa_fwd_bwd_ms"]
         elif k.name == "paged_decode":
@@ -2630,6 +2709,8 @@ def main() -> int:
             shapes = f"the 53 BatchNormalization sites of a batch-{BATCH} " \
                      f"f32 ResNet-50 forward"
             by_dtype = {d: v["kernel_ms"] for d, v in kern["timing"].items()}
+            extra = {"library_ms_by_dtype": {
+                d: v["library_ms"] for d, v in kern["timing"].items()}}
         else:
             t = tk["timing"][k.name]["float32"]
             err = tk["max_abs_err"][k.name]
@@ -2649,8 +2730,9 @@ def main() -> int:
           f"({tr['img_per_s']:.1f} img/s), LeNet-5 step "
           f"{ln['median_step_ms']:.3f} ms, BERT-base train step "
           f"{bt['median_step_ms']:.3f} ms ({bt['seq_per_s']:.1f} "
-          f"sequences/s), forward t=128 {bs['f32_t128_ms'][1]:.3f} ms "
-          f"[{label}]")
+          f"sequences/s), forward t=128 {bs['f32_t128_ms'][1]:.3f} ms, "
+          f"t=512 f32 {bs['f32_t512_ms'][1]:.3f} ms, bf16 "
+          f"{bs['bf16_t512_ms'][1]:.3f} ms [{label}]")
     print(f"[done] SqueezeNet serving: batch-32 f32 forward "
           f"{sq['fwd32_f32_ms'][1]:.3f} ms ({sq['img_per_s']:.1f} img/s), "
           f"bf16 {sq['fwd32_bf16_ms']:.3f} ms, {sq['http_img_per_s']:.1f} "

@@ -26,29 +26,52 @@
 // Work split, as the JAX package splits it: the forward and dq take one
 // block per (b*h, query tile) and loop over key tiles with the running
 // max, sum and accumulator in registers; dk/dv take one block per (b*h,
-// key tile) and loop over query tiles. Each output element is written by
-// one thread after a fixed sequence of f32 FMAs: no float atomics, so two
-// launches give the same bits. Rows and columns past t and d are zero in
-// shared memory and masked from the softmax, so any t and any d <= 256
-// run (d is padded to 32, 64, 128 or 256 in shared memory).
+// key tile) and loop over query tiles. Each output element is written
+// once: no float atomics, so two launches give the same bits. Rows and
+// columns past t and d are zero in shared memory and masked from the
+// softmax, so any t and any d <= 256 run (d is padded to 32, 64, 128 or
+// 256 in shared memory).
 //
-// Bound: operations. At BERT-base's sites (t = 128, d = 64) the forward
-// does 4 t^2 d FLOPs for 4 t d elements moved, about 128 FLOPs a byte in
-// f32, above the card's 20 FLOPs a byte at the f32 FMA rate (67 TFLOP/s
-// over 3.35 TB/s). This first version uses f32 FMAs only: 256 threads a
-// block, each owning a 4 x 4 (2 x 2 at d = 256) patch of the score tile
-// and the matching rows of the output accumulator, with Q, K, V (and dO)
-// tiles staged in shared memory as f32 and padded strides against bank
-// conflicts. Tensor-core tiles (wgmma), TMA and a pipelined tile ring are
-// for a later version.
+// Bound: operations in f32, bytes in 16 bit. At BERT-base's sites (t =
+// 128, d = 64) the forward does 4 t^2 d FLOPs for 4 t d elements moved:
+// about 128 FLOPs a byte in f32, above the card's 20 at the f32 FMA rate
+// (67 TFLOP/s over 3.35 TB/s), and 256 a byte in bf16, below its 295 at
+// the tensor cores' 989 TFLOP/s. So the paths differ by input type:
+//
+//   * bf16 / f16, d <= 128, forward and dk/dv: tensor cores (mma.sync
+//     m16n8k16, f32 accumulation; products of 16-bit inputs are exact),
+//     FlashAttention-2's split of 4 warps x 16 rows, K/V (Q/dO) tiles of
+//     64 through a two-stage cp.async ring, scores and gradients kept in
+//     the accumulator fragments, P and dS repacked to A fragments in
+//     registers (flash_fwd_mma_kernel, flash_bwd_dkv_mma_kernel);
+//   * f32, d <= 128, forward and dk/dv: full f32 FMAs (no TF32), 256
+//     threads each owning a 4 x 4 patch of the score tile, every operand
+//     read four d steps at a time by 16-byte shared loads from tiles
+//     staged by cp.async (double-buffered in the forward; one buffer and
+//     two blocks an SM in dk/dv) (flash_fwd_f32_kernel,
+//     flash_bwd_dkv_f32_kernel);
+//   * dq at every width, and the forward and dk/dv at d in (128, 256]:
+//     the first version's SIMT body (f32 FMAs for every type, one 4-byte
+//     shared load per 2 FMAs, tiles reloaded on one stage): left for a
+//     later redesign.
+//
+// Every path keeps the semantics above, and each output is written once
+// after a fixed sequence of f32 operations (no split over the reduction,
+// no float atomics). wgmma and TMA are for a later version.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "mma_sm80.cuh"
+
 namespace {
 
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kThreads = 256;  // 16 x 16 threads over a score tile
 constexpr int kSide = 16;
 
@@ -152,6 +175,9 @@ struct Args {
   int causal;
 };
 
+// ---------------------------------------------------------------------------
+// The first version's SIMT bodies: kernel 8 at every width, kernels 7 and
+// 9 at d in (128, 256].
 // ---------------------------------------------------------------------------
 // kernel 7: forward
 // ---------------------------------------------------------------------------
@@ -560,10 +586,923 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ===========================================================================
+// bf16 / f16, d <= 128: tensor cores (mma.sync m16n8k16, f32 accumulation)
+// ===========================================================================
+// FlashAttention-2's split: a block of 4 warps owns 64 rows (queries in
+// kernel 7, keys in kernel 9), each warp 16 of them, and walks the other
+// sequence in tiles of 64. Tiles are [64][DP + 8] in shared memory as
+// they lie in device memory (d-contiguous rows, padded so the 8 row
+// addresses of an ldmatrix fall in distinct banks), loaded through a
+// two-stage cp.async ring: the next tile lands while this one is
+// multiplied. Scores and gradients stay in the mma accumulators; a
+// thread holds rows g and g + 8 (g = lane / 4) of its warp's 16, so row
+// reductions run over the 4 threads of a quad. P (and dS) are rounded
+// to the input type and repacked from accumulator fragments into A
+// fragments in registers. Scores run in log2 units (the scale folded
+// with log2 e), so each exponential is one exp2; the lse leaves in
+// natural units. Where d % 8 != 0 or a pointer is not 16-byte aligned
+// (VEC false), tiles are staged element by element instead.
+constexpr int kMmaThreads = 128;
+constexpr int kTile = 64;  // rows a block owns, and rows of a streamed tile
+
+// A tile's row stride in elements: d padded by 16 bytes, which keeps rows
+// 16-byte aligned and puts 8 neighbouring rows' 16-byte chunks in distinct
+// banks (ldmatrix here, float4 loads on the f32 path).
+template <typename T, int DP>
+__host__ __device__ constexpr int tile_stride() {
+  return DP + 16 / (int)sizeof(T);
+}
+
+// Rows [row0, row0 + 64) of a contiguous [t, d] matrix into
+// dst[64][tile_stride]; zero past t rows and d columns. VEC: 16-byte
+// cp.async chunks (d a multiple of the chunk, 16-byte aligned base).
+template <typename T, int DP, int THREADS, bool VEC>
+__device__ __forceinline__ void stage_rows(T* dst, const T* __restrict__ src,
+                                           int row0, int t, int d) {
+  constexpr int S = tile_stride<T, DP>();
+  constexpr int kVec = 16 / (int)sizeof(T);
+  if constexpr (VEC) {
+    constexpr int kChunks = kTile * (DP / kVec);
+#pragma unroll
+    for (int c = threadIdx.x; c < kChunks; c += THREADS) {
+      const int r = c / (DP / kVec);
+      const int col = (c % (DP / kVec)) * kVec;
+      const bool valid = row0 + r < t && col < d;
+      const T* p = valid ? src + (int64_t)(row0 + r) * d + col : src;
+      cp_async16(dst + r * S + col, p, valid);
+    }
+  } else {
+    for (int e = threadIdx.x; e < kTile * DP; e += THREADS) {
+      const int r = e / DP;
+      const int col = e % DP;
+      dst[r * S + col] = (row0 + r < t && col < d)
+                             ? src[(int64_t)(row0 + r) * d + col]
+                             : from_f<T>(0.f);
+    }
+  }
+}
+
+// The [64][DP+8] tile back to rows [row0, row0 + 64) of a [t, d] matrix,
+// in 16-byte row chunks (VEC) or element by element.
+template <typename T, int DP, bool VEC>
+__device__ __forceinline__ void write_rows(T* __restrict__ dst,
+                                           const T* tile, int row0, int t,
+                                           int d) {
+  constexpr int S = tile_stride<T, DP>();
+  for (int c = threadIdx.x; c < kTile * (DP / 8); c += kMmaThreads) {
+    const int r = c / (DP / 8);
+    const int col = (c % (DP / 8)) * 8;
+    if (row0 + r >= t || col >= d) continue;
+    T* p = dst + (int64_t)(row0 + r) * d + col;
+    if constexpr (VEC) {
+      *reinterpret_cast<uint4*>(p) =
+          *reinterpret_cast<const uint4*>(tile + r * S + col);
+    } else {
+      for (int e = 0; e < 8 && col + e < d; ++e) p[e] = tile[r * S + col + e];
+    }
+  }
+}
+
+// A warp's accumulator rows (C fragments of n tiles 0..NT) into a tile.
+template <typename T, int DP, int NT>
+__device__ __forceinline__ void stage_acc(T* tile, const float (&acc)[NT][4],
+                                          int row, int lane) {
+  constexpr int S = tile_stride<T, DP>();
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    const int c = n * 8 + (lane % 4) * 2;
+    store2(tile + row * S + c, acc[n][0], acc[n][1]);
+    store2(tile + (row + 8) * S + c, acc[n][2], acc[n][3]);
+  }
+}
+
+// A fragment of rows [row, row + 16), columns [col, col + 16) of a tile.
+template <int S, typename T>
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const T* tile,
+                                       int row, int col, int lane) {
+  ldmatrix_x4(a, tile + (row + lane % 16) * S + col + (lane / 16) * 8);
+}
+
+// B fragments of n tiles (n8, n8 + 1) for k step [k16, k16 + 16) from a
+// tile whose rows are n and columns k (K in Q K^T): r[0..1] tile n8,
+// r[2..3] tile n8 + 1.
+template <int S, typename T>
+__device__ __forceinline__ void load_b_nk(uint32_t (&r)[4], const T* tile,
+                                          int n8, int k16, int lane) {
+  ldmatrix_x4(r, tile + (n8 * 8 + lane % 8 + (lane / 16) * 8) * S + k16 +
+                     ((lane / 8) % 2) * 8);
+}
+
+// The same from a tile whose rows are k and columns n (V in P V).
+template <int S, typename T>
+__device__ __forceinline__ void load_b_kn(uint32_t (&r)[4], const T* tile,
+                                          int n8, int k16, int lane) {
+  ldmatrix_x4_trans(r, tile + (k16 + lane % 8 + ((lane / 8) % 2) * 8) * S +
+                           n8 * 8 + (lane / 16) * 8);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+template <typename T, int DP>
+constexpr int fwd_mma_smem_bytes() {
+  return 5 * kTile * tile_stride<T, DP>() * (int)sizeof(T);
+}
+template <typename T, int DP>
+constexpr int dkv_mma_smem_bytes() {
+  return 6 * kTile * tile_stride<T, DP>() * (int)sizeof(T) +
+         4 * kTile * (int)sizeof(float);
+}
+
+// ---------------------------------------------------------------------------
+// kernel 7, 16-bit: one block per (b*h, 64 queries)
+// ---------------------------------------------------------------------------
+template <typename T, int DP, bool VEC>
+__global__ void __launch_bounds__(kMmaThreads, DP <= 64 ? 4 : 2)
+flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const float* __restrict__ mask,
+                     T* __restrict__ out, float* __restrict__ lse, int heads,
+                     int tq, int tk, int d, float scale, int causal) {
+  constexpr int S = tile_stride<T, DP>();
+  constexpr int KS = DP / 16;        // k steps of Q K^T
+  constexpr int NO = DP / 8;         // n tiles of O
+  constexpr int NS = kTile / 8;      // n tiles of S
+  constexpr int TILE = kTile * S;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Qs = reinterpret_cast<T*>(smem_raw);  // [64][S], then the output
+  T* Ks = Qs + TILE;                        // [2][64][S]
+  T* Vs = Ks + 2 * TILE;                    // [2][64][S]
+
+  const int n_qt = (tq + kTile - 1) / kTile;
+  const int64_t bh = blockIdx.x / n_qt;
+  const int q0 = (int)(blockIdx.x % n_qt) * kTile;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int row = warp * 16 + lane / 4;  // this thread's rows: row, row + 8
+  const int qi[2] = {q0 + row, q0 + row + 8};
+  const T* kb = k + bh * tk * d;
+  const T* vb = v + bh * tk * d;
+  const float* mb = mask ? mask + (bh / heads) * tk : nullptr;
+  const int k_end = causal ? min(tk, q0 + kTile) : tk;
+  const int n_kt = (k_end + kTile - 1) / kTile;
+
+  stage_rows<T, DP, kMmaThreads, VEC>(Qs, q + bh * tq * d, q0, tq, d);
+  stage_rows<T, DP, kMmaThreads, VEC>(Ks, kb, 0, tk, d);
+  stage_rows<T, DP, kMmaThreads, VEC>(Vs, vb, 0, tk, d);
+  if constexpr (VEC) cp_async_commit();
+
+  // scores in log2 units (exp2 is one instruction), m with them; the lse
+  // goes back to natural units
+  const float scale2 = scale * kLog2e;
+  uint32_t qf[KS][4];
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int j = 0; j < n_kt; ++j) {
+    const int st = j & 1;
+    const int k0 = j * kTile;
+    if constexpr (VEC) cp_async_wait<0>();
+    __syncthreads();  // tile j has landed; tile j - 1's stage is free
+    if (j == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+        load_a<S>(qf[kk], Qs, warp * 16, kk * 16, lane);
+    }
+    if (j + 1 < n_kt) {
+      stage_rows<T, DP, kMmaThreads, VEC>(Ks + (st ^ 1) * TILE, kb,
+                                          k0 + kTile, tk, d);
+      stage_rows<T, DP, kMmaThreads, VEC>(Vs + (st ^ 1) * TILE, vb,
+                                          k0 + kTile, tk, d);
+      if constexpr (VEC) cp_async_commit();
+    }
+    const T* Kt = Ks + st * TILE;
+    const T* Vt = Vs + st * TILE;
+    // the tile's kept keys as 64 bits in every lane, one ballot a half
+    uint32_t keep_bits[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int kj = k0 + 32 * h + lane;
+      keep_bits[h] = __ballot_sync(
+          0xffffffffu, kj < tk && (mb == nullptr || mb[kj] > 0.f));
+    }
+
+    float s[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+      for (int n = 0; n < NS; n += 2) {
+        uint32_t r[4];
+        load_b_nk<S>(r, Kt, n, kk * 16, lane);
+        mma_16816(s[n], qf[kk], r[0], r[1], T());
+        mma_16816(s[n + 1], qf[kk], r[2], r[3], T());
+      }
+
+    // online softmax on the accumulators: e < 2 is row `row`, else + 8
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = n * 8 + (lane % 4) * 2 + (e & 1);
+        const bool keep = ((keep_bits[n / 4] >> (c % 32)) & 1u) &&
+                          (!causal || qi[e / 2] >= k0 + c);
+        s[n][e] = keep ? s[n][e] * scale2 : kNegInf;
+        mx[e / 2] = fmaxf(mx[e / 2], s[n][e]);
+      }
+    float corr[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = quad_max(mx[h]);
+      corr[h] = exp2f(m[h] - mx[h]);
+    }
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = s[n][e] <= kNegInf * 0.5f
+                            ? 0.f
+                            : exp2f(s[n][e] - mx[e / 2]);
+        rs[e / 2] += p;
+        s[n][e] = p;
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      l[h] = l[h] * corr[h] + quad_sum(rs[h]);
+      m[h] = mx[h];
+    }
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] *= corr[e / 2];
+
+    // O += P V: P rounded to T, C fragments repacked as A fragments
+#pragma unroll
+    for (int kk = 0; kk < NS / 2; ++kk) {
+      const uint32_t pa[4] = {pack2(s[2 * kk][0], s[2 * kk][1], T()),
+                              pack2(s[2 * kk][2], s[2 * kk][3], T()),
+                              pack2(s[2 * kk + 1][0], s[2 * kk + 1][1], T()),
+                              pack2(s[2 * kk + 1][2], s[2 * kk + 1][3], T())};
+#pragma unroll
+      for (int n = 0; n < NO; n += 2) {
+        uint32_t r[4];
+        load_b_kn<S>(r, Vt, n, kk * 16, lane);
+        mma_16816(acc[n], pa, r[0], r[1], T());
+        mma_16816(acc[n + 1], pa, r[2], r[3], T());
+      }
+    }
+  }
+
+  const float lc[2] = {fmaxf(l[0], 1e-30f), fmaxf(l[1], 1e-30f)};
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] /= lc[e / 2];
+  __syncthreads();  // every warp is past its reads of the Q tile
+  stage_acc<T, DP, NO>(Qs, acc, row, lane);
+  if (lane % 4 == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      // a fully masked row keeps m = NEG_INF, as in natural units
+      const float mn = m[h] <= kNegInf * 0.5f ? kNegInf : m[h] * kLn2;
+      if (qi[h] < tq) lse[bh * tq + qi[h]] = mn + logf(lc[h]);
+    }
+  }
+  __syncthreads();
+  write_rows<T, DP, VEC>(out + bh * tq * d, Qs, q0, tq, d);
+}
+
+// ---------------------------------------------------------------------------
+// kernel 9, 16-bit: one block per (b*h, 64 keys). K and V are read as A
+// fragments from their shared tiles at each use rather than held in
+// registers: at d <= 64 that frees the registers for three blocks an SM
+// (168 a thread) against two, and the 12 sites of a BERT-base step took
+// 0.347 ms against 0.397 with K and V in registers (H100,
+// chip_smoke.py).
+// ---------------------------------------------------------------------------
+template <typename T, int DP, bool VEC>
+__global__ void __launch_bounds__(kMmaThreads, DP <= 64 ? 3 : 1)
+flash_bwd_dkv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const T* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         const float* __restrict__ mask, T* __restrict__ dk,
+                         T* __restrict__ dv, int heads, int tq, int tk, int d,
+                         float scale, int causal) {
+  constexpr int S = tile_stride<T, DP>();
+  constexpr int KS = DP / 16;        // k steps of K Q^T and V dO^T
+  constexpr int NO = DP / 8;         // n tiles of dK, dV
+  constexpr int NS = kTile / 8;   // n tiles of S^T
+  constexpr int TILE = kTile * S;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Ks = reinterpret_cast<T*>(smem_raw);  // [64][S]
+  T* Vs = Ks + TILE;                        // [64][S]
+  T* Qs = Vs + TILE;                        // [2][64][S], then dK
+  T* Os = Qs + 2 * TILE;                    // dO [2][64][S], then dV
+  float* lse_s = reinterpret_cast<float*>(Os + 2 * TILE);  // [2][64]
+  float* delta_s = lse_s + 2 * kTile;                    // [2][64]
+
+  const int n_kt = (tk + kTile - 1) / kTile;
+  const int64_t bh = blockIdx.x / n_kt;
+  const int k0 = (int)(blockIdx.x % n_kt) * kTile;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int row = warp * 16 + lane / 4;  // this thread's keys: row, row + 8
+  const int kr[2] = {k0 + row, k0 + row + 8};
+  const T* qb = q + bh * tq * d;
+  const T* ob = dout + bh * tq * d;
+  const float* mb = mask ? mask + (bh / heads) * tk : nullptr;
+  // query tiles wholly before this key tile see none of its keys
+  const int q_begin = causal ? k0 : 0;
+  const int n_qt = q_begin < tq ? (tq - q_begin + kTile - 1) / kTile
+                                : 0;
+
+  auto stage_q = [&](int st, int q0) {
+    stage_rows<T, DP, kMmaThreads, VEC>(Qs + st * TILE, qb, q0, tq, d);
+    stage_rows<T, DP, kMmaThreads, VEC>(Os + st * TILE, ob, q0, tq, d);
+    for (int c = threadIdx.x; c < kTile; c += kMmaThreads) {
+      const int qi = q0 + c;
+      // the lse in log2 units, as the scores below
+      lse_s[st * kTile + c] = qi < tq ? lse[bh * tq + qi] * kLog2e : 0.f;
+      delta_s[st * kTile + c] = qi < tq ? delta[bh * tq + qi] : 0.f;
+    }
+  };
+  const float scale2 = scale * kLog2e;
+  stage_rows<T, DP, kMmaThreads, VEC>(Ks, k + bh * tk * d, k0, tk, d);
+  stage_rows<T, DP, kMmaThreads, VEC>(Vs, v + bh * tk * d, k0, tk, d);
+  if (n_qt > 0) stage_q(0, q_begin);
+  if constexpr (VEC) cp_async_commit();
+
+  bool keep_k[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    keep_k[h] = kr[h] < tk && (mb == nullptr || mb[kr[h]] > 0.f);
+  float dk_acc[NO][4], dv_acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+
+  for (int j = 0; j < n_qt; ++j) {
+    const int st = j & 1;
+    const int q0 = q_begin + j * kTile;
+    if constexpr (VEC) cp_async_wait<0>();
+    __syncthreads();  // tile j has landed; tile j - 1's stage is free
+    if (j + 1 < n_qt) {
+      stage_q(st ^ 1, q0 + kTile);
+      if constexpr (VEC) cp_async_commit();
+    }
+    const T* Qt = Qs + st * TILE;
+    const T* Ot = Os + st * TILE;
+    const float* ls = lse_s + st * kTile;
+    const float* dl = delta_s + st * kTile;
+
+    // S^T = K Q^T and dP^T = V dO^T: rows are keys, columns queries
+    float s[NS][4], dp[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t ka[4], va[4];
+      load_a<S>(ka, Ks, warp * 16, kk * 16, lane);
+      load_a<S>(va, Vs, warp * 16, kk * 16, lane);
+#pragma unroll
+      for (int n = 0; n < NS; n += 2) {
+        uint32_t r[4];
+        load_b_nk<S>(r, Qt, n, kk * 16, lane);
+        mma_16816(s[n], ka, r[0], r[1], T());
+        mma_16816(s[n + 1], ka, r[2], r[3], T());
+        load_b_nk<S>(r, Ot, n, kk * 16, lane);
+        mma_16816(dp[n], va, r[0], r[1], T());
+        mma_16816(dp[n + 1], va, r[2], r[3], T());
+      }
+    }
+
+    // P^T = exp(S^T scale - lse), masked; dS^T = P^T (dP^T - delta)
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+      const int c0 = n * 8 + (lane % 4) * 2;
+      const float2 l2 = *reinterpret_cast<const float2*>(ls + c0);
+      const float2 d2 = *reinterpret_cast<const float2*>(dl + c0);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qi = q0 + c0 + (e & 1);
+        const bool keep = keep_k[e / 2] && qi < tq &&
+                          (!causal || qi >= kr[e / 2]);
+        const float sv = keep ? s[n][e] * scale2 : kNegInf;
+        const float p = sv <= kNegInf * 0.5f
+                            ? 0.f
+                            : exp2f(sv - ((e & 1) ? l2.y : l2.x));
+        s[n][e] = p;
+        dp[n][e] = p * (dp[n][e] - ((e & 1) ? d2.y : d2.x));
+      }
+    }
+
+    // dV += P^T dO, P^T rounded to dO's type
+#pragma unroll
+    for (int kk = 0; kk < NS / 2; ++kk) {
+      const uint32_t pa[4] = {pack2(s[2 * kk][0], s[2 * kk][1], T()),
+                              pack2(s[2 * kk][2], s[2 * kk][3], T()),
+                              pack2(s[2 * kk + 1][0], s[2 * kk + 1][1], T()),
+                              pack2(s[2 * kk + 1][2], s[2 * kk + 1][3], T())};
+#pragma unroll
+      for (int n = 0; n < NO; n += 2) {
+        uint32_t r[4];
+        load_b_kn<S>(r, Ot, n, kk * 16, lane);
+        mma_16816(dv_acc[n], pa, r[0], r[1], T());
+        mma_16816(dv_acc[n + 1], pa, r[2], r[3], T());
+      }
+    }
+    // dK += (dS^T Q) scale, dS^T rounded to Q's type; the product of each
+    // query tile is scaled before it is added, as the JAX kernel does
+    uint32_t da[NS / 2][4];
+#pragma unroll
+    for (int kk = 0; kk < NS / 2; ++kk) {
+      da[kk][0] = pack2(dp[2 * kk][0], dp[2 * kk][1], T());
+      da[kk][1] = pack2(dp[2 * kk][2], dp[2 * kk][3], T());
+      da[kk][2] = pack2(dp[2 * kk + 1][0], dp[2 * kk + 1][1], T());
+      da[kk][3] = pack2(dp[2 * kk + 1][2], dp[2 * kk + 1][3], T());
+    }
+#pragma unroll
+    for (int n = 0; n < NO; n += 2) {
+      float part[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+      for (int kk = 0; kk < NS / 2; ++kk) {
+        uint32_t r[4];
+        load_b_kn<S>(r, Qt, n, kk * 16, lane);
+        mma_16816(part[0], da[kk], r[0], r[1], T());
+        mma_16816(part[1], da[kk], r[2], r[3], T());
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        dk_acc[n][e] += part[0][e] * scale;
+        dk_acc[n + 1][e] += part[1][e] * scale;
+      }
+    }
+  }
+
+  if constexpr (VEC) cp_async_wait<0>();  // no copy is left in flight
+  __syncthreads();  // every warp is past its reads of the last Q, dO tiles
+  stage_acc<T, DP, NO>(Qs, dk_acc, row, lane);
+  stage_acc<T, DP, NO>(Os, dv_acc, row, lane);
+  __syncthreads();
+  write_rows<T, DP, VEC>(dk + bh * tk * d, Qs, k0, tk, d);
+  write_rows<T, DP, VEC>(dv + bh * tk * d, Os, k0, tk, d);
+}
+
+// ===========================================================================
+// f32, d <= 128: SIMT FMAs in full f32, retiled against the shared-memory
+// bound
+// ===========================================================================
+// 256 threads as 16 x 16 over a 64 x 64 score tile: thread (ty, tx) owns
+// rows ty + 16 i and columns tx + 16 j (i, j < 4). Tiles lie in shared
+// memory as in device memory (d-contiguous rows, stride d + 4 floats),
+// so cp.async can stage them (it copies, it cannot transpose), and a
+// thread reads four d steps of a row at once with one 16-byte load: per
+// four d steps a thread makes 8 float4 loads (16 with dS's operands) for
+// 64 (128) FMAs, where the first version made one 4-byte load per 2 FMAs.
+// Each score is still one fmaf chain over d in order, and each output a
+// chain over keys (queries) in order, so the bits do not depend on the
+// tiling. P (and dS) go through shared memory once per tile ([row][col],
+// stride 68), and the P V (dS Q, P^T dO) loops read them four columns at
+// a time. Output columns of a thread: W neighbouring ones (4, or 2 at
+// d <= 32) at g * 16 W + tx W, g < DP / (16 W).
+constexpr int kF32Threads = 256;
+constexpr int kPS = kTile + 4;  // stride of the P and dS tiles
+
+template <int DP>
+struct F32Cols {
+  static constexpr int W = DP / 16 < 4 ? DP / 16 : 4;
+  static constexpr int N = DP / 16;  // columns a thread
+  static __device__ __forceinline__ int col(int tx, int c) {
+    return (c / W) * 16 * W + tx * W + c % W;
+  }
+};
+
+template <int W>
+__device__ __forceinline__ void load_cols(float* v, const float* p) {
+  if constexpr (W == 4) {
+    const float4 f = *reinterpret_cast<const float4*>(p);
+    v[0] = f.x;
+    v[1] = f.y;
+    v[2] = f.z;
+    v[3] = f.w;
+  } else {
+    const float2 f = *reinterpret_cast<const float2*>(p);
+    v[0] = f.x;
+    v[1] = f.y;
+  }
+}
+
+__device__ __forceinline__ float lane4(const float4& f, int u) {
+  return u == 0 ? f.x : u == 1 ? f.y : u == 2 ? f.z : f.w;
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// s += a . b over four d steps, in d order
+__device__ __forceinline__ float dot4(const float4& a, const float4& b,
+                                      float s) {
+  s = fmaf(a.x, b.x, s);
+  s = fmaf(a.y, b.y, s);
+  s = fmaf(a.z, b.z, s);
+  return fmaf(a.w, b.w, s);
+}
+
+// A thread's rows of a [64][DP] f32 result to rows row0 + ty + 16 i of a
+// [t, d] matrix: W-wide vector stores (VEC) or element by element.
+template <int DP, bool VEC>
+__device__ __forceinline__ void write_f32(float* __restrict__ dst,
+                                          const float (&acc)[4][DP / 16],
+                                          int row0, int t, int d, int ty,
+                                          int tx) {
+  using C = F32Cols<DP>;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = row0 + ty + 16 * i;
+    if (r >= t) continue;
+    float* row = dst + (int64_t)r * d;
+#pragma unroll
+    for (int c = 0; c < C::N; c += C::W) {
+      const int col = C::col(tx, c);
+      if (col >= d) continue;
+      if constexpr (VEC && C::W == 4) {
+        *reinterpret_cast<float4*>(row + col) = make_float4(
+            acc[i][c], acc[i][c + 1], acc[i][c + 2], acc[i][c + 3]);
+      } else if constexpr (VEC) {
+        *reinterpret_cast<float2*>(row + col) =
+            make_float2(acc[i][c], acc[i][c + 1]);
+      } else {
+#pragma unroll
+        for (int w = 0; w < C::W; ++w)
+          if (col + w < d) row[col + w] = acc[i][c + w];
+      }
+    }
+  }
+}
+
+// keep[c] = 1 where key k0 + c exists and is not masked, else 0
+__device__ __forceinline__ void stage_keep(float* keep,
+                                           const float* __restrict__ mb,
+                                           int k0, int tk) {
+  for (int c = threadIdx.x; c < kTile; c += kF32Threads) {
+    const int kj = k0 + c;
+    keep[c] = kj < tk && (mb == nullptr || mb[kj] > 0.f) ? 1.f : 0.f;
+  }
+}
+
+template <int DP>
+constexpr int fwd_f32_smem_bytes() {
+  return (5 * kTile * tile_stride<float, DP>() + kTile * kPS + 2 * kTile) *
+         (int)sizeof(float);
+}
+template <int DP>
+constexpr int dkv_f32_smem_bytes() {
+  return (4 * kTile * tile_stride<float, DP>() + 2 * kTile * kPS +
+          2 * kTile) *
+         (int)sizeof(float);
+}
+
+// ---------------------------------------------------------------------------
+// kernel 7, f32: one block per (b*h, 64 queries)
+// ---------------------------------------------------------------------------
+template <int DP, bool VEC>
+__global__ void __launch_bounds__(kF32Threads, DP <= 64 ? 2 : 1)
+flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ mask, float* __restrict__ out,
+                     float* __restrict__ lse, int heads, int tq, int tk,
+                     int d, float scale, int causal) {
+  using C = F32Cols<DP>;
+  constexpr int S = tile_stride<float, DP>();
+  constexpr int TILE = kTile * S;
+  extern __shared__ __align__(16) float fsm[];
+  float* Qs = fsm;                  // [64][S]
+  float* Ks = Qs + TILE;            // [2][64][S]
+  float* Vs = Ks + 2 * TILE;        // [2][64][S]
+  float* Ps = Vs + 2 * TILE;        // [64][kPS]
+  float* keep_s = Ps + kTile * kPS;  // [2][64]
+
+  const int n_qt = (tq + kTile - 1) / kTile;
+  const int64_t bh = blockIdx.x / n_qt;
+  const int q0 = (int)(blockIdx.x % n_qt) * kTile;
+  const int tx = threadIdx.x % kSide, ty = threadIdx.x / kSide;
+  const float* kb = k + bh * tk * d;
+  const float* vb = v + bh * tk * d;
+  const float* mb = mask ? mask + (bh / heads) * tk : nullptr;
+  const int k_end = causal ? min(tk, q0 + kTile) : tk;
+  const int n_kt = (k_end + kTile - 1) / kTile;
+
+  stage_rows<float, DP, kF32Threads, VEC>(Qs, q + bh * tq * d, q0, tq, d);
+  stage_rows<float, DP, kF32Threads, VEC>(Ks, kb, 0, tk, d);
+  stage_rows<float, DP, kF32Threads, VEC>(Vs, vb, 0, tk, d);
+  stage_keep(keep_s, mb, 0, tk);
+  if constexpr (VEC) cp_async_commit();
+
+  float m[4], l[4], acc[4][C::N];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < C::N; ++c) acc[i][c] = 0.f;
+  }
+
+  for (int j = 0; j < n_kt; ++j) {
+    const int st = j & 1;
+    const int k0 = j * kTile;
+    if constexpr (VEC) cp_async_wait<0>();
+    __syncthreads();  // tile j has landed; tile j - 1's stage and P are free
+    if (j + 1 < n_kt) {
+      stage_rows<float, DP, kF32Threads, VEC>(Ks + (st ^ 1) * TILE, kb,
+                                              k0 + kTile, tk, d);
+      stage_rows<float, DP, kF32Threads, VEC>(Vs + (st ^ 1) * TILE, vb,
+                                              k0 + kTile, tk, d);
+      stage_keep(keep_s + (st ^ 1) * kTile, mb, k0 + kTile, tk);
+      if constexpr (VEC) cp_async_commit();
+    }
+    const float* Kt = Ks + st * TILE;
+    const float* Vt = Vs + st * TILE;
+    const float* kp = keep_s + st * kTile;
+
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) s[i][jj] = 0.f;
+#pragma unroll
+    for (int dd = 0; dd < DP; dd += 4) {
+      float4 a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = ld4(Qs + (ty + 16 * i) * S + dd);
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) b[jj] = ld4(Kt + (tx + 16 * jj) * S + dd);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) s[i][jj] = dot4(a[i], b[jj], s[i][jj]);
+    }
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qi = q0 + ty + 16 * i;
+      float mx = m[i];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int c = tx + 16 * jj;
+        const bool keep = kp[c] > 0.f && (!causal || qi >= k0 + c);
+        s[i][jj] = keep ? s[i][jj] * scale : kNegInf;
+        mx = fmaxf(mx, s[i][jj]);
+      }
+      const float m_new = row_max16(mx);
+      const float corr = expf(m[i] - m_new);
+      float rs = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const float p =
+            s[i][jj] <= kNegInf * 0.5f ? 0.f : expf(s[i][jj] - m_new);
+        rs += p;
+        Ps[(ty + 16 * i) * kPS + tx + 16 * jj] = p;
+      }
+      l[i] = l[i] * corr + row_sum16(rs);
+      m[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < C::N; ++c) acc[i][c] *= corr;
+    }
+    __syncthreads();  // P is complete
+
+#pragma unroll
+    for (int kk = 0; kk < kTile; kk += 4) {
+      float4 p4[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) p4[i] = ld4(Ps + (ty + 16 * i) * kPS + kk);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        float vv[C::N];
+#pragma unroll
+        for (int c = 0; c < C::N; c += C::W)
+          load_cols<C::W>(vv + c, Vt + (kk + u) * S + C::col(tx, c));
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float p = lane4(p4[i], u);
+#pragma unroll
+          for (int c = 0; c < C::N; ++c) acc[i][c] = fmaf(p, vv[c], acc[i][c]);
+        }
+      }
+    }
+  }
+
+  float lc[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    lc[i] = fmaxf(l[i], 1e-30f);
+#pragma unroll
+    for (int c = 0; c < C::N; ++c) acc[i][c] /= lc[i];
+    const int qi = q0 + ty + 16 * i;
+    if (tx == 0 && qi < tq) lse[bh * tq + qi] = m[i] + logf(lc[i]);
+  }
+  write_f32<DP, VEC>(out + bh * tq * d, acc, q0, tq, d, ty, tx);
+}
+
+// ---------------------------------------------------------------------------
+// kernel 9, f32: one block per (b*h, 64 keys); thread (ty, tx) owns keys
+// ty + 16 i and queries tx + 16 j of each query tile. The Q and dO tiles
+// (with their lse and delta rows) have one buffer: at d <= 64 the block
+// then takes 105 KB of shared memory and 128 registers a thread, so two
+// blocks share an SM and one's loads overlap the other's FMAs. With a
+// second buffer (140 KB, one block an SM) the 12 sites of a BERT-base
+// step took 1.62 ms against 1.32 on one buffer (H100, chip_smoke.py).
+// ---------------------------------------------------------------------------
+template <int DP, bool VEC>
+__global__ void __launch_bounds__(kF32Threads, DP <= 64 ? 2 : 1)
+flash_bwd_dkv_f32_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         const float* __restrict__ mask,
+                         float* __restrict__ dk, float* __restrict__ dv,
+                         int heads, int tq, int tk, int d, float scale,
+                         int causal) {
+  using C = F32Cols<DP>;
+  constexpr int S = tile_stride<float, DP>();
+  constexpr int TILE = kTile * S;
+  extern __shared__ __align__(16) float fsm[];
+  float* Ks = fsm;                       // [64][S]
+  float* Vs = Ks + TILE;                 // [64][S]
+  float* Qs = Vs + TILE;                 // [64][S]
+  float* Os = Qs + TILE;                 // dO [64][S]
+  float* Pt = Os + TILE;                 // p^T [64][kPS]
+  float* Dt = Pt + kTile * kPS;          // ds^T [64][kPS]
+  float* lse_s = Dt + kTile * kPS;       // [64]
+  float* delta_s = lse_s + kTile;        // [64]
+
+  const int n_kt = (tk + kTile - 1) / kTile;
+  const int64_t bh = blockIdx.x / n_kt;
+  const int k0 = (int)(blockIdx.x % n_kt) * kTile;
+  const int tx = threadIdx.x % kSide, ty = threadIdx.x / kSide;
+  const float* qb = q + bh * tq * d;
+  const float* ob = dout + bh * tq * d;
+  const float* mb = mask ? mask + (bh / heads) * tk : nullptr;
+  // query tiles wholly before this key tile see none of its keys
+  const int q_begin = causal ? k0 : 0;
+  const int n_qt = q_begin < tq ? (tq - q_begin + kTile - 1) / kTile : 0;
+
+  auto stage_q = [&](int q0) {
+    stage_rows<float, DP, kF32Threads, VEC>(Qs, qb, q0, tq, d);
+    stage_rows<float, DP, kF32Threads, VEC>(Os, ob, q0, tq, d);
+    for (int c = threadIdx.x; c < kTile; c += kF32Threads) {
+      const int qi = q0 + c;
+      lse_s[c] = qi < tq ? lse[bh * tq + qi] : 0.f;
+      delta_s[c] = qi < tq ? delta[bh * tq + qi] : 0.f;
+    }
+  };
+  stage_rows<float, DP, kF32Threads, VEC>(Ks, k + bh * tk * d, k0, tk, d);
+  stage_rows<float, DP, kF32Threads, VEC>(Vs, v + bh * tk * d, k0, tk, d);
+  if (n_qt > 0) stage_q(q_begin);
+  if constexpr (VEC) cp_async_commit();
+
+  bool keep_k[4];
+  float dk_acc[4][C::N], dv_acc[4][C::N];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int kk = k0 + ty + 16 * i;
+    keep_k[i] = kk < tk && (mb == nullptr || mb[kk] > 0.f);
+#pragma unroll
+    for (int c = 0; c < C::N; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
+  }
+
+  for (int j = 0; j < n_qt; ++j) {
+    const int q0 = q_begin + j * kTile;
+    if constexpr (VEC) cp_async_wait<0>();
+    __syncthreads();  // tile j has landed
+
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) s[i][jj] = dp[i][jj] = 0.f;
+#pragma unroll 2
+    for (int dd = 0; dd < DP; dd += 4) {
+      float4 kr[4], vr[4], qc[4], oc[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        kr[i] = ld4(Ks + (ty + 16 * i) * S + dd);
+        vr[i] = ld4(Vs + (ty + 16 * i) * S + dd);
+      }
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        qc[jj] = ld4(Qs + (tx + 16 * jj) * S + dd);
+        oc[jj] = ld4(Os + (tx + 16 * jj) * S + dd);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          // q * k in the forward's operand order and d order
+          s[i][jj] = dot4(qc[jj], kr[i], s[i][jj]);
+          dp[i][jj] = dot4(oc[jj], vr[i], dp[i][jj]);
+        }
+    }
+
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int c = tx + 16 * jj;
+      const int qi = q0 + c;
+      const float lse_j = lse_s[c], delta_j = delta_s[c];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int kk = k0 + ty + 16 * i;
+        const bool keep = keep_k[i] && qi < tq && (!causal || qi >= kk);
+        const float sv = keep ? s[i][jj] * scale : kNegInf;
+        const float p = sv <= kNegInf * 0.5f ? 0.f : expf(sv - lse_j);
+        Pt[(ty + 16 * i) * kPS + c] = p;
+        Dt[(ty + 16 * i) * kPS + c] = p * (dp[i][jj] - delta_j);
+      }
+    }
+    __syncthreads();  // P^T and dS^T are complete
+
+    float part[4][C::N];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < C::N; ++c) part[i][c] = 0.f;
+#pragma unroll 2
+    for (int qq = 0; qq < kTile; qq += 4) {
+      float4 p4[4], g4[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        p4[i] = ld4(Pt + (ty + 16 * i) * kPS + qq);
+        g4[i] = ld4(Dt + (ty + 16 * i) * kPS + qq);
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        float ov[C::N], qv[C::N];
+#pragma unroll
+        for (int c = 0; c < C::N; c += C::W) {
+          load_cols<C::W>(ov + c, Os + (qq + u) * S + C::col(tx, c));
+          load_cols<C::W>(qv + c, Qs + (qq + u) * S + C::col(tx, c));
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float p = lane4(p4[i], u), g = lane4(g4[i], u);
+#pragma unroll
+          for (int c = 0; c < C::N; ++c) {
+            dv_acc[i][c] = fmaf(p, ov[c], dv_acc[i][c]);
+            part[i][c] = fmaf(g, qv[c], part[i][c]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < C::N; ++c) dk_acc[i][c] += part[i][c] * scale;
+    if (j + 1 < n_qt) {
+      __syncthreads();  // every thread is past its reads of this tile
+      stage_q(q0 + kTile);
+      if constexpr (VEC) cp_async_commit();
+    }
+  }
+
+  if constexpr (VEC) cp_async_wait<0>();  // no copy is left in flight
+  write_f32<DP, VEC>(dk + bh * tk * d, dk_acc, k0, tk, d, ty, tx);
+  write_f32<DP, VEC>(dv + bh * tk * d, dv_acc, k0, tk, d, ty, tx);
+}
+
 // ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
 enum class Pass { kFwd, kDq, kDkv };
+
+// The dynamic shared-memory opt-in above the 48 KB default, once per
+// kernel instantiation; made on the first launch, which is never inside
+// a graph capture in this package.
+template <typename K>
+cudaError_t opt_in(K kern, int smem, bool& configured) {
+  if (configured) return cudaSuccess;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess) configured = true;
+  return e;
+}
 
 template <Pass P, typename T, int DP, int BQ, int BK>
 int launch(const Args& a, cudaStream_t stream) {
@@ -576,29 +1515,17 @@ int launch(const Args& a, cudaStream_t stream) {
   const int64_t blocks = a.bh * tiles;
   if (blocks <= 0 || blocks > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  // one opt-in per instantiation, above the 48 KB default; made on the
-  // first launch, which is never inside a graph capture in this package
   static bool configured = false;
   if constexpr (P == Pass::kFwd) {
     auto kern = flash_fwd_kernel<T, DP, BQ, BK>;
-    if (!configured) {
-      cudaError_t e = cudaFuncSetAttribute(
-          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-      if (e != cudaSuccess) return (int)e;
-      configured = true;
-    }
+    if (cudaError_t e = opt_in(kern, smem, configured)) return (int)e;
     kern<<<(unsigned)blocks, kThreads, smem, stream>>>(
         static_cast<const T*>(a.q), static_cast<const T*>(a.k),
         static_cast<const T*>(a.v), a.mask, static_cast<T*>(a.out),
         a.lse_out, a.heads, a.tq, a.tk, a.d, a.scale, a.causal);
   } else if constexpr (P == Pass::kDq) {
     auto kern = flash_bwd_dq_kernel<T, DP, BQ, BK>;
-    if (!configured) {
-      cudaError_t e = cudaFuncSetAttribute(
-          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-      if (e != cudaSuccess) return (int)e;
-      configured = true;
-    }
+    if (cudaError_t e = opt_in(kern, smem, configured)) return (int)e;
     kern<<<(unsigned)blocks, kThreads, smem, stream>>>(
         static_cast<const T*>(a.q), static_cast<const T*>(a.k),
         static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
@@ -606,12 +1533,7 @@ int launch(const Args& a, cudaStream_t stream) {
         a.tk, a.d, a.scale, a.causal);
   } else {
     auto kern = flash_bwd_dkv_kernel<T, DP, BQ, BK>;
-    if (!configured) {
-      cudaError_t e = cudaFuncSetAttribute(
-          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-      if (e != cudaSuccess) return (int)e;
-      configured = true;
-    }
+    if (cudaError_t e = opt_in(kern, smem, configured)) return (int)e;
     kern<<<(unsigned)blocks, kThreads, smem, stream>>>(
         static_cast<const T*>(a.q), static_cast<const T*>(a.k),
         static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
@@ -622,13 +1544,105 @@ int launch(const Args& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// kernels 7 and 9 on tensor cores (16-bit inputs, d <= 128)
+template <Pass P, typename T, int DP, bool VEC>
+int launch_mma(const Args& a, cudaStream_t stream) {
+  const int tiles = P == Pass::kDkv ? (a.tk + kTile - 1) / kTile
+                                    : (a.tq + kTile - 1) / kTile;
+  const int64_t blocks = a.bh * tiles;
+  if (blocks <= 0 || blocks > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  static bool configured = false;
+  if constexpr (P == Pass::kFwd) {
+    constexpr int smem = fwd_mma_smem_bytes<T, DP>();
+    auto kern = flash_fwd_mma_kernel<T, DP, VEC>;
+    if (cudaError_t e = opt_in(kern, smem, configured)) return (int)e;
+    kern<<<(unsigned)blocks, kMmaThreads, smem, stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+        static_cast<const T*>(a.v), a.mask, static_cast<T*>(a.out),
+        a.lse_out, a.heads, a.tq, a.tk, a.d, a.scale, a.causal);
+  } else {
+    static_assert(P == Pass::kDkv, "dq keeps its SIMT body");
+    constexpr int smem = dkv_mma_smem_bytes<T, DP>();
+    auto kern = flash_bwd_dkv_mma_kernel<T, DP, VEC>;
+    if (cudaError_t e = opt_in(kern, smem, configured)) return (int)e;
+    kern<<<(unsigned)blocks, kMmaThreads, smem, stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+        static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+        a.lse_in, a.delta, a.mask, static_cast<T*>(a.out),
+        static_cast<T*>(a.out2), a.heads, a.tq, a.tk, a.d, a.scale,
+        a.causal);
+  }
+  return (int)cudaGetLastError();
+}
+
+// kernels 7 and 9 on f32 inputs, d <= 128
+template <Pass P, int DP, bool VEC>
+int launch_f32(const Args& a, cudaStream_t stream) {
+  const int tiles = P == Pass::kDkv ? (a.tk + kTile - 1) / kTile
+                                    : (a.tq + kTile - 1) / kTile;
+  const int64_t blocks = a.bh * tiles;
+  if (blocks <= 0 || blocks > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  static bool configured = false;
+  const float* q = static_cast<const float*>(a.q);
+  const float* k = static_cast<const float*>(a.k);
+  const float* v = static_cast<const float*>(a.v);
+  if constexpr (P == Pass::kFwd) {
+    constexpr int smem = fwd_f32_smem_bytes<DP>();
+    auto kern = flash_fwd_f32_kernel<DP, VEC>;
+    if (cudaError_t e = opt_in(kern, smem, configured)) return (int)e;
+    kern<<<(unsigned)blocks, kF32Threads, smem, stream>>>(
+        q, k, v, a.mask, static_cast<float*>(a.out), a.lse_out, a.heads,
+        a.tq, a.tk, a.d, a.scale, a.causal);
+  } else {
+    static_assert(P == Pass::kDkv, "dq keeps its first body");
+    constexpr int smem = dkv_f32_smem_bytes<DP>();
+    auto kern = flash_bwd_dkv_f32_kernel<DP, VEC>;
+    if (cudaError_t e = opt_in(kern, smem, configured)) return (int)e;
+    kern<<<(unsigned)blocks, kF32Threads, smem, stream>>>(
+        q, k, v, static_cast<const float*>(a.dout), a.lse_in, a.delta,
+        a.mask, static_cast<float*>(a.out), static_cast<float*>(a.out2),
+        a.heads, a.tq, a.tk, a.d, a.scale, a.causal);
+  }
+  return (int)cudaGetLastError();
+}
+
+// 16-byte staging needs d to be a whole number of 16-byte chunks and
+// every tile pointer 16-byte aligned
+template <typename T>
+bool vec_ok(const Args& a) {
+  const void* ptrs[] = {a.q, a.k, a.v, a.dout, a.out, a.out2};
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
+  return a.d % (16 / (int)sizeof(T)) == 0;
+}
+
+template <Pass P, typename T, int DP>
+int redesigned(const Args& a, cudaStream_t s) {
+  if constexpr (std::is_same<T, float>::value)
+    return vec_ok<T>(a) ? launch_f32<P, DP, true>(a, s)
+                        : launch_f32<P, DP, false>(a, s);
+  else
+    return vec_ok<T>(a) ? launch_mma<P, T, DP, true>(a, s)
+                        : launch_mma<P, T, DP, false>(a, s);
+}
+
 // head dim -> the padded width in shared memory and the tile sizes
 template <Pass P, typename T>
 int by_width(const Args& a, cudaStream_t s) {
-  if (a.d <= 32) return launch<P, T, 32, 64, 64>(a, s);
-  if (a.d <= 64) return launch<P, T, 64, 64, 64>(a, s);
-  if (a.d <= 128) return launch<P, T, 128, 64, 64>(a, s);
-  if (a.d <= 256) return launch<P, T, 256, 32, 32>(a, s);
+  if constexpr (P != Pass::kDq) {
+    if (a.d <= 32) return redesigned<P, T, 32>(a, s);
+    if (a.d <= 64) return redesigned<P, T, 64>(a, s);
+    if (a.d <= 128) return redesigned<P, T, 128>(a, s);
+    // d in (128, 256]: the first version's SIMT body, for now
+    if (a.d <= 256) return launch<P, T, 256, 32, 32>(a, s);
+  } else {
+    if (a.d <= 32) return launch<P, T, 32, 64, 64>(a, s);
+    if (a.d <= 64) return launch<P, T, 64, 64, 64>(a, s);
+    if (a.d <= 128) return launch<P, T, 128, 64, 64>(a, s);
+    if (a.d <= 256) return launch<P, T, 256, 32, 32>(a, s);
+  }
   return (int)cudaErrorInvalidValue;
 }
 

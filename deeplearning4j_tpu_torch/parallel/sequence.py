@@ -14,7 +14,10 @@ beside it:
   ``dk = dsᵀ·q / √d``.
 
 ``δ = rowsum(dO·O) − g_lse`` is plain torch ops between the forward and
-the two backward kernels, as it is plain jnp in the JAX package.
+the two backward kernels, as it is plain jnp in the JAX package. For
+bf16 and f16 inputs (head dim up to 128) the forward and dk/dv run on
+tensor cores with f32 sums; f32 inputs stay in full f32 (the source's
+header has the design).
 
 Tensors are ``[b, h, t, d]`` with an optional ``[b, tk]`` key mask (a key
 is kept where ``mask > 0``). The scale is always ``1/√d``; callers with

@@ -19,8 +19,10 @@ with the ``prefill`` / ``decode_step`` contract (``DecoderLM``) also
 gets a :class:`~deeplearning4j_tpu_torch.serving.generative.DecodeEngine`
 over a paged KV pool on the model's device: ``generate=`` configures it
 (``kv_blocks``, ``kv_block_size``, ``prompt_buckets``, ``decode_buckets``,
-``max_seq_len``, ``rng_seed``, ``kv_dtype``, the last
-defaulting from ``DL4J_TORCH_KV_DTYPE``). Dense mode only: the JAX
+``max_seq_len``, ``rng_seed``, ``paged`` (``True``/``False`` forces the
+paged or dense decode attention, ``None`` leaves it to the ladder), and
+``kv_dtype``, the last defaulting from ``DL4J_TORCH_KV_DTYPE``). Dense
+mode only: the JAX
 package's residency modes and ``param_dtype`` are not ported.
 """
 from __future__ import annotations
@@ -169,7 +171,8 @@ class ServingBatcher(ParallelInference):
             m, m.params, pool, name=self.name,
             prompt_buckets=cfg.get("prompt_buckets", (16, 64)),
             decode_buckets=cfg.get("decode_buckets", (4, 8)),
-            max_seq_len=cfg.get("max_seq_len"), guard=self.guard, rng_seed=int(cfg.get("rng_seed", 0)))
+            max_seq_len=cfg.get("max_seq_len"), paged=cfg.get("paged"),
+            guard=self.guard, rng_seed=int(cfg.get("rng_seed", 0)))
         return self.engine
 
     def warmup_generate(self) -> float:

@@ -190,9 +190,12 @@ class DecodeEngine:
 
     ``model`` exposes the :class:`~deeplearning4j_tpu_torch.models.decoder.
     DecoderLM` contract (``prefill``, ``decode_step``, ``conf``);
-    ``params`` live on the pool's device. The ``paged_attention`` ladder
-    picks the decode attention route at every step (kernel 10 on the
-    card unless ``DL4J_TORCH_PAGED_ATTENTION=0``). ``warmup()`` runs every prompt bucket's prefill and
+    ``params`` live on the pool's device. ``paged=None`` lets the
+    ``paged_attention`` ladder pick the decode attention route at every
+    step (kernel 10 on the card unless ``DL4J_TORCH_PAGED_ATTENTION=0``);
+    ``True`` or ``False`` forces the paged or the dense route, recorded
+    on the ladder's counter as forced or killed. ``warmup()`` runs every
+    prompt bucket's prefill and
     every decode bucket's step once, so the guard's count freezes before
     the first real request."""
 
@@ -202,8 +205,9 @@ class DecodeEngine:
                  decode_buckets: Sequence[int] = (4, 8),
                  max_seq_len: Optional[int] = None,
                  guard: Optional[RetraceGuard] = None,
-                 rng_seed: int = 0):
+                 rng_seed: int = 0, paged: Optional[bool] = None):
         self.model = model
+        self.paged = paged
         self.params = params
         self.pool = pool
         self.device = pool.device
@@ -239,8 +243,11 @@ class DecodeEngine:
 
     # -- the device work ---------------------------------------------------
     def _paged_now(self, batch: int) -> bool:
+        override = None if self.paged is None else bool(self.paged)
         backend, _ = select_paged_backend(batch, self.max_blocks,
-                                          device=self.device)
+                                          device=self.device,
+                                          override=override,
+                                          use_env_override=override is None)
         return backend == "paged"
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:

@@ -313,9 +313,12 @@ class ModelSerializer:
         return net
 
     @staticmethod
-    def write_model(model, path):
-        """Write ``model`` (a ComputationGraph) as a zip the JAX package
-        restores."""
+    def write_model(model, path, save_updater: bool = True):
+        """Write ``model`` (a ComputationGraph or MultiLayerNetwork) as a
+        zip the JAX package restores. With ``save_updater`` (the default,
+        as in the reference) the updater state goes into
+        ``updaterState.npz`` in the reference's layout, so training
+        resumes where it stopped."""
         path = Path(path)
         path.parent.mkdir(parents=True, exist_ok=True)
         states = {f"{k}/{n}": t.detach().cpu().numpy()
@@ -326,6 +329,9 @@ class ModelSerializer:
             _write_npz(zf, COEFFICIENTS_ENTRY,
                        params_to_jax(model.params, model.conf))
             _write_npz(zf, STATE_ENTRY, states)
+            if save_updater:
+                _write_npz(zf, UPDATER_ENTRY, updater_state_to_jax(
+                    model.updater_states, model.conf))
             zf.writestr(META_ENTRY, json.dumps({
                 "model_class": type(model).__name__,
                 "iteration_count": model.iteration_count,

@@ -636,3 +636,37 @@ class TestChunkedHttpUtil:
         finally:
             httpd.shutdown()
             httpd.server_close()
+
+
+@pytest.mark.parametrize("paged,decision", [(True, "forced"),
+                                            (False, "killed")])
+def test_generate_config_paged_forces_the_decode_route(paged, decision):
+    """``generate={"paged": ...}`` reaches the engine, as the reference's
+    batcher passes it: the ladder records the route that was asked for
+    at every decode step (forced: the paged route, here the kernel's
+    plain version; killed: the dense gather), and the served greedy
+    tokens equal the dense full re-forward either way."""
+    from deeplearning4j_tpu_torch.ops import kernel_select
+    before = kernel_select.decisions("paged_attention")
+    reg, ver, srv = _serve_generative(paged=paged)
+    try:
+        conn, resp = _gen_request(
+            srv.port, {"prompt": [5, 9, 2, 7], "max_tokens": 6})
+        assert resp.status == 200
+        toks = [r["token"] for r in (json.loads(ln) for ln in
+                                     resp.read().decode().strip()
+                                     .splitlines())
+                if "token" in r]
+        conn.close()
+        engine = ver.batcher.engine
+        assert engine.paged is paged
+        assert toks == ver.model.reference_decode(
+            engine.params, np.array([5, 9, 2, 7]), 6)
+        after = kernel_select.decisions("paged_attention")
+        grew = {d for d in after if after[d] != before.get(d, 0)}
+        assert grew == {decision}
+        assert after[decision] - before.get(decision, 0) == \
+            engine.decode_steps
+    finally:
+        srv.stop()
+        reg.shutdown()

@@ -253,7 +253,12 @@ FLASH_TOL = {"float32": ((2e-5, 2e-5), (2e-4, 2e-5)),
 FLASH_SHAPES = [  # b, h, tq, tk, d, causal: every padded width 32..256
     (2, 3, 37, 37, 24, False), (2, 2, 70, 45, 32, False),
     (2, 2, 64, 64, 64, True), (2, 2, 50, 77, 128, True),
-    (2, 2, 33, 33, 200, False), (4, 12, 128, 128, 64, False)]
+    (2, 2, 33, 33, 200, False), (4, 12, 128, 128, 64, False),
+    # several tiles each way at d = 128 (the f32 dk/dv kernel's single-
+    # buffered width), and widths off the 16-byte chunk (d = 60 in 16
+    # bit, d = 30 in every dtype), which stage element by element
+    (2, 2, 130, 200, 128, False), (2, 2, 150, 100, 60, True),
+    (2, 3, 70, 70, 30, False)]
 
 
 def _flash_inputs(b, h, tq, tk, d, dtype, g):
