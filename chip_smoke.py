@@ -52,7 +52,9 @@ Phases, each of which fails the run (exit 1) when its check fails:
    against their plain versions at BERT-base's sites (batch 32, 12
    heads of 64; t=128 with padded key masks and one fully masked
    sequence, t=512), two causal cases (t=256, and t=512 with padded
-   masks) and an odd one (t=200, d=32), f32, bf16 and f16: within the
+   masks), an odd one (t=200, d=32) and two causal ones with padded
+   masks over several tiles (tq=200 > tk=130 at d=64; t=190 at d=96),
+   f32, bf16 and f16: within the
    reference's bars, bitwise across two launches, fully masked rows
    exactly 0, no NaN; then each kernel's time over the 12 sites of a
    step (CUDA-graph replay) in each dtype beside its bound, its plain
@@ -69,9 +71,11 @@ Phases, each of which fails the run (exit 1) when its check fails:
 11. BERT pretraining: batch 32, t=128, 20 predictions a sequence, NSP,
     hidden dropout 0.1, attention dropout 0, Adam(1e-4), 10 ``fit_batch``
     steps on one seeded batch (12 launches each of kernels 7, 8, 9 a
-    step; the loss falls), then 3 classifier fine-tuning steps; card
-    against CPU at 2 layers (forward, and one SGD step norm-wise against
-    a float64 step);
+    step; the loss falls), the same 10 steps from the same weights
+    with ``compute_dtype="bfloat16"`` (the same checks), each step timed
+    and profiled with kernels 8 + 9's share of the busy time, then 3
+    classifier fine-tuning steps; card against CPU at 2 layers (forward,
+    and one SGD step norm-wise against a float64 step);
 12. paged kernel: paged decode attention (kernel 10) against its plain
     version at GPT-2-small's decode sites (batch 8 and 32, 12 heads of
     64, blocks of 16, a 64-block table; lengths 1..1024, dead slots, a
@@ -1321,7 +1325,11 @@ def phase_flash_kernels(torch) -> dict:
               (BATCH, BERT_HEADS, 512, 512, HEAD_DIM, False, "padded"),
               (4, BERT_HEADS, 256, 256, HEAD_DIM, True, "none"),
               (4, BERT_HEADS, 512, 512, HEAD_DIM, True, "padded"),
-              (4, 4, 200, 200, 32, False, "padded")]
+              (4, 4, 200, 200, 32, False, "padded"),
+              # several query and key tiles with tq > tk, and d = 96
+              # (padded to 128 inside the kernels), both causal
+              (2, 2, 200, 130, HEAD_DIM, True, "padded"),
+              (2, 2, 190, 190, 96, True, "padded")]
     for shape in shapes:
         for dt in FLASH_DTYPES:
             _flash_check(torch, sq, *shape[:5], getattr(torch, dt),
@@ -1602,7 +1610,9 @@ def phase_bert_train(torch, label: str, device: str = "cuda", conf=None,
     """BERT-base pretraining, phase-1 recipe: t=128, 20 predictions a
     sequence, NSP, hidden dropout 0.1, attention dropout 0 (the route
     through the kernels), Adam(1e-4); ``steps`` fit_batch calls on one
-    seeded batch, then 3 classifier fine-tuning steps."""
+    seeded batch in f32, then the same from the same weights and batch
+    with ``compute_dtype="bfloat16"``, then 3 classifier fine-tuning
+    steps of the f32 model."""
     import numpy as np
 
     from deeplearning4j_tpu_torch.learning.updaters import Adam
@@ -1613,38 +1623,54 @@ def phase_bert_train(torch, label: str, device: str = "cuda", conf=None,
         attention_probs_dropout_prob=0.0)
     on_card = device == "cuda"
     L = conf.num_hidden_layers
-    g = torch.Generator().manual_seed(41)
-    bert = Bert(conf, Adam(1e-4), seed=41).init(device, generator=g)
-    b = bert_batch(torch, g, batch, 128, conf.vocab_size, device)
-    np.random.seed(41)            # fit_batch seeds each step's generator
 
-    # ---- the main path: counts to 0, ten steps, counts read ----
-    _zero_counts()
-    losses, ms = [], []
-    for _ in range(steps):
-        _sync(torch, device)
-        t0 = time.perf_counter()
-        losses.append(bert.fit_batch(b))
-        ms.append((time.perf_counter() - t0) * 1e3)
-    launches = _flash_counts()
-    print(f"[bert-train] losses {[round(v, 5) for v in losses]}; step ms "
-          f"{[round(m, 3) for m in ms]}; launches {launches}")
-    check(all(np.isfinite(losses)), f"BERT loss not finite: {losses}")
-    check(losses[-1] < losses[0], f"BERT loss did not fall: {losses}")
-    for k in FLASH_KERNELS:
-        check(launches[k] == L * steps * on_card,
-              f"{k}: {launches[k]} launches in {steps} steps, expected "
-              f"{L} a step")
-    step_ms = float(np.median(ms[1:]))
-    print(f"[bert-train] batch-{batch} t=128 f32 step {step_ms:.3f} ms "
-          f"(median of steps 2-{steps}) = {batch * 1e3 / step_ms:.1f} "
-          f"sequences/s [{label}]")
-    result = {"losses": losses, "step_ms": ms, "median_step_ms": step_ms,
-              "seq_per_s": batch * 1e3 / step_ms, "launches": launches}
-    if on_card:
-        result["profile"] = profile_device(
-            torch, lambda: bert.fit_batch(b), step_ms,
-            f"batch-{batch} t=128 BERT-base train step")
+    def pretrain(dtype: str):
+        g = torch.Generator().manual_seed(41)
+        bert = Bert(dataclasses.replace(conf, compute_dtype=dtype),
+                    Adam(1e-4), seed=41).init(device, generator=g)
+        b = bert_batch(torch, g, batch, 128, conf.vocab_size, device)
+        np.random.seed(41)        # fit_batch seeds each step's generator
+
+        # ---- the main path: counts to 0, ten steps, counts read ----
+        _zero_counts()
+        losses, ms = [], []
+        for _ in range(steps):
+            _sync(torch, device)
+            t0 = time.perf_counter()
+            losses.append(bert.fit_batch(b))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        launches = _flash_counts()
+        print(f"[bert-train] {dtype} losses {[round(v, 5) for v in losses]};"
+              f" step ms {[round(m, 3) for m in ms]}; launches {launches}")
+        check(all(np.isfinite(losses)),
+              f"BERT {dtype} loss not finite: {losses}")
+        check(losses[-1] < losses[0], f"BERT {dtype} loss did not fall: "
+                                      f"{losses}")
+        for k in FLASH_KERNELS:
+            check(launches[k] == L * steps * on_card,
+                  f"{dtype} {k}: {launches[k]} launches in {steps} steps, "
+                  f"expected {L} a step")
+        step_ms = float(np.median(ms[1:]))
+        print(f"[bert-train] batch-{batch} t=128 {dtype} step {step_ms:.3f} "
+              f"ms (median of steps 2-{steps}) = "
+              f"{batch * 1e3 / step_ms:.1f} sequences/s [{label}]")
+        res = {"losses": losses, "step_ms": ms, "median_step_ms": step_ms,
+               "seq_per_s": batch * 1e3 / step_ms, "launches": launches}
+        if on_card:
+            prof = profile_device(
+                torch, lambda: bert.fit_batch(b), step_ms,
+                f"batch-{batch} t=128 {dtype} BERT-base train step",
+                shares=("flash_bwd_dq", "flash_bwd_dkv"))
+            res["profile"] = prof
+            if prof:
+                k89 = sum(v["share_of_busy"]
+                          for v in prof["shares"].values())
+                print(f"[bert-train] {dtype} step: kernels 8 + 9 "
+                      f"{k89:.4f} of busy [{label}]")
+        return bert, b, res
+
+    bert, b, result = pretrain("float32")
+    result["bfloat16"] = pretrain("bfloat16")[2]
 
     cls = BertForSequenceClassification(bert, 2, Adam(2e-5), seed=42)
     cb = {"input_ids": b["input_ids"], "token_type_ids":
@@ -2627,7 +2653,8 @@ def main() -> int:
                              tr["launches"]),
              "bn_bwd_dx": ("training ResNet-50, 10 steps", tr["launches"])}
     for name in FLASH_KERNELS:
-        paths[name] = ("training BERT-base, 10 steps", bt["launches"])
+        paths[name] = ("training BERT-base, 10 steps, f32",
+                       bt["launches"])
     paths["matmul_bias_act"] = (
         f"serving SqueezeNet, {sq['forwards']} forwards (17 / forward)",
         sq["launches"])
@@ -2667,6 +2694,8 @@ def main() -> int:
                 extra["library_covers"] = t["library_covers"]
                 extra["sdpa_fwd_bwd_ms"] = ft["float32_t128"][
                     "sdpa_fwd_bwd_ms"]
+            extra["launches_bf16_training"] = \
+                bt["bfloat16"]["launches"][k.name]
         elif k.name == "paged_decode":
             pt = pk["timing"]
             t = pt["float32_L512"]
@@ -2730,7 +2759,8 @@ def main() -> int:
           f"({tr['img_per_s']:.1f} img/s), LeNet-5 step "
           f"{ln['median_step_ms']:.3f} ms, BERT-base train step "
           f"{bt['median_step_ms']:.3f} ms ({bt['seq_per_s']:.1f} "
-          f"sequences/s), forward t=128 {bs['f32_t128_ms'][1]:.3f} ms, "
+          f"sequences/s), bf16 {bt['bfloat16']['median_step_ms']:.3f} ms, "
+          f"forward t=128 {bs['f32_t128_ms'][1]:.3f} ms, "
           f"t=512 f32 {bs['f32_t512_ms'][1]:.3f} ms, bf16 "
           f"{bs['bf16_t512_ms'][1]:.3f} ms [{label}]")
     print(f"[done] SqueezeNet serving: batch-32 f32 forward "

@@ -38,22 +38,22 @@
 // (67 TFLOP/s over 3.35 TB/s), and 256 a byte in bf16, below its 295 at
 // the tensor cores' 989 TFLOP/s. So the paths differ by input type:
 //
-//   * bf16 / f16, d <= 128, forward and dk/dv: tensor cores (mma.sync
-//     m16n8k16, f32 accumulation; products of 16-bit inputs are exact),
-//     FlashAttention-2's split of 4 warps x 16 rows, K/V (Q/dO) tiles of
-//     64 through a two-stage cp.async ring, scores and gradients kept in
-//     the accumulator fragments, P and dS repacked to A fragments in
-//     registers (flash_fwd_mma_kernel, flash_bwd_dkv_mma_kernel);
-//   * f32, d <= 128, forward and dk/dv: full f32 FMAs (no TF32), 256
+//   * bf16 / f16, d <= 128, forward, dq and dk/dv: tensor cores
+//     (mma.sync m16n8k16, f32 accumulation; products of 16-bit inputs are
+//     exact), FlashAttention-2's split of 4 warps x 16 rows, K/V (Q/dO)
+//     tiles of 64 through a two-stage cp.async ring, scores and gradients
+//     kept in the accumulator fragments, P and dS repacked to A fragments
+//     in registers (flash_fwd_mma_kernel, flash_bwd_dq_mma_kernel,
+//     flash_bwd_dkv_mma_kernel);
+//   * f32, d <= 128, forward, dq and dk/dv: full f32 FMAs (no TF32), 256
 //     threads each owning a 4 x 4 patch of the score tile, every operand
 //     read four d steps at a time by 16-byte shared loads from tiles
 //     staged by cp.async (double-buffered in the forward; one buffer and
-//     two blocks an SM in dk/dv) (flash_fwd_f32_kernel,
-//     flash_bwd_dkv_f32_kernel);
-//   * dq at every width, and the forward and dk/dv at d in (128, 256]:
-//     the first version's SIMT body (f32 FMAs for every type, one 4-byte
-//     shared load per 2 FMAs, tiles reloaded on one stage): left for a
-//     later redesign.
+//     two blocks an SM in dq and dk/dv) (flash_fwd_f32_kernel,
+//     flash_bwd_dq_f32_kernel, flash_bwd_dkv_f32_kernel);
+//   * all three at d in (128, 256]: the first version's SIMT bodies (f32
+//     FMAs for every type, one 4-byte shared load per 2 FMAs, tiles
+//     reloaded on one stage): left for a later redesign.
 //
 // Every path keeps the semantics above, and each output is written once
 // after a fixed sequence of f32 operations (no split over the reduction,
@@ -176,8 +176,7 @@ struct Args {
 };
 
 // ---------------------------------------------------------------------------
-// The first version's SIMT bodies: kernel 8 at every width, kernels 7 and
-// 9 at d in (128, 256].
+// The first version's SIMT bodies: kernels 7, 8 and 9 at d in (128, 256].
 // ---------------------------------------------------------------------------
 // kernel 7: forward
 // ---------------------------------------------------------------------------
@@ -590,8 +589,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // bf16 / f16, d <= 128: tensor cores (mma.sync m16n8k16, f32 accumulation)
 // ===========================================================================
 // FlashAttention-2's split: a block of 4 warps owns 64 rows (queries in
-// kernel 7, keys in kernel 9), each warp 16 of them, and walks the other
-// sequence in tiles of 64. Tiles are [64][DP + 8] in shared memory as
+// kernels 7 and 8, keys in kernel 9), each warp 16 of them, and walks the
+// other sequence in tiles of 64. Tiles are [64][DP + 8] in shared memory as
 // they lie in device memory (d-contiguous rows, padded so the 8 row
 // addresses of an ldmatrix fall in distinct banks), loaded through a
 // two-stage cp.async ring: the next tile lands while this one is
@@ -719,6 +718,10 @@ template <typename T, int DP>
 constexpr int dkv_mma_smem_bytes() {
   return 6 * kTile * tile_stride<T, DP>() * (int)sizeof(T) +
          4 * kTile * (int)sizeof(float);
+}
+template <typename T, int DP>
+constexpr int dq_mma_smem_bytes() {
+  return 6 * kTile * tile_stride<T, DP>() * (int)sizeof(T);
 }
 
 // ---------------------------------------------------------------------------
@@ -1064,6 +1067,158 @@ flash_bwd_dkv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   write_rows<T, DP, VEC>(dv + bh * tk * d, Os, k0, tk, d);
 }
 
+// ---------------------------------------------------------------------------
+// kernel 8, 16-bit: one block per (b*h, 64 queries), the mirror of kernel
+// 9: Q and dO are staged once, K and V stream through the two-stage ring,
+// and each warp's 16 query rows of S, dP and dS stay in its accumulators.
+// Q and dO are read as A fragments from their shared tiles at each use.
+// ---------------------------------------------------------------------------
+template <typename T, int DP, bool VEC>
+__global__ void __launch_bounds__(kMmaThreads, DP <= 64 ? 3 : 1)
+flash_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const T* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        const float* __restrict__ mask, T* __restrict__ dq,
+                        int heads, int tq, int tk, int d, float scale,
+                        int causal) {
+  constexpr int S = tile_stride<T, DP>();
+  constexpr int KS = DP / 16;        // k steps of Q K^T and dO V^T
+  constexpr int NO = DP / 8;         // n tiles of dQ
+  constexpr int NS = kTile / 8;      // n tiles of S
+  constexpr int TILE = kTile * S;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Qs = reinterpret_cast<T*>(smem_raw);  // [64][S], then dQ
+  T* Os = Qs + TILE;                        // dO [64][S]
+  T* Ks = Os + TILE;                        // [2][64][S]
+  T* Vs = Ks + 2 * TILE;                    // [2][64][S]
+
+  const int n_qt = (tq + kTile - 1) / kTile;
+  const int64_t bh = blockIdx.x / n_qt;
+  const int q0 = (int)(blockIdx.x % n_qt) * kTile;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int row = warp * 16 + lane / 4;  // this thread's rows: row, row + 8
+  const int qi[2] = {q0 + row, q0 + row + 8};
+  const T* kb = k + bh * tk * d;
+  const T* vb = v + bh * tk * d;
+  const float* mb = mask ? mask + (bh / heads) * tk : nullptr;
+  const int k_end = causal ? min(tk, q0 + kTile) : tk;
+  const int n_kt = (k_end + kTile - 1) / kTile;
+
+  stage_rows<T, DP, kMmaThreads, VEC>(Qs, q + bh * tq * d, q0, tq, d);
+  stage_rows<T, DP, kMmaThreads, VEC>(Os, dout + bh * tq * d, q0, tq, d);
+  stage_rows<T, DP, kMmaThreads, VEC>(Ks, kb, 0, tk, d);
+  stage_rows<T, DP, kMmaThreads, VEC>(Vs, vb, 0, tk, d);
+  if constexpr (VEC) cp_async_commit();
+
+  // the rows' lse in log2 units, as the scores below, and their delta
+  const float scale2 = scale * kLog2e;
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    lse2[h] = qi[h] < tq ? lse[bh * tq + qi[h]] * kLog2e : 0.f;
+    dl[h] = qi[h] < tq ? delta[bh * tq + qi[h]] : 0.f;
+  }
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int j = 0; j < n_kt; ++j) {
+    const int st = j & 1;
+    const int k0 = j * kTile;
+    if constexpr (VEC) cp_async_wait<0>();
+    __syncthreads();  // tile j has landed; tile j - 1's stage is free
+    if (j + 1 < n_kt) {
+      stage_rows<T, DP, kMmaThreads, VEC>(Ks + (st ^ 1) * TILE, kb,
+                                          k0 + kTile, tk, d);
+      stage_rows<T, DP, kMmaThreads, VEC>(Vs + (st ^ 1) * TILE, vb,
+                                          k0 + kTile, tk, d);
+      if constexpr (VEC) cp_async_commit();
+    }
+    const T* Kt = Ks + st * TILE;
+    const T* Vt = Vs + st * TILE;
+    // the tile's kept keys as 64 bits in every lane, one ballot a half
+    uint32_t keep_bits[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int kj = k0 + 32 * h + lane;
+      keep_bits[h] = __ballot_sync(
+          0xffffffffu, kj < tk && (mb == nullptr || mb[kj] > 0.f));
+    }
+
+    // S = Q K^T and dP = dO V^T: rows are queries, columns keys
+    float s[NS][4], dp[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t qa[4], oa[4];
+      load_a<S>(qa, Qs, warp * 16, kk * 16, lane);
+      load_a<S>(oa, Os, warp * 16, kk * 16, lane);
+#pragma unroll
+      for (int n = 0; n < NS; n += 2) {
+        uint32_t r[4];
+        load_b_nk<S>(r, Kt, n, kk * 16, lane);
+        mma_16816(s[n], qa, r[0], r[1], T());
+        mma_16816(s[n + 1], qa, r[2], r[3], T());
+        load_b_nk<S>(r, Vt, n, kk * 16, lane);
+        mma_16816(dp[n], oa, r[0], r[1], T());
+        mma_16816(dp[n + 1], oa, r[2], r[3], T());
+      }
+    }
+
+    // P = exp(S scale - lse), masked; dS = P (dP - delta), in dp
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = n * 8 + (lane % 4) * 2 + (e & 1);
+        const bool keep = ((keep_bits[n / 4] >> (c % 32)) & 1u) &&
+                          (!causal || qi[e / 2] >= k0 + c);
+        const float sv = keep ? s[n][e] * scale2 : kNegInf;
+        const float p =
+            sv <= kNegInf * 0.5f ? 0.f : exp2f(sv - lse2[e / 2]);
+        dp[n][e] = p * (dp[n][e] - dl[e / 2]);
+      }
+
+    // dQ += (dS K) scale, dS rounded to K's type; the product of each key
+    // tile is scaled before it is added, as the JAX kernel does
+    uint32_t da[NS / 2][4];
+#pragma unroll
+    for (int kk = 0; kk < NS / 2; ++kk) {
+      da[kk][0] = pack2(dp[2 * kk][0], dp[2 * kk][1], T());
+      da[kk][1] = pack2(dp[2 * kk][2], dp[2 * kk][3], T());
+      da[kk][2] = pack2(dp[2 * kk + 1][0], dp[2 * kk + 1][1], T());
+      da[kk][3] = pack2(dp[2 * kk + 1][2], dp[2 * kk + 1][3], T());
+    }
+#pragma unroll
+    for (int n = 0; n < NO; n += 2) {
+      float part[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+      for (int kk = 0; kk < NS / 2; ++kk) {
+        uint32_t r[4];
+        load_b_kn<S>(r, Kt, n, kk * 16, lane);
+        mma_16816(part[0], da[kk], r[0], r[1], T());
+        mma_16816(part[1], da[kk], r[2], r[3], T());
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        acc[n][e] += part[0][e] * scale;
+        acc[n + 1][e] += part[1][e] * scale;
+      }
+    }
+  }
+
+  __syncthreads();  // every warp is past its reads of the Q tile
+  stage_acc<T, DP, NO>(Qs, acc, row, lane);
+  __syncthreads();
+  write_rows<T, DP, VEC>(dq + bh * tq * d, Qs, q0, tq, d);
+}
+
 // ===========================================================================
 // f32, d <= 128: SIMT FMAs in full f32, retiled against the shared-memory
 // bound
@@ -1078,9 +1233,9 @@ flash_bwd_dkv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // Each score is still one fmaf chain over d in order, and each output a
 // chain over keys (queries) in order, so the bits do not depend on the
 // tiling. P (and dS) go through shared memory once per tile ([row][col],
-// stride 68), and the P V (dS Q, P^T dO) loops read them four columns at
-// a time. Output columns of a thread: W neighbouring ones (4, or 2 at
-// d <= 32) at g * 16 W + tx W, g < DP / (16 W).
+// stride 68), and the P V (dS K, dS Q, P^T dO) loops read them four
+// columns at a time. Output columns of a thread: W neighbouring ones (4,
+// or 2 at d <= 32) at g * 16 W + tx W, g < DP / (16 W).
 constexpr int kF32Threads = 256;
 constexpr int kPS = kTile + 4;  // stride of the P and dS tiles
 
@@ -1488,6 +1643,165 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
+// kernel 8, f32: one block per (b*h, 64 queries); thread (ty, tx) owns
+// queries ty + 16 i and keys tx + 16 j of each key tile. Q and dO are
+// staged once; the K and V tiles (with their kept keys) have one buffer:
+// at d <= 64 the block then takes 87 KB of shared memory and 128
+// registers a thread, so two blocks share an SM and one's loads overlap
+// the other's FMAs. With a second buffer (122 KB, one block an SM) the
+// 12 sites of a BERT-base step took 1.55 ms against 1.07 on one buffer
+// (H100, chip_smoke.py). dS goes through shared memory once per tile,
+// and the dS K loop reads it four keys at a time.
+// ---------------------------------------------------------------------------
+template <int DP>
+constexpr int dq_f32_smem_bytes() {
+  return (4 * kTile * tile_stride<float, DP>() + kTile * kPS + kTile) *
+         (int)sizeof(float);
+}
+
+template <int DP, bool VEC>
+__global__ void __launch_bounds__(kF32Threads, DP <= 64 ? 2 : 1)
+flash_bwd_dq_f32_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v,
+                        const float* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        const float* __restrict__ mask,
+                        float* __restrict__ dq, int heads, int tq, int tk,
+                        int d, float scale, int causal) {
+  using C = F32Cols<DP>;
+  constexpr int S = tile_stride<float, DP>();
+  constexpr int TILE = kTile * S;
+  extern __shared__ __align__(16) float fsm[];
+  float* Qs = fsm;                    // [64][S]
+  float* Os = Qs + TILE;              // dO [64][S]
+  float* Ks = Os + TILE;              // [64][S]
+  float* Vs = Ks + TILE;              // [64][S]
+  float* Ds = Vs + TILE;              // ds [64][kPS]
+  float* keep_s = Ds + kTile * kPS;   // [64]
+
+  const int n_qt = (tq + kTile - 1) / kTile;
+  const int64_t bh = blockIdx.x / n_qt;
+  const int q0 = (int)(blockIdx.x % n_qt) * kTile;
+  const int tx = threadIdx.x % kSide, ty = threadIdx.x / kSide;
+  const float* kb = k + bh * tk * d;
+  const float* vb = v + bh * tk * d;
+  const float* mb = mask ? mask + (bh / heads) * tk : nullptr;
+  const int k_end = causal ? min(tk, q0 + kTile) : tk;
+  const int n_kt = (k_end + kTile - 1) / kTile;
+
+  auto stage_kv = [&](int k0) {
+    stage_rows<float, DP, kF32Threads, VEC>(Ks, kb, k0, tk, d);
+    stage_rows<float, DP, kF32Threads, VEC>(Vs, vb, k0, tk, d);
+    stage_keep(keep_s, mb, k0, tk);
+  };
+  stage_rows<float, DP, kF32Threads, VEC>(Qs, q + bh * tq * d, q0, tq, d);
+  stage_rows<float, DP, kF32Threads, VEC>(Os, dout + bh * tq * d, q0, tq,
+                                          d);
+  stage_kv(0);
+  if constexpr (VEC) cp_async_commit();
+
+  float lse_r[4], delta_r[4], acc[4][C::N];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qi = q0 + ty + 16 * i;
+    lse_r[i] = qi < tq ? lse[bh * tq + qi] : 0.f;
+    delta_r[i] = qi < tq ? delta[bh * tq + qi] : 0.f;
+#pragma unroll
+    for (int c = 0; c < C::N; ++c) acc[i][c] = 0.f;
+  }
+
+  for (int j = 0; j < n_kt; ++j) {
+    const int k0 = j * kTile;
+    if constexpr (VEC) cp_async_wait<0>();
+    __syncthreads();  // tile j has landed
+
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) s[i][jj] = dp[i][jj] = 0.f;
+    // fully unrolled (unrolled twice at d <= 32, which spills otherwise)
+#pragma unroll (DP > 32 ? DP / 4 : 2)
+    for (int dd = 0; dd < DP; dd += 4) {
+      float4 a[4], o[4], kr[4], vr[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        a[i] = ld4(Qs + (ty + 16 * i) * S + dd);
+        o[i] = ld4(Os + (ty + 16 * i) * S + dd);
+      }
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        kr[jj] = ld4(Ks + (tx + 16 * jj) * S + dd);
+        vr[jj] = ld4(Vs + (tx + 16 * jj) * S + dd);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          s[i][jj] = dot4(a[i], kr[jj], s[i][jj]);
+          dp[i][jj] = dot4(o[i], vr[jj], dp[i][jj]);
+        }
+    }
+
+    // P = exp(S scale - lse), masked; dS = P (dP - delta)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qi = q0 + ty + 16 * i;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int c = tx + 16 * jj;
+        const bool keep = keep_s[c] > 0.f && (!causal || qi >= k0 + c);
+        const float sv = keep ? s[i][jj] * scale : kNegInf;
+        const float p = sv <= kNegInf * 0.5f ? 0.f : expf(sv - lse_r[i]);
+        Ds[(ty + 16 * i) * kPS + c] = p * (dp[i][jj] - delta_r[i]);
+      }
+    }
+    __syncthreads();  // dS is complete
+
+    // dQ += (dS K) scale, the product of each key tile scaled before it
+    // is added, as the JAX kernel does
+    float part[4][C::N];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < C::N; ++c) part[i][c] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kTile; kk += 4) {
+      float4 g4[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) g4[i] = ld4(Ds + (ty + 16 * i) * kPS + kk);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        float kv[C::N];
+#pragma unroll
+        for (int c = 0; c < C::N; c += C::W)
+          load_cols<C::W>(kv + c, Ks + (kk + u) * S + C::col(tx, c));
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float g = lane4(g4[i], u);
+#pragma unroll
+          for (int c = 0; c < C::N; ++c)
+            part[i][c] = fmaf(g, kv[c], part[i][c]);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < C::N; ++c) acc[i][c] += part[i][c] * scale;
+    if (j + 1 < n_kt) {
+      __syncthreads();  // every thread is past its reads of this tile
+      stage_kv(k0 + kTile);
+      if constexpr (VEC) cp_async_commit();
+    }
+  }
+
+  write_f32<DP, VEC>(dq + bh * tq * d, acc, q0, tq, d, ty, tx);
+}
+
+// ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
 enum class Pass { kFwd, kDq, kDkv };
@@ -1544,7 +1858,7 @@ int launch(const Args& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// kernels 7 and 9 on tensor cores (16-bit inputs, d <= 128)
+// the redesigned kernels on tensor cores (16-bit inputs, d <= 128)
 template <Pass P, typename T, int DP, bool VEC>
 int launch_mma(const Args& a, cudaStream_t stream) {
   const int tiles = P == Pass::kDkv ? (a.tk + kTile - 1) / kTile
@@ -1561,8 +1875,16 @@ int launch_mma(const Args& a, cudaStream_t stream) {
         static_cast<const T*>(a.q), static_cast<const T*>(a.k),
         static_cast<const T*>(a.v), a.mask, static_cast<T*>(a.out),
         a.lse_out, a.heads, a.tq, a.tk, a.d, a.scale, a.causal);
+  } else if constexpr (P == Pass::kDq) {
+    constexpr int smem = dq_mma_smem_bytes<T, DP>();
+    auto kern = flash_bwd_dq_mma_kernel<T, DP, VEC>;
+    if (cudaError_t e = opt_in(kern, smem, configured)) return (int)e;
+    kern<<<(unsigned)blocks, kMmaThreads, smem, stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+        static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+        a.lse_in, a.delta, a.mask, static_cast<T*>(a.out), a.heads, a.tq,
+        a.tk, a.d, a.scale, a.causal);
   } else {
-    static_assert(P == Pass::kDkv, "dq keeps its SIMT body");
     constexpr int smem = dkv_mma_smem_bytes<T, DP>();
     auto kern = flash_bwd_dkv_mma_kernel<T, DP, VEC>;
     if (cudaError_t e = opt_in(kern, smem, configured)) return (int)e;
@@ -1576,7 +1898,7 @@ int launch_mma(const Args& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// kernels 7 and 9 on f32 inputs, d <= 128
+// the redesigned kernels on f32 inputs, d <= 128
 template <Pass P, int DP, bool VEC>
 int launch_f32(const Args& a, cudaStream_t stream) {
   const int tiles = P == Pass::kDkv ? (a.tk + kTile - 1) / kTile
@@ -1595,8 +1917,15 @@ int launch_f32(const Args& a, cudaStream_t stream) {
     kern<<<(unsigned)blocks, kF32Threads, smem, stream>>>(
         q, k, v, a.mask, static_cast<float*>(a.out), a.lse_out, a.heads,
         a.tq, a.tk, a.d, a.scale, a.causal);
+  } else if constexpr (P == Pass::kDq) {
+    constexpr int smem = dq_f32_smem_bytes<DP>();
+    auto kern = flash_bwd_dq_f32_kernel<DP, VEC>;
+    if (cudaError_t e = opt_in(kern, smem, configured)) return (int)e;
+    kern<<<(unsigned)blocks, kF32Threads, smem, stream>>>(
+        q, k, v, static_cast<const float*>(a.dout), a.lse_in, a.delta,
+        a.mask, static_cast<float*>(a.out), a.heads, a.tq, a.tk, a.d,
+        a.scale, a.causal);
   } else {
-    static_assert(P == Pass::kDkv, "dq keeps its first body");
     constexpr int smem = dkv_f32_smem_bytes<DP>();
     auto kern = flash_bwd_dkv_f32_kernel<DP, VEC>;
     if (cudaError_t e = opt_in(kern, smem, configured)) return (int)e;
@@ -1631,18 +1960,11 @@ int redesigned(const Args& a, cudaStream_t s) {
 // head dim -> the padded width in shared memory and the tile sizes
 template <Pass P, typename T>
 int by_width(const Args& a, cudaStream_t s) {
-  if constexpr (P != Pass::kDq) {
-    if (a.d <= 32) return redesigned<P, T, 32>(a, s);
-    if (a.d <= 64) return redesigned<P, T, 64>(a, s);
-    if (a.d <= 128) return redesigned<P, T, 128>(a, s);
-    // d in (128, 256]: the first version's SIMT body, for now
-    if (a.d <= 256) return launch<P, T, 256, 32, 32>(a, s);
-  } else {
-    if (a.d <= 32) return launch<P, T, 32, 64, 64>(a, s);
-    if (a.d <= 64) return launch<P, T, 64, 64, 64>(a, s);
-    if (a.d <= 128) return launch<P, T, 128, 64, 64>(a, s);
-    if (a.d <= 256) return launch<P, T, 256, 32, 32>(a, s);
-  }
+  if (a.d <= 32) return redesigned<P, T, 32>(a, s);
+  if (a.d <= 64) return redesigned<P, T, 64>(a, s);
+  if (a.d <= 128) return redesigned<P, T, 128>(a, s);
+  // d in (128, 256]: the first version's SIMT bodies, for now
+  if (a.d <= 256) return launch<P, T, 256, 32, 32>(a, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -257,6 +257,38 @@ def test_bf16_compute_dtype_near_jax(models):
     assert float(np.abs(pooled.numpy() - want_pooled).max()) <= 0.05
 
 
+#: bf16 losses: one bf16 rounding of the loss (2^-9). The two frameworks
+#: round bf16 activations at other places (see
+#: test_bf16_compute_dtype_near_jax), but the loss averages over every
+#: prediction; the largest gap measured over these 3 steps is 1.2e-4
+BF16_LOSS_RTOL = 2.0 ** -9
+
+
+@pytest.mark.parametrize("port_flash", [False, True],
+                         ids=["dense", "port_flash_route"])
+def test_bf16_pretraining_trajectory_near_jax(port_flash, models):
+    """Three Adam steps at ``compute_dtype="bfloat16"``: JAX's dense route
+    against the port's dense route and its flash route (on the CPU the
+    kernels' plain versions, whose dq rounds dS to k's bf16)."""
+    jb, conf = models
+    jm = JBert(dataclasses.replace(jb.conf, max_predictions_per_seq=6,
+                                   compute_dtype="bfloat16"), JAdam(1e-3))
+    jm.params = jax.tree_util.tree_map(jnp.array, jb.params)
+    conf = dataclasses.replace(conf, max_predictions_per_seq=6,
+                               use_flash_attention=port_flash,
+                               compute_dtype="bfloat16")
+    port = _port_of(jm, conf, Adam(1e-3))
+    b = _batch(seed=1)
+    losses = []
+    for step in range(3):
+        want, got = jm.fit_batch(b), port.fit_batch(b)
+        assert np.isfinite(got)
+        assert abs(got - want) <= BF16_LOSS_RTOL * abs(want), (step, got,
+                                                               want)
+        losses.append(got)
+    assert losses[-1] < losses[0]
+
+
 def test_classifier_predict_and_fine_tune_match_jax(models):
     jb, conf = models
     jbert = JBert(jb.conf)

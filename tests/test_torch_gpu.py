@@ -258,7 +258,10 @@ FLASH_SHAPES = [  # b, h, tq, tk, d, causal: every padded width 32..256
     # buffered width), and widths off the 16-byte chunk (d = 60 in 16
     # bit, d = 30 in every dtype), which stage element by element
     (2, 2, 130, 200, 128, False), (2, 2, 150, 100, 60, True),
-    (2, 3, 70, 70, 30, False)]
+    (2, 3, 70, 70, 30, False),
+    # several query and key tiles with tq > tk, and d = 96 (padded to
+    # 128 inside the kernels), both causal
+    (2, 2, 200, 130, 64, True), (2, 2, 190, 190, 96, True)]
 
 
 def _flash_inputs(b, h, tq, tk, d, dtype, g):
