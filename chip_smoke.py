@@ -2,7 +2,9 @@
 """Drive deeplearning4j_tpu_torch's main paths on one CUDA card: serving
 ResNet-50, training ResNet-50 (ComputationGraph) and training LeNet-5
 (MultiLayerNetwork), BERT-base inference and pretraining, generative
-serving of a GPT-2-small-width decoder, and serving SqueezeNet.
+serving of a GPT-2-small-width decoder, serving SqueezeNet, the bundled
+checkpoints held to their quality gates, and training the GravesLSTM
+char-RNN (BASELINE config #3).
 
 Run from the root of a checkout, with no arguments, on a machine with
 one NVIDIA H100 (it fails without a card, and without the package):
@@ -46,8 +48,9 @@ Phases, each of which fails the run (exit 1) when its check fails:
 7. train LeNet-5: 28x28x1, batch 64, Adam(1e-3), 20 steps through
    ``fit(iterator)`` on the synthetic MNIST surrogate; the loss falls,
    kernels 1 and 2 launch twice a step;
-8. weights across: the JAX package's bundled ``resnet_cifar.zip``
-   restored on the card and on the CPU, outputs compared;
+8. weights across: the bundled ``resnet_cifar.zip`` (the port's copy
+   of the JAX package's) restored on the card and on the CPU, outputs
+   compared;
 9. flash kernels: the attention forward (7), dq (8) and dk/dv (9)
    against their plain versions at BERT-base's sites (batch 32, 12
    heads of 64; t=128 with padded key masks and one fully masked
@@ -111,7 +114,29 @@ Phases, each of which fails the run (exit 1) when its check fails:
     ResNet-50 is in phase 5, counts reset before and read after (17
     launches of kernel 4 and 9 of kernel 1 a forward, nothing else);
     answers == ``net.output`` bitwise; card against CPU (TF32 off); a
-    bf16 forward; img/s at batch 32 and the device's busy/idle share.
+    bf16 forward; img/s at batch 32 and the device's busy/idle share;
+16. pretrained: ``lenet.zip``, ``resnet_cifar.zip`` and ``charrnn.zip``
+    restored onto the card by ``restore_model`` (through the zoo's
+    shortcuts) and held to their gates: LeNet-5 >= 0.99 on 2000
+    synthetic MNIST test images, ResNet-CIFAR >= 0.90 on 1000 synthetic
+    CIFAR test images and its hard split inside ``HARD_GATE``, the
+    char-RNN's next-character accuracy within 0.001 of ``meta.json``'s
+    on ``scripts/train_pretrained.py``'s windows; counts reset before
+    and read after each: kernel 1 twice a LeNet-5 forward and once a
+    BatchNormalization site of ResNet-CIFAR, nothing else;
+17. char-RNN (BASELINE config #3, ``benchmarks/bench_charrnn.py``'s
+    configuration): 2 x GravesLSTM(512, tanh) + RnnOutputLayer(80),
+    Adam(5e-3), seed 12345, batch 64 of 64 one-hot timesteps from
+    ``RandomState(0)``; 20 ``fit`` steps in f32 and in bf16
+    ``compute_dtype`` (the loss falls; no ported kernel launches; step
+    ms, chars/s, device busy/idle share and device kernels a step);
+    ``fit_steps``; a TRUNCATED_BPTT copy (segments of 32: 2 iterations
+    a batch, its first segment's outputs within 1e-5 of the STANDARD
+    forward's first 32 steps); ``rnn_time_step`` over the 64 steps
+    against ``output`` (1e-5, f32); 64 greedy characters at batch 64
+    through ``rnn_time_step`` (chars/s; the choices equal the
+    whole-sequence forward's but at ties); one f32 step at H=64 card
+    against CPU (matmul TF32 off), with ``train_card_vs_cpu``'s bars.
 
 Then one JSON line of kernel records (each kernel's times from its own
 timing phase, its launches from the path that carries it), the
@@ -136,14 +161,15 @@ import time
 import urllib.error
 import urllib.request
 from pathlib import Path
+from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
 #: H100 SXM published peaks (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 BATCH = 32
-CIFAR_ZIP = ROOT / "deeplearning4j_tpu" / "models" / "pretrained" / \
-    "resnet_cifar.zip"
+PRETRAINED = ROOT / "deeplearning4j_tpu_torch" / "models" / "pretrained"
+CIFAR_ZIP = PRETRAINED / "resnet_cifar.zip"
 
 class SmokeFailure(AssertionError):
     pass
@@ -716,6 +742,7 @@ def profile_device(torch, fn, wall_ms: float, what: str,
         print(f"[profile]   kernels named *{name}*: {ms:.3f} ms, "
               f"{ms / busy_ms:.3f} of busy")
     return {"device_busy_ms": busy_ms, "idle_share": idle,
+            "kernel_calls": sum(n for _, _, n in rows),
             "top": [{"kernel": k[:120], "ms": ms, "calls": n}
                     for k, ms, n in rows[:20]], "scopes": scopes,
             "shares": share}
@@ -1213,6 +1240,350 @@ def phase_weights_across(torch) -> dict:
     print(f"[weights] resnet_cifar.zip restored on cuda == cpu (TF32 off)"
           f", max |d| {err:.3e}, top-1 {a.argmax(-1)[:8].tolist()}")
     return {"max_abs": err}
+
+
+# ---------------------------------------------------------------------------
+#: the bundled char-RNN's training text (scripts/train_pretrained.py,
+#: ``CHARRNN_TEXT``; a CPU test holds this copy equal to it)
+CHARRNN_TEXT = ("the quick brown fox jumps over the lazy dog. "
+                "pack my box with five dozen liquor jugs. ") * 50
+
+
+def charrnn_windows(chars: str, seq_len: int = 32):
+    """The windows ``scripts/train_pretrained.py`` trains and gates the
+    bundled char-RNN on: one-hot ``x`` and next-character ``y``,
+    ``[n, seq_len, len(chars)]``."""
+    import numpy as np
+    idx = {c: i for i, c in enumerate(chars)}
+    ids = np.asarray([idx[c] for c in CHARRNN_TEXT], np.int32)
+    starts = np.arange(0, len(ids) - seq_len - 1, seq_len)
+    eye = np.eye(len(chars), dtype=np.float32)
+    return (np.stack([eye[ids[s:s + seq_len]] for s in starts]),
+            np.stack([eye[ids[s + 1:s + seq_len + 1]] for s in starts]))
+
+
+def phase_pretrained(torch, label: str, device: str = "cuda") -> dict:
+    """The bundled checkpoints restored onto ``device`` and held to their
+    quality gates (``meta.json``, ``models/pretrained_gates.py``), with
+    kernel 1's launches counted per restored forward (2 a LeNet-5
+    forward, one per BatchNormalization site of ResNet-CIFAR)."""
+    from deeplearning4j_tpu_torch.datasets.mnist import MnistDataSetIterator
+    from deeplearning4j_tpu_torch.datasets.vision import \
+        Cifar10DataSetIterator
+    from deeplearning4j_tpu_torch.models import (char_rnn, lenet,
+                                                 pretrained_meta,
+                                                 resnet_cifar)
+    from deeplearning4j_tpu_torch.models.pretrained_gates import (
+        HARD_GATE, eval_resnet_cifar_hard)
+    on_card = device == "cuda"
+    meta = pretrained_meta()
+    out = {}
+
+    def counted(fn):
+        _sync(torch, device)
+        _zero_counts()
+        t0 = time.perf_counter()
+        value = fn()
+        _sync(torch, device)
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = _counts()
+        others = {k: n for k, n in launches.items()
+                  if k != "scale_shift_act" and n}
+        check(not others, f"kernels off this path launched: {others}")
+        return value, launches["scale_shift_act"], ms
+
+    net = lenet(pretrained=True, device=device)
+    acc, n, ms = counted(lambda: net.evaluate(MnistDataSetIterator(
+        512, train=False, num_examples=2000)).accuracy())
+    fwd = 4
+    print(f"[pretrained] lenet.zip on {device}: accuracy {acc:.4f} on 2000 "
+          f"synthetic MNIST test images (gate 0.99; meta "
+          f"{meta['lenet']['accuracy']}), kernel 1 launches {n} in {fwd} "
+          f"forwards, {ms:.1f} ms [{label}]")
+    check(acc >= 0.99, f"lenet.zip accuracy {acc} < 0.99")
+    check(n == 2 * fwd * on_card, f"lenet.zip: {n} kernel 1 launches in "
+                                  f"{fwd} forwards, expected 2 each")
+    out["lenet"] = {"accuracy": acc, "launches": n, "forwards": fwd}
+
+    net = resnet_cifar(device=device)
+    sites = len(bn_sites(net.conf, 1))
+    (acc, hard), n, ms = counted(lambda: (
+        net.evaluate(Cifar10DataSetIterator(
+            512, train=False, num_examples=1000)).accuracy(),
+        eval_resnet_cifar_hard(net, n=2000)))
+    fwd = 3
+    print(f"[pretrained] resnet_cifar.zip on {device}: accuracy {acc:.4f} on "
+          f"1000 synthetic CIFAR test images (gate 0.90), hard split "
+          f"{hard:.4f} (gate {HARD_GATE}; meta "
+          f"{meta['resnet_cifar']['hard_split_accuracy']}), kernel 1 "
+          f"launches {n} in {fwd} forwards of {sites} BN sites, {ms:.1f} ms "
+          f"[{label}]")
+    check(acc >= 0.90, f"resnet_cifar.zip accuracy {acc} < 0.90")
+    check(HARD_GATE[0] <= hard < HARD_GATE[1],
+          f"resnet_cifar.zip hard split {hard} outside {HARD_GATE}")
+    check(n == sites * fwd * on_card,
+          f"resnet_cifar.zip: {n} kernel 1 launches in {fwd} forwards, "
+          f"expected {sites} each")
+    out["resnet_cifar"] = {"accuracy": acc, "hard": hard, "launches": n,
+                           "forwards": fwd, "sites": sites}
+
+    net, chars = char_rnn(device=device)
+    x, y = charrnn_windows(chars)
+    probs, n, ms = counted(lambda: net.output(x).cpu().numpy())
+    acc = float((probs.argmax(-1) == y.argmax(-1)).mean())
+    want = meta["charrnn"]["next_char_accuracy"]
+    print(f"[pretrained] charrnn.zip on {device}: next-character accuracy "
+          f"{acc:.5f} over {x.shape[0]} windows of {x.shape[1]} (meta "
+          f"{want}, bar 0.001), {ms:.1f} ms [{label}]")
+    check(abs(acc - want) <= 0.001,
+          f"charrnn.zip accuracy {acc} vs meta {want}")
+    out["charrnn"] = {"accuracy": acc}
+    out["launches"] = out["lenet"]["launches"] + \
+        out["resnet_cifar"]["launches"]
+    return out
+
+
+#: BASELINE config #3 (benchmarks/bench_charrnn.py:31-55): 2 x
+#: GravesLSTM(512, tanh) + RnnOutputLayer(80), Adam(5e-3), seed 12345,
+#: batch 64 of 64 timesteps
+CHARRNN = dict(hidden=512, vocab=80, batch=64, seq_len=64)
+
+
+def charrnn_conf(hidden: int, vocab: int, seq_len: int,
+                 compute: Optional[str] = None, tbptt: int = 0):
+    from deeplearning4j_tpu_torch.activations import Activation
+    from deeplearning4j_tpu_torch.learning.updaters import Adam
+    from deeplearning4j_tpu_torch.lossfunctions import LossFunction
+    from deeplearning4j_tpu_torch.nn.conf.builders import (
+        BackpropType, NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.conf.layers import RnnOutputLayer
+    from deeplearning4j_tpu_torch.nn.conf.layers_recurrent import GravesLSTM
+    b = (NeuralNetConfiguration.Builder().seed(12345).updater(Adam(5e-3))
+         .compute_data_type(compute).list()
+         .layer(GravesLSTM(n_out=hidden, activation=Activation.TANH))
+         .layer(GravesLSTM(n_out=hidden, activation=Activation.TANH))
+         .layer(RnnOutputLayer(n_out=vocab,
+                               loss_function=LossFunction.MCXENT,
+                               activation=Activation.SOFTMAX)))
+    if tbptt:
+        b = b.backprop_type(BackpropType.TRUNCATED_BPTT).t_bptt_length(tbptt)
+    return b.set_input_type(InputType.recurrent(vocab, seq_len)).build()
+
+
+def charrnn_batch(vocab: int, batch: int, seq_len: int):
+    """One-hot ids from ``RandomState(0)``, as the JAX benchmark makes."""
+    import numpy as np
+    ids = np.random.RandomState(0).randint(0, vocab, (batch, seq_len + 1))
+    eye = np.eye(vocab, dtype=np.float32)
+    return eye[ids[:, :-1]], eye[ids[:, 1:]]
+
+
+def _clone_params(params, device):
+    return {k: {n: t.detach().clone().to(device) for n, t in sub.items()}
+            for k, sub in params.items()}
+
+
+def _charrnn_train(torch, net, x, y, steps, what, label, on_card):
+    """``steps`` fit steps, counts to 0 before and read after; the loss
+    falls; step ms, chars/s and the device profile."""
+    import numpy as np
+    _zero_counts()
+    losses, ms = _timed_steps(torch, net, x, y, steps)
+    launches = _counts()
+    check(all(np.isfinite(losses)), f"{what}: loss not finite: {losses}")
+    check(losses[-1] < losses[0], f"{what}: loss did not fall: {losses}")
+    check(not any(launches.values()),
+          f"{what}: a ported kernel launched on the recurrent path: "
+          f"{launches}")
+    step_ms = float(np.median(ms[1:]))
+    chars = int(x.shape[0]) * int(x.shape[1])
+    print(f"[charrnn] {what}: losses {[round(v, 4) for v in losses]}; step "
+          f"{step_ms:.3f} ms (median of steps 2-{steps}) = "
+          f"{chars * 1e3 / step_ms:.1f} chars/s [{label}]")
+    out = {"losses": losses, "step_ms": ms, "median_step_ms": step_ms,
+           "chars_per_s": chars * 1e3 / step_ms, "launches": launches}
+    if on_card:
+        out["profile"] = profile_device(torch, lambda: net.fit(x, y),
+                                        step_ms, f"{what} step")
+        print(f"[charrnn] {what}: {out['profile'].get('kernel_calls')} "
+              f"device kernels a step [{label}]")
+    return out
+
+
+def phase_charrnn(torch, label: str, device: str = "cuda",
+                  hidden: int = CHARRNN["hidden"], steps: int = 20) -> dict:
+    """BASELINE config #3 trained on ``device``: f32 and bf16 ``fit``,
+    ``fit_steps``, truncated BPTT, the ``rnn_time_step`` stream against
+    ``output``, greedy sampling, and (on the card) one step card vs CPU.
+    ``device="cpu"`` with a small ``hidden`` rehearses it."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    on_card = device == "cuda"
+    vocab, batch, T = CHARRNN["vocab"], CHARRNN["batch"], CHARRNN["seq_len"]
+    conf = charrnn_conf(hidden, vocab, T)
+    net = MultiLayerNetwork(conf).init(
+        device, generator=torch.Generator().manual_seed(12345))
+    p0 = _clone_params(net.params, device)
+    xn, yn = charrnn_batch(vocab, batch, T)
+    x, y = torch.from_numpy(xn).to(device), torch.from_numpy(yn).to(device)
+    print(f"[charrnn] 2 x GravesLSTM({hidden}) + RnnOutputLayer({vocab}), "
+          f"batch {batch} x {T} steps on {device}, {net.num_params()} "
+          f"params, Adam(5e-3)")
+    out = {"f32": _charrnn_train(torch, net, x, y, steps, "f32 fit", label,
+                                 on_card)}
+
+    net16 = MultiLayerNetwork(charrnn_conf(
+        hidden, vocab, T, compute="bfloat16")).set_params(
+        _clone_params(p0, device), {}, device)
+    out["bf16"] = _charrnn_train(torch, net16, x, y, steps,
+                                 "bf16 compute_dtype fit", label, on_card)
+    del net16
+
+    # ---- fit_steps: the same steps as one call ----
+    fs = MultiLayerNetwork(conf).set_params(_clone_params(p0, device), {},
+                                            device)
+    fs.fit_steps(DataSet(x, y), 2)                       # warm
+    _sync(torch, device)
+    t0 = time.perf_counter()
+    fs.fit_steps(DataSet(x, y), steps)
+    _sync(torch, device)
+    fs_ms = (time.perf_counter() - t0) * 1e3 / steps
+    check(fs.iteration_count == steps + 2 and np.isfinite(fs.score()),
+          f"fit_steps: iterations {fs.iteration_count}, loss {fs.score()}")
+    check(fs.score() < out["f32"]["losses"][0],
+          f"fit_steps loss {fs.score()} not below the first step's")
+    print(f"[charrnn] fit_steps({steps}): {fs_ms:.3f} ms a step, last loss "
+          f"{fs.score():.4f} (state carried across its steps) [{label}]")
+    out["fit_steps_ms"] = fs_ms
+    del fs
+
+    # ---- truncated BPTT, segments of 32 ----
+    L = T // 2
+    tb = MultiLayerNetwork(charrnn_conf(hidden, vocab, T, tbptt=L)
+                           ).set_params(_clone_params(p0, device), {}, device)
+    std = MultiLayerNetwork(conf).set_params(_clone_params(p0, device), {},
+                                             device)
+    d_seg = float((tb.output(x[:, :L]) - std.output(x)[:, :L]).abs().max())
+    check(d_seg <= 1e-5, f"tBPTT first segment vs STANDARD forward: max "
+                         f"|d| {d_seg}")
+    _sync(torch, device)
+    t0 = time.perf_counter()
+    tb.fit(x, y)
+    _sync(torch, device)
+    tb_ms = (time.perf_counter() - t0) * 1e3
+    check(tb.iteration_count == 2, f"tBPTT: {tb.iteration_count} "
+                                   f"iterations a batch, expected 2")
+    check(np.isfinite(tb.score()), f"tBPTT loss {tb.score()}")
+    print(f"[charrnn] tBPTT({L}): 2 iterations a batch, {tb_ms:.3f} ms for "
+          f"the batch (first call); its first segment vs the STANDARD "
+          f"forward's first {L} steps: max |d| {d_seg:.3e} [{label}]")
+    out.update(tbptt_ms=tb_ms, tbptt_first_segment_max_abs=d_seg)
+    del tb, std
+
+    # ---- rnn_time_step over the sequence against output ----
+    net.rnn_clear_previous_state()
+    stream = torch.stack([net.rnn_time_step(x[:, t]) for t in range(T)], 1)
+    d_stream = float((stream - net.output(x)).abs().max())
+    check(d_stream <= 1e-5, f"rnn_time_step vs output: max |d| {d_stream}")
+    print(f"[charrnn] rnn_time_step over {T} steps vs output: max |d| "
+          f"{d_stream:.3e} (f32)")
+    out["stream_max_abs"] = d_stream
+
+    # ---- greedy sampling through rnn_time_step ----
+    def sample(n):
+        net.rnn_clear_previous_state()
+        cur, ids = x[:, 0], []
+        for _ in range(n):
+            nxt = net.rnn_time_step(cur).argmax(-1)
+            ids.append(nxt)
+            cur = torch.nn.functional.one_hot(nxt, vocab).to(x.dtype)
+        return torch.stack(ids, 1)
+
+    sample(4)                                            # warm
+    _sync(torch, device)
+    t0 = time.perf_counter()
+    ids = sample(T)
+    _sync(torch, device)
+    secs = time.perf_counter() - t0
+    # the stream's greedy choices are the whole-sequence forward's
+    seq = torch.cat([x[:, :1], torch.nn.functional.one_hot(
+        ids[:, :-1], vocab).to(x.dtype)], 1)
+    full = net.output(seq)
+    top2 = full.topk(2, -1).values
+    off = full.argmax(-1) != ids
+    gap = float((top2[..., 0] - top2[..., 1])[off].max()) if off.any() \
+        else 0.0
+    check(gap <= 1e-4, f"greedy stream differs from output beyond a tie "
+                       f"(gap {gap})")
+    rate = batch * T / secs
+    print(f"[charrnn] greedy sampling: {T} characters at batch {batch} in "
+          f"{secs * 1e3:.1f} ms = {rate:.1f} chars/s; {int(off.sum())} "
+          f"choices differ from output's, at ties <= {gap:.1e} [{label}]")
+    out["sample_chars_per_s"] = rate
+    if on_card:
+        torch.cuda.empty_cache()
+        out["card_vs_cpu"] = charrnn_card_vs_cpu(torch)
+    return out
+
+
+def charrnn_card_vs_cpu(torch, hidden: int = 64, device: str = "cuda"
+                        ) -> dict:
+    """One f32 fit step of the char-RNN at ``hidden`` on the card and on
+    the CPU from the same weights (matmul TF32 off), against a float64
+    CPU step, with ``train_card_vs_cpu``'s bars."""
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    vocab, batch, T = CHARRNN["vocab"], CHARRNN["batch"], CHARRNN["seq_len"]
+    conf = charrnn_conf(hidden, vocab, T)
+    base = MultiLayerNetwork(conf).init(
+        "cpu", generator=torch.Generator().manual_seed(31))
+    xn, yn = charrnn_batch(vocab, batch, T)
+    x, y = torch.from_numpy(xn), torch.from_numpy(yn)
+    p0 = {k: {n: t.double() for n, t in sub.items()}
+          for k, sub in base.params.items()}
+    card = MultiLayerNetwork(conf).set_params(_clone_params(base.params,
+                                                            device), {},
+                                              device)
+    conf64 = charrnn_conf(hidden, vocab, T)
+    conf64.dtype = "float64"
+    cpu64 = MultiLayerNetwork(conf64).set_params(_clone_params(p0, "cpu"),
+                                                 {}, "cpu")
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        card.fit(x.to(device), y.to(device))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    base.fit(x, y)
+    cpu64.fit(x.double(), y.double())
+    check(abs(card.score() - base.score()) <= LOSS_RTOL * abs(base.score()),
+          f"char-RNN loss card {card.score()} vs cpu {base.score()}")
+
+    def dist(a, b):
+        return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+    e_card = e_cpu = e_pair = 0.0
+    for k, sub in p0.items():
+        for n, t0 in sub.items():
+            d64 = cpu64.params[k][n] - t0
+            dcard = card.params[k][n].detach().cpu().double() - t0
+            dcpu = base.params[k][n].detach().double() - t0
+            e_card = max(e_card, dist(dcard, d64))
+            e_cpu = max(e_cpu, dist(dcpu, d64))
+            e_pair = max(e_pair, dist(dcard, dcpu))
+    check(e_card <= UPDATE_FACTOR * e_cpu + UPDATE_FLOOR,
+          f"char-RNN card updates {e_card:.3e} from the float64 step, the "
+          f"CPU float32 step's {e_cpu:.3e}")
+    print(f"[charrnn] card vs CPU, one f32 step at H={hidden}, batch "
+          f"{batch} x {T} (matmul TF32 off): loss {card.score():.7f} vs "
+          f"{base.score():.7f} (f64 {cpu64.score():.7f}); worst update in "
+          f"norm: card vs f64 {e_card:.3e}, CPU f32 vs f64 {e_cpu:.3e}, "
+          f"card vs CPU f32 {e_pair:.3e}")
+    return {"loss_card": card.score(), "loss_cpu": base.score(),
+            "update_card_vs_f64": e_card, "update_cpu32_vs_f64": e_cpu,
+            "update_card_vs_cpu32": e_pair}
 
 
 # ---------------------------------------------------------------------------
@@ -2632,6 +3003,8 @@ def main() -> int:
     tr = timed("train", phase_train_resnet, torch, label)
     ln = timed("lenet", phase_train_lenet, torch, label)
     timed("weights", phase_weights_across, torch)
+    pre = timed("pretrained", phase_pretrained, torch, label)
+    cr = timed("charrnn", phase_charrnn, torch, label)
     bs = timed("bert-serve", phase_bert_serve, torch, label)
     bt = timed("bert-train", phase_bert_train, torch, label)
     timed("bert-vs-cpu", bert_card_vs_cpu, torch)
@@ -2739,7 +3112,8 @@ def main() -> int:
                      f"f32 ResNet-50 forward"
             by_dtype = {d: v["kernel_ms"] for d, v in kern["timing"].items()}
             extra = {"library_ms_by_dtype": {
-                d: v["library_ms"] for d, v in kern["timing"].items()}}
+                d: v["library_ms"] for d, v in kern["timing"].items()},
+                "launches_pretrained": pre["launches"]}
         else:
             t = tk["timing"][k.name]["float32"]
             err = tk["max_abs_err"][k.name]
@@ -2772,6 +3146,17 @@ def main() -> int:
           f"{gf['intertoken_ms_p50']:.3f} ms, decode step (bucket 32) "
           f"{gf['decode_step_ms_p50']:.3f} ms; bf16 pool "
           f"{gb['tokens_per_s']:.1f} tokens/s [{label}]")
+    print(f"[done] char-RNN (2 x GravesLSTM(512), batch 64 x 64): f32 step "
+          f"{cr['f32']['median_step_ms']:.3f} ms "
+          f"({cr['f32']['chars_per_s']:.1f} chars/s, idle share "
+          f"{cr['f32']['profile'].get('idle_share', float('nan')):.3f}), "
+          f"bf16 {cr['bf16']['median_step_ms']:.3f} ms, fit_steps "
+          f"{cr['fit_steps_ms']:.3f} ms a step, greedy sampling "
+          f"{cr['sample_chars_per_s']:.1f} chars/s; bundled gates lenet "
+          f"{pre['lenet']['accuracy']:.4f}, resnet_cifar "
+          f"{pre['resnet_cifar']['accuracy']:.4f} (hard "
+          f"{pre['resnet_cifar']['hard']:.4f}), charrnn "
+          f"{pre['charrnn']['accuracy']:.5f} [{label}]")
     print(f"[done] matmul precision: "
           f"{torch.get_float32_matmul_precision()}, cuda.matmul.allow_tf32 "
           f"{torch.backends.cuda.matmul.allow_tf32}")

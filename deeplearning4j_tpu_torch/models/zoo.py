@@ -1,7 +1,16 @@
-"""Model zoo: LeNet-5 and ResNet-50.
+"""Model zoo: LeNet-5 and ResNet-50, and the bundled checkpoints.
 
 Counterpart of ``LeNet`` and ``ResNet50`` in
 ``deeplearning4j_tpu/models/zoo.py``, the same builders field for field.
+
+``init_pretrained()`` restores a checkpoint bundled under
+``models/pretrained/`` (the JAX package's zips and ``meta.json``, copied
+byte for byte, so the port reads nothing of the JAX package's tree):
+``lenet.zip`` (synthetic MNIST), ``resnet_cifar.zip`` (the CIFAR-scale
+ResNet: 32x32, stages ((2, 16), (2, 32))) and ``charrnn.zip`` (a
+GravesLSTM(128) character model). ``meta.json`` records each one's
+quality gate; ``lenet``, ``resnet_cifar`` and ``char_rnn`` are the
+shortcuts.
 
 LeNet-5 is a MultiLayerNetwork over flat 28x28x1 input: two 5x5
 convolutions (20 and 50 channels, with bias, identity activation), each
@@ -18,7 +27,10 @@ are the conv epilogue's.
 """
 from __future__ import annotations
 
+import dataclasses
+import json
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Optional, Tuple, Union
 
 import torch
@@ -39,10 +51,58 @@ from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.nn.weights import WeightInit
 
+_Device = Union[None, str, torch.device]
+
+
+def pretrained_dir() -> Path:
+    """The bundled checkpoints and their ``meta.json``."""
+    return Path(__file__).parent / "pretrained"
+
+
+def pretrained_meta() -> dict:
+    with open(pretrained_dir() / "meta.json") as fh:
+        return json.load(fh)
+
+
+class ZooModel:
+    """Base of the zoo's models (reference: ZooModel):
+    ``init_pretrained``."""
+
+    #: name of the bundled checkpoint; None = no shipped weights
+    pretrained_name: Optional[str] = None
+
+    def init_pretrained(self, path=None, device: _Device = None):
+        """Restore pretrained weights onto ``device`` (``None``: the
+        card): the bundled checkpoint, or the zip at ``path``. A zip
+        carries its own configuration, so fields customised on this
+        instance cannot apply: with the bundled weights they raise."""
+        from deeplearning4j_tpu_torch.utils.serializer import \
+            ModelSerializer
+        if path is None:
+            name = self.pretrained_name
+            if name is None:
+                raise ValueError(
+                    f"{type(self).__name__} has no bundled pretrained "
+                    f"weights; pass an explicit checkpoint path")
+            changed = [f.name for f in dataclasses.fields(self)
+                       if f.default is not dataclasses.MISSING
+                       and getattr(self, f.name) != f.default]
+            if changed:
+                raise ValueError(
+                    f"{type(self).__name__}({', '.join(changed)}) "
+                    f"customizes the architecture, but the bundled "
+                    f"'{name}' checkpoint carries its own configuration: "
+                    f"the customization would be silently ignored. Drop "
+                    f"the kwargs, or pass an explicit checkpoint path "
+                    f"trained with them.")
+            path = pretrained_dir() / f"{name}.zip"
+        return ModelSerializer.restore_model(path, device)
+
 
 @dataclass
-class LeNet:
+class LeNet(ZooModel):
     """Reference: org.deeplearning4j.zoo.model.LeNet (MNIST-class)."""
+    pretrained_name = "lenet"
     num_classes: int = 10
     height: int = 28
     width: int = 28
@@ -87,8 +147,12 @@ class LeNet:
 
 
 @dataclass
-class ResNet50:
-    """Reference: org.deeplearning4j.zoo.model.ResNet50, NHWC."""
+class ResNet50(ZooModel):
+    """Reference: org.deeplearning4j.zoo.model.ResNet50, NHWC. Its
+    bundled checkpoint is the CIFAR-scale variant (``resnet_cifar``):
+    ``init_pretrained`` returns that graph, not the ImageNet-sized
+    default."""
+    pretrained_name = "resnet_cifar"
     num_classes: int = 1000
     height: int = 224
     width: int = 224
@@ -175,3 +239,40 @@ class ResNet50:
         card, raising when there is none)."""
         return ComputationGraph(self.conf()).init(device,
                                                   generator=generator)
+
+
+# -- shortcuts over the bundled checkpoints ---------------------------------
+def lenet(pretrained: bool = False, device: _Device = None, **kw):
+    """LeNet-5; ``pretrained=True`` restores the bundled synthetic-MNIST
+    checkpoint (its accuracy is in ``meta.json``)."""
+    if pretrained:
+        if kw:
+            raise ValueError(
+                f"lenet(pretrained=True) loads the bundled checkpoint "
+                f"with its own architecture; architecture kwargs "
+                f"{sorted(kw)} would be silently ignored: drop them or "
+                f"build fresh with pretrained=False")
+        return LeNet().init_pretrained(device=device)
+    return LeNet(**kw).init(device)
+
+
+def resnet_cifar(pretrained: bool = True, device: _Device = None):
+    """The bundled CIFAR-scale ResNet checkpoint, or that architecture
+    freshly initialised."""
+    if pretrained:
+        return ResNet50().init_pretrained(device=device)
+    return ResNet50(num_classes=10, height=32, width=32,
+                    STAGES=((2, 16), (2, 32))).init(device)
+
+
+def char_rnn(pretrained: bool = True, device: _Device = None):
+    """The bundled GravesLSTM character model: ``(net, chars)``, the
+    vocabulary (index -> char) from ``meta.json``."""
+    if not pretrained:
+        raise ValueError("char_rnn is only offered as the bundled "
+                         "checkpoint; build a TextGenerationLSTM "
+                         "otherwise")
+    from deeplearning4j_tpu_torch.utils.serializer import ModelSerializer
+    net = ModelSerializer.restore_model(pretrained_dir() / "charrnn.zip",
+                                        device)
+    return net, pretrained_meta()["charrnn"]["chars"]

@@ -1,4 +1,4 @@
-"""Model zoo, part 2: SqueezeNet.
+"""Model zoo, part 2: SqueezeNet and TextGenerationLSTM.
 
 Counterpart of ``SqueezeNet`` in ``deeplearning4j_tpu/models/zoo_extra.py``,
 the same graph definition field for field (layer names, ``FIRES``
@@ -31,8 +31,10 @@ from deeplearning4j_tpu_torch.nn.conf.graph_vertices import MergeVertex
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.conf.layers import (
     ConvolutionLayer, ConvolutionMode, DropoutLayer, GlobalPoolingLayer,
-    OutputLayer, PoolingType, SubsamplingLayer)
+    OutputLayer, PoolingType, RnnOutputLayer, SubsamplingLayer)
+from deeplearning4j_tpu_torch.nn.conf.layers_recurrent import LSTM
 from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.nn.weights import WeightInit
 
 
@@ -109,3 +111,37 @@ class SqueezeNet:
         card, raising when there is none)."""
         return ComputationGraph(self.conf()).init(device,
                                                   generator=generator)
+
+
+@dataclass
+class TextGenerationLSTM:
+    """Reference: zoo.model.TextGenerationLSTM, as the JAX zoo builds
+    it: ``layers`` LSTM(``units``, tanh) and a per-timestep softmax over
+    ``total_unique_characters``, Adam(2e-3)."""
+    total_unique_characters: int = 47
+    max_length: int = 60
+    units: int = 256
+    layers: int = 2
+    seed: int = 123
+
+    def conf(self):
+        b = (NeuralNetConfiguration.Builder().seed(self.seed)
+             .updater(Adam(2e-3)).weight_init(WeightInit.XAVIER)
+             .list())
+        for _ in range(self.layers):
+            b = b.layer(LSTM(n_out=self.units, activation=Activation.TANH))
+        return (b.layer(RnnOutputLayer(
+                    n_out=self.total_unique_characters,
+                    loss_function=LossFunction.MCXENT,
+                    activation=Activation.SOFTMAX))
+                .set_input_type(InputType.recurrent(
+                    self.total_unique_characters, self.max_length))
+                .build())
+
+    def init(self, device: Union[None, str, torch.device] = None, *,
+             generator: Optional[torch.Generator] = None
+             ) -> MultiLayerNetwork:
+        """Build and initialise the network on ``device`` (``None``: the
+        card, raising when there is none)."""
+        return MultiLayerNetwork(self.conf()).init(device,
+                                                   generator=generator)

@@ -3,8 +3,12 @@
 Counterpart of ``deeplearning4j_tpu/nn/conf/builders.py``:
 ``NeuralNetConfiguration.Builder()`` with its global defaults,
 ``list()`` into a ``MultiLayerConfiguration`` (whose JSON is the JAX
-package's, read and written verbatim) and ``graph_builder()`` into a
-``ComputationGraphConfiguration``.
+package's, read and written verbatim, recurrent layers and truncated
+BPTT included) and ``graph_builder()`` into a
+``ComputationGraphConfiguration``. As in the JAX package, shape
+inference inserts no Rnn/FeedForward preprocessor by itself: a dense
+layer maps the last axis of a ``[b, t, f]`` input, and
+``RnnOutputLayer`` is per-timestep.
 """
 from __future__ import annotations
 
@@ -16,8 +20,10 @@ from typing import Dict, List, Optional
 from deeplearning4j_tpu_torch.learning.updaters import IUpdater, Sgd
 from deeplearning4j_tpu_torch.nn.conf.inputs import (
     InputType, InputTypeConvolutional, InputTypeConvolutionalFlat)
+from deeplearning4j_tpu_torch.nn.conf import \
+    layers_recurrent  # noqa: F401  registers the recurrent layers
 from deeplearning4j_tpu_torch.nn.conf.layers import (
-    ConvolutionLayer, DenseLayer, Layer, SubsamplingLayer)
+    ConvolutionLayer, DenseLayer, Layer, RnnOutputLayer, SubsamplingLayer)
 from deeplearning4j_tpu_torch.nn.conf.preprocessors import (
     CnnToFeedForwardPreProcessor, FeedForwardToCnnPreProcessor,
     InputPreProcessor)
@@ -43,13 +49,15 @@ def default_preprocessor(cur: InputType, layer: Layer
                          ) -> Optional[InputPreProcessor]:
     """The shape adapter the JAX package inserts before ``layer`` on a
     ``cur`` input: flat to NHWC before a convolution or pooling, NHWC to
-    flat before a dense layer (output layers included)."""
+    flat before a dense layer (output layers included, the per-timestep
+    ``RnnOutputLayer`` not)."""
     if isinstance(cur, InputTypeConvolutionalFlat) and \
             isinstance(layer, (ConvolutionLayer, SubsamplingLayer)):
         return FeedForwardToCnnPreProcessor(cur.height, cur.width,
                                             cur.channels)
     if isinstance(cur, InputTypeConvolutional) and \
-            isinstance(layer, DenseLayer):
+            isinstance(layer, DenseLayer) and \
+            not isinstance(layer, RnnOutputLayer):
         return CnnToFeedForwardPreProcessor(cur.height, cur.width,
                                             cur.channels)
     return None
@@ -170,6 +178,9 @@ class ListBuilder:
         self._layers: List[Layer] = []
         self._preprocessors: Dict[int, InputPreProcessor] = {}
         self._input_type: Optional[InputType] = None
+        self._backprop_type = BackpropType.STANDARD
+        self._tbptt_fwd = 20
+        self._tbptt_back = 20
 
     def layer(self, layer: Layer) -> "ListBuilder":
         self._layers.append(layer)
@@ -184,6 +195,16 @@ class ListBuilder:
         self._input_type = t
         return self
 
+    def backprop_type(self, t: BackpropType) -> "ListBuilder":
+        self._backprop_type = t
+        return self
+
+    def t_bptt_length(self, fwd: int,
+                      back: Optional[int] = None) -> "ListBuilder":
+        self._tbptt_fwd = fwd
+        self._tbptt_back = back if back is not None else fwd
+        return self
+
     def build(self) -> MultiLayerConfiguration:
         b = self._base
         conf = MultiLayerConfiguration(
@@ -192,6 +213,9 @@ class ListBuilder:
             seed=b._seed, updater=b._updater, weight_init=b._weight_init,
             l1=b._l1, l2=b._l2, gradient_normalization=b._grad_norm,
             gradient_normalization_threshold=b._grad_norm_threshold,
+            backprop_type=self._backprop_type,
+            tbptt_fwd_length=self._tbptt_fwd,
+            tbptt_back_length=self._tbptt_back,
             dtype=b._dtype, compute_dtype=b._compute_dtype,
             remat_segments=b._remat_segments, input_type=self._input_type)
         for layer in conf.layers:

@@ -1,7 +1,9 @@
 """Layer configurations and their math.
 
 Counterpart of ``deeplearning4j_tpu/nn/conf/layers.py``, for the
-layers ResNet-50, LeNet-5, SqueezeNet and their output heads use. Each config
+layers ResNet-50, LeNet-5, SqueezeNet, the char-RNN and their output
+heads use (the recurrent layers are in ``layers_recurrent.py``). Each
+config
 dataclass keeps the JAX package's fields, so ``configuration.json``
 round-trips verbatim, and is also the runtime:
 
@@ -9,6 +11,11 @@ round-trips verbatim, and is also the runtime:
     init_state(input_type)               -> {name: CPU tensor}
     forward(params, x, training, state)  -> (y, state)
     get_output_type(input_type)          -> InputType
+
+A layer that ``accepts_mask()`` (the recurrent layers, global pooling,
+``LastTimeStepLayer``) also takes ``mask=``, the ``[b, t]`` features
+mask; ``is_recurrent()`` layers carry a transient per-sequence state
+(``zero_state``).
 
 Layouts are the JAX package's at every public function (NHWC
 activations, dense ``W`` as ``[n_in, n_out]``) except conv kernels,
@@ -56,6 +63,16 @@ def _pair(v) -> Tuple[int, int]:
     return (int(v), int(v))
 
 
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` with the JAX package's dtype promotion: an f32 operand
+    lifts a bf16 or f16 one to f32 (``jnp.matmul`` promotes; torch
+    refuses mixed dtypes)."""
+    if a.dtype != b.dtype:
+        dt = torch.promote_types(a.dtype, b.dtype)
+        a, b = a.to(dt), b.to(dt)
+    return a @ b
+
+
 def _no_dropout(layer, training: bool) -> None:
     if training and layer.dropout is not None:
         raise NotImplementedError(
@@ -84,8 +101,10 @@ class Layer:
     name: Optional[str] = None
 
     def __post_init__(self):
-        if isinstance(self.activation, str):
-            self.activation = Activation.from_name(self.activation)
+        for f in ("activation", "gate_activation"):
+            v = getattr(self, f, None)
+            if isinstance(v, str):
+                setattr(self, f, Activation.from_name(v))
         if isinstance(self.weight_init, str):
             self.weight_init = WeightInit[self.weight_init.upper()]
         lf = getattr(self, "loss_function", None)
@@ -98,6 +117,17 @@ class Layer:
 
     def has_state(self) -> bool:
         return False
+
+    def is_recurrent(self) -> bool:
+        """True for layers with a transient per-sequence state (h, c)."""
+        return False
+
+    def accepts_mask(self) -> bool:
+        """True if ``forward`` takes a per-timestep ``mask``."""
+        return self.is_recurrent()
+
+    def zero_state(self, batch: int, dtype=torch.float32) -> dict:
+        return {}
 
     def init_params(self, generator, input_type: InputType,
                     dtype=torch.float32) -> dict:
@@ -175,7 +205,7 @@ class DenseLayer(Layer):
 
     def _affine(self, params, x, training):
         _no_dropout(self, training)
-        z = x @ params["W"]
+        z = matmul(x, params["W"])
         if self.has_bias:
             z = z + params["b"]
         return z
@@ -429,18 +459,40 @@ class ActivationLayer(Layer):
 
 @dataclass
 class GlobalPoolingLayer(Layer):
-    """Global pooling over the spatial (NHWC / NDHWC) or time axes."""
+    """Global pooling over the spatial (NHWC / NDHWC) or time axes; a
+    ``[b, t]`` mask drops padded timesteps out of the pool."""
 
     pooling_type: PoolingType = PoolingType.MAX
 
     def has_params(self) -> bool:
         return False
 
-    def forward(self, params, x, *, training, state=None):
+    def accepts_mask(self) -> bool:
+        return True
+
+    def forward(self, params, x, *, training, state=None, mask=None):
         axes = {5: (1, 2, 3), 4: (1, 2), 3: (1,)}.get(x.dim())
         if axes is None:
             return x, state
         pt = self.pooling_type
+        if mask is not None and x.dim() in (3, 5):
+            m = mask.to(x.dtype).reshape(
+                tuple(mask.shape[:2]) + (1,) * (x.dim() - 2))
+            spatial = 1
+            for d in x.shape[2:-1]:
+                spatial *= int(d)
+            if pt is PoolingType.MAX:
+                z = torch.amax(torch.where(m > 0, x, float("-inf")),
+                               dim=axes)
+            elif pt is PoolingType.SUM:
+                z = torch.sum(x * m, dim=axes)
+            elif pt is PoolingType.AVG:
+                denom = torch.clamp(mask.to(x.dtype).sum(1), min=1.0)
+                z = torch.sum(x * m, dim=axes) / (denom[:, None] * spatial)
+            else:
+                p = float(getattr(self, "pnorm", 2.0))
+                z = torch.sum(torch.abs(x * m) ** p, dim=axes) ** (1.0 / p)
+            return z, state
         if pt is PoolingType.MAX:
             z = torch.amax(x, dim=axes)
         elif pt is PoolingType.SUM:
@@ -517,7 +569,31 @@ class OutputLayer(BaseOutputLayer):
     """Reference: conf.layers.OutputLayer."""
 
 
+@dataclass
+class RnnOutputLayer(BaseOutputLayer):
+    """Per-timestep output head (reference: conf.layers.RnnOutputLayer):
+    ``[b, t, f] -> [b, t, n_out]``, the affine map and the softmax (or
+    its logits, folded into the loss) at every step."""
+
+    def set_n_in(self, input_type, override):
+        if isinstance(input_type, InputTypeRecurrent) and \
+                (override or not self.n_in):
+            self.n_in = input_type.size
+
+    def get_output_type(self, input_type):
+        t = input_type.timesteps if isinstance(input_type,
+                                               InputTypeRecurrent) else -1
+        return InputType.recurrent(self.n_out, t)
+
+
 LAYER_REGISTRY: dict = {c.__name__: c for c in
                         (DenseLayer, ConvolutionLayer, SubsamplingLayer,
                          BatchNormalization, ActivationLayer,
-                         GlobalPoolingLayer, DropoutLayer, OutputLayer)}
+                         GlobalPoolingLayer, DropoutLayer, OutputLayer,
+                         RnnOutputLayer)}
+
+
+def register_layer(cls):
+    """Register a layer class for the JSON round trip."""
+    LAYER_REGISTRY[cls.__name__] = cls
+    return cls

@@ -1,11 +1,14 @@
 """Input preprocessors: shape adapters between layers.
 
 Counterpart of ``deeplearning4j_tpu/nn/conf/preprocessors.py`` for the
-two a convolutional stack needs: ``FeedForwardToCnnPreProcessor`` (flat
-``[b, h·w·c]`` to NHWC) and ``CnnToFeedForwardPreProcessor`` (NHWC to
-flat). The flat order is ``[h, w, c]`` row-major, the flattened NHWC
-buffer, as in the JAX package, so dense weights after a flatten carry
-over unchanged. Both are reshapes.
+four a convolutional or recurrent stack needs:
+``FeedForwardToCnnPreProcessor`` (flat ``[b, h·w·c]`` to NHWC),
+``CnnToFeedForwardPreProcessor`` (NHWC to flat),
+``RnnToFeedForwardPreProcessor`` (``[b, t, f]`` to ``[b·t, f]``, time
+folded into the batch) and ``FeedForwardToRnnPreProcessor`` (back). The
+flat order is ``[h, w, c]`` row-major, the flattened NHWC buffer, as in
+the JAX package, so dense weights after a flatten carry over unchanged.
+All four are reshapes.
 """
 from __future__ import annotations
 
@@ -64,5 +67,29 @@ class CnnToFeedForwardPreProcessor(InputPreProcessor):
                                       self.channels)
 
 
+@dataclass
+class RnnToFeedForwardPreProcessor(InputPreProcessor):
+    """[b, t, f] -> [b*t, f] (the reference folds time into batch)."""
+
+    def pre_process(self, x):
+        return x.reshape(-1, x.shape[-1])
+
+    def get_output_type(self, input_type):
+        return InputType.feed_forward(input_type.size)
+
+
+@dataclass
+class FeedForwardToRnnPreProcessor(InputPreProcessor):
+    timesteps: int = -1
+
+    def pre_process(self, x):
+        return x.reshape(x.shape[0] // max(self.timesteps, 1),
+                         self.timesteps, x.shape[-1])
+
+    def get_output_type(self, input_type):
+        return InputType.recurrent(input_type.size, self.timesteps)
+
+
 _REGISTRY = {c.__name__: c for c in
-             (FeedForwardToCnnPreProcessor, CnnToFeedForwardPreProcessor)}
+             (FeedForwardToCnnPreProcessor, CnnToFeedForwardPreProcessor,
+              RnnToFeedForwardPreProcessor, FeedForwardToRnnPreProcessor)}

@@ -2,7 +2,8 @@
 
 Counterpart of ``deeplearning4j_tpu/nn/graph.py`` on one device:
 ``init``, the topo-ordered walk of ``_forward`` (without remat, tensor
-parallelism, fsdp or masks), ``output``, and training: ``fit(x, y)``,
+parallelism, fsdp or features masks), ``output``, ``evaluate`` /
+``evaluate_regression``, and training: ``fit(x, y)``,
 ``fit(DataSet)``, ``fit(iterator)``, ``score()``, listeners and the
 dense update tail (``nn/trainer.py``). PyTorch runs eagerly, so there
 is no compiled step: each vertex's layer runs as its own kernels, in
@@ -223,8 +224,10 @@ class ComputationGraph(Trainable):
                       for m in lmasks]
         return inputs, labels, lmasks
 
-    def _loss(self, params, inputs, labels, lmasks, *, training: bool):
-        acts, new_states = self._forward(params, self.states, inputs,
+    def _loss(self, params, states, inputs, labels, lmasks, fmask=None, *,
+              training: bool):
+        # ``fmask`` is always None: ``_split`` carries no features mask
+        acts, new_states = self._forward(params, states, inputs,
                                          training=training,
                                          want_logits=True)
         loss = self._regularization(params)
@@ -236,6 +239,46 @@ class ComputationGraph(Trainable):
                 labels[i], acts[name], from_logits=layer.wants_logits(),
                 mask=lmasks[i] if lmasks is not None else None)
         return loss, new_states
+
+    # -- evaluation ------------------------------------------------------
+    def _eval_batches(self, iterator):
+        """``(labels, output)`` of the first network output per batch,
+        with the labels mask."""
+        if hasattr(iterator, "reset"):
+            iterator.reset()
+        for ds in iterator:
+            if getattr(ds, "features_mask", None) is not None or \
+                    getattr(ds, "features_masks", None):
+                raise NotImplementedError(
+                    "features masks in a ComputationGraph are not "
+                    "ported yet")
+            feats = ds.features if isinstance(ds.features, list) \
+                else [ds.features]
+            out = self.output(*feats)
+            if isinstance(out, list):
+                out = out[0]
+            labels = ds.labels[0] if isinstance(ds.labels, list) \
+                else ds.labels
+            lmasks = getattr(ds, "labels_masks", None)
+            lmask = lmasks[0] if lmasks else getattr(ds, "labels_mask",
+                                                     None)
+            yield labels, out, lmask
+
+    def evaluate(self, iterator):
+        """Classification evaluation of the first output (reference:
+        evaluate(iterator))."""
+        from deeplearning4j_tpu_torch.evaluation import Evaluation
+        ev = Evaluation()
+        for labels, out, lmask in self._eval_batches(iterator):
+            ev.eval(labels, out, mask=lmask)
+        return ev
+
+    def evaluate_regression(self, iterator):
+        from deeplearning4j_tpu_torch.evaluation import RegressionEvaluation
+        ev = RegressionEvaluation()
+        for labels, out, lmask in self._eval_batches(iterator):
+            ev.eval(labels, out, mask=lmask)
+        return ev
 
     # ------------------------------------------------------------------
     def num_params(self) -> int:

@@ -1,25 +1,41 @@
 """MultiLayerNetwork: a sequential layer stack.
 
 Counterpart of ``deeplearning4j_tpu/nn/multilayer.py`` on one device:
-``init``, ``output``, ``fit`` (x, y | DataSet | iterator), ``score``,
-listeners and per-layer updaters, on the training step shared with
+``init``, ``output``, ``feed_forward``, ``predict``, ``fit`` (x, y |
+DataSet | iterator), ``fit_steps``, ``score``, ``evaluate``, listeners
+and per-layer updaters, on the training step shared with
 ComputationGraph (``nn/trainer.py``). Parameters, states and updater
 states are keyed ``"layer_<i>"``, as in the JAX package, so its zips
 and trees carry across (``utils/serializer.py``). Each layer's input
 passes its preprocessor first (``conf.input_preprocessors``, filled in
 by shape inference: flat to NHWC before a convolution, NHWC to flat
 before a dense layer).
+
+Sequences (``[b, t, f]``): a DataSet's ``features_mask`` (``[b, t]``)
+reaches every layer that accepts one, and its ``labels_mask`` the loss.
+Recurrent layers' state is transient, as in the JAX package: each fit
+batch starts from zero states in ``dtype`` and they are dropped after
+it, so nothing of one batch leaks into the next or into ``output``
+(which starts from zeros of the input's dtype). With
+``backprop_type=TRUNCATED_BPTT`` a batch trains as segments of
+``tbptt_fwd_length`` steps, one update and one iteration each, the
+state carried from segment to segment and detached between them (the
+truncation). ``rnn_time_step`` streams a sequence a step or a chunk at
+a time, carrying the state across calls until
+``rnn_clear_previous_state``.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional, Union
 
+import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.common.environment import resolve_device
-from deeplearning4j_tpu_torch.nn.conf.builders import \
-    MultiLayerConfiguration
+from deeplearning4j_tpu_torch.nn.conf.builders import (
+    BackpropType, MultiLayerConfiguration)
 from deeplearning4j_tpu_torch.nn.conf.layers import BaseOutputLayer
+from deeplearning4j_tpu_torch.nn.conf.layers_recurrent import Bidirectional
 from deeplearning4j_tpu_torch.nn.graph import (
     as_device_tensor, cast_floats, check_activation_dtype, to_torch_dtype)
 from deeplearning4j_tpu_torch.nn.trainer import Trainable
@@ -34,6 +50,8 @@ class MultiLayerNetwork(Trainable):
         self.device: Optional[torch.device] = None
         self._dtype = to_torch_dtype(conf.dtype)
         self._initialized = False
+        self._rnn_stream_states: Optional[dict] = None
+        self._rnn_stream_batch = 0
 
     # ------------------------------------------------------------------
     def init(self, device: Union[None, str, torch.device] = None, *,
@@ -100,8 +118,11 @@ class MultiLayerNetwork(Trainable):
 
     # ------------------------------------------------------------------
     def _forward(self, params, states, x: torch.Tensor, *,
-                 training: bool = False, want_logits: bool = False):
-        """Walk the stack; returns ``(out, new_states)``."""
+                 training: bool = False, want_logits: bool = False,
+                 mask: Optional[torch.Tensor] = None):
+        """Walk the stack; ``mask`` is the ``[b, t]`` features mask, given
+        to the layers that accept one. Returns ``(out, new_states)``,
+        both in ``dtype`` under ``compute_dtype``."""
         conf = self.conf
         if conf.compute_dtype:
             cd = to_torch_dtype(conf.compute_dtype)
@@ -124,18 +145,27 @@ class MultiLayerNetwork(Trainable):
                     layer.wants_logits():
                 h, ns = layer.forward_logits(lp, h, training=training,
                                              state=ls)
+            elif mask is not None and layer.accepts_mask():
+                h, ns = layer.forward(lp, h, training=training, state=ls,
+                                      mask=mask)
             else:
                 h, ns = layer.forward(lp, h, training=training, state=ls)
             new_states[k] = ns or {}
         if conf.compute_dtype:
             h = h.to(self._dtype)
+            new_states = cast_floats(new_states, self._dtype)
         return h, new_states
 
+    # ------------------------------------------------------------------
     def _as_input(self, x) -> torch.Tensor:
         return as_device_tensor(x, self._dtype, self.device)
 
-    def output(self, x, train: bool = False) -> torch.Tensor:
-        """Inference forward on ``self.device``."""
+    def _as_mask(self, m) -> Optional[torch.Tensor]:
+        return self._as_input(m) if m is not None else None
+
+    def output(self, x, train: bool = False, mask=None) -> torch.Tensor:
+        """Inference forward on ``self.device``; ``mask`` is the ``[b, t]``
+        features mask of a sequence batch."""
         if train:
             raise NotImplementedError(
                 "output(train=True) is not ported yet")
@@ -143,29 +173,184 @@ class MultiLayerNetwork(Trainable):
             self.init()
         with torch.inference_mode():
             out, _ = self._forward(self.params, self.states,
-                                   self._as_input(x))
+                                   self._as_input(x),
+                                   mask=self._as_mask(mask))
         return out
+
+    def feed_forward(self, x, train: bool = False) -> list:
+        """Every layer's activation, the input first (reference:
+        feedForward), in the compute dtype."""
+        if train:
+            raise NotImplementedError(
+                "feed_forward(train=True) is not ported yet")
+        if not self._initialized:
+            self.init()
+        conf = self.conf
+        h = self._as_input(x)
+        params = self.params
+        if conf.compute_dtype:
+            cd = to_torch_dtype(conf.compute_dtype)
+            params = cast_floats(params, cd)
+            if h.is_floating_point():
+                h = h.to(cd)
+        acts = [h]
+        with torch.inference_mode():
+            for i, layer in enumerate(conf.layers):
+                if i in conf.input_preprocessors:
+                    h = conf.input_preprocessors[i].pre_process(h)
+                h, _ = layer.forward(params.get(f"layer_{i}", {}), h,
+                                     training=False,
+                                     state=self.states.get(f"layer_{i}")
+                                     or None)
+                acts.append(h)
+        return acts
+
+    def predict(self, x) -> np.ndarray:
+        """Argmax class predictions (reference: predict)."""
+        return self.output(x).argmax(-1).cpu().numpy()
 
     # -- training --------------------------------------------------------
     def _split(self, data, labels):
         if labels is None:
             x, y = data.features, data.labels
             lmask = getattr(data, "labels_mask", None)
+            fmask = getattr(data, "features_mask", None)
         else:
-            x, y, lmask = data, labels, None
+            x, y, lmask, fmask = data, labels, None, None
         return ([self._as_input(x)], [self._as_input(y)],
-                [self._as_input(lmask)] if lmask is not None else None)
+                [self._as_mask(lmask)] if lmask is not None else None,
+                self._as_mask(fmask))
 
-    def _loss(self, params, inputs, labels, lmasks, *, training: bool):
+    def _loss(self, params, states, inputs, labels, lmasks, fmask=None, *,
+              training: bool):
         out_layer = self.output_layer_conf
         want_logits = out_layer.wants_logits()
-        out, new_states = self._forward(params, self.states, inputs[0],
+        out, new_states = self._forward(params, states, inputs[0],
                                         training=training,
-                                        want_logits=True)
+                                        want_logits=True, mask=fmask)
         data_loss = out_layer.compute_loss(
             labels[0], out, from_logits=want_logits,
             mask=lmasks[0] if lmasks is not None else None)
         return data_loss + self._regularization(params), new_states
+
+    def _fit_batch(self, inputs, labels, lmasks, fmask=None) -> None:
+        if self.conf.backprop_type is not BackpropType.TRUNCATED_BPTT or \
+                inputs[0].dim() != 3:
+            return super()._fit_batch(inputs, labels, lmasks, fmask)
+        self._keep_states(self._fit_tbptt(inputs, labels, lmasks, fmask))
+        self._batch_done(inputs)
+
+    def _fit_tbptt(self, inputs, labels, lmasks, fmask):
+        """Segments of ``tbptt_fwd_length`` steps (the last one may be
+        shorter), one update each; the state carries across segments,
+        detached by ``_train_step``, so no gradient crosses them."""
+        x, y = inputs[0], labels[0]
+        L = self.conf.tbptt_fwd_length
+
+        def seg(m, t0):
+            return m[:, t0:t0 + L] if m is not None and m.dim() >= 2 \
+                else m
+
+        states = self._with_zero_rnn_states(self.states, int(x.shape[0]))
+        for t0 in range(0, int(x.shape[1]), L):
+            states = self._train_step(
+                states, [x[:, t0:t0 + L]],
+                [y[:, t0:t0 + L] if y.dim() >= 3 else y],
+                [seg(lmasks[0], t0)] if lmasks is not None else None,
+                seg(fmask, t0))
+        return states
+
+    def fit_steps(self, ds, steps: int) -> "MultiLayerNetwork":
+        """``steps`` updates on one batch, as a plain loop of
+        ``_train_step``. As in the JAX package's compiled loop, the
+        recurrent state starts at zero once and carries from step to
+        step, listeners fire once with the last loss, and masked
+        DataSets are refused."""
+        if not self._initialized:
+            self.init()
+        if getattr(ds, "features_mask", None) is not None or \
+                getattr(ds, "labels_mask", None) is not None:
+            raise ValueError(
+                "fit_steps does not support masked DataSets: padded "
+                "timesteps would train as real data; use fit()")
+        x, y = self._as_input(ds.features), self._as_input(ds.labels)
+        states = self._with_zero_rnn_states(self.states, int(x.shape[0]))
+        for _ in range(steps):
+            states = self._train_step(states, [x], [y], None)
+        self._keep_states(states)
+        self._batch_done([x])
+        return self
+
+    # -- stateful streaming inference ------------------------------------
+    def rnn_time_step(self, x) -> torch.Tensor:
+        """Feed one step (``[b, f]``, answered as ``[b, n_out]``) or a
+        chunk (``[b, t, f]``) of a sequence, carrying the recurrent state
+        across calls (reference: rnnTimeStep)."""
+        if any(isinstance(layer, Bidirectional)
+               for layer in self.conf.layers):
+            # the backward direction needs future timesteps
+            raise ValueError(
+                "rnnTimeStep is not supported on networks with "
+                "Bidirectional layers")
+        if not self._initialized:
+            self.init()
+        x = self._as_input(x)
+        single_step = x.dim() == 2
+        if single_step:
+            x = x[:, None, :]
+        batch = int(x.shape[0])
+        if self._rnn_stream_states is None:
+            self._rnn_stream_states = self._with_zero_rnn_states(
+                self.states, batch)
+            self._rnn_stream_batch = batch
+        elif batch != self._rnn_stream_batch:
+            raise ValueError(
+                f"rnnTimeStep batch size {batch} != stored state batch "
+                f"size {self._rnn_stream_batch}; call "
+                f"rnn_clear_previous_state() first")
+        with torch.inference_mode():
+            out, new_states = self._forward(
+                self.params, self._rnn_stream_states, x)
+        merged = dict(self._rnn_stream_states)
+        for k in self._recurrent_keys():
+            merged[k] = new_states[k]
+        self._rnn_stream_states = merged
+        if single_step and out.dim() == 3:
+            out = out[:, -1]
+        return out
+
+    def rnn_clear_previous_state(self) -> None:
+        self._rnn_stream_states = None
+
+    def rnn_get_previous_state(self, layer_idx: int) -> Optional[dict]:
+        if self._rnn_stream_states is None:
+            return None
+        return self._rnn_stream_states.get(f"layer_{layer_idx}")
+
+    # -- evaluation ------------------------------------------------------
+    def evaluate(self, iterator):
+        """Classification evaluation (reference: evaluate(iterator)):
+        outputs under each batch's features mask, counted under its
+        labels mask."""
+        from deeplearning4j_tpu_torch.evaluation import Evaluation
+        ev = Evaluation()
+        if hasattr(iterator, "reset"):
+            iterator.reset()
+        for ds in iterator:
+            out = self.output(ds.features,
+                              mask=getattr(ds, "features_mask", None))
+            ev.eval(ds.labels, out, mask=getattr(ds, "labels_mask", None))
+        return ev
+
+    def evaluate_regression(self, iterator):
+        from deeplearning4j_tpu_torch.evaluation import RegressionEvaluation
+        ev = RegressionEvaluation()
+        if hasattr(iterator, "reset"):
+            iterator.reset()
+        for ds in iterator:
+            out = self.output(ds.features)
+            ev.eval(ds.labels, out, mask=getattr(ds, "labels_mask", None))
+        return ev
 
     def num_params(self) -> int:
         return int(sum(t.numel() for sub in self.params.values()

@@ -16,9 +16,15 @@ and no second copy of the weights is made. Updater state is replaced
 slot by slot, as the JAX package returns it.
 
 A subclass provides ``_keys()`` (its parameter groups in order),
-``_layer(key)``, ``_loss(params, inputs, labels, lmasks)`` returning
-``(loss, new_states)``, and ``_split(data)`` turning ``(x, y)`` or a
-DataSet into lists of tensors on the device.
+``_layer(key)``, ``_loss(params, states, inputs, labels, lmasks[,
+fmask])`` returning ``(loss, new_states)``, and ``_split(data)`` turning
+``(x, y)`` or a DataSet into ``(inputs, labels, lmasks[, fmask])`` on
+the device. ``_train_step`` is one update from given states.
+``_fit_batch`` runs it from ``self.states`` with every recurrent layer's
+state zeroed for the batch, then keeps each non-empty new state
+(BatchNormalization's running stats) and drops the recurrent ones, as
+the JAX package does: each batch is a fresh sequence, and nothing of it
+leaks into the next batch or into ``output``.
 """
 from __future__ import annotations
 
@@ -106,14 +112,52 @@ class Trainable:
                 lis.on_epoch_end(self)
         return self
 
+    def _recurrent_keys(self) -> List[str]:
+        return [k for k in self._keys() if self._layer(k) is not None
+                and self._layer(k).is_recurrent()]
+
+    def _with_zero_rnn_states(self, states: _Tree, batch: int) -> _Tree:
+        """States for a fresh sequence: persistent entries (BN) kept,
+        recurrent ones zeros of ``dtype`` for ``batch``."""
+        out = dict(states)
+        for k in self._recurrent_keys():
+            out[k] = {n: t.to(self.device) for n, t in
+                      self._layer(k).zero_state(batch, self._dtype).items()}
+        return out
+
+    def _keep_states(self, new_states: _Tree) -> None:
+        """Keep each non-empty new state; drop the recurrent ones."""
+        for k, st in new_states.items():
+            if st:
+                self.states[k] = st
+        for k in self._recurrent_keys():
+            self.states[k] = {}
+
     def _fit_batch(self, inputs: List[torch.Tensor],
-                   labels: List[torch.Tensor], lmasks) -> None:
+                   labels: List[torch.Tensor], lmasks, fmask=None) -> None:
+        states = self._with_zero_rnn_states(self.states,
+                                            int(inputs[0].shape[0]))
+        self._keep_states(self._train_step(states, inputs, labels, lmasks,
+                                           fmask))
+        self._batch_done(inputs)
+
+    def _batch_done(self, inputs: List[torch.Tensor]) -> None:
+        self.last_batch_size = int(inputs[0].shape[0])
+        for lis in self.listeners:
+            lis.iteration_done(self, self.iteration_count - 1,
+                               self.epoch_count)
+
+    def _train_step(self, states: _Tree, inputs: List[torch.Tensor],
+                    labels: List[torch.Tensor], lmasks, fmask=None
+                    ) -> _Tree:
+        """One loss, gradient and update from ``states``; returns the new
+        states, detached (no gradient crosses two steps)."""
         leaves = {k: {n: t.detach().requires_grad_(True)
                       for n, t in sub.items()}
                   for k, sub in self.params.items()}
         with torch.enable_grad():
-            loss, new_states = self._loss(leaves, inputs, labels, lmasks,
-                                          training=True)
+            loss, new_states = self._loss(leaves, states, inputs, labels,
+                                          lmasks, fmask, training=True)
         flat = [(k, n, t) for k, sub in leaves.items()
                 for n, t in sub.items()]
         grads_flat = torch.autograd.grad(loss, [t for _, _, t in flat],
@@ -124,15 +168,10 @@ class Trainable:
                                           else torch.zeros_like(t))
         with torch.no_grad():
             self._update_tail(grads)
-        for k, st in new_states.items():
-            if st:
-                self.states[k] = st
         self._score = loss.detach()
-        self.last_batch_size = int(inputs[0].shape[0])
         self.iteration_count += 1
-        for lis in self.listeners:
-            lis.iteration_done(self, self.iteration_count - 1,
-                               self.epoch_count)
+        return {k: {n: t.detach() for n, t in st.items()}
+                for k, st in new_states.items()}
 
     def _update_tail(self, grads: _Tree) -> None:
         conf = self.conf
@@ -162,8 +201,8 @@ class Trainable:
         if dataset is None:
             return float("nan") if self._score is None \
                 else float(self._score)
-        inputs, labels, lmasks = self._split(dataset, None)
+        inputs, labels, lmasks, *fmask = self._split(dataset, None)
         with torch.no_grad():
-            loss, _ = self._loss(self.params, inputs, labels, lmasks,
-                                 training=False)
+            loss, _ = self._loss(self.params, self.states, inputs, labels,
+                                 lmasks, *fmask, training=False)
         return float(loss)

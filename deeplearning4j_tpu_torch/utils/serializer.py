@@ -9,7 +9,10 @@ restores in the other.
 Weights cross at this boundary: the JAX package keeps conv kernels HWIO
 and the port OIHW (:func:`params_from_jax` / :func:`params_to_jax`, for
 a ComputationGraph's vertices or a MultiLayerNetwork's ``layer_<i>``);
-dense ``W`` stays ``[n_in, n_out]``; BatchNormalization ``mean``/``var``
+dense ``W`` stays ``[n_in, n_out]``, and the recurrent leaves (``W``,
+``RW``, ``b``, ``pI``, ``pF``, ``pO``) cross with no layout change; a
+Bidirectional layer's nested ``fwd``/``bwd`` trees become the port's
+``"fwd/W"``-style names. BatchNormalization ``mean``/``var``
 come from ``modelState.npz``. Updater state crosses the same way
 (:func:`updater_state_from_jax` / :func:`updater_state_to_jax`: each
 slot of a conv kernel moves between HWIO and OIHW). BERT's trees
@@ -20,10 +23,12 @@ classifier) cross as they are: both packages compute ``x @ W`` with
 ``{slot: {"group/name": tensor}}`` in the port and ``{slot: tree}`` in
 the JAX package. ``DecoderLM``'s two-level tree (``conf`` a
 ``DecoderConfig``: ``embed``, ``layer_<i>``, ``head``) crosses the same
-way, leaf names and shapes checked. The zips themselves
-do not carry updater state yet: ``restore_model`` reads and
-``write_model`` writes no ``updaterState.npz``, and restores
-ComputationGraph zips only.
+way, leaf names and shapes checked.
+
+``restore_model`` restores ComputationGraph and MultiLayerNetwork zips,
+every leaf's name and shape checked against the configuration's, and
+reads ``updaterState.npz`` back when present, so training resumes where
+it stopped; ``write_model`` writes it. SameDiff zips are not ported.
 """
 from __future__ import annotations
 
@@ -204,11 +209,11 @@ def params_from_jax(params_np: dict, states_np: dict, conf: _Conf
         return unflatten_tree({p: torch.from_numpy(np.array(a))
                                for p, a in flat.items()}), {}
     params: _Tree = {k: {} for k in _keys(conf)}
-    for key, _, name, a in _split_key(conf, _flatten(params_np)):
-        params[key][name] = _to_port(conf, key, name, a)
+    for key, path, name, a in _split_key(conf, _flatten(params_np)):
+        params[key]["/".join(path + [name])] = _to_port(conf, key, name, a)
     states: _Tree = {k: {} for k in _keys(conf)}
-    for key, _, name, a in _split_key(conf, _flatten(states_np)):
-        states[key][name] = torch.from_numpy(np.array(a))
+    for key, path, name, a in _split_key(conf, _flatten(states_np)):
+        states[key]["/".join(path + [name])] = torch.from_numpy(np.array(a))
     return params, states
 
 
@@ -243,8 +248,9 @@ def updater_state_from_jax(upd_np: dict, conf: _Conf
         return bert
     out: Dict[str, Dict[str, _Tree]] = {k: {} for k in _keys(conf)}
     for key, path, name, a in _split_key(conf, _flatten(upd_np)):
-        slot = "/".join(path)
-        out[key].setdefault(slot, {})[name] = _to_port(conf, key, name, a)
+        slot, *sub = path
+        out[key].setdefault(slot, {})["/".join(sub + [name])] = \
+            _to_port(conf, key, name, a)
     return out
 
 
@@ -259,6 +265,27 @@ def updater_state_to_jax(upd: Dict[str, Dict[str, _Tree]], conf: _Conf
     return {f"{key}/{slot}/{name}": _to_jax(conf, key, name, t)
             for key in sorted(upd) for slot in sorted(upd[key])
             for name, t in sorted(upd[key][slot].items())}
+
+
+def _check_leaves(want: dict, got: dict, what: str,
+                  exact: bool = False) -> None:
+    """Every leaf of ``got`` (``{key: {name: tensor}}``) is one of
+    ``want``'s with its shape; with ``exact``, none of ``want``'s is
+    missing either."""
+    for key, sub in got.items():
+        for n, t in sub.items():
+            if n not in want.get(key, {}):
+                raise ValueError(f"{what}: {key}/{n} is not a leaf of the "
+                                 f"configuration")
+            if tuple(t.shape) != tuple(want[key][n].shape):
+                raise ValueError(
+                    f"{what}: {key}/{n} has shape {tuple(t.shape)}, the "
+                    f"configuration's is {tuple(want[key][n].shape)}")
+    if exact:
+        missing = [f"{k}/{n}" for k, sub in want.items() for n in sub
+                   if n not in got.get(k, {})]
+        if missing:
+            raise ValueError(f"{what} lacks {missing[:5]}")
 
 
 def _read_npz(zf: zipfile.ZipFile, name: str) -> dict:
@@ -286,28 +313,54 @@ class ModelSerializer:
         return meta
 
     @staticmethod
-    def restore_model(path, device: Union[None, str, torch.device] = None):
-        """Restore a ComputationGraph zip onto ``device`` (``None``: the
-        card, raising when there is none)."""
+    def restore_model(path, device: Union[None, str, torch.device] = None,
+                      load_updater: bool = True):
+        """Restore a ComputationGraph or MultiLayerNetwork zip onto
+        ``device`` (``None``: the card, raising when there is none), with
+        its updater state when ``load_updater`` and the zip holds one."""
         from deeplearning4j_tpu_torch.common.environment import \
             resolve_device
         from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+        from deeplearning4j_tpu_torch.nn.multilayer import \
+            MultiLayerNetwork
         device = resolve_device(device)
         cls = ModelSerializer.peek_meta(path).get("model_class")
-        if cls != "ComputationGraph":
+        if cls == "ComputationGraph":
+            conf_cls, net_cls = ComputationGraphConfiguration, \
+                ComputationGraph
+        elif cls == "MultiLayerNetwork":
+            conf_cls, net_cls = MultiLayerConfiguration, MultiLayerNetwork
+        else:
             raise NotImplementedError(
                 f"restoring a {cls} is not ported yet (the port restores "
-                f"ComputationGraph zips)")
+                f"ComputationGraph and MultiLayerNetwork zips)")
         with zipfile.ZipFile(Path(path)) as zf:
-            conf = ComputationGraphConfiguration.from_json(
-                zf.read(CONFIG_ENTRY).decode())
+            names = zf.namelist()
+            conf = conf_cls.from_json(zf.read(CONFIG_ENTRY).decode())
             states_np = (_read_npz(zf, STATE_ENTRY)
-                         if STATE_ENTRY in zf.namelist() else {})
+                         if STATE_ENTRY in names else {})
             params, states = params_from_jax(
                 _read_npz(zf, COEFFICIENTS_ENTRY), states_np, conf)
+            upd_np = (_read_npz(zf, UPDATER_ENTRY)
+                      if load_updater and UPDATER_ENTRY in names else None)
             meta = json.loads(zf.read(META_ENTRY).decode()) \
-                if META_ENTRY in zf.namelist() else {}
-        net = ComputationGraph(conf).set_params(params, states, device)
+                if META_ENTRY in names else {}
+        # the configuration's own leaves, from a CPU initialisation
+        template = net_cls(conf).init("cpu")
+        _check_leaves(template.params, params, "coefficients",
+                      exact=True)
+        _check_leaves(template.states, states, "model state")
+        states = {k: {**template.states[k], **states[k]}
+                  for k in template.states}
+        net = net_cls(conf).set_params(params, states, device)
+        if upd_np is not None:
+            upd = updater_state_from_jax(upd_np, conf)
+            for key, slots in upd.items():
+                _check_leaves(template.updater_states[key], slots,
+                              f"updater state of {key}")
+                for slot, leaves in slots.items():
+                    for n, t in leaves.items():
+                        net.updater_states[key][slot][n] = t.to(device)
         net.iteration_count = meta.get("iteration_count", 0)
         net.epoch_count = meta.get("epoch_count", 0)
         return net

@@ -631,3 +631,56 @@ def test_squeezenet_forward_launches_kernels_4_and_1(compute_dtype):
     assert delta == {k: {"matmul_bias_act": 17, "scale_shift_act": 9}
                      .get(k, 0) for k in delta}
     assert out.shape == (2, 1000) and bool(torch.isfinite(out).all())
+
+
+@pytest.mark.gpu
+def test_graves_lstm_char_rnn_step_and_stream_on_the_card(monkeypatch):
+    """A 2 x GravesLSTM(64) char-RNN: one f32 fit step on the card
+    against the same step on the CPU (matmul TF32 off; the updated
+    weights within 1e-4 in norm), no ported kernel launched, and
+    ``rnn_time_step`` fed one step at a time against ``output`` (1e-5)."""
+    _need_card()
+    from deeplearning4j_tpu_torch.activations import Activation
+    from deeplearning4j_tpu_torch.learning.updaters import Adam
+    from deeplearning4j_tpu_torch.lossfunctions import LossFunction
+    from deeplearning4j_tpu_torch.nn.conf.builders import \
+        NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.conf.layers import RnnOutputLayer
+    from deeplearning4j_tpu_torch.nn.conf.layers_recurrent import GravesLSTM
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.ops import cuda_build
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    V, T, B = 30, 24, 8
+    conf = (NeuralNetConfiguration.Builder().seed(3).updater(Adam(5e-3))
+            .list()
+            .layer(GravesLSTM(n_out=64, activation=Activation.TANH))
+            .layer(GravesLSTM(n_out=64, activation=Activation.TANH))
+            .layer(RnnOutputLayer(n_out=V, loss_function=LossFunction.MCXENT,
+                                  activation=Activation.SOFTMAX))
+            .set_input_type(InputType.recurrent(V, T)).build())
+    cpu = MultiLayerNetwork(conf).init(
+        "cpu", generator=torch.Generator().manual_seed(3))
+    card = MultiLayerNetwork(conf).set_params(
+        {k: {n: t.clone() for n, t in sub.items()}
+         for k, sub in cpu.params.items()}, {}, "cuda")
+    g = torch.Generator().manual_seed(4)
+    eye = torch.eye(V)
+    x = eye[torch.randint(0, V, (B, T), generator=g)]
+    y = eye[torch.randint(0, V, (B, T), generator=g)]
+    before = {k: v.launches for k, v in cuda_build.KERNELS.items()}
+    card.fit(x.cuda(), y.cuda())
+    cpu.fit(x, y)
+    torch.cuda.synchronize()
+    assert all(v.launches == before[k]
+               for k, v in cuda_build.KERNELS.items())
+    assert abs(card.score() - cpu.score()) <= 1e-5 * abs(cpu.score())
+    for k, sub in cpu.params.items():
+        for n, t in sub.items():
+            d = float((card.params[k][n].cpu() - t).norm() / t.norm())
+            assert d <= 1e-4, (k, n, d)
+    xc = x.cuda()
+    stream = torch.stack([card.rnn_time_step(xc[:, t]) for t in range(T)],
+                         1)
+    assert float((stream - card.output(xc)).abs().max()) <= 1e-5
+    assert card.rnn_get_previous_state(1)["c"].device.type == "cuda"
