@@ -3,8 +3,9 @@
 ResNet-50, training ResNet-50 (ComputationGraph) and training LeNet-5
 (MultiLayerNetwork), BERT-base inference and pretraining, generative
 serving of a GPT-2-small-width decoder, serving SqueezeNet, the bundled
-checkpoints held to their quality gates, and training the GravesLSTM
-char-RNN (BASELINE config #3).
+checkpoints held to their quality gates, training the GravesLSTM
+char-RNN (BASELINE config #3), and BERT-base imported from a frozen
+TensorFlow GraphDef into SameDiff (BASELINE config #4).
 
 Run from the root of a checkout, with no arguments, on a machine with
 one NVIDIA H100 (it fails without a card, and without the package):
@@ -136,7 +137,23 @@ Phases, each of which fails the run (exit 1) when its check fails:
     against ``output`` (1e-5, f32); 64 greedy characters at batch 64
     through ``rnn_time_step`` (chars/s; the choices equal the
     whole-sequence forward's but at ties); one f32 step at H=64 card
-    against CPU (matmul TF32 off), with ``train_card_vs_cpu``'s bars.
+    against CPU (matmul TF32 off), with ``train_card_vs_cpu``'s bars;
+18. SameDiff BERT (BASELINE config #4): the frozen BERT-base GraphDef
+    (L=12, H=768, A=12, vocab 30522; batch 32, t=128, seed 0) written
+    without TensorFlow by ``modelimport/tensorflow/bert_graph.py``,
+    imported onto the card with the GraphOptimizer (12 attention
+    fusions, 24 LayerNorm and 12 GELU re-fusions, no softmax left on
+    the output's walk); ``SameDiff.output`` with padded key masks (12
+    launches of kernel 7 a forward, nothing else), within
+    ``SD_FWD_RTOL`` / ``SD_FWD_ATOL`` of the same bytes imported with
+    ``optimize=False`` (TF32 off); ms a forward, idle share, kernel 7's
+    share of busy; the weight-tied MLM head (32 gathered predictions,
+    Adam(5e-4)): 10 ``fit_steps`` in f32 then bf16 (12 launches each of
+    kernels 7, 8, 9 a step; the loss falls), ms a step, tokens/s, idle
+    share, beside the native ``Bert``'s forward and step from phases 10
+    and 11; the trained graph saved and restored by ``restore_model``
+    (output bitwise equal); card against CPU at 2 layers and batch 2
+    (forward, and one SGD step norm-wise against a float64 step).
 
 Then one JSON line of kernel records (each kernel's times from its own
 timing phase, its launches from the path that carries it), the
@@ -2158,6 +2175,301 @@ def bert_card_vs_cpu(torch, device: str = "cuda", layers: int = 2,
 
 
 # ---------------------------------------------------------------------------
+#: BERT-base's widths, the dimensions of BASELINE config #4's TF graph
+SD_BERT = dict(vocab=30522, hidden=768, heads=12, layers=12,
+               intermediate=3072)
+#: optimized import (flash kernel 7, F.layer_norm, fused GELU) against
+#: the same bytes imported with optimize=False (the TF graph's dense
+#: op-by-op chain), both on the card, TF32 off: full-f32 sums in other
+#: orders through 12 layers, each ending in a LayerNorm (outputs ~1)
+SD_FWD_RTOL, SD_FWD_ATOL = 1e-4, 1e-4
+SD_PREDICTIONS = 32
+
+
+def sd_bert_batch(torch, g, batch: int, t: int, vocab: int, device: str,
+                  predictions: int = SD_PREDICTIONS) -> dict:
+    """The imported graph's placeholders (int32, as TF feeds them):
+    random ids, padded key masks (lengths t/2..t, the first full, so
+    every row keeps its keys), segment B over the second half, and
+    ``predictions`` MLM positions a sequence among its real tokens."""
+    lengths = torch.randint(t // 2, t + 1, (batch,), generator=g)
+    lengths[0] = t
+    pos = torch.arange(t)[None]
+    mask = (pos < lengths[:, None]).int()
+    positions = torch.stack([
+        torch.sort(torch.randperm(int(n), generator=g)[:predictions])[0]
+        for n in lengths])
+    out = {"ids": torch.randint(5, vocab, (batch, t), generator=g),
+           "seg": ((pos >= lengths[:, None] // 2) & (mask > 0)).int(),
+           "mask": mask, "mlm_positions": positions,
+           "mlm_labels": torch.randint(5, vocab, (batch, predictions),
+                                       generator=g)}
+    return {k: v.to(torch.int32).to(device) for k, v in out.items()}
+
+
+def _encoder_feeds(b: dict) -> dict:
+    return {k: b[k] for k in ("ids", "seg", "mask")}
+
+
+def phase_sd_bert(torch, label: str, device: str = "cuda", dims=None,
+                  batch: int = BATCH, t: int = 128, steps: int = 10,
+                  native: Optional[dict] = None) -> dict:
+    """BASELINE config #4: the TF-free writer's frozen BERT GraphDef at
+    BERT-base's widths, imported and optimized (``run_import``), served
+    through ``SameDiff.output`` and trained with the weight-tied MLM
+    head through ``fit_steps`` (Adam(5e-4), f32 then bf16), saved and
+    restored. ``device="cpu"`` with small ``dims`` rehearses the phase
+    without a card (counts, timings and profiles are the card's).
+    ``native``: ``phase_serve``/``phase_bert_train`` results to print
+    beside."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.learning.updaters import Adam
+    from deeplearning4j_tpu_torch.modelimport.tensorflow import \
+        TensorflowFrameworkImporter
+    from deeplearning4j_tpu_torch.modelimport.tensorflow.bert_graph import (
+        build_frozen_bert, import_and_attach_mlm)
+    from deeplearning4j_tpu_torch.modelimport.tensorflow.protobuf import \
+        parse_graphdef
+    from deeplearning4j_tpu_torch.utils.serializer import ModelSerializer
+    dims = dict(dims or SD_BERT)
+    L, H, V = dims["layers"], dims["hidden"], dims["vocab"]
+    n_pred = min(SD_PREDICTIONS, t // 2)
+    on_card = device == "cuda"
+    shapes = {n: (batch, t) for n in ("ids", "seg", "mask")}
+    res: dict = {}
+
+    t0 = time.perf_counter()
+    gd = build_frozen_bert(t, batch, seed=0, **dims)
+    res["build_s"] = time.perf_counter() - t0
+    res["graphdef_bytes"] = len(gd)
+    t0 = time.perf_counter()
+    nodes = parse_graphdef(gd)
+    res["decode_s"] = time.perf_counter() - t0
+    res["graphdef_nodes"] = len(nodes)
+    print(f"[sd-bert] frozen GraphDef L={L} H={H} A={dims['heads']} vocab "
+          f"{V}, batch {batch}, t={t}: {res['graphdef_bytes']} bytes, "
+          f"{res['graphdef_nodes']} nodes, written without TF in "
+          f"{res['build_s']:.2f}s, decoded in {res['decode_s']:.2f}s")
+    t0 = time.perf_counter()
+    sd = TensorflowFrameworkImporter.run_import(gd, shapes, device=device)
+    _sync(torch, device)
+    res["import_s"] = time.perf_counter() - t0
+    counts = dict(sd.graphopt_counts)
+    walk = [sd.ops[i].op_name for i in sd._ancestors(["Identity"])]
+    res.update(graphopt=counts, ops_walked=len(walk))
+    print(f"[sd-bert] imported onto {device} in {res['import_s']:.2f}s "
+          f"(decode + import + GraphOptimizer); counts {counts}; "
+          f"{len(walk)} ops walked a forward")
+    want = {"attention_fuse": L, "layernorm_refuse": 2 * L,
+            "gelu_refuse": L, "mask_strength_reduce": L}
+    check(all(counts.get(k) == v for k, v in want.items()),
+          f"GraphOptimizer counts {counts}, expected {want}")
+    check("softmax" not in walk and walk.count("sdpa_core") == L,
+          f"the output's walk holds {walk.count('softmax')} softmax and "
+          f"{walk.count('sdpa_core')} sdpa_core ops")
+
+    g = torch.Generator().manual_seed(53)
+    b = sd_bert_batch(torch, g, batch, t, V, device, n_pred)
+    enc = _encoder_feeds(b)
+
+    # ---- the main path: counts to 0, one forward, counts read ----
+    _zero_counts()
+    out = sd.output(enc, ["Identity"])["Identity"]
+    _sync(torch, device)
+    launches = _flash_counts()
+    print(f"[sd-bert] main path: SameDiff.output t={t}; launches "
+          f"{launches}")
+    check(launches == {"flash_fwd": L * on_card, "flash_bwd_dq": 0,
+                       "flash_bwd_dkv": 0},
+          f"imported forward launches {launches}, expected {L} of kernel 7")
+    check(tuple(out.shape) == (batch, t, H)
+          and bool(torch.isfinite(out).all()), "imported output")
+    res["fwd_launches"] = launches
+
+    # the later imports start from the decoded nodes
+    raw = TensorflowFrameworkImporter.run_import(nodes, shapes,
+                                                 optimize=False,
+                                                 device=device)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        opt_out = sd.output(enc, ["Identity"])["Identity"]
+        raw_out = raw.output(enc, ["Identity"])["Identity"]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    del raw
+    err = float((opt_out - raw_out).abs().max())
+    res["opt_vs_dense_max_abs"] = err
+    print(f"[sd-bert] optimized vs optimize=False (dense op-by-op chain, "
+          f"-1e9 additive mask), TF32 off: max |d| {err:.3e}")
+    check(bool(torch.allclose(opt_out, raw_out, rtol=SD_FWD_RTOL,
+                              atol=SD_FWD_ATOL)),
+          f"optimized import vs the dense chain: max |d| {err:.3e}")
+    del opt_out, raw_out
+
+    def fwd():
+        return sd.output(enc, ["Identity"])
+
+    if on_card:
+        runs = sorted(_time_ms(torch, fwd, reps=5) for _ in range(3))
+        res["fwd_ms"] = runs
+        nat = (native or {}).get("serve", {}).get("f32_t128_ms")
+        print(f"[sd-bert] f32 forward t={t}: {runs[1]:.3f} ms (median of "
+              f"{[round(r, 3) for r in runs]}) = {batch * 1e3 / runs[1]:.1f}"
+              f" sequences/s; native Bert.output "
+              f"{nat[1] if nat else float('nan'):.3f} ms [{label}]")
+        res["fwd_profile"] = profile_device(
+            torch, fwd, runs[1], f"batch-{batch} t={t} imported BERT "
+            f"forward (SameDiff.output)", shares=("flash_fwd",))
+    del sd
+
+    def train(dtype):
+        sdt, _ = import_and_attach_mlm(
+            nodes, batch, t, vocab=V, hidden=H, updater=Adam(5e-4),
+            dtype=dtype, max_predictions=n_pred, device=device)
+        name = dtype or "float32"
+        # ---- the main path: counts to 0, ten steps, counts read ----
+        _zero_counts()
+        losses, ms = [], []
+        for _ in range(steps):
+            _sync(torch, device)
+            t0 = time.perf_counter()
+            losses.append(sdt.fit_steps(b, 1))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        tl = _flash_counts()
+        print(f"[sd-bert] {name} fit_steps losses "
+              f"{[round(v, 5) for v in losses]}; step ms "
+              f"{[round(m, 3) for m in ms]}; launches {tl}")
+        check(all(np.isfinite(losses)), f"{name} loss not finite")
+        check(losses[-1] < losses[0], f"{name} loss did not fall: {losses}")
+        for k in FLASH_KERNELS:
+            check(tl[k] == L * steps * on_card,
+                  f"{name} {k}: {tl[k]} launches in {steps} steps, "
+                  f"expected {L} a step")
+        step_ms = float(np.median(ms[1:]))
+        nat = (native or {}).get("train", {})
+        nat = nat if dtype is None else nat.get("bfloat16", {})
+        r = {"losses": losses, "step_ms": ms, "median_step_ms": step_ms,
+             "tokens_per_s": batch * t * 1e3 / step_ms, "launches": tl}
+        print(f"[sd-bert] batch-{batch} t={t} {name} imported MLM step "
+              f"{step_ms:.3f} ms (median of steps 2-{steps}) = "
+              f"{r['tokens_per_s']:.1f} tokens/s; native Bert.fit_batch "
+              f"{nat.get('median_step_ms', float('nan')):.3f} ms [{label}]")
+        if on_card:
+            r["profile"] = profile_device(
+                torch, lambda: sdt.fit_steps(b, 1), step_ms,
+                f"batch-{batch} t={t} {name} imported MLM step",
+                shares=FLASH_KERNELS)
+        return sdt, r
+
+    sdt, res["f32"] = train(None)
+    # ---- the zip round trip, from the trained f32 graph ----
+    zdir = ROOT / "build" / "sd_bert"
+    zdir.mkdir(parents=True, exist_ok=True)
+    path = zdir / "sd_bert.zip"
+    t0 = time.perf_counter()
+    sdt.save(str(path))
+    back = ModelSerializer.restore_model(path, device)
+    res["zip_s"] = time.perf_counter() - t0
+    res["zip_bytes"] = path.stat().st_size
+    a = sdt.output(enc, ["Identity"])["Identity"]
+    z = back.output(enc, ["Identity"])["Identity"]
+    check(torch.equal(a, z) and back.iteration_count
+          == sdt.iteration_count, "restored SameDiff output is not bitwise "
+                                  "equal")
+    print(f"[sd-bert] zip round trip ({res['zip_bytes']} bytes with Adam's "
+          f"moments, {res['zip_s']:.2f}s): restore_model output bitwise "
+          f"equal, iteration {back.iteration_count}")
+    path.unlink()
+    del sdt, back, a, z
+    res["bf16"] = train("bfloat16")[1]
+    return res
+
+
+def sd_bert_card_vs_cpu(torch, device: str = "cuda", layers: int = 2,
+                        batch: int = 2, t: int = 128) -> dict:
+    """The imported BERT at full width and reduced depth on the card and
+    on the CPU (the CPU on the card's route: the flash gate forced, so
+    it runs the kernels' plain versions), TF32 off: the forward, and one
+    SGD step of the MLM head held norm-wise against a float64 CPU step
+    as ``train_card_vs_cpu`` holds ResNet-50's. ``device="cpu"``
+    rehearses it without a card."""
+    from deeplearning4j_tpu_torch.common.environment import Environment
+    from deeplearning4j_tpu_torch.learning.updaters import Sgd
+    from deeplearning4j_tpu_torch.modelimport.tensorflow.bert_graph import (
+        build_frozen_bert, import_and_attach_mlm)
+    dims = dict(SD_BERT, layers=layers)
+    n_pred = min(SD_PREDICTIONS, t // 2)
+    gd = build_frozen_bert(t, batch, seed=1, **dims)
+    g = torch.Generator().manual_seed(59)
+    b = sd_bert_batch(torch, g, batch, t, dims["vocab"], "cpu", n_pred)
+
+    def make(dev, dtype=None):
+        return import_and_attach_mlm(
+            gd, batch, t, vocab=dims["vocab"], hidden=dims["hidden"],
+            updater=Sgd(0.1), dtype=dtype, max_predictions=n_pred,
+            device=dev)[0]
+
+    card, cpu, cpu64 = make(device), make("cpu"), make("cpu", "float64")
+    names = [n for n, v in cpu.vars.items() if v.var_type.value == "VARIABLE"]
+    p0 = {n: cpu._arrays[n].double().clone() for n in names}
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    extra = Environment.get().extra
+    saved = extra.get("flash_attention")
+    try:
+        f_card = card.output(_encoder_feeds(b), ["Identity"])["Identity"]
+        l_card = card.fit_steps(b, 1)
+        extra["flash_attention"] = "1"
+        f_cpu = cpu.output(_encoder_feeds(b), ["Identity"])["Identity"]
+        l_cpu = cpu.fit_steps(b, 1)
+        l_64 = cpu64.fit_steps(b, 1)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+        if saved is None:
+            extra.pop("flash_attention", None)
+        else:
+            extra["flash_attention"] = saved
+    err = float((f_card.cpu() - f_cpu).abs().max())
+    check(bool(torch.allclose(f_card.cpu(), f_cpu, rtol=BERT_FWD_RTOL,
+                              atol=BERT_FWD_ATOL)),
+          f"imported BERT forward card vs CPU: max |d| {err}")
+    check(abs(l_card - l_cpu) <= LOSS_RTOL * abs(l_cpu),
+          f"imported BERT loss card {l_card} vs cpu {l_cpu}")
+    # the key bias has an exactly-zero gradient: held against a floor
+    floor = BERT_UPDATE_FLOOR * max(
+        float((cpu64._arrays[n] - p0[n]).norm()) for n in names)
+
+    def dist(a, b_):
+        return float((a - b_).norm() / b_.norm().clamp_min(floor))
+
+    e_card = e_cpu = e_pair = 0.0
+    worst = ""
+    for n in names:
+        d64 = cpu64._arrays[n].double() - p0[n]
+        dcard = card._arrays[n].cpu().double() - p0[n]
+        dcpu = cpu._arrays[n].double() - p0[n]
+        ec = dist(dcard, d64)
+        if ec > e_card:
+            e_card, worst = ec, n
+        e_cpu = max(e_cpu, dist(dcpu, d64))
+        e_pair = max(e_pair, dist(dcard, dcpu))
+    check(e_card <= UPDATE_FACTOR * e_cpu + UPDATE_FLOOR,
+          f"imported BERT card updates {e_card:.3e} from the float64 step "
+          f"({worst}), the CPU float32 step's {e_cpu:.3e}")
+    print(f"[sd-bert-vs-cpu] imported BERT L={layers} H={dims['hidden']}, "
+          f"batch {batch}, t={t} (TF32 off; CPU on the card's route): "
+          f"forward max |d| {err:.3e}; SGD step loss {l_card:.7f} vs "
+          f"{l_cpu:.7f} (f64 {l_64:.7f}); worst update in norm: card vs "
+          f"f64 {e_card:.3e} ({worst}), CPU f32 vs f64 {e_cpu:.3e}, card vs"
+          f" CPU f32 {e_pair:.3e}")
+    return {"fwd_max_abs": err, "loss_card": l_card, "loss_cpu": l_cpu,
+            "loss_cpu64": l_64, "update_card_vs_f64": e_card,
+            "update_cpu32_vs_f64": e_cpu, "update_card_vs_cpu32": e_pair}
+
+
+# ---------------------------------------------------------------------------
 #: GPT-2 small's published widths (openai-community/gpt2 config.json:
 #: n_layer 12, n_head 12, n_embd 768, n_inner 4 x 768, vocab_size 50257,
 #: n_positions 1024, eos_token_id 50256) as a DecoderLM configuration
@@ -3008,6 +3320,9 @@ def main() -> int:
     bs = timed("bert-serve", phase_bert_serve, torch, label)
     bt = timed("bert-train", phase_bert_train, torch, label)
     timed("bert-vs-cpu", bert_card_vs_cpu, torch)
+    sdb = timed("sd-bert", phase_sd_bert, torch, label,
+                native={"serve": bs, "train": bt})
+    timed("sd-bert-vs-cpu", sd_bert_card_vs_cpu, torch)
     pk = timed("paged", phase_paged_kernel, torch)
     gf = timed("generate", phase_generate, torch, label)
     gb = timed("generate-bf16", phase_generate, torch, label,
@@ -3069,6 +3384,13 @@ def main() -> int:
                     "sdpa_fwd_bwd_ms"]
             extra["launches_bf16_training"] = \
                 bt["bfloat16"]["launches"][k.name]
+            # the SameDiff path: the imported BERT-base (BASELINE #4)
+            extra["launches_samediff_forward"] = \
+                sdb["fwd_launches"][k.name]
+            extra["launches_samediff_training_f32"] = \
+                sdb["f32"]["launches"][k.name]
+            extra["launches_samediff_training_bf16"] = \
+                sdb["bf16"]["launches"][k.name]
         elif k.name == "paged_decode":
             pt = pk["timing"]
             t = pt["float32_L512"]
@@ -3157,6 +3479,13 @@ def main() -> int:
           f"{pre['resnet_cifar']['accuracy']:.4f} (hard "
           f"{pre['resnet_cifar']['hard']:.4f}), charrnn "
           f"{pre['charrnn']['accuracy']:.5f} [{label}]")
+    print(f"[done] SameDiff + TF import, BERT-base (BASELINE #4): GraphDef "
+          f"{sdb['graphdef_bytes']} bytes written in {sdb['build_s']:.2f}s, "
+          f"imported in {sdb['import_s']:.2f}s; forward "
+          f"{sdb['fwd_ms'][1]:.3f} ms, MLM step f32 "
+          f"{sdb['f32']['median_step_ms']:.3f} ms "
+          f"({sdb['f32']['tokens_per_s']:.1f} tokens/s), bf16 "
+          f"{sdb['bf16']['median_step_ms']:.3f} ms [{label}]")
     print(f"[done] matmul precision: "
           f"{torch.get_float32_matmul_precision()}, cuda.matmul.allow_tf32 "
           f"{torch.backends.cuda.matmul.allow_tf32}")

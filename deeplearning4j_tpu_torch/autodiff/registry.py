@@ -1,0 +1,1141 @@
+"""Op registry: named graph ops -> eager PyTorch implementations.
+
+Counterpart of ``deeplearning4j_tpu/autodiff/registry.py``. An op is a
+function ``fn(inputs: list[Tensor], attrs: dict) -> Tensor | tuple``
+registered under the reference's (TF-compatible) name and a domain;
+``SameDiff`` walks its op list through this table, and autograd
+differentiates the walk.
+
+Eleven domains are ported, in full: arithmetic, transform, activation,
+blas, reduce, indexreduce, boolean, shape, normalization, loss and
+attention (168 ops). The other nine (linalg, bitwise, segment,
+convolution, image, random, recurrent, compression, control) are listed
+in :data:`UNPORTED`: :func:`get_op` raises ``NotImplementedError``
+naming the op's domain, so a graph that needs one fails when it is
+built, never by a silent fallback.
+
+Numerics follow the JAX package's ops, with its dtype rules where torch
+differs: integer reductions, index results and shape queries are int32
+(JAX's default integer), a mean of integers is float32, indices of any
+integer dtype are accepted. ``gelu`` is the exact erf form; ``sdpa_core``
+goes through ``ops/attention.py``, whose ladder takes the flash kernels
+(7, 8, 9) for every admissible site on the card.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+OP_REGISTRY: Dict[str, Callable] = {}
+OP_DOMAINS: Dict[str, str] = {}
+
+#: ops of the JAX package's registry that wait for a later slice:
+#: name -> domain
+UNPORTED: Dict[str, str] = {}
+for _domain, _names in {
+    "linalg": ("lu", "qr", "cholesky", "svd", "matrix_inverse",
+               "matrix_determinant", "triangular_solve", "solve", "trace",
+               "diag", "diag_part", "eye", "matrix_diag",
+               "matrix_diag_part"),
+    "bitwise": ("bitwise_and", "bitwise_or", "bitwise_xor", "left_shift",
+                "right_shift", "cyclic_shift_left", "cyclic_shift_right",
+                "bitwise_not"),
+    "segment": ("segment_sum", "segment_max", "segment_min",
+                "segment_mean", "segment_prod", "unsorted_segment_sum",
+                "unsorted_segment_max", "unsorted_segment_min",
+                "unsorted_segment_mean", "unsorted_segment_prod",
+                "unsorted_segment_sqrt_n"),
+    "convolution": ("conv2d", "conv1d", "conv3d", "depthwise_conv2d",
+                    "separable_conv2d", "deconv2d", "max_pool2d",
+                    "avg_pool2d", "max_pool1d", "avg_pool1d", "max_pool3d",
+                    "avg_pool3d", "upsampling2d", "im2col"),
+    "image": ("resize_bilinear", "resize_nearest", "resize_bicubic",
+              "resize_area", "crop_and_resize", "extract_image_patches",
+              "non_max_suppression"),
+    "random": ("random_normal", "random_uniform", "random_bernoulli",
+               "dropout"),
+    "recurrent": ("lstm_cell", "gru_cell", "sru_cell", "lstm_layer",
+                  "rnn_layer", "gru_layer", "sru"),
+    "compression": ("encode_threshold", "decode_threshold"),
+    "control": ("while_loop", "cond", "scan", "switch", "merge"),
+}.items():
+    for _n in _names:
+        UNPORTED[_n] = _domain
+
+
+def op(name, domain):
+    def deco(fn):
+        OP_REGISTRY[name] = fn
+        OP_DOMAINS[name] = domain
+        return fn
+    return deco
+
+
+def alias(new, existing):
+    OP_REGISTRY[new] = OP_REGISTRY[existing]
+    OP_DOMAINS[new] = OP_DOMAINS[existing]
+
+
+def op_coverage() -> Dict[str, int]:
+    """Registered (ported) ops per domain."""
+    out: Dict[str, int] = {}
+    for d in OP_DOMAINS.values():
+        out[d] = out.get(d, 0) + 1
+    return out
+
+
+def get_op(name: str) -> Callable:
+    if name in OP_REGISTRY:
+        return OP_REGISTRY[name]
+    if name in UNPORTED:
+        raise NotImplementedError(
+            f"op '{name}' ({UNPORTED[name]} domain) is not ported yet: the "
+            f"{UNPORTED[name]} domain waits for a later slice (ROADMAP.md, "
+            f"Queue A item 9)")
+    raise KeyError(f"unknown op '{name}'; known domains: "
+                   f"{sorted(set(OP_DOMAINS.values()))}")
+
+
+# -- dtypes -----------------------------------------------------------------
+_TORCH_DTYPES = {
+    "float32": torch.float32, "float64": torch.float64,
+    "float16": torch.float16, "bfloat16": torch.bfloat16,
+    "int8": torch.int8, "int16": torch.int16, "int32": torch.int32,
+    "int64": torch.int64, "uint8": torch.uint8, "bool": torch.bool,
+}
+_NAMES = {v: k for k, v in _TORCH_DTYPES.items()}
+
+
+def dtype_name(dt) -> Optional[str]:
+    """The numpy spelling of a dtype given as a torch dtype, a numpy
+    dtype or type, or a name (``"float32"``, ``"bfloat16"``), as the JAX
+    package writes it into ``graph.json``; None stays None."""
+    if dt is None:
+        return None
+    if isinstance(dt, torch.dtype):
+        return _NAMES[dt]
+    if isinstance(dt, str) and dt in _TORCH_DTYPES:
+        return dt
+    if isinstance(dt, str) and dt.startswith("torch."):
+        return _NAMES[getattr(torch, dt[len("torch."):])]
+    if isinstance(dt, str) and dt.startswith("<class '"):
+        # a scalar type's repr, as graph.json records a placeholder
+        # declared with one: "<class 'jax.numpy.float32'>"
+        return dtype_name(dt[len("<class '"):-2].rsplit(".", 1)[-1])
+    return np.dtype(dt).name
+
+
+def torch_dtype(dt) -> torch.dtype:
+    if isinstance(dt, torch.dtype):
+        return dt
+    return _TORCH_DTYPES[dtype_name(dt)]
+
+
+def _int32(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.int32)
+
+
+def _axes(axis, ndim: int):
+    """A reduction axis attr as a torch ``dim``: None -> every axis."""
+    if axis is None:
+        return tuple(range(ndim))
+    if isinstance(axis, (list, tuple)):
+        return tuple(int(a) for a in axis)
+    return (int(axis),)
+
+
+def _is_float(t: torch.Tensor) -> bool:
+    return t.dtype.is_floating_point
+
+
+# -- helpers ----------------------------------------------------------------
+def _unary(name, domain, fn):
+    OP_REGISTRY[name] = lambda ins, attrs: fn(ins[0])
+    OP_DOMAINS[name] = domain
+
+
+def _binary(name, domain, fn):
+    OP_REGISTRY[name] = lambda ins, attrs: fn(ins[0], ins[1])
+    OP_DOMAINS[name] = domain
+
+
+def _reduce(name, fn):
+    def impl(ins, attrs):
+        x = ins[0]
+        return fn(x, _axes(attrs.get("axis"), x.dim()),
+                  bool(attrs.get("keep_dims", False)))
+    OP_REGISTRY[name] = impl
+    OP_DOMAINS[name] = "reduce"
+
+
+# -- arithmetic / broadcastable ---------------------------------------------
+_binary("add", "arithmetic", torch.add)
+_binary("sub", "arithmetic", torch.sub)
+_binary("mul", "arithmetic", torch.mul)
+_binary("div", "arithmetic", torch.div)
+_binary("rdiv", "arithmetic", lambda a, b: b / a)
+_binary("rsub", "arithmetic", lambda a, b: b - a)
+_binary("pow", "arithmetic", torch.pow)
+
+
+def _floordiv(a, b):
+    """numpy/CPython floor division; floats as ``float_divmod`` computes
+    them (differentiable, with a zero gradient)."""
+    if not (a.is_floating_point() or b.is_floating_point()):
+        return torch.floor_divide(a, b)
+    mod = torch.fmod(a, b)
+    div = (a - mod) / b
+    ind = (mod != 0) & (torch.sign(b) != torch.sign(mod))
+    return torch.round(torch.where(ind, div - 1, div))
+
+
+_binary("floordiv", "arithmetic", _floordiv)
+_binary("mod", "arithmetic", torch.remainder)      # sign of the divisor
+_binary("fmod", "arithmetic", torch.fmod)          # sign of the dividend
+_binary("maximum", "arithmetic", torch.maximum)
+_binary("minimum", "arithmetic", torch.minimum)
+_binary("squared_difference", "arithmetic", lambda a, b: (a - b) ** 2)
+_unary("neg", "arithmetic", torch.neg)
+_unary("abs", "arithmetic", torch.abs)
+_unary("sign", "arithmetic", torch.sign)
+_unary("reciprocal", "arithmetic", torch.reciprocal)
+
+# -- transforms -------------------------------------------------------------
+_unary("exp", "transform", torch.exp)
+_unary("log", "transform", torch.log)
+_unary("log1p", "transform", torch.log1p)
+_unary("expm1", "transform", torch.expm1)
+_unary("sqrt", "transform", torch.sqrt)
+_unary("rsqrt", "transform", torch.rsqrt)
+_unary("square", "transform", torch.square)
+_unary("cube", "transform", lambda x: x ** 3)
+_unary("floor", "transform", torch.floor)
+_unary("ceil", "transform", torch.ceil)
+_unary("round", "transform", torch.round)          # half to even
+_unary("sin", "transform", torch.sin)
+_unary("cos", "transform", torch.cos)
+_unary("tan", "transform", torch.tan)
+_unary("asin", "transform", torch.asin)
+_unary("acos", "transform", torch.acos)
+_unary("atan", "transform", torch.atan)
+_unary("sinh", "transform", torch.sinh)
+_unary("cosh", "transform", torch.cosh)
+_unary("tanh", "transform", torch.tanh)
+_unary("asinh", "transform", torch.asinh)
+_unary("acosh", "transform", torch.acosh)
+_unary("atanh", "transform", torch.atanh)
+_unary("erf", "transform", torch.erf)
+_unary("erfc", "transform", torch.erfc)
+_binary("atan2", "transform", torch.atan2)
+
+
+@op("clip_by_value", "transform")
+def _clip(ins, attrs):
+    return torch.clamp(ins[0], attrs["clip_value_min"],
+                       attrs["clip_value_max"])
+
+
+@op("clip_by_norm", "transform")
+def _clip_norm(ins, attrs):
+    n = torch.linalg.vector_norm(ins[0])
+    c = attrs["clip_norm"]
+    return torch.where(n > c, ins[0] * (c / n), ins[0])
+
+
+@op("cast", "transform")
+def _cast(ins, attrs):
+    return ins[0].to(torch_dtype(attrs["dtype"]))
+
+
+@op("identity", "transform")
+def _identity_op(ins, attrs):
+    return ins[0]
+
+
+# -- activations ------------------------------------------------------------
+_unary("relu", "activation", torch.relu)
+_unary("relu6", "activation", F.relu6)
+_unary("sigmoid", "activation", torch.sigmoid)
+_unary("softplus", "activation",
+       lambda x: torch.logaddexp(x, torch.zeros_like(x)))
+_unary("softsign", "activation", F.softsign)
+_unary("elu", "activation", F.elu)
+_unary("selu", "activation", F.selu)
+_unary("gelu", "activation", F.gelu)               # exact (erf) form
+_unary("gelu_tanh", "activation", lambda x: F.gelu(x, approximate="tanh"))
+_unary("swish", "activation", F.silu)
+_unary("mish", "activation", F.mish)
+_unary("hard_sigmoid", "activation", F.hardsigmoid)
+_unary("hard_tanh", "activation", lambda x: torch.clamp(x, -1.0, 1.0))
+
+
+@op("leaky_relu", "activation")
+def _leaky(ins, attrs):
+    return F.leaky_relu(ins[0], attrs.get("alpha", 0.01))
+
+
+@op("softmax", "activation")
+def _softmax(ins, attrs):
+    return torch.softmax(ins[0], dim=attrs.get("axis", -1))
+
+
+@op("log_softmax", "activation")
+def _log_softmax(ins, attrs):
+    return torch.log_softmax(ins[0], dim=attrs.get("axis", -1))
+
+
+@op("prelu", "activation")
+def _prelu(ins, attrs):
+    x, a = ins
+    return torch.where(x >= 0, x, a * x)
+
+
+# -- blas -------------------------------------------------------------------
+@op("matmul", "blas")
+def _matmul(ins, attrs):
+    a, b = ins
+    if attrs.get("transpose_a"):
+        a = a.transpose(-1, -2)
+    if attrs.get("transpose_b"):
+        b = b.transpose(-1, -2)
+    return torch.matmul(a, b)
+
+
+alias("mmul", "matmul")
+alias("batch_matmul", "matmul")
+_binary("tensordot_last", "blas", lambda a, b: torch.tensordot(a, b, 1))
+_binary("outer", "blas",
+        lambda a, b: torch.outer(a.reshape(-1), b.reshape(-1)))
+
+
+@op("dot", "blas")
+def _dot(ins, attrs):
+    """numpy ``dot``: a product for a scalar, matmul up to rank 2, else a
+    sum over a's last axis and b's second-to-last."""
+    a, b = ins
+    if a.dim() == 0 or b.dim() == 0:
+        return a * b
+    if a.dim() <= 2 and b.dim() <= 2:
+        return torch.matmul(a, b)
+    return torch.tensordot(a, b, dims=([a.dim() - 1],
+                                       [max(b.dim() - 2, 0)]))
+
+
+@op("einsum", "blas")
+def _einsum(ins, attrs):
+    return torch.einsum(attrs["equation"], *ins)
+
+
+# -- reductions -------------------------------------------------------------
+def _sum(x, dim, keep):
+    out = torch.sum(x, dim=dim, keepdim=keep)
+    return _int32(out) if not _is_float(out) else out
+
+
+def _mean(x, dim, keep):
+    if not _is_float(x):
+        x = x.to(torch.float32)
+    return torch.mean(x, dim=dim, keepdim=keep)
+
+
+def _prod(x, dim, keep):
+    out = x            # torch.prod takes one dim: innermost first
+    for d in sorted((a % max(x.dim(), 1) for a in dim), reverse=True):
+        out = torch.prod(out, dim=d, keepdim=keep)
+    return _int32(out) if not _is_float(out) else out
+
+
+def _var(x, dim, keep):
+    return torch.var(x, dim=dim, correction=0, keepdim=keep)
+
+
+def _std(x, dim, keep):
+    return torch.std(x, dim=dim, correction=0, keepdim=keep)
+
+
+def _amax(x, dim, keep):
+    return torch.amax(x, dim=dim, keepdim=keep) if x.dim() else x
+
+
+def _amin(x, dim, keep):
+    return torch.amin(x, dim=dim, keepdim=keep) if x.dim() else x
+
+
+_reduce("reduce_sum", _sum)
+_reduce("reduce_mean", _mean)
+_reduce("reduce_max", _amax)
+_reduce("reduce_min", _amin)
+_reduce("reduce_prod", _prod)
+_reduce("reduce_std", _std)
+_reduce("reduce_var", _var)
+alias("sum", "reduce_sum")
+alias("mean", "reduce_mean")
+alias("amax", "reduce_max")
+alias("amin", "reduce_min")
+
+
+@op("reduce_norm1", "reduce")
+def _norm1(ins, attrs):
+    x = ins[0]
+    return torch.sum(torch.abs(x), dim=_axes(attrs.get("axis"), x.dim()),
+                     keepdim=bool(attrs.get("keep_dims", False)))
+
+
+@op("reduce_norm2", "reduce")
+def _norm2(ins, attrs):
+    x = ins[0]
+    return torch.sqrt(torch.sum(x ** 2, dim=_axes(attrs.get("axis"),
+                                                  x.dim()),
+                                keepdim=bool(attrs.get("keep_dims",
+                                                       False))))
+
+
+@op("reduce_logsumexp", "reduce")
+def _lse(ins, attrs):
+    x = ins[0]
+    return torch.logsumexp(x, dim=_axes(attrs.get("axis"), x.dim()))
+
+
+def _scan(x, attrs, fn, identity):
+    """TF Cumsum / Cumprod semantics: ``exclusive`` shifts the scan by
+    one (the first element is the identity), ``reverse`` scans from the
+    end."""
+    ax = attrs.get("axis", -1) % x.dim()
+    if attrs.get("reverse", False):
+        x = torch.flip(x, (ax,))
+    y = fn(x, dim=ax)
+    if attrs.get("exclusive", False):
+        # shift by one (exact: never subtract, which breaks on inf)
+        pad = [0, 0] * (x.dim() - 1 - ax) + [1, 0]
+        y = F.pad(y, pad, value=identity).narrow(ax, 0, x.shape[ax])
+    if attrs.get("reverse", False):
+        y = torch.flip(y, (ax,))
+    return y
+
+
+@op("cumsum", "reduce")
+def _cumsum(ins, attrs):
+    return _scan(ins[0], attrs, torch.cumsum, 0.0)
+
+
+@op("cumprod", "reduce")
+def _cumprod(ins, attrs):
+    return _scan(ins[0], attrs, torch.cumprod, 1.0)
+
+
+@op("reduce_any", "reduce")
+def _any(ins, attrs):
+    x = ins[0]
+    return torch.any(x != 0, dim=_axes(attrs.get("axis"), x.dim()))
+
+
+@op("reduce_all", "reduce")
+def _all(ins, attrs):
+    x = ins[0]
+    return torch.all(x != 0, dim=_axes(attrs.get("axis"), x.dim()))
+
+
+# -- indexed reductions -----------------------------------------------------
+@op("argmax", "indexreduce")
+def _argmax(ins, attrs):
+    return _int32(torch.argmax(ins[0], dim=attrs.get("axis", -1)))
+
+
+@op("argmin", "indexreduce")
+def _argmin(ins, attrs):
+    return _int32(torch.argmin(ins[0], dim=attrs.get("axis", -1)))
+
+
+@op("top_k", "indexreduce")
+def _topk(ins, attrs):
+    """``axis`` (default last) and ``largest`` (default True; False is
+    ONNX TopK's smallest mode, a stable ascending argsort)."""
+    x = ins[0]
+    k = attrs["k"]
+    ax = attrs.get("axis", -1) % x.dim()
+    if attrs.get("largest", True):
+        vals, idx = torch.topk(x, k, dim=ax, largest=True, sorted=True)
+    else:
+        idx = torch.argsort(x, dim=ax, stable=True).narrow(ax, 0, k)
+        vals = torch.gather(x, ax, idx)
+    return vals, _int32(idx)
+
+
+@op("in_top_k", "indexreduce")
+def _in_topk(ins, attrs):
+    preds, targets = ins
+    _, idx = torch.topk(preds, attrs["k"], dim=-1)
+    return torch.any(idx == targets.long()[:, None], dim=-1)
+
+
+# -- boolean / comparison ---------------------------------------------------
+_binary("eq", "boolean", torch.eq)
+_binary("neq", "boolean", torch.ne)
+_binary("gt", "boolean", torch.gt)
+_binary("gte", "boolean", torch.ge)
+_binary("lt", "boolean", torch.lt)
+_binary("lte", "boolean", torch.le)
+_binary("logical_and", "boolean", torch.logical_and)
+_binary("logical_or", "boolean", torch.logical_or)
+_binary("logical_xor", "boolean", torch.logical_xor)
+_unary("logical_not", "boolean", torch.logical_not)
+_unary("is_nan", "boolean", torch.isnan)
+_unary("is_inf", "boolean", torch.isinf)
+_unary("is_finite", "boolean", torch.isfinite)
+
+
+@op("where", "boolean")
+def _where(ins, attrs):
+    return torch.where(ins[0] != 0, ins[1], ins[2])
+
+
+alias("select", "where")
+
+
+# -- shape ops --------------------------------------------------------------
+def _static_ints(t) -> list:
+    """Integer values of a small index tensor or attr (host side)."""
+    if isinstance(t, torch.Tensor):
+        return [int(v) for v in t.detach().cpu().reshape(-1).tolist()]
+    return [int(v) for v in np.asarray(t).reshape(-1)]
+
+
+def _index_tensor(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """Indices as int64 for torch's indexing, negatives counted from the
+    end as numpy's ``take`` does."""
+    idx = idx.long()
+    return torch.where(idx < 0, idx + n, idx)
+
+
+def _basic_index(x: torch.Tensor, idx: tuple) -> torch.Tensor:
+    """numpy basic indexing (slices of any step, ints, None, Ellipsis);
+    torch takes no negative step, so those axes are flipped first."""
+    if Ellipsis in idx:
+        k = idx.index(Ellipsis)
+        used = sum(1 for i in idx if i is not None and i is not Ellipsis)
+        idx = idx[:k] + (slice(None),) * (x.dim() - used) + idx[k + 1:]
+    out_idx, axis, flips = [], 0, []
+    for item in idx:
+        if item is None:
+            out_idx.append(None)
+            continue
+        if isinstance(item, slice) and item.step is not None \
+                and item.step < 0:
+            n = x.shape[axis]
+            start, stop, step = item.indices(n)
+            # reversed positions start, start+step, ... > stop
+            count = max(0, (start - stop - step - 1) // (-step))
+            flips.append(axis)
+            first = n - 1 - start
+            out_idx.append(slice(first, first + count * (-step), -step))
+        else:
+            out_idx.append(item)
+        axis += 1
+    if flips:
+        x = torch.flip(x, flips)
+    return x[tuple(out_idx)]
+
+
+@op("reshape", "shape")
+def _reshape(ins, attrs):
+    return torch.reshape(ins[0], [int(s) for s in attrs["shape"]])
+
+
+@op("permute", "shape")
+def _permute(ins, attrs):
+    axes = attrs.get("axes")
+    if axes is None:
+        axes = list(range(ins[0].dim()))[::-1]
+    return ins[0].permute(*[int(a) for a in axes])
+
+
+alias("transpose", "permute")
+
+
+@op("expand_dims", "shape")
+def _expand(ins, attrs):
+    x = ins[0]
+    ax = attrs["axis"]
+    axes = list(ax) if isinstance(ax, (list, tuple)) else [ax]
+    nd = x.dim() + len(axes)
+    for a in sorted(a % nd for a in axes):
+        x = x.unsqueeze(a)
+    return x
+
+
+@op("squeeze", "shape")
+def _squeeze(ins, attrs):
+    ax = attrs.get("axis")
+    if ax is None:
+        return torch.squeeze(ins[0])
+    return torch.squeeze(ins[0], tuple(ax) if isinstance(ax, (list, tuple))
+                         else int(ax))
+
+
+@op("concat", "shape")
+def _concat(ins, attrs):
+    return torch.cat(list(ins), dim=attrs.get("axis", 0))
+
+
+@op("stack", "shape")
+def _stack(ins, attrs):
+    return torch.stack(list(ins), dim=attrs.get("axis", 0))
+
+
+@op("unstack", "shape")
+def _unstack(ins, attrs):
+    return tuple(torch.unbind(ins[0], dim=attrs.get("axis", 0)))
+
+
+@op("split", "shape")
+def _split(ins, attrs):
+    x, ax, n = ins[0], attrs.get("axis", 0), attrs["num_splits"]
+    if x.shape[ax] % n:
+        raise ValueError(f"split: axis {ax} of {tuple(x.shape)} does not "
+                         f"divide into {n}")
+    return tuple(torch.split(x, x.shape[ax] // n, dim=ax))
+
+
+@op("split_v", "shape")
+def _split_v(ins, attrs):
+    return tuple(torch.split(ins[0], [int(s) for s in attrs["size_splits"]],
+                             dim=attrs.get("axis", 0)))
+
+
+@op("tile", "shape")
+def _tile(ins, attrs):
+    return torch.tile(ins[0], tuple(int(r) for r in attrs["reps"]))
+
+
+@op("repeat", "shape")
+def _repeat(ins, attrs):
+    reps = attrs["repeats"]
+    if isinstance(reps, (list, tuple)):
+        reps = torch.as_tensor(reps, device=ins[0].device)
+    return torch.repeat_interleave(ins[0], reps, dim=attrs.get("axis"))
+
+
+@op("flip", "shape")
+def _flip(ins, attrs):
+    x = ins[0]
+    return torch.flip(x, _axes(attrs.get("axis"), x.dim()))
+
+
+def _take(p: torch.Tensor, idx: torch.Tensor, axis: int) -> torch.Tensor:
+    idx = _index_tensor(idx, p.shape[axis])
+    out = torch.index_select(p, axis, idx.reshape(-1))
+    return out.reshape(p.shape[:axis] + idx.shape + p.shape[axis + 1:])
+
+
+@op("gather", "shape")
+def _gather(ins, attrs):
+    """``batch_dims`` (TF GatherV2): the leading b dims of params and
+    indices are shared; the take applies per batch element."""
+    p, idx = ins[0], ins[1]
+    bd = int(attrs.get("batch_dims", 0))
+    axis = attrs.get("axis", 0) % p.dim()
+    if bd == 0:
+        return _take(p, idx, axis)
+    lead = p.shape[:bd]
+    B = int(np.prod(lead)) if lead else 1
+    pb = p.reshape((B,) + p.shape[bd:])
+    ib = _index_tensor(idx.reshape((B,) + idx.shape[bd:]), p.shape[axis])
+    ax = axis - bd + 1                       # the take axis within pb
+    # bring the take axis next to the batch axis, index both at once,
+    # then put the axes that sat before it back in front of the indices
+    q = pb.movedim(ax, 1)
+    rows = torch.arange(B, device=p.device).reshape(
+        (B,) + (1,) * (ib.dim() - 1))
+    g = q[rows, ib]                  # [B, *ishape, *before, *after]
+    ni, nb = ib.dim() - 1, ax - 1
+    perm = ([0] + list(range(1 + ni, 1 + ni + nb))
+            + list(range(1, 1 + ni))
+            + list(range(1 + ni + nb, g.dim())))
+    g = g.permute(perm)
+    return g.reshape(lead + g.shape[1:])
+
+
+@op("tensor_list_set_item", "shape")
+def _tl_set_item(ins, attrs):
+    """A static-size list is a dense ``[n, *element]`` tensor; an index
+    out of range clamps to the last slot, as the JAX package's dynamic
+    slice update does."""
+    lst, idx, item = ins
+    i = idx.long().reshape(1).clamp(0, lst.shape[0] - 1)
+    return torch.index_put(lst, (i,), item.to(lst.dtype)[None])
+
+
+@op("tensor_list_get_item", "shape")
+def _tl_get_item(ins, attrs):
+    lst, idx = ins
+    i = idx.long().reshape(1).clamp(0, lst.shape[0] - 1)
+    return torch.index_select(lst, 0, i)[0]
+
+
+@op("tensor_list_length", "shape")
+def _tl_length(ins, attrs):
+    return torch.tensor(ins[0].shape[0], dtype=torch.int32,
+                        device=ins[0].device)
+
+
+@op("gather_nd", "shape")
+def _gather_nd(ins, attrs):
+    params, indices = ins
+    return params[tuple(indices.long().movedim(-1, 0))]
+
+
+@op("scatter_update", "shape")
+def _scatter_upd(ins, attrs):
+    ref, indices, updates = ins
+    return torch.index_put(ref, (indices.long(),), updates.to(ref.dtype))
+
+
+@op("scatter_add", "shape")
+def _scatter_add(ins, attrs):
+    ref, indices, updates = ins
+    return torch.index_put(ref, (indices.long(),), updates.to(ref.dtype),
+                           accumulate=True)
+
+
+def _pad_index(n: int, before: int, after: int, mode: str,
+               device) -> torch.Tensor:
+    """Source positions of one padded axis for numpy's index-based pad
+    modes."""
+    j = torch.arange(-before, n + after, device=device)
+    if mode == "edge":
+        return j.clamp(0, n - 1)
+    if mode == "wrap":
+        return j % n
+    if mode == "reflect":
+        if n == 1:
+            return torch.zeros_like(j)
+        p = 2 * (n - 1)
+        j = j % p
+        return torch.where(j >= n, p - j, j)
+    if mode == "symmetric":
+        p = 2 * n
+        j = j % p
+        return torch.where(j >= n, p - 1 - j, j)
+    raise NotImplementedError(f"pad mode {mode!r}")
+
+
+@op("pad", "shape")
+def _pad(ins, attrs):
+    x = ins[0]
+    mode = attrs.get("mode", "constant").lower()
+    pads = [(int(a), int(b)) for a, b in attrs["paddings"]]
+    if mode == "constant":
+        flat = [v for a, b in reversed(pads) for v in (a, b)]
+        return F.pad(x, flat, value=attrs.get("constant", 0.0))
+    for ax, (a, b) in enumerate(pads):
+        if a or b:
+            x = torch.index_select(
+                x, ax, _pad_index(x.shape[ax], a, b, mode, x.device))
+    return x
+
+
+@op("slice", "shape")
+def _slice(ins, attrs):
+    x = ins[0]
+    idx = []
+    for i, (b, s) in enumerate(zip(attrs["begin"], attrs["size"])):
+        e = b + s if s >= 0 else x.shape[i]
+        idx.append(slice(b, e))
+    return x[tuple(idx)]
+
+
+@op("strided_slice", "shape")
+def _strided_slice(ins, attrs):
+    return _basic_index(ins[0], tuple(
+        slice(b, e, s) for b, e, s in
+        zip(attrs["begin"], attrs["end"], attrs["strides"])))
+
+
+@op("shape_of", "shape")
+def _shape_of(ins, attrs):
+    return torch.tensor(list(ins[0].shape), dtype=torch.int32,
+                        device=ins[0].device)
+
+
+@op("size", "shape")
+def _size(ins, attrs):
+    return torch.tensor(ins[0].numel(), dtype=torch.int32,
+                        device=ins[0].device)
+
+
+@op("rank", "shape")
+def _rank(ins, attrs):
+    return torch.tensor(ins[0].dim(), dtype=torch.int32,
+                        device=ins[0].device)
+
+
+@op("one_hot", "shape")
+def _one_hot(ins, attrs):
+    """float32 one-hot; an index outside [0, depth) gives a zero row."""
+    idx = ins[0].long()
+    depth = int(attrs["depth"])
+    oh = (idx[..., None] == torch.arange(depth, device=idx.device)).to(
+        torch.float32)
+    ax = attrs.get("axis", -1)
+    return oh if ax in (-1, idx.dim()) else oh.movedim(-1, ax)
+
+
+@op("reverse_sequence", "shape")
+def _reverse_seq(ins, attrs):
+    x, lengths = ins
+    sa = attrs.get("seq_axis", 1)
+    ba = attrs.get("batch_axis", 0)
+    xm = x.movedim((ba, sa), (0, 1))                   # -> [b, t, ...]
+    t = xm.shape[1]
+    idx = torch.arange(t, device=x.device)
+    ln = lengths.long()[:, None]
+    rev = torch.where(idx[None, :] < ln, ln - 1 - idx[None, :], idx[None, :])
+    rev = rev.reshape(rev.shape + (1,) * (xm.dim() - 2)).expand(xm.shape)
+    return torch.gather(xm, 1, rev).movedim((0, 1), (ba, sa))
+
+
+@op("broadcast_to", "shape")
+def _broadcast_to(ins, attrs):
+    return torch.broadcast_to(ins[0], [int(s) for s in attrs["shape"]])
+
+
+@op("zeros_like", "shape")
+def _zeros_like(ins, attrs):
+    return torch.zeros_like(ins[0])
+
+
+@op("ones_like", "shape")
+def _ones_like(ins, attrs):
+    return torch.ones_like(ins[0])
+
+
+@op("fill", "shape")
+def _fill(ins, attrs):
+    return torch.full([int(s) for s in attrs["shape"]], attrs["value"],
+                      dtype=torch_dtype(attrs.get("dtype", "float32")))
+
+
+@op("range", "shape")
+def _range(ins, attrs):
+    start, limit = attrs["start"], attrs["limit"]
+    delta = attrs.get("delta", 1)
+    if all(isinstance(v, (int, np.integer)) for v in (start, limit, delta)):
+        return torch.arange(start, limit, delta, dtype=torch.int32)
+    return torch.arange(start, limit, delta, dtype=torch.float32)
+
+
+@op("linspace", "shape")
+def _linspace(ins, attrs):
+    return torch.linspace(attrs["start"], attrs["stop"], attrs["num"],
+                          dtype=torch.float32)
+
+
+@op("space_to_depth", "shape")
+def _space_to_depth(ins, attrs):
+    s = int(attrs.get("block_size", 2))
+    b, h, w, c = ins[0].shape
+    z = ins[0].reshape(b, h // s, s, w // s, s, c)
+    return z.permute(0, 1, 3, 2, 4, 5).reshape(b, h // s, w // s, s * s * c)
+
+
+@op("depth_to_space", "shape")
+def _depth_to_space(ins, attrs):
+    s = int(attrs.get("block_size", 2))
+    b, h, w, c = ins[0].shape
+    co = c // (s * s)
+    z = ins[0].reshape(b, h, w, s, s, co)
+    return z.permute(0, 1, 3, 2, 4, 5).reshape(b, h * s, w * s, co)
+
+
+@op("reverse", "shape")
+def _reverse(ins, attrs):
+    axes = attrs.get("axes")
+    if axes is None and len(ins) > 1:
+        axes = _static_ints(ins[1])
+    return torch.flip(ins[0], tuple(int(a) for a in axes))
+
+
+@op("roll", "shape")
+def _roll(ins, attrs):
+    shift = attrs.get("shift")
+    axes = attrs.get("axes")
+    if shift is None and len(ins) > 2:
+        shift, axes = _static_ints(ins[1]), _static_ints(ins[2])
+    return torch.roll(ins[0], tuple(int(s) for s in np.atleast_1d(shift)),
+                      tuple(int(a) for a in np.atleast_1d(axes)))
+
+
+@op("scatter_nd", "shape")
+def _scatter_nd(ins, attrs):
+    idx, updates = ins[0].long(), ins[1]
+    shape = attrs.get("shape")
+    if shape is None and len(ins) > 2:
+        shape = _static_ints(ins[2])
+    out = torch.zeros(tuple(int(s) for s in shape), dtype=updates.dtype,
+                      device=updates.device)
+    return torch.index_put(out, tuple(idx.movedim(-1, 0)), updates,
+                           accumulate=True)
+
+
+@op("scatter_nd_update", "shape")
+def _scatter_nd_update(ins, attrs):
+    """data, indices [..., d], updates -> data with updates written."""
+    data, idx, updates = ins[0], ins[1].long(), ins[2]
+    return torch.index_put(data, tuple(idx.movedim(-1, 0)),
+                           updates.to(data.dtype))
+
+
+@op("invert_permutation", "shape")
+def _invert_permutation(ins, attrs):
+    p = ins[0]
+    ar = torch.arange(p.shape[0], dtype=p.dtype, device=p.device)
+    return torch.zeros_like(p).scatter(0, p.long(), ar)
+
+
+def spec_to_index(spec) -> tuple:
+    """{"kind": "slice"|"int"|"newaxis"|"ellipsis", ...} items -> a
+    python indexing tuple (shared by the 'index' op and the TF
+    importer's StridedSlice constant folder)."""
+    idx = []
+    for item in spec:
+        kind = item["kind"]
+        if kind == "slice":
+            idx.append(slice(item.get("begin"), item.get("end"),
+                             item.get("stride")))
+        elif kind == "int":
+            idx.append(item["i"])
+        elif kind == "newaxis":
+            idx.append(None)
+        elif kind == "ellipsis":
+            idx.append(Ellipsis)
+        else:
+            raise ValueError(f"bad index spec kind {kind!r}")
+    return tuple(idx)
+
+
+@op("index", "shape")
+def _index(ins, attrs):
+    """Generalized indexing: the importer's lowering of TF StridedSlice
+    masks."""
+    return _basic_index(ins[0], spec_to_index(attrs["spec"]))
+
+
+# -- normalization ----------------------------------------------------------
+@op("layer_norm", "normalization")
+def _layer_norm(ins, attrs):
+    """``(x - mean) / sqrt(biased var + eps) * gain + bias`` over
+    ``axis``; the last axis with 1-D gain and bias runs as one
+    ``F.layer_norm``."""
+    x = ins[0]
+    gain = ins[1] if len(ins) > 1 else None
+    bias = ins[2] if len(ins) > 2 else None
+    axis = attrs.get("axis", -1)
+    eps = float(attrs.get("epsilon", 1e-5))
+    last = isinstance(axis, int) and axis in (-1, x.dim() - 1)
+    if last and all(t is None or (t.dim() == 1 and t.dtype == x.dtype)
+                    for t in (gain, bias)):
+        return F.layer_norm(x, (x.shape[-1],), gain, bias, eps)
+    dims = _axes(axis, x.dim())
+    mu = torch.mean(x, dim=dims, keepdim=True)
+    var = torch.var(x, dim=dims, correction=0, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    if gain is not None:
+        y = y * gain
+    if bias is not None:
+        y = y + bias
+    return y
+
+
+@op("batch_norm", "normalization")
+def _batch_norm(ins, attrs):
+    x, mean, var, gamma, beta = ins
+    eps = attrs.get("epsilon", 1e-5)
+    return (x - mean) * torch.rsqrt(var + eps) * gamma + beta
+
+
+@op("lrn", "normalization")
+def _lrn(ins, attrs):
+    """Local response normalization over the channel (last) axis."""
+    x = ins[0]
+    depth = attrs.get("depth", 5)
+    bias = attrs.get("bias", 1.0)
+    alpha = attrs.get("alpha", 1.0)
+    beta = attrs.get("beta", 0.5)
+    half = depth // 2
+    padded = F.pad(x * x, (half, half))
+    c = x.shape[-1]
+    win = sum(padded[..., i:i + c] for i in range(depth))
+    return x / torch.pow(bias + alpha * win, beta)
+
+
+@op("standardize", "normalization")
+def _standardize(ins, attrs):
+    x = ins[0]
+    dims = _axes(attrs.get("axis", -1), x.dim())
+    mu = torch.mean(x, dim=dims, keepdim=True)
+    sd = torch.std(x, dim=dims, correction=0, keepdim=True)
+    return (x - mu) / torch.clamp(sd, min=1e-12)
+
+
+@op("moments", "normalization")
+def _moments(ins, attrs):
+    x = ins[0]
+    dims = _axes(attrs.get("axis"), x.dim())
+    return (torch.mean(x, dim=dims),
+            torch.var(x, dim=dims, correction=0))
+
+
+# -- losses -----------------------------------------------------------------
+def _apply_weights_reduce(loss, weights, reduction):
+    if weights is not None:
+        loss = loss * weights
+    if reduction == "none":
+        return loss
+    if reduction == "sum":
+        return torch.sum(loss)
+    return torch.mean(loss)
+
+
+def _weights(ins):
+    return ins[2] if len(ins) > 2 else None
+
+
+@op("softmax_cross_entropy", "loss")
+def _sce(ins, attrs):
+    labels, logits = ins[0], ins[1]
+    ls = attrs.get("label_smoothing", 0.0)
+    if ls:
+        labels = labels * (1 - ls) + ls / labels.shape[-1]
+    loss = -torch.sum(labels * torch.log_softmax(logits, -1), dim=-1)
+    return _apply_weights_reduce(loss, _weights(ins),
+                                 attrs.get("reduction", "mean"))
+
+
+@op("sparse_softmax_cross_entropy", "loss")
+def _ssce(ins, attrs):
+    """Integer labels against the last axis of the logits; reduction
+    ``mean`` (default), ``sum`` or ``none``."""
+    labels, logits = ins[0], ins[1]
+    lp = torch.log_softmax(logits, -1)
+    loss = -torch.gather(lp, -1, labels.long()[..., None])[..., 0]
+    return _apply_weights_reduce(loss, None,
+                                 attrs.get("reduction", "mean"))
+
+
+@op("sigmoid_cross_entropy", "loss")
+def _bce(ins, attrs):
+    labels, logits = ins[0], ins[1]
+    loss = torch.clamp(logits, min=0) - logits * labels + \
+        torch.log1p(torch.exp(-torch.abs(logits)))
+    return _apply_weights_reduce(loss, _weights(ins),
+                                 attrs.get("reduction", "mean"))
+
+
+@op("mean_squared_error", "loss")
+def _mse_loss(ins, attrs):
+    loss = (ins[0] - ins[1]) ** 2
+    return _apply_weights_reduce(loss, _weights(ins),
+                                 attrs.get("reduction", "mean"))
+
+
+@op("absolute_difference", "loss")
+def _mae_loss(ins, attrs):
+    loss = torch.abs(ins[0] - ins[1])
+    return _apply_weights_reduce(loss, _weights(ins),
+                                 attrs.get("reduction", "mean"))
+
+
+@op("huber_loss", "loss")
+def _huber(ins, attrs):
+    d = attrs.get("delta", 1.0)
+    err = ins[0] - ins[1]
+    loss = torch.where(torch.abs(err) <= d, 0.5 * err ** 2,
+                       d * (torch.abs(err) - 0.5 * d))
+    return _apply_weights_reduce(loss, _weights(ins),
+                                 attrs.get("reduction", "mean"))
+
+
+@op("log_loss", "loss")
+def _log_loss(ins, attrs):
+    labels, preds = ins[0], ins[1]
+    eps = attrs.get("epsilon", 1e-7)
+    loss = -(labels * torch.log(preds + eps) +
+             (1 - labels) * torch.log(1 - preds + eps))
+    return _apply_weights_reduce(loss, _weights(ins),
+                                 attrs.get("reduction", "mean"))
+
+
+@op("cosine_distance", "loss")
+def _cos_loss(ins, attrs):
+    a, b = ins[0], ins[1]
+    loss = 1.0 - torch.sum(a * b, dim=attrs.get("axis", -1))
+    return _apply_weights_reduce(loss, None,
+                                 attrs.get("reduction", "mean"))
+
+
+@op("hinge_loss", "loss")
+def _hinge(ins, attrs):
+    labels, logits = ins[0], ins[1]
+    signed = 2.0 * labels - 1.0
+    loss = torch.clamp(1.0 - signed * logits, min=0.0)
+    return _apply_weights_reduce(loss, None,
+                                 attrs.get("reduction", "mean"))
+
+
+# -- attention --------------------------------------------------------------
+@op("apply_key_mask", "attention")
+def _apply_key_mask(ins, attrs):
+    """Pre-softmax mask select: ``where(mask > 0, scores, neg)``, the
+    strength-reduced form of the exporter's additive ``(1-mask)*neg``
+    bias chain (``passes.mask_strength_reduce``): the same post-softmax
+    values for any row with >= 1 unmasked key."""
+    x, m = ins[0], ins[1]
+    neg = torch.tensor(attrs.get("neg", -1e9), dtype=x.dtype,
+                       device=x.device)
+    return torch.where(m > 0, x, neg)
+
+
+@op("sdpa_core", "attention")
+def _sdpa_core(ins, attrs):
+    """Fused ``softmax(q kᵀ · scale [+ bias | masked]) v`` on ``[..., t,
+    dh]`` tensors: the target of ``passes.attention_fuse``.
+
+    ``attrs["mask_mode"] == "key"`` marks the 4th input as a key mask (0
+    = masked, broadcastable to the scores) instead of an additive bias.
+    ``ops/attention.py`` dispatches through the ladder of
+    ``ops/attention_kernels.py``: on the card the flash kernels take every
+    site without an additive bias whose mask reduces to a key mask; a
+    bias or a per-query mask (the ladder's structural rungs) and the kill
+    switch ``DL4J_TORCH_FLASH_ATTENTION=0`` take the dense chain, which
+    is also the CPU's path."""
+    from deeplearning4j_tpu_torch.ops.attention import dot_product_attention
+    q, k, v = ins[0], ins[1], ins[2]
+    extra = ins[3] if len(ins) > 3 else None
+    if attrs.get("mask_mode") == "key":
+        mask, bias = extra, None
+    else:
+        mask, bias = None, extra
+    return dot_product_attention(q, k, v, mask=mask,
+                                 scale=attrs.get("scale", 1.0), bias=bias)
+
+
+@op("dot_product_attention", "attention")
+def _dpa(ins, attrs):
+    from deeplearning4j_tpu_torch.ops.attention import dot_product_attention
+    mask = ins[3] if len(ins) > 3 else None
+    return dot_product_attention(ins[0], ins[1], ins[2], mask,
+                                 scale=attrs.get("scale"))
+
+
+@op("multi_head_dot_product_attention", "attention")
+def _mhdpa(ins, attrs):
+    # x: [b, t, d]; Wq/Wk/Wv: [d, h*dh]; Wo: [h*dh, d]
+    from deeplearning4j_tpu_torch.ops.attention import multi_head_attention
+    x, wq, wk, wv, wo = ins[0], ins[1], ins[2], ins[3], ins[4]
+    mask = ins[5] if len(ins) > 5 else None
+    params = {"Wq": wq, "Wk": wk, "Wv": wv, "Wo": wo}
+    return multi_head_attention(params, x, x, attrs["num_heads"],
+                                key_mask=mask)

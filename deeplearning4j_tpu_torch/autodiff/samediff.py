@@ -1,0 +1,956 @@
+"""SameDiff: a named-op graph builder, executor and trainer.
+
+Counterpart of ``deeplearning4j_tpu/autodiff/samediff.py``. The graph
+is the same: ``SDVariable`` handles (VARIABLE, CONSTANT, PLACEHOLDER or
+an op's ARRAY output) and an ordered list of ``OpNode``s naming ops of
+``autodiff/registry.py``. Execution walks the ancestors of the
+requested outputs eagerly in PyTorch on the graph's device (the JAX
+package jits the same walk into one program); gradients are autograd
+over that walk, and the train step applies ``learning/updaters.py``.
+
+Dtypes are named as numpy names them (``"float32"``, ``"int32"``,
+``"bfloat16"``). Arrays given as numpy or Python values follow the JAX
+package's 32-bit rule: float64 becomes float32 and int64 int32; torch
+tensors keep their dtype. ``output`` and ``calculate_gradients`` return
+tensors on the graph's device.
+
+``save`` / ``load`` keep the JAX package's zip (``graph.json``,
+``arrays.npz``, ``updater.npz``), so a zip either package writes loads
+in the other; bfloat16 arrays are stored as float32 (numpy has no
+bfloat16) and cast back on load from the dtype ``graph.json`` records.
+
+Not ported yet (each raises ``NotImplementedError`` with a pointer to
+``ROADMAP.md``): control flow (``while_loop`` / ``cond`` / ``scan``),
+StableHLO export (``to_stablehlo`` / ``export_serialized`` /
+``deserialize_and_call``), remat segments, and data- or tensor-parallel
+``output`` / ``fit_steps`` (``mesh``, ``tp_specs``, ``ph_specs``,
+``encoding``).
+"""
+from __future__ import annotations
+
+import enum
+import io
+import json
+import zipfile
+from typing import Dict, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from deeplearning4j_tpu_torch.autodiff.registry import (dtype_name, get_op,
+                                                        torch_dtype)
+from deeplearning4j_tpu_torch.common.environment import resolve_device
+
+_ROADMAP = "ROADMAP.md, Queue A"
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"SameDiff {what} is not ported yet ({_ROADMAP} item {item})")
+
+
+class VariableType(enum.Enum):
+    """Reference: org.nd4j.autodiff.samediff.VariableType."""
+    VARIABLE = "VARIABLE"          # trainable
+    CONSTANT = "CONSTANT"
+    PLACEHOLDER = "PLACEHOLDER"
+    ARRAY = "ARRAY"                # op output
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a host numpy array (bfloat16 as float32)."""
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.cpu().numpy()
+
+
+def canonical_dtype(dt) -> torch.dtype:
+    """The dtype a numpy array of dtype ``dt`` gets in a graph: the JAX
+    package's 32-bit rule (float64 -> float32, int64 -> int32)."""
+    dt = np.dtype(dt)
+    return torch_dtype({np.dtype(np.float64): np.float32,
+                        np.dtype(np.int64): np.int32}.get(dt, dt))
+
+
+def as_tensor(value, device) -> torch.Tensor:
+    """A tensor on ``device``: torch tensors keep their dtype; numpy and
+    Python values get ``canonical_dtype``."""
+    if isinstance(value, torch.Tensor):
+        return value.to(device)
+    arr = np.asarray(value)
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    return t.to(device=device, dtype=canonical_dtype(arr.dtype))
+
+
+class SDVariable:
+    """Symbolic handle into a SameDiff graph (reference: SDVariable).
+    Operator overloads build graph nodes; ``eval`` executes."""
+
+    def __init__(self, sd: "SameDiff", name: str, var_type: VariableType,
+                 shape=None, dtype=None):
+        self.sd = sd
+        self.name = name
+        self.var_type = var_type
+        self.shape = tuple(shape) if shape is not None else None
+        self.dtype = dtype_name(dtype)
+
+    # -- graph-building sugar ------------------------------------------
+    def _bin(self, other, op):
+        other = self.sd._as_var(other)
+        return self.sd._op(op, [self, other])
+
+    def __add__(self, o):
+        return self._bin(o, "add")
+
+    def __radd__(self, o):
+        return self.sd._as_var(o)._bin(self, "add")
+
+    def __sub__(self, o):
+        return self._bin(o, "sub")
+
+    def __rsub__(self, o):
+        return self.sd._as_var(o)._bin(self, "sub")
+
+    def __mul__(self, o):
+        return self._bin(o, "mul")
+
+    def __rmul__(self, o):
+        return self.sd._as_var(o)._bin(self, "mul")
+
+    def __truediv__(self, o):
+        return self._bin(o, "div")
+
+    def __rtruediv__(self, o):
+        return self.sd._as_var(o)._bin(self, "div")
+
+    def __pow__(self, o):
+        return self._bin(o, "pow")
+
+    def __matmul__(self, o):
+        return self._bin(o, "matmul")
+
+    def __neg__(self):
+        return self.sd._op("neg", [self])
+
+    def __gt__(self, o):
+        return self._bin(o, "gt")
+
+    def __ge__(self, o):
+        return self._bin(o, "gte")
+
+    def __lt__(self, o):
+        return self._bin(o, "lt")
+
+    def __le__(self, o):
+        return self._bin(o, "lte")
+
+    # -- named methods (reference SDVariable surface) ------------------
+    def add(self, o):
+        return self.__add__(o)
+
+    def sub(self, o):
+        return self.__sub__(o)
+
+    def mul(self, o):
+        return self.__mul__(o)
+
+    def div(self, o):
+        return self.__truediv__(o)
+
+    def rdiv(self, o):
+        return self._bin(o, "rdiv")
+
+    def mmul(self, o):
+        return self._bin(o, "matmul")
+
+    def dot(self, o):
+        return self._bin(o, "dot")
+
+    def _reduce(self, op, axis, keep_dims):
+        return self.sd._op(op, [self], {"axis": axis,
+                                        "keep_dims": keep_dims})
+
+    def sum(self, axis=None, keep_dims=False):
+        return self._reduce("reduce_sum", axis, keep_dims)
+
+    def mean(self, axis=None, keep_dims=False):
+        return self._reduce("reduce_mean", axis, keep_dims)
+
+    def max(self, axis=None, keep_dims=False):
+        return self._reduce("reduce_max", axis, keep_dims)
+
+    def min(self, axis=None, keep_dims=False):
+        return self._reduce("reduce_min", axis, keep_dims)
+
+    def std(self, axis=None, keep_dims=False):
+        return self._reduce("reduce_std", axis, keep_dims)
+
+    def norm2(self, axis=None):
+        return self.sd._op("reduce_norm2", [self], {"axis": axis})
+
+    def argmax(self, axis=-1):
+        return self.sd._op("argmax", [self], {"axis": axis})
+
+    def reshape(self, *shape):
+        if len(shape) == 1 and isinstance(shape[0], (list, tuple)):
+            shape = tuple(shape[0])
+        return self.sd._op("reshape", [self], {"shape": list(shape)})
+
+    def permute(self, *axes):
+        if len(axes) == 1 and isinstance(axes[0], (list, tuple)):
+            axes = tuple(axes[0])
+        return self.sd._op("permute", [self], {"axes": list(axes)})
+
+    def transpose(self):
+        return self.sd._op("permute", [self], {"axes": [1, 0]})
+
+    def cast(self, dtype):
+        return self.sd._op("cast", [self], {"dtype": dtype_name(dtype)})
+
+    def rename(self, new_name: str) -> "SDVariable":
+        self.sd._rename(self.name, new_name)
+        return self
+
+    # -- execution -----------------------------------------------------
+    def eval(self, placeholders: Optional[dict] = None) -> torch.Tensor:
+        return self.sd.output(placeholders or {}, [self.name])[self.name]
+
+    def get_arr(self) -> Optional[np.ndarray]:
+        """The stored value as numpy (bfloat16 as float32), or None."""
+        a = self.sd._arrays.get(self.name)
+        return to_numpy(a) if a is not None else None
+
+    def set_arr(self, value):
+        arr = as_tensor(value, self.sd.device)
+        self.sd._arrays[self.name] = arr
+        self.shape, self.dtype = tuple(arr.shape), dtype_name(arr.dtype)
+
+    def __repr__(self):
+        return (f"SDVariable(name='{self.name}', "
+                f"type={self.var_type.value}, shape={self.shape})")
+
+
+class OpNode:
+    __slots__ = ("op_name", "inputs", "outputs", "attrs")
+
+    def __init__(self, op_name, inputs, outputs, attrs):
+        self.op_name = op_name
+        self.inputs = inputs       # list of variable names
+        self.outputs = outputs     # list of variable names
+        self.attrs = attrs or {}
+
+
+class _Plan:
+    """What one (outputs, placeholders) request walks: the op indices in
+    order, and the constants and variables it reads."""
+    __slots__ = ("ops", "constants", "variables")
+
+    def __init__(self, ops, constants, variables):
+        self.ops = ops
+        self.constants = constants
+        self.variables = variables
+
+
+class SameDiff:
+    """The graph. Build with var/constant/placeholder and the op
+    namespaces (``sd.math``, ``sd.nn``, ``sd.loss``); run with
+    ``output`` / ``fit`` / ``fit_steps``. ``device=None`` is the card,
+    and raises without one; ``device="cpu"`` runs on the CPU."""
+
+    def __init__(self, device: Union[None, str, torch.device] = None):
+        self.device = resolve_device(device)
+        self.vars: Dict[str, SDVariable] = {}
+        self.ops: List[OpNode] = []
+        self._arrays: Dict[str, torch.Tensor] = {}   # VARIABLE/CONSTANT
+        self._producer: Dict[str, int] = {}          # var name -> op idx
+        self._name_counter: Dict[str, int] = {}
+        #: execution plans by (outputs, placeholder names); cleared by
+        #: every change to the graph
+        self._exec_cache: Dict = {}
+        self._generator = torch.Generator().manual_seed(0)
+        self.loss_variables: List[str] = []
+        self.training_config = None
+        self._updater_state = None
+        self._loaded_updater_leaves = None
+        #: updater iteration, persisted across fit()/fit_steps() calls
+        #: (Adam's bias correction must not restart per call)
+        self.iteration_count: int = 0
+        self.epoch_count: int = 0
+        self.listeners: list = []
+        self._score: float = float("nan")
+        self.last_batch_size: int = 0
+        #: per-pass rewrite counts of the last import's GraphOptimizer run
+        self.graphopt_counts: Dict[str, int] = {}
+        from deeplearning4j_tpu_torch.autodiff.opsets import (
+            SDNN, SDLoss, SDMath, UnportedNamespace)
+        self.math = SDMath(self)
+        self.nn = SDNN(self)
+        self.loss = SDLoss(self)
+        self.cnn = UnportedNamespace("convolution")
+        self.rnn = UnportedNamespace("recurrent")
+        self.image = UnportedNamespace("image")
+        self.bitwise = UnportedNamespace("bitwise")
+        self.linalg = UnportedNamespace("linalg")
+        self.random = UnportedNamespace("random")
+
+    @staticmethod
+    def create(device: Union[None, str, torch.device] = None) -> "SameDiff":
+        return SameDiff(device)
+
+    # -- naming --------------------------------------------------------
+    def _unique(self, base: str) -> str:
+        if base not in self.vars and base not in self._name_counter:
+            self._name_counter[base] = 0
+            return base
+        n = self._name_counter.get(base, 0)
+        while True:                      # skip user-taken suffixed names
+            n += 1
+            cand = f"{base}_{n}"
+            if cand not in self.vars:
+                self._name_counter[base] = n
+                return cand
+
+    def _rename(self, old: str, new: str):
+        if new in self.vars:
+            raise ValueError(f"variable '{new}' already exists")
+        v = self.vars.pop(old)
+        v.name = new
+        self.vars[new] = v
+        if old in self._arrays:
+            self._arrays[new] = self._arrays.pop(old)
+        if old in self._producer:
+            self._producer[new] = self._producer.pop(old)
+        for op_node in self.ops:
+            op_node.inputs = [new if i == old else i
+                              for i in op_node.inputs]
+            op_node.outputs = [new if o == old else o
+                               for o in op_node.outputs]
+        self.loss_variables = [new if n == old else n
+                               for n in self.loss_variables]
+        self._exec_cache.clear()
+
+    # -- variable creation (reference: sd.var/constant/placeHolder) ----
+    def var(self, name: Optional[str] = None, shape=None, dtype="float32",
+            *, init=None, array=None) -> SDVariable:
+        """Trainable variable. Provide ``array``, or ``shape`` and an
+        optional ``init``: a ``nn.weights.WeightInit`` or a callable
+        ``init(generator, shape, dtype) -> tensor``."""
+        name = self._unique(name or "var")
+        if array is not None:
+            arr = as_tensor(array, self.device)
+        else:
+            if shape is None:
+                raise ValueError("var needs shape or array")
+            dt = torch_dtype(dtype)
+            if init is None:
+                arr = torch.zeros(tuple(shape), dtype=dt)
+            elif callable(getattr(init, "init", None)):
+                fan_in = shape[0] if len(shape) >= 1 else 1
+                fan_out = shape[-1] if len(shape) >= 2 else 1
+                arr = init.init(self._generator, tuple(shape), fan_in,
+                                fan_out, dt)
+            else:
+                arr = init(self._generator, tuple(shape), dt)
+            arr = arr.to(self.device)
+        v = SDVariable(self, name, VariableType.VARIABLE, arr.shape,
+                       arr.dtype)
+        self.vars[name] = v
+        self._arrays[name] = arr
+        self._exec_cache.clear()
+        return v
+
+    def constant(self, name_or_array, array=None) -> SDVariable:
+        if array is None:
+            name, array = None, name_or_array
+        else:
+            name = name_or_array
+        arr = as_tensor(array, self.device)
+        name = self._unique(name or "const")
+        v = SDVariable(self, name, VariableType.CONSTANT, arr.shape,
+                       arr.dtype)
+        self.vars[name] = v
+        self._arrays[name] = arr
+        return v
+
+    def placeholder(self, name: str, shape=None,
+                    dtype="float32") -> SDVariable:
+        name = self._unique(name)
+        v = SDVariable(self, name, VariableType.PLACEHOLDER, shape, dtype)
+        self.vars[name] = v
+        return v
+
+    place_holder = placeholder     # reference spelling
+
+    def convert_to_variables(self, names: Sequence,
+                             values: Optional[dict] = None):
+        """Promote placeholders/constants to trainable VARIABLEs
+        (reference: SameDiff.convertToVariable(s), used after import to
+        make frozen weights trainable). ``values`` supplies initial
+        arrays, for converted placeholders or to recast a constant."""
+        for n in names:
+            name = n.name if isinstance(n, SDVariable) else n
+            v = self.vars[name]
+            if values and name in values:
+                arr = as_tensor(values[name], self.device)
+                self._arrays[name] = arr
+                v.shape, v.dtype = tuple(arr.shape), dtype_name(arr.dtype)
+            if name not in self._arrays:
+                raise ValueError(
+                    f"convert_to_variables('{name}'): no stored value "
+                    f"— pass one via values={{'{name}': array}}")
+            v.var_type = VariableType.VARIABLE
+        self._exec_cache.clear()
+
+    convertToVariables = convert_to_variables
+
+    def _as_var(self, x) -> SDVariable:
+        if isinstance(x, SDVariable):
+            return x
+        return self.constant(x)
+
+    # -- op creation ---------------------------------------------------
+    def _op(self, op_name: str, inputs: Sequence[SDVariable],
+            attrs: Optional[dict] = None, name: Optional[str] = None,
+            n_out: int = 1) -> Union[SDVariable, Tuple[SDVariable, ...]]:
+        get_op(op_name)               # validate early
+        for v in inputs:
+            if isinstance(v, SDVariable) and v.sd is not self:
+                raise ValueError(
+                    f"variable '{v.name}' belongs to another SameDiff "
+                    f"graph (cross-graph references need control flow, "
+                    f"which is not ported yet)")
+        in_names = [v.name for v in inputs]
+        if n_out == 1:
+            out_names = [self._unique(name or op_name)]
+        else:
+            base = name or op_name
+            out_names = [self._unique(f"{base}:{i}")
+                         for i in range(n_out)]
+        node = OpNode(op_name, in_names, out_names, attrs)
+        idx = len(self.ops)
+        self.ops.append(node)
+        outs = []
+        for on in out_names:
+            v = SDVariable(self, on, VariableType.ARRAY)
+            self.vars[on] = v
+            self._producer[on] = idx
+            outs.append(v)
+        self._exec_cache.clear()
+        return outs[0] if n_out == 1 else tuple(outs)
+
+    def invoke(self, op_name, inputs, attrs=None, name=None, n_out=1):
+        """Public escape hatch: call any registered op by name."""
+        return self._op(op_name, [self._as_var(i) for i in inputs],
+                        attrs, name, n_out)
+
+    # -- execution -----------------------------------------------------
+    def _ancestors(self, targets: Sequence[str]) -> List[int]:
+        """Op indices needed to compute ``targets``, in execution order."""
+        needed: set = set()
+        stack = list(targets)
+        seen_vars = set()
+        while stack:
+            vn = stack.pop()
+            if vn in seen_vars:
+                continue
+            seen_vars.add(vn)
+            if vn in self._producer:
+                idx = self._producer[vn]
+                if idx not in needed:
+                    needed.add(idx)
+                    stack.extend(self.ops[idx].inputs)
+        return sorted(needed)
+
+    def _execute(self, values: dict, op_indices: List[int]) -> dict:
+        for idx in op_indices:
+            node = self.ops[idx]
+            out = get_op(node.op_name)([values[i] for i in node.inputs],
+                                       node.attrs)
+            if len(node.outputs) == 1:
+                values[node.outputs[0]] = out
+            else:
+                for on, o in zip(node.outputs, out):
+                    values[on] = o
+        return values
+
+    def _plan(self, out_names: Tuple[str, ...],
+              ph_names: Tuple[str, ...]) -> _Plan:
+        key = ("plan", out_names, tuple(sorted(ph_names)))
+        plan = self._exec_cache.get(key)
+        if plan is not None:
+            return plan
+        for n in out_names:
+            if n not in self.vars:
+                raise KeyError(f"no variable '{n}' in the graph")
+        op_indices = self._ancestors(list(out_names))
+        needed = set(out_names)
+        for idx in op_indices:
+            needed.update(self.ops[idx].inputs)
+        missing = {n for n in needed
+                   if n in self.vars and self.vars[n].var_type
+                   is VariableType.PLACEHOLDER} - set(ph_names)
+        if missing:
+            raise ValueError(
+                f"missing placeholder values for {sorted(missing)} "
+                f"(required to compute {list(out_names)}; "
+                f"provided: {sorted(ph_names)})")
+        # restrict to the requested subgraph: variables outside it get no
+        # gradient and no l1/l2 term
+        consts = [n for n in self._arrays if n in needed
+                  and self.vars[n].var_type is VariableType.CONSTANT]
+        variables = [n for n, v in self.vars.items()
+                     if n in needed and v.var_type is VariableType.VARIABLE]
+        plan = _Plan(op_indices, consts, variables)
+        self._exec_cache[key] = plan
+        return plan
+
+    def _run(self, plan: _Plan, var_vals: dict, ph_vals: dict,
+             out_names: Sequence[str]) -> List[torch.Tensor]:
+        values = {n: self._arrays[n] for n in plan.constants}
+        values.update(var_vals)
+        values.update(ph_vals)
+        self._execute(values, plan.ops)
+        return [values[n] for n in out_names]
+
+    def _placeholders(self, placeholders: dict) -> Dict[str, torch.Tensor]:
+        return {k: as_tensor(v, self.device)
+                for k, v in placeholders.items()}
+
+    def output(self, placeholders: dict, outputs: Sequence,
+               *, training: bool = False, mesh=None,
+               ph_specs=None) -> Dict[str, torch.Tensor]:
+        """Execute the graph (reference: SameDiff.output): the ancestors
+        of ``outputs``, under ``torch.no_grad``. Returns ``{name:
+        tensor}`` on the graph's device."""
+        if mesh is not None or ph_specs is not None:
+            raise _not_ported("data-parallel output (mesh=, ph_specs=)",
+                              "11")
+        outputs = tuple(o.name if isinstance(o, SDVariable) else o
+                        for o in outputs)
+        ph_vals = self._placeholders(placeholders)
+        plan = self._plan(outputs, tuple(ph_vals))
+        with torch.no_grad():
+            res = self._run(plan, {n: self._arrays[n]
+                                   for n in plan.variables},
+                            ph_vals, outputs)
+        return dict(zip(outputs, res))
+
+    def to_stablehlo(self, *a, **kw):
+        raise _not_ported("StableHLO export (to_stablehlo)", "9")
+
+    def export_serialized(self, *a, **kw):
+        raise _not_ported("program export (export_serialized)", "9")
+
+    @staticmethod
+    def deserialize_and_call(*a, **kw):
+        raise _not_ported("program export (deserialize_and_call)", "9")
+
+    def set_remat_segments(self, n: int):
+        raise _not_ported("remat segments (set_remat_segments)", "5")
+
+    def while_loop(self, *a, **kw):
+        raise _not_ported("control flow (while_loop)", "9")
+
+    def cond(self, *a, **kw):
+        raise _not_ported("control flow (cond)", "9")
+
+    def scan(self, *a, **kw):
+        raise _not_ported("control flow (scan)", "9")
+
+    def fuse_attention_patterns(self) -> int:
+        """The attention-fusion pass alone (``passes.attention_fuse``);
+        returns the number of sites fused."""
+        from deeplearning4j_tpu_torch.autodiff.passes import attention_fuse
+        fused = attention_fuse(self)
+        if fused:
+            self._exec_cache.clear()
+        return fused
+
+    def optimize(self, passes=None) -> Dict[str, int]:
+        """Run the GraphOptimizer pipeline (``autodiff/passes.py``): cast
+        folding, mask strength reduction, LayerNorm/GELU re-fusion,
+        attention fusion, iterated to a fixpoint. Importers run it after
+        import unless ``DL4J_TORCH_GRAPHOPT=0``. Returns per-pass rewrite
+        counts."""
+        from deeplearning4j_tpu_torch.autodiff.passes import GraphOptimizer
+        return GraphOptimizer(self, passes=passes).run()
+
+    def batch_output(self):
+        """Fluent executor (reference: sd.batchOutput())."""
+        sd = self
+
+        class _Builder:
+            def __init__(self):
+                self._ph = {}
+                self._outs = []
+
+            def input(self, name, arr):
+                self._ph[name if isinstance(name, str) else name.name] \
+                    = arr
+                return self
+
+            def output(self, *names):
+                self._outs.extend(n if isinstance(n, str) else n.name
+                                  for n in names)
+                return self
+
+            def output_all(self):
+                self._outs = [n for n, v in sd.vars.items()
+                              if v.var_type is VariableType.ARRAY]
+                return self
+
+            def exec(self):
+                return sd.output(self._ph, self._outs)
+
+        return _Builder()
+
+    # -- gradients -----------------------------------------------------
+    def set_loss_variables(self, *names):
+        # accept varargs or a single list/tuple (reference overloads)
+        if len(names) == 1 and isinstance(names[0], (list, tuple)):
+            names = names[0]
+        self.loss_variables = [n.name if isinstance(n, SDVariable) else n
+                               for n in names]
+
+    def calculate_gradients(self, placeholders: dict,
+                            wrt: Sequence) -> Dict[str, torch.Tensor]:
+        """Gradients of the summed loss variables with respect to the
+        given VARIABLEs (reference: sd.calculateGradients); a variable
+        the loss does not reach gets zeros."""
+        if not self.loss_variables:
+            raise ValueError("call set_loss_variables first")
+        wrt = [w.name if isinstance(w, SDVariable) else w for w in wrt]
+        ph_vals = self._placeholders(placeholders)
+        plan = self._plan(tuple(self.loss_variables), tuple(ph_vals))
+        leaves = {n: self._arrays[n].detach().requires_grad_(True)
+                  for n in wrt}
+        var_vals = {n: self._arrays[n] for n in plan.variables}
+        var_vals.update(leaves)
+        with torch.enable_grad():
+            outs = self._run(plan, var_vals, ph_vals, self.loss_variables)
+            total = sum(o.sum() for o in outs)
+            grads = torch.autograd.grad(total, list(leaves.values()),
+                                        allow_unused=True)
+        return {n: (g if g is not None else torch.zeros_like(leaves[n]))
+                for n, g in zip(wrt, grads)}
+
+    # -- training ------------------------------------------------------
+    def set_training_config(self, config):
+        self.training_config = config
+
+    def _check_training(self):
+        if self.training_config is None:
+            raise ValueError("call set_training_config first")
+        if not self.loss_variables:
+            raise ValueError("call set_loss_variables first")
+
+    def _train_step(self, ph_vals: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """One update of every VARIABLE the loss reaches: autograd over
+        the walk, then the updater; the loss (l1/l2 terms included) as a
+        0-d tensor."""
+        cfg = self.training_config
+        plan = self._plan(tuple(self.loss_variables), tuple(ph_vals))
+        names = plan.variables
+        if self._updater_state is None:
+            self._updater_state = cfg.updater.init_state(
+                {n: self._arrays[n] for n in names})
+            self._restore_updater_leaves()
+        params = {n: self._arrays[n].detach().requires_grad_(True)
+                  for n in names}
+        with torch.enable_grad():
+            outs = self._run(plan, params, ph_vals, self.loss_variables)
+            total = sum(o.sum() for o in outs)
+            if cfg.l2:
+                total = total + 0.5 * cfg.l2 * sum(
+                    (p * p).sum() for p in params.values())
+            if cfg.l1:
+                total = total + cfg.l1 * sum(
+                    p.abs().sum() for p in params.values())
+            grads = torch.autograd.grad(total, list(params.values()),
+                                        allow_unused=True)
+        with torch.no_grad():
+            grads = {n: (g if g is not None else torch.zeros_like(params[n]))
+                     for n, g in zip(names, grads)}
+            updates, self._updater_state = cfg.updater.apply(
+                grads, self._updater_state, self.iteration_count)
+            for n, p in params.items():
+                u = updates[n]
+                if p.dtype in (torch.float32, torch.float64):
+                    self._arrays[n] = (p - u).to(p.dtype)
+                else:
+                    # a 16-bit variable steps at f32 and rounds once
+                    self._arrays[n] = (p.float() - u.float()).to(p.dtype)
+        return total.detach()
+
+    def fit_steps(self, placeholders: Dict, n_steps: int, mesh=None,
+                  update_exchange="auto", tp_specs=None, ph_specs=None,
+                  encoding=None) -> float:
+        """``n_steps`` train steps on ONE fixed placeholder batch; the
+        updater iteration continues from ``iteration_count`` (shared with
+        ``fit``), so ``fit_steps(b, 5)`` twice equals ``fit_steps(b,
+        10)``. Returns the last step's loss; one listener round at the
+        end, as the JAX package's fori-loop does."""
+        if mesh is not None or tp_specs or ph_specs or encoding \
+                or update_exchange not in ("auto", "dense"):
+            raise _not_ported(
+                "data- and tensor-parallel fit_steps (mesh=, tp_specs=, "
+                "ph_specs=, encoding=, update_exchange=)", "11")
+        self._check_training()
+        ph_vals = self._placeholders(placeholders)
+        loss = None
+        for _ in range(int(n_steps)):
+            loss = self._train_step(ph_vals)
+            self.iteration_count += 1
+        if loss is None:
+            return self._score
+        self._score = float(loss.float())
+        first = next(iter(ph_vals.values()), None)
+        if first is not None and first.dim():
+            self.last_batch_size = int(first.shape[0])
+        for lis in self.listeners:
+            lis.iteration_done(self, self.iteration_count - 1,
+                               self.epoch_count)
+        return self._score
+
+    # -- listener bus ---------------------------------------------------
+    def set_listeners(self, *listeners):
+        self.listeners = list(listeners)
+        return self
+
+    def add_listeners(self, *listeners):
+        self.listeners.extend(listeners)
+        return self
+
+    def score(self) -> float:
+        """Loss of the most recent train step."""
+        return float(self._score)
+
+    def _run_validation(self, iterator, evaluations, placeholders_fn):
+        """One pass over the validation iterator: mean loss and the
+        requested per-output evaluations (reference: SameDiff.fit's
+        validation ``History`` records)."""
+        cfg = self.training_config
+        evals = {}
+        for name, spec in (evaluations or {}).items():
+            factory, label_idx = (spec if isinstance(spec, tuple)
+                                  else (spec, 0))
+            evals[name] = (factory(), label_idx)
+        if hasattr(iterator, "reset"):
+            iterator.reset()
+        data = [iterator] if hasattr(iterator, "features") else iterator
+        losses = []
+        want = list(evals) + [v for v in self.loss_variables
+                              if v not in evals]
+        for batch in data:
+            ph = (placeholders_fn(batch) if placeholders_fn
+                  else cfg.placeholders_from(batch))
+            out = self.output(ph, want)
+            losses.append(sum(float(out[v].sum())
+                              for v in self.loss_variables))
+            if not evals:
+                continue
+            if cfg.data_set_label_mapping and all(
+                    n in ph for n in cfg.data_set_label_mapping):
+                labels = [ph[n] for n in cfg.data_set_label_mapping]
+            else:
+                labels = getattr(batch, "labels", None)
+                if labels is None:
+                    raise ValueError(
+                        "validation evaluation needs labels: map them "
+                        "via data_set_label_mapping or provide "
+                        "batches with a .labels attribute")
+                labels = (labels if isinstance(labels, (list, tuple))
+                          else [labels])
+            for name, (e, li) in evals.items():
+                e.eval(np.asarray(labels[li]), to_numpy(out[name]))
+        val_loss = float(np.mean(losses)) if losses else float("nan")
+        return {k: e for k, (e, _) in evals.items()}, val_loss
+
+    def fit(self, iterator=None, *, n_epochs: int = 1,
+            placeholders_fn=None, listeners=None, validation_iter=None,
+            validation_evaluations=None, validation_frequency: int = 1):
+        """Train over an iterator of batches. Each batch gives the
+        placeholder dict through the training config's feature/label
+        mappings, or through ``placeholders_fn(batch) -> dict``.
+        ``validation_iter`` with ``validation_evaluations``
+        (``{output: Evaluation factory or (factory, label index)}``) is
+        evaluated every ``validation_frequency`` epochs into the
+        returned ``History``."""
+        from deeplearning4j_tpu_torch.autodiff.training import History
+        self._check_training()
+        cfg = self.training_config
+        all_listeners = self.listeners + list(listeners or [])
+        history = History()
+        for epoch in range(n_epochs):
+            for lis in all_listeners:
+                lis.on_epoch_start(self)
+            if hasattr(iterator, "reset"):
+                iterator.reset()
+            epoch_losses = []
+            for batch in iterator:
+                ph_vals = self._placeholders(
+                    placeholders_fn(batch) if placeholders_fn
+                    else cfg.placeholders_from(batch))
+                loss = self._train_step(ph_vals)
+                epoch_losses.append(float(loss.float()))
+                self._score = epoch_losses[-1]
+                first = next(iter(ph_vals.values()))
+                self.last_batch_size = (int(first.shape[0])
+                                        if first.dim() else 0)
+                # the counter advances before listeners fire, so a
+                # checkpoint they write resumes at the next iteration
+                self.iteration_count += 1
+                for lis in all_listeners:
+                    lis.iteration_done(self, self.iteration_count - 1,
+                                       self.epoch_count)
+            evals, val_loss = {}, float("nan")
+            if validation_iter is not None and \
+                    (epoch + 1) % max(1, validation_frequency) == 0:
+                evals, val_loss = self._run_validation(
+                    validation_iter, validation_evaluations,
+                    placeholders_fn)
+            history.add_epoch(epoch, epoch_losses, evals, val_loss)
+            self.epoch_count += 1
+            for lis in all_listeners:
+                lis.on_epoch_end(self)
+        return history
+
+    # -- updater state as the JAX package's flat leaves -----------------
+    def _updater_leaves(self) -> List[torch.Tensor]:
+        """The updater state's leaves in ``jax.tree_util`` order (slots
+        sorted, then names sorted), as ``updater.npz`` holds them."""
+        st = self._updater_state or {}
+        return [st[slot][n] for slot in sorted(st)
+                for n in sorted(st[slot])]
+
+    def _restore_updater_leaves(self):
+        """Graft leaves loaded from a zip onto the freshly built state
+        (same graph and updater -> same leaves), so a loaded model
+        resumes with its optimizer moments."""
+        loaded = self._loaded_updater_leaves
+        if loaded is None:
+            return
+        st = self._updater_state
+        slots = [(slot, n) for slot in sorted(st) for n in sorted(st[slot])]
+        if len(slots) != len(loaded):
+            raise ValueError(
+                f"saved updater state has {len(loaded)} leaves, current "
+                f"updater expects {len(slots)} — updater/graph changed "
+                f"since save")
+        for (slot, n), arr in zip(slots, loaded):
+            ref = st[slot][n]
+            st[slot][n] = as_tensor(arr, self.device).to(ref.dtype)
+        self._loaded_updater_leaves = None
+
+    # -- serialization -------------------------------------------------
+    def save(self, path: str, save_updater_state: bool = True):
+        """Zip: ``graph.json`` + ``arrays.npz`` (+ ``updater.npz``), the
+        JAX package's layout."""
+        graph = {
+            "variables": [
+                {"name": v.name, "type": v.var_type.value,
+                 "shape": list(v.shape) if v.shape else None,
+                 "dtype": v.dtype}
+                for v in self.vars.values()],
+            "ops": [{"op": o.op_name, "inputs": o.inputs,
+                     "outputs": o.outputs, "attrs": _json_attrs(o.attrs)}
+                    for o in self.ops],
+            "loss_variables": self.loss_variables,
+            "training_config": (self.training_config.to_map()
+                                if self.training_config else None),
+            "iteration_count": self.iteration_count,
+            "epoch_count": self.epoch_count,
+        }
+        arrays = {k: to_numpy(v) for k, v in self._arrays.items()}
+        with zipfile.ZipFile(path, "w") as z:
+            z.writestr("graph.json", json.dumps(graph, indent=1))
+            buf = io.BytesIO()
+            np.savez(buf, **arrays)
+            z.writestr("arrays.npz", buf.getvalue())
+            if save_updater_state and self._updater_state is not None:
+                buf2 = io.BytesIO()
+                np.savez(buf2, **{f"leaf_{i}": to_numpy(leaf) for i, leaf
+                                  in enumerate(self._updater_leaves())})
+                z.writestr("updater.npz", buf2.getvalue())
+
+    @staticmethod
+    def load(path: str, device: Union[None, str, torch.device] = None
+             ) -> "SameDiff":
+        """Load a zip ``save`` (of either package) wrote, onto ``device``
+        (``None``: the card). An op of a domain not ported yet raises
+        ``NotImplementedError`` here."""
+        from deeplearning4j_tpu_torch.autodiff.training import TrainingConfig
+        sd = SameDiff(device)
+        with zipfile.ZipFile(path) as z:
+            graph = json.loads(z.read("graph.json"))
+            arrays = np.load(io.BytesIO(z.read("arrays.npz")))
+            arr_map = {k: arrays[k] for k in arrays.files}
+            upd = (np.load(io.BytesIO(z.read("updater.npz")))
+                   if "updater.npz" in z.namelist() else None)
+            if upd is not None:
+                sd._loaded_updater_leaves = [
+                    upd[f"leaf_{i}"] for i in range(len(upd.files))]
+        for vd in graph["variables"]:
+            v = SDVariable(sd, vd["name"], VariableType(vd["type"]),
+                           vd["shape"], vd["dtype"])
+            sd.vars[v.name] = v
+            if v.name in arr_map:
+                arr = as_tensor(arr_map[v.name], sd.device)
+                if v.dtype is not None:
+                    arr = arr.to(torch_dtype(v.dtype))
+                sd._arrays[v.name] = arr
+        for i, od in enumerate(graph["ops"]):
+            get_op(od["op"])
+            node = OpNode(od["op"], od["inputs"], od["outputs"],
+                          od["attrs"])
+            sd.ops.append(node)
+            for on in node.outputs:
+                sd._producer[on] = i
+        sd.loss_variables = graph.get("loss_variables", [])
+        sd.iteration_count = graph.get("iteration_count", 0)
+        sd.epoch_count = graph.get("epoch_count", 0)
+        tc = graph.get("training_config")
+        if tc:
+            sd.training_config = TrainingConfig.from_map(tc)
+        return sd
+
+    # -- introspection -------------------------------------------------
+    def variables(self) -> List[SDVariable]:
+        return list(self.vars.values())
+
+    def get_variable(self, name: str) -> SDVariable:
+        return self.vars[name]
+
+    def has_variable(self, name: str) -> bool:
+        return name in self.vars
+
+    def summary(self) -> str:
+        lines = [f"{'var':<28}{'type':<14}{'shape':<18}producer op"]
+        for v in self.vars.values():
+            prod = ""
+            if v.name in self._producer:
+                prod = self.ops[self._producer[v.name]].op_name
+            lines.append(f"{v.name:<28}{v.var_type.value:<14}"
+                         f"{str(v.shape):<18}{prod}")
+        lines.append(f"{len(self.ops)} ops, {len(self.vars)} variables")
+        return "\n".join(lines)
+
+
+def _json_attrs(attrs: dict) -> dict:
+    out = {}
+    for k, v in (attrs or {}).items():
+        if callable(v):
+            continue
+        if isinstance(v, np.integer):
+            v = int(v)
+        elif isinstance(v, np.floating):
+            v = float(v)
+        elif isinstance(v, tuple):
+            v = list(v)
+        elif isinstance(v, (torch.dtype, np.dtype)):
+            v = dtype_name(v)
+        elif hasattr(v, "dtype") and hasattr(v, "tolist"):
+            v = v.tolist()
+        out[k] = v
+    return out

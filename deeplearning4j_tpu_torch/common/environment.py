@@ -13,7 +13,9 @@ distinct served shapes, default 5). Read live by their subsystems:
 kernel gate), ``DL4J_TORCH_FUSED_BN_BWD`` (the BN backward kernel gate),
 ``DL4J_TORCH_FLASH_ATTENTION`` (the flash-attention kernel gate),
 ``DL4J_TORCH_PAGED_ATTENTION`` (the paged-decode kernel gate; all four
-in ``ops/kernel_select.py``), ``DL4J_TORCH_KV_DTYPE`` (the KV pool's
+in ``ops/kernel_select.py``), ``DL4J_TORCH_GRAPHOPT`` (the GraphOptimizer
+after a TF import, default on; ``autodiff/passes.py``),
+``DL4J_TORCH_KV_DTYPE`` (the KV pool's
 dtype, ``float32`` or ``bf16``; ``serving/batcher.py``) and
 ``DL4J_TORCH_HTTP_HOST`` (the serving bind interface, default
 127.0.0.1).

@@ -28,7 +28,8 @@ way, leaf names and shapes checked.
 ``restore_model`` restores ComputationGraph and MultiLayerNetwork zips,
 every leaf's name and shape checked against the configuration's, and
 reads ``updaterState.npz`` back when present, so training resumes where
-it stopped; ``write_model`` writes it. SameDiff zips are not ported.
+it stopped; ``write_model`` writes it. A SameDiff zip (one with a
+``graph.json``) restores through ``SameDiff.load``.
 """
 from __future__ import annotations
 
@@ -315,9 +316,10 @@ class ModelSerializer:
     @staticmethod
     def restore_model(path, device: Union[None, str, torch.device] = None,
                       load_updater: bool = True):
-        """Restore a ComputationGraph or MultiLayerNetwork zip onto
-        ``device`` (``None``: the card, raising when there is none), with
-        its updater state when ``load_updater`` and the zip holds one."""
+        """Restore a ComputationGraph, MultiLayerNetwork or SameDiff zip
+        onto ``device`` (``None``: the card, raising when there is none),
+        with its updater state when ``load_updater`` and the zip holds
+        one."""
         from deeplearning4j_tpu_torch.common.environment import \
             resolve_device
         from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
@@ -325,6 +327,12 @@ class ModelSerializer:
             MultiLayerNetwork
         device = resolve_device(device)
         cls = ModelSerializer.peek_meta(path).get("model_class")
+        if cls == "SameDiff":
+            from deeplearning4j_tpu_torch.autodiff.samediff import SameDiff
+            sd = SameDiff.load(str(path), device=device)
+            if not load_updater:
+                sd._loaded_updater_leaves = None
+            return sd
         if cls == "ComputationGraph":
             conf_cls, net_cls = ComputationGraphConfiguration, \
                 ComputationGraph
@@ -333,7 +341,7 @@ class ModelSerializer:
         else:
             raise NotImplementedError(
                 f"restoring a {cls} is not ported yet (the port restores "
-                f"ComputationGraph and MultiLayerNetwork zips)")
+                f"ComputationGraph, MultiLayerNetwork and SameDiff zips)")
         with zipfile.ZipFile(Path(path)) as zf:
             names = zf.namelist()
             conf = conf_cls.from_json(zf.read(CONFIG_ENTRY).decode())

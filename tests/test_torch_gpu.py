@@ -684,3 +684,64 @@ def test_graves_lstm_char_rnn_step_and_stream_on_the_card(monkeypatch):
                          1)
     assert float((stream - card.output(xc)).abs().max()) <= 1e-5
     assert card.rnn_get_previous_state(1)["c"].device.type == "cuda"
+
+
+@pytest.mark.gpu
+def test_imported_bert_sdpa_sites_launch_the_flash_kernels():
+    """A toy BERT GraphDef (the TF-free writer's) imported onto the card:
+    each fused ``sdpa_core`` launches kernel 7 once a forward, and the
+    output equals the ``optimize=False`` import's dense op-by-op chain
+    (TF32 off) within rtol 1e-4 / atol 1e-5; one MLM training step
+    launches kernels 8 and 9 once a site."""
+    _need_card()
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.learning.updaters import Adam
+    from deeplearning4j_tpu_torch.modelimport.tensorflow import \
+        TensorflowFrameworkImporter
+    from deeplearning4j_tpu_torch.modelimport.tensorflow.bert_graph import (
+        build_frozen_bert, import_and_attach_mlm)
+    from deeplearning4j_tpu_torch.parallel import sequence as sq
+    b, t, layers = 2, 64, 2
+    dims = dict(vocab=97, hidden=64, heads=2, layers=layers)
+    gd = build_frozen_bert(t, b, **dims)
+    shapes = {n: (b, t) for n in ("ids", "seg", "mask")}
+    rs = np.random.RandomState(0)
+    mask = np.ones((b, t), np.int32)
+    mask[1, t // 2:] = 0
+    feeds = {"ids": rs.randint(0, 97, (b, t)).astype(np.int32),
+             "seg": np.zeros((b, t), np.int32), "mask": mask}
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        opt = TensorflowFrameworkImporter.run_import(gd, shapes,
+                                                     device="cuda")
+        raw = TensorflowFrameworkImporter.run_import(gd, shapes,
+                                                     optimize=False,
+                                                     device="cuda")
+        assert opt.graphopt_counts["attention_fuse"] == layers
+        n0 = sq.FLASH_FWD.launches
+        got = opt.output(feeds, ["Identity"])["Identity"]
+        torch.cuda.synchronize()
+        assert sq.FLASH_FWD.launches - n0 == layers
+        n0 = sq.FLASH_FWD.launches
+        want = raw.output(feeds, ["Identity"])["Identity"]
+        torch.cuda.synchronize()
+        assert sq.FLASH_FWD.launches == n0
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+    sd, _ = import_and_attach_mlm(gd, b, t, vocab=97, hidden=64,
+                                  updater=Adam(1e-3), max_predictions=4,
+                                  device="cuda")
+    feeds.update(mlm_positions=np.tile(np.arange(4, dtype=np.int32),
+                                       (b, 1)),
+                 mlm_labels=rs.randint(0, 97, (b, 4)).astype(np.int32))
+    c0 = (sq.FLASH_FWD.launches, sq.FLASH_BWD_DQ.launches,
+          sq.FLASH_BWD_DKV.launches)
+    loss = sd.fit_steps(feeds, 1)
+    torch.cuda.synchronize()
+    c1 = (sq.FLASH_FWD.launches, sq.FLASH_BWD_DQ.launches,
+          sq.FLASH_BWD_DKV.launches)
+    assert [x - y for x, y in zip(c1, c0)] == [layers] * 3
+    assert np.isfinite(loss)

@@ -1,0 +1,291 @@
+"""The port's SameDiff (``autodiff/samediff.py``) against the JAX
+package's, on the CPU.
+
+The same small graph is built through both APIs from the same numpy
+weights. Bars: ``output`` within rtol 2e-5 / atol 1e-6 and
+``calculate_gradients`` within rtol 2e-4 / atol 1e-6 (f32 on both
+sides); a 5-step Adam ``fit`` within rtol 2e-4 of the loss at every step
+and the weights at atol 1e-5; ``fit_steps(b, 5)`` twice bitwise equal
+to ``fit_steps(b, 10)`` in the port (the same ops in the same order),
+and within the trajectory bars of the JAX package's ``fit_steps(b,
+10)``. Zips cross both ways: the JAX package's ``save`` loads in the
+port (``SameDiff.load`` and ``restore_model``) and the port's in the
+JAX package, and training resumes from the carried updater state.
+"""
+import numpy as np
+import pytest
+import torch
+
+from deeplearning4j_tpu.autodiff.samediff import SameDiff as JSameDiff
+from deeplearning4j_tpu.autodiff.training import \
+    TrainingConfig as JTrainingConfig
+from deeplearning4j_tpu.learning.updaters import Adam as JAdam
+from deeplearning4j_tpu_torch.autodiff import (SameDiff, TrainingConfig,
+                                               VariableType)
+from deeplearning4j_tpu_torch.learning.updaters import Adam
+from deeplearning4j_tpu_torch.utils.serializer import ModelSerializer
+
+FWD = dict(rtol=2e-5, atol=1e-6)
+GRAD = dict(rtol=2e-4, atol=1e-6)
+LOSS_RTOL, W_ATOL = 2e-4, 1e-5
+
+
+def _weights(seed=0):
+    rs = np.random.RandomState(seed)
+    return {"w1": (rs.randn(6, 8) * 0.5).astype(np.float32),
+            "b1": np.zeros(8, np.float32),
+            "w2": (rs.randn(8, 3) * 0.5).astype(np.float32),
+            "b2": (rs.randn(3) * 0.1).astype(np.float32)}
+
+
+def _batch(seed=1, n=16):
+    rs = np.random.RandomState(seed)
+    x = rs.randn(n, 6).astype(np.float32)
+    y = np.eye(3, dtype=np.float32)[rs.randint(0, 3, n)]
+    return {"x": x, "y": y}
+
+
+def _build(sd, w, config=None, updater=None):
+    """A two-layer classifier with a LayerNorm, GELU and softmax
+    cross-entropy, through the reference surface both packages share."""
+    x = sd.placeholder("x", shape=(None, 6))
+    y = sd.placeholder("y", shape=(None, 3))
+    w1 = sd.var("w1", array=w["w1"])
+    b1 = sd.var("b1", array=w["b1"])
+    w2 = sd.var("w2", array=w["w2"])
+    b2 = sd.var("b2", array=w["b2"])
+    h = sd.nn.gelu(sd.nn.layer_norm(x @ w1 + b1, epsilon=1e-5))
+    logits = sd.nn.linear(h, w2, b2)
+    sd.nn.softmax(logits, name="probs")
+    loss = sd.loss.softmax_cross_entropy(y, logits, name="loss")
+    sd.set_loss_variables(loss)
+    if updater is not None:
+        sd.set_training_config(config.Builder().updater(updater)
+                               .data_set_feature_mapping("x")
+                               .data_set_label_mapping("y").build())
+    return sd
+
+
+def _pair(lr=1e-2):
+    w = _weights()
+    j = _build(JSameDiff(), w, JTrainingConfig, JAdam(lr))
+    p = _build(SameDiff(device="cpu"), w, TrainingConfig, Adam(lr))
+    return j, p
+
+
+def _np(t):
+    return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) \
+        else np.asarray(t)
+
+
+def test_output_and_gradients_match_jax():
+    j, p = _pair()
+    b = _batch()
+    jo = j.output(b, ["probs", "loss"])
+    po = p.output(b, ["probs", "loss"])
+    for k in ("probs", "loss"):
+        assert isinstance(po[k], torch.Tensor)
+        np.testing.assert_allclose(_np(po[k]), jo[k], **FWD, err_msg=k)
+    jg = j.calculate_gradients(b, ["w1", "b1", "w2", "b2"])
+    pg = p.calculate_gradients(b, ["w1", "b1", "w2", "b2"])
+    for k in jg:
+        np.testing.assert_allclose(_np(pg[k]), jg[k], **GRAD, err_msg=k)
+
+
+def test_graph_surface_matches_jax():
+    j, p = _pair()
+    assert [o.op_name for o in p.ops] == [o.op_name for o in j.ops]
+    assert [(o.inputs, o.outputs) for o in p.ops] == \
+        [(o.inputs, o.outputs) for o in j.ops]
+    assert {n: v.var_type.value for n, v in p.vars.items()} == \
+        {n: v.var_type.value for n, v in j.vars.items()}
+    assert p.vars["w1"].dtype == "float32" and p.vars["w1"].shape == (6, 8)
+    assert "layer_norm" in p.summary() and "gelu" in p.summary()
+    assert p.get_variable("w2").var_type is VariableType.VARIABLE
+    # the fluent executor and eval reach the same values
+    b = _batch()
+    got = p.batch_output().input("x", b["x"]).input("y", b["y"]) \
+        .output("probs").exec()["probs"]
+    np.testing.assert_array_equal(_np(got), _np(p.vars["probs"].eval(b)))
+
+
+def test_five_step_adam_fit_matches_jax():
+    j, p = _pair()
+    batches = [_batch(seed=s) for s in range(5)]
+    jh = j.fit(batches, placeholders_fn=lambda b: b)
+    ph = p.fit(batches, placeholders_fn=lambda b: b)
+    np.testing.assert_allclose(ph.loss_curve(), jh.loss_curve(),
+                               rtol=LOSS_RTOL)
+    assert p.iteration_count == j.iteration_count == 5
+    for k in ("w1", "b1", "w2", "b2"):
+        np.testing.assert_allclose(p.vars[k].get_arr(),
+                                   j.vars[k].get_arr(), atol=W_ATOL,
+                                   err_msg=k)
+    assert p.score() == pytest.approx(j.score(), rel=LOSS_RTOL)
+
+
+def test_fit_via_training_config_mappings():
+    """Batches with .features/.labels go through the config's
+    mappings."""
+
+    class DS:
+        def __init__(self, b):
+            self.features, self.labels = b["x"], b["y"]
+
+    j, p = _pair()
+    data = [DS(_batch(seed=s)) for s in range(3)]
+    np.testing.assert_allclose(p.fit(data).loss_curve(),
+                               j.fit(data).loss_curve(), rtol=LOSS_RTOL)
+
+
+def test_fit_validation_and_listeners_match_jax():
+    """``fit`` evaluates the validation iterator each epoch into the
+    History (loss and an Evaluation over ``probs``), and listeners see
+    every iteration and epoch."""
+    from deeplearning4j_tpu.evaluation import Evaluation as JEvaluation
+    from deeplearning4j_tpu_torch.evaluation import Evaluation
+    from deeplearning4j_tpu_torch.optimize.listeners import \
+        TrainingListener
+
+    class Count(TrainingListener):
+        def __init__(self):
+            self.calls = []
+
+        def iteration_done(self, model, iteration, epoch):
+            self.calls.append((iteration, epoch, model.score()))
+
+        def on_epoch_end(self, model):
+            self.calls.append(("end", model.epoch_count))
+
+    j, p = _pair()
+    train = [_batch(seed=s) for s in range(3)]
+    val = [_batch(seed=10), _batch(seed=11)]
+    lis = Count()
+    ph = p.fit(train, n_epochs=2, placeholders_fn=lambda b: b,
+               listeners=[lis], validation_iter=val,
+               validation_evaluations={"probs": Evaluation})
+    jh = j.fit(train, n_epochs=2, placeholders_fn=lambda b: b,
+               validation_iter=val,
+               validation_evaluations={"probs": JEvaluation})
+    np.testing.assert_allclose(ph.validation_loss_curve(),
+                               jh.validation_loss_curve(), rtol=LOSS_RTOL)
+    assert ph.final_evaluation("probs").accuracy() == \
+        jh.final_evaluation("probs").accuracy()
+    assert len(ph) == 2 and p.epoch_count == 2
+    assert [c[:2] for c in lis.calls] == [
+        (0, 0), (1, 0), (2, 0), ("end", 1), (3, 1), (4, 1), (5, 1),
+        ("end", 2)]
+    assert lis.calls[-2][2] == ph.loss_curve()[-1]
+
+
+def test_fit_steps_chains_and_matches_jax():
+    b = _batch()
+    j, p = _pair()
+    _, p2 = _pair()
+    l10 = p.fit_steps(b, 10)
+    p2.fit_steps(b, 5)
+    l55 = p2.fit_steps(b, 5)
+    assert l55 == l10
+    for k in ("w1", "b1", "w2", "b2"):
+        torch.testing.assert_close(p2._arrays[k], p._arrays[k], rtol=0,
+                                   atol=0)
+    assert p.iteration_count == p2.iteration_count == 10
+    jl = j.fit_steps(b, 10)
+    assert l10 == pytest.approx(jl, rel=LOSS_RTOL)
+    for k in ("w1", "w2"):
+        np.testing.assert_allclose(p.vars[k].get_arr(),
+                                   j.vars[k].get_arr(), atol=W_ATOL)
+
+
+def test_zip_from_jax_loads_in_the_port_and_resumes(tmp_path):
+    j, _ = _pair()
+    b = _batch()
+    j.fit([b, _batch(seed=2)], placeholders_fn=lambda x: x)
+    path = tmp_path / "jax_sd.zip"
+    j.save(str(path))
+    for p in (SameDiff.load(str(path), device="cpu"),
+              ModelSerializer.restore_model(path, "cpu")):
+        assert isinstance(p, SameDiff)
+        assert p.iteration_count == 2 and p.loss_variables == ["loss"]
+        np.testing.assert_allclose(_np(p.output(b, ["probs"])["probs"]),
+                                   j.output(b, ["probs"])["probs"], **FWD)
+    # the carried Adam moments resume: one more step on both sides
+    jl = j.fit([b], placeholders_fn=lambda x: x).loss_curve()
+    pl = p.fit([b], placeholders_fn=lambda x: x).loss_curve()
+    np.testing.assert_allclose(pl, jl, rtol=LOSS_RTOL)
+    for k in ("w1", "w2"):
+        np.testing.assert_allclose(p.vars[k].get_arr(),
+                                   j.vars[k].get_arr(), atol=W_ATOL)
+
+
+def test_zip_from_the_port_loads_in_jax(tmp_path):
+    _, p = _pair()
+    b = _batch()
+    p.fit([b, _batch(seed=2)], placeholders_fn=lambda x: x)
+    path = tmp_path / "port_sd.zip"
+    p.save(str(path))
+    j = JSameDiff.load(str(path))
+    assert j.iteration_count == 2
+    np.testing.assert_allclose(j.output(b, ["probs"])["probs"],
+                               _np(p.output(b, ["probs"])["probs"]), **FWD)
+    jl = j.fit([b], placeholders_fn=lambda x: x).loss_curve()
+    pl = p.fit([b], placeholders_fn=lambda x: x).loss_curve()
+    np.testing.assert_allclose(pl, jl, rtol=LOSS_RTOL)
+    # the port's own round trip is exact
+    p.save(str(path))
+    again = SameDiff.load(str(path), device="cpu")
+    torch.testing.assert_close(again.output(b, ["probs"])["probs"],
+                               p.output(b, ["probs"])["probs"], rtol=0,
+                               atol=0)
+
+
+def test_bfloat16_variables_round_trip(tmp_path):
+    sd = SameDiff(device="cpu")
+    x = sd.placeholder("x", shape=(2, 3))
+    w = sd.var("w", array=torch.randn(3, 2, generator=torch.Generator()
+                                      .manual_seed(0)).bfloat16())
+    sd.invoke("matmul", [x.cast("bfloat16"), w], name="out")
+    path = tmp_path / "bf16.zip"
+    sd.save(str(path))
+    again = SameDiff.load(str(path), device="cpu")
+    assert again._arrays["w"].dtype == torch.bfloat16
+    assert again.vars["w"].dtype == "bfloat16"
+    xv = np.ones((2, 3), np.float32)
+    torch.testing.assert_close(again.output({"x": xv}, ["out"])["out"],
+                               sd.output({"x": xv}, ["out"])["out"],
+                               rtol=0, atol=0)
+
+
+def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
+    _, p = _pair()
+    path = tmp_path / "sd.zip"
+    p.save(str(path))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: SameDiff(), lambda: SameDiff.create(),
+                 lambda: SameDiff.load(str(path)),
+                 lambda: ModelSerializer.restore_model(path)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+
+
+@pytest.mark.parametrize("call", [
+    lambda sd: sd.while_loop([], None, None),
+    lambda sd: sd.cond(None, None, None),
+    lambda sd: sd.scan(None, []),
+    lambda sd: sd.set_remat_segments(4),
+    lambda sd: sd.to_stablehlo({}, []),
+    lambda sd: sd.export_serialized({}, []),
+    lambda sd: sd.fit_steps({}, 1, mesh=object()),
+    lambda sd: sd.output({}, [], mesh=object()),
+    lambda sd: sd.cnn.conv2d,
+    lambda sd: sd.random.normal,
+    lambda sd: sd.nn.dropout(sd.placeholder("x"), 0.5),
+    lambda sd: sd.math.segment_sum(sd.placeholder("x"),
+                                   sd.placeholder("i")),
+], ids=["while_loop", "cond", "scan", "remat", "stablehlo", "export",
+        "fit_steps_mesh", "output_mesh", "cnn", "random", "dropout",
+        "segment"])
+def test_unported_paths_raise(call):
+    _, p = _pair()
+    with pytest.raises(NotImplementedError, match="not ported"):
+        call(p)
