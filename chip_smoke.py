@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Drive deeplearning4j_tpu_torch's main paths on one CUDA card: serving
-ResNet-50, training ResNet-50 (ComputationGraph) and training LeNet-5
-(MultiLayerNetwork), BERT-base inference and pretraining, generative
-serving of a GPT-2-small-width decoder, serving SqueezeNet, the bundled
+ResNet-50, training ResNet-50 (ComputationGraph, with and without remat
+segments) and training LeNet-5 (MultiLayerNetwork), BERT-base inference
+and pretraining (with and without remat), generative serving of a
+GPT-2-small-width decoder, serving and training SqueezeNet (dropout on,
+a learning-rate schedule, gradient accumulation), the bundled
 checkpoints held to their quality gates, training the GravesLSTM
 char-RNN (BASELINE config #3), and BERT-base imported from a frozen
 TensorFlow GraphDef into SameDiff (BASELINE config #4).
@@ -44,8 +46,13 @@ Phases, each of which fails the run (exit 1) when its check fails:
    configuration overshoots for its first three to five steps and
    settles below its first loss by step 10); step time, img/s and the
    device's busy/idle share; four steps with the fused BN backward
-   killed (kernel 2, and kernel 1 twice a site); two in bf16; card
-   against CPU (and a float64 CPU step) for one step at 64x64, TF32 off;
+   killed (kernel 2, and kernel 1 twice a site); one step with
+   ``remat_segments=4`` against the same step without, on copies: the
+   same loss, parameters and running statistics (the first forward's)
+   norm-wise, kernels 3 and 1 once more for each BatchNormalization in
+   the three checkpointed segments, the peak memory lower; two in bf16;
+   card against CPU (and a float64 CPU step) for one step at 64x64, TF32
+   off;
 7. train LeNet-5: 28x28x1, batch 64, Adam(1e-3), 20 steps through
    ``fit(iterator)`` on the synthetic MNIST surrogate; the loss falls,
    kernels 1 and 2 launch twice a step;
@@ -78,7 +85,13 @@ Phases, each of which fails the run (exit 1) when its check fails:
     step; the loss falls), the same 10 steps from the same weights
     with ``compute_dtype="bfloat16"`` (the same checks), each step timed
     and profiled with kernels 8 + 9's share of the busy time, then 3
-    classifier fine-tuning steps; card against CPU at 2 layers (forward,
+    classifier fine-tuning steps; then ``remat`` False, True and "dots"
+    from the same weights, batch and step keys (Sgd(0.05), 3 steps
+    each): kernel 7 twice a layer a step with remat (its forward
+    recomputed), 8 and 9 once, the losses and updates equal to False's
+    (bitwise or within ``REMAT_RTOL``), "dots" no more matrix products
+    than False and True 6 a layer more (a dispatch-mode count), True's
+    peak memory below False's; card against CPU at 2 layers (forward,
     and one SGD step norm-wise against a float64 step);
 12. paged kernel: paged decode attention (kernel 10) against its plain
     version at GPT-2-small's decode sites (batch 8 and 32, 12 heads of
@@ -116,6 +129,20 @@ Phases, each of which fails the run (exit 1) when its check fails:
     launches of kernel 4 and 9 of kernel 1 a forward, nothing else);
     answers == ``net.output`` bitwise; card against CPU (TF32 off); a
     bf16 forward; img/s at batch 32 and the device's busy/idle share;
+15b. squeezenet training: the same full-width SqueezeNet (seeded, the
+    zoo's output layer) trained through ``fit`` at batch 32 with its
+    DropoutLayer(0.5) active, masks drawn on the card, the zoo's
+    Adam(1e-3), 10 steps on one seeded batch, counts reset before and
+    read after (17 launches of kernel 4, 9 of kernel 1 and 9 of kernel 2
+    a step, nothing else; the loss falls); the keep share of a step's
+    mask within 4 sigma of 0.5; a WarmupSchedule(3,
+    ExponentialSchedule(1e-3, 0.9)) run, every rate the updater is asked
+    for against the schedule's formula; ``set_accumulation_steps(2)``
+    over two batch-16 halves against one batch-32 step (retain 1.0,
+    Sgd, TF32 off, within ``ACCUM_RTOL`` norm-wise); ms a step, img/s,
+    idle share, device kernels a step and peak memory; card against CPU
+    for one Sgd step at 64x64 (retain 1.0, TF32 off, norm-wise against
+    a float64 step);
 16. pretrained: ``lenet.zip``, ``resnet_cifar.zip`` and ``charrnn.zip``
     restored onto the card by ``restore_model`` (through the zoo's
     shortcuts) and held to their gates: LeNet-5 >= 0.99 on 2000
@@ -1084,6 +1111,9 @@ def phase_train_resnet(torch, label: str, device: str = "cuda",
           f"{step_ms:.3f}); launches {off} [{label}]")
     result.update(step_ms_bn_bwd_off=ms_off, launches_bn_bwd_off=off)
 
+    # ---- remat_segments=4: one step against the same step without ----
+    result["remat"] = resnet_remat_step(torch, net, kw, x, y, label)
+
     # ---- one bf16 step on a copy ----
     net16 = _copy_net(torch, net, ResNet50(compute_dtype="bfloat16",
                                            **kw).conf(), device)
@@ -1097,6 +1127,100 @@ def phase_train_resnet(torch, label: str, device: str = "cuda",
         torch.cuda.empty_cache()
         result["card_vs_cpu"] = train_card_vs_cpu(torch)
     return result
+
+
+def _peak_mb(torch, device: str, fn):
+    """``fn()``'s result and the peak device memory (MB) while it ran
+    (None on the CPU)."""
+    if device != "cuda":
+        return fn(), None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() / 2 ** 20
+
+
+def resnet_remat_step(torch, net, kw: dict, x, y, label: str) -> dict:
+    """One fit step of ``net``'s weights and states with
+    ``remat_segments=4`` against the same step without, on copies (fresh
+    updater state each): the same loss; parameters norm-wise within
+    UPDATE_FLOOR of the plain step's update; the running statistics of
+    the first forward (not the recompute's) within STATE_RTOL. The
+    recompute launches kernels 3 and 1 once more for every
+    BatchNormalization in the three checkpointed segments; 5 and 6 run
+    once a site, as without remat."""
+    from deeplearning4j_tpu_torch.models.zoo import ResNet50
+    from deeplearning4j_tpu_torch.nn.conf.layers import BatchNormalization
+    device = x.device.type
+    on_card = device == "cuda"
+    plain = _copy_net(torch, net, ResNet50(**kw).conf(), device)
+    seg = _copy_net(torch, net, ResNet50(remat_segments=4, **kw).conf(),
+                    device)
+    p0 = {k: {n: t.clone() for n, t in sub.items()}
+          for k, sub in plain.params.items()}
+    out = {}
+    for tag, n in (("plain", plain), ("remat", seg)):
+        _sync(torch, device)
+        _zero_counts()
+        t0 = time.perf_counter()
+        _, peak = _peak_mb(torch, device, lambda: n.fit(x, y))
+        out[tag] = {"loss": n.score(), "launches": _counts(),
+                    "first_ms": (time.perf_counter() - t0) * 1e3,
+                    "peak_mb": peak}
+    wrapped = [name for lo, hi, wrap, _, _ in seg._segments() if wrap
+               for name in seg._topo[lo:hi]]
+    r = sum(isinstance(seg.conf.vertices[v].content, BatchNormalization)
+            for v in wrapped)
+    sites = sum(isinstance(v.content, BatchNormalization)
+                for v in seg.conf.vertices.values())
+    want = {"plain": {"channel_sums": sites, "scale_shift_act": sites,
+                      "bn_bwd_sums": sites, "bn_bwd_dx": sites},
+            "remat": {"channel_sums": sites + r,
+                      "scale_shift_act": sites + r,
+                      "bn_bwd_sums": sites, "bn_bwd_dx": sites}}
+    for tag, w in want.items():
+        got = out[tag]["launches"]
+        expect = {k: w.get(k, 0) * on_card for k in got}
+        check(got == expect, f"ResNet-50 {tag} step launches {got} != "
+                             f"{expect} ({r} BN sites recomputed)")
+    check(out["remat"]["loss"] == out["plain"]["loss"],
+          f"remat loss {out['remat']['loss']} != {out['plain']['loss']}")
+    e_par = 0.0
+    for k, sub in p0.items():
+        for n_, t0 in sub.items():
+            d = (plain.params[k][n_] - t0).double()
+            e = float((seg.params[k][n_] - plain.params[k][n_]).double()
+                      .norm() / d.norm().clamp_min(1e-30))
+            e_par = max(e_par, e if float(d.norm()) > 0 else 0.0)
+    e_state = max(float((seg.states[k][n_] - t).double().norm() /
+                        t.double().norm().clamp_min(1e-30))
+                  for k, sub in plain.states.items()
+                  for n_, t in sub.items())
+    check(e_par <= UPDATE_FLOOR, f"remat params differ from the plain step "
+                                 f"by {e_par:.3e} of its update in norm")
+    check(e_state <= STATE_RTOL, f"remat running stats {e_state:.3e}")
+    for tag, n in (("plain", plain), ("remat", seg)):
+        # a second step each, timed (the first carries one-off costs)
+        _, out[tag]["ms"] = _timed_steps(torch, n, x, y, 2)
+    if on_card:
+        check(out["remat"]["peak_mb"] < out["plain"]["peak_mb"],
+              f"remat peak {out['remat']['peak_mb']:.1f} MB not below "
+              f"{out['plain']['peak_mb']:.1f} MB")
+    print(f"[train] remat_segments=4 ({r} of {sites} BN sites in the 3 "
+          f"checkpointed segments): loss {out['remat']['loss']} == plain;"
+          f" params within {e_par:.3e} of the plain update in norm, "
+          f"running stats {e_state:.3e}; steps "
+          f"{[round(out['remat']['first_ms'], 3)] + [round(m, 3) for m in out['remat']['ms']]} ms vs "
+          f"{[round(out['plain']['first_ms'], 3)] + [round(m, 3) for m in out['plain']['ms']]} ms "
+          f"(three each, after the main path), peak "
+          f"{out['remat']['peak_mb']} MB vs "
+          f"{out['plain']['peak_mb']} MB; launches "
+          f"{out['remat']['launches']} [{label}]")
+    out.update(recomputed_bn_sites=r, bn_sites=sites,
+               param_err=e_par, state_err=e_state)
+    del plain, seg
+    return out
 
 
 #: card against CPU after one step at 64x64 (TF32 off). One float32
@@ -2076,7 +2200,135 @@ def phase_bert_train(torch, label: str, device: str = "cuda", conf=None,
     check(bert.params is cls.params["bert"],
           "fit_batch did not write the encoder back")
     result.update(cls_losses=c_losses, cls_launches=c_launches)
+    del cls, bert
+    result["remat"] = bert_remat(torch, label, device, conf, batch)
     return result
+
+
+def _product_counter(torch):
+    """A dispatch mode counting the matrix products (mm, addmm, bmm,
+    baddbmm) that run, forward, recompute and backward; a product that
+    selective checkpointing hands back from its cache does not run."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    aten = torch.ops.aten
+    ops = (aten.mm.default, aten.addmm.default, aten.bmm.default,
+           aten.baddbmm.default)
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += func in ops
+            return func(*args, **(kwargs or {}))
+    return Count()
+
+
+#: remat against no remat, where not bitwise: the losses and the
+#: updates (norm-wise over all parameters)
+REMAT_RTOL = 1e-6
+
+
+def bert_remat(torch, label: str, device: str, conf, batch: int,
+               steps: int = 3) -> dict:
+    """BERT pretraining (``conf``: hidden dropout 0.1, attention dropout
+    0, so the flash kernels carry attention) with ``remat`` False, True
+    and "dots" from the same weights, batch and step keys: ``steps``
+    fit_batch steps each, counts set to 0 before and read after (kernel
+    7 twice a layer a step under True and "dots", since its forward is
+    recomputed, once without; kernels 8 and 9 once), the peak memory
+    of the steps (True's below False's), then one more step under a
+    product counter ("dots" runs no more products than False, True one
+    forward's more: 6 a layer). The losses and the updates equal
+    False's, bit for bit or within REMAT_RTOL (the updates norm-wise
+    over all parameters at once). The updater is Sgd: its update is
+    linear in the gradient, so the comparison sees the gradients' own
+    rounding (the embedding and gather backwards add with atomics, in
+    no fixed order, with remat or without), where Adam would turn an
+    entry whose exact gradient is 0 (the key bias) into a step of the
+    full rate."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.learning.updaters import Sgd
+    from deeplearning4j_tpu_torch.models import Bert
+    from deeplearning4j_tpu_torch.models.bert import flatten_tree
+    on_card = device == "cuda"
+    L = conf.num_hidden_layers
+    out, ref, p0 = {}, None, None
+    for mode in (False, True, "dots"):
+        g = torch.Generator().manual_seed(41)
+        bert = Bert(dataclasses.replace(conf, remat=mode), Sgd(0.05),
+                    seed=41).init(device, generator=g)
+        if p0 is None:
+            p0 = {n: t.clone() for n, t in flatten_tree(bert.params)
+                  .items()}
+        b = bert_batch(torch, g, batch, 128, conf.vocab_size, device)
+        np.random.seed(43)        # the same step keys for every mode
+        _zero_counts()
+
+        def run():
+            losses, ms = [], []
+            for _ in range(steps):
+                _sync(torch, device)
+                t0 = time.perf_counter()
+                losses.append(bert.fit_batch(b))
+                ms.append((time.perf_counter() - t0) * 1e3)
+            return losses, ms
+        (losses, ms), peak = _peak_mb(torch, device, run)
+        launches = _flash_counts()
+        flat = {n: t.detach() - p0[n] for n, t in
+                flatten_tree(bert.params).items()}
+        count = _product_counter(torch)
+        with count:
+            bert.fit_batch(b)
+        _sync(torch, device)
+        r = {"losses": losses, "step_ms": ms, "peak_mb": peak,
+             "launches": launches, "products_a_step": count.n}
+        for k in FLASH_KERNELS:
+            per = 2 * L if (mode and k == "flash_fwd") else L
+            check(launches[k] == per * steps * on_card,
+                  f"remat={mode!r} {k}: {launches[k]} launches in {steps} "
+                  f"steps, expected {per} a step")
+        if ref is None:
+            ref = (losses, flat, count.n)
+        else:
+            same = losses == ref[0] and all(
+                torch.equal(t, ref[1][n]) for n, t in flat.items())
+            num = sum(float((t - ref[1][n]).double().pow(2).sum())
+                      for n, t in flat.items())
+            den = sum(float(t.double().pow(2).sum())
+                      for t in ref[1].values())
+            err = (num / den) ** 0.5
+            l_err = max(abs(a - b_) / abs(b_) for a, b_ in
+                        zip(losses, ref[0]))
+            check(same or (err <= REMAT_RTOL and l_err <= REMAT_RTOL),
+                  f"remat={mode!r}: losses {losses} vs {ref[0]}, updates "
+                  f"{err:.3e} in norm")
+            # 6 products a layer on the card (q, k, v, o and the FFN's
+            # two; kernel 7 is none), 8 where the attention's plain
+            # version computes its two as products
+            per_layer = 6 if on_card else 8
+            extra = L * per_layer if mode is True else 0
+            check(count.n == ref[2] + extra,
+                  f"remat={mode!r}: {count.n} products a step, remat=False"
+                  f" {ref[2]}, expected {extra} more")
+            r.update(bitwise=same, param_rel_err=err, loss_rel_err=l_err)
+        out[str(mode)] = r
+        print(f"[bert-remat] remat={mode!r}: losses "
+              f"{[round(v, 6) for v in losses]}; step ms "
+              f"{[round(m, 3) for m in ms]}; peak {peak} MB; launches "
+              f"{launches}; {count.n} matrix products a step"
+              + (f"; equal to remat=False: bitwise {r['bitwise']}, "
+                 f"updates {r['param_rel_err']:.3e} in norm, losses "
+                 f"{r['loss_rel_err']:.3e}" if "bitwise" in r else "")
+              + f" [{label}]")
+        del bert, flat
+        if on_card:
+            torch.cuda.empty_cache()
+    if on_card:
+        check(out["True"]["peak_mb"] < out["False"]["peak_mb"],
+              f"remat=True peak {out['True']['peak_mb']:.1f} MB not below "
+              f"remat=False's {out['False']['peak_mb']:.1f} MB")
+    return out
 
 
 #: card against CPU for BERT (TF32 off): the forward as a forward, and
@@ -3167,7 +3419,8 @@ def _pointwise(torch, ce, conf) -> dict:
                                               "plain": plain_ms}}
 
 
-def seeded_squeezenet(torch, device: str, seed: int = 9, **kw):
+def seeded_squeezenet(torch, device: str, seed: int = 9,
+                      calibrate: bool = True, **kw):
     """Full-width SqueezeNet with weights from a seeded generator (the
     zoo's ReLU init) and every bias set from the same generator, so the
     epilogues add a bias that is not 0. The pooled features of random
@@ -3175,7 +3428,9 @@ def seeded_squeezenet(torch, device: str, seed: int = 9, **kw):
     outputs), so the output layer is calibrated on a batch from the same
     generator: its bias takes away the mean feature's logits and its
     weights are scaled to logits of standard deviation 2, which gives
-    each image its own top class."""
+    each image its own top class. ``calibrate=False`` keeps the zoo's
+    output layer (a training start: the calibrated scale gives images
+    unlike the calibration batch logits in the hundreds)."""
     from deeplearning4j_tpu_torch.models import SqueezeNet
     g = torch.Generator().manual_seed(seed)
     net = SqueezeNet(**kw).init(device, generator=g)
@@ -3183,6 +3438,8 @@ def seeded_squeezenet(torch, device: str, seed: int = 9, **kw):
         if "b" in sub:
             sub["b"] = (0.05 * torch.randn(sub["b"].shape, generator=g)
                         ).to(device)
+    if not calibrate:
+        return net
     conf = net.conf
     x = torch.randn(8, conf.input_types[0].height,
                     conf.input_types[0].width, 3, generator=g)
@@ -3199,8 +3456,9 @@ def seeded_squeezenet(torch, device: str, seed: int = 9, **kw):
         f = acts["gap"].float()
         w = net.params["output"]["W"]
         w = w * (2.0 / float(((f - f.mean(0)) @ w).std()))
-    net.params["output"]["W"] = w
-    net.params["output"]["b"] = -(f.mean(0) @ w)
+    # clones made outside inference mode: parameters a fit can train
+    net.params["output"]["W"] = w.clone()
+    net.params["output"]["b"] = -(f.mean(0) @ w).clone()
     return net
 
 
@@ -3287,7 +3545,286 @@ def phase_squeezenet(torch, device: str = "cuda", image: int = 224,
     return result
 
 
+def _squeezenet_conf(image: int, retain=None, updater=None):
+    """SqueezeNet's configuration at ``image``; ``retain`` sets the
+    dropout layer's retain probability, ``updater`` every layer's
+    updater."""
+    from deeplearning4j_tpu_torch.models import SqueezeNet
+    kw = {} if image == 224 else {"height": image, "width": image}
+    conf = SqueezeNet(**kw).conf()
+    if retain is not None:
+        conf.vertices["drop"].content.dropout = retain
+    if updater is not None:
+        conf.updater = updater
+        for v in conf.vertices.values():
+            if v.is_layer:
+                v.content.updater = updater
+    return conf
+
+
+def _update_dist(a: dict, b: dict, p0: dict) -> float:
+    """``||(a - p0) - (b - p0)|| / ||b - p0||`` over every parameter at
+    once (norm-wise, float64)."""
+    num = den = 0.0
+    for k, sub in p0.items():
+        for n, t in sub.items():
+            db = (b[k][n].double().cpu() - t.double().cpu())
+            num += float(((a[k][n].double().cpu() - t.double().cpu()) - db)
+                         .pow(2).sum())
+            den += float(db.pow(2).sum())
+    return (num / max(den, 1e-300)) ** 0.5
+
+
+#: the schedule the SqueezeNet phase trains with: 3 warmup steps into
+#: 1e-3 * 0.9^t (the JAX package's WarmupSchedule/ExponentialSchedule)
+SQ_WARMUP, SQ_LR0, SQ_GAMMA = 3, 1e-3, 0.9
+#: accumulation of two halves against the whole batch, norm-wise
+ACCUM_RTOL = 1e-5
+
+
+def _schedule_formula(t: int) -> float:
+    peak = SQ_LR0 * SQ_GAMMA ** t
+    return peak * t / SQ_WARMUP if t < SQ_WARMUP else peak
+
+
+def phase_train_squeezenet(torch, label: str, device: str = "cuda",
+                           image: int = 224, batch: int = BATCH,
+                           steps: int = 10) -> dict:
+    """Training full-width SqueezeNet through ``ComputationGraph.fit``
+    with its DropoutLayer(0.5) active, masks drawn on the card: the
+    main path is ``steps`` fit steps on one seeded batch (the zoo's
+    Adam(1e-3), TF32 convolutions), counts set to 0 before and read
+    after: 17 launches of kernel 4 (the pointwise convs' forward; their
+    backward is plain matmuls), 9 of kernel 1 and 9 of kernel 2 (the
+    other convs' epilogue forward and backward) a step, nothing else;
+    the loss falls. Then the masks' keep share (within 4 sigma of 0.5),
+    a learning-rate schedule run (the rate the updater was asked for at
+    every step against the schedule's formula), gradient accumulation
+    of two halves against one whole-batch step (retain 1.0, Sgd, TF32
+    off, norm-wise within ACCUM_RTOL), and one step card against CPU at
+    64x64. ``device="cpu"`` with a small ``image`` rehearses it. The
+    accumulated update is held within ACCUM_RTOL of the whole batch's,
+    or, failing that, as near a float64 CPU step of the whole batch as
+    UPDATE_FACTOR times the whole batch's own f32 distance from it
+    (plus ACCUM_RTOL)."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.common import telemetry
+    from deeplearning4j_tpu_torch.learning import schedules
+    from deeplearning4j_tpu_torch.learning.updaters import Adam, Sgd
+    from deeplearning4j_tpu_torch.nn.conf import dropout as dmod
+    kw = {} if image == 224 else {"height": image, "width": image}
+    on_card = device == "cuda"
+    t0 = time.perf_counter()
+    net = seeded_squeezenet(torch, device, calibrate=False, **kw)
+    g = torch.Generator().manual_seed(31)
+    x, y = learnable_batch(torch, g, batch, image)
+    x, y = x.to(device), y.to(device)
+    print(f"[sq-train] SqueezeNet {image}x{image}x3 -> 1000, batch {batch} "
+          f"f32 on {device}, {net.num_params()} params, updater "
+          f"{net.conf.updater}, dropout retain "
+          f"{net.conf.vertices['drop'].content.dropout}; built in "
+          f"{time.perf_counter() - t0:.2f}s")
+
+    # ---- the main path: counts to 0, the fit steps, counts read ----
+    fused = telemetry.counter("dl4j_conv_fused_steps_total")
+    sites = ("conv", "conv_matmul", "bn_infer")
+    d0 = {s_: fused.value(site=s_) for s_ in sites}
+    _zero_counts()
+    losses, ms = _timed_steps(torch, net, x, y, steps)
+    launches = _counts()
+    ds = {s_: fused.value(site=s_) - d0[s_] for s_ in sites}
+    print(f"[sq-train] losses {[round(v, 5) for v in losses]}; step ms "
+          f"{[round(m, 3) for m in ms]}; launches {launches}; dispatches "
+          f"{ds}")
+    check(all(np.isfinite(losses)), f"loss not finite: {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    per_step = {"matmul_bias_act": 17, "scale_shift_act": 9,
+                "epilogue_backward": 9}
+    want = {k: per_step.get(k, 0) * steps * on_card for k in launches}
+    check(launches == want, f"launches {launches} != {want}")
+    if on_card:
+        check(ds == {"conv": 9 * steps, "conv_matmul": 17 * steps,
+                     "bn_infer": 0}, f"dispatches {ds} in {steps} steps")
+    step_ms = float(np.median(ms[1:]))
+    result = {"losses": losses, "step_ms": ms, "median_step_ms": step_ms,
+              "img_per_s": batch * 1e3 / step_ms, "launches": launches,
+              "dispatches": ds}
+    print(f"[sq-train] batch-{batch} f32 step {step_ms:.3f} ms (median of "
+          f"steps 2-{steps}) = {batch * 1e3 / step_ms:.1f} img/s [{label}]")
+
+    # ---- the card's masks: the keep share of every mask one step drew --
+    drawn = []
+    noise = dmod.Dropout.noise
+
+    def spy(self, x_, rng):
+        m = noise(self, x_, rng)
+        drawn.append((m.device.type, m.numel(), float(m.float().mean())))
+        return m
+    dmod.Dropout.noise = spy
+    try:
+        _, peak = _peak_mb(torch, device, lambda: net.fit(x, y))
+    finally:
+        dmod.Dropout.noise = noise
+    check(len(drawn) == 1, f"{len(drawn)} masks drawn in a step")
+    dev_type, n, keep = drawn[0]
+    sigma = (0.25 / n) ** 0.5
+    check(dev_type == device, f"mask drawn on {dev_type}")
+    check(abs(keep - 0.5) <= 4 * sigma,
+          f"keep share {keep} off 0.5 by more than 4 sigma ({sigma:.2e})")
+    result.update(keep_share=keep, mask_elems=n, peak_mb=peak)
+    print(f"[sq-train] dropout mask on {dev_type}: {n} elements, keep "
+          f"share {keep:.6f} (0.5 +- {4 * sigma:.2e} at 4 sigma); peak "
+          f"memory {peak} MB a step [{label}]")
+    if on_card:
+        result["profile"] = profile_device(
+            torch, lambda: net.fit(x, y), step_ms,
+            f"batch-{batch} f32 SqueezeNet train step")
+
+    # ---- a learning-rate schedule: the rate asked for at every step ----
+    sched = schedules.WarmupSchedule(
+        SQ_WARMUP, schedules.ExponentialSchedule(SQ_LR0, SQ_GAMMA))
+    up = Adam(sched)
+    snet = _copy_net(torch, net, _squeezenet_conf(image, updater=up),
+                     device)
+    asked = []
+    lr_at = up.lr_at
+
+    def logged(iteration, epoch=0):
+        v = lr_at(iteration, epoch)
+        asked.append((iteration, epoch, v))
+        return v
+    up.lr_at = logged
+    s_losses = [float(snet.fit(x, y).score()) for _ in range(5)]
+    layers = sum(1 for k in snet._keys() if snet.params.get(k))
+    check(len(asked) == 5 * layers,
+          f"{len(asked)} rate lookups in 5 steps of {layers} layers")
+    worst = 0.0
+    for i, (it, ep, v) in enumerate(asked):
+        check(it == i // layers and ep == 0,
+              f"lookup {i}: iteration {it}, epoch {ep}")
+        want_v = _schedule_formula(it)
+        worst = max(worst, abs(v - want_v) / max(want_v, 1e-30))
+    check(worst <= 1e-6, f"scheduled lr off the formula by {worst:.2e}")
+    check(all(np.isfinite(s_losses)), f"schedule run losses {s_losses}")
+    result["schedule"] = {"lr": [asked[i * layers][2] for i in range(5)],
+                          "losses": s_losses, "max_rel_err": worst}
+    print(f"[sq-train] WarmupSchedule(3, ExponentialSchedule(1e-3, 0.9)) "
+          f"on Adam: lr per step {result['schedule']['lr']} (within "
+          f"{worst:.2e} of the formula, asked by all {layers} layers); "
+          f"losses {[round(v, 5) for v in s_losses]}")
+    del snet
+
+    # ---- gradient accumulation: two halves against the whole batch ----
+    # (the card's two f32 updates are also held to a float64 CPU step of
+    # the whole batch: at full width their own rounding, cuDNN's
+    # algorithms for batch 16 and 32 and the relu units it moves across
+    # 0, parts them by more than ACCUM_RTOL)
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    conf_a = _squeezenet_conf(image, retain=1.0, updater=Sgd(0.01))
+    full = _copy_net(torch, net, conf_a, device)
+    acc = _copy_net(torch, net, conf_a, device)
+    p0 = {k: {n_: t.clone() for n_, t in sub.items()}
+          for k, sub in full.params.items()}
+    conf64 = _squeezenet_conf(image, retain=1.0, updater=Sgd(0.01))
+    conf64.dtype = "float64"
+    cpu64 = ComputationGraph(conf64).set_params(
+        {k: {n_: t.detach().double().cpu() for n_, t in sub.items()}
+         for k, sub in p0.items()}, {}, "cpu")
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        full.fit(x, y)
+        acc.set_accumulation_steps(2)
+        h = batch // 2
+        acc.fit(x[:h], y[:h])
+        applied_after_one = acc._updates_applied
+        acc.fit(x[h:], y[h:])
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    cpu64.fit(x.double().cpu(), y.double().cpu())
+    e_acc = _update_dist(acc.params, full.params, p0)
+    e_acc64 = _update_dist(acc.params, cpu64.params, p0)
+    e_full64 = _update_dist(full.params, cpu64.params, p0)
+    check(applied_after_one == 0 and acc._updates_applied == 1,
+          "accumulation applied the wrong number of updates")
+    check(e_acc <= ACCUM_RTOL or e_acc64 <= UPDATE_FACTOR * e_full64
+          + ACCUM_RTOL,
+          f"2 x {batch // 2} accumulated: {e_acc:.3e} from 1 x {batch} and "
+          f"{e_acc64:.3e} from the float64 step, 1 x {batch} "
+          f"{e_full64:.3e} from it")
+    result.update(accumulation_rel_err=e_acc, accumulation_vs_f64=e_acc64,
+                  full_batch_vs_f64=e_full64)
+    print(f"[sq-train] set_accumulation_steps(2), 2 x {batch // 2} vs 1 x "
+          f"{batch} (retain 1.0, Sgd(0.01), TF32 off): updates "
+          f"{e_acc:.3e} apart in norm; from a float64 CPU step of the "
+          f"whole batch: accumulated {e_acc64:.3e}, whole batch "
+          f"{e_full64:.3e}")
+    del full, acc, cpu64
+    if on_card:
+        torch.cuda.empty_cache()
+        result["card_vs_cpu"] = squeezenet_train_card_vs_cpu(torch)
+    return result
+
+
+def squeezenet_train_card_vs_cpu(torch, image: int = 64, batch: int = 8,
+                                 device: str = "cuda") -> dict:
+    """One Sgd step of SqueezeNet at ``image`` with the dropout layer at
+    retain 1.0, on the card and on the CPU (on the card's route, the
+    conv gate forced) in float32 and float64, TF32 off: the loss within
+    LOSS_RTOL, the card's update norm-wise as near the float64 step as
+    UPDATE_FACTOR times the CPU float32 step's distance (plus
+    UPDATE_FLOOR), as ``train_card_vs_cpu`` holds ResNet-50's."""
+    from deeplearning4j_tpu_torch.common.environment import Environment
+    from deeplearning4j_tpu_torch.learning.updaters import Sgd
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    conf = _squeezenet_conf(image, retain=1.0, updater=Sgd(0.05))
+    g = torch.Generator().manual_seed(33)
+    base = ComputationGraph(conf).init("cpu", generator=g)
+    x, y = learnable_batch(torch, g, batch, image)
+    p0 = {k: {n: t.clone() for n, t in sub.items()}
+          for k, sub in base.params.items()}
+    card = _copy_net(torch, base, conf, device)
+    conf64 = _squeezenet_conf(image, retain=1.0, updater=Sgd(0.05))
+    conf64.dtype = "float64"
+    cpu64 = ComputationGraph(conf64).set_params(
+        {k: {n: t.double() for n, t in sub.items()} for k, sub in p0.items()},
+        {}, "cpu")
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    extra = Environment.get().extra
+    saved = extra.get("fused_conv")
+    try:
+        card.fit(x.to(device), y.to(device))
+        extra["fused_conv"] = "1"
+        base.fit(x, y)
+        cpu64.fit(x.double(), y.double())
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+        if saved is None:
+            extra.pop("fused_conv", None)
+        else:
+            extra["fused_conv"] = saved
+    check(abs(card.score() - base.score()) <= LOSS_RTOL * abs(base.score()),
+          f"SqueezeNet loss card {card.score()} vs cpu {base.score()}")
+    e_card = _update_dist(card.params, cpu64.params, p0)
+    e_cpu = _update_dist(base.params, cpu64.params, p0)
+    e_pair = _update_dist(card.params, base.params, p0)
+    check(e_card <= UPDATE_FACTOR * e_cpu + UPDATE_FLOOR,
+          f"SqueezeNet card update {e_card:.3e} from the float64 step, the "
+          f"CPU float32 step's {e_cpu:.3e}")
+    print(f"[sq-train] card vs CPU, one Sgd step at {image}x{image}, batch "
+          f"{batch}, retain 1.0 (TF32 off; CPU on the card's route): loss "
+          f"{card.score():.7f} vs {base.score():.7f} (f64 "
+          f"{cpu64.score():.7f}); update in norm: card vs f64 {e_card:.3e},"
+          f" CPU f32 vs f64 {e_cpu:.3e}, card vs CPU f32 {e_pair:.3e}")
+    return {"loss_card": card.score(), "loss_cpu": base.score(),
+            "loss_cpu64": cpu64.score(), "update_card_vs_f64": e_card,
+            "update_cpu32_vs_f64": e_cpu, "update_card_vs_cpu32": e_pair}
+
+
 def main() -> int:
+    import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3312,6 +3849,7 @@ def main() -> int:
     pw = timed("pointwise", phase_pointwise, torch)
     sl = timed("slice", phase_slice, torch, label=label)
     sq = timed("squeezenet", phase_squeezenet, torch, label=label)
+    st = timed("squeezenet-train", phase_train_squeezenet, torch, label)
     tr = timed("train", phase_train_resnet, torch, label)
     ln = timed("lenet", phase_train_lenet, torch, label)
     timed("weights", phase_weights_across, torch)
@@ -3443,6 +3981,15 @@ def main() -> int:
                      f"f32 ResNet-50 training step"
             by_dtype = {d: v["kernel_ms"]
                         for d, v in tk["timing"][k.name].items()}
+        # the launches on this slice's paths: SqueezeNet training (10
+        # steps), the ResNet-50 remat step, BERT-base remat (3 steps a
+        # mode)
+        extra["launches_squeezenet_training"] = st["launches"][k.name]
+        extra["launches_resnet_remat_step"] = \
+            tr["remat"]["remat"]["launches"][k.name]
+        if k.name in FLASH_KERNELS:
+            extra["launches_bert_remat"] = {
+                m: r["launches"][k.name] for m, r in bt["remat"].items()}
         records.append({
             "name": k.name, "route": "cuda", "source": k.source,
             "replaces": k.replaces, "launches": launches[k.name],
@@ -3459,6 +4006,22 @@ def main() -> int:
           f"forward t=128 {bs['f32_t128_ms'][1]:.3f} ms, "
           f"t=512 f32 {bs['f32_t512_ms'][1]:.3f} ms, bf16 "
           f"{bs['bf16_t512_ms'][1]:.3f} ms [{label}]")
+    rm = bt["remat"]
+    print(f"[done] SqueezeNet training (dropout 0.5 on the card): batch-32 "
+          f"f32 step {st['median_step_ms']:.3f} ms ({st['img_per_s']:.1f} "
+          f"img/s, idle share "
+          f"{st.get('profile', {}).get('idle_share', float('nan')):.3f}, "
+          f"{st.get('profile', {}).get('kernel_calls', 0)} device kernels a "
+          f"step, peak {st['peak_mb']:.1f} MB), accumulation 2 x 16 vs 1 x "
+          f"32 {st['accumulation_rel_err']:.3e}; BERT-base remat step ms / "
+          f"peak MB: False {np.median(rm['False']['step_ms'][1:]):.3f} / "
+          f"{rm['False']['peak_mb']:.1f}, True "
+          f"{np.median(rm['True']['step_ms'][1:]):.3f} / "
+          f"{rm['True']['peak_mb']:.1f}, dots "
+          f"{np.median(rm['dots']['step_ms'][1:]):.3f} / "
+          f"{rm['dots']['peak_mb']:.1f}; ResNet-50 remat_segments=4 peak "
+          f"{tr['remat']['remat']['peak_mb']:.1f} MB vs "
+          f"{tr['remat']['plain']['peak_mb']:.1f} MB [{label}]")
     print(f"[done] SqueezeNet serving: batch-32 f32 forward "
           f"{sq['fwd32_f32_ms'][1]:.3f} ms ({sq['img_per_s']:.1f} img/s), "
           f"bf16 {sq['fwd32_bf16_ms']:.3f} ms, {sq['http_img_per_s']:.1f} "

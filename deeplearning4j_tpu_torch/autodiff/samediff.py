@@ -19,12 +19,19 @@ tensors on the graph's device.
 in the other; bfloat16 arrays are stored as float32 (numpy has no
 bfloat16) and cast back on load from the dtype ``graph.json`` records.
 
+``set_remat_segments(n)`` cuts the training walk (the train step and
+``calculate_gradients``) into ``n`` segments, each but the last under
+``torch.utils.checkpoint``: only values that a later op reads (or a
+requested output) cross a boundary, and the boundaries sit where the
+bytes live across them are fewest (``min_cut_segment_plan``, sizes from
+one pass of the walk on meta tensors), which on an imported transformer
+are its layer boundaries.
+
 Not ported yet (each raises ``NotImplementedError`` with a pointer to
 ``ROADMAP.md``): control flow (``while_loop`` / ``cond`` / ``scan``),
 StableHLO export (``to_stablehlo`` / ``export_serialized`` /
-``deserialize_and_call``), remat segments, and data- or tensor-parallel
-``output`` / ``fit_steps`` (``mesh``, ``tp_specs``, ``ph_specs``,
-``encoding``).
+``deserialize_and_call``), and data- or tensor-parallel ``output`` /
+``fit_steps`` (``mesh``, ``tp_specs``, ``ph_specs``, ``encoding``).
 """
 from __future__ import annotations
 
@@ -36,10 +43,12 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from deeplearning4j_tpu_torch.autodiff.registry import (dtype_name, get_op,
                                                         torch_dtype)
 from deeplearning4j_tpu_torch.common.environment import resolve_device
+from deeplearning4j_tpu_torch.common.remat import min_cut_segment_plan
 
 _ROADMAP = "ROADMAP.md, Queue A"
 
@@ -277,6 +286,8 @@ class SameDiff:
         #: (Adam's bias correction must not restart per call)
         self.iteration_count: int = 0
         self.epoch_count: int = 0
+        #: training walks in this many checkpointed segments (0: off)
+        self.remat_segments: int = 0
         self.listeners: list = []
         self._score: float = float("nan")
         self.last_batch_size: int = 0
@@ -506,12 +517,93 @@ class SameDiff:
         return plan
 
     def _run(self, plan: _Plan, var_vals: dict, ph_vals: dict,
-             out_names: Sequence[str]) -> List[torch.Tensor]:
+             out_names: Sequence[str], training: bool = False
+             ) -> List[torch.Tensor]:
         values = {n: self._arrays[n] for n in plan.constants}
         values.update(var_vals)
         values.update(ph_vals)
-        self._execute(values, plan.ops)
+        if training and self.remat_segments > 1 and len(plan.ops) > 1 \
+                and torch.is_grad_enabled():
+            self._execute_segmented(values, plan.ops, tuple(out_names))
+        else:
+            self._execute(values, plan.ops)
         return [values[n] for n in out_names]
+
+    def _segment_cut_costs(self, op_indices: List[int],
+                           out_names: Tuple[str, ...],
+                           sizes: Optional[dict] = None) -> np.ndarray:
+        """``cost[c]``: the bytes of the values live across a cut before
+        walk position ``c`` (produced earlier, read at or after ``c`` or
+        a requested output); a value of unknown size counts 1."""
+        n = len(op_indices)
+        first_prod, last_read = {}, {}
+        for j, i in enumerate(op_indices):
+            for name in self.ops[i].inputs:
+                last_read[name] = j
+            for name in self.ops[i].outputs:
+                first_prod.setdefault(name, j)
+        sizes = sizes or {}
+        diff = np.zeros(n + 2)
+        for name, j in first_prod.items():
+            k = n if name in out_names else last_read.get(name, j)
+            if k > j:
+                w = float(sizes.get(name, 1.0))
+                # crosses every cut c with j < c <= k
+                diff[j + 1] += w
+                diff[k + 1] -= w
+        return np.cumsum(diff)[:n + 1]
+
+    def _value_sizes(self, values: dict, op_indices: List[int]) -> dict:
+        """Bytes of every value of the walk, from one pass on meta
+        tensors (shapes only: nothing computed or allocated). Empty when
+        an op has no meta kernel; the cut costs then count values."""
+        meta = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+                for k, v in values.items()}
+        try:
+            self._execute(meta, op_indices)
+        except (RuntimeError, NotImplementedError, TypeError,
+                ValueError):
+            return {}
+        return {k: v.numel() * v.element_size() for k, v in meta.items()
+                if isinstance(v, torch.Tensor)}
+
+    def _execute_segmented(self, values: dict, op_indices: List[int],
+                           out_names: Tuple[str, ...]) -> None:
+        """The walk in ``remat_segments`` segments placed by
+        ``min_cut_segment_plan``, each but the last checkpointed; only
+        values read later (or requested) cross a boundary."""
+        read_at = [set(self.ops[i].inputs) for i in op_indices]
+        key = ("remat", tuple(op_indices), out_names, self.remat_segments,
+               tuple((k, tuple(v.shape)) for k, v in values.items()))
+        plan = self._exec_cache.get(key)
+        if plan is None:
+            plan = self._exec_cache[key] = min_cut_segment_plan(
+                len(op_indices), self.remat_segments,
+                self._segment_cut_costs(
+                    op_indices, out_names,
+                    self._value_sizes(values, op_indices)))
+        for lo, hi, wrap in plan:
+            seg = op_indices[lo:hi]
+            produced = {o for i in seg for o in self.ops[i].outputs}
+            read = set().union(*read_at[lo:hi])
+            needed_after = set(out_names).union(*read_at[hi:])
+            seg_in = sorted((read - produced) & set(values))
+            seg_out = sorted(produced & needed_after)
+
+            def seg_fn(in_vals, seg=seg, seg_out=seg_out):
+                vals = self._execute(dict(in_vals), seg)
+                return {k: vals[k] for k in seg_out}
+
+            in_vals = {k: values[k] for k in seg_in}
+            outs = (checkpoint(seg_fn, in_vals, use_reentrant=False,
+                               preserve_rng_state=False)
+                    if wrap else seg_fn(in_vals))
+            # drop values dead past this boundary; variables, constants
+            # and placeholders stay for later segments' inputs
+            for k in list(values):
+                if k not in needed_after:
+                    del values[k]
+            values.update(outs)
 
     def _placeholders(self, placeholders: dict) -> Dict[str, torch.Tensor]:
         return {k: as_tensor(v, self.device)
@@ -547,7 +639,14 @@ class SameDiff:
         raise _not_ported("program export (deserialize_and_call)", "9")
 
     def set_remat_segments(self, n: int):
-        raise _not_ported("remat segments (set_remat_segments)", "5")
+        """Cut training walks into ``n`` checkpointed segments (sqrt(N)
+        activation checkpointing; 0 disables): only segment-boundary
+        values are kept for the backward, interiors are recomputed.
+        The memory lever for flat imported graphs, which have no layer
+        structure to remat. Cached segment plans are dropped."""
+        self.remat_segments = int(n)
+        self._exec_cache.clear()
+        return self
 
     def while_loop(self, *a, **kw):
         raise _not_ported("control flow (while_loop)", "9")
@@ -628,7 +727,8 @@ class SameDiff:
         var_vals = {n: self._arrays[n] for n in plan.variables}
         var_vals.update(leaves)
         with torch.enable_grad():
-            outs = self._run(plan, var_vals, ph_vals, self.loss_variables)
+            outs = self._run(plan, var_vals, ph_vals, self.loss_variables,
+                             training=True)
             total = sum(o.sum() for o in outs)
             grads = torch.autograd.grad(total, list(leaves.values()),
                                         allow_unused=True)
@@ -659,7 +759,8 @@ class SameDiff:
         params = {n: self._arrays[n].detach().requires_grad_(True)
                   for n in names}
         with torch.enable_grad():
-            outs = self._run(plan, params, ph_vals, self.loss_variables)
+            outs = self._run(plan, params, ph_vals, self.loss_variables,
+                             training=True)
             total = sum(o.sum() for o in outs)
             if cfg.l2:
                 total = total + 0.5 * cfg.l2 * sum(
@@ -673,7 +774,8 @@ class SameDiff:
             grads = {n: (g if g is not None else torch.zeros_like(params[n]))
                      for n, g in zip(names, grads)}
             updates, self._updater_state = cfg.updater.apply(
-                grads, self._updater_state, self.iteration_count)
+                grads, self._updater_state, self.iteration_count,
+                self.epoch_count)
             for n, p in params.items():
                 u = updates[n]
                 if p.dtype in (torch.float32, torch.float64):

@@ -12,8 +12,9 @@ zeros}}`` for Nesterovs, ``{"m": ..., "v": ...}`` for Adam, ``{}`` for
 Sgd and NoOp), and ``apply(grads, state, iteration)`` returns
 ``(updates, new_state)`` with the updates to be **subtracted** from the
 parameters. Adam-family bias corrections use ``t = iteration + 1``.
-Learning-rate schedules are not ported yet: a schedule map in place of
-a number raises when the updater applies.
+``learning_rate`` may be a number or an ``ISchedule``
+(``learning/schedules.py``), written into the JSON as its map and read
+back from it; ``lr_at(iteration, epoch)`` gives the rate a step uses.
 """
 from __future__ import annotations
 
@@ -21,6 +22,8 @@ import math
 from typing import Any, Callable, Dict, Tuple
 
 import torch
+
+from deeplearning4j_tpu_torch.learning.schedules import ISchedule
 
 _Tree = Dict[str, torch.Tensor]
 
@@ -59,10 +62,15 @@ class IUpdater:
             raise TypeError(f"{kind} has no hyperparameters "
                             f"{sorted(unknown)}")
         self.kind = kind
-        self.hyper: Dict[str, Any] = {**DEFAULTS[kind], **hyper}
+        # a schedule may come as its JSON map
+        self.hyper: Dict[str, Any] = {**DEFAULTS[kind], **{
+            k: ISchedule.from_map(v) if isinstance(v, dict) else v
+            for k, v in hyper.items()}}
 
     def to_map(self) -> dict:
-        return {"@class": self.kind, **self.hyper}
+        return {"@class": self.kind,
+                **{k: v.to_map() if isinstance(v, ISchedule) else v
+                   for k, v in self.hyper.items()}}
 
     @staticmethod
     def from_map(d: dict) -> "IUpdater":
@@ -74,41 +82,42 @@ class IUpdater:
         return f"{self.kind}({args})"
 
     # -- math ------------------------------------------------------------
-    def lr(self) -> float:
+    def lr_at(self, iteration: int, epoch: int = 0) -> float:
+        """The learning rate at ``iteration`` / ``epoch``: the number,
+        or the schedule's value there."""
         lr = self.hyper.get("learning_rate")
-        if not isinstance(lr, (int, float)):
-            raise NotImplementedError(
-                f"{self.kind}: learning-rate schedules are not ported yet "
-                f"(got {lr!r})")
+        if isinstance(lr, ISchedule):
+            return lr.value_at(iteration, epoch)
         return float(lr)
 
     def init_state(self, params: _Tree) -> Dict[str, _Tree]:
         return {slot: {n: torch.zeros_like(p) for n, p in params.items()}
                 for slot in SLOTS[self.kind]}
 
-    def apply(self, grads: _Tree, state: Dict[str, _Tree], iteration: int
-              ) -> Tuple[_Tree, Dict[str, _Tree]]:
+    def apply(self, grads: _Tree, state: Dict[str, _Tree], iteration: int,
+              epoch: int = 0) -> Tuple[_Tree, Dict[str, _Tree]]:
         """``(updates_to_subtract, new_state)`` for one layer."""
-        return _MATH[self.kind](self, grads, state, iteration)
+        lr = self.lr_at(iteration, epoch) if "learning_rate" in self.hyper \
+            else None
+        return _MATH[self.kind](self, grads, state, iteration, lr)
 
 
 def _tmap(fn: Callable, *trees: _Tree) -> _Tree:
     return {n: fn(*(t[n] for t in trees)) for n in trees[0]}
 
 
-def _noop(u, grads, state, it):
+def _noop(u, grads, state, it, lr):
     return _tmap(torch.zeros_like, grads), state
 
 
-def _sgd(u, grads, state, it):
-    lr = u.lr()
+def _sgd(u, grads, state, it, lr):
     return _tmap(lambda g: lr * g, grads), state
 
 
-def _nesterovs(u, grads, state, it):
+def _nesterovs(u, grads, state, it, lr):
     # v' = mu*v - lr*g; update = lr*g - mu*v' (the reference's
     # params += mu*v' - lr*g, as a quantity to subtract)
-    lr, mu = u.lr(), u.hyper["momentum"]
+    mu = u.hyper["momentum"]
     v = _tmap(lambda v_, g: mu * v_ - lr * g, state["v"], grads)
     return _tmap(lambda vn, g: lr * g - mu * vn, v, grads), {"v": v}
 
@@ -125,8 +134,8 @@ def _moments(u, grads, state):
     return m, v
 
 
-def _adam(u, grads, state, it):
-    lr, eps = u.lr(), u.hyper["epsilon"]
+def _adam(u, grads, state, it, lr):
+    eps = u.hyper["epsilon"]
     m, v = _moments(u, grads, state)
     bc1, bc2 = _bias_corrections(u, it)
     upd = _tmap(lambda m_, v_: lr * (m_ / bc1) /
@@ -134,8 +143,8 @@ def _adam(u, grads, state, it):
     return upd, {"m": m, "v": v}
 
 
-def _adamax(u, grads, state, it):
-    lr, eps = u.lr(), u.hyper["epsilon"]
+def _adamax(u, grads, state, it, lr):
+    eps = u.hyper["epsilon"]
     b1, b2 = u.hyper["beta1"], u.hyper["beta2"]
     m = _tmap(lambda m_, g: b1 * m_ + (1 - b1) * g, state["m"], grads)
     uu = _tmap(lambda u_, g: torch.maximum(b2 * u_, torch.abs(g)),
@@ -145,8 +154,8 @@ def _adamax(u, grads, state, it):
     return upd, {"m": m, "u": uu}
 
 
-def _nadam(u, grads, state, it):
-    lr, eps, b1 = u.lr(), u.hyper["epsilon"], u.hyper["beta1"]
+def _nadam(u, grads, state, it, lr):
+    eps, b1 = u.hyper["epsilon"], u.hyper["beta1"]
     m, v = _moments(u, grads, state)
     bc1, bc2 = _bias_corrections(u, it)
     upd = _tmap(lambda m_, v_, g: lr / (torch.sqrt(v_ / bc2) + eps) *
@@ -154,8 +163,8 @@ def _nadam(u, grads, state, it):
     return upd, {"m": m, "v": v}
 
 
-def _amsgrad(u, grads, state, it):
-    lr, eps = u.lr(), u.hyper["epsilon"]
+def _amsgrad(u, grads, state, it, lr):
+    eps = u.hyper["epsilon"]
     m, v = _moments(u, grads, state)
     vmax = _tmap(torch.maximum, state["vmax"], v)
     bc1, bc2 = _bias_corrections(u, it)
@@ -166,14 +175,14 @@ def _amsgrad(u, grads, state, it):
     return upd, {"m": m, "v": v, "vmax": vmax}
 
 
-def _adagrad(u, grads, state, it):
-    lr, eps = u.lr(), u.hyper["epsilon"]
+def _adagrad(u, grads, state, it, lr):
+    eps = u.hyper["epsilon"]
     G = _tmap(lambda G_, g: G_ + g * g, state["G"], grads)
     upd = _tmap(lambda G_, g: lr * g / (torch.sqrt(G_) + eps), G, grads)
     return upd, {"G": G}
 
 
-def _adadelta(u, grads, state, it):
+def _adadelta(u, grads, state, it, lr):
     rho, eps = u.hyper["rho"], u.hyper["epsilon"]
     Eg = _tmap(lambda e, g: rho * e + (1 - rho) * g * g, state["Eg"], grads)
     dx = _tmap(lambda e, edx, g: torch.sqrt(edx + eps) /
@@ -183,8 +192,8 @@ def _adadelta(u, grads, state, it):
     return dx, {"Eg": Eg, "Edx": Edx}
 
 
-def _rmsprop(u, grads, state, it):
-    lr, rho, eps = u.lr(), u.hyper["rms_decay"], u.hyper["epsilon"]
+def _rmsprop(u, grads, state, it, lr):
+    rho, eps = u.hyper["rms_decay"], u.hyper["epsilon"]
     Eg = _tmap(lambda e, g: rho * e + (1 - rho) * g * g, state["Eg"], grads)
     upd = _tmap(lambda e, g: lr * g / (torch.sqrt(e) + eps), Eg, grads)
     return upd, {"Eg": Eg}

@@ -33,19 +33,35 @@ PyTorch, where the JAX gather clamps them; a sequence longer than
 Training is eager: each step runs autograd over the flattened leaves
 (``"embeddings/word"``, ...), applies the updater to that flat tree and
 writes ``(p - u)`` back in p's dtype. ``fit_steps`` is a Python loop
-with a ``torch.Generator`` per step. Remat is not ported.
+with an ``RngKey`` per step (``common/rng.py``); as in the JAX package,
+layer ``i`` draws its dropout masks from ``fold_in(key, i)`` and the
+embeddings from a split of the key, each mask from a generator made
+from its own key on the activations' device.
+
+``remat``: False keeps every activation for the backward. True (or
+"full") runs each encoder layer under ``torch.utils.checkpoint``, which
+keeps only the layer's input and recomputes the rest in the backward
+(``jax.checkpoint`` of the layer body); "dots" saves the outputs of the
+matrix products (``aten.mm`` / ``addmm`` / ``bmm`` / ``baddbmm``) and
+recomputes everything else, the flash forward included (JAX's
+``dots_saveable`` policy). The recompute draws the same masks, since
+they come from the layer's key.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from deeplearning4j_tpu_torch.common import layerprof
 from deeplearning4j_tpu_torch.common.environment import resolve_device
+from deeplearning4j_tpu_torch.common.rng import RngKey
 from deeplearning4j_tpu_torch.learning.updaters import Adam, IUpdater
 from deeplearning4j_tpu_torch.ops.attention import (dot_product_attention,
                                                     merge_heads,
@@ -101,7 +117,7 @@ class _Trainable:
     params: dict
     device: torch.device
 
-    def _loss_fn(self, params, batch, gen):
+    def _loss_fn(self, params, batch, rng):
         raise NotImplementedError
 
     def _ensure_state(self) -> None:
@@ -115,17 +131,14 @@ class _Trainable:
                 flatten_tree(self.params))
             self._iteration = 0
 
-    def _generator(self, seed: int) -> torch.Generator:
-        return torch.Generator(device=self.device).manual_seed(seed)
-
-    def _step(self, batch: dict, gen: torch.Generator) -> torch.Tensor:
+    def _step(self, batch: dict, rng: RngKey) -> torch.Tensor:
         """One update: autograd over the flat leaves, the updater on the
         flat tree, ``(p - u)`` in p's dtype. Returns the loss before the
         update (a 0-dim tensor on the device)."""
         flat = flatten_tree(self.params)
         leaves = {n: t.detach().requires_grad_(True)
                   for n, t in flat.items()}
-        loss = self._loss_fn(unflatten_tree(leaves), batch, gen)
+        loss = self._loss_fn(unflatten_tree(leaves), batch, rng)
         grads = torch.autograd.grad(loss, list(leaves.values()),
                                     allow_unused=True)
         grads = {n: g if g is not None else torch.zeros_like(leaves[n])
@@ -142,19 +155,19 @@ class _Trainable:
     def fit_batch(self, batch: dict) -> float:
         self._ensure_state()
         batch = _device_batch(batch, self.device)
-        gen = self._generator(int(np.random.randint(0, 2 ** 31)))
-        self.score_value = float(self._step(batch, gen))
+        rng = RngKey(int(np.random.randint(0, 2 ** 31)))
+        self.score_value = float(self._step(batch, rng))
         return self.score_value
 
     def fit_steps(self, batch: dict, n_steps: int) -> float:
-        """``n_steps`` updates on one batch, a generator per step (seeds
-        ``s, s+1, ...``), syncing on the last loss only."""
+        """``n_steps`` updates on one batch, step ``i`` under
+        ``fold_in(key, i)``, syncing on the last loss only."""
         self._ensure_state()
         batch = _device_batch(batch, self.device)
-        seed = int(np.random.randint(0, 2 ** 31 - n_steps))
+        key = RngKey(int(np.random.randint(0, 2 ** 31)))
         loss = None
         for i in range(n_steps):
-            loss = self._step(batch, self._generator(seed + i))
+            loss = self._step(batch, key.fold_in(i))
         self.score_value = float(loss) if loss is not None \
             else float("nan")
         return self.score_value
@@ -179,7 +192,9 @@ class BertConfig:
     #: "float32", "bfloat16" or "float16": the encoder's activations and
     #: per-call cast of its leaves; parameters stay f32
     compute_dtype: str = "float32"
-    #: not ported: any truthy value raises (ROADMAP Queue A item 5)
+    #: False: keep every activation; True / "full": checkpoint each
+    #: encoder layer (keep its input only); "dots": keep the matrix
+    #: products' outputs, recompute the rest
     remat: object = False
     #: call the flash kernels directly rather than through the ladder;
     #: attention-probability dropout in training still takes the dense
@@ -214,12 +229,41 @@ def _gelu(x):
     return F.gelu(x, approximate="tanh")
 
 
-def _dropout(x, rate: float, gen: Optional[torch.Generator],
-             training: bool):
-    if not training or gen is None or rate <= 0.0:
+def _dropout(x, rate: float, rng: Optional[RngKey], training: bool):
+    if not training or rng is None or rate <= 0.0:
         return x
-    keep = torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - rate
+    keep = torch.rand(x.shape, generator=rng.generator(x.device),
+                      device=x.device) < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), 0.0)
+
+
+#: the products "dots" saves: jax.checkpoint_policies.dots_saveable
+#: saves every dot_general output
+_DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+            torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOT_OPS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_layer(fn, remat):
+    """``fn`` (one encoder layer) under the ``remat`` policy: False as
+    it is, True / "full" under ``checkpoint``, "dots" under a selective
+    checkpoint that keeps the matrix products."""
+    if not remat:
+        return fn
+    if remat in (True, "full"):
+        return functools.partial(checkpoint, fn, use_reentrant=False,
+                                 preserve_rng_state=False)
+    if remat == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False, preserve_rng_state=False,
+            context_fn=functools.partial(
+                create_selective_checkpoint_contexts, _save_dots))
+    raise ValueError(f"remat={remat!r}: use False, True, 'full', or "
+                     f"'dots'")
 
 
 def _trunc_normal(shape, sd: float, gen: torch.Generator) -> torch.Tensor:
@@ -298,9 +342,10 @@ class Bert(_Trainable):
         return sum(t.numel() for t in flatten_tree(self.params).values())
 
     # -- encoder ---------------------------------------------------------
-    def _attention(self, lp, x, key_mask, gen, training):
+    def _attention(self, lp, x, key_mask, rng, training):
         c = self.conf
         h = c.num_attention_heads
+        r_attn, r_out = rng.split() if rng is not None else (None, None)
         if c.fused_qkv:
             w = torch.cat([lp["Wq"], lp["Wk"], lp["Wv"]], 1)
             bias = torch.cat([lp["bq"], lp["bk"], lp["bv"]])
@@ -311,39 +356,41 @@ class Bert(_Trainable):
             k = split_heads(x @ lp["Wk"] + lp["bk"], h)
             v = split_heads(x @ lp["Wv"] + lp["bv"], h)
         attn_drop = (c.attention_probs_dropout_prob
-                     if training and gen is not None else 0.0)
+                     if training and r_attn is not None else 0.0)
         if c.use_flash_attention and attn_drop == 0.0:
             o = flash_attention(q, k, v, False, key_mask)
         else:
             m = key_mask[:, None, None, :] if key_mask is not None else None
+            gen = r_attn.generator(x.device) if attn_drop > 0.0 else None
             o = dot_product_attention(q, k, v, m, dropout_generator=gen,
                                       dropout_rate=attn_drop)
         o = merge_heads(o) @ lp["Wo"] + lp["bo"]
-        return _dropout(o, c.hidden_dropout_prob, gen, training)
+        return _dropout(o, c.hidden_dropout_prob, r_out, training)
 
-    def _layer(self, lp, x, key_mask, gen, training):
+    def _layer(self, lp, x, key_mask, rng, training):
         c = self.conf
+        r1, r2 = rng.split() if rng is not None else (None, None)
         with layerprof.scope("encoder.attention"):
-            a = self._attention(lp, x, key_mask, gen, training)
+            a = self._attention(lp, x, key_mask, r1, training)
             x = _norm(x + a, lp["attn_ln_g"], lp["attn_ln_b"],
                       c.layer_norm_eps)
         with layerprof.scope("encoder.ffn"):
             i = _gelu(x @ lp["Wi"] + lp["bi"])
             o = _dropout(i @ lp["Wout"] + lp["bout"],
-                         c.hidden_dropout_prob, gen, training)
+                         c.hidden_dropout_prob, r2, training)
             return _norm(x + o, lp["out_ln_g"], lp["out_ln_b"],
                          c.layer_norm_eps)
 
     def encode(self, params, input_ids, token_type_ids=None,
                attention_mask=None, *, training: bool = False,
-               gen: Optional[torch.Generator] = None):
+               rng: Optional[RngKey] = None):
         """input_ids ``[b, t]`` -> (sequence_output ``[b, t, H]``,
-        pooled_output ``[b, H]``), both f32 (f64 for a float64 model)."""
+        pooled_output ``[b, H]``), both f32 (f64 for a float64 model).
+        ``rng``: the step's key (training dropout)."""
         c = self.conf
-        if c.remat:
-            raise NotImplementedError(
-                f"remat={c.remat!r} is not ported yet (ROADMAP Queue A "
-                f"item 5); use remat=False")
+        r_emb = None
+        if rng is not None:
+            rng, r_emb = rng.split()
         dt = getattr(torch, c.compute_dtype)
         b, t = input_ids.shape
         if t > c.max_position_embeddings:
@@ -358,15 +405,23 @@ class Bert(_Trainable):
                 token_type_ids = torch.zeros_like(input_ids)
             x = x + e["token_type"][token_type_ids]
             x = _norm(x, e["ln_g"], e["ln_b"], c.layer_norm_eps)
-            x = _dropout(x, c.hidden_dropout_prob, gen, training)
+            x = _dropout(x, c.hidden_dropout_prob, r_emb, training)
             x = x.to(dt)
         key_mask = None
         if attention_mask is not None:
             key_mask = attention_mask.to(dt)
         enc = {n: a.to(dt) for n, a in params["encoder"].items()}
+
+        def body(x, i):
+            r = rng.fold_in(i) if rng is not None else None
+            return self._layer({n: a[i] for n, a in enc.items()}, x,
+                               key_mask, r, training)
+
+        layer_fn = remat_layer(body, c.remat)
+        if not torch.is_grad_enabled():
+            layer_fn = body          # nothing is kept for a backward
         for i in range(c.num_hidden_layers):
-            x = self._layer({n: a[i] for n, a in enc.items()}, x, key_mask,
-                            gen, training)
+            x = layer_fn(x, i)
         # the pooler and heads run in f32 (f64 for a float64 model)
         x = x.to(torch.promote_types(dt, torch.float32))
         with layerprof.scope("pooler"):
@@ -387,13 +442,13 @@ class Bert(_Trainable):
             n = params["nsp"]
             return pooled_output @ n["W"] + n["b"]
 
-    def pretrain_loss(self, params, batch, gen=None, training=True):
+    def pretrain_loss(self, params, batch, rng=None, training=True):
         """Masked-LM plus next-sentence loss. batch: input_ids,
         token_type_ids, attention_mask, mlm_labels (``[b, t]``, -1 =
         ignore), nsp_labels (``[b]``, optional)."""
         seq, pooled = self.encode(
             params, batch["input_ids"], batch.get("token_type_ids"),
-            batch.get("attention_mask"), training=training, gen=gen)
+            batch.get("attention_mask"), training=training, rng=rng)
         labels = batch["mlm_labels"]
         k = self.conf.max_predictions_per_seq
         if k and k < labels.shape[1]:
@@ -420,8 +475,8 @@ class Bert(_Trainable):
                     nlogp, -1, batch["nsp_labels"][:, None])[:, 0])
         return loss
 
-    def _loss_fn(self, params, batch, gen):
-        return self.pretrain_loss(params, batch, gen)
+    def _loss_fn(self, params, batch, rng):
+        return self.pretrain_loss(params, batch, rng)
 
     def output(self, input_ids, token_type_ids=None, attention_mask=None):
         """Inference forward: (sequence_output, pooled_output) on the
@@ -463,17 +518,17 @@ class BertForSequenceClassification(_Trainable):
         self.score_value = float("nan")
 
     def logits(self, params, input_ids, token_type_ids=None,
-               attention_mask=None, training=False, gen=None):
+               attention_mask=None, training=False, rng=None):
         _, pooled = self.bert.encode(params["bert"], input_ids,
                                      token_type_ids, attention_mask,
-                                     training=training, gen=gen)
+                                     training=training, rng=rng)
         return pooled @ params["cls"]["W"] + params["cls"]["b"]
 
-    def _loss_fn(self, params, batch, gen):
+    def _loss_fn(self, params, batch, rng):
         lg = self.logits(params, batch["input_ids"],
                          batch.get("token_type_ids"),
                          batch.get("attention_mask"), training=True,
-                         gen=gen)
+                         rng=rng)
         logp = torch.log_softmax(lg, -1)
         return -torch.mean(torch.gather(logp, -1,
                                         batch["labels"][:, None])[:, 0])

@@ -162,7 +162,8 @@ class ResNet50(ZooModel):
     #: mixed precision: 'bfloat16' runs the forward math in bf16 over
     #: float32 parameters, BatchNormalization stats kept in float32
     compute_dtype: Optional[str] = None
-    #: carried into the configuration; rematerialization is training
+    #: train in this many checkpointed segments of the topo walk
+    #: (0: keep every activation)
     remat_segments: int = 0
     #: stage definitions: (n_blocks, bottleneck_width)
     STAGES: Tuple[Tuple[int, int], ...] = ((3, 64), (4, 128), (6, 256),

@@ -238,6 +238,8 @@ def apply_layer_defaults(layer: Layer,
         layer.l2 = base._l2
     if layer.dropout is None and base._dropout is not None:
         layer.dropout = base._dropout
+    if layer.weight_noise is None and base._weight_noise is not None:
+        layer.weight_noise = base._weight_noise
 
 
 class NeuralNetConfiguration:
@@ -251,6 +253,7 @@ class NeuralNetConfiguration:
             self._l1 = 0.0
             self._l2 = 0.0
             self._dropout: Optional[float] = None
+            self._weight_noise = None
             self._grad_norm = GradientNormalization.NONE
             self._grad_norm_threshold = 1.0
             self._dtype = "float32"
@@ -278,7 +281,15 @@ class NeuralNetConfiguration:
             return self
 
         def dropout(self, p: float):
+            """The default input dropout (retain probability) of every
+            layer that sets none."""
             self._dropout = float(p)
+            return self
+
+        def weight_noise(self, wn):
+            """The default ``WeightNoise`` of every layer that sets
+            none (the layers carry it into the JSON)."""
+            self._weight_noise = wn
             return self
 
         def gradient_normalization(self, g: GradientNormalization):
@@ -300,7 +311,9 @@ class NeuralNetConfiguration:
             return self
 
         def remat_segments(self, n: int):
-            """Carried as data; rematerialization is a training knob."""
+            """Run the training forward in ``n`` checkpointed segments of
+            the stack (only segment-boundary activations are kept for
+            the backward; 0 keeps everything)."""
             self._remat_segments = int(n)
             return self
 

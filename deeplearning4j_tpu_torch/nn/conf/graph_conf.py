@@ -190,6 +190,14 @@ class GraphBuilder:
         self._conf.network_outputs = list(names)
         return self
 
+    def remat_segments(self, n: int) -> "GraphBuilder":
+        """Run the training walk in ``n`` checkpointed segments of the
+        topo order (0: off). An explicit value here, 0 included,
+        overrides the base builder's."""
+        self._conf.remat_segments = int(n)
+        self._remat_explicit = True
+        return self
+
     def build(self) -> ComputationGraphConfiguration:
         b = self._base
         c = self._conf
@@ -201,7 +209,8 @@ class GraphBuilder:
         c.gradient_normalization_threshold = b._grad_norm_threshold
         c.dtype = b._dtype
         c.compute_dtype = b._compute_dtype
-        c.remat_segments = b._remat_segments
+        if not getattr(self, "_remat_explicit", False):
+            c.remat_segments = b._remat_segments
         for v in c.vertices.values():
             if v.is_layer:
                 apply_layer_defaults(v.content, b)

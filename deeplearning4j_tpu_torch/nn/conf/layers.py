@@ -22,8 +22,11 @@ activations, dense ``W`` as ``[n_in, n_out]``) except conv kernels,
 which are OIHW, PyTorch's layout; ``utils/serializer.py`` converts at
 the zip boundary. ``forward(training=True)`` is the training forward:
 BatchNormalization normalizes with batch statistics and returns its
-blended running stats. Dropout and weight noise are carried as data and
-not ported yet: a layer that sets them raises in training.
+blended running stats, and a layer's ``dropout`` (a retain probability
+or an ``IDropout`` of ``nn/conf/dropout.py``) is applied to its input
+with masks drawn from ``rng``, the layer's ``RngKey`` (no key: no
+dropout, as in the JAX package's ``output(train=True)``). A layer's
+``weight_noise`` is applied by the network, which owns the keys.
 """
 from __future__ import annotations
 
@@ -37,6 +40,8 @@ import torch.nn.functional as F
 from deeplearning4j_tpu_torch.activations import Activation
 from deeplearning4j_tpu_torch.learning.updaters import IUpdater
 from deeplearning4j_tpu_torch.lossfunctions import LossFunction
+from deeplearning4j_tpu_torch.nn.conf.dropout import (IDropout, WeightNoise,
+                                                      dropout_from)
 from deeplearning4j_tpu_torch.nn.conf.inputs import (
     InputType, InputTypeConvolutional, InputTypeConvolutional3D,
     InputTypeFeedForward, InputTypeRecurrent)
@@ -73,12 +78,6 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a @ b
 
 
-def _no_dropout(layer, training: bool) -> None:
-    if training and layer.dropout is not None:
-        raise NotImplementedError(
-            f"{type(layer).__name__}: dropout is not ported yet")
-
-
 @dataclass
 class Layer:
     """Base layer config. Fields mirror BaseLayer/FeedForwardLayer."""
@@ -91,8 +90,9 @@ class Layer:
     updater: Optional[IUpdater] = None            # None -> net default
     l1: Optional[float] = None
     l2: Optional[float] = None
-    #: training-time fields, carried as data (JSON maps or None)
+    #: a retain probability OR an IDropout variant (nn/conf/dropout.py)
     dropout: object = None
+    #: a WeightNoise (or DropConnect) applied to the params in training
     weight_noise: object = None
     constrain_weights: object = None
     constrain_bias: object = None
@@ -137,7 +137,7 @@ class Layer:
                    dtype=torch.float32) -> dict:
         return {}
 
-    def forward(self, params, x, *, training: bool, state=None):
+    def forward(self, params, x, *, training: bool, rng=None, state=None):
         raise NotImplementedError
 
     def get_output_type(self, input_type: InputType) -> InputType:
@@ -148,13 +148,19 @@ class Layer:
                 (override or not self.n_in):
             self.n_in = input_type.size
 
+    # -- input dropout (the reference applies it to the layer's input) --
+    def _maybe_dropout(self, x, training: bool, rng):
+        if self.dropout is None or not training or rng is None:
+            return x
+        return dropout_from(self.dropout).apply(x, rng)
+
     # -- serde -----------------------------------------------------------
     def to_map(self) -> dict:
         d = {"@class": type(self).__name__}
         for k, v in self.__dict__.items():
             if isinstance(v, enum.Enum):
                 v = v.name
-            elif isinstance(v, IUpdater):
+            elif isinstance(v, (IUpdater, IDropout, WeightNoise)):
                 v = v.to_map()
             elif isinstance(v, tuple):
                 v = list(v)
@@ -173,6 +179,10 @@ class Layer:
         for k, v in list(d.items()):
             if k == "updater" and isinstance(v, dict):
                 d[k] = IUpdater.from_map(v)
+            elif k == "dropout" and isinstance(v, dict):
+                d[k] = IDropout.from_map(v)
+            elif k == "weight_noise" and isinstance(v, dict):
+                d[k] = WeightNoise.from_map(v)
             elif k == "pooling_type" and isinstance(v, str):
                 d[k] = PoolingType[v]
             elif k == "convolution_mode" and isinstance(v, str):
@@ -200,11 +210,12 @@ class DenseLayer(Layer):
                                 dtype=dtype)
         return p
 
-    def forward(self, params, x, *, training, state=None):
-        return self.activation(self._affine(params, x, training)), state
+    def forward(self, params, x, *, training, rng=None, state=None):
+        return self.activation(self._affine(params, x, training, rng)), \
+            state
 
-    def _affine(self, params, x, training):
-        _no_dropout(self, training)
+    def _affine(self, params, x, training, rng):
+        x = self._maybe_dropout(x, training, rng)
         z = matmul(x, params["W"])
         if self.has_bias:
             z = z + params["b"]
@@ -252,8 +263,8 @@ class ConvolutionLayer(Layer):
                                 dtype=dtype)
         return p
 
-    def forward(self, params, x, *, training, state=None):
-        _no_dropout(self, training)
+    def forward(self, params, x, *, training, rng=None, state=None):
+        x = self._maybe_dropout(x, training, rng)
         from deeplearning4j_tpu_torch.ops.conv_epilogue import conv_forward
         z = conv_forward(x, params["W"], stride=self.stride,
                          padding=self._pad_cfg(), dilation=self.dilation,
@@ -305,7 +316,7 @@ class SubsamplingLayer(Layer):
     def has_params(self) -> bool:
         return False
 
-    def forward(self, params, x, *, training, state=None):
+    def forward(self, params, x, *, training, rng=None, state=None):
         from deeplearning4j_tpu_torch.ops.conv_epilogue import same_padding
         kh, kw = self.kernel_size
         sh, sw = self.stride
@@ -390,7 +401,7 @@ class BatchNormalization(Layer):
         return {"mean": torch.zeros((nf,), dtype=dtype),
                 "var": torch.ones((nf,), dtype=dtype)}
 
-    def forward(self, params, x, *, training, state=None):
+    def forward(self, params, x, *, training, rng=None, state=None):
         if training:
             return self._forward_train(params, x, state)
         acc = torch.promote_types(x.dtype, torch.float32)
@@ -447,7 +458,7 @@ class ActivationLayer(Layer):
     def has_params(self) -> bool:
         return False
 
-    def forward(self, params, x, *, training, state=None):
+    def forward(self, params, x, *, training, rng=None, state=None):
         return self.activation(x), state
 
     def get_output_type(self, input_type):
@@ -470,7 +481,8 @@ class GlobalPoolingLayer(Layer):
     def accepts_mask(self) -> bool:
         return True
 
-    def forward(self, params, x, *, training, state=None, mask=None):
+    def forward(self, params, x, *, training, rng=None, state=None,
+                mask=None):
         axes = {5: (1, 2, 3), 4: (1, 2), 3: (1,)}.get(x.dim())
         if axes is None:
             return x, state
@@ -518,18 +530,16 @@ class GlobalPoolingLayer(Layer):
 
 @dataclass
 class DropoutLayer(Layer):
-    """Standalone dropout; ``dropout`` is the retain probability, as in
-    the JAX package. The identity at inference; training raises until
-    dropout is ported."""
+    """Standalone dropout; ``dropout`` is the retain probability (or an
+    IDropout), as in the JAX package; the identity at inference."""
 
     dropout: float = 0.5
 
     def has_params(self) -> bool:
         return False
 
-    def forward(self, params, x, *, training, state=None):
-        _no_dropout(self, training)
-        return x, state
+    def forward(self, params, x, *, training, rng=None, state=None):
+        return self._maybe_dropout(x, training, rng), state
 
     def get_output_type(self, input_type):
         return input_type
@@ -560,8 +570,8 @@ class BaseOutputLayer(DenseLayer):
         return (self.loss_function.supports_logits() and
                 self.activation in (Activation.SOFTMAX, Activation.SIGMOID))
 
-    def forward_logits(self, params, x, *, training, state=None):
-        return self._affine(params, x, training), state
+    def forward_logits(self, params, x, *, training, rng=None, state=None):
+        return self._affine(params, x, training, rng), state
 
 
 @dataclass

@@ -66,10 +66,9 @@ class BaseRecurrentLayer(Layer):
     def get_output_type(self, input_type):
         return InputType.recurrent(self.n_out, _timesteps(input_type))
 
-    def forward(self, params, x, *, training, state=None, mask=None):
-        if training and self.dropout is not None:
-            raise NotImplementedError(
-                f"{type(self).__name__}: dropout is not ported yet")
+    def forward(self, params, x, *, training, rng=None, state=None,
+                mask=None):
+        x = self._maybe_dropout(x, training, rng)
         if not state:
             state = self.zero_state(int(x.shape[0]), x.dtype)
             state = {n: t.to(x.device) for n, t in state.items()}
@@ -270,17 +269,21 @@ class Bidirectional(BaseRecurrentLayer):
                 for n, t in self.fwd.init_params(generator, input_type,
                                                  dtype).items()}
 
-    def forward(self, params, x, *, training, state=None, mask=None):
+    def forward(self, params, x, *, training, rng=None, state=None,
+                mask=None):
         if not state:
             state = {n: t.to(x.device) for n, t in
                      self.zero_state(int(x.shape[0]), x.dtype).items()}
+        # independent input-dropout masks per direction
+        rng_f, rng_b = rng.split() if rng is not None else (None, None)
         y_f, s_f = self.fwd.forward(_prefixed(params, "fwd/"), x,
-                                    training=training,
+                                    training=training, rng=rng_f,
                                     state=_prefixed(state, "fwd/"),
                                     mask=mask)
         m_rev = torch.flip(mask, (1,)) if mask is not None else None
         y_b, s_b = self.fwd.forward(_prefixed(params, "bwd/"),
                                     torch.flip(x, (1,)), training=training,
+                                    rng=rng_b,
                                     state=_prefixed(state, "bwd/"),
                                     mask=m_rev)
         y_b = torch.flip(y_b, (1,))
@@ -318,7 +321,7 @@ class EmbeddingSequenceLayer(Layer):
         return {"W": wi.init(generator, (self.n_in, self.n_out), self.n_in,
                              self.n_out, dtype)}
 
-    def forward(self, params, x, *, training, state=None):
+    def forward(self, params, x, *, training, rng=None, state=None):
         idx = x.long()
         if idx.dim() == 3 and idx.shape[-1] == 1:
             idx = idx[..., 0]
@@ -342,7 +345,8 @@ class LastTimeStepLayer(Layer):
     def accepts_mask(self) -> bool:
         return True
 
-    def forward(self, params, x, *, training, state=None, mask=None):
+    def forward(self, params, x, *, training, rng=None, state=None,
+                mask=None):
         if mask is not None:
             idx = torch.clamp((mask > 0).sum(1) - 1, min=0)
             return x[torch.arange(x.shape[0], device=x.device),

@@ -1,13 +1,25 @@
 """ComputationGraph: a DAG model run vertex by vertex.
 
 Counterpart of ``deeplearning4j_tpu/nn/graph.py`` on one device:
-``init``, the topo-ordered walk of ``_forward`` (without remat, tensor
+``init``, the topo-ordered walk of ``_forward`` (without tensor
 parallelism, fsdp or features masks), ``output``, ``evaluate`` /
 ``evaluate_regression``, and training: ``fit(x, y)``,
-``fit(DataSet)``, ``fit(iterator)``, ``score()``, listeners and the
-dense update tail (``nn/trainer.py``). PyTorch runs eagerly, so there
-is no compiled step: each vertex's layer runs as its own kernels, in
-order, on ``self.device``, and autograd walks back through them.
+``fit(DataSet)``, ``fit(iterator)``, ``score()``, listeners, gradient
+accumulation and the dense update tail (``nn/trainer.py``). PyTorch
+runs eagerly, so there is no compiled step: each vertex's layer runs as
+its own kernels, in order, on ``self.device``, and autograd walks back
+through them.
+
+Training draws from a per-step ``RngKey`` folded with each layer's
+position among the layer vertices of the topo order (the JAX package's
+derivation): the layer's input dropout, then its weight noise. With
+``conf.remat_segments > 1`` the training walk runs in that many
+contiguous segments of the topo order (``common/remat.py``), each but
+the last under ``torch.utils.checkpoint``; only the activations live
+at a segment boundary (consumed later, or a network output) cross it,
+and a segment's interior is recomputed in the backward with the same
+keys. The first forward's states are the ones kept.
+``output(train=True)`` runs the training forward without a key.
 
 ``params`` and ``states`` are ``{vertex: {name: tensor}}``, as in the
 JAX package. With ``compute_dtype`` set ('bfloat16', 'float16') the
@@ -23,8 +35,10 @@ from typing import Dict, Optional, Sequence, Union
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from deeplearning4j_tpu_torch.common.environment import resolve_device
+from deeplearning4j_tpu_torch.common.remat import segment_plan
 from deeplearning4j_tpu_torch.nn.conf.graph_conf import \
     ComputationGraphConfiguration
 from deeplearning4j_tpu_torch.nn.conf.layers import BaseOutputLayer
@@ -77,6 +91,10 @@ class ComputationGraph(Trainable):
         self.device: Optional[torch.device] = None
         self._dtype = to_torch_dtype(conf.dtype)
         self._topo = conf.topo_order()
+        #: each layer vertex's position among the layer vertices of the
+        #: topo order: its key in a step is fold_in(rng, position)
+        self._layer_pos = {n: i for i, n in enumerate(
+            n for n in self._topo if conf.vertices[n].is_layer)}
         self._initialized = False
 
     # ------------------------------------------------------------------
@@ -144,45 +162,99 @@ class ComputationGraph(Trainable):
 
     # ------------------------------------------------------------------
     def _forward(self, params, states, inputs: Sequence[torch.Tensor], *,
-                 training: bool = False, want_logits: bool = False):
-        """Walk in topo order; returns ``(acts, new_states)``: every
-        activation by vertex name (network inputs included; an output
+                 training: bool = False, rng=None,
+                 want_logits: bool = False):
+        """Walk in topo order; returns ``(acts, new_states)``: the
+        activations by vertex name (network inputs included; an output
         layer that folds its softmax into the loss gives logits when
-        ``want_logits``), and each stateful layer's new state (the
-        blended BatchNormalization stats in training)."""
+        ``want_logits``; the segmented walk keeps only those live at its
+        end), and each stateful layer's new state (the blended
+        BatchNormalization stats in training). ``rng`` is this step's
+        key (None: no dropout and no weight noise)."""
         conf = self.conf
         if conf.compute_dtype:
             cd = to_torch_dtype(conf.compute_dtype)
             params = cast_floats(params, cd)
             inputs = [x.to(cd) if x.is_floating_point() else x
                       for x in inputs]
-        acts = dict(zip(conf.network_inputs, inputs))
-        new_states = {}
-        for name in self._topo:
+        layer_pos = self._layer_pos
+
+        def run_vertex(name, acts):
             v = conf.vertices[name]
             xs = [acts[i] for i in v.inputs]
             if not v.is_layer:
-                acts[name] = v.content.forward(xs, training=training)
-                continue
+                return v.content.forward(xs, training=training), None
             layer = v.content
-            if training and layer.weight_noise is not None:
-                raise NotImplementedError(
-                    f"{name}: weight noise is not ported yet")
+            lrng = rng.fold_in(layer_pos[name]) if rng is not None \
+                else None
             lp, ls = params.get(name, {}), states.get(name) or None
+            if training and layer.weight_noise is not None and \
+                    lrng is not None and lp:
+                lrng, wn_rng = lrng.split()
+                lp = layer.weight_noise.apply(lp, wn_rng)
             if want_logits and name in conf.network_outputs and \
                     isinstance(layer, BaseOutputLayer) and \
                     layer.wants_logits():
                 h, ns = layer.forward_logits(lp, xs[0], training=training,
-                                             state=ls)
+                                             rng=lrng, state=ls)
             else:
                 h, ns = layer.forward(lp, xs[0], training=training,
-                                      state=ls)
-            acts[name] = h
-            new_states[name] = ns or {}
+                                      rng=lrng, state=ls)
+            return h, ns or {}
+
+        def run_segment(names, in_acts, out_names):
+            acts = dict(in_acts)
+            ns = {}
+            for name in names:
+                acts[name], s_ = run_vertex(name, acts)
+                if s_ is not None:
+                    ns[name] = s_
+            return {k: acts[k] for k in out_names}, ns
+
+        acts = dict(zip(conf.network_inputs, inputs))
+        topo = self._topo
+        if training and conf.remat_segments > 1 and len(topo) > 1:
+            new_states = {}
+            for lo, hi, wrap, seg_in, seg_out in self._segments():
+                seg = topo[lo:hi]
+                args = (seg, {k: acts[k] for k in seg_in}, seg_out)
+                outs, ns = (checkpoint(run_segment, *args,
+                                       use_reentrant=False,
+                                       preserve_rng_state=False)
+                            if wrap else run_segment(*args))
+                keep = self._live_after(hi)
+                acts = {k: a for k, a in acts.items() if k in keep}
+                acts.update(outs)
+                new_states.update(ns)
+        else:
+            acts, new_states = run_segment(topo, acts,
+                                           list(conf.network_inputs) + topo)
         if conf.compute_dtype:
             for out in conf.network_outputs:
                 acts[out] = acts[out].to(self._dtype)
         return acts, new_states
+
+    def _live_after(self, end: int) -> set:
+        """The activations a later vertex (at topo position >= ``end``)
+        consumes, and the network outputs."""
+        keep = set(self.conf.network_outputs)
+        for name in self._topo[end:]:
+            keep.update(self.conf.vertices[name].inputs)
+        return keep
+
+    def _segments(self):
+        """``(lo, hi, wrap, seg_in, seg_out)`` for each segment of the
+        remat plan: the activations a segment reads from before it, and
+        those it produces that are live after it."""
+        out = []
+        for lo, hi, wrap in segment_plan(len(self._topo),
+                                         self.conf.remat_segments):
+            seg = self._topo[lo:hi]
+            refs = {src for n in seg for src in self.conf.vertices[n].inputs}
+            seg_in = sorted(refs - set(seg))
+            seg_out = sorted(set(seg) & self._live_after(hi))
+            out.append((lo, hi, wrap, seg_in, seg_out))
+        return out
 
     def _as_input(self, x) -> torch.Tensor:
         return as_device_tensor(x, self._dtype, self.device)
@@ -190,15 +262,15 @@ class ComputationGraph(Trainable):
     def output(self, *inputs, train: bool = False):
         """Output activations on ``self.device`` (a tensor, or a list
         with one per network output). ``inputs`` are NHWC arrays or
-        tensors, one per network input."""
-        if train:
-            raise NotImplementedError(
-                "output(train=True) is not ported yet")
+        tensors, one per network input. ``train=True`` runs the
+        training forward without a key (batch statistics, no dropout)
+        and keeps no state."""
         if not self._initialized:
             self.init()
         xs = [self._as_input(x) for x in inputs]
         with torch.inference_mode():
-            acts, _ = self._forward(self.params, self.states, xs)
+            acts, _ = self._forward(self.params, self.states, xs,
+                                    training=train)
         outs = [acts[n] for n in self.conf.network_outputs]
         return outs[0] if len(outs) == 1 else outs
 
@@ -225,10 +297,10 @@ class ComputationGraph(Trainable):
         return inputs, labels, lmasks
 
     def _loss(self, params, states, inputs, labels, lmasks, fmask=None, *,
-              training: bool):
+              training: bool, rng=None):
         # ``fmask`` is always None: ``_split`` carries no features mask
         acts, new_states = self._forward(params, states, inputs,
-                                         training=training,
+                                         training=training, rng=rng,
                                          want_logits=True)
         loss = self._regularization(params)
         for i, name in enumerate(self.conf.network_outputs):

@@ -23,6 +23,20 @@ state carried from segment to segment and detached between them (the
 truncation). ``rnn_time_step`` streams a sequence a step or a chunk at
 a time, carrying the state across calls until
 ``rnn_clear_previous_state``.
+
+Training draws from a per-step ``RngKey`` folded with each layer's
+index (``nn/trainer.py``): a layer's input dropout, then its weight
+noise, which perturbs the parameters the forward uses while the
+gradients flow to the clean ones. With ``conf.remat_segments > 1`` the
+training forward runs in that many segments of the layer stack
+(``common/remat.py``), each but the last under
+``torch.utils.checkpoint``: only a segment's input is kept for the
+backward and its interior is recomputed, with the same keys, so the
+recomputed dropout masks are the first forward's; the recomputed
+forward's states are discarded (the first forward's are returned).
+``output(train=True)`` and ``feed_forward(train=True)`` run the training
+forward without a key, as the JAX package does: batch statistics, no
+dropout.
 """
 from __future__ import annotations
 
@@ -30,8 +44,10 @@ from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from deeplearning4j_tpu_torch.common.environment import resolve_device
+from deeplearning4j_tpu_torch.common.remat import segment_plan
 from deeplearning4j_tpu_torch.nn.conf.builders import (
     BackpropType, MultiLayerConfiguration)
 from deeplearning4j_tpu_torch.nn.conf.layers import BaseOutputLayer
@@ -118,10 +134,11 @@ class MultiLayerNetwork(Trainable):
 
     # ------------------------------------------------------------------
     def _forward(self, params, states, x: torch.Tensor, *,
-                 training: bool = False, want_logits: bool = False,
+                 training: bool = False, rng=None, want_logits: bool = False,
                  mask: Optional[torch.Tensor] = None):
         """Walk the stack; ``mask`` is the ``[b, t]`` features mask, given
-        to the layers that accept one. Returns ``(out, new_states)``,
+        to the layers that accept one; ``rng`` this step's key (None: no
+        dropout and no weight noise). Returns ``(out, new_states)``,
         both in ``dtype`` under ``compute_dtype``."""
         conf = self.conf
         if conf.compute_dtype:
@@ -129,28 +146,53 @@ class MultiLayerNetwork(Trainable):
             params = cast_floats(params, cd)
             if x.is_floating_point():
                 x = x.to(cd)
-        new_states = {}
-        h = x
         n = len(conf.layers)
-        for i, layer in enumerate(conf.layers):
+
+        def run_layer(i, h):
+            layer = conf.layers[i]
             k = f"layer_{i}"
             if i in conf.input_preprocessors:
                 h = conf.input_preprocessors[i].pre_process(h)
-            if training and layer.weight_noise is not None:
-                raise NotImplementedError(
-                    f"{k}: weight noise is not ported yet")
+            # the layer's key is fold_in(rng, i) whether or not the walk
+            # is segmented, so remat does not change the stream
+            lrng = rng.fold_in(i) if rng is not None else None
             lp, ls = params.get(k, {}), states.get(k) or None
+            if training and layer.weight_noise is not None and \
+                    lrng is not None and lp:
+                lrng, wn_rng = lrng.split()
+                lp = layer.weight_noise.apply(lp, wn_rng)
             if i == n - 1 and want_logits and \
                     isinstance(layer, BaseOutputLayer) and \
                     layer.wants_logits():
                 h, ns = layer.forward_logits(lp, h, training=training,
-                                             state=ls)
+                                             rng=lrng, state=ls)
             elif mask is not None and layer.accepts_mask():
-                h, ns = layer.forward(lp, h, training=training, state=ls,
-                                      mask=mask)
+                h, ns = layer.forward(lp, h, training=training, rng=lrng,
+                                      state=ls, mask=mask)
             else:
-                h, ns = layer.forward(lp, h, training=training, state=ls)
-            new_states[k] = ns or {}
+                h, ns = layer.forward(lp, h, training=training, rng=lrng,
+                                      state=ls)
+            return h, ns or {}
+
+        def run_segment(lo, hi, h):
+            ns = {}
+            for i in range(lo, hi):
+                h, ns[f"layer_{i}"] = run_layer(i, h)
+            return h, ns
+
+        new_states = {}
+        h = x
+        if training and conf.remat_segments > 1 and n > 1:
+            for lo, hi, wrap in segment_plan(n, conf.remat_segments):
+                if wrap:
+                    h, ns = checkpoint(run_segment, lo, hi, h,
+                                       use_reentrant=False,
+                                       preserve_rng_state=False)
+                else:
+                    h, ns = run_segment(lo, hi, h)
+                new_states.update(ns)
+        else:
+            h, new_states = run_segment(0, n, h)
         if conf.compute_dtype:
             h = h.to(self._dtype)
             new_states = cast_floats(new_states, self._dtype)
@@ -164,25 +206,22 @@ class MultiLayerNetwork(Trainable):
         return self._as_input(m) if m is not None else None
 
     def output(self, x, train: bool = False, mask=None) -> torch.Tensor:
-        """Inference forward on ``self.device``; ``mask`` is the ``[b, t]``
-        features mask of a sequence batch."""
-        if train:
-            raise NotImplementedError(
-                "output(train=True) is not ported yet")
+        """Forward on ``self.device``; ``mask`` is the ``[b, t]`` features
+        mask of a sequence batch. ``train=True`` runs the training
+        forward without a key (batch statistics, no dropout) and keeps
+        no state."""
         if not self._initialized:
             self.init()
         with torch.inference_mode():
             out, _ = self._forward(self.params, self.states,
-                                   self._as_input(x),
+                                   self._as_input(x), training=train,
                                    mask=self._as_mask(mask))
         return out
 
     def feed_forward(self, x, train: bool = False) -> list:
         """Every layer's activation, the input first (reference:
-        feedForward), in the compute dtype."""
-        if train:
-            raise NotImplementedError(
-                "feed_forward(train=True) is not ported yet")
+        feedForward), in the compute dtype; ``train`` as in
+        ``output``."""
         if not self._initialized:
             self.init()
         conf = self.conf
@@ -199,7 +238,7 @@ class MultiLayerNetwork(Trainable):
                 if i in conf.input_preprocessors:
                     h = conf.input_preprocessors[i].pre_process(h)
                 h, _ = layer.forward(params.get(f"layer_{i}", {}), h,
-                                     training=False,
+                                     training=train,
                                      state=self.states.get(f"layer_{i}")
                                      or None)
                 acts.append(h)
@@ -222,11 +261,11 @@ class MultiLayerNetwork(Trainable):
                 self._as_mask(fmask))
 
     def _loss(self, params, states, inputs, labels, lmasks, fmask=None, *,
-              training: bool):
+              training: bool, rng=None):
         out_layer = self.output_layer_conf
         want_logits = out_layer.wants_logits()
         out, new_states = self._forward(params, states, inputs[0],
-                                        training=training,
+                                        training=training, rng=rng,
                                         want_logits=True, mask=fmask)
         data_loss = out_layer.compute_loss(
             labels[0], out, from_logits=want_logits,

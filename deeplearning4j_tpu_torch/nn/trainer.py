@@ -17,14 +17,30 @@ slot by slot, as the JAX package returns it.
 
 A subclass provides ``_keys()`` (its parameter groups in order),
 ``_layer(key)``, ``_loss(params, states, inputs, labels, lmasks[,
-fmask])`` returning ``(loss, new_states)``, and ``_split(data)`` turning
-``(x, y)`` or a DataSet into ``(inputs, labels, lmasks[, fmask])`` on
-the device. ``_train_step`` is one update from given states.
-``_fit_batch`` runs it from ``self.states`` with every recurrent layer's
-state zeroed for the batch, then keeps each non-empty new state
-(BatchNormalization's running stats) and drops the recurrent ones, as
-the JAX package does: each batch is a fresh sequence, and nothing of it
-leaks into the next batch or into ``output``.
+fmask], training=, rng=)`` returning ``(loss, new_states)``, and
+``_split(data)`` turning ``(x, y)`` or a DataSet into ``(inputs, labels,
+lmasks[, fmask])`` on the device. ``_train_step`` is one update from
+given states. ``_fit_batch`` runs it from ``self.states`` with every
+recurrent layer's state zeroed for the batch, then keeps each non-empty
+new state (BatchNormalization's running stats) and drops the recurrent
+ones, as the JAX package does: each batch is a fresh sequence, and
+nothing of it leaks into the next batch or into ``output``.
+
+Random streams: each step takes a fresh key from ``self._rng`` (an
+``RngKey`` seeded from ``conf.seed``; ``common/rng.py``), which the
+network folds with each layer's index for its dropout and weight noise.
+
+Gradient accumulation (``set_accumulation_steps(n)``, the reference's
+GradientsAccumulator): each fit batch is a micro-batch whose gradients
+are summed; the update tail runs once a window on their mean, with the
+updater's iteration counting the updates applied (so Adam's bias
+correction sees update indices). Per micro-batch, as in the JAX package,
+the states are kept, the score is set, ``iteration_count`` advances and
+the listeners fire. A partial window is applied at each epoch's end
+and when the window size changes (``flush_accumulated``).
+
+Learning-rate schedules see ``iteration`` (or, under accumulation, the
+updates applied) and ``epoch_count``.
 """
 from __future__ import annotations
 
@@ -32,6 +48,7 @@ from typing import Dict, List, Optional
 
 import torch
 
+from deeplearning4j_tpu_torch.common.rng import RngKey
 from deeplearning4j_tpu_torch.nn.conf.constraints import apply_constraints
 from deeplearning4j_tpu_torch.nn.gradient import \
     apply_gradient_normalization
@@ -53,6 +70,16 @@ class Trainable:
         self.epoch_count = 0
         self.last_batch_size = 0
         self._score: Optional[torch.Tensor] = None
+        self._rng = RngKey(self.conf.seed)
+        self._accum_steps = 1
+        self._accum_grads: Optional[_Tree] = None
+        self._accum_count = 0
+        self._updates_applied = 0
+
+    def _next_key(self) -> RngKey:
+        """This step's random key; the stream advances."""
+        self._rng, key = self._rng.split()
+        return key
 
     def _reset_updater_states(self) -> None:
         self.updater_states = {k: self._updater(k).init_state(
@@ -105,6 +132,8 @@ class Trainable:
                 data.reset()
             for ds in data:
                 self._fit_batch(*self._split(ds, None))
+            # a partial accumulation window does not leak across epochs
+            self.flush_accumulated()
             # epochs completed advance before the listeners fire, as in
             # the JAX package (an epoch-end checkpoint saves the count)
             self.epoch_count += 1
@@ -137,8 +166,9 @@ class Trainable:
                    labels: List[torch.Tensor], lmasks, fmask=None) -> None:
         states = self._with_zero_rnn_states(self.states,
                                             int(inputs[0].shape[0]))
-        self._keep_states(self._train_step(states, inputs, labels, lmasks,
-                                           fmask))
+        step = self._accumulate_step if self._accum_steps > 1 \
+            else self._train_step
+        self._keep_states(step(states, inputs, labels, lmasks, fmask))
         self._batch_done(inputs)
 
     def _batch_done(self, inputs: List[torch.Tensor]) -> None:
@@ -147,17 +177,18 @@ class Trainable:
             lis.iteration_done(self, self.iteration_count - 1,
                                self.epoch_count)
 
-    def _train_step(self, states: _Tree, inputs: List[torch.Tensor],
-                    labels: List[torch.Tensor], lmasks, fmask=None
-                    ) -> _Tree:
-        """One loss, gradient and update from ``states``; returns the new
-        states, detached (no gradient crosses two steps)."""
+    def _grads(self, states: _Tree, inputs: List[torch.Tensor],
+               labels: List[torch.Tensor], lmasks, fmask=None):
+        """The loss and its gradient from ``states`` under this step's
+        key: ``(loss, grads, new_states)``, the loss and the states
+        detached (no gradient crosses two steps)."""
         leaves = {k: {n: t.detach().requires_grad_(True)
                       for n, t in sub.items()}
                   for k, sub in self.params.items()}
         with torch.enable_grad():
             loss, new_states = self._loss(leaves, states, inputs, labels,
-                                          lmasks, fmask, training=True)
+                                          lmasks, fmask, training=True,
+                                          rng=self._next_key())
         flat = [(k, n, t) for k, sub in leaves.items()
                 for n, t in sub.items()]
         grads_flat = torch.autograd.grad(loss, [t for _, _, t in flat],
@@ -166,14 +197,74 @@ class Trainable:
         for (k, n, t), g in zip(flat, grads_flat):
             grads.setdefault(k, {})[n] = (g if g is not None
                                           else torch.zeros_like(t))
-        with torch.no_grad():
-            self._update_tail(grads)
-        self._score = loss.detach()
-        self.iteration_count += 1
-        return {k: {n: t.detach() for n, t in st.items()}
-                for k, st in new_states.items()}
+        return loss.detach(), grads, {
+            k: {n: t.detach() for n, t in st.items()}
+            for k, st in new_states.items()}
 
-    def _update_tail(self, grads: _Tree) -> None:
+    def _train_step(self, states: _Tree, inputs: List[torch.Tensor],
+                    labels: List[torch.Tensor], lmasks, fmask=None
+                    ) -> _Tree:
+        """One loss, gradient and update from ``states``; returns the new
+        states."""
+        loss, grads, new_states = self._grads(states, inputs, labels,
+                                              lmasks, fmask)
+        with torch.no_grad():
+            self._update_tail(grads, self.iteration_count)
+        self._score = loss
+        self.iteration_count += 1
+        return new_states
+
+    # -- gradient accumulation -------------------------------------------
+    def set_accumulation_steps(self, n: int):
+        """Apply the updater once every ``n`` fit() micro-batches, on the
+        mean of their gradients; a changed ``n`` first applies the
+        pending window."""
+        n = max(int(n), 1)
+        if n != self._accum_steps:
+            self.flush_accumulated()
+            self._accum_steps = n
+        return self
+
+    def flush_accumulated(self):
+        """Apply a partial accumulation window now; a no-op when nothing
+        is pending."""
+        if self._accum_count:
+            self._apply_accumulated()
+        return self
+
+    def _accumulate_step(self, states: _Tree, inputs: List[torch.Tensor],
+                         labels: List[torch.Tensor], lmasks, fmask=None
+                         ) -> _Tree:
+        """One micro-batch: its gradients join the window's sum, and a
+        full window is applied."""
+        loss, grads, new_states = self._grads(states, inputs, labels,
+                                              lmasks, fmask)
+        with torch.no_grad():
+            if self._accum_grads is None:
+                self._accum_grads = grads
+            else:
+                for k, sub in grads.items():
+                    acc = self._accum_grads[k]
+                    for n, g in sub.items():
+                        acc[n].add_(g)
+        self._accum_count += 1
+        if self._accum_count >= self._accum_steps:
+            self._apply_accumulated()
+        self._score = loss
+        self.iteration_count += 1
+        return new_states
+
+    def _apply_accumulated(self) -> None:
+        scale = 1.0 / self._accum_count
+        with torch.no_grad():
+            grads = {k: {n: g * scale for n, g in sub.items()}
+                     for k, sub in self._accum_grads.items()}
+            self._update_tail(grads, self._updates_applied)
+        self._accum_grads = None
+        self._accum_count = 0
+        self._updates_applied += 1
+
+    def _update_tail(self, grads: _Tree, iteration: int) -> None:
         conf = self.conf
         for key in self._keys():
             g = grads.get(key)
@@ -183,7 +274,7 @@ class Trainable:
                 conf.gradient_normalization,
                 conf.gradient_normalization_threshold, g)
             updates, us = self._updater(key).apply(
-                g, self.updater_states[key], self.iteration_count)
+                g, self.updater_states[key], iteration, self.epoch_count)
             p = self.params[key]
             for n, u in updates.items():
                 p[n].sub_(u)
@@ -204,5 +295,5 @@ class Trainable:
         inputs, labels, lmasks, *fmask = self._split(dataset, None)
         with torch.no_grad():
             loss, _ = self._loss(self.params, self.states, inputs, labels,
-                                 lmasks, *fmask, training=False)
+                                 lmasks, *fmask, training=False, rng=None)
         return float(loss)

@@ -342,10 +342,16 @@ def test_serializer_rejects_a_foreign_tree(models):
 
 
 def test_remat_and_overlong_sequences_raise():
-    conf = BertConfig.tiny(remat=True)
-    bert = Bert(conf).init("cpu")
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        bert.output(np.zeros((1, 8), np.int64))
+    """remat is ported (tests/test_torch_remat.py): True gives the
+    remat=False forward; a remat value the JAX package refuses raises
+    here too, as does an overlong sequence."""
+    ids = np.zeros((1, 8), np.int64)
+    plain = Bert(BertConfig.tiny()).init("cpu").output(ids)
+    got = Bert(BertConfig.tiny(remat=True)).init("cpu").output(ids)
+    assert all(torch.equal(a, b) for a, b in zip(got, plain))
+    bert = Bert(BertConfig.tiny(remat="everything")).init("cpu")
+    with pytest.raises(ValueError, match="remat="):
+        bert.output(ids)
     bert = Bert(BertConfig.tiny()).init("cpu")
     with pytest.raises(ValueError, match="max_position_embeddings"):
         bert.output(np.zeros((1, 129), np.int64))

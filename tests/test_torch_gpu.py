@@ -745,3 +745,122 @@ def test_imported_bert_sdpa_sites_launch_the_flash_kernels():
           sq.FLASH_BWD_DKV.launches)
     assert [x - y for x, y in zip(c1, c0)] == [layers] * 3
     assert np.isfinite(loss)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", [0.5, 0.9])
+def test_dropout_masks_on_the_card_keep_p_and_scale(p):
+    """Masks drawn on the card by its generator: the kept share within
+    4 sigma of p, kept entries scaled by 1/p exactly; SpatialDropout
+    decides once per (example, channel) of an NHWC tensor."""
+    _need_card()
+    from deeplearning4j_tpu_torch.common.rng import RngKey
+    from deeplearning4j_tpu_torch.nn.conf.dropout import (Dropout,
+                                                          SpatialDropout)
+    x = torch.rand(32, 13, 13, 512, device="cuda") + 0.5
+    mask = Dropout(p).noise(x, RngKey(1))
+    assert mask.is_cuda and mask.shape == x.shape
+    n = mask.numel()
+    keep = float(mask.float().mean())
+    assert abs(keep - p) <= 4 * (p * (1 - p) / n) ** 0.5
+    y = Dropout(p).apply(x, RngKey(1))
+    assert torch.equal(y, torch.where(mask, x / p, 0.0))
+    assert torch.equal(y, Dropout(p).apply(x, RngKey(1)))
+    ys = SpatialDropout(p).apply(x, RngKey(2))
+    kept = (ys != 0).reshape(32, 169, 512)
+    assert torch.equal(kept.all(1), kept.any(1))        # whole channels
+    share = float(kept.all(1).float().mean())
+    assert abs(share - p) <= 4 * (p * (1 - p) / (32 * 512)) ** 0.5
+    assert torch.equal(ys[ys != 0], (x / p)[ys != 0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", [True, "dots"])
+def test_bert_tiny_remat_with_dropout_equals_no_remat_on_the_card(mode):
+    """Hidden dropout 0.1 through the flash kernels: the recomputed
+    layers redraw the first forward's masks from their keys, so two
+    steps equal remat=False's bit for bit; kernel 7 launches once more
+    a layer a step (its forward is recomputed), 8 and 9 once."""
+    _need_card()
+    import dataclasses
+
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.common.rng import RngKey
+    from deeplearning4j_tpu_torch.models import Bert, BertConfig
+    from deeplearning4j_tpu_torch.models.bert import (_device_batch,
+                                                      flatten_tree)
+    from deeplearning4j_tpu_torch.parallel import sequence as sq
+    conf = BertConfig.tiny(hidden_dropout_prob=0.1,
+                           attention_probs_dropout_prob=0.0,
+                           use_flash_attention=True)
+    rs = np.random.RandomState(0)
+    ids = rs.randint(5, 1000, (4, 64))
+    batch = _device_batch({"input_ids": ids,
+                           "attention_mask": np.ones((4, 64), np.float32),
+                           "mlm_labels": np.where(rs.rand(4, 64) < 0.2,
+                                                  ids, -1)}, "cuda")
+    runs = {}
+    for remat in (False, mode):
+        bert = Bert(dataclasses.replace(conf, remat=remat)).init("cuda")
+        bert._ensure_state()
+        n0 = (sq.FLASH_FWD.launches, sq.FLASH_BWD_DQ.launches,
+              sq.FLASH_BWD_DKV.launches)
+        losses = [float(bert._step(batch, RngKey(3).fold_in(i)))
+                  for i in range(2)]
+        torch.cuda.synchronize()
+        launches = (sq.FLASH_FWD.launches - n0[0],
+                    sq.FLASH_BWD_DQ.launches - n0[1],
+                    sq.FLASH_BWD_DKV.launches - n0[2])
+        runs[remat] = (losses, launches, flatten_tree(bert.params))
+    L = conf.num_hidden_layers
+    assert runs[False][1] == (2 * L, 2 * L, 2 * L)
+    assert runs[mode][1] == (4 * L, 2 * L, 2 * L)
+    assert runs[mode][0] == runs[False][0]
+    for k, t in runs[False][2].items():
+        assert torch.equal(runs[mode][2][k], t), k
+
+
+@pytest.mark.gpu
+def test_two_accumulated_halves_equal_one_full_batch_on_the_card():
+    """SqueezeNet at 64x64 with its dropout at retain 1.0 (no
+    BatchNormalization, so the mean of the halves' gradients is the
+    whole batch's) under Sgd (an update linear in the gradient): one
+    accumulated update of two batch-8 halves equals one batch-16 step,
+    norm-wise over all parameters within 1e-5 (TF32 off)."""
+    _need_card()
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.learning.updaters import Sgd
+    from deeplearning4j_tpu_torch.models import SqueezeNet
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+
+    def make():
+        conf = SqueezeNet(num_classes=10, height=64, width=64).conf()
+        conf.vertices["drop"].content.dropout = 1.0
+        for v in conf.vertices.values():
+            if v.is_layer:
+                v.content.updater = Sgd(0.01)
+        return ComputationGraph(conf).init(
+            "cuda", generator=torch.Generator().manual_seed(4))
+    rs = np.random.RandomState(1)
+    x = torch.from_numpy(rs.randn(16, 64, 64, 3).astype(np.float32)).cuda()
+    y = torch.eye(10)[torch.from_numpy(rs.randint(0, 10, 16))].cuda()
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        full, acc = make(), make()
+        p0 = {k: {n: t.clone() for n, t in sub.items()}
+              for k, sub in full.params.items()}
+        full.fit(x, y)
+        acc.set_accumulation_steps(2)
+        acc.fit(x[:8], y[:8])
+        acc.fit(x[8:], y[8:])
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    d_full = torch.cat([(full.params[k][n] - t).flatten()
+                        for k, sub in p0.items() for n, t in sub.items()])
+    d_acc = torch.cat([(acc.params[k][n] - t).flatten()
+                       for k, sub in p0.items() for n, t in sub.items()])
+    assert float(d_full.norm()) > 0
+    assert float((d_acc - d_full).norm() / d_full.norm()) <= 1e-5

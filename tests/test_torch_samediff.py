@@ -272,7 +272,6 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
     lambda sd: sd.while_loop([], None, None),
     lambda sd: sd.cond(None, None, None),
     lambda sd: sd.scan(None, []),
-    lambda sd: sd.set_remat_segments(4),
     lambda sd: sd.to_stablehlo({}, []),
     lambda sd: sd.export_serialized({}, []),
     lambda sd: sd.fit_steps({}, 1, mesh=object()),
@@ -282,7 +281,7 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
     lambda sd: sd.nn.dropout(sd.placeholder("x"), 0.5),
     lambda sd: sd.math.segment_sum(sd.placeholder("x"),
                                    sd.placeholder("i")),
-], ids=["while_loop", "cond", "scan", "remat", "stablehlo", "export",
+], ids=["while_loop", "cond", "scan", "stablehlo", "export",
         "fit_steps_mesh", "output_mesh", "cnn", "random", "dropout",
         "segment"])
 def test_unported_paths_raise(call):

@@ -76,9 +76,15 @@ def test_factories_write_the_jax_configuration(kind):
 
 
 def test_schedules_are_refused_until_ported():
+    """Schedules are ported: a schedule's JSON map in place of the
+    learning rate is read as the schedule, and the update uses its value
+    at the step's iteration (StepSchedule's defaults: 1e-3 halved every
+    1000 iterations)."""
     up = tu.IUpdater("Sgd", learning_rate={"@class": "StepSchedule"})
-    with pytest.raises(NotImplementedError, match="schedules"):
-        up.apply({"W": torch.ones(2)}, {}, 0)
+    for it, lr in ((0, 1e-3), (999, 1e-3), (1000, 5e-4)):
+        upd, _ = up.apply({"W": torch.ones(2)}, {}, it)
+        np.testing.assert_allclose(upd["W"].numpy(), [lr, lr], rtol=1e-6)
+    assert up.to_map()["learning_rate"]["@class"] == "StepSchedule"
 
 
 @pytest.mark.parametrize("kind", [k for k in GradientNormalization])
@@ -142,5 +148,7 @@ def test_mcxent_matches_jax(name, masked):
                                     torch.from_numpy(x), mask=mask))
         np.testing.assert_allclose(got, want, rtol=1e-6)
     assert lf.supports_logits()
-    with pytest.raises(NotImplementedError, match="not ported"):
-        LossFunction.MSE.score(torch.zeros(2, 2), torch.zeros(2, 2))
+    # the other members are ported too (tests/test_torch_losses.py)
+    assert float(LossFunction.MSE.score(torch.zeros(2, 2),
+                                        torch.ones(2, 2))) == \
+        float(JLoss.MSE.score(jnp.zeros((2, 2)), jnp.ones((2, 2)))) == 1.0
