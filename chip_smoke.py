@@ -6,8 +6,10 @@ and pretraining (with and without remat), generative serving of a
 GPT-2-small-width decoder, serving and training SqueezeNet (dropout on,
 a learning-rate schedule, gradient accumulation), the bundled
 checkpoints held to their quality gates, training the GravesLSTM
-char-RNN (BASELINE config #3), and BERT-base imported from a frozen
-TensorFlow GraphDef into SameDiff (BASELINE config #4).
+char-RNN (BASELINE config #3), BERT-base imported from a frozen
+TensorFlow GraphDef into SameDiff (BASELINE config #4), and ResNet-50
+through the data-parallel entry points, staged by the device prefetcher
+(BASELINE config #5 on one card).
 
 Run from the root of a checkout, with no arguments, on a machine with
 one NVIDIA H100 (it fails without a card, and without the package):
@@ -181,6 +183,32 @@ Phases, each of which fails the run (exit 1) when its check fails:
     and 11; the trained graph saved and restored by ``restore_model``
     (output bitwise equal); card against CPU at 2 layers and batch 2
     (forward, and one SGD step norm-wise against a float64 step).
+
+19. data-parallel ResNet-50 (BASELINE #5 on one card): the seeded
+    ResNet-50 of phase 6 (224x224x3, 1000 classes, Nesterovs(0.1, 0.9),
+    f32, TF32 convolutions) on a ``ListDataSetIterator`` of its batch of
+    32: (a) 10 ``fit(iterator)`` steps with the device prefetcher on and
+    then off (``DL4J_TORCH_DEVICE_PREFETCH``), parameters and running
+    statistics bitwise equal, 53 launches each of kernels 3, 1, 5 and 6
+    a step, ms a step, the idle share and the share of the
+    host-to-device copies' time that overlaps compute (profiler);
+    (b) ``ParallelWrapper`` with one worker on the card: the exchange
+    resolves to dense, the run bitwise equal to (a), the same launches;
+    (c) ``SharedTrainingMaster`` over two processes on this card in a
+    gloo group (16 rows each, the exchange ``auto``, which resolves to
+    ZeRO-1 sharded), 3 steps, at 224x224 and at 64x64, TF32 off:
+    after step 1 each rank's update within ``UPDATE_FACTOR`` x the
+    one-process batch-32 step's distance from a float64 CPU step (+
+    ``UPDATE_FLOOR``), its loss within ``LOSS_RTOL`` and its running
+    statistics within ``STATE_RTOL`` of the one-process step's (one f32
+    step of this net is ill-conditioned: two f32 routes of it differ by
+    about 2e-2 of its update in norm, so the parameters are held
+    against float64, not elementwise); each rank holding half of the
+    padded flat updater state; 53 launches of each kernel a step on each
+    rank; the ranks bitwise equal after 3 steps (gloo stages through the
+    host: its step time is no DP rate); (d) a
+    one-rank NCCL group through ``SharedTrainingMaster``, 10 steps,
+    bitwise equal to (b), ms a step and img/s.
 
 Then one JSON line of kernel records (each kernel's times from its own
 timing phase, its launches from the path that carries it), the
@@ -3823,6 +3851,471 @@ def squeezenet_train_card_vs_cpu(torch, image: int = 64, batch: int = 8,
             "update_cpu32_vs_f64": e_cpu, "update_card_vs_cpu32": e_pair}
 
 
+# ---------------------------------------------------------------------------
+#: BASELINE #5 on one card: ResNet-50 through the data-parallel entry
+#: points. DP_STEPS staged steps, DP_RANK_STEPS on the two-rank group,
+#: at full width and at DP_SMALL x DP_SMALL (both with TF32 off).
+DP_STEPS, DP_RANK_STEPS, DP_RANKS = 10, 3, 2
+DP_SMALL = 64
+DP_WORK = ROOT / "build" / "dp_resnet"
+DP_KERNELS = ("channel_sums", "scale_shift_act", "bn_bwd_sums", "bn_bwd_dx")
+
+
+class _StepClock:
+    """A training listener: the time at the end of each step (the
+    compute stream synchronised, the staging stream left running), and
+    CPU snapshots of the parameters and running statistics after the
+    steps in ``keep``."""
+
+    def __init__(self, torch, device: str, keep=()):
+        self.torch, self.on_card = torch, device == "cuda"
+        self.keep, self.snaps, self.marks = set(keep), {}, []
+        self.state_bytes, self.losses = [], []
+
+    def start(self):
+        self.marks = [time.perf_counter()]
+
+    def iteration_done(self, model, iteration, epoch):
+        from deeplearning4j_tpu_torch.parallel import zero
+        if self.on_card:
+            self.torch.cuda.current_stream().synchronize()
+        self.marks.append(time.perf_counter())
+        self.losses.append(model.score())
+        # the updater state this replica holds during the step
+        self.state_bytes.append(
+            zero.sharded_state_bytes(model.updater_states) +
+            zero.dense_state_bytes(model.updater_states))
+        if iteration + 1 in self.keep:
+            self.snaps[iteration + 1] = _cpu_snapshot(model)
+
+    def on_epoch_start(self, model):
+        pass
+
+    def on_epoch_end(self, model):
+        pass
+
+    def step_ms(self):
+        return [(b - a) * 1e3 for a, b in zip(self.marks, self.marks[1:])]
+
+
+def _cpu_snapshot(net) -> dict:
+    return {"params": {k: {n: t.detach().cpu().clone()
+                           for n, t in sub.items()}
+                       for k, sub in net.params.items()},
+            "states": {k: {n: t.detach().cpu().clone()
+                           for n, t in sub.items()}
+                       for k, sub in net.states.items()}}
+
+
+def _dp_net(torch, image: int, device: str, batch: int = BATCH):
+    """``phase_train_resnet``'s seeded ResNet-50 and learnable batch (as
+    numpy, for the iterator to stage)."""
+    from deeplearning4j_tpu_torch.models.zoo import ResNet50
+    g = torch.Generator().manual_seed(21)
+    net = ResNet50(seed=21, height=image, width=image).init(device,
+                                                           generator=g)
+    x, y = learnable_batch(torch, g, batch, image)
+    return net, x.numpy(), y.numpy()
+
+
+def _dp_iterator(x, y, steps: int):
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.datasets.iterators import \
+        ListDataSetIterator
+    return ListDataSetIterator([DataSet(x, y) for _ in range(steps)])
+
+
+def _bitwise(torch, a: dict, b: dict, what: str) -> None:
+    for part in ("params", "states"):
+        for k, sub in a[part].items():
+            for n, t in sub.items():
+                check(torch.equal(t, b[part][k][n]),
+                      f"{what}: {part} {k}/{n} differ")
+
+
+def _rel(a, b) -> float:
+    return float((a.double() - b.double()).norm() /
+                 b.double().norm().clamp_min(1e-30))
+
+
+def _update_err(got: dict, ref: dict, p0: dict) -> float:
+    """The worst parameter's distance from ``ref`` in norm, over the
+    norm of ``ref``'s update from ``p0``."""
+    return max(float((got[k][n].double() - ref[k][n].double()).norm() /
+                     (ref[k][n].double() - p0[k][n].double()).norm()
+                     .clamp_min(1e-30))
+               for k in p0 for n in p0[k])
+
+
+def dp_rank_main(work: str, rank: int, world: int, backend: str,
+                 images: str, device: str = "cuda") -> None:
+    """One rank of the ``SharedTrainingMaster`` group of
+    ``phase_dp_resnet`` (run as its own process): each image size's
+    seeded ResNet-50 takes DP_RANK_STEPS steps on this rank's rows of
+    the global batch; the results go to ``work``."""
+    import torch
+    sys.path.insert(0, str(ROOT))
+    from deeplearning4j_tpu_torch.parallel import zero
+    from deeplearning4j_tpu_torch.parallel.sharedtraining import \
+        SharedTrainingMaster
+    out = {}
+    # held against float64: convolutions in full f32
+    torch.backends.cudnn.allow_tf32 = False
+    master = (SharedTrainingMaster.Builder(BATCH // world)
+              .coordinator(f"file://{work}/store", world, rank, backend)
+              .collective_timeout(300).build())
+    try:
+        for image in (int(s) for s in images.split(",")):
+            net, x, y = _dp_net(torch, image, device)
+            k = BATCH // world
+            shard = slice(rank * k, (rank + 1) * k)
+            whole = zero.sharded_state_bytes(zero.states_to_sharded(
+                net.params, net.updater_states, world))
+            dense = zero.dense_state_bytes(net.updater_states)
+            clock = _StepClock(torch, device, keep=(1, DP_RANK_STEPS))
+            net.set_listeners(clock)
+            _zero_counts()
+            clock.start()
+            master.fit(net, _dp_iterator(x[shard], y[shard],
+                                         DP_RANK_STEPS))
+            out[image] = {"launches": _counts(), "score": net.score(),
+                          "step_ms": clock.step_ms(),
+                          "losses": clock.losses,
+                          "snaps": clock.snaps,
+                          "state_bytes": clock.state_bytes,
+                          "state_bytes_whole_padded": whole,
+                          "state_bytes_dense": dense,
+                          "last_batch_size": net.last_batch_size}
+            del net
+    finally:
+        master.shutdown()
+    torch.save(out, f"{work}/rank{rank}.pt")
+
+
+def _run_ranks(world: int, backend: str, images: str,
+               device: str = "cuda") -> list:
+    """The ranks of a ``SharedTrainingMaster`` group on this card, each
+    its own process, waited for with a limit."""
+    import shutil
+    import torch
+    shutil.rmtree(DP_WORK, ignore_errors=True)
+    DP_WORK.mkdir(parents=True)
+    procs = [subprocess.Popen(
+        [sys.executable, "-c",
+         f"import chip_smoke as c; c.dp_rank_main({str(DP_WORK)!r}, {r}, "
+         f"{world}, {backend!r}, {images!r}, {device!r})"],
+        cwd=str(ROOT), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, out) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0, f"rank {r} of the {backend} group exited "
+                                 f"{p.returncode}:\n{out[-4000:]}")
+    res = [torch.load(DP_WORK / f"rank{r}.pt") for r in range(world)]
+    shutil.rmtree(DP_WORK, ignore_errors=True)
+    return res
+
+
+def h2d_overlap(torch, fn) -> dict:
+    """Host-to-device copies under ``fn()`` (profiler) and the share of
+    their time during which a kernel of another stream runs."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    copies, kernels = [], []
+    for e in prof.events():
+        if "CUDA" not in str(getattr(e, "device_type", "")):
+            continue
+        span = (e.time_range.start, e.time_range.end)
+        if "HtoD" in e.name:
+            copies.append(span)
+        elif "Memcpy" not in e.name and "Memset" not in e.name:
+            kernels.append(span)
+    if not copies or not kernels:
+        print("[dp] H2D overlap: not measured (no CUDA copy events)")
+        return {}
+    merged = []
+    for s, e in sorted(kernels):
+        if merged and s <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], e)
+        else:
+            merged.append([s, e])
+    total = sum(e - s for s, e in copies)
+    covered = sum(max(0.0, min(e, me) - max(s, ms))
+                  for s, e in copies for ms, me in merged)
+    first = min(s for s, _ in merged + [list(c) for c in copies])
+    return {"h2d_copies": len(copies), "h2d_ms": total / 1e3,
+            "h2d_overlapped_ms": covered / 1e3,
+            "h2d_overlap_share": covered / total if total else 0.0,
+            # where the copies fall in the window, and the device's
+            # busy share of it
+            "copy_starts_ms": [round((s - first) / 1e3, 3)
+                               for s, _ in sorted(copies)],
+            "window_ms": (max(e for _, e in merged) - first) / 1e3,
+            "kernel_busy_ms": sum(e - s for s, e in merged) / 1e3}
+
+
+def _f64_step(torch, size: int, p0: dict, x, y):
+    """One float64 CPU fit step of the seeded ResNet-50 at ``size`` from
+    ``p0`` on ``(x, y)``: its parameters, and the seconds it took."""
+    from deeplearning4j_tpu_torch.models.zoo import ResNet50
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    conf64 = ResNet50(seed=21, height=size, width=size).conf()
+    conf64.dtype = "float64"
+    f64 = ComputationGraph(conf64).set_params(
+        {k: {n: t.double() for n, t in sub.items()}
+         for k, sub in p0["params"].items()},
+        {k: {n: t.double() for n, t in sub.items()}
+         for k, sub in p0["states"].items()}, "cpu")
+    t0 = time.perf_counter()
+    f64.fit(torch.from_numpy(x).double(), torch.from_numpy(y).double())
+    return ({k: dict(sub) for k, sub in f64.params.items()},
+            time.perf_counter() - t0)
+
+
+def _hold_rank(torch, rank: int, size: int, res: dict, p0: dict,
+               ref_snaps: dict, ref_losses: list, f64_p: dict) -> dict:
+    """One rank of the two-rank group at one image size against the
+    one-process batch-32 run from the same weights: step 1's update in
+    norm within UPDATE_FACTOR x the one-process step's distance from a
+    float64 CPU step (``f64_p``, + UPDATE_FLOOR), as
+    ``train_card_vs_cpu`` holds the card to the CPU; the step-1 loss
+    within LOSS_RTOL and the running statistics within STATE_RTOL of the
+    one-process step's. After DP_RANK_STEPS steps the parameters'
+    distance from the one-process run is reported."""
+    e_ref = _update_err(ref_snaps[1]["params"], f64_p, p0["params"])
+    e_dp = _update_err(res["snaps"][1]["params"], f64_p, p0["params"])
+    check(e_dp <= UPDATE_FACTOR * e_ref + UPDATE_FLOOR,
+          f"rank {rank} at {size}x{size}: step-1 update {e_dp:.3e} from "
+          f"float64, the one-process step's {e_ref:.3e}")
+    e_loss = abs(res["losses"][0] - ref_losses[0]) / abs(ref_losses[0])
+    check(e_loss <= LOSS_RTOL, f"rank {rank} at {size}x{size}: loss "
+                               f"{res['losses'][0]} vs {ref_losses[0]}")
+    e_state = max(_rel(res["snaps"][1]["states"][k][n],
+                       ref_snaps[1]["states"][k][n])
+                  for k in p0["states"] for n in p0["states"][k])
+    check(e_state <= STATE_RTOL, f"rank {rank} at {size}x{size}: running "
+                                 f"stats after step 1 {e_state:.3e}")
+    e_pair = _update_err(res["snaps"][1]["params"], ref_snaps[1]["params"],
+                         p0["params"])
+    e3 = _update_err(res["snaps"][DP_RANK_STEPS]["params"],
+                     ref_snaps[DP_RANK_STEPS]["params"], p0["params"])
+    print(f"[dp] (c) rank {rank} at {size}x{size} (TF32 off): step 1 update "
+          f"{e_dp:.3e} from float64 (the one-process step {e_ref:.3e}; "
+          f"bar {UPDATE_FACTOR} x + {UPDATE_FLOOR}), {e_pair:.3e} from the "
+          f"one-process step; loss {res['losses'][0]:.7f} vs "
+          f"{ref_losses[0]:.7f} ({e_loss:.2e}); running stats "
+          f"{e_state:.3e}; after {DP_RANK_STEPS} steps {e3:.3e} from the "
+          f"one-process run")
+    return {"update_vs_f64": e_dp, "one_process_vs_f64": e_ref,
+            "update_vs_one_process": e_pair, "loss_rel": e_loss,
+            "states_rel": e_state, "params_vs_one_process_step3": e3}
+
+
+def phase_dp_resnet(torch, label: str, device: str = "cuda",
+                    image: int = 224) -> dict:
+    """BASELINE #5 on one card (see the module docstring, phase 19).
+    ``device="cpu"`` with a small ``image`` rehearses (a), (b) and (c)
+    without a card (the launch counts and the profile are the card's);
+    the NCCL run (d) needs one."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.common.environment import Environment
+    from deeplearning4j_tpu_torch.parallel import zero
+    from deeplearning4j_tpu_torch.parallel.sharedtraining import \
+        SharedTrainingMaster
+    from deeplearning4j_tpu_torch.parallel.wrapper import ParallelWrapper
+    on_card = device == "cuda"
+    base, x, y = _dp_net(torch, image, device)
+    p0 = _cpu_snapshot(base)
+    want = {k: 53 * on_card for k in DP_KERNELS}
+    out = {}
+
+    def launches_ok(got, steps, what):
+        for k, n in want.items():
+            check(got[k] == n * steps, f"{what}: {k} {got[k]} launches in "
+                                       f"{steps} steps, expected {n} a step")
+        check(got["epilogue_backward"] == 0, f"{what}: kernel 2 launched")
+
+    def timed_run(net, fit, what, keep=()):
+        clock = _StepClock(torch, device, keep)
+        net.set_listeners(clock)
+        _sync(torch, device)
+        _zero_counts()
+        clock.start()
+        fit()
+        got = _counts()
+        launches_ok(got, DP_STEPS, what)
+        ms = clock.step_ms()
+        med = float(np.median(ms[1:]))
+        net.set_listeners()
+        return {"launches": got, "step_ms": ms, "median_step_ms": med,
+                "img_per_s": BATCH * 1e3 / med, "snaps": clock.snaps,
+                "losses": clock.losses,
+                "final": _cpu_snapshot(net), "score": net.score()}
+
+    # ---- (a) staging: fit(iterator) with the prefetcher on, then off ----
+    nets = {}
+    for flag in ("1", "0"):
+        os.environ["DL4J_TORCH_DEVICE_PREFETCH"] = flag
+        Environment.reset()
+        try:
+            net = _copy_net(torch, base, base.conf, device)
+            out[f"prefetch_{flag}"] = timed_run(
+                net, lambda: net.fit(_dp_iterator(x, y, DP_STEPS)),
+                f"fit(iterator), prefetch {flag}")
+            nets[flag] = net
+        finally:
+            del os.environ["DL4J_TORCH_DEVICE_PREFETCH"]
+            Environment.reset()
+    staged = out["prefetch_1"]
+    _bitwise(torch, staged["final"], out["prefetch_0"]["final"],
+             "staged vs unstaged fit")
+    print(f"[dp] (a) ResNet-50 {image}x{image}, batch {BATCH}, "
+          f"{DP_STEPS} fit(iterator) steps: staged "
+          f"{staged['median_step_ms']:.3f} ms/step "
+          f"({staged['img_per_s']:.1f} img/s), unstaged "
+          f"{out['prefetch_0']['median_step_ms']:.3f} ms/step; parameters "
+          f"and running stats bitwise equal; launches "
+          f"{staged['launches']} [{label}]")
+    if on_card:
+        prof_net = nets["1"]
+        one = _dp_iterator(x, y, 3)
+        staged["profile"] = profile_device(
+            torch, lambda: prof_net.fit(one), 3 * staged["median_step_ms"],
+            "3 staged fit(iterator) steps")
+        staged["overlap"] = h2d_overlap(torch, lambda: prof_net.fit(one))
+        print(f"[dp] (a) host-to-device copies of 3 staged steps: "
+              f"{staged['overlap']} [{label}]")
+    del nets
+
+    # ---- (b) ParallelWrapper, workers=1 ----
+    net_b = _copy_net(torch, base, base.conf, device)
+    pw = ParallelWrapper.Builder(net_b).workers(1).build()
+    out["wrapper"] = res_b = timed_run(
+        net_b, lambda: pw.fit(_dp_iterator(x, y, DP_STEPS)),
+        "ParallelWrapper workers=1")
+    check(pw.update_exchange is zero.UpdateExchange.DENSE,
+          f"workers=1 resolved to {pw.update_exchange}")
+    _bitwise(torch, res_b["final"], staged["final"],
+             "ParallelWrapper workers=1 vs fit")
+    check(res_b["score"] == staged["score"],
+          f"wrapper score {res_b['score']} != fit's {staged['score']}")
+    print(f"[dp] (b) ParallelWrapper workers=1 on {pw.mesh.devices}: "
+          f"exchange {pw.update_exchange.value}, "
+          f"{res_b['median_step_ms']:.3f} ms/step "
+          f"({res_b['img_per_s']:.1f} img/s); bitwise equal to fit; "
+          f"launches {res_b['launches']} [{label}]")
+    del pw, net_b
+
+    # ---- (c) SharedTrainingMaster, two gloo ranks on this card ----
+    if on_card:
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = _run_ranks(DP_RANKS, "gloo", f"{image},{DP_SMALL}", device)
+    out["gloo_wall_s"] = time.perf_counter() - t0
+    # the one-process references, TF32 off as on the ranks
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    refs = {}
+    try:
+        for size in (image, DP_SMALL):
+            one, qx, qy = _dp_net(torch, size, device)
+            q0 = _cpu_snapshot(one)
+            clock = _StepClock(torch, device, keep=(1, DP_RANK_STEPS))
+            one.set_listeners(clock)
+            one.fit(_dp_iterator(qx, qy, DP_RANK_STEPS))
+            del one
+            f64_p, secs = _f64_step(torch, size, q0, qx, qy)
+            out[f"f64_step_s_{size}"] = secs
+            refs[size] = (q0, clock.snaps, clock.losses, f64_p)
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    print(f"[dp] (c) float64 CPU steps: "
+          f"{[round(out[f'f64_step_s_{z}'], 1) for z in refs]} s")
+    gloo = []
+    for r, res in enumerate(ranks):
+        rec = {}
+        for size in (image, DP_SMALL):
+            rec[size] = _hold_rank(torch, r, size, res[size], *refs[size])
+        full = res[image]
+        launches_ok(full["launches"], DP_RANK_STEPS, f"gloo rank {r}")
+        check(full["last_batch_size"] == BATCH,
+              f"rank {r}: global batch {full['last_batch_size']}")
+        # ZeRO-1: this rank held half of the padded flat state
+        held = full["state_bytes"]
+        whole = full["state_bytes_whole_padded"]
+        check(held and all(b * DP_RANKS == whole for b in held),
+              f"rank {r}: updater state {held} bytes a step, the padded "
+              f"flat state {whole}")
+        gloo.append({"launches": full["launches"],
+                     "step_ms": full["step_ms"], "score": full["score"],
+                     "checks": rec, "state_bytes": held[0],
+                     "state_bytes_whole_padded": whole,
+                     "state_bytes_dense": full["state_bytes_dense"]})
+        print(f"[dp] (c) gloo rank {r}/{DP_RANKS} on {device}, "
+              f"{BATCH // DP_RANKS} rows each, exchange sharded: "
+              f"updater state {held[0]} bytes = 1/{DP_RANKS} of the padded "
+              f"flat {whole} (dense {full['state_bytes_dense']}); steps "
+              f"{[round(m, 3) for m in full['step_ms']]} ms (gloo stages "
+              f"through the host: a correctness run, no DP rate); launches "
+              f"{full['launches']} [{label}]")
+    for size in (image, DP_SMALL):
+        for k in p0["params"]:
+            for n in p0["params"][k]:
+                check(torch.equal(
+                    ranks[0][size]["snaps"][DP_RANK_STEPS]["params"][k][n],
+                    ranks[1][size]["snaps"][DP_RANK_STEPS]["params"][k][n]),
+                    f"ranks differ at {size}x{size} {k}/{n}")
+    out["gloo"] = gloo
+    print(f"[dp] (c) the ranks agree bitwise after {DP_RANK_STEPS} steps; "
+          f"{DP_RANKS} rank processes {out['gloo_wall_s']:.1f}s")
+    if not on_card:
+        return out
+
+    # ---- (d) a one-rank NCCL group through SharedTrainingMaster ----
+    import shutil
+    shutil.rmtree(DP_WORK, ignore_errors=True)
+    DP_WORK.mkdir(parents=True)
+    net_d = _copy_net(torch, base, base.conf, device)
+    master = (SharedTrainingMaster.Builder(BATCH)
+              .coordinator(f"file://{DP_WORK}/nccl", 1, 0)
+              .collective_timeout(300).build())
+    try:
+        out["nccl"] = res_d = timed_run(
+            net_d, lambda: master.fit(net_d, _dp_iterator(x, y, DP_STEPS)),
+            "one-rank NCCL group")
+        backend = master._mesh.backend
+    finally:
+        master.shutdown()
+        shutil.rmtree(DP_WORK, ignore_errors=True)
+    check(backend == "nccl", f"the one-rank group ran {backend}")
+    _bitwise(torch, res_d["final"], res_b["final"],
+             "one-rank NCCL group vs ParallelWrapper workers=1")
+    print(f"[dp] (d) one-rank {backend} group: "
+          f"{res_d['median_step_ms']:.3f} ms/step "
+          f"({res_d['img_per_s']:.1f} img/s); bitwise equal to (b); "
+          f"launches {res_d['launches']} [{label}]")
+    del net_d, base
+    torch.cuda.empty_cache()
+    for r in out.values():
+        if isinstance(r, dict):
+            r.pop("snaps", None)
+            r.pop("final", None)
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3851,6 +4344,7 @@ def main() -> int:
     sq = timed("squeezenet", phase_squeezenet, torch, label=label)
     st = timed("squeezenet-train", phase_train_squeezenet, torch, label)
     tr = timed("train", phase_train_resnet, torch, label)
+    dp = timed("dp-resnet", phase_dp_resnet, torch, label)
     ln = timed("lenet", phase_train_lenet, torch, label)
     timed("weights", phase_weights_across, torch)
     pre = timed("pretrained", phase_pretrained, torch, label)
@@ -3984,6 +4478,16 @@ def main() -> int:
         # the launches on this slice's paths: SqueezeNet training (10
         # steps), the ResNet-50 remat step, BERT-base remat (3 steps a
         # mode)
+        if k.name in DP_KERNELS:
+            extra["launches_dp_resnet"] = {
+                "fit_iterator_staged_10_steps":
+                    dp["prefetch_1"]["launches"][k.name],
+                "parallel_wrapper_workers_1_10_steps":
+                    dp["wrapper"]["launches"][k.name],
+                "shared_training_gloo_3_steps_per_rank": [
+                    r["launches"][k.name] for r in dp["gloo"]],
+                "shared_training_nccl_1_rank_10_steps":
+                    dp["nccl"]["launches"][k.name]}
         extra["launches_squeezenet_training"] = st["launches"][k.name]
         extra["launches_resnet_remat_step"] = \
             tr["remat"]["remat"]["launches"][k.name]
@@ -4022,6 +4526,20 @@ def main() -> int:
           f"{rm['dots']['peak_mb']:.1f}; ResNet-50 remat_segments=4 peak "
           f"{tr['remat']['remat']['peak_mb']:.1f} MB vs "
           f"{tr['remat']['plain']['peak_mb']:.1f} MB [{label}]")
+    ov = dp["prefetch_1"].get("overlap", {})
+    print(f"[done] data-parallel ResNet-50 (BASELINE #5 on one card): "
+          f"staged fit {dp['prefetch_1']['median_step_ms']:.3f} ms/step "
+          f"(unstaged {dp['prefetch_0']['median_step_ms']:.3f}, idle share "
+          f"{dp['prefetch_1'].get('profile', {}).get('idle_share', float('nan')):.3f}, "
+          f"H2D overlap share {ov.get('h2d_overlap_share', float('nan')):.3f}), "
+          f"ParallelWrapper workers=1 "
+          f"{dp['wrapper']['median_step_ms']:.3f} ms/step, one-rank NCCL "
+          f"{dp['nccl']['median_step_ms']:.3f} ms/step "
+          f"({dp['nccl']['img_per_s']:.1f} img/s); 2 gloo ranks: step 1 "
+          f"{max(c['update_vs_f64'] for r in dp['gloo'] for c in r['checks'].values()):.3e} "
+          f"from float64, updater state {dp['gloo'][0]['state_bytes']} of "
+          f"{dp['gloo'][0]['state_bytes_whole_padded']} bytes a rank "
+          f"[{label}]")
     print(f"[done] SqueezeNet serving: batch-32 f32 forward "
           f"{sq['fwd32_f32_ms'][1]:.3f} ms ({sq['img_per_s']:.1f} img/s), "
           f"bf16 {sq['fwd32_bf16_ms']:.3f} ms, {sq['http_img_per_s']:.1f} "

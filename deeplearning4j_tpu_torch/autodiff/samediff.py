@@ -879,21 +879,37 @@ class SameDiff:
         (``{output: Evaluation factory or (factory, label index)}``) is
         evaluated every ``validation_frequency`` epochs into the
         returned ``History``."""
-        from deeplearning4j_tpu_torch.autodiff.training import History
+        from deeplearning4j_tpu_torch.autodiff.training import (
+            History, device_prefetch_placeholders)
+        from deeplearning4j_tpu_torch.common.environment import Environment
         self._check_training()
         cfg = self.training_config
         all_listeners = self.listeners + list(listeners or [])
         history = History()
+        env = Environment.get()
+
+        def make_ph(batch):
+            return (placeholders_fn(batch) if placeholders_fn
+                    else cfg.placeholders_from(batch))
+
+        def to_host(v):
+            # the graph's dtype rule on the host; a tensor stays put
+            return v if isinstance(v, torch.Tensor) else as_tensor(v, "cpu")
+
         for epoch in range(n_epochs):
             for lis in all_listeners:
                 lis.on_epoch_start(self)
             if hasattr(iterator, "reset"):
                 iterator.reset()
             epoch_losses = []
-            for batch in iterator:
-                ph_vals = self._placeholders(
-                    placeholders_fn(batch) if placeholders_fn
-                    else cfg.placeholders_from(batch))
+            # the feeder thread maps each batch and copies it to the
+            # device a batch ahead of the step
+            staged = (device_prefetch_placeholders(
+                          iterator, make_ph, to_host, self.device,
+                          depth=env.device_prefetch_depth)
+                      if env.device_prefetch
+                      else (self._placeholders(make_ph(b)) for b in iterator))
+            for ph_vals in staged:
                 loss = self._train_step(ph_vals)
                 epoch_losses.append(float(loss.float()))
                 self._score = epoch_losses[-1]

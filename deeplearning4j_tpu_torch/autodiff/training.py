@@ -3,22 +3,76 @@
 Counterpart of ``deeplearning4j_tpu/autodiff/training.py`` (reference:
 ``org.nd4j.autodiff.samediff.TrainingConfig``: updater, regularization,
 dataset feature/label -> placeholder mappings; ``History``: the
-per-epoch loss curves and evaluation records ``fit`` returns).
-``device_prefetch_placeholders`` is not ported yet (ROADMAP.md, Queue A
-item 6): ``SameDiff.fit`` stages each batch on the device itself.
+per-epoch loss curves and evaluation records ``fit`` returns), and
+``device_prefetch_placeholders``, the staging ``SameDiff.fit`` runs its
+batches through.
 """
 from __future__ import annotations
 
+import queue
+import threading
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Union
 
 import numpy as np
+import torch
+
+from deeplearning4j_tpu_torch.datasets.iterators import _FeederError
+from deeplearning4j_tpu_torch.datasets.prefetch import Staged, Stager
 
 
-def device_prefetch_placeholders(*args, **kwargs):
-    raise NotImplementedError(
-        "device_prefetch_placeholders is not ported yet (ROADMAP.md, "
-        "Queue A item 6)")
+def device_prefetch_placeholders(iterator, make_ph: Callable,
+                                 convert: Callable,
+                                 device: Union[str, torch.device],
+                                 depth: int = 2):
+    """Staging for the SameDiff fit loop (the placeholder counterpart of
+    ``datasets/prefetch.DevicePrefetcher``): a feeder thread maps each
+    batch through ``make_ph`` (a batch -> ``{name: array}``) and
+    ``convert`` (an array -> a host tensor of the graph's dtype) and
+    stages the tensors on ``device`` ahead of the step. Yields the dicts in iterator order; a
+    feeder exception is raised here."""
+    q: queue.Queue = queue.Queue(max(1, int(depth)))
+    sentinel = object()
+    stop = threading.Event()
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.05)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def feeder():
+        try:
+            stager = Stager()
+            for batch in iterator:
+                ph = {k: convert(v) for k, v in make_ph(batch).items()}
+                pending: list = []
+                if not put(Staged(stager.to_device(ph, device, pending),
+                                  pending)):
+                    return
+            put(sentinel)
+        except BaseException as e:       # noqa: BLE001 — re-raised below
+            put(_FeederError(e))
+
+    thread = threading.Thread(target=feeder, daemon=True,
+                              name="dl4j-torch-samediff-prefetch")
+    thread.start()
+    try:
+        while True:
+            item = q.get()
+            if item is sentinel:
+                return
+            if isinstance(item, _FeederError):
+                raise item.exc
+            yield item.consume()
+    finally:
+        # a consumer that stops early (an exception in the step) lets
+        # the feeder finish rather than block on a full queue
+        stop.set()
+        thread.join()
 
 
 @dataclass

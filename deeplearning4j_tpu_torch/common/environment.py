@@ -8,14 +8,20 @@ environment variables.
 
 Env vars read here: ``DL4J_TORCH_TELEMETRY`` (metrics and spans,
 default on), ``DL4J_TORCH_RETRACE_WARN`` (warn once past this many
-distinct served shapes, default 5). Read live by their subsystems:
+distinct served shapes, default 5), ``DL4J_TORCH_DEVICE_PREFETCH``
+(``fit`` stages iterators through ``datasets/prefetch.py``, default
+on), ``DL4J_TORCH_DEVICE_PREFETCH_DEPTH`` (batches staged ahead,
+default 2) and ``DL4J_TORCH_SHARDED_UPDATE`` (the ZeRO-1 update
+exchange of ``parallel/zero.py``; ``0`` forces the dense tail, default
+on). Read live by their subsystems:
 ``DL4J_TORCH_FUSED_CONV`` (the conv-epilogue and training-BN forward
 kernel gate), ``DL4J_TORCH_FUSED_BN_BWD`` (the BN backward kernel gate),
 ``DL4J_TORCH_FLASH_ATTENTION`` (the flash-attention kernel gate),
 ``DL4J_TORCH_PAGED_ATTENTION`` (the paged-decode kernel gate; all four
 in ``ops/kernel_select.py``), ``DL4J_TORCH_GRAPHOPT`` (the GraphOptimizer
 after a TF import, default on; ``autodiff/passes.py``),
-``DL4J_TORCH_KV_DTYPE`` (the KV pool's
+``DL4J_TORCH_DATA_DIR`` (where ``datasets/mnist.py`` looks for the
+IDX files), ``DL4J_TORCH_KV_DTYPE`` (the KV pool's
 dtype, ``float32`` or ``bf16``; ``serving/batcher.py``) and
 ``DL4J_TORCH_HTTP_HOST`` (the serving bind interface, default
 127.0.0.1).
@@ -38,6 +44,9 @@ import torch
 class _Env:
     telemetry: bool = True
     retrace_warn_threshold: int = 5
+    device_prefetch: bool = True
+    device_prefetch_depth: int = 2
+    sharded_update: bool = True
     extra: dict = field(default_factory=dict)
 
 
@@ -54,11 +63,17 @@ class Environment:
             return inst
         with cls._lock:
             if cls._inst is None:
+                def flag(name: str) -> bool:
+                    return os.environ.get(name, "1") in (
+                        "1", "true", "True", "yes")
                 cls._inst = _Env(
-                    telemetry=os.environ.get("DL4J_TORCH_TELEMETRY", "1")
-                    in ("1", "true", "True", "yes"),
+                    telemetry=flag("DL4J_TORCH_TELEMETRY"),
                     retrace_warn_threshold=int(os.environ.get(
-                        "DL4J_TORCH_RETRACE_WARN", "5")))
+                        "DL4J_TORCH_RETRACE_WARN", "5")),
+                    device_prefetch=flag("DL4J_TORCH_DEVICE_PREFETCH"),
+                    device_prefetch_depth=int(os.environ.get(
+                        "DL4J_TORCH_DEVICE_PREFETCH_DEPTH", "2")),
+                    sharded_update=flag("DL4J_TORCH_SHARDED_UPDATE"))
             return cls._inst
 
     @classmethod

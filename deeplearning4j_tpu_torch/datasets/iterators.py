@@ -1,12 +1,14 @@
 """DataSetIterator: the minibatch stream contract fit() consumes.
 
-Counterpart of ``DataSetIterator``, ``ListDataSetIterator`` and
-``ExistingDataSetIterator`` in ``deeplearning4j_tpu/datasets/
-iterators.py``. The background-thread ``AsyncDataSetIterator`` and
-device prefetch are not ported yet.
+Counterpart of ``DataSetIterator``, ``ListDataSetIterator``,
+``ExistingDataSetIterator`` and ``AsyncDataSetIterator`` in
+``deeplearning4j_tpu/datasets/iterators.py``. Device staging is
+``datasets/prefetch.py``.
 """
 from __future__ import annotations
 
+import queue
+import threading
 from typing import Iterator, List, Optional
 
 from deeplearning4j_tpu_torch.datasets.dataset import DataSet
@@ -110,3 +112,87 @@ class ExistingDataSetIterator(DataSetIterator):
 
     def batch(self) -> int:
         return -1
+
+
+class _FeederError:
+    """An exception raised on a feeder thread, carried to the consumer
+    so a failing base iterator fails ``fit`` loudly."""
+    __slots__ = ("exc",)
+
+    def __init__(self, exc: BaseException):
+        self.exc = exc
+
+
+class AsyncDataSetIterator(DataSetIterator):
+    """Background-thread prefetch (reference: AsyncDataSetIterator with
+    its queue-feeder thread): the base iterator's ETL runs on a feeder
+    thread, ``queue_size`` batches ahead of the consumer."""
+
+    _SENTINEL = object()
+
+    def __init__(self, base: DataSetIterator, queue_size: int = 4):
+        super().__init__()
+        self._base = base
+        self._queue_size = max(1, queue_size)
+        self._queue: queue.Queue = queue.Queue(self._queue_size)
+        self._thread: Optional[threading.Thread] = None
+        self._next = None
+        self._error: Optional[BaseException] = None
+        self._started = False
+
+    def _feeder(self, q: queue.Queue):
+        try:
+            self._base.reset()
+            while self._base.has_next():
+                q.put(self._base.next())
+            q.put(self._SENTINEL)
+        except BaseException as e:       # noqa: BLE001 — re-raised on
+            q.put(_FeederError(e))       # the consumer thread
+
+    def reset(self):
+        t = self._thread
+        if t is not None and t.is_alive():
+            # drain so the old feeder can finish; timed gets, because
+            # the sentinel may already have been consumed while the
+            # feeder is between its final put and its exit
+            while t.is_alive():
+                try:
+                    item = self._queue.get(timeout=0.05)
+                except queue.Empty:
+                    continue
+                if item is self._SENTINEL or isinstance(item, _FeederError):
+                    break
+            t.join()
+        self._queue = queue.Queue(self._queue_size)
+        self._error = None
+        self._thread = threading.Thread(
+            target=self._feeder, args=(self._queue,), daemon=True,
+            name="dl4j-torch-async-iterator")
+        self._thread.start()
+        self._started = True
+        self._advance()
+
+    def _advance(self):
+        item = self._queue.get()
+        if isinstance(item, _FeederError):
+            self._error, self._next = item.exc, None
+        else:
+            self._next = None if item is self._SENTINEL else item
+
+    def has_next(self) -> bool:
+        if not self._started:
+            self.reset()
+        if self._error is not None:
+            e, self._error = self._error, None
+            raise e
+        return self._next is not None
+
+    def next(self) -> DataSet:  # noqa: A003
+        if not self.has_next():
+            raise StopIteration("iterator exhausted; call reset()")
+        ds = self._next
+        self._advance()
+        return self._apply_pre(ds)
+
+    def batch(self) -> int:
+        return self._base.batch()

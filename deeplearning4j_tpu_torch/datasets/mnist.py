@@ -1,22 +1,63 @@
-"""MNIST-shaped data: the JAX package's deterministic synthetic surrogate.
+"""MNIST: the IDX files when they are on disk, else the JAX package's
+deterministic synthetic surrogate.
 
-Counterpart of ``synthetic_mnist`` and ``MnistDataSetIterator`` in
-``deeplearning4j_tpu/datasets/mnist.py``, copied: each class is a fixed
-smooth 28x28 template plus pixel noise, from a numpy seed, so the same
-seed gives the same images in both packages. Reading the real IDX files
-is not ported yet: this iterator always serves the surrogate.
+Counterpart of ``deeplearning4j_tpu/datasets/mnist.py``. The loader
+looks for ``train-images-idx3-ubyte`` / ``train-labels-idx1-ubyte``
+(``t10k-*`` for the test split), plain or ``.gz``, in ``data_dir`` or
+``$DL4J_TORCH_DATA_DIR``; nothing is downloaded. Without them it serves
+the surrogate, copied from the JAX package: each class a fixed smooth
+28x28 template plus pixel noise, from a numpy seed, so the same seed
+gives the same images in both packages.
 
 Features are flat ``[batch, 784]`` float32 in [0, 1], labels one-hot
 ``[batch, 10]``.
 """
 from __future__ import annotations
 
+import gzip
+import os
+import struct
+from pathlib import Path
 from typing import Optional, Tuple
 
 import numpy as np
 
 from deeplearning4j_tpu_torch.datasets.dataset import DataSet
 from deeplearning4j_tpu_torch.datasets.iterators import DataSetIterator
+
+
+def _read_idx(path: Path) -> np.ndarray:
+    """An IDX file (big-endian dims after a magic whose low byte is the
+    rank) as a uint8 array."""
+    op = gzip.open if path.suffix == ".gz" else open
+    with op(path, "rb") as f:
+        magic = struct.unpack(">I", f.read(4))[0]
+        ndim = magic & 0xFF
+        dims = struct.unpack(">" + "I" * ndim, f.read(4 * ndim))
+        return np.frombuffer(f.read(), dtype=np.uint8).reshape(dims)
+
+
+def _find(name: str, data_dir: Optional[str]) -> Optional[Path]:
+    for d in (data_dir, os.environ.get("DL4J_TORCH_DATA_DIR")):
+        if not d:
+            continue
+        for cand in (Path(d) / name, Path(d) / (name + ".gz")):
+            if cand.exists():
+                return cand
+    return None
+
+
+def _load_real(train: bool, data_dir: Optional[str] = None
+               ) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+    """``(x [n, 784] float32 in [0, 1], y [n] uint8)`` from the IDX
+    files, or None when they are not there."""
+    prefix = "train" if train else "t10k"
+    imgs = _find(f"{prefix}-images-idx3-ubyte", data_dir)
+    lbls = _find(f"{prefix}-labels-idx1-ubyte", data_dir)
+    if imgs is None or lbls is None:
+        return None
+    x = _read_idx(imgs).astype(np.float32) / 255.0
+    return x.reshape(x.shape[0], -1), _read_idx(lbls)
 
 
 def synthetic_mnist(n: int, train: bool, seed: int = 123
@@ -44,16 +85,25 @@ def synthetic_mnist(n: int, train: bool, seed: int = 123
 
 
 class MnistDataSetIterator(DataSetIterator):
-    """Minibatches of the synthetic surrogate (60000 train / 10000 test
-    examples unless ``num_examples`` says otherwise)."""
+    """Minibatches of the IDX files, or of the synthetic surrogate
+    (60000 train / 10000 test examples unless ``num_examples`` says
+    otherwise); ``synthetic`` says which."""
 
     def __init__(self, batch_size: int, train: bool = True,
                  seed: int = 123, num_examples: Optional[int] = None,
-                 binarize: bool = False, shuffle: bool = True):
+                 binarize: bool = False, shuffle: bool = True,
+                 data_dir: Optional[str] = None):
         super().__init__()
-        n = num_examples or (60000 if train else 10000)
-        x, y = synthetic_mnist(n, train, seed)
-        self.synthetic = True
+        real = _load_real(train, data_dir)
+        if real is not None:
+            x, y = real
+            self.synthetic = False
+        else:
+            n = num_examples or (60000 if train else 10000)
+            x, y = synthetic_mnist(n, train, seed)
+            self.synthetic = True
+        if num_examples is not None:
+            x, y = x[:num_examples], y[:num_examples]
         if binarize:
             x = (x > 0.5).astype(np.float32)
         if shuffle:

@@ -15,17 +15,105 @@ parameters. Adam-family bias corrections use ``t = iteration + 1``.
 ``learning_rate`` may be a number or an ``ISchedule``
 (``learning/schedules.py``), written into the JSON as its map and read
 back from it; ``lr_at(iteration, epoch)`` gives the rate a step uses.
+
+The ZeRO-1 flat layout (``dp_ravel`` / ``dp_unravel``, the JAX
+package's): a tree of tensors ravels into one padded 1-D vector per
+dtype, its length a multiple of the replica count, so the optimizer
+state and the weight update split evenly over a data-parallel mesh
+(``parallel/zero.py``). Leaves go in the JAX package's tree order
+(dict keys sorted), so the flats match its layout.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, List, Tuple
 
 import torch
 
 from deeplearning4j_tpu_torch.learning.schedules import ISchedule
 
 _Tree = Dict[str, torch.Tensor]
+
+#: reserved key marking an updater-state dict as the dp-sharded flat
+#: layout: ``{DP_SHARDED_KEY: {slot: {dtype key: flat}}}``
+DP_SHARDED_KEY = "__dp_sharded__"
+
+
+def is_dp_sharded(state) -> bool:
+    return isinstance(state, dict) and DP_SHARDED_KEY in state
+
+
+def _dtype_key(t: torch.Tensor) -> str:
+    return str(t.dtype).replace("torch.", "")
+
+
+def _leaves(tree) -> List[torch.Tensor]:
+    """The tensors of a nested dict in the JAX package's tree order
+    (keys sorted)."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in _leaves(tree[k])]
+    return [tree]
+
+
+def _unflatten(like, leaves):
+    if isinstance(like, dict):
+        return {k: _unflatten(like[k], leaves) for k in sorted(like)}
+    return next(leaves)
+
+
+class DpFlatSpec:
+    """How a tree ravels into per-dtype padded flat vectors: ``infos``
+    per leaf (dtype key, offset into its dtype vector, shape); ``sizes``
+    dtype key -> (original length, padded length), the padded length a
+    multiple of ``n_shards``."""
+
+    def __init__(self, structure, infos, sizes, n_shards: int,
+                 axis: str = "data"):
+        self.structure = structure
+        self.infos: List[Tuple[str, int, tuple]] = infos
+        self.sizes: Dict[str, Tuple[int, int]] = sizes
+        self.n_shards = n_shards
+        self.axis = axis
+
+
+def dp_flatten_spec(tree, n_shards: int, axis: str = "data") -> DpFlatSpec:
+    infos, offsets = [], {}
+    for leaf in _leaves(tree):
+        dt = _dtype_key(leaf)
+        off = offsets.get(dt, 0)
+        infos.append((dt, off, tuple(leaf.shape)))
+        offsets[dt] = off + leaf.numel()
+    sizes = {dt: (orig, -(-orig // n_shards) * n_shards)
+             for dt, orig in offsets.items()}
+    return DpFlatSpec(tree, infos, sizes, n_shards, axis)
+
+
+def dp_ravel(tree, n_shards: int, spec: DpFlatSpec = None):
+    """Ravel ``tree`` to ``{dtype key: flat padded vector}``, zero padded
+    (a zero gradient and zero state leave a pad slot at zero under every
+    updater here; :func:`dp_unravel` drops the pads). Returns ``(flats,
+    spec)``."""
+    if spec is None:
+        spec = dp_flatten_spec(tree, n_shards)
+    parts: Dict[str, list] = {}
+    for leaf, (dt, _, _) in zip(_leaves(tree), spec.infos):
+        parts.setdefault(dt, []).append(leaf.reshape(-1))
+    flats = {}
+    for dt, chunks in parts.items():
+        orig, padded = spec.sizes[dt]
+        if padded != orig:
+            chunks.append(chunks[0].new_zeros(padded - orig))
+        flats[dt] = chunks[0] if len(chunks) == 1 else torch.cat(chunks)
+    return flats, spec
+
+
+def dp_unravel(flats: Dict[str, torch.Tensor], spec: DpFlatSpec):
+    """Inverse of :func:`dp_ravel` (padding dropped). Only offsets and
+    shapes are read, so vectors padded for another shard count unravel
+    too."""
+    leaves = [flats[dt][off:off + math.prod(shape)].reshape(shape)
+              for dt, off, shape in spec.infos]
+    return _unflatten(spec.structure, iter(leaves))
 
 _ADAM_LIKE = {"learning_rate": 1e-3, "beta1": 0.9, "beta2": 0.999,
               "epsilon": 1e-8}

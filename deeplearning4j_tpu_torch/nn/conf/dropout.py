@@ -23,18 +23,33 @@ from typing import Dict
 import torch
 
 from deeplearning4j_tpu_torch.common.rng import RngKey
+from deeplearning4j_tpu_torch.parallel.mesh import current_replica
 
 
-def _keep_mask(shape, p: float, rng: RngKey, device) -> torch.Tensor:
+def _rows(shape, batch: bool, draw):
+    """``draw(shape)``; for an activation (``batch``) in a data-parallel
+    step, this replica's rows of the global batch's draw, so N replicas
+    draw what one replica draws for the whole batch."""
+    replica = current_replica() if batch else None
+    if replica is None or replica.size == 1 or not len(shape):
+        return draw(tuple(shape))
+    b = int(shape[0])
+    full = draw((b * replica.size, *shape[1:]))
+    return full[replica.rank * b:(replica.rank + 1) * b]
+
+
+def _keep_mask(shape, p: float, rng: RngKey, device,
+               batch: bool = False) -> torch.Tensor:
     """Bernoulli(p) keep decisions: ``uniform < p``, as jax.random's
     bernoulli draws them."""
-    return torch.rand(shape, generator=rng.generator(device),
-                      device=device) < p
+    return _rows(shape, batch, lambda s: torch.rand(
+        s, generator=rng.generator(device), device=device) < p)
 
 
-def _normal(shape, dtype, rng: RngKey, device) -> torch.Tensor:
-    return torch.randn(shape, generator=rng.generator(device),
-                       dtype=dtype, device=device)
+def _normal(shape, dtype, rng: RngKey, device,
+            batch: bool = False) -> torch.Tensor:
+    return _rows(shape, batch, lambda s: torch.randn(
+        s, generator=rng.generator(device), dtype=dtype, device=device))
 
 
 class IDropout:
@@ -69,7 +84,7 @@ class Dropout(IDropout):
     p: float = 0.5
 
     def noise(self, x, rng):
-        return _keep_mask(x.shape, self.p, rng, x.device)
+        return _keep_mask(x.shape, self.p, rng, x.device, batch=True)
 
     def apply_noise(self, x, noise):
         return torch.where(noise, x / self.p, 0.0)
@@ -82,7 +97,7 @@ class GaussianDropout(IDropout):
     rate: float = 0.1
 
     def noise(self, x, rng):
-        return _normal(x.shape, x.dtype, rng, x.device)
+        return _normal(x.shape, x.dtype, rng, x.device, batch=True)
 
     def apply_noise(self, x, noise):
         stddev = (self.rate / (1.0 - self.rate)) ** 0.5
@@ -96,7 +111,7 @@ class GaussianNoise(IDropout):
     stddev: float = 0.1
 
     def noise(self, x, rng):
-        return _normal(x.shape, x.dtype, rng, x.device)
+        return _normal(x.shape, x.dtype, rng, x.device, batch=True)
 
     def apply_noise(self, x, noise):
         return x + self.stddev * noise
@@ -114,7 +129,7 @@ class AlphaDropout(IDropout):
     _SCALE = 1.0507009873554805
 
     def noise(self, x, rng):
-        return _keep_mask(x.shape, self.p, rng, x.device)
+        return _keep_mask(x.shape, self.p, rng, x.device, batch=True)
 
     def apply_noise(self, x, noise):
         ap = -self._ALPHA * self._SCALE
@@ -133,7 +148,7 @@ class SpatialDropout(IDropout):
 
     def noise(self, x, rng):
         shape = (x.shape[0],) + (1,) * (x.dim() - 2) + (x.shape[-1],)
-        return _keep_mask(shape, self.p, rng, x.device)
+        return _keep_mask(shape, self.p, rng, x.device, batch=True)
 
     def apply_noise(self, x, noise):
         return torch.where(noise, x / self.p, 0.0)

@@ -426,19 +426,23 @@ class BatchNormalization(Layer):
             bn_forward_math, bn_train_normalize, fused_bn_bwd_enabled)
         from deeplearning4j_tpu_torch.ops.conv_epilogue import \
             maybe_fused_bn_train
+        from deeplearning4j_tpu_torch.parallel.mesh import current_replica
         gamma, beta = params["gamma"], params["beta"]
+        # a data-parallel step's statistics are the global batch's
+        replica = current_replica()
         act_done = False
         if fused_bn_bwd_enabled(x.device):
-            out, mean, var = bn_train_normalize(x, gamma, beta, self.eps)
+            out, mean, var = bn_train_normalize(x, gamma, beta, self.eps,
+                                                replica)
         else:
             fused = maybe_fused_bn_train(x, gamma, beta, self.eps,
-                                         self.activation)
+                                         self.activation, replica)
             if fused is not None:
                 out, mean, var = fused
                 act_done = True
             else:
                 out, mean, var, _ = bn_forward_math(x, gamma, beta,
-                                                    self.eps)
+                                                    self.eps, replica)
         d = self.decay
         with torch.no_grad():
             new_state = {

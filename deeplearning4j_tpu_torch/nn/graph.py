@@ -2,7 +2,8 @@
 
 Counterpart of ``deeplearning4j_tpu/nn/graph.py`` on one device:
 ``init``, the topo-ordered walk of ``_forward`` (without tensor
-parallelism, fsdp or features masks), ``output``, ``evaluate`` /
+parallelism, fsdp or features masks, which ``fit``, ``score`` and
+``evaluate`` refuse), ``output``, ``evaluate`` /
 ``evaluate_regression``, and training: ``fit(x, y)``,
 ``fit(DataSet)``, ``fit(iterator)``, ``score()``, listeners, gradient
 accumulation and the dense update tail (``nn/trainer.py``). PyTorch
@@ -80,6 +81,15 @@ def as_device_tensor(x, dtype: torch.dtype, device) -> torch.Tensor:
     if t.is_floating_point():
         t = t.to(dtype)
     return t.to(device)
+
+
+def _refuse_features_mask(ds) -> None:
+    masks = getattr(ds, "features_masks", None) or [
+        getattr(ds, "features_mask", None)]
+    if any(m is not None for m in masks):
+        raise NotImplementedError(
+            "features masks in a ComputationGraph are not ported yet "
+            "(ROADMAP.md, Queue A item 15)")
 
 
 class ComputationGraph(Trainable):
@@ -278,8 +288,11 @@ class ComputationGraph(Trainable):
     def _split(self, data, labels):
         """(inputs, labels, labels masks) as tensors on the device, from
         ``(x, y)`` (arrays, tensors or lists of them) or a DataSet /
-        MultiDataSet."""
+        MultiDataSet. A features mask is refused: ``fit`` and ``score``
+        would treat the padded steps as real data (ROADMAP item 15
+        ports the masks)."""
         if labels is None:
+            _refuse_features_mask(data)
             feats, labs = data.features, data.labels
             lmasks = getattr(data, "labels_masks", None)
             if lmasks is None and getattr(data, "labels_mask",
@@ -298,7 +311,7 @@ class ComputationGraph(Trainable):
 
     def _loss(self, params, states, inputs, labels, lmasks, fmask=None, *,
               training: bool, rng=None):
-        # ``fmask`` is always None: ``_split`` carries no features mask
+        # ``fmask`` is always None: ``_split`` refuses features masks
         acts, new_states = self._forward(params, states, inputs,
                                          training=training, rng=rng,
                                          want_logits=True)
@@ -319,11 +332,7 @@ class ComputationGraph(Trainable):
         if hasattr(iterator, "reset"):
             iterator.reset()
         for ds in iterator:
-            if getattr(ds, "features_mask", None) is not None or \
-                    getattr(ds, "features_masks", None):
-                raise NotImplementedError(
-                    "features masks in a ComputationGraph are not "
-                    "ported yet")
+            _refuse_features_mask(ds)
             feats = ds.features if isinstance(ds.features, list) \
                 else [ds.features]
             out = self.output(*feats)

@@ -41,6 +41,26 @@ and when the window size changes (``flush_accumulated``).
 
 Learning-rate schedules see ``iteration`` (or, under accumulation, the
 updates applied) and ``epoch_count``.
+
+``fit(iterator)`` stages the batches through
+``datasets/prefetch.maybe_device_prefetch``: a feeder thread runs the
+ETL and copies each batch to the device ahead of the step, as the JAX
+package's fit funnels do (``DL4J_TORCH_DEVICE_PREFETCH=0`` turns it
+off; the trajectories are the same bits either way).
+
+Data parallelism (``set_dp_mesh``, the JAX package's): the model is one
+replica of a mesh (``parallel/mesh.py``) and trains on its shard of the
+global batch. Its training forward runs with the replica current
+(``replica_scope``), so BatchNormalization takes its statistics over the
+global batch. Its loss is its own rows' mean loss plus the
+regularization; the update exchange (``parallel/zero.py``) applies the
+mean of the replicas' gradients, so the regularization counts once, and
+the score is the replicas' mean loss. The dense exchange all-reduces the
+gradients before the per-key update tail; the sharded one (ZeRO-1)
+replaces that tail with the flat reduce-scatter / update / all-gather of
+``zero.apply_update_sharded``, each replica holding 1/N of the updater
+state. Under accumulation the exchange runs once a window, on the mean
+gradient.
 """
 from __future__ import annotations
 
@@ -49,10 +69,15 @@ from typing import Dict, List, Optional
 import torch
 
 from deeplearning4j_tpu_torch.common.rng import RngKey
+from deeplearning4j_tpu_torch.datasets.prefetch import maybe_device_prefetch
 from deeplearning4j_tpu_torch.nn.conf.constraints import apply_constraints
 from deeplearning4j_tpu_torch.nn.gradient import \
     apply_gradient_normalization
 from deeplearning4j_tpu_torch.optimize.listeners import TrainingListener
+from deeplearning4j_tpu_torch.parallel import zero
+from deeplearning4j_tpu_torch.parallel.mesh import (Replica,
+                                                    canonical_device,
+                                                    replica_scope)
 
 _Tree = Dict[str, Dict[str, torch.Tensor]]
 
@@ -75,6 +100,8 @@ class Trainable:
         self._accum_grads: Optional[_Tree] = None
         self._accum_count = 0
         self._updates_applied = 0
+        self._replica: Optional[Replica] = None
+        self._dp_mode: Optional[zero.UpdateExchange] = None
 
     def _next_key(self) -> RngKey:
         """This step's random key; the stream advances."""
@@ -125,6 +152,8 @@ class Trainable:
             for _ in range(n_epochs):
                 self._fit_batch(*self._split(data, labels))
             return self
+        data = maybe_device_prefetch(data, device=self.device,
+                                     dtype=self._dtype)
         for _ in range(n_epochs):
             for lis in self.listeners:
                 lis.on_epoch_start(self)
@@ -172,7 +201,9 @@ class Trainable:
         self._batch_done(inputs)
 
     def _batch_done(self, inputs: List[torch.Tensor]) -> None:
-        self.last_batch_size = int(inputs[0].shape[0])
+        # the global batch: every replica of a mesh takes an equal shard
+        self.last_batch_size = int(inputs[0].shape[0]) * (
+            self._replica.size if self._replica is not None else 1)
         for lis in self.listeners:
             lis.iteration_done(self, self.iteration_count - 1,
                                self.epoch_count)
@@ -185,14 +216,14 @@ class Trainable:
         leaves = {k: {n: t.detach().requires_grad_(True)
                       for n, t in sub.items()}
                   for k, sub in self.params.items()}
-        with torch.enable_grad():
+        flat = [(k, n, t) for k, sub in leaves.items()
+                for n, t in sub.items()]
+        with replica_scope(self._replica), torch.enable_grad():
             loss, new_states = self._loss(leaves, states, inputs, labels,
                                           lmasks, fmask, training=True,
                                           rng=self._next_key())
-        flat = [(k, n, t) for k, sub in leaves.items()
-                for n, t in sub.items()]
-        grads_flat = torch.autograd.grad(loss, [t for _, _, t in flat],
-                                         allow_unused=True)
+            grads_flat = torch.autograd.grad(
+                loss, [t for _, _, t in flat], allow_unused=True)
         grads: _Tree = {}
         for (k, n, t), g in zip(flat, grads_flat):
             grads.setdefault(k, {})[n] = (g if g is not None
@@ -210,7 +241,7 @@ class Trainable:
                                               lmasks, fmask)
         with torch.no_grad():
             self._update_tail(grads, self.iteration_count)
-        self._score = loss
+        self._score = self._mean_loss(loss)
         self.iteration_count += 1
         return new_states
 
@@ -250,7 +281,7 @@ class Trainable:
         self._accum_count += 1
         if self._accum_count >= self._accum_steps:
             self._apply_accumulated()
-        self._score = loss
+        self._score = self._mean_loss(loss)
         self.iteration_count += 1
         return new_states
 
@@ -265,6 +296,10 @@ class Trainable:
         self._updates_applied += 1
 
     def _update_tail(self, grads: _Tree, iteration: int) -> None:
+        if self._dp_mode is zero.UpdateExchange.SHARDED:
+            return self._update_tail_sharded(grads, iteration)
+        if self._replica is not None:
+            grads = self._mean_over_replicas(grads)
         conf = self.conf
         for key in self._keys():
             g = grads.get(key)
@@ -278,11 +313,102 @@ class Trainable:
             p = self.params[key]
             for n, u in updates.items():
                 p[n].sub_(u)
-            layer = self._layer(key)
-            if layer is not None:
-                for n, t in apply_constraints(layer, p).items():
-                    if t is not p[n]:
-                        p[n].copy_(t)
+            self._constrain(key)
+            self.updater_states[key] = us
+
+    def _constrain(self, key: str) -> None:
+        layer = self._layer(key)
+        if layer is None:
+            return
+        p = self.params[key]
+        for n, t in apply_constraints(layer, p).items():
+            if t is not p[n]:
+                p[n].copy_(t)
+
+    # -- data parallelism --------------------------------------------------
+    def set_dp_mesh(self, mesh, axis: str = "data", mode=None):
+        """Bind this model to a data-parallel replica, or unbind it with
+        ``mesh=None``. ``mesh`` is a ``parallel.mesh.Replica``, or a mesh
+        with one replica in this process (a ``ProcessGroupMesh``).
+        ``mode`` None or ``"sharded"`` selects the ZeRO-1 tail (the
+        updater state converts to this replica's 1/N of the flat
+        layout), ``"dense"`` the all-reduce tail; ``"auto"`` resolves as
+        ``zero.resolve_update_exchange`` does. Leaving the sharded tail
+        gathers the state back to the dense layout, a collective every
+        replica of the mesh takes part in."""
+        if axis != "data":
+            raise NotImplementedError(
+                f"axis {axis!r}: only the data axis is ported (ROADMAP "
+                f"item 12)")
+        replica = mesh
+        if mesh is not None and not isinstance(mesh, Replica):
+            local = mesh.local_replicas()
+            if len(local) != 1:
+                raise ValueError(
+                    f"{type(mesh).__name__} holds {len(local)} replicas in "
+                    f"this process: bind each replica's model to its own "
+                    f"mesh.replica(rank)")
+            replica = local[0]
+        if replica is not None:
+            requested = zero.parse_update_exchange(mode or "sharded")
+            if requested is zero.UpdateExchange.AUTO:
+                mode = zero.resolve_update_exchange(replica.mesh, axis,
+                                                    requested, self)
+            elif requested in (zero.UpdateExchange.FSDP,
+                               zero.UpdateExchange.ENCODED):
+                raise zero.unported(requested)
+            else:
+                mode = requested
+            if canonical_device(replica.device) != \
+                    canonical_device(self.device):
+                raise ValueError(f"replica {replica} is on "
+                                 f"{replica.device}, the model on "
+                                 f"{self.device}")
+        self.flush_accumulated()
+        if self._dp_mode is zero.UpdateExchange.SHARDED:
+            self.updater_states = zero.states_to_dense(
+                self.params, {k: zero.gather_state(s, self._replica)
+                              for k, s in self.updater_states.items()})
+        self._replica = replica
+        self._dp_mode = mode if replica is not None else None
+        if self._dp_mode is zero.UpdateExchange.SHARDED:
+            n = replica.size
+            self.updater_states = {
+                k: zero.shard_state(s, replica.rank, n) for k, s in
+                zero.states_to_sharded(self.params, self.updater_states,
+                                       n).items()}
+        return self
+
+    def _mean_loss(self, loss: torch.Tensor) -> torch.Tensor:
+        """The replicas' mean loss (the loss itself without a mesh)."""
+        if self._replica is None:
+            return loss
+        n = self._replica.size
+        return self._replica.all_reduce_sum(loss.reshape(1))[0] / n
+
+    def _mean_over_replicas(self, grads: _Tree) -> _Tree:
+        """The dense exchange: the mean of the replicas' gradients, one
+        all-reduce a dtype over the raveled tree."""
+        from deeplearning4j_tpu_torch.learning.updaters import (dp_ravel,
+                                                                dp_unravel)
+        n = self._replica.size
+        flats, spec = dp_ravel(grads, 1)
+        return dp_unravel({k: self._replica.all_reduce_sum(f.contiguous())
+                           / n for k, f in flats.items()}, spec)
+
+    def _update_tail_sharded(self, grads: _Tree, iteration: int) -> None:
+        for key in self._keys():
+            g = grads.get(key)
+            if not g:
+                continue
+            new_p, us = zero.apply_update_sharded(
+                self._updater(key), g, self.params[key],
+                self.updater_states[key], iteration, self._replica,
+                epoch=self.epoch_count)
+            p = self.params[key]
+            for n, t in new_p.items():
+                p[n].copy_(t)
+            self._constrain(key)
             self.updater_states[key] = us
 
     # ------------------------------------------------------------------

@@ -15,6 +15,17 @@ the mean and variance cotangents, as ``_bn_bwd_raw`` folds them.
 carries them; its forward is :func:`bn_forward_math`, the one training
 forward shared with the layer's plain path.
 
+Data parallelism: with a ``replica`` (``parallel/mesh.py``) the batch
+statistics are the global batch's, as in the JAX package's one
+global-view program over the data axis. The local Σx and Σx² (kernel 3,
+or the one-pass f32 sums of 16-bit activations) are all-reduced before
+the mean and variance are formed; the two-pass f32 route takes two
+rounds (the global mean, then the global Σ(x − mean)²). In the backward
+Σdy and Σdy·x̂ (kernel 5) are all-reduced before kernel 6 runs with the
+global row count; dγ and dβ stay this replica's own sums, which the
+update exchange adds up with the other gradients. The kernels are
+unchanged: the collectives sit between them.
+
 The backward rides the ``bn_bwd`` family of ``ops/kernel_select.py``
 (``DL4J_TORCH_FUSED_BN_BWD``, ``Environment.extra["fused_bn_bwd"]``):
 the auto rung takes it on the card and leaves the CPU to autograd of the
@@ -30,6 +41,7 @@ import torch
 
 from deeplearning4j_tpu_torch.ops import conv_epilogue as ce
 from deeplearning4j_tpu_torch.ops import cuda_build, kernel_select
+from deeplearning4j_tpu_torch.parallel.mesh import all_reduce_sum
 
 _SOURCE = "deeplearning4j_tpu_torch/csrc/bn_train.cu"
 BN_BWD_SUMS = cuda_build.register(cuda_build.Kernel(
@@ -139,26 +151,34 @@ def bn_bwd_dx(x2d: torch.Tensor, dy2d: torch.Tensor, a: torch.Tensor,
 # the training forward and the fused backward
 # ---------------------------------------------------------------------------
 def bn_forward_math(x: torch.Tensor, gamma: torch.Tensor,
-                    beta: torch.Tensor, eps: float):
+                    beta: torch.Tensor, eps: float, replica=None):
     """The training-mode BN forward, ``(y, mean, var, rstd)``.
 
     Statistics policy, as in the JAX package: with the ``bn_fwd`` ladder
     admitting the site, one pass (``channel_stats``: E[x²] − mean²),
     then the normalize as one epilogue pass. Otherwise one pass with f32
     accumulation for bf16/f16 activations and the two-pass mean-then-var
-    form for f32 and wider, and ``x·scale + bias`` as plain math."""
+    form for f32 and wider, and ``x·scale + bias`` as plain math. With a
+    data-parallel ``replica`` the statistics are the global batch's."""
     acc = torch.promote_types(x.dtype, torch.float32)
     dims = tuple(range(x.dim() - 1))
     fwd_sel = ce.select_bn_forward(x.shape, x.dtype, training=True,
                                    device=x.device)
+    n = x.numel() // x.shape[-1] * (replica.size if replica else 1)
     if fwd_sel.fused:
         x = ce.contiguous(x)
-        mean, var = ce.channel_stats(x)
+        mean, var = ce.channel_stats(x, replica)
     elif x.dtype in (torch.bfloat16, torch.float16):
         xf = x.to(acc)
-        n = x.numel() // x.shape[-1]
-        mean = xf.sum(dims) / n
-        var = torch.clamp((xf * xf).sum(dims) / n - mean * mean, min=0.0)
+        sums = torch.stack([xf.sum(dims), (xf * xf).sum(dims)])
+        if replica is not None:
+            sums = all_reduce_sum(sums, replica)
+        mean = sums[0] / n
+        var = torch.clamp(sums[1] / n - mean * mean, min=0.0)
+    elif replica is not None and replica.size > 1:
+        # (one replica's statistics are its own: the form below)
+        mean = all_reduce_sum(x.sum(dims), replica) / n
+        var = all_reduce_sum(((x - mean) ** 2).sum(dims), replica) / n
     else:
         var, mean = torch.var_mean(x, dims, correction=0)
     rstd = torch.rsqrt(var + eps)
@@ -173,14 +193,16 @@ def bn_forward_math(x: torch.Tensor, gamma: torch.Tensor,
 
 class _BnTrainNormalize(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, gamma, beta, eps):
-        y, mean, var, rstd = bn_forward_math(x, gamma, beta, eps)
+    def forward(ctx, x, gamma, beta, eps, replica):
+        y, mean, var, rstd = bn_forward_math(x, gamma, beta, eps, replica)
+        ctx.replica = replica
         ctx.save_for_backward(ce.contiguous(x), gamma, mean, rstd)
         return y, mean, var
 
     @staticmethod
     def backward(ctx, dy, dmean_ct, dvar_ct):
         x, gamma, mean, rstd = ctx.saved_tensors
+        replica = ctx.replica
         acc = torch.promote_types(x.dtype, torch.float32)
         C = x.shape[-1]
         M = x.numel() // C
@@ -188,22 +210,29 @@ class _BnTrainNormalize(torch.autograd.Function):
         dy2d = ce.contiguous(dy).reshape(M, C)
         mu, r = mean.to(acc), rstd.to(acc)
         sdy, sdyx = bn_bwd_sums(x2d, dy2d, mu, r)
+        dmean_g, dvar_g = dmean_ct.to(acc), dvar_ct.to(acc)
+        sdy_g, sdyx_g, m_g = sdy, sdyx, M
+        if replica is not None:
+            # the global batch's sums and cotangents; dγ, dβ stay local
+            sdy_g, sdyx_g, dmean_g, dvar_g = replica.all_reduce_sum(
+                torch.stack([sdy, sdyx, dmean_g, dvar_g]))
+            m_g = M * replica.size
         g = gamma.to(acc)
-        inv_m = 1.0 / M
+        inv_m = 1.0 / m_g
         # dx = γr·(dy − Σdy/M − x̂·Σdy·x̂/M) plus the mean/var cotangent
         # terms, rearranged into dx = A·dy + D·x + E
         a_coef = g * r
-        d_coef = -g * r * r * (sdyx * inv_m) \
-            + 2.0 * dvar_ct.to(acc) * inv_m
-        e_coef = (-a_coef * (sdy * inv_m)
-                  + dmean_ct.to(acc) * inv_m
+        d_coef = -g * r * r * (sdyx_g * inv_m) + 2.0 * dvar_g * inv_m
+        e_coef = (-a_coef * (sdy_g * inv_m)
+                  + dmean_g * inv_m
                   - d_coef * mu)
         dx = bn_bwd_dx(x2d, dy2d, a_coef, d_coef, e_coef).reshape(x.shape)
-        return dx, sdyx.to(gamma.dtype), sdy.to(gamma.dtype), None
+        return dx, sdyx.to(gamma.dtype), sdy.to(gamma.dtype), None, None
 
 
 def bn_train_normalize(x: torch.Tensor, gamma: torch.Tensor,
-                       beta: torch.Tensor, eps: float):
-    """Training-mode BN normalize with batch statistics, ``(y, mean,
-    var)``, whose backward is the two-pass fused kernel pair."""
-    return _BnTrainNormalize.apply(x, gamma, beta, eps)
+                       beta: torch.Tensor, eps: float, replica=None):
+    """Training-mode BN normalize with batch statistics (the global
+    batch's with a data-parallel ``replica``), ``(y, mean, var)``, whose
+    backward is the two-pass fused kernel pair."""
+    return _BnTrainNormalize.apply(x, gamma, beta, eps, replica)

@@ -467,11 +467,45 @@ class _ChannelStats(torch.autograd.Function):
                                        shift.contiguous(), "identity")
 
 
-def channel_stats(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+class _DpChannelStats(torch.autograd.Function):
+    """``_ChannelStats`` over a data-parallel mesh's global batch: the
+    local sums all-reduced before the mean and variance are formed, the
+    cotangents all-reduced before the epilogue forms dx."""
+
+    @staticmethod
+    def forward(ctx, x, replica):
+        C = x.shape[-1]
+        M = x.numel() // C * replica.size
+        sums = replica.all_reduce_sum(channel_sums(x.reshape(-1, C)))
+        mean = sums[0] / M
+        var = torch.clamp(sums[1] / M - mean * mean, min=0.0)
+        ctx.replica = replica
+        ctx.save_for_backward(x, mean)
+        return mean, var
+
+    @staticmethod
+    def backward(ctx, dmean, dvar):
+        x, mean = ctx.saved_tensors
+        replica = ctx.replica
+        inv_m = 1.0 / (x.numel() // x.shape[-1] * replica.size)
+        cts = replica.all_reduce_sum(torch.stack(
+            [dmean.to(mean.dtype), dvar.to(mean.dtype)]))
+        dv = cts[1]
+        scale = 2.0 * dv * inv_m
+        shift = (cts[0] - 2.0 * mean * dv) * inv_m
+        return scale_shift_act_forward(x, scale.contiguous(),
+                                       shift.contiguous(), "identity"), None
+
+
+def channel_stats(x: torch.Tensor, replica=None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-channel ``(mean, var)`` over every leading axis, var the
     biased batch variance ``E[x²] − mean²`` clamped at 0, from one read
     of x (``channel_sums``). Differentiable: the backward is the
-    epilogue with identity."""
+    epilogue with identity. With a data-parallel ``replica``
+    (``parallel/mesh.py``) the statistics are the global batch's."""
+    if replica is not None:
+        return _DpChannelStats.apply(contiguous(x), replica)
     return _ChannelStats.apply(contiguous(x))
 
 
@@ -604,11 +638,13 @@ def conv_forward(x: torch.Tensor, w: torch.Tensor, *,
 
 
 def maybe_fused_bn_train(x: torch.Tensor, gamma: torch.Tensor,
-                         beta: torch.Tensor, eps: float, activation
+                         beta: torch.Tensor, eps: float, activation,
+                         replica=None
                          ) -> Optional[Tuple[torch.Tensor, torch.Tensor,
                                              torch.Tensor]]:
     """Training-mode BN forward on the epilogue family: channel
-    statistics, then the normalize with the activation streamed in.
+    statistics (the global batch's with a data-parallel ``replica``),
+    then the normalize with the activation streamed in.
     Returns ``(y, mean, var)`` with the activation applied, or None when
     the ``bn_fwd`` ladder demotes the site (the caller runs the plain
     math). Used when the fused BN backward is off; with it on,
@@ -620,7 +656,7 @@ def maybe_fused_bn_train(x: torch.Tensor, gamma: torch.Tensor,
     _fused_steps.inc(site="bn_train")
     acc = _acc(x.dtype)
     x = contiguous(x)
-    mean, var = channel_stats(x)
+    mean, var = channel_stats(x, replica)
     rstd = torch.rsqrt(var + eps)
     scale = gamma.to(acc) * rstd
     shift = beta.to(acc) - mean * scale

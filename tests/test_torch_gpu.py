@@ -864,3 +864,56 @@ def test_two_accumulated_halves_equal_one_full_batch_on_the_card():
                        for k, sub in p0.items() for n, t in sub.items()])
     assert float(d_full.norm()) > 0
     assert float((d_acc - d_full).norm() / d_full.norm()) <= 1e-5
+
+
+@pytest.mark.gpu
+def test_staged_and_data_parallel_fits_equal_plain_fit_on_the_card(
+        monkeypatch):
+    """A small ResNet-50 (two stages, 32x32): ``fit(iterator)`` with the
+    device prefetcher on and off, and ``ParallelWrapper`` with one
+    worker, give the same bits on the card, each running kernels 3, 1, 5
+    and 6 at every BatchNormalization a step."""
+    _need_card()
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.common.environment import Environment
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.datasets.iterators import \
+        ListDataSetIterator
+    from deeplearning4j_tpu_torch.models.zoo import ResNet50
+    from deeplearning4j_tpu_torch.nn.conf.layers import BatchNormalization
+    from deeplearning4j_tpu_torch.ops import bn_train
+    from deeplearning4j_tpu_torch.parallel.wrapper import ParallelWrapper
+    kw = dict(STAGES=((1, 8), (1, 16)), height=32, width=32,
+              num_classes=10)
+    # cuDNN's own algorithm choice must not add run-to-run noise
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    r = np.random.RandomState(0)
+    data = [DataSet(r.randn(8, 32, 32, 3).astype(np.float32),
+                    np.eye(10, dtype=np.float32)[r.randint(0, 10, 8)])
+            for _ in range(3)]
+    nets = []
+    for how in ("staged", "unstaged", "wrapper"):
+        monkeypatch.setenv("DL4J_TORCH_DEVICE_PREFETCH",
+                           "0" if how == "unstaged" else "1")
+        Environment.reset()
+        net = ResNet50(**kw).init("cuda")
+        n0 = bn_train.BN_BWD_DX.launches
+        if how == "wrapper":
+            ParallelWrapper.Builder(net).workers(1).build().fit(
+                ListDataSetIterator(data))
+        else:
+            net.fit(ListDataSetIterator(data))
+        torch.cuda.synchronize()
+        sites = sum(isinstance(v.content, BatchNormalization)
+                    for v in net.conf.vertices.values())
+        assert bn_train.BN_BWD_DX.launches - n0 == 3 * sites
+        nets.append(net)
+    Environment.reset()
+    for other in nets[1:]:
+        for k, sub in nets[0].params.items():
+            for n, t in sub.items():
+                assert torch.equal(t, other.params[k][n]), f"{k}/{n}"
+        for k, sub in nets[0].states.items():
+            for n, t in sub.items():
+                assert torch.equal(t, other.states[k][n]), f"{k}/{n}"
