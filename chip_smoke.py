@@ -7,9 +7,10 @@ GPT-2-small-width decoder, serving and training SqueezeNet (dropout on,
 a learning-rate schedule, gradient accumulation), the bundled
 checkpoints held to their quality gates, training the GravesLSTM
 char-RNN (BASELINE config #3), BERT-base imported from a frozen
-TensorFlow GraphDef into SameDiff (BASELINE config #4), and ResNet-50
+TensorFlow GraphDef into SameDiff (BASELINE config #4), ResNet-50
 through the data-parallel entry points, staged by the device prefetcher
-(BASELINE config #5 on one card).
+(BASELINE config #5 on one card), and a masked attention classifier at
+BERT-base widths built from DL4J layers in a ComputationGraph.
 
 Run from the root of a checkout, with no arguments, on a machine with
 one NVIDIA H100 (it fails without a card, and without the package):
@@ -67,13 +68,18 @@ Phases, each of which fails the run (exit 1) when its check fails:
    sequence, t=512), two causal cases (t=256, and t=512 with padded
    masks), an odd one (t=200, d=32) and two causal ones with padded
    masks over several tiles (tq=200 > tk=130 at d=64; t=190 at d=96),
-   f32, bf16 and f16: within the
-   reference's bars, bitwise across two launches, fully masked rows
-   exactly 0, no NaN; then each kernel's time over the 12 sites of a
-   step (CUDA-graph replay) in each dtype beside its bound, its plain
-   version and one library call (``F.scaled_dot_product_attention`` for
-   7; ``_scaled_dot_product_efficient_attention_backward``, which
-   computes 8 and 9 together, for the pair);
+   and the attention layers' few queries (tq = 1 and 4 against 128 keys,
+   ragged masks with one fully masked sequence), f32, bf16 and f16;
+   past d = 256 (d = 768, an unprojected attention layer's head, and a
+   causal d = 300) in those and f64, and f64 at a BERT-base site (the
+   wide bodies): within the reference's bars (f64: 1e-10), bitwise
+   across two launches, fully masked rows exactly 0, no NaN; then each
+   kernel's time over the 12 sites of a step (CUDA-graph replay) in
+   each dtype, over 12 sites at tq = 1 and 4, and over 12 sites of head
+   dim 768 (f32, bf16, f64), beside its bound, its plain version and
+   one library call (``F.scaled_dot_product_attention`` for 7;
+   ``_scaled_dot_product_efficient_attention_backward``, which computes
+   8 and 9 together, for the pair);
 10. BERT serving: full-width BERT-base (seeded weights) at batch 32,
     ``Bert.output`` and ``BertForSequenceClassification.predict`` at
     t=128 with padded masks and ``Bert.output`` at t=512, counts reset
@@ -209,6 +215,38 @@ Phases, each of which fails the run (exit 1) when its check fails:
     host: its step time is no DP rate); (d) a
     one-rank NCCL group through ``SharedTrainingMaster``, 10 steps,
     bitwise equal to (b), ms a step and img/s.
+20. attention graph: (a) a masked text classifier at BERT-base widths
+    built with ``GraphBuilder`` (seeded): tokens [32, 128] ->
+    EmbeddingSequenceLayer(30522 -> 768) -> 2 x (SelfAttentionLayer(768,
+    12 heads) + a residual ElementWiseVertex add) ->
+    LearnedSelfAttentionLayer(768, 12 heads, 1 query) -> OutputLayer(2)
+    behind an RnnToFeedForwardPreProcessor, 30.5 M parameters; features
+    masks from lengths in [16, 128] (one of 128, one of 16); 10 masked
+    ``fit`` steps, Adam(1e-3), in f32 and then with bf16
+    ``compute_dtype`` from the same weights (3 launches each of kernels
+    7, 8 and 9 a step; the loss falls; ms a step, sequences/s, the idle
+    share and device kernels a step); ``fit_steps(ds, 10)`` on the
+    unmasked batch == 10 ``fit`` calls bit for bit (deterministic
+    algorithms on: the embedding's backward accumulates with atomics
+    otherwise); ``output(..., mask=)`` against the plain route
+    (``flash_attention`` gate 0) within ``ATTN_FWD_RTOL`` /
+    ``ATTN_FWD_ATOL``, ``score``, ``evaluate`` and ``predict`` on the
+    masked batch, a padded row's answer bitwise independent of its
+    padded tokens; one f32 Sgd step at 2 attention layers, batch 2, card
+    against CPU (TF32 off), each parameter's update held to
+    ``train_card_vs_cpu``'s bars against its own CPU reading; (b)
+    RecurrentAttentionLayer(768, 12 heads) over the same embedded batch:
+    one masked forward (128 launches of kernel 7), one training step
+    (128 each of 7, 8 and 9), its activations and the head's logits
+    within ``ATTN_FWD_RTOL`` / ``RATT_ATOL`` of the plain route; (b')
+    SelfAttentionLayer(project_input=False) over the batch's 768
+    features, a head dim of 768 (the kernels' wide bodies): one masked
+    forward and backward, one launch of each kernel, output and input
+    gradient against the plain route; (c) the char-RNN of phase 17 as a ComputationGraph with
+    TRUNCATED_BPTT segments of 16 (4 iterations a batch), within
+    ``GRAPH_MLN_ATOL`` of the layer stack of the same configuration and
+    weights, and ``rnn_time_step`` over its 64 steps against ``output``
+    (1e-5).
 
 Then one JSON line of kernel records (each kernel's times from its own
 timing phase, its launches from the path that carries it), the
@@ -1767,17 +1805,27 @@ FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 #: their type (2^-8 for bf16), as in tests/test_torch_gpu.py
 FLASH_TOL = {"float32": ((2e-5, 2e-5), (2e-4, 2e-5)),
              "bfloat16": ((2e-2, 2e-2), (2e-2, 2e-2)),
-             "float16": ((2e-2, 2e-2), (2e-2, 2e-2))}
+             "float16": ((2e-2, 2e-2), (2e-2, 2e-2)),
+             # f64 sums against the plain version's f64 chain, as in
+             # tests/test_torch_gpu.py
+             "float64": ((1e-10, 1e-12), (1e-10, 1e-12))}
 FLASH_DTYPES = ("float32", "bfloat16", "float16")
+#: H100 SXM published FP64 tensor-core peak (NVIDIA data sheet): the
+#: bound of the wide bodies' float64 sites
+F64_FLOPS = 67e12
 
 
 def _key_mask(torch, g, b: int, t: int, kind: str, device: str):
     """``padded``: lengths from t/2 to t, the first sequence full and the
-    second fully masked; ``none``: no mask."""
+    second fully masked; ``ragged``: lengths from 16 to t (the attention
+    classifier's), the first full and the second fully masked; ``full``:
+    every key kept; ``none``: no mask."""
     if kind == "none":
         return None
-    lengths = torch.randint(t // 2, t + 1, (b,), generator=g,
-                            device=g.device)
+    if kind == "full":
+        return torch.ones(b, t, device=device)
+    low = t // 2 if kind == "padded" else min(16, t)
+    lengths = torch.randint(low, t + 1, (b,), generator=g, device=g.device)
     lengths[0] = t
     if b > 1:
         lengths[1] = 0
@@ -1788,7 +1836,9 @@ def _key_mask(torch, g, b: int, t: int, kind: str, device: str):
 def _flash_check(torch, sq, b, h, tq, tk, d, dt, causal, kind, g, errs):
     """Kernels 7, 8, 9 against their plain versions on one shape:
     tolerances FLASH_TOL, bitwise equal across two launches, no NaN, and
-    the fully masked sequence's output and gradients exactly 0."""
+    the fully masked sequence's output and gradients exactly 0; the
+    largest difference of each kernel goes to ``errs[dtype name]`` where
+    ``errs`` has that dtype."""
     what = f"[{b},{h},{tq},{tk},{d}] {str(dt)[6:]} causal={causal} {kind}"
     q, do = (torch.randn(b, h, tq, d, device="cuda", generator=g).to(dt)
              for _ in range(2))
@@ -1810,6 +1860,7 @@ def _flash_check(torch, sq, b, h, tq, tk, d, dt, causal, kind, g, errs):
                       ("dq", dq, dq2), ("dk", dk, dk2), ("dv", dv, dv2)):
         check(torch.equal(a, a2), f"{nm} {what}: two launches differ")
     (f_rtol, f_atol), (g_rtol, g_atol) = FLASH_TOL[str(dt)[6:]]
+    acc = torch.promote_types(dt, torch.float32)
     for name, pairs, rtol, atol in (
             ("flash_fwd", (("out", out, r_out), ("lse", lse, r_lse)),
              f_rtol, f_atol),
@@ -1817,32 +1868,36 @@ def _flash_check(torch, sq, b, h, tq, tk, d, dt, causal, kind, g, errs):
             ("flash_bwd_dkv", (("dk", dk, r_dk), ("dv", dv, r_dv)),
              g_rtol, g_atol)):
         for nm, got, want in pairs:
-            got, want = got.float(), want.float()
+            got, want = got.to(acc), want.to(acc)
             check(not bool(torch.isnan(got).any()), f"{nm} {what}: NaN")
             err = float((got - want).abs().max())
             check(bool(torch.allclose(got, want, rtol=rtol, atol=atol)),
                   f"{nm} {what}: max |kernel - plain| {err:.3e} beyond "
                   f"rtol {rtol} atol {atol}")
-            if dt == torch.float32:
-                errs[name] = max(errs[name], err)
-    if kind == "padded" and b > 1:
+            if str(dt)[6:] in errs:
+                errs[str(dt)[6:]][name] = max(errs[str(dt)[6:]][name], err)
+    if kind in ("padded", "ragged") and b > 1:
         for nm, t in (("out", out[1]), ("dq", dq[1]), ("dk", dk[1]),
                       ("dv", dv[1])):
             check(not bool(t.any()),
                   f"{nm} {what}: the fully masked sequence is not 0")
 
 
-def _flash_costs(name: str, bh: int, t: int, d: int, esize: int):
+def _flash_costs(name: str, bh: int, tq: int, tk: int, d: int, esize: int,
+                 heads: int = BERT_HEADS):
     """(bytes, operations) of one non-causal site of ``name``: each input
-    read once and each output written once (the key mask and the f32
-    lse/delta rows included); 2 operations a multiply-add."""
-    tile = bh * t * d * esize
-    mask = bh // BERT_HEADS * t * 4
+    read once and each output written once (the f32 key mask and the
+    lse/delta rows, f64 for f64 inputs, included); 2 operations a
+    multiply-add."""
+    q_side, k_side = bh * tq * d * esize, bh * tk * d * esize
+    mask, rows = bh // heads * tk * 4, bh * tq * max(4, esize)
+    ops = bh * tq * tk * d
     if name == "flash_fwd":           # q, k, v -> out, lse
-        return 4 * tile + mask + bh * t * 4, 4 * bh * t * t * d
+        return 2 * q_side + 2 * k_side + mask + rows, 4 * ops
     if name == "flash_bwd_dq":        # q, k, v, dO, lse, delta -> dq
-        return 5 * tile + mask + 2 * bh * t * 4, 6 * bh * t * t * d
-    return 6 * tile + mask + 2 * bh * t * 4, 8 * bh * t * t * d
+        return 3 * q_side + 2 * k_side + mask + 2 * rows, 6 * ops
+    # q, k, v, dO, lse, delta -> dk, dv
+    return 2 * q_side + 4 * k_side + mask + 2 * rows, 8 * ops
 
 
 def _bound(bytes_: int, ops: int, peak: float):
@@ -1851,16 +1906,144 @@ def _bound(bytes_: int, ops: int, peak: float):
                                        else "operations")
 
 
+def _time_flash_sites(torch, sq, dt, tq: int, tk: int, kind: str, g,
+                      names=FLASH_KERNELS, plain: bool = True,
+                      what: str = "", heads: int = BERT_HEADS,
+                      d: int = HEAD_DIM) -> dict:
+    """Each kernel of ``names`` over ``BERT_LAYERS`` distinct sites of
+    ``[BATCH, heads, tq, d]`` queries against ``tk`` keys (CUDA-graph
+    replay), beside its bound, its plain version (with ``plain``) and
+    ``F.scaled_dot_product_attention`` for 7; with the backward kernels,
+    SDPA forward + backward (eager) and, in 16 bit and f32 at d <= 256,
+    ``_scaled_dot_product_efficient_attention_backward`` (8 and 9
+    together), which takes no f64 and which this script does not hold
+    to wider heads."""
+    import torch.nn.functional as F
+    n, short = BERT_LAYERS, str(dt)[6:]
+    esize = torch.tensor([], dtype=dt).element_size()
+    bh = BATCH * heads
+    sites = []
+    for _ in range(n):
+        q, do = (torch.randn(BATCH, heads, tq, d, device="cuda",
+                             generator=g).to(dt) for _ in range(2))
+        k, v = (torch.randn(BATCH, heads, tk, d, device="cuda",
+                            generator=g).to(dt) for _ in range(2))
+        mask = _key_mask(torch, g, BATCH, tk, kind, "cuda")
+        out, lse = sq.flash_forward(q, k, v, mask)
+        sites.append((q, k, v, do, mask, out, lse, sq.flash_delta(out, do),
+                      mask.bool()[:, None, None, :]))
+
+    def run(fn):
+        return lambda: [fn(*s) for s in sites]
+
+    fns = {
+        "flash_fwd": (run(lambda q, k, v, do, m, o, l, dl, bm:
+                          sq.flash_forward(q, k, v, m)),
+                      run(lambda q, k, v, do, m, o, l, dl, bm:
+                          sq.flash_forward_plain(q, k, v, m)),
+                      run(lambda q, k, v, do, m, o, l, dl, bm:
+                          F.scaled_dot_product_attention(
+                              q, k, v, attn_mask=bm))),
+        "flash_bwd_dq": (run(lambda q, k, v, do, m, o, l, dl, bm:
+                             sq.flash_bwd_dq(q, k, v, do, l, dl, m)),
+                         run(lambda q, k, v, do, m, o, l, dl, bm:
+                             sq.flash_dq_plain(q, k, v, do, l, dl, m)),
+                         None),
+        "flash_bwd_dkv": (run(lambda q, k, v, do, m, o, l, dl, bm:
+                              sq.flash_bwd_dkv(q, k, v, do, l, dl, m)),
+                          run(lambda q, k, v, do, m, o, l, dl, bm:
+                              sq.flash_dkv_plain(q, k, v, do, l, dl, m)),
+                          None),
+    }
+    peak = {torch.float32: F32_FLOPS, torch.float64: F64_FLOPS}.get(
+        dt, BF16_FLOPS)
+    res = {}
+    for name in names:
+        kern, plain_fn, lib = fns[name]
+        b_, o_ = _flash_costs(name, bh, tq, tk, d, esize, heads)
+        bound, by = _bound(n * b_, n * o_, peak)
+        k_ms = _graph_ms(torch, kern, reps=3)
+        p_ms = _graph_ms(torch, plain_fn, reps=1) if plain else None
+        l_ms = _graph_ms(torch, lib, reps=3) if lib else None
+        res[name] = {"kernel_ms": k_ms, "plain_ms": p_ms,
+                     "library_ms": l_ms, "bound_ms": bound, "bound_by": by,
+                     "bytes": n * b_, "ops": n * o_, "peak": peak,
+                     "eager_ms": _time_ms(torch, kern, reps=3)}
+        ps = f"{p_ms:.4f}" if p_ms is not None else "not timed"
+        ls = f"{l_ms:.4f}" if l_ms is not None else "none"
+        print(f"[flash] {name} {short} tq={tq} tk={tk} d={d}, {n} sites "
+              f"{what}: kernel {k_ms:.4f} ms, plain {ps} ms, SDPA {ls} ms, "
+              f"bound {bound:.4f} ms ({by}; {n * o_ / 1e9:.2f} GFLOP at "
+              f"{peak / 1e12:.0f} TFLOP/s, {n * b_ / 1e9:.4f} GB), eager "
+              f"{res[name]['eager_ms']:.4f} ms, "
+              f"{n * o_ / k_ms / 1e9:.2f} TFLOP/s achieved")
+    if "flash_bwd_dq" in names and dt != torch.float64 and d <= 256:
+        # one library call for rows 8 + 9 together: the memory-efficient
+        # attention backward on the same inputs (its own forward's out and
+        # log-sum-exp, the key mask as a zero/-inf bias), its forward
+        # excluded
+        eff = torch.ops.aten._scaled_dot_product_efficient_attention
+        eff_bwd = \
+            torch.ops.aten._scaled_dot_product_efficient_attention_backward
+        lib_sites = []
+        for q, k, v, do, m, *_ in sites:
+            bias = torch.zeros_like(m, dtype=dt).masked_fill(
+                m == 0, float("-inf"))[:, None, None, :].expand(
+                    -1, heads, tq, -1)
+            o, lse_e, seed, off = eff(q, k, v, bias, True)
+            lib_sites.append((do, q, k, v, bias, o, lse_e, seed, off))
+
+        def eff_backward():
+            for a in lib_sites:
+                eff_bwd(*a, 0.0, [True, True, True, False])
+        pair_ms = _graph_ms(torch, eff_backward, reps=3)
+        for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+            res[name]["library_ms"] = pair_ms
+            res[name]["library_covers"] = "flash_bwd_dq + flash_bwd_dkv"
+        k89 = sum(res[nm]["kernel_ms"] for nm in FLASH_KERNELS[1:])
+        print(f"[flash] _scaled_dot_product_efficient_attention_backward "
+              f"{short} tq={tq} tk={tk}, {n} sites (dq, dk, dv together): "
+              f"{pair_ms:.4f} ms; kernels 8+9 {k89:.4f} ms")
+        del lib_sites
+    if "flash_bwd_dq" in names:
+        # the yardstick's backward: SDPA forward + backward, eager
+        leaves = [[x.detach().clone().requires_grad_(True)
+                   for x in s[:3]] for s in sites]
+
+        def sdpa_fwd_bwd():
+            for (q, k, v), s in zip(leaves, sites):
+                F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=s[8]).backward(s[3])
+        fb = _time_ms(torch, sdpa_fwd_bwd, reps=3)
+        res["sdpa_fwd_bwd_ms"] = fb
+        print(f"[flash] SDPA forward+backward {short} tq={tq} tk={tk}, {n} "
+              f"sites: {fb:.4f} ms (eager); kernels 7+8+9 "
+              f"{sum(res[nm]['kernel_ms'] for nm in FLASH_KERNELS):.4f} ms")
+    del sites
+    torch.cuda.empty_cache()
+    return res
+
+
+#: the attention classifier's and RecurrentAttentionLayer's query counts
+#: against its 128 keys (phase 20)
+FLASH_TQ = (1, 4)
+#: an unprojected SelfAttentionLayer's head over BERT-base's 768 features
+#: (phase 20): past the 256 of the tiled bodies
+WIDE_HEAD_DIM = 768
+
+
 def phase_flash_kernels(torch) -> dict:
     """Kernels 7, 8 and 9 against their plain versions at BERT-base's
-    site shapes and three more, f32 and bf16; then the times of each
-    over the 12 sites of a batch-32 BERT-base step (CUDA-graph replay),
-    beside the bound and ``F.scaled_dot_product_attention``."""
-    import torch.nn.functional as F
-
+    site shapes, the attention classifier's (t_q = 1 and 4 against 128
+    ragged keys) and five more, f32, bf16 and f16, then past d = 256 and
+    in f64 (the wide bodies); then the times of each over the 12 sites of
+    a batch-32 BERT-base step, over 12 sites of each t_q and over 12
+    unprojected-layer sites of head dim 768 (CUDA-graph replay), beside
+    the bound, the plain version and ``F.scaled_dot_product_attention``."""
     from deeplearning4j_tpu_torch.parallel import sequence as sq
     g = torch.Generator(device="cuda").manual_seed(17)
-    errs = {k: 0.0 for k in FLASH_KERNELS}
+    errs = {n: {k: 0.0 for k in FLASH_KERNELS}
+            for n in ("float32", "float64")}
     shapes = [(BATCH, BERT_HEADS, 128, 128, HEAD_DIM, False, "padded"),
               (BATCH, BERT_HEADS, 512, 512, HEAD_DIM, False, "padded"),
               (4, BERT_HEADS, 256, 256, HEAD_DIM, True, "none"),
@@ -1870,130 +2053,58 @@ def phase_flash_kernels(torch) -> dict:
               # (padded to 128 inside the kernels), both causal
               (2, 2, 200, 130, HEAD_DIM, True, "padded"),
               (2, 2, 190, 190, 96, True, "padded")]
+    # one query tile padded from 1 or 4 rows (LearnedSelfAttentionLayer,
+    # RecurrentAttentionLayer's step) against the classifier's ragged keys
+    shapes += [(BATCH, BERT_HEADS, tq, 128, HEAD_DIM, False, "ragged")
+               for tq in FLASH_TQ]
     for shape in shapes:
         for dt in FLASH_DTYPES:
             _flash_check(torch, sq, *shape[:5], getattr(torch, dt),
                          shape[5], shape[6], g, errs)
         torch.cuda.empty_cache()
-    print(f"[flash] flash_fwd/flash_bwd_dq/flash_bwd_dkv == plain at "
-          f"{len(shapes)} shapes x f32/bf16/f16 (f32 fwd rtol/atol 2e-5, "
-          f"grads rtol 2e-4 atol 2e-5; bf16 and f16 2e-2), bitwise across "
-          f"two launches, fully masked sequences exactly 0, no NaN; max "
-          f"|kernel - plain| (f32) {errs}")
-
-    # timings over the 12 sites of a batch-32 step at t=128 (and the
-    # forward's at t=512): 12 distinct sets of inputs, so the replay
-    # reads what a step reads (a site's q, k, v are 38 MB in f32)
-    timing = {}
-    bh = BATCH * BERT_HEADS
-    for dt, t in [(getattr(torch, n), t) for t in (128, 512)
-                  for n in FLASH_DTYPES]:
-        short = str(dt)[6:]
-        esize = torch.tensor([], dtype=dt).element_size()
-        sites = []
-        for _ in range(BERT_LAYERS):
-            q, k, v, do = (torch.randn(BATCH, BERT_HEADS, t, HEAD_DIM,
-                                       device="cuda", generator=g).to(dt)
-                           for _ in range(4))
-            mask = torch.ones(BATCH, t, device="cuda")
-            out, lse = sq.flash_forward(q, k, v, mask)
-            sites.append((q, k, v, do, mask, out, lse,
-                          sq.flash_delta(out, do), mask.bool()[:, None,
-                                                               None, :]))
-
-        def run(fn):
-            return lambda: [fn(*s) for s in sites]
-
-        fns = {
-            "flash_fwd": (run(lambda q, k, v, do, m, o, l, dl, bm:
-                              sq.flash_forward(q, k, v, m)),
-                          run(lambda q, k, v, do, m, o, l, dl, bm:
-                              sq.flash_forward_plain(q, k, v, m)),
-                          run(lambda q, k, v, do, m, o, l, dl, bm:
-                              F.scaled_dot_product_attention(
-                                  q, k, v, attn_mask=bm))),
-            "flash_bwd_dq": (run(lambda q, k, v, do, m, o, l, dl, bm:
-                                 sq.flash_bwd_dq(q, k, v, do, l, dl, m)),
-                             run(lambda q, k, v, do, m, o, l, dl, bm:
-                                 sq.flash_dq_plain(q, k, v, do, l, dl, m)),
-                             None),
-            "flash_bwd_dkv": (run(lambda q, k, v, do, m, o, l, dl, bm:
-                                  sq.flash_bwd_dkv(q, k, v, do, l, dl, m)),
-                              run(lambda q, k, v, do, m, o, l, dl, bm:
-                                  sq.flash_dkv_plain(q, k, v, do, l, dl,
-                                                     m)),
-                              None),
-        }
-        peak = F32_FLOPS if dt == torch.float32 else BF16_FLOPS
-        res = {}
-        for name, (kern, plain, lib) in fns.items():
-            if t == 512 and name != "flash_fwd":
-                continue          # the t=512 site is served, not trained
-            b_, o_ = _flash_costs(name, bh, t, HEAD_DIM, esize)
-            bound, by = _bound(BERT_LAYERS * b_, BERT_LAYERS * o_, peak)
-            k_ms = _graph_ms(torch, kern, reps=3)
-            p_ms = _graph_ms(torch, plain, reps=1) if t == 128 else None
-            l_ms = _graph_ms(torch, lib, reps=3) if lib else None
-            res[name] = {"kernel_ms": k_ms, "plain_ms": p_ms,
-                         "library_ms": l_ms, "bound_ms": bound,
-                         "bound_by": by, "bytes": BERT_LAYERS * b_,
-                         "ops": BERT_LAYERS * o_, "peak": peak,
-                         "eager_ms": _time_ms(torch, kern, reps=3)}
-            ps = f"{p_ms:.4f}" if p_ms is not None else "not timed"
-            ls = f"{l_ms:.4f}" if l_ms is not None else "none"
-            print(f"[flash] {name} {short} t={t}, 12 sites of a batch-"
-                  f"{BATCH} BERT-base step: kernel {k_ms:.4f} ms, plain "
-                  f"{ps} ms, SDPA {ls} ms, bound {bound:.4f} ms ({by}; "
-                  f"{BERT_LAYERS * o_ / 1e9:.1f} GFLOP at "
-                  f"{peak / 1e12:.0f} TFLOP/s, {BERT_LAYERS * b_ / 1e9:.3f}"
-                  f" GB), eager {res[name]['eager_ms']:.4f} ms, "
-                  f"{BERT_LAYERS * o_ / k_ms / 1e9:.1f} TFLOP/s achieved")
-        if t == 128:
-            # one library call for rows 8 + 9 together: the memory-
-            # efficient attention backward on the same inputs (its own
-            # forward's out and log-sum-exp, the key mask as a zero/-inf
-            # bias), its forward excluded
-            eff = torch.ops.aten._scaled_dot_product_efficient_attention
-            eff_bwd = \
-                torch.ops.aten._scaled_dot_product_efficient_attention_backward
-            lib_sites = []
-            for q, k, v, do, m, *_ in sites:
-                bias = torch.zeros_like(m, dtype=dt).masked_fill(
-                    m == 0, float("-inf"))[:, None, None, :].expand(
-                        -1, BERT_HEADS, t, -1)
-                o, lse_e, seed, off = eff(q, k, v, bias, True)
-                lib_sites.append((do, q, k, v, bias, o, lse_e, seed, off))
-
-            def eff_backward():
-                for a in lib_sites:
-                    eff_bwd(*a, 0.0, [True, True, True, False])
-            pair_ms = _graph_ms(torch, eff_backward, reps=3)
-            for name in ("flash_bwd_dq", "flash_bwd_dkv"):
-                res[name]["library_ms"] = pair_ms
-                res[name]["library_covers"] = "flash_bwd_dq + flash_bwd_dkv"
-            k89 = sum(res[n]["kernel_ms"] for n in FLASH_KERNELS[1:])
-            print(f"[flash] _scaled_dot_product_efficient_attention_backward "
-                  f"{short} t=128, 12 sites (dq, dk, dv together): "
-                  f"{pair_ms:.4f} ms; kernels 8+9 {k89:.4f} ms")
-            del lib_sites
-            # the yardstick's backward: SDPA forward + backward, eager
-            leaves = [[x.detach().clone().requires_grad_(True)
-                       for x in s[:3]] for s in sites]
-
-            def sdpa_fwd_bwd():
-                for (q, k, v), s in zip(leaves, sites):
-                    F.scaled_dot_product_attention(
-                        q, k, v, attn_mask=s[8]).backward(s[3])
-            fb = _time_ms(torch, sdpa_fwd_bwd, reps=3)
-            res["sdpa_fwd_bwd_ms"] = fb
-            print(f"[flash] SDPA forward+backward {short} t=128, 12 sites: "
-                  f"{fb:.4f} ms (eager); kernels 7+8+9 "
-                  f"{sum(res[n]['kernel_ms'] for n in FLASH_KERNELS):.4f} "
-                  f"ms")
-        timing[f"{short}_t{t}"] = res
-        del sites
+    # past d = 256, the wide bodies: an unprojected SelfAttentionLayer's
+    # head of 768 over the classifier's ragged keys, and a causal width
+    # off the 128-column output chunk; float64 (the wide bodies at every
+    # d) at those and at BERT-base's site
+    wide = [(BATCH, 1, 128, 128, WIDE_HEAD_DIM, False, "ragged"),
+            (2, 2, 70, 45, 300, True, "padded")]
+    for shape in wide:
+        for dt in FLASH_DTYPES + ("float64",):
+            _flash_check(torch, sq, *shape[:5], getattr(torch, dt),
+                         shape[5], shape[6], g, errs)
         torch.cuda.empty_cache()
-    return {"max_abs_err": errs, "timing": timing}
+    _flash_check(torch, sq, 4, BERT_HEADS, 128, 128, HEAD_DIM,
+                 torch.float64, False, "padded", g, errs)
+    print(f"[flash] flash_fwd/flash_bwd_dq/flash_bwd_dkv == plain at "
+          f"{len(shapes) + len(wide)} shapes x f32/bf16/f16 and "
+          f"{len(wide) + 1} x f64 (f32 fwd rtol/atol 2e-5, grads rtol 2e-4 "
+          f"atol 2e-5; bf16 and f16 2e-2; f64 rtol 1e-10 atol 1e-12), "
+          f"bitwise across two launches, fully masked sequences exactly 0, "
+          f"no NaN; max |kernel - plain| {errs}")
+
+    # timings over 12 distinct sets of inputs, so the replay reads what a
+    # step reads (a BERT t=128 site's q, k, v are 38 MB in f32)
+    timing = {}
+    for n in FLASH_DTYPES:
+        dt = getattr(torch, n)
+        timing[f"{n}_t128"] = _time_flash_sites(
+            torch, sq, dt, 128, 128, "full", g,
+            what=f"of a batch-{BATCH} BERT-base step")
+        # the t=512 site is served, not trained
+        timing[f"{n}_t512"] = _time_flash_sites(
+            torch, sq, dt, 512, 512, "full", g, names=("flash_fwd",),
+            plain=False, what=f"of a batch-{BATCH} BERT-base forward")
+        for tq in FLASH_TQ:
+            timing[f"{n}_tq{tq}"] = _time_flash_sites(
+                torch, sq, dt, tq, 128, "ragged", g,
+                what="against ragged keys")
+    for n in ("float32", "bfloat16", "float64"):
+        timing[f"{n}_d{WIDE_HEAD_DIM}"] = _time_flash_sites(
+            torch, sq, getattr(torch, n), 128, 128, "ragged", g,
+            what="of an unprojected layer against ragged keys", heads=1,
+            d=WIDE_HEAD_DIM)
+    return {"max_abs_err": errs["float32"], "max_abs_err_f64":
+            errs["float64"], "timing": timing}
 
 
 # ---------------------------------------------------------------------------
@@ -2367,13 +2478,31 @@ BERT_FWD_RTOL, BERT_FWD_ATOL = 1e-3, 1e-5
 BERT_UPDATE_FLOOR = 1e-4
 
 
+def _with_flash_gate(gate: Optional[str], fn):
+    """``fn()`` with ``Environment.extra["flash_attention"]`` set to
+    ``gate`` (None: unset), restored after."""
+    from deeplearning4j_tpu_torch.common.environment import Environment
+    extra = Environment.get().extra
+    saved = extra.get("flash_attention")
+    if gate is None:
+        extra.pop("flash_attention", None)
+    else:
+        extra["flash_attention"] = gate
+    try:
+        return fn()
+    finally:
+        if saved is None:
+            extra.pop("flash_attention", None)
+        else:
+            extra["flash_attention"] = saved
+
+
 def bert_card_vs_cpu(torch, device: str = "cuda", layers: int = 2,
                      batch: int = 4) -> dict:
     """Full-width BERT at reduced depth on the card and on the CPU (the
     CPU on the card's route: the flash gate forced, so it runs the
     kernels' plain versions) in float32 and float64. ``device="cpu"``
     rehearses it without a card."""
-    from deeplearning4j_tpu_torch.common.environment import Environment
     from deeplearning4j_tpu_torch.learning.updaters import Sgd
     from deeplearning4j_tpu_torch.models import Bert, BertConfig
     from deeplearning4j_tpu_torch.models.bert import flatten_tree
@@ -2392,23 +2521,16 @@ def bert_card_vs_cpu(torch, device: str = "cuda", layers: int = 2,
             torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    extra = Environment.get().extra
-    saved = extra.get("flash_attention")
     try:
         s_card, p_card = card.output(*args)
         s_card, p_card = s_card.cpu(), p_card.cpu()
         l_card = card.fit_batch(b)
-        extra["flash_attention"] = "1"
-        s_cpu, p_cpu = cpu.output(*args)
-        l_cpu = cpu.fit_batch(b)
-        l_64 = cpu64.fit_batch(b)
+        (s_cpu, p_cpu), l_cpu, l_64 = _with_flash_gate(
+            "1", lambda: (cpu.output(*args), cpu.fit_batch(b),
+                          cpu64.fit_batch(b)))
     finally:
         torch.backends.cuda.matmul.allow_tf32, \
             torch.backends.cudnn.allow_tf32 = prev
-        if saved is None:
-            extra.pop("flash_attention", None)
-        else:
-            extra["flash_attention"] = saved
     err = float((s_card - s_cpu).abs().max())
     check(bool(torch.allclose(s_card, s_cpu, rtol=BERT_FWD_RTOL,
                               atol=BERT_FWD_ATOL))
@@ -2675,7 +2797,6 @@ def sd_bert_card_vs_cpu(torch, device: str = "cuda", layers: int = 2,
     SGD step of the MLM head held norm-wise against a float64 CPU step
     as ``train_card_vs_cpu`` holds ResNet-50's. ``device="cpu"``
     rehearses it without a card."""
-    from deeplearning4j_tpu_torch.common.environment import Environment
     from deeplearning4j_tpu_torch.learning.updaters import Sgd
     from deeplearning4j_tpu_torch.modelimport.tensorflow.bert_graph import (
         build_frozen_bert, import_and_attach_mlm)
@@ -2696,21 +2817,15 @@ def sd_bert_card_vs_cpu(torch, device: str = "cuda", layers: int = 2,
     p0 = {n: cpu._arrays[n].double().clone() for n in names}
     prev = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
-    extra = Environment.get().extra
-    saved = extra.get("flash_attention")
     try:
         f_card = card.output(_encoder_feeds(b), ["Identity"])["Identity"]
         l_card = card.fit_steps(b, 1)
-        extra["flash_attention"] = "1"
-        f_cpu = cpu.output(_encoder_feeds(b), ["Identity"])["Identity"]
-        l_cpu = cpu.fit_steps(b, 1)
-        l_64 = cpu64.fit_steps(b, 1)
+        f_cpu, l_cpu, l_64 = _with_flash_gate(
+            "1", lambda: (cpu.output(_encoder_feeds(b),
+                                     ["Identity"])["Identity"],
+                          cpu.fit_steps(b, 1), cpu64.fit_steps(b, 1)))
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
-        if saved is None:
-            extra.pop("flash_attention", None)
-        else:
-            extra["flash_attention"] = saved
     err = float((f_card.cpu() - f_cpu).abs().max())
     check(bool(torch.allclose(f_card.cpu(), f_cpu, rtol=BERT_FWD_RTOL,
                               atol=BERT_FWD_ATOL)),
@@ -4316,6 +4431,539 @@ def phase_dp_resnet(torch, label: str, device: str = "cuda",
     return out
 
 
+# ---------------------------------------------------------------------------
+#: the masked attention classifier at BERT-base widths (phase 20)
+ATTN = dict(vocab=30522, hidden=768, heads=12, t=128)
+#: flash route against the plain route (the dense chain) on the
+#: classifier's attention outputs, logits and probabilities: the kernels'
+#: f32 forward bar, its atol cut to 2e-6 for activations of ~1e-2
+ATTN_FWD_RTOL, ATTN_FWD_ATOL = 2e-5, 2e-6
+#: RecurrentAttentionLayer over 128 steps, flash against plain, on its
+#: activations and the head's logits (with ATTN_FWD_RTOL): each step's
+#: attention differs by the kernels' f32 rounding, and the tanh
+#: recurrence carries it on (an H100 read 8.0e-7 on activations up to
+#: 0.63 and 6.4e-7 on logits up to 0.47)
+RATT_ATOL = 2e-6
+#: the char-RNN as a graph against the same network as a layer stack
+GRAPH_MLN_ATOL = 1e-6
+
+
+def attention_classifier_conf(vocab: int, hidden: int, heads: int, t: int,
+                              updater, compute: Optional[str] = None,
+                              blocks: int = 2, dtype: str = "float32"):
+    """Token embedding, ``blocks`` self-attention blocks with residual
+    adds, learned-query pooling (one query) and a 2-class softmax head
+    behind an RnnToFeedForwardPreProcessor, built with GraphBuilder."""
+    from deeplearning4j_tpu_torch.nn.conf.builders import \
+        NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.conf.graph_vertices import \
+        ElementWiseVertex
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.conf.layers import OutputLayer
+    from deeplearning4j_tpu_torch.nn.conf.layers_attention import (
+        LearnedSelfAttentionLayer, SelfAttentionLayer)
+    from deeplearning4j_tpu_torch.nn.conf.layers_recurrent import \
+        EmbeddingSequenceLayer
+    from deeplearning4j_tpu_torch.nn.conf.preprocessors import \
+        RnnToFeedForwardPreProcessor
+    g = (NeuralNetConfiguration.Builder().seed(20).updater(updater)
+         .data_type(dtype).compute_data_type(compute).graph_builder()
+         .add_inputs("tokens").set_input_types(InputType.recurrent(1, t))
+         .add_layer("emb", EmbeddingSequenceLayer(n_in=vocab, n_out=hidden),
+                    "tokens"))
+    prev = "emb"
+    for i in range(1, blocks + 1):
+        g = (g.add_layer(f"sa{i}", SelfAttentionLayer(n_out=hidden,
+                                                      n_heads=heads), prev)
+             .add_vertex(f"add{i}", ElementWiseVertex(op="Add"), prev,
+                         f"sa{i}"))
+        prev = f"add{i}"
+    return (g.add_layer("pool", LearnedSelfAttentionLayer(
+                n_out=hidden, n_heads=heads, n_queries=1), prev)
+             .add_layer("out", OutputLayer(n_out=2),
+                        RnnToFeedForwardPreProcessor(), "pool")
+             .set_outputs("out").build())
+
+
+def attention_batch(torch, g, batch: int, t: int, vocab: int):
+    """Seeded token ids, a features mask from lengths in [16, t] (one row
+    of t and one of 16) and one-hot labels, on the CPU."""
+    ids = torch.randint(0, vocab, (batch, t), generator=g)
+    lengths = torch.randint(16, t + 1, (batch,), generator=g)
+    lengths[0], lengths[1] = t, 16
+    mask = (torch.arange(t)[None] < lengths[:, None]).float()
+    labels = torch.nn.functional.one_hot(
+        torch.randint(0, 2, (batch,), generator=g), 2).float()
+    return ids, mask, labels
+
+
+def _attention_steps(torch, net, ds, steps: int, what: str, label: str,
+                     on_card: bool) -> dict:
+    """``steps`` masked fit steps, counts to 0 before and read after: 3
+    launches each of kernels 7, 8 and 9 a step on the card; the loss
+    falls; step ms, sequences/s and the device profile."""
+    import numpy as np
+    _zero_counts()
+    losses, ms = [], []
+    for _ in range(steps):
+        _sync(torch, "cuda" if on_card else "cpu")
+        t0 = time.perf_counter()
+        net.fit(ds)
+        _sync(torch, "cuda" if on_card else "cpu")
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(net.score())
+    launches = _flash_counts()
+    print(f"[attn-graph] {what}: losses {[round(v, 5) for v in losses]}; "
+          f"launches {launches}")
+    check(all(np.isfinite(losses)), f"{what}: loss not finite: {losses}")
+    check(losses[-1] < losses[0], f"{what}: loss did not fall: {losses}")
+    for k in FLASH_KERNELS:
+        check(launches[k] == 3 * steps * on_card,
+              f"{what} {k}: {launches[k]} launches in {steps} steps, "
+              f"expected 3 a step")
+    batch = int(ds.features.shape[0])
+    step_ms = float(np.median(ms[1:]))
+    print(f"[attn-graph] {what}: step {step_ms:.3f} ms (median of steps "
+          f"2-{steps}) = {batch * 1e3 / step_ms:.1f} sequences/s [{label}]")
+    res = {"losses": losses, "step_ms": ms, "median_step_ms": step_ms,
+           "seq_per_s": batch * 1e3 / step_ms, "launches": launches}
+    if on_card:
+        res["profile"] = profile_device(
+            torch, lambda: net.fit(ds), step_ms, f"{what} step",
+            shares=FLASH_KERNELS)
+        print(f"[attn-graph] {what}: "
+              f"{res['profile'].get('kernel_calls')} device kernels a step "
+              f"[{label}]")
+    return res
+
+
+def phase_attention_graph(torch, label: str, device: str = "cuda",
+                          dims=None, batch: int = BATCH, steps: int = 10,
+                          charrnn_hidden: int = CHARRNN["hidden"]) -> dict:
+    """(a) the masked attention classifier trained and held against its
+    plain route, (b) RecurrentAttentionLayer through kernels 7-9 a step
+    at a time, (c) the char-RNN as a ComputationGraph under truncated
+    BPTT. ``device="cpu"`` with small ``dims`` rehearses it (launch
+    counts, timings and the profile are the card's)."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.learning.updaters import Adam
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    d = dict(ATTN, **(dims or {}))
+    on_card = device == "cuda"
+    V, Hd, heads, t = d["vocab"], d["hidden"], d["heads"], d["t"]
+    g = torch.Generator().manual_seed(20)
+    ids, mask, labels = attention_batch(torch, g, batch, t, V)
+    ids, mask, labels = ids.to(device), mask.to(device), labels.to(device)
+    ds = DataSet(ids, labels, features_mask=mask)
+    out = {}
+
+    # ---- (a) the classifier: f32, then bf16 compute, from one init ----
+    conf = attention_classifier_conf(V, Hd, heads, t, Adam(1e-3))
+    net = ComputationGraph(conf).init(
+        device, generator=torch.Generator().manual_seed(20))
+    p0 = _clone_params(net.params, "cpu")
+    print(f"[attn-graph] masked attention classifier: vocab {V}, hidden "
+          f"{Hd}, {heads} heads, 2 x SelfAttentionLayer + "
+          f"LearnedSelfAttentionLayer(1 query) + OutputLayer(2), "
+          f"{net.num_params()} params; batch {batch} x {t}, lengths "
+          f"{int(mask.sum(1).min())}..{int(mask.sum(1).max())}; Adam(1e-3) "
+          f"on {device}")
+    out["f32"] = _attention_steps(torch, net, ds, steps, "f32 masked fit",
+                                  label, on_card)
+    net16 = ComputationGraph(attention_classifier_conf(
+        V, Hd, heads, t, Adam(1e-3), compute="bfloat16")).set_params(
+        _clone_params(p0, device), {}, device)
+    out["bf16"] = _attention_steps(torch, net16, ds, steps,
+                                   "bf16 compute_dtype masked fit", label,
+                                   on_card)
+    del net16
+
+    # ---- fit_steps on the unmasked batch == as many fit calls ----
+    plain_ds = DataSet(ids, labels)
+    a, b = (ComputationGraph(conf).set_params(_clone_params(p0, device), {},
+                                              device) for _ in range(2))
+    prev = torch.are_deterministic_algorithms_enabled()
+    # the embedding's backward accumulates with atomics unless the
+    # deterministic algorithms are on
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        a.fit_steps(plain_ds, steps)
+        for _ in range(steps):
+            b.fit(plain_ds)
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    _sync(torch, device)
+    for k in a.params:
+        for n, t_ in a.params[k].items():
+            check(torch.equal(t_, b.params[k][n]),
+                  f"fit_steps({steps}) vs {steps} fit calls: {k}/{n} differs")
+    check(a.score() == b.score() and a.iteration_count == steps,
+          f"fit_steps loss {a.score()} vs fit {b.score()}")
+    print(f"[attn-graph] fit_steps(ds, {steps}) == {steps} fit calls bit "
+          f"for bit (unmasked batch, deterministic algorithms on), last "
+          f"loss {a.score():.6f}")
+    del a, b
+
+    # ---- flash route against the plain route, from the initial weights
+    # (the trained net's softmax is saturated on its one batch) ----
+    del net
+    net = ComputationGraph(conf).set_params(_clone_params(p0, device), {},
+                                            device)
+    def attention_acts():
+        # every attention layer's output and the head's logits (2-class
+        # probabilities near 0.5 would hide differences below their ulp)
+        with torch.inference_mode():
+            acts, _ = net._forward(net.params, net.states, [ids],
+                                   want_logits=True, fmask=mask)
+        return {k: acts[k] for k in ("sa1", "sa2", "pool", "out")}
+
+    flash = _with_flash_gate(None, lambda: net.output(ids, mask=mask))
+    plain = _with_flash_gate("0", lambda: net.output(ids, mask=mask))
+    a_flash = _with_flash_gate(None, attention_acts)
+    a_plain = _with_flash_gate("0", attention_acts)
+    errs = {k: float((a_flash[k] - a_plain[k]).abs().max()) for k in a_flash}
+    for k in a_flash:
+        check(bool(torch.allclose(a_flash[k], a_plain[k], rtol=ATTN_FWD_RTOL,
+                                  atol=ATTN_FWD_ATOL)),
+              f"classifier {k} flash vs plain route: max |d| {errs[k]}")
+    err = float((flash - plain).abs().max())
+    check(bool(torch.allclose(flash, plain, rtol=ATTN_FWD_RTOL,
+                              atol=ATTN_FWD_ATOL)),
+          f"classifier output flash vs plain route: max |d| {err}")
+    s_flash = _with_flash_gate(None, lambda: net.score(ds))
+    s_plain = _with_flash_gate("0", lambda: net.score(ds))
+    check(abs(s_flash - s_plain) <= ATTN_FWD_RTOL * abs(s_plain) + 1e-7,
+          f"score flash {s_flash} vs plain {s_plain}")
+    ev_f = _with_flash_gate(None, lambda: net.evaluate([ds]))
+    ev_p = _with_flash_gate("0", lambda: net.evaluate([ds]))
+    check((ev_f.confusion_matrix() == ev_p.confusion_matrix()).all(),
+          "evaluate flash vs plain route: confusion matrices differ")
+    pred = net.predict(ids)
+    check(pred.shape == (batch,) and set(pred.tolist()) <= {0, 1},
+          f"predict: {pred}")
+    # a padded row's answer does not depend on its padded tokens
+    other = torch.where(mask > 0, ids, (ids + 7) % V)
+    moved = net.output(other, mask=mask)
+    check(torch.equal(flash, moved),
+          "padded tokens changed a row's answer")
+    print(f"[attn-graph] initial classifier, flash route vs plain route: "
+          f"max |d| by vertex {errs} (largest |value| "
+          f"{ {k: float(v.abs().max()) for k, v in a_plain.items()} }), "
+          f"probabilities {err:.3e}, score {s_flash:.7f} vs "
+          f"{s_plain:.7f}, evaluate accuracy {ev_f.accuracy():.4f} == "
+          f"{ev_p.accuracy():.4f}; padded tokens changed nothing "
+          f"(bitwise)")
+    out.update(flash_vs_plain_max_abs=max(errs.values()),
+               flash_vs_plain_by_vertex=errs, score_flash=s_flash,
+               score_plain=s_plain)
+    del net
+
+    # ---- (b) RecurrentAttentionLayer over the embedded batch ----
+    out["recurrent"] = recurrent_attention_check(torch, label, device, ds,
+                                                 d, batch)
+    # ---- (b') a head dim of 768: an unprojected self-attention ----
+    out["unprojected"] = unprojected_attention_check(torch, label, device,
+                                                     mask, Hd)
+    # ---- (c) the char-RNN as a graph under truncated BPTT ----
+    out["charrnn_graph"] = charrnn_graph_check(torch, label, device,
+                                               charrnn_hidden)
+    if on_card:
+        torch.cuda.empty_cache()
+        out["card_vs_cpu"] = attention_card_vs_cpu(torch)
+    return out
+
+
+def recurrent_attention_check(torch, label: str, device: str, ds, d: dict,
+                              batch: int) -> dict:
+    """tokens -> embedding -> RecurrentAttentionLayer -> last step ->
+    OutputLayer(2): one masked forward (one launch of kernel 7 a step of
+    the sequence), one masked training step (one of 7, 8 and 9 a step),
+    the output held against the plain route."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.learning.updaters import Adam
+    from deeplearning4j_tpu_torch.nn.conf.builders import \
+        NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.conf.layers import OutputLayer
+    from deeplearning4j_tpu_torch.nn.conf.layers_attention import \
+        RecurrentAttentionLayer
+    from deeplearning4j_tpu_torch.nn.conf.layers_recurrent import (
+        EmbeddingSequenceLayer, LastTimeStepLayer)
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    on_card = device == "cuda"
+    V, Hd, heads, t = d["vocab"], d["hidden"], d["heads"], d["t"]
+    conf = (NeuralNetConfiguration.Builder().seed(21).updater(Adam(1e-3))
+            .graph_builder().add_inputs("tokens")
+            .set_input_types(InputType.recurrent(1, t))
+            .add_layer("emb", EmbeddingSequenceLayer(n_in=V, n_out=Hd),
+                       "tokens")
+            .add_layer("ratt", RecurrentAttentionLayer(n_out=Hd,
+                                                       n_heads=heads), "emb")
+            .add_layer("last", LastTimeStepLayer(), "ratt")
+            .add_layer("out", OutputLayer(n_out=2), "last")
+            .set_outputs("out").build())
+    net = ComputationGraph(conf).init(
+        device, generator=torch.Generator().manual_seed(21))
+    ids, mask = ds.features, ds.features_mask
+    _zero_counts()
+    _sync(torch, device)
+    t0 = time.perf_counter()
+    y = net.output(ids, mask=mask)
+    _sync(torch, device)
+    fwd_ms = (time.perf_counter() - t0) * 1e3
+    fwd_launches = _flash_counts()
+    check(bool(torch.isfinite(y).all()), "RecurrentAttentionLayer output "
+                                         "not finite")
+
+    def acts():
+        # the layer's activations and the head's logits (2-class
+        # probabilities near 0.5 would hide differences below their ulp)
+        with torch.inference_mode():
+            a, _ = net._forward(net.params, net.states, [ids],
+                                want_logits=True, fmask=mask)
+        return {k: a[k] for k in ("ratt", "out")}
+
+    a_flash = _with_flash_gate(None, acts)
+    a_plain = _with_flash_gate("0", acts)
+    errs = {k: float((a_flash[k] - a_plain[k]).abs().max()) for k in a_flash}
+    for k in a_flash:
+        check(bool(torch.allclose(a_flash[k], a_plain[k], rtol=ATTN_FWD_RTOL,
+                                  atol=RATT_ATOL)),
+              f"RecurrentAttentionLayer {k} flash vs plain route: max |d| "
+              f"{errs[k]}")
+    _zero_counts()
+    _sync(torch, device)
+    t0 = time.perf_counter()
+    net.fit(ds)
+    _sync(torch, device)
+    step_ms = (time.perf_counter() - t0) * 1e3
+    step_launches = _flash_counts()
+    check(np.isfinite(net.score()), f"RecurrentAttentionLayer loss "
+                                    f"{net.score()}")
+    check(fwd_launches["flash_fwd"] == t * on_card
+          and fwd_launches["flash_bwd_dq"] == 0,
+          f"RecurrentAttentionLayer forward: launches {fwd_launches}, "
+          f"expected {t} of flash_fwd")
+    for k in FLASH_KERNELS:
+        check(step_launches[k] == t * on_card,
+              f"RecurrentAttentionLayer step {k}: {step_launches[k]} "
+              f"launches, expected {t}")
+    print(f"[attn-graph] RecurrentAttentionLayer({Hd}, {heads} heads) over "
+          f"{batch} x {t} masked: forward {fwd_ms:.3f} ms (first call), "
+          f"launches {fwd_launches}; one step {step_ms:.3f} ms, launches "
+          f"{step_launches}, loss {net.score():.6f}; flash vs plain route "
+          f"max |d| by vertex {errs} (largest |value| "
+          f"{ {k: float(v.abs().max()) for k, v in a_plain.items()} }) "
+          f"[{label}]")
+    return {"fwd_ms": fwd_ms, "step_ms": step_ms,
+            "fwd_launches": fwd_launches, "step_launches": step_launches,
+            "flash_vs_plain_by_vertex": errs}
+
+
+def unprojected_attention_check(torch, label: str, device: str, mask,
+                                hidden: int) -> dict:
+    """SelfAttentionLayer(project_input=False) over ``hidden`` seeded
+    features under the classifier's features mask: one head of
+    ``hidden`` (768: the kernels' wide bodies). One masked forward and
+    backward, one launch of each kernel, the output within the flash
+    bar and the input gradient within the kernels' f32 gradient bar of
+    the plain route."""
+    from deeplearning4j_tpu_torch.nn.conf.layers_attention import \
+        SelfAttentionLayer
+    on_card = device == "cuda"
+    batch, t = mask.shape
+    g = torch.Generator().manual_seed(24)
+    x0 = (0.1 * torch.randn(batch, t, hidden, generator=g)).to(device)
+    dy = torch.randn(batch, t, hidden, generator=g).to(device)
+    layer = SelfAttentionLayer(n_in=hidden, n_out=hidden, n_heads=1,
+                               project_input=False)
+
+    def run():
+        x = x0.clone().requires_grad_(True)
+        y, _ = layer.forward({}, x, training=True, mask=mask)
+        y.backward(dy)
+        return y.detach(), x.grad
+
+    _zero_counts()
+    _sync(torch, device)
+    t0 = time.perf_counter()
+    y, gx = run()
+    _sync(torch, device)
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = _flash_counts()
+    y_p, gx_p = _with_flash_gate("0", run)
+    for k in FLASH_KERNELS:
+        check(launches[k] == on_card, f"unprojected SelfAttentionLayer {k}: "
+                                      f"{launches[k]} launches, expected 1")
+    (_, _), (g_rtol, g_atol) = FLASH_TOL["float32"]
+    e_y = float((y - y_p).abs().max())
+    e_g = float((gx - gx_p).abs().max())
+    check(bool(torch.allclose(y, y_p, rtol=ATTN_FWD_RTOL,
+                              atol=ATTN_FWD_ATOL)),
+          f"unprojected SelfAttentionLayer output flash vs plain: max |d| "
+          f"{e_y}")
+    check(bool(torch.allclose(gx, gx_p, rtol=g_rtol, atol=g_atol)),
+          f"unprojected SelfAttentionLayer input gradient flash vs plain: "
+          f"max |d| {e_g}")
+    print(f"[attn-graph] SelfAttentionLayer(project_input=False) over "
+          f"{batch} x {t} x {hidden} masked (head dim {hidden}): forward + "
+          f"backward {ms:.3f} ms (first call), launches {launches}; flash "
+          f"vs plain route max |d| output {e_y:.3e} (largest |value| "
+          f"{float(y_p.abs().max()):.3e}), input gradient {e_g:.3e} "
+          f"(largest {float(gx_p.abs().max()):.3e}) [{label}]")
+    return {"ms": ms, "launches": launches, "output_max_abs": e_y,
+            "grad_max_abs": e_g}
+
+
+def charrnn_graph_check(torch, label: str, device: str, hidden: int
+                        ) -> dict:
+    """BASELINE #3's char-RNN (2 x GravesLSTM + RnnOutputLayer(80), batch
+    64 x 64, Adam(5e-3)) as a ComputationGraph with TRUNCATED_BPTT
+    segments of 16: 4 iterations a batch, equal to the layer stack of
+    the same configuration and weights within ``GRAPH_MLN_ATOL``; then
+    ``rnn_time_step`` one step at a time against ``output``."""
+    from deeplearning4j_tpu_torch.activations import Activation
+    from deeplearning4j_tpu_torch.learning.updaters import Adam
+    from deeplearning4j_tpu_torch.lossfunctions import LossFunction
+    from deeplearning4j_tpu_torch.nn.conf.builders import (
+        BackpropType, NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.conf.layers import RnnOutputLayer
+    from deeplearning4j_tpu_torch.nn.conf.layers_recurrent import GravesLSTM
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    vocab, batch, T = CHARRNN["vocab"], CHARRNN["batch"], CHARRNN["seq_len"]
+    L = 16
+    conf = (NeuralNetConfiguration.Builder().seed(12345).updater(Adam(5e-3))
+            .graph_builder().add_inputs("chars")
+            .set_input_types(InputType.recurrent(vocab, T))
+            .add_layer("lstm0", GravesLSTM(n_out=hidden,
+                                           activation=Activation.TANH),
+                       "chars")
+            .add_layer("lstm1", GravesLSTM(n_out=hidden,
+                                           activation=Activation.TANH),
+                       "lstm0")
+            .add_layer("out", RnnOutputLayer(
+                n_out=vocab, loss_function=LossFunction.MCXENT,
+                activation=Activation.SOFTMAX), "lstm1")
+            .set_outputs("out").backprop_type(BackpropType.TRUNCATED_BPTT)
+            .t_bptt_length(L).build())
+    graph = ComputationGraph(conf).init(
+        device, generator=torch.Generator().manual_seed(12345))
+    names = {"layer_0": "lstm0", "layer_1": "lstm1", "layer_2": "out"}
+    stack = MultiLayerNetwork(charrnn_conf(hidden, vocab, T, tbptt=L)
+                              ).set_params(
+        {k: {n: t_.detach().clone() for n, t_ in graph.params[v].items()}
+         for k, v in names.items()}, {}, device)
+    xn, yn = charrnn_batch(vocab, batch, T)
+    x, y = torch.from_numpy(xn).to(device), torch.from_numpy(yn).to(device)
+    _sync(torch, device)
+    t0 = time.perf_counter()
+    graph.fit(x, y)
+    _sync(torch, device)
+    graph_ms = (time.perf_counter() - t0) * 1e3
+    stack.fit(x, y)
+    check(graph.iteration_count == stack.iteration_count == T // L,
+          f"tBPTT graph: {graph.iteration_count} iterations a batch "
+          f"(stack {stack.iteration_count}), expected {T // L}")
+    worst = max(float((t_ - graph.params[v][n]).abs().max())
+                for k, v in names.items()
+                for n, t_ in stack.params[k].items())
+    dl = abs(graph.score() - stack.score())
+    check(worst <= GRAPH_MLN_ATOL and dl <= GRAPH_MLN_ATOL,
+          f"tBPTT graph vs layer stack: params max |d| {worst}, loss |d| "
+          f"{dl}")
+    graph.rnn_clear_previous_state()
+    stream = torch.stack([graph.rnn_time_step(x[:, i]) for i in range(T)],
+                         1)
+    d_stream = float((stream - graph.output(x)).abs().max())
+    check(d_stream <= 1e-5, f"graph rnn_time_step vs output: max |d| "
+                            f"{d_stream}")
+    print(f"[attn-graph] char-RNN as a graph (2 x GravesLSTM({hidden}), "
+          f"batch {batch} x {T}, TRUNCATED_BPTT {L}): {T // L} iterations "
+          f"a batch in {graph_ms:.3f} ms (first call); vs the layer stack "
+          f"params max |d| {worst:.3e}, loss |d| {dl:.3e}; rnn_time_step "
+          f"over {T} steps vs output max |d| {d_stream:.3e} [{label}]")
+    return {"tbptt_batch_ms": graph_ms, "vs_stack_max_abs": worst,
+            "vs_stack_loss_abs": dl, "stream_max_abs": d_stream}
+
+
+def attention_card_vs_cpu(torch, device: str = "cuda", batch: int = 2
+                          ) -> dict:
+    """One f32 Sgd step of the classifier at full width and 2 attention
+    layers (one self-attention block and the pooling) on the card and on
+    the CPU (on the card's route: the flash gate forced, so the kernels'
+    plain versions), against a float64 CPU step, TF32 off."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.learning.updaters import Sgd
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    V, Hd, heads, t = (ATTN[k] for k in ("vocab", "hidden", "heads", "t"))
+    conf = attention_classifier_conf(V, Hd, heads, t, Sgd(0.1), blocks=1)
+    cpu = ComputationGraph(conf).init(
+        "cpu", generator=torch.Generator().manual_seed(22))
+    p0 = _clone_params(cpu.params, "cpu")
+    card = ComputationGraph(conf).set_params(_clone_params(p0, device), {},
+                                             device)
+    cpu64 = ComputationGraph(attention_classifier_conf(
+        V, Hd, heads, t, Sgd(0.1), blocks=1, dtype="float64")).set_params(
+        {k: {n: v.double() for n, v in sub.items()} for k, sub in
+         p0.items()}, {}, "cpu")
+    ids, mask, labels = attention_batch(
+        torch, torch.Generator().manual_seed(23), batch, t, V)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        card.fit(DataSet(ids.to(device), labels.to(device),
+                         features_mask=mask.to(device)))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    _with_flash_gate("1", lambda: cpu.fit(DataSet(ids, labels,
+                                                  features_mask=mask)))
+    cpu64.fit(DataSet(ids, labels, features_mask=mask))
+    check(abs(card.score() - cpu.score()) <= LOSS_RTOL * abs(cpu.score()),
+          f"classifier loss card {card.score()} vs cpu {cpu.score()}")
+    floor = BERT_UPDATE_FLOOR * max(
+        float((cpu64.params[k][n] - t0.double()).norm())
+        for k, sub in p0.items() for n, t0 in sub.items())
+
+    def dist(a, b_):
+        return float((a - b_).norm() / b_.norm().clamp_min(floor))
+
+    # each parameter's update against its own CPU reading: an ill-
+    # conditioned leaf (the pooling query's keys, whose gradient is near
+    # zero at initialisation) must not set the bar of the others
+    leaves = {}
+    for k, sub in p0.items():
+        for n, t0 in sub.items():
+            d64 = cpu64.params[k][n] - t0.double()
+            dcard = card.params[k][n].detach().cpu().double() - t0.double()
+            dcpu = cpu.params[k][n].double() - t0.double()
+            ec, eu = dist(dcard, d64), dist(dcpu, d64)
+            leaves[f"{k}/{n}"] = {"card_vs_f64": ec, "cpu32_vs_f64": eu,
+                                  "card_vs_cpu32": dist(dcard, dcpu)}
+            check(ec <= UPDATE_FACTOR * eu + UPDATE_FLOOR,
+                  f"classifier card update of {k}/{n} {ec:.3e} from the "
+                  f"float64 step, the CPU float32 step's {eu:.3e}")
+    worst = max(leaves, key=lambda n: leaves[n]["card_vs_f64"])
+    e_card = leaves[worst]["card_vs_f64"]
+    e_cpu = max(v["cpu32_vs_f64"] for v in leaves.values())
+    e_pair = max(v["card_vs_cpu32"] for v in leaves.values())
+    print(f"[attn-graph] card vs CPU, one f32 Sgd step at 2 attention "
+          f"layers, batch {batch} x {t} (TF32 off; CPU on the card's "
+          f"route): loss {card.score():.7f} vs {cpu.score():.7f} (f64 "
+          f"{cpu64.score():.7f}); update in norm by parameter (card vs "
+          f"f64, CPU f32 vs f64, card vs CPU f32): "
+          + ", ".join(f"{n} {v['card_vs_f64']:.3e} {v['cpu32_vs_f64']:.3e} "
+                      f"{v['card_vs_cpu32']:.3e}" for n, v in leaves.items()))
+    return {"loss_card": card.score(), "loss_cpu": cpu.score(),
+            "update_card_vs_f64": e_card, "update_cpu32_vs_f64": e_cpu,
+            "update_card_vs_cpu32": e_pair, "worst": worst,
+            "by_parameter": leaves}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4360,6 +5008,7 @@ def main() -> int:
     gb = timed("generate-bf16", phase_generate, torch, label,
                kv_dtype="bf16", tokens_f32=gf["tokens"])
     timed("decoder-vs-cpu", decoder_card_vs_cpu, torch)
+    ag = timed("attention-graph", phase_attention_graph, torch, label)
 
     from deeplearning4j_tpu_torch.ops import cuda_build
     f32 = kern["timing"]["float32"]
@@ -4416,6 +5065,28 @@ def main() -> int:
                     "sdpa_fwd_bwd_ms"]
             extra["launches_bf16_training"] = \
                 bt["bfloat16"]["launches"][k.name]
+            # the attention classifier and RecurrentAttentionLayer
+            # (phase 20), and the kernels at their query counts
+            extra["launches_attention_graph"] = {
+                "classifier_f32_10_steps": ag["f32"]["launches"][k.name],
+                "classifier_bf16_10_steps": ag["bf16"]["launches"][k.name],
+                "recurrent_attention_forward":
+                    ag["recurrent"]["fwd_launches"][k.name],
+                "recurrent_attention_step":
+                    ag["recurrent"]["step_launches"][k.name],
+                "unprojected_head_dim_768_step":
+                    ag["unprojected"]["launches"][k.name]}
+            for tq in FLASH_TQ:
+                for key in ("kernel_ms", "bound_ms", "plain_ms",
+                            "library_ms"):
+                    extra[f"tq{tq}_tk128_{key}_by_dtype"] = {
+                        d: ft[f"{d}_tq{tq}"][k.name][key]
+                        for d in FLASH_DTYPES}
+            # the wide bodies: 12 unprojected sites of head dim 768
+            for key in ("kernel_ms", "bound_ms", "plain_ms", "library_ms"):
+                extra[f"d{WIDE_HEAD_DIM}_t128_{key}_by_dtype"] = {
+                    d: ft[f"{d}_d{WIDE_HEAD_DIM}"][k.name][key]
+                    for d in ("float32", "bfloat16", "float64")}
             # the SameDiff path: the imported BERT-base (BASELINE #4)
             extra["launches_samediff_forward"] = \
                 sdb["fwd_launches"][k.name]
@@ -4567,6 +5238,17 @@ def main() -> int:
           f"{sdb['f32']['median_step_ms']:.3f} ms "
           f"({sdb['f32']['tokens_per_s']:.1f} tokens/s), bf16 "
           f"{sdb['bf16']['median_step_ms']:.3f} ms [{label}]")
+    print(f"[done] masked attention classifier (BERT-base widths, batch "
+          f"{BATCH} x {ATTN['t']}): f32 step "
+          f"{ag['f32']['median_step_ms']:.3f} ms "
+          f"({ag['f32']['seq_per_s']:.1f} sequences/s, idle share "
+          f"{ag['f32'].get('profile', {}).get('idle_share', float('nan')):.3f}"
+          f", {ag['f32'].get('profile', {}).get('kernel_calls', 0)} device "
+          f"kernels a step), bf16 {ag['bf16']['median_step_ms']:.3f} ms; "
+          f"flash vs plain route {ag['flash_vs_plain_max_abs']:.3e}; "
+          f"RecurrentAttentionLayer step {ag['recurrent']['step_ms']:.3f} "
+          f"ms; char-RNN graph tBPTT vs layer stack "
+          f"{ag['charrnn_graph']['vs_stack_max_abs']:.3e} [{label}]")
     print(f"[done] matmul precision: "
           f"{torch.get_float32_matmul_precision()}, cuda.matmul.allow_tf32 "
           f"{torch.backends.cuda.matmul.allow_tf32}")

@@ -21,7 +21,8 @@
 // sequences, and key tiles wholly in a query tile's future are skipped
 // (exact: they would add p = 0 and a correction of 1); a key is kept where
 // mask > 0; p is rounded to v's type before p v (to dO's before p^T dO),
-// ds to k's before ds k and to q's before ds^T q; every sum is f32.
+// ds to k's before ds k and to q's before ds^T q; every sum is f32
+// (f64 for f64 inputs).
 //
 // Work split, as the JAX package splits it: the forward and dq take one
 // block per (b*h, query tile) and loop over key tiles with the running
@@ -29,8 +30,8 @@
 // key tile) and loop over query tiles. Each output element is written
 // once: no float atomics, so two launches give the same bits. Rows and
 // columns past t and d are zero in shared memory and masked from the
-// softmax, so any t and any d <= 256 run (d is padded to 32, 64, 128 or
-// 256 in shared memory).
+// softmax, so any t and any d run (d is padded to 32, 64, 128 or 256 in
+// shared memory up to 256, and streamed in chunks past it).
 //
 // Bound: operations in f32, bytes in 16 bit. At BERT-base's sites (t =
 // 128, d = 64) the forward does 4 t^2 d FLOPs for 4 t d elements moved:
@@ -53,16 +54,22 @@
 //     flash_bwd_dq_f32_kernel, flash_bwd_dkv_f32_kernel);
 //   * all three at d in (128, 256]: the first version's SIMT bodies (f32
 //     FMAs for every type, one 4-byte shared load per 2 FMAs, tiles
-//     reloaded on one stage): left for a later redesign.
+//     reloaded on one stage): left for a later redesign;
+//   * all three at d > 256 in every type, and at every d in f64: the wide
+//     SIMT bodies (sums in f32, in f64 for f64), which stream d in chunks
+//     of 32 through shared memory and split the output's d over blocks
+//     (flash_fwd_wide_kernel, flash_bwd_dq_wide_kernel,
+//     flash_bwd_dkv_wide_kernel): a first version, left for a redesign.
 //
 // Every path keeps the semantics above, and each output is written once
-// after a fixed sequence of f32 operations (no split over the reduction,
-// no float atomics). wgmma and TMA are for a later version.
+// after a fixed sequence of f32 (f64) operations (no split over the
+// reduction, no float atomics). wgmma and TMA are for a later version.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <cmath>
 #include <type_traits>
 
 #include "mma_sm80.cuh"
@@ -580,6 +587,555 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (col < d) {
         krow[col] = from_f<T>(dk_acc[i][c]);
         vrow[col] = from_f<T>(dv_acc[i][c]);
+      }
+    }
+  }
+}
+
+// ===========================================================================
+// d > 256, and float64 at every d: the wide SIMT bodies
+// ===========================================================================
+// Neither the tiles nor the accumulators of the bodies above fit past
+// d = 256, so here shared memory does not grow with d: the reduction over
+// d that makes a score runs in chunks of kWideDc columns staged through
+// shared memory, and a grid axis splits the output columns into chunks
+// of kWideDo. Each block recomputes its tile's scores over the whole of
+// d, so every block of a row computes the same scores, maxima and sums
+// in the same order, and each output element is still written once.
+// Sums are in the accumulation type A: f32 for f32 / bf16 / f16 inputs,
+// f64 for f64 (whose lse and delta rows are f64 too). A first version:
+// the score work is repeated once per output chunk (d / 128 times), and
+// every load is a 4- or 8-byte one.
+constexpr int kWideB = 32;    // query rows and key rows of a tile
+constexpr int kWideDc = 32;   // d columns of a staged score chunk
+constexpr int kWideDo = 128;  // output columns a block owns
+
+template <typename T>
+struct AccOf {
+  using type = float;
+};
+template <>
+struct AccOf<double> {
+  using type = double;
+};
+
+__device__ __forceinline__ float a_exp(float v) { return expf(v); }
+__device__ __forceinline__ double a_exp(double v) { return exp(v); }
+__device__ __forceinline__ float a_log(float v) { return logf(v); }
+__device__ __forceinline__ double a_log(double v) { return log(v); }
+__device__ __forceinline__ float a_max(float x, float y) {
+  return fmaxf(x, y);
+}
+__device__ __forceinline__ double a_max(double x, double y) {
+  return fmax(x, y);
+}
+__device__ __forceinline__ float a_fma(float x, float y, float z) {
+  return fmaf(x, y, z);
+}
+__device__ __forceinline__ double a_fma(double x, double y, double z) {
+  return fma(x, y, z);
+}
+
+// T -> A and back: f64 passes through, the other types as above
+template <typename A, typename T>
+__device__ __forceinline__ A to_a(T v) {
+  return static_cast<A>(to_f(v));
+}
+template <>
+__device__ __forceinline__ double to_a<double, double>(double v) {
+  return v;
+}
+template <typename T, typename A>
+__device__ __forceinline__ T from_a(A v) {
+  return from_f<T>(static_cast<float>(v));
+}
+template <>
+__device__ __forceinline__ double from_a<double, double>(double v) {
+  return v;
+}
+template <typename T, typename A>
+__device__ __forceinline__ A round_a(A v) {
+  return to_a<A>(from_a<T>(v));
+}
+
+template <typename A>
+__device__ __forceinline__ A row_max16a(A v) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1)
+    v = a_max(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+template <typename A>
+__device__ __forceinline__ A row_sum16a(A v) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// Rows [row0, row0 + R) and columns [col0, col0 + C) of a contiguous
+// [t, d] matrix into shared memory as A with row stride `stride`; zero
+// past t rows and d columns.
+template <typename A, typename T, int R, int C>
+__device__ __forceinline__ void load_chunk(A* dst, int stride,
+                                           const T* __restrict__ src,
+                                           int row0, int t, int col0,
+                                           int d) {
+  for (int idx = threadIdx.x; idx < R * C; idx += kThreads) {
+    const int r = idx / C;
+    const int c = idx % C;
+    const int row = row0 + r, col = col0 + c;
+    A v = A(0);
+    if (row < t && col < d) v = to_a<A>(src[(int64_t)row * d + col]);
+    dst[r * stride + c] = v;
+  }
+}
+
+// Shared-memory strides of the wide bodies: score chunks read by rows
+// (kWideRow) or by columns (kWideCol), score tiles (kWideP); output
+// chunks are read along their rows, unpadded.
+constexpr int kWideRow = kWideDc + 4;
+constexpr int kWideCol = kWideDc + 1;
+constexpr int kWideP = kWideB + 1;
+
+// The block's (b*h, tile, output chunk) from blockIdx.x
+struct WideBlock {
+  int64_t bh;
+  int r0, c0, oc;
+};
+__device__ __forceinline__ WideBlock wide_block(int t, int d) {
+  const int n_t = (t + kWideB - 1) / kWideB;
+  const int n_oc = (d + kWideDo - 1) / kWideDo;
+  const int oc = (int)(blockIdx.x % n_oc);
+  const int64_t rest = blockIdx.x / n_oc;
+  return {rest / n_t, (int)(rest % n_t) * kWideB, oc * kWideDo, oc};
+}
+
+// ---------------------------------------------------------------------------
+// kernel 7, wide
+// ---------------------------------------------------------------------------
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v,
+                      const float* __restrict__ mask, T* __restrict__ out,
+                      typename AccOf<T>::type* __restrict__ lse, int heads,
+                      int tq, int tk, int d, typename AccOf<T>::type scale,
+                      int causal) {
+  using A = typename AccOf<T>::type;
+  constexpr int B = kWideB, DC = kWideDc, DO = kWideDo;
+  constexpr int R = B / kSide, CD = DO / kSide;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  A* Qs = reinterpret_cast<A*>(smem_raw);  // [B][kWideRow]
+  A* Ks = Qs + B * kWideRow;               // [B][kWideCol]
+  A* Vs = Ks + B * kWideCol;               // [B][DO]
+  A* Ps = Vs + B * DO;                     // [B][kWideP]
+
+  const WideBlock wb = wide_block(tq, d);
+  const int64_t bh = wb.bh;
+  const int q0 = wb.r0, c0 = wb.c0;
+  const int tx = threadIdx.x % kSide, ty = threadIdx.x / kSide;
+  const T* qb = q + bh * tq * d;
+  const T* kb = k + bh * tk * d;
+  const T* vb = v + bh * tk * d;
+  const float* mb = mask ? mask + (bh / heads) * tk : nullptr;
+  const A neg = A(-1e30);  // kNegInf, and exact in f64
+
+  A m[R], l[R], acc[R][CD];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    m[i] = neg;
+    l[i] = A(0);
+#pragma unroll
+    for (int c = 0; c < CD; ++c) acc[i][c] = A(0);
+  }
+
+  const int k_end = causal ? min(tk, q0 + B) : tk;
+  for (int k0 = 0; k0 < k_end; k0 += B) {
+    A s[R][R];
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int j = 0; j < R; ++j) s[i][j] = A(0);
+    for (int d0 = 0; d0 < d; d0 += DC) {
+      __syncthreads();  // the previous chunk (and tile) is consumed
+      load_chunk<A, T, B, DC>(Qs, kWideRow, qb, q0, tq, d0, d);
+      load_chunk<A, T, B, DC>(Ks, kWideCol, kb, k0, tk, d0, d);
+      __syncthreads();
+#pragma unroll 8
+      for (int dd = 0; dd < DC; ++dd) {
+        A a[R], b[R];
+#pragma unroll
+        for (int i = 0; i < R; ++i) a[i] = Qs[(ty * R + i) * kWideRow + dd];
+#pragma unroll
+        for (int j = 0; j < R; ++j)
+          b[j] = Ks[(tx + kSide * j) * kWideCol + dd];
+#pragma unroll
+        for (int i = 0; i < R; ++i)
+#pragma unroll
+          for (int j = 0; j < R; ++j) s[i][j] = a_fma(a[i], b[j], s[i][j]);
+      }
+    }
+    // this key tile's V columns [c0, c0 + DO): the last reads of Vs and
+    // Ps were before the chunk loop's barriers
+    load_chunk<A, T, B, DO>(Vs, DO, vb, k0, tk, c0, d);
+
+    bool keep_k[R];
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const int kj = k0 + tx + kSide * j;
+      keep_k[j] = kj < tk && (mb == nullptr || mb[kj] > 0.f);
+    }
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int qi = q0 + ty * R + i;
+      A mx = m[i];
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        const int kj = k0 + tx + kSide * j;
+        const bool keep = keep_k[j] && (!causal || qi >= kj);
+        s[i][j] = keep ? s[i][j] * scale : neg;
+        mx = a_max(mx, s[i][j]);
+      }
+      const A m_new = row_max16a(mx);
+      const A corr = a_exp(m[i] - m_new);
+      A rs = A(0);
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        const A p = s[i][j] <= neg * A(0.5) ? A(0) : a_exp(s[i][j] - m_new);
+        rs += p;
+        Ps[(ty * R + i) * kWideP + tx + kSide * j] = round_a<T>(p);
+      }
+      l[i] = l[i] * corr + row_sum16a(rs);
+      m[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < CD; ++c) acc[i][c] *= corr;
+    }
+    __syncthreads();
+
+#pragma unroll 4
+    for (int kk = 0; kk < B; ++kk) {
+      A vv[CD];
+#pragma unroll
+      for (int c = 0; c < CD; ++c) vv[c] = Vs[kk * DO + tx + kSide * c];
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const A p = Ps[(ty * R + i) * kWideP + kk];
+#pragma unroll
+        for (int c = 0; c < CD; ++c) acc[i][c] = a_fma(p, vv[c], acc[i][c]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int qi = q0 + ty * R + i;
+    if (qi >= tq) continue;
+    const A lc = a_max(l[i], A(1e-30));
+    T* orow = out + (bh * tq + qi) * d;
+#pragma unroll
+    for (int c = 0; c < CD; ++c) {
+      const int col = c0 + tx + kSide * c;
+      if (col < d) orow[col] = from_a<T>(acc[i][c] / lc);
+    }
+    if (wb.oc == 0 && tx == 0) lse[bh * tq + qi] = m[i] + a_log(lc);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// kernel 8, wide
+// ---------------------------------------------------------------------------
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const T* __restrict__ dout,
+                         const typename AccOf<T>::type* __restrict__ lse,
+                         const typename AccOf<T>::type* __restrict__ delta,
+                         const float* __restrict__ mask, T* __restrict__ dq,
+                         int heads, int tq, int tk, int d,
+                         typename AccOf<T>::type scale, int causal) {
+  using A = typename AccOf<T>::type;
+  constexpr int B = kWideB, DC = kWideDc, DO = kWideDo;
+  constexpr int R = B / kSide, CD = DO / kSide;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  A* Qs = reinterpret_cast<A*>(smem_raw);  // [B][kWideRow]
+  A* Os = Qs + B * kWideRow;               // dO [B][kWideRow]
+  A* Ks = Os + B * kWideRow;               // [B][kWideCol]
+  A* Vs = Ks + B * kWideCol;               // [B][kWideCol]
+  A* Ds = Vs + B * kWideCol;               // ds [B][kWideP]
+  A* Kc = Ds + B * kWideP;                 // K's output columns [B][DO]
+
+  const WideBlock wb = wide_block(tq, d);
+  const int64_t bh = wb.bh;
+  const int q0 = wb.r0, c0 = wb.c0;
+  const int tx = threadIdx.x % kSide, ty = threadIdx.x / kSide;
+  const T* qb = q + bh * tq * d;
+  const T* ob = dout + bh * tq * d;
+  const T* kb = k + bh * tk * d;
+  const T* vb = v + bh * tk * d;
+  const float* mb = mask ? mask + (bh / heads) * tk : nullptr;
+  const A neg = A(-1e30);  // kNegInf, and exact in f64
+
+  A lse_r[R], delta_r[R], acc[R][CD];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int qi = q0 + ty * R + i;
+    lse_r[i] = qi < tq ? lse[bh * tq + qi] : A(0);
+    delta_r[i] = qi < tq ? delta[bh * tq + qi] : A(0);
+#pragma unroll
+    for (int c = 0; c < CD; ++c) acc[i][c] = A(0);
+  }
+
+  const int k_end = causal ? min(tk, q0 + B) : tk;
+  for (int k0 = 0; k0 < k_end; k0 += B) {
+    A s[R][R], dp[R][R];
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int j = 0; j < R; ++j) s[i][j] = dp[i][j] = A(0);
+    for (int d0 = 0; d0 < d; d0 += DC) {
+      __syncthreads();
+      load_chunk<A, T, B, DC>(Qs, kWideRow, qb, q0, tq, d0, d);
+      load_chunk<A, T, B, DC>(Os, kWideRow, ob, q0, tq, d0, d);
+      load_chunk<A, T, B, DC>(Ks, kWideCol, kb, k0, tk, d0, d);
+      load_chunk<A, T, B, DC>(Vs, kWideCol, vb, k0, tk, d0, d);
+      __syncthreads();
+#pragma unroll 8
+      for (int dd = 0; dd < DC; ++dd) {
+        A a[R], o[R], kv[R], vv[R];
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          a[i] = Qs[(ty * R + i) * kWideRow + dd];
+          o[i] = Os[(ty * R + i) * kWideRow + dd];
+        }
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+          kv[j] = Ks[(tx + kSide * j) * kWideCol + dd];
+          vv[j] = Vs[(tx + kSide * j) * kWideCol + dd];
+        }
+#pragma unroll
+        for (int i = 0; i < R; ++i)
+#pragma unroll
+          for (int j = 0; j < R; ++j) {
+            s[i][j] = a_fma(a[i], kv[j], s[i][j]);
+            dp[i][j] = a_fma(o[i], vv[j], dp[i][j]);
+          }
+      }
+    }
+    load_chunk<A, T, B, DO>(Kc, DO, kb, k0, tk, c0, d);
+
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const int kj = k0 + tx + kSide * j;
+      const bool keep_k = kj < tk && (mb == nullptr || mb[kj] > 0.f);
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const int qi = q0 + ty * R + i;
+        const bool keep = keep_k && (!causal || qi >= kj);
+        const A sv = keep ? s[i][j] * scale : neg;
+        const A p = sv <= neg * A(0.5) ? A(0) : a_exp(sv - lse_r[i]);
+        const A ds = p * (dp[i][j] - delta_r[i]);
+        Ds[(ty * R + i) * kWideP + tx + kSide * j] = round_a<T>(ds);
+      }
+    }
+    __syncthreads();
+
+    A part[R][CD];
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int c = 0; c < CD; ++c) part[i][c] = A(0);
+#pragma unroll 4
+    for (int kk = 0; kk < B; ++kk) {
+      A kv[CD];
+#pragma unroll
+      for (int c = 0; c < CD; ++c) kv[c] = Kc[kk * DO + tx + kSide * c];
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const A g = Ds[(ty * R + i) * kWideP + kk];
+#pragma unroll
+        for (int c = 0; c < CD; ++c) part[i][c] = a_fma(g, kv[c], part[i][c]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int c = 0; c < CD; ++c) acc[i][c] += part[i][c] * scale;
+  }
+
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int qi = q0 + ty * R + i;
+    if (qi >= tq) continue;
+    T* row = dq + (bh * tq + qi) * d;
+#pragma unroll
+    for (int c = 0; c < CD; ++c) {
+      const int col = c0 + tx + kSide * c;
+      if (col < d) row[col] = from_a<T>(acc[i][c]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// kernel 9, wide. Thread (ty, tx) owns key rows ty * R + i of the tile and
+// query columns tx + 16 j of each query tile.
+// ---------------------------------------------------------------------------
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v,
+                          const T* __restrict__ dout,
+                          const typename AccOf<T>::type* __restrict__ lse,
+                          const typename AccOf<T>::type* __restrict__ delta,
+                          const float* __restrict__ mask,
+                          T* __restrict__ dk, T* __restrict__ dv, int heads,
+                          int tq, int tk, int d,
+                          typename AccOf<T>::type scale, int causal) {
+  using A = typename AccOf<T>::type;
+  constexpr int B = kWideB, DC = kWideDc, DO = kWideDo;
+  constexpr int R = B / kSide, CD = DO / kSide;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  A* Ks = reinterpret_cast<A*>(smem_raw);  // [B][kWideRow]
+  A* Vs = Ks + B * kWideRow;               // [B][kWideRow]
+  A* Qs = Vs + B * kWideRow;               // [B][kWideCol]
+  A* Os = Qs + B * kWideCol;               // dO [B][kWideCol]
+  A* Pt = Os + B * kWideCol;               // p^T [B][kWideP]
+  A* Dt = Pt + B * kWideP;                 // ds^T [B][kWideP]
+  A* Qc = Dt + B * kWideP;                 // Q's output columns [B][DO]
+  A* Oc = Qc + B * DO;                     // dO's output columns [B][DO]
+  A* lse_s = Oc + B * DO;                  // [B]
+  A* delta_s = lse_s + B;                  // [B]
+
+  const WideBlock wb = wide_block(tk, d);
+  const int64_t bh = wb.bh;
+  const int k0 = wb.r0, c0 = wb.c0;
+  const int tx = threadIdx.x % kSide, ty = threadIdx.x / kSide;
+  const T* qb = q + bh * tq * d;
+  const T* ob = dout + bh * tq * d;
+  const T* kb = k + bh * tk * d;
+  const T* vb = v + bh * tk * d;
+  const float* mb = mask ? mask + (bh / heads) * tk : nullptr;
+  const A neg = A(-1e30);  // kNegInf, and exact in f64
+
+  bool keep_k[R];
+  A dk_acc[R][CD], dv_acc[R][CD];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int kk = k0 + ty * R + i;
+    keep_k[i] = kk < tk && (mb == nullptr || mb[kk] > 0.f);
+#pragma unroll
+    for (int c = 0; c < CD; ++c) dk_acc[i][c] = dv_acc[i][c] = A(0);
+  }
+
+  // query tiles wholly before this key tile see none of its keys
+  const int q_begin = causal ? (k0 / B) * B : 0;
+  for (int q0 = q_begin; q0 < tq; q0 += B) {
+    A s[R][R], dp[R][R];
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int j = 0; j < R; ++j) s[i][j] = dp[i][j] = A(0);
+    for (int d0 = 0; d0 < d; d0 += DC) {
+      __syncthreads();
+      load_chunk<A, T, B, DC>(Ks, kWideRow, kb, k0, tk, d0, d);
+      load_chunk<A, T, B, DC>(Vs, kWideRow, vb, k0, tk, d0, d);
+      load_chunk<A, T, B, DC>(Qs, kWideCol, qb, q0, tq, d0, d);
+      load_chunk<A, T, B, DC>(Os, kWideCol, ob, q0, tq, d0, d);
+      if (d0 == 0) {
+        for (int r = threadIdx.x; r < B; r += kThreads) {
+          const int qi = q0 + r;
+          lse_s[r] = qi < tq ? lse[bh * tq + qi] : A(0);
+          delta_s[r] = qi < tq ? delta[bh * tq + qi] : A(0);
+        }
+      }
+      __syncthreads();
+#pragma unroll 8
+      for (int dd = 0; dd < DC; ++dd) {
+        A kr[R], vr[R], qc[R], oc[R];
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          kr[i] = Ks[(ty * R + i) * kWideRow + dd];
+          vr[i] = Vs[(ty * R + i) * kWideRow + dd];
+        }
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+          qc[j] = Qs[(tx + kSide * j) * kWideCol + dd];
+          oc[j] = Os[(tx + kSide * j) * kWideCol + dd];
+        }
+#pragma unroll
+        for (int i = 0; i < R; ++i)
+#pragma unroll
+          for (int j = 0; j < R; ++j) {
+            // q * k in the forward's operand order: the same score bits
+            s[i][j] = a_fma(qc[j], kr[i], s[i][j]);
+            dp[i][j] = a_fma(oc[j], vr[i], dp[i][j]);
+          }
+      }
+    }
+    load_chunk<A, T, B, DO>(Qc, DO, qb, q0, tq, c0, d);
+    load_chunk<A, T, B, DO>(Oc, DO, ob, q0, tq, c0, d);
+
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const int qc_i = tx + kSide * j;
+      const int qi = q0 + qc_i;
+      const A lse_j = lse_s[qc_i], delta_j = delta_s[qc_i];
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const int kk = k0 + ty * R + i;
+        const bool keep = keep_k[i] && qi < tq && (!causal || qi >= kk);
+        const A sv = keep ? s[i][j] * scale : neg;
+        const A p = sv <= neg * A(0.5) ? A(0) : a_exp(sv - lse_j);
+        const A ds = p * (dp[i][j] - delta_j);
+        Pt[(ty * R + i) * kWideP + qc_i] = round_a<T>(p);
+        Dt[(ty * R + i) * kWideP + qc_i] = round_a<T>(ds);
+      }
+    }
+    __syncthreads();
+
+    A part[R][CD];
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int c = 0; c < CD; ++c) part[i][c] = A(0);
+#pragma unroll 4
+    for (int qq = 0; qq < B; ++qq) {
+      A oc[CD], qc[CD];
+#pragma unroll
+      for (int c = 0; c < CD; ++c) {
+        oc[c] = Oc[qq * DO + tx + kSide * c];
+        qc[c] = Qc[qq * DO + tx + kSide * c];
+      }
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const A p = Pt[(ty * R + i) * kWideP + qq];
+        const A g = Dt[(ty * R + i) * kWideP + qq];
+#pragma unroll
+        for (int c = 0; c < CD; ++c) {
+          dv_acc[i][c] = a_fma(p, oc[c], dv_acc[i][c]);
+          part[i][c] = a_fma(g, qc[c], part[i][c]);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int c = 0; c < CD; ++c) dk_acc[i][c] += part[i][c] * scale;
+  }
+
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int kk = k0 + ty * R + i;
+    if (kk >= tk) continue;
+    T* krow = dk + (bh * tk + kk) * d;
+    T* vrow = dv + (bh * tk + kk) * d;
+#pragma unroll
+    for (int c = 0; c < CD; ++c) {
+      const int col = c0 + tx + kSide * c;
+      if (col < d) {
+        krow[col] = from_a<T>(dk_acc[i][c]);
+        vrow[col] = from_a<T>(dv_acc[i][c]);
       }
     }
   }
@@ -1858,6 +2414,56 @@ int launch(const Args& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// the wide bodies: d > 256 in every type, f64 at every d
+template <Pass P, typename T>
+int launch_wide(const Args& a, cudaStream_t stream) {
+  using A = typename AccOf<T>::type;
+  constexpr int B = kWideB, DO = kWideDo;
+  constexpr int elems =
+      P == Pass::kFwd  ? B * (kWideRow + kWideCol + DO + kWideP)
+      : P == Pass::kDq ? B * (2 * kWideRow + 2 * kWideCol + kWideP + DO)
+                       : B * (2 * kWideRow + 2 * kWideCol + 2 * kWideP +
+                              2 * DO + 2);
+  constexpr int smem = elems * (int)sizeof(A);
+  const int tiles = P == Pass::kDkv ? (a.tk + B - 1) / B : (a.tq + B - 1) / B;
+  const int64_t blocks = a.bh * tiles * ((a.d + DO - 1) / DO);
+  if (blocks <= 0 || blocks > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  // f64 takes 1/sqrt(d) in f64, as its plain version does
+  const A scale = std::is_same<A, double>::value
+                      ? A(1.0 / std::sqrt((double)a.d))
+                      : A(a.scale);
+  const A* lse_in = reinterpret_cast<const A*>(a.lse_in);
+  const A* delta = reinterpret_cast<const A*>(a.delta);
+  static bool configured = false;
+  if constexpr (P == Pass::kFwd) {
+    auto kern = flash_fwd_wide_kernel<T>;
+    if (cudaError_t e = opt_in(kern, smem, configured)) return (int)e;
+    kern<<<(unsigned)blocks, kThreads, smem, stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+        static_cast<const T*>(a.v), a.mask, static_cast<T*>(a.out),
+        reinterpret_cast<A*>(a.lse_out), a.heads, a.tq, a.tk, a.d, scale,
+        a.causal);
+  } else if constexpr (P == Pass::kDq) {
+    auto kern = flash_bwd_dq_wide_kernel<T>;
+    if (cudaError_t e = opt_in(kern, smem, configured)) return (int)e;
+    kern<<<(unsigned)blocks, kThreads, smem, stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+        static_cast<const T*>(a.v), static_cast<const T*>(a.dout), lse_in,
+        delta, a.mask, static_cast<T*>(a.out), a.heads, a.tq, a.tk, a.d,
+        scale, a.causal);
+  } else {
+    auto kern = flash_bwd_dkv_wide_kernel<T>;
+    if (cudaError_t e = opt_in(kern, smem, configured)) return (int)e;
+    kern<<<(unsigned)blocks, kThreads, smem, stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+        static_cast<const T*>(a.v), static_cast<const T*>(a.dout), lse_in,
+        delta, a.mask, static_cast<T*>(a.out), static_cast<T*>(a.out2),
+        a.heads, a.tq, a.tk, a.d, scale, a.causal);
+  }
+  return (int)cudaGetLastError();
+}
+
 // the redesigned kernels on tensor cores (16-bit inputs, d <= 128)
 template <Pass P, typename T, int DP, bool VEC>
 int launch_mma(const Args& a, cudaStream_t stream) {
@@ -1965,7 +2571,7 @@ int by_width(const Args& a, cudaStream_t s) {
   if (a.d <= 128) return redesigned<P, T, 128>(a, s);
   // d in (128, 256]: the first version's SIMT bodies, for now
   if (a.d <= 256) return launch<P, T, 256, 32, 32>(a, s);
-  return (int)cudaErrorInvalidValue;
+  return launch_wide<P, T>(a, s);
 }
 
 template <Pass P>
@@ -1975,14 +2581,16 @@ int dispatch(const Args& a, int dtype, cudaStream_t s) {
   if (dtype == 0) return by_width<P, float>(a, s);
   if (dtype == 1) return by_width<P, __nv_bfloat16>(a, s);
   if (dtype == 2) return by_width<P, __half>(a, s);
+  if (dtype == 3) return launch_wide<P, double>(a, s);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (q, k, v, dO and the
-// outputs share it). q, dO, out, dq: [bh, tq, d]; k, v, dk, dv: [bh, tk,
-// d]; lse, delta: f32 [bh, tq]; mask: f32 [bh / heads, tk] or null. All
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16, 3 = float64 (q, k, v,
+// dO and the outputs share it). q, dO, out, dq: [bh, tq, d]; k, v, dk,
+// dv: [bh, tk, d]; lse, delta: [bh, tq], f64 for float64 and f32
+// otherwise; mask: f32 [bh / heads, tk] or null. All
 // contiguous. One launch on `stream` each; no synchronisation, no
 // allocation. Each returns the cudaError_t (0 on success).
 extern "C" int dl4j_flash_fwd(const void* q, const void* k, const void* v,

@@ -6,9 +6,10 @@ Counterpart of ``deeplearning4j_tpu/nn/conf/builders.py``:
 package's, read and written verbatim, recurrent layers and truncated
 BPTT included) and ``graph_builder()`` into a
 ``ComputationGraphConfiguration``. As in the JAX package, shape
-inference inserts no Rnn/FeedForward preprocessor by itself: a dense
-layer maps the last axis of a ``[b, t, f]`` input, and
-``RnnOutputLayer`` is per-timestep.
+inference inserts only the flat/NHWC adapters (``default_preprocessor``)
+and no Rnn/FeedForward preprocessor by itself: a dense layer maps the
+last axis of a ``[b, t, f]`` input, and ``RnnOutputLayer`` is
+per-timestep.
 """
 from __future__ import annotations
 
@@ -19,11 +20,15 @@ from typing import Dict, List, Optional
 
 from deeplearning4j_tpu_torch.learning.updaters import IUpdater, Sgd
 from deeplearning4j_tpu_torch.nn.conf.inputs import (
-    InputType, InputTypeConvolutional, InputTypeConvolutionalFlat)
+    InputType, InputTypeConvolutional, InputTypeConvolutional3D,
+    InputTypeConvolutionalFlat)
+from deeplearning4j_tpu_torch.nn.conf import \
+    layers_attention  # noqa: F401  registers the attention layers
 from deeplearning4j_tpu_torch.nn.conf import \
     layers_recurrent  # noqa: F401  registers the recurrent layers
 from deeplearning4j_tpu_torch.nn.conf.layers import (
-    ConvolutionLayer, DenseLayer, Layer, RnnOutputLayer, SubsamplingLayer)
+    CnnLossLayer, ConvolutionLayer, DenseLayer, Layer, RnnOutputLayer,
+    SubsamplingLayer)
 from deeplearning4j_tpu_torch.nn.conf.preprocessors import (
     CnnToFeedForwardPreProcessor, FeedForwardToCnnPreProcessor,
     InputPreProcessor)
@@ -48,30 +53,25 @@ class BackpropType(enum.Enum):
 def default_preprocessor(cur: InputType, layer: Layer
                          ) -> Optional[InputPreProcessor]:
     """The shape adapter the JAX package inserts before ``layer`` on a
-    ``cur`` input: flat to NHWC before a convolution or pooling, NHWC to
-    flat before a dense layer (output layers included, the per-timestep
-    ``RnnOutputLayer`` not)."""
+    ``cur`` input, in a layer stack and before a graph's layer vertex
+    alike: flat to NHWC before a convolution or pooling, NHWC to flat
+    before a dense layer (output and loss layers included, the
+    per-timestep ``RnnOutputLayer`` and the per-pixel ``CnnLossLayer``
+    not)."""
     if isinstance(cur, InputTypeConvolutionalFlat) and \
             isinstance(layer, (ConvolutionLayer, SubsamplingLayer)):
         return FeedForwardToCnnPreProcessor(cur.height, cur.width,
                                             cur.channels)
-    if isinstance(cur, InputTypeConvolutional) and \
-            isinstance(layer, DenseLayer) and \
-            not isinstance(layer, RnnOutputLayer):
+    wants_ff = isinstance(layer, DenseLayer) and \
+        not isinstance(layer, (RnnOutputLayer, CnnLossLayer))
+    if isinstance(cur, InputTypeConvolutional) and wants_ff:
         return CnnToFeedForwardPreProcessor(cur.height, cur.width,
                                             cur.channels)
-    return None
-
-
-def check_no_preprocessor(cur: InputType, layer: Layer) -> None:
-    """Raise where the JAX package would insert a shape preprocessor
-    into a ComputationGraph: graph vertices with preprocessors are not
-    ported yet, and ResNet-50 needs none."""
-    if default_preprocessor(cur, layer) is not None:
+    if isinstance(cur, InputTypeConvolutional3D) and wants_ff:
         raise NotImplementedError(
-            f"{type(layer).__name__} on a {type(cur).__name__} input "
-            f"needs a shape preprocessor, which graph vertices do not "
-            f"carry yet")
+            "Cnn3DToFeedForwardPreProcessor is not ported yet (ROADMAP.md, "
+            "Queue A item 14)")
+    return None
 
 
 @dataclass

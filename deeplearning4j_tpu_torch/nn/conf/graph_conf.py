@@ -3,7 +3,10 @@
 Counterpart of ``deeplearning4j_tpu/nn/conf/graph_conf.py``: a
 topo-sorted DAG of layer and vertex nodes with per-node input lists,
 shape inference, and a JSON form that reads the JAX package's
-``configuration.json`` verbatim and writes one it can read.
+``configuration.json`` verbatim and writes one it can read. A layer
+vertex may carry an input preprocessor (given as ``add_layer``'s first
+input, or inserted by shape inference as ``default_preprocessor``
+decides), which the graph applies to the layer's input.
 """
 from __future__ import annotations
 
@@ -14,19 +17,22 @@ from typing import Dict, List, Optional, Union
 from deeplearning4j_tpu_torch.learning.updaters import IUpdater, Sgd
 from deeplearning4j_tpu_torch.nn.conf.builders import (
     BackpropType, GradientNormalization, apply_layer_defaults,
-    check_no_preprocessor)
+    default_preprocessor)
 from deeplearning4j_tpu_torch.nn.conf.graph_vertices import GraphVertex
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.conf.layers import Layer
+from deeplearning4j_tpu_torch.nn.conf.preprocessors import InputPreProcessor
 from deeplearning4j_tpu_torch.nn.weights import WeightInit
 
 
 @dataclass
 class VertexDef:
-    """One node: a Layer or a GraphVertex plus its input vertex names."""
+    """One node: a Layer or a GraphVertex plus its input vertex names
+    (and, for a layer, the preprocessor of its input)."""
     name: str
     content: Union[Layer, GraphVertex]
     inputs: List[str]
+    preprocessor: Optional[InputPreProcessor] = None
 
     @property
     def is_layer(self) -> bool:
@@ -78,7 +84,8 @@ class ComputationGraphConfiguration:
         return order
 
     def resolve_shapes(self) -> Dict[str, InputType]:
-        """Infer each layer's ``n_in`` from the input types; returns
+        """Infer each layer's ``n_in`` from the input types, inserting
+        the default preprocessor where a layer vertex has none; returns
         every vertex's output type (empty without input types)."""
         if not self.input_types:
             return {}
@@ -89,7 +96,10 @@ class ComputationGraphConfiguration:
             in_types = [types[i] for i in v.inputs]
             if v.is_layer:
                 cur = in_types[0]
-                check_no_preprocessor(cur, v.content)
+                if v.preprocessor is None:
+                    v.preprocessor = default_preprocessor(cur, v.content)
+                if v.preprocessor is not None:
+                    cur = v.preprocessor.get_output_type(cur)
                 v.content.set_n_in(cur, override=False)
                 types[name] = v.content.get_output_type(cur)
             else:
@@ -105,7 +115,8 @@ class ComputationGraphConfiguration:
                 "kind": "layer" if v.is_layer else "vertex",
                 "content": v.content.to_map(),
                 "inputs": v.inputs,
-                "preprocessor": None,
+                "preprocessor": v.preprocessor.to_map()
+                                if v.preprocessor else None,
             } for v in self.vertices.values()],
             "input_types": [t.to_map() for t in self.input_types],
             "seed": self.seed,
@@ -148,15 +159,13 @@ class ComputationGraphConfiguration:
             remat_segments=d.get("remat_segments", 0),
         )
         for vd in d["vertices"]:
-            if vd.get("preprocessor"):
-                raise NotImplementedError(
-                    f"vertex {vd['name']!r} carries a preprocessor, "
-                    f"which is not ported yet")
             content = Layer.from_map(vd["content"]) \
                 if vd["kind"] == "layer" \
                 else GraphVertex.from_map(vd["content"])
             conf.vertices[vd["name"]] = VertexDef(
-                vd["name"], content, list(vd["inputs"]))
+                vd["name"], content, list(vd["inputs"]),
+                InputPreProcessor.from_map(vd["preprocessor"])
+                if vd.get("preprocessor") else None)
         conf.resolve_shapes()
         return conf
 
@@ -177,8 +186,13 @@ class GraphBuilder:
         return self
 
     def add_layer(self, name: str, layer: Layer,
-                  *inputs: str) -> "GraphBuilder":
-        self._conf.vertices[name] = VertexDef(name, layer, list(inputs))
+                  *inputs) -> "GraphBuilder":
+        """``inputs`` are vertex names, optionally led by the
+        preprocessor of the layer's input (the reference's overload)."""
+        ins = list(inputs)
+        pre = ins.pop(0) if ins and isinstance(ins[0],
+                                               InputPreProcessor) else None
+        self._conf.vertices[name] = VertexDef(name, layer, ins, pre)
         return self
 
     def add_vertex(self, name: str, vertex: GraphVertex,
@@ -188,6 +202,16 @@ class GraphBuilder:
 
     def set_outputs(self, *names: str) -> "GraphBuilder":
         self._conf.network_outputs = list(names)
+        return self
+
+    def backprop_type(self, t: BackpropType) -> "GraphBuilder":
+        self._conf.backprop_type = t
+        return self
+
+    def t_bptt_length(self, fwd: int,
+                      back: Optional[int] = None) -> "GraphBuilder":
+        self._conf.tbptt_fwd_length = fwd
+        self._conf.tbptt_back_length = back if back is not None else fwd
         return self
 
     def remat_segments(self, n: int) -> "GraphBuilder":

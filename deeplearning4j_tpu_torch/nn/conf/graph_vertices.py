@@ -1,19 +1,25 @@
 """Graph vertices: the DAG building blocks of ComputationGraph.
 
-Counterpart of ``deeplearning4j_tpu/nn/conf/graph_vertices.py``, for
-the vertices of the ported zoo models: ``ElementWiseVertex`` (ResNet-50's
-residual add) and ``MergeVertex`` (SqueezeNet's fire-module concat).
+Counterpart of ``deeplearning4j_tpu/nn/conf/graph_vertices.py``, all
+nine vertices: ``MergeVertex`` (concatenate the feature axis),
+``ElementWiseVertex``, ``SubsetVertex`` (an inclusive feature range),
+``ScaleVertex``, ``ShiftVertex``, ``StackVertex`` / ``UnstackVertex``
+(along the batch axis), ``L2NormalizeVertex`` (per example, over every
+axis but the batch) and ``PreprocessorVertex`` (an input preprocessor as
+a vertex of its own). Each is a pure function of its inputs, with no
+parameters.
 """
 from __future__ import annotations
 
 import enum
 from dataclasses import dataclass
-from typing import List
+from typing import List, Optional
 
 import torch
 
 from deeplearning4j_tpu_torch.nn.conf.inputs import (
     InputType, InputTypeConvolutional, InputTypeRecurrent)
+from deeplearning4j_tpu_torch.nn.conf.preprocessors import InputPreProcessor
 
 
 class GraphVertex:
@@ -43,6 +49,15 @@ class GraphVertex:
         return cls(**d)
 
 
+def _with_features(t: InputType, n: int) -> InputType:
+    """``t`` with its feature (or channel) count set to ``n``."""
+    if isinstance(t, InputTypeConvolutional):
+        return InputType.convolutional(t.height, t.width, n)
+    if isinstance(t, InputTypeRecurrent):
+        return InputType.recurrent(n, t.timesteps)
+    return InputType.feed_forward(n)
+
+
 @dataclass
 class MergeVertex(GraphVertex):
     """Concatenate along the feature/channel (last) axis (NHWC: the
@@ -52,14 +67,9 @@ class MergeVertex(GraphVertex):
         return torch.cat(inputs, dim=-1)
 
     def get_output_type(self, input_types):
-        t0 = input_types[0]
-        if isinstance(t0, InputTypeConvolutional):
-            return InputType.convolutional(
-                t0.height, t0.width, sum(t.channels for t in input_types))
-        if isinstance(t0, InputTypeRecurrent):
-            return InputType.recurrent(sum(t.size for t in input_types),
-                                       t0.timesteps)
-        return InputType.feed_forward(sum(t.size for t in input_types))
+        return _with_features(input_types[0], sum(
+            t.channels if isinstance(t, InputTypeConvolutional) else t.size
+            for t in input_types))
 
 
 @dataclass
@@ -102,5 +112,106 @@ class ElementWiseVertex(GraphVertex):
         return input_types[0]
 
 
-VERTEX_REGISTRY: dict = {c.__name__: c for c in (MergeVertex,
-                                                  ElementWiseVertex)}
+@dataclass
+class SubsetVertex(GraphVertex):
+    """The feature range ``[from_idx, to_idx]``, both ends included
+    (reference: SubsetVertex)."""
+    from_idx: int = 0
+    to_idx: int = 0
+
+    def forward(self, inputs, *, training=False):
+        return inputs[0][..., self.from_idx:self.to_idx + 1]
+
+    def get_output_type(self, input_types):
+        return _with_features(input_types[0],
+                              self.to_idx - self.from_idx + 1)
+
+
+@dataclass
+class ScaleVertex(GraphVertex):
+    scale_factor: float = 1.0
+
+    def forward(self, inputs, *, training=False):
+        return inputs[0] * self.scale_factor
+
+    def get_output_type(self, input_types):
+        return input_types[0]
+
+
+@dataclass
+class ShiftVertex(GraphVertex):
+    shift_factor: float = 0.0
+
+    def forward(self, inputs, *, training=False):
+        return inputs[0] + self.shift_factor
+
+    def get_output_type(self, input_types):
+        return input_types[0]
+
+
+@dataclass
+class StackVertex(GraphVertex):
+    """Concatenate the inputs along the batch axis (reference:
+    StackVertex)."""
+
+    def forward(self, inputs, *, training=False):
+        return torch.cat(inputs, dim=0)
+
+    def get_output_type(self, input_types):
+        return input_types[0]
+
+
+@dataclass
+class UnstackVertex(GraphVertex):
+    """Block ``from_idx`` of ``stack_size`` equal blocks of the batch axis
+    (reference: UnstackVertex)."""
+    from_idx: int = 0
+    stack_size: int = 1
+
+    def forward(self, inputs, *, training=False):
+        x = inputs[0]
+        n = x.shape[0] // self.stack_size
+        return x[self.from_idx * n:(self.from_idx + 1) * n]
+
+    def get_output_type(self, input_types):
+        return input_types[0]
+
+
+@dataclass
+class L2NormalizeVertex(GraphVertex):
+    """``x / sqrt(sum(x²) + eps)`` per example, the sum over every axis
+    but the batch."""
+    eps: float = 1e-8
+
+    def forward(self, inputs, *, training=False):
+        x = inputs[0]
+        axes = tuple(range(1, x.dim()))
+        return x / torch.sqrt(torch.sum(x * x, dim=axes, keepdim=True)
+                              + self.eps)
+
+    def get_output_type(self, input_types):
+        return input_types[0]
+
+
+@dataclass
+class PreprocessorVertex(GraphVertex):
+    preprocessor: Optional[InputPreProcessor] = None
+
+    def __post_init__(self):
+        if isinstance(self.preprocessor, dict):
+            self.preprocessor = InputPreProcessor.from_map(self.preprocessor)
+
+    def forward(self, inputs, *, training=False):
+        return self.preprocessor.pre_process(inputs[0])
+
+    def get_output_type(self, input_types):
+        return self.preprocessor.get_output_type(input_types[0])
+
+    def to_map(self):
+        return {"@class": "PreprocessorVertex",
+                "preprocessor": self.preprocessor.to_map()}
+
+
+VERTEX_REGISTRY: dict = {c.__name__: c for c in (
+    MergeVertex, ElementWiseVertex, SubsetVertex, ScaleVertex, ShiftVertex,
+    StackVertex, UnstackVertex, L2NormalizeVertex, PreprocessorVertex)}

@@ -1,10 +1,8 @@
 """Layer configurations and their math.
 
-Counterpart of ``deeplearning4j_tpu/nn/conf/layers.py``, for the
-layers ResNet-50, LeNet-5, SqueezeNet, the char-RNN and their output
-heads use (the recurrent layers are in ``layers_recurrent.py``). Each
-config
-dataclass keeps the JAX package's fields, so ``configuration.json``
+Counterpart of ``deeplearning4j_tpu/nn/conf/layers.py``, every layer
+of it (the recurrent layers are in ``layers_recurrent.py``, the
+attention layers in ``layers_attention.py``). Each config dataclass keeps the JAX package's fields, so ``configuration.json``
 round-trips verbatim, and is also the runtime:
 
     init_params(generator, input_type)   -> {name: CPU tensor}
@@ -552,6 +550,39 @@ class DropoutLayer(Layer):
         pass
 
 
+@dataclass
+class EmbeddingLayer(Layer):
+    """Index -> vector lookup (reference: conf.layers.EmbeddingLayer):
+    int ``[b]`` or ``[b, 1]`` -> ``[b, n_out]``; ``n_in`` is the
+    vocabulary size."""
+
+    has_bias: bool = False
+
+    def init_params(self, generator, input_type, dtype=torch.float32):
+        wi = self.weight_init or WeightInit.XAVIER
+        p = {"W": wi.init(generator, (self.n_in, self.n_out), self.n_in,
+                          self.n_out, dtype)}
+        if self.has_bias:
+            p["b"] = torch.full((self.n_out,), float(self.bias_init),
+                                dtype=dtype)
+        return p
+
+    def forward(self, params, x, *, training, rng=None, state=None):
+        idx = x.long()
+        if idx.dim() == 2 and idx.shape[-1] == 1:
+            idx = idx[..., 0]
+        z = params["W"][idx]
+        if self.has_bias:
+            z = z + params["b"]
+        return self.activation(z), state
+
+    def get_output_type(self, input_type):
+        return InputType.feed_forward(self.n_out)
+
+    def set_n_in(self, input_type, override):
+        pass  # n_in is the vocabulary size
+
+
 # ---------------------------------------------------------------------------
 @dataclass
 class BaseOutputLayer(DenseLayer):
@@ -600,11 +631,51 @@ class RnnOutputLayer(BaseOutputLayer):
         return InputType.recurrent(self.n_out, t)
 
 
+@dataclass
+class LossLayer(BaseOutputLayer):
+    """A loss head with no parameters (reference: conf.layers.LossLayer):
+    the activation of its input, the loss against the labels."""
+
+    def has_params(self) -> bool:
+        return False
+
+    def init_params(self, generator, input_type, dtype=torch.float32):
+        return {}
+
+    def forward(self, params, x, *, training, rng=None, state=None):
+        return self.activation(x), state
+
+    def forward_logits(self, params, x, *, training, rng=None, state=None):
+        return x, state
+
+    def get_output_type(self, input_type):
+        return input_type
+
+    def set_n_in(self, input_type, override):
+        if isinstance(input_type, InputTypeFeedForward):
+            self.n_in = self.n_out = input_type.size
+
+
+@dataclass
+class CnnLossLayer(LossLayer):
+    """A per-pixel loss head on NHWC activations, no parameters and no
+    flattening (reference: conf.layers.CnnLossLayer); its activation is
+    applied before the loss, never folded into it."""
+
+    activation: Activation = Activation.IDENTITY
+
+    def wants_logits(self) -> bool:
+        return False
+
+    def set_n_in(self, input_type, override):
+        pass
+
+
 LAYER_REGISTRY: dict = {c.__name__: c for c in
                         (DenseLayer, ConvolutionLayer, SubsamplingLayer,
-                         BatchNormalization, ActivationLayer,
-                         GlobalPoolingLayer, DropoutLayer, OutputLayer,
-                         RnnOutputLayer)}
+                         BatchNormalization, ActivationLayer, DropoutLayer,
+                         EmbeddingLayer, GlobalPoolingLayer, OutputLayer,
+                         RnnOutputLayer, LossLayer, CnnLossLayer)}
 
 
 def register_layer(cls):

@@ -2,14 +2,22 @@
 
 Counterpart of ``deeplearning4j_tpu/nn/graph.py`` on one device:
 ``init``, the topo-ordered walk of ``_forward`` (without tensor
-parallelism, fsdp or features masks, which ``fit``, ``score`` and
-``evaluate`` refuse), ``output``, ``evaluate`` /
-``evaluate_regression``, and training: ``fit(x, y)``,
-``fit(DataSet)``, ``fit(iterator)``, ``score()``, listeners, gradient
+parallelism or fsdp), ``output`` / ``outputs`` / ``predict``,
+``evaluate`` / ``evaluate_regression``, ``rnn_time_step`` with
+``rnn_{get,set,clear}_previous_state``, ``param_table``, ``summary``,
+and training: ``fit(x, y)``, ``fit(DataSet)``, ``fit(iterator)``,
+``fit_steps``, ``score()``, listeners, truncated BPTT, gradient
 accumulation and the dense update tail (``nn/trainer.py``). PyTorch
 runs eagerly, so there is no compiled step: each vertex's layer runs as
 its own kernels, in order, on ``self.device``, and autograd walks back
 through them.
+
+A layer vertex's input passes its preprocessor first. The features mask
+is the first network input's (a DataSet's ``features_mask``, a
+MultiDataSet's ``features_masks[0]``, ``output(..., mask=)``): as in the
+JAX package it is handed unchanged to every layer that accepts one, and
+is not propagated (after a layer that changes the time axis, such as
+``LearnedSelfAttentionLayer``, no mask-taking layer should follow).
 
 Training draws from a per-step ``RngKey`` folded with each layer's
 position among the layer vertices of the topo order (the JAX package's
@@ -42,6 +50,7 @@ from deeplearning4j_tpu_torch.common.environment import resolve_device
 from deeplearning4j_tpu_torch.common.remat import segment_plan
 from deeplearning4j_tpu_torch.nn.conf.graph_conf import \
     ComputationGraphConfiguration
+from deeplearning4j_tpu_torch.nn.conf.inputs import InputTypeRecurrent
 from deeplearning4j_tpu_torch.nn.conf.layers import BaseOutputLayer
 from deeplearning4j_tpu_torch.nn.trainer import Trainable
 
@@ -83,13 +92,36 @@ def as_device_tensor(x, dtype: torch.dtype, device) -> torch.Tensor:
     return t.to(device)
 
 
-def _refuse_features_mask(ds) -> None:
-    masks = getattr(ds, "features_masks", None) or [
-        getattr(ds, "features_mask", None)]
-    if any(m is not None for m in masks):
-        raise NotImplementedError(
-            "features masks in a ComputationGraph are not ported yet "
-            "(ROADMAP.md, Queue A item 15)")
+def clone_tree(tree):
+    """A copy of a nested dict / list / tuple of tensors, each tensor
+    cloned."""
+    if isinstance(tree, dict):
+        return {k: clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(clone_tree(v) for v in tree)
+    return tree.detach().clone() if isinstance(tree, torch.Tensor) else tree
+
+
+def ds_features_mask(ds):
+    """A DataSet's or MultiDataSet's features mask: the first input's."""
+    ms = getattr(ds, "features_masks", None)
+    if ms:
+        return ms[0]
+    return getattr(ds, "features_mask", None)
+
+
+def ds_labels_masks(ds):
+    """A DataSet's or MultiDataSet's labels masks, one per output, or
+    None."""
+    ms = getattr(ds, "labels_masks", None)
+    if ms is not None:
+        return ms
+    lm = getattr(ds, "labels_mask", None)
+    return [lm] if lm is not None else None
+
+
+def _as_list(v) -> list:
+    return list(v) if isinstance(v, (list, tuple)) else [v]
 
 
 class ComputationGraph(Trainable):
@@ -127,6 +159,8 @@ class ComputationGraph(Trainable):
             if not v.is_layer:
                 continue
             in_type = types.get(v.inputs[0])
+            if v.preprocessor is not None and in_type is not None:
+                in_type = v.preprocessor.get_output_type(in_type)
             if v.content.has_params():
                 params[name] = v.content.init_params(generator, in_type,
                                                      self._dtype)
@@ -173,14 +207,15 @@ class ComputationGraph(Trainable):
     # ------------------------------------------------------------------
     def _forward(self, params, states, inputs: Sequence[torch.Tensor], *,
                  training: bool = False, rng=None,
-                 want_logits: bool = False):
+                 want_logits: bool = False, fmask=None):
         """Walk in topo order; returns ``(acts, new_states)``: the
         activations by vertex name (network inputs included; an output
         layer that folds its softmax into the loss gives logits when
         ``want_logits``; the segmented walk keeps only those live at its
         end), and each stateful layer's new state (the blended
         BatchNormalization stats in training). ``rng`` is this step's
-        key (None: no dropout and no weight noise)."""
+        key (None: no dropout and no weight noise); ``fmask`` the ``[b,
+        t]`` features mask, given to every layer that accepts one."""
         conf = self.conf
         if conf.compute_dtype:
             cd = to_torch_dtype(conf.compute_dtype)
@@ -195,6 +230,9 @@ class ComputationGraph(Trainable):
             if not v.is_layer:
                 return v.content.forward(xs, training=training), None
             layer = v.content
+            h = xs[0]
+            if v.preprocessor is not None:
+                h = v.preprocessor.pre_process(h)
             lrng = rng.fold_in(layer_pos[name]) if rng is not None \
                 else None
             lp, ls = params.get(name, {}), states.get(name) or None
@@ -205,11 +243,13 @@ class ComputationGraph(Trainable):
             if want_logits and name in conf.network_outputs and \
                     isinstance(layer, BaseOutputLayer) and \
                     layer.wants_logits():
-                h, ns = layer.forward_logits(lp, xs[0], training=training,
+                h, ns = layer.forward_logits(lp, h, training=training,
                                              rng=lrng, state=ls)
             else:
-                h, ns = layer.forward(lp, xs[0], training=training,
-                                      rng=lrng, state=ls)
+                kw = {"mask": fmask} if fmask is not None and \
+                    layer.accepts_mask() else {}
+                h, ns = layer.forward(lp, h, training=training, rng=lrng,
+                                      state=ls, **kw)
             return h, ns or {}
 
         def run_segment(names, in_acts, out_names):
@@ -269,52 +309,105 @@ class ComputationGraph(Trainable):
     def _as_input(self, x) -> torch.Tensor:
         return as_device_tensor(x, self._dtype, self.device)
 
-    def output(self, *inputs, train: bool = False):
+    def _as_mask(self, m) -> Optional[torch.Tensor]:
+        return self._as_input(m) if m is not None else None
+
+    def output(self, *inputs, train: bool = False, mask=None):
         """Output activations on ``self.device`` (a tensor, or a list
         with one per network output). ``inputs`` are NHWC arrays or
-        tensors, one per network input. ``train=True`` runs the
-        training forward without a key (batch statistics, no dropout)
-        and keeps no state."""
+        tensors, one per network input; ``mask`` the ``[b, t]``
+        features mask. ``train=True`` runs the training forward without
+        a key (batch statistics, no dropout) and keeps no state."""
         if not self._initialized:
             self.init()
         xs = [self._as_input(x) for x in inputs]
         with torch.inference_mode():
             acts, _ = self._forward(self.params, self.states, xs,
-                                    training=train)
+                                    training=train,
+                                    fmask=self._as_mask(mask))
         outs = [acts[n] for n in self.conf.network_outputs]
         return outs[0] if len(outs) == 1 else outs
 
+    def outputs(self, *inputs, train: bool = False, mask=None) -> list:
+        """``output`` as a list whatever the number of network outputs
+        (reference: output returns INDArray[])."""
+        out = self.output(*inputs, train=train, mask=mask)
+        return out if isinstance(out, list) else [out]
+
+    def predict(self, *inputs) -> np.ndarray:
+        """Argmax class predictions of the first output."""
+        return self.outputs(*inputs)[0].argmax(-1).cpu().numpy()
+
+    # -- stateful streaming inference ------------------------------------
+    def rnn_time_step(self, *inputs):
+        """Feed one step (2-dim recurrent inputs, answered with each
+        output's last step) or a chunk (3-dim) of a sequence through the
+        graph, carrying every recurrent vertex's state across calls
+        (reference: rnnTimeStep). Inputs declared feed-forward pass as
+        they are."""
+        self._refuse_bidirectional("graphs")
+        if not self._initialized:
+            self.init()
+        xs = [self._as_input(x) for x in inputs]
+        rec = [isinstance(t, InputTypeRecurrent)
+               for t in self.conf.input_types] or [True] * len(xs)
+        if len(rec) != len(xs):
+            raise ValueError(f"rnnTimeStep got {len(xs)} inputs for "
+                             f"{len(rec)} declared network inputs")
+        single_step = all(x.dim() == 2 for x, r in zip(xs, rec) if r)
+        xs = [x[:, None, :] if r and x.dim() == 2 else x
+              for x, r in zip(xs, rec)]
+        states = self._stream_states(int(xs[0].shape[0]))
+        with torch.inference_mode():
+            acts, new_states = self._forward(self.params, states, xs)
+        self._keep_stream(new_states)
+        outs = [acts[n] for n in self.conf.network_outputs]
+        if single_step:
+            outs = [o[:, -1] if o.dim() == 3 else o for o in outs]
+        return outs[0] if len(outs) == 1 else outs
+
+    def rnn_get_previous_state(self, vertex_name: str) -> Optional[dict]:
+        if self._rnn_stream_states is None:
+            return None
+        return self._rnn_stream_states.get(vertex_name)
+
+    def rnn_set_previous_state(self, vertex_name: str, state: dict) -> None:
+        """Overwrite one recurrent vertex's streaming state (reference:
+        rnnSetPreviousState); the batch size comes from the state."""
+        if not self._initialized:
+            self.init()
+        if vertex_name not in self._recurrent_keys():
+            raise ValueError(f"'{vertex_name}' is not a recurrent vertex "
+                             f"(recurrent: {self._recurrent_keys()})")
+        if not state:
+            raise ValueError("cannot infer batch size from an empty state "
+                             "dict")
+        batch = int(next(iter(state.values())).shape[0])
+        states = self._stream_states(batch, "rnnSetPreviousState")
+        self._rnn_stream_states = {**states, vertex_name: {
+            n: self._as_input(t) for n, t in state.items()}}
+
     # -- training --------------------------------------------------------
     def _split(self, data, labels):
-        """(inputs, labels, labels masks) as tensors on the device, from
-        ``(x, y)`` (arrays, tensors or lists of them) or a DataSet /
-        MultiDataSet. A features mask is refused: ``fit`` and ``score``
-        would treat the padded steps as real data (ROADMAP item 15
-        ports the masks)."""
+        """(inputs, labels, labels masks, features mask) as tensors on
+        the device, from ``(x, y)`` (arrays, tensors or lists of them) or
+        a DataSet / MultiDataSet."""
         if labels is None:
-            _refuse_features_mask(data)
             feats, labs = data.features, data.labels
-            lmasks = getattr(data, "labels_masks", None)
-            if lmasks is None and getattr(data, "labels_mask",
-                                          None) is not None:
-                lmasks = [data.labels_mask]
+            lmasks, fmask = ds_labels_masks(data), ds_features_mask(data)
         else:
-            feats, labs, lmasks = data, labels, None
-        def as_list(v):
-            return list(v) if isinstance(v, (list, tuple)) else [v]
-        inputs = [self._as_input(x) for x in as_list(feats)]
-        labels = [self._as_input(y) for y in as_list(labs)]
+            feats, labs, lmasks, fmask = data, labels, None, None
+        inputs = [self._as_input(x) for x in _as_list(feats)]
+        labels = [self._as_input(y) for y in _as_list(labs)]
         if lmasks is not None:
-            lmasks = [self._as_input(m) if m is not None else None
-                      for m in lmasks]
-        return inputs, labels, lmasks
+            lmasks = [self._as_mask(m) for m in lmasks]
+        return inputs, labels, lmasks, self._as_mask(fmask)
 
     def _loss(self, params, states, inputs, labels, lmasks, fmask=None, *,
               training: bool, rng=None):
-        # ``fmask`` is always None: ``_split`` refuses features masks
         acts, new_states = self._forward(params, states, inputs,
                                          training=training, rng=rng,
-                                         want_logits=True)
+                                         want_logits=True, fmask=fmask)
         loss = self._regularization(params)
         for i, name in enumerate(self.conf.network_outputs):
             layer = self.conf.vertices[name].content
@@ -327,23 +420,16 @@ class ComputationGraph(Trainable):
 
     # -- evaluation ------------------------------------------------------
     def _eval_batches(self, iterator):
-        """``(labels, output)`` of the first network output per batch,
-        with the labels mask."""
+        """``(labels, output, labels mask)`` of the first network output
+        per batch, the output under the batch's features mask."""
         if hasattr(iterator, "reset"):
             iterator.reset()
         for ds in iterator:
-            _refuse_features_mask(ds)
-            feats = ds.features if isinstance(ds.features, list) \
-                else [ds.features]
-            out = self.output(*feats)
-            if isinstance(out, list):
-                out = out[0]
-            labels = ds.labels[0] if isinstance(ds.labels, list) \
-                else ds.labels
-            lmasks = getattr(ds, "labels_masks", None)
-            lmask = lmasks[0] if lmasks else getattr(ds, "labels_mask",
-                                                     None)
-            yield labels, out, lmask
+            out = self.outputs(*_as_list(ds.features),
+                               mask=ds_features_mask(ds))[0]
+            lmasks = ds_labels_masks(ds)
+            yield (_as_list(ds.labels)[0], out,
+                   lmasks[0] if lmasks else None)
 
     def evaluate(self, iterator):
         """Classification evaluation of the first output (reference:
@@ -365,3 +451,23 @@ class ComputationGraph(Trainable):
     def num_params(self) -> int:
         return int(sum(t.numel() for sub in self.params.values()
                        for t in sub.values()))
+
+    def param_table(self) -> dict:
+        """``{"<vertex>_<name>": tensor}`` in topo order (conv kernels
+        OIHW, the port's layout)."""
+        return {f"{name}_{n}": t for name in self._topo
+                for n, t in self.params.get(name, {}).items()}
+
+    def summary(self) -> str:
+        lines = [f"{'vertex':<28} {'type':<22} {'inputs':<28} "
+                 f"{'params':<10}"]
+        total = 0
+        for name in self._topo:
+            v = self.conf.vertices[name]
+            n = int(sum(t.numel() for t in self.params.get(name,
+                                                           {}).values()))
+            total += n
+            lines.append(f"{name:<28} {type(v.content).__name__:<22} "
+                         f"{','.join(v.inputs):<28} {n:<10}")
+        lines.append(f"Total params: {total}")
+        return "\n".join(lines)

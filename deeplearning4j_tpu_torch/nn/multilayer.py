@@ -3,7 +3,8 @@
 Counterpart of ``deeplearning4j_tpu/nn/multilayer.py`` on one device:
 ``init``, ``output``, ``feed_forward``, ``predict``, ``fit`` (x, y |
 DataSet | iterator), ``fit_steps``, ``score``, ``evaluate``, listeners
-and per-layer updaters, on the training step shared with
+and per-layer updaters, ``param_table`` / ``get_param`` /
+``set_params_from_table``, ``clone`` and ``summary``, on the training step shared with
 ComputationGraph (``nn/trainer.py``). Parameters, states and updater
 states are keyed ``"layer_<i>"``, as in the JAX package, so its zips
 and trees carry across (``utils/serializer.py``). Each layer's input
@@ -40,6 +41,7 @@ dropout.
 """
 from __future__ import annotations
 
+import copy
 from typing import Dict, Optional, Union
 
 import numpy as np
@@ -48,12 +50,12 @@ from torch.utils.checkpoint import checkpoint
 
 from deeplearning4j_tpu_torch.common.environment import resolve_device
 from deeplearning4j_tpu_torch.common.remat import segment_plan
-from deeplearning4j_tpu_torch.nn.conf.builders import (
-    BackpropType, MultiLayerConfiguration)
+from deeplearning4j_tpu_torch.nn.conf.builders import \
+    MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.conf.layers import BaseOutputLayer
-from deeplearning4j_tpu_torch.nn.conf.layers_recurrent import Bidirectional
 from deeplearning4j_tpu_torch.nn.graph import (
-    as_device_tensor, cast_floats, check_activation_dtype, to_torch_dtype)
+    as_device_tensor, cast_floats, check_activation_dtype, clone_tree,
+    to_torch_dtype)
 from deeplearning4j_tpu_torch.nn.trainer import Trainable
 
 
@@ -66,8 +68,6 @@ class MultiLayerNetwork(Trainable):
         self.device: Optional[torch.device] = None
         self._dtype = to_torch_dtype(conf.dtype)
         self._initialized = False
-        self._rnn_stream_states: Optional[dict] = None
-        self._rnn_stream_batch = 0
 
     # ------------------------------------------------------------------
     def init(self, device: Union[None, str, torch.device] = None, *,
@@ -272,94 +272,25 @@ class MultiLayerNetwork(Trainable):
             mask=lmasks[0] if lmasks is not None else None)
         return data_loss + self._regularization(params), new_states
 
-    def _fit_batch(self, inputs, labels, lmasks, fmask=None) -> None:
-        if self.conf.backprop_type is not BackpropType.TRUNCATED_BPTT or \
-                inputs[0].dim() != 3:
-            return super()._fit_batch(inputs, labels, lmasks, fmask)
-        self._keep_states(self._fit_tbptt(inputs, labels, lmasks, fmask))
-        self._batch_done(inputs)
-
-    def _fit_tbptt(self, inputs, labels, lmasks, fmask):
-        """Segments of ``tbptt_fwd_length`` steps (the last one may be
-        shorter), one update each; the state carries across segments,
-        detached by ``_train_step``, so no gradient crosses them."""
-        x, y = inputs[0], labels[0]
-        L = self.conf.tbptt_fwd_length
-
-        def seg(m, t0):
-            return m[:, t0:t0 + L] if m is not None and m.dim() >= 2 \
-                else m
-
-        states = self._with_zero_rnn_states(self.states, int(x.shape[0]))
-        for t0 in range(0, int(x.shape[1]), L):
-            states = self._train_step(
-                states, [x[:, t0:t0 + L]],
-                [y[:, t0:t0 + L] if y.dim() >= 3 else y],
-                [seg(lmasks[0], t0)] if lmasks is not None else None,
-                seg(fmask, t0))
-        return states
-
-    def fit_steps(self, ds, steps: int) -> "MultiLayerNetwork":
-        """``steps`` updates on one batch, as a plain loop of
-        ``_train_step``. As in the JAX package's compiled loop, the
-        recurrent state starts at zero once and carries from step to
-        step, listeners fire once with the last loss, and masked
-        DataSets are refused."""
-        if not self._initialized:
-            self.init()
-        if getattr(ds, "features_mask", None) is not None or \
-                getattr(ds, "labels_mask", None) is not None:
-            raise ValueError(
-                "fit_steps does not support masked DataSets: padded "
-                "timesteps would train as real data; use fit()")
-        x, y = self._as_input(ds.features), self._as_input(ds.labels)
-        states = self._with_zero_rnn_states(self.states, int(x.shape[0]))
-        for _ in range(steps):
-            states = self._train_step(states, [x], [y], None)
-        self._keep_states(states)
-        self._batch_done([x])
-        return self
-
     # -- stateful streaming inference ------------------------------------
     def rnn_time_step(self, x) -> torch.Tensor:
         """Feed one step (``[b, f]``, answered as ``[b, n_out]``) or a
         chunk (``[b, t, f]``) of a sequence, carrying the recurrent state
         across calls (reference: rnnTimeStep)."""
-        if any(isinstance(layer, Bidirectional)
-               for layer in self.conf.layers):
-            # the backward direction needs future timesteps
-            raise ValueError(
-                "rnnTimeStep is not supported on networks with "
-                "Bidirectional layers")
+        self._refuse_bidirectional("networks")
         if not self._initialized:
             self.init()
         x = self._as_input(x)
         single_step = x.dim() == 2
         if single_step:
             x = x[:, None, :]
-        batch = int(x.shape[0])
-        if self._rnn_stream_states is None:
-            self._rnn_stream_states = self._with_zero_rnn_states(
-                self.states, batch)
-            self._rnn_stream_batch = batch
-        elif batch != self._rnn_stream_batch:
-            raise ValueError(
-                f"rnnTimeStep batch size {batch} != stored state batch "
-                f"size {self._rnn_stream_batch}; call "
-                f"rnn_clear_previous_state() first")
+        states = self._stream_states(int(x.shape[0]))
         with torch.inference_mode():
-            out, new_states = self._forward(
-                self.params, self._rnn_stream_states, x)
-        merged = dict(self._rnn_stream_states)
-        for k in self._recurrent_keys():
-            merged[k] = new_states[k]
-        self._rnn_stream_states = merged
+            out, new_states = self._forward(self.params, states, x)
+        self._keep_stream(new_states)
         if single_step and out.dim() == 3:
             out = out[:, -1]
         return out
-
-    def rnn_clear_previous_state(self) -> None:
-        self._rnn_stream_states = None
 
     def rnn_get_previous_state(self, layer_idx: int) -> Optional[dict]:
         if self._rnn_stream_states is None:
@@ -394,3 +325,57 @@ class MultiLayerNetwork(Trainable):
     def num_params(self) -> int:
         return int(sum(t.numel() for sub in self.params.values()
                        for t in sub.values()))
+
+    def param_table(self) -> dict:
+        """``{"<i>_<name>": tensor}``: each layer's parameters, then its
+        states (the reference's paramTable naming). Conv kernels are
+        OIHW, the port's layout."""
+        out = {}
+        for i in range(self.n_layers()):
+            for tree in (self.params, self.states):
+                for name, t in (tree.get(f"layer_{i}") or {}).items():
+                    out[f"{i}_{name}"] = t
+        return out
+
+    def get_param(self, key: str) -> torch.Tensor:
+        i, name = key.split("_", 1)
+        return self.params[f"layer_{i}"][name]
+
+    def set_params_from_table(self, table: dict) -> None:
+        """Copy each ``"<i>_<name>"`` entry into that layer's parameter or
+        state of the name, in place; an entry naming neither is
+        ignored."""
+        with torch.no_grad():
+            for key, value in table.items():
+                i, name = key.split("_", 1)
+                for tree in (self.params, self.states):
+                    sub = tree.get(f"layer_{i}") or {}
+                    if name in sub:
+                        sub[name].copy_(torch.as_tensor(np.asarray(value))
+                                        if not isinstance(value,
+                                                          torch.Tensor)
+                                        else value)
+                        break
+
+    def clone(self) -> "MultiLayerNetwork":
+        """A network of a copy of the configuration with copies of the
+        parameters, states and updater state (not the counters), on the
+        same device."""
+        net = MultiLayerNetwork(copy.deepcopy(self.conf))
+        if self._initialized:
+            net.set_params(clone_tree(self.params), clone_tree(self.states),
+                           self.device)
+            net.updater_states = clone_tree(self.updater_states)
+        return net
+
+    def summary(self) -> str:
+        lines = [f"{'idx':<4} {'type':<24} {'nIn->nOut':<14} {'params':<10}"]
+        total = 0
+        for i, layer in enumerate(self.conf.layers):
+            n = int(sum(t.numel() for t in
+                        self.params.get(f"layer_{i}", {}).values()))
+            total += n
+            lines.append(f"{i:<4} {type(layer).__name__:<24} "
+                         f"{layer.n_in}->{layer.n_out:<10} {n:<10}")
+        lines.append(f"Total params: {total}")
+        return "\n".join(lines)

@@ -16,15 +16,26 @@ and no second copy of the weights is made. Updater state is replaced
 slot by slot, as the JAX package returns it.
 
 A subclass provides ``_keys()`` (its parameter groups in order),
-``_layer(key)``, ``_loss(params, states, inputs, labels, lmasks[,
-fmask], training=, rng=)`` returning ``(loss, new_states)``, and
+``_layer(key)``, ``_loss(params, states, inputs, labels, lmasks,
+fmask, training=, rng=)`` returning ``(loss, new_states)``, and
 ``_split(data)`` turning ``(x, y)`` or a DataSet into ``(inputs, labels,
-lmasks[, fmask])`` on the device. ``_train_step`` is one update from
+lmasks, fmask)`` on the device. ``_train_step`` is one update from
 given states. ``_fit_batch`` runs it from ``self.states`` with every
 recurrent layer's state zeroed for the batch, then keeps each non-empty
 new state (BatchNormalization's running stats) and drops the recurrent
 ones, as the JAX package does: each batch is a fresh sequence, and
-nothing of it leaks into the next batch or into ``output``.
+nothing of it leaks into the next batch or into ``output``. With
+``backprop_type=TRUNCATED_BPTT`` a sequence batch (a 3-dim first input)
+trains as segments of ``tbptt_fwd_length`` steps, one update and one
+iteration each, every input, label and mask with a time axis cut, the
+state carried from segment to segment and detached between them (the
+truncation); the listeners fire once a batch. ``fit_steps`` is a plain
+loop of ``_train_step`` on one batch, the recurrent state carried from
+step to step, as the JAX package's compiled loop does.
+
+``rnn_time_step`` (on each network kind) streams a sequence a step or a
+chunk at a time; the state it carries across calls lives here until
+``rnn_clear_previous_state``.
 
 Random streams: each step takes a fresh key from ``self._rng`` (an
 ``RngKey`` seeded from ``conf.seed``; ``common/rng.py``), which the
@@ -70,6 +81,7 @@ import torch
 
 from deeplearning4j_tpu_torch.common.rng import RngKey
 from deeplearning4j_tpu_torch.datasets.prefetch import maybe_device_prefetch
+from deeplearning4j_tpu_torch.nn.conf.builders import BackpropType
 from deeplearning4j_tpu_torch.nn.conf.constraints import apply_constraints
 from deeplearning4j_tpu_torch.nn.gradient import \
     apply_gradient_normalization
@@ -102,6 +114,8 @@ class Trainable:
         self._updates_applied = 0
         self._replica: Optional[Replica] = None
         self._dp_mode: Optional[zero.UpdateExchange] = None
+        self._rnn_stream_states: Optional[_Tree] = None
+        self._rnn_stream_batch = 0
 
     def _next_key(self) -> RngKey:
         """This step's random key; the stream advances."""
@@ -195,10 +209,94 @@ class Trainable:
                    labels: List[torch.Tensor], lmasks, fmask=None) -> None:
         states = self._with_zero_rnn_states(self.states,
                                             int(inputs[0].shape[0]))
-        step = self._accumulate_step if self._accum_steps > 1 \
-            else self._train_step
-        self._keep_states(step(states, inputs, labels, lmasks, fmask))
+        if self.conf.backprop_type is BackpropType.TRUNCATED_BPTT and \
+                inputs[0].dim() == 3:
+            new_states = self._fit_tbptt(states, inputs, labels, lmasks,
+                                         fmask)
+        else:
+            step = self._accumulate_step if self._accum_steps > 1 \
+                else self._train_step
+            new_states = step(states, inputs, labels, lmasks, fmask)
+        self._keep_states(new_states)
         self._batch_done(inputs)
+
+    def _fit_tbptt(self, states: _Tree, inputs, labels, lmasks, fmask
+                   ) -> _Tree:
+        """Segments of ``tbptt_fwd_length`` steps (the last one may be
+        shorter), one update each; the state carries across segments,
+        detached by ``_train_step``, so no gradient crosses them."""
+        L = self.conf.tbptt_fwd_length
+
+        def seg(a, t0, ndim):
+            return a[:, t0:t0 + L] if a is not None and a.dim() >= ndim \
+                else a
+
+        for t0 in range(0, int(inputs[0].shape[1]), L):
+            states = self._train_step(
+                states, [seg(x, t0, 3) for x in inputs],
+                [seg(y, t0, 3) for y in labels],
+                [seg(m, t0, 2) for m in lmasks] if lmasks is not None
+                else None, seg(fmask, t0, 2))
+        return states
+
+    def fit_steps(self, ds, steps: int):
+        """``steps`` updates on one batch, as a plain loop of
+        ``_train_step``. As in the JAX package's compiled loop, the
+        recurrent state starts at zero once and carries from step to
+        step, listeners fire once with the last loss, and masked
+        DataSets are refused."""
+        if not self._initialized:
+            self.init()
+        if any(getattr(ds, a, None) is not None for a in (
+                "features_mask", "labels_mask", "features_masks",
+                "labels_masks")):
+            raise ValueError(
+                "fit_steps does not support masked DataSets: padded "
+                "timesteps would train as real data; use fit()")
+        inputs, labels, _, _ = self._split(ds, None)
+        states = self._with_zero_rnn_states(self.states,
+                                            int(inputs[0].shape[0]))
+        for _ in range(steps):
+            states = self._train_step(states, inputs, labels, None)
+        self._keep_states(states)
+        self._batch_done(inputs)
+        return self
+
+    # -- stateful streaming inference ------------------------------------
+    def _refuse_bidirectional(self, what: str) -> None:
+        from deeplearning4j_tpu_torch.nn.conf.layers_recurrent import \
+            Bidirectional
+        if any(isinstance(self._layer(k), Bidirectional)
+               for k in self._keys()):
+            # the backward direction needs future timesteps
+            raise ValueError(f"rnnTimeStep is not supported on {what} "
+                             f"with Bidirectional layers")
+
+    def _stream_states(self, batch: int, what: str = "rnnTimeStep"
+                       ) -> _Tree:
+        """The streaming states, zeroed for ``batch`` sequences on first
+        use; a call with another batch size raises."""
+        if self._rnn_stream_states is None:
+            self._rnn_stream_states = self._with_zero_rnn_states(
+                self.states, batch)
+            self._rnn_stream_batch = batch
+        elif batch != self._rnn_stream_batch:
+            raise ValueError(
+                f"{what} batch size {batch} != stored state batch size "
+                f"{self._rnn_stream_batch}; call "
+                f"rnn_clear_previous_state() first")
+        return self._rnn_stream_states
+
+    def _keep_stream(self, new_states: _Tree) -> None:
+        """Keep the recurrent layers' new states; persistent ones (BN)
+        stay as they are."""
+        merged = dict(self._rnn_stream_states)
+        for k in self._recurrent_keys():
+            merged[k] = new_states[k]
+        self._rnn_stream_states = merged
+
+    def rnn_clear_previous_state(self) -> None:
+        self._rnn_stream_states = None
 
     def _batch_done(self, inputs: List[torch.Tensor]) -> None:
         # the global batch: every replica of a mesh takes an equal shard
@@ -418,8 +516,8 @@ class Trainable:
         if dataset is None:
             return float("nan") if self._score is None \
                 else float(self._score)
-        inputs, labels, lmasks, *fmask = self._split(dataset, None)
+        inputs, labels, lmasks, fmask = self._split(dataset, None)
         with torch.no_grad():
             loss, _ = self._loss(self.params, self.states, inputs, labels,
-                                 lmasks, *fmask, training=False, rng=None)
+                                 lmasks, fmask, training=False, rng=None)
         return float(loss)

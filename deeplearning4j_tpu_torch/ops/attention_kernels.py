@@ -13,9 +13,11 @@ hard-wire ``1/√d``) and rank-3 inputs get a unit heads axis.
 
 The ladder keeps the JAX package's structural rungs, in its order: an
 additive bias, a rank other than 3 or 4, a q/k head-dim mismatch, a mask
-that is not a key mask. Its TPU gates (a 4096-key floor, HBM headroom,
-"platform is tpu") do not carry over: the auto rung takes the kernels
-for every admissible site on the card and the dense path on the CPU.
+that is not a key mask. The kernels take every head dim and every float
+dtype (float64 too), so the port adds no rung of its own.
+The TPU gates (a 4096-key floor, HBM headroom, "platform is tpu") do not
+carry over: the auto rung takes the kernels for every admissible site on
+the card and the dense path on the CPU.
 ``DL4J_TORCH_FLASH_ATTENTION=0`` (or ``Environment.extra
 ["flash_attention"]``) is the explicit kill switch to the dense path of
 ``ops/attention.py``; ``=1`` forces the kernels' route anywhere (on the
@@ -42,9 +44,7 @@ from typing import Optional, Tuple, Union
 import torch
 
 from deeplearning4j_tpu_torch.ops import cuda_build, kernel_select
-from deeplearning4j_tpu_torch.parallel.sequence import (KERNEL_DTYPES,
-                                                        MAX_HEAD_DIM,
-                                                        flash_attention)
+from deeplearning4j_tpu_torch.parallel.sequence import flash_attention
 
 
 def as_key_mask(mask: torch.Tensor, batch: int, t_k: int, rank: int
@@ -148,6 +148,10 @@ def maybe_flash_sdpa(q, k, v, scale: Optional[float] = None, mask=None,
 #: masked-score value, as the flash kernels': the exp of a masked score is
 #: exactly 0
 PAGED_NEG_INF = -1e30
+#: pool and query dtypes the paged kernel reads, with their codes
+PAGED_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+#: the widest head the paged kernel takes
+PAGED_MAX_HEAD_DIM = 256
 
 PAGED_DECODE = cuda_build.register(cuda_build.Kernel(
     "paged_decode",
@@ -207,18 +211,18 @@ def _check_paged(q, k_pool, v_pool, block_tables, lengths):
                          f"{d}], got {tuple(k_pool.shape)} and "
                          f"{tuple(v_pool.shape)}")
     for nm, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool)):
-        if t.dtype not in KERNEL_DTYPES:
+        if t.dtype not in PAGED_DTYPES:
             raise TypeError(f"{fn}: {nm} dtype {t.dtype} is not one of "
-                            f"{tuple(KERNEL_DTYPES)}")
+                            f"{tuple(PAGED_DTYPES)}")
     if v_pool.dtype != k_pool.dtype:
         raise TypeError(f"{fn}: k_pool is {k_pool.dtype}, v_pool "
                         f"{v_pool.dtype}")
     if not (k_pool.is_contiguous() and v_pool.is_contiguous()):
         # a copy of the pool would move more bytes than the site reads
         raise ValueError(f"{fn}: the pools must be contiguous")
-    if d > MAX_HEAD_DIM:
+    if d > PAGED_MAX_HEAD_DIM:
         raise ValueError(f"{fn}: head dim {d} exceeds the kernel's "
-                         f"{MAX_HEAD_DIM}")
+                         f"{PAGED_MAX_HEAD_DIM}")
     if block_tables.dim() != 2 or block_tables.shape[0] != b \
             or tuple(lengths.shape) != (b,):
         raise ValueError(f"{fn}: block tables must be [{b}, max_blocks] "
@@ -263,8 +267,8 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths,
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                 tables.data_ptr(), lens.data_ptr(), out.data_ptr(), b, h,
-                d, block, max_blocks, float(scale), KERNEL_DTYPES[q.dtype],
-                KERNEL_DTYPES[k_pool.dtype],
+                d, block, max_blocks, float(scale), PAGED_DTYPES[q.dtype],
+                PAGED_DTYPES[k_pool.dtype],
                 torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"paged_decode_attention: CUDA launch failed "

@@ -16,8 +16,9 @@ beside it:
 ``δ = rowsum(dO·O) − g_lse`` is plain torch ops between the forward and
 the two backward kernels, as it is plain jnp in the JAX package. For
 bf16 and f16 inputs (head dim up to 128) the forward and dk/dv run on
-tensor cores with f32 sums; f32 inputs stay in full f32 (the source's
-header has the design).
+tensor cores with f32 sums; f32 inputs stay in full f32; any head dim
+and float64 run (float64 with f64 sums and f64 lse and δ rows; the
+source's header has the design).
 
 Tensors are ``[b, h, t, d]`` with an optional ``[b, tk]`` key mask (a key
 is kept where ``mask > 0``). The scale is always ``1/√d``; callers with
@@ -39,10 +40,10 @@ import torch
 from deeplearning4j_tpu_torch.ops import cuda_build
 
 NEG_INF = -1e30
-#: the widest head the kernels take (d is padded to 32/64/128/256)
-MAX_HEAD_DIM = 256
-#: q/k/v dtypes the kernels read and write (sums are f32)
-KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+#: q/k/v dtypes the kernels read and write, with their codes (sums are
+#: f32, f64 for float64)
+KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
+                 torch.float64: 3}
 
 _SOURCE = "deeplearning4j_tpu_torch/csrc/flash_attention.cu"
 FLASH_FWD = cuda_build.register(cuda_build.Kernel(
@@ -163,9 +164,6 @@ def _check(fn: str, q, k, v, key_mask, extra=()) -> Tuple[int, ...]:
                          f"{tuple(q.shape)}")
     b, h, tq, d = q.shape
     tk = k.shape[2]
-    if d > MAX_HEAD_DIM:
-        raise ValueError(f"{fn}: head dim {d} exceeds the kernels' "
-                         f"{MAX_HEAD_DIM}")
     if k.shape != (b, h, tk, d) or v.shape != (b, h, tk, d):
         raise ValueError(f"{fn}: k and v must be [{b}, {h}, tk, {d}], got "
                          f"{tuple(k.shape)} and {tuple(v.shape)}")
@@ -207,13 +205,14 @@ def _stream(t: torch.Tensor) -> int:
 def flash_forward(q, k, v, key_mask=None, causal: bool = False
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel 7 on a CUDA q, the plain version on a CPU q: ``(out,
-    lse)``, lse ``[b, h, tq]`` f32."""
+    lse)``, lse ``[b, h, tq]`` in the accumulation dtype (f32, f64 for
+    float64)."""
     if q.device.type == "cpu":
         return flash_forward_plain(q, k, v, key_mask, causal)
     b, h, tq, tk, d = _check("flash_forward", q, k, v, key_mask)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
-    lse = torch.empty(b, h, tq, dtype=torch.float32, device=q.device)
+    lse = torch.empty(b, h, tq, dtype=_acc(q.dtype), device=q.device)
     mask, mask_p = _mask_ptr(key_mask)
     fn = cuda_build.c_function(
         "flash_attention", "dl4j_flash_fwd",
@@ -236,8 +235,8 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, key_mask=None,
     b, h, tq, tk, d = _check("flash_bwd_dq", q, k, v, key_mask,
                              (("dout", dout),))
     q, k, v, dout = (t.contiguous() for t in (q, k, v, dout))
-    lse = lse.to(torch.float32).contiguous()
-    delta = delta.to(torch.float32).contiguous()
+    lse = lse.to(_acc(q.dtype)).contiguous()
+    delta = delta.to(_acc(q.dtype)).contiguous()
     dq = torch.empty_like(q)
     mask, mask_p = _mask_ptr(key_mask)
     fn = cuda_build.c_function(
@@ -262,8 +261,8 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, key_mask=None,
     b, h, tq, tk, d = _check("flash_bwd_dkv", q, k, v, key_mask,
                              (("dout", dout),))
     q, k, v, dout = (t.contiguous() for t in (q, k, v, dout))
-    lse = lse.to(torch.float32).contiguous()
-    delta = delta.to(torch.float32).contiguous()
+    lse = lse.to(_acc(q.dtype)).contiguous()
+    delta = delta.to(_acc(q.dtype)).contiguous()
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     mask, mask_p = _mask_ptr(key_mask)
     fn = cuda_build.c_function(
@@ -330,6 +329,7 @@ def flash_attention_with_lse(q, k, v, causal: bool = False,
                              key_mask: Optional[torch.Tensor] = None
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`flash_attention` that also returns the per-row log-sum-exp
-    of the scaled scores, ``[b, h, tq]`` f32, differentiable too."""
+    of the scaled scores, ``[b, h, tq]`` in the accumulation dtype,
+    differentiable too."""
     return _FlashAttention.apply(q, k, v, _as_key_mask(key_mask),
                                  bool(causal))

@@ -249,7 +249,9 @@ def test_lenet_train_step_launches_kernels_1_and_2_twice():
 #: forward rtol/atol 2e-5, gradients rtol 2e-4 / atol 2e-5; bf16 2e-2
 FLASH_TOL = {"float32": ((2e-5, 2e-5), (2e-4, 2e-5)),
              "bfloat16": ((2e-2, 2e-2), (2e-2, 2e-2)),
-             "float16": ((2e-2, 2e-2), (2e-2, 2e-2))}
+             "float16": ((2e-2, 2e-2), (2e-2, 2e-2)),
+             # f64 sums against the plain version's f64 chain
+             "float64": ((1e-10, 1e-12), (1e-10, 1e-12))}
 FLASH_SHAPES = [  # b, h, tq, tk, d, causal: every padded width 32..256
     (2, 3, 37, 37, 24, False), (2, 2, 70, 45, 32, False),
     (2, 2, 64, 64, 64, True), (2, 2, 50, 77, 128, True),
@@ -261,7 +263,10 @@ FLASH_SHAPES = [  # b, h, tq, tk, d, causal: every padded width 32..256
     (2, 3, 70, 70, 30, False),
     # several query and key tiles with tq > tk, and d = 96 (padded to
     # 128 inside the kernels), both causal
-    (2, 2, 200, 130, 64, True), (2, 2, 190, 190, 96, True)]
+    (2, 2, 200, 130, 64, True), (2, 2, 190, 190, 96, True),
+    # past 256, the wide bodies: an unprojected attention layer's 768
+    # and a width off the 128-column output chunk, causal
+    (2, 1, 40, 70, 768, False), (2, 2, 70, 45, 300, True)]
 
 
 def _flash_inputs(b, h, tq, tk, d, dtype, g):
@@ -275,7 +280,8 @@ def _flash_inputs(b, h, tq, tk, d, dtype, g):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", FLASH_SHAPES)
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16",
+                                   "float64"])
 def test_flash_kernels_match_plain(shape, dtype):
     from deeplearning4j_tpu_torch.parallel import sequence as sq
     _need_card()
@@ -301,14 +307,16 @@ def test_flash_kernels_match_plain(shape, dtype):
                   (dv, dv2)):
         assert torch.equal(a, b2)                 # repeatable bits
     (f_rtol, f_atol), (g_rtol, g_atol) = FLASH_TOL[dtype]
-    torch.testing.assert_close(out.float(), r_out.float(), rtol=f_rtol,
+    acc = torch.promote_types(q.dtype, torch.float32)
+    torch.testing.assert_close(out.to(acc), r_out.to(acc), rtol=f_rtol,
                                atol=f_atol)
     valid = mask.bool().any(-1)
-    torch.testing.assert_close(lse[valid], r_lse[valid].float(), rtol=f_rtol,
-                               atol=f_atol)
+    assert lse.dtype == acc
+    torch.testing.assert_close(lse[valid], r_lse[valid].to(acc),
+                               rtol=f_rtol, atol=f_atol)
     for got, want in ((dq, r_dq), (dk, r_dk), (dv, r_dv)):
         assert got.dtype == q.dtype
-        torch.testing.assert_close(got.float(), want.float(), rtol=g_rtol,
+        torch.testing.assert_close(got.to(acc), want.to(acc), rtol=g_rtol,
                                    atol=g_atol)
     # the fully masked sequence: exact zeros, no NaN anywhere
     for t in (out, dq, dk, dv):
@@ -323,10 +331,10 @@ def test_flash_kernels_reject_what_they_do_not_take():
     _need_card()
     q = torch.randn(1, 2, 8, 16, device="cuda")
     with pytest.raises(TypeError):
-        sq.flash_forward(q.double(), q.double(), q.double())
-    wide = torch.randn(1, 1, 8, 320, device="cuda")
-    with pytest.raises(ValueError, match="head dim"):
-        sq.flash_forward(wide, wide, wide)
+        sq.flash_forward(q.int(), q.int(), q.int())
+    empty = torch.randn(1, 2, 0, 16, device="cuda")
+    with pytest.raises(ValueError, match="empty operand"):
+        sq.flash_forward(empty, q, q)
     with pytest.raises(ValueError):
         sq.flash_forward(q, q.half(), q)
     with pytest.raises(ValueError):
@@ -367,6 +375,126 @@ def test_bert_launches_flash_kernels_once_a_layer():
     loss = bert.fit_batch(batch)
     assert tuple(a - b for a, b in zip(counts(), n0)) == (2, 2, 2)
     assert np.isfinite(loss)
+
+
+#: (b, tq, tk): LearnedSelfAttentionLayer's one query and a few queries
+#: against a sequence's keys, RecurrentAttentionLayer's one query a step
+FEW_QUERY_SHAPES = [(32, 1, 128), (32, 4, 128), (5, 1, 77), (5, 4, 200)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", FEW_QUERY_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_flash_kernels_at_few_queries_match_plain(shape, dtype):
+    """t_q of 1 or 4 pads the query tile; ragged key masks (a prefix of
+    each sequence, one sequence fully masked)."""
+    from deeplearning4j_tpu_torch.parallel import sequence as sq
+    _need_card()
+    b, tq, tk = shape
+    g = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v, do, _ = _flash_inputs(b, 12, tq, tk, 64, dtype, g)
+    lengths = torch.randint(1, tk + 1, (b,), device="cuda", generator=g)
+    lengths[0], lengths[1] = 0, tk
+    mask = (torch.arange(tk, device="cuda")[None] < lengths[:, None]).float()
+    out, lse = sq.flash_forward(q, k, v, mask)
+    delta = sq.flash_delta(out, do)
+    dq = sq.flash_bwd_dq(q, k, v, do, lse, delta, mask)
+    dk, dv = sq.flash_bwd_dkv(q, k, v, do, lse, delta, mask)
+    r_out, _ = sq.flash_forward_plain(q, k, v, mask)
+    r_dq = sq.flash_dq_plain(q, k, v, do, lse, delta, mask)
+    r_dk, r_dv = sq.flash_dkv_plain(q, k, v, do, lse, delta, mask)
+    (f_rtol, f_atol), (g_rtol, g_atol) = FLASH_TOL[dtype]
+    torch.testing.assert_close(out.float(), r_out.float(), rtol=f_rtol,
+                               atol=f_atol)
+    for got, want in ((dq, r_dq), (dk, r_dk), (dv, r_dv)):
+        torch.testing.assert_close(got.float(), want.float(), rtol=g_rtol,
+                                   atol=g_atol)
+    for t in (out, dq, dk, dv):
+        assert not bool(torch.isnan(t).any())
+        assert not bool(t[0].any())               # the fully masked one
+
+
+@pytest.mark.gpu
+def test_wide_heads_and_float64_sites_launch_the_kernels():
+    """Head dim 768 and float64 through the attention entry point: one
+    launch of kernel 7 each, equal to the dense answer; an unprojected
+    SelfAttentionLayer over 768 features launches it too."""
+    from deeplearning4j_tpu_torch.nn.conf.layers_attention import \
+        SelfAttentionLayer
+    from deeplearning4j_tpu_torch.ops import attention as att
+    from deeplearning4j_tpu_torch.parallel import sequence as sq
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(6)
+    wide = torch.randn(2, 1, 16, 768, device="cuda", generator=g)
+    mask = torch.ones(2, 1, 1, 16, device="cuda")
+    mask[1, ..., 9:] = 0.0
+    for q, tol in ((wide, dict(rtol=2e-5, atol=2e-6)),
+                   (wide[..., :64].double(), dict(rtol=1e-12, atol=1e-13))):
+        n0 = sq.FLASH_FWD.launches
+        got = att.dot_product_attention(q, q, q, mask)
+        assert sq.FLASH_FWD.launches == n0 + 1 and got.dtype == q.dtype
+        s = (q @ q.transpose(-1, -2)) / q.shape[-1] ** 0.5
+        w = torch.softmax(s.masked_fill(mask == 0, -1e9), -1)
+        torch.testing.assert_close(got, w @ q, **tol)
+    n0 = sq.FLASH_FWD.launches
+    layer = SelfAttentionLayer(n_in=768, n_out=768, project_input=False)
+    y, _ = layer.forward({}, wide[:, 0], training=False, mask=mask[:, 0, 0])
+    assert y.shape == (2, 16, 768) and bool(torch.isfinite(y).all())
+    assert sq.FLASH_FWD.launches == n0 + 1
+
+
+@pytest.mark.gpu
+def test_attention_layers_launch_the_flash_kernels():
+    """A small masked attention graph: 3 launches of each kernel a step
+    (two self-attentions and the learned-query pooling); a
+    RecurrentAttentionLayer one launch of kernel 7 a sequence step
+    forward, and one of each a step in training."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.learning.updaters import Adam
+    from deeplearning4j_tpu_torch.nn.conf.builders import \
+        NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.conf.layers import RnnOutputLayer
+    from deeplearning4j_tpu_torch.nn.conf.layers_attention import \
+        RecurrentAttentionLayer
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.parallel import sequence as sq
+    import chip_smoke
+    _need_card()
+
+    def counts():
+        return (sq.FLASH_FWD.launches, sq.FLASH_BWD_DQ.launches,
+                sq.FLASH_BWD_DKV.launches)
+
+    rs = np.random.RandomState(0)
+    ids = rs.randint(0, 50, (4, 24))
+    mask = np.ones((4, 24), np.float32)
+    mask[1, 5:] = 0.0
+    y = np.eye(2, dtype=np.float32)[rs.randint(0, 2, 4)]
+    net = ComputationGraph(chip_smoke.attention_classifier_conf(
+        50, 32, 4, 24, Adam(1e-3))).init("cuda")
+    n0 = counts()
+    net.fit(DataSet(ids, y, features_mask=mask))
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(counts(), n0)) == (3, 3, 3)
+    conf = (NeuralNetConfiguration.Builder().graph_builder()
+            .add_inputs("x").set_input_types(InputType.recurrent(8, 24))
+            .add_layer("ratt", RecurrentAttentionLayer(n_out=16, n_heads=2),
+                       "x")
+            .add_layer("out", RnnOutputLayer(n_out=3), "ratt")
+            .set_outputs("out").build())
+    rnet = ComputationGraph(conf).init("cuda")
+    x = rs.randn(4, 24, 8).astype(np.float32)
+    n0 = counts()
+    out = rnet.output(x, mask=mask)
+    assert tuple(a - b for a, b in zip(counts(), n0)) == (24, 0, 0)
+    assert bool(torch.isfinite(out).all())
+    n0 = counts()
+    rnet.fit(DataSet(x, np.eye(3, dtype=np.float32)[rs.randint(0, 3, (4, 24))],
+                     features_mask=mask, labels_mask=mask))
+    assert tuple(a - b for a, b in zip(counts(), n0)) == (24, 24, 24)
 
 
 # ---------------------------------------------------------------------------

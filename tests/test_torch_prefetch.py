@@ -1,6 +1,6 @@
 """Input staging in the port (``datasets/prefetch.py``,
 ``AsyncDataSetIterator``, SameDiff's ``device_prefetch_placeholders``)
-on the CPU, and the features-mask refusal of ``ComputationGraph``.
+on the CPU, and ``ComputationGraph``'s features masks through them.
 
 The JAX package's prefetch cases (``tests/test_device_prefetch.py``)
 ported: order, dtype, reset and exhaustion, the feeder's exception, the
@@ -350,40 +350,100 @@ def test_staged_port_run_tracks_the_jax_staged_run():
                                    err_msg=k)
 
 
-# -- ROADMAP fault C1: a ComputationGraph refuses features masks -------------
-def _rnn_graph():
-    gb = (NeuralNetConfiguration.Builder().seed(3).updater(tu.Sgd(0.1))
-          .graph_builder().add_inputs("in")
-          .set_input_types(InputType.recurrent(5)))
-    gb.add_layer("lstm", tr.GravesLSTM(n_out=8, activation=Activation.TANH),
-                 "in")
-    gb.add_layer("out", tl.RnnOutputLayer(n_out=4,
-                                          activation=Activation.SOFTMAX),
-                 "lstm")
+# -- features masks in a ComputationGraph -------------------------------------
+def _rnn_graph(builder, input_type, graves, rnn_out, act, sgd):
+    gb = (builder.Builder().seed(3).updater(sgd(0.1)).graph_builder()
+          .add_inputs("in").set_input_types(input_type.recurrent(5)))
+    gb.add_layer("lstm", graves(n_out=8, activation=act.TANH), "in")
+    gb.add_layer("out", rnn_out(n_out=4, activation=act.SOFTMAX), "lstm")
     gb.set_outputs("out")
-    return ComputationGraph(gb.build()).init("cpu")
+    return gb.build()
+
+
+def _rnn_graph_pair():
+    from deeplearning4j_tpu.nn.conf.layers_recurrent import \
+        GravesLSTM as JGraves
+    from deeplearning4j_tpu.nn.graph import ComputationGraph as JGraph
+    jg = JGraph(_rnn_graph(JNNC, JIT, JGraves, jl.RnnOutputLayer, JAct,
+                           ju.Sgd)).init()
+    conf = _rnn_graph(NeuralNetConfiguration, InputType, tr.GravesLSTM,
+                      tl.RnnOutputLayer, Activation, tu.Sgd)
+    p, s = params_from_jax({k: {n: np.asarray(a) for n, a in sub.items()}
+                            for k, sub in jg.params.items()}, {}, conf)
+    # the nets update their parameters in place: each gets its own copy
+    return jg, (lambda: ComputationGraph(conf).set_params(
+        {k: {n: t.clone() for n, t in sub.items()} for k, sub in p.items()},
+        s, "cpu"))
+
+
+def _masked_batches(n=2):
+    rng = np.random.RandomState(0)
+    out = []
+    for _ in range(n):
+        x = rng.randn(3, 6, 5).astype(np.float32)
+        y = np.eye(4, dtype=np.float32)[rng.randint(0, 4, (3, 6))]
+        m = np.ones((3, 6), np.float32)
+        m[1, 3:] = 0.0
+        m[2, 1:] = 0.0
+        out.append((x, y, m))
+    return out
 
 
 @pytest.mark.parametrize("how", ["fit", "fit_iterator", "score"])
-def test_graph_refuses_a_features_mask(how):
-    rng = np.random.RandomState(0)
-    x = rng.randn(3, 6, 5).astype(np.float32)
-    y = np.eye(4, dtype=np.float32)[rng.randint(0, 4, (3, 6))]
-    m = np.ones((3, 6), np.float32)
-    m[:, 3:] = 0.0
-    net = _rnn_graph()
-    before = {k: {n: t.clone() for n, t in sub.items()}
-              for k, sub in net.params.items()}
-    masked = DataSet(x, y, features_mask=m, labels_mask=m)
-    call = {"fit": lambda: net.fit(masked),
-            "fit_iterator": lambda: net.fit(ListDataSetIterator([masked])),
-            "score": lambda: net.score(masked)}[how]
-    with pytest.raises(NotImplementedError, match="item 15"):
-        call()
-    _same(net, type(net)(net.conf).set_params(before, net.states, "cpu"))
-    multi = MultiDataSet([x], [y], features_masks=[m])
-    with pytest.raises(NotImplementedError, match="features masks"):
-        net.fit(multi)
-    # unmasked, the same graph trains
-    net.fit(DataSet(x, y, labels_mask=m))
-    assert np.isfinite(net.score())
+def test_graph_refuses_a_features_mask(how, monkeypatch):
+    """A ComputationGraph applies the features mask (the graph refused
+    one until the masks were ported; the test keeps its name): the masked
+    ``fit``, staged ``fit(iterator)`` and ``score`` equal the JAX
+    package's within 2e-4, a padded step's input changes nothing, and
+    the staged run equals plain ``fit`` calls bit for bit."""
+    jg, make = _rnn_graph_pair()
+    batches = _masked_batches()
+    ds = [DataSet(x, y, features_mask=m, labels_mask=m)
+          for x, y, m in batches]
+    jds = [JDataSet(x, y, features_mask=m, labels_mask=m)
+           for x, y, m in batches]
+    net = make()
+    if how == "score":
+        got, want = net.score(ds[0]), jg.score(jds[0])
+        x, y, m = batches[0]
+        padded = np.where(m[..., None] > 0, x, 1e3).astype(np.float32)
+        assert net.score(DataSet(padded, y, features_mask=m,
+                                 labels_mask=m)) == got
+        assert net.score(MultiDataSet([x], [y], features_masks=[m],
+                                      labels_masks=[m])) == got
+        held = net.output(x, mask=m).numpy()
+        np.testing.assert_allclose(held, np.asarray(jg.output(x, mask=m)),
+                                   rtol=RTOL, atol=ATOL)
+        # a padded step holds the last real step's state
+        assert not np.allclose(held[2, 1:], net.output(x).numpy()[2, 1:])
+        np.testing.assert_array_equal(held[2, 1:], np.broadcast_to(
+            held[2, :1], held[2, 1:].shape))
+    elif how == "fit":
+        for d, jd in zip(ds, jds):
+            net.fit(d)
+            jg.fit(jd)
+        got, want = net.score(), float(jg.score())
+        multi = make()
+        for x, y, m in batches:
+            multi.fit(MultiDataSet([x], [y], features_masks=[m],
+                                   labels_masks=[m]))
+        _same(net, multi)
+    else:
+        Environment.reset()
+        net.fit(ListDataSetIterator(ds), n_epochs=2)
+        jg.fit(JList(jds), n_epochs=2)
+        got, want = net.score(), float(jg.score())
+        plain = make()
+        for _ in range(2):
+            for d in ds:
+                plain.fit(d)
+        _same(net, plain)
+        assert net.score() == plain.score()
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    want_p = {k: {n: np.asarray(a) for n, a in sub.items()}
+              for k, sub in jg.params.items()}
+    got_p = params_to_jax(net.params, net.conf)
+    for k, a in params_to_jax(params_from_jax(want_p, {}, net.conf)[0],
+                              net.conf).items():
+        np.testing.assert_allclose(got_p[k], a, rtol=RTOL, atol=ATOL,
+                                   err_msg=k)
