@@ -214,7 +214,25 @@ Phases, each of which fails the run (exit 1) when its check fails:
     rank; the ranks bitwise equal after 3 steps (gloo stages through the
     host: its step time is no DP rate); (d) a
     one-rank NCCL group through ``SharedTrainingMaster``, 10 steps,
-    bitwise equal to (b), ms a step and img/s.
+    bitwise equal to (b), ms a step and img/s; in the two rank processes
+    of (c), on the same weights and rows at 224x224 (TF32 off; the rank
+    processes run the deterministic algorithms, so that (f) can be held
+    bit for bit to (c)), 3 steps each of (e) the encoded exchange, once per scheme (threshold with
+    ``threshold_algorithm(AdaptiveThresholdAlgorithm())``, int8, 1-bit)
+    and (f) fsdp: the exchange resolved as asked, 53 launches each of
+    kernels 3, 1, 5, 6 a step on each rank, the ranks bitwise equal,
+    (f) bitwise equal to (c) with half the padded flat parameters and
+    (c)'s half of the updater state on each rank, (e) half the residual
+    on each; the encoded tail replayed on the two ranks' recorded step-1
+    slices of three groups, on the card and on the CPU (threshold and
+    int8 bitwise, 1-bit within ``ONEBIT_RTOL``; the ranks' outputs equal
+    the replay; ``residual + decoded`` within an f32 ulp of the
+    corrected gradient (or of the decoded value, where larger) where the
+    step-1 clip left it); τ replayed on
+    the host from the recorded fractions; the transmitted fraction and
+    τ of each step, resident bytes, the analytic exchange bytes of the
+    three schemes and three modes, step ms (gloo, host-staged: no DP
+    rate).
 20. attention graph: (a) a masked text classifier at BERT-base widths
     built with ``GraphBuilder`` (seeded): tokens [32, 128] ->
     EmbeddingSequenceLayer(30522 -> 768) -> 2 x (SelfAttentionLayer(768,
@@ -3974,6 +3992,11 @@ DP_STEPS, DP_RANK_STEPS, DP_RANKS = 10, 3, 2
 DP_SMALL = 64
 DP_WORK = ROOT / "build" / "dp_resnet"
 DP_KERNELS = ("channel_sums", "scale_shift_act", "bn_bwd_sums", "bn_bwd_dx")
+#: the encoded exchange's codecs, each run in (e)
+DP_SCHEMES = ("threshold", "int8", "1bit")
+#: the 1-bit codec's scale, card against CPU: mean|c| sums in another
+#: order on each
+ONEBIT_RTOL = 1e-6
 
 
 class _StepClock:
@@ -3986,11 +4009,16 @@ class _StepClock:
         self.torch, self.on_card = torch, device == "cuda"
         self.keep, self.snaps, self.marks = set(keep), {}, []
         self.state_bytes, self.losses = [], []
+        # the exchange as the model ran it: its mode, the parameter and
+        # residual bytes it held, and each group's (tau, sparsity, step)
+        self.modes, self.param_bytes, self.residual_bytes = [], [], []
+        self.encoded, self.encoding = [], None
 
     def start(self):
         self.marks = [time.perf_counter()]
 
     def iteration_done(self, model, iteration, epoch):
+        from deeplearning4j_tpu_torch.learning.updaters import ENCODED_KEY
         from deeplearning4j_tpu_torch.parallel import zero
         if self.on_card:
             self.torch.cuda.current_stream().synchronize()
@@ -4000,6 +4028,21 @@ class _StepClock:
         self.state_bytes.append(
             zero.sharded_state_bytes(model.updater_states) +
             zero.dense_state_bytes(model.updater_states))
+        self.modes.append(getattr(model._dp_mode, "value", None))
+        self.param_bytes.append(
+            zero.fsdp_param_bytes(model.params) if model._params_are_fsdp()
+            else sum(t.numel() * t.element_size()
+                     for sub in model.params.values()
+                     for t in sub.values()))
+        self.residual_bytes.append(
+            zero.encoded_residual_bytes(model.updater_states))
+        enc = [s_[ENCODED_KEY] for s_ in model.updater_states.values()
+               if ENCODED_KEY in s_]
+        if enc:
+            self.encoding = model._dp_encoding
+            self.encoded.append(self.torch.stack([self.torch.stack(
+                [e["tau"], e["sparsity"], e["step"].float()])
+                for e in enc]).cpu())
         if iteration + 1 in self.keep:
             self.snaps[iteration + 1] = _cpu_snapshot(model)
 
@@ -4076,6 +4119,11 @@ def dp_rank_main(work: str, rank: int, world: int, backend: str,
     out = {}
     # held against float64: convolutions in full f32
     torch.backends.cudnn.allow_tf32 = False
+    # (f) is held bit for bit to (c): with TF32 off cuDNN's heuristics
+    # took a weight-gradient algorithm that is not repeatable for the
+    # stem convolution (the two runs' stem_conv/W differed), so both
+    # run the deterministic algorithms, as phase 20 does
+    torch.use_deterministic_algorithms(True, warn_only=True)
     master = (SharedTrainingMaster.Builder(BATCH // world)
               .coordinator(f"file://{work}/store", world, rank, backend)
               .collective_timeout(300).build())
@@ -4102,9 +4150,111 @@ def dp_rank_main(work: str, rank: int, world: int, backend: str,
                           "state_bytes_dense": dense,
                           "last_batch_size": net.last_batch_size}
             del net
+        out["exchanges"] = _rank_exchanges(
+            torch, master, work, rank, world,
+            int(images.split(",")[0]), device)
     finally:
         master.shutdown()
     torch.save(out, f"{work}/rank{rank}.pt")
+
+
+class _TailRecorder:
+    """While entered, records ``zero.encoded_tail``'s inputs and outputs
+    on its first step for three parameter groups of ``net`` (the first,
+    the middle and the last in the update order): the mean-gradient and
+    residual slices, τ and step, the decoded slice, the new residual, τ
+    and the transmitted fraction, on the CPU."""
+
+    def __init__(self, net):
+        order = [k for k in net._keys() if net.params[k]]
+        picks = (0, len(order) // 2, len(order) - 1)
+        self.idx = {i: order[i] for i in picks}
+        self.calls, self.rec = 0, {}
+
+    def __enter__(self):
+        from deeplearning4j_tpu_torch.parallel import zero
+        self.orig = orig = zero.encoded_tail
+
+        def cpu(d):
+            return {k: v.detach().cpu().clone() for k, v in d.items()}
+
+        def tail(g, residual, tau, step, encoding, replica=None):
+            out = orig(g, residual, tau, step, encoding, replica)
+            i, self.calls = self.calls, self.calls + 1
+            if i in self.idx:
+                self.rec[self.idx[i]] = {
+                    "g": cpu(g), "residual": cpu(residual),
+                    "tau": tau.cpu(), "step": step.cpu(),
+                    "decoded": cpu(out[0]), "new_residual": cpu(out[1]),
+                    "new_tau": out[2].cpu(), "sparsity": out[3].cpu()}
+            return out
+        zero.encoded_tail = tail
+        return self
+
+    def __exit__(self, *exc):
+        from deeplearning4j_tpu_torch.parallel import zero
+        zero.encoded_tail = self.orig
+
+
+def _rank_exchanges(torch, master, work: str, rank: int, world: int,
+                    image: int, device: str) -> dict:
+    """Phase 19 (e) and (f) on this rank, in the group of ``master``:
+    the seeded ResNet-50 of (c) at ``image`` takes DP_RANK_STEPS steps
+    through ``SharedTrainingMaster`` under the encoded exchange, once per
+    scheme (threshold through ``threshold_algorithm``, int8 and 1-bit
+    through ``encoding``), then under fsdp, each from the same weights
+    and rows as (c)."""
+    import contextlib
+
+    from deeplearning4j_tpu_torch.parallel.encoding import \
+        AdaptiveThresholdAlgorithm
+    from deeplearning4j_tpu_torch.parallel.sharedtraining import \
+        SharedTrainingMaster
+    k = BATCH // world
+    shard = slice(rank * k, (rank + 1) * k)
+    out = {}
+    for name in DP_SCHEMES + ("fsdp",):
+        b = (SharedTrainingMaster.Builder(k)
+             .coordinator(f"file://{work}/store", world, rank)
+             .collective_timeout(300))
+        algo = None
+        if name == "fsdp":
+            b.update_exchange("fsdp")
+        elif name == "threshold":
+            # the reference's knob, live under the encoded exchange
+            algo = AdaptiveThresholdAlgorithm()
+            b.update_exchange("encoded").threshold_algorithm(algo)
+        else:
+            b.update_exchange("encoded").encoding(name)
+        run = b.build()
+        run._mesh = master._mesh        # this process's one group
+        net, x, y = _dp_net(torch, image, device)
+        clock = _StepClock(torch, device)
+        net.set_listeners(clock)
+        rec = _TailRecorder(net) if name != "fsdp" else \
+            contextlib.nullcontext()
+        _zero_counts()
+        clock.start()
+        with rec:
+            run.fit(net, _dp_iterator(x[shard], y[shard], DP_RANK_STEPS))
+        r = {"launches": _counts(), "step_ms": clock.step_ms(),
+             "losses": clock.losses, "score": net.score(),
+             "modes": clock.modes, "param_bytes": clock.param_bytes,
+             "state_bytes": clock.state_bytes,
+             "residual_bytes": clock.residual_bytes,
+             "final": _cpu_snapshot(net)}
+        if name != "fsdp":
+            r["tails"] = rec.rec
+            r["encoded"] = clock.encoded
+            r["scheme"] = clock.encoding.scheme
+            r["algorithm"] = type(clock.encoding.algorithm).__name__
+            r["knob_reached"] = (algo is None or
+                                 clock.encoding.algorithm is algo)
+        out[name] = r
+        del net
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    return out
 
 
 def _run_ranks(world: int, backend: str, images: str,
@@ -4238,12 +4388,236 @@ def _hold_rank(torch, rank: int, size: int, res: dict, p0: dict,
             "states_rel": e_state, "params_vs_one_process_step3": e3}
 
 
+def _replay_tails(torch, name: str, tails: list, device: str) -> dict:
+    """The encoded tail of scheme ``name`` replayed on one whole flat
+    (the two ranks' recorded step-1 slices concatenated, no replica: the
+    reductions then span the flat as the ranks' collectives did), on
+    ``device`` and on the CPU. Held: card against CPU bitwise for
+    threshold and int8 and within ONEBIT_RTOL for 1-bit; the ranks'
+    recorded outputs against the replay the same way; the error-feedback
+    identity, ``residual + decoded`` within one f32 ulp of ``corrected``
+    (of the larger of it and ``decoded``) wherever the step-1 clip left
+    the residual (elsewhere the residual sits at ±5τ)."""
+    from deeplearning4j_tpu_torch.parallel import zero
+    from deeplearning4j_tpu_torch.parallel.encoding import EncodingSpec
+    spec = EncodingSpec() if name == "threshold" else EncodingSpec(name)
+
+    def close(a, b, what, scale=None):
+        """Bitwise, or for 1-bit within ONEBIT_RTOL of the decoded
+        magnitude ``scale`` (a residual moves by the scale's difference
+        and one rounding of its own)."""
+        if name == "1bit":
+            err = float((a.double() - b.double()).abs().max())
+            bar = ONEBIT_RTOL * float(b.double().abs().max()
+                                      if scale is None else scale)
+            if scale is not None:
+                bar += float(torch.finfo(torch.float32).eps *
+                             b.double().abs().max())
+            check(err <= bar, f"{what}: {err:.3e} > {bar:.3e}")
+            return err
+        check(torch.equal(a, b), f"{what}: not bitwise equal")
+        return 0.0
+
+    worst, out = 0.0, {}
+    for key in tails[0]:
+        a, b = tails[0][key], tails[1][key]
+        g = {dt: torch.cat([a["g"][dt], b["g"][dt]]) for dt in a["g"]}
+        r = {dt: torch.cat([a["residual"][dt], b["residual"][dt]])
+             for dt in a["residual"]}
+        runs = {}
+        for dev in dict.fromkeys((device, "cpu")):
+            res = zero.encoded_tail(
+                {dt: t.to(dev) for dt, t in g.items()},
+                {dt: t.to(dev) for dt, t in r.items()},
+                a["tau"].to(dev), a["step"].to(dev), spec, None)
+            runs[dev] = (_tree_cpu(res[0]), _tree_cpu(res[1]),
+                         res[2].cpu(), res[3].cpu())
+        (dec, res_, tau, sp), cpu = runs[device], runs["cpu"]
+        for dt in g:
+            scale = float(cpu[0][dt].abs().max())
+            worst = max(worst, close(dec[dt], cpu[0][dt],
+                                     f"{name} {key} decoded, card vs CPU"),
+                        close(res_[dt], cpu[1][dt],
+                              f"{name} {key} residual, card vs CPU",
+                              scale))
+            half = a["decoded"][dt].numel()
+            for rk, (lo, hi) in enumerate(((0, half),
+                                           (half, 2 * half))):
+                rec = tails[rk][key]
+                close(rec["decoded"][dt], dec[dt][lo:hi],
+                      f"{name} {key} rank {rk} decoded vs the replay")
+                close(rec["new_residual"][dt], res_[dt][lo:hi],
+                      f"{name} {key} rank {rk} residual vs the replay",
+                      scale)
+            corrected = g[dt] + r[dt]
+            lim = spec.residual_post.max_multiple * cpu[2]
+            free = cpu[1][dt].abs() < lim
+            # the subtraction rounds at the larger operand's ulp (1-bit
+            # decodes every element to ±scale, small ones too)
+            big = torch.maximum(corrected.abs(), cpu[0][dt].abs())
+            ulp = torch.nextafter(big, torch.tensor(float("inf"))) - big
+            err = (cpu[1][dt] + cpu[0][dt] - corrected).abs()
+            check(bool(((err <= ulp) | ~free).all()),
+                  f"{name} {key}: residual + decoded misses corrected by "
+                  f"{float((err - ulp)[free].max()):.3e} over an ulp")
+            check(bool((cpu[1][dt][~free].abs() == lim).all()),
+                  f"{name} {key}: a clipped residual off ±5τ")
+            out[key] = {"elements": int(corrected.numel()),
+                        "clipped": int((~free).sum()),
+                        "sparsity": float(sp), "tau": float(tau)}
+        check(torch.equal(tau, cpu[2]) and torch.equal(sp, cpu[3]),
+              f"{name} {key}: τ or the fraction, card vs CPU")
+        for rk in range(2):
+            check(torch.equal(tails[rk][key]["new_tau"], cpu[2]) and
+                  torch.equal(tails[rk][key]["sparsity"], cpu[3]),
+                  f"{name} {key} rank {rk}: τ or the fraction vs the "
+                  f"replay")
+    return {"groups": out, "card_vs_cpu_max_abs": worst}
+
+
+def _tree_cpu(d: dict) -> dict:
+    return {k: v.cpu() for k, v in d.items()}
+
+
+def _check_exchanges(torch, ranks: list, image: int, params: dict,
+                     launches_ok, label: str, device: str) -> dict:
+    """Phase 19 (e) and (f): the ranks' encoded and fsdp runs (from
+    ``_rank_exchanges``) against each other, (c) and the host."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.parallel import zero
+    from deeplearning4j_tpu_torch.parallel.encoding import (
+        AdaptiveThresholdAlgorithm, EncodingSpec)
+    order = [k for k in params if params[k]]
+    sizes = np.array([sum(-(-t.numel() // DP_RANKS) * DP_RANKS
+                          for t in params[k].values()) for k in order],
+                     dtype=np.float64)
+    whole = zero.fsdp_param_bytes(zero.params_to_fsdp(params, DP_RANKS)[0])
+    report = {"padded_flat_param_bytes": whole, "bytes": {}}
+    for name in DP_SCHEMES + ("fsdp",):
+        runs = [r["exchanges"][name] for r in ranks]
+        want = "fsdp" if name == "fsdp" else "encoded"
+        for rk, run in enumerate(runs):
+            check(len(run["modes"]) == DP_RANK_STEPS and
+                  all(m == want for m in run["modes"]),
+                  f"{name} rank {rk}: the exchange ran as {run['modes']}")
+            launches_ok(run["launches"], DP_RANK_STEPS,
+                        f"{name} rank {rk}")
+            check(all(np.isfinite(run["losses"])),
+                  f"{name} rank {rk}: loss {run['losses']}")
+        _bitwise(torch, runs[0]["final"], runs[1]["final"],
+                 f"{name}: rank 0 vs rank 1 after {DP_RANK_STEPS} steps")
+        rep = {"step_ms": [r["step_ms"] for r in runs],
+               "losses": runs[0]["losses"],
+               "launches": [r["launches"] for r in runs],
+               "param_bytes": runs[0]["param_bytes"][-1],
+               "state_bytes": runs[0]["state_bytes"][-1],
+               "residual_bytes": runs[0]["residual_bytes"][-1]}
+        if name == "fsdp":
+            for rk, run in enumerate(runs):
+                ref = ranks[rk][image]["snaps"][DP_RANK_STEPS]
+                off = {f"{part} {k}/{n}": float((t - ref[part][k][n])
+                                                .abs().max())
+                       for part in ("params", "states")
+                       for k, sub in run["final"][part].items()
+                       for n, t in sub.items()
+                       if not torch.equal(t, ref[part][k][n])}
+                check(not off, f"fsdp rank {rk} vs the ZeRO-1 run (c): "
+                               f"{len(off)} tensors differ: {off}")
+                check(all(b * DP_RANKS == whole
+                          for b in run["param_bytes"]),
+                      f"fsdp rank {rk}: parameters {run['param_bytes']} "
+                      f"bytes a step, the padded flats {whole}")
+                check(run["state_bytes"] == ranks[rk][image]["state_bytes"],
+                      f"fsdp rank {rk}: updater state "
+                      f"{run['state_bytes']} bytes, (c)'s "
+                      f"{ranks[rk][image]['state_bytes']}")
+            print(f"[dp] (f) fsdp, 2 gloo ranks at {image}x{image}: "
+                  f"bitwise equal to the ZeRO-1 run (c) and to each other "
+                  f"after {DP_RANK_STEPS} steps; resident a rank: "
+                  f"parameters {rep['param_bytes']} bytes = 1/{DP_RANKS} "
+                  f"of the padded flats {whole}, updater state "
+                  f"{rep['state_bytes']}; loss {runs[0]['losses']}; steps "
+                  f"{[[round(m, 3) for m in r] for r in rep['step_ms']]} ms"
+                  f" (gloo, host-staged: no DP rate); launches "
+                  f"{runs[0]['launches']} [{label}]")
+            report["fsdp"] = rep
+            continue
+        for rk, run in enumerate(runs):
+            check(run["scheme"] == name and run["knob_reached"],
+                  f"{name} rank {rk}: the tail ran {run['scheme']} / "
+                  f"{run['algorithm']}")
+            check(all(b * DP_RANKS == whole
+                      for b in run["residual_bytes"]),
+                  f"{name} rank {rk}: residual {run['residual_bytes']} "
+                  f"bytes, the padded flats {whole}")
+        rep["tail"] = _replay_tails(torch, name,
+                                    [r["tails"] for r in runs], device)
+        # τ's trajectory against next_tau replayed on the host from the
+        # fractions the ranks recorded
+        enc = runs[0]["encoded"]
+        algo = AdaptiveThresholdAlgorithm()
+        tau = torch.full((len(order),), algo.initial(), dtype=torch.float32)
+        steps = []
+        for i, st in enumerate(enc):
+            check(st.shape[0] == len(order) and
+                  torch.equal(enc[i], runs[1]["encoded"][i]),
+                  f"{name}: the ranks' τ / fraction differ at step {i + 1}")
+            tau = algo.next_tau(tau, st[:, 1])
+            check(torch.equal(tau, st[:, 0]),
+                  f"{name}: τ at step {i + 1} off the host replay")
+            sp = st[:, 1].double().numpy()
+            steps.append({"fraction_weighted": float(
+                (sp * sizes).sum() / sizes.sum()),
+                "fraction_min": float(sp.min()),
+                "fraction_max": float(sp.max()),
+                "tau_min": float(st[:, 0].min()),
+                "tau_max": float(st[:, 0].max())})
+        rep["steps"] = steps
+        rep["bytes"] = {
+            "encoded_exchange_planned": zero.encoded_exchange_bytes(
+                params, DP_RANKS, name),
+            "encoded_exchange_observed": zero.encoded_exchange_bytes(
+                params, DP_RANKS, name,
+                sparsity=steps[-1]["fraction_weighted"])}
+        print(f"[dp] (e) encoded {name} ({runs[0]['algorithm']}), 2 gloo "
+              f"ranks at {image}x{image}: the ranks bitwise equal after "
+              f"{DP_RANK_STEPS} steps; per step transmitted fraction "
+              f"(size-weighted, min..max over {len(order)} groups) and τ "
+              f"(min..max): "
+              + "; ".join(f"{i + 1}: {st_['fraction_weighted']:.6f} "
+                          f"({st_['fraction_min']:.6f}.."
+                          f"{st_['fraction_max']:.6f}), τ "
+                          f"{st_['tau_min']:.9g}..{st_['tau_max']:.9g}"
+                          for i, st_ in enumerate(steps))
+              + f"; τ == next_tau replayed on the host; step-1 tail card "
+              f"vs CPU {rep['tail']['card_vs_cpu_max_abs']:.3e} (groups "
+              f"{rep['tail']['groups']}); resident a rank: residual "
+              f"{rep['residual_bytes']} bytes, updater state "
+              f"{rep['state_bytes']}, parameters {rep['param_bytes']}; "
+              f"wire a rank a step: {rep['bytes']}; loss "
+              f"{runs[0]['losses']}; steps "
+              f"{[[round(m, 3) for m in r] for r in rep['step_ms']]} ms "
+              f"(gloo, host-staged: no DP rate) [{label}]")
+        report[name] = rep
+    for mode in ("dense", "sharded", "fsdp"):
+        report["bytes"][mode] = zero.update_exchange_bytes(params,
+                                                           DP_RANKS, mode)
+    for name in DP_SCHEMES:
+        report["bytes"][f"encoded_{name}"] = zero.encoded_exchange_bytes(
+            params, DP_RANKS, EncodingSpec(name))
+    print(f"[dp] (e)/(f) update-exchange bytes a rank a step (analytic, "
+          f"{DP_RANKS} ranks, ring model; planning sparsity for threshold): "
+          f"{report['bytes']}")
+    return report
+
+
 def phase_dp_resnet(torch, label: str, device: str = "cuda",
                     image: int = 224) -> dict:
     """BASELINE #5 on one card (see the module docstring, phase 19).
-    ``device="cpu"`` with a small ``image`` rehearses (a), (b) and (c)
-    without a card (the launch counts and the profile are the card's);
-    the NCCL run (d) needs one."""
+    ``device="cpu"`` with a small ``image`` rehearses (a), (b), (c), (e)
+    and (f) without a card (the launch counts and the profile are the
+    card's); the NCCL run (d) needs one."""
     import numpy as np
 
     from deeplearning4j_tpu_torch.common.environment import Environment
@@ -4396,6 +4770,8 @@ def phase_dp_resnet(torch, label: str, device: str = "cuda",
     out["gloo"] = gloo
     print(f"[dp] (c) the ranks agree bitwise after {DP_RANK_STEPS} steps; "
           f"{DP_RANKS} rank processes {out['gloo_wall_s']:.1f}s")
+    out["exchanges"] = _check_exchanges(torch, ranks, image, p0["params"],
+                                        launches_ok, label, device)
     if not on_card:
         return out
 
@@ -5158,7 +5534,10 @@ def main() -> int:
                 "shared_training_gloo_3_steps_per_rank": [
                     r["launches"][k.name] for r in dp["gloo"]],
                 "shared_training_nccl_1_rank_10_steps":
-                    dp["nccl"]["launches"][k.name]}
+                    dp["nccl"]["launches"][k.name],
+                **{f"shared_training_gloo_{n}_3_steps_per_rank": [
+                    r_[k.name] for r_ in dp["exchanges"][n]["launches"]]
+                   for n in ("fsdp",) + DP_SCHEMES}}
         extra["launches_squeezenet_training"] = st["launches"][k.name]
         extra["launches_resnet_remat_step"] = \
             tr["remat"]["remat"]["launches"][k.name]
@@ -5209,8 +5588,12 @@ def main() -> int:
           f"({dp['nccl']['img_per_s']:.1f} img/s); 2 gloo ranks: step 1 "
           f"{max(c['update_vs_f64'] for r in dp['gloo'] for c in r['checks'].values()):.3e} "
           f"from float64, updater state {dp['gloo'][0]['state_bytes']} of "
-          f"{dp['gloo'][0]['state_bytes_whole_padded']} bytes a rank "
-          f"[{label}]")
+          f"{dp['gloo'][0]['state_bytes_whole_padded']} bytes a rank; "
+          f"fsdp == ZeRO-1 bitwise with {dp['exchanges']['fsdp']['param_bytes']}"
+          f" parameter bytes a rank; encoded threshold / int8 / 1bit step-3 "
+          f"fraction "
+          f"{[dp['exchanges'][n]['steps'][-1]['fraction_weighted'] for n in DP_SCHEMES]}"
+          f" [{label}]")
     print(f"[done] SqueezeNet serving: batch-32 f32 forward "
           f"{sq['fwd32_f32_ms'][1]:.3f} ms ({sq['img_per_s']:.1f} img/s), "
           f"bf16 {sq['fwd32_bf16_ms']:.3f} ms, {sq['http_img_per_s']:.1f} "

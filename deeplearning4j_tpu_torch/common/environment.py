@@ -11,15 +11,20 @@ default on), ``DL4J_TORCH_RETRACE_WARN`` (warn once past this many
 distinct served shapes, default 5), ``DL4J_TORCH_DEVICE_PREFETCH``
 (``fit`` stages iterators through ``datasets/prefetch.py``, default
 on), ``DL4J_TORCH_DEVICE_PREFETCH_DEPTH`` (batches staged ahead,
-default 2) and ``DL4J_TORCH_SHARDED_UPDATE`` (the ZeRO-1 update
+default 2), ``DL4J_TORCH_SHARDED_UPDATE`` (the ZeRO-1 update
 exchange of ``parallel/zero.py``; ``0`` forces the dense tail, default
-on). Read live by their subsystems:
+on), ``DL4J_TORCH_FSDP`` (the fsdp (ZeRO-3) exchange; ``0`` demotes an
+fsdp request to ZeRO-1, default on) and ``DL4J_TORCH_ENCODED_UPDATE``
+(the encoded exchange; ``0`` demotes an encoded request to ZeRO-1,
+uncompressed, default on). Read live by their subsystems:
 ``DL4J_TORCH_FUSED_CONV`` (the conv-epilogue and training-BN forward
 kernel gate), ``DL4J_TORCH_FUSED_BN_BWD`` (the BN backward kernel gate),
 ``DL4J_TORCH_FLASH_ATTENTION`` (the flash-attention kernel gate),
 ``DL4J_TORCH_PAGED_ATTENTION`` (the paged-decode kernel gate; all four
 in ``ops/kernel_select.py``), ``DL4J_TORCH_GRAPHOPT`` (the GraphOptimizer
 after a TF import, default on; ``autodiff/passes.py``),
+``DL4J_TORCH_ENCODED_SCHEME`` (the encoded exchange's default codec,
+``threshold``, ``int8`` or ``1bit``; ``parallel/encoding.py``),
 ``DL4J_TORCH_DATA_DIR`` (where ``datasets/mnist.py`` looks for the
 IDX files), ``DL4J_TORCH_KV_DTYPE`` (the KV pool's
 dtype, ``float32`` or ``bf16``; ``serving/batcher.py``) and
@@ -47,6 +52,8 @@ class _Env:
     device_prefetch: bool = True
     device_prefetch_depth: int = 2
     sharded_update: bool = True
+    fsdp: bool = True
+    encoded_update: bool = True
     extra: dict = field(default_factory=dict)
 
 
@@ -73,7 +80,9 @@ class Environment:
                     device_prefetch=flag("DL4J_TORCH_DEVICE_PREFETCH"),
                     device_prefetch_depth=int(os.environ.get(
                         "DL4J_TORCH_DEVICE_PREFETCH_DEPTH", "2")),
-                    sharded_update=flag("DL4J_TORCH_SHARDED_UPDATE"))
+                    sharded_update=flag("DL4J_TORCH_SHARDED_UPDATE"),
+                    fsdp=flag("DL4J_TORCH_FSDP"),
+                    encoded_update=flag("DL4J_TORCH_ENCODED_UPDATE"))
             return cls._inst
 
     @classmethod

@@ -43,6 +43,29 @@ def is_dp_sharded(state) -> bool:
     return isinstance(state, dict) and DP_SHARDED_KEY in state
 
 
+#: reserved key marking a parameter entry as the fsdp (ZeRO-3) flat
+#: layout: ``{FSDP_KEY: {dtype key: flat}}``, a replica holding its 1/N
+#: slice of each padded flat (``parallel/zero.py`` owns the conversions)
+FSDP_KEY = "__fsdp__"
+
+
+def is_fsdp(tree) -> bool:
+    return isinstance(tree, dict) and FSDP_KEY in tree
+
+
+#: reserved key marking the encoded exchange's error-feedback state in an
+#: updater-state entry: ``{ENCODED_KEY: {"residual": {dtype key: flat},
+#: "tau": f32, "step": int32, "sparsity": f32}}``; in the dense
+#: (checkpoint) layout the residual is ``{name: tensor}``, the
+#: parameters' tree, so a zip restores on any replica count. The key
+#: strings are the JAX package's: they reach the zips.
+ENCODED_KEY = "__encoded__"
+
+
+def is_encoded(state) -> bool:
+    return isinstance(state, dict) and ENCODED_KEY in state
+
+
 def _dtype_key(t: torch.Tensor) -> str:
     return str(t.dtype).replace("torch.", "")
 
@@ -52,6 +75,22 @@ def _leaves(tree) -> List[torch.Tensor]:
     (keys sorted)."""
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree) for leaf in _leaves(tree[k])]
+    return [tree]
+
+
+def tree_map(fn, *trees):
+    """``fn`` over the tensors of nested dicts of one structure, in
+    insertion order."""
+    if isinstance(trees[0], dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def tree_leaves(tree) -> List[torch.Tensor]:
+    """The tensors of nested dicts in insertion order (the order
+    :func:`tree_map` visits them)."""
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in tree_leaves(v)]
     return [tree]
 
 

@@ -2,7 +2,8 @@
 
 Counterpart of ``deeplearning4j_tpu/nn/graph.py`` on one device:
 ``init``, the topo-ordered walk of ``_forward`` (without tensor
-parallelism or fsdp), ``output`` / ``outputs`` / ``predict``,
+parallelism; under fsdp it reads the parameters through
+``parallel/zero.FsdpParamView``), ``output`` / ``outputs`` / ``predict``,
 ``evaluate`` / ``evaluate_regression``, ``rnn_time_step`` with
 ``rnn_{get,set,clear}_previous_state``, ``param_table``, ``summary``,
 and training: ``fit(x, y)``, ``fit(DataSet)``, ``fit(iterator)``,
@@ -53,6 +54,7 @@ from deeplearning4j_tpu_torch.nn.conf.graph_conf import \
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputTypeRecurrent
 from deeplearning4j_tpu_torch.nn.conf.layers import BaseOutputLayer
 from deeplearning4j_tpu_torch.nn.trainer import Trainable
+from deeplearning4j_tpu_torch.parallel.zero import FsdpParamView
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64,
            "float16": torch.float16, "bfloat16": torch.bfloat16}
@@ -68,7 +70,10 @@ def to_torch_dtype(name: str) -> torch.dtype:
 
 def cast_floats(tree: dict, dtype: torch.dtype) -> dict:
     """Cast every floating tensor of a ``{vertex: {name: tensor}}``
-    tree to ``dtype``."""
+    tree to ``dtype`` (an fsdp view casts each group as it gathers
+    it)."""
+    if isinstance(tree, FsdpParamView):
+        return tree.cast(dtype)
     return {k: {n: (t.to(dtype) if t.is_floating_point() else t)
                 for n, t in sub.items()} for k, sub in tree.items()}
 
@@ -322,7 +327,7 @@ class ComputationGraph(Trainable):
             self.init()
         xs = [self._as_input(x) for x in inputs]
         with torch.inference_mode():
-            acts, _ = self._forward(self.params, self.states, xs,
+            acts, _ = self._forward(self.dense_params(), self.states, xs,
                                     training=train,
                                     fmask=self._as_mask(mask))
         outs = [acts[n] for n in self.conf.network_outputs]
@@ -359,7 +364,7 @@ class ComputationGraph(Trainable):
               for x, r in zip(xs, rec)]
         states = self._stream_states(int(xs[0].shape[0]))
         with torch.inference_mode():
-            acts, new_states = self._forward(self.params, states, xs)
+            acts, new_states = self._forward(self.dense_params(), states, xs)
         self._keep_stream(new_states)
         outs = [acts[n] for n in self.conf.network_outputs]
         if single_step:
@@ -449,22 +454,24 @@ class ComputationGraph(Trainable):
 
     # ------------------------------------------------------------------
     def num_params(self) -> int:
-        return int(sum(t.numel() for sub in self.params.values()
+        return int(sum(t.numel() for sub in self.dense_params().values()
                        for t in sub.values()))
 
     def param_table(self) -> dict:
         """``{"<vertex>_<name>": tensor}`` in topo order (conv kernels
         OIHW, the port's layout)."""
+        params = self.dense_params()
         return {f"{name}_{n}": t for name in self._topo
-                for n, t in self.params.get(name, {}).items()}
+                for n, t in params.get(name, {}).items()}
 
     def summary(self) -> str:
         lines = [f"{'vertex':<28} {'type':<22} {'inputs':<28} "
                  f"{'params':<10}"]
         total = 0
+        params = self.dense_params()
         for name in self._topo:
             v = self.conf.vertices[name]
-            n = int(sum(t.numel() for t in self.params.get(name,
+            n = int(sum(t.numel() for t in params.get(name,
                                                            {}).values()))
             total += n
             lines.append(f"{name:<28} {type(v.content).__name__:<22} "

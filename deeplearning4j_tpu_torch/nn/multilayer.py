@@ -213,7 +213,7 @@ class MultiLayerNetwork(Trainable):
         if not self._initialized:
             self.init()
         with torch.inference_mode():
-            out, _ = self._forward(self.params, self.states,
+            out, _ = self._forward(self.dense_params(), self.states,
                                    self._as_input(x), training=train,
                                    mask=self._as_mask(mask))
         return out
@@ -226,7 +226,7 @@ class MultiLayerNetwork(Trainable):
             self.init()
         conf = self.conf
         h = self._as_input(x)
-        params = self.params
+        params = self.dense_params()
         if conf.compute_dtype:
             cd = to_torch_dtype(conf.compute_dtype)
             params = cast_floats(params, cd)
@@ -286,7 +286,7 @@ class MultiLayerNetwork(Trainable):
             x = x[:, None, :]
         states = self._stream_states(int(x.shape[0]))
         with torch.inference_mode():
-            out, new_states = self._forward(self.params, states, x)
+            out, new_states = self._forward(self.dense_params(), states, x)
         self._keep_stream(new_states)
         if single_step and out.dim() == 3:
             out = out[:, -1]
@@ -323,7 +323,7 @@ class MultiLayerNetwork(Trainable):
         return ev
 
     def num_params(self) -> int:
-        return int(sum(t.numel() for sub in self.params.values()
+        return int(sum(t.numel() for sub in self.dense_params().values()
                        for t in sub.values()))
 
     def param_table(self) -> dict:
@@ -331,15 +331,16 @@ class MultiLayerNetwork(Trainable):
         states (the reference's paramTable naming). Conv kernels are
         OIHW, the port's layout."""
         out = {}
+        params = self.dense_params()
         for i in range(self.n_layers()):
-            for tree in (self.params, self.states):
+            for tree in (params, self.states):
                 for name, t in (tree.get(f"layer_{i}") or {}).items():
                     out[f"{i}_{name}"] = t
         return out
 
     def get_param(self, key: str) -> torch.Tensor:
         i, name = key.split("_", 1)
-        return self.params[f"layer_{i}"][name]
+        return self.dense_params()[f"layer_{i}"][name]
 
     def set_params_from_table(self, table: dict) -> None:
         """Copy each ``"<i>_<name>"`` entry into that layer's parameter or
@@ -363,7 +364,8 @@ class MultiLayerNetwork(Trainable):
         same device."""
         net = MultiLayerNetwork(copy.deepcopy(self.conf))
         if self._initialized:
-            net.set_params(clone_tree(self.params), clone_tree(self.states),
+            net.set_params(clone_tree(self.dense_params()),
+                           clone_tree(self.states),
                            self.device)
             net.updater_states = clone_tree(self.updater_states)
         return net
@@ -371,9 +373,10 @@ class MultiLayerNetwork(Trainable):
     def summary(self) -> str:
         lines = [f"{'idx':<4} {'type':<24} {'nIn->nOut':<14} {'params':<10}"]
         total = 0
+        params = self.dense_params()
         for i, layer in enumerate(self.conf.layers):
             n = int(sum(t.numel() for t in
-                        self.params.get(f"layer_{i}", {}).values()))
+                        params.get(f"layer_{i}", {}).values()))
             total += n
             lines.append(f"{i:<4} {type(layer).__name__:<24} "
                          f"{layer.n_in}->{layer.n_out:<10} {n:<10}")

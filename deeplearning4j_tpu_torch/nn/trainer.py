@@ -70,8 +70,19 @@ the score is the replicas' mean loss. The dense exchange all-reduces the
 gradients before the per-key update tail; the sharded one (ZeRO-1)
 replaces that tail with the flat reduce-scatter / update / all-gather of
 ``zero.apply_update_sharded``, each replica holding 1/N of the updater
-state. Under accumulation the exchange runs once a window, on the mean
-gradient.
+state; the encoded one compresses the mean-gradient slice under error
+feedback before the updater (``zero.apply_update_encoded``, the residual
+1/N a replica too); under fsdp (ZeRO-3) the parameters themselves are
+the replica's slices of the flats: the loss reads them through
+``zero.FsdpParamView`` (a group gathered at its first use, its gradient
+reduce-scattered in the backward) and ``zero.apply_update_fsdp`` updates
+the slices in place. Every path outside the training step reads
+``dense_params()``, which under fsdp gathers the slices: a collective,
+which every replica of the mesh calls. Under accumulation the exchange
+runs once a window, on the mean gradient. An encoded run's
+error-feedback state stays in the updater state between fits (in the
+dense layout once unbound) and is dropped when the model steps under any
+other exchange.
 """
 from __future__ import annotations
 
@@ -79,14 +90,19 @@ from typing import Dict, List, Optional
 
 import torch
 
+from deeplearning4j_tpu_torch.common import telemetry
 from deeplearning4j_tpu_torch.common.rng import RngKey
 from deeplearning4j_tpu_torch.datasets.prefetch import maybe_device_prefetch
+from deeplearning4j_tpu_torch.learning.updaters import (FSDP_KEY, is_encoded,
+                                                        is_fsdp, tree_leaves,
+                                                        tree_map)
 from deeplearning4j_tpu_torch.nn.conf.builders import BackpropType
 from deeplearning4j_tpu_torch.nn.conf.constraints import apply_constraints
 from deeplearning4j_tpu_torch.nn.gradient import \
     apply_gradient_normalization
 from deeplearning4j_tpu_torch.optimize.listeners import TrainingListener
 from deeplearning4j_tpu_torch.parallel import zero
+from deeplearning4j_tpu_torch.parallel.encoding import resolve_encoding
 from deeplearning4j_tpu_torch.parallel.mesh import (Replica,
                                                     canonical_device,
                                                     replica_scope)
@@ -114,6 +130,8 @@ class Trainable:
         self._updates_applied = 0
         self._replica: Optional[Replica] = None
         self._dp_mode: Optional[zero.UpdateExchange] = None
+        self._dp_encoding = None
+        self._fsdp_specs: dict = {}
         self._rnn_stream_states: Optional[_Tree] = None
         self._rnn_stream_batch = 0
 
@@ -311,21 +329,26 @@ class Trainable:
         """The loss and its gradient from ``states`` under this step's
         key: ``(loss, grads, new_states)``, the loss and the states
         detached (no gradient crosses two steps)."""
-        leaves = {k: {n: t.detach().requires_grad_(True)
-                      for n, t in sub.items()}
-                  for k, sub in self.params.items()}
-        flat = [(k, n, t) for k, sub in leaves.items()
-                for n, t in sub.items()]
+        # under fsdp an entry's leaves are its flat slices,
+        # {FSDP_KEY: {dtype: slice}}, one level deeper than a dense one
+        leaves = tree_map(lambda t: t.detach().requires_grad_(True),
+                           self.params)
+        flat = tree_leaves(leaves)
+        params = leaves
+        if self._params_are_fsdp():
+            params = zero.FsdpParamView(leaves, self._fsdp_specs,
+                                        self._replica)
         with replica_scope(self._replica), torch.enable_grad():
-            loss, new_states = self._loss(leaves, states, inputs, labels,
+            loss, new_states = self._loss(params, states, inputs, labels,
                                           lmasks, fmask, training=True,
                                           rng=self._next_key())
-            grads_flat = torch.autograd.grad(
-                loss, [t for _, _, t in flat], allow_unused=True)
-        grads: _Tree = {}
-        for (k, n, t), g in zip(flat, grads_flat):
-            grads.setdefault(k, {})[n] = (g if g is not None
-                                          else torch.zeros_like(t))
+            grads_flat = iter(torch.autograd.grad(loss, flat,
+                                                  allow_unused=True))
+
+        def grad_of(t):
+            g = next(grads_flat)
+            return g if g is not None else torch.zeros_like(t)
+        grads = tree_map(grad_of, leaves)
         return loss.detach(), grads, {
             k: {n: t.detach() for n, t in st.items()}
             for k, st in new_states.items()}
@@ -372,10 +395,7 @@ class Trainable:
             if self._accum_grads is None:
                 self._accum_grads = grads
             else:
-                for k, sub in grads.items():
-                    acc = self._accum_grads[k]
-                    for n, g in sub.items():
-                        acc[n].add_(g)
+                tree_map(lambda a, g: a.add_(g), self._accum_grads, grads)
         self._accum_count += 1
         if self._accum_count >= self._accum_steps:
             self._apply_accumulated()
@@ -386,16 +406,20 @@ class Trainable:
     def _apply_accumulated(self) -> None:
         scale = 1.0 / self._accum_count
         with torch.no_grad():
-            grads = {k: {n: g * scale for n, g in sub.items()}
-                     for k, sub in self._accum_grads.items()}
+            grads = tree_map(lambda g: g * scale, self._accum_grads)
             self._update_tail(grads, self._updates_applied)
         self._accum_grads = None
         self._accum_count = 0
         self._updates_applied += 1
 
     def _update_tail(self, grads: _Tree, iteration: int) -> None:
-        if self._dp_mode is zero.UpdateExchange.SHARDED:
-            return self._update_tail_sharded(grads, iteration)
+        if self._dp_mode is not zero.UpdateExchange.ENCODED and any(
+                is_encoded(s) for s in self.updater_states.values()):
+            # the residual belongs to the encoded exchange
+            self.updater_states = zero.strip_encoded_states(
+                self.updater_states)
+        if self._dp_mode in zero.FLAT_MODES:
+            return self._update_tail_flat(grads, iteration)
         if self._replica is not None:
             grads = self._mean_over_replicas(grads)
         conf = self.conf
@@ -424,15 +448,21 @@ class Trainable:
                 p[n].copy_(t)
 
     # -- data parallelism --------------------------------------------------
-    def set_dp_mesh(self, mesh, axis: str = "data", mode=None):
+    def set_dp_mesh(self, mesh, axis: str = "data", mode=None,
+                    encoding=None):
         """Bind this model to a data-parallel replica, or unbind it with
         ``mesh=None``. ``mesh`` is a ``parallel.mesh.Replica``, or a mesh
         with one replica in this process (a ``ProcessGroupMesh``).
         ``mode`` None or ``"sharded"`` selects the ZeRO-1 tail (the
         updater state converts to this replica's 1/N of the flat
-        layout), ``"dense"`` the all-reduce tail; ``"auto"`` resolves as
-        ``zero.resolve_update_exchange`` does. Leaving the sharded tail
-        gathers the state back to the dense layout, a collective every
+        layout), ``"dense"`` the all-reduce tail, ``"encoded"`` the
+        compressed tail (``encoding``: an ``EncodingSpec`` or a scheme
+        name, ``parallel.encoding.resolve_encoding``; the error-feedback
+        state is injected where absent), ``"fsdp"`` the ZeRO-3 tail (the
+        parameters convert to this replica's 1/N of their flats too);
+        ``"auto"`` resolves as ``zero.resolve_update_exchange`` does.
+        Leaving a flat tail gathers the state (and under fsdp the
+        parameters) back to the dense layout, a collective every
         replica of the mesh takes part in."""
         if axis != "data":
             raise NotImplementedError(
@@ -448,34 +478,79 @@ class Trainable:
                     f"mesh.replica(rank)")
             replica = local[0]
         if replica is not None:
-            requested = zero.parse_update_exchange(mode or "sharded")
-            if requested is zero.UpdateExchange.AUTO:
+            mode = zero.parse_update_exchange(mode or "sharded")
+            if mode is zero.UpdateExchange.AUTO:
                 mode = zero.resolve_update_exchange(replica.mesh, axis,
-                                                    requested, self)
-            elif requested in (zero.UpdateExchange.FSDP,
-                               zero.UpdateExchange.ENCODED):
-                raise zero.unported(requested)
-            else:
-                mode = requested
+                                                    mode, self)
             if canonical_device(replica.device) != \
                     canonical_device(self.device):
                 raise ValueError(f"replica {replica} is on "
                                  f"{replica.device}, the model on "
                                  f"{self.device}")
         self.flush_accumulated()
-        if self._dp_mode is zero.UpdateExchange.SHARDED:
+        if self._replica is not None:
+            self._gather_dp_layouts()
+        self._replica = replica
+        self._dp_mode = mode if replica is not None else None
+        self._dp_encoding = None
+        if self._dp_mode in zero.FLAT_MODES:
+            n, rank = replica.size, replica.rank
+            if self._dp_mode is zero.UpdateExchange.ENCODED:
+                self._dp_encoding = resolve_encoding(encoding)
+                states = zero.ensure_encoded_states(
+                    self.params, self.updater_states, n, self._dp_encoding)
+            else:
+                states = zero.states_to_sharded(self.params,
+                                                self.updater_states, n)
+            self.updater_states = {k: zero.shard_state(s, rank, n)
+                                   for k, s in states.items()}
+            if self._dp_mode is zero.UpdateExchange.FSDP:
+                flat, self._fsdp_specs = zero.params_to_fsdp(self.params,
+                                                             n)
+                self.params = zero.shard_params(flat, rank, n)
+                telemetry.gauge(
+                    "dl4j_fsdp_param_shard_bytes",
+                    "resident bytes of a replica's fsdp flat parameter "
+                    "slices (1/N of the padded flat total)").set(
+                        zero.fsdp_param_bytes(self.params))
+        return self
+
+    def _gather_dp_layouts(self) -> None:
+        """Leave the bound layouts: the fsdp parameters and the flat
+        updater state gathered back to the dense layout (collectives)."""
+        if self._params_are_fsdp():
+            self.params = zero.params_to_dense(self.params,
+                                               self._fsdp_specs,
+                                               self._replica)
+            self._fsdp_specs = {}
+        if self._dp_mode in zero.FLAT_MODES:
             self.updater_states = zero.states_to_dense(
                 self.params, {k: zero.gather_state(s, self._replica)
                               for k, s in self.updater_states.items()})
-        self._replica = replica
-        self._dp_mode = mode if replica is not None else None
-        if self._dp_mode is zero.UpdateExchange.SHARDED:
-            n = replica.size
-            self.updater_states = {
-                k: zero.shard_state(s, replica.rank, n) for k, s in
-                zero.states_to_sharded(self.params, self.updater_states,
-                                       n).items()}
-        return self
+
+    def _params_are_fsdp(self) -> bool:
+        return any(is_fsdp(p) for p in self.params.values())
+
+    def dense_params(self) -> _Tree:
+        """The parameters in the dense per-layer layout whatever their
+        residency: under fsdp a gather of every replica's slices (a
+        collective: every replica of the mesh calls it), else
+        ``params`` itself."""
+        if not self._params_are_fsdp():
+            return self.params
+        return zero.params_to_dense(self.params, self._fsdp_specs,
+                                    self._replica)
+
+    def dense_updater_states(self) -> dict:
+        """The updater state in the dense layout (a checkpoint's): while
+        bound to a flat tail, every replica's slices gathered (a
+        collective), else ``updater_states`` itself."""
+        if self._dp_mode not in zero.FLAT_MODES:
+            return self.updater_states
+        return zero.states_to_dense(
+            self.dense_params(),
+            {k: zero.gather_state(s, self._replica)
+             for k, s in self.updater_states.items()})
 
     def _mean_loss(self, loss: torch.Tensor) -> torch.Tensor:
         """The replicas' mean loss (the loss itself without a mesh)."""
@@ -494,19 +569,34 @@ class Trainable:
         return dp_unravel({k: self._replica.all_reduce_sum(f.contiguous())
                            / n for k, f in flats.items()}, spec)
 
-    def _update_tail_sharded(self, grads: _Tree, iteration: int) -> None:
+    def _update_tail_flat(self, grads: _Tree, iteration: int) -> None:
+        """The sharded, encoded and fsdp tails, a group at a time."""
+        mode = self._dp_mode
         for key in self._keys():
             g = grads.get(key)
             if not g:
                 continue
-            new_p, us = zero.apply_update_sharded(
-                self._updater(key), g, self.params[key],
-                self.updater_states[key], iteration, self._replica,
-                epoch=self.epoch_count)
+            up, st = self._updater(key), self.updater_states[key]
             p = self.params[key]
-            for n, t in new_p.items():
-                p[n].copy_(t)
-            self._constrain(key)
+            if mode is zero.UpdateExchange.FSDP:
+                # no constraints here: the resolver refuses fsdp for them
+                new_flat, us = zero.apply_update_fsdp(
+                    up, g[FSDP_KEY], p[FSDP_KEY], st, iteration,
+                    self._replica, epoch=self.epoch_count)
+                for dt, t in new_flat.items():
+                    p[FSDP_KEY][dt].copy_(t)
+            else:
+                if mode is zero.UpdateExchange.ENCODED:
+                    new_p, us = zero.apply_update_encoded(
+                        up, g, p, st, iteration, self._replica,
+                        encoding=self._dp_encoding, epoch=self.epoch_count)
+                else:
+                    new_p, us = zero.apply_update_sharded(
+                        up, g, p, st, iteration, self._replica,
+                        epoch=self.epoch_count)
+                for n, t in new_p.items():
+                    p[n].copy_(t)
+                self._constrain(key)
             self.updater_states[key] = us
 
     # ------------------------------------------------------------------
@@ -518,6 +608,7 @@ class Trainable:
                 else float(self._score)
         inputs, labels, lmasks, fmask = self._split(dataset, None)
         with torch.no_grad():
-            loss, _ = self._loss(self.params, self.states, inputs, labels,
-                                 lmasks, fmask, training=False, rng=None)
+            loss, _ = self._loss(self.dense_params(), self.states, inputs,
+                                 labels, lmasks, fmask, training=False,
+                                 rng=None)
         return float(loss)

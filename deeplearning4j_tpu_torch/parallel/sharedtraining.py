@@ -26,10 +26,12 @@ Without a coordinator it degenerates to :class:`ParallelWrapper` over
 ``workers_per_node`` local replicas (all cards by default; one CPU
 replica for a model on the CPU).
 
-The reference's threshold and residual knobs are accepted and logged as
-inert: the encoded exchange they configure is not ported yet (ROADMAP
-item 11), nor are tensor and pipeline parallelism (item 12) or
-``checkpoint_dir`` (``utils/checkpoint.py``, item 14). The JAX
+The reference's threshold and residual knobs configure the encoded
+exchange: under ``update_exchange("encoded")`` they compose the
+``EncodingSpec`` as the JAX package composes it (an explicit
+``encoding(...)`` wins); under any other exchange they are inert, and
+logged so. Not ported: tensor and pipeline parallelism (ROADMAP item
+12) and ``checkpoint_dir`` (``utils/checkpoint.py``, item 14). The JAX
 package's scaling observatory sidecar (``common/stepstats.py``, item
 13) is left out.
 """
@@ -40,6 +42,8 @@ from dataclasses import dataclass
 from typing import Optional
 
 from deeplearning4j_tpu_torch.parallel import zero
+from deeplearning4j_tpu_torch.parallel.encoding import (EncodingSpec,
+                                                        resolve_encoding)
 from deeplearning4j_tpu_torch.parallel.mesh import (DEFAULT_DATA_AXIS,
                                                     DEFAULT_TIMEOUT_S,
                                                     ProcessGroupMesh,
@@ -56,7 +60,10 @@ class SharedTrainingConfiguration:
     """The reference SharedTrainingMaster.Builder's knobs that apply."""
     batch_size_per_worker: int = 32
     workers_per_node: int = -1          # -1: all local devices
-    threshold_algorithm: object = None  # accepted, inert (item 11)
+    # the encoded exchange's codec; the reference's threshold and
+    # residual knobs compose it when it is not given
+    encoding: Optional[EncodingSpec] = None
+    threshold_algorithm: object = None
     residual_post_processor: object = None
     update_exchange: str = "auto"
     accumulation_steps: int = 1
@@ -99,14 +106,16 @@ class SharedTrainingMaster:
             return self
 
         def update_exchange(self, mode):
-            """'dense' | 'sharded' | 'auto', checked here so a typo fails
-            at build time."""
+            """'dense' | 'sharded' | 'fsdp' | 'encoded' | 'auto', checked
+            here so a typo fails at build time."""
             self._c.update_exchange = zero.parse_update_exchange(mode).value
             return self
 
         def encoding(self, spec):
-            raise not_ported("the encoded update exchange (encoding)",
-                              "11")
+            """The codec of ``update_exchange('encoded')``: an
+            ``EncodingSpec`` or a scheme name."""
+            self._c.encoding = resolve_encoding(spec)
+            return self
 
         def accumulation_steps(self, n: int):
             self._c.accumulation_steps = max(int(n), 1)
@@ -150,6 +159,34 @@ class SharedTrainingMaster:
                      model.device)
         return self._mesh
 
+    def _encoding(self, mode) -> Optional[EncodingSpec]:
+        """The encoded exchange's codec, as the JAX master composes it:
+        ``encoding`` when given, else the default spec with the
+        reference's threshold algorithm and residual post-processor
+        where they are set. None under any other exchange, where those
+        knobs are inert."""
+        c = self.config
+        if mode is not zero.UpdateExchange.ENCODED:
+            if c.threshold_algorithm is not None:
+                log.info("threshold_algorithm configures the encoded "
+                         "update exchange; update_exchange=%r keeps it "
+                         "inert (dense all-reduce | ZeRO-1 sharded | "
+                         "ZeRO-3 fsdp): pass update_exchange='encoded' "
+                         "to compress the gradient exchange",
+                         c.update_exchange)
+            return None
+        spec = resolve_encoding(c.encoding)
+        if c.encoding is None and (c.threshold_algorithm is not None or
+                                   c.residual_post_processor is not None):
+            spec = EncodingSpec(
+                scheme=spec.scheme,
+                algorithm=c.threshold_algorithm or spec.algorithm,
+                residual_post=(c.residual_post_processor
+                               or spec.residual_post))
+        log.info("encoded update exchange: scheme=%s algorithm=%s",
+                 spec.scheme, type(spec.algorithm).__name__)
+        return spec
+
     def fit(self, model, iterator, *, n_epochs: int = 1,
             checkpoint_dir=None, save_every_n_epochs: int = 1,
             keep_last: int = 3):
@@ -160,24 +197,22 @@ class SharedTrainingMaster:
         c = self.config
         if not model._initialized:
             model.init()
-        if c.threshold_algorithm is not None:
-            log.info("threshold_algorithm configures the encoded update "
-                     "exchange, which is not ported yet (ROADMAP item "
-                     "11); update_exchange=%r keeps it inert",
-                     c.update_exchange)
         if not c.coordinator_address:
             mesh = make_mesh(devices=local_devices(
                 model, c.workers_per_node if c.workers_per_node > 0
                 else None), timeout_s=c.collective_timeout_s)
+            mode = zero.resolve_update_exchange(mesh, DEFAULT_DATA_AXIS,
+                                                c.update_exchange, model)
             ParallelWrapper(model, mesh, update_exchange=c.update_exchange,
-                            accumulation_steps=c.accumulation_steps
+                            accumulation_steps=c.accumulation_steps,
+                            encoding=self._encoding(mode)
                             ).fit(iterator, n_epochs=n_epochs)
             return model
         mesh = self._process_mesh(model)
         mode = zero.resolve_update_exchange(mesh, DEFAULT_DATA_AXIS,
                                             c.update_exchange, model)
         model.set_accumulation_steps(c.accumulation_steps)
-        model.set_dp_mesh(mesh, mode=mode)
+        model.set_dp_mesh(mesh, mode=mode, encoding=self._encoding(mode))
         try:
             model.fit(iterator, n_epochs=n_epochs)
         except BaseException:

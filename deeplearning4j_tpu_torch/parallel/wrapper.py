@@ -10,9 +10,10 @@ of it on its own device, each stepped on its own thread
 (``parallel/mesh.ThreadMesh``). Each global batch is trimmed to a
 multiple of the replica count and split in rank order; each replica
 takes a step on its shard, and the update exchange
-(``parallel/zero.py``: dense all-reduce, or the ZeRO-1 sharded tail)
-leaves every replica with the same parameters, the update of the mean
-gradient: exact synchronous SGD on the global batch, as in the JAX
+(``parallel/zero.py``: dense all-reduce, the ZeRO-1 sharded tail, fsdp
+(ZeRO-3) or the encoded tail) leaves every replica with the same
+parameters: the update of the mean gradient (its encoded form under
+``encoded``), synchronous SGD on the global batch, as in the JAX
 package. BatchNormalization's statistics are the global batch's
 (``ops/bn_train.py``), so the step equals the one-replica step on the
 same global batch.
@@ -24,15 +25,17 @@ each replica's shard to its device ahead of the step
 
 Each ``fit`` / ``fit_batch`` call binds the replicas to the mesh
 (``set_dp_mesh``), copying the wrapped model's parameters, states and
-updater state to the others, and unbinds them at its end, the sharded
-updater state gathered back to the dense layout; between calls the
-wrapped model is an ordinary model.
+updater state to the others, and unbinds them at its end: the flat
+updater state (and the encoded residual) gathered back to the dense
+layout, and under fsdp the parameters too; between calls the wrapped
+model is an ordinary model, whose updater state carries the encoded
+rung's error-feedback state (``ENCODED_KEY``) in the dense layout after
+an encoded run, as in the JAX package.
 
 ``averaging_frequency`` and ``training_mode`` are accepted and logged:
 every step is an exact average. Not ported (``NotImplementedError``):
-tensor and pipeline parallelism (ROADMAP item 12), the fsdp and encoded
-exchanges (item 11) and ``remesh``, which needs the elastic machinery of
-``common/faults.py`` (item 14).
+tensor and pipeline parallelism (ROADMAP item 12) and ``remesh``, which
+needs the elastic machinery of ``common/faults.py`` (item 14).
 """
 from __future__ import annotations
 
@@ -43,6 +46,7 @@ import torch
 
 from deeplearning4j_tpu_torch.datasets.prefetch import maybe_device_prefetch
 from deeplearning4j_tpu_torch.parallel import zero
+from deeplearning4j_tpu_torch.parallel.encoding import resolve_encoding
 from deeplearning4j_tpu_torch.parallel.mesh import (DEFAULT_DATA_AXIS,
                                                     ThreadMesh,
                                                     canonical_device,
@@ -133,7 +137,7 @@ class ParallelWrapper:
                  averaging_frequency: int = 1,
                  report_score_after_averaging: bool = True,
                  accumulation_steps: int = 1,
-                 update_exchange="auto"):
+                 update_exchange="auto", encoding=None):
         self.model = model
         self.mesh = mesh if mesh is not None else make_mesh(
             devices=local_devices(model))
@@ -149,6 +153,10 @@ class ParallelWrapper:
         self.requested_exchange = zero.parse_update_exchange(
             update_exchange)
         self.update_exchange: Optional[zero.UpdateExchange] = None
+        #: the codec asked for (``encoding=``) and, under the encoded
+        #: exchange, the resolved ``EncodingSpec``
+        self.requested_encoding = encoding
+        self.encoding = None
         self._replicas: list = []
         self._placed = False
         if averaging_frequency != 1:
@@ -165,6 +173,7 @@ class ParallelWrapper:
             self._workers = None
             self._accum = 1
             self._exchange = "auto"
+            self._encoding = None
 
         def workers(self, n: int) -> "ParallelWrapper.Builder":
             self._workers = n
@@ -189,8 +198,11 @@ class ParallelWrapper:
             return self
 
         def update_exchange(self, mode) -> "ParallelWrapper.Builder":
-            """'dense' | 'sharded' | 'auto' (``zero.UpdateExchange``);
-            'fsdp' and 'encoded' are not ported yet."""
+            """'dense' | 'sharded' | 'fsdp' | 'encoded' | 'auto'
+            (``zero.UpdateExchange``): 'fsdp' (ZeRO-3) keeps the
+            parameters 1/N a replica too, 'encoded' compresses the
+            gradient under error feedback (:meth:`encoding`); both are
+            opt-in, 'auto' resolves to 'sharded'."""
             self._exchange = zero.parse_update_exchange(mode)
             return self
 
@@ -205,8 +217,12 @@ class ParallelWrapper:
             return self
 
         def encoding(self, spec) -> "ParallelWrapper.Builder":
-            raise not_ported("the encoded update exchange (encoding)",
-                              "11")
+            """The codec of ``update_exchange('encoded')``: an
+            ``EncodingSpec`` or a scheme name ('threshold', 'int8',
+            '1bit'; ``parallel/encoding.py``). Ignored under every other
+            exchange."""
+            self._encoding = resolve_encoding(spec)
+            return self
 
         def training_mode(self, mode) -> "ParallelWrapper.Builder":
             name = str(getattr(mode, "name", mode)).upper()
@@ -226,7 +242,8 @@ class ParallelWrapper:
                                    prefetch_buffer=self._prefetch,
                                    averaging_frequency=self._avg_freq,
                                    accumulation_steps=self._accum,
-                                   update_exchange=self._exchange)
+                                   update_exchange=self._exchange,
+                                   encoding=self._encoding)
 
     # ------------------------------------------------------------------
     @property
@@ -245,6 +262,8 @@ class ParallelWrapper:
         mode = zero.resolve_update_exchange(self.mesh, self.data_axis,
                                             self.requested_exchange, m)
         self.update_exchange = mode
+        self.encoding = (resolve_encoding(self.requested_encoding)
+                         if mode is zero.UpdateExchange.ENCODED else None)
         m.set_accumulation_steps(self.accumulation_steps)
         self._replicas = [m] + [_clone_replica(m, d)
                                 for d in self.mesh.devices[1:]]
@@ -257,14 +276,23 @@ class ParallelWrapper:
             self.model.set_accumulation_steps(self.accumulation_steps)
             for rep in self._replicas[1:]:
                 _copy_training_state(self.model, rep)
-        mode = self.update_exchange
+        mode, enc = self.update_exchange, self.encoding
         self.mesh.run(lambda r: self._replicas[r].set_dp_mesh(
-            self.mesh.replica(r), mode=mode))
+            self.mesh.replica(r), mode=mode, encoding=enc))
 
     def _unbind(self, ok: bool):
         if ok:
             self.mesh.run(lambda r: self._replicas[r].set_dp_mesh(None))
             return
+        if self.update_exchange is zero.UpdateExchange.FSDP:
+            # the parameters live only as the replicas' slices: gather
+            # them even after a failed step, or the model has none
+            try:
+                self.mesh.run(lambda r: self._replicas[r].set_dp_mesh(None))
+                return
+            except Exception:   # noqa: BLE001 — the step's error is raised
+                log.exception("gathering the fsdp parameters after a "
+                              "failed step failed too")
         # after a failed step the replicas may disagree: drop the
         # bindings without a collective, and copy afresh next call
         for rep in self._replicas:

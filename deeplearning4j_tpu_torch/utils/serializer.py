@@ -25,6 +25,13 @@ the JAX package. ``DecoderLM``'s two-level tree (``conf`` a
 ``DecoderConfig``: ``embed``, ``layer_<i>``, ``head``) crosses the same
 way, leaf names and shapes checked.
 
+The encoded exchange's error-feedback state (``ENCODED_KEY``: the
+residual in the parameters' layout, with tau, step and sparsity) crosses
+beside the updater's slots under the JAX package's keys
+(``"<key>/__encoded__/residual/<name>"``). ``write_model`` writes the
+dense layout whatever the model's residency (``dense_params``,
+``dense_updater_states``).
+
 ``restore_model`` restores ComputationGraph and MultiLayerNetwork zips,
 every leaf's name and shape checked against the configuration's, and
 reads ``updaterState.npz`` back when present, so training resumes where
@@ -42,6 +49,7 @@ from typing import Dict, Tuple, Union
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.learning.updaters import ENCODED_KEY
 from deeplearning4j_tpu_torch.models.bert import (BertConfig, flatten_tree,
                                                  unflatten_tree)
 from deeplearning4j_tpu_torch.models.decoder import DecoderConfig
@@ -250,6 +258,16 @@ def updater_state_from_jax(upd_np: dict, conf: _Conf
     out: Dict[str, Dict[str, _Tree]] = {k: {} for k in _keys(conf)}
     for key, path, name, a in _split_key(conf, _flatten(upd_np)):
         slot, *sub = path
+        if slot == ENCODED_KEY:
+            # the encoded rung's state: the residual in the parameters'
+            # layout, and the scalars tau, step and sparsity
+            enc = out[key].setdefault(ENCODED_KEY, {})
+            if sub:
+                enc.setdefault(sub[0], {})[name] = \
+                    _to_port(conf, key, name, a)
+            else:
+                enc[name] = torch.from_numpy(np.array(a))
+            continue
         out[key].setdefault(slot, {})["/".join(sub + [name])] = \
             _to_port(conf, key, name, a)
     return out
@@ -263,9 +281,18 @@ def updater_state_to_jax(upd: Dict[str, Dict[str, _Tree]], conf: _Conf
     if isinstance(conf, BertConfig):
         return {f"{slot}/{p}": np.ascontiguousarray(t.detach().cpu().numpy())
                 for slot in sorted(upd) for p, t in sorted(upd[slot].items())}
-    return {f"{key}/{slot}/{name}": _to_jax(conf, key, name, t)
-            for key in sorted(upd) for slot in sorted(upd[key])
-            for name, t in sorted(upd[key][slot].items())}
+    out = {}
+    for key in sorted(upd):
+        for slot in sorted(upd[key]):
+            for name, t in sorted(upd[key][slot].items()):
+                if isinstance(t, dict):         # the encoded residual
+                    for n, leaf in sorted(t.items()):
+                        out[f"{key}/{slot}/{name}/{n}"] = _to_jax(
+                            conf, key, n, leaf)
+                else:
+                    out[f"{key}/{slot}/{name}"] = _to_jax(conf, key, name,
+                                                          t)
+    return out
 
 
 def _check_leaves(want: dict, got: dict, what: str,
@@ -364,11 +391,22 @@ class ModelSerializer:
         if upd_np is not None:
             upd = updater_state_from_jax(upd_np, conf)
             for key, slots in upd.items():
+                enc = slots.pop(ENCODED_KEY, None)
                 _check_leaves(template.updater_states[key], slots,
                               f"updater state of {key}")
                 for slot, leaves in slots.items():
                     for n, t in leaves.items():
                         net.updater_states[key][slot][n] = t.to(device)
+                if enc is not None:
+                    # the encoded rung's error-feedback state, which a
+                    # fresh network's updater state has no slot for
+                    _check_leaves({key: template.params[key]},
+                                  {key: enc.get("residual", {})},
+                                  f"encoded residual of {key}", exact=True)
+                    net.updater_states[key][ENCODED_KEY] = {
+                        n: ({r: t.to(device) for r, t in v.items()}
+                            if isinstance(v, dict) else v.to(device))
+                        for n, v in enc.items()}
         net.iteration_count = meta.get("iteration_count", 0)
         net.epoch_count = meta.get("epoch_count", 0)
         return net
@@ -385,14 +423,19 @@ class ModelSerializer:
         states = {f"{k}/{n}": t.detach().cpu().numpy()
                   for k, sub in sorted(model.states.items())
                   for n, t in sorted(sub.items())}
+        # the dense layout whatever the residency (under fsdp or a
+        # flat tail a gather: every replica of the mesh writes), so the
+        # zip restores on any replica count
+        params = model.dense_params()
+        upd = model.dense_updater_states() if save_updater else None
         with zipfile.ZipFile(path, "w", zipfile.ZIP_DEFLATED) as zf:
             zf.writestr(CONFIG_ENTRY, model.conf.to_json())
             _write_npz(zf, COEFFICIENTS_ENTRY,
-                       params_to_jax(model.params, model.conf))
+                       params_to_jax(params, model.conf))
             _write_npz(zf, STATE_ENTRY, states)
             if save_updater:
-                _write_npz(zf, UPDATER_ENTRY, updater_state_to_jax(
-                    model.updater_states, model.conf))
+                _write_npz(zf, UPDATER_ENTRY,
+                           updater_state_to_jax(upd, model.conf))
             zf.writestr(META_ENTRY, json.dumps({
                 "model_class": type(model).__name__,
                 "iteration_count": model.iteration_count,

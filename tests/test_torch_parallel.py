@@ -62,7 +62,8 @@ TIMEOUT_S = 60.0
 @pytest.fixture(autouse=True)
 def _clean_env(monkeypatch):
     for v in ("DL4J_TORCH_SHARDED_UPDATE", "DL4J_TORCH_DEVICE_PREFETCH",
-              "DL4J_TORCH_FUSED_CONV", "DL4J_TORCH_FUSED_BN_BWD"):
+              "DL4J_TORCH_FUSED_CONV", "DL4J_TORCH_FUSED_BN_BWD",
+              "DL4J_TORCH_FSDP", "DL4J_TORCH_ENCODED_UPDATE"):
         monkeypatch.delenv(v, raising=False)
     Environment.reset()
     yield
@@ -285,32 +286,54 @@ def test_flat_layout_and_exchange_bytes_match_jax():
 
 
 @pytest.mark.parametrize("requested, n, env, gn, want", [
-    ("auto", 4, "1", False, "sharded"),
-    ("auto", 1, "1", False, "dense"),
-    ("sharded", 4, "0", False, "dense"),
-    ("fsdp", 4, "0", False, "dense"),
-    ("encoded", 4, "0", False, "dense"),
-    ("auto", 4, "1", True, "dense"),
-    ("dense", 4, "1", False, "dense"),
-    ("fsdp", 4, "1", False, NotImplementedError),
-    ("encoded", 4, "1", False, NotImplementedError),
+    ("auto", 4, "", False, "sharded"),
+    ("auto", 1, "", False, "dense"),
+    ("sharded", 4, "SHARDED_UPDATE", False, "dense"),
+    ("fsdp", 4, "SHARDED_UPDATE", False, "dense"),
+    ("encoded", 4, "SHARDED_UPDATE", False, "dense"),
+    ("auto", 4, "", True, "dense"),
+    ("dense", 4, "", False, "dense"),
+    ("fsdp", 4, "", False, "fsdp"),
+    ("encoded", 4, "", False, "encoded"),
+    ("fsdp", 4, "FSDP", False, "sharded"),
+    ("encoded", 4, "ENCODED_UPDATE", False, "sharded"),
+    ("fsdp", 4, "constraints", False, "sharded"),
 ])
 def test_resolve_update_exchange(monkeypatch, requested, n, env, gn, want):
-    monkeypatch.setenv("DL4J_TORCH_SHARDED_UPDATE", env)
+    """The resolver's ladder against the JAX package's, with the same
+    kill switch off in each (``DL4J_TORCH_*`` / ``DL4J_TPU_*``)."""
+    from deeplearning4j_tpu.common.environment import \
+        Environment as JEnvironment
+    from deeplearning4j_tpu.nn.conf.constraints import \
+        MaxNormConstraint as JMaxNorm
+    from deeplearning4j_tpu_torch.nn.conf.constraints import \
+        MaxNormConstraint
+    for pkg in ("TORCH", "TPU"):
+        for flag in ("SHARDED_UPDATE", "FSDP", "ENCODED_UPDATE"):
+            monkeypatch.setenv(f"DL4J_{pkg}_{flag}",
+                               "0" if flag == env else "1")
     Environment.reset()
-    _, net = _mlp_pair(ju.Sgd(0.1), tu.Sgd(0.1))
-    if gn:
-        from deeplearning4j_tpu_torch.nn.conf.builders import \
-            GradientNormalization
-        net.conf.gradient_normalization = \
-            GradientNormalization.CLIP_L2_PER_LAYER
-    mesh = make_mesh(devices=["cpu"] * n)
-    if want is NotImplementedError:
-        with pytest.raises(NotImplementedError, match="item 11"):
-            zero.resolve_update_exchange(mesh, "data", requested, net)
-        return
-    assert zero.resolve_update_exchange(mesh, "data", requested,
-                                        net).value == want
+    JEnvironment.reset()
+    try:
+        jnet, net = _mlp_pair(ju.Sgd(0.1), tu.Sgd(0.1))
+        if gn:
+            from deeplearning4j_tpu.nn.conf.builders import \
+                GradientNormalization as JGN
+            from deeplearning4j_tpu_torch.nn.conf.builders import \
+                GradientNormalization
+            net.conf.gradient_normalization = \
+                GradientNormalization.CLIP_L2_PER_LAYER
+            jnet.conf.gradient_normalization = JGN.CLIP_L2_PER_LAYER
+        if env == "constraints":
+            net.conf.layers[0].constrain_weights = [MaxNormConstraint(1.0)]
+            jnet.conf.layers[0].constrain_weights = [JMaxNorm(1.0)]
+        mesh = make_mesh(devices=["cpu"] * n)
+        got = zero.resolve_update_exchange(mesh, "data", requested, net)
+        jmesh = type("JaxMeshShape", (), {"shape": {"data": n}})()
+        assert got.value == want == jzero.resolve_update_exchange(
+            jmesh, "data", requested, jnet).value
+    finally:
+        JEnvironment.reset()
 
 
 def test_odd_batches_trim_and_epochs_count_iterations():
@@ -419,18 +442,25 @@ def test_a_failing_replica_fails_the_run_without_hanging():
 
 
 def test_unported_options_raise_naming_their_item():
+    """Tensor and pipeline parallelism (item 12) and remesh (item 14)
+    raise; the encoded and fsdp exchanges, ported, train."""
     _, net = _mlp_pair(ju.Sgd(0.1), tu.Sgd(0.1))
     b = ParallelWrapper.Builder(net)
     with pytest.raises(NotImplementedError, match="item 12"):
         b.tensor_parallel(2)
     with pytest.raises(NotImplementedError, match="item 12"):
         b.pipeline_stages(2)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        b.encoding("threshold")
     with pytest.raises(NotImplementedError, match="item 14"):
         _cpu_wrapper(net, 2, "auto").remesh(workers=1)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        _cpu_wrapper(net, 2, "fsdp").fit_batch(DataSet(*_mlp_batch(0)))
+    pw = b.mesh(make_mesh(devices=["cpu"] * 2, timeout_s=TIMEOUT_S)) \
+        .update_exchange("encoded").encoding("int8").build()
+    pw.fit_batch(DataSet(*_mlp_batch(0)))
+    assert pw.update_exchange is zero.UpdateExchange.ENCODED
+    assert pw.encoding.scheme == "int8"
+    pw = _cpu_wrapper(net, 2, "fsdp")
+    pw.fit_batch(DataSet(*_mlp_batch(1)))
+    assert pw.update_exchange is zero.UpdateExchange.FSDP
+    assert net.iteration_count == 2 and np.isfinite(net.score())
 
 
 def test_scaling_harness_reports_each_size():

@@ -9,7 +9,8 @@ waited for with a limit and killed past it. Each rank feeds its half of
 each global batch; after 3 Nesterovs steps the parameters and the
 BatchNormalization running statistics equal the JAX ``ParallelWrapper``
 on a 2-device mesh at the bars of ``tests/test_parallel.py`` (rtol 2e-4
-/ atol 2e-5), and the ranks equal each other bit for bit. One rank
+/ atol 2e-5) under each exchange (dense, sharded, fsdp, encoded), and
+the ranks equal each other bit for bit. One rank
 alone equals the port's one-replica ``ParallelWrapper`` bit for bit.
 """
 import json
@@ -107,7 +108,7 @@ def _batches(n=16):
 
 def _same_as_jax(jnet, params, states, conf):
     want = params_to_jax(
-        params_from_jax(_np_tree(jnet.params), {}, conf)[0], conf)
+        params_from_jax(_np_tree(jnet.dense_params()), {}, conf)[0], conf)
     got = params_to_jax(params, conf)
     for k in want:
         np.testing.assert_allclose(got[k], want[k], rtol=RTOL, atol=ATOL,
@@ -185,7 +186,7 @@ def _run_ranks(tmp_path, net, batches, world, mode):
     return [torch.load(tmp_path / f"rank{r}.pt") for r in range(world)]
 
 
-@pytest.mark.parametrize("mode", ["dense", "sharded"])
+@pytest.mark.parametrize("mode", ["dense", "sharded", "fsdp", "encoded"])
 def test_two_process_gloo_master_matches_the_jax_wrapper(tmp_path, mode):
     jnet, net = _pair()
     batches = _batches()
@@ -254,6 +255,7 @@ def test_master_builders_and_refusals(tmp_path):
                                    checkpoint_dir=str(tmp_path))
     with pytest.raises(NotImplementedError, match="item 12"):
         SharedTrainingMaster.Builder().tensor_parallel(2)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        SharedTrainingMaster.Builder().encoding("int8")
+    enc = SharedTrainingMaster.Builder().update_exchange("fsdp") \
+        .encoding("int8").build().config
+    assert enc.encoding.scheme == "int8" and enc.update_exchange == "fsdp"
     assert json.loads(net.conf.to_json())
