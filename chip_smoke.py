@@ -9,8 +9,10 @@ checkpoints held to their quality gates, training the GravesLSTM
 char-RNN (BASELINE config #3), BERT-base imported from a frozen
 TensorFlow GraphDef into SameDiff (BASELINE config #4), ResNet-50
 through the data-parallel entry points, staged by the device prefetcher
-(BASELINE config #5 on one card), and a masked attention classifier at
-BERT-base widths built from DL4J layers in a ComputationGraph.
+(BASELINE config #5 on one card), a masked attention classifier at
+BERT-base widths built from DL4J layers in a ComputationGraph, and a
+2 x LSTM(512) character model imported from a frozen TF GraphDef with
+its loops (functional While and v1 frames) and trained in SameDiff.
 
 Run from the root of a checkout, with no arguments, on a machine with
 one NVIDIA H100 (it fails without a card, and without the package):
@@ -265,6 +267,27 @@ Phases, each of which fails the run (exit 1) when its check fails:
     ``GRAPH_MLN_ATOL`` of the layer stack of the same configuration and
     weights, and ``rnn_time_step`` over its 64 steps against ``output``
     (1e-5).
+21. TF-imported LSTM: ``lstm_lm``, 2 x LSTM(512) + a head to 80
+    characters (phase 17's widths; batch 64 x 64, weights from
+    ``lstm_graph.lstm_weights(80, 512, 0)``, the batch from
+    ``charrnn_batch``), written as TF's frozen GraphDef by
+    ``modelimport/tensorflow/lstm_graph.py`` in both export forms and
+    imported with ``run_import(..., while_max_iterations=64,
+    device=None)``, TF32 off: (a) the functional form's logits within
+    ``TF_LSTM_FWD`` (max |d| / max |ref|) of two ``lstm_layer`` ops and
+    the head, and of the same import on the CPU; (b) the v1 form
+    deframed to the same op list (its Exit identities aside) and the
+    same logits bit for bit; (c) 10 Adam(5e-3) ``fit_steps`` on the
+    attached softmax cross-entropy (the loss falls; no kernel of
+    ``csrc/`` launches), steps 1-3 with every weight's gradient within
+    ``TF_LSTM_GRAD`` of the ``lstm_layer`` route's (stepped alongside);
+    (d) ``sd.while_loop`` (bounded, a list written a trip), ``sd.scan``
+    and ``sd.cond`` over both (each branch nesting one) around
+    ``lstm_cell`` give (a)'s logits; (e) the import without a bound
+    serves the forward (130 host reads) and a gradient through it
+    raises; (f) forward and step ms, host reads a step (0), device
+    kernels and the idle share (profiler), peak memory of a step beside
+    the ``lstm_layer`` route's and the masked loops' list storage.
 
 Then one JSON line of kernel records (each kernel's times from its own
 timing phase, its launches from the path that carries it), the
@@ -5340,6 +5363,347 @@ def attention_card_vs_cpu(torch, device: str = "cuda", batch: int = 2
             "by_parameter": leaves}
 
 
+# ---------------------------------------------------------------------------
+#: phase 21: the char-RNN widths of BASELINE #3 (phase 17), imported as the
+#: frozen TF GraphDef of ``lstm_graph.lstm_lm``
+TF_LSTM_STEPS = 10
+#: relative bars (max |a - b| / max |b|): forwards at the roadmap's
+#: default 2e-5, gradients at 2e-4
+TF_LSTM_FWD = 2e-5
+TF_LSTM_GRAD = 2e-4
+
+
+def _rel_max(a, b) -> float:
+    return float((a.float() - b.float()).abs().max()
+                 / b.float().abs().max().clamp_min(1e-30))
+
+
+def _lstm_layer_route(torch, w: dict, batch: int, time_: int, vocab: int,
+                      hidden: int, device):
+    """The in-port oracle: two ``lstm_layer`` ops and the head in a
+    SameDiff of trainable variables, with the same softmax cross-entropy
+    and Adam(5e-3) as ``import_and_attach_loss``."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.autodiff import SameDiff, TrainingConfig
+    from deeplearning4j_tpu_torch.learning.updaters import Adam
+    sd = SameDiff(device)
+    h = sd.placeholder("x", shape=(batch, time_, vocab))
+    labels = sd.placeholder("labels", shape=(batch, time_, vocab))
+    z = sd.constant("zeros", np.zeros((batch, hidden), np.float32))
+    for layer in range(2):
+        ws = [sd.var(f"l{layer}_{k}", array=w[f"l{layer}_{k}"])
+              for k in ("w", "rw", "b")]
+        h = sd._op("lstm_layer", [h, z, z] + ws, n_out=3)[0]
+    logits = sd._op("add", [sd._op("matmul", [h, sd.var(
+        "out_w", array=w["out_w"])]), sd.var("out_b", array=w["out_b"])],
+        name="logits")
+    sd._op("softmax_cross_entropy", [labels, logits], name="loss")
+    sd.set_loss_variables(["loss"])
+    sd.set_training_config(TrainingConfig.Builder().updater(Adam(5e-3))
+                           .data_set_feature_mapping("x")
+                           .data_set_label_mapping("labels").build())
+    return sd
+
+
+def _api_layer(g, xs, W: dict, layer: int, route: str, batch: int,
+               time_: int, hidden: int):
+    """One LSTM layer over ``xs`` [t, b, f] through SameDiff's own
+    control flow, in the graph ``g`` that ``xs`` lives in: a ``scan`` of
+    ``lstm_cell``, or a bounded ``while_loop`` writing a list."""
+    import numpy as np
+    z = g.constant(np.zeros((batch, hidden), np.float32))
+    ws = [W[f"l{layer}_{k}"] for k in ("w", "rw", "b")]
+    if route == "scan":
+        def step(h, c, xt):
+            hn, cn = xt.sd._op("lstm_cell", [xt, h, c] + ws, n_out=2)
+            return [hn, cn, hn]
+        return g.scan(step, [z, z], [xs])[2]
+
+    def body(t, h, c, acc):
+        s = t.sd
+        hn, cn = s._op("lstm_cell", [s._op("gather", [xs, t], {"axis": 0}),
+                                     h, c] + ws, n_out=2)
+        return [s._op("add", [t, s.constant(np.int32(1))]), hn, cn,
+                s._op("tensor_list_set_item", [acc, t, hn])]
+
+    return g.while_loop(
+        [g.constant(np.int32(0)), z, z,
+         g.constant(np.zeros((time_, batch, hidden), np.float32))],
+        lambda t, h, c, acc: t.sd._op("lt", [t, t.sd.constant(
+            np.int32(time_))]), body, max_iterations=time_)[3]
+
+
+def _api_model(g, xs, W: dict, route: str, batch: int, time_: int,
+               hidden: int):
+    h = xs
+    for layer in range(2):
+        h = _api_layer(g, h, W, layer, route, batch, time_, hidden)
+    h = g._op("permute", [h], {"axes": [1, 0, 2]})
+    return g._op("add", [g._op("matmul", [h, W["out_w"]]), W["out_b"]])
+
+
+def phase_tf_lstm(torch, label: str, device: str = "cuda",
+                  hidden: int = CHARRNN["hidden"],
+                  steps: int = TF_LSTM_STEPS) -> dict:
+    """Phase 21: the 2 x LSTM(512) character model (vocab 80, batch 64 x
+    64) written as TF's frozen GraphDef by ``lstm_graph``, imported
+    through ``TensorflowFrameworkImporter.run_import`` (``device=None``
+    on the card), served by ``SameDiff.output`` and trained by
+    ``fit_steps``: (a) the bounded functional import's logits against two
+    ``lstm_layer`` ops and the head, and card against CPU; (b) the v1
+    form's op list and logits (bitwise) against the functional form's;
+    (c) 10 Adam steps, the first 3 with gradients held to the
+    ``lstm_layer`` route's; (d) ``sd.while_loop`` (bounded), ``sd.scan``
+    and ``sd.cond`` around them over ``lstm_cell`` give (a)'s logits;
+    (e) the unbounded import serves the forward and refuses a gradient;
+    (f) forward and step ms, host reads and device kernels a step, the
+    idle share, peak memory beside the TensorList storage. TF32 off.
+    ``device="cpu"`` with a small ``hidden`` rehearses it."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.autodiff import registry
+    from deeplearning4j_tpu_torch.autodiff.samediff import SameDiff
+    from deeplearning4j_tpu_torch.learning.updaters import Adam
+    from deeplearning4j_tpu_torch.modelimport.tensorflow import (
+        TensorflowFrameworkImporter, lstm_graph)
+    on_card = device == "cuda"
+    vocab, batch, T = CHARRNN["vocab"], CHARRNN["batch"], CHARRNN["seq_len"]
+    H = hidden
+    t_phase = time.perf_counter()
+    prev_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        w = lstm_graph.lstm_weights(vocab, H, seed=0)
+        t0 = time.perf_counter()
+        gd = {f: lstm_graph.build_lstm_graph(batch, T, vocab, H, form=f)
+              for f in ("functional", "v1")}
+        build_s = time.perf_counter() - t0
+        shapes = {"x": (batch, T, vocab)}
+        imp_dev = None if on_card else device
+        xn, yn = charrnn_batch(vocab, batch, T)
+        x = torch.from_numpy(xn).to(device)
+        feed = {"x": x, "labels": torch.from_numpy(yn).to(device)}
+        out = {"graphdef_bytes": {f: len(b) for f, b in gd.items()},
+               "build_s": build_s}
+        print(f"[tf-lstm] lstm_lm: 2 x LSTM({H}) + head({vocab}), batch "
+              f"{batch} x {T}; GraphDef functional "
+              f"{len(gd['functional'])} / v1 {len(gd['v1'])} bytes, "
+              f"written in {build_s:.2f}s")
+
+        # ---- (a) the bounded functional import against the oracle ----
+        _zero_counts()
+        t0 = time.perf_counter()
+        sd = TensorflowFrameworkImporter.run_import(
+            gd["functional"], shapes, while_max_iterations=T,
+            device=imp_dev)
+        out["import_s"] = time.perf_counter() - t0
+        check(sd.device.type == device,
+              f"run_import(device=None) landed on {sd.device}")
+        logits = sd.output({"x": x}, ["Identity"])["Identity"]
+        oracle = _lstm_layer_route(torch, w, batch, T, vocab, H, device)
+        want = oracle.output({"x": x}, ["logits"])["logits"]
+        check(tuple(logits.shape) == (batch, T, vocab)
+              and bool(torch.isfinite(logits).all()),
+              f"(a) logits {tuple(logits.shape)}, finite "
+              f"{bool(torch.isfinite(logits).all())}")
+        err_a = _rel_max(logits, want)
+        check(err_a <= TF_LSTM_FWD, f"(a) imported logits vs lstm_layer "
+                                    f"route: {err_a:.3e} > {TF_LSTM_FWD}")
+        out["fwd_vs_lstm_layer"] = err_a
+        if on_card:
+            cpu = TensorflowFrameworkImporter.run_import(
+                gd["functional"], shapes, while_max_iterations=T,
+                device="cpu")
+            got = cpu.output({"x": xn}, ["Identity"])["Identity"]
+            out["card_vs_cpu"] = _rel_max(logits.cpu(), got)
+            check(out["card_vs_cpu"] <= TF_LSTM_FWD,
+                  f"(a) card vs CPU {out['card_vs_cpu']:.3e}")
+            del cpu
+        print(f"[tf-lstm] (a) imported in {out['import_s']:.2f}s; logits vs "
+              f"2 x lstm_layer + head: {err_a:.3e} (max |d| / max |ref|), "
+              f"card vs CPU {out.get('card_vs_cpu', float('nan')):.3e} "
+              f"[{label}]")
+
+        out["section_s"] = {"a": time.perf_counter() - t_phase}
+        # ---- (b) the v1 frame form: the same program, the same bits ----
+        v1 = TensorflowFrameworkImporter.run_import(
+            gd["v1"], shapes, while_max_iterations=T, device=imp_dev)
+        ops = {k: [o.op_name for o in g.ops if o.op_name != "identity"]
+               for k, g in (("functional", sd), ("v1", v1))}
+        check(ops["v1"] == ops["functional"],
+              f"(b) op lists differ: {ops}")
+        v1_logits = v1.output({"x": x}, ["Identity"])["Identity"]
+        check(torch.equal(v1_logits, logits),
+              f"(b) v1 logits differ by {_rel_max(v1_logits, logits):.3e}")
+        out["ops"] = ops["functional"]
+        print(f"[tf-lstm] (b) v1 form deframed to the same {len(ops['v1'])} "
+              f"ops ({', '.join(ops['v1'])}; identities aside), logits "
+              f"bitwise equal [{label}]")
+        del v1
+
+        out["section_s"]["b"] = time.perf_counter() - t_phase
+        # ---- (c) training: 10 Adam steps, 3 against the oracle ----
+        tr, _ = lstm_graph.import_and_attach_loss(
+            gd["functional"], batch, T, vocab, updater=Adam(5e-3),
+            while_max_iterations=T, device=imp_dev)
+        names = lstm_graph.weight_names("functional")
+        grad_errs, losses, step_ms = [], [], []
+        for i in range(steps):
+            if i < 3:
+                gi = tr.calculate_gradients(feed, list(names.values()))
+                go = oracle.calculate_gradients(feed, list(names))
+                grad_errs.append(max(_rel_max(gi[names[k]], go[k])
+                                     for k in names))
+                check(grad_errs[-1] <= TF_LSTM_GRAD,
+                      f"(c) step {i + 1} gradients vs lstm_layer route: "
+                      f"{grad_errs[-1]:.3e}")
+                oracle.fit_steps(feed, 1)
+            _sync(torch, device)
+            t0 = time.perf_counter()
+            losses.append(tr.fit_steps(feed, 1))
+            _sync(torch, device)
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+              f"(c) loss did not fall: {losses}")
+        med = float(np.median(step_ms[1:]))
+        out.update(losses=losses, grad_vs_lstm_layer=grad_errs,
+                   step_ms=step_ms, median_step_ms=med,
+                   chars_per_s=batch * T * 1e3 / med)
+        print(f"[tf-lstm] (c) losses {[round(v, 4) for v in losses]}; "
+              f"steps 1-3 gradients vs lstm_layer route "
+              f"{[f'{e:.3e}' for e in grad_errs]}; step {med:.3f} ms "
+              f"(median of steps 2-{steps}) = {out['chars_per_s']:.1f} "
+              f"chars/s [{label}]")
+        out["launches"] = _counts()
+        check(not any(out["launches"].values()),
+              f"a ported kernel launched on the LSTM path: "
+              f"{out['launches']}")
+
+        out["section_s"]["c"] = time.perf_counter() - t_phase
+        # ---- (d) SameDiff's own while_loop / scan / cond ----
+        api = SameDiff(device)
+        xph = api.placeholder("x", shape=(batch, T, vocab))
+        flag = api.placeholder("flag", shape=(), dtype="bool")
+        W = {k: api.constant(k, v) for k, v in w.items()}
+        xs = api._op("permute", [xph], {"axes": [1, 0, 2]})
+        routes = {r: _api_model(api, xs, W, r, batch, T, H).name
+                  for r in ("while_loop", "scan")}
+        routes["cond"] = api.cond(
+            flag, lambda v: _api_model(v.sd, v, W, "scan", batch, T, H),
+            lambda v: _api_model(v.sd, v, W, "while_loop", batch, T, H),
+            [xs]).name
+        out["api_vs_import"] = {}
+        for f in (True, False):
+            res = api.output({"x": x, "flag": np.asarray(f)},
+                             list(routes.values()))
+            for r, n in routes.items():
+                key = r if r != "cond" else f"cond_{str(f).lower()}"
+                out["api_vs_import"][key] = _rel_max(res[n], logits)
+        bad = {k: v for k, v in out["api_vs_import"].items()
+               if not v <= TF_LSTM_FWD}
+        check(not bad, f"(d) SameDiff control flow vs (a): {bad}")
+        print(f"[tf-lstm] (d) sd.while_loop / sd.scan / sd.cond (both "
+              f"branches) vs (a): "
+              f"{ {k: f'{v:.3e}' for k, v in out['api_vs_import'].items()} }"
+              f" [{label}]")
+        del api
+
+        out["section_s"]["d"] = time.perf_counter() - t_phase
+        # ---- (e) the unbounded import ----
+        ub, _ = lstm_graph.import_and_attach_loss(
+            gd["functional"], batch, T, vocab, device=imp_dev)
+        reads = registry.HOST_READS["while_loop"]
+        ub_logits = ub.output({"x": x}, ["Identity"])["Identity"]
+        out["unbounded_host_reads_per_forward"] = \
+            registry.HOST_READS["while_loop"] - reads
+        check(out["unbounded_host_reads_per_forward"] == 2 * (T + 1),
+              f"(e) {out['unbounded_host_reads_per_forward']} host reads")
+        out["unbounded_bitwise"] = bool(torch.equal(ub_logits, logits))
+        check(_rel_max(ub_logits, logits) <= TF_LSTM_FWD,
+              f"(e) unbounded logits vs bounded {_rel_max(ub_logits, logits)}")
+        try:
+            ub.calculate_gradients(feed, [names["l0_w"]])
+            raised = ""
+        except NotImplementedError as e:
+            raised = str(e)
+        check("max_iterations" in raised,
+              f"(e) a gradient through the unbounded loop did not raise "
+              f"({raised!r})")
+        print(f"[tf-lstm] (e) unbounded: {2 * (T + 1)} host reads a forward,"
+              f" logits bitwise equal to the bounded import's: "
+              f"{out['unbounded_bitwise']}; a gradient raises: "
+              f"{raised[:60]}... [{label}]")
+
+        out["section_s"]["e"] = time.perf_counter() - t_phase
+        # ---- (f) costs ----
+        def fwd():
+            return sd.output({"x": x}, ["Identity"])["Identity"]
+
+        fwd_ms = []
+        for _ in range(6):
+            _sync(torch, device)
+            t0 = time.perf_counter()
+            fwd()
+            _sync(torch, device)
+            fwd_ms.append((time.perf_counter() - t0) * 1e3)
+        out["fwd_ms"] = fwd_ms
+        out["median_fwd_ms"] = float(np.median(fwd_ms[1:]))
+        reads = dict(registry.HOST_READS)
+        tr.fit_steps(feed, 1)
+        out["host_reads_per_step"] = sum(
+            registry.HOST_READS[k] - reads[k] for k in reads)
+        check(out["host_reads_per_step"] == 0,
+              f"(f) the bounded step read the host "
+              f"{out['host_reads_per_step']} times")
+        # the masked loop's TensorList storage, one [t, b, H] f32 tensor
+        # a trip a layer
+        out["storage_bytes"] = 2 * T * T * batch * H * 4
+        if on_card:
+            def step_peak(g):
+                """A step's peak memory, and its rise over what was
+                allocated before the step (the earlier phases' too)."""
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated() / 2 ** 20
+                _, peak = _peak_mb(torch, device, lambda: g.fit_steps(feed, 1))
+                return peak, peak - base
+
+            out["peak_mb"], out["step_rise_mb"] = step_peak(tr)
+            out["lstm_layer_peak_mb"], out["lstm_layer_step_rise_mb"] = \
+                step_peak(oracle)
+            out["fwd_profile"] = profile_device(
+                torch, fwd, out["median_fwd_ms"], "imported LSTM forward")
+            out["profile"] = profile_device(
+                torch, lambda: tr.fit_steps(feed, 1), med,
+                "imported LSTM step")
+            out["ub_fwd_ms"] = _host_ms(
+                torch, lambda: ub.output({"x": x}, ["Identity"]))
+            print(f"[tf-lstm] (f) forward {out['median_fwd_ms']:.3f} ms "
+                  f"(unbounded {out['ub_fwd_ms']:.3f} ms, "
+                  f"{2 * (T + 1)} host reads), step {med:.3f} ms, "
+                  f"{out['host_reads_per_step']} host reads a step, "
+                  f"{out['profile'].get('kernel_calls')} device kernels a "
+                  f"step ({out['fwd_profile'].get('kernel_calls')} a "
+                  f"forward), idle share "
+                  f"{out['profile'].get('idle_share', float('nan')):.3f} "
+                  f"(forward "
+                  f"{out['fwd_profile'].get('idle_share', float('nan')):.3f}"
+                  f"), peak {out['peak_mb']:.1f} MB a step, "
+                  f"{out['step_rise_mb']:.1f} MB over what was allocated "
+                  f"before it (lstm_layer route {out['lstm_layer_peak_mb']:.1f}"
+                  f" / {out['lstm_layer_step_rise_mb']:.1f} MB; the masked "
+                  f"loops' TensorList storage, 2 x {T} x [{T}, {batch}, "
+                  f"{H}] f32, {out['storage_bytes'] / 2 ** 20:.1f} MB) "
+                  f"[{label}]")
+        del ub
+        out["phase_s"] = time.perf_counter() - t_phase
+        print(f"[tf-lstm] phase 21 in {out['phase_s']:.1f}s (from its start:"
+              f" { {k: round(v, 1) for k, v in out['section_s'].items()} })")
+        return out
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -5385,6 +5749,7 @@ def main() -> int:
                kv_dtype="bf16", tokens_f32=gf["tokens"])
     timed("decoder-vs-cpu", decoder_card_vs_cpu, torch)
     ag = timed("attention-graph", phase_attention_graph, torch, label)
+    tl = timed("tf-lstm", phase_tf_lstm, torch, label)
 
     from deeplearning4j_tpu_torch.ops import cuda_build
     f32 = kern["timing"]["float32"]
@@ -5632,6 +5997,16 @@ def main() -> int:
           f"RecurrentAttentionLayer step {ag['recurrent']['step_ms']:.3f} "
           f"ms; char-RNN graph tBPTT vs layer stack "
           f"{ag['charrnn_graph']['vs_stack_max_abs']:.3e} [{label}]")
+    print(f"[done] TF-imported 2 x LSTM(512) char model (batch 64 x 64, "
+          f"while_max_iterations=64): forward {tl['median_fwd_ms']:.3f} "
+          f"ms, Adam step {tl['median_step_ms']:.3f} ms "
+          f"({tl['chars_per_s']:.1f} chars/s, idle share "
+          f"{tl.get('profile', {}).get('idle_share', float('nan')):.3f}, "
+          f"{tl.get('profile', {}).get('kernel_calls', 0)} device kernels "
+          f"a step, peak {tl['peak_mb']:.1f} MB, {tl['step_rise_mb']:.1f} "
+          f"MB over the step's start); vs lstm_layer route "
+          f"{tl['fwd_vs_lstm_layer']:.3e}, card vs CPU "
+          f"{tl['card_vs_cpu']:.3e} [{label}]")
     print(f"[done] matmul precision: "
           f"{torch.get_float32_matmul_precision()}, cuda.matmul.allow_tf32 "
           f"{torch.backends.cuda.matmul.allow_tf32}")

@@ -1,11 +1,12 @@
-"""Op factory namespaces: ``sd.math``, ``sd.nn`` and ``sd.loss``.
+"""Op factory namespaces: ``sd.math``, ``sd.nn``, ``sd.rnn`` and
+``sd.loss``.
 
 Counterpart of ``deeplearning4j_tpu/autodiff/opsets.py`` over the ported
-domains (reference: SDMath/SDNN/SDLoss). Thin builders over
+domains (reference: SDMath/SDNN/SDRNN/SDLoss). Thin builders over
 ``SameDiff._op``; the math lives in ``registry``. The namespaces of the
-domains not ported yet (``sd.cnn``, ``sd.rnn``, ``sd.image``,
-``sd.bitwise``, ``sd.linalg``, ``sd.random``) raise
-``NotImplementedError`` on any use."""
+domains not ported yet (``sd.cnn``, ``sd.image``, ``sd.bitwise``,
+``sd.linalg``, ``sd.random``) raise ``NotImplementedError`` on any
+use."""
 from __future__ import annotations
 
 
@@ -163,6 +164,19 @@ class SDNN(_Namespace):
         return self._call("pad", [x],
                           {"paddings": paddings, "constant": constant},
                           name)
+
+
+class SDRNN(_Namespace):
+    def lstm_cell(self, x, h_prev, c_prev, w, rw, b, name=None):
+        return self._call("lstm_cell", [x, h_prev, c_prev, w, rw, b],
+                          None, name, n_out=2)
+
+    def gru_cell(self, x, h_prev, w, rw, b, name=None):
+        return self._call("gru_cell", [x, h_prev, w, rw, b], None, name)
+
+    def sru_cell(self, x, c_prev, w, b, name=None):
+        return self._call("sru_cell", [x, c_prev, w, b], None, name,
+                          n_out=2)
 
 
 class SDLoss(_Namespace):

@@ -6,10 +6,10 @@ registered under the reference's (TF-compatible) name and a domain;
 ``SameDiff`` walks its op list through this table, and autograd
 differentiates the walk.
 
-Eleven domains are ported, in full: arithmetic, transform, activation,
-blas, reduce, indexreduce, boolean, shape, normalization, loss and
-attention (168 ops). The other nine (linalg, bitwise, segment,
-convolution, image, random, recurrent, compression, control) are listed
+Thirteen domains are ported, in full: arithmetic, transform, activation,
+blas, reduce, indexreduce, boolean, shape, normalization, loss,
+attention, recurrent and control (180 ops). The other seven (linalg,
+bitwise, segment, convolution, image, random, compression) are listed
 in :data:`UNPORTED`: :func:`get_op` raises ``NotImplementedError``
 naming the op's domain, so a graph that needs one fails when it is
 built, never by a silent fallback.
@@ -57,10 +57,7 @@ for _domain, _names in {
               "non_max_suppression"),
     "random": ("random_normal", "random_uniform", "random_bernoulli",
                "dropout"),
-    "recurrent": ("lstm_cell", "gru_cell", "sru_cell", "lstm_layer",
-                  "rnn_layer", "gru_layer", "sru"),
     "compression": ("encode_threshold", "decode_threshold"),
-    "control": ("while_loop", "cond", "scan", "switch", "merge"),
 }.items():
     for _n in _names:
         UNPORTED[_n] = _domain
@@ -1139,3 +1136,269 @@ def _mhdpa(ins, attrs):
     params = {"Wq": wq, "Wk": wk, "Wv": wv, "Wo": wo}
     return multi_head_attention(params, x, x, attrs["num_heads"],
                                 key_mask=mask)
+
+
+# -- recurrent -----------------------------------------------------------------
+# Gate order [i, f, o, g] on the last weight axis (the JAX package's, not
+# cuDNN's [i, f, g, o]). The layer ops loop over time in Python and stack
+# their outputs; the input projection of every step is one product
+# hoisted out of the loop.
+def _lstm_step(z, c_prev, H):
+    i = torch.sigmoid(z[:, :H])
+    f = torch.sigmoid(z[:, H:2 * H])
+    o = torch.sigmoid(z[:, 2 * H:3 * H])
+    g = torch.tanh(z[:, 3 * H:])
+    c = f * c_prev + i * g
+    return o * torch.tanh(c), c
+
+
+@op("lstm_cell", "recurrent")
+def _lstm_cell(ins, attrs):
+    x, h_prev, c_prev, w, rw, b = ins
+    return _lstm_step(x @ w + h_prev @ rw + b, c_prev, h_prev.shape[-1])
+
+
+@op("gru_cell", "recurrent")
+def _gru_cell(ins, attrs):
+    x, h_prev, w, rw, b = ins
+    H = h_prev.shape[-1]
+    xw = x @ w + b
+    hr = h_prev @ rw
+    r = torch.sigmoid(xw[:, :H] + hr[:, :H])
+    zt = torch.sigmoid(xw[:, H:2 * H] + hr[:, H:2 * H])
+    n = torch.tanh(xw[:, 2 * H:] + r * hr[:, 2 * H:])
+    return (1 - zt) * n + zt * h_prev
+
+
+@op("sru_cell", "recurrent")
+def _sru_cell(ins, attrs):
+    x, c_prev, w, b = ins
+    H = c_prev.shape[-1]
+    z = x @ w + b
+    f = torch.sigmoid(z[:, H:2 * H])
+    r = torch.sigmoid(z[:, 2 * H:3 * H])
+    c = f * c_prev + (1 - f) * z[:, :H]
+    return r * torch.tanh(c) + (1 - r) * x[:, :H], c
+
+
+@op("lstm_layer", "recurrent")
+def _lstm_layer(ins, attrs):
+    """Full-sequence LSTM (reference: libnd4j lstmLayer). Inputs: x [b,
+    t, f], h0 [b, H], c0 [b, H], w [f, 4H], rw [H, 4H], b [4H]. Returns
+    (h_seq [b, t, H], h_last, c_last)."""
+    x, h, c, w, rw, b = ins
+    H = h.shape[-1]
+    xw = x @ w
+    hs = []
+    for s in range(x.shape[1]):
+        h, c = _lstm_step(xw[:, s] + h @ rw + b, c, H)
+        hs.append(h)
+    return torch.stack(hs, 1), h, c
+
+
+@op("rnn_layer", "recurrent")
+def _rnn_layer(ins, attrs):
+    """Full-sequence vanilla RNN (ONNX RNN): h_t = tanh(x_t W + h_{t-1} R
+    + b). Inputs: x [b, t, f], h0 [b, H], w [f, H], rw [H, H], b [H].
+    Returns (h_seq [b, t, H], h_last)."""
+    x, h, w, rw, b = ins
+    xw = x @ w
+    hs = []
+    for s in range(x.shape[1]):
+        h = torch.tanh(xw[:, s] + h @ rw + b)
+        hs.append(h)
+    return torch.stack(hs, 1), h
+
+
+@op("gru_layer", "recurrent")
+def _gru_layer(ins, attrs):
+    """Full-sequence GRU, ONNX semantics: gate order (z, r, h) on the
+    last weight axis, ``linear_before_reset`` per the spec. Inputs: x
+    [b, t, f], h0 [b, H], w [f, 3H], rw [H, 3H], wb [3H], rb [3H].
+    Returns (h_seq [b, t, H], h_last)."""
+    x, h, w, rw, wb, rb = ins
+    H = h.shape[-1]
+    lbr = bool(attrs.get("linear_before_reset", False))
+    xz_all = x @ w + wb
+    hs = []
+    for s in range(x.shape[1]):
+        xz = xz_all[:, s]
+        hz = h @ (rw if lbr else rw[:, :2 * H])
+        z = torch.sigmoid(xz[:, :H] + hz[:, :H] + rb[:H])
+        r = torch.sigmoid(xz[:, H:2 * H] + hz[:, H:2 * H] + rb[H:2 * H])
+        if lbr:
+            n = torch.tanh(xz[:, 2 * H:] + r * (hz[:, 2 * H:] + rb[2 * H:]))
+        else:
+            n = torch.tanh(xz[:, 2 * H:] + (r * h) @ rw[:, 2 * H:]
+                           + rb[2 * H:])
+        h = (1.0 - z) * n + z * h
+        hs.append(h)
+    return torch.stack(hs, 1), h
+
+
+@op("sru", "recurrent")
+def _sru_layer(ins, attrs):
+    """Full-sequence SRU (reference: libnd4j sru). Inputs: x [b, t, f],
+    c0 [b, H], w [f, 3H], b [3H] with H == f. Returns (out_seq [b, t,
+    H], c_last)."""
+    x, c, w, b = ins
+    H = c.shape[-1]
+    z_all = x @ w + b
+    outs = []
+    for s in range(x.shape[1]):
+        z = z_all[:, s]
+        f = torch.sigmoid(z[:, H:2 * H])
+        r = torch.sigmoid(z[:, 2 * H:3 * H])
+        c = f * c + (1 - f) * z[:, :H]
+        outs.append(r * torch.tanh(c) + (1 - r) * x[:, s, :H])
+    return torch.stack(outs, 1), c
+
+
+# -- control flow ----------------------------------------------------------------
+# These ops carry traced subgraphs in their attrs (callables that
+# SameDiff.while_loop / cond / scan build from child graphs) and run them
+# as Python control flow over the graph's eager walk. A bounded
+# while_loop runs its bound's trips with masked updates and reads
+# nothing on the host; an unbounded one and cond read their predicate on
+# the host once per trip or call (counted in ``HOST_READS``).
+#: host reads of loop conditions and cond predicates, by op
+HOST_READS: Dict[str, int] = {"while_loop": 0, "cond": 0}
+
+_WHILE_GRAD_MESSAGE = (
+    "gradient requested through a while_loop capture. XLA's while has "
+    "no reverse rule; pass max_iterations=N to while_loop to lower it to "
+    "a reverse-differentiable bounded scan (the TF maximum_iterations "
+    "semantics), or thread the value so the loss does not depend on the "
+    "loop.")
+
+
+class _WhileCaptureTrap(torch.autograd.Function):
+    """Identity on an unbounded loop's outputs, tied to every input of
+    the loop that requires a gradient; its backward raises (the JAX
+    package's ``_while_capture_trap``): the trips ran without autograd,
+    and a gradient of the trips alone would train wrong."""
+
+    @staticmethod
+    def forward(ctx, n_out, *tensors):
+        return tuple(t.view_as(t) for t in tensors[:n_out])
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError(_WHILE_GRAD_MESSAGE)
+
+
+def _on_meta(ts) -> bool:
+    return any(isinstance(t, torch.Tensor) and t.device.type == "meta"
+               for t in ts)
+
+
+def _predicate(t: torch.Tensor) -> torch.Tensor:
+    return torch.squeeze(t).to(torch.bool)
+
+
+def _one(out):
+    return out if len(out) > 1 else out[0]
+
+
+@op("while_loop", "control")
+def _while_loop(ins, attrs):
+    cond, body = attrs["_cond_call"], attrs["_body_call"]
+    n = attrs.get("n_loop", len(ins))
+    ncc = attrs.get("n_cond_caps", 0)
+    loop0 = tuple(ins[:n])
+    cond_caps, body_caps = tuple(ins[n:n + ncc]), tuple(ins[n + ncc:])
+    max_iter = attrs.get("max_iterations")
+    if _on_meta(ins):
+        # shapes only: the loop variables keep theirs from trip to trip
+        new = body(*loop0, *body_caps)
+        return _one(tuple(torch.where(_predicate(cond(*loop0,
+                                                       *cond_caps)[0]),
+                                      nv, ov)
+                          for nv, ov in zip(new, loop0)))
+    if max_iter is not None:
+        # the bound's trips, each masking its updates once the
+        # condition has gone false (TF maximum_iterations semantics):
+        # no host read, and autograd sees every trip
+        vars_ = loop0
+        done = torch.zeros((), dtype=torch.bool, device=loop0[0].device)
+        for _ in range(int(max_iter)):
+            cnd = _predicate(cond(*vars_, *cond_caps)[0])
+            active = ~done & cnd
+            new = body(*vars_, *body_caps)
+            # a variable the body passes through stays the same tensor
+            vars_ = tuple(ov if nv is ov else torch.where(active, nv, ov)
+                          for nv, ov in zip(new, vars_))
+            done = done | ~cnd
+        return _one(vars_)
+    # unbounded: the condition is read on the host once per trip; the
+    # trips run without autograd and the trap stands in their place
+    vars_ = loop0
+    with torch.no_grad():
+        while True:
+            HOST_READS["while_loop"] += 1
+            if not bool(_predicate(cond(*vars_, *cond_caps)[0])):
+                break
+            vars_ = tuple(body(*vars_, *body_caps))
+    live = [t for t in ins if isinstance(t, torch.Tensor)
+            and t.requires_grad]
+    if live and torch.is_grad_enabled():
+        vars_ = _WhileCaptureTrap.apply(len(vars_), *vars_, *live)
+    return _one(tuple(vars_))
+
+
+@op("cond", "control")
+def _cond(ins, attrs):
+    n_ops = attrs.get("n_operands", len(ins) - 1)
+    ntc = attrs.get("n_true_caps", 0)
+    operands = tuple(ins[1:1 + n_ops])
+    t_caps = tuple(ins[1 + n_ops:1 + n_ops + ntc])
+    f_caps = tuple(ins[1 + n_ops + ntc:])
+    if _on_meta(ins):
+        take = True                   # shapes only: both branches agree
+    else:
+        HOST_READS["cond"] += 1
+        take = bool(_predicate(ins[0]))
+    out = (attrs["_true_call"](*operands, *t_caps) if take
+           else attrs["_false_call"](*operands, *f_caps))
+    return _one(tuple(out))
+
+
+@op("scan", "control")
+def _scan_op(ins, attrs):
+    body = attrs["_body_call"]
+    n_carry = attrs["n_carry"]
+    n_xs = attrs.get("n_xs", len(ins) - n_carry)
+    carry = tuple(ins[:n_carry])
+    xs = tuple(ins[n_carry:n_carry + n_xs])
+    caps = tuple(ins[n_carry + n_xs:])
+    length = attrs.get("length")
+    length = int(xs[0].shape[0] if length is None else length)
+    steps = 1 if _on_meta(ins) else length
+    ys = []
+    for t in range(steps):
+        res = body(*carry, *(x[t] for x in xs), *caps)
+        carry = tuple(res[:n_carry])
+        ys.append(res[n_carry:])
+    if _on_meta(ins):
+        stacked = [y.new_empty((length,) + tuple(y.shape)) for y in ys[0]]
+    else:
+        stacked = [torch.stack(col) for col in zip(*ys)] if ys else []
+    return _one(carry + tuple(stacked))
+
+
+# TF-graph-style primitives, select-lowered: both branches run and merge
+# selects by the predicate. switch(data, pred) -> (false_out, true_out),
+# both carrying the data; merge(false_val, true_val, pred) picks the live
+# one.
+@op("switch", "control")
+def _switch(ins, attrs):
+    data, _pred = ins
+    return data, data
+
+
+@op("merge", "control")
+def _merge(ins, attrs):
+    if len(ins) != 3:
+        raise ValueError("merge expects (false_val, true_val, pred)")
+    false_val, true_val, pred = ins
+    return torch.where(_predicate(pred), true_val, false_val)

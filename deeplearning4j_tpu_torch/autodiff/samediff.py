@@ -27,11 +27,23 @@ bytes live across them are fewest (``min_cut_segment_plan``, sizes from
 one pass of the walk on meta tensors), which on an imported transformer
 are its layer boundaries.
 
+Control flow (``while_loop`` / ``cond`` / ``scan``) traces each body
+into a child ``SameDiff``; the op runs the child's walk as Python control
+flow (``registry.py``'s control domain). A body may use variables of
+the graphs that enclose it: captures of the graph being built become op
+inputs (live, and differentiable), through every nesting level; only a
+capture of an unrelated graph is read from its owner at call time
+without a gradient. ``while_loop(max_iterations=N)`` runs N masked trips
+and trains; an unbounded ``while_loop`` reads its condition on the host
+each trip and raises when a gradient is asked through it. ``save`` keeps
+the JAX package's ``graph.json`` form of a subgraph (its arrays in
+``arrays.npz`` under ``__cf.op<i>...`` names).
+
 Not ported yet (each raises ``NotImplementedError`` with a pointer to
-``ROADMAP.md``): control flow (``while_loop`` / ``cond`` / ``scan``),
-StableHLO export (``to_stablehlo`` / ``export_serialized`` /
-``deserialize_and_call``), and data- or tensor-parallel ``output`` /
-``fit_steps`` (``mesh``, ``tp_specs``, ``ph_specs``, ``encoding``).
+``ROADMAP.md``): StableHLO export (``to_stablehlo`` /
+``export_serialized`` / ``deserialize_and_call``), and data- or
+tensor-parallel ``output`` / ``fit_steps`` (``mesh``, ``tp_specs``,
+``ph_specs``, ``encoding``).
 """
 from __future__ import annotations
 
@@ -45,7 +57,8 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from deeplearning4j_tpu_torch.autodiff.registry import (dtype_name, get_op,
+from deeplearning4j_tpu_torch.autodiff.registry import (_on_meta,
+                                                        dtype_name, get_op,
                                                         torch_dtype)
 from deeplearning4j_tpu_torch.common.environment import resolve_device
 from deeplearning4j_tpu_torch.common.remat import min_cut_segment_plan
@@ -88,7 +101,8 @@ def as_tensor(value, device) -> torch.Tensor:
     if isinstance(value, torch.Tensor):
         return value.to(device)
     arr = np.asarray(value)
-    t = torch.from_numpy(np.ascontiguousarray(arr))
+    # ascontiguousarray makes a 0-d array 1-d: keep the scalar's shape
+    t = torch.from_numpy(np.ascontiguousarray(arr).reshape(arr.shape))
     return t.to(device=device, dtype=canonical_dtype(arr.dtype))
 
 
@@ -293,13 +307,18 @@ class SameDiff:
         self.last_batch_size: int = 0
         #: per-pass rewrite counts of the last import's GraphOptimizer run
         self.graphopt_counts: Dict[str, int] = {}
+        #: captures of other graphs' variables by control-flow bodies:
+        #: local name -> (owner SameDiff, owner's name)
+        self._captures: Dict[str, tuple] = {}
+        #: the graph this one is traced into as a control-flow body
+        self._tracing_parent: Optional["SameDiff"] = None
         from deeplearning4j_tpu_torch.autodiff.opsets import (
-            SDNN, SDLoss, SDMath, UnportedNamespace)
+            SDNN, SDRNN, SDLoss, SDMath, UnportedNamespace)
         self.math = SDMath(self)
         self.nn = SDNN(self)
         self.loss = SDLoss(self)
+        self.rnn = SDRNN(self)
         self.cnn = UnportedNamespace("convolution")
-        self.rnn = UnportedNamespace("recurrent")
         self.image = UnportedNamespace("image")
         self.bitwise = UnportedNamespace("bitwise")
         self.linalg = UnportedNamespace("linalg")
@@ -426,11 +445,14 @@ class SameDiff:
             n_out: int = 1) -> Union[SDVariable, Tuple[SDVariable, ...]]:
         get_op(op_name)               # validate early
         for v in inputs:
-            if isinstance(v, SDVariable) and v.sd is not self:
+            if isinstance(v, SDVariable) and v.sd is not self and \
+                    self._tracing_parent is None:
                 raise ValueError(
                     f"variable '{v.name}' belongs to another SameDiff "
-                    f"graph (cross-graph references need control flow, "
-                    f"which is not ported yet)")
+                    f"graph (cross-graph references are only valid "
+                    f"inside control-flow bodies)")
+        inputs = [self._import_foreign(v) if isinstance(v, SDVariable)
+                  and v.sd is not self else v for v in inputs]
         in_names = [v.name for v in inputs]
         if n_out == 1:
             out_names = [self._unique(name or op_name)]
@@ -454,6 +476,21 @@ class SameDiff:
         """Public escape hatch: call any registered op by name."""
         return self._op(op_name, [self._as_var(i) for i in inputs],
                         attrs, name, n_out)
+
+    def _import_foreign(self, v: SDVariable) -> SDVariable:
+        """A variable of another graph used in this one (a control-flow
+        body closing over an enclosing graph): a placeholder under a
+        local capture name that cannot collide with this graph's own
+        names, resolved from its owner when the subgraph is called."""
+        for local, (sd, pname) in self._captures.items():
+            if sd is v.sd and pname == v.name:
+                return self.vars[local]
+        local = self._unique(f"_cap_{v.name}")
+        proxy = SDVariable(self, local, VariableType.PLACEHOLDER,
+                           v.shape, v.dtype)
+        self.vars[local] = proxy
+        self._captures[local] = (v.sd, v.name)
+        return proxy
 
     # -- execution -----------------------------------------------------
     def _ancestors(self, targets: Sequence[str]) -> List[int]:
@@ -648,14 +685,155 @@ class SameDiff:
         self._exec_cache.clear()
         return self
 
-    def while_loop(self, *a, **kw):
-        raise _not_ported("control flow (while_loop)", "9")
+    # -- control flow ----------------------------------------------------
+    def _trace_subgraph(self, fn, n_args: int):
+        """Trace a Python function over ``n_args`` proxies into a child
+        ``SameDiff``; returns ``(call, n_outputs, captured vars, spec)``.
+        ``call(*args, *captures)`` runs the child's walk on tensors.
 
-    def cond(self, *a, **kw):
-        raise _not_ported("control flow (cond)", "9")
+        Captures owned by this graph become extra op inputs, live and
+        differentiable. Captures owned by a graph further up the tracing
+        chain (nested bodies) are re-captured here, level by level, so
+        they stay op inputs at every level. Only a capture of an
+        unrelated graph is frozen: read from its owner at call time,
+        without a gradient. Variables the child itself creates are
+        constants of the body (loop bodies own no trainable state;
+        thread it through the carry)."""
+        child = SameDiff(self.device)
+        child._tracing_parent = self
+        proxies = [child.placeholder(f"_arg{i}", shape=None)
+                   for i in range(n_args)]
+        try:
+            # a zero-argument body has no proxy to find its graph from:
+            # the TF importer's function bodies read it here
+            fn._trace_child_sd = child
+        except (AttributeError, TypeError):
+            pass
+        res = fn(*proxies) if n_args else fn()
+        outs = list(res) if isinstance(res, (list, tuple)) else [res]
+        outs = [(o if o.sd is child else child._import_foreign(o))
+                if isinstance(o, SDVariable) else child._as_var(o)
+                for o in outs]
+        out_names = [o.name for o in outs]
+        proxy_names = [p.name for p in proxies]
+        idxs = child._ancestors(out_names)
+        parent_caps = []     # (local name, name in this graph)
+        frozen_caps = []     # (local name, owner, owner's name)
+        for local, (owner, pname) in child._captures.items():
+            if owner is self:
+                parent_caps.append((local, pname))
+                continue
+            anc = self._tracing_parent
+            while anc is not None and anc is not owner:
+                anc = anc._tracing_parent
+            if anc is owner:
+                proxy = self._import_foreign(owner.vars[pname])
+                parent_caps.append((local, proxy.name))
+                continue
+            if pname not in owner._arrays:
+                raise ValueError(
+                    f"control-flow body captured '{pname}' from an "
+                    f"outer subgraph where it has no stored value — "
+                    f"thread it through the loop/branch arguments")
+            frozen_caps.append((local, owner, pname))
 
-    def scan(self, *a, **kw):
-        raise _not_ported("control flow (scan)", "9")
+        def call(*args):
+            values = dict(child._arrays)
+            for local, owner, pname in frozen_caps:
+                values[local] = owner._arrays[pname]
+            if args and _on_meta(args):
+                values = {k: v.to("meta") for k, v in values.items()}
+            values.update(zip(proxy_names, args[:n_args]))
+            values.update({local: v for (local, _), v in
+                           zip(parent_caps, args[n_args:])})
+            child._execute(values, idxs)
+            return [values[n] for n in out_names]
+
+        cap_vars = [self.vars[pname] for _, pname in parent_caps]
+        spec = {"child": child, "frozen_caps": frozen_caps,
+                "proxies": proxy_names, "outs": out_names,
+                "parent_cap_locals": [l for l, _ in parent_caps]}
+        return call, len(out_names), cap_vars, spec
+
+    def while_loop(self, loop_vars: Sequence, cond_fn, body_fn,
+                   name: Optional[str] = None,
+                   max_iterations: Optional[int] = None):
+        """A loop over the graph (reference: SameDiff whileLoop / TF
+        Enter..Exit frames). ``cond_fn`` maps the loop variables to a
+        scalar boolean; ``body_fn`` returns the updated variables (same
+        count and shapes).
+
+        With ``max_iterations=N`` (TF ``maximum_iterations``) the loop
+        runs N trips, masking its updates once the condition has gone
+        false: differentiable through loop variables and captures, and
+        truncated after N trips. Without it the condition is read on
+        the host each trip: unbounded, forward only (a gradient asked
+        through it raises)."""
+        loop_vars = [self._as_var(v) for v in loop_vars]
+        n = len(loop_vars)
+        cond_call, _, cond_caps, cond_spec = self._trace_subgraph(
+            cond_fn, n)
+        body_call, n_body, body_caps, body_spec = self._trace_subgraph(
+            body_fn, n)
+        if n_body != n:
+            raise ValueError(f"while_loop body returned {n_body} vars "
+                             f"for {n} loop vars")
+        return self._op("while_loop",
+                        loop_vars + cond_caps + body_caps,
+                        {"_cond_call": cond_call,
+                         "_body_call": body_call,
+                         "_cond_spec": cond_spec,
+                         "_body_spec": body_spec,
+                         "n_loop": n,
+                         "n_cond_caps": len(cond_caps),
+                         "n_body_caps": len(body_caps),
+                         "max_iterations": max_iterations},
+                        name=name, n_out=n)
+
+    def cond(self, pred, true_fn, false_fn, operands: Sequence = (),
+             name: Optional[str] = None):
+        """A branch (reference: TF-import Switch/Merge pairs): the
+        predicate is read on the host and one branch runs. Both
+        branches take ``operands`` and return as many outputs.
+        Differentiable through the branch taken."""
+        operands = [self._as_var(v) for v in operands]
+        t_call, nt, t_caps, t_spec = self._trace_subgraph(true_fn,
+                                                          len(operands))
+        f_call, nf, f_caps, f_spec = self._trace_subgraph(false_fn,
+                                                          len(operands))
+        if nt != nf:
+            raise ValueError(f"cond branches disagree: {nt} vs {nf} "
+                             f"outputs")
+        return self._op("cond",
+                        [self._as_var(pred)] + operands
+                        + t_caps + f_caps,
+                        {"_true_call": t_call, "_false_call": f_call,
+                         "_true_spec": t_spec, "_false_spec": f_spec,
+                         "n_operands": len(operands),
+                         "n_true_caps": len(t_caps),
+                         "n_false_caps": len(f_caps)},
+                        name=name, n_out=nt)
+
+    def scan(self, body_fn, init: Sequence, xs: Sequence = (),
+             length: Optional[int] = None,
+             name: Optional[str] = None):
+        """``body_fn(*carry, *x_slices) -> (new_carry..., y_outputs...)``
+        over the leading axis of ``xs`` (or ``length`` trips). Returns
+        the final carries followed by the stacked per-step outputs.
+        Differentiable."""
+        init = [self._as_var(v) for v in init]
+        xs = [self._as_var(v) for v in xs]
+        body_call, n_total, caps, body_spec = self._trace_subgraph(
+            body_fn, len(init) + len(xs))
+        if n_total < len(init):
+            raise ValueError("scan body must return at least the "
+                             "carry")
+        return self._op("scan", init + xs + caps,
+                        {"_body_call": body_call,
+                         "_body_spec": body_spec,
+                         "n_carry": len(init), "n_xs": len(xs),
+                         "length": length},
+                        name=name, n_out=n_total)
 
     def fuse_attention_patterns(self) -> int:
         """The attention-fusion pass alone (``passes.attention_fuse``);
@@ -964,7 +1142,9 @@ class SameDiff:
     # -- serialization -------------------------------------------------
     def save(self, path: str, save_updater_state: bool = True):
         """Zip: ``graph.json`` + ``arrays.npz`` (+ ``updater.npz``), the
-        JAX package's layout."""
+        JAX package's layout; a control-flow subgraph's arrays go into
+        ``arrays.npz`` under ``__cf.op<i>...`` names."""
+        cf_arrays: dict = {}
         graph = {
             "variables": [
                 {"name": v.name, "type": v.var_type.value,
@@ -972,8 +1152,10 @@ class SameDiff:
                  "dtype": v.dtype}
                 for v in self.vars.values()],
             "ops": [{"op": o.op_name, "inputs": o.inputs,
-                     "outputs": o.outputs, "attrs": _json_attrs(o.attrs)}
-                    for o in self.ops],
+                     "outputs": o.outputs,
+                     "attrs": _json_attrs(o.attrs, cf_arrays,
+                                          f"__cf.op{i}")}
+                    for i, o in enumerate(self.ops)],
             "loss_variables": self.loss_variables,
             "training_config": (self.training_config.to_map()
                                 if self.training_config else None),
@@ -984,7 +1166,7 @@ class SameDiff:
         with zipfile.ZipFile(path, "w") as z:
             z.writestr("graph.json", json.dumps(graph, indent=1))
             buf = io.BytesIO()
-            np.savez(buf, **arrays)
+            np.savez(buf, **arrays, **cf_arrays)
             z.writestr("arrays.npz", buf.getvalue())
             if save_updater_state and self._updater_state is not None:
                 buf2 = io.BytesIO()
@@ -1021,7 +1203,8 @@ class SameDiff:
         for i, od in enumerate(graph["ops"]):
             get_op(od["op"])
             node = OpNode(od["op"], od["inputs"], od["outputs"],
-                          od["attrs"])
+                          _rebuild_cf_attrs(od["op"], od["attrs"], arr_map,
+                                            sd.device))
             sd.ops.append(node)
             for on in node.outputs:
                 sd._producer[on] = i
@@ -1055,12 +1238,15 @@ class SameDiff:
         return "\n".join(lines)
 
 
-def _json_attrs(attrs: dict) -> dict:
+def _json_attrs(attrs: dict, array_sink: Optional[dict] = None,
+                prefix: str = "") -> dict:
     out = {}
     for k, v in (attrs or {}).items():
         if callable(v):
-            continue
-        if isinstance(v, np.integer):
+            continue    # call closures are rebuilt from *_spec on load
+        if k.endswith("_spec") and isinstance(v, dict) and "child" in v:
+            v = _spec_to_json(v, array_sink, f"{prefix}.{k}")
+        elif isinstance(v, np.integer):
             v = int(v)
         elif isinstance(v, np.floating):
             v = float(v)
@@ -1072,3 +1258,101 @@ def _json_attrs(attrs: dict) -> dict:
             v = v.tolist()
         out[k] = v
     return out
+
+
+def _spec_to_json(spec: dict, array_sink: Optional[dict] = None,
+                  prefix: str = "") -> dict:
+    """A control-flow subgraph as the JAX package writes it: the child
+    graph's variables and ops, its constants and its frozen captures (at
+    their values now). Arrays go into ``array_sink`` (``arrays.npz``)
+    under ``prefix``; without a sink they are inlined."""
+    child = spec["child"]
+    arrays = {n: to_numpy(a) for n, a in child._arrays.items()}
+    for local, owner, pname in spec["frozen_caps"]:
+        arrays[local] = to_numpy(owner._arrays[pname])
+    out = {
+        "vars": [{"name": v.name, "type": v.var_type.value,
+                  "shape": list(v.shape) if v.shape else None,
+                  "dtype": v.dtype}
+                 for v in child.vars.values()],
+        "ops": [{"op": o.op_name, "inputs": o.inputs,
+                 "outputs": o.outputs,
+                 "attrs": _json_attrs(o.attrs, array_sink,
+                                      f"{prefix}.op{i}")}
+                for i, o in enumerate(child.ops)],
+        "proxies": spec["proxies"],
+        "outs": spec["outs"],
+        "parent_cap_locals": spec["parent_cap_locals"],
+    }
+    if array_sink is not None:
+        out["arrays_prefix"] = prefix
+        out["array_names"] = sorted(arrays)
+        for n, a in arrays.items():
+            array_sink[f"{prefix}/{n}"] = a
+    else:
+        out["arrays"] = {n: {"dtype": str(a.dtype), "data": a.tolist()}
+                         for n, a in arrays.items()}
+    return out
+
+
+def _call_from_json_spec(spec: dict, arr_map: Optional[dict], device):
+    """The call closure of a subgraph read back from its JSON form (the
+    load-side twin of ``SameDiff._trace_subgraph``'s)."""
+    child = SameDiff(device)
+    for vd in spec["vars"]:
+        v = SDVariable(child, vd["name"], VariableType(vd["type"]),
+                       vd["shape"], vd["dtype"])
+        child.vars[v.name] = v
+    if "arrays_prefix" in spec:
+        pre = spec["arrays_prefix"]
+        found = {n: arr_map[f"{pre}/{n}"] for n in spec["array_names"]}
+    else:
+        found = {n: np.asarray(rec["data"], dtype=rec["dtype"])
+                 for n, rec in spec.get("arrays", {}).items()}
+    for n, a in found.items():
+        arr = as_tensor(a, device)
+        dt = child.vars[n].dtype if n in child.vars else None
+        child._arrays[n] = arr.to(torch_dtype(dt)) if dt else arr
+    for i, od in enumerate(spec["ops"]):
+        get_op(od["op"])
+        child.ops.append(OpNode(od["op"], od["inputs"], od["outputs"],
+                                _rebuild_cf_attrs(od["op"], od["attrs"],
+                                                  arr_map, device)))
+        for on in od["outputs"]:
+            child._producer[on] = i
+    idxs = child._ancestors(list(spec["outs"]))
+    proxies = list(spec["proxies"])
+    cap_locals = list(spec["parent_cap_locals"])
+    outs = list(spec["outs"])
+    n_args = len(proxies)
+
+    def call(*args):
+        values = dict(child._arrays)
+        if args and _on_meta(args):
+            values = {k: v.to("meta") for k, v in values.items()}
+        values.update(zip(proxies, args[:n_args]))
+        values.update(zip(cap_locals, args[n_args:]))
+        child._execute(values, idxs)
+        return [values[n] for n in outs]
+
+    return call
+
+
+#: control-flow attrs: call closure -> its serialized spec
+_CF_CALL_SPECS = {"_cond_call": "_cond_spec", "_body_call": "_body_spec",
+                  "_true_call": "_true_spec",
+                  "_false_call": "_false_spec"}
+
+
+def _rebuild_cf_attrs(op_name: str, attrs: dict,
+                      arr_map: Optional[dict], device) -> dict:
+    """The call closures of a (possibly nested) control-flow op loaded
+    from JSON; other ops' attrs pass unchanged."""
+    if op_name not in ("while_loop", "cond", "scan"):
+        return attrs
+    attrs = dict(attrs)
+    for call_key, spec_key in _CF_CALL_SPECS.items():
+        spec = attrs.get(spec_key)
+        if spec is not None and call_key not in attrs:
+            attrs[call_key] = _call_from_json_spec(spec, arr_map, device)
+    return attrs

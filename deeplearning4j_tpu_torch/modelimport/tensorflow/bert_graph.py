@@ -118,9 +118,10 @@ class _Graph:
         self.nodes.append(_node(name, op, list(inputs), attrs))
         return name
 
-    def const(self, name: str, value) -> str:
+    def const(self, name: str, value, inputs=()) -> str:
         arr = np.asarray(value)
-        return self.add(name, "Const", dtype=_attr_type(_NP_ENUM[arr.dtype]),
+        return self.add(name, "Const", inputs,
+                        dtype=_attr_type(_NP_ENUM[arr.dtype]),
                         value=_ld(8, _tensor_proto(arr)))
 
     def serialize(self) -> bytes:

@@ -12,10 +12,16 @@ and (b) emits into the SameDiff op list, which runs on the graph's
 device. After import the GraphOptimizer runs (``optimize=None``: on
 unless ``DL4J_TORCH_GRAPHOPT=0``).
 
-Not ported yet, each raising ``NotImplementedError`` (ROADMAP.md, Queue
-A item 9): TF control flow (functional ``While`` / ``If`` and the legacy
-v1 frames ``Enter``/``Exit``/``Merge``/``Switch``/``NextIteration``)
-and TensorList accumulators.
+Control flow: functional ``While`` / ``StatelessWhile`` / ``If`` /
+``StatelessIf`` import their library bodies into
+``SameDiff.while_loop`` / ``cond``; the legacy v1 frames
+(``Enter``/``Exit``/``Merge``/``Switch``/``NextIteration``) are first
+rebuilt into that form (``v1_control_flow.deframe``). A static-size
+TensorList (the TF2 ``tf.TensorArray``) is a dense ``[n, *element]``
+tensor carried through the loop. ``while_max_iterations`` (an int, or a
+dict by While node or TF loop name) bounds the loops, which makes them
+differentiable; without it a loop reads its condition on the host each
+trip and serves the forward only.
 """
 from __future__ import annotations
 
@@ -29,25 +35,12 @@ from deeplearning4j_tpu_torch.autodiff.registry import dtype_name, get_op
 from deeplearning4j_tpu_torch.autodiff.samediff import (SameDiff,
                                                         SDVariable,
                                                         canonical_dtype)
-from deeplearning4j_tpu_torch.modelimport.tensorflow import mappings
+from deeplearning4j_tpu_torch.modelimport.tensorflow import (
+    mappings, v1_control_flow)
 from deeplearning4j_tpu_torch.modelimport.tensorflow.mappings import \
     TF_OP_MAP
 from deeplearning4j_tpu_torch.modelimport.tensorflow.protobuf import (
-    NodeDef, parse_graphdef_with_library, tf_dtype_to_np)
-
-#: the legacy (v1) control-flow frame ops
-V1_CONTROL_FLOW_OPS = frozenset({
-    "Enter", "RefEnter", "Exit", "RefExit", "Merge", "RefMerge", "Switch",
-    "RefSwitch", "NextIteration", "RefNextIteration", "LoopCond"})
-_TENSOR_LIST_OPS = frozenset({
-    "TensorListReserve", "TensorListSetItem", "TensorListGetItem",
-    "TensorListStack", "TensorListFromTensor", "TensorListLength",
-    "TensorListGather"})
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"TF import: {what} is not ported yet (ROADMAP.md, Queue A item 9)")
+    Attr, FunctionDef, NodeDef, parse_graphdef_with_library, tf_dtype_to_np)
 
 
 class _Aval(NamedTuple):
@@ -75,6 +68,51 @@ def _canon(ref: str) -> str:
 def _node_of(ref: str) -> str:
     ref = _canon(ref)
     return ref.split(":")[0]
+
+
+#: output-arg order of mapped multi-output TF ops: a function body names
+#: an output by port ('node:indices:0'), the importer binds flat indices.
+#: Single-output ops and ops with one repeated output arg need no entry.
+_TF_MULTI_OUT_ARGS = {
+    "TopKV2": ["values", "indices"],
+    "Unique": ["y", "idx"],
+    "UniqueV2": ["y", "idx"],
+    "FusedBatchNorm": ["y", "batch_mean", "batch_variance",
+                       "reserve_space_1", "reserve_space_2"],
+    "FusedBatchNormV2": ["y", "batch_mean", "batch_variance",
+                         "reserve_space_1", "reserve_space_2"],
+    "FusedBatchNormV3": ["y", "batch_mean", "batch_variance",
+                         "reserve_space_1", "reserve_space_2",
+                         "reserve_space_3"],
+    "SoftmaxCrossEntropyWithLogits": ["loss", "backprop"],
+    "SparseSoftmaxCrossEntropyWithLogits": ["loss", "backprop"],
+}
+
+
+def _canon_func_ref(ref: str, producer_ops: Optional[dict] = None
+                    ) -> str:
+    """A function-body tensor ref (``node:out_arg_name:idx``) in the
+    graph's style (``node`` for flat port 0, ``node:i`` otherwise);
+    ``producer_ops`` (node name -> TF op) turns a named port of a
+    multi-output op into its flat offset."""
+    if ref.startswith("^"):
+        return ref
+    parts = ref.split(":")
+    if len(parts) == 3:
+        node, port, idx = parts
+        flat = int(idx)
+        op_name = (producer_ops or {}).get(node)
+        args = _TF_MULTI_OUT_ARGS.get(op_name)
+        if args is not None:
+            if port not in args:
+                raise NotImplementedError(
+                    f"TF import: unknown output port '{port}' of "
+                    f"{op_name} node '{node}'")
+            flat += args.index(port)
+        return node if flat == 0 else f"{node}:{flat}"
+    if len(parts) == 2 and not parts[1].isdigit():
+        return parts[0]
+    return ref
 
 
 class _Ctx:
@@ -111,7 +149,7 @@ class GraphDefImporter:
         if isinstance(graph_def, (str, os.PathLike)):
             with open(graph_def, "rb") as fh:
                 graph_def = fh.read()
-        self.functions: Dict[str, object] = {}
+        self.functions: Dict[str, FunctionDef] = {}
         if isinstance(graph_def, (bytes, bytearray, memoryview)):
             self.nodes, self.functions = parse_graphdef_with_library(
                 graph_def)
@@ -119,8 +157,10 @@ class GraphDefImporter:
             self.nodes = list(graph_def)
         self.input_shapes = {k: tuple(v) for k, v in
                              (input_shapes or {}).items()}
-        if while_max_iterations is not None:
-            raise _not_ported("While import (while_max_iterations)")
+        #: int (every loop) or {While node or TF loop name: int}: the
+        #: bounded, differentiable lowering of the imported loops; None
+        #: leaves them unbounded (forward only)
+        self.while_max_iterations = while_max_iterations
         self.sd = SameDiff(device)
         self.static_values: Dict[str, np.ndarray] = {}
         self.var_map: Dict[str, SDVariable] = {}
@@ -270,23 +310,47 @@ class GraphDefImporter:
         return vals
 
     # -- main loop -----------------------------------------------------
+    def _all_reachable_nodes(self, order) -> List[NodeDef]:
+        """Top-level nodes plus the bodies of every function reachable
+        through functional control flow (transitively), so the
+        unmapped-op precheck sees loop and branch internals too."""
+        out = list(order)
+        seen = set()
+        stack = list(order)
+        while stack:
+            node = stack.pop()
+            if node.op not in _FUNCTIONAL_OPS:
+                continue
+            for key in ("cond", "body", "then_branch", "else_branch"):
+                fname = node.attr(key)
+                if not fname or fname in seen:
+                    continue
+                seen.add(fname)
+                fd = self.functions.get(fname)
+                if fd is None:
+                    continue        # _function raises at import time
+                out.extend(fd.nodes)
+                stack.extend(fd.nodes)
+        return out
+
     def run(self, optimize: Optional[bool] = None) -> SameDiff:
-        ops = {n.op for n in self.nodes}
-        if ops & V1_CONTROL_FLOW_OPS:
-            raise _not_ported(
-                f"v1 control flow ({sorted(ops & V1_CONTROL_FLOW_OPS)})")
-        if ops & _FUNCTIONAL_OPS:
-            raise _not_ported(
-                f"functional control flow ({sorted(ops & _FUNCTIONAL_OPS)})")
-        if ops & _TENSOR_LIST_OPS:
-            raise _not_ported(
-                f"TensorList ops ({sorted(ops & _TENSOR_LIST_OPS)})")
+        if any(n.op in v1_control_flow.V1_CONTROL_FLOW_OPS
+               for n in self.nodes):
+            # legacy v1 frames (frozen tf.while_loop / tf.cond) ->
+            # functional While / If
+            self.nodes = v1_control_flow.deframe(
+                self.nodes, self.functions,
+                keep=frozenset(_node_of(o) for o in
+                               (self.requested_outputs or ())))
+        _resolve_tensor_lists(self.nodes)
         by_name = {n.name: n for n in self.nodes}
         order = _topo_sort(self.nodes, by_name)
-        unmapped = sorted({n.op for n in order
+        unmapped = sorted({n.op
+                           for n in self._all_reachable_nodes(order)
                            if n.op not in TF_OP_MAP
                            and n.op not in ("Const", "Placeholder")
                            and n.op not in _SKIP_OPS
+                           and n.op not in _FUNCTIONAL_OPS
                            and n.op not in _FOLDERS})
         if unmapped:
             raise NotImplementedError(
@@ -314,7 +378,8 @@ class GraphDefImporter:
         return self.sd
 
     def _import_node_list(self, order, ctx):
-        """The per-node import loop."""
+        """The per-node import loop, shared by the top-level graph and
+        function bodies (While / If cond, body and branches)."""
         for node in order:
             if node.op in _SKIP_OPS:
                 continue
@@ -340,6 +405,12 @@ class GraphDefImporter:
                         d is not None and d >= 0 for d in shape):
                     self.avals[node.name] = _Aval(tuple(shape), dtype)
                 continue
+            if node.op in ("While", "StatelessWhile"):
+                self._import_while(node)
+                continue
+            if node.op in ("If", "StatelessIf"):
+                self._import_if(node)
+                continue
             if self._try_fold(node):
                 continue
             # control deps ('^x') order execution in TF; the op walk
@@ -352,6 +423,152 @@ class GraphDefImporter:
             result = rule(ctx, node)
             self._bind(node, result, n_ops_before)
             self._infer_new_ops(n_ops_before)
+
+    # -- functional control flow (TF2 While / If: bodies in the
+    # GraphDef's function library) ---------------------------------------
+    def _function(self, name: str) -> FunctionDef:
+        fd = self.functions.get(name)
+        if fd is None:
+            raise NotImplementedError(
+                f"TF import: GraphDef references function '{name}' "
+                f"but the library does not define it")
+        return fd
+
+    def _function_as_callable(self, fd: FunctionDef):
+        """A FunctionDef as a Python function over SDVariables, for
+        ``SameDiff.while_loop`` / ``cond`` to trace: the body's nodes
+        import into the child graph the proxies live in, its arguments
+        bound by position and its outputs read through ``ret``."""
+        arg_names = [a for a, _ in fd.input_args]
+        producer_ops = {n.name: n.op for n in fd.nodes}
+        norm_nodes = [
+            NodeDef(n.name, n.op,
+                    [_canon_func_ref(r, producer_ops) for r in n.inputs],
+                    n.attrs)
+            for n in fd.nodes]
+        _resolve_tensor_lists(norm_nodes)
+
+        def fn(*args):
+            # the child graph comes from the proxies, or (a zero-argument
+            # branch) from the handle _trace_subgraph publishes
+            child_sd = (args[0].sd if args
+                        else getattr(fn, "_trace_child_sd", self.sd))
+            sub = GraphDefImporter.__new__(GraphDefImporter)
+            sub.nodes = norm_nodes
+            sub.functions = self.functions
+            sub.input_shapes = {}
+            sub.while_max_iterations = self.while_max_iterations
+            sub.sd = child_sd
+            sub.static_values = {}
+            sub.var_map = dict(zip(arg_names, args))
+            sub.avals = {}
+            sub.placeholders = []
+            sub.outputs = []
+            by_name = {n.name: n for n in norm_nodes}
+            order = _topo_sort(norm_nodes, by_name,
+                               external=set(arg_names))
+            sub._import_node_list(order, _Ctx(sub))
+            outs = []
+            for out_name, _ in fd.output_args:
+                ref = _canon_func_ref(fd.ret.get(out_name, out_name),
+                                      producer_ops)
+                outs.append(sub._materialize(_canon(ref)))
+            return outs
+
+        return fn
+
+    def _import_while(self, node: NodeDef):
+        cond_fd = self._function(node.attr("cond"))
+        body_fd = self._function(node.attr("body"))
+        loop_vars = [self._materialize(_canon(r)) for r in node.inputs
+                     if not r.startswith("^")]
+        mi = self.while_max_iterations
+        if isinstance(mi, dict):
+            key = node.name
+            if key not in mi and key.endswith("__v1_while"):
+                # a deframed v1 loop: its TF loop name
+                key = key[:-len("__v1_while")]
+            mi = mi.get(key)
+        n_ops_before = len(self.sd.ops)
+        outs = self.sd.while_loop(
+            loop_vars, self._function_as_callable(cond_fd),
+            self._function_as_callable(body_fd),
+            max_iterations=None if mi is None else int(mi))
+        self._bind(node, outs, n_ops_before)
+        self._infer_new_ops(n_ops_before)
+
+    def _import_if(self, node: NodeDef):
+        then_fd = self._function(node.attr("then_branch"))
+        else_fd = self._function(node.attr("else_branch"))
+        ins = [r for r in node.inputs if not r.startswith("^")]
+        pred = self._materialize(_canon(ins[0]))
+        operands = [self._materialize(_canon(r)) for r in ins[1:]]
+        n_ops_before = len(self.sd.ops)
+        outs = self.sd.cond(
+            pred, self._function_as_callable(then_fd),
+            self._function_as_callable(else_fd), operands)
+        self._bind(node, outs, n_ops_before)
+        self._infer_new_ops(n_ops_before)
+
+
+def _resolve_tensor_lists(nodes: Sequence[NodeDef]):
+    """Pre-pass for TensorArray / TensorList graphs: a static-size list
+    becomes a dense ``[n, *element_shape]`` zeros tensor carried through
+    the loop. TF records element_shape=-1 on TensorListReserve but the
+    concrete shape on the downstream Stack / GetItem / Gather consts, so
+    the handle is followed (positionally through While boundaries too:
+    a functional While maps inputs to outputs one to one) until a
+    concrete shape appears. The result is stashed in the Reserve node's
+    attrs for the mapping rule; an unresolved Reserve fails there."""
+    by_name = {n.name: n for n in nodes}
+
+    def const_ints(ref):
+        nd = by_name.get(_node_of(ref))
+        if nd is None or nd.op != "Const":
+            return None
+        val = nd.attr("value")
+        if isinstance(val, Exception):
+            return None
+        arr = np.asarray(val).reshape(-1)
+        if arr.size and (arr.astype(np.int64) < 0).any():
+            return None
+        return tuple(int(v) for v in arr)
+
+    for res in nodes:
+        if res.op != "TensorListReserve":
+            continue
+        data_in = [r for r in res.inputs if not r.startswith("^")]
+        shape = const_ints(data_in[0])        # concrete on the nose?
+        num = const_ints(data_in[1])
+        num = num[0] if num else None
+        aliases = {res.name}
+        changed = True
+        while changed and shape is None:
+            changed = False
+            for n in nodes:
+                data = [r for r in n.inputs if not r.startswith("^")]
+                for i, r in enumerate(data):
+                    if _canon(r) not in aliases:
+                        continue
+                    if n.op in ("While", "StatelessWhile"):
+                        al = n.name if i == 0 else f"{n.name}:{i}"
+                        if al not in aliases:
+                            aliases.add(al)
+                            changed = True
+                    elif n.op in ("Identity", "TensorListSetItem") \
+                            and i == 0 and n.name not in aliases:
+                        # SetItem returns the updated handle
+                        aliases.add(n.name)
+                        changed = True
+                    elif n.op in ("TensorListStack",
+                                  "TensorListGetItem",
+                                  "TensorListGather") and i == 0:
+                        sh = const_ints(data[-1])
+                        if sh is not None:
+                            shape = sh
+        if shape is not None and num is not None:
+            res.attrs["_tl_shape"] = Attr("resolved", shape)
+            res.attrs["_tl_num"] = Attr("resolved", num)
 
 
 class _NoFold(Exception):
@@ -557,7 +774,10 @@ _FOLDERS = {k: v for k, v in _FOLDERS.items() if v is not None}
 class TensorflowFrameworkImporter:
     """Reference: org.nd4j.samediff.frameworkimport.tensorflow.importer.
     TensorflowFrameworkImporter. ``device=None`` imports onto the card
-    (raising without one); ``device="cpu"`` onto the CPU."""
+    (raising without one); ``device="cpu"`` onto the CPU.
+    ``while_max_iterations`` bounds the imported loops (an int for every
+    loop, or ``{While node or TF loop name: int}``): a bounded loop
+    trains, an unbounded one serves the forward only."""
 
     @staticmethod
     def run_import(graph_def, input_shapes: Optional[dict] = None,

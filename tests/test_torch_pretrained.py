@@ -206,7 +206,7 @@ def test_entry_points_default_to_the_card(monkeypatch):
 
 def test_samediff_zip_is_not_ported(tmp_path):
     """SameDiff zips restore since slice 9; one whose graph needs an op
-    of a domain not ported yet (here control flow) still raises."""
+    of a domain not ported yet (here linalg) still raises."""
     import io
     import json
     import zipfile
@@ -215,12 +215,12 @@ def test_samediff_zip_is_not_ported(tmp_path):
                             "shape": [2], "dtype": "float32"},
                            {"name": "w", "type": "ARRAY", "shape": None,
                             "dtype": None}],
-             "ops": [{"op": "while_loop", "inputs": ["x"],
+             "ops": [{"op": "qr", "inputs": ["x"],
                       "outputs": ["w"], "attrs": {}}]}
     buf = io.BytesIO()
     np.savez(buf)
     with zipfile.ZipFile(tmp_path / "sd.zip", "w") as zf:
         zf.writestr("graph.json", json.dumps(graph))
         zf.writestr("arrays.npz", buf.getvalue())
-    with pytest.raises(NotImplementedError, match="control domain"):
+    with pytest.raises(NotImplementedError, match="linalg domain"):
         ModelSerializer.restore_model(tmp_path / "sd.zip", "cpu")

@@ -268,10 +268,54 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
             call()
 
 
+def _cf_while(sd):
+    h = sd.vars["x"] @ sd.vars["w1"]
+    two = sd.constant(np.float32(2.0))
+    return sd.while_loop(
+        [h],
+        lambda v: v.sd.math.lt(v.sd.math.reduce_sum(v.sd.math.abs(v)),
+                               v.sd._as_var(np.float32(2000.0))),
+        lambda v: v * two + sd.vars["b1"], max_iterations=8)
+
+
+def _cf_cond(sd):
+    h = sd.vars["x"] @ sd.vars["w1"]
+    return sd.cond(sd.math.gt(sd.math.reduce_sum(h),
+                              sd.constant(np.float32(-1e9))),
+                   lambda v: v.sd.math.tanh(v @ sd.vars["w2"]),
+                   lambda v: v @ sd.vars["w2"], [h])
+
+
+def _cf_scan(sd):
+    h = sd.vars["x"] @ sd.vars["w1"]
+    outs = sd.scan(lambda c, r: [c * sd.vars["b1"] + r, c], [h], [h],
+                   length=None)
+    return outs[0]
+
+
+@pytest.mark.parametrize("build", [_cf_while, _cf_cond, _cf_scan],
+                         ids=["while_loop", "cond", "scan"])
+def test_control_flow_paths_work(build):
+    """The control-flow builders on the classifier's graph, capturing its
+    variables: output and gradients as the JAX package's."""
+    j, p = _pair()
+    b = _batch()
+    for sd in (j, p):
+        out = build(sd)
+        sd.math.reduce_sum(out, name="cf_loss")
+        sd.set_loss_variables(["cf_loss"])
+    jo = j.output(b, ["cf_loss"])["cf_loss"]
+    po = p.output(b, ["cf_loss"])["cf_loss"]
+    np.testing.assert_allclose(_np(po), np.asarray(jo), **FWD)
+    names = ["w1", "b1", "w2", "b2"]
+    jg = j.calculate_gradients(b, names)
+    pg = p.calculate_gradients(b, names)
+    for n in names:
+        np.testing.assert_allclose(_np(pg[n]), np.asarray(jg[n]), **GRAD,
+                                   err_msg=n)
+
+
 @pytest.mark.parametrize("call", [
-    lambda sd: sd.while_loop([], None, None),
-    lambda sd: sd.cond(None, None, None),
-    lambda sd: sd.scan(None, []),
     lambda sd: sd.to_stablehlo({}, []),
     lambda sd: sd.export_serialized({}, []),
     lambda sd: sd.fit_steps({}, 1, mesh=object()),
@@ -281,10 +325,24 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
     lambda sd: sd.nn.dropout(sd.placeholder("x"), 0.5),
     lambda sd: sd.math.segment_sum(sd.placeholder("x"),
                                    sd.placeholder("i")),
-], ids=["while_loop", "cond", "scan", "stablehlo", "export",
+], ids=["stablehlo", "export",
         "fit_steps_mesh", "output_mesh", "cnn", "random", "dropout",
         "segment"])
 def test_unported_paths_raise(call):
     _, p = _pair()
     with pytest.raises(NotImplementedError, match="not ported"):
         call(p)
+
+
+def test_scalar_values_keep_their_shape():
+    """A 0-d numpy constant, placeholder value and variable stay 0-d, as
+    in the JAX package (``np.ascontiguousarray`` alone makes them 1-d)."""
+    got = []
+    for sd in (JSameDiff(), SameDiff(device="cpu")):
+        c = sd.constant("c", np.float32(2.0))
+        v = sd.var("v", array=np.int32(3))
+        p = sd.placeholder("p", shape=())
+        sd.math.add(p, c, name="s")
+        out = sd.output({"p": np.float32(1.5)}, ["c", "v", "s"])
+        got.append({k: _np(t).shape for k, t in out.items()})
+    assert got[1] == got[0] == {"c": (), "v": (), "s": ()}

@@ -1,9 +1,10 @@
 """The port's op registry (``autodiff/registry.py``) against the JAX
 package's, op by op, on the CPU.
 
-One parametrised case per ported op (168): the same seeded numpy inputs
+One parametrised case per ported op (180): the same seeded numpy inputs
 go through ``get_op(name)`` of both packages, for every variant the case
-lists. Bars: the forward within rtol 2e-5 / atol 1e-6 (f32 on both
+lists. The control ops' subgraphs are Python callables written with
+operators both arrays share, so one attrs dict drives both packages. Bars: the forward within rtol 2e-5 / atol 1e-6 (f32 on both
 sides; the roadmap's default), with the same dtype; for every floating
 input, the gradient of ``sum(out * cotangent)`` (a seeded cotangent for
 each floating output) within rtol 2e-4 / atol 2e-5. Then the port's own
@@ -32,7 +33,7 @@ GRAD = dict(rtol=2e-4, atol=2e-5)
 PORTED_DOMAINS = {"arithmetic": 17, "transform": 30, "activation": 17,
                   "blas": 7, "reduce": 18, "indexreduce": 4,
                   "boolean": 15, "shape": 42, "normalization": 5,
-                  "loss": 9, "attention": 4}
+                  "loss": 9, "attention": 4, "recurrent": 7, "control": 5}
 
 
 class _R:
@@ -318,6 +319,53 @@ def _cases():
     add("multi_head_dot_product_attention", lambda r: [
         ([r.n(2, 5, 8), r.n(8, 8) * 0.3, r.n(8, 8) * 0.3, r.n(8, 8) * 0.3,
           r.n(8, 8) * 0.3, _key_mask(2, 5, 1)[:, 0, 0]], {"num_heads": 2})])
+    # recurrent (b=2, f=3, H=4, t=5; SRU needs f == H)
+    add("lstm_cell", lambda r: [([r.n(2, 3), r.n(2, 4), r.n(2, 4),
+                                  r.n(3, 16) * 0.5, r.n(4, 16) * 0.5,
+                                  r.n(16) * 0.1], {})])
+    add("gru_cell", lambda r: [([r.n(2, 3), r.n(2, 4), r.n(3, 12) * 0.5,
+                                 r.n(4, 12) * 0.5, r.n(12) * 0.1], {})])
+    add("sru_cell", lambda r: [([r.n(2, 4), r.n(2, 4), r.n(4, 12) * 0.5,
+                                 r.n(12) * 0.1], {})])
+    add("lstm_layer", lambda r: [([r.n(2, 5, 3), r.n(2, 4), r.n(2, 4),
+                                   r.n(3, 16) * 0.5, r.n(4, 16) * 0.5,
+                                   r.n(16) * 0.1], {})])
+    add("rnn_layer", lambda r: [([r.n(2, 5, 3), r.n(2, 4), r.n(3, 4) * 0.5,
+                                  r.n(4, 4) * 0.5, r.n(4) * 0.1], {})])
+    add("gru_layer", lambda r: [
+        ([r.n(2, 5, 3), r.n(2, 4), r.n(3, 12) * 0.5, r.n(4, 12) * 0.5,
+          r.n(12) * 0.1, r.n(12) * 0.1], {"linear_before_reset": lbr})
+        for lbr in (False, True)])
+    add("sru", lambda r: [([r.n(2, 5, 4), r.n(2, 4), r.n(4, 12) * 0.5,
+                            r.n(12) * 0.1], {})])
+    # control: a bounded while (the unbounded one has no gradient in
+    # either package: tests/test_torch_control_flow.py), a cond each way,
+    # a scan over xs and one over a length, select-lowered switch/merge
+    add("while_loop", lambda r: [
+        ([r.f(4, lo=0.5, hi=1.5)],
+         {"_cond_call": lambda v: [v.sum() < 30.0],
+          "_body_call": lambda v: [v * 2.0 + 0.5], "n_loop": 1,
+          "n_cond_caps": 0, "n_body_caps": 0, "max_iterations": 8}),
+        ([r.f(3, lo=0.5, hi=1.0), r.f(3, lo=1.1, hi=1.4)],
+         {"_cond_call": lambda v: [v.sum() < 12.0],
+          "_body_call": lambda v, w: [v * w], "n_loop": 1,
+          "n_cond_caps": 0, "n_body_caps": 1, "max_iterations": 16})])
+    add("cond", lambda r: [
+        ([np.asarray(p), r.n(3), r.n(3), r.n(3)],
+         {"_true_call": lambda v, w: [v * w, v + 1.0],
+          "_false_call": lambda v, w: [v + w, v * v],
+          "n_operands": 1, "n_true_caps": 1, "n_false_caps": 1})
+        for p in (True, False)])
+    add("scan", lambda r: [
+        ([r.n(3), r.n(5, 3), r.f(3, lo=0.5, hi=1.0)],
+         {"_body_call": lambda c, x, w: [c * w + x, c * x],
+          "n_carry": 1, "n_xs": 1, "length": None}),
+        ([r.n(3), r.f(3, lo=0.5, hi=1.0)],
+         {"_body_call": lambda c, w: [c * w, c], "n_carry": 1, "n_xs": 0,
+          "length": 4})])
+    add("switch", lambda r: [([r.n(3), np.asarray(True)], {})])
+    add("merge", lambda r: [([r.n(3), r.n(3), np.asarray(p)], {})
+                            for p in (True, False)])
     return c
 
 
@@ -383,15 +431,16 @@ def _cotangents(name, outs):
 
 def test_registry_is_the_eleven_ported_domains():
     assert op_coverage() == PORTED_DOMAINS
-    assert len(OP_REGISTRY) == 168
+    assert len(OP_REGISTRY) == 180
     jax_all = set(jax_get_op.__globals__["OP_REGISTRY"])
     assert set(OP_REGISTRY) | set(UNPORTED) == jax_all
     assert not set(OP_REGISTRY) & set(UNPORTED)
     assert set(CASES) == set(OP_REGISTRY)
 
 
-@pytest.mark.parametrize("name", ["conv2d", "while_loop", "svd",
-                                  "dropout", "segment_sum", "lstm_cell"])
+@pytest.mark.parametrize("name", ["conv2d", "qr", "svd",
+                                  "dropout", "segment_sum",
+                                  "depthwise_conv2d"])
 def test_unported_ops_raise_naming_their_domain(name):
     with pytest.raises(NotImplementedError, match=f"{UNPORTED[name]} "
                                                   f"domain"):
@@ -433,4 +482,4 @@ def test_opvalidation_coverage_over_registered_ops():
             fwd_tol=2e-5))
     report = opvalidation.coverage_report()
     assert report["fraction"] >= 0.95, report["missing"]
-    assert report["total"] == 168
+    assert report["total"] == 180

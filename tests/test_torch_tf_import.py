@@ -18,6 +18,11 @@ BERT dimensions (vocab 97, hidden 32, 4 heads, 2 layers, t=16, batch
   float32 (measured 1.2e-6), and within rtol 5e-3 in bfloat16 (measured
   1.1e-3; both packages compute the whole program in bf16, ~3
   significant digits, summed in other orders).
+- Graphs with control flow (``lstm_graph``'s functional While and v1
+  frames with TensorLists, and a functional ``StatelessIf``) import,
+  with and without ``while_max_iterations``, to the JAX package's
+  outputs (rtol 1e-5 / atol 1e-5); a bounded import trains
+  (``tests/test_torch_tf_control_flow.py`` holds the rest).
 """
 import os
 import sys
@@ -42,10 +47,8 @@ from deeplearning4j_tpu_torch.modelimport.tensorflow import \
     TensorflowFrameworkImporter  # noqa: E402
 from deeplearning4j_tpu_torch.modelimport.tensorflow.bert_graph import (
     build_frozen_bert, import_and_attach_mlm)  # noqa: E402
-from deeplearning4j_tpu_torch.modelimport.tensorflow.importer import \
-    GraphDefImporter  # noqa: E402
-from deeplearning4j_tpu_torch.modelimport.tensorflow.protobuf import (
-    NodeDef, parse_graphdef)  # noqa: E402
+from deeplearning4j_tpu_torch.modelimport.tensorflow.protobuf import \
+    parse_graphdef  # noqa: E402
 
 SEQ, BATCH = 16, 2
 DIMS = dict(vocab=97, hidden=32, heads=4, layers=2)
@@ -197,19 +200,84 @@ def test_kill_switch_leaves_the_graph_alone(writer_bytes):
     assert "sdpa_core" not in {o.op_name for o in sd.ops}
 
 
+def _if_graph() -> bytes:
+    """``tf.cond(sum(x) > 0, lambda: x * 2, lambda: x - 1)`` as a
+    functional ``StatelessIf`` with its branches in the library."""
+    from deeplearning4j_tpu_torch.modelimport.tensorflow import \
+        lstm_graph as lg
+    g = lg._Graph()
+    g.add("x", "Placeholder", dtype=lg._T_FLOAT, shape=lg._attr_shape((3,)))
+    g.const("axis", np.int32(0))
+    g.add("Sum", "Sum", ["x", "axis"], T=lg._T_FLOAT, Tidx=lg._T_INT,
+          keep_dims=lg._attr_b(False))
+    g.const("zero", np.float32(0.0))
+    g.add("Greater", "Greater", ["Sum", "zero"], T=lg._T_FLOAT)
+    g.add("cond", "StatelessIf", ["Greater", "x"],
+          then_branch=lg._attr_func("then_fn"),
+          else_branch=lg._attr_func("else_fn"))
+    g.add("Identity", "Identity", ["cond"], T=lg._T_FLOAT)
+    fns = b""
+    for name, op, c in (("then_fn", "Mul", 2.0), ("else_fn", "Sub", 1.0)):
+        f = lg._Graph()
+        f.const("c", np.float32(c))
+        f.add("y", op, ["v", "c:output:0"], T=lg._T_FLOAT)
+        fns += lg._ld(1, lg._function_def(
+            name, [("v", lg._DT_FLOAT)], [("out", lg._DT_FLOAT)],
+            f.nodes, {"out": "y:z:0"}))
+    return b"".join(lg._ld(1, n) for n in g.nodes) + lg._ld(2, fns)
+
+
+def _lstm_bytes(form):
+    from deeplearning4j_tpu_torch.modelimport.tensorflow.lstm_graph import \
+        build_lstm_graph
+    return build_lstm_graph(2, 5, 11, 16, form=form)
+
+
+#: the graph each control-flow op stands in, and the feed of its input
+_CF_GRAPHS = {"While": (lambda: _lstm_bytes("functional"), (2, 5, 11)),
+              "StatelessIf": (_if_graph, (3,)),
+              "Enter": (lambda: _lstm_bytes("v1"), (2, 5, 11)),
+              "NextIteration": (lambda: _lstm_bytes("v1"), (2, 5, 11)),
+              "TensorListReserve": (lambda: _lstm_bytes("functional"),
+                                    (2, 5, 11))}
+
+
 @pytest.mark.parametrize("op", ["While", "StatelessIf", "Enter",
                                 "NextIteration", "TensorListReserve"])
-def test_control_flow_is_not_ported(op):
-    nodes = [NodeDef("x", "Placeholder", [], {}), NodeDef("y", op, ["x"],
-                                                           {})]
-    with pytest.raises(NotImplementedError, match="not ported"):
-        GraphDefImporter(nodes, device="cpu").run()
+def test_control_flow_graphs_import(op):
+    """A graph holding ``op`` imports, unbounded and bounded, to the JAX
+    package's output."""
+    build, shape = _CF_GRAPHS[op]
+    gd = build()
+    assert op in {n.op for n in parse_graphdef(gd)}
+    rs = np.random.RandomState(3)
+    for sign in (1.0, -1.0):
+        x = (sign * np.abs(rs.randn(*shape))).astype(np.float32)
+        for mi in (None, 5):
+            p = TensorflowFrameworkImporter.run_import(
+                gd, {"x": shape}, while_max_iterations=mi, device="cpu")
+            j = JImporter.run_import(gd, {"x": shape},
+                                     while_max_iterations=mi)
+            np.testing.assert_allclose(
+                p.output({"x": x}, ["Identity"])["Identity"].numpy(),
+                np.asarray(j.output({"x": x}, ["Identity"])["Identity"]),
+                **FWD)
 
 
-def test_while_bounds_are_not_ported(writer_bytes):
-    with pytest.raises(NotImplementedError, match="While import"):
-        TensorflowFrameworkImporter.run_import(
-            writer_bytes, SHAPES, while_max_iterations=4, device="cpu")
+def test_bounded_while_import_trains():
+    """``while_max_iterations`` makes the imported loops differentiable:
+    5 Adam steps of the LSTM graph lower the loss."""
+    from deeplearning4j_tpu_torch.modelimport.tensorflow.lstm_graph import \
+        import_and_attach_loss
+    sd, loss = import_and_attach_loss(
+        _lstm_bytes("functional"), 2, 5, 11, updater=Adam(5e-2),
+        while_max_iterations=5, device="cpu")
+    rs = np.random.RandomState(4)
+    eye = np.eye(11, dtype=np.float32)
+    feed = {"x": eye[rs.randint(0, 11, (2, 5))],
+            "labels": eye[rs.randint(0, 11, (2, 5))]}
+    losses = [sd.fit_steps(feed, 1) for _ in range(5)]
+    assert losses[-1] < losses[0]
 
 
 def test_run_import_defaults_to_the_card(monkeypatch, writer_bytes):
