@@ -35,7 +35,9 @@ Phases, each of which fails the run (exit 1) when its check fails:
    (M, C) site shape of a batch-32 ResNet-50 step and LeNet-5's two
    conv shapes, f32/bf16/f16: elementwise outputs bitwise, sums within
    ``SUM_RTOL`` of sum|terms| per channel, sums bitwise equal across two
-   launches; then their timings over the 53 sites of a batch-32 step;
+   launches; the body (vector width, block, grid) kernel 6 takes at
+   each site shape; then their timings over the 53 sites of a batch-32
+   step;
 5. serving: a full-width ResNet-50 (224x224x3, 1000 classes, seeded
    random weights, BatchNormalization stats set from the generator)
    registered and served over HTTP, kernel counts reset just before and
@@ -128,7 +130,10 @@ Phases, each of which fails the run (exit 1) when its check fails:
     batch-8 and batch-32 buckets plus a ragged M, an N off the tile and
     K = 16, f32/bf16/f16, relu and identity, NaN rows: per element
     within ``2e-5 * (sum_k |x_k w_k| + |b|)`` of the plain f32 result
-    (plus one ulp of bf16 or f16), bitwise across two launches; then its
+    (plus one ulp of bf16 or f16), bitwise across two launches; the
+    body (wgmma + TMA, mma.sync or f32 SIMT, with its tile) each of the
+    17 sites takes in each dtype, and the host cost of encoding the
+    Hopper body's tensor maps; then its
     time over the 17 sites of a batch-32 forward (CUDA-graph replay)
     beside the bound, the plain version and ``torch._addmm_activation``,
     and one f32 backward through its autograd Function against the
@@ -153,6 +158,11 @@ Phases, each of which fails the run (exit 1) when its check fails:
     idle share, device kernels a step and peak memory; card against CPU
     for one Sgd step at 64x64 (retain 1.0, TF32 off, norm-wise against
     a float64 step);
+15c. kernel paths: a batch-32 SqueezeNet forward in f32 and in bf16
+    (17 launches of kernel 4 each) and a batch-32 bf16 ResNet-50
+    training step (53 launches each of kernels 5 and 6 a step): ms,
+    device busy time and idle share (profiler), the share of busy time
+    in kernel 4, and in kernels 5 and 6;
 16. pretrained: ``lenet.zip``, ``resnet_cifar.zip`` and ``charrnn.zip``
     restored onto the card by ``restore_model`` (through the zoo's
     shortcuts) and held to their gates: LeNet-5 >= 0.99 on 2000
@@ -1011,6 +1021,17 @@ def phase_train_kernels(torch) -> dict:
     groups: dict = {}
     for site in sites:
         groups[site] = groups.get(site, 0) + 1
+    dx_bodies = {}
+    for M, C, _ in sorted(groups):
+        row = {}
+        for dt in (torch.float32, torch.bfloat16, torch.float16):
+            x = torch.empty(M, C, device="cuda", dtype=dt)
+            row[str(dt).split(".")[-1]] = bt.bn_bwd_dx_body(x, x)
+        dx_bodies[f"[{M},{C}]"] = row
+    print("[train-kernels] bn_bwd_dx bodies at the 9 site shapes (f32 | "
+          "bf16 | f16): " + "; ".join(
+              f"{k} {r['float32']} | {r['bfloat16']} | {r['float16']}"
+              for k, r in dx_bodies.items()))
     timing = {k: {} for k in TRAIN_KERNELS}
     for dt in (torch.float32, torch.bfloat16, torch.float16):
         esize = torch.tensor([], dtype=dt).element_size()
@@ -1093,7 +1114,7 @@ def phase_train_kernels(torch) -> dict:
                   f"{bound:.4f} ms ({t['bytes'] / 1e9:.3f} GB), eager "
                   f"{t['eager']:.4f} ms")
             print(f"[train-kernels]   per site: {'; '.join(t['shapes'])}")
-    return {"max_abs_err": errs, "timing": timing}
+    return {"max_abs_err": errs, "timing": timing, "dx_bodies": dx_bodies}
 
 
 # ---------------------------------------------------------------------------
@@ -3502,6 +3523,8 @@ def _pointwise(torch, ce, conf) -> dict:
     groups: dict = {}
     for site in sites:
         groups[site] = groups.get(site, 0) + 1
+    bodies = _pointwise_bodies(torch, ce, sorted(groups))
+
     timing = {}
     for dname in DTYPES:
         dt = getattr(torch, dname)
@@ -3599,8 +3622,34 @@ def _pointwise(torch, ce, conf) -> dict:
           f"{fn_ms:.4f} ms, autograd through the plain version "
           f"{plain_ms:.4f} ms (eager, CUDA events)")
     return {"max_abs_err": errs["float32"]["max_abs_err"], "errs": errs,
-            "timing": timing, "backward_ms": {"function": fn_ms,
-                                              "plain": plain_ms}}
+            "timing": timing, "bodies": bodies,
+            "backward_ms": {"function": fn_ms, "plain": plain_ms}}
+
+
+def _pointwise_bodies(torch, ce, sites) -> dict:
+    """The body kernel 4 takes at each (M, K, N, act) site of a batch-32
+    SqueezeNet forward in each dtype (one line), and the host cost of
+    the Hopper body's tensor-map encoding at the classifier site."""
+    bodies = {}
+    for M, K, N, _ in sites:
+        row = {}
+        for dname in DTYPES:
+            dt = getattr(torch, dname)
+            x = torch.empty(M, K, device="cuda", dtype=dt)
+            w = torch.empty(N, K, device="cuda", dtype=dt)
+            row[dname] = ce.matmul_bias_act_body(x, w)
+        bodies[f"[{M},{K}]x[{N}]"] = row
+    print("[pointwise] bodies at the 17 sites (f32 | bf16 | f16): "
+          + "; ".join(f"{site} {r['float32']} | {r['bfloat16']} | "
+                      f"{r['float16']}" for site, r in bodies.items()))
+    M, K, N, _ = max(sites, key=lambda s: s[1] * s[2])
+    x = torch.empty(M, K, device="cuda", dtype=torch.bfloat16)
+    w = torch.empty(N, K, device="cuda", dtype=torch.bfloat16)
+    ns = ce.matmul_tensor_map_ns(x, w)
+    print(f"[pointwise] tensor-map encoding (host, x's and W's maps) at "
+          f"[{M},{K}]x[{N}]: {ns:.1f} ns a launch (mean of 1000)")
+    bodies["tensor_map_ns"] = ns
+    return bodies
 
 
 def seeded_squeezenet(torch, device: str, seed: int = 9,
@@ -3726,6 +3775,72 @@ def phase_squeezenet(torch, device: str = "cuda", image: int = 224,
                        f"their scale")
     result["profile"] = profile_device(
         torch, lambda: net.output(xb), ms, "batch-32 f32 SqueezeNet forward")
+    return result
+
+
+def phase_kernel_paths(torch, label: str) -> dict:
+    """Device busy time and idle share (profiler) of the paths that carry
+    kernels 4 and 6: a batch-32 SqueezeNet forward (seeded, 224x224) in
+    f32 and in bf16 ``compute_dtype``, 17 launches of kernel 4 each, and
+    a batch-32, 224x224 ResNet-50 training step in bf16
+    ``compute_dtype``, 53 launches each of kernels 5 and 6 a step. It
+    touches only entry points that every tree of the port has, so the
+    same function reads a parent checkout's package on the same card."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.models import SqueezeNet
+    from deeplearning4j_tpu_torch.models.zoo import ResNet50
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    result = {}
+    net = seeded_squeezenet(torch, "cuda")
+    g = torch.Generator().manual_seed(5)
+    xb = torch.randn(BATCH, 224, 224, 3, generator=g).cuda()
+    nets = {"float32": net, "bfloat16": ComputationGraph(
+        SqueezeNet(compute_dtype="bfloat16").conf()).set_params(
+            net.params, net.states, "cuda")}
+    for dname, model in nets.items():
+        _zero_counts()
+        model.output(xb)
+        torch.cuda.synchronize()
+        n = _counts()["matmul_bias_act"]
+        check(n == 17, f"{dname} SqueezeNet forward: {n} launches of "
+                       f"kernel 4, expected 17")
+        runs = sorted(_time_ms(torch, lambda: model.output(xb), reps=10)
+                      for _ in range(3))
+        prof = profile_device(torch, lambda: model.output(xb), runs[1],
+                              f"batch-{BATCH} {dname} SqueezeNet forward",
+                              shares=("mba_",))
+        result[f"squeezenet_{dname}"] = {"ms": runs, "profile": prof}
+        print(f"[paths] batch-{BATCH} {dname} SqueezeNet forward "
+              f"{runs[1]:.3f} ms (median of "
+              f"{[round(r, 3) for r in runs]}), device busy "
+              f"{prof.get('device_busy_ms', float('nan')):.3f} ms, idle "
+              f"share {prof.get('idle_share', float('nan')):.3f} [{label}]")
+    del nets, net, model
+    kw = dict(seed=21, height=224, width=224)
+    gr = torch.Generator().manual_seed(21)
+    rn = ResNet50(compute_dtype="bfloat16", **kw).init("cuda", generator=gr)
+    x, y = learnable_batch(torch, gr, BATCH, 224)
+    x, y = x.cuda(), y.cuda()
+    steps = 5
+    _zero_counts()
+    losses, ms = _timed_steps(torch, rn, x, y, steps)
+    n = _counts()
+    check(all(np.isfinite(losses)), f"bf16 ResNet-50 losses {losses}")
+    for k in ("bn_bwd_sums", "bn_bwd_dx"):
+        check(n[k] == 53 * steps, f"bf16 ResNet-50: {n[k]} launches of {k} "
+                                  f"in {steps} steps, expected 53 a step")
+    step_ms = float(np.median(ms[1:]))
+    prof = profile_device(torch, lambda: rn.fit(x, y), step_ms,
+                          f"batch-{BATCH} bf16 ResNet-50 train step",
+                          shares=("bn_dx_kernel", "column_"))
+    result["resnet50_bf16_step"] = {"ms": ms, "profile": prof}
+    print(f"[paths] batch-{BATCH} bf16 ResNet-50 step {step_ms:.3f} ms "
+          f"(median of steps 2-{steps}), device busy "
+          f"{prof.get('device_busy_ms', float('nan')):.3f} ms, idle share "
+          f"{prof.get('idle_share', float('nan')):.3f} [{label}]")
+    del rn
+    torch.cuda.empty_cache()
     return result
 
 
@@ -5730,6 +5845,7 @@ def main() -> int:
     pw = timed("pointwise", phase_pointwise, torch)
     sl = timed("slice", phase_slice, torch, label=label)
     sq = timed("squeezenet", phase_squeezenet, torch, label=label)
+    timed("kernel-paths", phase_kernel_paths, torch, label)
     st = timed("squeezenet-train", phase_train_squeezenet, torch, label)
     tr = timed("train", phase_train_resnet, torch, label)
     dp = timed("dp-resnet", phase_dp_resnet, torch, label)

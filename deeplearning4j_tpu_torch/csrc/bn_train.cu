@@ -12,18 +12,42 @@
 // the sums and from the mean and variance cotangents (a few [C]-sized
 // ops), exactly as bn_pallas.py:_bn_bwd_raw does.
 //
-// Bound: bytes. Pass 1 reads x and dy (8 bytes an element in f32), pass 2
-// reads them again and writes dx (12 bytes), for a handful of operations
-// an element: two passes is the least this formulation needs, since every
-// dx depends on sums over all rows. Both passes read and write 16-byte
-// vectors where C and the pointers allow it. Pass 1 sums as
-// column_reduce.cuh describes (deterministic, no float atomics); pass 2
-// is elementwise and bitwise equal to the plain PyTorch version: each
-// product and sum rounded on its own, in the order (A*dy + D*x) + E.
+// Bound: bytes. Pass 1 reads x and dy (8 bytes an element in f32, 4 in
+// 16 bit), pass 2 reads them again and writes dx (12 bytes an element in
+// f32, 6 in 16 bit), for a handful of operations an element: two passes
+// is the least this formulation needs, since every dx depends on sums
+// over all rows. Pass 1 sums as column_reduce.cuh describes
+// (deterministic, no float atomics).
+//
+// Pass 2 (bn_dx_kernel) is elementwise and bitwise equal to the plain
+// PyTorch version: each product and sum rounded on its own, in the order
+// (A*dy + D*x) + E, one cast. A thread owns one group of VEC neighbouring
+// channels for its whole life (one 16-byte vector: 8 channels in 16 bit,
+// 4 in f32) and loads that group's A, D and E into registers once; the
+// block's threads span the channel groups along x and rows along y, a
+// second grid dimension takes further channel tiles where C / VEC
+// exceeds a block's width (C = 2048 in f32), and each thread walks rows
+// with four independent 16-byte loads of x and of dy in flight (kept as
+// raw vectors and converted at use, registers capped so that three
+// blocks fit a SM; the grid is what stays resident, no tail wave), on
+// 32-bit indices where M * C < 2^30. So the load units see two data
+// loads and one store a vector and no division or coefficient load: at
+// wide C in 16 bit, three coefficient loads an element (24 beside 3 data
+// accesses a vector) set the pace below the memory's. Where C % VEC != 0
+// or a pointer is misaligned, the same kernel runs with VEC = 1 (scalar
+// accesses, the same rounding).
+//
+// Left for later: pass 1's body is column_reduce.cuh, which kernels 2
+// and 3 share (its redesign moves three kernels); the smallest sites
+// ([1568, 512]: 4.8 MB in 16 bit) are bound by the launch and one wave,
+// not by bytes.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <stdio.h>
+
+#include <type_traits>
 
 #include "column_reduce.cuh"
 
@@ -80,67 +104,200 @@ int bn_sums_typed(const void* x, const void* dy, const float* mean,
 }
 
 // ---------------------------------------------------------------------------
-// pass 2: dx = (A * dy + D * x) + E, grid-stride over VEC-element vectors
+// pass 2: dx = (A * dy + D * x) + E, channel groups held in registers
 // ---------------------------------------------------------------------------
-constexpr int kThreads = 256;
-constexpr int kBlocksPerSm = 8;
+constexpr int kDxThreads = 256;
+constexpr int kDxUnroll = 4;      // row vectors in flight a thread
+constexpr int kDxMinBlocks = 3;   // registers capped at 85: 3 blocks a SM
 
+// 16 bytes of VEC elements rounded from f32 (round to nearest even, two
+// at a time in 16 bit: the same bits as one conversion each).
 template <typename T, int VEC>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ uint4 pack16(const float (&v)[VEC]) {
+  uint4 raw;
+  if constexpr (std::is_same<T, float>::value) {
+    raw = make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]),
+                     __float_as_uint(v[2]), __float_as_uint(v[3]));
+  } else {
+    uint32_t* w = reinterpret_cast<uint32_t*>(&raw);
+#pragma unroll
+    for (int i = 0; i < VEC / 2; ++i) {
+      if constexpr (std::is_same<T, __half>::value) {
+        __half2 h = __floats2half2_rn(v[2 * i], v[2 * i + 1]);
+        w[i] = *reinterpret_cast<uint32_t*>(&h);
+      } else {
+        __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+        w[i] = *reinterpret_cast<uint32_t*>(&h);
+      }
+    }
+  }
+  return raw;
+}
+
+template <typename T, int VEC, typename I>
+__global__ void __launch_bounds__(kDxThreads, kDxMinBlocks)
 bn_dx_kernel(const T* __restrict__ x, const T* __restrict__ dy,
              T* __restrict__ dx, const float* __restrict__ a,
              const float* __restrict__ d, const float* __restrict__ e,
-             int64_t n_vec, int64_t C) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-       i < n_vec; i += stride) {
-    const int64_t off = i * VEC;
-    const int64_t c0 = off % C;   // C % VEC == 0: a vector is one row's
-    float xv[VEC], dv[VEC], out[VEC];
-    dl4j::load_vec<T, VEC>(x + off, xv);
-    dl4j::load_vec<T, VEC>(dy + off, dv);
+             I M, I C) {
+  const I c0 = ((I)blockIdx.y * (I)blockDim.x + (I)threadIdx.x) * VEC;
+  if (c0 >= C) return;
+  float av[VEC], dv[VEC], ev[VEC];
 #pragma unroll
-    for (int v = 0; v < VEC; ++v) {
-      const int64_t c = c0 + v;
-      out[v] = __fadd_rn(__fadd_rn(__fmul_rn(__ldg(a + c), dv[v]),
-                                   __fmul_rn(__ldg(d + c), xv[v])),
-                         __ldg(e + c));
+  for (int v = 0; v < VEC; ++v) {
+    av[v] = __ldg(a + c0 + v);
+    dv[v] = __ldg(d + c0 + v);
+    ev[v] = __ldg(e + c0 + v);
+  }
+  const I step = (I)gridDim.x * (I)blockDim.y;
+  for (I r = (I)blockIdx.x * (I)blockDim.y + (I)threadIdx.y; r < M;
+       r += kDxUnroll * step) {
+    if constexpr (VEC * sizeof(T) == 16) {
+      // the rows' raw vectors first (8 loads in flight), converted at use
+      uint4 xr[kDxUnroll], gr[kDxUnroll];
+#pragma unroll
+      for (int u = 0; u < kDxUnroll; ++u) {
+        const I row = r + u * step;
+        if (row < M) {
+          xr[u] = __ldg(reinterpret_cast<const uint4*>(x + row * C + c0));
+          gr[u] = __ldg(reinterpret_cast<const uint4*>(dy + row * C + c0));
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kDxUnroll; ++u) {
+        const I row = r + u * step;
+        if (row < M) {
+          const T* xe = reinterpret_cast<const T*>(&xr[u]);
+          const T* ge = reinterpret_cast<const T*>(&gr[u]);
+          float out[VEC];
+#pragma unroll
+          for (int v = 0; v < VEC; ++v)
+            out[v] = __fadd_rn(
+                __fadd_rn(__fmul_rn(av[v], dl4j::to_f(ge[v])),
+                          __fmul_rn(dv[v], dl4j::to_f(xe[v]))),
+                ev[v]);
+          *reinterpret_cast<uint4*>(dx + row * C + c0) =
+              pack16<T, VEC>(out);
+        }
+      }
+    } else {
+      float xv[kDxUnroll][VEC], gv[kDxUnroll][VEC];
+#pragma unroll
+      for (int u = 0; u < kDxUnroll; ++u) {
+        const I row = r + u * step;
+        if (row < M) {
+          dl4j::load_vec<T, VEC>(x + row * C + c0, xv[u]);
+          dl4j::load_vec<T, VEC>(dy + row * C + c0, gv[u]);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kDxUnroll; ++u) {
+        const I row = r + u * step;
+        if (row < M) {
+          float out[VEC];
+#pragma unroll
+          for (int v = 0; v < VEC; ++v)
+            out[v] = __fadd_rn(__fadd_rn(__fmul_rn(av[v], gv[u][v]),
+                                         __fmul_rn(dv[v], xv[u][v])),
+                               ev[v]);
+          dl4j::store_vec<T, VEC>(dx + row * C + c0, out);
+        }
+      }
     }
-    dl4j::store_vec<T, VEC>(dx + off, out);
   }
 }
 
-int grid_for(int64_t work) {
-  static int max_blocks = 0;
-  if (max_blocks == 0) {
-    int dev = 0, sms = 132;
+// Blocks of one instantiation that fit on a SM at once (queried once).
+template <typename T, int VEC, typename I>
+int dx_blocks_per_sm() {
+  static const int n = [] {
+    int b = 0;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &b, bn_dx_kernel<T, VEC, I>, kDxThreads, 0) != cudaSuccess ||
+        b < 1) {
+      cudaGetLastError();
+      b = 1;
+    }
+    return b;
+  }();
+  return n;
+}
+
+int sm_count() {
+  static const int sms = [] {
+    int dev = 0, n = 132;
     if (cudaGetDevice(&dev) == cudaSuccess)
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    max_blocks = sms * kBlocksPerSm;
-  }
-  int64_t blocks = (work + kThreads - 1) / kThreads;
-  if (blocks < 1) blocks = 1;
-  return (int)(blocks < max_blocks ? blocks : max_blocks);
+      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    return n;
+  }();
+  return sms;
+}
+
+// The block and grid of pass 2: bx threads across the C / vec channel
+// groups (at most a block's width), by = kDxThreads / bx across rows;
+// grid.y channel tiles, grid.x row blocks: as many as stay resident on
+// the card at once (no tail wave), or fewer where M is short.
+struct DxGeom {
+  int vec, bx, by;
+  int64_t row_blocks, ctiles;
+  bool wide_index;
+};
+
+template <typename T>
+DxGeom dx_geom(int64_t M, int64_t C, bool aligned) {
+  constexpr int kFull = 16 / sizeof(T);
+  DxGeom g;
+  g.vec = (C % kFull == 0 && aligned) ? kFull : 1;
+  const int64_t groups = C / g.vec;
+  g.bx = (int)(groups < kDxThreads ? groups : kDxThreads);
+  g.by = kDxThreads / g.bx;
+  g.ctiles = (groups + g.bx - 1) / g.bx;
+  // 32-bit indices leave room for a row index stepping past M
+  g.wide_index = M * C >= (int64_t(1) << 30);
+  const int per_sm =
+      g.vec == kFull
+          ? (g.wide_index ? dx_blocks_per_sm<T, kFull, int64_t>()
+                          : dx_blocks_per_sm<T, kFull, int32_t>())
+          : (g.wide_index ? dx_blocks_per_sm<T, 1, int64_t>()
+                          : dx_blocks_per_sm<T, 1, int32_t>());
+  int64_t per = (int64_t)sm_count() * per_sm / g.ctiles;
+  if (per < 1) per = 1;
+  const int64_t need = (M + (int64_t)g.by * kDxUnroll - 1) /
+                       ((int64_t)g.by * kDxUnroll);
+  g.row_blocks = need < per ? need : per;
+  return g;
+}
+
+template <typename T, int VEC>
+void launch_dx(const DxGeom& g, const T* x, const T* dy, T* dx,
+               const float* a, const float* d, const float* e, int64_t M,
+               int64_t C, cudaStream_t stream) {
+  const dim3 grid((unsigned)g.row_blocks, (unsigned)g.ctiles);
+  const dim3 block((unsigned)g.bx, (unsigned)g.by);
+  if (g.wide_index)
+    bn_dx_kernel<T, VEC, int64_t><<<grid, block, 0, stream>>>(
+        x, dy, dx, a, d, e, M, C);
+  else
+    bn_dx_kernel<T, VEC, int32_t><<<grid, block, 0, stream>>>(
+        x, dy, dx, a, d, e, (int32_t)M, (int32_t)C);
 }
 
 template <typename T>
 int bn_dx_typed(const void* x, const void* dy, void* dx, const float* a,
                 const float* d, const float* e, int64_t M, int64_t C,
                 cudaStream_t stream) {
-  constexpr int kFull = 16 / sizeof(T);
-  const int64_t n = M * C;
+  const bool aligned = dl4j::aligned16(x) && dl4j::aligned16(dy) &&
+                       dl4j::aligned16(dx);
+  const DxGeom g = dx_geom<T>(M, C, aligned);
+  if (g.ctiles > 65535) return (int)cudaErrorInvalidValue;
   const T* xt = static_cast<const T*>(x);
   const T* dyt = static_cast<const T*>(dy);
   T* dxt = static_cast<T*>(dx);
-  if (C % kFull == 0 && dl4j::aligned16(x) && dl4j::aligned16(dy) &&
-      dl4j::aligned16(dx)) {
-    const int64_t n_vec = n / kFull;
-    bn_dx_kernel<T, kFull><<<grid_for(n_vec), kThreads, 0, stream>>>(
-        xt, dyt, dxt, a, d, e, n_vec, C);
-  } else {
-    bn_dx_kernel<T, 1><<<grid_for(n), kThreads, 0, stream>>>(
-        xt, dyt, dxt, a, d, e, n, C);
-  }
+  constexpr int kFull = 16 / sizeof(T);
+  if (g.vec == kFull)
+    launch_dx<T, kFull>(g, xt, dyt, dxt, a, d, e, M, C, stream);
+  else
+    launch_dx<T, 1>(g, xt, dyt, dxt, a, d, e, M, C, stream);
   return (int)cudaGetLastError();
 }
 
@@ -196,4 +353,23 @@ extern "C" int dl4j_bn_bwd_dx(const void* x, const void* dy, void* dx,
     return bn_dx_typed<__nv_bfloat16>(x, dy, dx, af, df, ef, M, C, s);
   if (dtype == 2) return bn_dx_typed<__half>(x, dy, dx, af, df, ef, M, C, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The geometry dl4j_bn_bwd_dx takes for these arguments, as text in `out`
+// (at most `len` bytes with its terminating 0). Launches nothing.
+extern "C" int dl4j_bn_bwd_dx_describe(const void* x, const void* dy,
+                                       const void* dx, int64_t M, int64_t C,
+                                       int dtype, char* out, int len) {
+  if (M <= 0 || C <= 0 || dtype < 0 || dtype > 2 || len <= 0)
+    return (int)cudaErrorInvalidValue;
+  const bool aligned = dl4j::aligned16(x) && dl4j::aligned16(dy) &&
+                       dl4j::aligned16(dx);
+  const DxGeom g = dtype == 0   ? dx_geom<float>(M, C, aligned)
+                   : dtype == 1 ? dx_geom<__nv_bfloat16>(M, C, aligned)
+                                : dx_geom<__half>(M, C, aligned);
+  snprintf(out, len, "%s: %d channels a thread, block %dx%d, grid %lldx%lld, "
+           "%s indices", g.vec > 1 ? "16-byte vectors" : "scalar", g.vec,
+           g.bx, g.by, (long long)g.row_blocks, (long long)g.ctiles,
+           g.wide_index ? "64-bit" : "32-bit");
+  return 0;
 }

@@ -35,7 +35,7 @@ plain math. ``=0`` is the kill switch; the layer then runs
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -145,6 +145,25 @@ def bn_bwd_dx(x2d: torch.Tensor, dy2d: torch.Tensor, a: torch.Tensor,
     ce.raise_on_error("bn_bwd_dx", rc)
     BN_BWD_DX.launched()
     return dx
+
+
+def bn_bwd_dx_body(x2d: torch.Tensor, dy2d: torch.Tensor,
+                   dx: Optional[torch.Tensor] = None) -> str:
+    """The geometry :func:`bn_bwd_dx` takes for CUDA operands ``x2d``
+    and ``dy2d`` [M, C] (and its output ``dx``, by default a fresh,
+    aligned one), as the kernel names it: vector width, block, grid and
+    index width. Launches nothing."""
+    C = int(x2d.shape[-1])
+    M = x2d.numel() // C
+    fn = cuda_build.c_function(
+        "bn_train", "dl4j_bn_bwd_dx_describe",
+        [_P, _P, _P, _I64, _I64, _INT, ctypes.c_char_p, _INT])
+    buf = ctypes.create_string_buffer(256)
+    rc = fn(x2d.data_ptr(), dy2d.data_ptr(),
+            0 if dx is None else dx.data_ptr(), M, C,
+            ce.DTYPE_CODE[x2d.dtype], buf, len(buf))
+    ce.raise_on_error("bn_bwd_dx_body", rc)
+    return buf.value.decode()
 
 
 # ---------------------------------------------------------------------------

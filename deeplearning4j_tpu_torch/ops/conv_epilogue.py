@@ -416,6 +416,37 @@ def matmul_bias_act_forward(x2d: torch.Tensor, w: torch.Tensor,
     return y
 
 
+def matmul_bias_act_body(x2d: torch.Tensor, w: torch.Tensor,
+                         y: Optional[torch.Tensor] = None) -> str:
+    """The body :func:`matmul_bias_act_forward` takes for CUDA operands
+    ``x2d`` [M, K] and ``w`` [N, K] (and its output ``y``, by default a
+    fresh, aligned one), as the kernel's own plan names it: the kernel,
+    its tile, ring depth and grid. Launches nothing."""
+    M, K = (int(d) for d in x2d.shape)
+    N = int(w.shape[0])
+    fn = cuda_build.c_function(
+        "matmul_epilogue", "dl4j_matmul_bias_act_describe",
+        [_P, _P, _P, _I64, _I64, _I64, _INT, ctypes.c_char_p, _INT])
+    buf = ctypes.create_string_buffer(256)
+    rc = fn(x2d.data_ptr(), w.data_ptr(),
+            0 if y is None else y.data_ptr(), M, N, K,
+            DTYPE_CODE[x2d.dtype], buf, len(buf))
+    raise_on_error("matmul_bias_act_body", rc)
+    return buf.value.decode()
+
+
+def matmul_tensor_map_ns(x2d: torch.Tensor, w: torch.Tensor,
+                         reps: int = 1000) -> float:
+    """Host ns of encoding the Hopper body's two tensor maps for
+    ``x2d`` [M, K] and ``w`` [N, K] (16-bit CUDA tensors), averaged over
+    ``reps`` encodings: what each launch of that body adds on the host."""
+    fn = cuda_build.c_function(
+        "matmul_epilogue", "dl4j_matmul_tensor_map_ns",
+        [_P, _P, _I64, _I64, _I64, _INT], restype=ctypes.c_double)
+    return float(fn(x2d.data_ptr(), w.data_ptr(), int(x2d.shape[0]),
+                    int(w.shape[0]), int(x2d.shape[1]), reps))
+
+
 # ---------------------------------------------------------------------------
 # differentiable building blocks
 # ---------------------------------------------------------------------------

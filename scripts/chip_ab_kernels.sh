@@ -1,0 +1,48 @@
+#!/bin/bash
+# Time the port's kernel phases of two trees on one card, in turns:
+# parent, this tree, this tree, parent. Run from the root of this tree,
+# on the machine with the card:
+#
+#     bash scripts/chip_ab_kernels.sh checkout/parent [log-dir]
+#
+# where checkout/parent holds the other tree (e.g. `git archive <commit>`
+# unpacked there). Each tree builds its own kernels and runs its own
+# `chip_smoke.phase_pointwise` and `phase_train_kernels`; this tree's
+# `chip_smoke.phase_kernel_paths` runs against each tree's package (it
+# uses only entry points every tree has). Logs go to log-dir (by default
+# build/chip_ab/); the summary lines are printed.
+set -u
+PARENT=$(cd "$1" && pwd)
+ROOT=$(pwd)
+OUT=$ROOT/${2:-build/chip_ab}
+mkdir -p "$OUT"
+build='import concurrent.futures as f
+from deeplearning4j_tpu_torch.ops import cuda_build as b
+list(f.ThreadPoolExecutor(3).map(
+    b.build, ["matmul_epilogue", "bn_train", "conv_epilogue"]))
+print({k: round(v["seconds"], 1) for k, v in b.build_info.items()})'
+python3 -c "$build" > "$OUT/build_new.log" 2>&1 &
+(cd "$PARENT" && python3 -c "$build" > "$OUT/build_parent.log" 2>&1) &
+wait
+phases='import torch, chip_smoke as c
+c.phase_pointwise(torch)
+c.phase_train_kernels(torch)'
+paths="import torch, importlib.util as u
+s = u.spec_from_file_location('chip_smoke_ab', '$ROOT/chip_smoke.py')
+c = u.module_from_spec(s)
+s.loader.exec_module(c)
+c.phase_kernel_paths(torch, c.nvidia_smi_line())"
+i=0
+for tree in parent new new parent; do
+  i=$((i + 1))
+  dir=$ROOT
+  [ "$tree" = parent ] && dir=$PARENT
+  log=$OUT/run${i}_${tree}.log
+  (cd "$dir" \
+    && nvidia-smi --query-gpu=name,power.limit --format=csv,noheader \
+    && timeout 600 python3 -c "$phases" \
+    && timeout 300 python3 -c "$paths") > "$log" 2>&1
+  echo "run $i $tree rc=$?"
+  grep -E 'forward, 17 sites|bn_bwd_(dx|sums) [a-z0-9]*, 53|^\[paths\]' \
+    "$log" | cut -c1-200
+done

@@ -172,6 +172,55 @@ def test_bn_backward_kernels_match_plain(shape, dtype):
     assert dx.dtype == x.dtype and torch.equal(dx, want)
 
 
+#: (M, C, view, expected body) for kernel 6: the scalar body at C = 3
+#: and on a misaligned view ("tail": x[1:] of a flat buffer one element
+#: longer), a second grid dimension of channel tiles at C = 2048 in f32
+#: and C = 4096 in every dtype, M = 1
+BN_DX_BODY_CASES = [
+    (777, 3, None, "scalar"),
+    (1568, 2048, None, "16-byte vectors"),
+    (3, 4096, None, "16-byte vectors"),
+    (1, 64, None, "16-byte vectors"),
+    (1, 2048, None, "16-byte vectors"),
+    (1000, 64, "tail", "scalar"),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", BN_DX_BODY_CASES,
+                         ids=lambda c: f"{c[0]}x{c[1]}"
+                                       + (f"-{c[2]}" if c[2] else ""))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_bn_bwd_dx_each_body_bitwise_equal_to_plain(case, dtype):
+    """Kernel 6's bodies (16-byte vectors or scalar, one or more channel
+    tiles of at most 256 channel groups) bitwise equal to the plain
+    version, and equal across two launches."""
+    from deeplearning4j_tpu_torch.ops import bn_train as bt
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(7)
+    M, C, view, prefix = case
+    x, dy = _rand(M, C, dtype, g), _rand(M, C, dtype, g)
+    if view == "tail":
+        buf = torch.empty(M * C + 1, device="cuda", dtype=x.dtype)
+        buf[1:] = x.reshape(-1)
+        x = buf[1:].view(M, C)
+        assert x.data_ptr() % 16 != 0 and x.is_contiguous()
+    a, d, e = (torch.randn(C, device="cuda", generator=g) for _ in range(3))
+    body = bt.bn_bwd_dx_body(x, dy)
+    assert body.startswith(prefix), body
+    groups = C // (16 // x.element_size()) if prefix != "scalar" else C
+    tiles = -(-groups // min(groups, 256))
+    assert f"x{tiles}," in body, body
+    n0 = bt.BN_BWD_DX.launches
+    dx = bt.bn_bwd_dx(x, dy, a, d, e)
+    dx2 = bt.bn_bwd_dx(x, dy, a, d, e)
+    want = bt.bn_bwd_dx_plain(x, dy, a, d, e)
+    torch.cuda.synchronize()
+    assert bt.BN_BWD_DX.launches == n0 + 2
+    assert dx.dtype == x.dtype and torch.equal(dx, want)
+    assert torch.equal(dx, dx2)
+
+
 @pytest.mark.gpu
 def test_training_kernels_reject_what_they_do_not_take():
     from deeplearning4j_tpu_torch.ops import bn_train as bt
@@ -702,6 +751,63 @@ def test_matmul_bias_act_kernel_rejects_what_it_does_not_take():
         ce.matmul_bias_act(x, w, b.cpu(), "relu")
     with pytest.raises(ValueError):
         ce.matmul_bias_act(x, w, b, "tanh")
+
+
+#: (M, K, N, view, the 16-bit body, the f32 body): shapes that select
+#: each body of kernel 4 (the body's name as
+#: ``matmul_bias_act_body`` begins). "tail" is x[1:] of a flat buffer
+#: one element longer: a base 2 or 4 bytes off 16-byte alignment.
+MBA_BODY_CASES = [
+    (6272, 512, 1000, None, "wgmma", "f32 SIMT, cp.async"),  # classifier
+    (25088, 48, 192, None, "wgmma", "f32 SIMT, cp.async"),
+    (25088, 384, 48, None, "wgmma", "f32 SIMT, cp.async"),
+    (6272, 512, 64, None, "wgmma", "f32 SIMT, cp.async"),  # 98 tiles
+    (100352, 128, 16, None, "wgmma", "f32 SIMT, cp.async"),
+    (1, 64, 64, None, "wgmma", "f32 SIMT, cp.async"),      # M = 1
+    (1, 7, 3, None, "mma.sync, element", "f32 SIMT, element"),
+    (300, 36, 64, None, "mma.sync, element", "f32 SIMT, cp.async"),
+    (1001, 40, 37, None, "mma.sync, cp.async", "f32 SIMT, cp.async"),
+    (1000, 64, 64, "tail", "mma.sync, element", "f32 SIMT, element"),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", MBA_BODY_CASES,
+                         ids=lambda c: f"{c[0]}x{c[1]}x{c[2]}"
+                                       + (f"-{c[3]}" if c[3] else ""))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("act", ["relu", "identity"])
+def test_matmul_bias_act_each_body_matches_plain(case, dtype, act,
+                                                 monkeypatch):
+    """Every body of kernel 4 at shapes that select it: the plan names
+    the expected body, the result is within ``_mba_bar`` of every
+    element, NaN rows propagate, two launches are bitwise equal."""
+    _need_card()
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    g = torch.Generator(device="cuda").manual_seed(6)
+    dt = getattr(torch, dtype)
+    M, K, N, view, body16, body32 = case
+    x, w, b = _mba_inputs(M, K, N, dt, g)
+    if view == "tail":
+        buf = torch.empty(M * K + 1, device="cuda", dtype=dt)
+        buf[1:] = x.reshape(-1)
+        x = buf[1:].view(M, K)
+        assert x.data_ptr() % 16 != 0 and x.is_contiguous()
+    x[::97, K // 2] = float("nan")
+    body = ce.matmul_bias_act_body(x, w)
+    assert body.startswith(body32 if dt == torch.float32 else body16), body
+    n0 = ce.MATMUL.launches
+    y = ce.matmul_bias_act(x, w, b, act)
+    y2 = ce.matmul_bias_act(x, w, b, act)
+    ref = ce.matmul_bias_act_plain(x.float(), w.float(), b, act)
+    torch.cuda.synchronize()
+    assert ce.MATMUL.launches == n0 + 2
+    assert y.dtype == dt and y.shape == (M, N)
+    bits = torch.int16 if dt != torch.float32 else torch.int32
+    assert torch.equal(y.view(bits), y2.view(bits))
+    assert torch.equal(torch.isnan(y), torch.isnan(ref))
+    err = (y.float() - ref).abs().nan_to_num(0.0)
+    assert bool((err <= _mba_bar(x, w, b, ref, dt).nan_to_num(0.0)).all())
 
 
 def _mba_plain_backward(x, w, y, dy, act):
