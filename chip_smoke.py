@@ -35,9 +35,10 @@ Phases, each of which fails the run (exit 1) when its check fails:
    (M, C) site shape of a batch-32 ResNet-50 step and LeNet-5's two
    conv shapes, f32/bf16/f16: elementwise outputs bitwise, sums within
    ``SUM_RTOL`` of sum|terms| per channel, sums bitwise equal across two
-   launches; the body (vector width, block, grid) kernel 6 takes at
-   each site shape; then their timings over the 53 sites of a batch-32
-   step;
+   launches; the body (vector width, block, grid) kernels 6 and 5 take
+   at each site shape, and one device kernel a site for kernel 5 (the
+   profiler over the 53 sites); then their timings over the 53 sites of
+   a batch-32 step;
 5. serving: a full-width ResNet-50 (224x224x3, 1000 classes, seeded
    random weights, BatchNormalization stats set from the generator)
    registered and served over HTTP, kernel counts reset just before and
@@ -107,12 +108,14 @@ Phases, each of which fails the run (exit 1) when its check fails:
     and one SGD step norm-wise against a float64 step);
 12. paged kernel: paged decode attention (kernel 10) against its plain
     version at GPT-2-small's decode sites (batch 8 and 32, 12 heads of
-    64, blocks of 16, a 64-block table; lengths 1..1024, dead slots, a
-    length past the table), an odd shape (h=5, d=80, blocks of 8) and
-    d = 32, 128, 256, f32 and bf16 pools: within 2e-5, bitwise across two
-    launches, no NaN; then its time over the 12 sites of a batch-32
-    decode step at L=512 and 1024 beside the bytes bound and the plain
-    version;
+    64, blocks of 16, a 64-block table; lengths 1..1024, every partition
+    edge of the staged body's cluster split +-1, dead slots, a length
+    past the table), an odd shape (h=5, d=80, blocks of 8) and d = 32,
+    128, 256, f32, bf16 and f16 pools, the batch-32 sites also on pools
+    one element off alignment (the general body): within 2e-5, bitwise
+    across two launches, no NaN, the body each takes printed; then its
+    time over the 12 sites of a batch-32 decode step at L=512 and 1024
+    on each body beside the bytes bound and the plain version;
 13. generate: a GPT-2-small-width DecoderLM (openai-community/gpt2's
     widths, seeded weights) registered with a paged KV pool of 1024
     blocks of 16 tokens and served over HTTP to 32 concurrent streaming
@@ -159,10 +162,12 @@ Phases, each of which fails the run (exit 1) when its check fails:
     for one Sgd step at 64x64 (retain 1.0, TF32 off, norm-wise against
     a float64 step);
 15c. kernel paths: a batch-32 SqueezeNet forward in f32 and in bf16
-    (17 launches of kernel 4 each) and a batch-32 bf16 ResNet-50
-    training step (53 launches each of kernels 5 and 6 a step): ms,
-    device busy time and idle share (profiler), the share of busy time
-    in kernel 4, and in kernels 5 and 6;
+    (17 launches of kernel 4 each), a batch-32 bf16 ResNet-50 training
+    step (53 launches each of kernels 5 and 6 a step) and a batch-32
+    GPT-2-small decode step at L=480 with f32 and bf16 pools (12
+    launches of kernel 10): ms, device busy time and idle share
+    (profiler), the share of busy time in kernel 4, in kernels 5 and 6,
+    and in kernel 10;
 16. pretrained: ``lenet.zip``, ``resnet_cifar.zip`` and ``charrnn.zip``
     restored onto the card by ``restore_model`` (through the zoo's
     shortcuts) and held to their gates: LeNet-5 >= 0.99 on 2000
@@ -998,6 +1003,43 @@ def _site_costs(name: str, M: int, C: int, esize: int, act: str):
     return 3 * n * esize + 3 * C * 4, 4 * n                 # bn_bwd_dx
 
 
+def _bn_sums_device_kernels(torch, sites, g) -> dict:
+    """The device kernels the profiler sees under kernel 5's wrapper over
+    the 53 sites of a bf16 step: one a site, none of them the two-launch
+    body's finalize kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from deeplearning4j_tpu_torch.ops import bn_train as bt
+    ins = {}
+    for M, C, _ in sorted(set(sites)):
+        ins[(M, C)] = (
+            torch.randn(M, C, device="cuda", generator=g).to(torch.bfloat16),
+            torch.randn(M, C, device="cuda", generator=g).to(torch.bfloat16),
+            torch.rand(C, device="cuda", generator=g) - 0.5,
+            torch.rand(C, device="cuda", generator=g) + 0.5)
+    for a in ins.values():
+        bt.bn_bwd_sums(*a)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for M, C, _ in sites:
+            bt.bn_bwd_sums(*ins[(M, C)])
+        torch.cuda.synchronize()
+    kernels = {}
+    for e in prof.key_averages():
+        if "CUDA" in str(getattr(e, "device_type", "")) and e.count:
+            kernels[e.key[:100]] = e.count
+    launched = sum(kernels.values())
+    check(launched == len(sites) and not any("column_finalize" in k
+                                             for k in kernels),
+          f"bn_bwd_sums over {len(sites)} sites ran device kernels "
+          f"{kernels}, expected one a site and no finalize kernel")
+    print(f"[train-kernels] bn_bwd_sums over the {len(sites)} sites of a "
+          f"bf16 step: {launched} device kernels ({kernels})")
+    del ins
+    return kernels
+
+
 def phase_train_kernels(torch) -> dict:
     """Kernels 2, 3, 5 and 6 against their plain versions at every site
     shape, then timings over the 53 sites of a batch-32 training step."""
@@ -1032,6 +1074,13 @@ def phase_train_kernels(torch) -> dict:
           "bf16 | f16): " + "; ".join(
               f"{k} {r['float32']} | {r['bfloat16']} | {r['float16']}"
               for k, r in dx_bodies.items()))
+    sums_bodies = {}
+    for M, C, _ in sorted(groups):
+        x = torch.empty(M, C, device="cuda", dtype=torch.bfloat16)
+        sums_bodies[f"[{M},{C}]"] = bt.bn_bwd_sums_body(x, x)
+    print("[train-kernels] bn_bwd_sums bodies at the 9 site shapes (bf16): "
+          + "; ".join(f"{k} {v}" for k, v in sums_bodies.items()))
+    sums_kernels = _bn_sums_device_kernels(torch, sites, g)
     timing = {k: {} for k in TRAIN_KERNELS}
     for dt in (torch.float32, torch.bfloat16, torch.float16):
         esize = torch.tensor([], dtype=dt).element_size()
@@ -1114,7 +1163,8 @@ def phase_train_kernels(torch) -> dict:
                   f"{bound:.4f} ms ({t['bytes'] / 1e9:.3f} GB), eager "
                   f"{t['eager']:.4f} ms")
             print(f"[train-kernels]   per site: {'; '.join(t['shapes'])}")
-    return {"max_abs_err": errs, "timing": timing, "dx_bodies": dx_bodies}
+    return {"max_abs_err": errs, "timing": timing, "dx_bodies": dx_bodies,
+            "sums_bodies": sums_bodies, "sums_device_kernels": sums_kernels}
 
 
 # ---------------------------------------------------------------------------
@@ -2979,11 +3029,32 @@ def _paged_costs(b, h, d, lengths, block, max_blocks, esize):
             + 4 * b), 4 * tok * h * d
 
 
+def _misaligned_pools(torch, k, v):
+    """Copies of the pools one element off 16-byte alignment (contiguous
+    views into a longer buffer): the same shape on kernel 10's general
+    body, to time it beside the staged one."""
+    out = []
+    for t in (k, v):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        buf[1:] = t.reshape(-1)
+        out.append(buf[1:].view(t.shape))
+    return out
+
+
+#: lengths around kernel 10's cluster split at GPT-2-small's 64-block
+#: tables (P = 2 ranks, rank r folding valid blocks [r n / 2, (r + 1) n /
+#: 2)): the edge of the full table +-1, 2 blocks (one a rank) +-1, 3
+#: blocks, and 1 block (a rank with no valid token)
+PAGED_EDGES = [511, 512, 513, 31, 32, 33, 48, 1, 15, 16, 17, 1023, 1024]
+
+
 def phase_paged_kernel(torch) -> dict:
     """Kernel 10 against its plain version at GPT-2-small's decode sites
-    and more shapes; then its time over the 12 sites of a batch-32 decode
-    step at L=512 and 1024 (CUDA-graph replay), f32 and bf16 pools,
-    beside the bytes bound and the plain version."""
+    and more shapes, naming the body each takes; then its time over the
+    12 sites of a batch-32 decode step at L=512 and 1024 (CUDA-graph
+    replay), f32 and bf16 pools, beside the bytes bound and the plain
+    version, on the staged body (the path) and on the general body (the
+    same shape with the pools one element off alignment)."""
     from deeplearning4j_tpu_torch.ops import attention_kernels as ak
     g = torch.Generator(device="cuda").manual_seed(23)
     mixed = [1, 15, 16, 17, 511, 1024]
@@ -2992,30 +3063,45 @@ def phase_paged_kernel(torch) -> dict:
         lens = [mixed[i % len(mixed)] for i in range(b)]
         lens[-3] = 64 * 16 + 6               # past the table: clamped
         cases.append((b, 12, 64, 16, 64, lens, 2))
-    cases += [(6, 5, 80, 8, 9, [1, 7, 8, 9, 40, 72], 1),
+    cases += [(len(PAGED_EDGES) + 2, 12, 64, 16, 64,
+               PAGED_EDGES + [64 * 16 + 6, 1], 1),
+              (6, 5, 80, 8, 9, [1, 7, 8, 9, 40, 72], 1),
               (4, 4, 32, 16, 8, [3, 16, 33, 128], 1),
               (4, 4, 128, 16, 8, [3, 16, 33, 128], 1),
               (4, 2, 256, 16, 8, [3, 16, 33, 128], 1)]
     err = 0.0
+    bodies = {}
     for b, h, d, block, mb, lens, dead in cases:
-        for dt in (torch.float32, torch.bfloat16):
+        for dt in (torch.float32, torch.bfloat16, torch.float16):
             what = f"b={b} h={h} d={d} block={block} {str(dt)[6:]} pool"
             args = _paged_case(torch, b, h, d, block, mb, lens, dt, g, dead)
-            out = ak.paged_decode_attention(*args)
-            out2 = ak.paged_decode_attention(*args)
-            ref = ak.paged_attention_reference(*args)
-            torch.cuda.synchronize()
-            check(torch.equal(out, out2), f"{what}: two launches differ")
-            check(not bool(torch.isnan(out).any()), f"{what}: NaN")
-            e = float((out - ref).abs().max())
-            check(e <= PAGED_ATOL, f"{what}: max |kernel - plain| {e:.3e} "
-                                   f"beyond {PAGED_ATOL}")
-            err = max(err, e)
+            variants = [("aligned", args)]
+            if d == 64 and b == 32:
+                variants.append(("misaligned", (args[0], *_misaligned_pools(
+                    torch, args[1], args[2]), *args[3:])))
+            for tag, a in variants:
+                body = ak.paged_decode_body(*a[:4])
+                bodies[f"{what} {tag}"] = body
+                out = ak.paged_decode_attention(*a)
+                out2 = ak.paged_decode_attention(*a)
+                ref = ak.paged_attention_reference(*a)
+                torch.cuda.synchronize()
+                check(torch.equal(out, out2), f"{what} {tag} ({body}): two "
+                                              f"launches differ")
+                check(not bool(torch.isnan(out).any()), f"{what}: NaN")
+                e = float((out - ref).abs().max())
+                check(e <= PAGED_ATOL, f"{what} {tag} ({body}): max |kernel"
+                                       f" - plain| {e:.3e} beyond "
+                                       f"{PAGED_ATOL}")
+                err = max(err, e)
     print(f"[paged] paged_decode == plain within {PAGED_ATOL} at "
-          f"{len(cases)} shapes x f32/bf16 pools (lengths 1..1024, dead "
-          f"slots, a length past the table; d 32..256, h=5 d=80 block 8), "
-          f"bitwise across two launches, no NaN; max |kernel - plain| "
-          f"{err:.3e}")
+          f"{len(cases)} shapes x f32/bf16/f16 pools (lengths 1..1024, "
+          f"every partition edge of the cluster split +-1, dead slots, a "
+          f"length past the table; d 32..256, h=5 d=80 block 8; the "
+          f"batch-32 sites also on misaligned pools), bitwise across two "
+          f"launches, no NaN; max |kernel - plain| {err:.3e}")
+    for k, v in bodies.items():
+        print(f"[paged]   {k}: {v}")
 
     timing = {}
     b, h, d, block, mb = BATCH, 12, 64, 16, 64
@@ -3025,26 +3111,32 @@ def phase_paged_kernel(torch) -> dict:
             esize = torch.tensor([], dtype=dt).element_size()
             sites = [_paged_case(torch, b, h, d, block, mb, [L] * b, dt, g)
                      for _ in range(12)]
+            general = [(s_[0], *_misaligned_pools(torch, s_[1], s_[2]),
+                        *s_[3:]) for s_ in sites]
             kern = lambda: [ak.paged_decode_attention(*s) for s in sites]  # noqa: E731
+            gen = lambda: [ak.paged_decode_attention(*s) for s in general]  # noqa: E731
             plain = lambda: [ak.paged_attention_reference(*s)  # noqa: E731
                              for s in sites]
             by, ops = _paged_costs(b, h, d, [L] * b, block, mb, esize)
             bound, bound_by = _bound(12 * by, 12 * ops, F32_FLOPS)
             k_ms = _graph_ms(torch, kern, reps=5)
+            g_ms = _graph_ms(torch, gen, reps=5)
             p_ms = _graph_ms(torch, plain, reps=1)
             timing[f"{short}_L{L}"] = {
-                "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": None,
-                "bound_ms": bound, "bound_by": bound_by, "bytes": 12 * by,
+                "kernel_ms": k_ms, "general_body_ms": g_ms, "plain_ms": p_ms,
+                "library_ms": None, "bound_ms": bound, "bound_by": bound_by,
+                "bytes": 12 * by, "body": ak.paged_decode_body(*sites[0][:4]),
                 "eager_ms": _time_ms(torch, kern, reps=5)}
             print(f"[paged] {short} pool, L={L}, 12 sites of a batch-{b} "
-                  f"GPT-2-small decode step: kernel {k_ms:.4f} ms, plain "
-                  f"{p_ms:.4f} ms, library none, bound {bound:.4f} ms "
-                  f"({bound_by}; {12 * by / 1e9:.3f} GB), "
+                  f"GPT-2-small decode step: kernel {k_ms:.4f} ms "
+                  f"({100 * bound / k_ms:.0f} % of the bound; general body "
+                  f"{g_ms:.4f} ms), plain {p_ms:.4f} ms, library none, bound "
+                  f"{bound:.4f} ms ({bound_by}; {12 * by / 1e9:.3f} GB), "
                   f"{12 * by / k_ms / 1e6:.0f} GB/s achieved, eager "
                   f"{timing[f'{short}_L{L}']['eager_ms']:.4f} ms")
-            del sites
+            del sites, general
             torch.cuda.empty_cache()
-    return {"max_abs_err": err, "timing": timing}
+    return {"max_abs_err": err, "timing": timing, "bodies": bodies}
 
 
 def _gen_client(url: str, prompt, max_tokens: int) -> dict:
@@ -3780,12 +3872,14 @@ def phase_squeezenet(torch, device: str = "cuda", image: int = 224,
 
 def phase_kernel_paths(torch, label: str) -> dict:
     """Device busy time and idle share (profiler) of the paths that carry
-    kernels 4 and 6: a batch-32 SqueezeNet forward (seeded, 224x224) in
-    f32 and in bf16 ``compute_dtype``, 17 launches of kernel 4 each, and
-    a batch-32, 224x224 ResNet-50 training step in bf16
-    ``compute_dtype``, 53 launches each of kernels 5 and 6 a step. It
-    touches only entry points that every tree of the port has, so the
-    same function reads a parent checkout's package on the same card."""
+    the redesigned kernels: a batch-32 SqueezeNet forward (seeded,
+    224x224) in f32 and in bf16 ``compute_dtype``, 17 launches of kernel
+    4 each; a batch-32, 224x224 ResNet-50 training step in bf16
+    ``compute_dtype``, 53 launches each of kernels 5 and 6 a step; a
+    batch-32 GPT-2-small decode step at L=480 (``decode_step_paths``),
+    12 launches of kernel 10. It touches only entry points that every
+    tree of the port has, so the same function reads a parent checkout's
+    package on the same card."""
     import numpy as np
 
     from deeplearning4j_tpu_torch.models import SqueezeNet
@@ -3833,7 +3927,8 @@ def phase_kernel_paths(torch, label: str) -> dict:
     step_ms = float(np.median(ms[1:]))
     prof = profile_device(torch, lambda: rn.fit(x, y), step_ms,
                           f"batch-{BATCH} bf16 ResNet-50 train step",
-                          shares=("bn_dx_kernel", "column_"))
+                          shares=("bn_dx_kernel", "column_sums_sm90",
+                                  "column_partials", "column_finalize"))
     result["resnet50_bf16_step"] = {"ms": ms, "profile": prof}
     print(f"[paths] batch-{BATCH} bf16 ResNet-50 step {step_ms:.3f} ms "
           f"(median of steps 2-{steps}), device busy "
@@ -3841,6 +3936,64 @@ def phase_kernel_paths(torch, label: str) -> dict:
           f"{prof.get('idle_share', float('nan')):.3f} [{label}]")
     del rn
     torch.cuda.empty_cache()
+    result.update(decode_step_paths(torch, label))
+    return result
+
+
+def decode_step_paths(torch, label: str, L: int = 480) -> dict:
+    """A batch-32 decode step of the GPT-2-small-width decoder (seeded
+    weights, a pool of 1024 blocks of 16, f32 and bf16) at length ``L``
+    (480: the longest a batch of 32 fits in the pool's 1023 usable
+    blocks): 12 launches of kernel 10 a step, host time, device busy and
+    idle share, and kernel 10's share of busy (profiler). Only entry
+    points every tree of the port has."""
+    from deeplearning4j_tpu_torch.models import DecoderConfig, DecoderLM
+    from deeplearning4j_tpu_torch.serving.generative import DecodeEngine
+    from deeplearning4j_tpu_torch.serving.kvcache import KVBlockPool
+    conf = DecoderConfig(**GPT2_SMALL)
+    model = DecoderLM(conf)
+    params = model.init("cuda", seed=41)
+    hd = conf.d_model // conf.n_heads
+    result = {}
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for kv in ("float32", "bfloat16"):
+            pool = KVBlockPool(conf.n_layers, GEN_CONFIG["kv_blocks"],
+                               GEN_CONFIG["kv_block_size"], conf.n_heads,
+                               hd, dtype=kv, device="cuda")
+            engine = DecodeEngine(
+                model, params, pool,
+                prompt_buckets=GEN_CONFIG["prompt_buckets"],
+                decode_buckets=GEN_CONFIG["decode_buckets"],
+                max_seq_len=GEN_CONFIG["max_seq_len"])
+            args = _synthetic_step(torch, engine, L, BATCH)
+            fn = lambda: engine._decode(*args)  # noqa: E731
+            fn()
+            _zero_counts()
+            fn()
+            n = _counts()["paged_decode"]
+            check(n == conf.n_layers, f"decode step ({kv} pool): {n} "
+                                      f"launches of kernel 10")
+            runs = sorted(_host_ms(torch, fn) for _ in range(3))
+            prof = profile_device(torch, fn, runs[1],
+                                  f"batch-{BATCH} decode step at L={L}, "
+                                  f"{kv} pool", shares=("paged_decode",))
+            share = prof.get("shares", {}).get("paged_decode", {})
+            result[f"decode_L{L}_{kv}"] = {"ms": runs, "profile": prof}
+            print(f"[paths] batch-{BATCH} GPT-2-small decode step at L={L}, "
+                  f"{kv} pool: {runs[1]:.3f} ms (median of "
+                  f"{[round(r, 3) for r in runs]}), device busy "
+                  f"{prof.get('device_busy_ms', float('nan')):.3f} ms, idle "
+                  f"share {prof.get('idle_share', float('nan')):.3f}, "
+                  f"kernel 10 {share.get('ms', float('nan')):.3f} ms = "
+                  f"{share.get('share_of_busy', float('nan')):.3f} of busy "
+                  f"[{label}]")
+            del engine, pool
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    del model, params
     return result
 
 
@@ -5968,6 +6121,9 @@ def main() -> int:
                 "L1024_bound_ms_by_dtype": {
                     d: pt[f"{d}_L1024"]["bound_ms"]
                     for d in ("float32", "bfloat16")},
+                "general_body_ms_by_dtype_and_L": {
+                    k_: v_["general_body_ms"] for k_, v_ in pt.items()},
+                "body": t["body"],
                 "launches_bf16_pool": gb["launches"]["paged_decode"]}
         elif k.name == "matmul_bias_act":
             t = pw["timing"]["float32"]
@@ -5999,6 +6155,9 @@ def main() -> int:
         else:
             t = tk["timing"][k.name]["float32"]
             err = tk["max_abs_err"][k.name]
+            if k.name == "bn_bwd_sums":
+                extra = {"device_kernels_53_sites_bf16":
+                         tk["sums_device_kernels"]}
             shapes = f"the 53 BatchNormalization sites of a batch-{BATCH} " \
                      f"f32 ResNet-50 training step"
             by_dtype = {d: v["kernel_ms"]

@@ -16,8 +16,19 @@
 // 16 bit), pass 2 reads them again and writes dx (12 bytes an element in
 // f32, 6 in 16 bit), for a handful of operations an element: two passes
 // is the least this formulation needs, since every dx depends on sums
-// over all rows. Pass 1 sums as column_reduce.cuh describes
-// (deterministic, no float atomics).
+// over all rows.
+//
+// Pass 1 (bn_bwd_sums) is one launch a site on column_reduce_sm90.cuh:
+// a grid of row chunks x channel tiles fixed by (M, C, dtype), each
+// thread's 16-byte row vectors of x and dy in flight as raw vectors
+// converted at use, mean and rstd loaded once a thread, 32-bit indices
+// where M * C < 2^30; the blocks' partials meet through integer tickets
+// (the last block of each group of chunks sums them in chunk order), so
+// there is no finalize launch and no float atomic, and two launches give
+// the same bits. Its first design (column_reduce.cuh,
+// which kernels 2 and 3 still share) paid a second launch, an
+// eight-wave grid and a log2(rows) shared-memory tree a site: a fixed
+// cost that set the pace of the small sites.
 //
 // Pass 2 (bn_dx_kernel) is elementwise and bitwise equal to the plain
 // PyTorch version: each product and sum rounded on its own, in the order
@@ -37,10 +48,6 @@
 // or a pointer is misaligned, the same kernel runs with VEC = 1 (scalar
 // accesses, the same rounding).
 //
-// Left for later: pass 1's body is column_reduce.cuh, which kernels 2
-// and 3 share (its redesign moves three kernels); the smallest sites
-// ([1568, 512]: 4.8 MB in 16 bit) are bound by the launch and one wave,
-// not by bytes.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -50,57 +57,97 @@
 #include <type_traits>
 
 #include "column_reduce.cuh"
+#include "column_reduce_sm90.cuh"
 
 namespace {
 
+// One row of x and dy for VEC channels, as loaded: two raw 16-byte
+// vectors, or VEC elements each
+template <typename T, int VEC, bool kVector = VEC * sizeof(T) == 16>
+struct BnSumsRaw {
+  uint4 x, dy;
+};
 template <typename T, int VEC>
+struct BnSumsRaw<T, VEC, false> {
+  T x[VEC], dy[VEC];
+};
+
+template <typename T, int VEC, typename I>
 struct BnSumsOp {
+  using Raw = BnSumsRaw<T, VEC>;
   const T* x;
   const T* dy;
   const float* mean;
   const float* rstd;
-  int64_t C;
+  I C;
   float mu[VEC], r[VEC];
-  __device__ __forceinline__ void begin(int64_t c0) {
+  __device__ __forceinline__ void begin(I c0) {
 #pragma unroll
     for (int v = 0; v < VEC; ++v) {
       mu[v] = __ldg(mean + c0 + v);
       r[v] = __ldg(rstd + c0 + v);
     }
   }
-  __device__ __forceinline__ void row(int64_t row_i, int64_t c0,
-                                      float (&s0)[VEC],
-                                      float (&s1)[VEC]) const {
-    const int64_t off = row_i * C + c0;
-    float xv[VEC], dv[VEC];
-    dl4j::load_vec<T, VEC>(x + off, xv);
-    dl4j::load_vec<T, VEC>(dy + off, dv);
+  __device__ __forceinline__ void load(I row_i, I c0, Raw& raw) const {
+    const I off = row_i * C + c0;
+    if constexpr (VEC * sizeof(T) == 16) {
+      raw.x = __ldg(reinterpret_cast<const uint4*>(x + off));
+      raw.dy = __ldg(reinterpret_cast<const uint4*>(dy + off));
+    } else {
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) {
+        raw.x[v] = x[off + v];
+        raw.dy[v] = dy[off + v];
+      }
+    }
+  }
+  __device__ __forceinline__ void fold(const Raw& raw, float (&s0)[VEC],
+                                       float (&s1)[VEC]) const {
+    const T* xe = reinterpret_cast<const T*>(&raw.x);
+    const T* de = reinterpret_cast<const T*>(&raw.dy);
 #pragma unroll
     for (int v = 0; v < VEC; ++v) {
-      const float xhat = __fmul_rn(__fsub_rn(xv[v], mu[v]), r[v]);
-      s0[v] = __fadd_rn(s0[v], dv[v]);
-      s1[v] = __fadd_rn(s1[v], __fmul_rn(dv[v], xhat));
+      const float dv = dl4j::to_f(de[v]);
+      const float xhat =
+          __fmul_rn(__fsub_rn(dl4j::to_f(xe[v]), mu[v]), r[v]);
+      s0[v] = __fadd_rn(s0[v], dv);
+      s1[v] = __fadd_rn(s1[v], __fmul_rn(dv, xhat));
     }
   }
 };
 
+template <typename T, int VEC, typename I>
+int bn_sums_launch(const T* x, const T* dy, const float* mean,
+                   const float* rstd, const dl4j::sm90::Geom& g,
+                   float* work, float* sums, int64_t M, int64_t C,
+                   cudaStream_t stream) {
+  return dl4j::sm90::launch_column_sums<VEC, BnSumsOp<T, VEC, I>, I>(
+      BnSumsOp<T, VEC, I>{x, dy, mean, rstd, (I)C, {}, {}}, g, work, sums,
+      M, C, stream);
+}
+
 template <typename T>
 int bn_sums_typed(const void* x, const void* dy, const float* mean,
-                  const float* rstd, float* partials, int64_t capacity,
+                  const float* rstd, float* work, int64_t capacity,
                   float* sums, int64_t M, int64_t C, cudaStream_t stream) {
   const bool aligned = dl4j::aligned16(x) && dl4j::aligned16(dy);
-  const dl4j::ColumnGeom g = dl4j::column_geom(M, C, sizeof(T), aligned);
-  if (g.chunks > capacity) return (int)cudaErrorInvalidValue;
+  const dl4j::sm90::Geom g = dl4j::sm90::geom(M, C, sizeof(T), aligned);
+  if (dl4j::sm90::workspace_floats(g, C) > capacity)
+    return (int)cudaErrorInvalidValue;
   constexpr int kFull = 16 / sizeof(T);
   const T* xt = static_cast<const T*>(x);
   const T* dyt = static_cast<const T*>(dy);
   if (g.vec == kFull)
-    return dl4j::launch_column_sums<kFull>(
-        BnSumsOp<T, kFull>{xt, dyt, mean, rstd, C, {}, {}}, g, partials,
-        sums, M, C, stream);
-  return dl4j::launch_column_sums<1>(
-      BnSumsOp<T, 1>{xt, dyt, mean, rstd, C, {}, {}}, g, partials, sums, M,
-      C, stream);
+    return g.wide_index
+               ? bn_sums_launch<T, kFull, int64_t>(xt, dyt, mean, rstd, g,
+                                                   work, sums, M, C, stream)
+               : bn_sums_launch<T, kFull, int32_t>(xt, dyt, mean, rstd, g,
+                                                   work, sums, M, C, stream);
+  return g.wide_index
+             ? bn_sums_launch<T, 1, int64_t>(xt, dyt, mean, rstd, g, work,
+                                             sums, M, C, stream)
+             : bn_sums_launch<T, 1, int32_t>(xt, dyt, mean, rstd, g, work,
+                                             sums, M, C, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -305,36 +352,55 @@ int elem_bytes(int dtype) { return dtype == 0 ? 4 : 2; }
 
 }  // namespace
 
-// Rows of the [chunks, 2, C] f32 workspace dl4j_bn_bwd_sums needs for an
-// [M, C] input of `dtype` (0 = float32, 1 = bfloat16, 2 = float16).
-extern "C" int64_t dl4j_bn_train_chunks(int64_t M, int64_t C, int dtype) {
-  if (M <= 0 || C <= 0) return 1;
-  return dl4j::column_geom(M, C, elem_bytes(dtype), true).chunks;
+// Floats of the f32 workspace dl4j_bn_bwd_sums needs for an [M, C] input
+// of `dtype` (0 = float32, 1 = bfloat16, 2 = float16).
+extern "C" int64_t dl4j_bn_sums_workspace(int64_t M, int64_t C, int dtype) {
+  if (M <= 0 || C <= 0) return 0;
+  return dl4j::sm90::workspace_floats(
+      dl4j::sm90::geom(M, C, elem_bytes(dtype), true), C);
 }
 
 // sums[2, C] = (sum dy, sum dy * (x - mean) * rstd). x, dy: [M, C] of
-// `dtype`; mean, rstd: f32 [C]; partials: f32 [capacity, 2, C]; sums: f32
-// [2, C]. Two launches on `stream`; no synchronisation, no allocation.
-// Returns the cudaError_t (0 on success).
+// `dtype`; mean, rstd: f32 [C]; work: `capacity` f32 floats
+// (dl4j_bn_sums_workspace); sums: f32 [2, C]. One launch on `stream`; no
+// synchronisation, no allocation. Returns the cudaError_t (0 on success).
 extern "C" int dl4j_bn_bwd_sums(const void* x, const void* dy,
                                 const void* mean, const void* rstd,
-                                void* partials, int64_t capacity,
-                                void* sums, int64_t M, int64_t C, int dtype,
+                                void* work, int64_t capacity, void* sums,
+                                int64_t M, int64_t C, int dtype,
                                 void* stream) {
   if (M <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* mu = static_cast<const float*>(mean);
   const float* r = static_cast<const float*>(rstd);
-  float* pt = static_cast<float*>(partials);
+  float* wk = static_cast<float*>(work);
   float* out = static_cast<float*>(sums);
   if (dtype == 0)
-    return bn_sums_typed<float>(x, dy, mu, r, pt, capacity, out, M, C, s);
+    return bn_sums_typed<float>(x, dy, mu, r, wk, capacity, out, M, C, s);
   if (dtype == 1)
-    return bn_sums_typed<__nv_bfloat16>(x, dy, mu, r, pt, capacity, out, M,
+    return bn_sums_typed<__nv_bfloat16>(x, dy, mu, r, wk, capacity, out, M,
                                         C, s);
   if (dtype == 2)
-    return bn_sums_typed<__half>(x, dy, mu, r, pt, capacity, out, M, C, s);
+    return bn_sums_typed<__half>(x, dy, mu, r, wk, capacity, out, M, C, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The geometry dl4j_bn_bwd_sums takes for these arguments, as text in
+// `out` (at most `len` bytes with its terminating 0). Launches nothing.
+extern "C" int dl4j_bn_bwd_sums_describe(const void* x, const void* dy,
+                                         int64_t M, int64_t C, int dtype,
+                                         char* out, int len) {
+  if (M <= 0 || C <= 0 || dtype < 0 || dtype > 2 || len <= 0)
+    return (int)cudaErrorInvalidValue;
+  const dl4j::sm90::Geom g = dl4j::sm90::geom(
+      M, C, elem_bytes(dtype), dl4j::aligned16(x) && dl4j::aligned16(dy));
+  snprintf(out, len, "one launch, %s: %d channels a thread, block %dx%d, "
+           "grid %lldx%lld (chunks of %lld rows x channel tiles), %lld "
+           "ticket group(s), %s indices",
+           g.vec > 1 ? "16-byte vectors" : "scalar", g.vec, g.bx, g.by,
+           (long long)g.chunks, (long long)g.ctiles, (long long)g.chunk_rows,
+           (long long)g.groups, g.wide_index ? "64-bit" : "32-bit");
+  return 0;
 }
 
 // dx = (a * dy + d * x) + e per channel. x, dy, dx: [M, C] of `dtype`;

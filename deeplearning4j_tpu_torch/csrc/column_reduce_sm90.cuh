@@ -1,0 +1,356 @@
+// Deterministic per-channel column sums over a contiguous channels-last
+// [M, C] view in ONE launch, for the H100 (used by bn_train.cu's BN
+// backward sums; its Op is column_reduce.cuh's split in a load and a fold
+// of a row, with the index type a template parameter, so the other users
+// of column_reduce.cuh can move here).
+//
+// column_reduce.cuh sums in two launches (per-chunk partials, then a
+// finalize kernel over them) on a grid of about eight waves, each block
+// ending in a shared-memory tree of log2(rows) steps. At the small sites
+// of a ResNet-50 step that fixed cost per site, not the bytes, set the
+// pace. This body:
+//
+//   - grid (chunks, channel tiles), fixed by (M, C, element size) alone:
+//     about kTargetBlocks blocks (1.5 blocks an SM of the H100's 132, a
+//     constant, not the device's count: 396, 264, 165 and 132 timed
+//     slower over a ResNet-50 step's sites), each chunk at least one
+//     unrolled pass of its row threads;
+//   - a thread owns VEC neighbouring channels (one 16-byte vector where C
+//     and the pointers allow it; bx <= 8 vectors make 128 contiguous
+//     bytes of a row) and keeps kUnroll rows of each input in flight in
+//     its unrolled row loop; registers capped for three blocks an SM;
+//   - the block's rows combine by warp shuffles (lanes of one channel
+//     group) and one pass over the warps' sums in shared memory;
+//   - across blocks, without a second launch: each block writes its
+//     chunk's [2, channels] partial to a workspace and one thread takes
+//     an integer ticket of its group of kGroup chunks (an acquire-release
+//     atomic add on an unsigned, not a float atomic); the group's last
+//     block sums the group's partials in chunk order (to the output when
+//     there is one group, else to a group partial) and resets the
+//     ticket; with more than one group, the last group to finish sums
+//     the group partials in group order into the output and resets its
+//     ticket too. (Clusters of 8 chunks meeting in distributed shared
+//     memory in place of the first level timed slower.)
+//
+// No float atomics: the order of every addition depends only on (M, C,
+// the vector width), so two launches give the same bits. f32 accumulation
+// for every input type, each product and sum rounded on its own
+// (__fmul_rn / __fadd_rn) inside the Op and __fadd_rn here.
+//
+// Tickets. They live in a zero-initialised device array of this library
+// (no memset, no allocation a launch) and every launch leaves its own at
+// zero. take_tickets gives each launch a range: an eager launch the range
+// of its stream (launches on one stream run one after another), a launch
+// captured into a CUDA graph a fresh range of its own (the replays of one
+// graph run one after another, and a graph's launches never share a range
+// with a stream's). So two launches that can be in flight at once never
+// share a ticket.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <map>
+#include <mutex>
+#include <utility>
+
+namespace dl4j {
+namespace sm90 {
+
+constexpr int kThreads = 256;
+constexpr int kChannelThreads = 8;  // 8 x 16 bytes: 128 bytes of a row
+                                    // (32, whole-row warps, was slower)
+constexpr int kUnroll = 4;          // rows in flight a row thread
+constexpr int kMinBlocksPerSm = 3;  // registers capped at 85
+constexpr int64_t kTargetBlocks = 198;  // see the note at the top
+constexpr int kGroup = 16;          // chunks a first-level ticket gathers
+constexpr int kBatch = 8;           // partial loads in flight a thread
+                                    // (32 spilled; 64-chunk groups lost)
+constexpr int kMaxDevices = 64;
+constexpr int64_t kTicketPool = int64_t(1) << 20;
+
+__device__ unsigned g_tickets[kTicketPool];
+
+struct Geom {
+  int vec;             // channels per thread
+  int bx, by;          // block: channel x row threads
+  int64_t ctiles;      // grid.y
+  int64_t chunks;      // grid.x
+  int64_t chunk_rows;  // rows per chunk (the last chunk may hold fewer)
+  int64_t groups;      // ticket groups of kGroup chunks
+  bool wide_index;     // 64-bit indices (M * C >= 2^30)
+};
+
+inline void block_shape(int64_t C, int vec, int& bx, int& by,
+                        int64_t& ctiles) {
+  const int64_t cv = C / vec;
+  bx = 1;
+  while (bx < cv && bx < kChannelThreads) bx <<= 1;
+  by = kThreads / bx;
+  ctiles = (cv + bx - 1) / bx;
+}
+
+// The chunking follows the nominal vector width (C % (16 / elem) == 0),
+// so the workspace depends on (M, C, element size) alone; `vec` drops to
+// 1 where a pointer is not 16-byte aligned, which changes the block and
+// the channel tiles but not the chunks.
+inline Geom geom(int64_t M, int64_t C, int elem_bytes, bool aligned) {
+  const int full = 16 / elem_bytes;
+  const int nominal = (C % full == 0) ? full : 1;
+  Geom g;
+  int bx, by;
+  int64_t ctiles;
+  block_shape(C, nominal, bx, by, ctiles);
+  const int64_t rows_min = (int64_t)by * kUnroll;
+  int64_t max_chunks = (M + rows_min - 1) / rows_min;
+  if (max_chunks < 1) max_chunks = 1;
+  int64_t chunks = (kTargetBlocks + ctiles - 1) / ctiles;
+  if (chunks > max_chunks) chunks = max_chunks;
+  g.chunk_rows = (M + chunks - 1) / chunks;
+  if (g.chunk_rows < 1) g.chunk_rows = 1;
+  g.chunks = (M + g.chunk_rows - 1) / g.chunk_rows;
+  if (g.chunks < 1) g.chunks = 1;
+  g.groups = (g.chunks + kGroup - 1) / kGroup;
+  g.vec = aligned ? nominal : 1;
+  block_shape(C, g.vec, g.bx, g.by, g.ctiles);
+  g.wide_index = M * C >= (int64_t(1) << 30);
+  return g;
+}
+
+// f32 floats of the workspace: the chunk partials [chunks, 2, C], then
+// (more than one group) the group partials [groups, 2, C].
+inline int64_t workspace_floats(const Geom& g, int64_t C) {
+  return (g.chunks + (g.groups > 1 ? g.groups : 0)) * 2 * C;
+}
+
+// Tickets of one launch: one a (channel tile, group), then one a channel
+// tile where there is more than one group.
+inline int64_t ticket_count(const Geom& g) {
+  return g.ctiles * (g.groups + (g.groups > 1 ? 1 : 0));
+}
+
+// `need` tickets for a launch on `stream` (see the note at the top);
+// cudaErrorMemoryAllocation once the pool is spent.
+inline int take_tickets(cudaStream_t stream, int64_t need,
+                        unsigned** out) {
+  static std::mutex mu;
+  static std::map<std::pair<int, uintptr_t>, std::pair<int64_t, int64_t>>
+      eager;  // (device, stream) -> (offset, size)
+  static int64_t next[kMaxDevices] = {};
+  static unsigned* base[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  cudaStreamCaptureStatus st = cudaStreamCaptureStatusNone;
+  err = cudaStreamIsCapturing(stream, &st);
+  if (err != cudaSuccess) return (int)err;
+  std::lock_guard<std::mutex> lock(mu);
+  if (base[dev] == nullptr) {
+    err = cudaGetSymbolAddress(reinterpret_cast<void**>(&base[dev]),
+                               g_tickets);
+    if (err != cudaSuccess) return (int)err;
+  }
+  auto bump = [&](int64_t n) -> int64_t {
+    if (next[dev] + n > kTicketPool) return -1;
+    const int64_t off = next[dev];
+    next[dev] += n;
+    return off;
+  };
+  int64_t off;
+  if (st != cudaStreamCaptureStatusNone) {
+    off = bump(need);
+  } else {
+    auto& r = eager[{dev, reinterpret_cast<uintptr_t>(stream)}];
+    if (r.second < need) {
+      const int64_t n = need < 4096 ? 4096 : need;
+      r.first = bump(n);
+      r.second = r.first < 0 ? 0 : n;
+    }
+    off = r.first;
+  }
+  if (off < 0) return (int)cudaErrorMemoryAllocation;
+  *out = base[dev] + off;
+  return 0;
+}
+
+// One integer ticket: atomicAdd with acquire-release semantics at GPU
+// scope. Its caller is one thread after a block barrier, so the block's
+// earlier writes are released with it, and after the next barrier the
+// block's later reads see what the other blocks released.
+__device__ __forceinline__ unsigned take_ticket(unsigned* p) {
+  unsigned old;
+  asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;\n"
+               : "=r"(old)
+               : "l"(p)
+               : "memory");
+  return old;
+}
+
+// rows [first, end) of a [rows, 2, C] f32 array summed in row order for
+// this block's channel tile, into dst[which * C + channel]; every thread
+// of the block calls it (lanes j = 0.. J-1 of a value sum every J-th row,
+// kBatch loads in flight at a time, then their sums add in lane order)
+template <int VEC>
+__device__ __forceinline__ void sum_rows(const float* __restrict__ src,
+                                         int64_t first, int64_t end,
+                                         float* __restrict__ dst,
+                                         int64_t C, int bx, int64_t ctile,
+                                         float* fin) {
+  const int t = threadIdx.y * blockDim.x + threadIdx.x;
+  const int width = bx * VEC;  // channels of the tile
+  const int nv = 2 * width;    // <= 2 * 8 * kChannelThreads <= kThreads / 2
+  const int J = kThreads / nv;
+  const int i = t % nv, j = t / nv;
+  const int which = i / width;
+  const int64_t ch = ctile * width + i % width;
+  float a = 0.f;
+  if (ch < C) {
+    for (int64_t r = first + j; r < end; r += kBatch * J) {
+      float v[kBatch];
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k)
+        v[k] = r + k * J < end
+                   ? __ldcg(src + ((r + k * J) * 2 + which) * C + ch)
+                   : 0.f;
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k)
+        if (r + k * J < end) a = __fadd_rn(a, v[k]);
+    }
+  }
+  fin[t] = a;
+  __syncthreads();
+  if (t < nv && ch < C) {
+    float tot = fin[t];
+    for (int jj = 1; jj < J; ++jj) tot = __fadd_rn(tot, fin[jj * nv + t]);
+    dst[which * C + ch] = tot;
+  }
+}
+
+// Op supplies, for the VEC channels from c0:
+//   typename Op::Raw: one row's inputs as loaded (16-byte vectors kept
+//       raw, converted at use);
+//   __device__ void begin(I c0);  once per thread, on the thread's own
+//       copy of the Op, before the row loop (per-channel coefficients
+//       into registers);
+//   __device__ void load(I r, I c0, Raw& raw) const;  row r's loads;
+//   __device__ void fold(const Raw& raw, float (&s0)[VEC],
+//       float (&s1)[VEC]) const;  its two terms per channel added into
+//       s0 and s1.
+// The kernel issues kUnroll rows' loads before it folds any of them, so
+// they are in flight together (a fold between two loads would wait for
+// the first before the second could start).
+template <int VEC, class Op, typename I>
+__global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
+column_sums_sm90_kernel(const Op op, float* __restrict__ work,
+                        float* __restrict__ out,
+                        unsigned* __restrict__ tickets, I M, I C,
+                        I chunk_rows, int chunks, int groups) {
+  constexpr int kWarps = kThreads / 32;
+  __shared__ float sh[kWarps][2 * VEC * kChannelThreads];
+  __shared__ float fin[kThreads];
+  __shared__ int is_last;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int bx = blockDim.x, by = blockDim.y;
+  const int t = ty * bx + tx;
+  const int64_t ctile = blockIdx.y;
+  const int chunk = blockIdx.x;
+  const I c0 = ((I)ctile * (I)bx + (I)tx) * VEC;
+  const I r0 = (I)chunk * chunk_rows;
+  const I r1 = r0 + chunk_rows < M ? r0 + chunk_rows : M;
+  float s0[VEC], s1[VEC];
+#pragma unroll
+  for (int v = 0; v < VEC; ++v) s0[v] = s1[v] = 0.f;
+  if (c0 < C) {
+    Op mine = op;
+    mine.begin(c0);
+    // kUnroll rows of each input in flight, added in row order
+    for (I r = r0 + (I)ty; r < r1; r += (I)(kUnroll * by)) {
+      typename Op::Raw raw[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+        if (r + (I)(u * by) < r1) mine.load(r + (I)(u * by), c0, raw[u]);
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+        if (r + (I)(u * by) < r1) mine.fold(raw[u], s0, s1);
+    }
+  }
+  // the warp's row threads of each channel group (lanes bx apart)
+  for (int off = bx; off < 32; off <<= 1) {
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) {
+      s0[v] = __fadd_rn(s0[v], __shfl_xor_sync(0xffffffffu, s0[v], off));
+      s1[v] = __fadd_rn(s1[v], __shfl_xor_sync(0xffffffffu, s1[v], off));
+    }
+  }
+  if ((t & 31) < bx) {
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) {
+      sh[t >> 5][v * bx + tx] = s0[v];
+      sh[t >> 5][(VEC + v) * bx + tx] = s1[v];
+    }
+  }
+  __syncthreads();
+  // the warps in order: this chunk's partial, [2, channels of the tile]
+  const int width = bx * VEC;
+  if (t < 2 * width) {
+    const int which = t / width, cl = t % width;
+    const int64_t ch = ctile * width + cl;
+    const int k = which * VEC + cl % VEC;
+    const int x = cl / VEC;
+    float a = sh[0][k * bx + x];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) a = __fadd_rn(a, sh[w][k * bx + x]);
+    if (ch < C) work[((int64_t)chunk * 2 + which) * C + ch] = a;
+  }
+  __syncthreads();
+  const int grp = chunk / kGroup;
+  if (t == 0) {
+    const int in_grp =
+        chunks - grp * kGroup < kGroup ? chunks - grp * kGroup : kGroup;
+    unsigned* tk = tickets + ctile * groups + grp;
+    is_last = take_ticket(tk) == (unsigned)(in_grp - 1);
+    if (is_last) *tk = 0u;  // every block of the group has taken one
+  }
+  __syncthreads();
+  if (!is_last) return;
+  const int64_t first = (int64_t)grp * kGroup;
+  const int64_t end = first + kGroup < chunks ? first + kGroup : chunks;
+  if (groups == 1) {
+    sum_rows<VEC>(work, first, end, out, C, bx, ctile, fin);
+    return;
+  }
+  float* gwork = work + (int64_t)chunks * 2 * C;
+  sum_rows<VEC>(work, first, end, gwork + (int64_t)grp * 2 * C, C, bx,
+                ctile, fin);
+  __syncthreads();
+  if (t == 0) {
+    unsigned* tk = tickets + (int64_t)gridDim.y * groups + ctile;
+    is_last = take_ticket(tk) == (unsigned)(groups - 1);
+    if (is_last) *tk = 0u;
+  }
+  __syncthreads();
+  if (!is_last) return;
+  sum_rows<VEC>(gwork, 0, groups, out, C, bx, ctile, fin);
+}
+
+// One launch on `stream`: `work` holds workspace_floats(g, C) floats,
+// `out` 2 * C. Returns the cudaError_t (0 on success).
+template <int VEC, class Op, typename I>
+int launch_column_sums(const Op& op, const Geom& g, float* work, float* out,
+                       int64_t M, int64_t C, cudaStream_t stream) {
+  if (g.ctiles > 65535 || g.chunks > 0x7fffffff)
+    return (int)cudaErrorInvalidValue;
+  unsigned* tickets = nullptr;
+  const int rc = take_tickets(stream, ticket_count(g), &tickets);
+  if (rc != 0) return rc;
+  const dim3 block(g.bx, g.by);
+  const dim3 grid((unsigned)g.chunks, (unsigned)g.ctiles);
+  column_sums_sm90_kernel<VEC, Op, I><<<grid, block, 0, stream>>>(
+      op, work, out, tickets, (I)M, (I)C, (I)g.chunk_rows, (int)g.chunks,
+      (int)g.groups);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace sm90
+}  // namespace dl4j

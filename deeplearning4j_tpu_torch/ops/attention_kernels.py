@@ -277,6 +277,24 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths,
     return out
 
 
+def paged_decode_body(q, k_pool, v_pool, block_tables) -> str:
+    """The body :func:`paged_decode_attention` takes for these CUDA
+    operands, as the kernel names it: the staged body (lanes a row,
+    ranks a cluster, stages) or the general one. Launches nothing."""
+    b, h, d, block, max_blocks = _check_paged(
+        q, k_pool, v_pool, block_tables,
+        torch.zeros(q.shape[0], dtype=torch.int32, device=q.device))
+    fn = cuda_build.c_function(
+        "paged_attention", "dl4j_paged_decode_describe",
+        [_P, _P, _INT, _INT, _INT, _INT, _INT, _INT, ctypes.c_char_p, _INT])
+    buf = ctypes.create_string_buffer(256)
+    rc = fn(k_pool.data_ptr(), v_pool.data_ptr(), b, h, d, block,
+            max_blocks, PAGED_DTYPES[k_pool.dtype], buf, len(buf))
+    if rc != 0:
+        raise RuntimeError(f"paged_decode_body: cudaError {rc}")
+    return buf.value.decode()
+
+
 def select_paged_backend(batch: int, max_blocks: int, *,
                          device: Union[str, torch.device] = "cuda",
                          override=None,

@@ -6,7 +6,7 @@ the normalize is two passes over x and dy, each a hand-written CUDA
 kernel in ``csrc/bn_train.cu`` with a plain PyTorch version beside it:
 
   pass 1, ``bn_bwd_sums`` (replaces ``_reduce_kernel``): per-channel
-          ``Σdy`` and ``Σdy·x̂`` (dβ and dγ);
+          ``Σdy`` and ``Σdy·x̂`` (dβ and dγ), one launch a site;
   pass 2, ``bn_bwd_dx`` (replaces ``_dx_kernel``): ``dx = A·dy + D·x + E``
 
 with A, D, E folded per channel between the passes from the sums and
@@ -95,10 +95,24 @@ def bn_bwd_dx_plain(x2d: torch.Tensor, dy2d: torch.Tensor,
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
+def _sums_workspace(x2d: torch.Tensor, M: int, C: int):
+    """Pass 1's f32 workspace (its chunk and group partials, as many
+    floats as ``dl4j_bn_sums_workspace`` asks) and its ``[2, C]``
+    output, one allocation from torch's stream-ordered allocator (under
+    CUDA-graph capture, from the graph's pool), so every launch has a
+    workspace of its own; the output views keep it alive."""
+    fn = cuda_build.c_function("bn_train", "dl4j_bn_sums_workspace",
+                               [_I64, _I64, _INT], ctypes.c_int64)
+    floats = int(fn(M, C, ce.DTYPE_CODE[x2d.dtype]))
+    buf = torch.empty(floats + 2 * C, dtype=torch.float32,
+                      device=x2d.device)
+    return buf, floats, buf[floats:].view(2, C)
+
+
 def bn_bwd_sums(x2d: torch.Tensor, dy2d: torch.Tensor, mean: torch.Tensor,
                 rstd: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Pass 1 on an [M, C] view: the kernel on the card (f32 sums), the
-    plain version on the CPU."""
+    """Pass 1 on an [M, C] view: the kernel on the card (f32 sums, one
+    launch), the plain version on the CPU."""
     if x2d.device.type == "cpu":
         return bn_bwd_sums_plain(x2d, dy2d, mean, rstd)
     C = ce.check_rows("bn_bwd_sums", x2d, others=(("dy", dy2d),),
@@ -107,19 +121,35 @@ def bn_bwd_sums(x2d: torch.Tensor, dy2d: torch.Tensor, mean: torch.Tensor,
     if M == 0:
         z = torch.zeros(C, dtype=torch.float32, device=x2d.device)
         return z, z.clone()
-    partials, chunks, sums = ce.column_workspace(x2d, M, C, "bn_train",
-                                                 "dl4j_bn_train_chunks")
+    work, floats, sums = _sums_workspace(x2d, M, C)
     fn = cuda_build.c_function(
         "bn_train", "dl4j_bn_bwd_sums",
         [_P, _P, _P, _P, _P, _I64, _P, _I64, _I64, _INT, _P])
     with torch.cuda.device(x2d.device):
         stream = torch.cuda.current_stream(x2d.device).cuda_stream
         rc = fn(x2d.data_ptr(), dy2d.data_ptr(), mean.data_ptr(),
-                rstd.data_ptr(), partials.data_ptr(), chunks,
-                sums.data_ptr(), M, C, ce.DTYPE_CODE[x2d.dtype], stream)
+                rstd.data_ptr(), work.data_ptr(), floats, sums.data_ptr(),
+                M, C, ce.DTYPE_CODE[x2d.dtype], stream)
     ce.raise_on_error("bn_bwd_sums", rc)
     BN_BWD_SUMS.launched()
     return sums[0], sums[1]
+
+
+def bn_bwd_sums_body(x2d: torch.Tensor, dy2d: torch.Tensor) -> str:
+    """The geometry :func:`bn_bwd_sums` takes for CUDA operands ``x2d``
+    and ``dy2d`` [M, C], as the kernel names it: vector width, block,
+    grid of chunks and channel tiles, ticket groups and index width.
+    Launches nothing."""
+    C = int(x2d.shape[-1])
+    M = x2d.numel() // C
+    fn = cuda_build.c_function(
+        "bn_train", "dl4j_bn_bwd_sums_describe",
+        [_P, _P, _I64, _I64, _INT, ctypes.c_char_p, _INT])
+    buf = ctypes.create_string_buffer(256)
+    rc = fn(x2d.data_ptr(), dy2d.data_ptr(), M, C,
+            ce.DTYPE_CODE[x2d.dtype], buf, len(buf))
+    ce.raise_on_error("bn_bwd_sums_body", rc)
+    return buf.value.decode()
 
 
 def bn_bwd_dx(x2d: torch.Tensor, dy2d: torch.Tensor, a: torch.Tensor,

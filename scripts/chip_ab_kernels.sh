@@ -7,10 +7,12 @@
 #
 # where checkout/parent holds the other tree (e.g. `git archive <commit>`
 # unpacked there). Each tree builds its own kernels and runs its own
-# `chip_smoke.phase_pointwise` and `phase_train_kernels`; this tree's
-# `chip_smoke.phase_kernel_paths` runs against each tree's package (it
-# uses only entry points every tree has). Logs go to log-dir (by default
-# build/chip_ab/); the summary lines are printed.
+# `chip_smoke.phase_pointwise`, `phase_train_kernels` and
+# `phase_paged_kernel`; this tree's `chip_smoke.phase_kernel_paths` runs
+# against each tree's package (it uses only entry points every tree
+# has). Logs go to log-dir (by default build/chip_ab/); the summary
+# lines are printed: kernel 4's and 6's totals, kernel 5's totals and
+# sites, kernel 10's `[paged]` timings and the paths' busy times.
 set -u
 PARENT=$(cd "$1" && pwd)
 ROOT=$(pwd)
@@ -18,15 +20,17 @@ OUT=$ROOT/${2:-build/chip_ab}
 mkdir -p "$OUT"
 build='import concurrent.futures as f
 from deeplearning4j_tpu_torch.ops import cuda_build as b
-list(f.ThreadPoolExecutor(3).map(
-    b.build, ["matmul_epilogue", "bn_train", "conv_epilogue"]))
+list(f.ThreadPoolExecutor(4).map(
+    b.build, ["matmul_epilogue", "bn_train", "conv_epilogue",
+              "paged_attention"]))
 print({k: round(v["seconds"], 1) for k, v in b.build_info.items()})'
 python3 -c "$build" > "$OUT/build_new.log" 2>&1 &
 (cd "$PARENT" && python3 -c "$build" > "$OUT/build_parent.log" 2>&1) &
 wait
 phases='import torch, chip_smoke as c
 c.phase_pointwise(torch)
-c.phase_train_kernels(torch)'
+c.phase_train_kernels(torch)
+c.phase_paged_kernel(torch)'
 paths="import torch, importlib.util as u
 s = u.spec_from_file_location('chip_smoke_ab', '$ROOT/chip_smoke.py')
 c = u.module_from_spec(s)
@@ -41,8 +45,10 @@ for tree in parent new new parent; do
   (cd "$dir" \
     && nvidia-smi --query-gpu=name,power.limit --format=csv,noheader \
     && timeout 600 python3 -c "$phases" \
-    && timeout 300 python3 -c "$paths") > "$log" 2>&1
+    && timeout 400 python3 -c "$paths") > "$log" 2>&1
   echo "run $i $tree rc=$?"
-  grep -E 'forward, 17 sites|bn_bwd_(dx|sums) [a-z0-9]*, 53|^\[paths\]' \
-    "$log" | cut -c1-200
+  grep -E 'forward, 17 sites|bn_bwd_dx [a-z0-9]*, 53' "$log" | cut -c1-200
+  grep -E -A1 'bn_bwd_sums [a-z0-9]*, 53' "$log" | grep -v '^--' \
+    | cut -c1-900
+  grep -E '^\[paged\] [a-z0-9]+ pool, L=|^\[paths\]' "$log" | cut -c1-300
 done

@@ -221,6 +221,113 @@ def test_bn_bwd_dx_each_body_bitwise_equal_to_plain(case, dtype):
     assert torch.equal(dx, dx2)
 
 
+#: (M, C, view) for kernel 5's one-launch sums: the 9 (M, C) site shapes
+#: of a batch-32 ResNet-50 step, C % 8 != 0 (scalar body), a pointer off
+#: 16 bytes ("tail": x[1:] of a flat buffer one element longer), and M
+#: below one chunk (one chunk, one ticket group)
+BN_SUMS_CASES = [
+    (1568, 512, None), (1568, 2048, None), (6272, 256, None),
+    (6272, 1024, None), (25088, 128, None), (25088, 512, None),
+    (100352, 64, None), (100352, 256, None), (401408, 64, None),
+    (777, 3, None), (3000, 20, None), (1000, 64, "tail"), (40, 64, None),
+    (1, 512, None),
+]
+
+
+def _bn_sums_inputs(M, C, view, dtype, g):
+    x, dy = _rand(M, C, dtype, g), _rand(M, C, dtype, g)
+    if view == "tail":
+        buf = torch.empty(M * C + 1, device="cuda", dtype=x.dtype)
+        buf[1:] = x.reshape(-1)
+        x = buf[1:].view(M, C)
+        assert x.data_ptr() % 16 != 0 and x.is_contiguous()
+    mean = 0.1 * torch.randn(C, device="cuda", generator=g)
+    rstd = torch.rand(C, device="cuda", generator=g) + 0.5
+    return x, dy, mean, rstd
+
+
+def _bn_sums_close(x, dy, mean, rstd, sdy, sdyx):
+    from deeplearning4j_tpu_torch.ops import bn_train as bt
+    rsdy, rsdyx = bt.bn_bwd_sums_plain(x, dy, mean, rstd)
+    t_dy, t_dyx = bt.bn_bwd_sums_plain((x.float() - mean).abs(),
+                                       dy.abs(), torch.zeros_like(mean),
+                                       rstd)
+    _sums_close(sdy, rsdy, t_dy, "sum dy")
+    _sums_close(sdyx, rsdyx, t_dyx, "sum dy*xhat")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", BN_SUMS_CASES,
+                         ids=lambda c: f"{c[0]}x{c[1]}"
+                                       + (f"-{c[2]}" if c[2] else ""))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_bn_bwd_sums_one_launch_matches_plain(case, dtype):
+    """Kernel 5 within SUM_RTOL x sum|terms| of the plain version, bitwise
+    across two launches and across a CUDA-graph replay, one launch a
+    call; the body it names is the one its shape asks for."""
+    from deeplearning4j_tpu_torch.ops import bn_train as bt
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(17)
+    M, C, view = case
+    x, dy, mean, rstd = _bn_sums_inputs(M, C, view, dtype, g)
+    body = bt.bn_bwd_sums_body(x, dy)
+    vec = C % (16 // x.element_size()) == 0 and view is None
+    assert body.startswith("one launch, " + ("16-byte vectors" if vec
+                                             else "scalar")), body
+    if M <= 64:
+        assert "grid 1x" in body, body
+    n0 = bt.BN_BWD_SUMS.launches
+    sdy, sdyx = bt.bn_bwd_sums(x, dy, mean, rstd)
+    sdy2, sdyx2 = bt.bn_bwd_sums(x, dy, mean, rstd)
+    torch.cuda.synchronize()
+    assert bt.BN_BWD_SUMS.launches == n0 + 2
+    assert torch.equal(sdy, sdy2) and torch.equal(sdyx, sdyx2)
+    _bn_sums_close(x, dy, mean, rstd, sdy, sdyx)
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        bt.bn_bwd_sums(x, dy, mean, rstd)
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        gdy, gdyx = bt.bn_bwd_sums(x, dy, mean, rstd)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(gdy, sdy) and torch.equal(gdyx, sdyx)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bn_bwd_sums_two_streams_at_once(dtype):
+    """Launches in flight at once on two streams (and a graph replay on a
+    third) each give their own inputs' bits: their tickets are their
+    own."""
+    from deeplearning4j_tpu_torch.ops import bn_train as bt
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(18)
+    shapes = [(100352, 64), (25088, 512)]
+    ins = [_bn_sums_inputs(M, C, None, dtype, g) for M, C in shapes
+           for _ in range(2)]
+    want = [bt.bn_bwd_sums(*a) for a in ins]
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        gout = bt.bn_bwd_sums(*ins[0])
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    for _ in range(10):
+        outs = []
+        for i, a in enumerate(ins):
+            with torch.cuda.stream(streams[i % 2]):
+                outs.append(bt.bn_bwd_sums(*a))
+        graph.replay()
+        torch.cuda.synchronize()
+        for got, w in zip(outs, want):
+            assert torch.equal(got[0], w[0]) and torch.equal(got[1], w[1])
+        assert torch.equal(gout[0], want[0][0])
+        assert torch.equal(gout[1], want[0][1])
+
+
 @pytest.mark.gpu
 def test_training_kernels_reject_what_they_do_not_take():
     from deeplearning4j_tpu_torch.ops import bn_train as bt
@@ -636,6 +743,118 @@ def test_paged_decode_kernel_rejects_what_it_does_not_take():
                                                     device="cuda"),
                                   torch.zeros(4, 8, 2, 300, device="cuda"),
                                   tables, lengths)
+
+
+def _paged_case_inputs(b, h, d, block, max_blocks, lengths, pool_dtype,
+                       q_dtype, g):
+    """q, pools with every sequence's blocks at random places (block 0
+    the scratch), tables padded with 0; a length of -1 is a dead slot
+    (an all-zero table, length 1)."""
+    nb = b * max_blocks + 1
+    q = torch.randn(b, h, d, device="cuda", generator=g).to(q_dtype)
+    k, v = (torch.randn(nb, block, h, d, device="cuda", generator=g
+                        ).to(pool_dtype) for _ in range(2))
+    perm = torch.randperm(nb - 1, device="cuda", generator=g) + 1
+    tables = torch.zeros(b, max_blocks, dtype=torch.int32, device="cuda")
+    lens = []
+    for i, n in enumerate(lengths):
+        if n < 0:
+            lens.append(1)
+            continue
+        used = min(max_blocks, -(-n // block))
+        tables[i, :used] = perm[i * max_blocks:i * max_blocks + used]
+        lens.append(n)
+    lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    return q, k, v, tables, lens
+
+
+#: table blocks a rank of kernel 10's cluster split (kBlocksPerRank in
+#: csrc/paged_attention.cu): P = ceil(max_blocks / 32) ranks, at most 8
+PAGED_BLOCKS_PER_RANK = 32
+
+
+def _ranks(max_blocks):
+    return max(1, min(8, -(-max_blocks // PAGED_BLOCKS_PER_RANK)))
+
+
+def _edges(block, max_blocks):
+    """Lengths one either side of each partition edge of the staged
+    body's cluster split at a full table, and of 1..3 valid blocks."""
+    ranks = _ranks(max_blocks)
+    out = []
+    for r in range(1, ranks):
+        tok = (r * max_blocks // ranks) * block
+        out += [tok - 1, tok, tok + 1]
+    return out + [1, 15, 16, 17, 2 * block + 1, 3 * block]
+
+
+#: (h, d, block, max_blocks, lengths), a sequence a length: the
+#: GPT-2-small site (P = 2 ranks at 64-block tables) with lengths 1, 15,
+#: 16, 17, each partition edge of the full table +-1 and a sequence of
+#: one block a rank +-1, a sequence of fewer valid blocks than ranks (a
+#: rank with no valid token), a length past the table and dead slots;
+#: P = 3 at a 70-block table (not divisible by P), P = 8 at 256 blocks;
+#: d = 32, 64, 80, 128, 256
+PAGED_BODY_CASES = [
+    (12, 64, 16, 64, _edges(16, 64)
+     + [31, 32, 33, 64 * 16, 64 * 16 + 6, 480, -1, -1]),
+    (4, 64, 16, 70, _edges(16, 70) + [70 * 16, -1]),
+    (2, 64, 4, 256, _edges(4, 256) + [256 * 4, 5, -1]),
+    (4, 32, 16, 40, _edges(16, 40) + [-1]),
+    (4, 80, 16, 40, _edges(16, 40) + [-1]),
+    (4, 128, 16, 40, _edges(16, 40) + [-1]),
+    (2, 256, 16, 40, _edges(16, 40) + [-1]),
+]
+
+
+def _paged_staged(d, esize):
+    g = d * esize // 16
+    return d <= 128 and d * esize % 16 == 0 and g & (g - 1) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", PAGED_BODY_CASES,
+                         ids=lambda c: f"h{c[0]}d{c[1]}mb{c[3]}")
+@pytest.mark.parametrize("pool_dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("q_dtype", ["float32", "bfloat16", "float16"])
+def test_paged_decode_each_body_matches_plain(case, pool_dtype, q_dtype):
+    """Kernel 10's staged and general bodies against the plain version:
+    within 2e-5 for an f32 q (and one rounding of the output for a 16-bit
+    q), bitwise across two launches and across a CUDA-graph replay,
+    finite, one launch a call."""
+    _need_card()
+    from deeplearning4j_tpu_torch.ops import attention_kernels as ak
+    h, d, block, mb, lengths = case
+    b = len(lengths)
+    g = torch.Generator(device="cuda").manual_seed(19)
+    args = _paged_case_inputs(b, h, d, block, mb, lengths,
+                              getattr(torch, pool_dtype),
+                              getattr(torch, q_dtype), g)
+    body = ak.paged_decode_body(*args[:4])
+    esize = args[1].element_size()
+    want_body = "staged" if _paged_staged(d, esize) else "general"
+    assert body.startswith(want_body), body
+    if want_body == "staged":
+        assert f"{_ranks(mb)} ranks" in body, body
+    n0 = ak.PAGED_DECODE.launches
+    out = ak.paged_decode_attention(*args)
+    out2 = ak.paged_decode_attention(*args)
+    ref = ak.paged_attention_reference(*args)
+    torch.cuda.synchronize()
+    assert ak.PAGED_DECODE.launches == n0 + 2
+    assert out.dtype == args[0].dtype and out.shape == args[0].shape
+    assert torch.equal(out, out2)
+    assert bool(torch.isfinite(out).all())
+    rtol = {"float32": 0.0, "bfloat16": 2 ** -7, "float16": 2 ** -10}
+    torch.testing.assert_close(out.float(), ref.float(),
+                               rtol=rtol[q_dtype], atol=2e-5)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        gout = ak.paged_decode_attention(*args)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(gout, out)
 
 
 @pytest.mark.gpu

@@ -86,6 +86,66 @@ def test_plain_version_matches_jax_reference(jax_results, dt):
                                jax_results[dt][1], **TOL)
 
 
+#: shapes of the staged body's cluster split on the card (P = ceil(
+#: max_blocks / 32) ranks a (head, sequence), rank r folding the valid
+#: blocks [r * n / P, (r + 1) * n / P) of n): lengths one either side of
+#: the partition edge of a full table at P = 2, and sequences of 1..3
+#: valid blocks; at P = 3 sequences of 1 or 2 valid blocks, so a tail
+#: rank folds no token; and d = 80, which the card runs on its general
+#: body
+SPLIT_CASES = {
+    "partition_edges": dict(h=2, d=16, block=4, max_blocks=40,
+                            lengths=[4, 8, 9, 79, 80, 81, 160, 165]),
+    "empty_tail_partition": dict(h=2, d=16, block=2, max_blocks=65,
+                                 lengths=[1, 2, 4, 5]),
+    "head_dim_80": dict(h=2, d=80, block=4, max_blocks=5,
+                        lengths=[1, 3, 4, 5, 20, 23]),
+}
+
+
+def _split_inputs(case: str, dt: str):
+    c = SPLIT_CASES[case]
+    h, d, block, mb, lengths = (c["h"], c["d"], c["block"],
+                                c["max_blocks"], c["lengths"])
+    b = len(lengths)
+    nb = b * mb + 1
+    rs = np.random.RandomState(7)
+    q = rs.randn(b, h, d).astype(np.float32)
+    k = rs.randn(nb, block, h, d).astype(np.float32)
+    v = rs.randn(nb, block, h, d).astype(np.float32)
+    if dt == "bfloat16":
+        k = np.array(jnp.asarray(k, jnp.bfloat16).astype(jnp.float32))
+        v = np.array(jnp.asarray(v, jnp.bfloat16).astype(jnp.float32))
+    tables = np.zeros((b, mb), np.int32)
+    perm = rs.permutation(np.arange(1, nb))
+    for i, n in enumerate(lengths):
+        used = min(mb, -(-n // block))
+        tables[i, :used] = perm[i * mb:i * mb + used]
+    return q, k, v, tables, np.asarray(lengths, np.int32)
+
+
+@pytest.mark.parametrize("case", list(SPLIT_CASES))
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_plain_version_matches_jax_at_cluster_split_shapes(case, dt):
+    """The port against JAX's Pallas kernel (interpret mode) and JAX's
+    reference at the lengths and shapes where the card's staged body
+    splits a sequence across its cluster's ranks."""
+    q, k, v, tables, lengths = _split_inputs(case, dt)
+    jdt = getattr(jnp, dt)
+    jargs = (jnp.asarray(q), jnp.asarray(k, jdt), jnp.asarray(v, jdt),
+             jnp.asarray(tables), jnp.asarray(lengths))
+    tdt = getattr(torch, dt)
+    got = ak.paged_decode_attention(
+        torch.from_numpy(q), torch.from_numpy(k).to(tdt),
+        torch.from_numpy(v).to(tdt), torch.from_numpy(tables),
+        torch.from_numpy(lengths)).numpy()
+    np.testing.assert_allclose(
+        got, np.asarray(jax_paged(*jargs, interpret=True)), **TOL)
+    np.testing.assert_allclose(got, np.asarray(jax_paged_ref(*jargs)),
+                               **TOL)
+    assert np.isfinite(got).all()
+
+
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
 def test_wrapper_on_cpu_is_the_plain_version(dt):
     n0 = ak.PAGED_DECODE.launches

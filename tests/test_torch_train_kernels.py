@@ -99,7 +99,12 @@ def test_channel_sums_plain_matches_pallas_stats(shape):
         want, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("shape", SHAPES)
+#: besides SHAPES: C % 8 != 0 (the kernel's scalar body on the card) and
+#: M below one chunk of the one-launch sums (a single chunk, one ticket)
+BN_BWD_SHAPES = SHAPES + [(2, 3, 3, 20), (5, 13), (3, 40)]
+
+
+@pytest.mark.parametrize("shape", BN_BWD_SHAPES)
 def test_bn_backward_plain_matches_pallas_passes(shape):
     x, dy, _, _ = _data(shape, 3)
     C = shape[-1]
