@@ -1003,13 +1003,15 @@ def _site_costs(name: str, M: int, C: int, esize: int, act: str):
     return 3 * n * esize + 3 * C * 4, 4 * n                 # bn_bwd_dx
 
 
-def _bn_sums_device_kernels(torch, sites, g) -> dict:
-    """The device kernels the profiler sees under kernel 5's wrapper over
-    the 53 sites of a bf16 step: one a site, none of them the two-launch
-    body's finalize kernel."""
+def _one_launch_device_kernels(torch, sites, g) -> dict:
+    """The device kernels the profiler sees under the wrappers of kernels
+    5 (``bn_bwd_sums``) and 3 (``channel_sums``), each over the 53 sites
+    of a bf16 step: one a site, none of them the two-launch body's
+    partials or finalize kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     from deeplearning4j_tpu_torch.ops import bn_train as bt
+    from deeplearning4j_tpu_torch.ops import conv_epilogue as ce
     ins = {}
     for M, C, _ in sorted(set(sites)):
         ins[(M, C)] = (
@@ -1017,27 +1019,33 @@ def _bn_sums_device_kernels(torch, sites, g) -> dict:
             torch.randn(M, C, device="cuda", generator=g).to(torch.bfloat16),
             torch.rand(C, device="cuda", generator=g) - 0.5,
             torch.rand(C, device="cuda", generator=g) + 0.5)
-    for a in ins.values():
-        bt.bn_bwd_sums(*a)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for M, C, _ in sites:
-            bt.bn_bwd_sums(*ins[(M, C)])
+    calls = {"bn_bwd_sums": lambda a: bt.bn_bwd_sums(*a),
+             "channel_sums": lambda a: ce.channel_sums(a[0])}
+    out = {}
+    for name, call in calls.items():
+        for a in ins.values():
+            call(a)
         torch.cuda.synchronize()
-    kernels = {}
-    for e in prof.key_averages():
-        if "CUDA" in str(getattr(e, "device_type", "")) and e.count:
-            kernels[e.key[:100]] = e.count
-    launched = sum(kernels.values())
-    check(launched == len(sites) and not any("column_finalize" in k
-                                             for k in kernels),
-          f"bn_bwd_sums over {len(sites)} sites ran device kernels "
-          f"{kernels}, expected one a site and no finalize kernel")
-    print(f"[train-kernels] bn_bwd_sums over the {len(sites)} sites of a "
-          f"bf16 step: {launched} device kernels ({kernels})")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for M, C, _ in sites:
+                call(ins[(M, C)])
+            torch.cuda.synchronize()
+        kernels = {}
+        for e in prof.key_averages():
+            if "CUDA" in str(getattr(e, "device_type", "")) and e.count:
+                kernels[e.key[:100]] = e.count
+        launched = sum(kernels.values())
+        check(launched == len(sites) and not any(
+            "column_finalize" in k or "column_partials" in k
+            for k in kernels),
+            f"{name} over {len(sites)} sites ran device kernels {kernels}, "
+            f"expected one a site and no partials or finalize kernel")
+        print(f"[train-kernels] {name} over the {len(sites)} sites of a "
+              f"bf16 step: {launched} device kernels ({kernels})")
+        out[name] = kernels
     del ins
-    return kernels
+    return out
 
 
 def phase_train_kernels(torch) -> dict:
@@ -1074,13 +1082,17 @@ def phase_train_kernels(torch) -> dict:
           "bf16 | f16): " + "; ".join(
               f"{k} {r['float32']} | {r['bfloat16']} | {r['float16']}"
               for k, r in dx_bodies.items()))
-    sums_bodies = {}
+    sums_bodies = {"bn_bwd_sums": {}, "channel_sums": {}}
     for M, C, _ in sorted(groups):
-        x = torch.empty(M, C, device="cuda", dtype=torch.bfloat16)
-        sums_bodies[f"[{M},{C}]"] = bt.bn_bwd_sums_body(x, x)
-    print("[train-kernels] bn_bwd_sums bodies at the 9 site shapes (bf16): "
-          + "; ".join(f"{k} {v}" for k, v in sums_bodies.items()))
-    sums_kernels = _bn_sums_device_kernels(torch, sites, g)
+        for dt in (torch.float32, torch.bfloat16):
+            x = torch.empty(M, C, device="cuda", dtype=dt)
+            key = f"[{M},{C}] {str(dt)[6:]}"
+            sums_bodies["bn_bwd_sums"][key] = bt.bn_bwd_sums_body(x, x)
+            sums_bodies["channel_sums"][key] = ce.channel_sums_body(x)
+    for name, bodies in sums_bodies.items():
+        print(f"[train-kernels] {name} bodies at the 9 site shapes (f32, "
+              f"bf16): " + "; ".join(f"{k} {v}" for k, v in bodies.items()))
+    sums_kernels = _one_launch_device_kernels(torch, sites, g)
     timing = {k: {} for k in TRAIN_KERNELS}
     for dt in (torch.float32, torch.bfloat16, torch.float16):
         esize = torch.tensor([], dtype=dt).element_size()
@@ -3875,7 +3887,8 @@ def phase_kernel_paths(torch, label: str) -> dict:
     the redesigned kernels: a batch-32 SqueezeNet forward (seeded,
     224x224) in f32 and in bf16 ``compute_dtype``, 17 launches of kernel
     4 each; a batch-32, 224x224 ResNet-50 training step in bf16
-    ``compute_dtype``, 53 launches each of kernels 5 and 6 a step; a
+    ``compute_dtype``, 53 launches each of kernels 3, 5 and 6 a step,
+    with kernels 3 and 5 as shares of its busy time; a
     batch-32 GPT-2-small decode step at L=480 (``decode_step_paths``),
     12 launches of kernel 10. It touches only entry points that every
     tree of the port has, so the same function reads a parent checkout's
@@ -3921,19 +3934,29 @@ def phase_kernel_paths(torch, label: str) -> dict:
     losses, ms = _timed_steps(torch, rn, x, y, steps)
     n = _counts()
     check(all(np.isfinite(losses)), f"bf16 ResNet-50 losses {losses}")
-    for k in ("bn_bwd_sums", "bn_bwd_dx"):
+    for k in ("channel_sums", "bn_bwd_sums", "bn_bwd_dx"):
         check(n[k] == 53 * steps, f"bf16 ResNet-50: {n[k]} launches of {k} "
                                   f"in {steps} steps, expected 53 a step")
     step_ms = float(np.median(ms[1:]))
     prof = profile_device(torch, lambda: rn.fit(x, y), step_ms,
                           f"batch-{BATCH} bf16 ResNet-50 train step",
-                          shares=("bn_dx_kernel", "column_sums_sm90",
-                                  "column_partials", "column_finalize"))
+                          shares=("bn_dx_kernel", "BnSumsOp", "StatsOp",
+                                  "column_finalize"))
     result["resnet50_bf16_step"] = {"ms": ms, "profile": prof}
+    # kernels 3 and 5 by the Op in the demangled name (both are
+    # column_sums_sm90_kernel instantiations; a tree whose kernel 3 is
+    # the two-launch body adds its finalize kernel, which nothing else of
+    # this step launches)
+    sh = prof.get("shares", {})
+    busy = prof.get("device_busy_ms", float("nan"))
+    k3 = sum(sh.get(n, {}).get("ms", 0.0)
+             for n in ("StatsOp", "column_finalize"))
+    k5 = sh.get("BnSumsOp", {}).get("ms", float("nan"))
     print(f"[paths] batch-{BATCH} bf16 ResNet-50 step {step_ms:.3f} ms "
-          f"(median of steps 2-{steps}), device busy "
-          f"{prof.get('device_busy_ms', float('nan')):.3f} ms, idle share "
-          f"{prof.get('idle_share', float('nan')):.3f} [{label}]")
+          f"(median of steps 2-{steps}), device busy {busy:.3f} ms, idle "
+          f"share {prof.get('idle_share', float('nan')):.3f}; kernel 3 "
+          f"{k3:.3f} ms ({k3 / busy:.3f} of busy), kernel 5 {k5:.3f} ms "
+          f"({k5 / busy:.3f}) [{label}]")
     del rn
     torch.cuda.empty_cache()
     result.update(decode_step_paths(torch, label))
@@ -6155,9 +6178,10 @@ def main() -> int:
         else:
             t = tk["timing"][k.name]["float32"]
             err = tk["max_abs_err"][k.name]
-            if k.name == "bn_bwd_sums":
+            if k.name in tk["sums_device_kernels"]:
                 extra = {"device_kernels_53_sites_bf16":
-                         tk["sums_device_kernels"]}
+                         tk["sums_device_kernels"][k.name],
+                         "bodies": tk["sums_bodies"][k.name]}
             shapes = f"the 53 BatchNormalization sites of a batch-{BATCH} " \
                      f"f32 ResNet-50 training step"
             by_dtype = {d: v["kernel_ms"]

@@ -26,7 +26,7 @@
 // (the last block of each group of chunks sums them in chunk order), so
 // there is no finalize launch and no float atomic, and two launches give
 // the same bits. Its first design (column_reduce.cuh,
-// which kernels 2 and 3 still share) paid a second launch, an
+// which kernel 2 still uses) paid a second launch, an
 // eight-wave grid and a log2(rows) shared-memory tree a site: a fixed
 // cost that set the pace of the small sites.
 //
@@ -72,8 +72,18 @@ struct BnSumsRaw<T, VEC, false> {
   T x[VEC], dy[VEC];
 };
 
+// Kernel 5's plan on column_reduce_sm90.cuh: two 16-byte vectors a row,
+// so 4 rows in flight keep 128 bytes a thread in flight; groups of 16
+// chunks, scalar partial loads.
+struct BnSumsPlan {
+  static constexpr int kRows = 4;
+  static constexpr int kGroup = 16;
+  static constexpr int kFinalVec = 1;
+};
+
 template <typename T, int VEC, typename I>
 struct BnSumsOp {
+  using Plan = BnSumsPlan;
   using Raw = BnSumsRaw<T, VEC>;
   const T* x;
   const T* dy;
@@ -131,7 +141,8 @@ int bn_sums_typed(const void* x, const void* dy, const float* mean,
                   const float* rstd, float* work, int64_t capacity,
                   float* sums, int64_t M, int64_t C, cudaStream_t stream) {
   const bool aligned = dl4j::aligned16(x) && dl4j::aligned16(dy);
-  const dl4j::sm90::Geom g = dl4j::sm90::geom(M, C, sizeof(T), aligned);
+  const dl4j::sm90::Geom g =
+      dl4j::sm90::geom<BnSumsPlan>(M, C, sizeof(T), aligned);
   if (dl4j::sm90::workspace_floats(g, C) > capacity)
     return (int)cudaErrorInvalidValue;
   constexpr int kFull = 16 / sizeof(T);
@@ -357,7 +368,7 @@ int elem_bytes(int dtype) { return dtype == 0 ? 4 : 2; }
 extern "C" int64_t dl4j_bn_sums_workspace(int64_t M, int64_t C, int dtype) {
   if (M <= 0 || C <= 0) return 0;
   return dl4j::sm90::workspace_floats(
-      dl4j::sm90::geom(M, C, elem_bytes(dtype), true), C);
+      dl4j::sm90::geom<BnSumsPlan>(M, C, elem_bytes(dtype), true), C);
 }
 
 // sums[2, C] = (sum dy, sum dy * (x - mean) * rstd). x, dy: [M, C] of
@@ -392,14 +403,9 @@ extern "C" int dl4j_bn_bwd_sums_describe(const void* x, const void* dy,
                                          char* out, int len) {
   if (M <= 0 || C <= 0 || dtype < 0 || dtype > 2 || len <= 0)
     return (int)cudaErrorInvalidValue;
-  const dl4j::sm90::Geom g = dl4j::sm90::geom(
+  const dl4j::sm90::Geom g = dl4j::sm90::geom<BnSumsPlan>(
       M, C, elem_bytes(dtype), dl4j::aligned16(x) && dl4j::aligned16(dy));
-  snprintf(out, len, "one launch, %s: %d channels a thread, block %dx%d, "
-           "grid %lldx%lld (chunks of %lld rows x channel tiles), %lld "
-           "ticket group(s), %s indices",
-           g.vec > 1 ? "16-byte vectors" : "scalar", g.vec, g.bx, g.by,
-           (long long)g.chunks, (long long)g.ctiles, (long long)g.chunk_rows,
-           (long long)g.groups, g.wide_index ? "64-bit" : "32-bit");
+  dl4j::sm90::describe(g, BnSumsPlan::kRows, out, len);
   return 0;
 }
 

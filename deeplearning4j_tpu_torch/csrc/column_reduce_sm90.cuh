@@ -1,8 +1,8 @@
 // Deterministic per-channel column sums over a contiguous channels-last
 // [M, C] view in ONE launch, for the H100 (used by bn_train.cu's BN
-// backward sums; its Op is column_reduce.cuh's split in a load and a fold
-// of a row, with the index type a template parameter, so the other users
-// of column_reduce.cuh can move here).
+// backward sums, kernel 5, and conv_epilogue.cu's channel statistics,
+// kernel 3; an Op splits a row into a load and a fold, with the index
+// type a template parameter).
 //
 // column_reduce.cuh sums in two launches (per-chunk partials, then a
 // finalize kernel over them) on a grid of about eight waves, each block
@@ -10,32 +10,44 @@
 // of a ResNet-50 step that fixed cost per site, not the bytes, set the
 // pace. This body:
 //
-//   - grid (chunks, channel tiles), fixed by (M, C, element size) alone:
-//     about kTargetBlocks blocks (1.5 blocks an SM of the H100's 132, a
-//     constant, not the device's count: 396, 264, 165 and 132 timed
-//     slower over a ResNet-50 step's sites), each chunk at least one
-//     unrolled pass of its row threads;
+//   - grid (chunks, channel tiles), fixed by (M, C, element size) and the
+//     Op's plan alone: about kTargetBlocks blocks (1.5 blocks an SM of
+//     the H100's 132, a constant, not the device's count), each chunk at
+//     least one unrolled pass of its row threads;
 //   - a thread owns VEC neighbouring channels (one 16-byte vector where C
 //     and the pointers allow it; bx <= 8 vectors make 128 contiguous
-//     bytes of a row) and keeps kUnroll rows of each input in flight in
+//     bytes of a row) and keeps Plan::kRows rows of its inputs in flight in
 //     its unrolled row loop; registers capped for three blocks an SM;
 //   - the block's rows combine by warp shuffles (lanes of one channel
 //     group) and one pass over the warps' sums in shared memory;
 //   - across blocks, without a second launch: each block writes its
 //     chunk's [2, channels] partial to a workspace and one thread takes
-//     an integer ticket of its group of kGroup chunks (an acquire-release
-//     atomic add on an unsigned, not a float atomic); the group's last
-//     block sums the group's partials in chunk order (to the output when
-//     there is one group, else to a group partial) and resets the
-//     ticket; with more than one group, the last group to finish sums
-//     the group partials in group order into the output and resets its
-//     ticket too. (Clusters of 8 chunks meeting in distributed shared
-//     memory in place of the first level timed slower.)
+//     an integer ticket of its group of Plan::kGroup chunks (an
+//     acquire-release atomic add on an unsigned, not a float atomic); the
+//     group's last block sums the group's partials in chunk order (to the
+//     output when there is one group, else to a group partial) and
+//     resets the ticket; with more than one group, the last group to
+//     finish sums the group partials in group order into the output and
+//     resets its ticket too. Those sums read Plan::kFinalVec values a load
+//     (4: one 16-byte vector, where the tile allows it), so a block has
+//     more lanes on a group's rows. (Clusters of 8 chunks meeting in
+//     distributed shared memory in place of the first level timed
+//     slower for kernel 5.)
+//
+// The plans (timed over a ResNet-50 step's 53 sites, PERF.md):
+//   kernel 5 (x and dy): 4 rows in flight, groups of 16, scalar partial
+//     loads (grids of 396, 264, 165 and 132 blocks, 64-chunk groups and
+//     32 partial loads in flight were slower);
+//   kernel 3 (x alone, half the bytes a row): 8 rows in flight, one
+//     ticket level at every site, 16-byte partial loads (grids of 132
+//     and 264 blocks were slower too; conv_epilogue.cu says what else
+//     was timed).
 //
 // No float atomics: the order of every addition depends only on (M, C,
-// the vector width), so two launches give the same bits. f32 accumulation
-// for every input type, each product and sum rounded on its own
-// (__fmul_rn / __fadd_rn) inside the Op and __fadd_rn here.
+// the element size, the vector width) and the Op's plan, so two launches
+// give the same bits. f32 accumulation for every input type, each
+// product and sum rounded on its own (__fmul_rn / __fadd_rn) inside the
+// Op and __fadd_rn here.
 //
 // Tickets. They live in a zero-initialised device array of this library
 // (no memset, no allocation a launch) and every launch leaves its own at
@@ -44,11 +56,13 @@
 // captured into a CUDA graph a fresh range of its own (the replays of one
 // graph run one after another, and a graph's launches never share a range
 // with a stream's). So two launches that can be in flight at once never
-// share a ticket.
+// share a ticket. Each library that includes this header has its own
+// array and its own ranges (take_tickets has internal linkage).
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <stdio.h>
 
 #include <map>
 #include <mutex>
@@ -60,12 +74,10 @@ namespace sm90 {
 constexpr int kThreads = 256;
 constexpr int kChannelThreads = 8;  // 8 x 16 bytes: 128 bytes of a row
                                     // (32, whole-row warps, was slower)
-constexpr int kUnroll = 4;          // rows in flight a row thread
 constexpr int kMinBlocksPerSm = 3;  // registers capped at 85
 constexpr int64_t kTargetBlocks = 198;  // see the note at the top
-constexpr int kGroup = 16;          // chunks a first-level ticket gathers
 constexpr int kBatch = 8;           // partial loads in flight a thread
-                                    // (32 spilled; 64-chunk groups lost)
+                                    // (32 spilled in kernel 5)
 constexpr int kMaxDevices = 64;
 constexpr int64_t kTicketPool = int64_t(1) << 20;
 
@@ -77,7 +89,7 @@ struct Geom {
   int64_t ctiles;      // grid.y
   int64_t chunks;      // grid.x
   int64_t chunk_rows;  // rows per chunk (the last chunk may hold fewer)
-  int64_t groups;      // ticket groups of kGroup chunks
+  int64_t groups;      // ticket groups of Plan::kGroup chunks
   bool wide_index;     // 64-bit indices (M * C >= 2^30)
 };
 
@@ -90,18 +102,20 @@ inline void block_shape(int64_t C, int vec, int& bx, int& by,
   ctiles = (cv + bx - 1) / bx;
 }
 
-// The chunking follows the nominal vector width (C % (16 / elem) == 0),
-// so the workspace depends on (M, C, element size) alone; `vec` drops to
-// 1 where a pointer is not 16-byte aligned, which changes the block and
-// the channel tiles but not the chunks.
-inline Geom geom(int64_t M, int64_t C, int elem_bytes, bool aligned) {
+// The chunking follows the nominal vector width (C % (16 / elem) == 0)
+// and the Op's plan P, so for one plan the workspace depends on (M, C,
+// element size) alone; `vec` drops to 1 where a pointer is not 16-byte
+// aligned, which changes the block and the channel tiles but not the
+// chunks.
+template <class P>
+Geom geom(int64_t M, int64_t C, int elem_bytes, bool aligned) {
   const int full = 16 / elem_bytes;
   const int nominal = (C % full == 0) ? full : 1;
   Geom g;
   int bx, by;
   int64_t ctiles;
   block_shape(C, nominal, bx, by, ctiles);
-  const int64_t rows_min = (int64_t)by * kUnroll;
+  const int64_t rows_min = (int64_t)by * P::kRows;
   int64_t max_chunks = (M + rows_min - 1) / rows_min;
   if (max_chunks < 1) max_chunks = 1;
   int64_t chunks = (kTargetBlocks + ctiles - 1) / ctiles;
@@ -110,7 +124,7 @@ inline Geom geom(int64_t M, int64_t C, int elem_bytes, bool aligned) {
   if (g.chunk_rows < 1) g.chunk_rows = 1;
   g.chunks = (M + g.chunk_rows - 1) / g.chunk_rows;
   if (g.chunks < 1) g.chunks = 1;
-  g.groups = (g.chunks + kGroup - 1) / kGroup;
+  g.groups = (g.chunks + P::kGroup - 1) / P::kGroup;
   g.vec = aligned ? nominal : 1;
   block_shape(C, g.vec, g.bx, g.by, g.ctiles);
   g.wide_index = M * C >= (int64_t(1) << 30);
@@ -129,9 +143,23 @@ inline int64_t ticket_count(const Geom& g) {
   return g.ctiles * (g.groups + (g.groups > 1 ? 1 : 0));
 }
 
+// The geometry as text in `out` (at most `len` bytes with its
+// terminating 0), for a plan of `rows` rows in flight.
+inline void describe(const Geom& g, int rows, char* out, int len) {
+  snprintf(out, len, "one launch, %s: %d channels a thread, %d rows in "
+           "flight, block %dx%d, grid %lldx%lld (chunks of %lld rows x "
+           "channel tiles), %lld ticket group(s), %d ticket level(s), %s "
+           "indices", g.vec > 1 ? "16-byte vectors" : "scalar", g.vec, rows,
+           g.bx, g.by, (long long)g.chunks, (long long)g.ctiles,
+           (long long)g.chunk_rows, (long long)g.groups,
+           g.groups > 1 ? 2 : 1, g.wide_index ? "64-bit" : "32-bit");
+}
+
 // `need` tickets for a launch on `stream` (see the note at the top);
-// cudaErrorMemoryAllocation once the pool is spent.
-inline int take_tickets(cudaStream_t stream, int64_t need,
+// cudaErrorMemoryAllocation once the pool is spent. Static: its ranges
+// and the array's address are this library's own (an inline function's
+// statics would be one object for the whole process).
+static int take_tickets(cudaStream_t stream, int64_t need,
                         unsigned** out) {
   static std::mutex mu;
   static std::map<std::pair<int, uintptr_t>, std::pair<int64_t, int64_t>>
@@ -189,45 +217,76 @@ __device__ __forceinline__ unsigned take_ticket(unsigned* p) {
 
 // rows [first, end) of a [rows, 2, C] f32 array summed in row order for
 // this block's channel tile, into dst[which * C + channel]; every thread
-// of the block calls it (lanes j = 0.. J-1 of a value sum every J-th row,
-// kBatch loads in flight at a time, then their sums add in lane order)
-template <int VEC>
+// of the block calls it. A thread owns P neighbouring values of the tile
+// (P = 4: one 16-byte load a row; the caller guarantees C % 4 == 0 and
+// 16-byte aligned arrays); lanes j = 0.. J-1 of a value sum every J-th
+// row, kBatch loads in flight at a time, then their sums add in lane
+// order. `fin` holds kThreads * P floats.
+template <int VEC, int P>
 __device__ __forceinline__ void sum_rows(const float* __restrict__ src,
                                          int64_t first, int64_t end,
                                          float* __restrict__ dst,
                                          int64_t C, int bx, int64_t ctile,
                                          float* fin) {
+  static_assert(P == 1 || P == 4, "one value or one 16-byte vector");
   const int t = threadIdx.y * blockDim.x + threadIdx.x;
-  const int width = bx * VEC;  // channels of the tile
-  const int nv = 2 * width;    // <= 2 * 8 * kChannelThreads <= kThreads / 2
+  const int width = bx * VEC;   // channels of the tile
+  const int nv = 2 * width / P; // <= 2 * 8 * kChannelThreads <= kThreads / 2
   const int J = kThreads / nv;
   const int i = t % nv, j = t / nv;
-  const int which = i / width;
-  const int64_t ch = ctile * width + i % width;
-  float a = 0.f;
+  const int which = i * P / width;
+  const int64_t ch = ctile * width + (i * P) % width;
+  float a[P];
+#pragma unroll
+  for (int p = 0; p < P; ++p) a[p] = 0.f;
   if (ch < C) {
     for (int64_t r = first + j; r < end; r += kBatch * J) {
-      float v[kBatch];
+      float v[kBatch][P];
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {
+        const float* q = src + ((r + k * J) * 2 + which) * C + ch;
+        if constexpr (P == 4) {
+          const float4 f = r + k * J < end
+                               ? __ldcg(reinterpret_cast<const float4*>(q))
+                               : make_float4(0.f, 0.f, 0.f, 0.f);
+          v[k][0] = f.x;
+          v[k][1] = f.y;
+          v[k][2] = f.z;
+          v[k][3] = f.w;
+        } else {
+          v[k][0] = r + k * J < end ? __ldcg(q) : 0.f;
+        }
+      }
 #pragma unroll
       for (int k = 0; k < kBatch; ++k)
-        v[k] = r + k * J < end
-                   ? __ldcg(src + ((r + k * J) * 2 + which) * C + ch)
-                   : 0.f;
+        if (r + k * J < end) {
 #pragma unroll
-      for (int k = 0; k < kBatch; ++k)
-        if (r + k * J < end) a = __fadd_rn(a, v[k]);
+          for (int p = 0; p < P; ++p) a[p] = __fadd_rn(a[p], v[k][p]);
+        }
     }
   }
-  fin[t] = a;
+#pragma unroll
+  for (int p = 0; p < P; ++p) fin[p * kThreads + t] = a[p];
   __syncthreads();
-  if (t < nv && ch < C) {
-    float tot = fin[t];
-    for (int jj = 1; jj < J; ++jj) tot = __fadd_rn(tot, fin[jj * nv + t]);
-    dst[which * C + ch] = tot;
+  // one thread a value of the tile adds its J lanes in lane order
+  if (t < nv * P) {
+    const int iv = t / P, p = t % P;
+    const int k = iv * P + p;
+    const int64_t c = ctile * width + k % width;
+    if (c < C) {
+      float tot = fin[p * kThreads + iv];
+      for (int jj = 1; jj < J; ++jj)
+        tot = __fadd_rn(tot, fin[p * kThreads + jj * nv + iv]);
+      dst[(k / width) * C + c] = tot;
+    }
   }
 }
 
-// Op supplies, for the VEC channels from c0:
+// Op supplies its plan, typename Op::Plan, a type with the static
+// constexpr members kRows (rows in flight a row thread), kGroup (chunks a
+// first-level ticket gathers) and kFinalVec (1 or 4: values a load in
+// the partials' sums, 4 taken where VEC >= 4); and, for the VEC channels
+// from c0:
 //   typename Op::Raw: one row's inputs as loaded (16-byte vectors kept
 //       raw, converted at use);
 //   __device__ void begin(I c0);  once per thread, on the thread's own
@@ -237,7 +296,7 @@ __device__ __forceinline__ void sum_rows(const float* __restrict__ src,
 //   __device__ void fold(const Raw& raw, float (&s0)[VEC],
 //       float (&s1)[VEC]) const;  its two terms per channel added into
 //       s0 and s1.
-// The kernel issues kUnroll rows' loads before it folds any of them, so
+// The kernel issues kRows rows' loads before it folds any of them, so
 // they are in flight together (a fold between two loads would wait for
 // the first before the second could start).
 template <int VEC, class Op, typename I>
@@ -247,8 +306,12 @@ column_sums_sm90_kernel(const Op op, float* __restrict__ work,
                         unsigned* __restrict__ tickets, I M, I C,
                         I chunk_rows, int chunks, int groups) {
   constexpr int kWarps = kThreads / 32;
+  using Plan = typename Op::Plan;
+  constexpr int kRows = Plan::kRows;
+  constexpr int kGroup = Plan::kGroup;
+  constexpr int kFinal = VEC >= 4 ? Plan::kFinalVec : 1;
   __shared__ float sh[kWarps][2 * VEC * kChannelThreads];
-  __shared__ float fin[kThreads];
+  __shared__ float fin[kThreads * kFinal];
   __shared__ int is_last;
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int bx = blockDim.x, by = blockDim.y;
@@ -264,14 +327,14 @@ column_sums_sm90_kernel(const Op op, float* __restrict__ work,
   if (c0 < C) {
     Op mine = op;
     mine.begin(c0);
-    // kUnroll rows of each input in flight, added in row order
-    for (I r = r0 + (I)ty; r < r1; r += (I)(kUnroll * by)) {
-      typename Op::Raw raw[kUnroll];
+    // kRows rows of each input in flight, added in row order
+    for (I r = r0 + (I)ty; r < r1; r += (I)(kRows * by)) {
+      typename Op::Raw raw[kRows];
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u)
+      for (int u = 0; u < kRows; ++u)
         if (r + (I)(u * by) < r1) mine.load(r + (I)(u * by), c0, raw[u]);
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u)
+      for (int u = 0; u < kRows; ++u)
         if (r + (I)(u * by) < r1) mine.fold(raw[u], s0, s1);
     }
   }
@@ -317,12 +380,12 @@ column_sums_sm90_kernel(const Op op, float* __restrict__ work,
   const int64_t first = (int64_t)grp * kGroup;
   const int64_t end = first + kGroup < chunks ? first + kGroup : chunks;
   if (groups == 1) {
-    sum_rows<VEC>(work, first, end, out, C, bx, ctile, fin);
+    sum_rows<VEC, kFinal>(work, first, end, out, C, bx, ctile, fin);
     return;
   }
   float* gwork = work + (int64_t)chunks * 2 * C;
-  sum_rows<VEC>(work, first, end, gwork + (int64_t)grp * 2 * C, C, bx,
-                ctile, fin);
+  sum_rows<VEC, kFinal>(work, first, end, gwork + (int64_t)grp * 2 * C, C,
+                        bx, ctile, fin);
   __syncthreads();
   if (t == 0) {
     unsigned* tk = tickets + (int64_t)gridDim.y * groups + ctile;
@@ -331,7 +394,7 @@ column_sums_sm90_kernel(const Op op, float* __restrict__ work,
   }
   __syncthreads();
   if (!is_last) return;
-  sum_rows<VEC>(gwork, 0, groups, out, C, bx, ctile, fin);
+  sum_rows<VEC, kFinal>(gwork, 0, groups, out, C, bx, ctile, fin);
 }
 
 // One launch on `stream`: `work` holds workspace_floats(g, C) floats,

@@ -26,14 +26,17 @@
 // to f32 on load and round to nearest even on store.
 //
 // The training half of the file (dl4j_epilogue_backward,
-// dl4j_channel_sums, at the end) holds the two reductions of the family;
-// column_reduce.cuh says how they sum.
+// dl4j_channel_sums, at the end) holds the two reductions of the family:
+// the first on column_reduce.cuh (two launches), the second on
+// column_reduce_sm90.cuh (one launch); each header says how it sums.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <stdio.h>
 
 #include "column_reduce.cuh"
+#include "column_reduce_sm90.cuh"
 
 namespace {
 
@@ -249,29 +252,75 @@ extern "C" int dl4j_scale_shift_act(const void* x, void* y, const void* scale,
 // _channel_sums; the statistics of training BatchNormalization):
 //   sums[0] = sum_rows x, sums[1] = sum_rows x * x.
 //
-// Bound: bytes. channel_sums reads x once (4 bytes an element in f32);
-// epilogue_backward reads x and dy and writes dx (12 bytes in f32) for
-// about six operations an element, far below the card's f32 rate. Both
-// read with 16-byte vectors where C and the pointers allow it, and dx is
-// written in the same pass, so the backward never re-reads its inputs.
-// dx is bitwise equal to the plain version; the sums are deterministic
-// and agree with the plain version to rounding (column_reduce.cuh).
+// Bound: bytes. channel_sums reads x once (4 bytes an element in f32, 2
+// in 16 bit); epilogue_backward reads x and dy and writes dx (12 bytes in
+// f32) for about six operations an element, far below the card's f32
+// rate. Both read with 16-byte vectors where C and the pointers allow
+// it, and dx is written in the same pass, so the backward never re-reads
+// its inputs. dx is bitwise equal to the plain version; the sums are
+// deterministic and agree with the plain version to rounding.
+//
+// epilogue_backward sums on column_reduce.cuh: per-chunk partials, then
+// a finalize launch. channel_sums is one launch a site on
+// column_reduce_sm90.cuh (StatsOp below): a grid of row chunks x channel
+// tiles fixed by (M, C, element size), each thread's 16-byte row vectors
+// kept raw and converted at use, 32-bit indices where M * C < 2^30, the
+// blocks' partials meeting through integer tickets (no finalize launch,
+// no float atomic, the same bits from two launches). Its plan is sized
+// for one input: a row is one 16-byte vector a thread, half of what
+// kernel 5 (x and dy) loads, so a thread keeps StatsPlan::kRows rows in
+// flight to have as many bytes in flight as kernel 5 has.
 namespace {
 
+// Kernel 3's plan on column_reduce_sm90.cuh, each constant timed against
+// its neighbours over a ResNet-50 step's 53 sites (PERF.md §6): 8 rows in
+// flight (4, 6, 12 and 16 were slower; 16 spills), groups of 256 chunks,
+// more than a site ever has (at most the header's kTargetBlocks), so
+// every site takes one ticket level (groups of 16, 32 and 64 were
+// slower), and the last block reads the partials as 16-byte vectors, 4
+// values a load (scalar loads were slower at one level: 2 lanes a value
+// at C = 64 in 16 bit).
+struct StatsPlan {
+  static constexpr int kRows = 8;
+  static constexpr int kGroup = 256;
+  static constexpr int kFinalVec = 4;
+};
+
+// One row of x for VEC channels, as loaded: a raw 16-byte vector, or VEC
+// elements
+template <typename T, int VEC, bool kVector = VEC * sizeof(T) == 16>
+struct StatsRaw {
+  uint4 x;
+};
 template <typename T, int VEC>
+struct StatsRaw<T, VEC, false> {
+  T x[VEC];
+};
+
+template <typename T, int VEC, typename I>
 struct StatsOp {
+  using Plan = StatsPlan;
+  using Raw = StatsRaw<T, VEC>;
   const T* x;
-  int64_t C;
-  __device__ __forceinline__ void begin(int64_t) {}
-  __device__ __forceinline__ void row(int64_t r, int64_t c0,
-                                      float (&s0)[VEC],
-                                      float (&s1)[VEC]) const {
-    float xv[VEC];
-    dl4j::load_vec<T, VEC>(x + r * C + c0, xv);
+  I C;
+  __device__ __forceinline__ void begin(I) {}
+  __device__ __forceinline__ void load(I r, I c0, Raw& raw) const {
+    const I off = r * C + c0;
+    if constexpr (VEC * sizeof(T) == 16) {
+      raw.x = __ldg(reinterpret_cast<const uint4*>(x + off));
+    } else {
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) raw.x[v] = x[off + v];
+    }
+  }
+  __device__ __forceinline__ void fold(const Raw& raw, float (&s0)[VEC],
+                                       float (&s1)[VEC]) const {
+    const T* xe = reinterpret_cast<const T*>(&raw.x);
 #pragma unroll
     for (int v = 0; v < VEC; ++v) {
-      s0[v] = __fadd_rn(s0[v], xv[v]);
-      s1[v] = __fadd_rn(s1[v], __fmul_rn(xv[v], xv[v]));
+      const float xv = dl4j::to_f(xe[v]);
+      s0[v] = __fadd_rn(s0[v], xv);
+      s1[v] = __fadd_rn(s1[v], __fmul_rn(xv, xv));
     }
   }
 };
@@ -314,20 +363,35 @@ struct EpilogueBwdOp {
   }
 };
 
+template <typename T, int VEC, typename I>
+int channel_sums_launch(const T* x, const dl4j::sm90::Geom& g, float* work,
+                        float* sums, int64_t M, int64_t C,
+                        cudaStream_t stream) {
+  return dl4j::sm90::launch_column_sums<VEC, StatsOp<T, VEC, I>, I>(
+      StatsOp<T, VEC, I>{x, (I)C}, g, work, sums, M, C, stream);
+}
+
 template <typename T>
-int channel_sums_typed(const void* x, float* partials, int64_t capacity,
+int channel_sums_typed(const void* x, float* work, int64_t capacity,
                        float* sums, int64_t M, int64_t C,
                        cudaStream_t stream) {
-  const dl4j::ColumnGeom g =
-      dl4j::column_geom(M, C, sizeof(T), dl4j::aligned16(x));
-  if (g.chunks > capacity) return (int)cudaErrorInvalidValue;
+  const dl4j::sm90::Geom g =
+      dl4j::sm90::geom<StatsPlan>(M, C, sizeof(T), dl4j::aligned16(x));
+  if (dl4j::sm90::workspace_floats(g, C) > capacity)
+    return (int)cudaErrorInvalidValue;
   constexpr int kFull = 16 / sizeof(T);
   const T* xt = static_cast<const T*>(x);
   if (g.vec == kFull)
-    return dl4j::launch_column_sums<kFull>(StatsOp<T, kFull>{xt, C}, g,
-                                           partials, sums, M, C, stream);
-  return dl4j::launch_column_sums<1>(StatsOp<T, 1>{xt, C}, g, partials,
-                                     sums, M, C, stream);
+    return g.wide_index
+               ? channel_sums_launch<T, kFull, int64_t>(xt, g, work, sums, M,
+                                                        C, stream)
+               : channel_sums_launch<T, kFull, int32_t>(xt, g, work, sums, M,
+                                                        C, stream);
+  return g.wide_index
+             ? channel_sums_launch<T, 1, int64_t>(xt, g, work, sums, M, C,
+                                                  stream)
+             : channel_sums_launch<T, 1, int32_t>(xt, g, work, sums, M, C,
+                                                  stream);
 }
 
 template <typename T, int VEC, bool RELU>
@@ -373,9 +437,9 @@ int elem_bytes(int dtype) { return dtype == 0 ? 4 : 2; }
 
 }  // namespace
 
-// Rows of the [chunks, 2, C] f32 workspace that dl4j_epilogue_backward and
-// dl4j_channel_sums need for an [M, C] input of `dtype` (0 = float32,
-// 1 = bfloat16, 2 = float16).
+// Rows of the [chunks, 2, C] f32 workspace that dl4j_epilogue_backward
+// needs for an [M, C] input of `dtype` (0 = float32, 1 = bfloat16,
+// 2 = float16).
 extern "C" int64_t dl4j_conv_epilogue_chunks(int64_t M, int64_t C,
                                              int dtype) {
   if (M <= 0 || C <= 0) return 1;
@@ -413,20 +477,44 @@ extern "C" int dl4j_epilogue_backward(const void* x, const void* dy,
   return (int)cudaErrorInvalidValue;
 }
 
+// Floats of the f32 workspace dl4j_channel_sums needs for an [M, C] input
+// of `dtype`.
+extern "C" int64_t dl4j_channel_sums_workspace(int64_t M, int64_t C,
+                                               int dtype) {
+  if (M <= 0 || C <= 0) return 0;
+  return dl4j::sm90::workspace_floats(
+      dl4j::sm90::geom<StatsPlan>(M, C, elem_bytes(dtype), true), C);
+}
+
 // sums[2, C] = (sum x, sum x * x) over the M rows of x [M, C] of `dtype`;
-// partials as for dl4j_epilogue_backward.
-extern "C" int dl4j_channel_sums(const void* x, void* partials,
+// work: `capacity` f32 floats (dl4j_channel_sums_workspace); sums: f32
+// [2, C]. One launch on `stream`; no synchronisation, no allocation.
+// Returns the cudaError_t (0 on success).
+extern "C" int dl4j_channel_sums(const void* x, void* work,
                                  int64_t capacity, void* sums, int64_t M,
                                  int64_t C, int dtype, void* stream) {
   if (M <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* pt = static_cast<float*>(partials);
+  float* wk = static_cast<float*>(work);
   float* out = static_cast<float*>(sums);
   if (dtype == 0)
-    return channel_sums_typed<float>(x, pt, capacity, out, M, C, s);
+    return channel_sums_typed<float>(x, wk, capacity, out, M, C, s);
   if (dtype == 1)
-    return channel_sums_typed<__nv_bfloat16>(x, pt, capacity, out, M, C, s);
+    return channel_sums_typed<__nv_bfloat16>(x, wk, capacity, out, M, C, s);
   if (dtype == 2)
-    return channel_sums_typed<__half>(x, pt, capacity, out, M, C, s);
+    return channel_sums_typed<__half>(x, wk, capacity, out, M, C, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The geometry dl4j_channel_sums takes for these arguments, as text in
+// `out` (at most `len` bytes with its terminating 0). Launches nothing.
+extern "C" int dl4j_channel_sums_describe(const void* x, int64_t M,
+                                          int64_t C, int dtype, char* out,
+                                          int len) {
+  if (M <= 0 || C <= 0 || dtype < 0 || dtype > 2 || len <= 0)
+    return (int)cudaErrorInvalidValue;
+  const dl4j::sm90::Geom g = dl4j::sm90::geom<StatsPlan>(
+      M, C, elem_bytes(dtype), dl4j::aligned16(x));
+  dl4j::sm90::describe(g, StatsPlan::kRows, out, len);
+  return 0;
 }

@@ -95,20 +95,6 @@ def bn_bwd_dx_plain(x2d: torch.Tensor, dy2d: torch.Tensor,
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
-def _sums_workspace(x2d: torch.Tensor, M: int, C: int):
-    """Pass 1's f32 workspace (its chunk and group partials, as many
-    floats as ``dl4j_bn_sums_workspace`` asks) and its ``[2, C]``
-    output, one allocation from torch's stream-ordered allocator (under
-    CUDA-graph capture, from the graph's pool), so every launch has a
-    workspace of its own; the output views keep it alive."""
-    fn = cuda_build.c_function("bn_train", "dl4j_bn_sums_workspace",
-                               [_I64, _I64, _INT], ctypes.c_int64)
-    floats = int(fn(M, C, ce.DTYPE_CODE[x2d.dtype]))
-    buf = torch.empty(floats + 2 * C, dtype=torch.float32,
-                      device=x2d.device)
-    return buf, floats, buf[floats:].view(2, C)
-
-
 def bn_bwd_sums(x2d: torch.Tensor, dy2d: torch.Tensor, mean: torch.Tensor,
                 rstd: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Pass 1 on an [M, C] view: the kernel on the card (f32 sums, one
@@ -121,7 +107,8 @@ def bn_bwd_sums(x2d: torch.Tensor, dy2d: torch.Tensor, mean: torch.Tensor,
     if M == 0:
         z = torch.zeros(C, dtype=torch.float32, device=x2d.device)
         return z, z.clone()
-    work, floats, sums = _sums_workspace(x2d, M, C)
+    work, floats, sums = ce.sums_workspace(x2d, M, C, "bn_train",
+                                           "dl4j_bn_sums_workspace")
     fn = cuda_build.c_function(
         "bn_train", "dl4j_bn_bwd_sums",
         [_P, _P, _P, _P, _P, _I64, _P, _I64, _I64, _INT, _P])

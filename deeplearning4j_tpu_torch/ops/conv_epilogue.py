@@ -303,11 +303,11 @@ def scale_shift_act_forward(x: torch.Tensor, scale: torch.Tensor,
 
 def column_workspace(x: torch.Tensor, M: int, C: int, lib: str,
                      chunks_fn: str):
-    """The f32 ``[chunks, 2, C]`` partials workspace of a column
-    reduction and its ``[2, C]`` output, from torch's allocator. The
-    workspace is freed when the wrapper returns, before the kernel has
-    run; the caching allocator hands its block only to work queued
-    after the kernel on the same stream, so that is safe."""
+    """The f32 ``[chunks, 2, C]`` partials workspace of kernel 2's
+    two-launch column reduction and its ``[2, C]`` output, from torch's
+    allocator. The workspace is freed when the wrapper returns, before
+    the kernel has run; the caching allocator hands its block only to
+    work queued after the kernel on the same stream, so that is safe."""
     fn = cuda_build.c_function(lib, chunks_fn, [_I64, _I64, _INT],
                                ctypes.c_int64)
     chunks = int(fn(M, C, DTYPE_CODE[x.dtype]))
@@ -350,27 +350,60 @@ def epilogue_backward(x2d: torch.Tensor, dy2d: torch.Tensor,
     return dx, sums[1], sums[0]
 
 
+def sums_workspace(x2d: torch.Tensor, M: int, C: int, lib: str,
+                   floats_fn: str):
+    """The f32 workspace of a one-launch column reduction
+    (``csrc/column_reduce_sm90.cuh``: its chunk and group partials, as
+    many floats as ``floats_fn`` of ``lib`` asks) and its ``[2, C]``
+    output, one allocation from torch's stream-ordered allocator (under
+    CUDA-graph capture, from the graph's pool), so every launch has a
+    workspace of its own; the output view keeps it alive."""
+    fn = cuda_build.c_function(lib, floats_fn, [_I64, _I64, _INT],
+                               ctypes.c_int64)
+    floats = int(fn(M, C, DTYPE_CODE[x2d.dtype]))
+    buf = torch.empty(floats + 2 * C, dtype=torch.float32,
+                      device=x2d.device)
+    return buf, floats, buf[floats:].view(2, C)
+
+
 def channel_sums(x2d: torch.Tensor) -> torch.Tensor:
     """``[Σx, Σx²]`` per channel of an [M, C] view as a [2, C] tensor:
-    the kernel on the card (f32 sums), the plain version on the CPU."""
+    the kernel on the card (f32 sums, one launch), the plain version on
+    the CPU."""
     if x2d.device.type == "cpu":
         return channel_sums_plain(x2d)
     C = check_rows("channel_sums", x2d)
     M = x2d.numel() // C
     if M == 0:
         return torch.zeros((2, C), dtype=torch.float32, device=x2d.device)
-    partials, chunks, sums = column_workspace(
-        x2d, M, C, "conv_epilogue", "dl4j_conv_epilogue_chunks")
+    work, floats, sums = sums_workspace(x2d, M, C, "conv_epilogue",
+                                        "dl4j_channel_sums_workspace")
     fn = cuda_build.c_function(
         "conv_epilogue", "dl4j_channel_sums",
         [_P, _P, _I64, _P, _I64, _I64, _INT, _P])
     with torch.cuda.device(x2d.device):
         stream = torch.cuda.current_stream(x2d.device).cuda_stream
-        rc = fn(x2d.data_ptr(), partials.data_ptr(), chunks,
-                sums.data_ptr(), M, C, DTYPE_CODE[x2d.dtype], stream)
+        rc = fn(x2d.data_ptr(), work.data_ptr(), floats, sums.data_ptr(), M,
+                C, DTYPE_CODE[x2d.dtype], stream)
     raise_on_error("channel_sums", rc)
     CHANNEL_SUMS.launched()
     return sums
+
+
+def channel_sums_body(x2d: torch.Tensor) -> str:
+    """The geometry :func:`channel_sums` takes for a CUDA ``x2d`` [M, C],
+    as the kernel names it: vector width, rows in flight, block, grid of
+    chunks and channel tiles, ticket groups and levels, index width.
+    Launches nothing."""
+    C = int(x2d.shape[-1])
+    M = x2d.numel() // C
+    fn = cuda_build.c_function(
+        "conv_epilogue", "dl4j_channel_sums_describe",
+        [_P, _I64, _I64, _INT, ctypes.c_char_p, _INT])
+    buf = ctypes.create_string_buffer(256)
+    rc = fn(x2d.data_ptr(), M, C, DTYPE_CODE[x2d.dtype], buf, len(buf))
+    raise_on_error("channel_sums_body", rc)
+    return buf.value.decode()
 
 
 def matmul_bias_act_forward(x2d: torch.Tensor, w: torch.Tensor,

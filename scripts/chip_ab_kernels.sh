@@ -11,8 +11,10 @@
 # `phase_paged_kernel`; this tree's `chip_smoke.phase_kernel_paths` runs
 # against each tree's package (it uses only entry points every tree
 # has). Logs go to log-dir (by default build/chip_ab/); the summary
-# lines are printed: kernel 4's and 6's totals, kernel 5's totals and
-# sites, kernel 10's `[paged]` timings and the paths' busy times.
+# lines are printed: kernel 4's, 2's and 6's totals, kernel 3's and 5's
+# totals and sites, kernel 10's `[paged]` timings and the paths' busy
+# times. Last, each tree's kernels 2 and 5 sum the same seeded inputs at
+# the 53 sites' shapes, and the script says whether their bits agree.
 set -u
 PARENT=$(cd "$1" && pwd)
 ROOT=$(pwd)
@@ -47,8 +49,35 @@ for tree in parent new new parent; do
     && timeout 600 python3 -c "$phases" \
     && timeout 400 python3 -c "$paths") > "$log" 2>&1
   echo "run $i $tree rc=$?"
-  grep -E 'forward, 17 sites|bn_bwd_dx [a-z0-9]*, 53' "$log" | cut -c1-200
-  grep -E -A1 'bn_bwd_sums [a-z0-9]*, 53' "$log" | grep -v '^--' \
-    | cut -c1-900
+  grep -E 'forward, 17 sites|(bn_bwd_dx|epilogue_backward) [a-z0-9]*, 53' \
+    "$log" | cut -c1-200
+  grep -E -A1 '(bn_bwd_sums|channel_sums) [a-z0-9]*, 53' "$log" \
+    | grep -v '^--' | cut -c1-900
   grep -E '^\[paged\] [a-z0-9]+ pool, L=|^\[paths\]' "$log" | cut -c1-300
 done
+bits="import sys, torch, chip_smoke as c
+from deeplearning4j_tpu_torch.models.zoo import ResNet50
+from deeplearning4j_tpu_torch.ops import bn_train as bt
+from deeplearning4j_tpu_torch.ops import conv_epilogue as ce
+g = torch.Generator(device='cuda').manual_seed(29)
+out = {}
+for M, C, act in sorted(set(c.bn_sites(ResNet50().conf(), c.BATCH))):
+    for dt in (torch.float32, torch.bfloat16, torch.float16):
+        x, dy = (torch.randn(M, C, device='cuda', generator=g).to(dt)
+                 for _ in range(2))
+        v = [torch.randn(C, device='cuda', generator=g) for _ in range(2)]
+        key = f'{M}x{C} {dt}'
+        out['k2 ' + key] = torch.stack(ce.epilogue_backward(
+            x, dy, v[0], v[1], act)[1:]).cpu()
+        out['k5 ' + key] = torch.stack(bt.bn_bwd_sums(
+            x, dy, v[0], v[1].abs() + 0.5)).cpu()
+torch.save(out, sys.argv[1])"
+(cd "$PARENT" && python3 -c "$bits" "$OUT/bits_parent.pt")
+python3 -c "$bits" "$OUT/bits_new.pt"
+python3 -c "import sys, torch
+a, b = (torch.load(p) for p in sys.argv[1:])
+for k in ('k2', 'k5'):
+    same = all(torch.equal(a[n], b[n]) for n in a if n.startswith(k))
+    print(f'[bits] kernel {k[1]} sums, this tree vs parent at the 9 site '
+          f'shapes x 3 dtypes: bitwise equal {same}')" \
+  "$OUT/bits_parent.pt" "$OUT/bits_new.pt"

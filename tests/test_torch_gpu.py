@@ -221,10 +221,10 @@ def test_bn_bwd_dx_each_body_bitwise_equal_to_plain(case, dtype):
     assert torch.equal(dx, dx2)
 
 
-#: (M, C, view) for kernel 5's one-launch sums: the 9 (M, C) site shapes
-#: of a batch-32 ResNet-50 step, C % 8 != 0 (scalar body), a pointer off
-#: 16 bytes ("tail": x[1:] of a flat buffer one element longer), and M
-#: below one chunk (one chunk, one ticket group)
+#: (M, C, view) for the one-launch sums of kernels 5 and 3: the 9 (M, C)
+#: site shapes of a batch-32 ResNet-50 step, C % 8 != 0 (scalar body), a
+#: pointer off 16 bytes ("tail": x[1:] of a flat buffer one element
+#: longer), and M below one chunk (one chunk, one ticket group)
 BN_SUMS_CASES = [
     (1568, 512, None), (1568, 2048, None), (6272, 256, None),
     (6272, 1024, None), (25088, 128, None), (25088, 512, None),
@@ -232,6 +232,9 @@ BN_SUMS_CASES = [
     (777, 3, None), (3000, 20, None), (1000, 64, "tail"), (40, 64, None),
     (1, 512, None),
 ]
+#: the kernels on column_reduce_sm90.cuh: kernel 5 (bn_bwd_sums, x and
+#: dy) and kernel 3 (channel_sums, x alone)
+SUMS_KERNELS = ["bn_bwd_sums", "channel_sums"]
 
 
 def _bn_sums_inputs(M, C, view, dtype, g):
@@ -256,70 +259,92 @@ def _bn_sums_close(x, dy, mean, rstd, sdy, sdyx):
     _sums_close(sdyx, rsdyx, t_dyx, "sum dy*xhat")
 
 
+def _one_launch_sums(kernel, ins):
+    """Kernel 5 or 3 on the inputs of ``_bn_sums_inputs``: (a call giving
+    its two sums, the body it names, its Kernel, a check of two sums
+    against the plain version)."""
+    from deeplearning4j_tpu_torch.ops import bn_train as bt
+    x, dy, mean, rstd = ins
+    if kernel == "bn_bwd_sums":
+        return (lambda: bt.bn_bwd_sums(x, dy, mean, rstd),
+                bt.bn_bwd_sums_body(x, dy), bt.BN_BWD_SUMS,
+                lambda got: _bn_sums_close(x, dy, mean, rstd, *got))
+
+    def close(got):
+        want, terms = ce.channel_sums_plain(x), ce.channel_sums_plain(x.abs())
+        _sums_close(got[0], want[0], terms[0], "sum x")
+        _sums_close(got[1], want[1], terms[1], "sum x*x")
+
+    return (lambda: tuple(ce.channel_sums(x)), ce.channel_sums_body(x),
+            ce.CHANNEL_SUMS, close)
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("kernel", SUMS_KERNELS)
 @pytest.mark.parametrize("case", BN_SUMS_CASES,
                          ids=lambda c: f"{c[0]}x{c[1]}"
                                        + (f"-{c[2]}" if c[2] else ""))
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
-def test_bn_bwd_sums_one_launch_matches_plain(case, dtype):
-    """Kernel 5 within SUM_RTOL x sum|terms| of the plain version, bitwise
-    across two launches and across a CUDA-graph replay, one launch a
-    call; the body it names is the one its shape asks for."""
-    from deeplearning4j_tpu_torch.ops import bn_train as bt
+def test_bn_bwd_sums_one_launch_matches_plain(case, dtype, kernel):
+    """Kernels 5 and 3 within SUM_RTOL x sum|terms| of their plain
+    versions, bitwise across two launches and across a CUDA-graph
+    replay, one launch a call; the body each names is the one its shape
+    asks for."""
     _need_card()
     g = torch.Generator(device="cuda").manual_seed(17)
     M, C, view = case
-    x, dy, mean, rstd = _bn_sums_inputs(M, C, view, dtype, g)
-    body = bt.bn_bwd_sums_body(x, dy)
-    vec = C % (16 // x.element_size()) == 0 and view is None
+    ins = _bn_sums_inputs(M, C, view, dtype, g)
+    call, body, counter, close = _one_launch_sums(kernel, ins)
+    vec = C % (16 // ins[0].element_size()) == 0 and view is None
     assert body.startswith("one launch, " + ("16-byte vectors" if vec
                                              else "scalar")), body
     if M <= 64:
         assert "grid 1x" in body, body
-    n0 = bt.BN_BWD_SUMS.launches
-    sdy, sdyx = bt.bn_bwd_sums(x, dy, mean, rstd)
-    sdy2, sdyx2 = bt.bn_bwd_sums(x, dy, mean, rstd)
+    n0 = counter.launches
+    s0, s1 = call()
+    s0b, s1b = call()
     torch.cuda.synchronize()
-    assert bt.BN_BWD_SUMS.launches == n0 + 2
-    assert torch.equal(sdy, sdy2) and torch.equal(sdyx, sdyx2)
-    _bn_sums_close(x, dy, mean, rstd, sdy, sdyx)
+    assert counter.launches == n0 + 2
+    assert torch.equal(s0, s0b) and torch.equal(s1, s1b)
+    close((s0, s1))
     graph = torch.cuda.CUDAGraph()
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        bt.bn_bwd_sums(x, dy, mean, rstd)
+        call()
     torch.cuda.current_stream().wait_stream(side)
     with torch.cuda.graph(graph):
-        gdy, gdyx = bt.bn_bwd_sums(x, dy, mean, rstd)
+        g0, g1 = call()
     for _ in range(3):
         graph.replay()
         torch.cuda.synchronize()
-        assert torch.equal(gdy, sdy) and torch.equal(gdyx, sdyx)
+        assert torch.equal(g0, s0) and torch.equal(g1, s1)
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("kernel", SUMS_KERNELS)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_bn_bwd_sums_two_streams_at_once(dtype):
-    """Launches in flight at once on two streams (and a graph replay on a
-    third) each give their own inputs' bits: their tickets are their
-    own."""
-    from deeplearning4j_tpu_torch.ops import bn_train as bt
+def test_bn_bwd_sums_two_streams_at_once(dtype, kernel):
+    """Launches of kernel 5 or 3 in flight at once on two streams (and a
+    graph replay on a third) each give their own inputs' bits: their
+    tickets are their own."""
     _need_card()
     g = torch.Generator(device="cuda").manual_seed(18)
     shapes = [(100352, 64), (25088, 512)]
-    ins = [_bn_sums_inputs(M, C, None, dtype, g) for M, C in shapes
-           for _ in range(2)]
-    want = [bt.bn_bwd_sums(*a) for a in ins]
+    calls = [_one_launch_sums(kernel,
+                              _bn_sums_inputs(M, C, None, dtype, g))[0]
+             for M, C in shapes for _ in range(2)]
+    want = [call() for call in calls]
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        gout = bt.bn_bwd_sums(*ins[0])
+        gout = calls[0]()
     streams = [torch.cuda.Stream() for _ in range(2)]
     for _ in range(10):
         outs = []
-        for i, a in enumerate(ins):
+        for i, call in enumerate(calls):
             with torch.cuda.stream(streams[i % 2]):
-                outs.append(bt.bn_bwd_sums(*a))
+                outs.append(call())
         graph.replay()
         torch.cuda.synchronize()
         for got, w in zip(outs, want):

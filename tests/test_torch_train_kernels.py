@@ -83,7 +83,13 @@ def test_epilogue_backward_plain_matches_pallas_vjp(shape, act):
     np.testing.assert_allclose(db.numpy(), wdb, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("shape", SHAPES)
+#: besides SHAPES, what kernel 3's one-launch geometry tells apart on the
+#: card: C % 8 != 0 (the scalar body), one row, and M not a multiple of a
+#: chunk (a short last chunk)
+STATS_SHAPES = SHAPES + [(2, 3, 3, 20), (5, 13), (1, 40), (1, 1, 1037, 64)]
+
+
+@pytest.mark.parametrize("shape", STATS_SHAPES)
 def test_channel_sums_plain_matches_pallas_stats(shape):
     x = _data(shape, 2)[0] + 0.5
     wmean, wvar = (np.asarray(a) for a in
