@@ -12,7 +12,9 @@ through the data-parallel entry points, staged by the device prefetcher
 (BASELINE config #5 on one card), a masked attention classifier at
 BERT-base widths built from DL4J layers in a ComputationGraph, and a
 2 x LSTM(512) character model imported from a frozen TF GraphDef with
-its loops (functional While and v1 frames) and trained in SameDiff.
+its loops (functional While and v1 frames) and trained in SameDiff, and
+the frozen Keras ResNet-50 imported, served and fine-tuned in SameDiff
+with the seven op domains of slice 18 swept on the card.
 
 Run from the root of a checkout, with no arguments, on a machine with
 one NVIDIA H100 (it fails without a card, and without the package):
@@ -303,6 +305,27 @@ Phases, each of which fails the run (exit 1) when its check fails:
     raises; (f) forward and step ms, host reads a step (0), device
     kernels and the idle share (profiler), peak memory of a step beside
     the ``lstm_layer`` route's and the masked loops' list storage.
+22. TF-imported ResNet-50: the frozen Keras ``ResNet50`` (224x224x3,
+    1000 classes, batch 32, 25.6 M parameters, weights from
+    ``resnet_graph.resnet50_weights(1000, 0)``) written without
+    TensorFlow by ``modelimport/tensorflow/resnet_graph.py``, imported
+    with ``run_import(device=None)``, TF32 off for cuBLAS and cuDNN:
+    served (probabilities finite, rows summing to 1), against the same
+    bytes imported on the CPU in float64 (``TF_RESNET_RTOL`` in norm),
+    bitwise repeatable under the deterministic algorithms, its 214
+    promoted weights' gradients against float64 at the card's own ReLU
+    and max-pool choices, 10 Adam(1e-3) ``fit_steps`` (the loss falls; no
+    kernel of ``csrc/`` launches); the 60 ops of the linalg, bitwise,
+    segment, convolution, image, random and compression domains and the
+    31 methods of ``sd.cnn`` / ``sd.image`` / ``sd.bitwise`` /
+    ``sd.linalg`` / ``sd.random`` on the card against the CPU (the
+    random ops by their bits for one key and their moments over 10^6
+    draws); forward and step ms, device kernels, the idle share and peak
+    memory.
+
+After phase 22, ``ticket_pool_check``: kernels 3 and 5 captured into
+CUDA graphs that take 1.5 x their ticket pool, each graph destroyed
+after it, then launched eagerly and under a new graph to the same bits.
 
 Then one JSON line of kernel records (each kernel's times from its own
 timing phase, its launches from the path that carries it), the
@@ -1045,6 +1068,102 @@ def _one_launch_device_kernels(torch, sites, g) -> dict:
               f"bf16 step: {launched} device kernels ({kernels})")
         out[name] = kernels
     del ins
+    return out
+
+
+#: ``csrc/column_reduce_sm90.cuh``'s ticket pool (``kTicketPool``), per
+#: library and device
+TICKET_POOL = 1 << 20
+
+
+def tickets_per_launch(body: str) -> int:
+    """The tickets one launch of kernel 3 or 5 takes (the header's
+    ``ticket_count``), from the geometry its ``*_body`` names: one a
+    (channel tile, group), and one a channel tile over several groups."""
+    import re
+    m = re.search(r"grid \d+x(\d+) \(chunks of \d+ rows x channel tiles\), "
+                  r"(\d+) ticket group", body)
+    check(m is not None, f"no ticket geometry in {body!r}")
+    ctiles, groups = int(m.group(1)), int(m.group(2))
+    return ctiles * (groups + (1 if groups > 1 else 0))
+
+
+def ticket_pool_check(torch, launches_per_graph: int = 64,
+                      share: float = 1.5) -> dict:
+    """Kernels 3 and 5 at the ResNet-50 site with the most tickets a
+    launch (1568 x 2048, f32) captured into CUDA graphs
+    (``launches_per_graph`` launches each), each graph instantiated,
+    replayed now and then and destroyed, until the graphs have taken
+    ``share`` x ``TICKET_POOL`` tickets: a captured launch's range goes
+    back to the pool with its graph, so none fails. Then an eager launch
+    and a new graph's replay still give the bits of the first eager
+    launch, within ``SUM_RTOL`` x sum|terms| of the plain version."""
+    import math
+
+    from deeplearning4j_tpu_torch.ops import bn_train as bt
+    from deeplearning4j_tpu_torch.ops import conv_epilogue as ce
+    g = torch.Generator(device="cuda").manual_seed(23)
+    M, C = 1568, 2048
+    x = torch.randn(M, C, device="cuda", generator=g)
+    dy = torch.randn(M, C, device="cuda", generator=g)
+    mean = 0.1 * torch.randn(C, device="cuda", generator=g)
+    rstd = torch.rand(C, device="cuda", generator=g) + 0.5
+    kernels = {
+        "channel_sums": (lambda: ce.channel_sums(x),
+                         ce.channel_sums_body(x)),
+        "bn_bwd_sums": (lambda: torch.stack(bt.bn_bwd_sums(x, dy, mean,
+                                                           rstd)),
+                        bt.bn_bwd_sums_body(x, dy))}
+    out = {}
+    for name, (call, body) in kernels.items():
+        per = tickets_per_launch(body)
+        graphs = math.ceil(share * TICKET_POOL / (per * launches_per_graph))
+        want = call()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            call()
+        torch.cuda.current_stream().wait_stream(side)
+        pool = torch.cuda.graph_pool_handle()
+        t0 = time.perf_counter()
+        for i in range(graphs):
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=pool):
+                got = [call() for _ in range(launches_per_graph)]
+            if i % 32 == 0:
+                graph.replay()
+                torch.cuda.synchronize()
+                check(all(torch.equal(t, want) for t in got),
+                      f"{name}: graph {i}'s replay changed the bits")
+            del got
+            graph.reset()
+        seconds = time.perf_counter() - t0
+        eager = call()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=pool):
+            replayed = call()
+        graph.replay()
+        torch.cuda.synchronize()
+        check(torch.equal(eager, want) and torch.equal(replayed, want),
+              f"{name}: after {graphs} graphs the bits changed")
+        if name == "channel_sums":
+            _sums_err(torch, eager, ce.channel_sums_plain(x),
+                      ce.channel_sums_plain(x.abs()), name)
+        else:
+            want_p = torch.stack(bt.bn_bwd_sums_plain(x, dy, mean, rstd))
+            terms = torch.stack(bt.bn_bwd_sums_plain(
+                (x - mean).abs(), dy.abs(), torch.zeros_like(mean), rstd))
+            _sums_err(torch, eager, want_p, terms, name)
+        out[name] = {"tickets_per_launch": per, "graphs": graphs,
+                     "launches_per_graph": launches_per_graph,
+                     "tickets_captured": graphs * launches_per_graph * per,
+                     "seconds": seconds}
+        print(f"[ticket-pool] {name}: {graphs} graphs x "
+              f"{launches_per_graph} launches x {per} tickets = "
+              f"{out[name]['tickets_captured']} tickets captured, "
+              f"instantiated and destroyed ({share} x the pool of "
+              f"{TICKET_POOL}) in {seconds:.1f}s; then an eager launch and "
+              f"a new graph's replay bitwise equal to the first launch")
     return out
 
 
@@ -5995,6 +6114,811 @@ def phase_tf_lstm(torch, label: str, device: str = "cuda",
         torch.backends.cuda.matmul.allow_tf32 = prev_tf32
 
 
+# ---------------------------------------------------------------------------
+#: phase 22: the frozen Keras ResNet-50 at full width
+TF_RESNET = dict(image=224, classes=1000, batch=32, seed=0)
+TF_RESNET_STEPS = 10
+#: card f32 (TF32 off) against the CPU in float64, relative in norm
+TF_RESNET_RTOL = 1e-4
+#: the domain sweep, card against the CPU: floats (the card's own
+#: algorithms and summation orders, TF32 off), exact for the rest
+SWEEP_TOL = dict(rtol=1e-4, atol=1e-5)
+#: draws of each random op for its moments
+SWEEP_DRAWS = 10 ** 6
+
+
+class _Seeded:
+    """Seeded numpy inputs for one op's cases: ``RandomState`` from the
+    op's name."""
+
+    def __init__(self, name: str):
+        import zlib
+
+        import numpy as np
+        self.np = np
+        self.rs = np.random.RandomState(zlib.crc32(name.encode()))
+
+    def f(self, *shape, lo=-1.0, hi=1.0):
+        return self.rs.uniform(lo, hi, shape).astype(self.np.float32)
+
+    def n(self, *shape):
+        return self.rs.randn(*shape).astype(self.np.float32)
+
+    def i(self, lo, hi, *shape):
+        return self.rs.randint(lo, hi, shape).astype(self.np.int32)
+
+    def b(self, *shape):
+        return self.rs.rand(*shape) < 0.5
+
+
+def domain_cases() -> dict:
+    """op -> [(inputs, attrs), ...] for the 60 ops of the linalg,
+    bitwise, segment, convolution, image, random and compression
+    domains, at small shapes: strides 1 and 2, ``SAME`` / ``VALID`` /
+    explicit padding, even and odd sizes, up- and downscaling, empty
+    segments, ties and dropped ids, shift amounts 0, bits-1, bits and
+    bits+3. ``tests/test_torch_sd_registry.py`` holds each against the
+    JAX package; phase 22 runs each on the card against the CPU."""
+    import numpy as np
+    c = {}
+
+    def add(name, fn):
+        c[name] = fn(_Seeded(name))
+
+    seg = lambda *v: np.asarray(v, np.int32)
+    spd = lambda r, n: (lambda a: (a @ a.T + n * np.eye(n)).astype(
+        np.float32))(r.n(n, n))
+    well = lambda r, *s: (r.n(*s) + 3 * np.eye(s[-1])).astype(np.float32)
+    lower = lambda r, n: (np.tril(r.n(n, n)) + 3 * np.eye(n)).astype(
+        np.float32)
+    # linalg (well-conditioned inputs)
+    add("lu", lambda r: [([well(r, 4, 4)], {}), ([r.n(3, 3)], {})])
+    add("qr", lambda r: [([r.n(5, 3)], {}), ([well(r, 3, 3)], {})])
+    add("cholesky", lambda r: [([spd(r, 4)], {})])
+    add("svd", lambda r: [([r.n(5, 3)], {}),
+                          ([r.n(3, 4)], {"full_matrices": False})])
+    add("matrix_inverse", lambda r: [([well(r, 3, 3)], {}),
+                                     ([well(r, 2, 3, 3)], {})])
+    add("matrix_determinant", lambda r: [([well(r, 3, 3)], {}),
+                                         ([well(r, 2, 3, 3)], {})])
+    add("triangular_solve", lambda r: [
+        ([lower(r, 4), r.n(4, 2)], {}),
+        ([lower(r, 4).T.copy(), r.n(4, 2)], {"lower": False}),
+        ([lower(r, 4), r.n(4)], {"lower": True})])
+    add("solve", lambda r: [([well(r, 3, 3), r.n(3, 2)], {}),
+                            ([well(r, 3, 3), r.n(3)], {})])
+    add("trace", lambda r: [([r.n(3, 4)], {}), ([r.n(2, 3, 3)], {}),
+                            ([r.i(-5, 5, 3, 3)], {})])
+    add("diag", lambda r: [([r.n(4)], {}), ([r.n(3, 3)], {})])
+    for nm in ("diag_part", "matrix_diag_part"):
+        add(nm, lambda r: [([r.n(2, 3, 4)], {}), ([r.n(4, 3)], {})])
+    add("eye", lambda r: [([], {"rows": 3}),
+                          ([], {"rows": 2, "cols": 4, "dtype": "int32"})])
+    add("matrix_diag", lambda r: [([r.n(2, 3)], {}), ([r.n(4)], {})])
+    # bitwise: shift amounts 0, bits-1, bits, bits+3 and one more
+    u8 = lambda r: r.rs.randint(0, 256, 6).astype(np.uint8)
+    for nm in ("bitwise_and", "bitwise_or", "bitwise_xor"):
+        add(nm, lambda r: [([r.i(-99, 99, 3, 4), r.i(-99, 99, 4)], {}),
+                           ([u8(r), u8(r)], {}),
+                           ([r.b(3, 4), r.b(3, 4)], {})])
+    add("bitwise_not", lambda r: [([r.i(-99, 99, 3, 4)], {}),
+                                  ([u8(r)], {})])
+    shifts = {np.int32: [0, 31, 32, 35, 3, -1], np.uint8: [0, 7, 8, 11, 3, 1],
+              np.int16: [0, 15, 16, 19, 5, -2], np.int8: [0, 7, 8, 11, 2, 1]}
+
+    def shift_cases(r):
+        out = []
+        for dt, s in shifts.items():
+            info = np.iinfo(dt)
+            x = r.rs.randint(info.min, int(info.max) + 1, 6).astype(dt)
+            x[0], x[1] = info.min, -1 if info.min < 0 else info.max
+            out.append(([x, np.asarray(s, dt)], {}))
+        return out
+    for nm in ("left_shift", "right_shift", "cyclic_shift_left",
+               "cyclic_shift_right"):
+        add(nm, shift_cases)
+    # segment: an empty segment, ties, dropped ids (negative, too large)
+    tied = np.asarray([[1, 2], [1, 5], [3, 3], [0, 3], [2, 2], [2, -1]],
+                      np.float32)
+    for nm in ("segment_sum", "unsorted_segment_sum"):
+        add(nm, lambda r: [
+            ([r.n(6, 3), seg(0, 0, 1, 3, 3, 3)], {}),
+            ([r.n(6, 3), seg(2, -1, 0, 7, 2, 1)], {"num_segments": 5}),
+            ([r.i(-9, 9, 6), seg(3, 0, 1, 0, 3, 3)], {})])
+    for nm in ("segment_max", "segment_min", "unsorted_segment_max",
+               "unsorted_segment_min"):
+        add(nm, lambda r: [
+            ([r.n(6, 3), seg(1, 0, 2, 0, 1, 2)], {}),
+            ([tied, seg(0, 0, 1, 1, 4, 4)], {"num_segments": 6}),
+            ([r.n(6, 3), seg(2, -1, 0, 7, 2, 1)], {"num_segments": 5}),
+            ([r.i(-9, 9, 6), seg(3, 0, 1, 0, 3, 3)], {})])
+    for nm in ("segment_prod", "unsorted_segment_prod"):
+        add(nm, lambda r: [
+            ([r.f(6, 3, lo=0.5, hi=1.5), seg(0, 0, 1, 3, 3, 3)], {}),
+            ([r.i(-3, 4, 6), seg(2, -1, 0, 7, 2, 1)], {"num_segments": 5})])
+    for nm in ("segment_mean", "unsorted_segment_mean",
+               "unsorted_segment_sqrt_n"):
+        add(nm, lambda r: [
+            ([r.n(6, 3), seg(0, 0, 1, 3, 3, 3)], {}),
+            ([r.n(6, 3), seg(2, -1, 0, 7, 2, 1)], {"num_segments": 5}),
+            ([r.i(-9, 9, 6), seg(3, 0, 1, 0, 3, 3)], {})])
+    # convolution (TF's SAME pads more at the end when the total is odd)
+    add("conv2d", lambda r: [
+        ([r.n(2, 5, 5, 3), r.n(3, 3, 3, 4) * 0.3], {"stride": (1, 1),
+                                                    "padding": "SAME"}),
+        ([r.n(2, 6, 6, 3), r.n(3, 3, 3, 4) * 0.3, r.n(4)],
+         {"stride": (2, 2), "padding": "SAME"}),
+        ([r.n(2, 7, 7, 3), r.n(3, 3, 3, 4) * 0.3], {"stride": (2, 2),
+                                                    "padding": "SAME"}),
+        ([r.n(2, 6, 5, 3), r.n(2, 3, 3, 4) * 0.3], {"stride": (2, 1),
+                                                    "padding": "VALID"}),
+        ([r.n(1, 5, 6, 2), r.n(3, 2, 2, 3) * 0.3],
+         {"stride": (1, 2), "padding": [(1, 2), (0, 1)]}),
+        ([r.n(1, 7, 7, 2), r.n(3, 3, 2, 3) * 0.3],
+         {"padding": "SAME", "dilation": (2, 2)}),
+        ([r.n(1, 8, 8, 3), r.n(1, 1, 3, 4) * 0.3], {"stride": (2, 2),
+                                                    "padding": "VALID"})])
+    add("conv1d", lambda r: [
+        ([r.n(2, 7, 3), r.n(3, 3, 4) * 0.3], {"stride": 2}),
+        ([r.n(2, 8, 3), r.n(2, 3, 4) * 0.3, r.n(4)], {"padding": "VALID"}),
+        ([r.n(1, 6, 2), r.n(3, 2, 3) * 0.3], {"padding": [(2, 0)],
+                                              "dilation": 2})])
+    add("conv3d", lambda r: [
+        ([r.n(1, 4, 5, 5, 2), r.n(3, 3, 3, 2, 3) * 0.3], {}),
+        ([r.n(1, 5, 4, 6, 2), r.n(2, 2, 2, 2, 3) * 0.3, r.n(3)],
+         {"stride": (2, 2, 2)}),
+        ([r.n(1, 4, 4, 4, 2), r.n(2, 2, 2, 2, 3) * 0.3],
+         {"stride": (1, 2, 1), "padding": "VALID"})])
+    add("depthwise_conv2d", lambda r: [
+        ([r.n(2, 6, 6, 3), r.n(3, 3, 3, 2) * 0.3], {"stride": (2, 2)}),
+        ([r.n(2, 5, 5, 3), r.n(3, 3, 3, 2) * 0.3, r.n(6)],
+         {"padding": "VALID"}),
+        ([r.n(1, 5, 6, 2), r.n(2, 2, 2, 1) * 0.3],
+         {"padding": [(0, 1), (1, 1)]})])
+    add("separable_conv2d", lambda r: [
+        ([r.n(1, 5, 5, 2), r.n(3, 3, 2, 2) * 0.3, r.n(1, 1, 4, 3) * 0.3,
+          r.n(3)], {"stride": (2, 2)}),
+        ([r.n(1, 6, 6, 2), r.n(3, 3, 2, 1) * 0.3, r.n(1, 1, 2, 3) * 0.3],
+         {"padding": "VALID"})])
+    add("deconv2d", lambda r: [
+        ([r.n(1, 4, 4, 3), r.n(3, 3, 3, 2) * 0.3], {"stride": (2, 2)}),
+        ([r.n(1, 5, 5, 3), r.n(3, 3, 3, 2) * 0.3, r.n(2)],
+         {"stride": (2, 2), "padding": "VALID"}),
+        ([r.n(2, 3, 4, 3), r.n(3, 3, 2, 3) * 0.3],
+         {"stride": (2, 1), "padding": "SAME", "transpose_kernel": True}),
+        ([r.n(1, 4, 4, 2), r.n(2, 2, 2, 3) * 0.3],
+         {"stride": (2, 2), "padding": [(1, 1), (0, 2)]}),
+        ([r.n(1, 5, 5, 2), r.n(3, 3, 2, 2) * 0.3],
+         {"stride": (1, 1), "dilation": (2, 2)}),
+        ([r.n(1, 3, 3, 2), r.n(1, 1, 2, 2) * 0.3], {"stride": (2, 2)})])
+    for nm in ("max_pool2d", "avg_pool2d"):
+        add(nm, lambda r: [
+            ([r.n(2, 5, 5, 3)], {"kernel": (3, 3), "stride": (2, 2),
+                                 "padding": "SAME"}),
+            ([r.n(2, 6, 6, 3)], {}),
+            ([r.n(2, 6, 7, 2)], {"kernel": (3, 2), "stride": (1, 2),
+                                 "padding": "SAME"}),
+            ([r.n(1, 5, 5, 2)], {"kernel": (3, 3), "stride": (2, 2),
+                                 "padding": [(0, 0), (1, 1), (1, 0),
+                                             (0, 0)]})])
+    for nm in ("max_pool1d", "avg_pool1d"):
+        add(nm, lambda r: [([r.n(2, 7, 3)], {"kernel": 3, "stride": 2,
+                                             "padding": "SAME"}),
+                           ([r.n(2, 8, 3)], {})])
+    for nm in ("max_pool3d", "avg_pool3d"):
+        add(nm, lambda r: [([r.n(1, 5, 4, 4, 2)], {"padding": "SAME"}),
+                           ([r.n(1, 4, 4, 6, 2)], {"kernel": (2, 2, 3),
+                                                   "stride": (1, 2, 3)})])
+    add("upsampling2d", lambda r: [([r.n(2, 3, 4, 2)], {}),
+                                   ([r.n(1, 2, 3, 2)], {"scale": (2, 3)})])
+    for nm in ("im2col", "extract_image_patches"):
+        add(nm, lambda r: [([r.n(2, 6, 5, 3)], {"kernel": (2, 3),
+                                                "stride": (2, 1)}),
+                           ([r.n(1, 4, 4, 2)], {"kernel": (2, 2)})])
+    # image: up- and downscaling (jax.image.resize antialiases down)
+    add("resize_bilinear", lambda r: [
+        ([r.n(1, 4, 5, 2)], {"size": (7, 9)}),
+        ([r.n(2, 9, 8, 2)], {"size": (4, 3)}),
+        ([r.n(1, 5, 6, 2)], {"size": (5, 3)}),
+        ([r.i(0, 255, 1, 4, 4, 1)], {"size": (6, 2)})])
+    add("resize_nearest", lambda r: [
+        ([r.n(1, 4, 5, 2)], {"size": (7, 9)}),
+        ([r.n(2, 9, 8, 2)], {"size": (4, 3)}),
+        ([r.n(1, 5, 6, 2)], {"size": (7, 4),
+                             "coordinate_mode": "asymmetric"})])
+    add("resize_bicubic", lambda r: [
+        ([r.n(1, 5, 6, 2)], {"size": (8, 4)}),
+        ([r.n(1, 5, 6, 2)], {"size": (3, 9), "cubic_coeff_a": -0.75,
+                             "boundary": "clamp"})])
+    add("resize_area", lambda r: [([r.n(1, 6, 8, 2)], {"size": (3, 5)}),
+                                  ([r.n(1, 4, 3, 2)], {"size": (6, 5)})])
+    # crops whose samples miss integer pixel positions (where the
+    # bilinear weights are not differentiable), one extrapolating
+    add("crop_and_resize", lambda r: [
+        ([r.n(2, 6, 7, 3),
+          np.asarray([[0.05, 0.12, 0.83, 0.91], [0.02, 0.03, 0.97, 0.98],
+                      [-0.1, 0.3, 1.23, 0.6]], np.float32),
+          seg(0, 1, 1)], {"crop_size": (4, 5)}),
+        ([r.n(1, 5, 5, 2), np.asarray([[0.2, 0.2, 0.6, 0.7]], np.float32),
+          seg(0)], {"crop_size": (1, 3)})])
+
+    def nms_case(r):
+        boxes = np.asarray([[0, 0, 1, 1], [0, 0.1, 1, 1.1], [0, -0.1, 1, 0.9],
+                            [0, 10, 1, 11], [0, 10.1, 1, 11.1],
+                            [0, 100, 1, 101]], np.float32)
+        scores = np.asarray([0.9, 0.75, 0.6, 0.95, 0.5, 0.3], np.float32)
+        tie = scores.copy()
+        tie[3] = 0.9                       # a tie: the first index wins
+        return [([boxes, scores], {"max_output_size": 4}),
+                ([boxes, tie], {"max_output_size": 8,
+                                "iou_threshold": 0.3}),
+                ([boxes, scores], {"max_output_size": 6,
+                                   "iou_threshold": 0.95})]
+    add("non_max_suppression", nms_case)
+    # random: the key comes from the caller (SameDiff: the op's own)
+    add("random_normal", lambda r: [([], {"shape": (3, 4), "mean": 1.0,
+                                          "stddev": 2.0})])
+    add("random_uniform", lambda r: [([], {"shape": (5,), "min": -2.0,
+                                           "max": 3.0})])
+    add("random_bernoulli", lambda r: [([], {"shape": (2, 3),
+                                             "prob": 0.3})])
+    add("dropout", lambda r: [([r.n(4, 5)], {"rate": 0.3}),
+                              ([r.n(4, 5)], {"rate": 0.3,
+                                             "training": False}),
+                              ([r.n(4, 5)], {"rate": 0.5, "rng": None})])
+    # compression
+    add("encode_threshold", lambda r: [([r.n(4, 5) * 0.01],
+                                        {"threshold": 0.01}),
+                                       ([r.n(6)], {})])
+    add("decode_threshold", lambda r: [([r.n(3, 2)], {})])
+    return c
+
+
+def namespace_graph(sd, seed: int = 0) -> dict:
+    """Every method of ``sd.cnn``, ``sd.image``, ``sd.bitwise``,
+    ``sd.linalg`` and ``sd.random`` once, on constants drawn from
+    ``RandomState(seed)``, through the surface both packages share;
+    returns ``{"namespace.method": [output names]}``."""
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    f = lambda *s: sd.constant((rs.randn(*s) * 0.5).astype(np.float32))
+    i32 = lambda v: sd.constant(np.asarray(v, np.int32))
+    out = {}
+
+    def put(key, v):
+        out[key] = [t.name for t in (v if isinstance(v, tuple) else (v,))]
+
+    img = f(2, 6, 6, 3)
+    cnn, im, bw, la, rnd = sd.cnn, sd.image, sd.bitwise, sd.linalg, \
+        sd.random
+    put("cnn.conv2d", cnn.conv2d(img, f(3, 3, 3, 4), f(4), stride=(2, 2)))
+    put("cnn.conv1d", cnn.conv1d(f(2, 7, 3), f(3, 3, 4), stride=2))
+    put("cnn.depthwise_conv2d", cnn.depthwise_conv2d(img, f(3, 3, 3, 2),
+                                                     padding="VALID"))
+    put("cnn.separable_conv2d", cnn.separable_conv2d(
+        img, f(3, 3, 3, 2), f(1, 1, 6, 4), f(4), stride=(2, 2)))
+    put("cnn.deconv2d", cnn.deconv2d(img, f(3, 3, 3, 2), stride=(2, 2)))
+    put("cnn.max_pooling2d", cnn.max_pooling2d(img, (3, 3), (2, 2), "SAME"))
+    put("cnn.avg_pooling2d", cnn.avg_pooling2d(img, (3, 3), (2, 2), "SAME"))
+    put("cnn.upsampling2d", cnn.upsampling2d(img, 2))
+    put("cnn.im2col", cnn.im2col(img, (2, 3), (2, 1)))
+    put("image.resize_bilinear", im.resize_bilinear(img, (9, 4)))
+    put("image.resize_nearest", im.resize_nearest(img, (4, 9)))
+    boxes = sd.constant(np.asarray([[0.05, 0.12, 0.83, 0.91],
+                                    [0.02, 0.03, 0.97, 0.98]], np.float32))
+    put("image.crop_and_resize", im.crop_and_resize(img, boxes,
+                                                    i32([1, 0]), (3, 4)))
+    nms_boxes = sd.constant(np.asarray(
+        [[0, 0, 1, 1], [0, 0.1, 1, 1.1], [0, 10, 1, 11], [0, 10.1, 1, 11.1]],
+        np.float32))
+    put("image.non_max_suppression", im.non_max_suppression(
+        nms_boxes, sd.constant(np.asarray([0.9, 0.8, 0.7, 0.95],
+                                          np.float32)), 3, 0.3))
+    put("image.extract_image_patches", im.extract_image_patches(
+        img, (2, 2), (2, 2)))
+    a, b = i32(rs.randint(-99, 99, 6)), i32(rs.randint(-99, 99, 6))
+    s = i32([0, 31, 32, 35, 3, 1])
+    put("bitwise.and_", bw.and_(a, b))
+    put("bitwise.or_", bw.or_(a, b))
+    put("bitwise.xor", bw.xor(a, b))
+    put("bitwise.left_shift", bw.left_shift(a, s))
+    put("bitwise.right_shift", bw.right_shift(a, s))
+    m = sd.constant((rs.randn(3, 3) + 3 * np.eye(3)).astype(np.float32))
+    lo = sd.constant((np.tril(rs.randn(3, 3)) + 3 * np.eye(3)).astype(
+        np.float32))
+    g = rs.randn(3, 3)
+    spd = sd.constant((g @ g.T + 3 * np.eye(3)).astype(np.float32))
+    put("linalg.matmul", la.matmul(m, f(3, 2)))
+    put("linalg.cholesky", la.cholesky(spd))
+    put("linalg.qr", la.qr(f(4, 3)))
+    put("linalg.svd", la.svd(f(4, 3)))
+    put("linalg.lu", la.lu(m))
+    put("linalg.solve", la.solve(m, f(3, 2)))
+    put("linalg.triangular_solve", la.triangular_solve(lo, f(3, 2)))
+    put("linalg.inverse", la.inverse(m))
+    put("linalg.det", la.det(m))
+    put("random.normal", rnd.normal(0.0, 1.0, (3, 4)))
+    put("random.uniform", rnd.uniform(-1.0, 2.0, (5,)))
+    put("random.bernoulli", rnd.bernoulli(0.3, (2, 3)))
+    return out
+
+
+def _outs_of(out) -> list:
+    return list(out) if isinstance(out, (list, tuple)) else [out]
+
+
+def _same_up_to_sign(torch, got, want, dim: int) -> bool:
+    """Factors equal up to the sign of each vector along ``dim``."""
+    sign = torch.sign((got * want).sum(dim, keepdim=True))
+    return bool(torch.allclose(got * sign, want, **SWEEP_TOL))
+
+
+def _card_matches_cpu(torch, name: str, ins, got: list, want: list,
+                      what: str) -> None:
+    """A card result against the CPU's: floats within ``SWEEP_TOL``,
+    integers, booleans and indices exactly; ``qr`` and ``svd`` factors
+    (whose signs cuSOLVER and LAPACK may choose apart) by |R| and the
+    singular values, vectors up to sign and the reconstruction."""
+    check(len(got) == len(want), f"{what}: {len(got)} outputs")
+    got = [g.cpu() for g in got]
+    for g, w in zip(got, want):
+        check(g.dtype == w.dtype and g.shape == w.shape,
+              f"{what}: {g.dtype}{tuple(g.shape)} vs {w.dtype}"
+              f"{tuple(w.shape)}")
+    x = torch.as_tensor(ins[0]) if ins else None
+    if name == "qr":
+        q, r = got
+        check(bool(torch.allclose(q @ r, x, **SWEEP_TOL))
+              and bool(torch.allclose(r.abs(), want[1].abs(), **SWEEP_TOL))
+              and _same_up_to_sign(torch, q, want[0], 0),
+              f"{what}: Q R vs x, |R| or Q up to sign")
+        return
+    if name == "svd":
+        u, s, vh = got
+        check(bool(torch.allclose(s, want[1], **SWEEP_TOL))
+              and bool(torch.allclose((u * s) @ vh, x, **SWEEP_TOL))
+              and _same_up_to_sign(torch, u, want[0], 0)
+              and _same_up_to_sign(torch, vh, want[2], -1),
+              f"{what}: singular values, U S Vh vs x or vectors up to sign")
+        return
+    for k, (g, w) in enumerate(zip(got, want)):
+        ok = (bool(torch.allclose(g, w, equal_nan=True, **SWEEP_TOL))
+              if g.dtype.is_floating_point else bool(torch.equal(g, w)))
+        check(ok, f"{what} output {k}: max |d| "
+                  f"{(g.double() - w.double()).abs().max():.3e}")
+
+
+def _random_on_card(torch, name: str, attrs: dict, ins, device: str,
+                    what: str) -> dict:
+    """A random op on the card: the same key draws the same bits, the
+    next key other bits; over ``SWEEP_DRAWS`` draws the mean and the
+    standard deviation (dropout: the keep share, and ``where(keep, x /
+    (1 - p), 0)``) within 5 sigma of the distribution's."""
+    import math
+
+    from deeplearning4j_tpu_torch.autodiff.registry import get_op
+    from deeplearning4j_tpu_torch.common.rng import RngKey
+    fn = get_op(name)
+    key = RngKey(1234)
+    x = [torch.as_tensor(a).to(device) for a in ins]
+
+    def run(k, shape=None):
+        a = {"_device": device, "rng": k, **attrs}
+        if shape is not None and name != "dropout":
+            a["shape"] = shape
+        args = ([torch.ones(shape, device=device)] if shape is not None
+                and name == "dropout" else x)
+        return fn(args, a)
+
+    first, again, other = run(key), run(key), run(key.fold_in(1))
+    if name == "dropout" and (attrs.get("rng", True) is None
+                              or not attrs.get("training", True)):
+        check(torch.equal(first, x[0]), f"{what}: not the identity")
+        return {}
+    check(torch.equal(first, again), f"{what}: one key, two draws differ")
+    check(not torch.equal(first, other), f"{what}: two keys, one draw")
+    n = SWEEP_DRAWS
+    big = run(key.fold_in(2), (n,)).double()
+    if name == "random_normal":
+        mu, sd = attrs["mean"], attrs["stddev"]
+    elif name == "random_uniform":
+        lo, hi = attrs["min"], attrs["max"]
+        mu, sd = (lo + hi) / 2, (hi - lo) / math.sqrt(12)
+        check(bool((big >= lo).all() and (big < hi).all()),
+              f"{what}: a draw outside [{lo}, {hi})")
+    else:
+        p = (attrs["prob"] if name == "random_bernoulli"
+             else 1.0 - attrs["rate"])
+        keep = big != 0
+        if name == "dropout":
+            check(bool(torch.allclose(big[keep], torch.full_like(
+                big[keep], 1.0 / p), rtol=1e-6, atol=0)),
+                f"{what}: a kept value is not x / (1 - p)")
+            want = torch.where(first != 0, x[0] / p, torch.zeros_like(x[0]))
+            check(torch.equal(first, want),
+                  f"{what}: not where(keep, x / (1 - p), 0)")
+        big = keep.double()
+        mu, sd = p, math.sqrt(p * (1 - p))
+    mean, std = float(big.mean()), float(big.std())
+    check(abs(mean - mu) <= 5 * sd / math.sqrt(n),
+          f"{what}: mean {mean:.5f} vs {mu:.5f}")
+    check(abs(std - sd) <= 5 * sd / math.sqrt(2 * n) + 1e-12,
+          f"{what}: std {std:.5f} vs {sd:.5f}")
+    return {"mean": mean, "std": std}
+
+
+def sweep_domains(torch, device: str = "cuda") -> dict:
+    """Every op of :func:`domain_cases` on ``device`` against the port's
+    CPU result (the random ops by their own bits and moments), then
+    :func:`namespace_graph` built on ``device`` against the same graph on
+    the CPU. Returns the ops and methods run and the random moments."""
+    from deeplearning4j_tpu_torch.autodiff.registry import OP_DOMAINS, get_op
+    from deeplearning4j_tpu_torch.autodiff.samediff import SameDiff
+    ran, moments = [], {}
+    for name, variants in domain_cases().items():
+        for k, (ins, attrs) in enumerate(variants):
+            what = f"(f) {name} variant {k}"
+            if OP_DOMAINS[name] == "random":
+                moments[f"{name}/{k}"] = _random_on_card(
+                    torch, name, attrs, ins, device, what)
+                continue
+            want = _outs_of(get_op(name)(
+                [torch.as_tensor(a) for a in ins], {**attrs,
+                                                    "_device": "cpu"}))
+            got = _outs_of(get_op(name)(
+                [torch.as_tensor(a).to(device) for a in ins],
+                {**attrs, "_device": device}))
+            check(all(g.device.type == device for g in got),
+                  f"{what}: an output off the card")
+            _card_matches_cpu(torch, name, ins, got, want, what)
+        ran.append(name)
+    check(len(ran) == 60 and len(set(ran)) == 60,
+          f"(f) the sweep ran {len(set(ran))} ops, not 60")
+    graphs = {}
+    for dev in (device, "cpu"):
+        sd = SameDiff(dev)
+        graphs[dev] = (sd, namespace_graph(sd))
+    (card, names), (cpu, _) = graphs[device], graphs["cpu"]
+    flat = [n for v in names.values() for n in v]
+    got, want = card.output({}, flat), cpu.output({}, flat)
+    for method, outs in names.items():
+        op = card.ops[card._producer[outs[0]]]
+        g, w = [got[n] for n in outs], [want[n] for n in outs]
+        if method.startswith("random."):
+            check(all(a.shape == b.shape and a.dtype == b.dtype
+                      for a, b in zip(g, w)), f"(f) sd.{method}")
+            continue
+        _card_matches_cpu(torch, op.op_name, [
+            cpu._arrays[cpu.ops[cpu._producer[outs[0]]].inputs[0]]
+            .numpy()], g, w, f"(f) sd.{method}")
+    return {"ops": ran, "methods": sorted(names), "moments": moments}
+
+
+#: the segment ops whose repeatability on the card phase 22 reports
+SEGMENT_OPS = ("segment_sum", "segment_mean", "unsorted_segment_sqrt_n",
+               "segment_max", "segment_min", "segment_prod")
+
+
+def segment_repeatability(torch, device: str = "cuda") -> dict:
+    """Each segment op twice over 2^20 rows of 8 values in 16 segments
+    (so the scatters' atomics collide), with PyTorch's deterministic
+    algorithms off and on: whether the two results are bitwise equal, or
+    ``"refused"`` where the deterministic algorithms say the op has no
+    deterministic implementation (any other error fails the phase). max
+    and min are exact, so they must repeat either way; sum, mean and
+    sqrt_n must repeat under the deterministic algorithms."""
+    from deeplearning4j_tpu_torch.autodiff.registry import get_op
+    g = torch.Generator(device=device).manual_seed(5)
+    n = 1 << 20
+    data = torch.randn(n, 8, device=device, generator=g)
+    ids = torch.randint(0, 16, (n,), device=device, generator=g).to(
+        torch.int32)
+    near_one = 1.0 + 1e-4 * data          # a product that stays finite
+    prev = torch.are_deterministic_algorithms_enabled()
+    out = {}
+    try:
+        for mode in ("default", "deterministic"):
+            torch.use_deterministic_algorithms(mode == "deterministic")
+            for name in SEGMENT_OPS:
+                x = near_one if name == "segment_prod" else data
+                attrs = {"num_segments": 16}
+                try:
+                    a = get_op(name)([x, ids], attrs)
+                    b = get_op(name)([x, ids], attrs)
+                except RuntimeError as e:
+                    if mode == "default" or \
+                            "does not have a deterministic" not in str(e):
+                        raise
+                    out[f"{name} {mode}"] = "refused"
+                    continue
+                out[f"{name} {mode}"] = bool(torch.equal(a, b))
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    check(all(isinstance(out[f"{n} default"], bool) for n in SEGMENT_OPS),
+          f"(f) segment ops: {out}")
+    for name in ("segment_max", "segment_min"):
+        check(all(out[f"{name} {m}"] is True
+                  for m in ("default", "deterministic")),
+              f"(f) {name} did not repeat: {out}")
+    for name in ("segment_sum", "segment_mean", "unsorted_segment_sqrt_n"):
+        check(out[f"{name} deterministic"] is True,
+              f"(f) {name} did not repeat under the deterministic "
+              f"algorithms: {out}")
+    return out
+
+
+def _cast_f64(torch, sd) -> None:
+    """Every float32 array of ``sd`` (weights and constants) in float64."""
+    for n, a in sd._arrays.items():
+        if a.dtype == torch.float32:
+            sd._arrays[n] = a.double()
+
+
+def _pin_kinks(torch, ref, sd, x) -> int:
+    """Make the float64 graph ``ref`` take ``sd``'s choices at its kinks
+    on input ``x``: each ``relu`` becomes a product with the mask of
+    ``sd``'s own pre-activations (> 0), each VALID ``max_pool2d`` a gather
+    of ``sd``'s argmax. Where a value rounds across a kink the two
+    precisions would otherwise differentiate different functions (one
+    ReLU moves a weight's gradient by about ``1 / sqrt(C * N)``, 4e-4 in
+    norm at C = 64 channels over N = 32 x 56 x 56 positions). Returns the
+    number of ops pinned."""
+    import torch.nn.functional as F
+
+    from deeplearning4j_tpu_torch.autodiff.samediff import OpNode
+    kinks = [o for o in ref.ops if o.op_name in ("relu", "max_pool2d")]
+    vals = sd.output({"x": x}, sorted({o.inputs[0] for o in kinks}))
+    ops = []
+    for o in ref.ops:
+        if o.op_name not in ("relu", "max_pool2d"):
+            ops.append(o)
+            continue
+        z, y = o.inputs[0], o.outputs[0]
+        if o.op_name == "relu":
+            m = ref.constant(f"{y}/pin", (vals[z] > 0).double().cpu())
+            ops.append(OpNode("mul", [z, m.name], [y], {}))
+            continue
+        check(o.attrs.get("padding") == "VALID", f"pin: {y} is not VALID")
+        b, h, w, c = vals[z].shape
+        _, idx = F.max_pool2d(vals[z].permute(0, 3, 1, 2),
+                              tuple(o.attrs["kernel"]),
+                              tuple(o.attrs["stride"]), return_indices=True)
+        oh, ow = idx.shape[2:]
+        flat = (idx.permute(0, 2, 3, 1) * c
+                + torch.arange(c, device=idx.device)).reshape(b, -1)
+        at = ref.constant(f"{y}/pin", flat.cpu())
+        ops += [OpNode("reshape", [z], [f"{y}/pin_rows"],
+                       {"shape": [b, h * w * c]}),
+                OpNode("gather", [f"{y}/pin_rows", at.name],
+                       [f"{y}/pin_picked"], {"axis": 1, "batch_dims": 1}),
+                OpNode("reshape", [f"{y}/pin_picked"], [y],
+                       {"shape": [b, oh, ow, c]})]
+    ref.ops = ops
+    ref._producer = {n: i for i, op in enumerate(ops) for n in op.outputs}
+    ref._exec_cache.clear()
+    return len(kinks)
+
+
+def _rel_norm(a, b) -> float:
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    return float((a - b).norm() / b.norm().clamp_min(1e-300))
+
+
+def phase_tf_resnet(torch, label: str, device: str = "cuda",
+                    image: int = TF_RESNET["image"],
+                    classes: int = TF_RESNET["classes"],
+                    batch: int = TF_RESNET["batch"],
+                    steps: int = TF_RESNET_STEPS) -> dict:
+    """Phase 22: the frozen Keras ResNet-50 (``keras.applications.
+    ResNet50(weights=None)`` at 224x224x3 and 1000 classes, frozen by
+    TensorFlow's ``convert_variables_to_constants_v2`` at batch 32)
+    written without TensorFlow by ``resnet_graph``, TF32 off for cuBLAS
+    and cuDNN: (a) imported by ``run_import`` with ``device=None`` onto
+    the card; (b) served by ``sd.output``: logits and probabilities
+    finite, each row of probabilities summing to 1 within 1e-5; (c)
+    against the same bytes imported on the CPU in float64 within
+    ``TF_RESNET_RTOL`` in norm (the logits' scale printed: a saturated
+    softmax would prove nothing); (d) two card forwards under the
+    deterministic algorithms bitwise equal; (e) every promoted weight's
+    gradient at the start within ``TF_RESNET_RTOL`` of the float64 CPU
+    gradient taken at the card forward's ReLU and max-pool choices
+    (:func:`_pin_kinks`; the unpinned distance is printed beside it),
+    then 10 Adam(1e-3) ``fit_steps`` (the loss finite, the last
+    below the first; no kernel of ``csrc/`` launches); (f) every op of
+    the seven domains ported in this slice and every method of their
+    namespaces on the card against the CPU (:func:`sweep_domains`), and
+    which segment ops repeat bit for bit (:func:`segment_repeatability`);
+    (g)
+    forward and step ms, device kernels, the idle share and peak memory.
+    ``device="cpu"`` with a small ``image`` and ``batch`` rehearses it
+    ((c) and (e) then hold the CPU's f32 against its float64)."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.learning.updaters import Adam
+    from deeplearning4j_tpu_torch.modelimport.tensorflow import (
+        TensorflowFrameworkImporter, resnet_graph)
+    on_card = device == "cuda"
+    imp_dev = None if on_card else device
+    t_phase = time.perf_counter()
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32,
+            torch.are_deterministic_algorithms_enabled(),
+            os.environ.get("CUBLAS_WORKSPACE_CONFIG"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        t0 = time.perf_counter()
+        gd = resnet_graph.build_resnet50_graph(image, classes, batch,
+                                               seed=TF_RESNET["seed"])
+        out = {"graphdef_bytes": len(gd), "build_s": time.perf_counter() - t0}
+        shapes = {"x": (batch, image, image, 3)}
+        rs = np.random.RandomState(11)
+        xn = rs.randn(batch, image, image, 3).astype(np.float32)
+        yn = rs.randint(0, classes, batch).astype(np.int32)
+        x = torch.from_numpy(xn).to(device)
+        feed = {"x": x, "labels": torch.from_numpy(yn).to(device)}
+        # ---- (a) import onto the card ----
+        _zero_counts()
+        t0 = time.perf_counter()
+        sd = TensorflowFrameworkImporter.run_import(gd, shapes,
+                                                    device=imp_dev)
+        out["import_s"] = time.perf_counter() - t0
+        check(sd.device.type == device,
+              f"(a) run_import(device=None) landed on {sd.device}")
+        out["ops_walked"] = len(sd.ops)
+        print(f"[tf-resnet] Keras ResNet-50 {image}x{image}x3 -> {classes}, "
+              f"batch {batch}: GraphDef {len(gd)} bytes written in "
+              f"{out['build_s']:.2f}s, imported in {out['import_s']:.2f}s "
+              f"onto {sd.device}, {out['ops_walked']} ops walked [{label}]")
+        # ---- (b) serve ----
+        names = ["Identity", resnet_graph.LOGITS]
+        res = sd.output({"x": x}, names)
+        probs, logits = res["Identity"], res[resnet_graph.LOGITS]
+        check(tuple(probs.shape) == (batch, classes)
+              and bool(torch.isfinite(probs).all())
+              and bool(torch.isfinite(logits).all()),
+              f"(b) probabilities {tuple(probs.shape)} not finite")
+        row_err = float((probs.double().sum(1) - 1).abs().max())
+        check(row_err <= 1e-5, f"(b) a row sums to 1 +- {row_err:.3e}")
+        out.update(row_sum_err=row_err,
+                   logits_std=float(logits.std()),
+                   max_prob=float(probs.max()))
+        print(f"[tf-resnet] (b) served {batch} images: rows of probabilities "
+              f"sum to 1 within {row_err:.3e}; logits std "
+              f"{out['logits_std']:.3f}, largest probability "
+              f"{out['max_prob']:.4f} [{label}]")
+        # ---- (c) against float64 on the CPU ----
+        ref, _ = resnet_graph.import_and_attach_loss(gd, batch, image,
+                                                     device="cpu")
+        _cast_f64(torch, ref)
+        feed64 = {"x": torch.from_numpy(xn).double(),
+                  "labels": torch.from_numpy(yn)}
+        want = ref.output(feed64, [resnet_graph.LOGITS])[resnet_graph.LOGITS]
+        out["logits_vs_f64"] = _rel_norm(logits, want)
+        check(out["logits_vs_f64"] <= TF_RESNET_RTOL,
+              f"(c) logits vs float64 {out['logits_vs_f64']:.3e}")
+        print(f"[tf-resnet] (c) logits vs the CPU's float64 import: "
+              f"{out['logits_vs_f64']:.3e} (relative, in norm) [{label}]")
+        # ---- (d) the deterministic algorithms: bitwise repeatable ----
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+        torch.use_deterministic_algorithms(True)
+        try:
+            a = sd.output({"x": x}, ["Identity"])["Identity"]
+            b = sd.output({"x": x}, ["Identity"])["Identity"]
+        finally:
+            torch.use_deterministic_algorithms(prev[2])
+        out["deterministic_bitwise"] = bool(torch.equal(a, b))
+        check(out["deterministic_bitwise"], "(d) two deterministic forwards "
+                                            "differ")
+        del a, b
+        # ---- (e) gradients and fine-tuning ----
+        tr, loss = resnet_graph.import_and_attach_loss(
+            gd, batch, image, updater=Adam(1e-3), device=imp_dev)
+        wnames = resnet_graph.trainable_names(tr)
+        check(len(wnames) == 214, f"(e) {len(wnames)} promoted weights")
+        g = tr.calculate_gradients(feed, wnames)
+
+        def worst_vs_f64():
+            g64 = ref.calculate_gradients(feed64, wnames)
+            errs = {n: _rel_norm(g[n], g64[n]) for n in wnames}
+            return max(errs.items(), key=lambda kv: kv[1])
+
+        _, out["grad_vs_f64_unpinned"] = worst_vs_f64()
+        out["kinks_pinned"] = _pin_kinks(torch, ref, sd, x)
+        worst, out["grad_vs_f64_max"] = worst_vs_f64()
+        check(out["grad_vs_f64_max"] <= TF_RESNET_RTOL,
+              f"(e) gradient of {worst} vs float64 "
+              f"{out['grad_vs_f64_max']:.3e}")
+        del g, ref
+        losses, step_ms = [], []
+        for _ in range(steps):
+            _sync(torch, device)
+            t0 = time.perf_counter()
+            losses.append(tr.fit_steps(feed, 1))
+            _sync(torch, device)
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+              f"(e) loss did not fall: {losses}")
+        med = float(np.median(step_ms[1:]))
+        out.update(losses=losses, step_ms=step_ms, median_step_ms=med,
+                   img_per_s=batch * 1e3 / med)
+        out["launches"] = _counts()
+        check(not any(out["launches"].values()),
+              f"(e) a kernel of csrc/ launched on this path: "
+              f"{out['launches']}")
+        print(f"[tf-resnet] (e) {len(wnames)} promoted weights' gradients vs "
+              f"float64 at the card's ReLU and max-pool choices "
+              f"({out['kinks_pinned']} ops pinned): worst "
+              f"{out['grad_vs_f64_max']:.3e} ({worst}); unpinned "
+              f"{out['grad_vs_f64_unpinned']:.3e}; "
+              f"Adam(1e-3) losses {[round(v, 4) for v in losses]}; step "
+              f"{med:.3f} ms (median of steps 2-{steps}) = "
+              f"{out['img_per_s']:.1f} img/s [{label}]")
+        # ---- (f) the seven domains ----
+        t0 = time.perf_counter()
+        out["sweep"] = sweep_domains(torch, device)
+        out["sweep_s"] = time.perf_counter() - t0
+        out["segment_repeatable"] = segment_repeatability(torch, device)
+        print(f"[tf-resnet] (f) {len(out['sweep']['ops'])} ops of the linalg,"
+              f" bitwise, segment, convolution, image, random and "
+              f"compression domains and {len(out['sweep']['methods'])} "
+              f"namespace methods on {device} vs the CPU in "
+              f"{out['sweep_s']:.1f}s; random moments "
+              f"{ {k: {m: round(v, 5) for m, v in d.items()} for k, d in out['sweep']['moments'].items() if d} }"
+              f" [{label}]")
+        print(f"[tf-resnet] (f) segment ops run twice over 2^20 rows in 16 "
+              f"segments, bitwise equal (or refused) with PyTorch's "
+              f"default and deterministic algorithms: "
+              f"{out['segment_repeatable']} [{label}]")
+
+        # ---- (g) costs ----
+        def fwd():
+            return sd.output({"x": x}, ["Identity"])["Identity"]
+
+        fwd_ms = []
+        for _ in range(6):
+            _sync(torch, device)
+            t0 = time.perf_counter()
+            fwd()
+            _sync(torch, device)
+            fwd_ms.append((time.perf_counter() - t0) * 1e3)
+        out["fwd_ms"] = fwd_ms
+        out["median_fwd_ms"] = float(np.median(fwd_ms[1:]))
+        if on_card:
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated() / 2 ** 20
+            _, out["peak_mb"] = _peak_mb(torch, device,
+                                         lambda: tr.fit_steps(feed, 1))
+            out["step_rise_mb"] = out["peak_mb"] - base
+            out["fwd_profile"] = profile_device(
+                torch, fwd, out["median_fwd_ms"], "imported ResNet-50 forward")
+            out["profile"] = profile_device(
+                torch, lambda: tr.fit_steps(feed, 1), med,
+                "imported ResNet-50 step")
+            print(f"[tf-resnet] (g) forward {out['median_fwd_ms']:.3f} ms "
+                  f"({batch * 1e3 / out['median_fwd_ms']:.1f} img/s), step "
+                  f"{med:.3f} ms, {out['profile'].get('kernel_calls')} device"
+                  f" kernels a step ({out['fwd_profile'].get('kernel_calls')}"
+                  f" a forward), idle share "
+                  f"{out['profile'].get('idle_share', float('nan')):.3f} "
+                  f"(forward "
+                  f"{out['fwd_profile'].get('idle_share', float('nan')):.3f})"
+                  f", peak {out['peak_mb']:.1f} MB a step, "
+                  f"{out['step_rise_mb']:.1f} MB over what was allocated "
+                  f"before it [{label}]")
+        out["phase_s"] = time.perf_counter() - t_phase
+        print(f"[tf-resnet] phase 22 in {out['phase_s']:.1f}s")
+        return out
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev[0]
+        torch.backends.cudnn.allow_tf32 = prev[1]
+        torch.use_deterministic_algorithms(prev[2])
+        if prev[3] is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = prev[3]
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -6042,6 +6966,10 @@ def main() -> int:
     timed("decoder-vs-cpu", decoder_card_vs_cpu, torch)
     ag = timed("attention-graph", phase_attention_graph, torch, label)
     tl = timed("tf-lstm", phase_tf_lstm, torch, label)
+    tr50 = timed("tf-resnet", phase_tf_resnet, torch, label)
+    # last: past three quarters of the pool, every capture's graph holds
+    # a user object
+    pool = timed("ticket-pool", ticket_pool_check, torch)
 
     from deeplearning4j_tpu_torch.ops import cuda_build
     f32 = kern["timing"]["float32"]
@@ -6203,6 +7131,8 @@ def main() -> int:
                     r_[k.name] for r_ in dp["exchanges"][n]["launches"]]
                    for n in ("fsdp",) + DP_SCHEMES}}
         extra["launches_squeezenet_training"] = st["launches"][k.name]
+        if k.name in pool:
+            extra["ticket_pool_check"] = pool[k.name]
         extra["launches_resnet_remat_step"] = \
             tr["remat"]["remat"]["launches"][k.name]
         if k.name in FLASH_KERNELS:
@@ -6306,6 +7236,17 @@ def main() -> int:
           f"MB over the step's start); vs lstm_layer route "
           f"{tl['fwd_vs_lstm_layer']:.3e}, card vs CPU "
           f"{tl['card_vs_cpu']:.3e} [{label}]")
+    print(f"[done] TF-imported Keras ResNet-50 (224x224x3, 1000 classes, "
+          f"batch {TF_RESNET['batch']}, TF32 off): forward "
+          f"{tr50['median_fwd_ms']:.3f} ms, Adam step "
+          f"{tr50['median_step_ms']:.3f} ms ({tr50['img_per_s']:.1f} img/s, "
+          f"idle share "
+          f"{tr50.get('profile', {}).get('idle_share', float('nan')):.3f}, "
+          f"{tr50.get('profile', {}).get('kernel_calls', 0)} device kernels "
+          f"a step, peak {tr50['peak_mb']:.1f} MB); logits vs float64 "
+          f"{tr50['logits_vs_f64']:.3e}, gradients "
+          f"{tr50['grad_vs_f64_max']:.3e}; {len(tr50['sweep']['ops'])} ops "
+          f"swept [{label}]")
     print(f"[done] matmul precision: "
           f"{torch.get_float32_matmul_precision()}, cuda.matmul.allow_tf32 "
           f"{torch.backends.cuda.matmul.allow_tf32}")

@@ -1,12 +1,11 @@
-"""Op factory namespaces: ``sd.math``, ``sd.nn``, ``sd.rnn`` and
-``sd.loss``.
+"""Op factory namespaces: ``sd.math``, ``sd.nn``, ``sd.cnn``,
+``sd.rnn``, ``sd.loss``, ``sd.image``, ``sd.bitwise``, ``sd.linalg`` and
+``sd.random``.
 
-Counterpart of ``deeplearning4j_tpu/autodiff/opsets.py`` over the ported
-domains (reference: SDMath/SDNN/SDRNN/SDLoss). Thin builders over
-``SameDiff._op``; the math lives in ``registry``. The namespaces of the
-domains not ported yet (``sd.cnn``, ``sd.image``, ``sd.bitwise``,
-``sd.linalg``, ``sd.random``) raise ``NotImplementedError`` on any
-use."""
+Counterpart of ``deeplearning4j_tpu/autodiff/opsets.py`` (reference:
+SDMath/SDNN/SDCNN/SDRNN/SDLoss/SDImage/SDBitwise/SDLinalg/SDRandom).
+Thin builders over ``SameDiff._op``, with the JAX package's op names and
+attrs; the math lives in ``registry``."""
 from __future__ import annotations
 
 
@@ -26,11 +25,7 @@ class SDMath(_Namespace):
     def __getattr__(self, op_name):
         """Any registered unary/binary op is reachable directly:
         sd.math.tanh(x), sd.math.atan2(a, b), ..."""
-        from deeplearning4j_tpu_torch.autodiff.registry import (OP_REGISTRY,
-                                                                UNPORTED,
-                                                                get_op)
-        if op_name in UNPORTED:
-            get_op(op_name)               # raises, naming the domain
+        from deeplearning4j_tpu_torch.autodiff.registry import OP_REGISTRY
         if op_name.startswith("_") or op_name not in OP_REGISTRY:
             raise AttributeError(op_name)
 
@@ -166,6 +161,63 @@ class SDNN(_Namespace):
                           name)
 
 
+class SDCNN(_Namespace):
+    def conv2d(self, x, w, b=None, stride=(1, 1), padding="SAME",
+               dilation=(1, 1), name=None):
+        ins = [x, w] + ([b] if b is not None else [])
+        return self._call("conv2d", ins,
+                          {"stride": tuple(stride), "padding": padding,
+                           "dilation": tuple(dilation)}, name)
+
+    def conv1d(self, x, w, b=None, stride=1, padding="SAME", name=None):
+        ins = [x, w] + ([b] if b is not None else [])
+        return self._call("conv1d", ins,
+                          {"stride": stride, "padding": padding}, name)
+
+    def depthwise_conv2d(self, x, w, b=None, stride=(1, 1),
+                         padding="SAME", name=None):
+        ins = [x, w] + ([b] if b is not None else [])
+        return self._call("depthwise_conv2d", ins,
+                          {"stride": tuple(stride), "padding": padding},
+                          name)
+
+    def separable_conv2d(self, x, dw, pw, b=None, stride=(1, 1),
+                         padding="SAME", name=None):
+        ins = [x, dw, pw] + ([b] if b is not None else [])
+        return self._call("separable_conv2d", ins,
+                          {"stride": tuple(stride), "padding": padding},
+                          name)
+
+    def deconv2d(self, x, w, b=None, stride=(1, 1), padding="SAME",
+                 name=None):
+        ins = [x, w] + ([b] if b is not None else [])
+        return self._call("deconv2d", ins,
+                          {"stride": tuple(stride), "padding": padding},
+                          name)
+
+    def max_pooling2d(self, x, kernel=(2, 2), stride=(2, 2),
+                      padding="VALID", name=None):
+        return self._call("max_pool2d", [x],
+                          {"kernel": tuple(kernel),
+                           "stride": tuple(stride), "padding": padding},
+                          name)
+
+    def avg_pooling2d(self, x, kernel=(2, 2), stride=(2, 2),
+                      padding="VALID", name=None):
+        return self._call("avg_pool2d", [x],
+                          {"kernel": tuple(kernel),
+                           "stride": tuple(stride), "padding": padding},
+                          name)
+
+    def upsampling2d(self, x, scale=2, name=None):
+        return self._call("upsampling2d", [x], {"scale": scale}, name)
+
+    def im2col(self, x, kernel, stride=(1, 1), name=None):
+        return self._call("im2col", [x],
+                          {"kernel": tuple(kernel),
+                           "stride": tuple(stride)}, name)
+
+
 class SDRNN(_Namespace):
     def lstm_cell(self, x, h_prev, c_prev, w, rw, b, name=None):
         return self._call("lstm_cell", [x, h_prev, c_prev, w, rw, b],
@@ -223,15 +275,96 @@ class SDLoss(_Namespace):
                           name)
 
 
-class UnportedNamespace:
-    """The namespace of a domain not ported yet: any use raises."""
+class SDImage(_Namespace):
+    def resize_bilinear(self, x, size, name=None):
+        return self._call("resize_bilinear", [x], {"size": tuple(size)},
+                          name)
 
-    def __init__(self, domain: str):
-        self._domain = domain
+    def resize_nearest(self, x, size, name=None):
+        return self._call("resize_nearest", [x], {"size": tuple(size)},
+                          name)
 
-    def __getattr__(self, name):
-        if name.startswith("__"):
-            raise AttributeError(name)
-        raise NotImplementedError(
-            f"sd.{name}: the {self._domain} domain is not ported yet "
-            f"(ROADMAP.md, Queue A item 9)")
+    def crop_and_resize(self, img, boxes, box_idx, crop_size,
+                        name=None):
+        return self._call("crop_and_resize", [img, boxes, box_idx],
+                          {"crop_size": tuple(crop_size)}, name)
+
+    def non_max_suppression(self, boxes, scores, max_output_size,
+                            iou_threshold=0.5, name=None):
+        return self._call("non_max_suppression", [boxes, scores],
+                          {"max_output_size": max_output_size,
+                           "iou_threshold": iou_threshold}, name)
+
+    def extract_image_patches(self, x, kernel, stride=(1, 1),
+                              name=None):
+        return self._call("extract_image_patches", [x],
+                          {"kernel": tuple(kernel),
+                           "stride": tuple(stride)}, name)
+
+
+class SDBitwise(_Namespace):
+    def and_(self, a, b, name=None):
+        return self._call("bitwise_and", [a, b], None, name)
+
+    def or_(self, a, b, name=None):
+        return self._call("bitwise_or", [a, b], None, name)
+
+    def xor(self, a, b, name=None):
+        return self._call("bitwise_xor", [a, b], None, name)
+
+    def left_shift(self, a, b, name=None):
+        return self._call("left_shift", [a, b], None, name)
+
+    def right_shift(self, a, b, name=None):
+        return self._call("right_shift", [a, b], None, name)
+
+
+class SDLinalg(_Namespace):
+    def matmul(self, a, b, transpose_a=False, transpose_b=False,
+               name=None):
+        return self._call("matmul", [a, b],
+                          {"transpose_a": transpose_a,
+                           "transpose_b": transpose_b}, name)
+
+    def cholesky(self, x, name=None):
+        return self._call("cholesky", [x], None, name)
+
+    def qr(self, x, name=None):
+        return self._call("qr", [x], None, name, n_out=2)
+
+    def svd(self, x, full_matrices=False, name=None):
+        return self._call("svd", [x],
+                          {"full_matrices": full_matrices}, name,
+                          n_out=3)
+
+    def lu(self, x, name=None):
+        return self._call("lu", [x], None, name, n_out=3)
+
+    def solve(self, a, b, name=None):
+        return self._call("solve", [a, b], None, name)
+
+    def triangular_solve(self, a, b, lower=True, name=None):
+        return self._call("triangular_solve", [a, b], {"lower": lower},
+                          name)
+
+    def inverse(self, x, name=None):
+        return self._call("matrix_inverse", [x], None, name)
+
+    def det(self, x, name=None):
+        return self._call("matrix_determinant", [x], None, name)
+
+
+class SDRandom(_Namespace):
+    def normal(self, mean, stddev, shape, name=None):
+        return self._call("random_normal", [],
+                          {"mean": mean, "stddev": stddev,
+                           "shape": tuple(shape)}, name)
+
+    def uniform(self, low, high, shape, name=None):
+        return self._call("random_uniform", [],
+                          {"min": low, "max": high,
+                           "shape": tuple(shape)}, name)
+
+    def bernoulli(self, prob, shape, name=None):
+        return self._call("random_bernoulli", [],
+                          {"prob": prob, "shape": tuple(shape)}, name)

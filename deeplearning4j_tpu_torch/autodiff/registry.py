@@ -6,13 +6,15 @@ registered under the reference's (TF-compatible) name and a domain;
 ``SameDiff`` walks its op list through this table, and autograd
 differentiates the walk.
 
-Thirteen domains are ported, in full: arithmetic, transform, activation,
-blas, reduce, indexreduce, boolean, shape, normalization, loss,
-attention, recurrent and control (180 ops). The other seven (linalg,
-bitwise, segment, convolution, image, random, compression) are listed
-in :data:`UNPORTED`: :func:`get_op` raises ``NotImplementedError``
-naming the op's domain, so a graph that needs one fails when it is
-built, never by a silent fallback.
+All twenty domains of the JAX package's registry are ported, in full
+(240 ops). The convolution ops take channels-last activations (NWC,
+NHWC, NDHWC) and kernels with their spatial axes first and
+``[in, out]`` last, as the JAX package's; torch's convolutions see the
+channels-first views of the same storage, and the TF/XLA padding rules
+(``SAME`` pads more at the end) are applied explicitly. The random ops
+draw from ``attrs["rng"]``, an ``common.rng.RngKey`` that ``SameDiff``
+derives from the call's key and the op's position, so a draw depends on
+nothing else (a rematerialized segment draws the same values).
 
 Numerics follow the JAX package's ops, with its dtype rules where torch
 differs: integer reductions, index results and shape queries are int32
@@ -31,37 +33,6 @@ import torch.nn.functional as F
 
 OP_REGISTRY: Dict[str, Callable] = {}
 OP_DOMAINS: Dict[str, str] = {}
-
-#: ops of the JAX package's registry that wait for a later slice:
-#: name -> domain
-UNPORTED: Dict[str, str] = {}
-for _domain, _names in {
-    "linalg": ("lu", "qr", "cholesky", "svd", "matrix_inverse",
-               "matrix_determinant", "triangular_solve", "solve", "trace",
-               "diag", "diag_part", "eye", "matrix_diag",
-               "matrix_diag_part"),
-    "bitwise": ("bitwise_and", "bitwise_or", "bitwise_xor", "left_shift",
-                "right_shift", "cyclic_shift_left", "cyclic_shift_right",
-                "bitwise_not"),
-    "segment": ("segment_sum", "segment_max", "segment_min",
-                "segment_mean", "segment_prod", "unsorted_segment_sum",
-                "unsorted_segment_max", "unsorted_segment_min",
-                "unsorted_segment_mean", "unsorted_segment_prod",
-                "unsorted_segment_sqrt_n"),
-    "convolution": ("conv2d", "conv1d", "conv3d", "depthwise_conv2d",
-                    "separable_conv2d", "deconv2d", "max_pool2d",
-                    "avg_pool2d", "max_pool1d", "avg_pool1d", "max_pool3d",
-                    "avg_pool3d", "upsampling2d", "im2col"),
-    "image": ("resize_bilinear", "resize_nearest", "resize_bicubic",
-              "resize_area", "crop_and_resize", "extract_image_patches",
-              "non_max_suppression"),
-    "random": ("random_normal", "random_uniform", "random_bernoulli",
-               "dropout"),
-    "compression": ("encode_threshold", "decode_threshold"),
-}.items():
-    for _n in _names:
-        UNPORTED[_n] = _domain
-
 
 def op(name, domain):
     def deco(fn):
@@ -87,11 +58,6 @@ def op_coverage() -> Dict[str, int]:
 def get_op(name: str) -> Callable:
     if name in OP_REGISTRY:
         return OP_REGISTRY[name]
-    if name in UNPORTED:
-        raise NotImplementedError(
-            f"op '{name}' ({UNPORTED[name]} domain) is not ported yet: the "
-            f"{UNPORTED[name]} domain waits for a later slice (ROADMAP.md, "
-            f"Queue A item 9)")
     raise KeyError(f"unknown op '{name}'; known domains: "
                    f"{sorted(set(OP_DOMAINS.values()))}")
 
@@ -326,6 +292,97 @@ def _einsum(ins, attrs):
     return torch.einsum(attrs["equation"], *ins)
 
 
+# -- linalg -----------------------------------------------------------------
+def _source_device(attrs):
+    """Where an op with no tensor inputs puts its output: the graph's
+    device, which ``SameDiff`` passes in ``attrs["_device"]``."""
+    return attrs.get("_device", "cpu")
+
+
+@op("lu", "linalg")
+def _lu(ins, attrs):
+    """``(p, l, u)`` with ``x = p @ l @ u`` (``jax.scipy.linalg.lu``)."""
+    p, lo, up = torch.linalg.lu(ins[0])
+    return p, lo, up
+
+
+@op("qr", "linalg")
+def _qr(ins, attrs):
+    q, r = torch.linalg.qr(ins[0], mode="reduced")
+    return q, r
+
+
+@op("cholesky", "linalg")
+def _chol(ins, attrs):
+    return torch.linalg.cholesky(ins[0])
+
+
+@op("svd", "linalg")
+def _svd(ins, attrs):
+    u, s, vh = torch.linalg.svd(
+        ins[0], full_matrices=bool(attrs.get("full_matrices", False)))
+    return u, s, vh
+
+
+@op("matrix_inverse", "linalg")
+def _inv(ins, attrs):
+    return torch.linalg.inv(ins[0])
+
+
+@op("matrix_determinant", "linalg")
+def _det(ins, attrs):
+    return torch.linalg.det(ins[0])
+
+
+@op("triangular_solve", "linalg")
+def _trisolve(ins, attrs):
+    a, b = ins
+    vec = b.dim() == 1                 # scipy takes a vector right side
+    x = torch.linalg.solve_triangular(
+        a, b[:, None] if vec else b, upper=not attrs.get("lower", True))
+    return x[:, 0] if vec else x
+
+
+@op("solve", "linalg")
+def _solve(ins, attrs):
+    return torch.linalg.solve(ins[0], ins[1])
+
+
+@op("trace", "linalg")
+def _trace(ins, attrs):
+    d = torch.diagonal(ins[0], dim1=-2, dim2=-1).sum(-1)
+    return d if _is_float(d) else _int32(d)
+
+
+@op("diag", "linalg")
+def _diag(ins, attrs):
+    return torch.diag(ins[0])
+
+
+@op("diag_part", "linalg")
+def _diag_part(ins, attrs):
+    return torch.diagonal(ins[0], dim1=-2, dim2=-1)
+
+
+alias("matrix_diag_part", "diag_part")
+
+
+@op("eye", "linalg")
+def _eye(ins, attrs):
+    rows = int(attrs["rows"])
+    cols = attrs.get("cols")
+    return torch.eye(rows, rows if cols is None else int(cols),
+                     dtype=torch_dtype(attrs.get("dtype", "float32")),
+                     device=_source_device(attrs))
+
+
+@op("matrix_diag", "linalg")
+def _matrix_diag(ins, attrs):
+    v = ins[0]
+    return v[..., None] * torch.eye(v.shape[-1], dtype=v.dtype,
+                                    device=v.device)
+
+
 # -- reductions -------------------------------------------------------------
 def _sum(x, dim, keep):
     out = torch.sum(x, dim=dim, keepdim=keep)
@@ -490,6 +547,79 @@ def _where(ins, attrs):
 
 
 alias("select", "where")
+
+
+# -- bitwise ----------------------------------------------------------------
+# XLA defines what C++ leaves undefined: a shift amount is read as
+# unsigned, so a negative or over-wide amount shifts every bit out (an
+# arithmetic right shift of a negative value leaves -1). The cyclic
+# shifts rotate in the unsigned domain of the operand's width.
+def _shift_operands(x, s):
+    dt = torch.promote_types(x.dtype, s.dtype)
+    x, s = x.to(dt), s.to(dt)
+    bits = x.element_size() * 8
+    wide = (s < 0) | (s >= bits)
+    return x, torch.where(wide, torch.zeros_like(s), s), wide
+
+
+@op("left_shift", "bitwise")
+def _lshift(ins, attrs):
+    x, k, wide = _shift_operands(ins[0], ins[1])
+    return torch.where(wide, torch.zeros_like(x),
+                       torch.bitwise_left_shift(x, k))
+
+
+@op("right_shift", "bitwise")
+def _rshift(ins, attrs):
+    x, k, wide = _shift_operands(ins[0], ins[1])
+    fill = (torch.where(x < 0, torch.full_like(x, -1), torch.zeros_like(x))
+            if x.dtype.is_signed else torch.zeros_like(x))
+    return torch.where(wide, fill, torch.bitwise_right_shift(x, k))
+
+
+def _lsr64(x, k):
+    """Logical right shift of int64 ``x`` by ``k`` in [0, 63]."""
+    high = torch.bitwise_left_shift(torch.ones_like(x),
+                                    (64 - k).clamp(max=63)) - 1
+    mask = torch.where(k == 0, torch.full_like(x, -1), high)
+    return torch.bitwise_right_shift(x, k) & mask
+
+
+def _rotate(x, s, left: bool):
+    bits = x.element_size() * 8
+    k = s.to(torch.int64) & (bits - 1)        # s as unsigned, mod bits
+    back = (bits - k) & (bits - 1)
+    if bits == 64:
+        lo, hi = (k, back) if left else (back, k)
+        x = x.to(torch.int64)
+        return torch.bitwise_left_shift(x, lo) | _lsr64(x, hi)
+    m = (1 << bits) - 1
+    ux = x.to(torch.int64) & m
+    if left:
+        r = (torch.bitwise_left_shift(ux, k)
+             | torch.bitwise_right_shift(ux, back)) & m
+    else:
+        r = (torch.bitwise_right_shift(ux, k)
+             | torch.bitwise_left_shift(ux, back)) & m
+    if x.dtype.is_signed:
+        r = torch.where(r >= 1 << (bits - 1), r - (1 << bits), r)
+    return r.to(x.dtype)
+
+
+@op("cyclic_shift_left", "bitwise")
+def _rotl(ins, attrs):
+    return _rotate(ins[0], ins[1], left=True)
+
+
+@op("cyclic_shift_right", "bitwise")
+def _rotr(ins, attrs):
+    return _rotate(ins[0], ins[1], left=False)
+
+
+_binary("bitwise_and", "bitwise", torch.bitwise_and)
+_binary("bitwise_or", "bitwise", torch.bitwise_or)
+_binary("bitwise_xor", "bitwise", torch.bitwise_xor)
+_unary("bitwise_not", "bitwise", torch.bitwise_not)
 
 
 # -- shape ops --------------------------------------------------------------
@@ -920,6 +1050,84 @@ def _index(ins, attrs):
     return _basic_index(ins[0], spec_to_index(attrs["spec"]))
 
 
+# -- segment ops ------------------------------------------------------------
+# Ids are cast to int32; ``num_segments=None`` is ``max(id) + 1`` (a host
+# read on the card). An id outside [0, num_segments) is dropped, as the
+# JAX package's scatter drops it: such ids go to one extra row that is
+# cut off, so no device assert fires and nothing is read back. An empty
+# segment holds the reduction's identity (max: -inf or the integer
+# minimum, min: +inf or the integer maximum, prod: 1, mean and sqrt_n: 0).
+def _segments(data, ids, attrs):
+    ids = _int32(ids).long()
+    n = attrs.get("num_segments")
+    n = int(ids.max()) + 1 if n is None else int(n)
+    idx = torch.where((ids >= 0) & (ids < n), ids, torch.full_like(ids, n))
+    return idx, n
+
+
+def _segment_reduce(data, ids, attrs, how):
+    idx, n = _segments(data, ids, attrs)
+    shape = (n + 1,) + tuple(data.shape[1:])
+    if how == "sum":
+        out = torch.zeros(shape, dtype=data.dtype, device=data.device)
+        return out.index_add(0, idx, data)[:n]
+    if how == "prod":
+        base = 1
+    else:
+        info = (torch.finfo if data.dtype.is_floating_point
+                else torch.iinfo)(data.dtype)
+        base = ((-float("inf") if how == "amax" else float("inf"))
+                if data.dtype.is_floating_point
+                else (info.min if how == "amax" else info.max))
+    out = torch.full(shape, base, dtype=data.dtype, device=data.device)
+    index = idx.reshape((-1,) + (1,) * (data.dim() - 1)).expand(data.shape)
+    return out.scatter_reduce(0, index, data, reduce=how,
+                              include_self=True)[:n]
+
+
+def _segment_count(data, ids, attrs):
+    s = _segment_reduce(data, ids, attrs, "sum")
+    c = _segment_reduce(torch.ones_like(data), ids, attrs, "sum")
+    return s, torch.clamp(c, min=1)
+
+
+@op("segment_sum", "segment")
+def _segment_sum(ins, attrs):
+    return _segment_reduce(ins[0], ins[1], attrs, "sum")
+
+
+@op("segment_max", "segment")
+def _segment_max(ins, attrs):
+    return _segment_reduce(ins[0], ins[1], attrs, "amax")
+
+
+@op("segment_min", "segment")
+def _segment_min(ins, attrs):
+    return _segment_reduce(ins[0], ins[1], attrs, "amin")
+
+
+@op("segment_prod", "segment")
+def _segment_prod(ins, attrs):
+    return _segment_reduce(ins[0], ins[1], attrs, "prod")
+
+
+@op("segment_mean", "segment")
+def _segment_mean(ins, attrs):
+    s, c = _segment_count(ins[0], ins[1], attrs)
+    return s / c
+
+
+@op("unsorted_segment_sqrt_n", "segment")
+def _segment_sqrt_n(ins, attrs):
+    s, c = _segment_count(ins[0], ins[1], attrs)
+    return s / torch.sqrt(c if _is_float(c) else c.to(torch.float32))
+
+
+# the unsorted spellings: a scatter takes ids in any order
+for _n in ("sum", "max", "min", "mean", "prod"):
+    alias(f"unsorted_segment_{_n}", f"segment_{_n}")
+
+
 # -- normalization ----------------------------------------------------------
 @op("layer_norm", "normalization")
 def _layer_norm(ins, attrs):
@@ -983,6 +1191,476 @@ def _moments(ins, attrs):
     dims = _axes(attrs.get("axis"), x.dim())
     return (torch.mean(x, dim=dims),
             torch.var(x, dim=dims, correction=0))
+
+
+# -- convolution ------------------------------------------------------------
+# Channels-last activations and spatial-first kernels ([*K, in, out]), as
+# lax.conv_general_dilated takes them in the JAX package. torch's
+# convolutions read the channels-first view of the same storage
+# (``movedim``: no copy), so a contiguous NHWC tensor reaches cuDNN in its
+# channels-last layout, and the output's view back is contiguous NHWC.
+def _same_pads(sizes, windows, strides):
+    """lax.padtype_to_pads: ``SAME`` pads ``total // 2`` before and the
+    rest after, so an odd total pads more at the end."""
+    out = []
+    for n, k, s in zip(sizes, windows, strides):
+        total = max((-(-n // s) - 1) * s + k - n, 0)
+        out.append((total // 2, total - total // 2))
+    return out
+
+
+def _pads(padding, sizes, windows, strides):
+    """(lo, hi) per spatial axis from ``"SAME"``, ``"VALID"`` or
+    explicit pairs (a pair per spatial axis, or per axis of the whole
+    array as ``lax.reduce_window`` takes them)."""
+    if isinstance(padding, str):
+        if padding.upper() == "SAME":
+            return _same_pads(sizes, windows, strides)
+        if padding.upper() == "VALID":
+            return [(0, 0)] * len(sizes)
+        raise ValueError(f"padding {padding!r}")
+    pairs = [(int(a), int(b)) for a, b in padding]
+    return pairs[1:-1] if len(pairs) == len(sizes) + 2 else pairs
+
+
+def _flat_pads(pads):
+    """(lo, hi) pairs in axis order -> ``F.pad``'s last-axis-first list."""
+    return [v for lo, hi in reversed(pads) for v in (lo, hi)]
+
+
+def _tuple(v, n):
+    return tuple(int(a) for a in v) if isinstance(v, (list, tuple)) \
+        else (int(v),) * n
+
+
+def _dilate(x, rates):
+    """``x`` ``[N, C, *S]`` with ``rate - 1`` zeros between neighbours
+    along each spatial axis (lax's lhs dilation)."""
+    out = x.new_zeros(x.shape[:2] + tuple((n - 1) * r + 1 for n, r in
+                                          zip(x.shape[2:], rates)))
+    out[(slice(None), slice(None))
+        + tuple(slice(None, None, r) for r in rates)] = x
+    return out
+
+
+def _conv(x, w, stride, padding, dilation=None, groups=1,
+          lhs_dilation=None):
+    """lax.conv_general_dilated of channels-last ``x`` and ``w`` ``[*K,
+    I, O]``; ``padding`` is ``"SAME"``, ``"VALID"`` or (lo, hi) pairs."""
+    nsp = x.dim() - 2
+    stride = _tuple(stride, nsp)
+    dilation = _tuple(dilation or 1, nsp)
+    xs = x.movedim(-1, 1)
+    wt = w.permute(nsp + 1, nsp, *range(nsp))
+    if lhs_dilation is not None and any(r > 1 for r in lhs_dilation):
+        xs = _dilate(xs, lhs_dilation)
+    windows = [(k - 1) * d + 1 for k, d in zip(w.shape[:nsp], dilation)]
+    pads = _pads(padding, xs.shape[2:], windows, stride)
+    conv = (F.conv1d, F.conv2d, F.conv3d)[nsp - 1]
+    if all(lo == hi and lo >= 0 for lo, hi in pads):
+        y = conv(xs, wt, None, stride, [lo for lo, _ in pads], dilation,
+                 groups)
+    else:
+        y = conv(F.pad(xs, _flat_pads(pads)), wt, None, stride, 0,
+                 dilation, groups)
+    return y.movedim(1, -1)
+
+
+def _with_bias(out, ins, k):
+    return out + ins[k] if len(ins) > k else out
+
+
+@op("conv2d", "convolution")
+def _conv2d(ins, attrs):
+    return _with_bias(_conv(ins[0], ins[1], attrs.get("stride", (1, 1)),
+                            attrs.get("padding", "SAME"),
+                            attrs.get("dilation", (1, 1))), ins, 2)
+
+
+@op("conv1d", "convolution")
+def _conv1d(ins, attrs):
+    return _with_bias(_conv(ins[0], ins[1], attrs.get("stride", 1),
+                            attrs.get("padding", "SAME"),
+                            attrs.get("dilation", 1)), ins, 2)
+
+
+@op("conv3d", "convolution")
+def _conv3d(ins, attrs):
+    return _with_bias(_conv(ins[0], ins[1], attrs.get("stride", (1, 1, 1)),
+                            attrs.get("padding", "SAME"),
+                            attrs.get("dilation", (1, 1, 1))), ins, 2)
+
+
+def _depthwise_conv(x, w, attrs):
+    """``w`` ``[H, W, C, M]``: output channel ``c * M + m`` is input
+    channel ``c`` through ``w[..., c, m]`` (the JAX package takes no
+    dilation here)."""
+    kh, kw, c, m = w.shape
+    return _conv(x, w.reshape(kh, kw, 1, c * m), attrs.get("stride", (1, 1)),
+                 attrs.get("padding", "SAME"), groups=c)
+
+
+@op("depthwise_conv2d", "convolution")
+def _depthwise(ins, attrs):
+    return _with_bias(_depthwise_conv(ins[0], ins[1], attrs), ins, 2)
+
+
+@op("separable_conv2d", "convolution")
+def _separable(ins, attrs):
+    y = _depthwise_conv(ins[0], ins[1], attrs)
+    return _with_bias(_conv(y, ins[2], (1, 1), "VALID"), ins, 3)
+
+
+def _transpose_pads(k: int, s: int, padding: str):
+    """lax's ``_conv_transpose_padding`` for ``SAME`` / ``VALID``."""
+    if padding == "SAME":
+        total = k + s - 2
+        lo = k - 1 if s > k - 1 else int(np.ceil(total / 2))
+    else:
+        total = k + s - 2 + max(k - s, 0)
+        lo = k - 1
+    return lo, total - lo
+
+
+@op("deconv2d", "convolution")
+def _deconv2d(ins, attrs):
+    """lax.conv_transpose: a convolution of the input dilated by the
+    stride (a string padding gives the transposed pads); with
+    ``transpose_kernel`` (TF's ``Conv2DBackpropInput``) the kernel is
+    flipped spatially and its in/out axes swapped."""
+    x, w = ins[0], ins[1]
+    stride = _tuple(attrs.get("stride", (1, 1)), 2)
+    dil = _tuple(attrs.get("dilation", (1, 1)), 2)
+    padding = attrs.get("padding", "SAME")
+    if isinstance(padding, str) and padding.upper() in ("SAME", "VALID"):
+        pads = [_transpose_pads((k - 1) * d + 1, s, padding.upper())
+                for k, s, d in zip(w.shape[:2], stride, dil)]
+    else:
+        pads = [(int(a), int(b)) for a, b in padding]
+    if attrs.get("transpose_kernel", False):
+        w = torch.flip(w, (0, 1)).transpose(2, 3)
+    return _with_bias(_conv(x, w, (1, 1), pads, dil, lhs_dilation=stride),
+                      ins, 2)
+
+
+def _pool(x, kind, window, strides, padding):
+    """lax.reduce_window over the spatial axes of channels-last ``x``:
+    ``max`` pads with -inf, ``avg`` divides each window's sum by the
+    count of real (unpadded) elements in it."""
+    nsp = x.dim() - 2
+    window, strides = _tuple(window, nsp), _tuple(strides, nsp)
+    xs = x.movedim(-1, 1)
+    pads = _flat_pads(_pads(padding, xs.shape[2:], window, strides))
+    if kind == "max":
+        if any(pads):
+            xs = F.pad(xs, pads, value=-float("inf"))
+        pool = (F.max_pool1d, F.max_pool2d, F.max_pool3d)[nsp - 1]
+        return pool(xs, window, strides).movedim(1, -1)
+
+    def window_sums(t):
+        t = F.pad(t, pads) if any(pads) else t
+        if nsp == 1:
+            return F.avg_pool2d(t[:, :, None], (1,) + window,
+                                (1,) + strides, divisor_override=1)[:, :, 0]
+        return (F.avg_pool2d if nsp == 2 else F.avg_pool3d)(
+            t, window, strides, divisor_override=1)
+
+    s = window_sums(xs)
+    cnt = window_sums(xs.new_ones((1, 1) + tuple(xs.shape[2:])))
+    return (s / cnt).movedim(1, -1)
+
+
+def _pool_op(name, kind, nsp):
+    def impl(ins, attrs):
+        return _pool(ins[0], kind, attrs.get("kernel", (2,) * nsp),
+                     attrs.get("stride", (2,) * nsp),
+                     attrs.get("padding", "VALID"))
+    OP_REGISTRY[name] = impl
+    OP_DOMAINS[name] = "convolution"
+
+
+for _nsp in (1, 2, 3):
+    _pool_op(f"max_pool{_nsp}d", "max", _nsp)
+    _pool_op(f"avg_pool{_nsp}d", "avg", _nsp)
+
+
+@op("upsampling2d", "convolution")
+def _upsample(ins, attrs):
+    s = attrs.get("scale", 2)
+    sh, sw = (s, s) if isinstance(s, int) else s
+    return torch.repeat_interleave(
+        torch.repeat_interleave(ins[0], int(sh), dim=1), int(sw), dim=2)
+
+
+@op("im2col", "convolution")
+def _im2col(ins, attrs):
+    """Patches as columns, NHWC: the JAX package's gather of ``[b, oh,
+    kh, ow, kw, c]`` and its reshape to ``[b, oh, ow, kh * kw * c]``."""
+    x = ins[0]
+    kh, kw = attrs["kernel"]
+    sh, sw = attrs.get("stride", (1, 1))
+    b, h, w, c = x.shape
+    oh, ow = (h - kh) // sh + 1, (w - kw) // sw + 1
+    dev = x.device
+    rows = (torch.arange(oh, device=dev) * sh)[:, None, None, None] + \
+        torch.arange(kh, device=dev)[None, :, None, None]
+    cols = (torch.arange(ow, device=dev) * sw)[None, None, :, None] + \
+        torch.arange(kw, device=dev)[None, None, None, :]
+    return x[:, rows, cols, :].reshape(b, oh, ow, kh * kw * c)
+
+
+# -- image ------------------------------------------------------------------
+def _f32(v) -> np.ndarray:
+    return np.asarray(v, np.float32)
+
+
+def _linear_weights(in_size: int, out_size: int) -> np.ndarray:
+    """[in, out] weights of ``jax.image.resize``'s linear method, which
+    antialiases when it downsamples (its triangle kernel widens by
+    in/out), computed in float32 in its order of operations."""
+    scale = out_size / in_size
+    inv = 1.0 / scale
+    kscale = _f32(max(inv, 1.0))
+    sample = (np.arange(out_size, dtype=np.float32) + _f32(0.5)) * \
+        _f32(inv) - _f32(0.5)
+    x = np.abs(sample[None, :] - np.arange(in_size, dtype=np.float32)
+               [:, None]) / kscale
+    w = np.maximum(_f32(0.0), _f32(1.0) - np.abs(x))
+    total = np.sum(w, axis=0, keepdims=True, dtype=np.float32)
+    w = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
+                 w / np.where(total != 0, total, _f32(1.0)), _f32(0.0))
+    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
+    return np.where(inside[None, :], w, _f32(0.0)).astype(np.float32)
+
+
+def _cubic_weights(out_size: int, in_size: int, a: float,
+                   boundary: str) -> np.ndarray:
+    """[out, in] separable Keys-cubic interpolation weights with
+    half-pixel centers (the JAX package's table): TF ResizeBicubic is
+    a=-0.5 with out-of-range taps dropped and the row renormalized
+    ("renorm"); torch/ONNX is a=-0.75 with indices clamped to the edge
+    ("clamp")."""
+    s = in_size / out_size
+    src = (np.arange(out_size) + 0.5) * s - 0.5
+    base = np.floor(src).astype(np.int64)
+    frac = src - base
+    w = np.zeros((out_size, in_size), np.float64)
+    for o in (-1, 0, 1, 2):
+        t = np.abs(frac - o)
+        k = np.where(
+            t <= 1, (a + 2) * t**3 - (a + 3) * t**2 + 1,
+            np.where(t < 2, a * (t**3 - 5 * t**2 + 8 * t - 4), 0.0))
+        idx = base + o
+        if boundary == "renorm":
+            k = np.where((idx < 0) | (idx >= in_size), 0.0, k)
+        idx = np.clip(idx, 0, in_size - 1)
+        np.add.at(w, (np.arange(out_size), idx), k)
+    if boundary == "renorm":
+        w /= w.sum(axis=1, keepdims=True)
+    return w.astype(np.float32)
+
+
+def _area_weights(out_size: int, in_size: int) -> np.ndarray:
+    """[out, in] row-stochastic overlap weights for area resize: output
+    cell i integrates the input cells overlapping [i*s, (i+1)*s),
+    s=in/out, by overlap fraction (the TF ResizeArea algorithm)."""
+    s = in_size / out_size
+    i = np.arange(out_size)[:, None]
+    j = np.arange(in_size)[None, :]
+    overlap = np.minimum((i + 1) * s, j + 1) - np.maximum(i * s, j)
+    return (np.clip(overlap, 0.0, 1.0) / s).astype(np.float32)
+
+
+def _separable_resize(x, wh, ww):
+    """``einsum("oh,bhwc->bowc")`` then ``("ow,bhwc->bhoc")`` with ``[out,
+    in]`` tables, in float32 (float64 stays float64); a floating input
+    keeps its dtype."""
+    dt = (torch.promote_types(x.dtype, torch.float32) if _is_float(x)
+          else torch.float32)
+    y = x.to(dt)
+    y = torch.einsum("oh,bhwc->bowc", torch.as_tensor(wh, device=x.device,
+                                                      dtype=dt), y)
+    y = torch.einsum("ow,bhwc->bhoc", torch.as_tensor(ww, device=x.device,
+                                                      dtype=dt), y)
+    return y.to(x.dtype) if _is_float(x) else y
+
+
+@op("resize_bilinear", "image")
+def _resize_bilinear(ins, attrs):
+    """``jax.image.resize(..., "bilinear")``: half-pixel centers, an
+    axis of unchanged size left alone, antialiased downsampling."""
+    x = ins[0]
+    h, w = (int(v) for v in attrs["size"])
+    y = x if _is_float(x) else x.to(torch.float32)
+    if h != x.shape[1]:
+        y = torch.einsum("hb,nhwc->nbwc", torch.as_tensor(
+            _linear_weights(x.shape[1], h), device=x.device).to(y.dtype), y)
+    if w != x.shape[2]:
+        y = torch.einsum("wb,nhwc->nhbc", torch.as_tensor(
+            _linear_weights(x.shape[2], w), device=x.device).to(y.dtype), y)
+    return y
+
+
+def _nearest_index(n_in: int, n_out: int, device) -> torch.Tensor:
+    """``jax.image.resize``'s nearest: floor((o + 0.5) * in / out) in
+    float32 (half-pixel, torch's ``nearest-exact``)."""
+    off = (np.arange(n_out, dtype=np.float32) + _f32(0.5)) * \
+        _f32(n_in) / _f32(n_out)
+    return torch.as_tensor(np.floor(off.astype(np.float32)).astype(
+        np.int64), device=device)
+
+
+@op("resize_nearest", "image")
+def _resize_nearest(ins, attrs):
+    x = ins[0]
+    h, w = (int(v) for v in attrs["size"])
+    if attrs.get("coordinate_mode") == "asymmetric":
+        # ONNX/torch nearest export convention (asymmetric + floor):
+        # src index = floor(dst * in/out)
+        iy = torch.as_tensor(np.floor(np.arange(h) * (x.shape[1] / h))
+                             .astype(np.int64), device=x.device)
+        ix = torch.as_tensor(np.floor(np.arange(w) * (x.shape[2] / w))
+                             .astype(np.int64), device=x.device)
+        return x[:, iy][:, :, ix]
+    if h != x.shape[1]:
+        x = x[:, _nearest_index(x.shape[1], h, x.device)]
+    if w != x.shape[2]:
+        x = x[:, :, _nearest_index(x.shape[2], w, x.device)]
+    return x
+
+
+@op("resize_bicubic", "image")
+def _resize_bicubic(ins, attrs):
+    x = ins[0]
+    h, w = attrs["size"]
+    a = float(attrs.get("cubic_coeff_a", -0.5))
+    boundary = attrs.get("boundary", "renorm")
+    return _separable_resize(x, _cubic_weights(h, x.shape[1], a, boundary),
+                             _cubic_weights(w, x.shape[2], a, boundary))
+
+
+@op("resize_area", "image")
+def _resize_area(ins, attrs):
+    x = ins[0]
+    h, w = attrs["size"]
+    return _separable_resize(x, _area_weights(h, x.shape[1]),
+                             _area_weights(w, x.shape[2]))
+
+
+@op("crop_and_resize", "image")
+def _crop_resize(ins, attrs):
+    """Bilinear crops of ``boxes`` ``[n, 4]`` (y1, x1, y2, x2 in [0, 1]
+    of the image's ``h - 1`` / ``w - 1``) from images ``box_idx``; a
+    sample outside the image clamps to its edge."""
+    img, boxes, box_idx = ins
+    ch, cw = (int(v) for v in attrs["crop_size"])
+    h, w = img.shape[1], img.shape[2]
+    dev = img.device
+    y1, x1, y2, x2 = boxes.unbind(-1)
+    ry = torch.arange(ch, device=dev, dtype=boxes.dtype) / max(ch - 1, 1)
+    rx = torch.arange(cw, device=dev, dtype=boxes.dtype) / max(cw - 1, 1)
+    ys = (y1 * (h - 1))[:, None] + ry[None, :] * (y2 - y1)[:, None] * (h - 1)
+    xs = (x1 * (w - 1))[:, None] + rx[None, :] * (x2 - x1)[:, None] * (w - 1)
+    y0 = torch.clamp(torch.floor(ys).long(), 0, h - 1)
+    x0 = torch.clamp(torch.floor(xs).long(), 0, w - 1)
+    y1i = torch.clamp(y0 + 1, 0, h - 1)
+    x1i = torch.clamp(x0 + 1, 0, w - 1)
+    wy = (ys - y0)[:, :, None, None]
+    wx = (xs - x0)[:, None, :, None]
+    b = box_idx.long()[:, None, None]
+
+    def at(yi, xi):
+        return img[b, yi[:, :, None], xi[:, None, :]]
+
+    return (at(y0, x0) * (1 - wy) * (1 - wx) + at(y0, x1i) * (1 - wy) * wx
+            + at(y1i, x0) * wy * (1 - wx) + at(y1i, x1i) * wy * wx)
+
+
+@op("extract_image_patches", "image")
+def _extract_patches(ins, attrs):
+    return _im2col(ins, attrs)
+
+
+@op("non_max_suppression", "image")
+def _nms(ins, attrs):
+    """Greedy NMS over a static loop of ``max_output_size`` picks: the
+    highest remaining score (the first index of a tie), then every box
+    whose IoU with it exceeds the threshold is suppressed. Slots left
+    once every box is picked or suppressed hold -1 (int32)."""
+    boxes, scores = ins
+    iou_thr = attrs.get("iou_threshold", 0.5)
+    neg = torch.full_like(scores, -float("inf"))
+    pos = torch.arange(scores.shape[0], device=scores.device)
+    area_b = (boxes[:, 2] - boxes[:, 0]) * (boxes[:, 3] - boxes[:, 1])
+    sc, picks = scores, []
+    for _ in range(int(attrs["max_output_size"])):
+        i = torch.argmax(sc)
+        valid = sc[i] > -float("inf")
+        picks.append(torch.where(valid, i, torch.full_like(i, -1)))
+        a = boxes[i]
+        inter = (torch.clamp(torch.minimum(a[2], boxes[:, 2])
+                             - torch.maximum(a[0], boxes[:, 0]), min=0)
+                 * torch.clamp(torch.minimum(a[3], boxes[:, 3])
+                               - torch.maximum(a[1], boxes[:, 1]), min=0))
+        area_a = (a[2] - a[0]) * (a[3] - a[1])
+        iou = inter / torch.clamp(area_a + area_b - inter, min=1e-9)
+        sc = torch.where(valid & (iou > iou_thr), neg, sc)
+        sc = torch.where(pos == i, neg, sc)
+    return _int32(torch.stack(picks))
+
+
+# -- random -----------------------------------------------------------------
+# ``attrs["rng"]`` is the op's ``RngKey``; its generator lives on the
+# device the output does (the card's Philox there), so the card's and the
+# CPU's draws differ, and a draw depends on the key alone.
+def _rng_generator(attrs, device):
+    rng = attrs.get("rng")
+    if rng is None:
+        raise ValueError("a random op needs attrs['rng'] (SameDiff passes "
+                         "each random op a key of its own)")
+    return rng.generator(device)
+
+
+def _draw(attrs, fn, shape, device):
+    device = torch.device(device)
+    if device.type == "meta":          # shapes only
+        return torch.empty(shape, dtype=torch.float32, device="meta")
+    return fn(shape, generator=_rng_generator(attrs, device),
+              device=device, dtype=torch.float32)
+
+
+@op("random_normal", "random")
+def _rand_normal(ins, attrs):
+    z = _draw(attrs, torch.randn, tuple(attrs["shape"]),
+              _source_device(attrs))
+    return attrs.get("mean", 0.0) + attrs.get("stddev", 1.0) * z
+
+
+@op("random_uniform", "random")
+def _rand_uniform(ins, attrs):
+    lo, hi = attrs.get("min", 0.0), attrs.get("max", 1.0)
+    u = _draw(attrs, torch.rand, tuple(attrs["shape"]),
+              _source_device(attrs))
+    return torch.clamp(u * (hi - lo) + lo, min=lo)
+
+
+@op("random_bernoulli", "random")
+def _rand_bern(ins, attrs):
+    u = _draw(attrs, torch.rand, tuple(attrs["shape"]),
+              _source_device(attrs))
+    return (u < attrs.get("prob", 0.5)).to(torch.float32)
+
+
+@op("dropout", "random")
+def _dropout(ins, attrs):
+    """Inverted dropout of drop probability ``rate``: ``where(keep, x /
+    (1 - rate), 0)``; the identity when not training or without a key."""
+    x = ins[0]
+    p = attrs.get("rate", 0.5)
+    if attrs.get("rng") is None or not attrs.get("training", True):
+        return x
+    keep = _draw(attrs, torch.rand, tuple(x.shape), x.device) < 1.0 - p
+    return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
 
 
 # -- losses -----------------------------------------------------------------
@@ -1402,3 +2080,16 @@ def _merge(ins, attrs):
         raise ValueError("merge expects (false_val, true_val, pred)")
     false_val, true_val, pred = ins
     return torch.where(_predicate(pred), true_val, false_val)
+
+
+# -- compression (threshold encoding) ---------------------------------------
+@op("encode_threshold", "compression")
+def _encode_thr(ins, attrs):
+    """``(quantized, residual)``: ``parallel/encoding.py``'s codec."""
+    from deeplearning4j_tpu_torch.parallel.encoding import encode_threshold
+    return encode_threshold(ins[0], attrs.get("threshold", 1e-3))
+
+
+@op("decode_threshold", "compression")
+def _decode_thr(ins, attrs):
+    return ins[0]

@@ -39,6 +39,15 @@ each trip and raises when a gradient is asked through it. ``save`` keeps
 the JAX package's ``graph.json`` form of a subgraph (its arrays in
 ``arrays.npz`` under ``__cf.op<i>...`` names).
 
+Random ops (``dropout``, ``random_normal``, ``random_uniform``,
+``random_bernoulli``) draw from a key of their own, ``fold_in(call key,
+op index)`` (``common.rng.RngKey``): the graph's key splits once for each
+``output`` call and each ``fit`` batch, and ``fit_steps`` folds the step
+into its call's key, as the JAX package's does; ``calculate_gradients``
+uses the fixed key 0. ``dropout`` is the identity unless training. A
+checkpointed segment recomputes from the same keys, so it redraws the
+same values.
+
 Not ported yet (each raises ``NotImplementedError`` with a pointer to
 ``ROADMAP.md``): StableHLO export (``to_stablehlo`` /
 ``export_serialized`` / ``deserialize_and_call``), and data- or
@@ -62,8 +71,14 @@ from deeplearning4j_tpu_torch.autodiff.registry import (_on_meta,
                                                         torch_dtype)
 from deeplearning4j_tpu_torch.common.environment import resolve_device
 from deeplearning4j_tpu_torch.common.remat import min_cut_segment_plan
+from deeplearning4j_tpu_torch.common.rng import RngKey
 
 _ROADMAP = "ROADMAP.md, Queue A"
+
+#: ops that draw random values: each gets a key of its own, folded out of
+#: the call's key by its position in the graph
+RNG_OPS = {"dropout", "random_normal", "random_uniform",
+           "random_bernoulli"}
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -292,6 +307,9 @@ class SameDiff:
         #: every change to the graph
         self._exec_cache: Dict = {}
         self._generator = torch.Generator().manual_seed(0)
+        #: the graph's random key: split once a call (the JAX package's
+        #: ``PRNGKey(0)`` and its splits)
+        self._rng = RngKey(0)
         self.loss_variables: List[str] = []
         self.training_config = None
         self._updater_state = None
@@ -313,16 +331,17 @@ class SameDiff:
         #: the graph this one is traced into as a control-flow body
         self._tracing_parent: Optional["SameDiff"] = None
         from deeplearning4j_tpu_torch.autodiff.opsets import (
-            SDNN, SDRNN, SDLoss, SDMath, UnportedNamespace)
+            SDCNN, SDNN, SDRNN, SDBitwise, SDImage, SDLinalg, SDLoss, SDMath,
+            SDRandom)
         self.math = SDMath(self)
         self.nn = SDNN(self)
-        self.loss = SDLoss(self)
+        self.cnn = SDCNN(self)
         self.rnn = SDRNN(self)
-        self.cnn = UnportedNamespace("convolution")
-        self.image = UnportedNamespace("image")
-        self.bitwise = UnportedNamespace("bitwise")
-        self.linalg = UnportedNamespace("linalg")
-        self.random = UnportedNamespace("random")
+        self.loss = SDLoss(self)
+        self.image = SDImage(self)
+        self.bitwise = SDBitwise(self)
+        self.linalg = SDLinalg(self)
+        self.random = SDRandom(self)
 
     @staticmethod
     def create(device: Union[None, str, torch.device] = None) -> "SameDiff":
@@ -510,11 +529,24 @@ class SameDiff:
                     stack.extend(self.ops[idx].inputs)
         return sorted(needed)
 
-    def _execute(self, values: dict, op_indices: List[int]) -> dict:
+    def _execute(self, values: dict, op_indices: List[int],
+                 rng: Optional[RngKey] = None, training: bool = False
+                 ) -> dict:
         for idx in op_indices:
             node = self.ops[idx]
+            attrs = node.attrs
+            if node.op_name in RNG_OPS or not node.inputs:
+                attrs = dict(attrs)
+                # an op without inputs makes its output on the graph's
+                # device; a random op draws from its own key
+                attrs["_device"] = self.device
+                if node.op_name in RNG_OPS:
+                    attrs["rng"] = (rng.fold_in(idx) if rng is not None
+                                    else None)
+                    if node.op_name == "dropout":
+                        attrs["training"] = training
             out = get_op(node.op_name)([values[i] for i in node.inputs],
-                                       node.attrs)
+                                       attrs)
             if len(node.outputs) == 1:
                 values[node.outputs[0]] = out
             else:
@@ -554,16 +586,16 @@ class SameDiff:
         return plan
 
     def _run(self, plan: _Plan, var_vals: dict, ph_vals: dict,
-             out_names: Sequence[str], training: bool = False
-             ) -> List[torch.Tensor]:
+             out_names: Sequence[str], training: bool = False,
+             rng: Optional[RngKey] = None) -> List[torch.Tensor]:
         values = {n: self._arrays[n] for n in plan.constants}
         values.update(var_vals)
         values.update(ph_vals)
         if training and self.remat_segments > 1 and len(plan.ops) > 1 \
                 and torch.is_grad_enabled():
-            self._execute_segmented(values, plan.ops, tuple(out_names))
+            self._execute_segmented(values, plan.ops, tuple(out_names), rng)
         else:
-            self._execute(values, plan.ops)
+            self._execute(values, plan.ops, rng, training)
         return [values[n] for n in out_names]
 
     def _segment_cut_costs(self, op_indices: List[int],
@@ -590,14 +622,15 @@ class SameDiff:
                 diff[k + 1] -= w
         return np.cumsum(diff)[:n + 1]
 
-    def _value_sizes(self, values: dict, op_indices: List[int]) -> dict:
+    def _value_sizes(self, values: dict, op_indices: List[int],
+                     rng: Optional[RngKey] = None) -> dict:
         """Bytes of every value of the walk, from one pass on meta
         tensors (shapes only: nothing computed or allocated). Empty when
         an op has no meta kernel; the cut costs then count values."""
         meta = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
                 for k, v in values.items()}
         try:
-            self._execute(meta, op_indices)
+            self._execute(meta, op_indices, rng, True)
         except (RuntimeError, NotImplementedError, TypeError,
                 ValueError):
             return {}
@@ -605,10 +638,14 @@ class SameDiff:
                 if isinstance(v, torch.Tensor)}
 
     def _execute_segmented(self, values: dict, op_indices: List[int],
-                           out_names: Tuple[str, ...]) -> None:
+                           out_names: Tuple[str, ...],
+                           rng: Optional[RngKey] = None) -> None:
         """The walk in ``remat_segments`` segments placed by
         ``min_cut_segment_plan``, each but the last checkpointed; only
-        values read later (or requested) cross a boundary."""
+        values read later (or requested) cross a boundary. A random op's
+        key depends only on ``rng`` and its position, so a segment's
+        recompute draws what its forward drew (``preserve_rng_state`` is
+        not needed)."""
         read_at = [set(self.ops[i].inputs) for i in op_indices]
         key = ("remat", tuple(op_indices), out_names, self.remat_segments,
                tuple((k, tuple(v.shape)) for k, v in values.items()))
@@ -618,7 +655,7 @@ class SameDiff:
                 len(op_indices), self.remat_segments,
                 self._segment_cut_costs(
                     op_indices, out_names,
-                    self._value_sizes(values, op_indices)))
+                    self._value_sizes(values, op_indices, rng)))
         for lo, hi, wrap in plan:
             seg = op_indices[lo:hi]
             produced = {o for i in seg for o in self.ops[i].outputs}
@@ -628,7 +665,7 @@ class SameDiff:
             seg_out = sorted(produced & needed_after)
 
             def seg_fn(in_vals, seg=seg, seg_out=seg_out):
-                vals = self._execute(dict(in_vals), seg)
+                vals = self._execute(dict(in_vals), seg, rng, True)
                 return {k: vals[k] for k in seg_out}
 
             in_vals = {k: values[k] for k in seg_in}
@@ -651,7 +688,8 @@ class SameDiff:
                ph_specs=None) -> Dict[str, torch.Tensor]:
         """Execute the graph (reference: SameDiff.output): the ancestors
         of ``outputs``, under ``torch.no_grad``. Returns ``{name:
-        tensor}`` on the graph's device."""
+        tensor}`` on the graph's device. Each call takes a new random
+        key; ``training`` turns dropout on."""
         if mesh is not None or ph_specs is not None:
             raise _not_ported("data-parallel output (mesh=, ph_specs=)",
                               "11")
@@ -659,10 +697,11 @@ class SameDiff:
                         for o in outputs)
         ph_vals = self._placeholders(placeholders)
         plan = self._plan(outputs, tuple(ph_vals))
+        self._rng, rng = self._rng.split(2)
         with torch.no_grad():
             res = self._run(plan, {n: self._arrays[n]
                                    for n in plan.variables},
-                            ph_vals, outputs)
+                            ph_vals, outputs, training, rng)
         return dict(zip(outputs, res))
 
     def to_stablehlo(self, *a, **kw):
@@ -894,7 +933,8 @@ class SameDiff:
                             wrt: Sequence) -> Dict[str, torch.Tensor]:
         """Gradients of the summed loss variables with respect to the
         given VARIABLEs (reference: sd.calculateGradients); a variable
-        the loss does not reach gets zeros."""
+        the loss does not reach gets zeros. The walk trains (dropout on)
+        from the fixed random key 0, as the JAX package's does."""
         if not self.loss_variables:
             raise ValueError("call set_loss_variables first")
         wrt = [w.name if isinstance(w, SDVariable) else w for w in wrt]
@@ -906,7 +946,7 @@ class SameDiff:
         var_vals.update(leaves)
         with torch.enable_grad():
             outs = self._run(plan, var_vals, ph_vals, self.loss_variables,
-                             training=True)
+                             training=True, rng=RngKey(0))
             total = sum(o.sum() for o in outs)
             grads = torch.autograd.grad(total, list(leaves.values()),
                                         allow_unused=True)
@@ -923,10 +963,11 @@ class SameDiff:
         if not self.loss_variables:
             raise ValueError("call set_loss_variables first")
 
-    def _train_step(self, ph_vals: Dict[str, torch.Tensor]) -> torch.Tensor:
+    def _train_step(self, ph_vals: Dict[str, torch.Tensor],
+                    rng: RngKey) -> torch.Tensor:
         """One update of every VARIABLE the loss reaches: autograd over
-        the walk, then the updater; the loss (l1/l2 terms included) as a
-        0-d tensor."""
+        the walk (random ops drawing from ``rng``), then the updater; the
+        loss (l1/l2 terms included) as a 0-d tensor."""
         cfg = self.training_config
         plan = self._plan(tuple(self.loss_variables), tuple(ph_vals))
         names = plan.variables
@@ -938,7 +979,7 @@ class SameDiff:
                   for n in names}
         with torch.enable_grad():
             outs = self._run(plan, params, ph_vals, self.loss_variables,
-                             training=True)
+                             training=True, rng=rng)
             total = sum(o.sum() for o in outs)
             if cfg.l2:
                 total = total + 0.5 * cfg.l2 * sum(
@@ -970,7 +1011,8 @@ class SameDiff:
         updater iteration continues from ``iteration_count`` (shared with
         ``fit``), so ``fit_steps(b, 5)`` twice equals ``fit_steps(b,
         10)``. Returns the last step's loss; one listener round at the
-        end, as the JAX package's fori-loop does."""
+        end, as the JAX package's fori-loop does. The call takes one
+        random key and step ``i`` folds ``i`` into it."""
         if mesh is not None or tp_specs or ph_specs or encoding \
                 or update_exchange not in ("auto", "dense"):
             raise _not_ported(
@@ -979,8 +1021,9 @@ class SameDiff:
         self._check_training()
         ph_vals = self._placeholders(placeholders)
         loss = None
-        for _ in range(int(n_steps)):
-            loss = self._train_step(ph_vals)
+        self._rng, rng = self._rng.split(2)
+        for i in range(int(n_steps)):
+            loss = self._train_step(ph_vals, rng.fold_in(i))
             self.iteration_count += 1
         if loss is None:
             return self._score
@@ -1088,7 +1131,8 @@ class SameDiff:
                       if env.device_prefetch
                       else (self._placeholders(make_ph(b)) for b in iterator))
             for ph_vals in staged:
-                loss = self._train_step(ph_vals)
+                self._rng, rng = self._rng.split(2)
+                loss = self._train_step(ph_vals, rng)
                 epoch_losses.append(float(loss.float()))
                 self._score = epoch_losses[-1]
                 first = next(iter(ph_vals.values()))

@@ -53,20 +53,40 @@
 // (no memset, no allocation a launch) and every launch leaves its own at
 // zero. take_tickets gives each launch a range: an eager launch the range
 // of its stream (launches on one stream run one after another), a launch
-// captured into a CUDA graph a fresh range of its own (the replays of one
-// graph run one after another, and a graph's launches never share a range
-// with a stream's). So two launches that can be in flight at once never
-// share a ticket. Each library that includes this header has its own
-// array and its own ranges (take_tickets has internal linkage).
+// captured into a CUDA graph a range of its own (the replays of one graph
+// run one after another, and a graph's launches never share a range with
+// a stream's). So two launches that can be in flight at once never share
+// a ticket. The pool's first three quarters go to eager streams and
+// captured launches for good. Past them, a graph's captured ranges are
+// owned by one CUDA user object that the graph retains: when the graph
+// and every executable instantiated from it are destroyed, its destructor
+// returns them to a free list that later launches take from once the
+// pool's never-used end is spent, so captures without end never exhaust
+// it. The two sides serve two workloads. A graph that retains a user
+// object costs a fixed 2.5-3.5 us of device time a replay, whatever it
+// holds (scripts/graph_user_object_cost.py: the same with 1, 20 or 200
+// launches; the runtime holds the object for each replay in flight):
+// 0.5-1.4 % of a 20-launch replay of one of these kernels, as timed in
+// chip_smoke.py, and nothing to speak of against a captured training or
+// serving step of milliseconds. So processes that capture a bounded
+// number of graphs (timing loops, tests, short runs: 3/4 of the pool is
+// 12288 captured launches at the largest ResNet-50 site, 64 tickets
+// each) keep their replays free of it, and processes that capture
+// without end (a graph a step or a bucket, recaptured) pay it once a
+// replay and get their ranges back. Each library that includes this
+// header has its own array and its own ranges (take_tickets has internal
+// linkage).
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <stdio.h>
 
+#include <iterator>
 #include <map>
 #include <mutex>
 #include <utility>
+#include <vector>
 
 namespace dl4j {
 namespace sm90 {
@@ -80,6 +100,10 @@ constexpr int kBatch = 8;           // partial loads in flight a thread
                                     // (32 spilled in kernel 5)
 constexpr int kMaxDevices = 64;
 constexpr int64_t kTicketPool = int64_t(1) << 20;
+// Captures take ranges that no graph owns while the pool's never-used end
+// stays below this; past it, a graph's ranges are owned and come back
+// (see take_tickets).
+constexpr int64_t kUnownedTickets = kTicketPool / 4 * 3;
 
 __device__ unsigned g_tickets[kTicketPool];
 
@@ -155,50 +179,157 @@ inline void describe(const Geom& g, int rows, char* out, int len) {
            g.groups > 1 ? 2 : 1, g.wide_index ? "64-bit" : "32-bit");
 }
 
+// The ranges a graph's captured launches took, owned by one CUDA user
+// object of the graph (one object a graph, however many launches).
+struct GraphRanges {
+  int dev;
+  unsigned long long capture;  // the capture's id
+  std::vector<std::pair<int64_t, int64_t>> ranges;  // (offset, size)
+};
+
+// The ticket ranges of this library (static: its own, see take_tickets).
+// An eager stream keeps its range for good; the ranges taken by launches
+// captured into a CUDA graph go back to `free_ranges` when the graph and
+// every executable made from it are destroyed.
+struct TicketRanges {
+  std::mutex mu;
+  std::map<std::pair<int, uintptr_t>, std::pair<int64_t, int64_t>>
+      eager;                                      // (device, stream) ->
+                                                  // (offset, size)
+  int64_t next[kMaxDevices] = {};                 // never handed out past
+  std::map<int64_t, int64_t> free_ranges[kMaxDevices];  // offset -> size
+  std::map<std::pair<int, unsigned long long>, GraphRanges*>
+      capturing;                                  // (device, capture id)
+  unsigned* base[kMaxDevices] = {};
+};
+
+static TicketRanges& ticket_ranges() {
+  static TicketRanges r;
+  return r;
+}
+
+// `n` tickets of `dev`: from the never-used end of the pool while it
+// lasts, then first fit among the returned ranges; -1 once both are
+// spent. Called with the lock held.
+static int64_t claim_range(TicketRanges& r, int dev, int64_t n) {
+  if (r.next[dev] + n <= kTicketPool) {
+    const int64_t off = r.next[dev];
+    r.next[dev] += n;
+    return off;
+  }
+  auto& fr = r.free_ranges[dev];
+  for (auto it = fr.begin(); it != fr.end(); ++it) {
+    if (it->second < n) continue;
+    const int64_t off = it->first, left = it->second - n;
+    fr.erase(it);
+    if (left > 0) fr[off + n] = left;
+    return off;
+  }
+  return -1;
+}
+
+// A range back to the free list, merged with its neighbours. Called with
+// the lock held.
+static void give_back(std::map<int64_t, int64_t>& fr, int64_t off,
+                      int64_t size) {
+  auto it = fr.emplace(off, size).first;
+  auto nx = std::next(it);
+  if (nx != fr.end() && it->first + it->second == nx->first) {
+    it->second += nx->second;
+    fr.erase(nx);
+  }
+  if (it != fr.begin()) {
+    auto pv = std::prev(it);
+    if (pv->first + pv->second == it->first) {
+      pv->second += it->second;
+      fr.erase(it);
+    }
+  }
+}
+
+// The user object's destructor: the graph's ranges go back to the free
+// list. CUDA runs it once the graph and all its executables are gone, on
+// a thread of its own, and it may call no CUDA function: it only takes
+// the lock.
+static void CUDART_CB release_graph_ranges(void* p) {
+  GraphRanges* g = static_cast<GraphRanges*>(p);
+  TicketRanges& r = ticket_ranges();
+  {
+    std::lock_guard<std::mutex> lock(r.mu);
+    auto it = r.capturing.find({g->dev, g->capture});
+    if (it != r.capturing.end() && it->second == g) r.capturing.erase(it);
+    for (const auto& rg : g->ranges)
+      give_back(r.free_ranges[g->dev], rg.first, rg.second);
+  }
+  delete g;
+}
+
 // `need` tickets for a launch on `stream` (see the note at the top);
-// cudaErrorMemoryAllocation once the pool is spent. Static: its ranges
-// and the array's address are this library's own (an inline function's
-// statics would be one object for the whole process).
+// cudaErrorMemoryAllocation once the pool is spent. Under capture, once
+// the pool's never-used end has passed kUnownedTickets, the range joins
+// the ranges of the graph being captured, which a user object of the
+// graph owns, so it returns to the pool when the graph is destroyed.
+// Static: its ranges and the array's address are this
+// library's own (an inline function's statics would be one object for
+// the whole process).
 static int take_tickets(cudaStream_t stream, int64_t need,
                         unsigned** out) {
-  static std::mutex mu;
-  static std::map<std::pair<int, uintptr_t>, std::pair<int64_t, int64_t>>
-      eager;  // (device, stream) -> (offset, size)
-  static int64_t next[kMaxDevices] = {};
-  static unsigned* base[kMaxDevices] = {};
+  TicketRanges& r = ticket_ranges();
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
   cudaStreamCaptureStatus st = cudaStreamCaptureStatusNone;
-  err = cudaStreamIsCapturing(stream, &st);
+  unsigned long long capture = 0;
+  cudaGraph_t graph = nullptr;
+  err = cudaStreamGetCaptureInfo(stream, &st, &capture, &graph);
   if (err != cudaSuccess) return (int)err;
-  std::lock_guard<std::mutex> lock(mu);
-  if (base[dev] == nullptr) {
-    err = cudaGetSymbolAddress(reinterpret_cast<void**>(&base[dev]),
+  std::lock_guard<std::mutex> lock(r.mu);
+  if (r.base[dev] == nullptr) {
+    err = cudaGetSymbolAddress(reinterpret_cast<void**>(&r.base[dev]),
                                g_tickets);
     if (err != cudaSuccess) return (int)err;
   }
-  auto bump = [&](int64_t n) -> int64_t {
-    if (next[dev] + n > kTicketPool) return -1;
-    const int64_t off = next[dev];
-    next[dev] += n;
-    return off;
-  };
   int64_t off;
-  if (st != cudaStreamCaptureStatusNone) {
-    off = bump(need);
-  } else {
-    auto& r = eager[{dev, reinterpret_cast<uintptr_t>(stream)}];
-    if (r.second < need) {
-      const int64_t n = need < 4096 ? 4096 : need;
-      r.first = bump(n);
-      r.second = r.first < 0 ? 0 : n;
+  if (st == cudaStreamCaptureStatusActive &&
+      r.next[dev] + need <= kUnownedTickets) {
+    // the pool's first three quarters go to captures unowned, as eager
+    // ranges do, so their graphs replay without a user object's fixed
+    // cost (see the note at the top)
+    off = claim_range(r, dev, need);
+  } else if (st == cudaStreamCaptureStatusActive) {
+    GraphRanges*& owner = r.capturing[{dev, capture}];
+    if (owner == nullptr) {
+      GraphRanges* g = new GraphRanges{dev, capture, {}};
+      cudaUserObject_t obj;
+      err = cudaUserObjectCreate(&obj, g, release_graph_ranges, 1,
+                                 cudaUserObjectNoDestructorSync);
+      if (err == cudaSuccess)
+        err = cudaGraphRetainUserObject(graph, obj, 1,
+                                        cudaGraphUserObjectMove);
+      if (err != cudaSuccess) {
+        r.capturing.erase({dev, capture});
+        delete g;
+        return (int)err;
+      }
+      owner = g;
     }
-    off = r.first;
+    off = claim_range(r, dev, need);
+    if (off < 0) return (int)cudaErrorMemoryAllocation;
+    owner->ranges.emplace_back(off, need);
+  } else if (st != cudaStreamCaptureStatusNone) {
+    return (int)cudaErrorStreamCaptureInvalidated;
+  } else {
+    auto& e = r.eager[{dev, reinterpret_cast<uintptr_t>(stream)}];
+    if (e.second < need) {
+      const int64_t n = need < 4096 ? 4096 : need;
+      e.first = claim_range(r, dev, n);
+      e.second = e.first < 0 ? 0 : n;
+    }
+    off = e.first;
+    if (off < 0) return (int)cudaErrorMemoryAllocation;
   }
-  if (off < 0) return (int)cudaErrorMemoryAllocation;
-  *out = base[dev] + off;
+  *out = r.base[dev] + off;
   return 0;
 }
 

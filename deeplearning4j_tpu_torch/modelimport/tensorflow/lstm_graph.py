@@ -58,9 +58,9 @@ from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
-from deeplearning4j_tpu_torch.modelimport.tensorflow.bert_graph import (
-    _DT_FLOAT, _DT_INT32, _Graph, _attr_b, _attr_i, _attr_type, _key, _ld,
-    _shape_proto, _varint)
+from deeplearning4j_tpu_torch.modelimport.tensorflow.graph_writer import (
+    _DT_FLOAT, _DT_INT32, _Graph, _attr_b, _attr_func, _attr_i, _attr_list,
+    _attr_s, _attr_shape, _attr_type, _key, _ld, _varint)
 
 _DT_BOOL, _DT_VARIANT = 10, 21
 #: the weights, in draw order
@@ -105,31 +105,6 @@ def lstm_weights(vocab: int, hidden: int, seed: int = 0
         np.float32)
     p["out_b"] = (rs.randn(vocab) * 0.1).astype(np.float32)
     return p
-
-
-# -- attrs the BERT writer does not need -------------------------------------
-def _attr_s(v: bytes) -> bytes:
-    return _ld(2, v)
-
-
-def _attr_func(name: str) -> bytes:
-    return _ld(10, _ld(1, name.encode()))
-
-
-def _attr_shape(dims: Sequence[int]) -> bytes:
-    return _ld(7, _shape_proto(dims))
-
-
-def _attr_list(types: Sequence[int] = (), ints: Sequence[int] = (),
-               shapes: Sequence[Sequence[int]] = (),
-               strings: Sequence[bytes] = ()) -> bytes:
-    body = b"".join(_ld(2, s) for s in strings)
-    if ints:
-        body += _ld(3, b"".join(_varint(int(i)) for i in ints))
-    if types:
-        body += _ld(6, b"".join(_varint(t) for t in types))
-    body += b"".join(_ld(7, _shape_proto(s)) for s in shapes)
-    return _ld(1, body)
 
 
 _T_FLOAT, _T_INT = _attr_type(_DT_FLOAT), _attr_type(_DT_INT32)

@@ -50,6 +50,13 @@ class BackpropType(enum.Enum):
     TRUNCATED_BPTT = "tbptt"
 
 
+class WorkspaceMode(enum.Enum):
+    """Kept for API parity (reference: WorkspaceMode); a no-op here:
+    PyTorch's caching allocator owns device memory."""
+    ENABLED = "enabled"
+    NONE = "none"
+
+
 def default_preprocessor(cur: InputType, layer: Layer
                          ) -> Optional[InputPreProcessor]:
     """The shape adapter the JAX package inserts before ``layer`` on a
@@ -94,6 +101,9 @@ class MultiLayerConfiguration:
     compute_dtype: Optional[str] = None   # None = same as dtype
     remat_segments: int = 0
     input_type: Optional[InputType] = None
+
+    def get_layer(self, i: int) -> Layer:
+        return self.layers[i]
 
     def to_json(self) -> str:
         d = {
@@ -240,6 +250,12 @@ def apply_layer_defaults(layer: Layer,
         layer.dropout = base._dropout
     if layer.weight_noise is None and base._weight_noise is not None:
         layer.weight_noise = base._weight_noise
+    if layer.constrain_weights is None and base._constrain_weights:
+        layer.constrain_weights = list(base._constrain_weights)
+    if layer.constrain_bias is None and base._constrain_bias:
+        layer.constrain_bias = list(base._constrain_bias)
+    if layer.constrain_all is None and base._constrain_all:
+        layer.constrain_all = list(base._constrain_all)
 
 
 class NeuralNetConfiguration:
@@ -259,6 +275,10 @@ class NeuralNetConfiguration:
             self._dtype = "float32"
             self._compute_dtype: Optional[str] = None
             self._remat_segments = 0
+            self._activation = None
+            self._constrain_weights: list = []
+            self._constrain_bias: list = []
+            self._constrain_all: list = []
 
         def seed(self, s: int):
             self._seed = int(s)
@@ -284,6 +304,28 @@ class NeuralNetConfiguration:
             """The default input dropout (retain probability) of every
             layer that sets none."""
             self._dropout = float(p)
+            return self
+
+        def activation(self, a):
+            """Stored for API parity; like the JAX package's, applied
+            nowhere (each layer names its own activation)."""
+            self._activation = a
+            return self
+
+        def constrain_weights(self, *constraints):
+            """Post-update projections of every layer's weight params
+            (reference: Builder.constrainWeights), for each layer that
+            sets none."""
+            self._constrain_weights = list(constraints)
+            return self
+
+        def constrain_bias(self, *constraints):
+            self._constrain_bias = list(constraints)
+            return self
+
+        def constrain_all_parameters(self, *constraints):
+            """Reference: Builder.constrainAllParameters."""
+            self._constrain_all = list(constraints)
             return self
 
         def weight_noise(self, wn):

@@ -202,6 +202,15 @@ class ComputationGraph(Trainable):
         return self
 
     # -- Trainable protocol ----------------------------------------------
+    def output_layer_confs(self) -> Dict[str, BaseOutputLayer]:
+        """The output layers among the network's outputs, by vertex."""
+        out = {}
+        for name in self.conf.network_outputs:
+            layer = self.conf.vertices[name].content
+            if isinstance(layer, BaseOutputLayer):
+                out[name] = layer
+        return out
+
     def _keys(self):
         return self._topo
 

@@ -39,6 +39,11 @@ class ParallelInference:
         self._shutdown = False
         self._lock = threading.Lock()
 
+    @property
+    def n_workers(self) -> int:
+        """Replicas serving requests: one, the model on its device."""
+        return 1
+
     # ------------------------------------------------------------------
     def _ensure(self):
         if not self.model._initialized:

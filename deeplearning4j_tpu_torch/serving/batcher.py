@@ -79,6 +79,11 @@ class ServingBatcher(ParallelInference):
             f"serving:{name}", threshold=len(self.buckets) + 1)
         self._warmed = False
 
+    @property
+    def params(self):
+        """What this batcher holds resident: the model's parameters."""
+        return getattr(self.model, "params", None)
+
     # ------------------------------------------------------------------
     def _ensure(self):
         if self._generic is None:

@@ -165,6 +165,11 @@ class ModelRegistry:
         with self._lock:
             return self._current[name]
 
+    def names(self) -> List[str]:
+        """The registered names, sorted."""
+        with self._lock:
+            return sorted(self._current)
+
     def describe(self) -> List[dict]:
         """Every name's versions (GET /v1/models)."""
         with self._lock:

@@ -1395,3 +1395,18 @@ def test_staged_and_data_parallel_fits_equal_plain_fit_on_the_card(
         for k, sub in nets[0].states.items():
             for n, t in sub.items():
                 assert torch.equal(t, other.states[k][n]), f"{k}/{n}"
+
+
+@pytest.mark.gpu
+def test_ticket_pool_gets_captured_ranges_back():
+    """Kernels 3 and 5 captured into more CUDA graphs than their ticket
+    pool holds (1.5 x its 2^20 tickets, reckoned at the site with the
+    most tickets a launch), each graph destroyed after it: every capture
+    takes its range, and afterwards the kernels still launch eagerly and
+    under a new graph to the first launch's bits, within SUM_RTOL of
+    their plain versions (``chip_smoke.ticket_pool_check``)."""
+    _need_card()
+    import chip_smoke
+    out = chip_smoke.ticket_pool_check(torch)
+    for name in SUMS_KERNELS:
+        assert out[name]["tickets_captured"] > chip_smoke.TICKET_POOL

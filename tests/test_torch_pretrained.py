@@ -204,23 +204,33 @@ def test_entry_points_default_to_the_card(monkeypatch):
             call()
 
 
-def test_samediff_zip_is_not_ported(tmp_path):
-    """SameDiff zips restore since slice 9; one whose graph needs an op
-    of a domain not ported yet (here linalg) still raises."""
+def test_samediff_zip_of_a_linalg_graph_restores(tmp_path):
+    """A SameDiff zip whose graph needs the linalg domain (a ``qr``)
+    restores through ``restore_model`` in both packages and gives the
+    JAX package's factors (the same LAPACK factorization on the CPU)."""
     import io
     import json
     import zipfile
-    import numpy as np
     graph = {"variables": [{"name": "x", "type": "PLACEHOLDER",
-                            "shape": [2], "dtype": "float32"},
-                           {"name": "w", "type": "ARRAY", "shape": None,
+                            "shape": [4, 3], "dtype": "float32"},
+                           {"name": "q", "type": "ARRAY", "shape": None,
+                            "dtype": None},
+                           {"name": "r", "type": "ARRAY", "shape": None,
                             "dtype": None}],
              "ops": [{"op": "qr", "inputs": ["x"],
-                      "outputs": ["w"], "attrs": {}}]}
+                      "outputs": ["q", "r"], "attrs": {}}]}
     buf = io.BytesIO()
     np.savez(buf)
     with zipfile.ZipFile(tmp_path / "sd.zip", "w") as zf:
         zf.writestr("graph.json", json.dumps(graph))
         zf.writestr("arrays.npz", buf.getvalue())
-    with pytest.raises(NotImplementedError, match="linalg domain"):
-        ModelSerializer.restore_model(tmp_path / "sd.zip", "cpu")
+    x = np.random.RandomState(0).randn(4, 3).astype(np.float32)
+    p = ModelSerializer.restore_model(tmp_path / "sd.zip", "cpu")
+    j = JSerializer.restore_model(str(tmp_path / "sd.zip"))
+    got = p.output({"x": x}, ["q", "r"])
+    want = j.output({"x": x}, ["q", "r"])
+    for n in ("q", "r"):
+        assert tuple(got[n].shape) == want[n].shape
+        np.testing.assert_allclose(got[n].numpy(), want[n], rtol=2e-5,
+                                   atol=1e-5, err_msg=n)
+    np.testing.assert_allclose((got["q"] @ got["r"]).numpy(), x, atol=1e-5)

@@ -1,17 +1,23 @@
 """The port's op registry (``autodiff/registry.py``) against the JAX
 package's, op by op, on the CPU.
 
-One parametrised case per ported op (180): the same seeded numpy inputs
-go through ``get_op(name)`` of both packages, for every variant the case
-lists. The control ops' subgraphs are Python callables written with
-operators both arrays share, so one attrs dict drives both packages. Bars: the forward within rtol 2e-5 / atol 1e-6 (f32 on both
-sides; the roadmap's default), with the same dtype; for every floating
-input, the gradient of ``sum(out * cotangent)`` (a seeded cotangent for
-each floating output) within rtol 2e-4 / atol 2e-5. Then the port's own
-``opvalidation`` runs every case (forward against the JAX package's
-output, autograd against central differences in float64) and its
-``coverage_report`` is held at >= 0.95 of the registered ops, the JAX
-package's floor.
+One parametrised case per op (240, the JAX package's whole registry; the
+60 of the linalg, bitwise, segment, convolution, image, random and
+compression domains from ``chip_smoke.domain_cases``): the same seeded
+numpy inputs go through ``get_op(name)`` of both packages, for every
+variant the case lists. The control ops' subgraphs are Python callables
+written with operators both arrays share, so one attrs dict drives both
+packages. Bars: the forward within rtol 2e-5 / atol 1e-6 (f32 on both
+sides; the roadmap's default), with the same dtype (integer, bitwise,
+index and NMS results exactly); for every floating input, the gradient
+of ``sum(out * cotangent)`` (a seeded cotangent for each floating output)
+within rtol 2e-4 / atol 2e-5, but for ``NO_JAX_GRAD``. The random ops'
+streams differ by design: they are held to the JAX package's shapes and
+dtypes, dropout to its identity cases and to its own mask. Then the
+port's own ``opvalidation`` runs every case (forward against the JAX
+package's output, autograd against central differences in float64) and
+its ``coverage_report`` is held at >= 0.95 of the registered ops, the
+JAX package's floor.
 """
 import zlib
 
@@ -21,19 +27,28 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
+
 from deeplearning4j_tpu.autodiff.registry import get_op as jax_get_op
 from deeplearning4j_tpu_torch.autodiff import opvalidation
 from deeplearning4j_tpu_torch.autodiff.registry import (OP_DOMAINS,
                                                         OP_REGISTRY,
-                                                        UNPORTED,
                                                         get_op, op_coverage)
+from deeplearning4j_tpu_torch.common.rng import RngKey
 
 FWD = dict(rtol=2e-5, atol=1e-6)
 GRAD = dict(rtol=2e-4, atol=2e-5)
 PORTED_DOMAINS = {"arithmetic": 17, "transform": 30, "activation": 17,
                   "blas": 7, "reduce": 18, "indexreduce": 4,
                   "boolean": 15, "shape": 42, "normalization": 5,
-                  "loss": 9, "attention": 4, "recurrent": 7, "control": 5}
+                  "loss": 9, "attention": 4, "recurrent": 7, "control": 5,
+                  "linalg": 14, "bitwise": 8, "segment": 11,
+                  "convolution": 14, "image": 7, "random": 4,
+                  "compression": 2}
+#: ops the JAX package cannot differentiate (scatter-multiply has a
+#: gradient only for unique indices); ``opvalidation`` holds the port's
+#: gradients of them against central differences
+NO_JAX_GRAD = {"segment_prod", "unsorted_segment_prod"}
 
 
 class _R:
@@ -366,6 +381,9 @@ def _cases():
     add("switch", lambda r: [([r.n(3), np.asarray(True)], {})])
     add("merge", lambda r: [([r.n(3), r.n(3), np.asarray(p)], {})
                             for p in (True, False)])
+    # the seven domains of slice 18: chip_smoke's table, which phase 22
+    # also runs on the card
+    c.update(chip_smoke.domain_cases())
     return c
 
 
@@ -430,32 +448,64 @@ def _cotangents(name, outs):
 
 
 def test_registry_is_the_eleven_ported_domains():
+    """The JAX package's whole registry: every name, with its domain
+    counts (the name is the one the test had when fewer were ported)."""
     assert op_coverage() == PORTED_DOMAINS
-    assert len(OP_REGISTRY) == 180
-    jax_all = set(jax_get_op.__globals__["OP_REGISTRY"])
-    assert set(OP_REGISTRY) | set(UNPORTED) == jax_all
-    assert not set(OP_REGISTRY) & set(UNPORTED)
+    assert len(OP_REGISTRY) == 240
+    jax_reg = jax_get_op.__globals__
+    assert set(OP_REGISTRY) == set(jax_reg["OP_REGISTRY"])
+    assert op_coverage() == jax_reg["op_coverage"]()
     assert set(CASES) == set(OP_REGISTRY)
 
 
-@pytest.mark.parametrize("name", ["conv2d", "qr", "svd",
-                                  "dropout", "segment_sum",
-                                  "depthwise_conv2d"])
-def test_unported_ops_raise_naming_their_domain(name):
-    with pytest.raises(NotImplementedError, match=f"{UNPORTED[name]} "
-                                                  f"domain"):
-        get_op(name)
+def _random_keys(attrs):
+    """The key each package's random op reads: JAX's PRNGKey(0) and the
+    port's RngKey(0), unless the case sets ``rng`` itself."""
+    if "rng" in attrs:
+        return dict(attrs), dict(attrs)
+    return {**attrs, "rng": jax.random.PRNGKey(0)}, {**attrs,
+                                                     "rng": RngKey(0)}
+
+
+def _random_matches_jax(name, ins, attrs, what):
+    """The streams differ, so a random op is held to the JAX package's
+    shapes and dtypes, dropout to its identity cases bit for bit, and
+    dropout's draw to ``where(keep, x / (1 - p), 0)`` with the gradient
+    of its own mask."""
+    j_attrs, p_attrs = _random_keys(attrs)
+    j = np.asarray(jax_get_op(name)([jnp.asarray(a) for a in ins],
+                                    j_attrs))
+    x = [torch.as_tensor(np.asarray(a)).requires_grad_(True) for a in ins]
+    p = get_op(name)(x, p_attrs)
+    assert p.dtype == torch.float32 and j.dtype == np.float32, what
+    assert tuple(p.shape) == j.shape, what
+    if name != "dropout":
+        return
+    pn = p.detach().numpy()
+    if p_attrs.get("rng") is None or not p_attrs.get("training", True):
+        np.testing.assert_array_equal(pn, j, err_msg=what)
+        return
+    keep = pn != 0
+    scale = 1.0 / (1.0 - attrs["rate"])
+    np.testing.assert_allclose(pn[keep], ins[0][keep] * scale, **FWD)
+    (g,) = torch.autograd.grad(p.sum(), x)
+    np.testing.assert_allclose(g.numpy(), keep * np.float32(scale), **FWD)
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_op_matches_jax(name):
     for k, (ins, attrs) in enumerate(CASES[name]):
+        what = f"{name} variant {k} ({OP_DOMAINS[name]})"
+        if OP_DOMAINS[name] == "random":
+            _random_matches_jax(name, ins, attrs, what)
+            continue
         j_outs = [np.asarray(o) for o in _outs(jax_get_op(name)(
             [jnp.asarray(a) for a in ins], dict(attrs)))]
         cts = _cotangents(name, j_outs)
+        if name in NO_JAX_GRAD:
+            cts = [None] * len(cts)
         j_outs, j_grads = _jax_run(name, ins, attrs, cts)
         p_outs, p_grads = _port_run(name, ins, attrs, cts)
-        what = f"{name} variant {k} ({OP_DOMAINS[name]})"
         assert len(p_outs) == len(j_outs), what
         for o, (p, j) in enumerate(zip(p_outs, j_outs)):
             assert p.dtype == j.dtype, f"{what} output {o}: {p.dtype} vs " \
@@ -475,6 +525,12 @@ def test_opvalidation_coverage_over_registered_ops():
     on every floating input."""
     for name, variants in sorted(CASES.items()):
         ins, attrs = variants[0]
+        if OP_DOMAINS[name] == "random":
+            # a draw depends on its key alone: no JAX value to hold it to,
+            # but dropout's gradient is its own mask's
+            opvalidation.validate(opvalidation.TestCase(
+                op=name, inputs=ins, attrs=_random_keys(attrs)[1]))
+            continue
         want = [np.asarray(o) for o in _outs(jax_get_op(name)(
             [jnp.asarray(a) for a in ins], dict(attrs)))]
         opvalidation.validate(opvalidation.TestCase(
@@ -482,4 +538,4 @@ def test_opvalidation_coverage_over_registered_ops():
             fwd_tol=2e-5))
     report = opvalidation.coverage_report()
     assert report["fraction"] >= 0.95, report["missing"]
-    assert report["total"] == 180
+    assert report["total"] == 240
