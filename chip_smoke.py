@@ -14,7 +14,10 @@ BERT-base widths built from DL4J layers in a ComputationGraph, and a
 2 x LSTM(512) character model imported from a frozen TF GraphDef with
 its loops (functional While and v1 frames) and trained in SameDiff, and
 the frozen Keras ResNet-50 imported, served and fine-tuned in SameDiff
-with the seven op domains of slice 18 swept on the card.
+with the seven op domains of slice 18 swept on the card, and the
+serving fleet: ResNet-50 and the GPT-2-small-width decoder on two
+replicas behind a ServingRouter, with the request observatory, and the
+imported Keras ResNet-50 served through the registry.
 
 Run from the root of a checkout, with no arguments, on a machine with
 one NVIDIA H100 (it fails without a card, and without the package):
@@ -323,7 +326,44 @@ Phases, each of which fails the run (exit 1) when its check fails:
     draws); forward and step ms, device kernels, the idle share and peak
     memory.
 
-After phase 22, ``ticket_pool_check``: kernels 3 and 5 captured into
+23. fleet: ``ServingRouter(n_replicas=2)`` on the card, each replica its
+    own registry, admission controller and server, a ``latency_slo_ms``
+    on version 2 of (b) and on the decoder of (c): (a) full-width
+    ResNet-50 (phase 5's seeded
+    weights, buckets 8 and 32) rolled out from a zero-argument factory,
+    64 concurrent ``:predict`` requests through the router (16 JSON
+    single images, 48 npy batches of 1..8), every answer ``net.output``
+    at a bucket bit for bit, both replicas serving, no retrace, 53
+    launches of kernel 1 a forward of either replica (counts reset
+    before the rollout, read after the last answer); single-image latency
+    through the router and direct, img/s of a burst of 32; (b) a second
+    version (another seed) rolled out while two clients send: no request
+    fails, each answer bitwise version 1's or 2's, then only version 2's,
+    ``dl4j_serving_rollouts_total`` one more, 53 launches a forward;
+    (c) phase 13's decoder rolled out on both replicas, 32 streaming greedy
+    requests through the router, the same 32 direct to one replica and
+    the same 32 direct, half to each replica (12 launches of kernel 10 a
+    decode step of either engine; 8 routed streams against
+    ``reference_decode``; each stream's first chunk at the client before
+    its replica emitted the last token); TTFT and inter-token gaps of
+    each load; (d) a client's trace id echoed
+    by the router and by a replica, one connected span tree a trace id
+    in the exported chrome trace (``request``, ``req.route``,
+    ``req.admit``, ``req.queue``, ``req.batch_wait``, ``req.device``,
+    ``req.serialize``; ``req.ttft``, ``req.inter_token`` and
+    ``req.stream`` for a generate), ``GET /api/slo`` on the router and a
+    replica reporting both models, ``POST /api/reqrec/dump`` holding one
+    record a request completed in the phase, the access log sampled at
+    0.5 keeping one line in two, each with its trace id; (e) the server
+    of the replica a lone client reaches stopped while it sends: every
+    request answered (rerouted), ``/v1/replicas`` showing it out of
+    rotation;
+    (f) phase 22's imported graph through ``ModelRegistry.register(...,
+    input_name="x")`` over HTTP at 1 and 32 images, bitwise equal to
+    ``sd.output`` of the same padded batch (deterministic algorithms, TF32
+    off; no kernel of ``csrc/``).
+
+After phase 23, ``ticket_pool_check``: kernels 3 and 5 captured into
 CUDA graphs that take 1.5 x their ticket pool, each graph destroyed
 after it, then launched eagerly and under a new graph to the same bits.
 
@@ -6731,7 +6771,8 @@ def phase_tf_resnet(torch, label: str, device: str = "cuda",
     (g)
     forward and step ms, device kernels, the idle share and peak memory.
     ``device="cpu"`` with a small ``image`` and ``batch`` rehearses it
-    ((c) and (e) then hold the CPU's f32 against its float64)."""
+    ((c) and (e) then hold the CPU's f32 against its float64). The
+    imported graph is returned under ``"sd"`` for phase 23."""
     import numpy as np
 
     from deeplearning4j_tpu_torch.learning.updaters import Adam
@@ -6908,8 +6949,698 @@ def phase_tf_resnet(torch, label: str, device: str = "cuda",
                   f"before it [{label}]")
         out["phase_s"] = time.perf_counter() - t_phase
         print(f"[tf-resnet] phase 22 in {out['phase_s']:.1f}s")
+        # phase 23 serves this import through the registry
+        out["sd"] = sd
         return out
     finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev[0]
+        torch.backends.cudnn.allow_tf32 = prev[1]
+        torch.use_deterministic_algorithms(prev[2])
+        if prev[3] is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = prev[3]
+
+
+# ---------------------------------------------------------------------------
+#: phase 23: two replicas of each model behind one ServingRouter
+FLEET_REPLICAS = 2
+#: (a): single-image JSON requests, then npy requests of 1..8 images
+FLEET_JSON, FLEET_NPY = 16, 48
+#: latency_slo_ms of ResNet-50's version 2 (single requests) and of the
+#: decoder (the first token of a stream in a burst of 32); version 1
+#: serves (a)'s bursts without one, whose JSON bodies alone take seconds
+#: of host time: under an SLO the admission budget would shed them
+FLEET_SLO_MS = {"resnet50": 1000.0, "lm": 5000.0}
+#: sequential single-image requests timed through the router and direct
+FLEET_LAT_REPS = 20
+#: (d): requests through the access log sampled at 0.5
+FLEET_LOGGED = 8
+
+
+def _fleet_post(url: str, body: bytes, ctype: str, headers=None):
+    """One ``:predict``: (status, body, headers, client ms); an HTTP error
+    returns its status."""
+    h = {"Content-Type": ctype}
+    h.update(headers or {})
+    req = urllib.request.Request(url, data=body, headers=h)
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            data, code, hdrs = resp.read(), resp.status, dict(resp.headers)
+    except urllib.error.HTTPError as e:
+        data, code, hdrs = e.read(), e.code, dict(e.headers)
+    return code, data, hdrs, (time.perf_counter() - t0) * 1e3
+
+
+def _fleet_answer(data: bytes, ctype: str):
+    import numpy as np
+    if ctype == "application/json":
+        return np.asarray(json.loads(data)["outputs"], np.float32)
+    return np.load(io.BytesIO(data))
+
+
+def _padded_ref(net_output, x, bucket: int):
+    """``net_output`` of ``x`` in chunks of ``bucket`` rows, each padded
+    to the bucket by repeating its last row as the batcher pads."""
+    import numpy as np
+    outs = []
+    for i in range(0, x.shape[0], bucket):
+        c = x[i:i + bucket]
+        pad = np.concatenate([c, np.repeat(c[-1:], bucket - c.shape[0], 0)])
+        outs.append(net_output(pad)[:c.shape[0]])
+    return np.concatenate(outs)
+
+
+def _fleet_gen_client(url: str, prompt, max_tokens: int, tid: str) -> dict:
+    """One streaming greedy request carrying trace id ``tid``; each token's
+    arrival on the client's wall clock."""
+    body = json.dumps({"prompt": [int(t) for t in prompt],
+                       "max_tokens": max_tokens}).encode()
+    req = urllib.request.Request(url, data=body, headers={
+        "Content-Type": "application/json", "X-Dl4j-Trace-Id": tid})
+    t0 = time.time()
+    toks, walls, done = [], [], None
+    with urllib.request.urlopen(req, timeout=300) as resp:
+        code, echoed = resp.status, resp.headers.get("X-Dl4j-Trace-Id")
+        replica = resp.headers.get("X-Dl4j-Replica")
+        for line in resp:
+            rec = json.loads(line)
+            if "token" in rec:
+                toks.append(rec["token"])
+                walls.append(time.time())
+            else:
+                done = rec
+    return {"code": code, "tokens": toks, "times": [w - t0 for w in walls],
+            "walls": walls, "done": done, "tid": tid, "echoed": echoed,
+            "replica": replica}
+
+
+def _fleet_gen_load(urls, prompts, max_tokens: int, tids) -> list:
+    """Every prompt as a concurrent stream to its url (``urls``: one, or
+    one a prompt), in a process of its own (see ``_gen_load``)."""
+    urls = [urls] * len(prompts) if isinstance(urls, str) else list(urls)
+    for u in sorted(set(urls)):
+        with urllib.request.urlopen(u.split("/v1/")[0] + "/healthz",
+                                    timeout=60) as resp:
+            resp.read()
+    with concurrent.futures.ThreadPoolExecutor(len(prompts)) as ex:
+        return list(ex.map(
+            lambda a: _fleet_gen_client(a[0], a[1], max_tokens, a[2]),
+            zip(urls, prompts, tids)))
+
+
+def _span_tree(events, tid: str, want) -> dict:
+    """Check that ``tid``'s spans form one tree: one ``request`` root, the
+    names in ``want`` present, every ``req.*`` span of the replica inside
+    the root and the router's ``req.route`` begun before it (1 ms of
+    slack for the format's integer microseconds). Returns the names."""
+    mine = [e for e in events if e.get("args", {}).get("trace") == tid]
+    names = {e["name"] for e in mine}
+    roots = [e for e in mine if e["name"] == "request"]
+    check(len(roots) == 1, f"(d) {tid}: {len(roots)} request roots")
+    missing = set(want) - names
+    check(not missing, f"(d) {tid}: spans {sorted(missing)} missing")
+    r0 = roots[0]["ts"]
+    r1 = r0 + roots[0]["dur"]
+    for e in mine:
+        if e.get("ph") != "X" or e["name"] in ("request", "req.route"):
+            continue
+        check(r0 - 1000 <= e["ts"] and e["ts"] + e["dur"] <= r1 + 1000,
+              f"(d) {tid}: {e['name']} lies outside its request span")
+    for e in mine:
+        if e["name"] == "req.route":
+            check(e["ts"] <= r0 + 1000,
+                  f"(d) {tid}: the request began before req.route")
+    return sorted(names)
+
+
+def phase_fleet(torch, label: str, device: str = "cuda", image: int = 224,
+                conf=None, gen=None, requests: int = GEN_REQUESTS,
+                max_tokens: int = GEN_MAX_TOKENS, checked: int = 8,
+                sd=None, sd_image: Optional[int] = None,
+                slo_ms: Optional[dict] = None) -> dict:
+    """Phase 23: the serving fleet and its request observatory.
+    ``ServingRouter(n_replicas=2)`` on the card (both replicas share it),
+    each replica its own registry, admission controller (budget: the KV
+    pool's blocks) and server; version 2 and the decoder carry
+    ``latency_slo_ms`` (``slo_ms``, default ``FLEET_SLO_MS``):
+    (a) full-width ResNet-50 rolled out from a zero-argument factory
+    (buckets 8 and 32), 64 concurrent ``:predict`` requests through the
+    router (16 JSON single images, 48 npy batches of 1..8 images), each
+    answer equal to ``net.output`` at a bucket bit for bit, both replicas
+    serving, no retrace, 53 launches of kernel 1 a forward; single-request
+    latency through the router and direct, img/s of a burst of 32;
+    (b) a second version rolled out while two clients keep sending: every
+    answer version 1's or version 2's, none failed, then only version 2;
+    (c) the GPT-2-small-width decoder of phase 13 on both replicas, 32
+    streaming greedy requests through the router (12 launches of kernel 10
+    a decode step; ``checked`` of them against ``reference_decode``; each
+    first chunk at the client before the replica emitted the stream's
+    last token), the same 32 direct to one replica and the same 32
+    direct, half to each replica; (d) trace ids
+    echoed by the router and a replica, one connected span tree per id in
+    the exported chrome trace, ``GET /api/slo`` on both, ``POST
+    /api/reqrec/dump`` (one record per completed request), the access log
+    at 0.5 keeping one line in two, each with its trace id; (e) the
+    server of the replica a lone client reaches stopped while it sends:
+    nothing fails, and ``/v1/replicas`` shows it out of rotation; (f)
+    ``sd`` (phase 22's
+    imported Keras ResNet-50) through ``ModelRegistry.register(...,
+    input_name="x")`` over HTTP at 1 and 32 images, equal to
+    ``sd.output`` of the same padded batch bit for bit under the
+    deterministic algorithms (no kernel of ``csrc/``). ``device="cpu"``
+    with a small ``image``, ``conf`` and ``gen`` rehearses it."""
+    import threading
+
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.common import httputil, telemetry
+    from deeplearning4j_tpu_torch.models import DecoderConfig, DecoderLM
+    from deeplearning4j_tpu_torch.serving import (AdmissionController,
+                                                  ServingRouter, reqrec)
+    on_card = device == "cuda"
+    t_phase = time.perf_counter()
+    slo_ms = slo_ms or FLEET_SLO_MS
+    conf = conf or DecoderConfig(**GPT2_SMALL)
+    gen = dict(gen or GEN_CONFIG)
+    kw = {} if image == 224 else {"height": image, "width": image}
+    npy, js = "application/octet-stream", "application/json"
+    out = {}
+    def n_served():
+        return sum(telemetry.MetricsRegistry.get().snapshot().get(
+            "dl4j_serving_requests_total", {}).values())
+
+    rec0, served0 = len(reqrec.get().records()), n_served()
+    router = ServingRouter(
+        FLEET_REPLICAS, device=device, default_buckets=(8, 32),
+        admission_factory=lambda: AdmissionController(
+            max_queue=gen["kv_blocks"] - 1)).start(0)
+    base = router.url
+    r0, r1 = router.replicas
+    try:
+        # ---- (a) the fleet: ResNet-50 on both replicas ----
+        # built before the counts go to 0 (the calibration's forward
+        # runs kernel 1); the factory hands each replica its own
+        nets = [seeded_resnet(torch, device, **kw)
+                for _ in router.replicas]
+        _zero_counts()
+        versions = router.rollout(
+            "resnet50", lambda: nets.pop(0),
+            warmup_shape=(image, image, 3))
+        check(versions[0].model is not versions[1].model,
+              "(a) the replicas share one model instance")
+        rs = np.random.RandomState(23)
+        sizes = [1] * FLEET_JSON + list(rs.randint(1, 9, FLEET_NPY))
+        xs = [rs.randn(n, image, image, 3).astype(np.float32)
+              for n in sizes]
+        bodies = [(json.dumps({"inputs": x.tolist()}).encode(), js)
+                  if i < FLEET_JSON else (_npy(x), npy)
+                  for i, x in enumerate(xs)]
+        url = f"{base}/v1/models/resnet50:predict"
+        with concurrent.futures.ThreadPoolExecutor(len(xs)) as pool:
+            res = list(pool.map(lambda b: _fleet_post(url, *b), bodies))
+        _sync(torch, device)
+        launches = _counts()
+        forwards = [v.batcher.forwards for v in versions]
+        check(all(r[0] == 200 for r in res),
+              f"(a) statuses {sorted({r[0] for r in res})}")
+        got = np.concatenate([_fleet_answer(r[1], b[1])
+                              for r, b in zip(res, bodies)])
+        allx = np.concatenate(xs)
+        net = versions[0].model
+
+        def out_of(m):
+            return lambda a: m.output(a).float().cpu().numpy()
+        ref8 = _padded_ref(out_of(net), allx, 8)
+        ref32 = _padded_ref(out_of(net), allx, 32)
+        at8, at32 = (got == ref8).all(-1), (got == ref32).all(-1)
+        bad = np.flatnonzero(~(at8 | at32))
+        check(not len(bad), f"(a) rows {bad.tolist()[:8]} equal net.output "
+                            f"at neither bucket (max |d| "
+                            f"{float(np.abs(got - ref32).max()):.3e})")
+        per_replica = {r.name: telemetry.counter(
+            "dl4j_serving_router_requests_total").value(
+                replica=r.name, code="200") for r in router.replicas}
+        check(all(v > 0 for v in per_replica.values())
+              and all(f > len(versions[0].batcher.buckets)
+                      for f in forwards),
+              f"(a) a replica served nothing: {per_replica}, forwards "
+              f"{forwards}")
+        retraces = [v.retraces_since_warmup() for v in versions]
+        check(retraces == [0, 0], f"(a) retraces_since_warmup {retraces}")
+        want = {k: 0 for k in launches}
+        want["scale_shift_act"] = 53 * sum(forwards) * on_card
+        check(launches == want, f"(a) launches {launches}, expected {want} "
+                                f"(53 a forward, forwards {forwards})")
+        out["a"] = {"launches": launches, "forwards": forwards,
+                    "requests_per_replica": per_replica,
+                    "rows": int(allx.shape[0]),
+                    "rows_at_bucket_32": int(at32.sum()),
+                    "rows_at_bucket_8": int(at8.sum())}
+        print(f"[fleet] (a) {len(xs)} concurrent predicts ({FLEET_JSON} JSON "
+              f"single images, {FLEET_NPY} npy of 1..8; {allx.shape[0]} "
+              f"rows) through the router: all == net.output bitwise "
+              f"({int(at32.sum())} rows at bucket 32, {int(at8.sum())} at "
+              f"8); per replica {per_replica}, forwards {forwards}, "
+              f"launches {launches}, retraces {retraces}")
+        # latency: single requests through the router and direct
+        x1 = xs[FLEET_JSON][:1]
+        lat = {"router": [], "direct": []}
+        for _ in range(FLEET_LAT_REPS):
+            for key, u in (("router", url), ("direct", f"{r0.server.url}"
+                                             f"/v1/models/resnet50:predict")):
+                code, _, _, ms = _fleet_post(u, _npy(x1), npy)
+                check(code == 200, f"(a) single predict {key}: {code}")
+                lat[key].append(ms)
+        x32 = np.concatenate(xs)[:32]
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(32) as pool:
+            burst = list(pool.map(
+                lambda i: _fleet_post(url, _npy(x32[i:i + 1]), npy),
+                range(32)))
+        wall = time.perf_counter() - t0
+        check(all(r[0] == 200 for r in burst), "(a) a burst request failed")
+        out["a"].update(
+            single_ms={k: {"p50": _pct(v, 50), "max": max(v)}
+                       for k, v in lat.items()},
+            burst32_img_per_s=32 / wall)
+        print(f"[fleet] (a) single-image npy predict, ms: through the router "
+              f"p50 {_pct(lat['router'], 50):.3f} max "
+              f"{max(lat['router']):.3f}; direct to a replica p50 "
+              f"{_pct(lat['direct'], 50):.3f} max {max(lat['direct']):.3f} "
+              f"({FLEET_LAT_REPS} each, in turns); a burst of 32 through the "
+              f"router {32 / wall:.1f} img/s [{label}]")
+
+        # ---- (b) a rollout under load ----
+        xb = xs[FLEET_JSON + 1][:1]
+        ref1 = _padded_ref(out_of(net), xb, 8)
+        made = [seeded_resnet(torch, device, seed=8, **kw)
+                for _ in router.replicas]
+        fresh = list(made)
+
+        stop, answers = threading.Event(), []
+
+        def client():
+            while not stop.is_set():
+                answers.append(_fleet_post(url, _npy(xb), npy))
+
+        f1_0 = [v.batcher.forwards for v in versions]
+        _zero_counts()
+        # two clients: a lone one would always find both replicas idle
+        # and go to the first (least-loaded, ties to the first)
+        ths = [threading.Thread(target=client) for _ in range(2)]
+        for th in ths:
+            th.start()
+        rolled0 = telemetry.counter("dl4j_serving_rollouts_total").value(
+            model="resnet50")
+        try:
+            v2 = router.rollout("resnet50", lambda: fresh.pop(0),
+                                warmup_shape=(image, image, 3),
+                                latency_slo_ms=slo_ms["resnet50"])
+        finally:
+            stop.set()
+            for th in ths:
+                th.join(timeout=300)
+        after = [_fleet_post(url, _npy(xb), npy) for _ in range(4)]
+        _sync(torch, device)
+        launches = _counts()
+        rolled = telemetry.counter("dl4j_serving_rollouts_total").value(
+            model="resnet50") - rolled0
+        ref2 = _padded_ref(out_of(made[0]), xb, 8)
+        check(not np.array_equal(ref1, ref2), "(b) versions 1 and 2 agree")
+        check(answers and all(a[0] == 200 for a in answers + after),
+              f"(b) a request failed during the rollout: "
+              f"{sorted({a[0] for a in answers + after})}")
+        seen = {"1": 0, "2": 0}
+        for a in answers:
+            o = _fleet_answer(a[1], npy)
+            ver = a[2].get("X-Model-Version")
+            check((ver == "1" and np.array_equal(o, ref1))
+                  or (ver == "2" and np.array_equal(o, ref2)),
+                  f"(b) an answer of version {ver} equals neither version")
+            seen[ver] += 1
+        check(all(a[2].get("X-Model-Version") == "2"
+                  and np.array_equal(_fleet_answer(a[1], npy), ref2)
+                  for a in after), "(b) version 1 answered after the rollout")
+        check(rolled == 1, f"(b) dl4j_serving_rollouts_total moved by "
+                           f"{rolled}")
+        fwd_b = sum(v.batcher.forwards for v in versions) - sum(f1_0) \
+            + sum(v.batcher.forwards for v in v2)
+        want = {k: 0 for k in launches}
+        want["scale_shift_act"] = 53 * fwd_b * on_card
+        check(launches == want, f"(b) launches {launches}, expected {want}")
+        check([v.retraces_since_warmup() for v in v2] == [0, 0],
+              "(b) version 2 retraced")
+        out["b"] = {"answers": len(answers), "by_version": seen,
+                    "launches": launches, "forwards": fwd_b,
+                    "rollouts": rolled}
+        print(f"[fleet] (b) rollout of version 2 under load: {len(answers)} "
+              f"answers during it ({seen['1']} of version 1, {seen['2']} of "
+              f"2), none failed, each bitwise one version's; then only "
+              f"version 2; rollouts +{rolled}; launches {launches}")
+
+        # ---- (c) generate through the router ----
+        prev = (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            def lm():
+                m = DecoderLM(conf)
+                m.init(device, seed=41)
+                return m
+
+            _zero_counts()
+            lms = router.rollout("lm", lm, generate=gen,
+                                 latency_slo_ms=slo_ms["lm"])
+            engines = [v.batcher.engine for v in lms]
+            grs = np.random.RandomState(43)
+            lo, hi = min(gen["prompt_buckets"]) // 4, max(
+                gen["prompt_buckets"])
+            lens = grs.randint(lo, hi + 1, size=requests)
+            lens[0] = hi
+            prompts = [grs.randint(0, conf.vocab_size - 1, size=n).tolist()
+                       for n in lens]
+            tids = [f"fleet-gen-{i}" for i in range(requests)]
+            dtids = [f"fleet-direct-gen-{i}" for i in range(requests)]
+            stids = [f"fleet-split-gen-{i}" for i in range(requests)]
+            gpath = "/v1/models/lm:generate"
+            with concurrent.futures.ProcessPoolExecutor(
+                    1, mp_context=multiprocessing.get_context("spawn")) as ex:
+                routed = ex.submit(_fleet_gen_load, base + gpath, prompts,
+                                   max_tokens, tids).result()
+                direct = ex.submit(_fleet_gen_load, r0.server.url + gpath,
+                                   prompts, max_tokens, dtids).result()
+                # half to each replica's own port: the router's relay
+                # taken out, two engines sharing the card left in
+                split = ex.submit(_fleet_gen_load, [
+                    (r0, r1)[i % 2].server.url + gpath
+                    for i in range(requests)], prompts, max_tokens,
+                    stids).result()
+            _sync(torch, device)
+            launches = _counts()
+            steps = [e.decode_steps for e in engines]
+            want = {k: 0 for k in launches}
+            want["paged_decode"] = conf.n_layers * sum(steps) * on_card
+            check(launches == want, f"(c) launches {launches}, expected "
+                                    f"{want} ({conf.n_layers} a decode "
+                                    f"step, steps {steps})")
+            for r in routed + direct + split:
+                check(r["code"] == 200 and r["done"] is not None
+                      and r["done"]["tokens"] == len(r["tokens"])
+                      and (len(r["tokens"]) == max_tokens
+                           or r["done"]["reason"] == "eos"),
+                      f"(c) a stream ended badly: {r['code']} {r['done']}")
+                check(r["echoed"] == r["tid"], f"(c) trace id {r['tid']} "
+                                               f"came back {r['echoed']}")
+            by_rep = {n: sum(r["replica"] == n for r in routed)
+                      for n in (r0.name, r1.name)}
+            check(all(by_rep.values()), f"(c) streams per replica {by_rep}")
+            model, n_cmp = lms[0].model, 0
+            for i in range(min(checked, requests)):
+                n_cmp += _check_against_reference(
+                    torch, model, model.params, prompts[i],
+                    routed[i]["tokens"], f"routed request {i}")
+            same = sum(a == b for r, d in zip(routed, direct)
+                       for a, b in zip(r["tokens"], d["tokens"]))
+            # relay, not buffering: each stream's first chunk reached the
+            # client before its replica emitted the stream's last token
+            events = telemetry.trace_events()
+            last_emit = {}
+            for e in events:
+                if e["name"] == "req.inter_token":
+                    t = e["args"].get("trace")
+                    last_emit[t] = max(last_emit.get(t, 0), e["ts"] / 1e6)
+            early = [r["tid"] for r in routed if len(r["tokens"]) > 1
+                     and not r["walls"][0] < last_emit.get(r["tid"], 0)]
+            check(not early, f"(c) streams {early[:4]} reached the client "
+                             f"only after their last token: buffered")
+            check([e.retraces_since_warmup() for e in engines] == [0, 0],
+                  "(c) a decode engine retraced")
+            check(all(e.pool.live_blocks == 0 for e in engines),
+                  "(c) a KV pool was not freed")
+
+            def stats(rs_):
+                ttft = [r["times"][0] * 1e3 for r in rs_ if r["times"]]
+                gaps = [(b_ - a_) * 1e3 for r in rs_
+                        for a_, b_ in zip(r["times"], r["times"][1:])]
+                return {"ttft_ms_p50": _pct(ttft, 50),
+                        "ttft_ms_max": max(ttft),
+                        "intertoken_ms_p50": _pct(gaps, 50),
+                        "intertoken_ms_p99": _pct(gaps, 99)}
+            out["c"] = {"launches": launches, "decode_steps": steps,
+                        "streams_per_replica": by_rep,
+                        "compared_tokens": n_cmp,
+                        "routed_equal_direct_tokens": same,
+                        "routed": stats(routed), "direct": stats(direct),
+                        "split_direct": stats(split)}
+            s, d = out["c"]["routed"], out["c"]["direct"]
+            h = out["c"]["split_direct"]
+            print(f"[fleet] (c) {requests} streams through the router "
+                  f"({by_rep}), {requests} direct to {r0.name} and "
+                  f"{requests} direct, half to each replica: decode "
+                  f"steps {steps}, launches {launches}; {min(checked, requests)}"
+                  f" routed == reference_decode over {n_cmp} tokens; routed "
+                  f"tokens equal to direct: {same} of "
+                  f"{sum(len(r['tokens']) for r in direct)}; every first chunk "
+                  f"at the client before its last token was emitted")
+            print(f"[fleet] (c) TTFT p50 / max ms: routed "
+                  f"{s['ttft_ms_p50']:.3f} / {s['ttft_ms_max']:.3f}, direct "
+                  f"{d['ttft_ms_p50']:.3f} / {d['ttft_ms_max']:.3f}; "
+                  f"inter-token p50 / p99 ms: routed "
+                  f"{s['intertoken_ms_p50']:.3f} / {s['intertoken_ms_p99']:.3f}"
+                  f", direct {d['intertoken_ms_p50']:.3f} / "
+                  f"{d['intertoken_ms_p99']:.3f}; half to each replica "
+                  f"without the router: TTFT {h['ttft_ms_p50']:.3f} / "
+                  f"{h['ttft_ms_max']:.3f}, inter-token "
+                  f"{h['intertoken_ms_p50']:.3f} / "
+                  f"{h['intertoken_ms_p99']:.3f} [{label}]")
+        finally:
+            torch.backends.cuda.matmul.allow_tf32, \
+                torch.backends.cudnn.allow_tf32 = prev
+
+        # ---- (d) the observatory ----
+        tid = "fleet-predict-1"
+        code, _, hdrs, _ = _fleet_post(url, _npy(x1), npy,
+                                       {"X-Dl4j-Trace-Id": tid})
+        check(code == 200 and hdrs.get("X-Dl4j-Trace-Id") == tid
+              and hdrs.get("X-Dl4j-Replica"),
+              f"(d) router echoed {hdrs.get('X-Dl4j-Trace-Id')!r}")
+        code, _, hdrs, _ = _fleet_post(
+            f"{r1.server.url}/v1/models/resnet50:predict", _npy(x1), npy,
+            {"X-Dl4j-Trace-Id": "fleet-direct-1"})
+        check(code == 200 and hdrs.get("X-Dl4j-Trace-Id") == "fleet-direct-1",
+              f"(d) the replica echoed {hdrs.get('X-Dl4j-Trace-Id')!r}")
+        os.makedirs("flightrec", exist_ok=True)
+        deadline = time.monotonic() + 10
+        while time.monotonic() < deadline and not any(
+                e["name"] == "request" and e["args"].get("trace") == tid
+                for e in telemetry.trace_events()):
+            time.sleep(0.02)
+        trace = telemetry.export_chrome_trace("flightrec/fleet_trace.json")
+        with open(trace) as f:
+            events = json.load(f)["traceEvents"]
+        names_p = _span_tree(events, tid, (
+            "request", "req.route", "req.admit", "req.queue",
+            "req.batch_wait", "req.device", "req.serialize"))
+        names_g = _span_tree(events, tids[1], (
+            "request", "req.route", "req.admit", "req.queue", "req.device",
+            "req.ttft", "req.inter_token", "req.stream", "req.serialize"))
+        slo = {}
+        for where, u in (("router", base), ("replica", r0.server.url)):
+            with urllib.request.urlopen(f"{u}/api/slo", timeout=60) as resp:
+                slo[where] = json.loads(resp.read())
+            check({"resnet50", "lm"} <= set(slo[where]["models"]),
+                  f"(d) /api/slo on the {where}: "
+                  f"{sorted(slo[where]['models'])}")
+        # the dump: one record a completed request since the phase began
+        # (as many as the ring holds)
+        expected = min(reqrec.get().capacity, rec0 + n_served() - served0)
+        deadline = time.monotonic() + 10
+        while time.monotonic() < deadline \
+                and len(reqrec.get().records()) < expected:
+            time.sleep(0.02)
+        req = urllib.request.Request(f"{base}/api/reqrec/dump", data=b"")
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            path = json.loads(resp.read())["path"]
+        with open(path) as f:
+            lines = [json.loads(ln) for ln in f]
+        recs = lines[1:]
+        check(lines[0]["record"] == "meta"
+              and lines[0]["n_requests"] == len(recs) == expected,
+              f"(d) the dump holds {len(recs)} records "
+              f"(meta {lines[0].get('n_requests')}), {expected} requests "
+              f"completed")
+        mine = [r for r in recs if r["trace_id"] in set(tids) | {tid}]
+        check(len(mine) == len(tids) + 1
+              and all(r["verdict"] == "200" for r in mine),
+              f"(d) {len(mine)} records of this phase's traced requests")
+        check(os.path.exists(path.replace(".jsonl", ".trace.json")),
+              "(d) the dump has no chrome trace beside it")
+        # the access log at 0.5; the health poller paused for the window
+        logp = os.path.abspath("flightrec/fleet_access.jsonl")
+        if os.path.exists(logp):
+            os.remove(logp)
+        prev_env = {k: os.environ.get(k) for k in (
+            "DL4J_TORCH_ACCESS_LOG", "DL4J_TORCH_ACCESS_LOG_SAMPLE")}
+        router.health_interval_s = 3600.0
+        router._health_wake.set()
+        time.sleep(0.5)
+        os.environ["DL4J_TORCH_ACCESS_LOG"] = logp
+        os.environ["DL4J_TORCH_ACCESS_LOG_SAMPLE"] = "0.5"
+        httputil._reset_access_conf()
+        logged = [f"fleet-log-{i}" for i in range(FLEET_LOGGED)]
+
+        def log_lines():
+            if not os.path.exists(logp):
+                return []
+            with open(logp) as f:
+                return [json.loads(ln) for ln in f]
+        try:
+            for t in logged:
+                code, _, _, _ = _fleet_post(url, _npy(x1), npy,
+                                            {"X-Dl4j-Trace-Id": t})
+                check(code == 200, f"(d) logged request {t}: {code}")
+            # a handler writes its line after the client has its answer
+            deadline = time.monotonic() + 10
+            while time.monotonic() < deadline \
+                    and len(log_lines()) < FLEET_LOGGED:
+                time.sleep(0.02)
+        finally:
+            for k, v in prev_env.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+            httputil._reset_access_conf()
+            router.health_interval_s = 1.0
+            router._health_wake.set()
+        time.sleep(0.2)
+        kept = log_lines()
+        # each request is handled twice (router, replica): 2 x 8 at 0.5
+        check(len(kept) == FLEET_LOGGED
+              and all(ln["trace_id"] in logged for ln in kept),
+              f"(d) access log kept {len(kept)} lines of "
+              f"{2 * FLEET_LOGGED}: {[ln['trace_id'] for ln in kept]}")
+        out["d"] = {"predict_spans": names_p, "generate_spans": names_g,
+                    "slo_models": sorted(slo["router"]["models"]),
+                    "dump_records": len(recs),
+                    "access_log_lines": len(kept)}
+        print(f"[fleet] (d) trace ids echoed by the router and a replica; "
+              f"one tree a trace id: predict {names_p}, generate {names_g}; "
+              f"/api/slo (router and replica) reports "
+              f"{out['d']['slo_models']} (fast burn rate resnet50 "
+              f"{slo['router']['models']['resnet50']['windows']['fast']['burn_rate']:.3f}"
+              f", lm {slo['router']['models']['lm']['windows']['fast']['burn_rate']:.3f}"
+              f"); dump {path}: {len(recs)} records, one a completed "
+              f"request; access log at 0.5: {len(kept)} lines of "
+              f"{2 * FLEET_LOGGED} handled requests, each with its trace id")
+
+        # ---- (e) failover: the replica a lone client reaches stops ----
+        stop, answers = threading.Event(), []
+
+        def failover_client():
+            while not stop.is_set():
+                answers.append(_fleet_post(url, _npy(xb), npy))
+
+        th = threading.Thread(target=failover_client)
+        th.start()
+        try:
+            while len(answers) < 5 and th.is_alive():
+                time.sleep(0.01)
+            r0.server.stop(drain=False)
+            n_at_stop = len(answers)
+            while len(answers) < n_at_stop + 10 and th.is_alive():
+                time.sleep(0.01)
+        finally:
+            stop.set()
+            th.join(timeout=300)
+        with urllib.request.urlopen(f"{base}/v1/replicas", timeout=60) as resp:
+            reps = {r["name"]: r for r in json.loads(resp.read())["replicas"]}
+        check(all(a[0] == 200 and np.array_equal(
+            _fleet_answer(a[1], npy), ref2) for a in answers),
+            f"(e) a request failed or changed across the failover: "
+            f"{sorted({a[0] for a in answers})}")
+        check(not reps[r0.name]["healthy"] and reps[r1.name]["healthy"],
+              f"(e) /v1/replicas after the stop: {reps}")
+        served_by = telemetry.counter("dl4j_serving_router_requests_total")
+        out["e"] = {"answers": len(answers), "after_stop":
+                    len(answers) - n_at_stop}
+        print(f"[fleet] (e) {r0.name} stopped after {n_at_stop} of "
+              f"{len(answers)} requests: every one 200 and bitwise version "
+              f"2's ({r1.name} has answered "
+              f"{served_by.value(replica=r1.name, code='200'):g} in the "
+              f"phase); /v1/replicas shows {r0.name} out of rotation")
+    finally:
+        router.stop(drain=False, timeout=30)
+
+    # ---- (f) a SameDiff graph through the registry ----
+    if sd is not None:
+        out["f"] = _fleet_samediff(torch, sd, sd_image or image, device)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[fleet] phase 23 in {out['phase_s']:.1f}s [{label}]")
+    return out
+
+
+def _fleet_samediff(torch, sd, image: int, device: str) -> dict:
+    """(f): the imported graph served at 1 and 32 images, against
+    ``sd.output`` of the same padded batch, TF32 off and the deterministic
+    algorithms on; no kernel of ``csrc/`` launches."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.serving import (InferenceServer,
+                                                  ModelRegistry)
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32,
+            torch.are_deterministic_algorithms_enabled(),
+            os.environ.get("CUBLAS_WORKSPACE_CONFIG"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    reg = ModelRegistry(device, default_buckets=(8, 32))
+    srv = None
+    try:
+        _zero_counts()
+        ver = reg.register("keras_resnet50", sd, input_name="x",
+                           warmup_shape=(image, image, 3))
+        check(ver.model.output_name == "Identity",
+              f"(f) inferred output {ver.model.output_name!r}")
+        srv = InferenceServer(reg).start(0)
+        url = f"{srv.url}/v1/models/keras_resnet50:predict"
+        rs = np.random.RandomState(29)
+        x32 = rs.randn(32, image, image, 3).astype(np.float32)
+        got = {}
+        for n in (1, 32):
+            code, data, _, ms = _fleet_post(url, _npy(x32[:n]),
+                                            "application/octet-stream")
+            check(code == 200, f"(f) {n} images: {code}")
+            got[n] = (np.load(io.BytesIO(data)), ms)
+        _sync(torch, device)
+        launches = _counts()
+
+        def direct(a):
+            return sd.output({"x": a}, ["Identity"])["Identity"] \
+                .float().cpu().numpy()
+        for n in (1, 32):
+            ref = _padded_ref(direct, x32[:n], 8 if n == 1 else 32)
+            err = float(np.abs(got[n][0] - ref).max())
+            check(np.array_equal(got[n][0], ref),
+                  f"(f) {n} served images differ from sd.output by {err}")
+        check(not any(launches.values()),
+              f"(f) a kernel of csrc/ launched: {launches}")
+        check(ver.retraces_since_warmup() == 0, "(f) retraced")
+        print(f"[fleet] (f) the imported Keras ResNet-50 through "
+              f"ModelRegistry.register(input_name='x'): 1 image "
+              f"({got[1][1]:.1f} ms) and 32 ({got[32][1]:.1f} ms) over HTTP "
+              f"== sd.output of the same padded batch bit for bit "
+              f"(deterministic algorithms, TF32 off); launches {launches}")
+        return {"ms_1": got[1][1], "ms_32": got[32][1], "launches": launches}
+    finally:
+        if srv is not None:
+            srv.stop(drain=False)
+        reg.shutdown()
         torch.backends.cuda.matmul.allow_tf32 = prev[0]
         torch.backends.cudnn.allow_tf32 = prev[1]
         torch.use_deterministic_algorithms(prev[2])
@@ -6967,6 +7698,7 @@ def main() -> int:
     ag = timed("attention-graph", phase_attention_graph, torch, label)
     tl = timed("tf-lstm", phase_tf_lstm, torch, label)
     tr50 = timed("tf-resnet", phase_tf_resnet, torch, label)
+    fl = timed("fleet", phase_fleet, torch, label, sd=tr50.pop("sd"))
     # last: past three quarters of the pool, every capture's graph holds
     # a user object
     pool = timed("ticket-pool", ticket_pool_check, torch)
@@ -7075,7 +7807,12 @@ def main() -> int:
                 "general_body_ms_by_dtype_and_L": {
                     k_: v_["general_body_ms"] for k_, v_ in pt.items()},
                 "body": t["body"],
-                "launches_bf16_pool": gb["launches"]["paged_decode"]}
+                "launches_bf16_pool": gb["launches"]["paged_decode"],
+                # phase 23: the decoder on two replicas behind the router
+                "launches_fleet": {
+                    "routed_and_direct_64_streams":
+                        fl["c"]["launches"][k.name],
+                    "decode_steps_per_replica": fl["c"]["decode_steps"]}}
         elif k.name == "matmul_bias_act":
             t = pw["timing"]["float32"]
             err = pw["max_abs_err"]
@@ -7102,7 +7839,13 @@ def main() -> int:
             by_dtype = {d: v["kernel_ms"] for d, v in kern["timing"].items()}
             extra = {"library_ms_by_dtype": {
                 d: v["library_ms"] for d, v in kern["timing"].items()},
-                "launches_pretrained": pre["launches"]}
+                "launches_pretrained": pre["launches"],
+                # phase 23: ResNet-50 on two replicas behind the router
+                "launches_fleet": {
+                    "routed_64_predicts": fl["a"]["launches"][k.name],
+                    "routed_forwards_per_replica": fl["a"]["forwards"],
+                    "rollout_under_load": fl["b"]["launches"][k.name],
+                    "rollout_under_load_forwards": fl["b"]["forwards"]}}
         else:
             t = tk["timing"][k.name]["float32"]
             err = tk["max_abs_err"][k.name]
@@ -7247,6 +7990,20 @@ def main() -> int:
           f"{tr50['logits_vs_f64']:.3e}, gradients "
           f"{tr50['grad_vs_f64_max']:.3e}; {len(tr50['sweep']['ops'])} ops "
           f"swept [{label}]")
+    fa, fc = fl["a"], fl["c"]
+    print(f"[done] serving fleet (2 replicas on one card): single-image "
+          f"predict p50 / max ms through the router "
+          f"{fa['single_ms']['router']['p50']:.3f} / "
+          f"{fa['single_ms']['router']['max']:.3f}, direct "
+          f"{fa['single_ms']['direct']['p50']:.3f} / "
+          f"{fa['single_ms']['direct']['max']:.3f}; burst of 32 "
+          f"{fa['burst32_img_per_s']:.1f} img/s; 32 streams TTFT p50 routed "
+          f"{fc['routed']['ttft_ms_p50']:.3f} ms, direct "
+          f"{fc['direct']['ttft_ms_p50']:.3f} ms, inter-token p50 routed "
+          f"{fc['routed']['intertoken_ms_p50']:.3f} ms, direct "
+          f"{fc['direct']['intertoken_ms_p50']:.3f} ms; SameDiff Keras "
+          f"ResNet-50 served at 1 / 32 images in {fl['f']['ms_1']:.1f} / "
+          f"{fl['f']['ms_32']:.1f} ms; phase {fl['phase_s']:.1f}s [{label}]")
     print(f"[done] matmul precision: "
           f"{torch.get_float32_matmul_precision()}, cuda.matmul.allow_tf32 "
           f"{torch.backends.cuda.matmul.allow_tf32}")

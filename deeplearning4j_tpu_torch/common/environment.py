@@ -29,7 +29,22 @@ after a TF import, default on; ``autodiff/passes.py``),
 IDX files), ``DL4J_TORCH_KV_DTYPE`` (the KV pool's
 dtype, ``float32`` or ``bf16``; ``serving/batcher.py``) and
 ``DL4J_TORCH_HTTP_HOST`` (the serving bind interface, default
-127.0.0.1).
+127.0.0.1). The serving observatory reads:
+``DL4J_TORCH_TELEMETRY_MAX_EVENTS`` (the trace ring's size, default 200000;
+``common/telemetry.py``), ``DL4J_TORCH_REQUEST_TRACE`` (per-request
+trace contexts, default on, off whenever telemetry is;
+``common/tracectx.py``), ``DL4J_TORCH_ACCESS_LOG`` and
+``DL4J_TORCH_ACCESS_LOG_SAMPLE`` (the sampled JSONL access log's path,
+unset: off, and the share of requests kept, default 1.0;
+``common/httputil.py``), ``DL4J_TORCH_SLO_TARGET``,
+``DL4J_TORCH_SLO_FAST_S`` and ``DL4J_TORCH_SLO_SLOW_S`` (the in-SLO
+target, default 0.99, and the burn-rate windows, default 300 s and
+3600 s; ``serving/slo.py``), and ``DL4J_TORCH_REQREC``,
+``DL4J_TORCH_REQREC_CAPACITY``, ``DL4J_TORCH_REQREC_DIR``,
+``DL4J_TORCH_REQREC_SHED_THRESHOLD``, ``DL4J_TORCH_REQREC_SHED_WINDOW_S``
+and ``DL4J_TORCH_REQREC_STORM_COOLDOWN_S`` (the request flight
+recorder: default on, 512 records, ``flightrec/``, 20 sheds within 5 s
+make a storm, 60 s between storm dumps; ``serving/reqrec.py``).
 
 :func:`resolve_device` is the one place the port's entry points turn
 ``device=None`` into a device: the card, or an error that says how to

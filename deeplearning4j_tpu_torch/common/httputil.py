@@ -9,17 +9,57 @@ its siblings), plus the zero-copy ``.npy`` codec of the serving path
 (:func:`npy_view`, :func:`npy_header`).
 
 Bind host: ``DL4J_TORCH_HTTP_HOST`` (default ``127.0.0.1``).
+
+Access log: ``DL4J_TORCH_ACCESS_LOG=<path>`` appends one JSON line per
+completed request to ``path`` (method, path, status, response bytes,
+duration and the request's trace id, the join key into the span tree
+and the latency exemplars); ``DL4J_TORCH_ACCESS_LOG_SAMPLE`` (default
+1.0) keeps every ``1/rate``-th request, counted deterministically
+across the process's handlers. A failure to log never breaks a
+response.
 """
 from __future__ import annotations
 
 import io
+import itertools
 import json
 import os
+import sys
 import threading
+import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
+
+from deeplearning4j_tpu_torch.common import telemetry
+
+#: (path, log every n-th request), read once a process; the telemetry
+#: reset hook drops it so tests can flip the environment variables
+_access_conf: Optional[Tuple[str, int]] = None
+
+
+def _access_log_conf() -> Tuple[str, int]:
+    global _access_conf
+    if _access_conf is None:
+        path = os.environ.get("DL4J_TORCH_ACCESS_LOG", "")
+        try:
+            rate = float(os.environ.get("DL4J_TORCH_ACCESS_LOG_SAMPLE",
+                                        "1"))
+        except ValueError:
+            rate = 1.0
+        every = 0 if not path or rate <= 0 else \
+            max(1, int(round(1.0 / min(1.0, rate))))
+        _access_conf = (path, every)
+    return _access_conf
+
+
+def _reset_access_conf() -> None:
+    global _access_conf
+    _access_conf = None
+
+
+telemetry.on_reset(_reset_access_conf)
 
 
 def npy_view(buf) -> "np.ndarray":
@@ -68,6 +108,56 @@ class QuietHandler(BaseHTTPRequestHandler):
     def log_message(self, *args):
         pass
 
+    # -- the sampled access log ------------------------------------------
+    #: shared by every handler thread: the deterministic 1-in-N sampler
+    _access_seq = itertools.count(1)
+    _access_write_lock = threading.Lock()
+    #: per-request state, reset in handle_one_request
+    _t_req = 0.0
+    _resp_status: Optional[int] = None
+    _resp_bytes = 0
+    #: set by the server or router while handling: the log's trace id
+    _trace_id: Optional[str] = None
+
+    def parse_request(self):
+        self._t_req = time.monotonic()      # the request line is in
+        return super().parse_request()
+
+    def send_response(self, code, message=None):
+        if self._resp_status is None:   # the first status is the verdict
+            self._resp_status = int(code)
+        super().send_response(code, message)
+
+    def handle_one_request(self):
+        # a handler serves many keep-alive requests, and the last call of
+        # a connection reads no request at all: no status, byte count or
+        # trace id may carry over from the previous one
+        self._resp_status = None
+        self._resp_bytes = 0
+        self._trace_id = None
+        super().handle_one_request()
+        try:
+            self._access_log()
+        except Exception:       # noqa: BLE001  logging never breaks a
+            pass                # response
+
+    def _access_log(self) -> None:
+        path, every = _access_log_conf()
+        if not every or self._resp_status is None:
+            return
+        if next(QuietHandler._access_seq) % every:
+            return
+        line = json.dumps({
+            "t": time.time(), "method": self.command, "path": self.path,
+            "status": self._resp_status, "bytes": self._resp_bytes,
+            "duration_ms": round((time.monotonic() - self._t_req) * 1e3,
+                                 3),
+            "trace_id": self._trace_id})
+        with QuietHandler._access_write_lock:
+            with open(path, "a") as f:
+                f.write(line + "\n")
+
+    # -- responses ---------------------------------------------------------
     def send_body(self, body: bytes, content_type: str,
                   code: int = 200, headers: Optional[dict] = None):
         self.send_response(code)
@@ -77,6 +167,7 @@ class QuietHandler(BaseHTTPRequestHandler):
             self.send_header(k, str(v))
         self.end_headers()
         self.wfile.write(body)
+        self._resp_bytes += len(body)
 
     def send_body_parts(self, parts: Sequence, content_type: str,
                         code: int = 200,
@@ -93,6 +184,7 @@ class QuietHandler(BaseHTTPRequestHandler):
         self.end_headers()
         for v in views:
             self.wfile.write(v)
+            self._resp_bytes += v.nbytes
 
     def send_json(self, obj, code: int = 200,
                   headers: Optional[dict] = None):
@@ -100,10 +192,9 @@ class QuietHandler(BaseHTTPRequestHandler):
                        code, headers)
 
     def send_metrics(self):
-        from deeplearning4j_tpu_torch.common.telemetry import \
-            MetricsRegistry
-        self.send_body(MetricsRegistry.get().render_prometheus().encode(),
-                       "text/plain; version=0.0.4; charset=utf-8")
+        self.send_body(
+            telemetry.MetricsRegistry.get().render_prometheus().encode(),
+            "text/plain; version=0.0.4; charset=utf-8")
 
     # -- chunked streaming (the :generate token stream) ------------------
     def begin_chunks(self, content_type: str, code: int = 200,
@@ -128,6 +219,7 @@ class QuietHandler(BaseHTTPRequestHandler):
         self.wfile.write(data)
         self.wfile.write(b"\r\n")
         self.wfile.flush()
+        self._resp_bytes += len(data)
 
     def end_chunks(self):
         """The terminal zero-length chunk: a well-formed end of body; the
@@ -156,6 +248,13 @@ class _Server(ThreadingHTTPServer):
     #: SYN retry, delays by a second) the connections of a burst of
     #: concurrent clients before a handler thread ever sees them
     request_queue_size = 128
+
+    def handle_error(self, request, client_address):
+        # a client that went away (a reset between keep-alive requests,
+        # a stream cancelled mid-way) is not a server fault
+        if isinstance(sys.exc_info()[1], ConnectionError):
+            return
+        super().handle_error(request, client_address)
 
 
 def start_http_server(handler_cls, port: int = 0

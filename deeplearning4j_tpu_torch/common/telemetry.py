@@ -1,17 +1,34 @@
-"""Metrics registry and spans.
+"""Metrics registry and one-timeline tracing.
 
-Counterpart of ``deeplearning4j_tpu/common/telemetry.py``, cut to what
-the serving path and the kernel ladder record into: labelled
-:class:`Counter`, :class:`Gauge` and :class:`Histogram` metrics in one
-process-wide :class:`MetricsRegistry`, rendered as the Prometheus text
-page that ``/metrics`` serves, and :func:`span`, which records
-chrome-trace "X" events into a bounded ring (:func:`trace_events`).
+Counterpart of ``deeplearning4j_tpu/common/telemetry.py`` (its metric
+and trace core; the train-step span and the metrics listener come with
+the training observatory):
+
+- :class:`MetricsRegistry`: one process-wide, thread-safe registry of
+  labelled :class:`Counter`, :class:`Gauge` and :class:`Histogram`
+  metrics, rendered as the Prometheus text page that ``/metrics``
+  serves, and folded into JSON by :meth:`MetricsRegistry.snapshot` /
+  :meth:`MetricsRegistry.summary`. Hot paths pre-resolve a label set
+  with ``bind``. A histogram series keeps its latest exemplar (a trace
+  id behind the aggregate, :meth:`Histogram.observe_with_exemplar`) and
+  estimates quantiles from its buckets (:meth:`Histogram.quantile`).
+- :func:`span` / :func:`span_at` / :func:`instant`: chrome-trace "X" and
+  "i" events in one bounded ring (:func:`trace_events`), written by
+  :func:`export_chrome_trace`; :func:`merge_chrome_traces` and
+  :func:`merge_host_traces` fold several trace files into one timeline.
+- :func:`on_reset`: modules with process-wide singletons of their own
+  (the SLO tracker, the request recorder, the trace-context gate, the
+  access-log configuration) register a reset hook that
+  :meth:`MetricsRegistry._reset_for_tests` runs.
 
 ``DL4J_TORCH_TELEMETRY=0`` turns recording off: every record call is
-then one dictionary lookup.
+then one dictionary lookup. ``DL4J_TORCH_TELEMETRY_MAX_EVENTS`` sizes the
+trace ring (default 200000).
 """
 from __future__ import annotations
 
+import gzip
+import json
 import os
 import threading
 import time
@@ -29,7 +46,7 @@ DEFAULT_BUCKETS = (1e-5, 2.5e-5, 5e-5, 1e-4, 2.5e-4, 5e-4,
 #: buckets for 0..1 ratios (batch occupancy)
 RATIO_BUCKETS = (0.1, 0.25, 0.5, 0.75, 0.9, 1.0)
 
-#: chrome-trace events kept; older ones are evicted
+#: chrome-trace events kept by default; older ones are evicted
 MAX_TRACE_EVENTS = 200_000
 
 _LabelKey = Tuple[Tuple[str, str], ...]
@@ -46,6 +63,10 @@ def _render_labels(key: _LabelKey, extra: str = "") -> str:
     return "{" + ",".join(parts) + "}" if parts else ""
 
 
+def _snapshot_key(key: _LabelKey) -> str:
+    return ";".join(f"{k}={v}" for k, v in key)
+
+
 class _Metric:
     kind = "untyped"
 
@@ -56,26 +77,42 @@ class _Metric:
         self._lock = threading.Lock()
         self._series: Dict[_LabelKey, object] = {}
 
-    def _render(self) -> List[str]:
-        return [f"{self.name}{_render_labels(k)} {v:g}"
-                for k, v in sorted(self._series.items())]
+    def _clear(self) -> None:
+        with self._lock:
+            self._series = {}
 
 
-class Counter(_Metric):
-    kind = "counter"
+class _Scalar(_Metric):
+    """A number per label set (counters and gauges)."""
 
-    def inc(self, amount: float = 1, **labels) -> None:
-        if not self._state["on"]:
-            return
-        key = _label_key(labels)
+    def _add(self, key: _LabelKey, amount: float) -> None:
         with self._lock:
             self._series[key] = self._series.get(key, 0) + amount
+
+    def inc(self, amount: float = 1, **labels) -> None:
+        if self._state["on"]:
+            self._add(_label_key(labels), amount)
 
     def value(self, **labels) -> float:
         return self._series.get(_label_key(labels), 0)
 
+    def _render(self) -> List[str]:
+        return [f"{self.name}{_render_labels(k)} {v:g}"
+                for k, v in sorted(self._series.items())]
 
-class Gauge(Counter):
+    def _snapshot(self) -> dict:
+        return {_snapshot_key(k): v for k, v in self._series.items()}
+
+
+class Counter(_Scalar):
+    kind = "counter"
+
+    def bind(self, **labels) -> "_BoundCounter":
+        """Pre-resolve a label set for a hot path."""
+        return _BoundCounter(self, _label_key(labels))
+
+
+class Gauge(_Scalar):
     kind = "gauge"
 
     def set(self, value: float, **labels) -> None:
@@ -84,18 +121,25 @@ class Gauge(Counter):
         with self._lock:
             self._series[_label_key(labels)] = value
 
+    def dec(self, amount: float = 1, **labels) -> None:
+        self.inc(-amount, **labels)
+
 
 class _HistSeries:
-    __slots__ = ("counts", "sum", "count")
+    __slots__ = ("counts", "sum", "count", "exemplar")
 
     def __init__(self, n_buckets: int):
         self.counts = [0] * (n_buckets + 1)     # last slot = +Inf
         self.sum = 0.0
         self.count = 0
+        #: latest (value, {label: value}, unix time) exemplar
+        self.exemplar: Optional[Tuple[float, dict, float]] = None
 
 
 class Histogram(_Metric):
-    """Fixed-bucket histogram, rendered cumulatively with ``le``."""
+    """Fixed-bucket histogram, rendered cumulatively with ``le``; the
+    latest exemplar of a series rides its +Inf bucket line in
+    OpenMetrics form."""
 
     kind = "histogram"
 
@@ -105,9 +149,20 @@ class Histogram(_Metric):
         self.buckets = tuple(sorted(buckets))
 
     def observe(self, value: float, **labels) -> None:
-        if not self._state["on"]:
-            return
-        key = _label_key(labels)
+        if self._state["on"]:
+            self._observe_key(_label_key(labels), value)
+
+    def observe_with_exemplar(self, value: float, exemplar: dict,
+                              **labels) -> None:
+        """Observe ``value`` and keep ``exemplar`` (e.g. ``{"trace_id":
+        ...}``) as the series' latest, so a slow bucket names a request
+        whose timeline can be opened."""
+        if self._state["on"]:
+            self._observe_key(_label_key(labels), value,
+                              exemplar=dict(exemplar))
+
+    def _observe_key(self, key: _LabelKey, value: float,
+                     exemplar: Optional[dict] = None) -> None:
         with self._lock:
             s = self._series.get(key)
             if s is None:
@@ -120,6 +175,46 @@ class Histogram(_Metric):
             s.counts[i] += 1
             s.sum += value
             s.count += 1
+            if exemplar is not None:
+                s.exemplar = (float(value), exemplar, time.time())
+
+    def exemplar_of(self, **labels) -> Optional[dict]:
+        """The latest exemplar of a series as ``{"value", "labels",
+        "ts"}``; None before the first one."""
+        s = self._series.get(_label_key(labels))
+        if s is None or s.exemplar is None:
+            return None
+        value, ex_labels, ts = s.exemplar
+        return {"value": value, "labels": dict(ex_labels), "ts": ts}
+
+    def bind(self, **labels) -> "_BoundHistogram":
+        """Pre-resolve a label set for a hot path."""
+        return _BoundHistogram(self, _label_key(labels))
+
+    def quantile(self, q: float, **labels) -> float:
+        """The ``q``-quantile (0..1) estimated from the cumulative bucket
+        counts (``histogram_quantile``: linear inside the bucket that
+        holds it, +Inf observations clamp to the top finite edge). NaN
+        for a series with no observation."""
+        s = self._series.get(_label_key(labels))
+        if s is None or s.count == 0:
+            return float("nan")
+        target = q * s.count
+        cum, lo = 0.0, 0.0
+        for edge, c in zip(self.buckets, s.counts):
+            if c and cum + c >= target:
+                return lo + (edge - lo) * (target - cum) / c
+            cum += c
+            lo = edge
+        return self.buckets[-1]
+
+    def count_of(self, **labels) -> int:
+        s = self._series.get(_label_key(labels))
+        return s.count if s else 0
+
+    def sum_of(self, **labels) -> float:
+        s = self._series.get(_label_key(labels))
+        return s.sum if s else 0.0
 
     def _render(self) -> List[str]:
         out = []
@@ -131,12 +226,47 @@ class Histogram(_Metric):
                 out.append(f"{self.name}_bucket"
                            f"{_render_labels(key, le)} {cum}")
             inf = 'le="+Inf"'
-            out.append(f"{self.name}_bucket{_render_labels(key, inf)} "
-                       f"{s.count}")
+            line = f"{self.name}_bucket{_render_labels(key, inf)} {s.count}"
+            if s.exemplar is not None:
+                value, ex_labels, ts = s.exemplar
+                ex = ",".join(f'{k}="{v}"'
+                              for k, v in sorted(ex_labels.items()))
+                line += f" # {{{ex}}} {value:g} {ts:.3f}"
+            out.append(line)
             out.append(f"{self.name}_sum{_render_labels(key)} {s.sum:g}")
             out.append(f"{self.name}_count{_render_labels(key)} "
                        f"{s.count}")
         return out
+
+    def _snapshot(self) -> dict:
+        return {_snapshot_key(k): {
+                    "count": s.count, "sum": s.sum,
+                    "mean": s.sum / s.count if s.count else 0.0}
+                for k, s in self._series.items()}
+
+
+class _BoundHistogram:
+    __slots__ = ("_h", "_key")
+
+    def __init__(self, h: Histogram, key: _LabelKey):
+        self._h = h
+        self._key = key
+
+    def observe(self, value: float) -> None:
+        if self._h._state["on"]:
+            self._h._observe_key(self._key, value)
+
+
+class _BoundCounter:
+    __slots__ = ("_c", "_key")
+
+    def __init__(self, c: Counter, key: _LabelKey):
+        self._c = c
+        self._key = key
+
+    def inc(self, amount: float = 1) -> None:
+        if self._c._state["on"]:
+            self._c._add(self._key, amount)
 
 
 class MetricsRegistry:
@@ -163,9 +293,29 @@ class MetricsRegistry:
                 cls._instance = cls()
             return cls._instance
 
+    @classmethod
+    def _reset_for_tests(cls):
+        """A clean panel: every series emptied, the gate back at the
+        environment's setting, the trace ring cleared and every
+        :func:`on_reset` hook run. The metric objects stay registered, so
+        modules that hold one keep recording into the page ``/metrics``
+        renders."""
+        reg = cls.get()
+        reg._state["on"] = bool(Environment.get().telemetry)
+        with reg._lock:
+            metrics = list(reg._metrics.values())
+        for m in metrics:
+            m._clear()
+        _trace_buffer.clear()
+        for hook in list(_reset_hooks):
+            hook()
+
     @property
     def enabled(self) -> bool:
         return self._state["on"]
+
+    def set_enabled(self, on: bool) -> None:
+        self._state["on"] = bool(on)
 
     def _register(self, cls, name, help, **kw) -> _Metric:
         with self._lock:
@@ -203,6 +353,17 @@ class MetricsRegistry:
             lines.extend(m._render())
         return "\n".join(lines) + "\n"
 
+    def snapshot(self) -> dict:
+        """``{name: {label key: value or histogram summary}}``,
+        JSON-serialisable."""
+        with self._lock:
+            metrics = list(self._metrics.values())
+        return {m.name: m._snapshot() for m in metrics}
+
+    def summary(self) -> dict:
+        """:meth:`snapshot` without the metrics that recorded nothing."""
+        return {k: v for k, v in self.snapshot().items() if v}
+
 
 def counter(name: str, help: str = "") -> Counter:
     return MetricsRegistry.get().counter(name, help)
@@ -221,7 +382,58 @@ def enabled() -> bool:
     return MetricsRegistry.get().enabled
 
 
-_trace: "deque[dict]" = deque(maxlen=MAX_TRACE_EVENTS)
+#: zero-argument callables run by MetricsRegistry._reset_for_tests
+_reset_hooks: List = []
+
+
+def on_reset(hook) -> None:
+    """Run ``hook`` on every ``MetricsRegistry._reset_for_tests()``
+    (registered once however often this is called)."""
+    if hook not in _reset_hooks:
+        _reset_hooks.append(hook)
+
+
+# ---------------------------------------------------------------------------
+# one timeline: a bounded ring of chrome-trace events
+class _TraceBuffer:
+    """A ring: past ``max_events`` the oldest events are evicted (counted
+    in ``dropped``, in the exported metadata and in
+    ``dl4j_trace_events_dropped_total``), so a long run keeps its most
+    recent window at bounded host memory."""
+
+    def __init__(self, max_events: int = MAX_TRACE_EVENTS):
+        self.max_events = int(os.environ.get(
+            "DL4J_TORCH_TELEMETRY_MAX_EVENTS", str(max_events)))
+        self._lock = threading.Lock()
+        self.events: "deque[dict]" = deque()
+        self.dropped = 0
+
+    def append(self, ev: dict) -> None:
+        n_evicted = 0
+        with self._lock:
+            self.events.append(ev)
+            while len(self.events) > self.max_events:
+                self.events.popleft()
+                self.dropped += 1
+                n_evicted += 1
+        if n_evicted:
+            counter("dl4j_trace_events_dropped_total",
+                    "chrome-trace ring evictions (oldest events displaced "
+                    "once the ring is full)").inc(n_evicted)
+
+    def clear(self) -> None:
+        with self._lock:
+            self.events = deque()
+            self.dropped = 0
+
+
+_trace_buffer = _TraceBuffer()
+
+
+def _event(name: str, ph: str, ts_s: float, attrs: dict, **extra) -> dict:
+    return {"name": name, "ph": ph, "pid": os.getpid(),
+            "tid": threading.get_ident() & 0xFFFF,
+            "ts": int(ts_s * 1e6), **extra, "args": attrs}
 
 
 @contextmanager
@@ -236,13 +448,103 @@ def span(name: str, **attrs):
     try:
         yield
     finally:
-        t1 = time.time()
-        _trace.append({
-            "name": name, "ph": "X", "pid": os.getpid(),
-            "tid": threading.get_ident() & 0xFFFF,
-            "ts": int(t0 * 1e6), "dur": int((t1 - t0) * 1e6),
-            "args": attrs})
+        _trace_buffer.append(_event(name, "X", t0, attrs,
+                                    dur=int((time.time() - t0) * 1e6)))
+
+
+def instant(name: str, **attrs) -> None:
+    """A zero-duration chrome-trace event (a when without a how long)."""
+    if enabled():
+        _trace_buffer.append(_event(name, "i", time.time(), attrs, s="p"))
+
+
+def span_at(name: str, t_wall: float, dur_s: float, **attrs) -> None:
+    """A span with an explicit start (unix seconds) and duration: for an
+    interval measured on another thread (a batcher flush attributing
+    queue wait back to each request)."""
+    if enabled():
+        _trace_buffer.append(_event(name, "X", t_wall, attrs,
+                                    dur=max(0, int(dur_s * 1e6))))
 
 
 def trace_events() -> List[dict]:
-    return list(_trace)
+    with _trace_buffer._lock:
+        return list(_trace_buffer.events)
+
+
+def _write_trace(path: str, events: List[dict], meta: dict) -> str:
+    with open(path, "w") as f:
+        json.dump({"traceEvents": events, "displayTimeUnit": "ms",
+                   "metadata": meta}, f)
+    return path
+
+
+def export_chrome_trace(path: str, metadata: Optional[dict] = None) -> str:
+    """Write the ring as chrome://tracing JSON; ``metadata`` keys (a
+    host name, a clock offset) merge into the document's metadata, where
+    :func:`merge_host_traces` reads them back."""
+    with _trace_buffer._lock:
+        events = list(_trace_buffer.events)
+        meta = {"dropped_events": _trace_buffer.dropped}
+    meta.update(metadata or {})
+    return _write_trace(path, events, meta)
+
+
+def _load_trace(path: str) -> dict:
+    op = gzip.open if str(path).endswith(".gz") else open
+    with op(path, "rt") as f:
+        doc = json.load(f)
+    return doc if isinstance(doc, dict) else {"traceEvents": doc}
+
+
+def merge_chrome_traces(output_path: str, *paths: str) -> str:
+    """Concatenate the events of several chrome-trace files (this
+    module's, or a profiler's ``.json.gz``) into one file; events share
+    the epoch-microsecond clock, pids and tids keep sources apart."""
+    events: List[dict] = []
+    meta: dict = {}
+    for p in paths:
+        doc = _load_trace(p)
+        events.extend(doc.get("traceEvents", []))
+        meta.update(doc.get("metadata", {}))
+    return _write_trace(output_path, events, meta)
+
+
+def merge_host_traces(output_path: str, *sources) -> str:
+    """Fold per-host trace files into one clock-corrected timeline.
+
+    Each source is a path or ``{"path", "host", "clock_offset_s"}``;
+    ``clock_offset_s`` is how far that host's clock runs ahead of the
+    reference clock (default: the file's own metadata, else 0), and each
+    of its timestamps moves back by it. Pids are remapped per source and
+    each row is labelled with its host."""
+    events: List[dict] = []
+    meta: dict = {"hosts": []}
+    for idx, src in enumerate(sources):
+        if isinstance(src, (str, os.PathLike)):
+            src = {"path": src}
+        doc = _load_trace(src["path"])
+        doc_meta = doc.get("metadata", {}) or {}
+        host = src.get("host") or doc_meta.get("host") or f"host{idx}"
+        offset_s = src.get("clock_offset_s")
+        if offset_s is None:
+            offset_s = doc_meta.get("clock_offset_s", 0.0)
+        shift_us = int(float(offset_s) * 1e6)
+        pid_map: Dict[object, int] = {}
+        for ev in doc.get("traceEvents", []):
+            ev = dict(ev)
+            pid = pid_map.get(ev.get("pid"))
+            if pid is None:
+                pid = pid_map[ev.get("pid")] = 1000 * (idx + 1) \
+                    + len(pid_map)
+            ev["pid"] = pid
+            if "ts" in ev:
+                ev["ts"] = int(ev["ts"]) - shift_us
+            events.append(ev)
+        for pid in sorted(pid_map.values()):
+            events.append({"name": "process_name", "ph": "M", "pid": pid,
+                           "tid": 0, "args": {"name": host}})
+        meta["hosts"].append({"host": host,
+                              "clock_offset_s": float(offset_s),
+                              "events": len(doc.get("traceEvents", []))})
+    return _write_trace(output_path, events, meta)

@@ -1,18 +1,24 @@
 """ParallelInference: request batching in front of one model.
 
-Counterpart of ``deeplearning4j_tpu/parallel/inference.py``'s
-``BATCHED`` mode on one device: a queue and a worker thread aggregate
-concurrent requests into one forward on the model's device. The worker
-flushes continuously, as the JAX package's serving batcher does by
-default: it blocks for one request, takes whatever else is queued (up
-to ``batch_limit``) and runs it at once, so arrivals during a forward
-form the next batch. The JAX package's mesh (batch sharded over several
-chips) becomes the single device the model lives on; data parallelism
-comes with its own slice.
+Counterpart of ``deeplearning4j_tpu/parallel/inference.py`` on one
+device. :class:`InferenceMode` picks how ``submit`` runs a request:
 
-The forward runs under ``torch.inference_mode()``, entered by whichever
-thread runs it (the mode is thread-local, and the worker is a thread of
-its own).
+- ``BATCHED`` (the default): a queue and a worker thread aggregate
+  concurrent requests into one forward on the model's device. The worker
+  flushes continuously, as the JAX package's serving batcher does by
+  default: it blocks for one request, takes whatever else is queued (up
+  to ``batch_limit``) and runs it at once, so arrivals during a forward
+  form the next batch. ``flush_policy="window"`` instead holds the first
+  request up to ``batch_window_ms`` collecting batch-mates (the JAX
+  package's ``ParallelInference`` worker);
+- ``INPLACE`` and ``SEQUENTIAL``: the request runs on the caller's thread
+  at once, with no queue and no aggregation.
+
+The JAX package's mesh (batch sharded over several chips) becomes the
+single device the model lives on; data parallelism comes with its own
+slice. The forward runs under ``torch.inference_mode()``, entered by
+whichever thread runs it (the mode is thread-local, and the worker is a
+thread of its own).
 """
 from __future__ import annotations
 
@@ -27,17 +33,71 @@ import torch
 
 from deeplearning4j_tpu_torch.common import telemetry
 
+#: flush triggers of the BATCHED worker: continuous flushes whenever the
+#: device frees and requests wait; window holds the first request up to
+#: batch_window_ms hoping for batch-mates
+FLUSH_POLICIES = ("continuous", "window")
+
+
+class InferenceMode:
+    #: run each request on the caller's thread, no queue
+    INPLACE = "INPLACE"
+    SEQUENTIAL = "SEQUENTIAL"
+    #: aggregate concurrent requests into up-to-batch_limit forwards
+    BATCHED = "BATCHED"
+
 
 class ParallelInference:
-    def __init__(self, model, *, batch_limit: int = 32,
-                 queue_limit: int = 64):
+    def __init__(self, model, *,
+                 inference_mode: str = InferenceMode.BATCHED,
+                 batch_limit: int = 32, queue_limit: int = 64,
+                 flush_policy: str = "continuous",
+                 batch_window_ms: float = 2.0):
+        if inference_mode not in (InferenceMode.INPLACE,
+                                  InferenceMode.SEQUENTIAL,
+                                  InferenceMode.BATCHED):
+            raise ValueError(f"unknown inference_mode {inference_mode!r}")
+        if flush_policy not in FLUSH_POLICIES:
+            raise ValueError(f"flush_policy must be one of "
+                             f"{FLUSH_POLICIES}, got {flush_policy!r}")
         self.model = model
+        self.inference_mode = inference_mode
         self.batch_limit = batch_limit
         self.queue_limit = queue_limit
+        self.flush_policy = flush_policy
+        self.batch_window_ms = float(batch_window_ms)
+        #: forwards this instance ran (one a flushed chunk)
+        self.forwards = 0
+        self._forwards_lock = threading.Lock()
         self._worker = None
         self._requests = None
         self._shutdown = False
         self._lock = threading.Lock()
+
+    class Builder:
+        def __init__(self, model):
+            self._model = model
+            self._mode = InferenceMode.BATCHED
+            self._batch_limit = 32
+            self._queue_limit = 64
+
+        def inference_mode(self, mode: str):
+            self._mode = mode
+            return self
+
+        def batch_limit(self, n: int):
+            self._batch_limit = n
+            return self
+
+        def queue_limit(self, n: int):
+            self._queue_limit = n
+            return self
+
+        def build(self) -> "ParallelInference":
+            return ParallelInference(
+                self._model, inference_mode=self._mode,
+                batch_limit=self._batch_limit,
+                queue_limit=self._queue_limit)
 
     @property
     def n_workers(self) -> int:
@@ -55,13 +115,20 @@ class ParallelInference:
         m = self.model
         if not x.flags.writeable:       # torch refuses read-only views
             x = np.array(x)
+        self._count_forward()
+        with torch.inference_mode():
+            acts, _ = m._forward(m.params, m.states, [m._as_input(x)])
+            return acts[m.conf.network_outputs[0]].cpu().numpy()
+
+    def _count_forward(self) -> None:
         telemetry.counter(
             "dl4j_inference_forwards_total",
             "model forwards run by ParallelInference and its batchers"
         ).inc()
-        with torch.inference_mode():
-            acts, _ = m._forward(m.params, m.states, [m._as_input(x)])
-            return acts[m.conf.network_outputs[0]].cpu().numpy()
+        # INPLACE and SEQUENTIAL run on the callers' threads; not the lock
+        # submit holds over a full queue, which the worker must drain
+        with self._forwards_lock:
+            self.forwards += 1
 
     def output(self, x) -> np.ndarray:
         self._ensure()
@@ -87,15 +154,28 @@ class ParallelInference:
 
     # -- async serving ---------------------------------------------------
     def submit(self, x) -> "concurrent.futures.Future":
-        """Enqueue one request; returns a Future of its result."""
+        """Submit one request; returns a Future of its result. BATCHED
+        queues it for the worker; INPLACE and SEQUENTIAL run it here."""
         fut: concurrent.futures.Future = concurrent.futures.Future()
+        if self.inference_mode != InferenceMode.BATCHED:
+            telemetry.counter(
+                "dl4j_inference_requests_total",
+                "requests submitted to ParallelInference").inc(
+                    mode=self.inference_mode)
+            if fut.set_running_or_notify_cancel():
+                try:
+                    fut.set_result(self.output(x))
+                except BaseException as e:       # noqa: BLE001
+                    fut.set_exception(e)
+            return fut
         self._enqueue(x, fut)
         return fut
 
     def _enqueue(self, x, fut) -> None:
         telemetry.counter(
             "dl4j_inference_requests_total",
-            "requests submitted to ParallelInference").inc()
+            "requests submitted to ParallelInference").inc(
+                mode=self.inference_mode)
         # the put happens under the lock shutdown() takes to enqueue its
         # sentinel, so no request lands behind the sentinel
         with self._lock:
@@ -121,9 +201,17 @@ class ParallelInference:
                 if first is None:
                     return
                 batch = [first]
+                # window: wait up to batch_window_ms for batch-mates;
+                # continuous: take only what is already queued
+                window = self.flush_policy == "window"
+                until = time.monotonic() + self.batch_window_ms / 1e3
                 while len(batch) < self.batch_limit:
                     try:
-                        nxt = q.get_nowait()
+                        if window:
+                            nxt = q.get(timeout=max(
+                                until - time.monotonic(), 0) or 1e-4)
+                        else:
+                            nxt = q.get_nowait()
                     except _queue.Empty:
                         break
                     if nxt is None:

@@ -9,7 +9,11 @@ completed requests; ``Retry-After`` comes from the measured drain
 rate. Per-request deadlines fail fast at admission (504) and are
 cancelled, not computed, when they expire in the batcher's queue.
 Generate requests are admitted by token cost (``admit(..., cost=)``).
-The SLO error-budget tracker is not ported yet.
+Every observed latency also feeds the process's
+:class:`~deeplearning4j_tpu_torch.serving.slo.SLOTracker` (when the model
+has an SLO) with the request's trace id as the latency histogram's
+exemplar, and a budget shrink logs the fast window's burn rate beside
+the p95 that caused it.
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ from collections import deque
 from typing import Deque, Dict, Optional
 
 from deeplearning4j_tpu_torch.common import telemetry
+from deeplearning4j_tpu_torch.serving.slo import SLOTracker
 
 log = logging.getLogger("deeplearning4j_tpu_torch")
 
@@ -110,21 +115,38 @@ class AdmissionController:
         return self._budget.get(model, self.max_queue)
 
     def observe_total(self, model: str, seconds: float,
-                      now: Optional[float] = None) -> None:
+                      now: Optional[float] = None,
+                      trace_id: Optional[str] = None) -> None:
         """Report one completed request's total latency: feeds the
-        ``dl4j_serving_total_seconds`` histogram, the drain rate behind
+        ``dl4j_serving_total_seconds`` histogram (``trace_id`` as its
+        exemplar), the SLO tracker, the drain rate behind
         ``Retry-After`` and the AIMD budget."""
         now = time.monotonic() if now is None else now
-        telemetry.histogram(
+        hist = telemetry.histogram(
             "dl4j_serving_total_seconds",
             "total submit->response latency of completed predict "
-            "requests (seconds)").observe(seconds, model=model)
+            "requests (seconds)")
+        if trace_id:
+            hist.observe_with_exemplar(seconds, {"trace_id": trace_id},
+                                       model=model)
+        else:
+            hist.observe(seconds, model=model)
+        slo_ms = self._slo_ms.get(model, self.latency_slo_ms)
+        if slo_ms is not None:
+            SLOTracker.get().observe(model, seconds, slo_ms, now=now)
         with self._lock:
             self._totals.setdefault(
                 model, deque(maxlen=self.adapt_window)).append(
                     float(seconds))
             self._done_ts.setdefault(model, deque(maxlen=512)).append(now)
+            rate = self._drain_rate_locked(model, now)
             self._adapt_locked(model)
+        if rate is not None:
+            telemetry.gauge(
+                "dl4j_serving_drain_rate_rps",
+                "measured completion rate per model over the admission "
+                "controller's sliding window (the denominator of the "
+                "derived Retry-After)").set(rate, model=model)
 
     def _adapt_locked(self, model: str) -> None:
         slo_ms = self._slo_ms.get(model, self.latency_slo_ms)
@@ -136,9 +158,19 @@ class AdmissionController:
                           int(math.ceil(0.95 * len(lats))) - 1)] * 1e3
         budget = self._budget.get(model, self.max_queue)
         if p95_ms > slo_ms:
-            budget = max(self.min_budget, int(budget * _SHRINK))
-            log.info("admission: %s budget -> %d (p95 %.1fms > SLO "
-                     "%.1fms)", model, budget, p95_ms, slo_ms)
+            shrunk = max(self.min_budget, int(budget * _SHRINK))
+            if shrunk < budget:
+                # the fast burn rate beside the shrink: why the budget
+                # dropped stays answerable afterwards
+                burn = SLOTracker.get().burn_rate(model, "fast")
+                log.info("admission: shrinking %s budget -> %d (p95 "
+                         "%.1fms > SLO %.1fms; fast burn rate %s)", model,
+                         shrunk, p95_ms, slo_ms,
+                         f"{burn:.2f}" if burn is not None else "n/a")
+                telemetry.instant("admission.shrink", model=model,
+                                  budget=shrunk, p95_ms=round(p95_ms, 3),
+                                  burn_rate_fast=burn)
+            budget = shrunk
         elif p95_ms < _REGROW_AT * slo_ms and budget < self.max_queue:
             budget += 1
         self._budget[model] = budget

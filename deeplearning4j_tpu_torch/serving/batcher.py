@@ -3,10 +3,21 @@
 Counterpart of ``deeplearning4j_tpu/serving/batcher.py`` in dense mode:
 a ``ParallelInference`` whose flushes are padded up to the nearest warm
 bucket (a batch size run once at warmup), so steady-state requests only
-ever meet shapes the device has seen. The trigger is ParallelInference's
-continuous one: the worker flushes the moment the device is free and
-takes whatever is waiting. A per-version ``RetraceGuard`` counts the
-padded shapes served; after warmup its count must not move.
+ever meet shapes the device has seen. The default trigger is
+ParallelInference's continuous one: the worker flushes the moment the
+device is free and takes whatever is waiting; ``flush_policy="window"``
+holds the first request up to ``batch_window_ms`` for batch-mates.
+Realised fill lands in ``dl4j_serving_batch_occupancy`` (live rows over
+padded rows) by model and policy. A per-version ``RetraceGuard`` counts
+the padded shapes served; after warmup its count must not move.
+
+A request may carry its
+:class:`~deeplearning4j_tpu_torch.common.tracectx.TraceContext`
+(``submit(..., ctx=)``): the flush worker, on its own thread, puts the
+request's ``queue`` (submit to flush), ``batch_wait`` (flush
+bookkeeping before the forward) and ``device`` (the forward, ending in
+the copy to the host) phases on its timeline, with the batch size and
+occupancy as notes.
 
 Requests carry an optional ``time.monotonic()`` deadline: one that
 expires while queued is cancelled with
@@ -14,7 +25,8 @@ expires while queued is cancelled with
 never computed.
 
 Model surfaces: a ComputationGraph runs its own ``_forward``; any other
-model serves through its ``output(batch)`` (the generic path). A model
+model serves through its ``output(batch)`` (the generic path: the
+registry's SameDiff adapter, a DecoderLM's logits). A model
 with the ``prefill`` / ``decode_step`` contract (``DecoderLM``) also
 gets a :class:`~deeplearning4j_tpu_torch.serving.generative.DecodeEngine`
 over a paged KV pool on the model's device: ``generate=`` configures it
@@ -60,6 +72,8 @@ class ServingBatcher(ParallelInference):
                  name: str = "model",
                  queue_limit: int = 256,
                  guard: Optional[RetraceGuard] = None,
+                 flush_policy: str = "continuous",
+                 batch_window_ms: float = 2.0,
                  generate: Optional[dict] = None):
         #: generic path: no graph ``_forward``, serve ``model.output``
         self._generic = None if hasattr(model, "_forward") \
@@ -73,7 +87,8 @@ class ServingBatcher(ParallelInference):
             raise ValueError("need at least one warmup bucket")
         self.buckets = tuple(sorted({int(b) for b in buckets}))
         super().__init__(model, batch_limit=self.buckets[-1],
-                         queue_limit=queue_limit)
+                         queue_limit=queue_limit, flush_policy=flush_policy,
+                         batch_window_ms=batch_window_ms)
         self.name = name
         self.guard = guard if guard is not None else RetraceGuard(
             f"serving:{name}", threshold=len(self.buckets) + 1)
@@ -120,6 +135,9 @@ class ServingBatcher(ParallelInference):
         self._record(padded)
         if self._generic is None:
             return self._forward_chunk(padded)[:orig]
+        self._count_forward()
+        if not padded.flags.writeable:  # torch refuses read-only views
+            padded = np.array(padded)
         out = self._generic(padded)
         if isinstance(out, torch.Tensor):
             out = out.detach().cpu().numpy()
@@ -199,17 +217,18 @@ class ServingBatcher(ParallelInference):
 
     def submit_generate(self, prompt, max_tokens: int, *,
                         temperature: float = 0.0, top_k: int = 0,
-                        deadline: Optional[float] = None):
+                        deadline: Optional[float] = None, ctx=None):
         """Enqueue a generate request; returns its
         :class:`~deeplearning4j_tpu_torch.serving.generative.TokenStream`.
         Raises ``PoolExhausted`` at once when the KV pool cannot hold the
-        prompt (shed upstream as 429 + Retry-After)."""
+        prompt (shed upstream as 429 + Retry-After). ``ctx``, the
+        request's TraceContext, rides into the decode engine."""
         engine = self._ensure_generate()
         telemetry.counter(
             "dl4j_inference_requests_total",
             "requests submitted to ParallelInference").inc(mode="generate")
         return engine.submit(prompt, max_tokens, temperature=temperature,
-                             top_k=top_k, deadline=deadline)
+                             top_k=top_k, deadline=deadline, ctx=ctx)
 
     def shutdown(self):
         if self.engine is not None:
@@ -242,14 +261,17 @@ class ServingBatcher(ParallelInference):
         return result
 
     # ------------------------------------------------------------------
-    def submit(self, x, deadline: Optional[float] = None
+    def submit(self, x, deadline: Optional[float] = None, ctx=None
                ) -> "concurrent.futures.Future":
         """Enqueue one request; ``deadline`` is an absolute
-        ``time.monotonic()`` instant past which it must not be
-        computed."""
+        ``time.monotonic()`` instant past which it must not be computed;
+        ``ctx`` is the request's TraceContext, carried on the Future to
+        the flush worker."""
         fut: concurrent.futures.Future = concurrent.futures.Future()
         if deadline is not None:
             fut._serving_deadline = float(deadline)
+        if ctx is not None:
+            fut._trace_ctx = ctx
         self._enqueue(x, fut)
         return fut
 
@@ -278,17 +300,19 @@ class ServingBatcher(ParallelInference):
         if not live:
             return
         lat = _latency()
+        rows = sum(int(np.asarray(x).shape[0]) for x, _, _ in live)
+        occupancy = rows / max(1, self._padded_rows(rows))
         if telemetry.enabled():
             for _, _, t in live:
                 lat.observe(now - t, model=self.name, stage="queue")
-            rows = sum(int(np.asarray(x).shape[0]) for x, _, _ in live)
             telemetry.histogram(
                 "dl4j_serving_batch_occupancy",
-                "live rows / bucket-padded rows per serving flush",
+                "live rows / bucket-padded rows per serving flush, by "
+                "model and flush policy (decode steps: policy=decode)",
                 buckets=telemetry.RATIO_BUCKETS).observe(
-                    rows / max(1, self._padded_rows(rows)),
-                    model=self.name)
+                    occupancy, model=self.name, policy=self.flush_policy)
         t0 = time.perf_counter()
+        t_dev0 = time.monotonic()
         try:
             with telemetry.span("serving.flush", model=self.name,
                                 requests=len(live)):
@@ -297,9 +321,16 @@ class ServingBatcher(ParallelInference):
             for _, f, _ in live:
                 f.set_exception(e)
             return
+        t_dev1 = time.monotonic()
         lat.observe(time.perf_counter() - t0, model=self.name,
                     stage="compute")
         end = time.monotonic()
         for (_, f, t), o in zip(live, outs):
             lat.observe(end - t, model=self.name, stage="total")
+            ctx = getattr(f, "_trace_ctx", None)
+            if ctx is not None:
+                ctx.phase_at("queue", t, now)
+                ctx.phase_at("batch_wait", now, t_dev0)
+                ctx.phase_at("device", t_dev0, t_dev1)
+                ctx.note(batch=len(live), occupancy=round(occupancy, 3))
             f.set_result(o)

@@ -169,10 +169,11 @@ class _Sequence:
     """Engine-internal live-sequence state."""
 
     __slots__ = ("seq_id", "stream", "next_token", "position", "generated",
-                 "max_tokens", "temperature", "top_k", "deadline", "t_last")
+                 "max_tokens", "temperature", "top_k", "deadline", "t_last",
+                 "ctx")
 
     def __init__(self, seq_id, stream, next_token, position, max_tokens,
-                 temperature, top_k, deadline, t_last):
+                 temperature, top_k, deadline, t_last, ctx=None):
         self.seq_id = seq_id
         self.stream = stream
         self.next_token = int(next_token)   # fed to the next step
@@ -183,6 +184,7 @@ class _Sequence:
         self.top_k = int(top_k)
         self.deadline = deadline
         self.t_last = t_last                # last token emit instant
+        self.ctx = ctx                      # the request's TraceContext
 
 
 class DecodeEngine:
@@ -323,12 +325,16 @@ class DecodeEngine:
         return self.pool.blocks_for(int(prompt_len) + int(max_tokens))
 
     def submit(self, prompt, max_tokens: int, *, temperature: float = 0.0,
-               top_k: int = 0, deadline: Optional[float] = None
-               ) -> TokenStream:
+               top_k: int = 0, deadline: Optional[float] = None,
+               ctx=None) -> TokenStream:
         """Enqueue a generate request; returns its token stream. The
         prompt's KV blocks are allocated here, so
         :class:`~deeplearning4j_tpu_torch.serving.kvcache.PoolExhausted`
-        (HTTP 429 upstream) raises before the caller streams anything."""
+        (HTTP 429 upstream) raises before the caller streams anything.
+        ``ctx``, the request's TraceContext, rides the pending entry: the
+        engine thread puts the request's ``queue`` and ``device``
+        (prefill) phases and a ``req.inter_token`` instant a decoded
+        token on its timeline."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size < 1:
             raise ValueError("prompt must carry at least one token")
@@ -346,7 +352,7 @@ class DecodeEngine:
             self._ensure_worker()
             self._pending.put((seq_id, prompt, max_tokens,
                                float(temperature), int(top_k), deadline,
-                               stream, time.monotonic()))
+                               stream, time.monotonic(), ctx))
         self._work.set()
         return stream
 
@@ -405,16 +411,18 @@ class DecodeEngine:
                 return admitted
             admitted = True
             (seq_id, prompt, max_tokens, temperature, top_k, deadline,
-             stream, t_submit) = item
+             stream, t_submit, ctx) = item
             if stream.cancelled or (deadline is not None
                                     and time.monotonic() >= deadline):
                 self.pool.free(seq_id)
+                if ctx is not None:
+                    ctx.phase_at("queue", t_submit, time.monotonic())
                 self._finish(stream,
                              "cancelled" if stream.cancelled else "deadline")
                 continue
             try:
                 self._prefill_one(seq_id, prompt, max_tokens, temperature,
-                                  top_k, deadline, stream, t_submit)
+                                  top_k, deadline, stream, t_submit, ctx)
             except Exception as e:  # the stream carries it to its reader
                 self.pool.free(seq_id)
                 self._finish(stream, "error", e)
@@ -426,7 +434,11 @@ class DecodeEngine:
         return n                    # longer than every bucket: its own shape
 
     def _prefill_one(self, seq_id, prompt, max_tokens, temperature, top_k,
-                     deadline, stream, t_submit):
+                     deadline, stream, t_submit, ctx=None):
+        t_prefill = time.monotonic()
+        if ctx is not None:
+            # the engine-side queue phase: submit to prefill start
+            ctx.phase_at("queue", t_submit, t_prefill)
         t = self._prompt_bucket(prompt.size)
         tokens = np.zeros((1, t), np.int32)
         tokens[0, :prompt.size] = prompt
@@ -447,6 +459,13 @@ class DecodeEngine:
                                          temperature, top_k)
         now = time.monotonic()
         _ttft_hist().observe(now - t_submit, model=self.name)
+        if ctx is not None:
+            # prefill, K/V commit and the first token's sample are this
+            # request's device phase (decode steps are shared by the live
+            # batch: instants a token instead)
+            ctx.phase_at("device", t_prefill, now)
+            ctx.note(kv_blocks=len(self.pool.table(seq_id)),
+                     prompt_tokens=int(prompt.size))
         stream._put(first)
         _tokens_counter().inc(model=self.name)
         eos = self.model.conf.eos_id
@@ -456,7 +475,7 @@ class DecodeEngine:
             return
         self._live[seq_id] = _Sequence(
             seq_id, stream, first, int(prompt.size), max_tokens,
-            temperature, top_k, deadline, now)
+            temperature, top_k, deadline, now, ctx)
         _live_gauge().set(len(self._live), model=self.name)
 
     def _decode_bucket(self, n: int) -> int:
@@ -528,15 +547,19 @@ class DecodeEngine:
         if telemetry.enabled():
             telemetry.histogram(
                 "dl4j_serving_batch_occupancy",
-                "live rows / bucket-padded rows per serving flush",
+                "live rows / bucket-padded rows per serving flush, by "
+                "model and flush policy (decode steps: policy=decode)",
                 buckets=telemetry.RATIO_BUCKETS).observe(
-                    len(seqs) / max(1, b), model=self.name)
+                    len(seqs) / max(1, b), model=self.name, policy="decode")
         now = time.monotonic()
         eos = self.model.conf.eos_id
         for i, seq in enumerate(seqs):
             tok = int(ids[i])
             seq.stream._put(tok)
             _tokens_counter().inc(model=self.name)
+            if seq.ctx is not None:
+                seq.ctx.instant("inter_token", index=seq.generated,
+                                gap_ms=round((now - seq.t_last) * 1e3, 3))
             _intertoken_hist().observe(now - seq.t_last, model=self.name)
             seq.t_last = now
             seq.position += 1

@@ -25,6 +25,23 @@ Endpoints:
   stream. The time to the first token feeds the admission controller.
 - ``GET /v1/models``, ``GET /healthz``, ``GET /readyz``,
   ``GET /metrics`` (Prometheus text).
+- ``GET /api/slo``: each model's in-SLO fraction, burn rates and
+  remaining error budget (``SLOTracker.report``).
+- ``GET /api/reqrec?n=``: the request flight recorder's last ``n``
+  records (default 100); ``POST /api/reqrec/dump`` writes its dump.
+
+Request observatory: each ``:predict`` and ``:generate`` gets a
+:class:`~deeplearning4j_tpu_torch.common.tracectx.TraceContext` at
+ingress (its id minted, or adopted from ``X-Dl4j-Trace-Id``, and echoed
+on the response). The ``admit`` and ``serialize`` phases are timed here,
+the ``queue`` / ``batch_wait`` / ``device`` phases by the batcher or the
+decode engine, plus a ``req.ttft`` instant and the ``stream`` phase for a
+generate; the ``request`` root span closes with the verdict. The total
+latency carries the trace id as its histogram exemplar, every verdict
+(200, 429, 499, 503, 504, 500) is recorded in the
+:class:`~deeplearning4j_tpu_torch.serving.reqrec.RequestRecorder` ring,
+and every shed feeds its storm detector. ``DL4J_TORCH_REQUEST_TRACE=0``
+turns all of it off.
 
 Status mapping: shed -> 429 + ``Retry-After``; draining -> 503;
 deadline expired -> 504; unknown model -> 404; bad body, or a model
@@ -42,19 +59,53 @@ from typing import Optional
 
 import numpy as np
 
-from deeplearning4j_tpu_torch.common import telemetry
+from deeplearning4j_tpu_torch.common import telemetry, tracectx
 from deeplearning4j_tpu_torch.common.httputil import (QuietHandler,
                                                       npy_header, npy_view,
                                                       start_http_server)
+from deeplearning4j_tpu_torch.serving import reqrec
 from deeplearning4j_tpu_torch.serving.admission import (AdmissionController,
                                                         DeadlineExceeded,
                                                         ShedError,
                                                         deadline_after_ms)
 from deeplearning4j_tpu_torch.serving.registry import ModelRegistry
+from deeplearning4j_tpu_torch.serving.slo import SLOTracker
 
 _PREDICT_RE = re.compile(r"^/v1/models/([^/:]+):predict$")
 _GENERATE_RE = re.compile(r"^/v1/models/([^/:]+):generate$")
 _NPY_TYPES = ("application/octet-stream", "application/x-npy")
+
+
+def query_int(path: str, key: str, default: int) -> int:
+    """``?key=N`` of a request path (``default`` when absent or not an
+    integer)."""
+    from urllib.parse import parse_qs, urlsplit
+    try:
+        vals = parse_qs(urlsplit(path).query).get(key)
+        return int(vals[0]) if vals else default
+    except (ValueError, TypeError, IndexError):
+        return default
+
+
+def observatory_get(handler: QuietHandler) -> bool:
+    """Answer ``GET /api/slo`` and ``GET /api/reqrec`` (the process's
+    tracker and recorder, which in-process replicas share); False for
+    any other path."""
+    if handler.path == "/api/slo":
+        handler.send_json(SLOTracker.get().report())
+    elif handler.path.split("?")[0] == "/api/reqrec":
+        n = query_int(handler.path, "n", 100)
+        handler.send_json({"requests": reqrec.get().records(n)})
+    else:
+        return False
+    return True
+
+
+def reqrec_dump(handler: QuietHandler) -> None:
+    """``POST /api/reqrec/dump``: 200 with the dump's path, 503 when the
+    recorder is off or the write failed."""
+    path = reqrec.get().dump("api")
+    handler.send_json({"path": path}, 200 if path else 503)
 
 
 class InferenceServer:
@@ -91,7 +142,7 @@ class InferenceServer:
                                    "text/plain", 200 if ok else 503)
                 elif self.path == "/metrics":
                     self.send_metrics()
-                else:
+                elif not observatory_get(self):
                     self.send_json({"error": "not found"}, 404)
 
             def do_POST(self):              # noqa: N802
@@ -102,6 +153,9 @@ class InferenceServer:
                 g = _GENERATE_RE.match(self.path)
                 if g:
                     server._generate(self, g.group(1))
+                    return
+                if self.path == "/api/reqrec/dump":
+                    reqrec_dump(self)
                     return
                 self.send_json({"error": "not found"}, 404)
 
@@ -132,14 +186,36 @@ class InferenceServer:
         return f"http://{host}:{self.port}"
 
     # ------------------------------------------------------------------
+    def _finish_request(self, ctx, verdict) -> None:
+        """Close a request's trace (the root span, with its verdict) and
+        append it to the flight recorder's ring."""
+        if not ctx:
+            return
+        ctx.finish(verdict)
+        reqrec.get().record(ctx, verdict,
+                            queue_depth=self.admission.inflight(ctx.model))
+
     def _predict(self, handler: QuietHandler, name: str):
+        ctx = tracectx.start(name, "predict",
+                             handler.headers.get(tracectx.TRACE_HEADER))
+        handler._trace_id = ctx.trace_id if ctx else None
+        with tracectx.bind(ctx):
+            self._predict_traced(handler, name, ctx)
+
+    def _predict_traced(self, handler: QuietHandler, name: str, ctx):
         counted = telemetry.counter(
             "dl4j_serving_requests_total",
             "predict requests by model and HTTP status code")
+        trace_headers = ({tracectx.TRACE_HEADER: ctx.trace_id}
+                         if ctx else {})
 
         def finish_json(obj, code, headers=None):
             counted.inc(model=name, code=str(code))
-            handler.send_json(obj, code, headers)
+            hdrs = dict(trace_headers)
+            hdrs.update(headers or {})
+            with ctx.phase("serialize"):
+                handler.send_json(obj, code, hdrs or None)
+            self._finish_request(ctx, code)
 
         try:
             version = self.registry.model(name)
@@ -174,9 +250,11 @@ class InferenceServer:
             float(deadline_ms) if deadline_ms is not None else None)
         t_start = time.monotonic()
         try:
-            self.admission.admit(name, deadline)
+            with ctx.phase("admit"):
+                self.admission.admit(name, deadline)
             try:
-                fut = version.batcher.submit(x, deadline=deadline)
+                fut = version.batcher.submit(x, deadline=deadline,
+                                             ctx=ctx or None)
                 timeout = (float(deadline_ms) / 1e3 + 1.0
                            if deadline_ms is not None
                            else self.request_timeout_s)
@@ -191,6 +269,7 @@ class InferenceServer:
             finish_json({"error": str(e)}, 504)
             return
         except ShedError as e:
+            reqrec.get().note_shed(name, e.reason)
             finish_json({"error": str(e), "reason": e.reason},
                         503 if e.reason == "draining" else 429,
                         {"Retry-After":
@@ -202,14 +281,18 @@ class InferenceServer:
         except Exception as e:          # the model raised during compute
             finish_json({"error": f"inference failed: {e}"}, 500)
             return
-        self.admission.observe_total(name, time.monotonic() - t_start)
+        self.admission.observe_total(name, time.monotonic() - t_start,
+                                     trace_id=ctx.trace_id if ctx else None)
         if raw:
             out_arr = np.ascontiguousarray(out)
             counted.inc(model=name, code="200")
-            handler.send_body_parts(
-                [npy_header(out_arr), memoryview(out_arr)],
-                "application/octet-stream",
-                headers={"X-Model-Version": str(version.version)})
+            hdrs = {"X-Model-Version": str(version.version)}
+            hdrs.update(trace_headers)
+            with ctx.phase("serialize"):
+                handler.send_body_parts(
+                    [npy_header(out_arr), memoryview(out_arr)],
+                    "application/octet-stream", headers=hdrs)
+            self._finish_request(ctx, 200)
         else:
             finish_json({"outputs": np.asarray(out).tolist(),
                          "model": name, "version": version.version,
@@ -217,14 +300,27 @@ class InferenceServer:
 
     # ------------------------------------------------------------------
     def _generate(self, handler: QuietHandler, name: str):
+        ctx = tracectx.start(name, "generate",
+                             handler.headers.get(tracectx.TRACE_HEADER))
+        handler._trace_id = ctx.trace_id if ctx else None
+        with tracectx.bind(ctx):
+            self._generate_traced(handler, name, ctx)
+
+    def _generate_traced(self, handler: QuietHandler, name: str, ctx):
         """``POST /v1/models/<name>:generate`` (see the module doc)."""
         counted = telemetry.counter(
             "dl4j_serving_requests_total",
             "predict requests by model and HTTP status code")
+        trace_headers = ({tracectx.TRACE_HEADER: ctx.trace_id}
+                         if ctx else {})
 
         def finish_json(obj, code, headers=None):
             counted.inc(model=name, code=str(code))
-            handler.send_json(obj, code, headers)
+            hdrs = dict(trace_headers)
+            hdrs.update(headers or {})
+            with ctx.phase("serialize"):
+                handler.send_json(obj, code, hdrs or None)
+            self._finish_request(ctx, code)
 
         try:
             version = self.registry.model(name)
@@ -257,12 +353,14 @@ class InferenceServer:
         cost = version.batcher.generate_cost(len(prompt), max_tokens)
         tokens_out, idx = [], 0
         headers_sent = False
+        t_first = None
         try:
-            self.admission.admit(name, deadline, cost=cost)
+            with ctx.phase("admit"):
+                self.admission.admit(name, deadline, cost=cost)
             try:
                 stream = version.batcher.submit_generate(
                     prompt, max_tokens, temperature=temperature,
-                    top_k=top_k, deadline=deadline)
+                    top_k=top_k, deadline=deadline, ctx=ctx or None)
                 try:
                     while True:
                         tok = stream.next(timeout=self.request_timeout_s)
@@ -270,14 +368,19 @@ class InferenceServer:
                             break
                         if idx == 0:
                             # time to the first token feeds the admission
-                            # controller (drain rate, AIMD budget)
+                            # controller (drain rate, AIMD budget, SLO)
+                            t_first = time.monotonic()
                             self.admission.observe_total(
-                                name, time.monotonic() - t_start)
+                                name, t_first - t_start,
+                                trace_id=ctx.trace_id if ctx else None)
+                            ctx.instant("ttft", ms=round(
+                                (t_first - t_start) * 1e3, 3))
                             if streaming:
+                                hdrs = {"X-Model-Version":
+                                        str(version.version)}
+                                hdrs.update(trace_headers)
                                 handler.begin_chunks(
-                                    "application/x-ndjson",
-                                    headers={"X-Model-Version":
-                                             str(version.version)})
+                                    "application/x-ndjson", headers=hdrs)
                                 headers_sent = True
                         if streaming:
                             handler.send_chunk(json.dumps(
@@ -286,12 +389,19 @@ class InferenceServer:
                         else:
                             tokens_out.append(tok)
                         idx += 1
+                    if t_first is not None:
+                        # the stream phase: first token to stream end
+                        ctx.phase_at("stream", t_first, time.monotonic())
                 except OSError:
                     # the client went away mid-stream: cancel, so the
                     # engine retires the sequence and frees its blocks
                     stream.cancel()
                     counted.inc(model=name, code="499")
                     handler.close_connection = True
+                    if t_first is not None:
+                        ctx.phase_at("stream", t_first, time.monotonic())
+                    ctx.note(tokens=idx)
+                    self._finish_request(ctx, 499)
                     return
                 except Exception:
                     stream.cancel()
@@ -301,13 +411,16 @@ class InferenceServer:
         except DeadlineExceeded as e:
             if headers_sent:
                 handler.abort_chunks()
+                self._finish_request(ctx, 504)
             else:
                 finish_json({"error": str(e)}, 504)
             return
         except ShedError as e:
+            reqrec.get().note_shed(name, e.reason)
             code = 503 if e.reason == "draining" else 429
             if headers_sent:
                 handler.abort_chunks()
+                self._finish_request(ctx, code)
             else:
                 finish_json({"error": str(e), "reason": e.reason}, code,
                             {"Retry-After":
@@ -318,9 +431,11 @@ class InferenceServer:
             # client error, not a wedged connection); before: a 500
             if headers_sent:
                 handler.abort_chunks()
+                self._finish_request(ctx, 500)
             else:
                 finish_json({"error": f"generate failed: {e}"}, 500)
             return
+        ctx.note(tokens=idx)
         if not headers_sent and streaming:
             # closed before the first token (e.g. its deadline passed in
             # the prefill queue)
@@ -329,11 +444,13 @@ class InferenceServer:
                                   f"token ({stream.reason})"}, code)
             return
         if streaming:
-            handler.send_chunk(json.dumps(
-                {"done": True, "reason": stream.reason,
-                 "tokens": idx}).encode() + b"\n")
-            handler.end_chunks()
+            with ctx.phase("serialize"):
+                handler.send_chunk(json.dumps(
+                    {"done": True, "reason": stream.reason,
+                     "tokens": idx}).encode() + b"\n")
+                handler.end_chunks()
             counted.inc(model=name, code="200")
+            self._finish_request(ctx, 200)
         else:
             finish_json({"tokens": tokens_out, "reason": stream.reason,
                          "model": name, "version": version.version}, 200)
