@@ -363,7 +363,25 @@ Phases, each of which fails the run (exit 1) when its check fails:
     ``sd.output`` of the same padded batch (deterministic algorithms, TF32
     off; no kernel of ``csrc/``).
 
-After phase 23, ``ticket_pool_check``: kernels 3 and 5 captured into
+Phase 24 (``phase_sd_rest``) finishes SameDiff on BASELINE #4's
+imported BERT-base (``SD_BERT``, batch 32, t=128, Adam(5e-4)): (a)
+``fit_steps(mesh=)`` on two gloo ranks (one process each, 16 rows each)
+under the dense, fsdp and encoded (threshold) exchanges, 3 steps each,
+on a batch whose ignored MLM labels differ by shard, then a one-rank
+NCCL group: 12 launches of kernels 7-9 a step on each rank, the ranks
+bitwise equal, step 1's loss the one-process global loss within 1e-5,
+the dense and fsdp step-1 updates held against a float64 step as
+``_hold_rank`` holds phase 19's, the NCCL rank bitwise the one-process
+``fit_steps``; ms a step and bytes a rank by exchange; (b) the forward
+exported (``to_stablehlo``: 12 calls of ``dl4j::flash_fwd``, no
+softmax; ``export_serialized`` / ``deserialize_and_call``: 12 launches
+of kernel 7, equal to ``output``; a dropout program reseeded per call
+equal to the walk's ``RngKey(s)``); (c) an attention ``SameDiffLayer``
+in a ComputationGraph trained 10 steps (one launch of kernels 7-9 a
+step, the loss falls, a step within the card-vs-CPU bars, the zip
+round trip bitwise).
+
+After phase 24, ``ticket_pool_check``: kernels 3 and 5 captured into
 CUDA graphs that take 1.5 x their ticket pool, each graph destroyed
 after it, then launched eagerly and under a new graph to the same bits.
 
@@ -7650,6 +7668,675 @@ def _fleet_samediff(torch, sd, image: int, device: str) -> dict:
             os.environ["CUBLAS_WORKSPACE_CONFIG"] = prev[3]
 
 
+# ---------------------------------------------------------------------------
+#: phase 24: the rest of SameDiff on the imported BERT-base (SD_BERT): two
+#: gloo ranks and a one-rank NCCL group, the exported program, and an
+#: attention SameDiffLayer inside a ComputationGraph
+SD_DP_WORLD = 2
+SD_DP_STEPS = 3
+SD_DP_EXCHANGES = ("dense", "fsdp", "encoded")
+SD_DP_WORK = ROOT / "build" / "sd_dp"
+#: an exported program's output against SameDiff.output on the same
+#: inputs (bitwise expected: the same kernels on the same operands)
+SD_EXPORT_RTOL, SD_EXPORT_ATOL = 2e-5, 1e-6
+SD_LAYER_STEPS = 10
+SD_DROPOUT_SEEDS = (5, 6)
+
+
+def sd_dp_batch(torch, batch: int, t: int, vocab: int, n_pred: int,
+                device: str) -> dict:
+    """``sd_bert_batch``'s MLM batch with ignored labels (-1) that differ
+    by shard: the first half of the rows keeps a quarter of its
+    predictions, the second half all of them, so the mean of the
+    shards' loss ratios is not the global ratio."""
+    b = sd_bert_batch(torch, torch.Generator().manual_seed(61), batch, t,
+                      vocab, "cpu", n_pred)
+    labels = b["mlm_labels"].clone()
+    labels[:batch // 2, max(1, n_pred // 4):] = -1
+    b["mlm_labels"] = labels
+    return {k: v.to(device) for k, v in b.items()}
+
+
+def _sd_import(nodes, batch: int, t: int, n_pred: int, dims: dict,
+               device: str, dtype=None):
+    from deeplearning4j_tpu_torch.learning.updaters import Adam
+    from deeplearning4j_tpu_torch.modelimport.tensorflow.bert_graph import \
+        import_and_attach_mlm
+    return import_and_attach_mlm(
+        nodes, batch, t, vocab=dims["vocab"], hidden=dims["hidden"],
+        updater=Adam(5e-4), dtype=dtype, max_predictions=n_pred,
+        device=device)[0]
+
+
+def _sd_var_names(sd) -> list:
+    return [n for n, v in sd.vars.items() if v.var_type.value == "VARIABLE"]
+
+
+def _sd_digest(torch, sd, names) -> str:
+    """A digest of the variables' bits, in name order: each variable's
+    32-bit words summed plain and weighted by position, on the device."""
+    import hashlib
+    h = hashlib.sha256()
+    for n in sorted(names):
+        t = sd._arrays[n].detach().contiguous().reshape(-1)
+        w = t.view(torch.int32).to(torch.int64)
+        pos = torch.arange(w.numel(), device=w.device) % 65521 + 1
+        h.update(f"{n}:{int(w.sum())}:{int((w * pos).sum())};".encode())
+    return h.hexdigest()
+
+
+def _sd_reset(sd, p0: dict, device: str) -> None:
+    """The graph back at its imported weights, with no updater state,
+    iteration 0 and its first random key: a fresh import's state."""
+    from deeplearning4j_tpu_torch.common.rng import RngKey
+    for n, t in p0.items():
+        sd._arrays[n] = t.to(device, copy=True)
+    sd._updater_state = None
+    sd.iteration_count = 0
+    sd._rng = RngKey(0)
+
+
+def _sd_rank_bytes(sd, names, mode: str, world: int, sparsity=None
+                   ) -> dict:
+    """A rank's resident parameter and updater-state bytes under the
+    exchange (Adam: two moments; the encoded residual beside them), and
+    its wire bytes a step (``zero.exchange_report``, the ring model)."""
+    from deeplearning4j_tpu_torch.parallel import zero
+    params = {n: sd._arrays[n] for n in names}
+    p = sum(t.numel() * t.element_size() for t in params.values())
+    flat = mode != "dense"
+    rep = zero.exchange_report(params, world, mode,
+                               encoding="threshold" if mode == "encoded"
+                               else None, observed_sparsity=sparsity)
+    return {"param_bytes": p // world if mode == "fsdp" else p,
+            "state_bytes": (2 * p) // (world if flat else 1)
+            + (p // world if mode == "encoded" else 0),
+            "wire_bytes_per_step": rep["wire_bytes_per_replica"]}
+
+
+def sd_dp_rank_main(work: str, rank: int, world: int, backend: str,
+                    dims_json: str, batch: int, t: int,
+                    device: str = "cuda") -> None:
+    """One rank of phase 24 (a), its own process: the imported BERT
+    takes SD_DP_STEPS ``fit_steps(mesh=)`` steps on the global batch
+    under each of SD_DP_EXCHANGES, from the same weights each time; the
+    launches, losses, step times, digests of the variables after each
+    step and bytes go to ``work``, and rank 0's variables after step 1
+    of the dense and fsdp runs too."""
+    import torch
+    sys.path.insert(0, str(ROOT))
+    from deeplearning4j_tpu_torch.modelimport.tensorflow.protobuf import \
+        parse_graphdef
+    from deeplearning4j_tpu_torch.parallel.mesh import ProcessGroupMesh
+    dims = json.loads(dims_json)
+    nodes = parse_graphdef(Path(work, "bert.pb").read_bytes())
+    b = {k: v.to(device) for k, v in
+         torch.load(Path(work, "batch.pt")).items()}
+    n_pred = int(b["mlm_labels"].shape[1])
+    mesh = ProcessGroupMesh(f"file://{work}/store", world, rank,
+                            device=device, backend=backend, timeout_s=300)
+    out = {"backend": mesh.backend}
+    sd = _sd_import(nodes, batch, t, n_pred, dims, device)
+    names = _sd_var_names(sd)
+    p0 = {n: sd._arrays[n].clone() for n in names}
+    try:
+        for ex in SD_DP_EXCHANGES:
+            _sd_reset(sd, p0, device)
+            r = {"losses": [], "step_ms": [], "digests": []}
+            _zero_counts()
+            for s in range(SD_DP_STEPS):
+                _sync(torch, device)
+                t0 = time.perf_counter()
+                r["losses"].append(sd.fit_steps(
+                    b, 1, mesh=mesh, update_exchange=ex,
+                    encoding="threshold" if ex == "encoded" else None))
+                _sync(torch, device)
+                r["step_ms"].append((time.perf_counter() - t0) * 1e3)
+                if s == 0:
+                    r["launches_step1"] = _flash_counts()
+                r["digests"].append(_sd_digest(torch, sd, names))
+                if s == 0 and rank == 0 and ex != "encoded":
+                    torch.save({n: sd._arrays[n].cpu() for n in names},
+                               Path(work, f"step1_{ex}.pt"))
+            r["launches"] = _flash_counts()
+            sparsity = None
+            from deeplearning4j_tpu_torch.learning.updaters import \
+                ENCODED_KEY
+            enc = (sd._updater_state or {}).get(ENCODED_KEY)
+            if enc is not None:
+                sparsity = float(enc["sparsity"])
+                r["tau"] = float(enc["tau"])
+            r["sparsity"] = sparsity
+            r["bytes"] = _sd_rank_bytes(sd, names, ex, world, sparsity)
+            out[ex] = r
+    finally:
+        mesh.shutdown()
+    torch.save(out, Path(work, f"rank{rank}.pt"))
+
+
+def _run_sd_ranks(world: int, backend: str, dims: dict, batch: int, t: int,
+                  device: str) -> list:
+    """The ranks of phase 24 (a), each its own process, waited for with
+    a limit."""
+    import torch
+    procs = [subprocess.Popen(
+        [sys.executable, "-c",
+         f"import chip_smoke as c; c.sd_dp_rank_main("
+         f"{str(SD_DP_WORK)!r}, {r}, {world}, {backend!r}, "
+         f"{json.dumps(dims)!r}, {batch}, {t}, {device!r})"],
+        cwd=str(ROOT), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0, f"rank {r} of the {backend} group exited "
+                                 f"{p.returncode}:\n{log[-4000:]}")
+    return [torch.load(SD_DP_WORK / f"rank{r}.pt") for r in range(world)]
+
+
+def _sd_update_err(torch, got: dict, ref: dict, p0: dict) -> tuple:
+    """The worst variable's distance from ``ref`` in norm over the norm
+    of ``ref``'s update from ``p0`` (floored at BERT_UPDATE_FLOOR of the
+    largest update: the key bias's gradient is exactly zero), and its
+    name."""
+    floor = BERT_UPDATE_FLOOR * max(
+        float((ref[n].double() - p0[n].double()).norm()) for n in p0)
+    errs = {n: float((got[n].double() - ref[n].double()).norm()
+                     / (ref[n].double() - p0[n].double()).norm()
+                     .clamp_min(floor)) for n in p0}
+    worst = max(errs, key=errs.get)
+    return errs[worst], worst
+
+
+def sd_attention_layer_conf(vocab: int, hidden: int, heads: int, t: int,
+                            updater, classes: int = 8,
+                            dtype: str = "float32"):
+    """Token embedding -> an attention SameDiffLayer (its graph
+    ``sd.nn.multi_head_dot_product_attention`` with the features mask as
+    the key mask) -> a mean-pooling SameDiffOutputLayer with a softmax
+    head, built with GraphBuilder."""
+    from deeplearning4j_tpu_torch.nn.conf.builders import \
+        NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.conf.layers_recurrent import \
+        EmbeddingSequenceLayer
+    return (NeuralNetConfiguration.Builder().seed(24).updater(updater)
+            .data_type(dtype).graph_builder()
+            .add_inputs("tokens").set_input_types(InputType.recurrent(1, t))
+            .add_layer("emb", EmbeddingSequenceLayer(n_in=vocab,
+                                                     n_out=hidden),
+                       "tokens")
+            .add_layer("att", SDSelfAttention(heads=heads), "emb")
+            .add_layer("out", SDPooledHead(n_out=classes), "att")
+            .set_outputs("out").build())
+
+
+def _sd_layer_classes():
+    """The phase's SameDiff layer classes, registered for the zip round
+    trip (defined once, at first use)."""
+    global SDSelfAttention, SDPooledHead
+    if "SDSelfAttention" in globals():
+        return
+    from dataclasses import dataclass
+
+    from deeplearning4j_tpu_torch.activations import Activation
+    from deeplearning4j_tpu_torch.lossfunctions import LossFunction
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.conf.layers import register_layer
+    from deeplearning4j_tpu_torch.nn.conf.layers_samediff import (
+        SameDiffLayer, SameDiffOutputLayer)
+
+    @register_layer
+    @dataclass
+    class SDSelfAttention(SameDiffLayer):
+        """Projected self-attention over ``[b, t, n_in]``, the features
+        mask as the key mask."""
+
+        heads: int = 12
+
+        def define_parameters(self):
+            return {k: (self.n_in, self.n_in)
+                    for k in ("Wq", "Wk", "Wv", "Wo")}
+
+        def define_layer(self, sd, layer_input, params, mask):
+            return sd.nn.multi_head_dot_product_attention(
+                layer_input, params["Wq"], params["Wk"], params["Wv"],
+                params["Wo"], self.heads, mask)
+
+        def set_n_in(self, input_type, override):
+            if override or not self.n_in:
+                self.n_in = self.n_out = input_type.size
+
+        def get_output_type(self, input_type):
+            return InputType.recurrent(self.n_out, input_type.timesteps)
+
+    @register_layer
+    @dataclass
+    class SDPooledHead(SameDiffOutputLayer):
+        """The mean over time, then a dense softmax head."""
+
+        loss_function: LossFunction = LossFunction.MCXENT
+        activation: Activation = Activation.SOFTMAX
+
+        def define_parameters(self):
+            return {"W": (self.n_in, self.n_out), "b": (self.n_out,)}
+
+        def define_layer(self, sd, layer_input, params):
+            pooled = sd.math.reduce_mean(layer_input, axis=1)
+            return pooled.mmul(params["W"]) + params["b"]
+
+        def set_n_in(self, input_type, override):
+            if override or not self.n_in:
+                self.n_in = input_type.size
+
+    globals().update(SDSelfAttention=SDSelfAttention,
+                     SDPooledHead=SDPooledHead)
+
+
+def sd_layer_batch(torch, g, batch: int, t: int, vocab: int,
+                   classes: int = 8):
+    ids, mask, _ = attention_batch(torch, g, batch, t, vocab)
+    labels = torch.nn.functional.one_hot(
+        torch.randint(0, classes, (batch,), generator=g), classes).float()
+    return ids, mask, labels
+
+
+def sd_layer_card_vs_cpu(torch, device: str = "cuda", batch: int = 2
+                         ) -> dict:
+    """One Sgd(0.1) step of phase 24 (c)'s network at full width on the
+    card and on the CPU (the flash gate forced: the kernels' plain
+    versions), against a float64 CPU step, TF32 off: the bars of
+    ``sd_bert_card_vs_cpu`` (loss LOSS_RTOL; each variable's update
+    within UPDATE_FACTOR x the CPU float32 step's distance from float64
+    + UPDATE_FLOOR, floored at BERT_UPDATE_FLOOR of the largest
+    update)."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.learning.updaters import Sgd
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    _sd_layer_classes()
+    V, Hd, heads, t = (ATTN[k] for k in ("vocab", "hidden", "heads", "t"))
+    conf = sd_attention_layer_conf(V, Hd, heads, t, Sgd(0.1))
+    cpu = ComputationGraph(conf).init(
+        "cpu", generator=torch.Generator().manual_seed(25))
+    p0 = _clone_params(cpu.params, "cpu")
+    card = ComputationGraph(conf).set_params(_clone_params(p0, device), {},
+                                             device)
+    cpu64 = ComputationGraph(sd_attention_layer_conf(
+        V, Hd, heads, t, Sgd(0.1), dtype="float64")).set_params(
+        {k: {n: v.double() for n, v in sub.items()} for k, sub in
+         p0.items()}, {}, "cpu")
+    ids, mask, labels = sd_layer_batch(
+        torch, torch.Generator().manual_seed(26), batch, t, V)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        card.fit(DataSet(ids.to(device), labels.to(device),
+                         features_mask=mask.to(device)))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    _with_flash_gate("1", lambda: cpu.fit(DataSet(ids, labels,
+                                                  features_mask=mask)))
+    cpu64.fit(DataSet(ids, labels, features_mask=mask))
+    check(abs(card.score() - cpu.score()) <= LOSS_RTOL * abs(cpu.score()),
+          f"SameDiff layer loss card {card.score()} vs cpu {cpu.score()}")
+    floor = BERT_UPDATE_FLOOR * max(
+        float((cpu64.params[k][n] - t0.double()).norm())
+        for k, sub in p0.items() for n, t0 in sub.items())
+
+    def dist(a, b_):
+        return float((a - b_).norm() / b_.norm().clamp_min(floor))
+
+    e_card = e_cpu = e_pair = 0.0
+    worst = ""
+    for k, sub in p0.items():
+        for n, t0 in sub.items():
+            d64 = cpu64.params[k][n] - t0.double()
+            dcard = card.params[k][n].detach().cpu().double() - t0.double()
+            dcpu = cpu.params[k][n].double() - t0.double()
+            ec, eu = dist(dcard, d64), dist(dcpu, d64)
+            check(ec <= UPDATE_FACTOR * eu + UPDATE_FLOOR,
+                  f"SameDiff layer card update of {k}/{n} {ec:.3e} from "
+                  f"the float64 step, the CPU float32 step's {eu:.3e}")
+            if ec > e_card:
+                e_card, worst = ec, f"{k}/{n}"
+            e_cpu = max(e_cpu, eu)
+            e_pair = max(e_pair, dist(dcard, dcpu))
+    print(f"[sd-rest] (c) card vs CPU, one f32 Sgd step, batch {batch} x "
+          f"{t} (TF32 off; CPU on the card's route): loss "
+          f"{card.score():.7f} vs {cpu.score():.7f} (f64 "
+          f"{cpu64.score():.7f}); worst update in norm: card vs f64 "
+          f"{e_card:.3e} ({worst}), CPU f32 vs f64 {e_cpu:.3e}, card vs "
+          f"CPU f32 {e_pair:.3e}")
+    return {"loss_card": card.score(), "loss_cpu": cpu.score(),
+            "update_card_vs_f64": e_card, "update_cpu32_vs_f64": e_cpu,
+            "update_card_vs_cpu32": e_pair, "worst": worst}
+
+
+def phase_sd_rest(torch, label: str, device: str = "cuda", dims=None,
+                  batch: int = BATCH, t: int = 128,
+                  layer_dims=None) -> dict:
+    """Phase 24: the rest of SameDiff on BASELINE #4's imported BERT-base
+    (``SD_BERT``, batch 32, t=128, weights from the seed), Adam(5e-4):
+
+    (a) ``fit_steps(mesh=)`` on two gloo ranks (16 rows each, one process
+    each) under the dense, fsdp and encoded (threshold) exchanges,
+    SD_DP_STEPS steps each, on a batch whose ignored labels differ by
+    shard; then a one-rank NCCL group in this process. Held: 12 launches
+    of kernels 7-9 a step on each rank; the ranks bitwise equal; step 1's
+    loss within LOSS_RTOL of the one-process step (the global loss); the
+    dense and fsdp step-1 updates within UPDATE_FACTOR x the one-process
+    step's distance from a float64 step (+ UPDATE_FLOOR); the NCCL rank
+    bitwise the one-process ``fit_steps``.
+    (b) the forward exported: ``to_stablehlo``'s program calls the
+    ``dl4j::flash_fwd`` op once a layer and holds no softmax;
+    ``deserialize_and_call`` on the card launches kernel 7 once a layer
+    and equals ``output`` (bitwise expected; SD_EXPORT_RTOL the bar); a
+    dropout program called with seed s equals the walk with ``RngKey(s)``
+    and another seed draws another mask.
+    (c) an attention SameDiffLayer inside a ComputationGraph trained
+    SD_LAYER_STEPS steps: one launch of kernels 7-9 a step, the loss
+    falls, one step within ``sd_layer_card_vs_cpu``'s bars, and the zip
+    round trip gives bitwise-equal outputs.
+
+    ``device="cpu"`` with small ``dims`` and ``layer_dims`` rehearses it
+    (gloo in place of NCCL; counts, timings and bytes are the card's)."""
+    t_phase = time.perf_counter()
+    # the one-process reference and the one-rank group are held bit for
+    # bit: the embedding's gradient (an index_put with accumulation) is
+    # summed by atomics unless the deterministic algorithms are on
+    was_deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        return _sd_rest(torch, label, device, dims, batch, t, layer_dims,
+                        t_phase)
+    finally:
+        torch.use_deterministic_algorithms(was_deterministic)
+
+
+def _sd_rest(torch, label, device, dims, batch, t, layer_dims, t_phase):
+    import shutil
+
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.autodiff.samediff import SameDiff
+    from deeplearning4j_tpu_torch.common.rng import RngKey
+    from deeplearning4j_tpu_torch.modelimport.tensorflow.bert_graph import \
+        build_frozen_bert
+    from deeplearning4j_tpu_torch.modelimport.tensorflow.protobuf import \
+        parse_graphdef
+    from deeplearning4j_tpu_torch.parallel.mesh import ProcessGroupMesh
+    dims = dict(dims or SD_BERT)
+    L, V = dims["layers"], dims["vocab"]
+    n_pred = min(SD_PREDICTIONS, t // 2)
+    on_card = device == "cuda"
+    res: dict = {}
+    gd = build_frozen_bert(t, batch, seed=0, **dims)
+    nodes = parse_graphdef(gd)
+    b = sd_dp_batch(torch, batch, t, V, n_pred, device)
+    valid = (b["mlm_labels"] >= 0).reshape(SD_DP_WORLD, -1).sum(1)
+    check(len(set(valid.tolist())) > 1,
+          f"the shards keep {valid.tolist()} labels: not uneven")
+    shutil.rmtree(SD_DP_WORK, ignore_errors=True)
+    SD_DP_WORK.mkdir(parents=True)
+    (SD_DP_WORK / "bert.pb").write_bytes(gd)
+    torch.save({k: v.cpu() for k, v in b.items()}, SD_DP_WORK / "batch.pt")
+    del gd
+
+    # ---- the one-process reference: 3 steps, and a float64 step 1 ----
+    sd = _sd_import(nodes, batch, t, n_pred, dims, device)
+    names = _sd_var_names(sd)
+    p0 = {n: sd._arrays[n].cpu().clone() for n in names}
+    one_losses, one_ms = [], []
+    for s in range(SD_DP_STEPS):
+        _sync(torch, device)
+        t0 = time.perf_counter()
+        one_losses.append(sd.fit_steps(b, 1))
+        _sync(torch, device)
+        one_ms.append((time.perf_counter() - t0) * 1e3)
+        if s == 0:
+            one_step1 = {n: sd._arrays[n].cpu().clone() for n in names}
+    one_final = {n: sd._arrays[n].clone() for n in names}
+    sd64 = _sd_import(nodes, batch, t, n_pred, dims, device, "float64")
+    loss64 = sd64.fit_steps(b, 1)
+    p64 = {n: sd64._arrays[n].cpu() for n in names}
+    del sd64
+    if on_card:
+        torch.cuda.empty_cache()
+    e_ref, ref_worst = _sd_update_err(torch, one_step1, p64, p0)
+    print(f"[sd-rest] one process: losses "
+          f"{[round(v, 6) for v in one_losses]}, step ms "
+          f"{[round(m, 1) for m in one_ms]}; float64 step-1 loss "
+          f"{loss64:.7f}; f32 step 1 {e_ref:.3e} from float64 "
+          f"({ref_worst}) [{label}]")
+
+    # ---- (a) two gloo ranks, then a one-rank NCCL group ----
+    t0 = time.perf_counter()
+    ranks = _run_sd_ranks(SD_DP_WORLD, "gloo", dims, batch, t, device)
+    res["gloo_wall_s"] = time.perf_counter() - t0
+    dp = {}
+    for ex in SD_DP_EXCHANGES:
+        rr = [r[ex] for r in ranks]
+        for i, r in enumerate(rr):
+            for k in FLASH_KERNELS:
+                check(r["launches"][k] == L * SD_DP_STEPS * on_card
+                      and r["launches_step1"][k] == L * on_card,
+                      f"(a) {ex} rank {i} {k}: {r['launches'][k]} launches "
+                      f"in {SD_DP_STEPS} steps, expected {L} a step")
+        check(rr[0]["digests"] == rr[1]["digests"]
+              and rr[0]["losses"] == rr[1]["losses"],
+              f"(a) {ex}: the ranks' variables or losses differ")
+        e_loss = abs(rr[0]["losses"][0] - one_losses[0]) / abs(one_losses[0])
+        check(e_loss <= LOSS_RTOL, f"(a) {ex}: step-1 loss "
+              f"{rr[0]['losses'][0]} vs one process {one_losses[0]}")
+        d = {"losses": rr[0]["losses"], "loss_rel": e_loss,
+             "step_ms": [r["step_ms"] for r in rr],
+             "median_step_ms": float(np.median(
+                 [m for r in rr for m in r["step_ms"][1:]])),
+             "launches": [r["launches"] for r in rr],
+             "bytes": rr[0]["bytes"], "sparsity": rr[0]["sparsity"],
+             "tau": rr[0].get("tau")}
+        if ex != "encoded":
+            step1 = torch.load(SD_DP_WORK / f"step1_{ex}.pt")
+            e_dp, worst = _sd_update_err(torch, step1, p64, p0)
+            e_pair, _ = _sd_update_err(torch, step1, one_step1, p0)
+            check(e_dp <= UPDATE_FACTOR * e_ref + UPDATE_FLOOR,
+                  f"(a) {ex}: step-1 update {e_dp:.3e} from float64 "
+                  f"({worst}), the one-process step's {e_ref:.3e}")
+            d.update(update_vs_f64=e_dp, update_vs_one_process=e_pair)
+            del step1
+        dp[ex] = d
+        print(f"[sd-rest] (a) {ex}, 2 gloo ranks x 16 rows: losses "
+              f"{[round(v, 6) for v in d['losses']]} (step 1 "
+              f"{e_loss:.2e} from one process); step ms "
+              f"{[[round(m, 1) for m in s] for s in d['step_ms']]}; "
+              f"update vs f64 {d.get('update_vs_f64', float('nan')):.3e} "
+              f"(one process {e_ref:.3e}), vs one process "
+              f"{d.get('update_vs_one_process', float('nan')):.3e}; bytes a "
+              f"rank {d['bytes']}; sparsity {d['sparsity']}; ranks bitwise "
+              f"equal; launches a rank {d['launches'][0]} [{label}]")
+    res["gloo"] = dp
+    # a one-rank NCCL group in this process (gloo on the CPU)
+    backend = "nccl" if on_card else "gloo"
+    mesh = ProcessGroupMesh(f"file://{SD_DP_WORK}/nccl", 1, 0,
+                            device=device, backend=backend, timeout_s=300)
+    try:
+        _sd_reset(sd, p0, device)
+        _zero_counts()
+        n_ms, n_losses = [], []
+        for _ in range(SD_DP_STEPS):
+            _sync(torch, device)
+            t0 = time.perf_counter()
+            n_losses.append(sd.fit_steps(b, 1, mesh=mesh,
+                                         update_exchange="dense"))
+            _sync(torch, device)
+            n_ms.append((time.perf_counter() - t0) * 1e3)
+        n_launches = _flash_counts()
+    finally:
+        mesh.shutdown()
+    for k in FLASH_KERNELS:
+        check(n_launches[k] == L * SD_DP_STEPS * on_card,
+              f"(a) one-rank {backend} {k}: {n_launches[k]} launches")
+    check(n_losses == one_losses and all(
+        torch.equal(sd._arrays[n], one_final[n]) for n in names),
+        f"(a) one-rank {backend} group is not bitwise the one-process "
+        f"fit_steps: losses {n_losses} vs {one_losses}")
+    res["nccl"] = {"backend": backend, "step_ms": n_ms,
+                   "median_step_ms": float(np.median(n_ms[1:])),
+                   "launches": n_launches}
+    print(f"[sd-rest] (a) one-rank {backend} group: step ms "
+          f"{[round(m, 1) for m in n_ms]} (one process "
+          f"{[round(m, 1) for m in one_ms]}); bitwise the one-process "
+          f"fit_steps; launches {n_launches} [{label}]")
+    del one_final
+    shutil.rmtree(SD_DP_WORK, ignore_errors=True)
+
+    # ---- (b) the forward exported and called back ----
+    enc = _encoder_feeds(b)
+    t0 = time.perf_counter()
+    txt = sd.to_stablehlo(enc, ["Identity"])
+    res["to_stablehlo_s"] = time.perf_counter() - t0
+    n_ops = txt.count("torch.ops.dl4j.flash_fwd.default")
+    want_ops = L if on_card else 0
+    check(n_ops == want_ops and (not on_card or "softmax" not in txt),
+          f"(b) the program calls dl4j::flash_fwd {n_ops} times (expected "
+          f"{want_ops}), softmax {'softmax' in txt}")
+    t0 = time.perf_counter()
+    blob = sd.export_serialized(enc, ["Identity"])
+    res["export_s"] = time.perf_counter() - t0
+    res["blob_bytes"] = len(blob)
+    _zero_counts()
+    t0 = time.perf_counter()
+    got = SameDiff.deserialize_and_call(blob, enc)[0]
+    _sync(torch, device)
+    res["load_and_call_s"] = time.perf_counter() - t0
+    x_launches = _flash_counts()
+    check(x_launches == {"flash_fwd": L * on_card, "flash_bwd_dq": 0,
+                         "flash_bwd_dkv": 0},
+          f"(b) one call launched {x_launches}")
+    want = sd.output(enc, ["Identity"])["Identity"]
+    res["export_bitwise"] = bool(torch.equal(got, want))
+    err = float((got - want).abs().max())
+    check(bool(torch.allclose(got, want, rtol=SD_EXPORT_RTOL,
+                              atol=SD_EXPORT_ATOL)),
+          f"(b) the loaded program vs output: max |d| {err:.3e}")
+    res["export_launches"] = x_launches
+    if on_card:
+        program = torch.export.load(io.BytesIO(blob)).module()
+        key = torch.tensor(0, dtype=torch.int64)
+        ph = {k: enc[k] for k in ("ids", "seg", "mask")}
+        with torch.no_grad():
+            res["call_ms"] = _time_ms(torch, lambda: program(ph, key),
+                                      reps=5)
+        res["output_ms"] = _time_ms(
+            torch, lambda: sd.output(enc, ["Identity"]), reps=5)
+        del program
+    del blob
+    print(f"[sd-rest] (b) to_stablehlo {res['to_stablehlo_s']:.2f}s "
+          f"({n_ops} dl4j::flash_fwd calls, no softmax); export "
+          f"{res['export_s']:.2f}s, {res['blob_bytes']} bytes; load + call "
+          f"{res['load_and_call_s']:.2f}s, launches {x_launches}; vs output"
+          f" max |d| {err:.3e} (bitwise {res['export_bitwise']}); call "
+          f"{res.get('call_ms', float('nan')):.3f} ms vs output "
+          f"{res.get('output_ms', float('nan')):.3f} ms [{label}]")
+    # a dropout program over the embeddings' sum (the encoder's first
+    # activations): a few ops of the same graph, so its export is quick
+    check("add_1" in sd.vars and tuple(sd.vars["add_1"].shape or ()) in (
+        (), (batch, t, dims["hidden"])), "(b) no embeddings' sum 'add_1'")
+    drop = sd._op("dropout", [sd.vars["add_1"]], {"rate": 0.1},
+                  name="export_dropout")
+    blob = sd.export_serialized(enc, [drop.name], training=True)
+    plan = sd._plan((drop.name,), tuple(enc))
+    var = {n: sd._arrays[n] for n in plan.variables}
+    masks = []
+    for s in SD_DROPOUT_SEEDS:
+        got = SameDiff.deserialize_and_call(blob, enc, seed=s)[0]
+        with torch.no_grad():
+            want = sd._run(plan, var, sd._placeholders(enc), [drop.name],
+                           training=True, rng=RngKey(s))[0]
+        check(bool(torch.allclose(got, want, rtol=SD_EXPORT_RTOL,
+                                  atol=SD_EXPORT_ATOL))
+              and torch.equal(got == 0, want == 0),
+              f"(b) dropout program at seed {s} vs the walk's RngKey({s})")
+        masks.append(got == 0)
+    check(not torch.equal(masks[0], masks[1]),
+          "(b) two seeds drew the same dropout mask")
+    res["dropout_bitwise"] = True
+    print(f"[sd-rest] (b) dropout 0.1 over the embeddings' sum, exported "
+          f"({len(blob)} bytes), called at seeds {SD_DROPOUT_SEEDS}: each "
+          f"the walk's RngKey(s) masks, the two masks differ")
+    del blob, sd, masks, got, want
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # ---- (c) an attention SameDiffLayer inside a ComputationGraph ----
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.learning.updaters import Adam
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.utils.serializer import ModelSerializer
+    _sd_layer_classes()
+    ld = dict(layer_dims or ATTN)
+    conf = sd_attention_layer_conf(ld["vocab"], ld["hidden"], ld["heads"],
+                                   ld["t"], Adam(1e-4))
+    net = ComputationGraph(conf).init(
+        device, generator=torch.Generator().manual_seed(24))
+    ids, mask, labels = sd_layer_batch(
+        torch, torch.Generator().manual_seed(27), batch, ld["t"],
+        ld["vocab"])
+    ds = DataSet(ids.to(device), labels.to(device),
+                 features_mask=mask.to(device))
+    _zero_counts()
+    losses, ms = [], []
+    for _ in range(SD_LAYER_STEPS):
+        _sync(torch, device)
+        t0 = time.perf_counter()
+        net.fit(ds)
+        _sync(torch, device)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(net.score())
+    l_launches = _flash_counts()
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"(c) the SameDiff layer network's loss did not fall: {losses}")
+    for k in FLASH_KERNELS:
+        check(l_launches[k] == SD_LAYER_STEPS * on_card,
+              f"(c) {k}: {l_launches[k]} launches in {SD_LAYER_STEPS} "
+              f"steps, expected 1 a step (one site)")
+    zdir = ROOT / "build" / "sd_layers"
+    zdir.mkdir(parents=True, exist_ok=True)
+    path = zdir / "sd_layers.zip"
+    ModelSerializer.write_model(net, str(path))
+    back = ModelSerializer.restore_model(path, device)
+    a = net.output(ids.to(device), mask=mask.to(device))
+    z = back.output(ids.to(device), mask=mask.to(device))
+    check(torch.equal(a, z), "(c) the restored SameDiff layer network's "
+                             "output is not bitwise equal")
+    path.unlink()
+    step_ms = float(np.median(ms[1:]))
+    res["layer"] = {"losses": losses, "step_ms": ms,
+                    "median_step_ms": step_ms,
+                    "seq_per_s": batch * 1e3 / step_ms,
+                    "launches": l_launches}
+    print(f"[sd-rest] (c) SameDiffLayer attention (H={ld['hidden']}, "
+          f"{ld['heads']} heads) in a ComputationGraph, batch {batch} x "
+          f"{ld['t']}: losses {[round(v, 5) for v in losses]}; step "
+          f"{step_ms:.3f} ms (median of steps 2-{SD_LAYER_STEPS}) = "
+          f"{res['layer']['seq_per_s']:.1f} sequences/s; launches "
+          f"{l_launches}; zip round trip bitwise [{label}]")
+    del net, back, a, z
+    if on_card:
+        res["layer"]["card_vs_cpu"] = sd_layer_card_vs_cpu(torch, device)
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(f"[sd-rest] phase 24 in {res['phase_s']:.1f}s (gloo ranks "
+          f"{res['gloo_wall_s']:.1f}s) [{label}]")
+    return res
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -7699,6 +8386,7 @@ def main() -> int:
     tl = timed("tf-lstm", phase_tf_lstm, torch, label)
     tr50 = timed("tf-resnet", phase_tf_resnet, torch, label)
     fl = timed("fleet", phase_fleet, torch, label, sd=tr50.pop("sd"))
+    sdr = timed("sd-rest", phase_sd_rest, torch, label)
     # last: past three quarters of the pool, every capture's graph holds
     # a user object
     pool = timed("ticket-pool", ticket_pool_check, torch)
@@ -7787,6 +8475,16 @@ def main() -> int:
                 sdb["f32"]["launches"][k.name]
             extra["launches_samediff_training_bf16"] = \
                 sdb["bf16"]["launches"][k.name]
+            # phase 24: SameDiff data-parallel, exported, and as a layer
+            extra["launches_samediff_phase24"] = {
+                **{f"fit_steps_gloo_{ex}_{SD_DP_STEPS}_steps_per_rank": [
+                    r_[k.name] for r_ in sdr["gloo"][ex]["launches"]]
+                   for ex in SD_DP_EXCHANGES},
+                f"fit_steps_nccl_1_rank_{SD_DP_STEPS}_steps":
+                    sdr["nccl"]["launches"][k.name],
+                "exported_forward_1_call": sdr["export_launches"][k.name],
+                f"samediff_layer_graph_{SD_LAYER_STEPS}_steps":
+                    sdr["layer"]["launches"][k.name]}
         elif k.name == "paged_decode":
             pt = pk["timing"]
             t = pt["float32_L512"]
@@ -8004,6 +8702,18 @@ def main() -> int:
           f"{fc['direct']['intertoken_ms_p50']:.3f} ms; SameDiff Keras "
           f"ResNet-50 served at 1 / 32 images in {fl['f']['ms_1']:.1f} / "
           f"{fl['f']['ms_32']:.1f} ms; phase {fl['phase_s']:.1f}s [{label}]")
+    g24 = sdr["gloo"]
+    print(f"[done] SameDiff phase 24 (imported BERT-base, batch {BATCH} x "
+          f"128): 2 gloo ranks ms a step dense / fsdp / encoded "
+          f"{g24['dense']['median_step_ms']:.1f} / "
+          f"{g24['fsdp']['median_step_ms']:.1f} / "
+          f"{g24['encoded']['median_step_ms']:.1f}, one-rank NCCL "
+          f"{sdr['nccl']['median_step_ms']:.1f}; export "
+          f"{sdr['export_s']:.2f}s ({sdr['blob_bytes']} bytes), a call "
+          f"{sdr.get('call_ms', float('nan')):.3f} ms vs output "
+          f"{sdr.get('output_ms', float('nan')):.3f} ms; SameDiffLayer "
+          f"attention step {sdr['layer']['median_step_ms']:.3f} ms; phase "
+          f"{sdr['phase_s']:.1f}s [{label}]")
     print(f"[done] matmul precision: "
           f"{torch.get_float32_matmul_precision()}, cuda.matmul.allow_tf32 "
           f"{torch.backends.cuda.matmul.allow_tf32}")

@@ -25,11 +25,15 @@ goes through ``ops/attention.py``, whose ladder takes the flash kernels
 """
 from __future__ import annotations
 
+import contextvars
+from contextlib import contextmanager
 from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from deeplearning4j_tpu_torch.common.rng import TracedKey
 
 OP_REGISTRY: Dict[str, Callable] = {}
 OP_DOMAINS: Dict[str, str] = {}
@@ -1622,11 +1626,29 @@ def _rng_generator(attrs, device):
 
 
 def _draw(attrs, fn, shape, device):
+    """``fn`` (``torch.rand`` or ``torch.randn``) of ``shape`` from the
+    op's key. Under a data-parallel walk (``attrs["_dp_rows"] = (rank,
+    n)``) a draw whose rows are the batch's shard draws the global rows
+    and keeps its own, so every replica's mask is its rows of the
+    one-device mask; in an exported program the key is a ``TracedKey``
+    and the draw its custom op."""
     device = torch.device(device)
     if device.type == "meta":          # shapes only
         return torch.empty(shape, dtype=torch.float32, device="meta")
-    return fn(shape, generator=_rng_generator(attrs, device),
-              device=device, dtype=torch.float32)
+    rows = attrs.get("_dp_rows")
+    local = tuple(shape)
+    if rows is not None:
+        shape = (local[0] * rows[1],) + local[1:]
+    rng = attrs.get("rng")
+    if isinstance(rng, TracedKey):
+        out = rng.draw("normal" if fn is torch.randn else "uniform", shape,
+                       device)
+    else:
+        out = fn(shape, generator=_rng_generator(attrs, device),
+                 device=device, dtype=torch.float32)
+    if rows is not None:
+        out = out[rows[0] * local[0]:(rows[0] + 1) * local[0]]
+    return out
 
 
 @op("random_normal", "random")
@@ -1965,6 +1987,35 @@ class _WhileCaptureTrap(torch.autograd.Function):
         raise NotImplementedError(_WHILE_GRAD_MESSAGE)
 
 
+#: set while ``SameDiff`` traces a program for ``torch.export``: the
+#: unbounded ``while_loop`` and ``cond`` lower to torch's ``while_loop`` /
+#: ``cond`` operators instead of reading their predicates on the host, so
+#: the exported program's trip counts and branches follow its inputs
+_LOWERING = contextvars.ContextVar("dl4j_export_lowering", default=False)
+
+
+@contextmanager
+def lowering_for_export():
+    """The control ops lower to torch's control-flow operators inside."""
+    token = _LOWERING.set(True)
+    try:
+        yield
+    finally:
+        _LOWERING.reset(token)
+
+
+def lowering_active() -> bool:
+    return _LOWERING.get()
+
+
+def _fresh(outs, ins) -> tuple:
+    """Outputs of a lowered body or branch: torch's control-flow
+    operators refuse an output that is one of the body's inputs, so
+    those are copied."""
+    return tuple(o.clone() if any(o is i for i in ins) else o
+                 for o in outs)
+
+
 def _on_meta(ts) -> bool:
     return any(isinstance(t, torch.Tensor) and t.device.type == "meta"
                for t in ts)
@@ -2008,6 +2059,18 @@ def _while_loop(ins, attrs):
                           for nv, ov in zip(new, vars_))
             done = done | ~cnd
         return _one(vars_)
+    if _LOWERING.get():
+        # exported: torch's while_loop, its trip count the program's
+        from torch._higher_order_ops import while_loop as lowered_while
+
+        # the captures enter the bodies as closures, which torch lifts
+        def cond_fn(*a):
+            return _predicate(cond(*a, *cond_caps)[0])
+
+        def body_fn(*a):
+            return _fresh(body(*a, *body_caps), a)
+
+        return _one(tuple(lowered_while(cond_fn, body_fn, loop0)))
     # unbounded: the condition is read on the host once per trip; the
     # trips run without autograd and the trap stands in their place
     vars_ = loop0
@@ -2031,6 +2094,18 @@ def _cond(ins, attrs):
     operands = tuple(ins[1:1 + n_ops])
     t_caps = tuple(ins[1 + n_ops:1 + n_ops + ntc])
     f_caps = tuple(ins[1 + n_ops + ntc:])
+    if _LOWERING.get() and not _on_meta(ins):
+        # exported: torch's cond, the branch taken the program's
+        n_t = n_ops + ntc
+
+        def true_fn(*a):
+            return _fresh(attrs["_true_call"](*a[:n_ops], *a[n_ops:n_t]), a)
+
+        def false_fn(*a):
+            return _fresh(attrs["_false_call"](*a[:n_ops], *a[n_t:]), a)
+
+        return _one(tuple(torch.cond(_predicate(ins[0]), true_fn, false_fn,
+                                     operands + t_caps + f_caps)))
     if _on_meta(ins):
         take = True                   # shapes only: both branches agree
     else:

@@ -48,11 +48,20 @@ uses the fixed key 0. ``dropout`` is the identity unless training. A
 checkpointed segment recomputes from the same keys, so it redraws the
 same values.
 
-Not ported yet (each raises ``NotImplementedError`` with a pointer to
-``ROADMAP.md``): StableHLO export (``to_stablehlo`` /
-``export_serialized`` / ``deserialize_and_call``), and data- or
-tensor-parallel ``output`` / ``fit_steps`` (``mesh``, ``tp_specs``,
-``ph_specs``, ``encoding``).
+Program export: ``to_stablehlo`` gives the text of the ``torch.export``
+program of a subgraph, ``export_serialized`` its ``torch.export.save``
+bytes, ``deserialize_and_call`` loads and runs them. The flash kernels
+appear in it as ``dl4j::`` custom ops (``parallel/sequence.py``), random
+ops draw under the program's key input (``common/rng.py``), and an
+unbounded ``while_loop`` and ``cond`` lower to torch's control-flow
+operators, so the loaded program's trip counts follow its inputs; an op
+that cannot be exported raises naming it.
+
+Data-parallel ``output(mesh=)`` and ``fit_steps(mesh=,
+update_exchange=)`` are ``autodiff/samediff_dp.py``'s: each replica of
+a ``parallel/mesh.DpMesh`` walks its rows of the global batch, and the
+loss is the global batch's. Tensor-parallel arguments raise
+``NotImplementedError`` (ROADMAP.md, Queue A item 12).
 """
 from __future__ import annotations
 
@@ -66,24 +75,22 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from deeplearning4j_tpu_torch.autodiff.registry import (_on_meta,
-                                                        dtype_name, get_op,
-                                                        torch_dtype)
+from deeplearning4j_tpu_torch.autodiff import samediff_dp
+from deeplearning4j_tpu_torch.autodiff.registry import (
+    _on_meta, dtype_name, get_op, lowering_active, lowering_for_export,
+    torch_dtype)
 from deeplearning4j_tpu_torch.common.environment import resolve_device
 from deeplearning4j_tpu_torch.common.remat import min_cut_segment_plan
-from deeplearning4j_tpu_torch.common.rng import RngKey
+from deeplearning4j_tpu_torch.common.rng import RngKey, TracedKey
+from deeplearning4j_tpu_torch.parallel import zero
 
-_ROADMAP = "ROADMAP.md, Queue A"
+#: the exported program's side file: its device, outputs and placeholders
+_EXPORT_META = "dl4j_samediff.json"
 
 #: ops that draw random values: each gets a key of its own, folded out of
 #: the call's key by its position in the graph
 RNG_OPS = {"dropout", "random_normal", "random_uniform",
            "random_bernoulli"}
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"SameDiff {what} is not ported yet ({_ROADMAP} item {item})")
 
 
 class VariableType(enum.Enum):
@@ -529,24 +536,44 @@ class SameDiff:
                     stack.extend(self.ops[idx].inputs)
         return sorted(needed)
 
+    def _op_attrs(self, idx: int, node: OpNode, rng, training: bool
+                  ) -> dict:
+        """``node``'s attrs as its op sees them: an op without inputs
+        makes its output on the graph's device; a random op draws from
+        its own key, ``fold_in(rng, idx)``."""
+        attrs = node.attrs
+        if node.op_name in RNG_OPS or not node.inputs:
+            attrs = dict(attrs)
+            attrs["_device"] = self.device
+            if node.op_name in RNG_OPS:
+                attrs["rng"] = (rng.fold_in(idx) if rng is not None
+                                else None)
+                if node.op_name == "dropout":
+                    attrs["training"] = training
+        return attrs
+
     def _execute(self, values: dict, op_indices: List[int],
-                 rng: Optional[RngKey] = None, training: bool = False
-                 ) -> dict:
+                 rng: Optional[RngKey] = None, training: bool = False,
+                 dp=None) -> dict:
+        """Run ``op_indices`` over ``values`` in place. ``dp`` (a
+        ``samediff_dp.DpRank``) makes it one replica's walk of a
+        data-parallel mesh."""
         for idx in op_indices:
             node = self.ops[idx]
-            attrs = node.attrs
-            if node.op_name in RNG_OPS or not node.inputs:
-                attrs = dict(attrs)
-                # an op without inputs makes its output on the graph's
-                # device; a random op draws from its own key
-                attrs["_device"] = self.device
-                if node.op_name in RNG_OPS:
-                    attrs["rng"] = (rng.fold_in(idx) if rng is not None
-                                    else None)
-                    if node.op_name == "dropout":
-                        attrs["training"] = training
-            out = get_op(node.op_name)([values[i] for i in node.inputs],
-                                       attrs)
+            attrs = self._op_attrs(idx, node, rng, training)
+            if dp is not None:
+                attrs = dp.attrs(idx, attrs)
+            try:
+                out = get_op(node.op_name)([values[i] for i in node.inputs],
+                                           attrs)
+            except Exception as e:
+                if lowering_active():
+                    raise RuntimeError(
+                        f"op '{node.outputs[0]}' ({node.op_name}) cannot "
+                        f"be exported: {e}") from e
+                raise
+            if dp is not None:
+                out = dp.combine(idx, out)
             if len(node.outputs) == 1:
                 values[node.outputs[0]] = out
             else:
@@ -689,30 +716,105 @@ class SameDiff:
         """Execute the graph (reference: SameDiff.output): the ancestors
         of ``outputs``, under ``torch.no_grad``. Returns ``{name:
         tensor}`` on the graph's device. Each call takes a new random
-        key; ``training`` turns dropout on."""
-        if mesh is not None or ph_specs is not None:
-            raise _not_ported("data-parallel output (mesh=, ph_specs=)",
-                              "11")
+        key; ``training`` turns dropout on.
+
+        ``mesh`` (a ``parallel.mesh.DpMesh``) runs it data-parallel: the
+        batch placeholders shard over the replicas, the rest replicate,
+        and every replica returns the global result
+        (``autodiff/samediff_dp.py``); ``ph_specs`` maps placeholder
+        names to explicit specs (``"data"`` / ``("data", None)`` shard
+        the leading axis, ``None`` replicates)."""
         outputs = tuple(o.name if isinstance(o, SDVariable) else o
                         for o in outputs)
         ph_vals = self._placeholders(placeholders)
-        plan = self._plan(outputs, tuple(ph_vals))
         self._rng, rng = self._rng.split(2)
+        if mesh is not None:
+            return samediff_dp.output(self, ph_vals, outputs, mesh,
+                                      ph_specs, training, rng)
+        plan = self._plan(outputs, tuple(ph_vals))
         with torch.no_grad():
             res = self._run(plan, {n: self._arrays[n]
                                    for n in plan.variables},
                             ph_vals, outputs, training, rng)
         return dict(zip(outputs, res))
 
-    def to_stablehlo(self, *a, **kw):
-        raise _not_ported("StableHLO export (to_stablehlo)", "9")
+    # -- program export --------------------------------------------------
+    def _prepare(self, placeholders: dict, outputs: Sequence,
+                 training: bool):
+        """The shared preamble of ``to_stablehlo`` / ``export_serialized``:
+        output names, placeholders on the graph's device (a ``meta``
+        tensor gives the shape and dtype only, as JAX's
+        ``ShapeDtypeStruct`` does) and the module of the closed
+        program."""
+        outputs = tuple(o.name if isinstance(o, SDVariable) else o
+                        for o in outputs)
+        ph_vals = {}
+        for k, v in placeholders.items():
+            if isinstance(v, torch.Tensor) and v.device.type == "meta":
+                v = torch.zeros(v.shape, dtype=v.dtype, device=self.device)
+            ph_vals[k] = as_tensor(v, self.device)
+        plan = self._plan(outputs, tuple(ph_vals))
+        return outputs, ph_vals, _ProgramModule(self, plan, outputs,
+                                                training)
 
-    def export_serialized(self, *a, **kw):
-        raise _not_ported("program export (export_serialized)", "9")
+    def _export(self, placeholders: dict, outputs: Sequence,
+                training: bool):
+        outputs, ph_vals, module = self._prepare(placeholders, outputs,
+                                                 training)
+        key = torch.tensor(0, dtype=torch.int64)
+        with torch.no_grad():
+            program = torch.export.export(module, (ph_vals, key))
+        return program, outputs, ph_vals
+
+    def to_stablehlo(self, placeholders: dict, outputs: Sequence, *,
+                     training: bool = False) -> str:
+        """The text of the ``torch.export`` program this subgraph traces
+        to (the name is the JAX package's, whose program is StableHLO;
+        here the portable, inspectable artifact is PyTorch's exported
+        graph): ``(placeholders, key) -> outputs`` with the variables as
+        constants. The kernels appear as their ``dl4j::`` custom ops;
+        ``placeholders`` give shapes and dtypes (tensors, arrays, or
+        tensors on the ``meta`` device)."""
+        return str(self._export(placeholders, outputs, training)[0])
+
+    def export_serialized(self, placeholders: dict, outputs: Sequence, *,
+                          training: bool = False) -> bytes:
+        """The bytes of ``torch.export.save`` of the closed program
+        ``(placeholders, key) -> outputs``, the variables as constants.
+        The random key stays a program input, so a stochastic graph is
+        reseeded each call. Round-trips with
+        :meth:`deserialize_and_call`."""
+        program, outputs, ph_vals = self._export(placeholders, outputs,
+                                                 training)
+        meta = {"device": str(self.device), "outputs": list(outputs),
+                "placeholders": list(ph_vals)}
+        buf = io.BytesIO()
+        torch.export.save(program, buf,
+                          extra_files={_EXPORT_META: json.dumps(meta)})
+        return buf.getvalue()
 
     @staticmethod
-    def deserialize_and_call(*a, **kw):
-        raise _not_ported("program export (deserialize_and_call)", "9")
+    def deserialize_and_call(blob: bytes, placeholders: dict,
+                             seed: int = 0) -> List[torch.Tensor]:
+        """Run a program :meth:`export_serialized` wrote, with the port's
+        custom ops registered, under the key of ``seed`` (a graph's walk
+        with ``RngKey(seed)`` draws the same); returns the outputs as a
+        list, on the device the program was exported on."""
+        # registers dl4j::flash_* (dl4j::rng_draw comes with the registry)
+        import deeplearning4j_tpu_torch.parallel.sequence  # noqa: F401
+        extra = {_EXPORT_META: ""}
+        program = torch.export.load(io.BytesIO(blob), extra_files=extra)
+        meta = json.loads(extra[_EXPORT_META])
+        device = torch.device(meta["device"])
+        missing = set(meta["placeholders"]) - set(placeholders)
+        if missing:
+            raise ValueError(f"missing placeholder values for "
+                             f"{sorted(missing)}")
+        ph = {k: as_tensor(placeholders[k], device)
+              for k in meta["placeholders"]}
+        key = torch.tensor(RngKey(seed).seed, dtype=torch.int64)
+        with torch.no_grad():
+            return list(program.module()(ph, key))
 
     def set_remat_segments(self, n: int):
         """Cut training walks into ``n`` checkpointed segments (sqrt(N)
@@ -975,6 +1077,8 @@ class SameDiff:
             self._updater_state = cfg.updater.init_state(
                 {n: self._arrays[n] for n in names})
             self._restore_updater_leaves()
+        # an encoded run's error-feedback residual belongs to its exchange
+        self._updater_state = zero.strip_encoded_state(self._updater_state)
         params = {n: self._arrays[n].detach().requires_grad_(True)
                   for n in names}
         with torch.enable_grad():
@@ -1012,19 +1116,32 @@ class SameDiff:
         ``fit``), so ``fit_steps(b, 5)`` twice equals ``fit_steps(b,
         10)``. Returns the last step's loss; one listener round at the
         end, as the JAX package's fori-loop does. The call takes one
-        random key and step ``i`` folds ``i`` into it."""
-        if mesh is not None or tp_specs or ph_specs or encoding \
-                or update_exchange not in ("auto", "dense"):
-            raise _not_ported(
-                "data- and tensor-parallel fit_steps (mesh=, tp_specs=, "
-                "ph_specs=, encoding=, update_exchange=)", "11")
+        random key and step ``i`` folds ``i`` into it.
+
+        ``mesh`` (a ``parallel.mesh.DpMesh``) trains data-parallel on
+        the global batch ``placeholders`` (``autodiff/samediff_dp.py``):
+        the batch placeholders shard over the replicas, and the loss is
+        the global batch's. ``update_exchange`` is ``parallel/zero.py``'s
+        (``auto`` resolves to ``sharded`` over more than one replica;
+        ``dense``, ``sharded``, ``encoded`` with ``encoding``, or
+        ``fsdp``); ``ph_specs`` as ``output``'s. ``tp_specs`` raise
+        (tensor parallelism is ROADMAP item 12)."""
+        if tp_specs:
+            raise samediff_dp._item12("tensor-parallel fit_steps "
+                                      "(tp_specs=)")
         self._check_training()
         ph_vals = self._placeholders(placeholders)
-        loss = None
-        self._rng, rng = self._rng.split(2)
-        for i in range(int(n_steps)):
-            loss = self._train_step(ph_vals, rng.fold_in(i))
-            self.iteration_count += 1
+        if mesh is not None:
+            loss = samediff_dp.fit_steps(self, ph_vals, n_steps, mesh,
+                                         update_exchange, ph_specs,
+                                         encoding)
+        else:
+            zero.parse_update_exchange(update_exchange)
+            loss = None
+            self._rng, rng = self._rng.split(2)
+            for i in range(int(n_steps)):
+                loss = self._train_step(ph_vals, rng.fold_in(i))
+                self.iteration_count += 1
         if loss is None:
             return self._score
         self._score = float(loss.float())
@@ -1400,3 +1517,31 @@ def _rebuild_cf_attrs(op_name: str, attrs: dict,
         if spec is not None and call_key not in attrs:
             attrs[call_key] = _call_from_json_spec(spec, arr_map, device)
     return attrs
+
+
+class _ProgramModule(torch.nn.Module):
+    """A subgraph as a module for ``torch.export``: ``forward(
+    placeholders, key)`` walks the ops of ``plan`` with the control ops
+    lowered (``registry.lowering_for_export``) and the random ops drawing
+    under the call key (``common.rng.TracedKey``); the variables and
+    constants it reads are buffers, so the exported program holds
+    them."""
+
+    def __init__(self, sd: SameDiff, plan: _Plan, outputs: Tuple[str, ...],
+                 training: bool):
+        super().__init__()
+        self._walk = (sd, list(plan.ops), tuple(outputs), bool(training))
+        self._names = list(plan.variables) + list(plan.constants)
+        for i, n in enumerate(self._names):
+            self.register_buffer(f"a{i}", sd._arrays[n])
+
+    def forward(self, placeholders: Dict[str, torch.Tensor],
+                key: torch.Tensor):
+        sd, ops, outputs, training = self._walk
+        values = {n: getattr(self, f"a{i}")
+                  for i, n in enumerate(self._names)}
+        values.update(placeholders)
+        with lowering_for_export():
+            sd._execute(values, ops, TracedKey(key), training)
+        return tuple(values[n] for n in outputs)
+

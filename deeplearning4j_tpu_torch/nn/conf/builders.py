@@ -26,6 +26,8 @@ from deeplearning4j_tpu_torch.nn.conf import \
     layers_attention  # noqa: F401  registers the attention layers
 from deeplearning4j_tpu_torch.nn.conf import \
     layers_recurrent  # noqa: F401  registers the recurrent layers
+from deeplearning4j_tpu_torch.nn.conf import \
+    layers_samediff  # noqa: F401  registers the SameDiff layers
 from deeplearning4j_tpu_torch.nn.conf.layers import (
     CnnLossLayer, ConvolutionLayer, DenseLayer, Layer, RnnOutputLayer,
     SubsamplingLayer)

@@ -44,7 +44,9 @@ class GraphVertex:
         cls = VERTEX_REGISTRY.get(cls_name)
         if cls is None:
             raise NotImplementedError(
-                f"vertex class {cls_name!r} is not ported yet (ported: "
+                f"vertex class {cls_name!r} is not ported yet (ROADMAP.md, "
+                f"Queue A item 14), or is a custom vertex not registered "
+                f"with register_vertex (registered: "
                 f"{sorted(VERTEX_REGISTRY)})")
         return cls(**d)
 
@@ -215,3 +217,9 @@ class PreprocessorVertex(GraphVertex):
 VERTEX_REGISTRY: dict = {c.__name__: c for c in (
     MergeVertex, ElementWiseVertex, SubsetVertex, ScaleVertex, ShiftVertex,
     StackVertex, UnstackVertex, L2NormalizeVertex, PreprocessorVertex)}
+
+
+def register_vertex(cls):
+    """Register a vertex class for the JSON round trip."""
+    VERTEX_REGISTRY[cls.__name__] = cls
+    return cls

@@ -172,8 +172,10 @@ class Layer:
         cls = LAYER_REGISTRY.get(cls_name)
         if cls is None:
             raise NotImplementedError(
-                f"layer class {cls_name!r} is not ported yet (ported: "
-                f"{sorted(LAYER_REGISTRY)})")
+                f"layer class {cls_name!r} is not ported yet (the layer "
+                f"families left are ROADMAP.md, Queue A item 14), or is a "
+                f"custom layer not registered with register_layer "
+                f"(registered: {sorted(LAYER_REGISTRY)})")
         for k, v in list(d.items()):
             if k == "updater" and isinstance(v, dict):
                 d[k] = IUpdater.from_map(v)

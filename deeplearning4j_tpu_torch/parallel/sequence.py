@@ -28,6 +28,17 @@ NEG_INF/2`` is exactly 0, so a fully masked row gives zeros and zero
 gradients (PyTorch's SDPA gives NaN there). Each wrapper launches its
 kernel on a CUDA tensor (and raises on what it does not take) and runs
 the plain version on a CPU tensor; there is no other route.
+
+The differentiable entry points go through three ``torch.library``
+custom ops, ``dl4j::flash_fwd`` (-> out, lse), ``dl4j::flash_bwd_dq``
+and ``dl4j::flash_bwd_dkv``: each has a fake rule (shapes and dtypes)
+and its wrapper as its implementation (the launch on the card, the
+plain version on the CPU), and the forward op's autograd rule computes
+δ and calls the other two. An op is one node to the dispatcher: its
+inner products are not separate torch ops, on the CPU as on the card. Eager code and a ``torch.export`` program (SameDiff's
+``export_serialized``) take that one route, with the same launches and
+bits; an exported program names the ops, and loading it needs this
+module imported.
 """
 from __future__ import annotations
 
@@ -280,33 +291,83 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, key_mask=None,
 
 
 # ---------------------------------------------------------------------------
-# the differentiable entry points
+# the kernels as torch.library custom ops (the differentiable route)
 # ---------------------------------------------------------------------------
-class _FlashAttention(torch.autograd.Function):
-    """Forward kernel 7; backward δ (torch ops), then kernels 8 and 9.
-    Both outputs are differentiable: the lse cotangent folds into δ."""
+# Three ops of the ``dl4j`` namespace: ``flash_fwd`` -> (out, lse),
+# ``flash_bwd_dq`` and ``flash_bwd_dkv``. Each has a fake rule (shapes and
+# dtypes, lse in the accumulation dtype), and its implementation is its
+# wrapper: the kernel's launch on a CUDA tensor, the plain version on a
+# CPU one. ``flash_fwd``'s autograd rule is δ in torch ops, then ops 8 and
+# 9, so eager code and a ``torch.export`` program take one route, and an
+# exported program names the kernels instead of tracing into ctypes.
+@torch.library.custom_op("dl4j::flash_fwd", mutates_args=())
+def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 key_mask: Optional[torch.Tensor], causal: bool
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return flash_forward(q, k, v, key_mask, causal)
 
-    @staticmethod
-    def forward(ctx, q, k, v, key_mask, causal):
-        # heads split from [b, t, h·d] arrive as strided views: copy them
-        # once here, and save the copies, so neither backward kernel's
-        # wrapper copies them again
-        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        out, lse = flash_forward(q, k, v, key_mask, causal)
-        ctx.save_for_backward(q, k, v, key_mask, out, lse)
-        ctx.causal = causal
-        return out, lse
 
-    @staticmethod
-    def backward(ctx, g_out, g_lse):
-        q, k, v, key_mask, out, lse = ctx.saved_tensors
-        g_out = (torch.zeros_like(out) if g_out is None
-                 else g_out.contiguous())
-        delta = flash_delta(out, g_out, g_lse)
-        dq = flash_bwd_dq(q, k, v, g_out, lse, delta, key_mask, ctx.causal)
-        dk, dv = flash_bwd_dkv(q, k, v, g_out, lse, delta, key_mask,
-                               ctx.causal)
-        return dq, dk, dv, None, None
+@flash_fwd_op.register_fake
+def _flash_fwd_fake(q, k, v, key_mask, causal):
+    return q.new_empty(q.shape), q.new_empty(q.shape[:3],
+                                             dtype=_acc(q.dtype))
+
+
+@torch.library.custom_op("dl4j::flash_bwd_dq", mutates_args=())
+def flash_bwd_dq_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    dout: torch.Tensor, lse: torch.Tensor,
+                    delta: torch.Tensor, key_mask: Optional[torch.Tensor],
+                    causal: bool) -> torch.Tensor:
+    return flash_bwd_dq(q, k, v, dout, lse, delta, key_mask, causal)
+
+
+@flash_bwd_dq_op.register_fake
+def _flash_bwd_dq_fake(q, k, v, dout, lse, delta, key_mask, causal):
+    return q.new_empty(q.shape)
+
+
+@torch.library.custom_op("dl4j::flash_bwd_dkv", mutates_args=())
+def flash_bwd_dkv_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     dout: torch.Tensor, lse: torch.Tensor,
+                     delta: torch.Tensor, key_mask: Optional[torch.Tensor],
+                     causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    return flash_bwd_dkv(q, k, v, dout, lse, delta, key_mask, causal)
+
+
+@flash_bwd_dkv_op.register_fake
+def _flash_bwd_dkv_fake(q, k, v, dout, lse, delta, key_mask, causal):
+    return k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+def _flash_setup(ctx, inputs, output):
+    q, k, v, key_mask, causal = inputs
+    out, lse = output
+    ctx.save_for_backward(q, k, v, key_mask, out, lse)
+    ctx.causal = causal
+
+
+def _flash_backward(ctx, g_out, g_lse):
+    """δ (torch ops), then kernels 8 and 9. Both outputs are
+    differentiable: the lse cotangent folds into δ (an unused output's
+    cotangent arrives as zeros, and ``δ - 0`` is δ bit for bit)."""
+    q, k, v, key_mask, out, lse = ctx.saved_tensors
+    g_out = g_out.contiguous()
+    delta = flash_delta(out, g_out, g_lse)
+    dq = flash_bwd_dq_op(q, k, v, g_out, lse, delta, key_mask, ctx.causal)
+    dk, dv = flash_bwd_dkv_op(q, k, v, g_out, lse, delta, key_mask,
+                              ctx.causal)
+    return dq, dk, dv, None, None
+
+
+flash_fwd_op.register_autograd(_flash_backward, setup_context=_flash_setup)
+
+
+def _flash_apply(q, k, v, key_mask, causal: bool):
+    # heads split from [b, t, h·d] arrive as strided views: copy them
+    # once here, so the op saves the copies and neither backward
+    # kernel's wrapper copies them again
+    return flash_fwd_op(q.contiguous(), k.contiguous(), v.contiguous(),
+                        _as_key_mask(key_mask), bool(causal))
 
 
 def _as_key_mask(key_mask):
@@ -320,9 +381,7 @@ def flash_attention(q, k, v, causal: bool = False,
     """Fused attention over ``[b, h, t, d]``, equal to dense softmax
     attention at scale ``1/√d``; ``key_mask`` ``[b, tk]``, 0 = masked.
     Differentiable: the backward is kernels 8 and 9."""
-    out, _ = _FlashAttention.apply(q, k, v, _as_key_mask(key_mask),
-                                   bool(causal))
-    return out
+    return _flash_apply(q, k, v, key_mask, causal)[0]
 
 
 def flash_attention_with_lse(q, k, v, causal: bool = False,
@@ -331,5 +390,4 @@ def flash_attention_with_lse(q, k, v, causal: bool = False,
     """:func:`flash_attention` that also returns the per-row log-sum-exp
     of the scaled scores, ``[b, h, tq]`` in the accumulation dtype,
     differentiable too."""
-    return _FlashAttention.apply(q, k, v, _as_key_mask(key_mask),
-                                 bool(causal))
+    return _flash_apply(q, k, v, key_mask, causal)

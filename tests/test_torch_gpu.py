@@ -1410,3 +1410,81 @@ def test_ticket_pool_gets_captured_ranges_back():
     out = chip_smoke.ticket_pool_check(torch)
     for name in SUMS_KERNELS:
         assert out[name]["tickets_captured"] > chip_smoke.TICKET_POOL
+
+
+# ---------------------------------------------------------------------------
+# kernels 7-9 as torch.library custom ops, and SameDiff's exported program
+# ---------------------------------------------------------------------------
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_custom_ops_are_the_launches(dtype):
+    """``dl4j::flash_fwd`` / ``flash_bwd_dq`` / ``flash_bwd_dkv`` on the
+    card: bitwise the wrappers' launches (one launch of each kernel a
+    call), and the autograd route (the forward op's rule, ops 8 and 9)
+    bitwise the wrappers' backward; the plain versions within the
+    kernels' bars."""
+    from deeplearning4j_tpu_torch.parallel import sequence as sq
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(9)
+    q, k, v, do, mask = _flash_inputs(4, 12, 128, 128, 64, dtype, g)
+    mask[0] = 1.0
+    n = (sq.FLASH_FWD.launches, sq.FLASH_BWD_DQ.launches,
+         sq.FLASH_BWD_DKV.launches)
+    out, lse = torch.ops.dl4j.flash_fwd(q, k, v, mask, False)
+    delta = sq.flash_delta(out, do)
+    dq = torch.ops.dl4j.flash_bwd_dq(q, k, v, do, lse, delta, mask, False)
+    dk, dv = torch.ops.dl4j.flash_bwd_dkv(q, k, v, do, lse, delta, mask,
+                                          False)
+    torch.cuda.synchronize()
+    assert (sq.FLASH_FWD.launches, sq.FLASH_BWD_DQ.launches,
+            sq.FLASH_BWD_DKV.launches) == (n[0] + 1, n[1] + 1, n[2] + 1)
+    w_out, w_lse = sq.flash_forward(q, k, v, mask)
+    w_dq = sq.flash_bwd_dq(q, k, v, do, lse, delta, mask)
+    w_dk, w_dv = sq.flash_bwd_dkv(q, k, v, do, lse, delta, mask)
+    for a, b2 in ((out, w_out), (lse, w_lse), (dq, w_dq), (dk, w_dk),
+                  (dv, w_dv)):
+        assert torch.equal(a, b2)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    o = sq.flash_attention(*leaves, key_mask=mask)
+    o.backward(do)
+    assert torch.equal(o, out)
+    for leaf, want in zip(leaves, (dq, dk, dv)):
+        assert torch.equal(leaf.grad, want)
+    (f_rtol, f_atol), (g_rtol, g_atol) = FLASH_TOL[dtype]
+    r_out, _ = sq.flash_forward_plain(q, k, v, mask)
+    torch.testing.assert_close(out.float(), r_out.float(), rtol=f_rtol,
+                               atol=f_atol)
+    r_dq = sq.flash_dq_plain(q, k, v, do, lse, delta, mask)
+    torch.testing.assert_close(dq.float(), r_dq.float(), rtol=g_rtol,
+                               atol=g_atol)
+
+
+@pytest.mark.gpu
+def test_exported_program_runs_the_kernel_on_card():
+    """A SameDiff attention program exported on the card: its text calls
+    ``dl4j::flash_fwd``, and ``deserialize_and_call`` launches kernel 7
+    and equals ``output``."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.autodiff.samediff import SameDiff
+    from deeplearning4j_tpu_torch.parallel import sequence as sq
+    _need_card()
+    rs = np.random.RandomState(2)
+    sd = SameDiff("cuda")
+    x = sd.placeholder("x", (4, 16, 64))
+    m = sd.placeholder("m", (4, 16))
+    ws = [sd.var(f"w{i}", array=(rs.randn(64, 64) * 0.1).astype(np.float32))
+          for i in range(4)]
+    sd.nn.multi_head_dot_product_attention(x, *ws, 4, m, name="att")
+    mask = np.ones((4, 16), np.float32)
+    mask[1, 9:] = 0
+    feed = {"x": rs.randn(4, 16, 64).astype(np.float32), "m": mask}
+    txt = sd.to_stablehlo(feed, ["att"])
+    assert txt.count("torch.ops.dl4j.flash_fwd.default") == 1
+    blob = sd.export_serialized(feed, ["att"])
+    n = sq.FLASH_FWD.launches
+    got = SameDiff.deserialize_and_call(blob, feed)[0]
+    torch.cuda.synchronize()
+    assert sq.FLASH_FWD.launches == n + 1
+    want = sd.output(feed, ["att"])["att"]
+    assert got.device.type == "cuda"
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-6)
