@@ -7809,6 +7809,9 @@ def sd_dp_rank_main(work: str, rank: int, world: int, backend: str,
             r["sparsity"] = sparsity
             r["bytes"] = _sd_rank_bytes(sd, names, ex, world, sparsity)
             out[ex] = r
+        if world > 1:
+            out["phase25"] = phase25_rank(torch, mesh, sd, b, p0, names,
+                                          device)
     finally:
         mesh.shutdown()
     torch.save(out, Path(work, f"rank{rank}.pt"))
@@ -8162,6 +8165,8 @@ def _sd_rest(torch, label, device, dims, batch, t, layer_dims, t_phase):
               f"rank {d['bytes']}; sparsity {d['sparsity']}; ranks bitwise "
               f"equal; launches a rank {d['launches'][0]} [{label}]")
     res["gloo"] = dp
+    # phase 25 (d) and (e) ran in these ranks (phase_observatory reads them)
+    res["phase25"] = [r["phase25"] for r in ranks]
     # a one-rank NCCL group in this process (gloo on the CPU)
     backend = "nccl" if on_card else "gloo"
     mesh = ProcessGroupMesh(f"file://{SD_DP_WORK}/nccl", 1, 0,
@@ -8337,6 +8342,576 @@ def _sd_rest(torch, label, device, dims, batch, t, layer_dims, t_phase):
     return res
 
 
+#: phase 25: the training observatory on the card's training path, and
+#: the repaired data-parallel SameDiff walk (fault C5) with remat under a
+#: mesh (the two-rank parts run in phase 24's gloo rank processes)
+OBS_STEPS = 10
+OBS_CAPTURE_STEPS = 3
+OBS_WORK = ROOT / "build" / "observatory"
+#: the C5 table: ops along the batch axis (rows of an x of C5_SHAPE)
+C5_SHAPE = (256, 1024)
+C5_GATHERED = ("softmax", "log_softmax", "cumsum", "standardize", "concat",
+               "reverse", "argmax", "clip_by_norm", "cosine_distance")
+C5_COMBINED = ("reduce_max", "reduce_min")
+#: the all-reduced max / min against the one-device answer
+C5_EXTREME_ATOL = 1e-6
+C5_FIT_STEPS = 3
+#: the remat segments of phase 25 (e)
+OBS_REMAT_SEGMENTS = 2
+#: the SameDiff ops that launch kernel 7 once a call on the card
+ATTENTION_OPS = ("sdpa_core", "dot_product_attention",
+                 "multi_head_dot_product_attention")
+
+
+def recomputed_attention_sites(sd, segments: int) -> int:
+    """The attention ops in the checkpointed segments of ``sd``'s remat
+    plan at ``segments`` segments: each is recomputed once a step."""
+    counts = set()
+    for key, plan in sd._exec_cache.items():
+        if isinstance(key, tuple) and key[:1] == ("remat",) \
+                and key[3] == segments:
+            ops = key[1]
+            counts.add(sum(sd.ops[i].op_name in ATTENTION_OPS
+                           for lo, hi, wrap in plan if wrap
+                           for i in ops[lo:hi]))
+    if len(counts) != 1:
+        raise RuntimeError(f"remat plans at {segments} segments: recomputed "
+                           f"attention sites {sorted(counts)}")
+    return counts.pop()
+
+
+def c5_graph(name: str, device: str):
+    """One op of the C5 table on placeholder ``x`` (axis 0, the batch),
+    its output named ``o``."""
+    from deeplearning4j_tpu_torch.autodiff.samediff import SameDiff
+    sd = SameDiff(device)
+    x = sd.placeholder("x", shape=(None, C5_SHAPE[1]))
+    build = {
+        "softmax": lambda: sd.nn.softmax(x, 0, name="o"),
+        "log_softmax": lambda: sd.nn.log_softmax(x, 0, name="o"),
+        "cumsum": lambda: sd.math.cumsum(x, 0, name="o"),
+        "standardize": lambda: sd.math.standardize(x, 0, name="o"),
+        "concat": lambda: sd.math.concat([x, x * 2.0], 0, name="o"),
+        "reverse": lambda: sd.math.reverse(x, axes=[0], name="o"),
+        "argmax": lambda: sd.math.argmax(x, axis=0, name="o"),
+        # element by element in their domains, but over the whole
+        # tensor / along the batch axis
+        "clip_by_norm": lambda: sd.math.clip_by_norm(x, clip_norm=1.0,
+                                                     name="o"),
+        "cosine_distance": lambda: sd.loss.cosine_distance(
+            x, sd.math.tanh(x), axis=0, name="o"),
+        "reduce_max": lambda: sd.math.reduce_max(x, axis=0, name="o"),
+        "reduce_min": lambda: sd.math.reduce_min(x, axis=0, name="o"),
+    }
+    build[name]()
+    return sd
+
+
+def c5_input(torch):
+    return torch.randn(*C5_SHAPE, generator=torch.Generator().manual_seed(25))
+
+
+def c5_softmax_fit(torch, device: str, mesh=None) -> float:
+    """Three Sgd(0.5) steps of an MSE loss over ``softmax(x @ w, 0)``
+    (the re-anchor's probe of fault C5), from seeded inputs."""
+    from deeplearning4j_tpu_torch.autodiff.samediff import SameDiff
+    from deeplearning4j_tpu_torch.autodiff.training import TrainingConfig
+    from deeplearning4j_tpu_torch.learning.updaters import Sgd
+    g = torch.Generator().manual_seed(26)
+    xv = torch.randn(C5_SHAPE[0], 64, generator=g)
+    yv = torch.rand(C5_SHAPE[0], 16, generator=g) / C5_SHAPE[0]
+    w0 = 0.1 * torch.randn(64, 16, generator=g)
+    sd = SameDiff(device)
+    x = sd.placeholder("x", shape=(None, 64))
+    y = sd.placeholder("y", shape=(None, 16))
+    w = sd.var("w", array=w0.numpy())
+    sd.loss.mean_squared_error(y, sd.nn.softmax(x @ w, 0), name="loss")
+    sd.set_loss_variables("loss")
+    sd.set_training_config(
+        TrainingConfig.Builder().updater(Sgd(0.5))
+        .data_set_feature_mapping("x").data_set_label_mapping("y").build())
+    return float(sd.fit_steps({"x": xv.numpy(), "y": yv.numpy()},
+                              C5_FIT_STEPS, mesh=mesh))
+
+
+def phase25_rank(torch, mesh, sd, b, p0: dict, names, device: str) -> dict:
+    """Phase 25 (d) and (e) on one rank of phase 24's gloo group: the C5
+    table's ops and the softmax ``fit_steps`` under the mesh, and the
+    imported BERT-base under the dense exchange with and without
+    ``set_remat_segments(OBS_REMAT_SEGMENTS)`` (the deterministic
+    algorithms on for both, so the two runs can be held bit for bit)."""
+    out = {"c5": {}}
+    x = c5_input(torch).numpy()
+    for name in C5_GATHERED + C5_COMBINED:
+        o = c5_graph(name, device).output({"x": x}, ["o"], mesh=mesh)["o"]
+        out["c5"][name] = o.cpu()
+    out["c5_fit_loss"] = c5_softmax_fit(torch, device, mesh)
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for segs in (0, OBS_REMAT_SEGMENTS):
+            _sd_reset(sd, p0, device)
+            sd.set_remat_segments(segs)
+            _zero_counts()
+            losses = [sd.fit_steps(b, 1, mesh=mesh, update_exchange="dense")
+                      for _ in range(SD_DP_STEPS)]
+            out[f"remat_{segs}"] = {
+                "losses": losses, "launches": _flash_counts(),
+                "digest": _sd_digest(torch, sd, names)}
+        out["remat_recomputed_sites"] = recomputed_attention_sites(
+            sd, OBS_REMAT_SEGMENTS)
+        sd.set_remat_segments(0)
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    return out
+
+
+def _obs_gates(torch, on: bool) -> None:
+    """Step spans, the step breakdown, the flight recorder and the
+    numerics watchdog (every step) all on, or all off."""
+    from deeplearning4j_tpu_torch.common import diagnostics, stepstats
+    from deeplearning4j_tpu_torch.common.environment import Environment
+    from deeplearning4j_tpu_torch.common.telemetry import MetricsRegistry
+    env = Environment.get()
+    env.numerics_watchdog, env.numerics_sample = on, 1
+    env.extra["layerprof"] = on
+    MetricsRegistry.get().set_enabled(on)
+    stepstats.collector().set_enabled(on)
+    diagnostics.FlightRecorder.get().enabled = on
+
+
+def _obs_reset(dump_dir: Path) -> None:
+    from deeplearning4j_tpu_torch.common import (diagnostics, layerprof,
+                                                 stepstats)
+    from deeplearning4j_tpu_torch.common.environment import Environment
+    from deeplearning4j_tpu_torch.common.telemetry import MetricsRegistry
+    Environment.get().flight_recorder_dir = str(dump_dir)
+    MetricsRegistry._reset_for_tests()
+    stepstats.StepStats._reset_for_tests()
+    stepstats.ProfileCapture._reset_for_tests()
+    diagnostics.FlightRecorder._reset_for_tests()
+    layerprof.reset()
+
+
+def resnet_conv_dot_flops(net, batch: int) -> int:
+    """The analytic conv + dot FLOPs of one ResNet-50 train step, from
+    the configuration's shapes alone: a convolution 2·N·Ho·Wo·Cout·Cin·
+    kh·kw forward, as much for its weight gradient, and 2·N·H·W·Cin·kh·
+    kw·Cout for its input gradient (at the input's size; not for the
+    stem, whose input needs none); the dense head 2·N·nIn·nOut three
+    times."""
+    types = net.conf.resolve_shapes()
+    total = 0
+    for name in net._topo:
+        v = net.conf.vertices[name]
+        if not v.is_layer:
+            continue
+        W = net.params.get(name, {}).get("W")
+        if W is None:
+            continue
+        if W.dim() == 4:
+            cout, cin, kh, kw = (int(d) for d in W.shape)
+            o, i = types[name], types[v.inputs[0]]
+            fwd = 2 * batch * o.height * o.width * cout * cin * kh * kw
+            total += 2 * fwd
+            if v.inputs[0] not in net.conf.network_inputs:
+                total += 2 * batch * i.height * i.width * cin * kh * kw \
+                    * cout
+        else:
+            total += 3 * 2 * batch * int(W.shape[0]) * int(W.shape[1])
+    return total
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+#: the analytic bytes of one launch of each kernel on a ResNet-50
+#: BatchNormalization site [M, C]: each input read once, each output
+#: written once
+def _resnet_site_bytes(kernel: str, M: int, C: int, esize: int) -> int:
+    if kernel == "scale_shift_act":
+        return 2 * M * C * esize + 2 * C * 4
+    return _site_costs(kernel, M, C, esize, "relu")[0]
+
+
+def resnet_kernel_bytes(net, report: dict, batch: int, esize: int) -> dict:
+    """Each scope of ``report`` whose step launched kernels: the bytes
+    ``layer_report`` charged them, their analytic count from the vertex's
+    output shape ([batch·H·W, C]) and the scope's own bytes; and the
+    launches of each kernel over the step."""
+    from deeplearning4j_tpu_torch.common import layerprof
+    types = net.conf.resolve_shapes()
+    vertex = {layerprof.sanitize(n): n for n in net._topo}
+    layers, launches = {}, {}
+    for scope, ent in report["layers"].items():
+        kl = ent.get("kernel_launches")
+        if not kl:
+            continue
+        analytic = None            # a launch charged outside a layer
+        if scope in vertex:
+            o = types[vertex[scope]]
+            M, C = batch * o.height * o.width, o.channels
+            analytic = sum(n * _resnet_site_bytes(k, M, C, esize)
+                           for k, n in kl.items())
+        layers[scope] = (ent["kernel_bytes"], analytic, ent["bytes"])
+        for k, n in kl.items():
+            launches[k] = launches.get(k, 0) + n
+    return {"layers": layers, "launches": launches}
+
+
+def phase_observatory(torch, label: str, device: str = "cuda",
+                      image: int = 224, batch: int = BATCH,
+                      steps: int = OBS_STEPS, sdr=None) -> dict:
+    """Phase 25. (a) ResNet-50 trains ``steps`` steps through ``fit``
+    with step spans, the step breakdown, the flight recorder and the
+    watchdog (every step) on, then the same steps from the same weights
+    with all of them off: the step wall times, ``dl4j_train_step_seconds``'
+    count, ``steps`` breakdowns and flight-recorder records, kernels 1,
+    2, 3, 5 and 6 launched alike, and the losses bit for bit (the
+    deterministic algorithms). (b) A NaN in one input row: the next step
+    raises ``NumericsEvent`` naming the first bad leaf, and the flight
+    recorder's JSONL is on disk. (c) ``layer_report``: its conv + dot
+    FLOPs against :func:`resnet_conv_dot_flops`; a ``ProfileCapture`` of
+    OBS_CAPTURE_STEPS steps joined into it (per-layer ms, the share of
+    busy time in a scope); ``memory_report`` against
+    ``torch.cuda.max_memory_allocated``. (d) and (e) read phase 24's
+    gloo ranks (``phase25_rank``): the C5 ops against the one-device
+    answers, and remat under the mesh. ``device="cpu"`` with a small
+    ``image`` rehearses (a)-(c)."""
+    import gc
+    import shutil
+
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.common import (diagnostics, layerprof,
+                                                 stepstats, telemetry)
+    from deeplearning4j_tpu_torch.models.zoo import ResNet50
+    on_card = device == "cuda"
+    t_phase = time.perf_counter()
+    shutil.rmtree(OBS_WORK, ignore_errors=True)
+    OBS_WORK.mkdir(parents=True)
+    out: dict = {}
+    kw = dict(seed=25, height=image, width=image)
+    x, y = learnable_batch(torch, torch.Generator().manual_seed(25), batch,
+                           image)
+    x, y = x.to(device), y.to(device)
+    from deeplearning4j_tpu_torch.common.environment import Environment
+    env = Environment.get()
+    prev_env = (env.numerics_watchdog, env.numerics_sample,
+                env.flight_recorder_dir)
+    prev_det = torch.are_deterministic_algorithms_enabled()
+    prev_cublas = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        # ---- (a) the same steps with the observatory on, then off ----
+        runs = {}
+        for on in (True, False):
+            _obs_reset(OBS_WORK / "flightrec")
+            _obs_gates(torch, on)
+            # earlier phases' garbage freed first, and none while init
+            # runs, so the allocator's growth is what init left
+            m_gc = torch.cuda.memory_allocated() if on_card else 0
+            gc.collect()
+            gc.disable()
+            try:
+                m0 = torch.cuda.memory_allocated() if on_card else 0
+                net = ResNet50(**kw).init(device,
+                                          generator=torch.Generator()
+                                          .manual_seed(25))
+                m1 = torch.cuda.memory_allocated() if on_card else 0
+            finally:
+                gc.enable()
+            if on:
+                # what init left on the card, by the allocator alone
+                init_bytes = m1 - m0 if on_card else None
+                gc_freed = m_gc - m0
+                init_attr = diagnostics.memory_report(net)["models"][
+                    "ComputationGraph"]
+                init_sizes = [
+                    t.numel() * t.element_size()
+                    for tree in (net.params, net.states,
+                                 net.updater_states)
+                    for t in _leaves(tree) if isinstance(t, torch.Tensor)]
+            _zero_counts()
+            losses, ms = _timed_steps(torch, net, x, y, steps)
+            runs[on] = {
+                "losses": losses, "step_ms": ms,
+                "median_step_ms": float(np.median(ms[1:])),
+                "launches": _counts(),
+                "step_count": telemetry.histogram(
+                    "dl4j_train_step_seconds").count_of(
+                        model="ComputationGraph"),
+                "breakdowns": stepstats.collector().records(),
+                "summary": stepstats.collector().summary(),
+                "recorded": diagnostics.FlightRecorder.get().records()}
+            if on:
+                net_on = net
+        _obs_gates(torch, True)
+        a_on, a_off = runs[True], runs[False]
+        check(a_on["step_count"] == steps,
+              f"(a) dl4j_train_step_seconds count {a_on['step_count']}, "
+              f"expected {steps}")
+        check(len(a_on["breakdowns"]) == steps and all(
+            set(r["phases"]) == set(stepstats.PHASES)
+            for r in a_on["breakdowns"]),
+            f"(a) {len(a_on['breakdowns'])} step breakdowns")
+        check(len(a_on["recorded"]) == steps and all(
+            "phases" in r for r in a_on["recorded"]),
+            f"(a) {len(a_on['recorded'])} flight-recorder records")
+        check(a_off["step_count"] == 0 and not a_off["breakdowns"]
+              and not a_off["recorded"], "(a) the gates off recorded")
+        for k in ("scale_shift_act", "epilogue_backward", "channel_sums",
+                  "bn_bwd_sums", "bn_bwd_dx"):
+            per = 0 if k == "epilogue_backward" else 53
+            check(a_on["launches"][k] == a_off["launches"][k]
+                  == per * steps * on_card,
+                  f"(a) {k}: {a_on['launches'][k]} launches on, "
+                  f"{a_off['launches'][k]} off, expected {per} a step")
+        check(a_on["losses"] == a_off["losses"],
+              f"(a) losses on {a_on['losses']} != off {a_off['losses']}")
+        out["a"] = {
+            "losses": a_on["losses"], "bitwise": True,
+            "step_ms_on": a_on["step_ms"], "step_ms_off": a_off["step_ms"],
+            "median_step_ms_on": a_on["median_step_ms"],
+            "median_step_ms_off": a_off["median_step_ms"],
+            "launches": a_on["launches"],
+            "step_breakdown": a_on["summary"],
+            "record_keys": sorted(a_on["recorded"][0])}
+        print(f"[obs] (a) ResNet-50 {image}x{image}, batch {batch}, {steps} "
+              f"fit steps: ms a step observed {a_on['median_step_ms']:.3f} "
+              f"(steps {[round(m, 3) for m in a_on['step_ms']]}), plain "
+              f"{a_off['median_step_ms']:.3f} (steps "
+              f"{[round(m, 3) for m in a_off['step_ms']]}); losses bitwise "
+              f"equal; launches {a_on['launches']}; "
+              f"{len(a_on['breakdowns'])} breakdowns, "
+              f"{len(a_on['recorded'])} records, keys "
+              f"{out['a']['record_keys']} [{label}]")
+        bd = a_on["breakdowns"][-1]
+        print(f"[obs] (a) last step's breakdown: "
+              f"{ {k: round(v, 6) for k, v in bd['phases'].items()} }, "
+              f"total {bd['total_seconds']:.6f}s")
+
+        # ---- (c) attribution, on the observed net ----
+        report = net_on.layer_report(x, y)
+        convs = sum(e.get("conv_dot_flops_fwd", 0)
+                    + e.get("conv_dot_flops_bwd", 0)
+                    for e in report["layers"].values())
+        want = resnet_conv_dot_flops(net_on, batch)
+        check(convs == want, f"(c) layer_report conv + dot FLOPs {convs} "
+                             f"!= analytic {want}")
+        check(layerprof.reconcile_error_pct(report) < 1e-6,
+              "(c) the report's layers do not sum to its totals")
+        kb = resnet_kernel_bytes(net_on, report, batch, x.element_size())
+        for k in ("scale_shift_act", "channel_sums", "bn_bwd_sums",
+                  "bn_bwd_dx"):
+            check(kb["launches"].get(k, 0) == 53 * on_card,
+                  f"(c) layer_report: {kb['launches'].get(k, 0)} launches "
+                  f"of {k} in the step's scopes, expected {53 * on_card}")
+        for name, (got, analytic, total) in kb["layers"].items():
+            check(got == analytic and total >= got,
+                  f"(c) layer {name}: kernel bytes {got}, analytic "
+                  f"{analytic}, layer bytes {total}")
+        out["c"] = {"conv_dot_flops": convs, "analytic": want,
+                    "totals": report["totals"],
+                    "layers": len(report["layers"]),
+                    "kernel_bytes": kb,
+                    "top_layer": layerprof.top_layer()}
+        if kb["layers"]:
+            bn, (got, analytic, total) = next(iter(kb["layers"].items()))
+            print(f"[obs] (c) layer_report kernel bytes == analytic in "
+                  f"{len(kb['layers'])} scopes; {bn}: kernels "
+                  f"{report['layers'][bn]['kernel_launches']} {got} bytes "
+                  f"(analytic {analytic}), the layer {total} bytes "
+                  f"[{label}]")
+        stepstats.ProfileCapture.start(
+            OBS_CAPTURE_STEPS, out_dir=str(OBS_WORK / "profile"),
+            expire_seconds=600)
+        for _ in range(OBS_CAPTURE_STEPS):
+            net_on.fit(x, y)
+        _sync(torch, device)
+        st = stepstats.ProfileCapture.current_status()
+        check(not st.get("active", True) and st["last"]["reason"]
+              == "complete", f"(c) capture status {st}")
+        trace = OBS_WORK / "profile" / "device.trace.json"
+        events = telemetry._load_trace(str(trace)).get("traceEvents", [])
+        layer_ms = layerprof.attribute_trace(events)
+        layerprof.join_dynamic(
+            report, layer_ms, time_source="trace" if
+            layerprof.trace_has_device_kernels(events) else
+            "host_op_proxy")
+        busy = sum(float(e.get("dur", 0) or 0) for e in events
+                   if e.get("ph") == "X" and e.get("cat") in
+                   ("kernel", "gpu_memcpy", "gpu_memset")) / 1e3
+        scoped = sum(d["fwd_ms"] + d["bwd_ms"] for d in layer_ms.values())
+        top = sorted(layer_ms.items(),
+                     key=lambda kv: -(kv[1]["fwd_ms"] + kv[1]["bwd_ms"]))
+        out["c"].update(busy_ms=busy, scoped_ms=scoped,
+                        scoped_share=scoped / busy if busy else None,
+                        time_source=report["time_source"],
+                        layer_ms={k: v for k, v in top})
+        print(f"[obs] (c) layer_report: {len(report['layers'])} scopes, "
+              f"conv + dot FLOPs {convs} == analytic {want}; totals "
+              f"{report['totals']}; profile of {OBS_CAPTURE_STEPS} steps "
+              f"({report['time_source']}): busy {busy:.3f} ms, in a scope "
+              f"{scoped:.3f} ms (share "
+              f"{out['c']['scoped_share'] if busy else float('nan'):.4f});"
+              f" heaviest {[(k, round(v['fwd_ms'], 3), round(v['bwd_ms'], 3)) for k, v in top[:8]]}"
+              f" [{label}]")
+        mem = diagnostics.memory_report(net_on)
+        out["c"]["memory"] = {
+            k: mem[k] for k in ("live_bytes_total", "peak_bytes_total",
+                                "accounted_bytes", "models")}
+        attr = (init_attr["params_bytes"] + init_attr["model_state_bytes"]
+                + init_attr["updater_state_bytes"])
+        # the allocator's rounding: a block of 512-byte units, and a
+        # large one (over 1 MiB) may keep up to 1 MiB of its cached
+        # block unsplit
+        slack = sum(512 if n <= 2 ** 20 else 2 ** 20 for n in init_sizes)
+        out["c"]["memory"].update(init_allocated=init_bytes,
+                                  init_attributed=attr,
+                                  init_tensors=len(init_sizes),
+                                  init_slack=slack,
+                                  gc_freed_before_init=gc_freed)
+        if on_card:
+            # the independent sum: what init left on the allocator holds
+            # the attributed buffers, each rounded up by the allocator
+            check(attr <= init_bytes <= attr + slack,
+                  f"(c) memory_report attributes {attr} bytes to the "
+                  f"model at init; the allocator grew {init_bytes} for "
+                  f"{len(init_sizes)} tensors (slack {slack}; a gc before "
+                  f"it freed {gc_freed})")
+            # the same counter both sides: this checks the card it reads
+            peak = torch.cuda.max_memory_allocated()
+            check(mem["peak_bytes_total"] == peak,
+                  f"(c) memory_report peak {mem['peak_bytes_total']} != "
+                  f"max_memory_allocated {peak}")
+            out["c"]["memory"]["max_memory_allocated"] = peak
+        print(f"[obs] (c) memory_report: live {mem['live_bytes_total']}, "
+              f"peak {mem['peak_bytes_total']} (max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated() if on_card else 'n/a'}),"
+              f" models {mem['models']}; at init {attr} bytes attributed, "
+              f"the allocator grew {init_bytes} for {len(init_sizes)} "
+              f"tensors (rounding slack {slack}; {gc_freed} bytes freed by "
+              f"a gc before it) [{label}]")
+
+        # ---- (b) a NaN in one input row trips the watchdog ----
+        xb = x.clone()
+        xb[batch - 1, 0, 0, 0] = float("nan")
+        dumps = OBS_WORK / "flightrec"
+        event = None
+        try:
+            net_on.fit(xb, y)
+        except diagnostics.NumericsEvent as e:
+            event = e
+        check(event is not None, "(b) no NumericsEvent on a NaN input")
+        check(event.first_bad is not None and event.first_bad["leaf"],
+              f"(b) the event names no leaf: {event}")
+        jsonl = sorted(dumps.glob("flightrec_*_numerics.jsonl"))
+        check(bool(jsonl), f"(b) no numerics dump in {dumps}")
+        lines = jsonl[0].read_text().splitlines()
+        meta = json.loads(lines[0])
+        check(meta["reason"] == "numerics" and meta["event"]["first_bad"]
+              == event.first_bad, f"(b) dump meta {meta}")
+        out["b"] = {"event": event.to_dict(), "dump_lines": len(lines)}
+        print(f"[obs] (b) NumericsEvent at step {event.step}: "
+              f"{event.tensor_group} = {event.value}, first bad leaf "
+              f"{event.first_bad}; {jsonl[0].name} holds {len(lines)} "
+              f"lines [{label}]")
+    finally:
+        torch.use_deterministic_algorithms(prev_det)
+        if prev_cublas is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = prev_cublas
+        _obs_gates(torch, True)
+        env.extra.pop("layerprof", None)
+        (env.numerics_watchdog, env.numerics_sample,
+         env.flight_recorder_dir) = prev_env
+    if sdr is not None:
+        out.update(observatory_mesh_checks(torch, sdr["phase25"], device,
+                                           label))
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[obs] phase 25 in {out['phase_s']:.1f}s [{label}]")
+    return out
+
+
+def observatory_mesh_checks(torch, ranks: list, device: str,
+                            label: str) -> dict:
+    """Phase 25 (d) and (e) from phase 24's gloo ranks: each C5 op's
+    mesh output against the one-device answer (bitwise for the gathered
+    ops, within C5_EXTREME_ATOL for the all-reduced max / min), the
+    softmax ``fit_steps`` loss against the one-device loss, and remat
+    under the mesh against the unsegmented mesh run (losses and
+    variables bitwise) with its kernel 7-9 launches."""
+    out = {"d": {}, "e": {}}
+    x = c5_input(torch).numpy()
+    for name in C5_GATHERED + C5_COMBINED:
+        want = c5_graph(name, device).output({"x": x}, ["o"])["o"].cpu()
+        for r, rr in enumerate(ranks):
+            got = rr["c5"][name]
+            if name in C5_GATHERED:
+                ok = torch.equal(got, want)
+                err = 0.0 if ok else float(
+                    (got.double() - want.double()).abs().max())
+            else:
+                err = float((got.double() - want.double()).abs().max())
+                ok = err <= C5_EXTREME_ATOL
+            check(ok, f"(d) {name} rank {r}: mesh vs one device {err}")
+        out["d"][name] = err
+    one = c5_softmax_fit(torch, device)
+    for r, rr in enumerate(ranks):
+        rel = abs(rr["c5_fit_loss"] - one) / abs(one)
+        check(rel <= 1e-6, f"(d) softmax fit_steps rank {r}: loss "
+                           f"{rr['c5_fit_loss']} vs one device {one}")
+    out["d"]["softmax_fit_steps"] = {"mesh": ranks[0]["c5_fit_loss"],
+                                     "one_device": one}
+    print(f"[obs] (d) C5 on 2 gloo ranks: max |mesh - one device| "
+          f"{ {k: v for k, v in out['d'].items() if k != 'softmax_fit_steps'} }"
+          f"; softmax fit_steps loss mesh {ranks[0]['c5_fit_loss']:.9f}, "
+          f"one device {one:.9f} [{label}]")
+    on_card = device == "cuda"
+    for r, rr in enumerate(ranks):
+        plain, remat = rr["remat_0"], rr[f"remat_{OBS_REMAT_SEGMENTS}"]
+        check(remat["losses"] == plain["losses"]
+              and remat["digest"] == plain["digest"],
+              f"(e) rank {r}: remat losses {remat['losses']} vs "
+              f"{plain['losses']}, or the variables differ")
+        for k in ("flash_bwd_dq", "flash_bwd_dkv"):
+            check(remat["launches"][k] == plain["launches"][k],
+                  f"(e) rank {r} {k}: {remat['launches'][k]} with remat, "
+                  f"{plain['launches'][k]} without")
+        sites = rr["remat_recomputed_sites"]
+        want = plain["launches"]["flash_fwd"] + SD_DP_STEPS * sites * on_card
+        check(sites >= 1 and remat["launches"]["flash_fwd"] == want,
+              f"(e) rank {r}: {remat['launches']['flash_fwd']} launches of "
+              f"flash_fwd with remat, expected {want} ({sites} attention "
+              f"sites recomputed a step)")
+    out["e"] = {"losses": ranks[0]["remat_0"]["losses"],
+                "recomputed_sites": ranks[0]["remat_recomputed_sites"],
+                "launches_plain": ranks[0]["remat_0"]["launches"],
+                "launches_remat": [
+                    rr[f"remat_{OBS_REMAT_SEGMENTS}"]["launches"]
+                    for rr in ranks]}
+    print(f"[obs] (e) imported BERT-base, dense exchange, 2 gloo ranks, "
+          f"{SD_DP_STEPS} steps: set_remat_segments({OBS_REMAT_SEGMENTS}) "
+          f"losses {ranks[0]['remat_0']['losses']} bitwise the unsegmented"
+          f" run's, variables too; kernel 7-9 launches a rank "
+          f"{out['e']['launches_remat']} (unsegmented "
+          f"{out['e']['launches_plain']}; "
+          f"{out['e']['recomputed_sites']} attention sites recomputed a "
+          f"step) [{label}]")
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -8387,6 +8962,7 @@ def main() -> int:
     tr50 = timed("tf-resnet", phase_tf_resnet, torch, label)
     fl = timed("fleet", phase_fleet, torch, label, sd=tr50.pop("sd"))
     sdr = timed("sd-rest", phase_sd_rest, torch, label)
+    ob = timed("observatory", phase_observatory, torch, label, sdr=sdr)
     # last: past three quarters of the pool, every capture's graph holds
     # a user object
     pool = timed("ticket-pool", ticket_pool_check, torch)
@@ -8572,6 +9148,14 @@ def main() -> int:
                     r_[k.name] for r_ in dp["exchanges"][n]["launches"]]
                    for n in ("fsdp",) + DP_SCHEMES}}
         extra["launches_squeezenet_training"] = st["launches"][k.name]
+        # phase 25: ResNet-50's observed fit (a), remat under the mesh (e)
+        if k.name in DP_KERNELS + ("epilogue_backward",):
+            extra[f"launches_observatory_{OBS_STEPS}_steps"] = \
+                ob["a"]["launches"][k.name]
+        if k.name in FLASH_KERNELS:
+            extra[f"launches_samediff_remat_{OBS_REMAT_SEGMENTS}_mesh_"
+                  f"{SD_DP_STEPS}_steps_per_rank"] = [
+                r_[k.name] for r_ in ob["e"]["launches_remat"]]
         if k.name in pool:
             extra["ticket_pool_check"] = pool[k.name]
         extra["launches_resnet_remat_step"] = \
@@ -8714,6 +9298,15 @@ def main() -> int:
           f"{sdr.get('output_ms', float('nan')):.3f} ms; SameDiffLayer "
           f"attention step {sdr['layer']['median_step_ms']:.3f} ms; phase "
           f"{sdr['phase_s']:.1f}s [{label}]")
+    oa, oc = ob["a"], ob["c"]
+    print(f"[done] observatory (phase 25): ResNet-50 fit ms a step observed "
+          f"{oa['median_step_ms_on']:.3f} vs plain "
+          f"{oa['median_step_ms_off']:.3f}, losses bitwise; layer_report "
+          f"conv + dot FLOPs {oc['conv_dot_flops']} (analytic "
+          f"{oc['analytic']}); profiled busy {oc['busy_ms']:.3f} ms, "
+          f"{oc['scoped_ms']:.3f} in a scope; C5 mesh == one device; "
+          f"remat under the mesh bitwise; phase {ob['phase_s']:.1f}s "
+          f"[{label}]")
     print(f"[done] matmul precision: "
           f"{torch.get_float32_matmul_precision()}, cuda.matmul.allow_tf32 "
           f"{torch.backends.cuda.matmul.allow_tf32}")

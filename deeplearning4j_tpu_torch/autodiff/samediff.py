@@ -561,11 +561,12 @@ class SameDiff:
         for idx in op_indices:
             node = self.ops[idx]
             attrs = self._op_attrs(idx, node, rng, training)
+            ins = [values[i] for i in node.inputs]
             if dp is not None:
                 attrs = dp.attrs(idx, attrs)
+                ins = dp.inputs(idx, ins)
             try:
-                out = get_op(node.op_name)([values[i] for i in node.inputs],
-                                           attrs)
+                out = get_op(node.op_name)(ins, attrs)
             except Exception as e:
                 if lowering_active():
                     raise RuntimeError(
@@ -573,7 +574,7 @@ class SameDiff:
                         f"be exported: {e}") from e
                 raise
             if dp is not None:
-                out = dp.combine(idx, out)
+                out = dp.combine(idx, out, ins, attrs)
             if len(node.outputs) == 1:
                 values[node.outputs[0]] = out
             else:
@@ -666,23 +667,27 @@ class SameDiff:
 
     def _execute_segmented(self, values: dict, op_indices: List[int],
                            out_names: Tuple[str, ...],
-                           rng: Optional[RngKey] = None) -> None:
+                           rng: Optional[RngKey] = None, dp=None) -> None:
         """The walk in ``remat_segments`` segments placed by
         ``min_cut_segment_plan``, each but the last checkpointed; only
         values read later (or requested) cross a boundary. A random op's
         key depends only on ``rng`` and its position, so a segment's
         recompute draws what its forward drew (``preserve_rng_state`` is
-        not needed)."""
+        not needed). ``dp`` (a ``samediff_dp.DpRank``) makes it one
+        replica's walk, as in ``_execute``: the plan is sized from the
+        replica's values, and a recomputed segment runs its collectives
+        again, in the same order on every replica."""
         read_at = [set(self.ops[i].inputs) for i in op_indices]
         key = ("remat", tuple(op_indices), out_names, self.remat_segments,
                tuple((k, tuple(v.shape)) for k, v in values.items()))
         plan = self._exec_cache.get(key)
         if plan is None:
+            sizes = dp.walk.sizes if dp is not None else {}
             plan = self._exec_cache[key] = min_cut_segment_plan(
                 len(op_indices), self.remat_segments,
                 self._segment_cut_costs(
                     op_indices, out_names,
-                    self._value_sizes(values, op_indices, rng)))
+                    sizes or self._value_sizes(values, op_indices, rng)))
         for lo, hi, wrap in plan:
             seg = op_indices[lo:hi]
             produced = {o for i in seg for o in self.ops[i].outputs}
@@ -692,7 +697,7 @@ class SameDiff:
             seg_out = sorted(produced & needed_after)
 
             def seg_fn(in_vals, seg=seg, seg_out=seg_out):
-                vals = self._execute(dict(in_vals), seg, rng, True)
+                vals = self._execute(dict(in_vals), seg, rng, True, dp=dp)
                 return {k: vals[k] for k in seg_out}
 
             in_vals = {k: values[k] for k in seg_in}

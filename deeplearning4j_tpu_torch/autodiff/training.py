@@ -11,12 +11,14 @@ from __future__ import annotations
 
 import queue
 import threading
+import time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Union
 
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.common import telemetry
 from deeplearning4j_tpu_torch.datasets.iterators import _FeederError
 from deeplearning4j_tpu_torch.datasets.prefetch import Staged, Stager
 
@@ -62,7 +64,13 @@ def device_prefetch_placeholders(iterator, make_ph: Callable,
     thread.start()
     try:
         while True:
-            item = q.get()
+            if telemetry.enabled():
+                t0 = time.perf_counter()
+                item = q.get()
+                telemetry.observe_feed_stall(time.perf_counter() - t0,
+                                             source="samediff_prefetch")
+            else:
+                item = q.get()
             if item is sentinel:
                 return
             if isinstance(item, _FeederError):

@@ -45,6 +45,24 @@ target, default 0.99, and the burn-rate windows, default 300 s and
 and ``DL4J_TORCH_REQREC_STORM_COOLDOWN_S`` (the request flight
 recorder: default on, 512 records, ``flightrec/``, 20 sheds within 5 s
 make a storm, 60 s between storm dumps; ``serving/reqrec.py``).
+The training observatory reads: ``DL4J_TORCH_NUMERICS_WATCHDOG``
+(the non-finite check in the fit funnels, default off) and
+``DL4J_TORCH_NUMERICS_SAMPLE`` (check every Nth step, default 1);
+``DL4J_TORCH_FLIGHT_RECORDER`` (the per-step ring, default on),
+``DL4J_TORCH_FLIGHT_RECORDER_STEPS`` (its capacity, default 256),
+``DL4J_TORCH_FLIGHT_RECORDER_DIR`` (dumps, default ``flightrec``) and
+``DL4J_TORCH_FLIGHT_RECORDER_KEEP`` (the newest dumps kept, default 8);
+``DL4J_TORCH_HBM_SAMPLE_STEPS`` (device memory gauges refreshed every
+Nth record, default 16; all ``common/diagnostics.py``);
+``DL4J_TORCH_STEPSTATS`` (the per-step phase breakdown, default on),
+``DL4J_TORCH_STEPSTATS_STEPS`` (its ring, default 1024),
+``DL4J_TORCH_STRAGGLER_FACTOR`` and ``DL4J_TORCH_STRAGGLER_MIN_STEP``
+(a straggler trips past factor x the step mean, default 2.0, above a
+mean step of 1e-3 s; ``common/stepstats.py``);
+``DL4J_TORCH_OBSERVATORY_PORT`` (the leader's step-stats aggregator,
+default 9470; ``parallel/sharedtraining.py``); and
+``DL4J_TORCH_LAYERPROF`` (the ``dl4j.<name>`` scopes, default on;
+``Environment.extra["layerprof"]`` overrides it; ``common/layerprof.py``).
 
 :func:`resolve_device` is the one place the port's entry points turn
 ``device=None`` into a device: the card, or an error that says how to
@@ -69,6 +87,17 @@ class _Env:
     sharded_update: bool = True
     fsdp: bool = True
     encoded_update: bool = True
+    numerics_watchdog: bool = False
+    numerics_sample: int = 1
+    flight_recorder: bool = True
+    flight_recorder_steps: int = 256
+    flight_recorder_dir: str = "flightrec"
+    flight_recorder_keep: int = 8
+    hbm_sample_steps: int = 16
+    stepstats: bool = True
+    straggler_factor: float = 2.0
+    straggler_min_step: float = 1e-3
+    observatory_port: int = 9470
     extra: dict = field(default_factory=dict)
 
 
@@ -85,9 +114,12 @@ class Environment:
             return inst
         with cls._lock:
             if cls._inst is None:
-                def flag(name: str) -> bool:
-                    return os.environ.get(name, "1") in (
+                def flag(name: str, default: str = "1") -> bool:
+                    return os.environ.get(name, default) in (
                         "1", "true", "True", "yes")
+
+                def num(name: str, default: str, kind=int):
+                    return kind(os.environ.get(name, default))
                 cls._inst = _Env(
                     telemetry=flag("DL4J_TORCH_TELEMETRY"),
                     retrace_warn_threshold=int(os.environ.get(
@@ -97,7 +129,26 @@ class Environment:
                         "DL4J_TORCH_DEVICE_PREFETCH_DEPTH", "2")),
                     sharded_update=flag("DL4J_TORCH_SHARDED_UPDATE"),
                     fsdp=flag("DL4J_TORCH_FSDP"),
-                    encoded_update=flag("DL4J_TORCH_ENCODED_UPDATE"))
+                    encoded_update=flag("DL4J_TORCH_ENCODED_UPDATE"),
+                    numerics_watchdog=flag("DL4J_TORCH_NUMERICS_WATCHDOG",
+                                           "0"),
+                    numerics_sample=num("DL4J_TORCH_NUMERICS_SAMPLE", "1"),
+                    flight_recorder=flag("DL4J_TORCH_FLIGHT_RECORDER"),
+                    flight_recorder_steps=num(
+                        "DL4J_TORCH_FLIGHT_RECORDER_STEPS", "256"),
+                    flight_recorder_dir=os.environ.get(
+                        "DL4J_TORCH_FLIGHT_RECORDER_DIR", "flightrec"),
+                    flight_recorder_keep=num(
+                        "DL4J_TORCH_FLIGHT_RECORDER_KEEP", "8"),
+                    hbm_sample_steps=num("DL4J_TORCH_HBM_SAMPLE_STEPS",
+                                         "16"),
+                    stepstats=flag("DL4J_TORCH_STEPSTATS"),
+                    straggler_factor=num("DL4J_TORCH_STRAGGLER_FACTOR",
+                                         "2.0", float),
+                    straggler_min_step=num("DL4J_TORCH_STRAGGLER_MIN_STEP",
+                                           "1e-3", float),
+                    observatory_port=num("DL4J_TORCH_OBSERVATORY_PORT",
+                                         "9470"))
             return cls._inst
 
     @classmethod

@@ -1,8 +1,8 @@
 """Metrics registry and one-timeline tracing.
 
 Counterpart of ``deeplearning4j_tpu/common/telemetry.py`` (its metric
-and trace core; the train-step span and the metrics listener come with
-the training observatory):
+and trace core and the fit funnels' step span; the metrics listener
+needs the dashboard's stats storage, ROADMAP item 14):
 
 - :class:`MetricsRegistry`: one process-wide, thread-safe registry of
   labelled :class:`Counter`, :class:`Gauge` and :class:`Histogram`
@@ -16,6 +16,11 @@ the training observatory):
   "i" events in one bounded ring (:func:`trace_events`), written by
   :func:`export_chrome_trace`; :func:`merge_chrome_traces` and
   :func:`merge_host_traces` fold several trace files into one timeline.
+- :func:`step_span`: the one instrumentation point of every fit
+  funnel: the ``dl4j_train_step_seconds{model}`` histogram and a
+  ``train_step`` trace span; :func:`observe_feed_stall`: time the step
+  loop waited on its input (``dl4j_feed_stall_seconds{source}``, and the
+  step breakdown's ``data_wait``, ``common/stepstats.py``).
 - :func:`on_reset`: modules with process-wide singletons of their own
   (the SLO tracker, the request recorder, the trace-context gate, the
   access-log configuration) register a reset hook that
@@ -548,3 +553,68 @@ def merge_host_traces(output_path: str, *sources) -> str:
                               "clock_offset_s": float(offset_s),
                               "events": len(doc.get("traceEvents", []))})
     return _write_trace(output_path, events, meta)
+
+
+_STEP_HELP = ("host-observed train-step wall time: dispatch plus "
+              "whatever sync the funnel performs (seconds)")
+
+
+class _StepSpan:
+    """The fit-funnel instrumentation point: times the with-block into
+    the ``dl4j_train_step_seconds`` histogram (labelled by model class)
+    and records a ``train_step`` chrome-trace span, one call site per
+    funnel. The clock always runs (the flight recorder reads
+    ``duration`` whatever the metrics gate); slots and a bound
+    histogram cached per model keep it cheap once a step."""
+
+    __slots__ = ("model", "attrs", "_bound", "t0", "p0", "duration")
+
+    def __init__(self, model: str, attrs: dict):
+        self.model = model
+        self.attrs = attrs
+
+    def __enter__(self):
+        self.duration = 0.0
+        self.p0 = time.perf_counter()
+        reg = MetricsRegistry.get()
+        if not reg._state["on"]:
+            self._bound = None
+            return self
+        cache = reg.__dict__.setdefault("_step_bound", {})
+        b = cache.get(self.model)
+        if b is None:
+            b = cache[self.model] = histogram(
+                "dl4j_train_step_seconds",
+                _STEP_HELP).bind(model=self.model)
+        self._bound = b
+        self.t0 = time.time()
+        return self
+
+    def __exit__(self, *exc):
+        dt = time.perf_counter() - self.p0
+        self.duration = dt
+        if self._bound is None:
+            return False
+        self._bound.observe(dt)
+        _trace_buffer.append(_event("train_step", "X", self.t0,
+                                    {"model": self.model, **self.attrs},
+                                    dur=int(dt * 1e6)))
+        return False
+
+
+def step_span(model: str, **attrs) -> _StepSpan:
+    """``with step_span("MultiLayerNetwork") as sp:`` around one train
+    step; ``sp.duration`` is its wall seconds after the block."""
+    return _StepSpan(model, attrs)
+
+
+def observe_feed_stall(seconds: float, source: str) -> None:
+    """Time a consumer spent blocked waiting for its next batch:
+    non-zero buckets mean the input pipeline, not the device, sets the
+    pace. Also the step breakdown's ``data_wait``."""
+    histogram("dl4j_feed_stall_seconds",
+              "time the step loop waited on the input pipeline for "
+              "its next batch (seconds)").observe(seconds, source=source)
+    # lazy import: stepstats imports this module
+    from deeplearning4j_tpu_torch.common import stepstats
+    stepstats.note_data_wait(seconds, source)

@@ -41,11 +41,13 @@ from __future__ import annotations
 
 import queue
 import threading
+import time
 from typing import Callable, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.common import telemetry
 from deeplearning4j_tpu_torch.common.environment import (Environment,
                                                          resolve_device)
 from deeplearning4j_tpu_torch.datasets.iterators import (
@@ -232,7 +234,13 @@ class DevicePrefetcher(DataSetIterator):
         self._advance()
 
     def _advance(self):
-        item = self._queue.get()
+        if telemetry.enabled():
+            t0 = time.perf_counter()
+            item = self._queue.get()
+            telemetry.observe_feed_stall(time.perf_counter() - t0,
+                                         source="device_prefetch")
+        else:
+            item = self._queue.get()
         if isinstance(item, _FeederError):
             self._error, self._next = item.exc, None
         elif item is self._SENTINEL:

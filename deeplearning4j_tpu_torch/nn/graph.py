@@ -47,6 +47,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from deeplearning4j_tpu_torch.common import layerprof
 from deeplearning4j_tpu_torch.common.environment import resolve_device
 from deeplearning4j_tpu_torch.common.remat import segment_plan
 from deeplearning4j_tpu_torch.nn.conf.graph_conf import \
@@ -130,6 +131,14 @@ def _as_list(v) -> list:
 
 
 class ComputationGraph(Trainable):
+
+    _FUNNEL = "ComputationGraph"
+
+    def _layer_types(self) -> dict:
+        return {layerprof.sanitize(n):
+                type(self.conf.vertices[n].content).__name__
+                for n in self._topo}
+
     def __init__(self, conf: ComputationGraphConfiguration):
         self.conf = conf
         self.params: Dict[str, Dict[str, torch.Tensor]] = {}
@@ -270,7 +279,11 @@ class ComputationGraph(Trainable):
             acts = dict(in_acts)
             ns = {}
             for name in names:
-                acts[name], s_ = run_vertex(name, acts)
+                if training:
+                    with layerprof.scope(name):
+                        acts[name], s_ = run_vertex(name, acts)
+                else:
+                    acts[name], s_ = run_vertex(name, acts)
                 if s_ is not None:
                     ns[name] = s_
             return {k: acts[k] for k in out_names}, ns
@@ -422,14 +435,17 @@ class ComputationGraph(Trainable):
         acts, new_states = self._forward(params, states, inputs,
                                          training=training, rng=rng,
                                          want_logits=True, fmask=fmask)
-        loss = self._regularization(params)
-        for i, name in enumerate(self.conf.network_outputs):
-            layer = self.conf.vertices[name].content
-            if not isinstance(layer, BaseOutputLayer):
-                continue
-            loss = loss + layer.compute_loss(
-                labels[i], acts[name], from_logits=layer.wants_logits(),
-                mask=lmasks[i] if lmasks is not None else None)
+        # the loss and the regularization belong to no layer: named
+        with layerprof.scope("loss"):
+            loss = self._regularization(params)
+            for i, name in enumerate(self.conf.network_outputs):
+                layer = self.conf.vertices[name].content
+                if not isinstance(layer, BaseOutputLayer):
+                    continue
+                loss = loss + layer.compute_loss(
+                    labels[i], acts[name],
+                    from_logits=layer.wants_logits(),
+                    mask=lmasks[i] if lmasks is not None else None)
         return loss, new_states
 
     # -- evaluation ------------------------------------------------------

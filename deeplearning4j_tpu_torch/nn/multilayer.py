@@ -48,6 +48,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from deeplearning4j_tpu_torch.common import layerprof
 from deeplearning4j_tpu_torch.common.environment import resolve_device
 from deeplearning4j_tpu_torch.common.remat import segment_plan
 from deeplearning4j_tpu_torch.nn.conf.builders import \
@@ -60,6 +61,13 @@ from deeplearning4j_tpu_torch.nn.trainer import Trainable
 
 
 class MultiLayerNetwork(Trainable):
+
+    _FUNNEL = "MultiLayerNetwork"
+
+    def _layer_types(self) -> dict:
+        return {f"layer_{i}": type(layer).__name__
+                for i, layer in enumerate(self.conf.layers)}
+
     def __init__(self, conf: MultiLayerConfiguration):
         self.conf = conf
         self.params: Dict[str, Dict[str, torch.Tensor]] = {}
@@ -177,7 +185,11 @@ class MultiLayerNetwork(Trainable):
         def run_segment(lo, hi, h):
             ns = {}
             for i in range(lo, hi):
-                h, ns[f"layer_{i}"] = run_layer(i, h)
+                if training:
+                    with layerprof.scope(f"layer_{i}"):
+                        h, ns[f"layer_{i}"] = run_layer(i, h)
+                else:
+                    h, ns[f"layer_{i}"] = run_layer(i, h)
             return h, ns
 
         new_states = {}
@@ -267,10 +279,12 @@ class MultiLayerNetwork(Trainable):
         out, new_states = self._forward(params, states, inputs[0],
                                         training=training, rng=rng,
                                         want_logits=True, mask=fmask)
-        data_loss = out_layer.compute_loss(
-            labels[0], out, from_logits=want_logits,
-            mask=lmasks[0] if lmasks is not None else None)
-        return data_loss + self._regularization(params), new_states
+        # the loss and the regularization belong to no layer: named
+        with layerprof.scope("loss"):
+            data_loss = out_layer.compute_loss(
+                labels[0], out, from_logits=want_logits,
+                mask=lmasks[0] if lmasks is not None else None)
+            return data_loss + self._regularization(params), new_states
 
     # -- stateful streaming inference ------------------------------------
     def rnn_time_step(self, x) -> torch.Tensor:

@@ -59,6 +59,24 @@ ETL and copies each batch to the device ahead of the step, as the JAX
 package's fit funnels do (``DL4J_TORCH_DEVICE_PREFETCH=0`` turns it
 off; the trajectories are the same bits either way).
 
+The training observatory (``common/telemetry.py``, ``stepstats.py``,
+``diagnostics.py``, ``layerprof.py``) sees every step as the JAX
+package's funnels show it, under the model name ``"MultiLayerNetwork"``
+or ``"ComputationGraph"``: a ``step_span`` around each fit step
+(``dl4j_train_step_seconds``, a ``train_step`` trace span) and then
+``diagnostics.after_step`` (the step's phase breakdown closed, a
+flight-recorder record, and the numerics watchdog on the loss and, while
+it is armed, the global gradient norm); under accumulation the watchdog
+checks each micro-batch's gradients before they join the window and
+``record_step`` records; each tBPTT segment records with its
+``tbptt_segment``; ``fit_steps`` is one span and one record over its
+loop. Each layer or vertex of the training forward, the loss and the
+update tail run in ``layerprof.scope``s, and ``layer_report`` charges
+one step's work to them. A replica copy that a ParallelWrapper steps
+beside the wrapped model records nothing (``_observe``): the wrapped
+model's records are the global step's, as the JAX package's one
+program's are. None of it changes what the step computes.
+
 Data parallelism (``set_dp_mesh``, the JAX package's): the model is one
 replica of a mesh (``parallel/mesh.py``) and trains on its shard of the
 global batch. Its training forward runs with the replica current
@@ -90,7 +108,7 @@ from typing import Dict, List, Optional
 
 import torch
 
-from deeplearning4j_tpu_torch.common import telemetry
+from deeplearning4j_tpu_torch.common import diagnostics, layerprof, telemetry
 from deeplearning4j_tpu_torch.common.rng import RngKey
 from deeplearning4j_tpu_torch.datasets.prefetch import maybe_device_prefetch
 from deeplearning4j_tpu_torch.learning.updaters import (FSDP_KEY, is_encoded,
@@ -134,6 +152,10 @@ class Trainable:
         self._fsdp_specs: dict = {}
         self._rnn_stream_states: Optional[_Tree] = None
         self._rnn_stream_batch = 0
+        self._observe = True
+        self._last_gnorm: Optional[torch.Tensor] = None
+        #: the last fit batch's input and label shapes (layer_report)
+        self._layerprof_shapes = None
 
     def _next_key(self) -> RngKey:
         """This step's random key; the stream advances."""
@@ -223,20 +245,47 @@ class Trainable:
         for k in self._recurrent_keys():
             self.states[k] = {}
 
+    #: the model name the fit funnels record under
+    _FUNNEL = "Trainable"
+
     def _fit_batch(self, inputs: List[torch.Tensor],
                    labels: List[torch.Tensor], lmasks, fmask=None) -> None:
         states = self._with_zero_rnn_states(self.states,
                                             int(inputs[0].shape[0]))
+        self._layerprof_shapes = (
+            [(tuple(x.shape), x.dtype) for x in inputs],
+            [(tuple(y.shape), y.dtype) for y in labels])
         if self.conf.backprop_type is BackpropType.TRUNCATED_BPTT and \
                 inputs[0].dim() == 3:
             new_states = self._fit_tbptt(states, inputs, labels, lmasks,
                                          fmask)
+        elif self._accum_steps > 1:
+            with telemetry.step_span(
+                    self._FUNNEL, accumulating=self._accum_steps) as sp:
+                new_states = self._accumulate_step(states, inputs, labels,
+                                                   lmasks, fmask)
+            if self._observe:
+                diagnostics.record_step(
+                    self, self._FUNNEL, self.iteration_count - 1,
+                    self._score, sp, grad_norm=self._last_gnorm)
         else:
-            step = self._accumulate_step if self._accum_steps > 1 \
-                else self._train_step
-            new_states = step(states, inputs, labels, lmasks, fmask)
+            with telemetry.step_span(self._FUNNEL) as sp:
+                new_states = self._train_step(states, inputs, labels,
+                                              lmasks, fmask)
+            self._after_step(sp)
         self._keep_states(new_states)
         self._batch_done(inputs)
+
+    def _after_step(self, span, **extra) -> None:
+        """The funnel's record and watchdog for the step just taken
+        (``iteration_count - 1``): the flight recorder, the step
+        breakdown, and the numerics check, which scans the updated
+        parameters for the first bad leaf on a trip."""
+        if self._observe:
+            diagnostics.after_step(
+                self, self._FUNNEL, self.iteration_count - 1, self._score,
+                span, grad_norm=self._last_gnorm, params=self.params,
+                **extra)
 
     def _fit_tbptt(self, states: _Tree, inputs, labels, lmasks, fmask
                    ) -> _Tree:
@@ -255,6 +304,7 @@ class Trainable:
                 [seg(y, t0, 3) for y in labels],
                 [seg(m, t0, 2) for m in lmasks] if lmasks is not None
                 else None, seg(fmask, t0, 2))
+            self._after_step(None, tbptt_segment=t0 // L)
         return states
 
     def fit_steps(self, ds, steps: int):
@@ -274,8 +324,13 @@ class Trainable:
         inputs, labels, _, _ = self._split(ds, None)
         states = self._with_zero_rnn_states(self.states,
                                             int(inputs[0].shape[0]))
-        for _ in range(steps):
-            states = self._train_step(states, inputs, labels, None)
+        # one span and one record over the loop: the last step's loss
+        # and gradient norm stand for the group, as the JAX package's
+        # compiled loop reports it
+        with telemetry.step_span(self._FUNNEL, steps=steps) as sp:
+            for _ in range(steps):
+                states = self._train_step(states, inputs, labels, None)
+        self._after_step(sp, steps=steps)
         self._keep_states(states)
         self._batch_done(inputs)
         return self
@@ -361,10 +416,20 @@ class Trainable:
         loss, grads, new_states = self._grads(states, inputs, labels,
                                               lmasks, fmask)
         with torch.no_grad():
+            self._last_gnorm = self._grad_norm(grads)
             self._update_tail(grads, self.iteration_count)
         self._score = self._mean_loss(loss)
         self.iteration_count += 1
         return new_states
+
+    def _grad_norm(self, grads: _Tree) -> Optional[torch.Tensor]:
+        """The global gradient norm (f32, on the device) while the
+        numerics watchdog is armed; None otherwise (no work)."""
+        if not diagnostics.watchdog_enabled():
+            return None
+        sq = [torch.sum(torch.square(g.float()))
+              for g in tree_leaves(grads)]
+        return torch.sqrt(sum(sq)) if sq else None
 
     # -- gradient accumulation -------------------------------------------
     def set_accumulation_steps(self, n: int):
@@ -391,7 +456,14 @@ class Trainable:
         full window is applied."""
         loss, grads, new_states = self._grads(states, inputs, labels,
                                               lmasks, fmask)
+        score = self._mean_loss(loss)
         with torch.no_grad():
+            self._last_gnorm = self._grad_norm(grads)
+            if self._observe:
+                # before the sum: a poisoned micro-batch is named here
+                diagnostics.check_numerics(
+                    self, self._FUNNEL, self.iteration_count, score,
+                    grad_norm=self._last_gnorm, grads=grads)
             if self._accum_grads is None:
                 self._accum_grads = grads
             else:
@@ -399,7 +471,7 @@ class Trainable:
         self._accum_count += 1
         if self._accum_count >= self._accum_steps:
             self._apply_accumulated()
-        self._score = self._mean_loss(loss)
+        self._score = score
         self.iteration_count += 1
         return new_states
 
@@ -413,6 +485,10 @@ class Trainable:
         self._updates_applied += 1
 
     def _update_tail(self, grads: _Tree, iteration: int) -> None:
+        with layerprof.scope("optimizer"):
+            self._update_tail_scoped(grads, iteration)
+
+    def _update_tail_scoped(self, grads: _Tree, iteration: int) -> None:
         if self._dp_mode is not zero.UpdateExchange.ENCODED and any(
                 is_encoded(s) for s in self.updater_states.values()):
             # the residual belongs to the encoded exchange
@@ -495,19 +571,29 @@ class Trainable:
         self._dp_encoding = None
         if self._dp_mode in zero.FLAT_MODES:
             n, rank = replica.size, replica.rank
-            if self._dp_mode is zero.UpdateExchange.ENCODED:
-                self._dp_encoding = resolve_encoding(encoding)
-                states = zero.ensure_encoded_states(
-                    self.params, self.updater_states, n, self._dp_encoding)
-            else:
-                states = zero.states_to_sharded(self.params,
-                                                self.updater_states, n)
-            self.updater_states = {k: zero.shard_state(s, rank, n)
-                                   for k, s in states.items()}
+            # the JAX package's sharded-state and fsdp-parameter
+            # placements (parallel/zero.py), as collective spans
+            with diagnostics.collective_span(
+                    "state_placement", "data",
+                    zero.dense_state_bytes(self.updater_states),
+                    entries=len(self.updater_states)):
+                if self._dp_mode is zero.UpdateExchange.ENCODED:
+                    self._dp_encoding = resolve_encoding(encoding)
+                    states = zero.ensure_encoded_states(
+                        self.params, self.updater_states, n,
+                        self._dp_encoding)
+                else:
+                    states = zero.states_to_sharded(self.params,
+                                                    self.updater_states, n)
+                self.updater_states = {k: zero.shard_state(s, rank, n)
+                                       for k, s in states.items()}
             if self._dp_mode is zero.UpdateExchange.FSDP:
-                flat, self._fsdp_specs = zero.params_to_fsdp(self.params,
-                                                             n)
-                self.params = zero.shard_params(flat, rank, n)
+                with diagnostics.collective_span(
+                        "fsdp_param_placement", "data", 0,
+                        entries=len(self.params)):
+                    flat, self._fsdp_specs = zero.params_to_fsdp(
+                        self.params, n)
+                    self.params = zero.shard_params(flat, rank, n)
                 telemetry.gauge(
                     "dl4j_fsdp_param_shard_bytes",
                     "resident bytes of a replica's fsdp flat parameter "
@@ -598,6 +684,67 @@ class Trainable:
                     p[n].copy_(t)
                 self._constrain(key)
             self.updater_states[key] = us
+
+    # -- layer attribution -------------------------------------------------
+    def layer_report(self, data=None, labels=None, **roofline_kw) -> dict:
+        """Per-layer flops / bytes / roofline attribution of one train
+        step at the given batch (or the last fitted batch's shapes, in
+        zeros): ``common/layerprof.attribute_step`` runs the loss, its
+        gradient and the updaters' update (not applied) with every aten
+        op charged to the ``dl4j.<layer>`` scope that ran it; the report
+        joins the kernel decisions each layer made and is published
+        (``layerprof.last_report``, the ``dl4j_layer_*`` gauges). The
+        model is left as it was (parameters, states, random stream).
+        ``roofline_kw``: ``peak_tflops`` / ``peak_hbm_gbps`` (default:
+        the H100's, for the model's compute dtype)."""
+        if not self._initialized:
+            self.init()
+        if self._replica is not None:
+            raise ValueError("layer_report attributes one replica's "
+                             "step: unbind the data-parallel mesh "
+                             "(set_dp_mesh(None)) first")
+        if data is not None and hasattr(data, "features"):
+            data, labels = data.features, data.labels
+        if data is None:
+            shapes = self._layerprof_shapes
+            if shapes is None:
+                raise ValueError(
+                    "layer_report needs a batch: pass (data, labels) "
+                    "or fit at least one batch first")
+            data = [torch.zeros(s, dtype=d) for s, d in shapes[0]]
+            labels = [torch.zeros(s, dtype=d) for s, d in shapes[1]]
+            if self._FUNNEL == "MultiLayerNetwork":
+                data, labels = data[0], labels[0]
+        inputs, labs, lmasks, fmask = self._split(data, labels)
+        states = self._with_zero_rnn_states(self.states,
+                                            int(inputs[0].shape[0]))
+        conf = self.conf
+
+        def step():
+            _, grads, _ = self._grads(states, inputs, labs, lmasks, fmask)
+            with torch.no_grad(), layerprof.scope("optimizer"):
+                for key in self._keys():
+                    g = grads.get(key)
+                    if not g:
+                        continue
+                    g = apply_gradient_normalization(
+                        conf.gradient_normalization,
+                        conf.gradient_normalization_threshold, g)
+                    self._updater(key).apply(
+                        g, self.updater_states[key], self.iteration_count,
+                        self.epoch_count)
+
+        dt = getattr(conf, "compute_dtype", None) or self._dtype
+        roofline_kw.setdefault("peak_tflops",
+                               diagnostics.peak_tflops_for(dt))
+        roofline_kw.setdefault("peak_hbm_gbps", diagnostics.H100_HBM_GBPS)
+        rng = self._rng
+        try:
+            return layerprof.attribute_step(
+                step, model_name=type(self).__name__,
+                layer_types=self._layer_types(), **roofline_kw)
+        finally:
+            self._rng = rng
 
     # ------------------------------------------------------------------
     def score(self, dataset=None) -> float:

@@ -273,8 +273,21 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, lengths,
     if rc != 0:
         raise RuntimeError(f"paged_decode_attention: CUDA launch failed "
                            f"with cudaError {rc}")
-    PAGED_DECODE.launched()
+    PAGED_DECODE.launched(lambda: _paged_cost(q, k_pool, lens, block,
+                                              max_blocks))
     return out
+
+
+def _paged_cost(q, k_pool, lens, block: int, max_blocks: int):
+    """(bytes, operations) of one launch of kernel 10: the valid tokens'
+    K and V rows, q and out, the table entries it reads and the lengths
+    (reading the lengths synchronises)."""
+    b, h, d = (int(s) for s in q.shape)
+    tok = [min(int(n), block * max_blocks) for n in lens.tolist()]
+    blocks = sum(-(-n // block) for n in tok)
+    return (2 * sum(tok) * h * d * k_pool.element_size()
+            + 2 * b * h * d * q.element_size() + 4 * blocks + 4 * b,
+            4 * sum(tok) * h * d)
 
 
 def paged_decode_body(q, k_pool, v_pool, block_tables) -> str:

@@ -118,7 +118,8 @@ def bn_bwd_sums(x2d: torch.Tensor, dy2d: torch.Tensor, mean: torch.Tensor,
                 rstd.data_ptr(), work.data_ptr(), floats, sums.data_ptr(),
                 M, C, ce.DTYPE_CODE[x2d.dtype], stream)
     ce.raise_on_error("bn_bwd_sums", rc)
-    BN_BWD_SUMS.launched()
+    e = x2d.element_size()
+    BN_BWD_SUMS.launched(lambda: (2 * M * C * e + 4 * C * 4, 5 * M * C))
     return sums[0], sums[1]
 
 
@@ -160,7 +161,8 @@ def bn_bwd_dx(x2d: torch.Tensor, dy2d: torch.Tensor, a: torch.Tensor,
                 a.data_ptr(), d.data_ptr(), e.data_ptr(), M, C,
                 ce.DTYPE_CODE[x2d.dtype], stream)
     ce.raise_on_error("bn_bwd_dx", rc)
-    BN_BWD_DX.launched()
+    e = x2d.element_size()
+    BN_BWD_DX.launched(lambda: (3 * M * C * e + 3 * C * 4, 4 * M * C))
     return dx
 
 

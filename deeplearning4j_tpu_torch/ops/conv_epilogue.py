@@ -297,7 +297,8 @@ def scale_shift_act_forward(x: torch.Tensor, scale: torch.Tensor,
                 shift.data_ptr(), x.numel() // C, C, DTYPE_CODE[x.dtype],
                 1 if act == "relu" else 0, stream)
     raise_on_error("scale_shift_act", rc)
-    EPILOGUE.launched()
+    n, e = x.numel(), x.element_size()
+    EPILOGUE.launched(lambda: (2 * n * e + 2 * C * 4, 2 * n))
     return y
 
 
@@ -346,7 +347,9 @@ def epilogue_backward(x2d: torch.Tensor, dy2d: torch.Tensor,
                 chunks, sums.data_ptr(), M, C, DTYPE_CODE[x2d.dtype],
                 1 if act == "relu" else 0, stream)
     raise_on_error("epilogue_backward", rc)
-    EPILOGUE_BWD.launched()
+    e = x2d.element_size()
+    EPILOGUE_BWD.launched(lambda: (3 * M * C * e + 4 * C * 4,
+                                   (7 if act == "relu" else 4) * M * C))
     return dx, sums[1], sums[0]
 
 
@@ -386,7 +389,8 @@ def channel_sums(x2d: torch.Tensor) -> torch.Tensor:
         rc = fn(x2d.data_ptr(), work.data_ptr(), floats, sums.data_ptr(), M,
                 C, DTYPE_CODE[x2d.dtype], stream)
     raise_on_error("channel_sums", rc)
-    CHANNEL_SUMS.launched()
+    e = x2d.element_size()
+    CHANNEL_SUMS.launched(lambda: (M * C * e + 2 * C * 4, 3 * M * C))
     return sums
 
 
@@ -445,7 +449,9 @@ def matmul_bias_act_forward(x2d: torch.Tensor, w: torch.Tensor,
                 y.data_ptr(), M, N, K, DTYPE_CODE[x2d.dtype],
                 1 if act == "relu" else 0, stream)
     raise_on_error(fn_name, rc)
-    MATMUL.launched()
+    e = x2d.element_size()
+    MATMUL.launched(lambda: ((M * K + N * K + M * N) * e + N * 4,
+                             2 * M * K * N))
     return y
 
 

@@ -13,7 +13,9 @@ A :class:`Kernel` names one kernel: its source, the TPU kernel it
 replaces, and ``launches``, the count of launches its wrapper made.
 Wrappers call :meth:`Kernel.launched` right after a successful launch
 and nowhere else, so a run can show that its path went through the
-kernel.
+kernel. A wrapper also hands over its launch's analytic cost (the bytes
+it must move and the operations it does, evaluated only while a launch
+listener is registered: :func:`add_launch_listener`).
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Callable, Dict, List, Optional, Tuple
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -114,6 +116,21 @@ def c_function(library: str, name: str, argtypes, restype=ctypes.c_int):
     return fn
 
 
+#: a launch's analytic ``(bytes, operations)``, computed on demand
+Cost = Callable[[], Tuple[float, float]]
+#: ``fn(kernel_name, cost)`` called at every launch
+_listeners: List[Callable[[str, Optional[Cost]], None]] = []
+
+
+def add_launch_listener(fn: Callable[[str, Optional[Cost]], None]) -> None:
+    _listeners.append(fn)
+
+
+def remove_launch_listener(fn: Callable[[str, Optional[Cost]], None]
+                           ) -> None:
+    _listeners.remove(fn)
+
+
 class Kernel:
     """One hand-written kernel of the port, with its launch count."""
 
@@ -124,9 +141,14 @@ class Kernel:
         self.launches = 0
         self._lock = threading.Lock()
 
-    def launched(self) -> None:
+    def launched(self, cost: Optional[Cost] = None) -> None:
+        """Count one launch and tell the listeners; ``cost()`` gives the
+        launch's ``(bytes, operations)``: each input read once, each
+        output written once, 2 operations a multiply-add."""
         with self._lock:
             self.launches += 1
+        for fn in tuple(_listeners):
+            fn(self.name, cost)
 
 
 #: every kernel of the port, by name

@@ -11,10 +11,12 @@ same three rungs, in the same order:
   3. **auto**: supplied by the caller as ``(fused, reason)`` or a thunk
      returning one.
 
-Every decision increments ``dl4j_kernel_select_total{kernel,decision}``.
-PyTorch runs eagerly, so the port decides at every call, and the
-counter counts executed dispatches (the JAX package decides while
-tracing and counts compiled programs).
+Every decision increments ``dl4j_kernel_select_total{kernel,decision}``
+and is joined to the layer scope that made it
+(``common/layerprof.note_selection``). PyTorch runs eagerly, so the port
+decides at every call, and the counter and a scope's ``sites`` count
+executed dispatches (the JAX package decides while tracing and counts
+compiled programs).
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ import os
 from dataclasses import dataclass
 from typing import Callable, Optional, Tuple, Union
 
-from deeplearning4j_tpu_torch.common import telemetry
+from deeplearning4j_tpu_torch.common import layerprof, telemetry
 from deeplearning4j_tpu_torch.common.environment import Environment
 
 log = logging.getLogger(__name__)
@@ -104,6 +106,7 @@ def select(kernel: str, *,
                             reason)
     if record:
         _select_total.inc(kernel=kernel, decision=sel.decision)
+        layerprof.note_selection(sel)
         log.debug("kernel_select %s -> %s (%s: %s)", kernel,
                   "fused" if sel.fused else "dense", sel.decision,
                   sel.reason)

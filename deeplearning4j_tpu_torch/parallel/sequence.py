@@ -48,6 +48,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from deeplearning4j_tpu_torch.common import layerprof
 from deeplearning4j_tpu_torch.ops import cuda_build
 
 NEG_INF = -1e30
@@ -76,6 +77,30 @@ def _acc(dtype: torch.dtype) -> torch.dtype:
 
 def _scale(d: int) -> float:
     return 1.0 / math.sqrt(d)
+
+
+def flash_cost(name: str, q, k, key_mask, causal: bool
+               ) -> Tuple[float, float]:
+    """(bytes, operations) of one call of kernel ``name`` (7, 8 or 9)
+    on ``[b, h, t, d]`` operands: each input read once and each output
+    written once (the f32 key mask and the lse / delta rows in the
+    accumulation dtype included); 2 operations a multiply-add over the
+    (query, key) pairs the causal mask keeps."""
+    b, h, tq, d = (int(s) for s in q.shape)
+    tk = int(k.shape[-2])
+    e = q.element_size()
+    q_side, k_side = b * h * tq * d * e, b * h * tk * d * e
+    mask = 0 if key_mask is None else int(key_mask.numel()) * 4
+    rows = b * h * tq * max(4, e)
+    m = min(tq, tk)
+    pairs = m * (m + 1) // 2 + (tq - m) * tk if causal else tq * tk
+    ops = b * h * pairs * d
+    if name == "flash_fwd":           # q, k, v -> out, lse
+        return 2 * q_side + 2 * k_side + mask + rows, 4 * ops
+    if name == "flash_bwd_dq":        # q, k, v, dO, lse, delta -> dq
+        return 3 * q_side + 2 * k_side + mask + 2 * rows, 6 * ops
+    # q, k, v, dO, lse, delta -> dk, dv
+    return 2 * q_side + 4 * k_side + mask + 2 * rows, 8 * ops
 
 
 # ---------------------------------------------------------------------------
@@ -234,7 +259,8 @@ def flash_forward(q, k, v, key_mask=None, causal: bool = False
                 out.data_ptr(), lse.data_ptr(), b * h, h, tq, tk, d,
                 _scale(d), int(causal), KERNEL_DTYPES[q.dtype], _stream(q))
     _raise_on_error("flash_forward", rc)
-    FLASH_FWD.launched()
+    FLASH_FWD.launched(lambda: flash_cost("flash_fwd", q, k, key_mask,
+                                          causal))
     return out, lse
 
 
@@ -260,7 +286,8 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, key_mask=None,
                 b * h, h, tq, tk, d, _scale(d), int(causal),
                 KERNEL_DTYPES[q.dtype], _stream(q))
     _raise_on_error("flash_bwd_dq", rc)
-    FLASH_BWD_DQ.launched()
+    FLASH_BWD_DQ.launched(lambda: flash_cost("flash_bwd_dq", q, k,
+                                             key_mask, causal))
     return dq
 
 
@@ -286,7 +313,8 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, key_mask=None,
                 dv.data_ptr(), b * h, h, tq, tk, d, _scale(d), int(causal),
                 KERNEL_DTYPES[q.dtype], _stream(q))
     _raise_on_error("flash_bwd_dkv", rc)
-    FLASH_BWD_DKV.launched()
+    FLASH_BWD_DKV.launched(lambda: flash_cost("flash_bwd_dkv", q, k,
+                                              key_mask, causal))
     return dk, dv
 
 
@@ -337,6 +365,15 @@ def flash_bwd_dkv_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 @flash_bwd_dkv_op.register_fake
 def _flash_bwd_dkv_fake(q, k, v, dout, lse, delta, key_mask, causal):
     return k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+# layer attribution charges each op its kernel's analytic cost (aten
+# dispatch does not see into a custom op); the arguments end with
+# (key_mask, causal) in all three
+for _k in (FLASH_FWD, FLASH_BWD_DQ, FLASH_BWD_DKV):
+    layerprof.register_op_cost(
+        _k.name, lambda args, _n=_k.name: flash_cost(_n, args[0], args[1],
+                                                     args[-2], args[-1]))
 
 
 def _flash_setup(ctx, inputs, output):

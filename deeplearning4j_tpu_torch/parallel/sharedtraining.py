@@ -31,9 +31,17 @@ exchange: under ``update_exchange("encoded")`` they compose the
 ``EncodingSpec`` as the JAX package composes it (an explicit
 ``encoding(...)`` wins); under any other exchange they are inert, and
 logged so. Not ported: tensor and pipeline parallelism (ROADMAP item
-12) and ``checkpoint_dir`` (``utils/checkpoint.py``, item 14). The JAX
-package's scaling observatory sidecar (``common/stepstats.py``, item
-13) is left out.
+12) and ``checkpoint_dir`` (``utils/checkpoint.py``, item 14).
+
+The scaling observatory's sidecar (``common/stepstats.py``) rides beside
+the exchange: each process labels its step breakdowns with its rank and
+ships them to rank 0, the leader, whose ``StepStatsAggregator`` listens
+on ``DL4J_TORCH_OBSERVATORY_PORT`` (0: any free port; the leader
+broadcasts the port it got over the process group). The leader merges
+each step, gauges every worker's skew and trips straggler detection;
+:meth:`SharedTrainingMaster.observatory_report` returns its view. Any
+failure of the sidecar is logged and disables it: observability never
+takes training down, and nothing on the compute path changes with it.
 """
 from __future__ import annotations
 
@@ -41,6 +49,10 @@ import logging
 from dataclasses import dataclass
 from typing import Optional
 
+import torch
+
+from deeplearning4j_tpu_torch.common import stepstats
+from deeplearning4j_tpu_torch.common.environment import Environment
 from deeplearning4j_tpu_torch.parallel import zero
 from deeplearning4j_tpu_torch.parallel.encoding import (EncodingSpec,
                                                         resolve_encoding)
@@ -75,6 +87,15 @@ class SharedTrainingConfiguration:
     collective_timeout_s: float = DEFAULT_TIMEOUT_S
 
 
+def _leader_host(address: Optional[str]) -> str:
+    """The leader's host for the sidecar: the coordinator's, or the
+    loopback for a ``file://`` rendezvous."""
+    if not address or address.startswith("file://"):
+        return "127.0.0.1"
+    host = address.split("://")[-1].rsplit(":", 1)[0]
+    return host or "127.0.0.1"
+
+
 def _init_method(address: str) -> str:
     return address if "://" in address else f"tcp://{address}"
 
@@ -87,6 +108,9 @@ class SharedTrainingMaster:
     def __init__(self, config: Optional[SharedTrainingConfiguration] = None):
         self.config = config or SharedTrainingConfiguration()
         self._mesh: Optional[ProcessGroupMesh] = None
+        self._observatory: Optional[stepstats.StepStatsAggregator] = None
+        self._obs_client: Optional[stepstats.StepStatsClient] = None
+        self._last_observatory: Optional[dict] = None
 
     class Builder:
         def __init__(self, batch_size_per_worker: int = 32):
@@ -213,14 +237,76 @@ class SharedTrainingMaster:
                                             c.update_exchange, model)
         model.set_accumulation_steps(c.accumulation_steps)
         model.set_dp_mesh(mesh, mode=mode, encoding=self._encoding(mode))
+        self._setup_observatory(mesh, model.device)
         try:
             model.fit(iterator, n_epochs=n_epochs)
         except BaseException:
             # the processes may disagree now: no gathering collective
             model._replica, model._dp_mode = None, None
+            self._teardown_observatory()
             raise
+        self._teardown_observatory(mesh.local_replicas()[0], model.device)
         model.set_dp_mesh(None)
         return model
+
+    # -- scaling observatory sidecar -----------------------------------
+    def _setup_observatory(self, mesh: ProcessGroupMesh, device) -> None:
+        """Label this process's breakdowns with its rank and ship them
+        to the leader (rank 0) over a sidecar socket. The leader's port
+        reaches the others by a broadcast (-1: the leader has none, and
+        every process goes on without the sidecar)."""
+        rank, n = mesh.rank, mesh.size
+        replica = mesh.local_replicas()[0]
+        self._prev_label = stepstats.collector().worker_label()
+        stepstats.collector().set_worker(rank, n)
+        leader = _leader_host(self.config.coordinator_address)
+        port = -1
+        if rank == 0:
+            try:
+                self._observatory = stepstats.StepStatsAggregator(
+                    expected_workers=n,
+                    port=Environment.get().observatory_port, host=leader)
+                port = self._observatory.port
+            except OSError as e:
+                log.warning("scaling observatory sidecar disabled: %r", e)
+        # the broadcast is a collective: every process takes part
+        port = int(replica.broadcast(
+            torch.tensor([port], dtype=torch.int64, device=device))[0])
+        if port < 0:
+            return
+        try:
+            self._obs_client = stepstats.StepStatsClient(leader, port,
+                                                         worker=rank)
+            stepstats.collector().add_sink(self._obs_client.ship)
+        except OSError as e:
+            log.warning("scaling observatory sidecar disabled: %r", e)
+
+    def _teardown_observatory(self, replica=None, device=None) -> None:
+        """Close the sidecar. After a fit that every process finished
+        (``replica`` given), a barrier first lets every worker's last
+        breakdown reach the leader before it reports. This process's
+        breakdowns get back the label they had before the fit."""
+        stepstats.collector().set_worker(**self._prev_label)
+        if self._obs_client is not None:
+            stepstats.collector().remove_sink(self._obs_client.ship)
+            self._obs_client.close()
+            self._obs_client = None
+        if replica is not None:
+            replica.all_reduce_sum(torch.zeros(1, device=device))
+            if self._observatory is not None:
+                self._observatory.wait_for_workers(timeout=10.0)
+        if self._observatory is not None:
+            self._last_observatory = self._observatory.report()
+            self._observatory.close()
+            self._observatory = None
+
+    def observatory_report(self) -> Optional[dict]:
+        """The leader's merged cross-worker view (skew, trips, clock
+        offsets): live during fit, the final report afterwards; None on
+        the other processes and in single-process runs."""
+        if self._observatory is not None:
+            return self._observatory.report()
+        return self._last_observatory
 
     def shutdown(self) -> None:
         """Leave the process group."""

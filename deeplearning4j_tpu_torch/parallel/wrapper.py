@@ -32,6 +32,12 @@ model is an ordinary model, whose updater state carries the encoded
 rung's error-feedback state (``ENCODED_KEY``) in the dense layout after
 an encoded run, as in the JAX package.
 
+Each global step runs in a ``collective.update_exchange`` span
+(``diagnostics.collective_span``: ``dl4j_collective_seconds``, the
+exchange's per-replica wire bytes) and observes
+``dl4j_dp_step_seconds{workers}``; the wrapped model's funnel records
+the step (the replicas' copies record nothing).
+
 ``averaging_frequency`` and ``training_mode`` are accepted and logged:
 every step is an exact average. Not ported (``NotImplementedError``):
 tensor and pipeline parallelism (ROADMAP item 12) and ``remesh``, which
@@ -40,10 +46,12 @@ needs the elastic machinery of ``common/faults.py`` (item 14).
 from __future__ import annotations
 
 import logging
+import time
 from typing import List, Optional
 
 import torch
 
+from deeplearning4j_tpu_torch.common import diagnostics, stepstats, telemetry
 from deeplearning4j_tpu_torch.datasets.prefetch import maybe_device_prefetch
 from deeplearning4j_tpu_torch.parallel import zero
 from deeplearning4j_tpu_torch.parallel.encoding import resolve_encoding
@@ -91,6 +99,8 @@ def _clone_replica(model, device: torch.device):
     rep = type(model)(model.conf)
     rep.set_params(clone(model.params), clone(model.states), device)
     _copy_training_state(model, rep)
+    # the wrapped model records the global step for the observatory
+    rep._observe = False
     return rep
 
 
@@ -159,6 +169,8 @@ class ParallelWrapper:
         self.encoding = None
         self._replicas: list = []
         self._placed = False
+        #: per-replica wire bytes of one update exchange (at placement)
+        self._exchange_bytes = 0
         if averaging_frequency != 1:
             log.info("averagingFrequency=%d ignored: every step is an "
                      "exact synchronous exchange", averaging_frequency)
@@ -267,6 +279,11 @@ class ParallelWrapper:
         m.set_accumulation_steps(self.accumulation_steps)
         self._replicas = [m] + [_clone_replica(m, d)
                                 for d in self.mesh.devices[1:]]
+        self._exchange_bytes = (
+            zero.encoded_exchange_bytes(m.params, self.n_workers,
+                                        self.encoding)
+            if mode is zero.UpdateExchange.ENCODED else
+            zero.update_exchange_bytes(m.params, self.n_workers, mode))
         self._placed = True
 
     def _bind(self):
@@ -316,9 +333,34 @@ class ParallelWrapper:
                 for r in range(n)]
 
     def _step(self, shards: list) -> None:
+        """One global step: every replica on its shard. The update
+        exchange runs inside the replicas' steps, so its span wraps them
+        (the step breakdown keeps only its excess over the wrapped step
+        as ``collective``), with its per-replica wire bytes."""
         reps = self._replicas
-        self.mesh.run(lambda r: reps[r]._fit_batch(
-            *reps[r]._split(shards[r], None)))
+
+        def run():
+            self.mesh.run(lambda r: reps[r]._fit_batch(
+                *reps[r]._split(shards[r], None)))
+
+        if not telemetry.enabled():
+            return run()
+        mode = self.update_exchange.value
+        t0 = time.perf_counter()
+        with diagnostics.collective_span("update_exchange",
+                                         self.data_axis,
+                                         self._exchange_bytes, mode=mode):
+            run()
+        telemetry.histogram(
+            "dl4j_dp_step_seconds",
+            "data-parallel sharded step wall time incl. the fused "
+            "in-step gradient all-reduce (seconds)").observe(
+                time.perf_counter() - t0, workers=self.n_workers)
+        telemetry.counter(
+            "dl4j_dp_update_exchange_bytes_total",
+            "estimated per-replica wire bytes moved by the in-step "
+            "update exchange (ring collectives)").inc(
+                self._exchange_bytes, mode=mode)
 
     # ------------------------------------------------------------------
     def fit(self, iterator, *, n_epochs: int = 1) -> "ParallelWrapper":
@@ -332,6 +374,9 @@ class ParallelWrapper:
         runs ``shard_fn`` and the copies on its feeder thread."""
         self._bind()
         ok = False
+        # this process's breakdowns: worker 0 of 1, until the fit ends
+        prev_label = stepstats.collector().worker_label()
+        stepstats.collector().set_worker(0, 1)
         try:
             m = self.model
             staged = maybe_device_prefetch(
@@ -355,6 +400,7 @@ class ParallelWrapper:
                     lis.on_epoch_end(m)
             ok = True
         finally:
+            stepstats.collector().set_worker(**prev_label)
             self._unbind(ok)
         return self
 

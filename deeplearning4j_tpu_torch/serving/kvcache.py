@@ -25,8 +25,10 @@ one preallocated pool into fixed-size blocks instead:
 
 The decode step writes into the pool tensors in place (the JAX package
 stores a functional update back), so the pool never holds a second
-copy. :func:`pool_report` lists every live pool (the JAX package joins
-it into ``diagnostics.memory_report``, not ported).
+copy. :func:`pool_report` lists every live pool and
+:func:`pool_resident_bytes` sums them: ``common/diagnostics.memory_report``
+joins both in as their own resident class (a ``sys.modules`` lookup on
+its side, no import edge).
 """
 from __future__ import annotations
 
@@ -270,3 +272,8 @@ def pool_report() -> List[dict]:
     """Reports of every live pool, by name."""
     return sorted((p.report() for p in list(_pools)),
                   key=lambda r: r["pool"])
+
+
+def pool_resident_bytes() -> int:
+    """Total preallocated KV bytes across live pools."""
+    return sum(p.pool_bytes for p in list(_pools))

@@ -55,6 +55,7 @@ from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.optimize.listeners import TrainingListener
 from deeplearning4j_tpu_torch.utils.serializer import (
     params_from_jax, params_to_jax, updater_state_from_jax)
+from torch_parity import one_intraop_thread  # noqa: F401,E402
 
 RTOL, ATOL = 2e-4, 1e-5
 

@@ -28,6 +28,7 @@ from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.utils.serializer import (params_from_jax,
                                                        params_to_jax)
+from torch_parity import one_intraop_thread  # noqa: F401,E402
 
 PKGS = {"jax": (jb, jl, jc, JAct, JIT, ju), "port": (tb, tl, tc, Activation,
                                                        InputType, tu)}

@@ -46,6 +46,7 @@ from deeplearning4j_tpu_torch.parallel import sequence as sq
 from deeplearning4j_tpu_torch.utils.serializer import (ModelSerializer,
                                                        params_from_jax,
                                                        params_to_jax)
+from torch_parity import one_intraop_thread  # noqa: F401,E402
 
 FWD = dict(rtol=2e-5, atol=2e-6)
 GRAD = dict(rtol=2e-4, atol=2e-5)

@@ -39,6 +39,7 @@ from deeplearning4j_tpu_torch.parallel import sequence as sq
 from deeplearning4j_tpu_torch.utils.serializer import (
     params_from_jax, params_to_jax, updater_state_from_jax,
     updater_state_to_jax)
+from torch_parity import one_intraop_thread  # noqa: F401,E402
 
 FWD = dict(rtol=1e-4, atol=1e-5)
 RTOL, ATOL, ADAM_ATOL = 2e-4, 1e-5, 1e-4

@@ -47,6 +47,7 @@ from deeplearning4j_tpu_torch.nn.conf.layers_recurrent import GravesLSTM
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.utils.serializer import (params_from_jax,
                                                       params_to_jax)
+from torch_parity import one_intraop_thread  # noqa: F401,E402
 
 RTOL, ATOL, ADAM_ATOL = 2e-4, 1e-5, 1e-4
 #: bf16 losses. Under compute_dtype both packages start each fit batch

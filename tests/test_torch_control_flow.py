@@ -30,6 +30,7 @@ from deeplearning4j_tpu.learning.updaters import Sgd as JSgd
 from deeplearning4j_tpu_torch.autodiff import SameDiff, TrainingConfig
 from deeplearning4j_tpu_torch.autodiff import registry
 from deeplearning4j_tpu_torch.learning.updaters import Sgd
+from torch_parity import one_intraop_thread  # noqa: F401,E402
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 

@@ -17,6 +17,7 @@ from deeplearning4j_tpu_torch.activations import Activation
 from deeplearning4j_tpu_torch.common.environment import Environment
 from deeplearning4j_tpu_torch.ops import conv_epilogue as ce
 from deeplearning4j_tpu_torch.ops import kernel_select
+from torch_parity import one_intraop_thread  # noqa: F401,E402
 
 
 @pytest.fixture(autouse=True)

@@ -20,6 +20,7 @@ from deeplearning4j_tpu.models.decoder import DecoderConfig as JaxConfig
 from deeplearning4j_tpu.models.decoder import DecoderLM as JaxDecoder
 from deeplearning4j_tpu_torch.models import DecoderConfig, DecoderLM
 from deeplearning4j_tpu_torch.utils import serializer
+from torch_parity import one_intraop_thread  # noqa: F401,E402
 
 TOL = dict(rtol=0.0, atol=1e-5)
 CONF = dict(vocab_size=97, n_layers=2, n_heads=4, d_model=64, d_ff=128,

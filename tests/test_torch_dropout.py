@@ -37,6 +37,7 @@ from deeplearning4j_tpu_torch.nn.conf.layers_recurrent import (
     LSTM, Bidirectional)
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.utils.serializer import params_from_jax
+from torch_parity import one_intraop_thread  # noqa: F401,E402
 
 KEY = jax.random.PRNGKey(0)
 

@@ -62,6 +62,7 @@ from deeplearning4j_tpu_torch.parallel.wrapper import ParallelWrapper
 from deeplearning4j_tpu_torch.utils.serializer import (ModelSerializer,
                                                        params_from_jax,
                                                        params_to_jax)
+from torch_parity import one_intraop_thread  # noqa: F401,E402
 
 TRAJ_TOL = 2e-4
 SCALAR_RTOL = 1e-6

@@ -33,6 +33,7 @@ from deeplearning4j_tpu_torch.ops import attention as att
 from deeplearning4j_tpu_torch.ops import attention_kernels as ak
 from deeplearning4j_tpu_torch.ops import kernel_select
 from deeplearning4j_tpu_torch.parallel import sequence as sq
+from torch_parity import one_intraop_thread  # noqa: F401,E402
 
 FWD = dict(rtol=2e-5, atol=2e-5)
 GRAD = dict(rtol=2e-4, atol=2e-5)

@@ -37,6 +37,7 @@ from deeplearning4j_tpu_torch.utils.serializer import (ModelSerializer,
                                                        params_from_jax,
                                                        params_to_jax)
 from test_torch_parallel import PAIRS, _np_tree
+from torch_parity import one_intraop_thread  # noqa: F401,E402
 
 RTOL, ATOL = 2e-4, 2e-5
 TIMEOUT_S = 60.0

@@ -34,6 +34,7 @@ from deeplearning4j_tpu_torch.serving.kvcache import (KVBlockPool,
                                                       PoolExhausted,
                                                       pool_report)
 from deeplearning4j_tpu_torch.utils import serializer
+from torch_parity import one_intraop_thread  # noqa: F401,E402
 
 
 # ---------------------------------------------------------------------------

@@ -51,6 +51,7 @@ from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.optimize import listeners as tlis
 from deeplearning4j_tpu_torch.utils.serializer import (params_from_jax,
                                                        params_to_jax)
+from torch_parity import one_intraop_thread  # noqa: F401,E402
 
 FWD = dict(rtol=2e-5, atol=2e-6)
 TRAJ = dict(rtol=2e-4, atol=1e-5)

@@ -14,6 +14,7 @@ from deeplearning4j_tpu_torch.activations import Activation
 from deeplearning4j_tpu_torch.nn.conf import graph_vertices as tv
 from deeplearning4j_tpu_torch.nn.conf import layers as tl
 from deeplearning4j_tpu_torch.nn.weights import WeightInit
+from torch_parity import one_intraop_thread  # noqa: F401,E402
 
 R = np.random.RandomState(21)
 

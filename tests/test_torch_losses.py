@@ -20,6 +20,7 @@ import torch
 
 from deeplearning4j_tpu.lossfunctions import LossFunction as JLoss
 from deeplearning4j_tpu_torch.lossfunctions import LossFunction
+from torch_parity import one_intraop_thread  # noqa: F401,E402
 
 FWD = dict(rtol=2e-5, atol=1e-6)
 GRAD = dict(rtol=2e-4, atol=1e-7)

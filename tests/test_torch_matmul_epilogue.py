@@ -22,6 +22,7 @@ from deeplearning4j_tpu_torch.activations import Activation
 from deeplearning4j_tpu_torch.common import telemetry
 from deeplearning4j_tpu_torch.common.environment import Environment
 from deeplearning4j_tpu_torch.ops import conv_epilogue as ce
+from torch_parity import one_intraop_thread  # noqa: F401,E402
 
 FWD_TOL, GRAD_TOL = 2e-5, 2e-4
 

@@ -27,6 +27,7 @@ from deeplearning4j_tpu_torch.common.environment import Environment
 from deeplearning4j_tpu_torch.ops import attention_kernels as ak
 from deeplearning4j_tpu_torch.ops import cuda_build, kernel_select
 from deeplearning4j_tpu_torch.ops import sampling
+from torch_parity import one_intraop_thread  # noqa: F401,E402
 
 TOL = dict(rtol=0.0, atol=1e-5)
 B, H, D, BLOCK, MAX_BLOCKS, NUM_BLOCKS = 6, 2, 16, 4, 5, 24

@@ -54,6 +54,7 @@ from deeplearning4j_tpu_torch.parallel.scaling import (measure_dp_scaling,
 from deeplearning4j_tpu_torch.parallel.wrapper import ParallelWrapper
 from deeplearning4j_tpu_torch.utils.serializer import (params_from_jax,
                                                        params_to_jax)
+from torch_parity import one_intraop_thread  # noqa: F401,E402
 
 RTOL, ATOL = 2e-4, 2e-5
 TIMEOUT_S = 60.0

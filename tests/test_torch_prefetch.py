@@ -47,6 +47,7 @@ from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.utils.serializer import (params_from_jax,
                                                        params_to_jax)
+from torch_parity import one_intraop_thread  # noqa: F401,E402
 
 RTOL, ATOL = 2e-4, 1e-5
 SMALL = dict(STAGES=((1, 8), (1, 16)), height=32, width=32, num_classes=10)

@@ -32,6 +32,7 @@ from deeplearning4j_tpu_torch.models.pretrained_gates import (
     HARD_GATE, eval_resnet_cifar_hard)
 from deeplearning4j_tpu_torch.utils.serializer import (
     ModelSerializer, params_to_jax, updater_state_to_jax)
+from torch_parity import one_intraop_thread  # noqa: F401,E402
 
 ROOT = Path(__file__).resolve().parent.parent
 ZIPS = ("lenet", "charrnn", "resnet_cifar")

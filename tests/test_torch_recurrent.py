@@ -23,6 +23,7 @@ from deeplearning4j_tpu.nn.conf.inputs import InputType as JInputType
 from deeplearning4j_tpu_torch.nn.conf import layers as tlayers
 from deeplearning4j_tpu_torch.nn.conf import layers_recurrent as trec
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+from torch_parity import one_intraop_thread  # noqa: F401,E402
 
 RTOL, ATOL = 2e-5, 1e-6
 B, T, F, H = 3, 7, 5, 6

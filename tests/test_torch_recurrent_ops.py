@@ -24,6 +24,7 @@ from deeplearning4j_tpu.autodiff.registry import get_op as jax_get_op
 from deeplearning4j_tpu.autodiff.samediff import SameDiff as JSameDiff
 from deeplearning4j_tpu_torch.autodiff import SameDiff
 from deeplearning4j_tpu_torch.autodiff.registry import get_op
+from torch_parity import one_intraop_thread  # noqa: F401,E402
 
 FWD = dict(rtol=2e-5, atol=1e-6)
 GRAD = dict(rtol=2e-4, atol=2e-5)

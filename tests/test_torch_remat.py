@@ -55,6 +55,7 @@ from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.utils.serializer import params_from_jax
 from test_torch_accumulation import _graph_batch, _same_model, graph_pair
+from torch_parity import one_intraop_thread  # noqa: F401,E402
 
 RTOL, ATOL = 2e-4, 1e-5
 

@@ -48,6 +48,7 @@ from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
 from deeplearning4j_tpu_torch.serving import (AdmissionController,
                                               InferenceServer, ModelRegistry,
                                               RequestRecorder, SLOTracker)
+from torch_parity import one_intraop_thread  # noqa: F401,E402
 
 TIMEOUT = 60
 SLACK_US = 1000

@@ -28,6 +28,7 @@ from deeplearning4j_tpu_torch.models.zoo import ResNet50
 from deeplearning4j_tpu_torch.serving import InferenceServer, ModelRegistry
 from deeplearning4j_tpu_torch.utils import ModelSerializer
 from deeplearning4j_tpu_torch.utils.serializer import params_from_jax
+from torch_parity import one_intraop_thread  # noqa: F401,E402
 
 ROOT = Path(__file__).resolve().parent.parent
 CIFAR_ZIP = ROOT / "deeplearning4j_tpu" / "models" / "pretrained" / \

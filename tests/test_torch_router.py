@@ -46,6 +46,7 @@ from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
 from deeplearning4j_tpu_torch.serving import RequestRecorder, ServingRouter
 from deeplearning4j_tpu_torch.serving.router import replica_devices
 from deeplearning4j_tpu_torch.utils.serializer import params_from_jax
+from torch_parity import one_intraop_thread  # noqa: F401,E402
 
 FWD = dict(rtol=2e-5, atol=1e-6)
 BUCKET = 8

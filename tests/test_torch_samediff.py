@@ -24,6 +24,7 @@ from deeplearning4j_tpu_torch.autodiff import (SameDiff, TrainingConfig,
                                                VariableType)
 from deeplearning4j_tpu_torch.learning.updaters import Adam
 from deeplearning4j_tpu_torch.utils.serializer import ModelSerializer
+from torch_parity import one_intraop_thread  # noqa: F401,E402
 
 FWD = dict(rtol=2e-5, atol=1e-6)
 GRAD = dict(rtol=2e-4, atol=1e-6)

@@ -16,6 +16,7 @@ from deeplearning4j_tpu.learning import schedules as js
 from deeplearning4j_tpu.learning import updaters as ju
 from deeplearning4j_tpu_torch.learning import schedules as ts
 from deeplearning4j_tpu_torch.learning import updaters as tu
+from torch_parity import one_intraop_thread  # noqa: F401,E402
 
 RTOL = 1e-6
 

@@ -28,6 +28,7 @@ from deeplearning4j_tpu_torch.autodiff import SameDiff, TrainingConfig
 from deeplearning4j_tpu_torch.autodiff.registry import get_op
 from deeplearning4j_tpu_torch.common.rng import RngKey
 from deeplearning4j_tpu_torch.learning.updaters import Sgd
+from torch_parity import one_intraop_thread  # noqa: F401,E402
 
 
 def test_namespaces_build_the_jax_graph():

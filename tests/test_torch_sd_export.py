@@ -29,6 +29,7 @@ from deeplearning4j_tpu_torch.autodiff.samediff import SameDiff
 from deeplearning4j_tpu_torch.common.environment import Environment
 from deeplearning4j_tpu_torch.common.rng import RngKey
 from deeplearning4j_tpu_torch.parallel import sequence
+from torch_parity import one_intraop_thread  # noqa: F401,E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EXACT = dict(rtol=1e-6, atol=1e-7)

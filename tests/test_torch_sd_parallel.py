@@ -32,6 +32,7 @@ from deeplearning4j_tpu_torch.learning.updaters import Adam
 from deeplearning4j_tpu_torch.modelimport.tensorflow.bert_graph import (
     build_frozen_bert, import_and_attach_mlm)
 from deeplearning4j_tpu_torch.parallel.mesh import make_mesh
+from torch_parity import one_intraop_thread  # noqa: F401,E402
 
 TIMEOUT_S = 60.0
 #: the JAX package's bars for DP against one device

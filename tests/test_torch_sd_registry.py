@@ -35,6 +35,7 @@ from deeplearning4j_tpu_torch.autodiff.registry import (OP_DOMAINS,
                                                         OP_REGISTRY,
                                                         get_op, op_coverage)
 from deeplearning4j_tpu_torch.common.rng import RngKey
+from torch_parity import one_intraop_thread  # noqa: F401,E402
 
 FWD = dict(rtol=2e-5, atol=1e-6)
 GRAD = dict(rtol=2e-4, atol=2e-5)
@@ -399,7 +400,24 @@ def _float_idx(arrays):
             if np.asarray(a).dtype.kind == "f"]
 
 
-def _jax_run(name, ins, attrs, cts):
+#: the JAX package's forward outputs by (op, variant): computed once a
+#: module, for the cotangents, the parity check and the validator
+_JAX_OUTS: dict = {}
+
+
+def _jax_outs(name, k):
+    key = (name, k)
+    if key not in _JAX_OUTS:
+        ins, attrs = CASES[name][k]
+        _JAX_OUTS[key] = [np.asarray(o) for o in _outs(jax_get_op(name)(
+            [jnp.asarray(a) for a in ins], dict(attrs)))]
+    return _JAX_OUTS[key]
+
+
+def _jax_run(name, k, cts):
+    """The JAX package's outputs (cached) and its gradient of
+    ``Σ out·ct`` with respect to every float input."""
+    ins, attrs = CASES[name][k]
     fn = jax_get_op(name)
     fidx = _float_idx(ins)
     base = [jnp.asarray(a) for a in ins]
@@ -412,7 +430,7 @@ def _jax_run(name, ins, attrs, cts):
         return sum(jnp.sum(o * ct) for o, ct in zip(outs, cts)
                    if ct is not None), outs
 
-    outs = [np.asarray(o) for o in _outs(fn(list(base), dict(attrs)))]
+    outs = _jax_outs(name, k)
     grads = None
     if fidx and any(ct is not None for ct in cts):
         grads = jax.grad(lambda *w: loss(*w)[0],
@@ -499,12 +517,10 @@ def test_op_matches_jax(name):
         if OP_DOMAINS[name] == "random":
             _random_matches_jax(name, ins, attrs, what)
             continue
-        j_outs = [np.asarray(o) for o in _outs(jax_get_op(name)(
-            [jnp.asarray(a) for a in ins], dict(attrs)))]
-        cts = _cotangents(name, j_outs)
+        cts = _cotangents(name, _jax_outs(name, k))
         if name in NO_JAX_GRAD:
             cts = [None] * len(cts)
-        j_outs, j_grads = _jax_run(name, ins, attrs, cts)
+        j_outs, j_grads = _jax_run(name, k, cts)
         p_outs, p_grads = _port_run(name, ins, attrs, cts)
         assert len(p_outs) == len(j_outs), what
         for o, (p, j) in enumerate(zip(p_outs, j_outs)):
@@ -531,8 +547,7 @@ def test_opvalidation_coverage_over_registered_ops():
             opvalidation.validate(opvalidation.TestCase(
                 op=name, inputs=ins, attrs=_random_keys(attrs)[1]))
             continue
-        want = [np.asarray(o) for o in _outs(jax_get_op(name)(
-            [jnp.asarray(a) for a in ins], dict(attrs)))]
+        want = _jax_outs(name, 0)
         opvalidation.validate(opvalidation.TestCase(
             op=name, inputs=ins, attrs=attrs, expected=want,
             fwd_tol=2e-5))

@@ -17,6 +17,7 @@ from deeplearning4j_tpu_torch.learning.updaters import Adam, Nesterovs
 from deeplearning4j_tpu_torch.models.zoo import ResNet50
 from deeplearning4j_tpu_torch.utils.serializer import (
     UPDATER_ENTRY, ModelSerializer, params_to_jax, updater_state_to_jax)
+from torch_parity import one_intraop_thread  # noqa: F401,E402
 
 SMALL = dict(STAGES=((1, 8), (1, 16)), height=32, width=32, num_classes=10)
 

@@ -38,6 +38,7 @@ from deeplearning4j_tpu_torch.serving import (AdmissionController,
                                               RequestRecorder, ServingBatcher)
 from deeplearning4j_tpu_torch.serving.registry import (_SameDiffAdapter,
                                                        load_model)
+from torch_parity import one_intraop_thread  # noqa: F401,E402
 
 FWD = dict(rtol=2e-5, atol=1e-6)
 TIMEOUT = 60

@@ -53,6 +53,7 @@ from deeplearning4j_tpu_torch.parallel.sharedtraining import (
 from deeplearning4j_tpu_torch.parallel.wrapper import ParallelWrapper
 from deeplearning4j_tpu_torch.utils.serializer import (params_from_jax,
                                                        params_to_jax)
+from torch_parity import one_intraop_thread  # noqa: F401,E402
 
 RTOL, ATOL = 2e-4, 2e-5
 ROOT = Path(__file__).resolve().parents[1]
@@ -153,9 +154,12 @@ _CHILD = textwrap.dedent("""
         master.fit(net, ListDataSetIterator(shards))
     finally:
         master.shutdown()
+    from deeplearning4j_tpu_torch.common import stepstats
     torch.save({"params": net.params, "states": net.states,
                 "score": net.score(), "batch": net.last_batch_size,
-                "iterations": net.iteration_count},
+                "iterations": net.iteration_count,
+                "observatory": master.observatory_report(),
+                "breakdowns": stepstats.collector().records()},
                f"{work}/rank{rank}.pt")
 """)
 
@@ -166,7 +170,9 @@ def _run_ranks(tmp_path, net, batches, world, mode):
     np.savez(tmp_path / "batches.npz",
              **{f"{k}{i}": a for i, b in enumerate(batches)
                 for k, a in zip("xy", b)})
-    env = {**os.environ, "OMP_NUM_THREADS": "1"}
+    # the observatory's leader takes any free port (and broadcasts it)
+    env = {**os.environ, "OMP_NUM_THREADS": "1",
+           "DL4J_TORCH_OBSERVATORY_PORT": "0"}
     procs = [subprocess.Popen(
         [sys.executable, "-c", _CHILD, str(ROOT), str(tmp_path), str(r),
          str(world), mode], env=env, cwd=str(tmp_path),
@@ -259,3 +265,20 @@ def test_master_builders_and_refusals(tmp_path):
         .encoding("int8").build().config
     assert enc.encoding.scheme == "int8" and enc.update_exchange == "fsdp"
     assert json.loads(net.conf.to_json())
+
+
+def test_two_process_master_observatory_report(tmp_path):
+    """Each rank labels its step breakdowns with its rank and ships them
+    to rank 0's aggregator over the sidecar socket: the leader's report
+    has every step of both workers, the other rank has none."""
+    _, net = _pair()
+    ranks = _run_ranks(tmp_path, net, _batches(), 2, "dense")
+    lead, other = ranks[0]["observatory"], ranks[1]["observatory"]
+    assert other is None
+    assert lead["steps_merged"] == STEPS and lead["workers"] == 2
+    assert lead["trips"] >= 0 and lead["max_skew_seconds"] >= 0
+    assert set(lead["worker_clock_offsets_s"]) == {0, 1}
+    for r, res in enumerate(ranks):
+        bd = res["breakdowns"]
+        assert [b["worker"] for b in bd] == [r] * STEPS
+        assert all(b["n_workers"] == 2 for b in bd)

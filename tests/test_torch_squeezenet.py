@@ -39,6 +39,7 @@ from deeplearning4j_tpu_torch.serving import InferenceServer, ModelRegistry
 from deeplearning4j_tpu_torch.utils import ModelSerializer
 from deeplearning4j_tpu_torch.utils.serializer import (params_from_jax,
                                                        params_to_jax)
+from torch_parity import one_intraop_thread  # noqa: F401,E402
 
 RTOL, ATOL = 1e-4, 1e-5
 SMALL = dict(num_classes=10, height=64, width=64)

@@ -28,6 +28,7 @@ import collections
 import numpy as np
 import pytest
 import torch
+from torch_parity import one_intraop_thread  # noqa: F401,E402
 
 tf = pytest.importorskip("tensorflow")
 

@@ -30,6 +30,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+from torch_parity import one_intraop_thread  # noqa: F401,E402
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 

@@ -25,6 +25,7 @@ from deeplearning4j_tpu_torch.common.environment import Environment
 from deeplearning4j_tpu_torch.ops import bn_train as bt
 from deeplearning4j_tpu_torch.ops import conv_epilogue as ce
 from deeplearning4j_tpu_torch.ops import kernel_select
+from torch_parity import one_intraop_thread  # noqa: F401,E402
 
 SHAPES = [(2, 5, 5, 16), (3, 7, 7, 8), (50, 24)]
 GATES = ("fused_conv", "fused_bn_bwd")

@@ -25,6 +25,7 @@ from deeplearning4j_tpu_torch.nn.conf import constraints as tc
 from deeplearning4j_tpu_torch.nn.conf.builders import GradientNormalization
 from deeplearning4j_tpu_torch.nn.conf.layers import (ConvolutionLayer,
                                                      DenseLayer)
+from torch_parity import one_intraop_thread  # noqa: F401,E402
 
 RTOL, ATOL = 1e-5, 1e-7
 JAX_UPDATERS = {
