@@ -17,7 +17,9 @@ the frozen Keras ResNet-50 imported, served and fine-tuned in SameDiff
 with the seven op domains of slice 18 swept on the card, and the
 serving fleet: ResNet-50 and the GPT-2-small-width decoder on two
 replicas behind a ServingRouter, with the request observatory, and the
-imported Keras ResNet-50 served through the registry.
+imported Keras ResNet-50 served through the registry, and the
+distributed Transformer LM at GPT-2 small's widths trained on four gloo
+ranks of the card in its megatron-SP and ring-CP layouts.
 
 Run from the root of a checkout, with no arguments, on a machine with
 one NVIDIA H100 (it fails without a card, and without the package):
@@ -380,6 +382,24 @@ equal to the walk's ``RngKey(s)``); (c) an attention ``SameDiffLayer``
 in a ComputationGraph trained 10 steps (one launch of kernels 7-9 a
 step, the loss falls, a step within the card-vs-CPU bars, the zip
 round trip bitwise).
+
+Phase 26 (``phase_transformer_lm``): ``DistributedTransformerLM`` at
+GPT-2 small's widths (d_model 768, 12 heads, d_ff 3072, 12 blocks, vocab
+50304, f32, TF32 off; a batch of 8 x 1024 random ids from the seed) on
+four gloo rank processes of the card, one ``ProcessGroupMesh`` world laid
+out twice (``with_axes``): (a) megatron-SP, ``{data: 1, pipe: 2, model:
+2}``, 6 blocks a stage, 4 microbatches, dense MLPs; (b) ring-CP,
+``{data: 2, pipe: 1, seq: 2, model: 1}``, 2 microbatches, 8 experts
+(top-2, no token dropped, the aux loss at the JAX model's weight 0.01)
+on block 11. Three Sgd(0.1) ``train_step``s each: every loss within
+``LM_LOSS_RTOL`` of the float64 plain single-process forward over the
+ranks' gathered global parameters at that step, steps 1 and 2's
+gradients leaf by leaf within ``LM_GRAD_RTOL`` (norm-wise) of that
+reference's, the loss falls, and kernels 7, 8 and 9 launch 12 x 2 x
+(seq index + 1) times a rank a step in (b) and never in (a); then one
+ring step's ``flash_attention_with_lse`` ([2, 12, 512, 64], f32, both
+``causal``) against its plain version with a non-zero LSE cotangent;
+each layout's ms a step a rank.
 
 After phase 24, ``ticket_pool_check``: kernels 3 and 5 captured into
 CUDA graphs that take 1.5 x their ticket pool, each graph destroyed
@@ -8912,6 +8932,486 @@ def observatory_mesh_checks(torch, ranks: list, device: str,
     return out
 
 
+#: phase 26: the distributed Transformer LM at GPT-2 small's widths
+#: (vocab 50257 padded to a multiple of 128, as Megatron-LM's
+#: --make-vocab-size-divisible-by 128 does), 12 blocks, f32, TF32 off
+LM_DIMS = dict(vocab_size=50304, max_len=1024, d_model=768, n_heads=12,
+               d_ff=3072, layers=12, batch=8, t=1024, real_vocab=50257)
+#: each layout: its mesh over the same four gloo ranks, microbatches and
+#: experts (on the JAX model's placement: the last block of each stage)
+LM_LAYOUTS = {
+    "megatron_sp": dict(axes={"data": 1, "pipe": 2, "model": 2},
+                        n_micro=4, n_experts=0),
+    "ring_cp": dict(axes={"data": 2, "pipe": 1, "seq": 2, "model": 1},
+                    n_micro=2, n_experts=8),
+}
+LM_WORLD, LM_STEPS, LM_SEED, LM_LR = 4, 3, 22, 0.1
+LM_WORK = ROOT / "build" / "transformer_lm"
+LM_LOSS_RTOL = 1e-5
+#: the gradient of every step but the last, leaf by leaf against the
+#: float64 plain reference at the same parameters: the norm of the
+#: difference within LM_GRAD_RTOL of the reference's norm
+LM_GRAD_RTOL = 1e-4
+#: one ring step of the ring-CP layout: [b, heads, t / seq, head dim]
+LM_RING_STEP = (2, 12, 512, 64)
+
+
+def lm_conf(dims: dict, layout: str):
+    """The port's config of one layout: the widths of ``dims``, the
+    blocks split over the layout's pipeline stages, no token dropped by
+    the experts (capacity: a rank's tokens of a microbatch), the JAX
+    model's default aux-loss weight."""
+    from deeplearning4j_tpu_torch.models.transformer import \
+        TransformerLMConfig
+    lay = LM_LAYOUTS[layout]
+    ax = lay["axes"]
+    mb = dims["batch"] // ax["data"] // lay["n_micro"]
+    t_local = dims["t"] // ax.get("seq", 1)
+    return TransformerLMConfig(
+        vocab_size=dims["vocab_size"], max_len=dims["max_len"],
+        d_model=dims["d_model"], n_heads=dims["n_heads"],
+        d_ff=dims["d_ff"], layers_per_stage=dims["layers"] // ax["pipe"],
+        n_experts=lay["n_experts"], moe_top_k=2, moe_capacity=mb * t_local)
+
+
+def lm_batch(dims: dict, seed: int = LM_SEED):
+    """Random ids and next-token labels [batch, t] from the seed, inside
+    the unpadded vocabulary."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(0, dims["real_vocab"], (dims["batch"], dims["t"] + 1))
+    return ids[:, :-1].copy(), ids[:, 1:].copy()
+
+
+def _lm_model(dims: dict, layout: str, mesh, updater=None):
+    from deeplearning4j_tpu_torch.learning.updaters import Sgd
+    from deeplearning4j_tpu_torch.models.transformer import \
+        DistributedTransformerLM
+    return DistributedTransformerLM(lm_conf(dims, layout), mesh,
+                                    updater or Sgd(LM_LR),
+                                    n_micro=LM_LAYOUTS[layout]["n_micro"])
+
+
+def _lm_recording_sgd():
+    """Sgd(LM_LR) that keeps the reduced gradients the model hands it
+    (``.grads``, flat), so a step's gradient is read without running it
+    again."""
+    from deeplearning4j_tpu_torch.learning.updaters import IUpdater
+
+    class RecordingSgd(IUpdater):
+        def __init__(self):
+            super().__init__("Sgd", learning_rate=LM_LR)
+            self.grads = None
+
+        def apply(self, grads, state, iteration, epoch=0):
+            self.grads = grads
+            return super().apply(grads, state, iteration, epoch)
+    return RecordingSgd()
+
+
+def _lm_first_copies(model, flat: dict, rank: int) -> dict:
+    """The leaves of a rank's flat tree of which it holds the first copy
+    (on the CPU); the others are None."""
+    from deeplearning4j_tpu_torch.models.transformer import flatten_tree
+    from deeplearning4j_tpu_torch.parallel.mesh import first_copy
+    specs = flatten_tree(model.param_specs())
+    return {k: (v.detach().cpu() if first_copy(specs[k], model.mesh, rank)
+                else None) for k, v in flat.items()}
+
+
+def lm_rank_main(work: str, rank: int, world: int,
+                 device: str = "cuda") -> None:
+    """One rank of phase 26, its own process: both layouts over one
+    four-process gloo world (``ProcessGroupMesh.with_axes``), LM_STEPS
+    ``train_step``s each from the seeded global weights; each step's
+    loss, wall ms and kernel launches (counts zeroed just before the
+    step, read just after), and, for every step but the last, the first
+    copies of its reduced gradient and of the parameters it leaves go to
+    ``work``."""
+    import torch
+    sys.path.insert(0, str(ROOT))
+    from deeplearning4j_tpu_torch.models.transformer import flatten_tree
+    from deeplearning4j_tpu_torch.parallel.mesh import ProcessGroupMesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dims = json.loads((Path(work) / "dims.json").read_text())
+    ids, labels = lm_batch(dims)
+    names = list(LM_LAYOUTS)
+    world_mesh = ProcessGroupMesh(
+        f"file://{work}/store", world, rank, device=device, backend="gloo",
+        timeout_s=600, axes=LM_LAYOUTS[names[0]]["axes"])
+    # wall-clock stamps the parent sets against its spawn
+    out = {"stamps": {"mesh_ready": time.time()}}
+    try:
+        for i, name in enumerate(names):
+            t_layout = time.perf_counter()
+            mesh = world_mesh if i == 0 else world_mesh.with_axes(
+                LM_LAYOUTS[name]["axes"])
+            sgd = _lm_recording_sgd()
+            model = _lm_model(dims, name, mesh, sgd)
+            t0 = time.perf_counter()
+            params, opt = model.init(seed=LM_SEED)
+            _sync(torch, device)
+            res = {"init_s": time.perf_counter() - t0, "losses": [],
+                   "step_ms": [], "launches": [], "grads": [],
+                   "params": [],
+                   "coords": dict(zip(mesh.axes, mesh.coords(rank)))}
+            for it in range(LM_STEPS):
+                _sync(torch, device)
+                _zero_counts()
+                t0 = time.perf_counter()
+                params, opt, loss = model.train_step(params, opt, ids,
+                                                     labels, it)
+                _sync(torch, device)
+                res["step_ms"].append((time.perf_counter() - t0) * 1e3)
+                res["launches"].append(_flash_counts())
+                res["losses"].append(loss)
+                if it < LM_STEPS - 1:
+                    res["grads"].append(_lm_first_copies(model, sgd.grads,
+                                                         rank))
+                    res["params"].append(_lm_first_copies(
+                        model, flatten_tree(params[0]), rank))
+                sgd.grads = None
+            if device == "cuda":
+                res["peak_mb"] = torch.cuda.max_memory_allocated() / 2**20
+                torch.cuda.reset_peak_memory_stats()
+            res["layout_s"] = time.perf_counter() - t_layout
+            out[name] = res
+            del params, opt, model
+            if device == "cuda":
+                torch.cuda.empty_cache()
+    finally:
+        world_mesh.shutdown()
+    out["stamps"]["saving"] = time.time()
+    torch.save(out, f"{work}/rank{rank}.pt")
+
+
+def _run_lm_ranks(dims: dict, device: str) -> list:
+    """The LM_WORLD ranks of phase 26, each its own process, waited for
+    with a limit."""
+    import shutil
+    import torch
+    shutil.rmtree(LM_WORK, ignore_errors=True)
+    LM_WORK.mkdir(parents=True)
+    (LM_WORK / "dims.json").write_text(json.dumps(dims))
+    env = {**os.environ, "OMP_NUM_THREADS": "2"}
+    t_spawn = time.time()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c",
+         f"import chip_smoke as c; c.lm_rank_main({str(LM_WORK)!r}, {r}, "
+         f"{LM_WORLD}, {device!r})"],
+        cwd=str(ROOT), env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(LM_WORLD)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=900)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0, f"rank {r} of phase 26's gloo world "
+                                 f"exited {p.returncode}:\n{log[-4000:]}")
+    t_done = time.time()
+    res = [torch.load(LM_WORK / f"rank{r}.pt") for r in range(LM_WORLD)]
+    shutil.rmtree(LM_WORK, ignore_errors=True)
+    st = [r["stamps"] for r in res]
+    print(f"[lm] rank processes: spawn to mesh ready "
+          f"{max(x['mesh_ready'] for x in st) - t_spawn:.1f}s, to their "
+          f"results saved {t_done - t_spawn:.1f}s (saving "
+          f"{t_done - min(x['saving'] for x in st):.1f}s), loaded in "
+          f"{time.time() - t_done:.1f}s; a layout on rank 0 (s: init, "
+          f"steps, all) " + ", ".join(
+              f"{n} {res[0][n]['init_s']:.1f} / "
+              f"{sum(res[0][n]['step_ms']) / 1e3:.1f} / "
+              f"{res[0][n]['layout_s']:.1f}" for n in LM_LAYOUTS))
+    return res
+
+
+def lm_plain_ce_sum(torch, g: dict, conf, pp: int, ids, labels,
+                    t_shard: int):
+    """The plain single-process forward of the distributed LM over its
+    global tree (the port's counterpart of ``ref_loss`` in
+    ``tests/test_transformer_5d.py``) on the rows given: ``(summed
+    cross-entropy, summed gating aux loss)``. Dense causal attention; the
+    experts route each token to its top-2 with no capacity (nothing
+    drops); the aux loss (Switch's E * sum_e f_e p_e) is taken over each
+    ``t_shard`` steps of the rows, as each rank takes it over its
+    microbatch's tokens, and summed over those shards and the expert
+    blocks."""
+    import torch.nn.functional as F
+    b, t = ids.shape
+    d, h = conf.d_model, conf.n_heads
+    dh = d // h
+
+    def ln(x, gg, bb):
+        m = x.mean(-1, keepdim=True)
+        v = (x - m).square().mean(-1, keepdim=True)
+        return (x - m) * torch.rsqrt(v + 1e-5) * gg + bb
+
+    def gelu(x):
+        return F.gelu(x, approximate="tanh")
+
+    x = g["embed"][ids] + g["pos"][:t]
+    aux = x.new_zeros(())
+    causal = torch.tril(torch.ones(t, t, dtype=torch.bool,
+                                   device=x.device))
+    for s in range(pp):
+        for l in range(conf.layers_per_stage):
+            p = _lm_index(g["stages"][l], s)
+            hh = ln(x, p["ln1_g"], p["ln1_b"])
+            a = p["attn"]
+
+            def heads(z):
+                return z.reshape(b, t, h, dh).transpose(1, 2)
+
+            sc = heads(hh @ a["Wq"]) @ heads(hh @ a["Wk"]).transpose(-1, -2)
+            sc = torch.where(causal, sc / dh ** 0.5, -1e9)
+            o = torch.softmax(sc, -1) @ heads(hh @ a["Wv"])
+            x = x + o.transpose(1, 2).reshape(b, t, d) @ a["Wo"] + a["bo"]
+            hh = ln(x, p["ln2_g"], p["ln2_b"])
+            if "moe" in p:
+                m = p["moe"]
+                n_e = m["Wi"].shape[0]
+                hf = hh.reshape(b * t, d)
+                probs = torch.softmax(hf @ m["Wg"], -1)
+                for pr in probs.reshape(b, t // t_shard, t_shard,
+                                        n_e).unbind(1):
+                    pr = pr.reshape(-1, n_e)
+                    top1 = F.one_hot(pr.argmax(-1), n_e).to(pr.dtype)
+                    aux = aux + n_e * (top1.mean(0) * pr.mean(0)).sum()
+                top = probs.topk(2, -1)
+                gate = top.values / top.values.sum(-1, keepdim=True)
+                y = torch.zeros_like(hf)
+                for e in range(n_e):
+                    rows, slot = (top.indices == e).nonzero(as_tuple=True)
+                    if rows.numel():
+                        ye = gelu(hf[rows] @ m["Wi"][e]) @ m["Wo"][e]
+                        y = y.index_add(0, rows,
+                                        ye * gate[rows, slot, None])
+                x = x + y.reshape(b, t, d)
+            else:
+                m = p["mlp"]
+                x = x + gelu(hh @ m["Wi"] + m["bi"]) @ m["Wo"] + m["bo"]
+    hh = ln(x, g["ln_f_g"], g["ln_f_b"])
+    logits = hh @ g["head"]
+    return F.cross_entropy(logits.reshape(b * t, -1), labels.reshape(-1),
+                           reduction="sum"), aux
+
+
+def _lm_index(tree, s: int):
+    if isinstance(tree, dict):
+        return {k: _lm_index(v, s) for k, v in tree.items()}
+    return tree[s]
+
+
+def lm_reference(torch, g: dict, conf, layout: str, ids, labels, dtype,
+                 grads: bool):
+    """(loss, gradient tree or None) of the plain forward in ``dtype``,
+    one rank's microbatch of rows at a time: the mean cross-entropy over
+    every token plus ``aux_coef`` x the aux loss averaged over the ranks'
+    microbatches and time shards, as the layout's step takes it."""
+    from deeplearning4j_tpu_torch.models.transformer import (flatten_tree,
+                                                             unflatten_tree)
+    lay = LM_LAYOUTS[layout]
+    ax = lay["axes"]
+    sp = ax.get("seq", 1)
+    rows = ids.shape[0] // ax["data"] // lay["n_micro"]
+    t_shard = ids.shape[1] // (sp if sp > 1 else ax["model"])
+    n_groups = (ids.shape[0] // rows) * (ids.shape[1] // t_shard)
+    flat = {k: v.detach().to(dtype).requires_grad_(grads)
+            for k, v in flatten_tree(g).items()}
+    tree = unflatten_tree(g, flat)
+    n = ids.numel()
+    total = 0.0
+    acc = None
+    for r0 in range(0, ids.shape[0], rows):
+        with torch.set_grad_enabled(grads):
+            ce, aux = lm_plain_ce_sum(
+                torch, tree, conf, ax["pipe"], ids[r0:r0 + rows],
+                labels[r0:r0 + rows], t_shard)
+            part = ce / n + conf.aux_coef * aux / n_groups
+        total += float(part.detach())
+        if grads:
+            got = torch.autograd.grad(part, list(flat.values()),
+                                      allow_unused=True)
+            got = [x if x is not None else torch.zeros_like(v)
+                   for x, v in zip(got, flat.values())]
+            acc = got if acc is None else [a + b for a, b in zip(acc, got)]
+    return total, (None if acc is None else dict(zip(flat, acc)))
+
+
+def lm_ring_step_check(torch, device: str = "cuda") -> dict:
+    """One ring step of the ring-CP layout on the card: kernels 7, 8 and
+    9 through ``flash_attention_with_lse`` with a non-zero cotangent on
+    the output and the log-sum-exp (as the ring's merge gives), against
+    autograd through the plain forward, both ``causal`` values, f32;
+    within ``FLASH_TOL``."""
+    from deeplearning4j_tpu_torch.parallel import sequence as sq
+    g = torch.Generator(device=device).manual_seed(LM_SEED)
+    out = {}
+    (f_rtol, f_atol), (g_rtol, g_atol) = FLASH_TOL["float32"]
+    for causal in (False, True):
+        q, k, v, do = (torch.randn(*LM_RING_STEP, device=device,
+                                   generator=g) for _ in range(4))
+        g_lse = torch.randn(*LM_RING_STEP[:3], device=device, generator=g)
+        ins = [t.clone().requires_grad_() for t in (q, k, v)]
+        o, lse = sq.flash_attention_with_lse(*ins, causal)
+        got = torch.autograd.grad((o, lse), ins, (do, g_lse))
+        o, lse = o.detach(), lse.detach()
+        ref = [t.clone().requires_grad_() for t in (q, k, v)]
+        r_o, r_lse = sq.flash_forward_plain(*ref, None, causal)
+        want = torch.autograd.grad((r_o, r_lse), ref, (do, g_lse))
+        r_o, r_lse = r_o.detach(), r_lse.detach()
+        errs = {"out": float((o - r_o).abs().max()),
+                "lse": float((lse - r_lse).abs().max())}
+        for name, a, b in (("out", o, r_o), ("lse", lse, r_lse)):
+            check(bool(torch.allclose(a, b, rtol=f_rtol, atol=f_atol)),
+                  f"ring step (causal={causal}): {name} off its plain "
+                  f"version by {errs[name]:.3e}")
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            errs[name] = float((a - b).abs().max())
+            check(bool(torch.allclose(a, b, rtol=g_rtol, atol=g_atol)),
+                  f"ring step (causal={causal}): {name} off its plain "
+                  f"version by {errs[name]:.3e}")
+        out[f"causal_{causal}"] = errs
+    print(f"[lm] ring step {LM_RING_STEP} f32 flash_attention_with_lse vs "
+          f"plain, with an lse cotangent: {out}")
+    return out
+
+
+def phase_transformer_lm(torch, label: str, device: str = "cuda",
+                         dims: Optional[dict] = None) -> dict:
+    """Phase 26: ``DistributedTransformerLM`` at GPT-2 small's widths on
+    LM_WORLD gloo rank processes of this card, in its megatron-SP and
+    ring-CP layouts (``LM_LAYOUTS``): LM_STEPS Sgd(0.1) ``train_step``s
+    each; every step's loss against the float64 plain single-process
+    forward over the ranks' gathered global parameters at that step
+    (LM_LOSS_RTOL), the gradient of every step but the last leaf by leaf
+    against that reference's (LM_GRAD_RTOL, norm-wise), a falling loss,
+    and kernels 7-9's launches a rank a step: blocks x microbatches x
+    (seq index + 1) in ring-CP, 0 in megatron-SP (the per-query causal
+    mask takes the dense path); then one ring step's kernels against
+    their plain versions (``lm_ring_step_check``). ``device="cpu"`` with
+    small ``dims`` rehearses it (no kernel to count there)."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.models.transformer import (flatten_tree,
+                                                             unflatten_tree)
+    from deeplearning4j_tpu_torch.parallel.mesh import gather_leaf, make_mesh
+    t_phase = time.perf_counter()
+    dims = dict(LM_DIMS, **(dims or {}))
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    ranks = _run_lm_ranks(dims, device)
+    t_ranks = time.perf_counter() - t_phase
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ids_np, labels_np = lm_batch(dims)
+    ids = torch.from_numpy(ids_np).to(device)
+    labels = torch.from_numpy(labels_np).to(device)
+    out = {"dims": dims, "ranks_s": t_ranks}
+    try:
+        for name, lay in LM_LAYOUTS.items():
+            t_ref = time.perf_counter()
+            # the layout's shapes and specs, on a CPU mesh of its axes
+            model = _lm_model(dims, name, make_mesh(
+                lay["axes"], ["cpu"] * LM_WORLD))
+            conf = model.conf
+            specs = flatten_tree(model.param_specs())
+            like = model.init_global_params(LM_SEED)
+
+            def gathered(what, step):
+                return {k: gather_leaf([r[name][what][step][k]
+                                        for r in ranks], specs[k],
+                                       model.mesh).to(device)
+                        for k in specs}
+
+            # the parameters each step starts from: the seeded global
+            # tree, then what the ranks' steps left
+            snaps = [{k: v.to(device) for k, v in
+                      flatten_tree(like).items()}]
+            snaps += [gathered("params", i) for i in range(LM_STEPS - 1)]
+            ref_losses, worst = [], {}
+            for step, snap in enumerate(snaps):
+                check_grad = step < LM_STEPS - 1
+                loss, g64 = lm_reference(
+                    torch, unflatten_tree(like, snap), conf, name, ids,
+                    labels, torch.float64, grads=check_grad)
+                ref_losses.append(loss)
+                if not check_grad:
+                    continue
+                got = gathered("grads", step)
+                for k, ref in g64.items():
+                    e = float((got[k].double() - ref).norm()) / max(
+                        float(ref.norm()), 1e-30)
+                    check(e <= LM_GRAD_RTOL,
+                          f"{name} step-{step + 1} gradient {k}: {e:.3e} "
+                          f"from the float64 reference")
+                    worst[k] = max(worst.get(k, 0.0), e)
+                del got, g64
+            ref_s = time.perf_counter() - t_ref
+            losses = [r[name]["losses"] for r in ranks]
+            for r, ls in enumerate(losses):
+                for step, (got, want) in enumerate(zip(ls, ref_losses)):
+                    e = abs(got - want) / abs(want)
+                    check(e <= LM_LOSS_RTOL,
+                          f"{name} rank {r} step {step + 1}: loss {got!r} "
+                          f"vs the plain forward's {want!r} ({e:.2e})")
+            check(losses[0][-1] < losses[0][0],
+                  f"{name}: the loss did not fall {losses[0]}")
+            kmax = max(worst, key=worst.get)
+            # kernels 7-9 a rank a step
+            launches = [[st for st in r[name]["launches"]] for r in ranks]
+            want_l = []
+            for r in ranks:
+                s_idx = r[name]["coords"].get("seq", 0)
+                n = (dims["layers"] * lay["n_micro"] * (s_idx + 1)
+                     if lay["axes"].get("seq", 1) > 1 else 0)
+                want_l.append({k: n for k in FLASH_KERNELS})
+            if device == "cuda":
+                for r, (got, want) in enumerate(zip(launches, want_l)):
+                    for step, c in enumerate(got):
+                        check(c == want,
+                              f"{name} rank {r} step {step + 1}: kernels "
+                              f"7-9 launched {c}, derived {want}")
+            step_ms = [float(np.median(r[name]["step_ms"])) for r in ranks]
+            out[name] = {
+                "losses": losses[0], "ref_losses": ref_losses,
+                "loss_rel_err": max(abs(a - b) / abs(b) for ls in losses
+                                    for a, b in zip(ls, ref_losses)),
+                "grad_vs_f64_worst": {"leaf": kmax, "rel": worst[kmax]},
+                "reference_s": ref_s,
+                "launches_per_rank_per_step": launches,
+                "launches_derived": want_l,
+                "median_step_ms_per_rank": step_ms,
+                "step_ms_rank0": ranks[0][name]["step_ms"],
+                "init_s_rank0": ranks[0][name]["init_s"],
+                "peak_mb_per_rank": [r[name].get("peak_mb") for r in ranks],
+                "coords": [r[name]["coords"] for r in ranks]}
+            print(f"[lm] {name} {lay['axes']} n_micro {lay['n_micro']} "
+                  f"experts {lay['n_experts']}: losses {losses[0]} vs plain "
+                  f"{ref_losses} (worst rel {out[name]['loss_rel_err']:.2e}"
+                  f"); steps 1-{LM_STEPS - 1} gradients' worst leaf {kmax} "
+                  f"{worst[kmax]:.3e} from float64; reference "
+                  f"{ref_s:.1f}s; kernels 7-9 a step per rank "
+                  f"{[l_[0] for l_ in launches]}; median ms a step per "
+                  f"rank {[round(x, 3) for x in step_ms]}; peak MB per "
+                  f"rank {out[name]['peak_mb_per_rank']} [{label}]")
+            del snaps, like
+        if device == "cuda":
+            out["ring_step"] = lm_ring_step_check(torch, device)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[lm] phase 26 in {out['phase_s']:.1f}s (rank processes "
+          f"{t_ranks:.1f}s); median ms a step: megatron-SP "
+          f"{out['megatron_sp']['median_step_ms_per_rank']}, ring-CP "
+          f"{out['ring_cp']['median_step_ms_per_rank']} [{label}]")
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -8963,6 +9463,8 @@ def main() -> int:
     fl = timed("fleet", phase_fleet, torch, label, sd=tr50.pop("sd"))
     sdr = timed("sd-rest", phase_sd_rest, torch, label)
     ob = timed("observatory", phase_observatory, torch, label, sdr=sdr)
+    # phase 26: the distributed Transformer LM on four gloo ranks
+    lm = timed("transformer-lm", phase_transformer_lm, torch, label)
     # last: past three quarters of the pool, every capture's graph holds
     # a user object
     pool = timed("ticket-pool", ticket_pool_check, torch)
@@ -9156,6 +9658,16 @@ def main() -> int:
             extra[f"launches_samediff_remat_{OBS_REMAT_SEGMENTS}_mesh_"
                   f"{SD_DP_STEPS}_steps_per_rank"] = [
                 r_[k.name] for r_ in ob["e"]["launches_remat"]]
+        if k.name in FLASH_KERNELS:
+            # phase 26: each rank's launches in each of its train steps
+            extra[f"launches_transformer_lm_{LM_STEPS}_steps"] = {
+                name: [[st[k.name] for st in r_] for r_ in
+                       lm[name]["launches_per_rank_per_step"]]
+                for name in LM_LAYOUTS}
+            extra["ring_step_lse_cotangent_max_abs_err"] = {
+                c_: e_["dq" if k.name == "flash_bwd_dq" else
+                       "dk" if k.name == "flash_bwd_dkv" else "out"]
+                for c_, e_ in lm["ring_step"].items()}
         if k.name in pool:
             extra["ticket_pool_check"] = pool[k.name]
         extra["launches_resnet_remat_step"] = \
@@ -9307,6 +9819,14 @@ def main() -> int:
           f"{oc['scoped_ms']:.3f} in a scope; C5 mesh == one device; "
           f"remat under the mesh bitwise; phase {ob['phase_s']:.1f}s "
           f"[{label}]")
+    print(f"[done] distributed Transformer LM (phase 26, GPT-2-small "
+          f"widths, {LM_WORLD} gloo ranks on one card): megatron-SP "
+          f"median ms a step per rank "
+          f"{lm['megatron_sp']['median_step_ms_per_rank']}, ring-CP "
+          f"{lm['ring_cp']['median_step_ms_per_rank']}; losses vs the "
+          f"plain forward {lm['megatron_sp']['loss_rel_err']:.2e} / "
+          f"{lm['ring_cp']['loss_rel_err']:.2e}; phase "
+          f"{lm['phase_s']:.1f}s [{label}]")
     print(f"[done] matmul precision: "
           f"{torch.get_float32_matmul_precision()}, cuda.matmul.allow_tf32 "
           f"{torch.backends.cuda.matmul.allow_tf32}")

@@ -60,7 +60,8 @@ that cannot be exported raises naming it.
 Data-parallel ``output(mesh=)`` and ``fit_steps(mesh=,
 update_exchange=)`` are ``autodiff/samediff_dp.py``'s: each replica of
 a ``parallel/mesh.DpMesh`` walks its rows of the global batch, and the
-loss is the global batch's. Tensor-parallel arguments raise
+loss is the global batch's. Tensor-parallel arguments (``tp_specs``, and
+mesh axes or placeholder specs other than ``data``) raise
 ``NotImplementedError`` (ROADMAP.md, Queue A item 12).
 """
 from __future__ import annotations
@@ -1130,7 +1131,7 @@ class SameDiff:
         (``auto`` resolves to ``sharded`` over more than one replica;
         ``dense``, ``sharded``, ``encoded`` with ``encoding``, or
         ``fsdp``); ``ph_specs`` as ``output``'s. ``tp_specs`` raise
-        (tensor parallelism is ROADMAP item 12)."""
+        (SameDiff's tensor-parallel specs are ROADMAP item 12)."""
         if tp_specs:
             raise samediff_dp._item12("tensor-parallel fit_steps "
                                       "(tp_specs=)")

@@ -57,8 +57,8 @@ converts them to its exchange's layout and back, so calls with different
 exchanges or replica counts chain. Remat segments apply under a mesh as
 on one device: the segmented walk takes the same hooks, the segment plan
 is sized from the replica's values, and a recomputed segment redraws the
-same rows and runs the same collectives. Tensor-parallel specs are
-ROADMAP item 12.
+same rows and runs the same collectives. Tensor-parallel specs
+(``tp_specs``) are ROADMAP item 12.
 """
 from __future__ import annotations
 
@@ -274,8 +274,9 @@ def batch_combine(node, attrs: dict, glob_ins) -> Optional[str]:
 
 def _item12(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"SameDiff {what}: only the data axis is ported (tensor, sequence "
-        f"and pipeline parallelism are ROADMAP.md, Queue A item 12)")
+        f"SameDiff {what}: SameDiff's mesh paths take the data axis only "
+        f"(its tensor-parallel specs, tp_specs, are what is left of "
+        f"ROADMAP.md, Queue A item 12)")
 
 
 def check_mesh(mesh) -> int:

@@ -542,8 +542,9 @@ class Trainable:
         replica of the mesh takes part in."""
         if axis != "data":
             raise NotImplementedError(
-                f"axis {axis!r}: only the data axis is ported (ROADMAP "
-                f"item 12)")
+                f"axis {axis!r}: the data-parallel step exchanges over the "
+                f"data axis only (its tensor-parallel exchange, zero.py's "
+                f"TP_KEY branches, is ROADMAP item 12)")
         replica = mesh
         if mesh is not None and not isinstance(mesh, Replica):
             local = mesh.local_replicas()
@@ -554,6 +555,7 @@ class Trainable:
                     f"mesh.replica(rank)")
             replica = local[0]
         if replica is not None:
+            replica.mesh.data_axis_only("set_dp_mesh")
             mode = zero.parse_update_exchange(mode or "sharded")
             if mode is zero.UpdateExchange.AUTO:
                 mode = zero.resolve_update_exchange(replica.mesh, axis,

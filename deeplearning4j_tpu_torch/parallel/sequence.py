@@ -1,10 +1,10 @@
-"""Flash attention: the blocked online-softmax forward and its
-log-sum-exp-recomputing backward.
+"""Sequence / context parallelism and flash attention: blockwise, ring
+and Ulysses attention over the flash kernels' blocked online-softmax
+forward and its log-sum-exp-recomputing backward.
 
-Counterpart of the flash half of ``deeplearning4j_tpu/parallel/sequence.py``
-(ring and Ulysses attention are not ported yet). Three hand-written CUDA
-kernels in ``csrc/flash_attention.cu``, each with a plain PyTorch version
-beside it:
+Counterpart of ``deeplearning4j_tpu/parallel/sequence.py``. Three
+hand-written CUDA kernels in ``csrc/flash_attention.cu``, each with a
+plain PyTorch version beside it:
 
 * ``flash_forward`` (replaces ``_flash_kernel``): ``out = softmax(q kᵀ /
   √d, masked) v`` and the per-row log-sum-exp of the scaled scores;
@@ -12,6 +12,23 @@ beside it:
   p·(dO·vᵀ − δ)·k / √d``, p recomputed from the log-sum-exp;
 * ``flash_bwd_dkv`` (replaces ``_flash_bwd_dkv_kernel``): ``dv = pᵀ·dO``,
   ``dk = dsᵀ·q / √d``.
+
+On top of them, as in the JAX package:
+
+* :func:`blockwise_attention`: exact attention by online softmax over
+  key blocks, O(t) activation memory, plain torch ops;
+* :func:`ring_attention`: context parallelism over a mesh axis. Q/K/V
+  are sharded along time; K/V shards rotate around the ring (one
+  ppermute a step) while each rank folds the visiting shard into its
+  accumulator. ``use_flash=True`` runs :func:`flash_attention_with_lse`
+  on each visible shard (kernels 7, then 8 and 9 in the backward, on the
+  card; their plain versions on the CPU) and merges the normalized
+  partials exactly through their log-sum-exps, so the merge's LSE
+  cotangent reaches kernels 8 and 9 through δ. The causal ring
+  decomposes per shard: earlier shards fully visible, the own shard
+  locally causal, later shards skipped (no launch);
+* :func:`ulysses_attention`: all-to-all time -> heads, full-sequence
+  attention on h/n heads, all-to-all back.
 
 ``δ = rowsum(dO·O) − g_lse`` is plain torch ops between the forward and
 the two backward kernels, as it is plain jnp in the JAX package. For
@@ -50,6 +67,11 @@ import torch
 
 from deeplearning4j_tpu_torch.common import layerprof
 from deeplearning4j_tpu_torch.ops import cuda_build
+from deeplearning4j_tpu_torch.parallel.mesh import (P, all_to_all,
+                                                    current_replica,
+                                                    gather_leaf,
+                                                    replica_scope,
+                                                    shard_leaf)
 
 NEG_INF = -1e30
 #: q/k/v dtypes the kernels read and write, with their codes (sums are
@@ -428,3 +450,316 @@ def flash_attention_with_lse(q, k, v, causal: bool = False,
     of the scaled scores, ``[b, h, tq]`` in the accumulation dtype,
     differentiable too."""
     return _flash_apply(q, k, v, key_mask, causal)
+
+
+# ---------------------------------------------------------------------------
+# blockwise (online-softmax) attention: plain torch, differentiable
+# ---------------------------------------------------------------------------
+def _block_update(carry, qb, kb, vb, mask_b, scale):
+    """One online-softmax step: fold a K/V block into ``(o, l, m)``. The
+    exp of a masked score is exactly 0, so a fully masked row keeps
+    ``l = 0`` and finalizes to zeros."""
+    o, l, m = carry
+    s = torch.matmul(qb, kb.transpose(-1, -2)) * scale
+    if mask_b is not None:
+        s = torch.where(mask_b, s, NEG_INF)
+    m_new = torch.maximum(m, s.amax(-1))
+    corr = torch.exp(m - m_new)
+    p = torch.where(s <= NEG_INF / 2, 0.0, torch.exp(s - m_new[..., None]))
+    l_new = l * corr + p.sum(-1)
+    o_new = o * corr[..., None] + torch.matmul(p, vb)
+    return o_new, l_new, m_new
+
+
+def _finalize(o, l):
+    return o / torch.clamp(l, min=1e-30)[..., None]
+
+
+def _carry(q):
+    acc = _acc(q.dtype)
+    o = torch.zeros(q.shape, dtype=acc, device=q.device)
+    l = o[..., 0].clone()
+    return o, l, l + NEG_INF
+
+
+def blockwise_attention(q, k, v, *, causal: bool = False,
+                        block_k: int = 256, q_offset: int = 0,
+                        k_offset: int = 0,
+                        key_mask: Optional[torch.Tensor] = None):
+    """Exact attention with O(t) memory by online softmax over key
+    blocks. q: ``[..., tq, d]``; k/v: ``[..., tk, d]``; key_mask
+    ``[..., tk]`` (0 = masked); ``q_offset`` / ``k_offset`` are the global
+    positions of element 0 (the causal mask uses global positions)."""
+    tq, d = q.shape[-2], q.shape[-1]
+    tk = k.shape[-2]
+    scale = 1.0 / (d ** 0.5)
+    block_k = min(block_k, tk)
+    n_blocks = -(-tk // block_k)
+    pad = n_blocks * block_k - tk
+    km = key_mask
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, pad))
+        km = torch.nn.functional.pad(
+            key_mask if key_mask is not None else
+            torch.ones(k.shape[:-2] + (tk,), dtype=torch.bool,
+                       device=k.device), (0, pad))
+    q_pos = q_offset + torch.arange(tq, device=q.device)
+    carry = _carry(q)
+    for i in range(n_blocks):
+        s0 = i * block_k
+        kb, vb = k[..., s0:s0 + block_k, :], v[..., s0:s0 + block_k, :]
+        mask_b = None
+        if causal:
+            k_pos = k_offset + s0 + torch.arange(block_k, device=q.device)
+            mask_b = q_pos[:, None] >= k_pos[None, :]
+        if km is not None:
+            kmb = km[..., s0:s0 + block_k][..., None, :]
+            mask_b = (kmb != 0) if mask_b is None else (mask_b & (kmb > 0))
+        carry = _block_update(carry, q, kb, vb, mask_b, scale)
+    o, l, _ = carry
+    return _finalize(o, l).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# ring attention: context parallelism over a mesh axis
+# ---------------------------------------------------------------------------
+class _RingRun:
+    """One ring call on one rank: the forward's graph from a leaf of q
+    and of each visiting K/V shard to the output, kept for the
+    backward."""
+
+    def __init__(self, replica, axis: str, causal: bool, use_flash: bool):
+        self.replica, self.axis = replica, axis
+        self.causal, self.use_flash = causal, use_flash
+        self.n = 1 if replica is None else replica.axis_size(axis)
+        self.my = 0 if replica is None else replica.axis_index(axis)
+
+    def rotate(self, t, back: bool = False):
+        """One ring step: each rank's tensor to the next (``back``: to
+        the previous)."""
+        n = self.n
+        perm = [(i, (i + 1) % n) for i in range(n)]
+        if back:
+            perm = [(d, s) for s, d in perm]
+        return self.replica.axis_collective("ppermute", t.contiguous(),
+                                            self.axis, perm=perm)
+
+    def forward(self, q, k, v):
+        n, my = self.n, self.my
+        t_local = q.shape[-2]
+        scale = 1.0 / (q.shape[-1] ** 0.5)
+        acc = _acc(q.dtype)
+        q_pos = my * t_local + torch.arange(t_local, device=q.device)
+        self.kv = []
+        kv = torch.stack([k.detach(), v.detach()])
+        with torch.enable_grad():
+            self.q = q.detach().requires_grad_()
+            o, l, m = _carry(q)
+            for s in range(n):
+                if s:
+                    kv = self.rotate(kv)
+                kb = kv[0].clone().requires_grad_()
+                vb = kv[1].clone().requires_grad_()
+                self.kv.append((kb, vb))
+                src = (my - s) % n            # who produced this shard
+                if not self.use_flash:
+                    mask = None
+                    if self.causal:
+                        k_pos = src * t_local + torch.arange(
+                            t_local, device=q.device)
+                        mask = q_pos[:, None] >= k_pos[None, :]
+                    o, l, m = _block_update((o, l, m), self.q, kb, vb,
+                                            mask, scale)
+                    continue
+                if self.causal and src > my:
+                    # a later shard: fully masked, no launch (its merge
+                    # would leave the accumulator as it is)
+                    continue
+                o_s, lse_s = flash_attention_with_lse(
+                    self.q, kb, vb, self.causal and src == my)
+                o_s = o_s.to(acc)
+                # exact merge of normalized partials via their
+                # log-sum-exps; a fully masked row has zero weight
+                m_new = torch.maximum(m, lse_s)
+                c_old = torch.where(m <= NEG_INF / 2, 0.0,
+                                    torch.exp(m - m_new))
+                c_new = torch.where(lse_s <= NEG_INF / 2, 0.0,
+                                    torch.exp(lse_s - m_new))
+                o = o * c_old[..., None] + o_s * c_new[..., None]
+                l = l * c_old + c_new
+                m = m_new
+            self.out = _finalize(o, l).to(q.dtype)
+        return self.out.detach()
+
+    def backward(self, g):
+        leaves = [self.q] + [t for kv in self.kv for t in kv]
+        got = torch.autograd.grad(self.out, leaves, g, allow_unused=True)
+        dq = got[0] if got[0] is not None else torch.zeros_like(self.q)
+        dkv = [torch.stack([
+            got[1 + 2 * s] if got[1 + 2 * s] is not None
+            else torch.zeros_like(kb),
+            got[2 + 2 * s] if got[2 + 2 * s] is not None
+            else torch.zeros_like(vb)])
+            for s, (kb, vb) in enumerate(self.kv)]
+        # each visiting shard's cotangent travels back to its owner: the
+        # transpose of the forward's rotations
+        acc = dkv[-1]
+        for s in range(self.n - 1, 0, -1):
+            acc = self.rotate(acc, back=True) + dkv[s - 1]
+        del self.q, self.kv, self.out
+        return dq, acc[0], acc[1]
+
+
+class _Ring(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, run):
+        ctx.run = run
+        with replica_scope(run.replica):
+            return run.forward(q, k, v)
+
+    @staticmethod
+    def backward(ctx, g):
+        run = ctx.run
+        del ctx.run
+        with replica_scope(run.replica):
+            dq, dk, dv = run.backward(g.contiguous())
+        return dq, dk, dv, None
+
+
+def ring_attention(q, k, v, axis_name: str, *, causal: bool = False,
+                   use_flash: bool = False):
+    """Attention with Q/K/V sharded along time over ``axis_name`` (call
+    inside a replica; q/k/v are the local shards ``[b, h, t_local, d]``).
+    K/V shards rotate around the ring, one ppermute a step, and each rank
+    folds the visiting shard into its accumulator; causal masking uses
+    global positions, so the result equals dense causal attention on the
+    gathered sequence. ``use_flash=True`` runs
+    :func:`flash_attention_with_lse` on each visible shard and merges the
+    partials through their log-sum-exps (the causal decomposition in the
+    module docstring); the default folds each shard in with
+    :func:`_block_update`. The backward runs each step's backward (kernels
+    8 and 9 with the merge's LSE cotangent, under ``use_flash``) and sends
+    each shard's K/V cotangent back to its owner. (The JAX signature's
+    block sizes are not taken: the kernels tile themselves, and the
+    blockwise form folds a whole shard at a time there too.)"""
+    run = _RingRun(current_replica(), axis_name, causal, use_flash)
+    return _Ring.apply(q, k, v, run)
+
+
+class _MeshCall(torch.autograd.Function):
+    """A sequence-parallel function over global ``[b, h, t, d]`` q/k/v:
+    each replica of a thread mesh runs it on its shard (time over the
+    sequence axis, batch over ``data``), the outputs put back together;
+    the backward runs each replica's backward on its slice of the
+    cotangent."""
+
+    @staticmethod
+    def forward(ctx, call, q, k, v):
+        ctx.call = call
+        return call.forward(q, k, v)
+
+    @staticmethod
+    def backward(ctx, g):
+        call = ctx.call
+        del ctx.call
+        return (None,) + call.backward(g)
+
+
+class _SeqShardedCall:
+    def __init__(self, local_fn, mesh, seq_axis: str, kw: dict):
+        other = {a: s for a, s in mesh.shape.items()
+                 if a not in ("data", seq_axis) and s > 1}
+        if other or not hasattr(mesh, "run"):
+            raise ValueError(f"a sequence-sharded call runs on a thread "
+                             f"mesh of the data and {seq_axis!r} axes, "
+                             f"got {type(mesh).__name__} {mesh.shape}")
+        self.local_fn, self.mesh, self.kw = local_fn, mesh, kw
+        self.spec = P("data" if "data" in mesh.shape else None, None,
+                      seq_axis, None)
+        self.seq_axis = seq_axis
+
+    def _shard(self, t, rank):
+        coords = dict(zip(self.mesh.axes, self.mesh.coords(rank)))
+        return shard_leaf(t, self.spec, self.mesh.axes, coords).to(
+            self.mesh.devices[rank])
+
+    def forward(self, q, k, v):
+        mesh = self.mesh
+        self.ins, self.outs = [None] * mesh.size, [None] * mesh.size
+
+        def body(r):
+            rep = mesh.replica(r)
+            ins = [self._shard(t, r).detach().requires_grad_(t.requires_grad)
+                   for t in (q, k, v)]
+            with replica_scope(rep), torch.enable_grad():
+                out = self.local_fn(*ins, self.seq_axis, **self.kw)
+            self.ins[r], self.outs[r] = ins, out
+            return out.detach()
+
+        outs = mesh.run(body)
+        return gather_leaf(outs, self.spec, mesh).to(q.device)
+
+    def backward(self, g):
+        mesh = self.mesh
+
+        def body(r):
+            ins = [t for t in self.ins[r] if t.requires_grad]
+            with replica_scope(mesh.replica(r)):
+                got = list(torch.autograd.grad(
+                    self.outs[r], ins, self._shard(g, r),
+                    allow_unused=True))
+            return [got.pop(0) if t.requires_grad else None
+                    for t in self.ins[r]]
+
+        per_rank = mesh.run(body)
+        grads = []
+        for i in range(3):
+            shards = [gr[i] for gr in per_rank]
+            grads.append(None if shards[0] is None else
+                         gather_leaf([s if s is not None else
+                                      torch.zeros_like(self.ins[r][i])
+                                      for r, s in enumerate(shards)],
+                                     self.spec, mesh).to(g.device))
+        self.ins = self.outs = None
+        return tuple(grads)
+
+
+def _seq_sharded_call(local_fn, mesh, q, k, v, seq_axis, causal, **kw):
+    """The plumbing of the self-attention forms: q/k/v are GLOBAL ``[b,
+    h, t, d]`` tensors; time sharded over ``seq_axis``, batch over
+    ``data`` when the mesh has it. Differentiable."""
+    call = _SeqShardedCall(local_fn, mesh, seq_axis,
+                           dict(kw, causal=causal))
+    return _MeshCall.apply(call, q, k, v)
+
+
+def ring_self_attention(mesh, q, k, v, *, seq_axis: str = "seq",
+                        causal: bool = False, use_flash: bool = False):
+    return _seq_sharded_call(ring_attention, mesh, q, k, v, seq_axis,
+                             causal, use_flash=use_flash)
+
+
+# ---------------------------------------------------------------------------
+# Ulysses: all-to-all sequence parallelism
+# ---------------------------------------------------------------------------
+def ulysses_attention(q, k, v, axis_name: str, *, causal: bool = False,
+                      block_k: int = 256, use_flash: bool = False):
+    """DeepSpeed-Ulysses sequence parallelism (call inside a replica,
+    ``[b, h, t_local, d]`` shards, h divisible by the axis size): an
+    all-to-all re-shards time -> heads, local attention sees the FULL
+    sequence on h/n heads (:func:`flash_attention` under ``use_flash``:
+    the kernels on the card, their plain versions on the CPU;
+    :func:`blockwise_attention` otherwise), an all-to-all back."""
+    qh, kh, vh = (all_to_all(t, axis_name, 1, 2) for t in (q, k, v))
+    if use_flash:
+        o = flash_attention(qh, kh, vh, causal)
+    else:
+        o = blockwise_attention(qh, kh, vh, causal=causal, block_k=block_k)
+    return all_to_all(o, axis_name, 2, 1)
+
+
+def ulysses_self_attention(mesh, q, k, v, *, seq_axis: str = "seq",
+                           causal: bool = False, use_flash: bool = False):
+    return _seq_sharded_call(ulysses_attention, mesh, q, k, v, seq_axis,
+                             causal, use_flash=use_flash)

@@ -60,7 +60,9 @@ from deeplearning4j_tpu_torch.parallel.mesh import (DEFAULT_DATA_AXIS,
                                                     DEFAULT_TIMEOUT_S,
                                                     ProcessGroupMesh,
                                                     make_mesh)
-from deeplearning4j_tpu_torch.parallel.wrapper import (ParallelWrapper,
+from deeplearning4j_tpu_torch.parallel.wrapper import (PP_FIT_PATH,
+                                                       TP_FIT_PATH,
+                                                       ParallelWrapper,
                                                        not_ported,
                                                        local_devices)
 
@@ -147,12 +149,12 @@ class SharedTrainingMaster:
 
         def tensor_parallel(self, n: int):
             if int(n) > 1:
-                raise not_ported("tensor_parallel", "12")
+                raise not_ported(TP_FIT_PATH, "12")
             return self
 
         def pipeline_stages(self, n: int):
             if int(n) > 1:
-                raise not_ported("pipeline_stages", "12")
+                raise not_ported(PP_FIT_PATH, "12")
             return self
 
         def coordinator(self, address: str, num_processes: int,

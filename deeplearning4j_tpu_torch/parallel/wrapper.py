@@ -40,7 +40,9 @@ the step (the replicas' copies record nothing).
 
 ``averaging_frequency`` and ``training_mode`` are accepted and logged:
 every step is an exact average. Not ported (``NotImplementedError``):
-tensor and pipeline parallelism (ROADMAP item 12) and ``remesh``, which
+``tensor_parallel`` and ``pipeline_stages`` (what is left of ROADMAP item
+12: ``speclayout.py``, the 1F1B ``PipelineTrainer`` and ``zero.py``'s
+tensor-parallel branches) and ``remesh``, which
 needs the elastic machinery of ``common/faults.py`` (item 14).
 """
 from __future__ import annotations
@@ -62,6 +64,13 @@ from deeplearning4j_tpu_torch.parallel.mesh import (DEFAULT_DATA_AXIS,
                                                     map_dataset_arrays)
 
 log = logging.getLogger("deeplearning4j_tpu_torch")
+
+
+#: what is left of ROADMAP item 12 under each Builder option
+TP_FIT_PATH = ("tensor_parallel (its SpecLayout lowering, speclayout.py, "
+               "and zero.py's tensor-parallel update exchange)")
+PP_FIT_PATH = ("pipeline_stages (the 1F1B PipelineTrainer fit path of "
+               "pipeline.py, with speclayout.py's per-stage specs)")
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:
@@ -220,12 +229,12 @@ class ParallelWrapper:
 
         def tensor_parallel(self, n: int) -> "ParallelWrapper.Builder":
             if int(n) > 1:
-                raise not_ported("tensor_parallel", "12")
+                raise not_ported(TP_FIT_PATH, "12")
             return self
 
         def pipeline_stages(self, n: int) -> "ParallelWrapper.Builder":
             if int(n) > 1:
-                raise not_ported("pipeline_stages", "12")
+                raise not_ported(PP_FIT_PATH, "12")
             return self
 
         def encoding(self, spec) -> "ParallelWrapper.Builder":

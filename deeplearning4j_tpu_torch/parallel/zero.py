@@ -3,9 +3,9 @@ sharded, fsdp (ZeRO-3) or encoded (Xu et al., "Automatic Cross-Replica
 Sharding of Weight Update in Data-Parallel Training").
 
 Counterpart of ``deeplearning4j_tpu/parallel/zero.py`` (its data-axis
-rungs; tensor parallelism is ROADMAP item 12). The dense step ends in an
-all-reduce of the gradient, after which every replica runs the full
-updater on a full copy of the optimizer state. The other tails work one
+rungs; the compositions with tensor parallelism are ROADMAP item 12).
+The dense step ends in an all-reduce of the gradient, after which every
+replica runs the full updater on a full copy of the optimizer state. The other tails work one
 parameter group (layer or vertex) at a time on the per-dtype padded flat
 ravel (``learning/updaters.dp_ravel``), each replica on its 1/N slice:
 

@@ -23,7 +23,9 @@ classifier) cross as they are: both packages compute ``x @ W`` with
 ``{slot: {"group/name": tensor}}`` in the port and ``{slot: tree}`` in
 the JAX package. ``DecoderLM``'s two-level tree (``conf`` a
 ``DecoderConfig``: ``embed``, ``layer_<i>``, ``head``) crosses the same
-way, leaf names and shapes checked.
+way, leaf names and shapes checked. The distributed Transformer LM's
+global tree (:func:`transformer_params_from_jax`, with its updater state)
+crosses as it is too.
 
 The encoded exchange's error-feedback state (``ENCODED_KEY``: the
 residual in the parameters' layout, with tau, step and sparsity) crosses
@@ -293,6 +295,37 @@ def updater_state_to_jax(upd: Dict[str, Dict[str, _Tree]], conf: _Conf
                     out[f"{key}/{slot}/{name}"] = _to_jax(conf, key, name,
                                                           t)
     return out
+
+
+def _jax_tree_to_port(tree):
+    if isinstance(tree, dict):
+        return {k: _jax_tree_to_port(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_jax_tree_to_port(v) for v in tree]
+    return torch.from_numpy(np.array(tree))
+
+
+def transformer_params_from_jax(params_np: dict) -> dict:
+    """The JAX ``DistributedTransformerLM``'s global parameter tree
+    (``init_global_params`` or a gathered step's, numpy or jax arrays:
+    ``embed``, ``pos``, ``stages`` a list of stage-stacked block trees,
+    ``ln_f_g``, ``ln_f_b``, ``head``) as the port's global tree of CPU
+    tensors. Both packages compute ``x @ W`` with ``[in, out]`` weights
+    and stack stages on the leading dimension, so no layout converts."""
+    missing = {"embed", "pos", "stages", "ln_f_g", "ln_f_b", "head"} - \
+        set(params_np)
+    if missing:
+        raise ValueError(f"transformer tree lacks {sorted(missing)}")
+    return _jax_tree_to_port(params_np)
+
+
+def transformer_state_from_jax(state_np) -> dict:
+    """The JAX model's updater state (``()`` for a stateless updater, or
+    ``{slot: params-shaped tree}``) as the port's ``{slot: tree}``."""
+    if isinstance(state_np, tuple) and state_np == ():
+        return {}
+    return {slot: transformer_params_from_jax(tree)
+            for slot, tree in state_np.items()}
 
 
 def _check_leaves(want: dict, got: dict, what: str,

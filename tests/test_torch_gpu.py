@@ -523,6 +523,39 @@ def test_flash_kernels_reject_what_they_do_not_take():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_with_lse_cotangent_matches_plain(causal):
+    """One ring step's call (f32 [2, 12, 512, 64], the ring-CP layout's
+    shard at GPT-2-small width): ``flash_attention_with_lse`` on the card
+    (kernel 7, then 8 and 9 with δ = rowsum(dO·O) − g_lse) against
+    autograd through the plain forward, with a non-zero cotangent on
+    both the output and the log-sum-exp, as the ring's merge gives."""
+    from deeplearning4j_tpu_torch.parallel import sequence as sq
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(22)
+    q, k, v, do = (torch.randn(2, 12, 512, 64, device="cuda", generator=g)
+                   for _ in range(4))
+    g_lse = torch.randn(2, 12, 512, device="cuda", generator=g)
+    ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    n = (sq.FLASH_FWD.launches, sq.FLASH_BWD_DQ.launches,
+         sq.FLASH_BWD_DKV.launches)
+    out, lse = sq.flash_attention_with_lse(*ins, causal)
+    grads = torch.autograd.grad((out, lse), ins, (do, g_lse))
+    torch.cuda.synchronize()
+    assert (sq.FLASH_FWD.launches, sq.FLASH_BWD_DQ.launches,
+            sq.FLASH_BWD_DKV.launches) == (n[0] + 1, n[1] + 1, n[2] + 1)
+    ref = [t.clone().requires_grad_() for t in (q, k, v)]
+    r_out, r_lse = sq.flash_forward_plain(*ref, None, causal)
+    r_grads = torch.autograd.grad((r_out, r_lse), ref, (do, g_lse))
+    (f_rtol, f_atol), (g_rtol, g_atol) = FLASH_TOL["float32"]
+    torch.testing.assert_close(out, r_out, rtol=f_rtol, atol=f_atol)
+    torch.testing.assert_close(lse, r_lse, rtol=f_rtol, atol=f_atol)
+    for name, a, b in zip("qkv", grads, r_grads):
+        torch.testing.assert_close(a, b, rtol=g_rtol, atol=g_atol,
+                                   msg=lambda m, name=name: f"d{name}: {m}")
+
+
+@pytest.mark.gpu
 def test_bert_launches_flash_kernels_once_a_layer():
     """A 2-layer BERT: 2 forward launches per forward and none of the
     backward kernels; 2 of each per training step (attention dropout

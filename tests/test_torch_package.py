@@ -48,6 +48,17 @@ def test_scan_sees_the_whole_package():
         assert any(p.parent == PORT / sub for p in SOURCES), sub
 
 
+def test_scan_sees_the_parallel_stack():
+    """The distributed Transformer LM and the parallel modules under it
+    are scanned: each stands alone."""
+    for rel in ("parallel/tensor.py", "parallel/expert.py",
+                "parallel/pipeline.py", "parallel/sequence.py",
+                "parallel/mesh.py", "models/transformer.py"):
+        path = PORT / rel
+        assert path in SOURCES, rel
+        assert not set(_imported_roots(path)) & FORBIDDEN, rel
+
+
 @pytest.mark.parametrize(
     "path", [p for p in SOURCES if p.parent != ROOT], ids=_rel)
 def test_module_imports_without_a_card(path):

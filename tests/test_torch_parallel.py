@@ -394,10 +394,17 @@ def test_mesh_construction_and_refusals():
     assert make_mesh({"data": -1}, ["cpu"] * 4).size == 4
     with pytest.raises(ValueError):
         make_mesh({"data": 3}, ["cpu"] * 8)
+    # named axes lay the ranks out row-major; the data-parallel paths
+    # refuse a mesh with another axis above 1 (what is left of item 12)
+    dm = make_mesh({"data": -1, "model": 2}, ["cpu"] * 8)
+    assert dm.shape == {"data": 4, "model": 2}
+    assert dm.axis_groups("model")[1] == [2, 3]
     with pytest.raises(NotImplementedError, match="item 12"):
-        make_mesh({"data": -1, "model": 2}, ["cpu"] * 8)
+        dm.data_axis_only("set_dp_mesh")
+    full = MeshFactory.full(data=2, model=1, seq=2, devices=["cpu"] * 4)
+    assert full.shape == {"data": 2, "model": 1, "seq": 2, "stage": 1}
     with pytest.raises(NotImplementedError, match="item 12"):
-        MeshFactory.full(data=2, model=1, seq=2, devices=["cpu"] * 4)
+        full.data_axis_only("set_dp_mesh")
     assert MeshFactory.data_parallel(2, devices=["cpu"] * 4).size == 2
     # two replicas on one card would deadlock in autograd's backward
     with pytest.raises(ValueError, match="one CUDA device"):
