@@ -9027,7 +9027,8 @@ def lm_rank_main(work: str, rank: int, world: int,
     loss, wall ms and kernel launches (counts zeroed just before the
     step, read just after), and, for every step but the last, the first
     copies of its reduced gradient and of the parameters it leaves go to
-    ``work``."""
+    ``work``. Then phase 27's layouts on the same world
+    (``pp_rank_layouts``), their records under ``"pp"``."""
     import torch
     sys.path.insert(0, str(ROOT))
     from deeplearning4j_tpu_torch.models.transformer import flatten_tree
@@ -9080,6 +9081,11 @@ def lm_rank_main(work: str, rank: int, world: int,
             del params, opt, model
             if device == "cuda":
                 torch.cuda.empty_cache()
+        # phase 27 on the same world: its layouts are new axis groups
+        t_pp = time.perf_counter()
+        out["pp"] = pp_rank_layouts(torch, world_mesh, work, rank, device,
+                                    dims["pp"])
+        out["pp_s"] = time.perf_counter() - t_pp
     finally:
         world_mesh.shutdown()
     out["stamps"]["saving"] = time.time()
@@ -9093,7 +9099,8 @@ def _run_lm_ranks(dims: dict, device: str) -> list:
     import torch
     shutil.rmtree(LM_WORK, ignore_errors=True)
     LM_WORK.mkdir(parents=True)
-    (LM_WORK / "dims.json").write_text(json.dumps(dims))
+    (LM_WORK / "dims.json").write_text(json.dumps(
+        {"pp": PP_DIMS, **dims}))
     env = {**os.environ, "OMP_NUM_THREADS": "2"}
     t_spawn = time.time()
     procs = [subprocess.Popen(
@@ -9122,8 +9129,9 @@ def _run_lm_ranks(dims: dict, device: str) -> list:
           f"{max(x['mesh_ready'] for x in st) - t_spawn:.1f}s, to their "
           f"results saved {t_done - t_spawn:.1f}s (saving "
           f"{t_done - min(x['saving'] for x in st):.1f}s), loaded in "
-          f"{time.time() - t_done:.1f}s; a layout on rank 0 (s: init, "
-          f"steps, all) " + ", ".join(
+          f"{time.time() - t_done:.1f}s; phase 27 on the ranks "
+          f"{[round(r_['pp_s'], 1) for r_ in res]}s; a layout on rank 0 (s: "
+          f"init, steps, all) " + ", ".join(
               f"{n} {res[0][n]['init_s']:.1f} / "
               f"{sum(res[0][n]['step_ms']) / 1e3:.1f} / "
               f"{res[0][n]['layout_s']:.1f}" for n in LM_LAYOUTS))
@@ -9404,12 +9412,618 @@ def phase_transformer_lm(torch, label: str, device: str = "cuda",
             out["ring_step"] = lm_ring_step_check(torch, device)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
+    out["pp_ranks"] = [r["pp"] for r in ranks]
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"[lm] phase 26 in {out['phase_s']:.1f}s (rank processes "
           f"{t_ranks:.1f}s); median ms a step: megatron-SP "
           f"{out['megatron_sp']['median_step_ms_per_rank']}, ring-CP "
           f"{out['ring_cp']['median_step_ms_per_rank']} [{label}]")
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 27: the pipeline fit path on four gloo ranks (inside phase 26's)
+# ---------------------------------------------------------------------------
+#: each layout: tensor and pipeline degrees over the four ranks, the update
+#: exchange, and what a row of its batch is
+PP_LAYOUTS = {
+    "resnet50": dict(tp=1, pp=2, exchange="sharded", rows="images"),
+    "attention": dict(tp=2, pp=2, exchange="dense", rows="sequences"),
+}
+PP_WORLD, PP_MICRO, PP_STEPS = 4, 4, 3
+#: full width: ResNet-50 at 224x224x3 (1000 classes), the attention
+#: classifier at BERT-base widths (``ATTN``)
+PP_DIMS = dict(image=224, **ATTN)
+PP_SEED = 27
+#: ResNet-50's learning rate (Sgd): at 0.1, and under phase 19's
+#: Nesterovs(0.1, 0.9), this batch's loss rises again at step 3 with
+#: 8-row microbatch statistics, the one-process run's as much (f32 on the
+#: CPU at 224x224: 10.40, 5.50, 26.85)
+PP_RESNET_LR = 0.02
+PP_WORK = ROOT / "build" / "pipeline_fit"
+
+
+def pp_inputs(torch, name: str, device: str, dims: dict):
+    """A layout's seeded network on ``device`` and its global batch of
+    BATCH rows, as numpy: ``(net, x, y, features mask or None)``. The
+    ranks and the references build it alike."""
+    from deeplearning4j_tpu_torch.learning.updaters import Adam, Sgd
+    from deeplearning4j_tpu_torch.models.zoo import ResNet50
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    if name == "resnet50":
+        # phase 19's seeded network and learnable batch, under Sgd
+        g = torch.Generator().manual_seed(21)
+        image = dims["image"]
+        net = ResNet50(seed=21, height=image, width=image,
+                       updater=Sgd(PP_RESNET_LR)).init(device, generator=g)
+        x, y = learnable_batch(torch, g, BATCH, image)
+        return net, x.numpy(), y.numpy(), None
+    conf = attention_classifier_conf(dims["vocab"], dims["hidden"],
+                                     dims["heads"], dims["t"], Adam(1e-3))
+    net = ComputationGraph(conf).init(
+        device, generator=torch.Generator().manual_seed(PP_SEED))
+    ids, mask, labels = attention_batch(
+        torch, torch.Generator().manual_seed(PP_SEED), BATCH, dims["t"],
+        dims["vocab"])
+    return net, ids.numpy(), labels.numpy(), mask.numpy()
+
+
+def _cpu_tree(tree) -> dict:
+    return {k: {n: t.detach().cpu().clone() for n, t in sub.items()}
+            for k, sub in tree.items()}
+
+
+class _PpRecorder:
+    """A rank's listener for phase 27: each step's wall ms (the card
+    synchronised), its kernel launches (counts read, then zeroed), its
+    loss, the trainer's report, and CPU copies of this rank's stage's
+    parameters and states; step 1's gradient as the rank hands it to the
+    update tail (its own rows' mean over the microbatches, its slices of
+    the tensor-parallel leaves)."""
+
+    def __init__(self, torch, net, device: str):
+        self.torch, self.on_card = torch, device == "cuda"
+        self.steps, self.grads1 = [], None
+        self.master = None
+        # whole shapes, before the ranks hold shards
+        self.whole = {k: {n: t.numel() for n, t in sub.items()}
+                      for k, sub in net.params.items()}
+        self.resident_ok = None
+        tail = net._update_tail
+
+        def recording_tail(grads, iteration):
+            if self.grads1 is None:
+                self.grads1 = _cpu_tree(grads)
+            return tail(grads, iteration)
+        net._update_tail = recording_tail
+
+    def start(self):
+        self.mark = time.perf_counter()
+
+    def iteration_done(self, model, iteration, epoch):
+        if self.on_card:
+            self.torch.cuda.synchronize()
+        now = time.perf_counter()
+        launches = _counts()
+        _zero_counts()
+        tr = self.master.trainer
+        rank = self.master._mesh.rank
+        s = tr.stage_of_rank(rank)
+        names = tr.part.stage_entries(s)
+        specs = tr._tp_specs[s]
+        if self.resident_ok is None:
+            # each tensor-parallel leaf held at 1/tp of its whole shape
+            self.resident_ok = all(
+                model.params[k][n].numel() * tr.tp == self.whole[k][n]
+                for k, sub in specs.items() for n in sub)
+        rep = {k: v for k, v in tr.last_report.items()}
+        self.steps.append({
+            "ms": (now - self.mark) * 1e3, "launches": launches,
+            "loss": model.score(), "report": rep,
+            "params": _cpu_tree({k: model.params[k] for k in names}),
+            "states": _cpu_tree({k: model.states[k] for k in names
+                                 if model.states.get(k)})})
+        self.mark = time.perf_counter()
+
+    def on_epoch_start(self, model):
+        pass
+
+    def on_epoch_end(self, model):
+        pass
+
+
+def pp_rank_layouts(torch, world_mesh, work: str, rank: int, device: str,
+                    dims: dict) -> dict:
+    """Phase 27 on this rank of a PP_WORLD-process gloo world: each
+    layout of PP_LAYOUTS through ``SharedTrainingMaster`` (its
+    ``tensor_parallel`` / ``pipeline_stages`` / ``microbatches`` /
+    ``pipeline_schedule`` builders) on the world laid out as ``{data,
+    model, pipe}`` (``world_mesh.with_axes``), PP_STEPS steps of 1F1B
+    over PP_MICRO microbatches, this process feeding its data index's
+    shard of the global batch. Returns each layout's record."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.datasets.iterators import \
+        ListDataSetIterator
+    from deeplearning4j_tpu_torch.parallel import zero
+    from deeplearning4j_tpu_torch.parallel.sharedtraining import \
+        SharedTrainingMaster
+    from deeplearning4j_tpu_torch.parallel.wrapper import fit_mesh_axes
+    out = {}
+    for name, lay in PP_LAYOUTS.items():
+        t_layout = time.perf_counter()
+        tp, pp = lay["tp"], lay["pp"]
+        axes = fit_mesh_axes(PP_WORLD, tp, pp)
+        mesh = world_mesh.with_axes(axes)
+        net, x, y, m = pp_inputs(torch, name, device, dims)
+        dense = net.params
+        dp = axes["data"]
+        d, k = rank // (tp * pp), BATCH // dp
+        rows = slice(d * k, (d + 1) * k)
+        ds = DataSet(x[rows], y[rows],
+                     features_mask=None if m is None else m[rows])
+        rec = _PpRecorder(torch, net, device)
+        net.set_listeners(rec)
+        master = (SharedTrainingMaster.Builder(k)
+                  .coordinator(f"file://{work}/store", PP_WORLD, rank,
+                               "gloo")
+                  .tensor_parallel(tp).pipeline_stages(pp)
+                  .microbatches(PP_MICRO).pipeline_schedule("1f1b")
+                  .update_exchange(lay["exchange"])
+                  .collective_timeout(600).build())
+        master._mesh = mesh             # this world, laid out anew
+        rec.master = master
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        _sync(torch, device)
+        _zero_counts()
+        rec.start()
+        master.fit(net, ListDataSetIterator([ds] * PP_STEPS))
+        tr = master.trainer
+        s = tr.stage_of_rank(rank)
+        specs = tr._tp_specs[s]
+        out[name] = {
+            "coords": dict(zip(mesh.axes, mesh.coords(rank))), "stage": s,
+            "boundaries": tr.part.boundaries,
+            "steps": rec.steps, "grads1": rec.grads1,
+            "tp_dims": {e: {n: [i for i, a in enumerate(ls.compute)
+                                if a == "model"][0]
+                            for n, ls in sub.items()}
+                        for e, sub in specs.items()},
+            "resident_ok": rec.resident_ok,
+            "axis_bytes": zero.update_exchange_axis_bytes(
+                dense, dp, tp, {e: v for st in tr._tp_specs
+                                for e, v in st.items()}),
+            "peak_mb": (torch.cuda.max_memory_allocated() / 2**20
+                        if device == "cuda" else None),
+            "layout_s": time.perf_counter() - t_layout}
+        del net, master, rec, dense
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def pp_rank_main(work: str, rank: int, device: str = "cuda") -> None:
+    """Phase 27 alone on one rank (its own process and world): what
+    ``lm_rank_main`` runs after phase 26, for a rehearsal or a short
+    call on the card."""
+    import torch
+    sys.path.insert(0, str(ROOT))
+    from deeplearning4j_tpu_torch.parallel.mesh import ProcessGroupMesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dims = json.loads((Path(work) / "dims.json").read_text())
+    world = ProcessGroupMesh(f"file://{work}/store", PP_WORLD, rank,
+                             device=device, backend="gloo", timeout_s=600)
+    try:
+        out = {"pp": pp_rank_layouts(torch, world, work, rank, device,
+                                     dims["pp"])}
+    finally:
+        world.shutdown()
+    torch.save(out, f"{work}/rank{rank}.pt")
+
+
+def _run_pp_ranks(dims: dict, device: str) -> list:
+    """Phase 27's ranks on their own (``pp_rank_main``), waited for with
+    a limit."""
+    import shutil
+    import torch
+    shutil.rmtree(PP_WORK, ignore_errors=True)
+    PP_WORK.mkdir(parents=True)
+    (PP_WORK / "dims.json").write_text(json.dumps({"pp": dims}))
+    env = {**os.environ, "OMP_NUM_THREADS": "2"}
+    procs = [subprocess.Popen(
+        [sys.executable, "-c",
+         f"import chip_smoke as c; c.pp_rank_main({str(PP_WORK)!r}, {r}, "
+         f"{device!r})"], cwd=str(ROOT), env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(PP_WORLD)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=900)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0, f"rank {r} of phase 27's gloo world "
+                                 f"exited {p.returncode}:\n{log[-4000:]}")
+    res = [torch.load(PP_WORK / f"rank{r}.pt")["pp"]
+           for r in range(PP_WORLD)]
+    shutil.rmtree(PP_WORK, ignore_errors=True)
+    return res
+
+
+def pp_reference(torch, net, x, y, m, steps: int, n_micro: int,
+                 loss_only: bool = False) -> dict:
+    """The one-process run with the pipeline's semantics: microbatch mi
+    is rows [mi·mb, (mi+1)·mb) of the batch, each microbatch from the
+    step's states, the gradients summed in microbatch order (1F1B) and
+    scaled by 1/M, the model's own update tail once a step, the states
+    kept the last microbatch's, the loss the microbatches' mean. Each
+    step's loss, parameters and states (CPU), and step 1's gradient;
+    ``loss_only``: the first step's loss without an update."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.learning.updaters import tree_map
+    inputs, labels, _, fmask = net._split(
+        DataSet(x, y, features_mask=m), None)
+    mb = int(inputs[0].shape[0]) // n_micro
+    out = {"losses": [], "params": [], "states": [], "grads1": None}
+    for step in range(steps):
+        states0 = dict(net.states)
+        gsum, losses, ns_last = None, [], None
+        for mi in range(n_micro):
+            sl = slice(mi * mb, (mi + 1) * mb)
+            if loss_only:
+                with torch.no_grad():
+                    loss, _ = net._loss(
+                        net.params, states0, [t[sl] for t in inputs],
+                        [t[sl] for t in labels], None,
+                        fmask[sl] if fmask is not None else None,
+                        training=True, rng=None)
+                losses.append(float(loss))
+                continue
+            loss, grads, ns = net._grads(
+                states0, [t[sl] for t in inputs], [t[sl] for t in labels],
+                None, fmask[sl] if fmask is not None else None)
+            gsum = grads if gsum is None else tree_map(
+                lambda a, b: a + b, gsum, grads)
+            losses.append(float(loss))
+            ns_last = ns
+        out["losses"].append(sum(losses) / n_micro)
+        if loss_only:
+            return out
+        g = tree_map(lambda t: t * (1.0 / n_micro), gsum)
+        if step == 0:
+            out["grads1"] = _cpu_tree(g)
+        with torch.no_grad():
+            net._update_tail(g, net.iteration_count)
+        net._keep_states(ns_last)
+        net.iteration_count += 1
+        out["params"].append(_cpu_tree(net.params))
+        out["states"].append(_cpu_tree(net.states))
+    return out
+
+
+def _pp_assemble(recs: list, pick, data: int) -> dict:
+    """One data index's whole tree from its ranks' stage slices
+    (``pick(rec)``): each stage's entries from its model rank 0, the
+    tensor-parallel leaves concatenated over the model ranks."""
+    import torch
+    out = {}
+    for rec in recs:
+        c = rec["coords"]
+        if c.get("data", 0) != data or c.get("model", 0) != 0:
+            continue
+        for k, sub in pick(rec).items():
+            out[k] = dict(sub)
+            for n, dim in rec["tp_dims"].get(k, {}).items():
+                shards = sorted(
+                    (r2["coords"]["model"], pick(r2)[k][n]) for r2 in recs
+                    if r2["stage"] == rec["stage"]
+                    and r2["coords"].get("data", 0) == data)
+                out[k][n] = torch.cat([t for _, t in shards], dim)
+    return out
+
+
+def _rel_norm_t(a, b) -> float:
+    return float((a.double() - b.double()).norm() /
+                 b.double().norm().clamp_min(1e-30))
+
+
+def _pp_f64(torch, name: str, params: dict, states: dict, dims: dict):
+    """The layout's network in float64 on the CPU from ``params`` and
+    ``states``."""
+    from deeplearning4j_tpu_torch.learning.updaters import Adam, Sgd
+    from deeplearning4j_tpu_torch.models.zoo import ResNet50
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    if name == "resnet50":
+        conf = ResNet50(seed=21, height=dims["image"], width=dims["image"],
+                        updater=Sgd(PP_RESNET_LR)).conf()
+        conf.dtype = "float64"
+    else:
+        conf = attention_classifier_conf(
+            dims["vocab"], dims["hidden"], dims["heads"], dims["t"],
+            Adam(1e-3), dtype="float64")
+    return ComputationGraph(conf).set_params(
+        {k: {n: t.double() for n, t in sub.items()}
+         for k, sub in params.items()},
+        {k: {n: t.double() for n, t in sub.items()}
+         for k, sub in states.items()}, "cpu")
+
+
+def _pp_derived_launches(name: str, net, boundaries) -> list:
+    """Each stage's launches a rank a step, derived from the partition
+    before the run: a non-last stage runs its forward twice (the forward
+    op, and the recompute inside its backward) and its backward once a
+    microbatch, the last stage each once (its forward inside the loss's
+    backward). ResNet-50: kernels 1 and 3 a BatchNormalization site a
+    forward, 5 and 6 a backward; the classifier: kernel 7 an attention
+    site a forward, 8 and 9 a backward."""
+    topo = net._topo
+    kinds = ({"BatchNormalization"} if name == "resnet50" else
+             {"SelfAttentionLayer", "LearnedSelfAttentionLayer"})
+    fwd_k, bwd_k = ((("scale_shift_act", "channel_sums"),
+                     ("bn_bwd_sums", "bn_bwd_dx")) if name == "resnet50"
+                    else (("flash_fwd",), ("flash_bwd_dq",
+                                           "flash_bwd_dkv")))
+    n_st = len(boundaries) - 1
+    out = []
+    for s in range(n_st):
+        sites = sum(1 for v in topo[boundaries[s]:boundaries[s + 1]]
+                    if type(net.conf.vertices[v].content).__name__ in kinds)
+        fwd = (1 if s == n_st - 1 else 2) * sites * PP_MICRO
+        want = {k: fwd for k in fwd_k}
+        want.update({k: sites * PP_MICRO for k in bwd_k})
+        out.append({"sites": sites, "want": want})
+    return out
+
+
+def phase_pipeline_fit(torch, label: str, device: str = "cuda",
+                       dims: Optional[dict] = None,
+                       ranks: Optional[list] = None) -> dict:
+    """Phase 27: the pipeline fit path (``PipelineTrainer`` through
+    ``SharedTrainingMaster``'s ``tensor_parallel`` / ``pipeline_stages``)
+    at full width on PP_WORLD gloo ranks of the card, from ``ranks``
+    (phase 26's rank processes ran it after their own layouts) or from
+    ranks of its own. (a) ResNet-50, ``{data: 2, pipe: 2}``, per-stage
+    ZeRO-1, Sgd(PP_RESNET_LR), l2 1e-4; (b) the masked attention classifier at BERT-base
+    widths, ``{data: 1, model: 2, pipe: 2}``, dense tail, Adam(1e-3);
+    each f32 with TF32 off, global batch BATCH in PP_MICRO microbatches,
+    1F1B, PP_STEPS steps. Held: each step's loss within LOSS_RTOL of the
+    one-process forward with the pipeline's semantics over the ranks'
+    gathered parameters at that step; step 1's gradient leaf by leaf,
+    and its update, within UPDATE_FACTOR x the one-process card run's
+    distance from a float64 CPU step (+ UPDATE_FLOOR), as ``_hold_rank``
+    holds phase 19's ranks; the running statistics after step 1 within
+    STATE_RTOL of the one-process run's; a falling loss; each rank's
+    kernel launches a step equal to the counts derived from the
+    partition; peak residency [2, 1]; the pipe wire bytes forward equal
+    to PP_MICRO x a rank's bytes of stage 0's outgoing activations;
+    nothing of the update exchange across ``model``; each rank's
+    tensor-parallel leaves at half their shape. ``device="cpu"`` with
+    small ``dims`` rehearses it (no kernel to count there)."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.parallel.pipeline import \
+        make_stage_adapter
+    t_phase = time.perf_counter()
+    dims = dict(PP_DIMS, **(dims or {}))
+    on_card = device == "cuda"
+    if ranks is None:
+        ranks = _run_pp_ranks(dims, device)
+    t_ranks = time.perf_counter() - t_phase
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"ranks_s": t_ranks}
+    try:
+        for name, lay in PP_LAYOUTS.items():
+            t0 = time.perf_counter()
+            recs = [r[name] for r in ranks]
+            net, x, y, m = pp_inputs(torch, name, device, dims)
+            p0, s0 = _cpu_tree(net.params), _cpu_tree(net.states)
+            ad = make_stage_adapter(net)
+            from deeplearning4j_tpu_torch.parallel.pipeline import \
+                StagePartition
+            part = StagePartition.build(ad.entries(), net.params, 2)
+            ad.part = part
+            ad.finalize()
+            check(all(r["boundaries"] == part.boundaries for r in recs),
+                  f"{name}: the ranks' partition "
+                  f"{recs[0]['boundaries']} vs {part.boundaries}")
+            derived = _pp_derived_launches(name, net, part.boundaries)
+            print(f"[pp] {name}: partition {part.boundaries} "
+                  f"({part.entries[part.boundaries[1] - 1]} | "
+                  f"{part.entries[part.boundaries[1]]}), stage bytes "
+                  f"{part.stage_param_bytes(net.params)}, handoff "
+                  f"{ad.outgoing[0] if hasattr(ad, 'outgoing') else 'h'}; "
+                  f"derived launches a rank a step: stage 0 "
+                  f"{derived[0]['sites']} sites -> {derived[0]['want']}, "
+                  f"stage 1 {derived[1]['sites']} sites -> "
+                  f"{derived[1]['want']}")
+            # stage 0's outgoing activations a rank: a microbatch's rows
+            # of one data index through stage 0
+            dp = PP_WORLD // (lay["tp"] * lay["pp"])
+            rows = BATCH // PP_MICRO // dp
+            from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+            inputs, _, _, fm = net._split(DataSet(
+                x[:rows], y[:rows],
+                features_mask=None if m is None else m[:rows]), None)
+            with torch.no_grad():
+                acts, _ = net._forward(net.params, net.states, inputs,
+                                       training=True, fmask=fm,
+                                       topo_slice=(0, part.boundaries[1]))
+            out_bytes = sum(acts[n].numel() * acts[n].element_size()
+                            for n in ad.outgoing[0])
+            # the one-process reference on the card, and float64 on the
+            # CPU for step 1
+            ref = pp_reference(torch, net, x, y, m, PP_STEPS, PP_MICRO)
+            net64 = _pp_f64(torch, name, p0, s0, dims)
+            t64 = time.perf_counter()
+            m64 = None if m is None else m.astype(np.float64)
+            ref64 = pp_reference(torch, net64, x.astype(np.float64),
+                                 y.astype(np.float64), m64, 1, PP_MICRO)
+            f64_s = time.perf_counter() - t64
+            del net64
+            # the ranks' parameters at each step (data index 0) and
+            # step 1's gradient, the data group's mean
+            steps = [_pp_assemble(recs, lambda r, i=i: r["steps"][i]
+                                  ["params"], 0) for i in range(PP_STEPS)]
+            states1 = {}
+            for r in recs:
+                if r["coords"].get("data", 0) == 0:
+                    states1.update(r["steps"][0]["states"])
+            g_by_d = [_pp_assemble(recs, lambda r: r["grads1"], d)
+                      for d in range(dp)]
+            grads = {k: {n: sum(g[k][n] for g in g_by_d) / dp
+                         for n in sub} for k, sub in g_by_d[0].items()}
+            losses = recs[0]["steps"]
+            losses = [st["loss"] for st in losses]
+            # each step's loss against the plain forward over the ranks'
+            # parameters at that step
+            ref_losses = [ref["losses"][0]]
+            chk = type(net)(net.conf)
+            for i in range(1, PP_STEPS):
+                chk.set_params(steps[i - 1], s0, device)
+                ref_losses.append(pp_reference(
+                    torch, chk, x, y, m, 1, PP_MICRO,
+                    loss_only=True)["losses"][0])
+            del chk
+            for r, rec in enumerate(recs):
+                for i, (got, want) in enumerate(
+                        zip([st["loss"] for st in rec["steps"]],
+                            ref_losses)):
+                    e = abs(got - want) / abs(want)
+                    check(e <= LOSS_RTOL, f"{name} rank {r} step {i + 1}: "
+                                          f"loss {got!r} vs the plain "
+                                          f"forward's {want!r} ({e:.2e})")
+            check(losses[-1] < losses[0], f"{name}: the loss did not fall "
+                                          f"{losses}")
+            # step 1's gradient, leaf by leaf, against float64
+            worst_g = (0.0, None)
+            for k, sub in ref64["grads1"].items():
+                for n, g64 in sub.items():
+                    e_pp = _rel_norm_t(grads[k][n], g64)
+                    e_ref = _rel_norm_t(ref["grads1"][k][n], g64)
+                    check(e_pp <= UPDATE_FACTOR * e_ref + UPDATE_FLOOR,
+                          f"{name} step-1 gradient {k}/{n}: {e_pp:.3e} "
+                          f"from float64, the one-process run's "
+                          f"{e_ref:.3e}")
+                    worst_g = max(worst_g, (e_pp, f"{k}/{n}"))
+            p1_64 = ref64["params"][0]
+            e_upd = _update_err(steps[0], p1_64, p0)
+            e_ref_upd = _update_err(ref["params"][0], p1_64, p0)
+            check(e_upd <= UPDATE_FACTOR * e_ref_upd + UPDATE_FLOOR,
+                  f"{name} step-1 update {e_upd:.3e} from float64, the "
+                  f"one-process run's {e_ref_upd:.3e}")
+            e_state = max((_rel_norm_t(states1[k][n],
+                                       ref["states"][0][k][n])
+                           for k in states1 for n in states1[k]),
+                          default=0.0)
+            check(e_state <= STATE_RTOL, f"{name}: running stats after "
+                                         f"step 1 {e_state:.3e}")
+            e_final = _update_err(steps[-1], ref["params"][-1], p0)
+            # launches, accounting
+            launches = [[st["launches"] for st in r["steps"]] for r in recs]
+            if on_card:
+                zero_k = (("epilogue_backward", "matmul_bias_act",
+                           "paged_decode") + FLASH_KERNELS
+                          if name == "resnet50" else ())
+                for r, rec in enumerate(recs):
+                    want = derived[rec["stage"]]["want"]
+                    for i, c in enumerate(launches[r]):
+                        got = {k: c[k] for k in want}
+                        check(got == want, f"{name} rank {r} (stage "
+                                           f"{rec['stage']}) step {i + 1}: "
+                                           f"launches {got}, derived {want}")
+                        check(all(c[k] == 0 for k in zero_k),
+                              f"{name} rank {r} step {i + 1}: "
+                              f"{ {k: c[k] for k in zero_k} } not 0")
+            for r, rec in enumerate(recs):
+                for st in rec["steps"]:
+                    rp = st["report"]
+                    check(rp["peak_residency_microbatches"] == [2, 1],
+                          f"{name} rank {r}: peak residency "
+                          f"{rp['peak_residency_microbatches']}")
+                    check(rp["pipe_wire_fwd_bytes"] == PP_MICRO * out_bytes,
+                          f"{name} rank {r}: pipe wire forward "
+                          f"{rp['pipe_wire_fwd_bytes']} bytes, "
+                          f"{PP_MICRO} x {out_bytes} derived")
+                check(rec["axis_bytes"]["model"] == 0,
+                      f"{name} rank {r}: exchange bytes across model "
+                      f"{rec['axis_bytes']}")
+                check(rec["resident_ok"], f"{name} rank {r}: a "
+                                          f"tensor-parallel leaf not at "
+                                          f"1/tp")
+            step_ms = [float(np.median([st["ms"] for st in r["steps"]]))
+                       for r in recs]
+            ms = max(step_ms)
+            rep = recs[0]["steps"][-1]["report"]
+            res = {
+                "losses": losses, "ref_losses": ref_losses,
+                "loss_rel_err": max(abs(a - b) / abs(b) for r in recs
+                                    for a, b in zip(
+                                        [st["loss"] for st in r["steps"]],
+                                        ref_losses)),
+                "grad_vs_f64_worst": worst_g, "update_vs_f64": e_upd,
+                "one_process_update_vs_f64": e_ref_upd,
+                "states_rel": e_state, "params_vs_one_process_final":
+                    e_final, "f64_s": f64_s,
+                "launches_per_rank_per_step": launches,
+                "launches_derived": [d_["want"] for d_ in derived],
+                "stage_sites": [d_["sites"] for d_ in derived],
+                "median_step_ms_per_rank": step_ms,
+                "rows_per_s": BATCH * 1e3 / ms,
+                "bubble_seconds": [r["steps"][-1]["report"]["bubble_seconds"]
+                                   for r in recs],
+                "exchange_seconds": [r["steps"][-1]["report"].get(
+                    "exchange_seconds") for r in recs],
+                "pipe_wire_fwd_bytes": rep["pipe_wire_fwd_bytes"],
+                "pipe_wire_bwd_bytes": rep["pipe_wire_bwd_bytes"],
+                "stage_out_bytes": out_bytes,
+                "axis_bytes": recs[0]["axis_bytes"],
+                "peak_mb_per_rank": [r["peak_mb"] for r in recs],
+                "coords": [r["coords"] for r in recs],
+                "boundaries": part.boundaries,
+                "layout_s_per_rank": [r["layout_s"] for r in recs],
+                "check_s": time.perf_counter() - t0}
+            out[name] = res
+            print(f"[pp] {name} {fit_axes_str(lay)} {lay['exchange']}: "
+                  f"losses {losses} vs plain {ref_losses} (worst rel "
+                  f"{res['loss_rel_err']:.2e}); step-1 gradient worst "
+                  f"{worst_g[1]} {worst_g[0]:.3e} from float64, update "
+                  f"{e_upd:.3e} (one process {e_ref_upd:.3e}); running "
+                  f"stats {e_state:.3e}; after {PP_STEPS} steps "
+                  f"{e_final:.3e} from the one-process run; launches a "
+                  f"step per rank {[l_[0] for l_ in launches]}; median ms "
+                  f"a step per rank {[round(v, 3) for v in step_ms]} = "
+                  f"{res['rows_per_s']:.1f} {lay['rows']}/s; bubble s "
+                  f"{[round(v, 4) for v in res['bubble_seconds']]}, pipe "
+                  f"exchange s {res['exchange_seconds']}; wire fwd / bwd "
+                  f"{res['pipe_wire_fwd_bytes']} / "
+                  f"{res['pipe_wire_bwd_bytes']} bytes a rank; peak MB "
+                  f"{res['peak_mb_per_rank']}; float64 step "
+                  f"{f64_s:.1f}s [{label}]")
+            del net, ref, ref64, steps, grads
+            if on_card:
+                torch.cuda.empty_cache()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = prev
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[pp] phase 27 in {out['phase_s']:.1f}s (rank processes "
+          f"{t_ranks:.1f}s); median ms a step: ResNet-50 "
+          f"{out['resnet50']['median_step_ms_per_rank']} "
+          f"({out['resnet50']['rows_per_s']:.1f} images/s), attention "
+          f"{out['attention']['median_step_ms_per_rank']} "
+          f"({out['attention']['rows_per_s']:.1f} sequences/s) [{label}]")
+    return out
+
+
+def fit_axes_str(lay: dict) -> str:
+    from deeplearning4j_tpu_torch.parallel.wrapper import fit_mesh_axes
+    return str(fit_mesh_axes(PP_WORLD, lay["tp"], lay["pp"]))
 
 
 def main() -> int:
@@ -9465,6 +10079,9 @@ def main() -> int:
     ob = timed("observatory", phase_observatory, torch, label, sdr=sdr)
     # phase 26: the distributed Transformer LM on four gloo ranks
     lm = timed("transformer-lm", phase_transformer_lm, torch, label)
+    # phase 27: the pipeline fit path, run by phase 26's rank processes
+    pf = timed("pipeline-fit", phase_pipeline_fit, torch, label,
+               ranks=lm.pop("pp_ranks"))
     # last: past three quarters of the pool, every capture's graph holds
     # a user object
     pool = timed("ticket-pool", ticket_pool_check, torch)
@@ -9668,6 +10285,16 @@ def main() -> int:
                 c_: e_["dq" if k.name == "flash_bwd_dq" else
                        "dk" if k.name == "flash_bwd_dkv" else "out"]
                 for c_, e_ in lm["ring_step"].items()}
+        # phase 27: each rank's launches in each pipeline step
+        for name_, pp_ in pf.items():
+            if not isinstance(pp_, dict) or "launches_per_rank_per_step" \
+                    not in pp_:
+                continue
+            if k.name in (DP_KERNELS if name_ == "resnet50" else
+                          FLASH_KERNELS):
+                extra[f"launches_pipeline_{name_}_{PP_STEPS}_steps"] = [
+                    [st[k.name] for st in r_]
+                    for r_ in pp_["launches_per_rank_per_step"]]
         if k.name in pool:
             extra["ticket_pool_check"] = pool[k.name]
         extra["launches_resnet_remat_step"] = \
@@ -9827,6 +10454,15 @@ def main() -> int:
           f"plain forward {lm['megatron_sp']['loss_rel_err']:.2e} / "
           f"{lm['ring_cp']['loss_rel_err']:.2e}; phase "
           f"{lm['phase_s']:.1f}s [{label}]")
+    print(f"[done] pipeline fit path (phase 27, {PP_WORLD} gloo ranks on "
+          f"one card, 1F1B, {PP_MICRO} microbatches of a batch of {BATCH}):"
+          f" ResNet-50 dp2 x pp2 median ms a step per rank "
+          f"{pf['resnet50']['median_step_ms_per_rank']} "
+          f"({pf['resnet50']['rows_per_s']:.1f} images/s), attention "
+          f"classifier tp2 x pp2 "
+          f"{pf['attention']['median_step_ms_per_rank']} "
+          f"({pf['attention']['rows_per_s']:.1f} sequences/s); phase "
+          f"{pf['phase_s']:.1f}s [{label}]")
     print(f"[done] matmul precision: "
           f"{torch.get_float32_matmul_precision()}, cuda.matmul.allow_tf32 "
           f"{torch.backends.cuda.matmul.allow_tf32}")

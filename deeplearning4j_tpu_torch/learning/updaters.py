@@ -53,6 +53,19 @@ def is_fsdp(tree) -> bool:
     return isinstance(tree, dict) and FSDP_KEY in tree
 
 
+#: reserved key marking the tensor-parallel split of a parameter or
+#: updater-state entry: ``{TP_KEY: {param name: tensor}}``. Its leaves
+#: are a replica's shards of the leaves ``parallel/speclayout.py`` splits
+#: over the ``model`` axis (and, under the ZeRO layouts, over ``data``
+#: too); they never ravel into the data-parallel flats, so the flats'
+#: exchange never crosses ``model``. The key string is the JAX package's.
+TP_KEY = "__tp__"
+
+
+def has_tp(tree) -> bool:
+    return isinstance(tree, dict) and TP_KEY in tree
+
+
 #: reserved key marking the encoded exchange's error-feedback state in an
 #: updater-state entry: ``{ENCODED_KEY: {"residual": {dtype key: flat},
 #: "tau": f32, "step": int32, "sparsity": f32}}``; in the dense

@@ -230,7 +230,8 @@ class ComputationGraph(Trainable):
     # ------------------------------------------------------------------
     def _forward(self, params, states, inputs: Sequence[torch.Tensor], *,
                  training: bool = False, rng=None,
-                 want_logits: bool = False, fmask=None):
+                 want_logits: bool = False, fmask=None, start_acts=None,
+                 topo_slice=None):
         """Walk in topo order; returns ``(acts, new_states)``: the
         activations by vertex name (network inputs included; an output
         layer that folds its softmax into the loss gives logits when
@@ -238,13 +239,21 @@ class ComputationGraph(Trainable):
         end), and each stateful layer's new state (the blended
         BatchNormalization stats in training). ``rng`` is this step's
         key (None: no dropout and no weight noise); ``fmask`` the ``[b,
-        t]`` features mask, given to every layer that accepts one."""
+        t]`` features mask, given to every layer that accepts one.
+        ``topo_slice=(lo, hi)`` walks only ``topo[lo:hi]``, a pipeline
+        stage's slice (``parallel/pipeline.py``), with ``start_acts``
+        (``{name: activation}``) the activations earlier stages hand
+        over; each layer's key stays folded on its position in the whole
+        topo order."""
         conf = self.conf
         if conf.compute_dtype:
             cd = to_torch_dtype(conf.compute_dtype)
             params = cast_floats(params, cd)
             inputs = [x.to(cd) if x.is_floating_point() else x
                       for x in inputs]
+            if start_acts is not None:
+                start_acts = {k: (a.to(cd) if a.is_floating_point() else a)
+                              for k, a in start_acts.items()}
         layer_pos = self._layer_pos
 
         def run_vertex(name, acts):
@@ -289,8 +298,13 @@ class ComputationGraph(Trainable):
             return {k: acts[k] for k in out_names}, ns
 
         acts = dict(zip(conf.network_inputs, inputs))
+        if start_acts is not None:
+            acts.update(start_acts)
         topo = self._topo
-        if training and conf.remat_segments > 1 and len(topo) > 1:
+        if topo_slice is not None:
+            topo = topo[topo_slice[0]:topo_slice[1]]
+            acts, new_states = run_segment(topo, acts, list(acts) + topo)
+        elif training and conf.remat_segments > 1 and len(topo) > 1:
             new_states = {}
             for lo, hi, wrap, seg_in, seg_out in self._segments():
                 seg = topo[lo:hi]
@@ -308,7 +322,8 @@ class ComputationGraph(Trainable):
                                            list(conf.network_inputs) + topo)
         if conf.compute_dtype:
             for out in conf.network_outputs:
-                acts[out] = acts[out].to(self._dtype)
+                if out in acts:
+                    acts[out] = acts[out].to(self._dtype)
         return acts, new_states
 
     def _live_after(self, end: int) -> set:

@@ -143,11 +143,17 @@ class MultiLayerNetwork(Trainable):
     # ------------------------------------------------------------------
     def _forward(self, params, states, x: torch.Tensor, *,
                  training: bool = False, rng=None, want_logits: bool = False,
-                 mask: Optional[torch.Tensor] = None):
+                 mask: Optional[torch.Tensor] = None, start_at: int = 0,
+                 stop_at: Optional[int] = None):
         """Walk the stack; ``mask`` is the ``[b, t]`` features mask, given
         to the layers that accept one; ``rng`` this step's key (None: no
-        dropout and no weight noise). Returns ``(out, new_states)``,
-        both in ``dtype`` under ``compute_dtype``."""
+        dropout and no weight noise). ``start_at`` / ``stop_at`` bound the
+        walk to layers ``[start_at, stop_at)``, a pipeline stage's slice
+        (``parallel/pipeline.py``): ``x`` is then the stage's incoming
+        activation, and each layer's key stays folded on its absolute
+        index, so a sliced walk draws what the whole one draws. Returns
+        ``(out, new_states)``, both in ``dtype`` under
+        ``compute_dtype``."""
         conf = self.conf
         if conf.compute_dtype:
             cd = to_torch_dtype(conf.compute_dtype)
@@ -194,7 +200,8 @@ class MultiLayerNetwork(Trainable):
 
         new_states = {}
         h = x
-        if training and conf.remat_segments > 1 and n > 1:
+        sliced = start_at != 0 or stop_at is not None
+        if training and conf.remat_segments > 1 and n > 1 and not sliced:
             for lo, hi, wrap in segment_plan(n, conf.remat_segments):
                 if wrap:
                     h, ns = checkpoint(run_segment, lo, hi, h,
@@ -204,7 +211,8 @@ class MultiLayerNetwork(Trainable):
                     h, ns = run_segment(lo, hi, h)
                 new_states.update(ns)
         else:
-            h, new_states = run_segment(0, n, h)
+            h, new_states = run_segment(
+                start_at, n if stop_at is None else min(stop_at, n), h)
         if conf.compute_dtype:
             h = h.to(self._dtype)
             new_states = cast_floats(new_states, self._dtype)

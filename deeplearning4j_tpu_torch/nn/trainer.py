@@ -101,6 +101,20 @@ runs once a window, on the mean gradient. An encoded run's
 error-feedback state stays in the updater state between fits (in the
 dense layout once unbound) and is dropped when the model steps under any
 other exchange.
+
+Tensor parallelism (``set_dp_mesh(..., tp_specs=)``, the specs of
+``parallel/speclayout.py``): on a mesh with a ``model`` axis (or a
+``pipe`` axis) the model's replica is its data group
+(``parallel/mesh.AxisReplica``), so the update exchange, the mean loss
+and BatchNormalization's statistics run over the data group only. Each
+tensor-parallel leaf is held as the replica's shard (the flats of the
+ZeRO tails never hold one); the loss reads it gathered whole through
+``zero.pin_tp_entry`` (under fsdp through ``FsdpParamView``), whose
+backward leaves the replica's own slice of the gradient; the tails
+update the shards with ``zero.apply_update_tp`` (the dense tail with the
+layer's own updater on the shards, gathering them only where gradient
+normalization or a constraint needs the whole leaf). Unbinding gathers
+the leaves and their state back to the dense layout.
 """
 from __future__ import annotations
 
@@ -111,9 +125,9 @@ import torch
 from deeplearning4j_tpu_torch.common import diagnostics, layerprof, telemetry
 from deeplearning4j_tpu_torch.common.rng import RngKey
 from deeplearning4j_tpu_torch.datasets.prefetch import maybe_device_prefetch
-from deeplearning4j_tpu_torch.learning.updaters import (FSDP_KEY, is_encoded,
-                                                        is_fsdp, tree_leaves,
-                                                        tree_map)
+from deeplearning4j_tpu_torch.learning.updaters import (FSDP_KEY, TP_KEY,
+                                                        is_encoded, is_fsdp,
+                                                        tree_leaves, tree_map)
 from deeplearning4j_tpu_torch.nn.conf.builders import BackpropType
 from deeplearning4j_tpu_torch.nn.conf.constraints import apply_constraints
 from deeplearning4j_tpu_torch.nn.gradient import \
@@ -150,6 +164,10 @@ class Trainable:
         self._dp_mode: Optional[zero.UpdateExchange] = None
         self._dp_encoding = None
         self._fsdp_specs: dict = {}
+        #: {entry: {name: TpLeafSpec}} while bound with tensor parallelism,
+        #: and the replica of the whole mesh its collectives run through
+        self._tp_specs: dict = {}
+        self._tp_replica: Optional[Replica] = None
         self._rnn_stream_states: Optional[_Tree] = None
         self._rnn_stream_batch = 0
         self._observe = True
@@ -392,7 +410,11 @@ class Trainable:
         params = leaves
         if self._params_are_fsdp():
             params = zero.FsdpParamView(leaves, self._fsdp_specs,
-                                        self._replica)
+                                        self._replica,
+                                        tp_specs=self._tp_specs,
+                                        tp_replica=self._tp_replica)
+        elif self._tp_specs:
+            params = self._tp_view(leaves)
         with replica_scope(self._replica), torch.enable_grad():
             loss, new_states = self._loss(params, states, inputs, labels,
                                           lmasks, fmask, training=True,
@@ -421,6 +443,14 @@ class Trainable:
         self._score = self._mean_loss(loss)
         self.iteration_count += 1
         return new_states
+
+    def _tp_view(self, params: _Tree) -> _Tree:
+        """``params`` with the tensor-parallel leaves gathered whole
+        (their gradients come back as this replica's slices)."""
+        return {k: (zero.pin_tp_entry(sub, self._tp_specs[k],
+                                      self._tp_replica)
+                    if k in self._tp_specs else sub)
+                for k, sub in params.items()}
 
     def _grad_norm(self, grads: _Tree) -> Optional[torch.Tensor]:
         """The global gradient norm (f32, on the device) while the
@@ -503,9 +533,19 @@ class Trainable:
             g = grads.get(key)
             if not g:
                 continue
-            g = apply_gradient_normalization(
-                conf.gradient_normalization,
-                conf.gradient_normalization_threshold, g)
+            specs = self._tp_specs.get(key)
+            gn = conf.gradient_normalization
+            if specs and getattr(gn, "name", "NONE") != "NONE":
+                # the norms are the whole leaves'
+                full = apply_gradient_normalization(
+                    gn, conf.gradient_normalization_threshold,
+                    zero.gather_tp_params({key: g}, self._tp_specs,
+                                          self._tp_replica)[key])
+                g = zero.place_tp_params({key: full}, self._tp_specs,
+                                         self._tp_replica)[key]
+            else:
+                g = apply_gradient_normalization(
+                    gn, conf.gradient_normalization_threshold, g)
             updates, us = self._updater(key).apply(
                 g, self.updater_states[key], iteration, self.epoch_count)
             p = self.params[key]
@@ -519,16 +559,31 @@ class Trainable:
         if layer is None:
             return
         p = self.params[key]
+        if key in self._tp_specs:
+            # a constraint's norms are the whole leaves'
+            full = zero.gather_tp_params({key: p}, self._tp_specs,
+                                         self._tp_replica)[key]
+            new = apply_constraints(layer, full)
+            if all(new[n] is full[n] for n in full):
+                return
+            new = zero.place_tp_params({key: new}, self._tp_specs,
+                                       self._tp_replica)[key]
+            for n, t in new.items():
+                p[n].copy_(t)
+            return
         for n, t in apply_constraints(layer, p).items():
             if t is not p[n]:
                 p[n].copy_(t)
 
     # -- data parallelism --------------------------------------------------
     def set_dp_mesh(self, mesh, axis: str = "data", mode=None,
-                    encoding=None):
+                    encoding=None, *, model_axis: str = "model",
+                    tp_specs=None):
         """Bind this model to a data-parallel replica, or unbind it with
         ``mesh=None``. ``mesh`` is a ``parallel.mesh.Replica``, or a mesh
-        with one replica in this process (a ``ProcessGroupMesh``).
+        with one replica in this process (a ``ProcessGroupMesh``); on a
+        mesh with another axis above 1 the exchange runs over the
+        replica's ``axis`` group (``Replica.group``).
         ``mode`` None or ``"sharded"`` selects the ZeRO-1 tail (the
         updater state converts to this replica's 1/N of the flat
         layout), ``"dense"`` the all-reduce tail, ``"encoded"`` the
@@ -537,14 +592,12 @@ class Trainable:
         state is injected where absent), ``"fsdp"`` the ZeRO-3 tail (the
         parameters convert to this replica's 1/N of their flats too);
         ``"auto"`` resolves as ``zero.resolve_update_exchange`` does.
-        Leaving a flat tail gathers the state (and under fsdp the
-        parameters) back to the dense layout, a collective every
-        replica of the mesh takes part in."""
-        if axis != "data":
-            raise NotImplementedError(
-                f"axis {axis!r}: the data-parallel step exchanges over the "
-                f"data axis only (its tensor-parallel exchange, zero.py's "
-                f"TP_KEY branches, is ROADMAP item 12)")
+        ``tp_specs`` (``{entry: {name: TpLeafSpec}}``, from
+        ``parallel.speclayout.SpecLayout``) adds tensor parallelism over
+        ``model_axis``: those leaves and their updater state are held as
+        this replica's shards. Leaving a bound layout gathers the state
+        (and the fsdp and tensor-parallel parameters) back to the dense
+        layout, a collective every replica of the mesh takes part in."""
         replica = mesh
         if mesh is not None and not isinstance(mesh, Replica):
             local = mesh.local_replicas()
@@ -554,11 +607,17 @@ class Trainable:
                     f"this process: bind each replica's model to its own "
                     f"mesh.replica(rank)")
             replica = local[0]
+        base = replica
+        tp_specs = dict(tp_specs or {}) if replica is not None else {}
         if replica is not None:
-            replica.mesh.data_axis_only("set_dp_mesh")
+            if tp_specs and replica.axis_size(model_axis) <= 1:
+                raise ValueError(f"tp_specs need a {model_axis!r} mesh axis "
+                                 f"above 1, mesh {replica.mesh.axes}")
+            if replica.mesh.has_other_axes(axis):
+                replica = base.group(axis)
             mode = zero.parse_update_exchange(mode or "sharded")
             if mode is zero.UpdateExchange.AUTO:
-                mode = zero.resolve_update_exchange(replica.mesh, axis,
+                mode = zero.resolve_update_exchange(base.mesh, axis,
                                                     mode, self)
             if canonical_device(replica.device) != \
                     canonical_device(self.device):
@@ -569,8 +628,12 @@ class Trainable:
         if self._replica is not None:
             self._gather_dp_layouts()
         self._replica = replica
+        self._tp_replica = base if tp_specs else None
+        self._tp_specs = tp_specs
         self._dp_mode = mode if replica is not None else None
         self._dp_encoding = None
+        if replica is None:
+            return self
         if self._dp_mode in zero.FLAT_MODES:
             n, rank = replica.size, replica.rank
             # the JAX package's sharded-state and fsdp-parameter
@@ -583,38 +646,51 @@ class Trainable:
                     self._dp_encoding = resolve_encoding(encoding)
                     states = zero.ensure_encoded_states(
                         self.params, self.updater_states, n,
-                        self._dp_encoding)
+                        self._dp_encoding, tp_specs=tp_specs)
                 else:
-                    states = zero.states_to_sharded(self.params,
-                                                    self.updater_states, n)
-                self.updater_states = {k: zero.shard_state(s, rank, n)
-                                       for k, s in states.items()}
+                    states = zero.states_to_sharded(
+                        self.params, self.updater_states, n,
+                        tp_specs=tp_specs)
+                self.updater_states = zero.place_updater_states(
+                    states, replica, tp_specs, base)
             if self._dp_mode is zero.UpdateExchange.FSDP:
                 with diagnostics.collective_span(
                         "fsdp_param_placement", "data", 0,
                         entries=len(self.params)):
                     flat, self._fsdp_specs = zero.params_to_fsdp(
-                        self.params, n)
-                    self.params = zero.shard_params(flat, rank, n)
+                        self.params, n, tp_specs=tp_specs)
+                    self.params = zero.shard_params(flat, rank, n,
+                                                    tp_specs, base)
                 telemetry.gauge(
                     "dl4j_fsdp_param_shard_bytes",
                     "resident bytes of a replica's fsdp flat parameter "
                     "slices (1/N of the padded flat total)").set(
                         zero.fsdp_param_bytes(self.params))
+                return self
+        elif tp_specs:
+            self.updater_states = zero.place_updater_states(
+                self.updater_states, replica, tp_specs, base)
+        if tp_specs:
+            self.params = zero.place_tp_params(self.params, tp_specs, base)
         return self
 
     def _gather_dp_layouts(self) -> None:
-        """Leave the bound layouts: the fsdp parameters and the flat
-        updater state gathered back to the dense layout (collectives)."""
+        """Leave the bound layouts: the fsdp and tensor-parallel
+        parameters and the flat (and tensor-parallel) updater state
+        gathered back to the dense layout (collectives)."""
+        specs, base = self._tp_specs, self._tp_replica
         if self._params_are_fsdp():
             self.params = zero.params_to_dense(self.params,
                                                self._fsdp_specs,
-                                               self._replica)
+                                               self._replica, specs, base)
             self._fsdp_specs = {}
-        if self._dp_mode in zero.FLAT_MODES:
+        elif specs:
+            self.params = zero.gather_tp_params(self.params, specs, base)
+        if self._dp_mode in zero.FLAT_MODES or specs:
             self.updater_states = zero.states_to_dense(
-                self.params, {k: zero.gather_state(s, self._replica)
-                              for k, s in self.updater_states.items()})
+                self.params, zero.gather_updater_states(
+                    self.updater_states, self._replica, specs, base))
+        self._tp_specs, self._tp_replica = {}, None
 
     def _params_are_fsdp(self) -> bool:
         return any(is_fsdp(p) for p in self.params.values())
@@ -624,21 +700,25 @@ class Trainable:
         residency: under fsdp a gather of every replica's slices (a
         collective: every replica of the mesh calls it), else
         ``params`` itself."""
-        if not self._params_are_fsdp():
-            return self.params
-        return zero.params_to_dense(self.params, self._fsdp_specs,
-                                    self._replica)
+        if self._params_are_fsdp():
+            return zero.params_to_dense(self.params, self._fsdp_specs,
+                                        self._replica, self._tp_specs,
+                                        self._tp_replica)
+        if self._tp_specs:
+            return zero.gather_tp_params(self.params, self._tp_specs,
+                                         self._tp_replica)
+        return self.params
 
     def dense_updater_states(self) -> dict:
         """The updater state in the dense layout (a checkpoint's): while
         bound to a flat tail, every replica's slices gathered (a
         collective), else ``updater_states`` itself."""
-        if self._dp_mode not in zero.FLAT_MODES:
+        if self._dp_mode not in zero.FLAT_MODES and not self._tp_specs:
             return self.updater_states
         return zero.states_to_dense(
-            self.dense_params(),
-            {k: zero.gather_state(s, self._replica)
-             for k, s in self.updater_states.items()})
+            self.dense_params(), zero.gather_updater_states(
+                self.updater_states, self._replica, self._tp_specs,
+                self._tp_replica))
 
     def _mean_loss(self, loss: torch.Tensor) -> torch.Tensor:
         """The replicas' mean loss (the loss itself without a mesh)."""
@@ -666,6 +746,9 @@ class Trainable:
                 continue
             up, st = self._updater(key), self.updater_states[key]
             p = self.params[key]
+            specs = self._tp_specs.get(key)
+            st, st_tp = zero.split_tp_state(st)
+            us_tp = ()
             if mode is zero.UpdateExchange.FSDP:
                 # no constraints here: the resolver refuses fsdp for them
                 new_flat, us = zero.apply_update_fsdp(
@@ -673,19 +756,38 @@ class Trainable:
                     self._replica, epoch=self.epoch_count)
                 for dt, t in new_flat.items():
                     p[FSDP_KEY][dt].copy_(t)
+                if specs and TP_KEY in g:
+                    new_tp, us_tp = zero.apply_update_tp(
+                        up, g[TP_KEY], p[TP_KEY], st_tp, iteration,
+                        self._replica, specs, gather_params=False,
+                        grads_resident=True, epoch=self.epoch_count)
+                    for n, t in new_tp.items():
+                        p[TP_KEY][n].copy_(t)
             else:
-                if mode is zero.UpdateExchange.ENCODED:
-                    new_p, us = zero.apply_update_encoded(
-                        up, g, p, st, iteration, self._replica,
-                        encoding=self._dp_encoding, epoch=self.epoch_count)
+                g_rest, g_tp = zero.split_tp_entry(g, specs or {})
+                p_rest, p_tp = zero.split_tp_entry(p, specs or {})
+                new_p = {}
+                if g_rest:
+                    if mode is zero.UpdateExchange.ENCODED:
+                        new_p, us = zero.apply_update_encoded(
+                            up, g_rest, p_rest, st, iteration, self._replica,
+                            encoding=self._dp_encoding,
+                            epoch=self.epoch_count)
+                    else:
+                        new_p, us = zero.apply_update_sharded(
+                            up, g_rest, p_rest, st, iteration,
+                            self._replica, epoch=self.epoch_count)
                 else:
-                    new_p, us = zero.apply_update_sharded(
-                        up, g, p, st, iteration, self._replica,
-                        epoch=self.epoch_count)
+                    us = st
+                if g_tp:
+                    new_tp, us_tp = zero.apply_update_tp(
+                        up, g_tp, p_tp, st_tp, iteration, self._replica,
+                        specs, gather_params=True, epoch=self.epoch_count)
+                    new_p.update(new_tp)
                 for n, t in new_p.items():
                     p[n].copy_(t)
                 self._constrain(key)
-            self.updater_states[key] = us
+            self.updater_states[key] = zero.merge_tp_state(us, us_tp)
 
     # -- layer attribution -------------------------------------------------
     def layer_report(self, data=None, labels=None, **roofline_kw) -> dict:

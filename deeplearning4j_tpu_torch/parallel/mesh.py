@@ -16,7 +16,10 @@ Two families of collectives:
   cross-replica BatchNormalization): ``all_reduce_sum``,
   ``reduce_scatter`` (sum, then this rank's equal slice), ``all_gather``
   (concatenation in rank order) and ``broadcast``, through the
-  :class:`Replica` handle;
+  :class:`Replica` handle; on a mesh with other axes above 1 the same
+  four run over one axis's group through :class:`AxisReplica`
+  (``replica.group("data")``), so a data-parallel step under tensor or
+  pipeline parallelism exchanges over its data group only;
 - over one axis's group (the ranks that share every other coordinate),
   as ``jax.lax``'s are inside ``shard_map``: :func:`psum`, :func:`pmax`,
   :func:`pmean`, :func:`psum_scatter` and :func:`all_gather` (tiled),
@@ -53,6 +56,9 @@ Two back ends:
 :class:`PartitionSpec` and :func:`shard_tree` / :func:`gather_tree` are
 the small counterpart of ``shard_map``'s slicing: a global tree cut into
 a rank's shards by its specs, and the shards put back together.
+:func:`stage_submesh` is the part of a mesh that holds one pipeline
+stage (the JAX package's ``pipeline.stage_submesh``), and
+:meth:`Replica.exchange` the point-to-point handoff between stages.
 
 During a replica's step :func:`replica_scope` makes its handle the
 thread's current replica (:func:`current_replica`), which
@@ -155,6 +161,25 @@ class Replica:
     def broadcast(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
         return self.mesh._broadcast(self.rank, t, src)
 
+    def group(self, axis: str) -> "AxisReplica":
+        """This replica seen through ``axis``'s group (its data group for
+        ``"data"``): the four whole-mesh collectives above run over that
+        group."""
+        return AxisReplica(self, axis)
+
+    def exchange(self, axis: str, sends: Dict[int, List[torch.Tensor]],
+                 recv_from: Sequence[int]) -> Dict[int, List[torch.Tensor]]:
+        """Point-to-point within ``axis``'s group: ``sends`` maps a member's
+        axis index to the tensors this rank sends it, ``recv_from`` lists
+        the members this rank receives from; returns ``{source: tensors}``
+        on this rank's device. Every member of the group calls it at the
+        same point of its program (the pipeline's tick table), each
+        naming the sends and receives that pair with the others'."""
+        if self.mesh.axis_size(axis) == 1 or (not sends and not recv_from
+                                              and not self.mesh._p2p_sync):
+            return {}
+        return self.mesh._exchange(self.rank, axis, sends, list(recv_from))
+
     # -- named axes --------------------------------------------------------
     def axis_size(self, axis: str) -> int:
         return self.mesh.axis_size(axis)
@@ -176,6 +201,62 @@ class Replica:
     def __repr__(self) -> str:
         return (f"Replica(rank={self.rank}/{self.size}, "
                 f"device={self.device}, {type(self.mesh).__name__})")
+
+
+class AxisReplica(Replica):
+    """A replica seen through one axis's group: ``rank`` is its index on
+    the axis, ``size`` the axis's size, and ``all_reduce_sum``,
+    ``reduce_scatter``, ``all_gather`` and ``broadcast`` run over the
+    group (in axis order, as the whole mesh's run in rank order). Axis
+    collectives and point-to-point exchanges go to the underlying
+    replica. The data-parallel machinery (``parallel/zero.py``,
+    BatchNormalization's statistics, dropout's rows) takes it in place
+    of the replica on a mesh with tensor or pipeline axes, so its
+    exchanges stay inside the data group: never across ``model`` or
+    ``pipe``."""
+
+    def __init__(self, base: Replica, axis: str):
+        self.base, self.axis = base, axis
+        self.mesh, self.device = base.mesh, base.device
+        self.rank = base.axis_index(axis)
+
+    @property
+    def size(self) -> int:
+        return self.base.axis_size(self.axis)
+
+    def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
+        return self.base.axis_collective("psum", t.contiguous(), self.axis)
+
+    def reduce_scatter(self, flat: torch.Tensor) -> torch.Tensor:
+        return self.base.axis_collective("psum_scatter", flat.contiguous(),
+                                         self.axis, dim=0)
+
+    def all_gather(self, shard: torch.Tensor) -> torch.Tensor:
+        return self.base.axis_collective("all_gather", shard.contiguous(),
+                                         self.axis, dim=0)
+
+    def broadcast(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
+        return self.base.axis_collective("broadcast", t.contiguous(),
+                                         self.axis, src=src)
+
+    def group(self, axis: str) -> "AxisReplica":
+        return self.base.group(axis)
+
+    def exchange(self, axis, sends, recv_from):
+        return self.base.exchange(axis, sends, recv_from)
+
+    def axis_size(self, axis: str) -> int:
+        return self.base.axis_size(axis)
+
+    def axis_index(self, axis: str) -> int:
+        return self.base.axis_index(axis)
+
+    def axis_collective(self, op: str, t: torch.Tensor, axis: str,
+                        **kw) -> torch.Tensor:
+        return self.base.axis_collective(op, t, axis, **kw)
+
+    def __repr__(self) -> str:
+        return f"AxisReplica({self.axis!r} of {self.base!r})"
 
 
 def _single(op: str, t: torch.Tensor, perm=None, **kw) -> torch.Tensor:
@@ -252,17 +333,13 @@ class DpMesh:
             groups.setdefault(tuple(c), []).append(r)
         return sorted(groups.values())
 
-    def data_axis_only(self, what: str) -> None:
-        """Raise for an axis other than ``data`` of size above 1: the
-        data-parallel paths run over the whole mesh."""
-        other = {k: v for k, v in self.axes.items()
-                 if k != DEFAULT_DATA_AXIS and v > 1}
-        if other:
-            raise NotImplementedError(
-                f"{what} on mesh axes {other}: the data-parallel paths "
-                f"take the data axis only (their tensor and pipeline "
-                f"parallelism, speclayout.py, the 1F1B PipelineTrainer and "
-                f"zero.py's tensor-parallel branches, are ROADMAP item 12)")
+    def has_other_axes(self, axis: str = DEFAULT_DATA_AXIS) -> bool:
+        """Whether an axis other than ``axis`` has a size above 1."""
+        return any(v > 1 for k, v in self.axes.items() if k != axis)
+
+    #: whether every member must enter :meth:`Replica.exchange` even with
+    #: nothing to send or receive (a thread mesh meets at a barrier)
+    _p2p_sync = False
 
 
 def _local_axis_op(op: str, vals: list, i: int, t: torch.Tensor, dim=0,
@@ -446,6 +523,54 @@ class ThreadMesh(DpMesh):
     def _broadcast(self, rank, t, src):
         return self._collect(rank, "broadcast", t, self._whole, src=src)
 
+    _p2p_sync = True
+
+    def _exchange(self, rank, axis, sends, recv_from):
+        """Every member posts its sends; each takes what is addressed to
+        it; nobody moves on before every member has read."""
+        sync, i = self._groups[axis][rank]
+        for ts in sends.values():
+            for t in ts:
+                if t.device.type == "cuda":
+                    torch.cuda.current_stream(t.device).synchronize()
+                    break
+        sync.slots[i] = sends
+        self._wait(sync.barrier)
+        dev = self.devices[rank]
+        out = {s_: [t.to(dev, copy=True) for t in sync.slots[s_][i]]
+               for s_ in recv_from}
+        if dev.type == "cuda":
+            torch.cuda.current_stream(dev).synchronize()
+        self._wait(sync.barrier)
+        return out
+
+
+#: dtypes a point-to-point header names, by code
+_P2P_DTYPES = (torch.float32, torch.float64, torch.float16, torch.bfloat16,
+               torch.int64, torch.int32, torch.bool, torch.uint8)
+_P2P_HEADER = 64
+
+
+def _p2p_header(ts: List[torch.Tensor]) -> torch.Tensor:
+    """``[n, (dtype code, ndim, *shape) for each tensor]``, zero padded."""
+    h = [len(ts)]
+    for t in ts:
+        h += [_P2P_DTYPES.index(t.dtype), t.dim(), *t.shape]
+    if len(h) > _P2P_HEADER:
+        raise ValueError(f"a point-to-point message of {len(ts)} tensors "
+                         f"does not fit its {_P2P_HEADER}-entry header")
+    return torch.tensor(h + [0] * (_P2P_HEADER - len(h)), dtype=torch.int64)
+
+
+def _p2p_shapes(h: torch.Tensor) -> list:
+    h = h.tolist()
+    out, i = [], 1
+    for _ in range(h[0]):
+        dt, nd = _P2P_DTYPES[h[i]], h[i + 1]
+        out.append((dt, tuple(h[i + 2:i + 2 + nd])))
+        i += 2 + nd
+    return out
+
 
 class ProcessGroupMesh(DpMesh):
     """One replica a process over ``torch.distributed``: ``backend``
@@ -516,12 +641,15 @@ class ProcessGroupMesh(DpMesh):
         return [Replica(self, self.rank, self.device)]
 
     def _axis_op(self, rank, op, t, axis, dim=0, perm=None, split=0,
-                 concat=0):
+                 concat=0, src=0):
         import torch.distributed as dist
         pg, group = self._pgs[axis]
         i, n = group.index(self.rank), len(group)
         x = (t.cpu() if self._stage else t).contiguous()
-        if op in ("psum", "pmax", "psum_scatter"):
+        if op == "broadcast":
+            out = x.clone()
+            dist.broadcast(out, group[src], group=pg)
+        elif op in ("psum", "pmax", "psum_scatter"):
             out = x.clone()
             dist.all_reduce(out, op=dist.ReduceOp.MAX if op == "pmax"
                             else dist.ReduceOp.SUM, group=pg)
@@ -558,6 +686,38 @@ class ProcessGroupMesh(DpMesh):
         else:
             raise ValueError(f"unknown collective {op!r}")
         return out.to(t.device) if self._stage else out
+
+    def _exchange(self, rank, axis, sends, recv_from):
+        """Two batches of point-to-point pairs within the axis group: the
+        headers (each message's dtypes and shapes), then the tensors, each
+        pair tagged by its place in the message."""
+        import torch.distributed as dist
+        pg, group = self._pgs[axis]
+        cpu = self.backend == "gloo"
+        hdev = torch.device("cpu") if cpu else self.device
+
+        def run(pairs):
+            ops = [dist.P2POp(dist.isend if send else dist.irecv, t, group[j],
+                              pg, tag) for send, t, j, tag in pairs]
+            if ops:
+                for w in dist.batch_isend_irecv(ops):
+                    w.wait()
+
+        heads = {s_: torch.empty(_P2P_HEADER, dtype=torch.int64,
+                                 device=hdev) for s_ in recv_from}
+        run([(True, _p2p_header(ts).to(hdev), d, 0)
+             for d, ts in sends.items()] +
+            [(False, h, s_, 0) for s_, h in heads.items()])
+        staged = {d: [(t.cpu() if self._stage else t).contiguous()
+                      for t in ts] for d, ts in sends.items()}
+        got = {s_: [torch.empty(shape, dtype=dt, device=hdev)
+                    for dt, shape in _p2p_shapes(h)]
+               for s_, h in heads.items()}
+        run([(True, t, d, 1 + k) for d, ts in staged.items()
+             for k, t in enumerate(ts)] +
+            [(False, t, s_, 1 + k) for s_, ts in got.items()
+             for k, t in enumerate(ts)])
+        return {s_: [t.to(self.device) for t in ts] for s_, ts in got.items()}
 
     def shutdown(self) -> None:
         import torch.distributed as dist
@@ -659,6 +819,41 @@ class MeshFactory:
                           DEFAULT_MODEL_AXIS: model,
                           DEFAULT_SEQ_AXIS: seq,
                           DEFAULT_STAGE_AXIS: stage}, devices)
+
+
+class SubMesh:
+    """The ranks of a mesh that share one coordinate on an axis, as a
+    mesh of the remaining axes (``shape``, ``axes``, ``size``; ``ranks``
+    the parent's ranks in row-major order of the remaining axes). What
+    :class:`parallel.speclayout.SpecLayout` infers a stage's specs
+    against; the stage's replicas stay the parent mesh's."""
+
+    def __init__(self, parent: DpMesh, ranks: List[int],
+                 axes: Dict[str, int]):
+        self.parent, self.ranks = parent, list(ranks)
+        self.axes = dict(axes)
+        self.size = len(self.ranks)
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(self.axes)
+
+    def __repr__(self) -> str:
+        return f"SubMesh({self.axes}, ranks={self.ranks})"
+
+
+def stage_submesh(mesh, stage: int, pipe_axis: str = "pipe") -> SubMesh:
+    """The part of ``mesh`` holding pipeline stage ``stage``: the ranks
+    whose ``pipe_axis`` coordinate is ``stage``, over every other axis
+    at its extent (a pipe-only mesh gives one-rank stages on a ``data``
+    axis of 1), as the JAX package's ``stage_submesh``."""
+    if pipe_axis not in mesh.axes:
+        raise ValueError(f"mesh axes {tuple(mesh.axes)} have no "
+                         f"{pipe_axis!r} axis")
+    k = list(mesh.axes).index(pipe_axis)
+    ranks = [r for r in range(mesh.size) if mesh.coords(r)[k] == stage]
+    rest = {a: n for a, n in mesh.axes.items() if a != pipe_axis}
+    return SubMesh(mesh, ranks, rest or {DEFAULT_DATA_AXIS: 1})
 
 
 # ---------------------------------------------------------------------------

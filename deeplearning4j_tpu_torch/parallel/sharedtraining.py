@@ -26,12 +26,23 @@ Without a coordinator it degenerates to :class:`ParallelWrapper` over
 ``workers_per_node`` local replicas (all cards by default; one CPU
 replica for a model on the CPU).
 
+``tensor_parallel(t)`` and ``pipeline_stages(p)`` lay the world out as
+``{data, model, pipe}`` in the JAX package's order (rank = (d·t + m)·p +
+s; the process count must divide by t·p); every process feeds its data
+index's shard (the processes of one data index feed the same rows).
+Under tensor parallelism ``parallel/speclayout.SpecLayout`` infers the
+leaves each process holds a shard of, and the model binds to its data
+group; under pipeline parallelism ``parallel/pipeline.PipelineTrainer``
+runs the fit (``microbatches``, ``pipeline_schedule``), each stage's data
+group gathering its shards of a batch before taking its rows of each
+microbatch.
+
 The reference's threshold and residual knobs configure the encoded
 exchange: under ``update_exchange("encoded")`` they compose the
 ``EncodingSpec`` as the JAX package composes it (an explicit
 ``encoding(...)`` wins); under any other exchange they are inert, and
-logged so. Not ported: tensor and pipeline parallelism (ROADMAP item
-12) and ``checkpoint_dir`` (``utils/checkpoint.py``, item 14).
+logged so. Not ported: ``checkpoint_dir`` (``utils/checkpoint.py``, item
+14).
 
 The scaling observatory's sidecar (``common/stepstats.py``) rides beside
 the exchange: each process labels its step breakdowns with its rank and
@@ -60,11 +71,13 @@ from deeplearning4j_tpu_torch.parallel.mesh import (DEFAULT_DATA_AXIS,
                                                     DEFAULT_TIMEOUT_S,
                                                     ProcessGroupMesh,
                                                     make_mesh)
-from deeplearning4j_tpu_torch.parallel.wrapper import (PP_FIT_PATH,
-                                                       TP_FIT_PATH,
-                                                       ParallelWrapper,
-                                                       not_ported,
-                                                       local_devices)
+from deeplearning4j_tpu_torch.parallel.pipeline import PipelineTrainer
+from deeplearning4j_tpu_torch.parallel.wrapper import (ParallelWrapper,
+                                                       check_degree,
+                                                       check_schedule,
+                                                       fit_devices,
+                                                       fit_mesh_axes,
+                                                       not_ported)
 
 log = logging.getLogger("deeplearning4j_tpu_torch")
 
@@ -87,6 +100,11 @@ class SharedTrainingConfiguration:
     process_id: Optional[int] = None
     backend: Optional[str] = None       # None: nccl on the card, else gloo
     collective_timeout_s: float = DEFAULT_TIMEOUT_S
+    # the model and pipe axes of the world, and the pipeline's schedule
+    tensor_parallel: int = 1
+    pipeline_stages: int = 1
+    n_micro: Optional[int] = None
+    pipeline_schedule: str = "1f1b"
 
 
 def _leader_host(address: Optional[str]) -> str:
@@ -113,6 +131,8 @@ class SharedTrainingMaster:
         self._observatory: Optional[stepstats.StepStatsAggregator] = None
         self._obs_client: Optional[stepstats.StepStatsClient] = None
         self._last_observatory: Optional[dict] = None
+        #: the PipelineTrainer of the last pipelined fit
+        self.trainer = None
 
     class Builder:
         def __init__(self, batch_size_per_worker: int = 32):
@@ -148,13 +168,29 @@ class SharedTrainingMaster:
             return self
 
         def tensor_parallel(self, n: int):
-            if int(n) > 1:
-                raise not_ported(TP_FIT_PATH, "12")
+            """Shard the weights ``n`` ways over a ``model`` axis of the
+            world (``parallel/speclayout.py``); composes with every
+            exchange."""
+            self._c.tensor_parallel = check_degree("tensor_parallel", n)
             return self
 
         def pipeline_stages(self, n: int):
-            if int(n) > 1:
-                raise not_ported(PP_FIT_PATH, "12")
+            """Split the network into ``n`` contiguous stages over a
+            ``pipe`` axis of the world (``parallel/pipeline.py``); the
+            process count must divide by ``tensor_parallel ·
+            pipeline_stages``."""
+            self._c.pipeline_stages = check_degree("pipeline_stages", n)
+            return self
+
+        def microbatches(self, n: int):
+            """Microbatches a pipeline step (default ``2 ·
+            pipeline_stages``)."""
+            self._c.n_micro = int(n)
+            return self
+
+        def pipeline_schedule(self, kind: str):
+            """``"1f1b"`` (default) or ``"gpipe"``."""
+            self._c.pipeline_schedule = check_schedule(kind)
             return self
 
         def coordinator(self, address: str, num_processes: int,
@@ -173,13 +209,23 @@ class SharedTrainingMaster:
             return SharedTrainingMaster(self._c)
 
     # ------------------------------------------------------------------
+    def _axes(self, n: int) -> Optional[dict]:
+        """The world's axes for ``n`` processes (or replicas): data
+        alone, or ``{data, model, pipe}`` under tensor or pipeline
+        parallelism (a ValueError when tp·pp does not divide ``n``)."""
+        c = self.config
+        if c.tensor_parallel * c.pipeline_stages == 1:
+            return None
+        return fit_mesh_axes(n, c.tensor_parallel, c.pipeline_stages)
+
     def _process_mesh(self, model) -> ProcessGroupMesh:
         if self._mesh is None:
             c = self.config
+            axes = self._axes(int(c.num_processes))
             self._mesh = ProcessGroupMesh(
                 _init_method(c.coordinator_address), c.num_processes,
                 c.process_id, device=model.device, backend=c.backend,
-                timeout_s=c.collective_timeout_s)
+                timeout_s=c.collective_timeout_s, axes=axes)
             log.info("torch.distributed up (%s): process %d/%d on %s",
                      self._mesh.backend, c.process_id, c.num_processes,
                      model.device)
@@ -224,31 +270,66 @@ class SharedTrainingMaster:
         if not model._initialized:
             model.init()
         if not c.coordinator_address:
-            mesh = make_mesh(devices=local_devices(
+            devs = fit_devices(
                 model, c.workers_per_node if c.workers_per_node > 0
-                else None), timeout_s=c.collective_timeout_s)
+                else None, c.tensor_parallel * c.pipeline_stages)
+            mesh = make_mesh(self._axes(len(devs)), devs,
+                             timeout_s=c.collective_timeout_s)
             mode = zero.resolve_update_exchange(mesh, DEFAULT_DATA_AXIS,
                                                 c.update_exchange, model)
             ParallelWrapper(model, mesh, update_exchange=c.update_exchange,
                             accumulation_steps=c.accumulation_steps,
-                            encoding=self._encoding(mode)
+                            encoding=self._encoding(mode),
+                            n_micro=c.n_micro,
+                            pipeline_schedule=c.pipeline_schedule
                             ).fit(iterator, n_epochs=n_epochs)
             return model
         mesh = self._process_mesh(model)
         mode = zero.resolve_update_exchange(mesh, DEFAULT_DATA_AXIS,
                                             c.update_exchange, model)
+        if c.pipeline_stages > 1:
+            return self._fit_pipeline(model, iterator, mesh, mode, n_epochs)
+        tp_specs = None
+        if c.tensor_parallel > 1:
+            from deeplearning4j_tpu_torch.parallel.speclayout import \
+                SpecLayout
+            tp_specs = SpecLayout(mesh).infer(
+                model.params, shard_over_data=mode in zero.FLAT_MODES)
         model.set_accumulation_steps(c.accumulation_steps)
-        model.set_dp_mesh(mesh, mode=mode, encoding=self._encoding(mode))
+        model.set_dp_mesh(mesh, mode=mode, encoding=self._encoding(mode),
+                          tp_specs=tp_specs)
         self._setup_observatory(mesh, model.device)
         try:
             model.fit(iterator, n_epochs=n_epochs)
         except BaseException:
             # the processes may disagree now: no gathering collective
             model._replica, model._dp_mode = None, None
+            model._tp_specs, model._tp_replica = {}, None
             self._teardown_observatory()
             raise
         self._teardown_observatory(mesh.local_replicas()[0], model.device)
         model.set_dp_mesh(None)
+        return model
+
+    def _fit_pipeline(self, model, iterator, mesh, mode, n_epochs: int):
+        """The pipeline fit over this process's rank: each batch is its
+        data index's shard (``PipelineTrainer.fit(local=True)``)."""
+        c = self.config
+        if mode is zero.UpdateExchange.ENCODED:
+            log.info("encoded update exchange does not compose with "
+                     "pipeline stages; using per-stage sharded (ZeRO-1, "
+                     "uncompressed)")
+            mode = zero.UpdateExchange.SHARDED
+        self.trainer = PipelineTrainer(
+            model, mesh, n_micro=c.n_micro, schedule=c.pipeline_schedule,
+            mode=mode)
+        self._setup_observatory(mesh, model.device)
+        try:
+            self.trainer.fit(iterator, n_epochs=n_epochs, local=True)
+        except BaseException:
+            self._teardown_observatory()
+            raise
+        self._teardown_observatory(mesh.local_replicas()[0], model.device)
         return model
 
     # -- scaling observatory sidecar -----------------------------------

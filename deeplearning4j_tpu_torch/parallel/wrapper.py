@@ -38,12 +38,20 @@ exchange's per-replica wire bytes) and observes
 ``dl4j_dp_step_seconds{workers}``; the wrapped model's funnel records
 the step (the replicas' copies record nothing).
 
+``tensor_parallel(t)`` and ``pipeline_stages(p)`` lay the replicas out on
+a ``{data, model, pipe}`` mesh in the JAX package's order (rank = (d·t +
+m)·p + s; ``workers`` counts the data groups). Under tensor parallelism
+``parallel/speclayout.SpecLayout`` infers the leaves each replica holds a
+shard of, and the exchange runs over each replica's data group; a
+replica takes its data index's rows. Under pipeline parallelism the fit
+path is ``parallel/pipeline.PipelineTrainer`` (``microbatches``,
+``pipeline_schedule``), each rank taking its data index's rows of each
+microbatch; an encoded or fsdp exchange runs there as per-stage ZeRO-1.
+
 ``averaging_frequency`` and ``training_mode`` are accepted and logged:
 every step is an exact average. Not ported (``NotImplementedError``):
-``tensor_parallel`` and ``pipeline_stages`` (what is left of ROADMAP item
-12: ``speclayout.py``, the 1F1B ``PipelineTrainer`` and ``zero.py``'s
-tensor-parallel branches) and ``remesh``, which
-needs the elastic machinery of ``common/faults.py`` (item 14).
+``remesh``, which needs the elastic machinery of ``common/faults.py``
+(item 14).
 """
 from __future__ import annotations
 
@@ -58,19 +66,47 @@ from deeplearning4j_tpu_torch.datasets.prefetch import maybe_device_prefetch
 from deeplearning4j_tpu_torch.parallel import zero
 from deeplearning4j_tpu_torch.parallel.encoding import resolve_encoding
 from deeplearning4j_tpu_torch.parallel.mesh import (DEFAULT_DATA_AXIS,
+                                                    DEFAULT_MODEL_AXIS,
                                                     ThreadMesh,
                                                     canonical_device,
                                                     make_mesh,
                                                     map_dataset_arrays)
+from deeplearning4j_tpu_torch.parallel.pipeline import (PIPE_AXIS, SCHEDULES,
+                                                        PipelineTrainer,
+                                                        rows_of)
 
 log = logging.getLogger("deeplearning4j_tpu_torch")
 
 
-#: what is left of ROADMAP item 12 under each Builder option
-TP_FIT_PATH = ("tensor_parallel (its SpecLayout lowering, speclayout.py, "
-               "and zero.py's tensor-parallel update exchange)")
-PP_FIT_PATH = ("pipeline_stages (the 1F1B PipelineTrainer fit path of "
-               "pipeline.py, with speclayout.py's per-stage specs)")
+def fit_mesh_axes(n_devices: int, tp: int = 1, pp: int = 1) -> dict:
+    """The axes of a fit mesh of ``n_devices`` replicas: ``data``
+    outermost, then ``model`` (tp > 1), then ``pipe`` (pp > 1), as the
+    JAX package's builders lay them out."""
+    tp, pp = max(int(tp), 1), max(int(pp), 1)
+    group = tp * pp
+    if n_devices % group or n_devices < group:
+        raise ValueError(f"tensor_parallel={tp} x pipeline_stages={pp} "
+                         f"does not divide {n_devices} devices")
+    axes = {DEFAULT_DATA_AXIS: n_devices // group}
+    if tp > 1:
+        axes[DEFAULT_MODEL_AXIS] = tp
+    if pp > 1:
+        axes[PIPE_AXIS] = pp
+    return axes
+
+
+def check_degree(name: str, n) -> int:
+    n = int(n)
+    if n < 1:
+        raise ValueError(f"{name} must be >= 1, got {n}")
+    return n
+
+
+def check_schedule(kind: str) -> str:
+    if kind not in SCHEDULES:
+        raise ValueError(f"unknown pipeline schedule {kind!r} "
+                         f"(know {SCHEDULES})")
+    return kind
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:
@@ -96,6 +132,23 @@ def local_devices(model, workers: Optional[int] = None
                          f"{n} (two replicas may not share a card)")
     first = dev.index
     return [torch.device("cuda", (first + i) % n) for i in range(workers)]
+
+
+def fit_devices(model, workers: Optional[int], group: int
+                ) -> List[torch.device]:
+    """The devices of a fit mesh of ``workers`` data groups of ``group``
+    replicas each: on the CPU ``workers`` (one by default) times
+    ``group`` replicas; on the card the first ``workers · group`` cards
+    (all of them by default), which ``group`` must divide."""
+    if group <= 1:
+        return local_devices(model, workers)
+    if not model._initialized:
+        model.init()
+    if canonical_device(model.device).type == "cpu":
+        return local_devices(model, max(int(workers or 1), 1) * group)
+    n = torch.cuda.device_count()
+    want = n if workers in (None, -1) else min(int(workers) * group, n)
+    return local_devices(model, want)
 
 
 def _clone_replica(model, device: torch.device):
@@ -152,11 +205,15 @@ class ParallelWrapper:
 
     def __init__(self, model, mesh: Optional[ThreadMesh] = None, *,
                  data_axis: str = DEFAULT_DATA_AXIS,
+                 model_axis: str = DEFAULT_MODEL_AXIS,
+                 pipe_axis: str = PIPE_AXIS,
                  prefetch_buffer: int = 2,
                  averaging_frequency: int = 1,
                  report_score_after_averaging: bool = True,
                  accumulation_steps: int = 1,
-                 update_exchange="auto", encoding=None):
+                 update_exchange="auto", encoding=None,
+                 n_micro: Optional[int] = None,
+                 pipeline_schedule: str = "1f1b"):
         self.model = model
         self.mesh = mesh if mesh is not None else make_mesh(
             devices=local_devices(model))
@@ -164,6 +221,19 @@ class ParallelWrapper:
             raise NotImplementedError(
                 f"data_axis {data_axis!r}: only the data axis is ported")
         self.data_axis = data_axis
+        self.model_axis = model_axis
+        self.pipe_axis = pipe_axis
+        #: the tp and pp degrees, read off the mesh
+        self.tensor_parallel = int(self.mesh.shape.get(model_axis, 1))
+        self.pipeline_stages = int(self.mesh.shape.get(pipe_axis, 1))
+        self.n_micro = n_micro
+        self.pipeline_schedule = check_schedule(pipeline_schedule)
+        #: the PipelineTrainer that owns the fit path when pp > 1
+        self._pipeline = None
+        #: {entry: {name: TpLeafSpec}} inferred at placement (tp > 1)
+        self._tp_specs: dict = {}
+        #: per-axis wire bytes of one exchange (tp > 1)
+        self._axis_bytes = None
         self.prefetch_buffer = prefetch_buffer
         self.averaging_frequency = averaging_frequency
         self.report_score = report_score_after_averaging
@@ -195,6 +265,10 @@ class ParallelWrapper:
             self._accum = 1
             self._exchange = "auto"
             self._encoding = None
+            self._tp = 1
+            self._pp = 1
+            self._n_micro = None
+            self._pp_sched = "1f1b"
 
         def workers(self, n: int) -> "ParallelWrapper.Builder":
             self._workers = n
@@ -228,13 +302,33 @@ class ParallelWrapper:
             return self
 
         def tensor_parallel(self, n: int) -> "ParallelWrapper.Builder":
-            if int(n) > 1:
-                raise not_ported(TP_FIT_PATH, "12")
+            """Shard the weights ``n`` ways over a ``model`` mesh axis
+            (megatron column / row splits inferred per layer,
+            ``parallel/speclayout.py``); composes with every exchange.
+            ``workers`` then counts the data groups."""
+            self._tp = check_degree("tensor_parallel", n)
             return self
 
         def pipeline_stages(self, n: int) -> "ParallelWrapper.Builder":
-            if int(n) > 1:
-                raise not_ported(PP_FIT_PATH, "12")
+            """Split the network into ``n`` contiguous stages over a
+            ``pipe`` mesh axis (``parallel/pipeline.PipelineTrainer``);
+            composes with ``workers`` and ``tensor_parallel`` into a
+            ``{data, model, pipe}`` mesh of ``workers · tp · pp``
+            replicas. An fsdp or encoded exchange runs as per-stage
+            ZeRO-1."""
+            self._pp = check_degree("pipeline_stages", n)
+            return self
+
+        def microbatches(self, n: int) -> "ParallelWrapper.Builder":
+            """Microbatches a step of the pipeline schedule (default
+            ``2 · pipeline_stages``); the batch must divide by it."""
+            self._n_micro = int(n)
+            return self
+
+        def pipeline_schedule(self, kind: str) -> "ParallelWrapper.Builder":
+            """``"1f1b"`` (default: bounded activation residency) or
+            ``"gpipe"`` (every forward, then every backward)."""
+            self._pp_sched = check_schedule(kind)
             return self
 
         def encoding(self, spec) -> "ParallelWrapper.Builder":
@@ -256,24 +350,31 @@ class ParallelWrapper:
 
         def build(self) -> "ParallelWrapper":
             mesh = self._mesh
+            group = self._tp * self._pp
             if mesh is None:
-                mesh = make_mesh(devices=local_devices(self._model,
-                                                       self._workers))
+                devs = fit_devices(self._model, self._workers, group)
+                mesh = make_mesh(fit_mesh_axes(len(devs), self._tp,
+                                               self._pp) if group > 1
+                                 else None, devs)
             return ParallelWrapper(self._model, mesh,
                                    prefetch_buffer=self._prefetch,
                                    averaging_frequency=self._avg_freq,
                                    accumulation_steps=self._accum,
                                    update_exchange=self._exchange,
-                                   encoding=self._encoding)
+                                   encoding=self._encoding,
+                                   n_micro=self._n_micro,
+                                   pipeline_schedule=self._pp_sched)
 
     # ------------------------------------------------------------------
     @property
     def n_workers(self) -> int:
-        return self.mesh.size
+        """The data-parallel degree (the ``data`` axis's size)."""
+        return int(self.mesh.shape.get(self.data_axis, self.mesh.size))
 
     def _place_model(self):
         """Resolve the exchange and make the replicas (rank 0 is the
-        wrapped model)."""
+        wrapped model); under tensor parallelism infer the specs, under
+        pipeline parallelism hand the fit path to the PipelineTrainer."""
         m = self.model
         if not m._initialized:
             m.init(self.mesh.devices[0])
@@ -286,27 +387,101 @@ class ParallelWrapper:
         self.encoding = (resolve_encoding(self.requested_encoding)
                          if mode is zero.UpdateExchange.ENCODED else None)
         m.set_accumulation_steps(self.accumulation_steps)
+        if self.pipeline_stages > 1:
+            if mode is zero.UpdateExchange.ENCODED:
+                log.info("encoded update exchange does not compose with "
+                         "pipeline stages; using per-stage sharded (ZeRO-1, "
+                         "uncompressed)")
+                mode = self.update_exchange = zero.UpdateExchange.SHARDED
+                self.encoding = None
+            self._place_pipeline(mode)
+            return
+        n, tp = self.n_workers, self.tensor_parallel
+        self._tp_specs = {}
+        self._axis_bytes = None
+        if tp > 1:
+            from deeplearning4j_tpu_torch.parallel.speclayout import \
+                SpecLayout
+            # the ZeRO tails keep the leaves' residency split over data too
+            self._tp_specs = SpecLayout(
+                self.mesh, model_axis=self.model_axis,
+                data_axis=self.data_axis).infer(
+                    m.params, shard_over_data=mode in zero.FLAT_MODES)
         self._replicas = [m] + [_clone_replica(m, d)
                                 for d in self.mesh.devices[1:]]
         self._exchange_bytes = (
-            zero.encoded_exchange_bytes(m.params, self.n_workers,
-                                        self.encoding)
+            zero.encoded_exchange_bytes(m.params, n, self.encoding,
+                                        tp_specs=self._tp_specs)
             if mode is zero.UpdateExchange.ENCODED else
-            zero.update_exchange_bytes(m.params, self.n_workers, mode))
+            zero.update_exchange_bytes(m.params, n, mode))
+        if self._tp_specs:
+            self._axis_bytes = zero.update_exchange_axis_bytes(
+                m.params, n, tp, self._tp_specs)
+            if mode is zero.UpdateExchange.ENCODED:
+                self._exchange_bytes = zero.exchange_report(
+                    m.params, n, mode, encoding=self.encoding,
+                    model_shards=tp, tp_specs=self._tp_specs
+                )["encoded_wire_bytes"]
+            else:
+                # the data groups move only their 1/tp of the tp leaves
+                self._exchange_bytes = self._axis_bytes["data"]
+            if telemetry.enabled():
+                tpb = self._axis_bytes["tp_param_bytes"]
+                telemetry.gauge(
+                    "dl4j_tp_param_shard_bytes",
+                    "per-replica bytes of the tensor-parallel weight "
+                    "shards (1/tp of the tp leaves; x1/dp more under fsdp "
+                    "residency)").set(
+                        tpb // (tp * (n if mode is zero.UpdateExchange.FSDP
+                                      else 1)),
+                        model_shards=tp, mode=mode.value)
+        self._placed = True
+
+    def _place_pipeline(self, mode):
+        """pp > 1: the PipelineTrainer owns the replicas and the fit
+        path; each stage's data group exchanges only its own stage's
+        parameters (never across ``pipe``)."""
+        m = self.model
+        tr = PipelineTrainer(m, self.mesh, n_micro=self.n_micro,
+                             schedule=self.pipeline_schedule, mode=mode,
+                             pipe_axis=self.pipe_axis,
+                             data_axis=self.data_axis,
+                             model_axis=self.model_axis)
+        tr.place()
+        self._pipeline = tr
+        self._tp_specs = {}
+        for specs in tr._tp_specs:
+            self._tp_specs.update(specs)
+        self._exchange_bytes = sum(
+            zero.update_exchange_bytes(
+                {k: m.params[k] for k in tr.part.stage_entries(s)
+                 if k in m.params}, tr.dp, mode)
+            for s in range(tr.n_stages))
+        self._axis_bytes = (zero.update_exchange_axis_bytes(
+            m.params, tr.dp, self.tensor_parallel, self._tp_specs)
+            if self._tp_specs else None)
         self._placed = True
 
     def _bind(self):
         if not self._placed:
             self._place_model()
-        else:
+        elif self._pipeline is None:
             self.model.set_accumulation_steps(self.accumulation_steps)
             for rep in self._replicas[1:]:
                 _copy_training_state(self.model, rep)
-        mode, enc = self.update_exchange, self.encoding
+        if self._pipeline is not None:
+            self._pipeline.bind()
+            return
+        mode, enc, specs = self.update_exchange, self.encoding, \
+            self._tp_specs
         self.mesh.run(lambda r: self._replicas[r].set_dp_mesh(
-            self.mesh.replica(r), mode=mode, encoding=enc))
+            self.mesh.replica(r), self.data_axis, mode=mode, encoding=enc,
+            model_axis=self.model_axis, tp_specs=specs))
 
     def _unbind(self, ok: bool):
+        if self._pipeline is not None:
+            self._pipeline.unbind(ok)
+            return
         if ok:
             self.mesh.run(lambda r: self._replicas[r].set_dp_mesh(None))
             return
@@ -323,10 +498,16 @@ class ParallelWrapper:
         # bindings without a collective, and copy afresh next call
         for rep in self._replicas:
             rep._replica, rep._dp_mode = None, None
+            rep._tp_specs, rep._tp_replica = {}, None
+
+    def _data_index(self, rank: int) -> int:
+        return self.mesh.coords(rank)[list(self.mesh.axes).index(
+            self.data_axis)]
 
     def _shard_dataset(self, ds) -> list:
-        """The batch trimmed to a multiple of the replica count, split
-        in rank order: one DataSet a replica."""
+        """The batch trimmed to a multiple of the data-parallel degree,
+        one DataSet a replica: its data index's rows (each rank's rows
+        of each microbatch under pipeline parallelism)."""
         n = self.n_workers
         b = int((ds.features[0] if isinstance(ds.features, list)
                  else ds.features).shape[0])
@@ -337,9 +518,14 @@ class ParallelWrapper:
         if keep != b:
             log.warning("trimming minibatch %d -> %d for %d-way DP", b,
                         keep, n)
+        d = [self._data_index(r) for r in range(self.mesh.size)]
+        if self._pipeline is not None:
+            m = self._pipeline.n_micro
+            return [map_dataset_arrays(
+                ds, lambda a, i=i: rows_of(a[:keep], m, n, i)) for i in d]
         s = keep // n
-        return [map_dataset_arrays(ds, lambda a, r=r: a[r * s:(r + 1) * s])
-                for r in range(n)]
+        return [map_dataset_arrays(ds, lambda a, i=i: a[i * s:(i + 1) * s])
+                for i in d]
 
     def _step(self, shards: list) -> None:
         """One global step: every replica on its shard. The update
@@ -349,6 +535,9 @@ class ParallelWrapper:
         reps = self._replicas
 
         def run():
+            if self._pipeline is not None:
+                self._pipeline.step(shards)
+                return
             self.mesh.run(lambda r: reps[r]._fit_batch(
                 *reps[r]._split(shards[r], None)))
 
@@ -370,6 +559,13 @@ class ParallelWrapper:
             "estimated per-replica wire bytes moved by the in-step "
             "update exchange (ring collectives)").inc(
                 self._exchange_bytes, mode=mode)
+        if self._axis_bytes is not None:
+            c = telemetry.counter(
+                "dl4j_update_exchange_axis_bytes_total",
+                "per-replica wire bytes of the update exchange by mesh axis "
+                "(the model axis moves none)")
+            for axis in ("data", "model", "pipe"):
+                c.inc(self._axis_bytes[axis], axis=axis)
 
     # ------------------------------------------------------------------
     def fit(self, iterator, *, n_epochs: int = 1) -> "ParallelWrapper":
@@ -399,12 +595,16 @@ class ParallelWrapper:
                     lis.on_epoch_start(m)
                 for ds in staged:
                     self._step(place(ds))
-                # a partial accumulation window does not leak across
-                # epochs
-                self.mesh.run(
-                    lambda r: self._replicas[r].flush_accumulated())
-                for rep in self._replicas:
-                    rep.epoch_count += 1
+                if self._pipeline is not None:
+                    for _, rep in self._pipeline._local:
+                        rep.epoch_count += 1
+                else:
+                    # a partial accumulation window does not leak
+                    # across epochs
+                    self.mesh.run(
+                        lambda r: self._replicas[r].flush_accumulated())
+                    for rep in self._replicas:
+                        rep.epoch_count += 1
                 for lis in m.listeners:
                     lis.on_epoch_end(m)
             ok = True
@@ -434,3 +634,4 @@ class ParallelWrapper:
         """Reference API: stop the trainers; the replicas are dropped."""
         self._placed = False
         self._replicas = []
+        self._pipeline = None

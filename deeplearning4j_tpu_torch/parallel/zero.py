@@ -2,9 +2,10 @@
 sharded, fsdp (ZeRO-3) or encoded (Xu et al., "Automatic Cross-Replica
 Sharding of Weight Update in Data-Parallel Training").
 
-Counterpart of ``deeplearning4j_tpu/parallel/zero.py`` (its data-axis
-rungs; the compositions with tensor parallelism are ROADMAP item 12).
-The dense step ends in an all-reduce of the gradient, after which every
+Counterpart of ``deeplearning4j_tpu/parallel/zero.py``: its data-axis
+rungs and their compositions with tensor parallelism (dense×tp,
+sharded×tp, fsdp×tp, encoded×tp; see the last section). The dense step
+ends in an all-reduce of the gradient, after which every
 replica runs the full updater on a full copy of the optimizer state. The other tails work one
 parameter group (layer or vertex) at a time on the per-dtype padded flat
 ravel (``learning/updaters.dp_ravel``), each replica on its 1/N slice:
@@ -40,6 +41,22 @@ slices are gathered back with :func:`gather_state`. In the dense layout
 the residual is the parameters' tree, so it re-ravels for any replica
 count.
 
+Tensor parallelism (``parallel/speclayout.py`` names the leaves): a
+tensor-parallel leaf never ravels into the flats, so the flats' exchange
+never crosses ``model``. A replica holds its shard of the leaf (the
+compute spec's, and under fsdp the resident one's, 1/(dp·tp)) and of its
+updater state (the resident spec's: 1/tp under the dense tail, 1/(dp·tp)
+under the ZeRO tails), the state under ``TP_KEY`` in the flat layouts.
+The training step gathers the leaf (:func:`pin_tp_entry`,
+:func:`tp_gather_leaf`); the model ranks of one data index see the same
+rows, so the gradient of the gathered leaf is the same on each of them,
+and its transpose takes the rank's own slice rather than summing over
+``model`` (which would count it tp times); only the data-axis part
+reduces. :func:`apply_update_tp` is the elementwise tail of those
+shards: the mean over ``data`` (a reduce-scatter to the resident slice
+under the ZeRO tails), the updater, and the new compute shard gathered
+back over ``data`` (not under fsdp, which keeps it resident).
+
 Kill switches (``common/environment``): ``DL4J_TORCH_SHARDED_UPDATE=0``
 forces the dense tail for every request; ``DL4J_TORCH_FSDP=0`` and
 ``DL4J_TORCH_ENCODED_UPDATE=0`` demote their rung to ZeRO-1.
@@ -54,11 +71,12 @@ import torch
 
 from deeplearning4j_tpu_torch.common.environment import Environment
 from deeplearning4j_tpu_torch.learning.updaters import (
-    DP_SHARDED_KEY, ENCODED_KEY, FSDP_KEY, dp_flatten_spec, dp_ravel,
-    dp_unravel, is_dp_sharded, is_encoded, is_fsdp)
+    DP_SHARDED_KEY, ENCODED_KEY, FSDP_KEY, TP_KEY, dp_flatten_spec, dp_ravel,
+    dp_unravel, has_tp, is_dp_sharded, is_encoded, is_fsdp)
 from deeplearning4j_tpu_torch.parallel.encoding import (
     encode_flat, encoded_payload_bytes, resolve_encoding)
-from deeplearning4j_tpu_torch.parallel.mesh import DEFAULT_DATA_AXIS
+from deeplearning4j_tpu_torch.parallel.mesh import (DEFAULT_DATA_AXIS,
+                                                    shard_leaf)
 
 log = logging.getLogger("deeplearning4j_tpu_torch")
 
@@ -315,11 +333,16 @@ class FsdpParamView:
     gives the view in a compute dtype over the same gathers."""
 
     def __init__(self, params, specs, replica, order=None, prefetch=True,
-                 cast_dtype=None, _base=None):
+                 cast_dtype=None, tp_specs=None, tp_replica=None,
+                 _base=None):
         self._params = params
         self._specs = specs
         self._replica = replica
         self._cast_dtype = cast_dtype
+        #: an entry's ``TP_KEY`` leaves gather from their resident shards
+        #: (over ``data`` and ``model``) through ``tp_replica``
+        self._tp_specs = tp_specs or {}
+        self._tp_replica = tp_replica
         self._base = _base
         self._cache: Dict[str, dict] = {}
 
@@ -335,9 +358,15 @@ class FsdpParamView:
                         else t)
                     for n, t in self._base._dense(key).items()}
             else:
-                self._cache[key] = fsdp_gather(
-                    self._params[key][FSDP_KEY], self._specs[key],
-                    self._replica)
+                sub = self._params[key]
+                dense = fsdp_gather(sub[FSDP_KEY], self._specs[key],
+                                    self._replica)
+                if has_tp(sub):
+                    sp = self._tp_specs.get(key, {})
+                    dense.update({n: tp_gather_leaf(t, sp[n].resident,
+                                                    self._tp_replica)
+                                  for n, t in sub[TP_KEY].items()})
+                self._cache[key] = dense
         return self._cache[key]
 
     def get(self, key, default=None):
@@ -370,28 +399,41 @@ class FsdpParamView:
         return [(k, self.get(k)) for k in self._params]
 
 
-def params_to_fsdp(params: Dict, n_shards: int):
+def params_to_fsdp(params: Dict, n_shards: int, tp_specs=None):
     """Model parameters -> the fsdp flat layout over the whole mesh:
     ``(flat_params, specs)``; empty entries pass through and keep no
-    spec (:func:`shard_params` takes a replica's slices)."""
+    spec (:func:`shard_params` takes a replica's slices). The leaves
+    ``tp_specs`` names stay whole under ``TP_KEY``; only the rest of the
+    entry ravels."""
+    tp_specs = tp_specs or {}
     out, specs = {}, {}
     for k, sub in params.items():
         if not sub or is_fsdp(sub):
             out[k] = sub
             continue
-        flats, spec = dp_ravel(sub, n_shards)
-        out[k] = {FSDP_KEY: flats}
+        rest, tpp = split_tp_entry(sub, tp_specs.get(k, {}))
+        flats, spec = dp_ravel(rest, n_shards)
+        out[k] = {FSDP_KEY: flats, TP_KEY: tpp} if tpp else {FSDP_KEY: flats}
         specs[k] = spec
     return out, specs
 
 
-def shard_params(flat_params: Dict, rank: int, n_shards: int) -> Dict:
+def shard_params(flat_params: Dict, rank: int, n_shards: int,
+                 tp_specs=None, tp_replica=None) -> Dict:
     """This rank's 1/N slice of each fsdp flat (a copy, so the whole
-    flats can go)."""
-    return {k: ({FSDP_KEY: {dt: _my_slice(f, rank, n_shards).clone()
-                            for dt, f in sub[FSDP_KEY].items()}}
-                if is_fsdp(sub) else sub)
-            for k, sub in flat_params.items()}
+    flats can go), and its resident shard of each ``TP_KEY`` leaf."""
+    out = {}
+    for k, sub in flat_params.items():
+        if not is_fsdp(sub):
+            out[k] = sub
+            continue
+        out[k] = {FSDP_KEY: {dt: _my_slice(f, rank, n_shards).clone()
+                             for dt, f in sub[FSDP_KEY].items()}}
+        if has_tp(sub):
+            sp = tp_specs[k]
+            out[k][TP_KEY] = {n: tp_shard(t, sp[n].resident, tp_replica)
+                              for n, t in sub[TP_KEY].items()}
+    return out
 
 
 def fsdp_spec_shards(specs) -> "int | None":
@@ -402,10 +444,12 @@ def fsdp_spec_shards(specs) -> "int | None":
     return None
 
 
-def params_to_dense(params: Dict, specs: Dict, replica) -> Dict:
+def params_to_dense(params: Dict, specs: Dict, replica, tp_specs=None,
+                    tp_replica=None) -> Dict:
     """Inverse of :func:`params_to_fsdp` from each replica's slices
     (padding dropped; 4-D leaves channels-last, as the dense model
-    stores them). A collective: every replica calls it."""
+    stores them; ``TP_KEY`` leaves gathered from their resident shards).
+    A collective: every replica calls it."""
     out = {}
     for k, sub in params.items():
         if is_fsdp(sub):
@@ -414,6 +458,10 @@ def params_to_dense(params: Dict, specs: Dict, replica) -> Dict:
             out[k] = {n: (t.contiguous(memory_format=torch.channels_last)
                           if t.dim() == 4 else t)
                       for n, t in dp_unravel(full, specs[k]).items()}
+            if has_tp(sub):
+                sp = tp_specs[k]
+                out[k].update({n: tp_full(t, sp[n].resident, tp_replica)
+                               for n, t in sub[TP_KEY].items()})
         else:
             out[k] = sub
     return out
@@ -466,9 +514,27 @@ def _residual_is_flat(res, spec) -> bool:
             and all(getattr(v, "ndim", None) == 1 for v in res.values()))
 
 
-def to_sharded_state(params, state, n_shards: int):
+def _state_tp_names(state) -> set:
+    """The parameter names the ``TP_KEY`` half of a flat state covers
+    (its slots mirror the tensor-parallel parameters)."""
+    names = set()
+    for slot_tree in (state.get(TP_KEY, {}) or {}).values():
+        if isinstance(slot_tree, dict):
+            names |= set(slot_tree)
+    return names
+
+
+def _rest_of_params(params, tp_names):
+    if tp_names and isinstance(params, dict):
+        return {n: a for n, a in params.items() if n not in tp_names}
+    return params
+
+
+def to_sharded_state(params, state, n_shards: int, tp_names=()):
     """One entry's dense updater state -> the ZeRO-1 flat layout for
-    ``n_shards``. A state already flat for another shard count goes
+    ``n_shards``, the ``tp_names`` leaves split out whole under
+    ``TP_KEY`` (they shard by their specs, never through the flats). A
+    state already flat for another shard count or another split goes
     through the dense layout and re-ravels; an empty state (a stateless
     updater) passes through. ``ENCODED_KEY`` rides along: the residual
     re-ravels for ``n_shards`` (from the dense layout, or from flats of
@@ -476,52 +542,71 @@ def to_sharded_state(params, state, n_shards: int):
     bitwise), τ, step and sparsity pass through."""
     if not state:
         return state
+    tp_names = tuple(tp_names or ())
+    rest = _rest_of_params(params, tp_names)
     if is_encoded(state):
         enc = state[ENCODED_KEY]
         base = {k: v for k, v in state.items() if k != ENCODED_KEY}
-        out = dict(to_sharded_state(params, base, n_shards) or {})
-        spec = dp_flatten_spec(params, n_shards)
+        out = dict(to_sharded_state(params, base, n_shards, tp_names) or {})
+        spec = dp_flatten_spec(rest, n_shards)
         res = enc["residual"]
         if not _flats_match_spec({"residual": res}, spec):
             if _residual_is_flat(res, spec):
                 # flat for another shard count -> dense first
-                res = dp_unravel(res, dp_flatten_spec(params, 1))
-            res = dp_ravel(res, n_shards)[0]
+                res = dp_unravel(res, dp_flatten_spec(rest, 1))
+            res = dp_ravel(_rest_of_params(res, tp_names), n_shards)[0]
         out[ENCODED_KEY] = {**enc, "residual": res}
         return out
-    if is_dp_sharded(state):
-        spec = dp_flatten_spec(params, n_shards)
-        if _flats_match_spec(state[DP_SHARDED_KEY], spec):
+    if is_dp_sharded(state) or has_tp(state):
+        spec = dp_flatten_spec(rest, n_shards)
+        if _flats_match_spec(state.get(DP_SHARDED_KEY, {}), spec) and \
+                _state_tp_names(state) == set(tp_names):
             return state
         state = to_dense_state(params, state)
-    return {DP_SHARDED_KEY: {slot: dp_ravel(tree, n_shards)[0]
-                             for slot, tree in state.items()}}
+    out = {DP_SHARDED_KEY: {slot: dp_ravel(_rest_of_params(tree, tp_names),
+                                           n_shards)[0]
+                            for slot, tree in state.items()}}
+    tp = {slot: {n: tree[n] for n in tp_names if n in tree}
+          for slot, tree in state.items()}
+    tp = {slot: t for slot, t in tp.items() if t}
+    if tp:
+        out[TP_KEY] = tp
+    return out
 
 
 def to_dense_state(params, state):
-    """Inverse of :func:`to_sharded_state` (padding dropped; an
-    ``ENCODED_KEY`` residual unravels into the parameters' tree, so the
-    checkpoint layout is exact and portable across replica counts)."""
+    """Inverse of :func:`to_sharded_state` (padding dropped; the
+    ``TP_KEY`` leaves merge back into their slots; an ``ENCODED_KEY``
+    residual unravels into the parameters' tree, so the checkpoint
+    layout is exact and portable across replica counts)."""
     if is_encoded(state):
         enc = state[ENCODED_KEY]
         base = {k: v for k, v in state.items() if k != ENCODED_KEY}
         out = dict(to_dense_state(params, base) or {})
+        rest = _rest_of_params(params, tuple(_state_tp_names(state)))
         res = enc["residual"]
-        spec1 = dp_flatten_spec(params, 1)
+        spec1 = dp_flatten_spec(rest, 1)
         if _residual_is_flat(res, spec1):
             res = dp_unravel(res, spec1)
         out[ENCODED_KEY] = {**enc, "residual": res}
         return out
-    if not is_dp_sharded(state):
+    if not (is_dp_sharded(state) or has_tp(state)):
         return state
-    spec = dp_flatten_spec(params, 1)
-    return {slot: dp_unravel(flats, spec)
-            for slot, flats in state[DP_SHARDED_KEY].items()}
+    tp_names = _state_tp_names(state)
+    spec = dp_flatten_spec(_rest_of_params(params, tp_names), 1)
+    out = {slot: dp_unravel(flats, spec)
+           for slot, flats in state.get(DP_SHARDED_KEY, {}).items()}
+    for slot, tree in state.get(TP_KEY, {}).items():
+        out[slot] = {**out.get(slot, {}), **tree}
+    return out
 
 
-def states_to_sharded(params: Dict, states: Dict, n_shards: int) -> Dict:
+def states_to_sharded(params: Dict, states: Dict, n_shards: int,
+                      tp_specs=None) -> Dict:
     """Model-level: convert every layer/vertex entry."""
-    return {k: to_sharded_state(params.get(k, {}), s, n_shards)
+    tp_specs = tp_specs or {}
+    return {k: to_sharded_state(params.get(k, {}), s, n_shards,
+                                tp_names=tuple(tp_specs.get(k, ())))
             for k, s in states.items()}
 
 
@@ -530,20 +615,24 @@ def states_to_dense(params: Dict, states: Dict) -> Dict:
             for k, s in states.items()}
 
 
-def ensure_encoded_state(params, state, n_shards: int, encoding):
+def ensure_encoded_state(params, state, n_shards: int, encoding,
+                         tp_names=()):
     """One entry's updater state -> the encoded flat layout: the ZeRO-1
-    flats for ``n_shards`` with the error-feedback state (zero residual
-    flats, the algorithm's initial τ, step 0) injected when absent. An
-    entry without parameters passes through: it never reaches the
-    encoded tail."""
-    base = to_sharded_state(params, state, n_shards)
-    if not params or is_encoded(base):
+    flats for ``n_shards`` (the ``tp_names`` leaves under ``TP_KEY``)
+    with the error-feedback state (zero residual flats, the algorithm's
+    initial τ, step 0) injected when absent. An entry without
+    parameters, or with tensor-parallel ones only, gets none: it never
+    reaches the encoded tail."""
+    tp_names = tuple(tp_names or ())
+    base = to_sharded_state(params, state, n_shards, tp_names)
+    rest = _rest_of_params(params, tp_names)
+    if not rest or is_encoded(base):
         return base
     out = dict(base) if base else {}
-    like = next(iter(params.values()))
+    like = next(iter(rest.values()))
     out[ENCODED_KEY] = {
         "residual": dp_ravel({n: torch.zeros_like(p)
-                              for n, p in params.items()}, n_shards)[0],
+                              for n, p in rest.items()}, n_shards)[0],
         "tau": torch.tensor(encoding.initial_tau(), dtype=torch.float32,
                             device=like.device),
         "step": torch.zeros((), dtype=torch.int32, device=like.device),
@@ -554,10 +643,12 @@ def ensure_encoded_state(params, state, n_shards: int, encoding):
 
 
 def ensure_encoded_states(params: Dict, states: Dict, n_shards: int,
-                          encoding) -> Dict:
+                          encoding, tp_specs=None) -> Dict:
     """Model-level twin of :func:`ensure_encoded_state`."""
+    tp_specs = tp_specs or {}
     return {k: ensure_encoded_state(params.get(k, {}), s, n_shards,
-                                    encoding)
+                                    encoding,
+                                    tp_names=tuple(tp_specs.get(k, ())))
             for k, s in states.items()}
 
 
@@ -574,13 +665,20 @@ def strip_encoded_states(states: Dict) -> Dict:
     return {k: strip_encoded_state(s) for k, s in states.items()}
 
 
-def shard_state(state, rank: int, n_shards: int):
+def shard_state(state, rank: int, n_shards: int, tp_specs=None,
+                tp_replica=None):
     """This rank's 1/N slice of each flat of a sharded state: the slots'
     and the encoded residual's (τ, step and sparsity are every rank's;
-    dense states pass through)."""
-    if not (is_dp_sharded(state) or is_encoded(state)):
+    dense states pass through), and its resident shard of each
+    ``TP_KEY`` leaf (``tp_specs``: the entry's ``{name: TpLeafSpec}``)."""
+    if not (is_dp_sharded(state) or is_encoded(state) or has_tp(state)):
         return state
     out = {}
+    if has_tp(state):
+        out[TP_KEY] = {slot: {n: tp_shard(t, tp_specs[n].resident,
+                                          tp_replica)
+                              for n, t in tree.items()}
+                       for slot, tree in state[TP_KEY].items()}
     if is_dp_sharded(state):
         out[DP_SHARDED_KEY] = {
             slot: {dt: _my_slice(f, rank, n_shards).clone()
@@ -594,12 +692,18 @@ def shard_state(state, rank: int, n_shards: int):
     return out
 
 
-def gather_state(state, replica):
-    """The whole-mesh sharded state from each replica's slice (a
-    collective: every replica calls it)."""
-    if not (is_dp_sharded(state) or is_encoded(state)):
+def gather_state(state, replica, tp_specs=None, tp_replica=None):
+    """The whole-mesh sharded state from each replica's slice, the
+    ``TP_KEY`` leaves whole again (a collective: every replica calls
+    it)."""
+    if not (is_dp_sharded(state) or is_encoded(state) or has_tp(state)):
         return state
     out = {}
+    if has_tp(state):
+        out[TP_KEY] = {slot: {n: tp_full(t, tp_specs[n].resident,
+                                         tp_replica)
+                              for n, t in tree.items()}
+                       for slot, tree in state[TP_KEY].items()}
     if is_dp_sharded(state):
         out[DP_SHARDED_KEY] = {
             slot: {dt: replica.all_gather(f) for dt, f in flats.items()}
@@ -609,6 +713,252 @@ def gather_state(state, replica):
         out[ENCODED_KEY] = {**enc, "residual": {
             dt: replica.all_gather(f)
             for dt, f in enc["residual"].items()}}
+    return out
+
+
+# -- tensor parallelism -----------------------------------------------------
+def _base_replica(replica):
+    """The replica of the whole mesh under an axis-group view."""
+    return getattr(replica, "base", replica)
+
+
+def _spec_dims(spec):
+    """``(dim, axis)`` for each dimension a spec splits (one axis a
+    dimension, as SpecLayout's specs have)."""
+    out = []
+    for d, e in enumerate(spec):
+        if e is None:
+            continue
+        axes = (e,) if isinstance(e, str) else tuple(e)
+        for a in axes:
+            out.append((d, a))
+    return out
+
+
+def tp_shard(t: torch.Tensor, spec, replica) -> torch.Tensor:
+    """The replica's shard of the whole leaf ``t`` under ``spec`` (a
+    copy)."""
+    rep = _base_replica(replica)
+    mesh = rep.mesh
+    coords = dict(zip(mesh.axes, mesh.coords(rep.rank)))
+    return shard_leaf(t, spec, mesh.axes, coords).contiguous().clone()
+
+
+def tp_full(t: torch.Tensor, spec, replica) -> torch.Tensor:
+    """The whole leaf from every replica's shard under ``spec`` (a
+    collective over the spec's axes; not differentiable)."""
+    rep = _base_replica(replica)
+    for d, a in _spec_dims(spec):
+        t = rep.axis_collective("all_gather", t.contiguous(), a, dim=d)
+    return t
+
+
+def tp_grad_slice(g: torch.Tensor, spec, replica,
+                  data_axis: str = DEFAULT_DATA_AXIS) -> torch.Tensor:
+    """The transpose of :func:`tp_full` for a gradient that the replicas
+    of one data index hold alike: the replica's own slice along the
+    model dimensions, the sum over ``data`` scattered along a data
+    dimension."""
+    rep = _base_replica(replica)
+    for d, a in _spec_dims(spec):
+        if a == data_axis:
+            g = rep.axis_collective("psum_scatter", g.contiguous(), a, dim=d)
+        else:
+            n = rep.axis_size(a)
+            k = g.shape[d] // n
+            g = g.narrow(d, rep.axis_index(a) * k, k)
+    return g.contiguous()
+
+
+class _TpGather(torch.autograd.Function):
+    """:func:`tp_full` under autograd, its backward
+    :func:`tp_grad_slice`."""
+
+    @staticmethod
+    def forward(ctx, t, spec, replica, data_axis):
+        ctx.spec, ctx.replica, ctx.data_axis = spec, replica, data_axis
+        return tp_full(t, spec, replica)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (tp_grad_slice(g, ctx.spec, ctx.replica, ctx.data_axis),
+                None, None, None)
+
+
+def tp_gather_leaf(x: torch.Tensor, spec, replica,
+                   data_axis: str = DEFAULT_DATA_AXIS) -> torch.Tensor:
+    """The whole leaf from the replicas' shards under ``spec``, for the
+    training forward; its gradient comes back as the replica's own slice
+    (summed over ``data`` where ``spec`` splits over it), never summed
+    over ``model``."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _TpGather.apply(x, spec, replica, data_axis)
+    return tp_full(x, spec, replica)
+
+
+def pin_tp_entry(entry: Dict[str, torch.Tensor], specs, replica
+                 ) -> Dict[str, torch.Tensor]:
+    """An entry with its tensor-parallel leaves gathered whole from their
+    compute shards for the forward; the others pass through."""
+    out = dict(entry)
+    for n, ls in specs.items():
+        if n in out:
+            out[n] = tp_gather_leaf(out[n], ls.compute, replica)
+    return out
+
+
+def split_tp_entry(entry, specs):
+    """One entry -> ``(rest, tp)`` by the spec'd names."""
+    tp = {n: entry[n] for n in specs if n in entry}
+    rest = {n: a for n, a in entry.items() if n not in specs}
+    return rest, tp
+
+
+def split_tp_state(state):
+    """One entry's updater state -> ``(rest_state, tp_state)``; inverse
+    :func:`merge_tp_state`. Stateless entries pass ``()`` through."""
+    if has_tp(state):
+        rest = {k: v for k, v in state.items() if k != TP_KEY}
+        return (rest if rest else ()), state[TP_KEY]
+    return state, ()
+
+
+def merge_tp_state(rest, tp):
+    if not tp:
+        return rest
+    out = dict(rest) if isinstance(rest, dict) else {}
+    out[TP_KEY] = tp
+    return out
+
+
+def _data_dim(ls, data_axis: str):
+    """The dimension the resident spec splits over ``data`` and the
+    compute spec does not, or None."""
+    for d, a in _spec_dims(ls.resident):
+        if a == data_axis:
+            return d
+    return None
+
+
+def apply_update_tp(updater, grads: Dict[str, torch.Tensor],
+                    params: Dict[str, torch.Tensor], state, iteration: int,
+                    replica, specs, *, gather_params: bool,
+                    grads_resident: bool = False, epoch: int = 0,
+                    data_axis: str = DEFAULT_DATA_AXIS):
+    """The elementwise tail of one entry's tensor-parallel leaves on
+    ``replica`` (its data group). ``grads`` are the replica's gradient
+    slices of its own rows' loss at the compute spec, or with
+    ``grads_resident`` (fsdp) at the resident spec, the data-axis sum
+    already scattered where that spec splits over ``data``; ``params``
+    are its compute shards (resident under fsdp), ``state`` its
+    resident state shards. The gradient applied is the data group's
+    mean, at the resident spec; the updater runs there, and with
+    ``gather_params`` the new resident shards are gathered over ``data``
+    back to the compute shards. Returns ``(new_params, new_state)``."""
+    n = replica.size
+    base = _base_replica(replica)
+    g_res, p_res, dims = {}, {}, {}
+    for name, g in grads.items():
+        ls = specs[name]
+        dd = _data_dim(ls, data_axis)
+        p = params[name]
+        if dd is None:
+            g_res[name] = replica.all_reduce_sum(g.contiguous()) / n
+            p_res[name] = p
+        elif grads_resident:
+            g_res[name] = g / n
+            p_res[name] = p
+        else:
+            g_res[name] = base.axis_collective(
+                "psum_scatter", g.contiguous(), data_axis, dim=dd) / n
+            k = p.shape[dd] // n
+            p_res[name] = p.narrow(dd, replica.rank * k, k)
+            dims[name] = dd
+    updates, new_state = updater.apply(g_res, state or {}, iteration, epoch)
+    new_params = {}
+    for name, p in p_res.items():
+        new = (p - updates[name]).to(p.dtype)
+        if gather_params and name in dims:
+            new = base.axis_collective("all_gather", new.contiguous(),
+                                       data_axis, dim=dims[name])
+        new_params[name] = new
+    return new_params, new_state
+
+
+def place_tp_params(params: Dict, tp_specs, replica, *,
+                    resident: bool = False) -> Dict:
+    """The replica's shards of a dense parameter tree: each
+    tensor-parallel leaf at its compute (or resident) spec, the rest as
+    it is."""
+    which = "resident" if resident else "compute"
+    out = {}
+    for k, sub in params.items():
+        specs = (tp_specs or {}).get(k)
+        if not specs:
+            out[k] = sub
+            continue
+        out[k] = {n: (tp_shard(t, getattr(specs[n], which), replica)
+                      if n in specs else t) for n, t in sub.items()}
+    return out
+
+
+def gather_tp_params(params: Dict, tp_specs, replica, *,
+                     resident: bool = False) -> Dict:
+    """Inverse of :func:`place_tp_params` (a collective over the specs'
+    axes)."""
+    which = "resident" if resident else "compute"
+    out = {}
+    for k, sub in params.items():
+        specs = (tp_specs or {}).get(k)
+        if not specs or is_fsdp(sub):
+            out[k] = sub
+            continue
+        out[k] = {n: (tp_full(t, getattr(specs[n], which), replica)
+                      if n in specs else t) for n, t in sub.items()}
+    return out
+
+
+def place_updater_states(states: Dict, replica, tp_specs=None,
+                         tp_replica=None) -> Dict:
+    """A replica's part of the whole-mesh updater states: its slices of
+    the flats (:func:`shard_state`, ``replica`` its data group) and its
+    resident shards of the ``TP_KEY`` leaves; a dense state keeps its
+    tensor-parallel names' shards at their resident specs."""
+    tp_specs = tp_specs or {}
+    tp_replica = tp_replica if tp_replica is not None else replica
+    out = {}
+    for k, s in states.items():
+        specs = tp_specs.get(k, {})
+        if is_dp_sharded(s) or is_encoded(s) or has_tp(s):
+            out[k] = shard_state(s, replica.rank, replica.size, specs,
+                                 tp_replica)
+        elif specs and s:
+            out[k] = {slot: {n: (tp_shard(t, specs[n].resident, tp_replica)
+                                 if n in specs else t)
+                             for n, t in tree.items()}
+                      for slot, tree in s.items()}
+        else:
+            out[k] = s
+    return out
+
+
+def gather_updater_states(states: Dict, replica, tp_specs=None,
+                          tp_replica=None) -> Dict:
+    """Inverse of :func:`place_updater_states` (a collective)."""
+    tp_specs = tp_specs or {}
+    tp_replica = tp_replica if tp_replica is not None else replica
+    out = {}
+    for k, s in states.items():
+        specs = tp_specs.get(k, {})
+        if is_dp_sharded(s) or is_encoded(s) or has_tp(s):
+            out[k] = gather_state(s, replica, specs, tp_replica)
+        elif specs and s:
+            out[k] = {slot: {n: (tp_full(t, specs[n].resident, tp_replica)
+                                 if n in specs else t)
+                             for n, t in tree.items()}
+                      for slot, tree in s.items()}
+        else:
+            out[k] = s
     return out
 
 
@@ -640,15 +990,53 @@ def update_exchange_bytes(params, n_shards: int, mode=None) -> int:
     return int(2 * (n_shards - 1) * total / n_shards)
 
 
+def update_exchange_axis_bytes(params, data_shards: int,
+                               model_shards: int = 1, tp_specs=None) -> dict:
+    """Per-axis, per-replica wire bytes one update exchange moves on a
+    ``(data, model)`` mesh (ring model). The tensor-parallel leaves stay
+    out of the flats, so each model rank exchanges over ``data`` only its
+    1/tp of them, and the exchange moves nothing across ``model`` (the
+    forward's gathers are the only model-axis traffic).
+    ``naive_ravel_cross_axis_bytes`` is what a data-axis ravel of the
+    model-sharded leaves would have moved across ``model``."""
+    from deeplearning4j_tpu_torch.parallel.speclayout import tp_param_bytes
+    total = _nbytes(params)
+    tp = max(int(model_shards), 1)
+    tpb = tp_param_bytes(params, tp_specs) if tp > 1 else 0
+    exchanged = (total - tpb) + tpb // tp
+    nd = max(int(data_shards), 1)
+    data = int(2 * (nd - 1) * exchanged / nd) if nd > 1 else 0
+    naive = int((tp - 1) * tpb / tp) if tp > 1 else 0
+    return {"data": data, "model": 0, "pipe": 0, "cross_axis_bytes": 0,
+            "naive_ravel_cross_axis_bytes": naive,
+            "tp_param_bytes": int(tpb)}
+
+
+def _dp_raveled_elems(params, tp_specs=None) -> int:
+    """Elements of the leaves the flats cover (tensor-parallel leaves
+    excluded: they keep their elementwise tail)."""
+    tp_specs = tp_specs or {}
+    if not isinstance(params, dict):
+        return _numel(params)
+    total = 0
+    for k, sub in params.items():
+        names = set(tp_specs.get(k, ()))
+        if names and isinstance(sub, dict):
+            sub = {n: a for n, a in sub.items() if n not in names}
+        total += _numel(sub)
+    return total
+
+
 def encoded_exchange_bytes(params, n_shards: int, encoding=None,
-                           sparsity=None) -> int:
+                           sparsity=None, tp_specs=None) -> int:
     """Per-replica wire bytes the encoded exchange moves per applied
     step: the ring model (``2(N-1)/N``) over the codec's serialized
     payload (``encoding.encoded_payload_bytes``) instead of the
     parameter bytes. ``sparsity`` is the observed transmitted fraction
-    (threshold scheme); ``None`` takes the spec's planning sparsity."""
+    (threshold scheme); ``None`` takes the spec's planning sparsity.
+    Tensor-parallel leaves are left out: their tail is uncompressed."""
     spec = resolve_encoding(encoding)
-    elems = _numel(params)
+    elems = _dp_raveled_elems(params, tp_specs)
     if n_shards <= 1 or elems == 0:
         return 0
     frac = (spec.planning_sparsity() if sparsity is None
@@ -658,16 +1046,26 @@ def encoded_exchange_bytes(params, n_shards: int, encoding=None,
 
 
 def exchange_report(params, n_shards: int, mode=None, encoding=None,
-                    observed_sparsity=None) -> dict:
+                    observed_sparsity=None, model_shards: int = 1,
+                    tp_specs=None, pipe_shards: int = 1,
+                    stage_param_bytes=None) -> dict:
     """One step's update-exchange accounting: parameter bytes, wire
     bytes a replica (ring model), their ratio, and the mode's split:
     dense reports the one all-reduce; sharded, fsdp and encoded the
     gradient reduce-scatter and parameter all-gather halves; fsdp adds
     the parameters resident a replica; encoded the codec's wire against
-    the dense counterfactual (``compression_ratio``)."""
+    the dense counterfactual (``compression_ratio``). With
+    ``model_shards > 1`` the per-axis block of
+    :func:`update_exchange_axis_bytes` and the tensor-parallel residency
+    join it; with ``pipe_shards > 1`` a ``pipeline`` block with the
+    stages' parameter bytes (each stage's flats stay in its pipe group,
+    so nothing of the exchange crosses ``pipe``)."""
     total = _nbytes(params)
     mode_s = getattr(mode, "value", mode) or "dense"
-    wire = update_exchange_bytes(params, n_shards, mode)
+    tp = max(int(model_shards), 1)
+    axis_bytes = update_exchange_axis_bytes(params, n_shards, tp, tp_specs)
+    wire = (axis_bytes["data"] if tp > 1
+            else update_exchange_bytes(params, n_shards, mode))
     half = int(wire // 2)
     rep = {
         "mode": mode_s,
@@ -685,8 +1083,14 @@ def exchange_report(params, n_shards: int, mode=None, encoding=None,
         enc_spec = resolve_encoding(encoding)
         frac = (enc_spec.planning_sparsity() if observed_sparsity is None
                 else float(observed_sparsity))
-        enc_wire = encoded_exchange_bytes(params, n_shards, enc_spec,
-                                          sparsity=frac)
+        enc_wire = encoded_exchange_bytes(
+            params, n_shards, enc_spec, sparsity=frac,
+            tp_specs=tp_specs if tp > 1 else None)
+        if tp > 1:
+            # the tensor-parallel tail exchanges its 1/tp slice dense
+            tpb = axis_bytes["tp_param_bytes"]
+            enc_wire += (int(2 * (n_shards - 1) * (tpb // tp) / n_shards)
+                         if n_shards > 1 else 0)
         rep["dense_wire_bytes"] = int(wire)
         rep["encoded_wire_bytes"] = int(enc_wire)
         rep["wire_bytes_per_replica"] = int(enc_wire)
@@ -700,6 +1104,18 @@ def exchange_report(params, n_shards: int, mode=None, encoding=None,
     if mode_s == UpdateExchange.FSDP.value:
         rep["param_resident_bytes_per_replica"] = (
             int(total // n_shards) if n_shards > 1 else int(total))
+    if tp > 1:
+        rep["model_shards"] = tp
+        rep["axis_bytes"] = axis_bytes
+        rep["tp_resident_bytes_per_replica"] = \
+            axis_bytes["tp_param_bytes"] // tp
+    pp = max(int(pipe_shards), 1)
+    if pp > 1:
+        rep["pipe_shards"] = pp
+        rep["pipeline"] = {
+            "stages": pp,
+            "stage_param_bytes": [int(b) for b in (stage_param_bytes or [])],
+            "cross_pipe_bytes": 0}
     return rep
 
 

@@ -49,11 +49,15 @@ def test_scan_sees_the_whole_package():
 
 
 def test_scan_sees_the_parallel_stack():
-    """The distributed Transformer LM and the parallel modules under it
-    are scanned: each stands alone."""
+    """The distributed Transformer LM, the pipeline and tensor-parallel
+    fit path and the parallel modules under them are scanned: each
+    stands alone."""
     for rel in ("parallel/tensor.py", "parallel/expert.py",
                 "parallel/pipeline.py", "parallel/sequence.py",
-                "parallel/mesh.py", "models/transformer.py"):
+                "parallel/mesh.py", "models/transformer.py",
+                "parallel/speclayout.py", "parallel/zero.py",
+                "parallel/wrapper.py", "parallel/sharedtraining.py",
+                "nn/trainer.py", "nn/graph.py", "nn/multilayer.py"):
         path = PORT / rel
         assert path in SOURCES, rel
         assert not set(_imported_roots(path)) & FORBIDDEN, rel

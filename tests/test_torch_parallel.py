@@ -394,17 +394,17 @@ def test_mesh_construction_and_refusals():
     assert make_mesh({"data": -1}, ["cpu"] * 4).size == 4
     with pytest.raises(ValueError):
         make_mesh({"data": 3}, ["cpu"] * 8)
-    # named axes lay the ranks out row-major; the data-parallel paths
-    # refuse a mesh with another axis above 1 (what is left of item 12)
+    # named axes lay the ranks out row-major; on a mesh with another axis
+    # above 1 the data-parallel paths exchange over a replica's data group
     dm = make_mesh({"data": -1, "model": 2}, ["cpu"] * 8)
     assert dm.shape == {"data": 4, "model": 2}
     assert dm.axis_groups("model")[1] == [2, 3]
-    with pytest.raises(NotImplementedError, match="item 12"):
-        dm.data_axis_only("set_dp_mesh")
+    grp = dm.replica(3).group("data")
+    assert (grp.rank, grp.size) == (1, 4) and dm.has_other_axes()
     full = MeshFactory.full(data=2, model=1, seq=2, devices=["cpu"] * 4)
     assert full.shape == {"data": 2, "model": 1, "seq": 2, "stage": 1}
-    with pytest.raises(NotImplementedError, match="item 12"):
-        full.data_axis_only("set_dp_mesh")
+    assert full.has_other_axes() and not make_mesh(
+        devices=["cpu"] * 2).has_other_axes()
     assert MeshFactory.data_parallel(2, devices=["cpu"] * 4).size == 2
     # two replicas on one card would deadlock in autograd's backward
     with pytest.raises(ValueError, match="one CUDA device"):
@@ -450,14 +450,17 @@ def test_a_failing_replica_fails_the_run_without_hanging():
 
 
 def test_unported_options_raise_naming_their_item():
-    """Tensor and pipeline parallelism (item 12) and remesh (item 14)
-    raise; the encoded and fsdp exchanges, ported, train."""
+    """remesh (item 14) raises; tensor and pipeline parallelism take
+    their degrees (``tests/test_torch_2d_parallel.py`` and
+    ``tests/test_torch_pipeline_trainer.py`` train them); the encoded
+    and fsdp exchanges, ported, train."""
     _, net = _mlp_pair(ju.Sgd(0.1), tu.Sgd(0.1))
     b = ParallelWrapper.Builder(net)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        b.tensor_parallel(2)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        b.pipeline_stages(2)
+    assert b.tensor_parallel(1) is b and b.pipeline_stages(1) is b
+    with pytest.raises(ValueError, match="tensor_parallel"):
+        b.tensor_parallel(0)
+    with pytest.raises(ValueError, match="pipeline_stages"):
+        b.pipeline_stages(0)
     with pytest.raises(NotImplementedError, match="item 14"):
         _cpu_wrapper(net, 2, "auto").remesh(workers=1)
     pw = b.mesh(make_mesh(devices=["cpu"] * 2, timeout_s=TIMEOUT_S)) \

@@ -259,8 +259,12 @@ def test_master_builders_and_refusals(tmp_path):
     with pytest.raises(NotImplementedError, match="item 14"):
         SharedTrainingMaster().fit(net, ListDataSetIterator([]),
                                    checkpoint_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        SharedTrainingMaster.Builder().tensor_parallel(2)
+    tp = SharedTrainingMaster.Builder().tensor_parallel(2) \
+        .pipeline_stages(2).build()
+    assert tp.config.tensor_parallel == 2
+    assert tp.config.pipeline_stages == 2
+    with pytest.raises(ValueError, match="tensor_parallel"):
+        SharedTrainingMaster.Builder().tensor_parallel(0)
     enc = SharedTrainingMaster.Builder().update_exchange("fsdp") \
         .encoding("int8").build().config
     assert enc.encoding.scheme == "int8" and enc.update_exchange == "fsdp"

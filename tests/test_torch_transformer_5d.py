@@ -20,9 +20,16 @@ gradients, the JAX package's own bar for its step's parameters
 (atol 5e-5, rtol 1e-4) after each Sgd step, and after the three Adam
 steps each leaf's update within 5e-3 of the JAX update's norm (Adam
 turns a gradient entry at the backends' summation noise into a
-full-rate step, so one element may move by up to a learning rate). Each JAX program
-runs once a module (``jax_runs``); ``tests/test_torch_transformer_5d_
-ring.py`` holds the ring layouts."""
+full-rate step, so one element may move by up to a learning rate). Each
+of a configuration's three JAX programs (the reference, the Sgd and the
+Adam trajectory) runs once a test session (``jax_runs``: the first test
+process to need it runs it and leaves the result beside the session's
+temporary directories, the others read it);
+``tests/test_torch_transformer_5d_ring.py`` holds the ring layouts."""
+import fcntl
+import os
+import pickle
+
 import jax
 import numpy as np
 import pytest
@@ -71,10 +78,16 @@ def _np(tree):
                                   tree)
 
 
-def jax_run(axes, n_experts):
-    """Everything the tests hold the port to, from the JAX package: the
-    global weights, the reference gradients, and the Sgd and Adam
-    trajectories (losses, global parameters after each step)."""
+#: the JAX programs a configuration's tests read, each run on its own
+PIECES = ("reference", "sgd", "adam")
+
+
+def jax_run(axes, n_experts, pieces=PIECES):
+    """What the tests hold the port to, from the JAX package: the global
+    weights, and for each of ``pieces`` the reference loss and gradients
+    (``"reference"``: one jitted ``value_and_grad`` of the JAX test's
+    ``ref_loss``) or an Sgd or Adam trajectory (losses, global
+    parameters after each step)."""
     n = int(np.prod(list(axes.values())))
     mesh = jax_mesh(axes, jax.devices()[:n])
     aux = 0.01 if n_experts else 0.0
@@ -84,13 +97,16 @@ def jax_run(axes, n_experts):
     ref_model = JaxLM(ref_conf, mesh, ju.Sgd(0.1), n_micro=2)
     g = ref_model.init_global_params(seed=SEED)
     out["global"] = _np(g)
-    moe = {1} if n_experts else set()
-    grad = jax.jit(jax.grad(lambda p: ref_loss(p, ref_conf, axes["pipe"],
-                                               ids, labels, moe)))
-    out["ref_grads"] = _np(grad(g))
-    out["ref_loss"] = float(jax.jit(lambda p: ref_loss(
-        p, ref_conf, axes["pipe"], ids, labels, moe))(g))
+    if "reference" in pieces:
+        moe = {1} if n_experts else set()
+        loss, grads = jax.jit(jax.value_and_grad(
+            lambda p: ref_loss(p, ref_conf, axes["pipe"], ids, labels,
+                               moe)))(g)
+        out["ref_grads"] = _np(grads)
+        out["ref_loss"] = float(loss)
     for name, upd in (("sgd", ju.Sgd(0.1)), ("adam", ju.Adam(1e-3))):
+        if name not in pieces:
+            continue
         model = JaxLM(JaxConf(**conf_kw(n_experts, aux)), mesh, upd,
                       n_micro=2)
         params, opt = model.init(seed=SEED)
@@ -167,31 +183,55 @@ def hold_falling_loss(axes, n_experts, lr, steps):
     assert losses[-1] < losses[0] - 0.1, losses
 
 
-@pytest.fixture(scope="module")
-def jax_runs():
+def session_jax_runs(tmp_path_factory, configs):
+    """``get(name, piece)``: :func:`jax_run` of ``configs[name]`` for
+    one of :data:`PIECES`, run once a test session. Under pytest-xdist
+    the workers share the parent of their temporary directories: the
+    first to need a piece runs it under a file lock and pickles the
+    result there, the others wait for the lock and load it; the pieces
+    of a configuration run in whichever workers need them, side by
+    side."""
+    root = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        root = root.parent
     cache = {}
 
-    def get(name):
-        if name not in cache:
-            cache[name] = jax_run(*CONFIGS[name])
-        return cache[name]
+    def get(name, piece):
+        key = f"{name}_{piece}"
+        if key not in cache:
+            path = root / f"jax_lm_run_{key}.pkl"
+            with open(root / f"jax_lm_run_{key}.lock", "w") as lock:
+                fcntl.flock(lock, fcntl.LOCK_EX)
+                if path.exists():
+                    cache[key] = pickle.loads(path.read_bytes())
+                else:
+                    cache[key] = jax_run(*configs[name], pieces=(piece,))
+                    tmp = path.with_suffix(".tmp")
+                    tmp.write_bytes(pickle.dumps(cache[key]))
+                    tmp.rename(path)
+        return cache[key]
     return get
+
+
+@pytest.fixture(scope="module")
+def jax_runs(tmp_path_factory):
+    return session_jax_runs(tmp_path_factory, CONFIGS)
 
 
 @pytest.mark.parametrize("config", sorted(CONFIGS))
 def test_first_step_loss_and_every_gradient_leaf_match_jax(jax_runs,
                                                            config):
-    hold_grads(*CONFIGS[config], jax_runs(config))
+    hold_grads(*CONFIGS[config], jax_runs(config, "reference"))
 
 
 @pytest.mark.parametrize("config", sorted(CONFIGS))
 def test_three_sgd_steps_match_jax(jax_runs, config):
-    hold_trajectory(*CONFIGS[config], jax_runs(config), "sgd")
+    hold_trajectory(*CONFIGS[config], jax_runs(config, "sgd"), "sgd")
 
 
 @pytest.mark.parametrize("config", sorted(CONFIGS))
 def test_three_adam_steps_match_jax(jax_runs, config):
-    hold_trajectory(*CONFIGS[config], jax_runs(config), "adam")
+    hold_trajectory(*CONFIGS[config], jax_runs(config, "adam"), "adam")
 
 
 def test_loss_falls_with_experts():
